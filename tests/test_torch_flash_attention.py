@@ -1,0 +1,158 @@
+"""The port's flash attention against the JAX package's, on the CPU, in f32.
+
+JAX's ``flash_attention`` runs its Pallas kernels in interpret mode here
+(``block_q = block_k = 16``, as ``tests/test_attention_ops.py`` runs
+them); the port's runs its plain versions, through the same
+``autograd.Function`` the card uses (forward K3's plain version, backward
+delta then K4's and K5's).  Inputs come from numpy seeds.  Tolerances as
+the JAX package's own tests state them: forward 2e-5, grads 5e-4 (f32;
+the two sum in different orders, and the grads go through one more
+product).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torchdistpackage_tpu.ops import flash_attention as jflash
+from torchdistpackage_tpu.ops.flash_attention import (
+    flash_attention_with_lse as jflash_lse,
+)
+from torchdistpackage_tpu_torch.ops import flash_attention as tfa
+
+B, H, S, D = 2, 4, 64, 16
+FWD_TOL, GRAD_TOL = 2e-5, 5e-4
+
+
+def _inputs(kv_heads, seed, s=S):
+    rs = np.random.RandomState(seed)
+    q = rs.randn(B, H, s, D).astype(np.float32)
+    k = rs.randn(B, kv_heads, s, D).astype(np.float32)
+    v = rs.randn(B, kv_heads, s, D).astype(np.float32)
+    w = rs.randn(B, H, s, D).astype(np.float32)  # cotangent weights
+    return q, k, v, w
+
+
+def _close(got, want, tol, what):
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=tol, atol=tol, err_msg=what)
+
+
+def _torch(*arrays):
+    return [torch.from_numpy(a).requires_grad_(True) for a in arrays]
+
+
+CASES = {
+    "mha_causal": dict(causal=True, kv_heads=H, window=None),
+    "mha_full": dict(causal=False, kv_heads=H, window=None),
+    "gqa2_causal": dict(causal=True, kv_heads=2, window=None),
+    "mqa_full": dict(causal=False, kv_heads=1, window=None),
+    "mqa_causal": dict(causal=True, kv_heads=1, window=None),
+    "gqa2_window24": dict(causal=True, kv_heads=2, window=24),
+    "mha_window7": dict(causal=True, kv_heads=H, window=7),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_flash_forward_and_grads_match_jax(case):
+    c = CASES[case]
+    q, k, v, w = _inputs(c["kv_heads"], seed=len(case))
+
+    def jloss(q, k, v):
+        o = jflash(q, k, v, causal=c["causal"], window=c["window"],
+                   block_q=16, block_k=16)
+        return jnp.sum(o * w), o
+
+    (_, jo), jg = jax.value_and_grad(jloss, argnums=(0, 1, 2),
+                                     has_aux=True)(q, k, v)
+    tq, tk, tv = _torch(q, k, v)
+    to = tfa.flash_attention(tq, tk, tv, causal=c["causal"],
+                             window=c["window"])
+    _close(to, jo, FWD_TOL, f"{case}: forward")
+    (to * torch.from_numpy(w)).sum().backward()
+    for name, t, j in zip("qkv", (tq, tk, tv), jg):
+        assert tuple(t.grad.shape) == j.shape
+        _close(t.grad, j, GRAD_TOL, f"{case}: d{name}")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_with_lse_cotangent_matches_jax(causal):
+    """A cotangent on lse (the ``dlse`` term folded into delta)."""
+    q, k, v, w = _inputs(2, seed=7)
+    u = np.random.RandomState(8).randn(B, H, S).astype(np.float32)
+
+    def jloss(q, k, v):
+        o, lse = jflash_lse(q, k, v, causal=causal, block_q=16, block_k=16)
+        return jnp.sum(o * w) + jnp.sum(lse * u), (o, lse)
+
+    (_, (jo, jlse)), jg = jax.value_and_grad(
+        jloss, argnums=(0, 1, 2), has_aux=True)(q, k, v)
+    tq, tk, tv = _torch(q, k, v)
+    to, tlse = tfa.flash_attention_with_lse(tq, tk, tv, causal=causal)
+    _close(to, jo, FWD_TOL, "o")
+    _close(tlse, jlse, FWD_TOL, "lse")
+    ((to * torch.from_numpy(w)).sum()
+     + (tlse * torch.from_numpy(u)).sum()).backward()
+    for name, t, j in zip("qkv", (tq, tk, tv), jg):
+        _close(t.grad, j, GRAD_TOL, f"d{name} with an lse cotangent")
+
+
+def test_mha_reference_matches_jax_flash():
+    """The port's ``'naive'`` attention (plain ops, autograd) against
+    JAX's flash kernel, with GQA and a window."""
+    q, k, v, w = _inputs(2, seed=11)
+    jo = jflash(q, k, v, causal=True, window=20, block_q=16, block_k=16)
+    to = tfa.mha_reference(*map(torch.from_numpy, (q, k, v)), causal=True,
+                           window=20)
+    _close(to, jo, FWD_TOL, "mha_reference")
+
+
+def test_plain_pieces_agree_with_autograd():
+    """K4's and K5's plain versions against autograd through
+    ``mha_reference`` (the derivation the kernels implement)."""
+    q, k, v, w = _inputs(2, seed=3)
+    tq, tk, tv = _torch(q, k, v)
+    o = tfa.mha_reference(tq, tk, tv, causal=True, window=30)
+    (o * torch.from_numpy(w)).sum().backward()
+    qq, kk, vv = map(torch.from_numpy, (q, k, v))
+    scale = D ** -0.5
+    o2, lse = tfa.flash_fwd_reference(qq, kk, vv, scale, True, 30)
+    delta = tfa.flash_delta(o2, torch.from_numpy(w), None)
+    dq = tfa.flash_bwd_dq_reference(qq, kk, vv, torch.from_numpy(w), lse,
+                                    delta, scale, True, 30)
+    dk, dv = tfa.flash_bwd_dkv_reference(qq, kk, vv, torch.from_numpy(w),
+                                         lse, delta, scale, True, 30)
+    for got, want in ((o2, o), (dq, tq.grad), (dk, tk.grad), (dv, tv.grad)):
+        np.testing.assert_allclose(got.numpy(), want.detach().numpy(),
+                                   rtol=GRAD_TOL, atol=GRAD_TOL)
+
+
+def test_argument_checks():
+    q, k, v, _ = _inputs(2, seed=0)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        tfa.flash_attention(tq[:, :, :32], tk, tv, causal=True)
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        tfa.mha_reference(tq[:, :, :32], tk, tv, causal=True)
+    out = tfa.flash_attention(tq[:, :, :32], tk, tv, causal=False)
+    assert tuple(out.shape) == (B, H, 32, D)
+    with pytest.raises(ValueError, match="divisible"):
+        tfa.flash_attention(tq[:, :3], tk, tv)
+    with pytest.raises(ValueError, match="requires causal"):
+        tfa.flash_attention(tq, tk, tv, causal=False, window=8)
+    with pytest.raises(ValueError, match=">= 1"):
+        tfa.flash_attention(tq, tk, tv, window=0)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    """On a non-CPU tensor the wrapper launches or raises; the shape and
+    dtype checks run before any build (a meta tensor stands in for a
+    card here)."""
+    meta = torch.device("meta")
+    q = torch.empty(1, 2, 64, 64, device=meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tfa.flash_fwd(q, q, q, 0.125, True, None)
+    assert tfa.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                            "flash_bwd_dkv": 0}

@@ -4,8 +4,10 @@ counterpart of ``torchdistpackage_tpu/models/gpt.py`` (serial branch).
 Parameters are a plain dict with the reference's tree: ``tok_emb`` [V, D],
 ``pos_emb`` [max_seq, D] (learned positions only), ``blocks`` with every
 leaf stacked over the layer dim ``[L, ...]``, ``ln_f`` and ``head``
-[D, V].  The training forward, the loss and the parallel paths are not
-ported yet (ROADMAP queue A).
+[D, V].  The serial training path is here: :func:`gpt_embed`,
+:func:`gpt_hidden`, :func:`gpt_forward`, the cross-entropy
+(:func:`vocab_parallel_xent`, :func:`streamed_head_loss`) and
+:func:`gpt_loss`; the parallel paths are queued (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -15,15 +17,19 @@ import math
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..parallel.tensor_parallel.layers import (
+    RematMode,
     TransformerConfig,
     _normal,
     dense,
     init_block_params,
     init_norm_params,
     layer_norm,
+    scan_blocks,
 )
 
 Params = Dict[str, Any]
@@ -39,6 +45,9 @@ class GPTConfig:
     ffn_mult: int = 4
     causal: bool = True
     dtype: torch.dtype = torch.float32
+    # 'naive' (plain score matrix) | 'flash' (kernels K3-K5)
+    attn_impl: str = "naive"
+    dropout_rate: float = 0.0  # refused above 0 until dropout is ported
     kv_heads: Optional[int] = None
     # 'learned' (table added at embed) | 'rope' (q/k rotated in attention)
     pos: str = "learned"
@@ -67,6 +76,7 @@ class GPTConfig:
         return TransformerConfig(
             dim=self.dim, nheads=self.nheads, nlayers=self.nlayers,
             ffn_mult=self.ffn_mult, causal=self.causal, dtype=self.dtype,
+            attn_impl=self.attn_impl, dropout_rate=self.dropout_rate,
             kv_heads=self.kv_heads, rope=self.pos == "rope",
             rope_theta=self.rope_theta, rope_scaling=self.rope_scaling,
             norm=self.norm, act=self.act, ffn_hidden=self.ffn_hidden,
@@ -133,6 +143,84 @@ def gpt_head(params: Params, h: torch.Tensor, eps: float = 1e-5
              ) -> torch.Tensor:
     """Final norm + LM head: [B, S, D] -> logits [B, S, V]."""
     return dense(layer_norm(h, params["ln_f"], eps), params["head"])
+
+
+def vocab_parallel_xent(logits: torch.Tensor,
+                        targets: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy of ``logits`` [..., V] against int
+    ``targets`` [...] (the serial branch: ``mean(logsumexp - target
+    logit)``).  The log-sum-exp runs in f32 whatever the logits' dtype."""
+    V = logits.shape[-1]
+    return F.cross_entropy(logits.reshape(-1, V).float(),
+                           targets.reshape(-1))
+
+
+def gpt_embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    """[B, S] ids -> [B, S, D]: the token lookup, plus the learned
+    position table when the config has one (rope enters in attention)."""
+    h = vocab_parallel_embed(params["tok_emb"], tokens)
+    if "pos_emb" not in params:
+        return h
+    return h + params["pos_emb"][:tokens.shape[-1]]
+
+
+def gpt_hidden(params: Params, tokens: torch.Tensor, cfg: GPTConfig,
+               remat: RematMode = False) -> torch.Tensor:
+    """tokens [B, S] -> hidden after the block stack [B, S, D] (before
+    the final norm).  ``remat``: False | True | 'flash' — see
+    :func:`..parallel.tensor_parallel.layers.scan_blocks`."""
+    h = gpt_embed(params, tokens)
+    return scan_blocks(params["blocks"], h, cfg.block, remat=remat)
+
+
+def gpt_forward(params: Params, tokens: torch.Tensor, cfg: GPTConfig,
+                remat: RematMode = False) -> torch.Tensor:
+    """tokens [B, S] -> logits [B, S, V]."""
+    h = gpt_hidden(params, tokens, cfg, remat=remat)
+    return gpt_head(params, h, eps=cfg.norm_eps)
+
+
+def streamed_head_loss(params: Params, h: torch.Tensor,
+                       targets: torch.Tensor, chunk: int = 256,
+                       eps: float = 1e-5) -> torch.Tensor:
+    """Final norm + head + cross-entropy over sequence chunks of
+    ``chunk``: each [B, chunk, V] slab is formed, reduced and dropped,
+    and recomputed in the backward (checkpointed per chunk), so the full
+    [B, S, V] logits never exist.  Equal chunks: the mean of chunk means
+    is the token mean."""
+    h = layer_norm(h, params["ln_f"], eps)
+    S = h.shape[1]
+    if S % chunk:
+        raise ValueError(
+            f"sequence length {S} not divisible by xent_chunk {chunk} — "
+            f"the fallback would materialize the full logits the caller "
+            f"opted out of")
+
+    def body(hh, tt):
+        return vocab_parallel_xent(dense(hh, params["head"]), tt)
+
+    n = S // chunk
+    total = h.new_zeros((), dtype=torch.float32)
+    for c in range(n):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        total = total + checkpoint(body, h[:, sl], targets[:, sl],
+                                   use_reentrant=False,
+                                   preserve_rng_state=False)
+    return total / n
+
+
+def gpt_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: GPTConfig,
+             remat: RematMode = False,
+             xent_chunk: Optional[int] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy.  ``batch``: {'tokens': [B, S],
+    'targets': [B, S]}.  ``xent_chunk`` streams the head and the loss
+    over sequence chunks of that size (:func:`streamed_head_loss`)."""
+    if xent_chunk is not None:
+        h = gpt_hidden(params, batch["tokens"], cfg, remat=remat)
+        return streamed_head_loss(params, h, batch["targets"],
+                                  chunk=xent_chunk, eps=cfg.norm_eps)
+    logits = gpt_forward(params, batch["tokens"], cfg, remat=remat)
+    return vocab_parallel_xent(logits, batch["targets"])
 
 
 def init_gpt_params(cfg: GPTConfig, gen: Optional[torch.Generator] = None,

@@ -26,7 +26,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()  # guards _LOCKS; each source builds under its own
+_LOCKS: Dict[str, threading.Lock] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: name -> {"seconds": build wall time (0.0 when reused), "log": nvcc's
 #: stderr, which holds ptxas' registers / shared memory / spills}
@@ -47,9 +48,12 @@ def _nvcc() -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; raises on a failed
-    build with nvcc's output.  Thread-safe; the library is cached per
-    process."""
+    build with nvcc's output.  Thread-safe, with one lock per source, so
+    several sources build at once (see :func:`load_all`); the library is
+    cached per process."""
     with _LOCK:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
         if name in _LIBS:
             return _LIBS[name]
         src = CSRC / f"{name}.cu"
@@ -79,3 +83,13 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(lib_path))
         _LIBS[name] = lib
         return lib
+
+
+def load_all(names) -> Dict[str, ctypes.CDLL]:
+    """Build every named source at once, one ``nvcc`` each, started
+    together; raises the first build's error."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(load, names)))

@@ -1,1 +1,2 @@
-"""Parallel layers — the serial block math so far."""
+"""Parallel layers and the train step — the serial block math and the
+single-device step so far."""

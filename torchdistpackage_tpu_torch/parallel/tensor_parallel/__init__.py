@@ -1,9 +1,15 @@
 """The transformer block's math (serial; tensor parallelism is queued)."""
 
 from .layers import (
+    RematMode,
     TransformerConfig,
     apply_rope,
+    attention_partial,
+    block_forward,
+    block_rope_cache,
+    checkpoint_block,
     compute_qkv,
+    core_attention,
     dense,
     init_block_params,
     init_norm_params,
@@ -11,10 +17,12 @@ from .layers import (
     mlp_partial,
     rms_norm,
     rope_cache,
+    scan_blocks,
 )
 
 __all__ = [
-    "TransformerConfig", "apply_rope", "compute_qkv", "dense",
-    "init_block_params", "init_norm_params", "layer_norm", "mlp_partial",
-    "rms_norm", "rope_cache",
+    "RematMode", "TransformerConfig", "apply_rope", "attention_partial",
+    "block_forward", "block_rope_cache", "checkpoint_block", "compute_qkv",
+    "core_attention", "dense", "init_block_params", "init_norm_params",
+    "layer_norm", "mlp_partial", "rms_norm", "rope_cache", "scan_blocks",
 ]

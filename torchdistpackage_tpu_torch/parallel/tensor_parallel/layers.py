@@ -10,19 +10,24 @@ carried by the parameter structure exactly as in the reference: a norm
 without a ``bias`` leaf is RMSNorm, a 3-dim ``w1`` is SwiGLU.
 
 Tensor parallelism is not ported yet (ROADMAP queue A): every function
-here is the ``axis=None`` branch of its reference.
+here is the ``axis=None`` branch of its reference.  The training block
+(:func:`block_forward`, :func:`scan_blocks`) runs its attention through
+:func:`core_attention`: the plain ``'naive'`` path or the flash kernels
+K3-K5 (``ops/flash_attention.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ...device import resolve_device
+from ...obs.numerics import tree_leaves
 
 Params = Dict[str, torch.Tensor]
 
@@ -30,12 +35,17 @@ Params = Dict[str, torch.Tensor]
 #: 'yarn' are queued (ROADMAP queue A) and refused with a clear error
 _ROPE_SCALING_TYPES = ("linear", "llama3")
 _ROPE_SCALING_QUEUED = ("dynamic", "yarn")
+_ATTN_IMPLS = ("naive", "flash", "ring", "ulysses")
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """The fields of the reference ``TransformerConfig`` that the serving
-    path reads.  ``dtype`` is a ``torch.dtype``."""
+    and training paths read.  ``dtype`` is a ``torch.dtype``.
+    ``attn_impl``: ``'naive'`` (the [S, S] score matrix, plain ops) or
+    ``'flash'`` (kernels K3-K5); ``'ring'``/``'ulysses'`` are context
+    parallel and queued (ROADMAP A9).  ``dropout_rate`` must be 0 until
+    dropout is ported."""
 
     dim: int
     nheads: int
@@ -43,6 +53,8 @@ class TransformerConfig:
     ffn_mult: int = 4
     causal: bool = True
     dtype: torch.dtype = torch.float32
+    attn_impl: str = "naive"
+    dropout_rate: float = 0.0
     kv_heads: Optional[int] = None
     rope: bool = False
     rope_theta: float = 10000.0
@@ -54,6 +66,10 @@ class TransformerConfig:
     sliding_window: Optional[int] = None
 
     def __post_init__(self):
+        if self.attn_impl not in _ATTN_IMPLS:
+            raise ValueError(
+                f"attn_impl must be one of {_ATTN_IMPLS}, got "
+                f"{self.attn_impl!r}")
         if self.sliding_window is not None:
             if not self.causal:
                 raise ValueError("sliding_window requires causal attention")
@@ -255,6 +271,120 @@ def mlp_partial(p: Params, x: torch.Tensor) -> torch.Tensor:
     else:
         h = F.gelu(dense(x, w1, b1), approximate="tanh")
     return dense(h, p["w2"])
+
+
+# ------------------------------------------------------- training block
+
+
+def block_rope_cache(cfg: TransformerConfig, s: int, device):
+    """The layer-invariant (cos, sin) rope cache for ``s`` sequence rows,
+    or None when rope is off — computed once per forward and passed to
+    every block."""
+    if not cfg.rope:
+        return None
+    return rope_cache(torch.arange(s, device=device), cfg.head_dim,
+                      cfg.rope_theta, scaling=cfg.rope_scaling)
+
+
+def core_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   cfg: TransformerConfig) -> torch.Tensor:
+    """(q, k, v) [B, H(kv), S, hd] -> [B, H, S, hd] through the configured
+    ``attn_impl`` — the one dispatch switch, as in the reference.  The
+    flash kernels take contiguous tensors, so the head-major views are
+    made contiguous here."""
+    from ...ops.flash_attention import flash_attention, mha_reference
+
+    if cfg.attn_impl == "flash":
+        return flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=cfg.causal,
+                               window=cfg.sliding_window)
+    if cfg.attn_impl in ("ring", "ulysses"):
+        raise NotImplementedError(
+            f"attn_impl={cfg.attn_impl!r} is context-parallel attention, "
+            f"not ported yet (ROADMAP A9)")
+    return mha_reference(q, k, v, causal=cfg.causal,
+                         window=cfg.sliding_window)
+
+
+def attention_partial(p: Params, x: torch.Tensor, cfg: TransformerConfig,
+                      rope=None) -> torch.Tensor:
+    """QKV projection, core attention and the output projection without
+    its bias: x [B, S, D] -> [B, S, D]."""
+    B, S, _ = x.shape
+    q, k, v = compute_qkv(p, x, cfg, rope=rope)
+    out = core_attention(q, k, v, cfg)
+    return dense(out.transpose(1, 2).reshape(B, S, -1), p["wo"])
+
+
+def block_forward(p: Params, x: torch.Tensor, cfg: TransformerConfig,
+                  rope=None) -> torch.Tensor:
+    """Pre-norm block: x + attn(norm(x)) + bo, then + mlp(norm(.)) + b2.
+    Residual dropout is refused until it is ported (``bench.py`` trains
+    with rate 0)."""
+    if cfg.dropout_rate > 0.0:
+        raise NotImplementedError(
+            "residual dropout is not ported yet (ROADMAP queue A)")
+    h = layer_norm(x, p["ln1"], cfg.norm_eps)
+    x = x + (attention_partial(p["attn"], h, cfg, rope=rope)
+             + p["attn"]["bo"])
+    h = layer_norm(x, p["ln2"], cfg.norm_eps)
+    return x + (mlp_partial(p["mlp"], h) + p["mlp"]["b2"])
+
+
+#: ``remat`` values: False/None (no checkpointing), True (each block
+#: recomputed in the backward), 'flash' (recomputed, but the flash
+#: kernel's (o, lse) are kept, so the backward does not run K3 again);
+#: 'flash_offload' (the same with o parked in host memory) is queued.
+RematMode = Union[bool, None, str]
+_REMAT_MODES = (False, None, True, "flash", "flash_offload")
+
+
+def checkpoint_block(fn, remat: RematMode):
+    """``fn`` wrapped in ``torch.utils.checkpoint`` per the validated remat
+    mode; a misspelled mode raises instead of silently degrading."""
+    if remat not in _REMAT_MODES:
+        raise ValueError(f"remat must be one of {_REMAT_MODES}, got {remat!r}")
+    if not remat:
+        return fn
+    if remat == "flash_offload":
+        raise NotImplementedError(
+            "remat='flash_offload' is not ported yet (ROADMAP queue A)")
+    kw = {}
+    if remat == "flash":
+        from ...ops.flash_attention import flash_residual_contexts
+
+        kw["context_fn"] = flash_residual_contexts
+
+    def wrapped(*args):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
+    return wrapped
+
+
+def scan_blocks(stacked: Params, x: torch.Tensor, cfg: TransformerConfig,
+                remat: RematMode = False) -> torch.Tensor:
+    """Run ``x`` through the layer-stacked block params ([L, ...] leaves)
+    — the reference's ``lax.scan`` as a Python loop.  The stacked leaves
+    are unbound once (their backward is one stack, not L scatter-adds),
+    and the rope cache is computed once for all layers."""
+    def unbind(tree):
+        if isinstance(tree, dict):
+            return {k: unbind(v) for k, v in tree.items()}
+        return tree.unbind(0)
+
+    def layer(tree, i):
+        if isinstance(tree, dict):
+            return {k: layer(v, i) for k, v in tree.items()}
+        return tree[i]
+
+    per_layer = unbind(stacked)
+    L = len(next(tree_leaves(stacked)))
+    rope = block_rope_cache(cfg, x.shape[1], x.device)
+    for i in range(L):
+        lp = layer(per_layer, i)
+        x = checkpoint_block(
+            lambda h, lp=lp: block_forward(lp, h, cfg, rope=rope), remat)(x)
+    return x
 
 
 # ------------------------------------------------------------------- init
