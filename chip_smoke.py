@@ -9,22 +9,29 @@ Run from the root of a checkout, on a machine with a CUDA card:
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device  — a CUDA card is present; its name, count and power limit.
-2. build   — both kernel sources under ``torchdistpackage_tpu_torch/ops/
-   csrc`` are compiled at once (one nvcc each); build seconds and ptxas'
-   registers / shared memory / spills of every instantiation.
+2. build   — the three kernel sources under ``torchdistpackage_tpu_torch/
+   ops/csrc`` are compiled at once (one nvcc each); build seconds and
+   ptxas' registers / shared memory / spills of every instantiation.
 3. kernels — each kernel against its plain version on the card, row by
    row against the plain version run in f32 on the same values
-   (``row_tolerance``, ``grad_held``), with planted faults that must fail
-   the same checks; then its time, the plain version's time, one PyTorch
-   call's time (SDPA — a yardstick the port never calls) and the least
-   time the card could take.  K1 (paged attention) at the serving
-   shapes (decode, a 3-row step and a 512-row prefill chunk; G 4, Hkv 8,
-   hd 128, bs 16; windows None / 4096 / 64; bf16, int8 and f32 pools;
-   faults: a window edge one block late, one stage of blocks misread).
+   (``row_tolerance``, ``grad_held``, ``moe_held``), with planted faults
+   that must fail the same checks; then its time, the plain version's
+   time, a PyTorch yardstick the port never calls and the least time the
+   card could take.  K1 (paged attention) at the serving shapes (decode,
+   a 3-row step and a 512-row prefill chunk; G 4, Hkv 8, hd 128, bs 16;
+   windows None / 4096 / 64; bf16, int8 and f32 pools; faults: a window
+   edge one block late, one stage of blocks misread; yardstick SDPA).
    K3-K5 (flash attention forward, dq, dk/dv) at the training shape (B
    16, H 12, S 2048, hd 64, causal) and at Mistral-7B's attention (Hq 32,
    Hkv 8, hd 128, S 8192, window 4096), bf16 and f32 (faults: the
-   backward without the dlse term, the window one tile late).
+   backward without the dlse term, the window one tile late; yardstick
+   SDPA).  K6 (fused MoE dispatch) at Mixtral-8x7B's expert widths (E 8,
+   top-2, D 4096, F 14336, SwiGLU, bf16) for decode (T 8) and a 512-row
+   chunk of 8 slots (T 4096) at the serving capacity C = T, plus GELU,
+   f32 and capacity-drop cases at smaller widths (faults: the gate
+   weight not applied, the last F tile left out, the scatter on the
+   neighbouring slot's token; yardstick the ragged 'gather' arm, several
+   cuBLAS calls).
 4. train   — the training main path: ``bench.py``'s GPT-125M at full
    depth, batch 16, S 2048, bf16, remat 'flash', 10 AdamW steps on one
    fixed batch (losses, step time, tokens/s, MFU, peak memory, launches
@@ -38,11 +45,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    (teacher-forced logits), then ``ServingEngine`` serves 16 requests
    (12 greedy, 4 sampled) through K1, launched once per layer per device
    call; a decode tick of 8 slots is timed and profiled.
-6. the ``{"kernels": [...]}`` line, then the card line, then the result
+6. MoE serve — Mixtral-8x7B-v0.1 widths at 16 of 32 layers (23.5 B
+   parameters, 47 GB of bf16; all 32 layers do not fit one 80 GB card),
+   random weights: ``paged_forward_moe`` with K6 against the ragged
+   plain arm on identical tokens (the plain arm replaying the K6 run's
+   routing; the free-running drift reported), then ``ServingEngine`` serves 12
+   requests (9 greedy, 3 sampled) through K6 and K1, each launched once
+   per layer per device call; the ``moe`` summary's expert load; a
+   decode tick of 8 slots profiled by kernel family.
+7. the ``{"kernels": [...]}`` line, then the card line, then the result
    line ``{"ok": true, "device": {...}}`` last.
 
 Every kernel's launch count is set to 0 just before each main path (the
-training steps, the engine run) and read just after.
+training steps, each engine run) and read just after.
 """
 
 import ctypes
@@ -549,15 +564,219 @@ def flash_planted_faults(case, ref):
                                f"fault ({what})")
 
 
+# ------------------------------------------------------------ K6
+
+
+MOE_SOURCE = "torchdistpackage_tpu_torch/ops/csrc/moe_dispatch.cu"
+MOE_REPLACES = "torchdistpackage_tpu/ops/moe_dispatch.py:289"
+
+
+def moe_experts(*, E, D, F, act, dtype, seed):
+    """Random experts on the card, the layouts of ``init_moe_params``,
+    with random biases (the serving model's are zero) so the bias paths
+    are checked too; drawn one expert at a time."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(shape, std):
+        out = torch.empty(shape, dtype=dtype, device="cuda")
+        for e in range(shape[0]):
+            out[e] = torch.randn(shape[1:], generator=g, device="cuda") * std
+        return out
+
+    swiglu = act == "swiglu"
+    return {"w1": rnd((E, 2, D, F) if swiglu else (E, D, F), D ** -0.5),
+            "b1": rnd((E, 2, F) if swiglu else (E, F), 0.1),
+            "w2": rnd((E, F, D), F ** -0.5), "b2": rnd((E, D), 0.1)}
+
+
+def moe_case(name, experts, *, T, C, k, seed):
+    """Tokens and a serving routing decision on the card: router
+    probabilities from random logits, top-k, ``_top_k_route`` at capacity
+    C (C = T is the engine's no-drop bound; a smaller C drops), the slot
+    maps the kernel takes."""
+    from torchdistpackage_tpu_torch.ops.moe_dispatch import slot_maps
+    from torchdistpackage_tpu_torch.parallel.moe import _top_k_route
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    E, D = experts["w2"].shape[0], experts["w2"].shape[2]
+    dtype = experts["w2"].dtype
+    tokens = torch.randn(T, D, generator=g, device="cuda").to(dtype)
+    probs = torch.softmax(torch.randn(T, E, generator=g, device="cuda") * 2,
+                          dim=-1)
+    gv, gi, slot, keep = _top_k_route(probs, k, C)
+    idx, comb = slot_maps(gv, gi, slot, keep, C)
+    return {"name": name, "experts": experts, "tokens": tokens, "idx": idx,
+            "comb": comb, "gate_vals": gv, "gate_idx": gi, "k": k,
+            "dtype": dtype}
+
+
+def moe_held(got, exact, scale, dtype):
+    """Output row by output row (one token's [D] vector) against the plain
+    version run in f32 on the same values.  f32: 2e-5 of the row's largest
+    |value| — F-split partial sums meet in the output by atomics, in an
+    order that changes from run to run.  bf16: 2 bf16 ulps of the row's
+    largest |value| (the output's rounding) plus 4 x 2^-8 of the row's
+    largest rounding scale (``moe_rounding_scale``: the kernel rounds the
+    activation to bf16 before the second product, moving each term of
+    that sum by up to 2^-8 of itself in random directions)."""
+    err = (got.float() - exact).abs().amax(-1)
+    big = exact.abs().amax(-1)
+    if dtype == torch.float32:
+        tol = 2e-5 * big
+    else:
+        tol = row_tolerance(exact, dtype) + 4.0 * 2.0 ** -8 * scale.amax(-1)
+    ratio = torch.where(err == 0, torch.zeros_like(err),
+                        err / tol.clamp_min(1e-30))
+    r = float(ratio.max())
+    if not torch.isfinite(got).all():
+        r = float("inf")
+    return float(err.max()), r
+
+
+def moe_bound(case):
+    """Least time for the call: the bytes it must move (tokens in, each
+    expert hit read once — W1, b1, W2, b2 — the maps, f32 out) over the
+    memory rate, or its operations (2 FLOP a MAC: three D x F products a
+    filled slot for SwiGLU, two for GELU) over the peak for its type."""
+    ex, comb = case["experts"], case["comb"]
+    e_sz = ex["w2"].element_size()
+    per_expert = sum(ex[n][0].numel() for n in ("w1", "b1", "w2", "b2")) * e_sz
+    hit = int((comb != 0).any(-1).sum())
+    filled = int((comb != 0).sum())
+    T, D = case["tokens"].shape
+    F_ = ex["w2"].shape[1]
+    nbytes = (hit * per_expert + T * D * e_sz + T * D * 4
+              + 2 * case["idx"].numel() * 4)
+    flops = 2 * filled * (3 if ex["w1"].dim() == 4 else 2) * D * F_
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[case["dtype"]]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", hit, filled)
+
+
+def moe_kernel_phase():
+    """K6 against its plain version (``moe_ffn_oracle``'s arithmetic, in
+    f32 on the same values), row by row: the main path's shapes at
+    Mixtral-8x7B widths (decode T 8 and a 512-row chunk of 8 slots, T
+    4096; C = T, bf16, SwiGLU), a GELU case and an f32 case at smaller
+    widths, and a case with capacity drops and a capacity that is not a
+    multiple of the 64-slot tile.  Planted faults at the decode shape must
+    fail the same check.  Then times at the two main-path shapes: the
+    kernel, the plain version, the ragged ``'gather'`` arm (one cuBLAS
+    product per expert and weight — several calls, the nearest library
+    yardstick; the kernel path never calls it) and the bound."""
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+    from torchdistpackage_tpu_torch.parallel.moe import _ragged_ffn
+
+    bf, f32 = torch.bfloat16, torch.float32
+    mixtral = moe_experts(E=8, D=4096, F=14336, act="swiglu", dtype=bf,
+                          seed=300)
+    specs = [
+        ("decode_bf16_mixtral", lambda: mixtral, dict(T=8, C=8, k=2)),
+        ("prefill4096_bf16_mixtral", lambda: mixtral,
+         dict(T=4096, C=4096, k=2)),
+        ("gelu_bf16", lambda: moe_experts(E=8, D=1024, F=4096, act="gelu",
+                                          dtype=bf, seed=301),
+         dict(T=256, C=256, k=2)),
+        ("swiglu_f32", lambda: moe_experts(E=8, D=1024, F=1408,
+                                           act="swiglu", dtype=f32,
+                                           seed=302),
+         dict(T=128, C=128, k=2)),
+        ("drops_c100_bf16", lambda: moe_experts(E=8, D=1024, F=2048,
+                                                act="swiglu", dtype=bf,
+                                                seed=303),
+         dict(T=512, C=100, k=2)),
+    ]
+    rows = []
+    for i, (name, make, shape) in enumerate(specs):
+        case = moe_case(name, make(), seed=310 + i, **shape)
+        ex, tok, idx, comb = (case[n] for n in ("experts", "tokens", "idx",
+                                                "comb"))
+        dt = case["dtype"]
+        before = md.LAUNCHES["fused_moe_ffn"]
+        got = md.fused_moe_ffn_slots(ex, tok, idx, comb).to(dt)
+        torch.cuda.synchronize()
+        if md.LAUNCHES["fused_moe_ffn"] != before + 1:
+            raise RuntimeError(f"{name}: the launch counter did not move")
+        exact = md.moe_ffn_slots_reference(ex, tok, idx, comb)
+        scale = md.moe_rounding_scale(ex, tok, idx, comb)
+        err, ratio = moe_held(got, exact, scale, dt)
+        dropped = 1.0 - float((comb != 0).sum()) / (tok.shape[0] * case["k"])
+        log(f"[moe] {name}: T {tok.shape[0]}, C {idx.shape[1]}, D "
+            f"{tok.shape[1]}, F {ex['w2'].shape[1]}, drop rate "
+            f"{dropped:.3f}: vs the plain version in f32: max abs err "
+            f"{err:.3g}, {ratio:.3f} of the row tolerance")
+        if not ratio <= 1.0:
+            raise RuntimeError(f"{name}: K6 disagrees with its plain version: "
+                               f"{ratio:.3f} of the row tolerance")
+        row = {"case": name, "max_abs_err": err, "tol_ratio": ratio}
+        if name == "decode_bf16_mixtral":
+            moe_planted_faults(case, exact, scale)
+        if name.endswith("_mixtral"):
+            heavy = tok.shape[0] > 8
+            ms = cuda_ms(lambda: md.fused_moe_ffn_slots(ex, tok, idx, comb),
+                         3 if heavy else 20)
+            plain_ms = cuda_ms(lambda: md.moe_ffn_slots_reference(
+                ex, tok, idx, comb), 1 if heavy else 5)
+            lib_ms = cuda_ms(lambda: _ragged_ffn(
+                ex, tok, case["gate_vals"], case["gate_idx"]),
+                3 if heavy else 20)
+            bound_ms, bound_by, hit, filled = moe_bound(case)
+            row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       experts_hit=hit, filled_slots=filled)
+            log(f"[moe] {name}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+                f"gather arm (per-expert cuBLAS calls) {lib_ms:.4f} ms  "
+                f"bound {bound_ms:.4f} ms ({bound_by}; {hit} experts hit, "
+                f"{filled} filled slots)")
+        rows.append(row)
+        del case, got, exact, scale
+        torch.cuda.empty_cache()
+    del mixtral
+    torch.cuda.empty_cache()
+    return rows
+
+
+def moe_planted_faults(case, exact, scale):
+    """The check must catch the faults it is there for: K6 run on
+    deliberately wrong arguments, held against the plain version on the
+    right ones — the gate weight not applied (every filled slot's g taken
+    as 1), the last F tile left out (its W2 rows zeroed) and the scatter
+    landing on the neighbouring slot's token.  Each must fail."""
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+
+    ex, tok, idx, comb = (case[n] for n in ("experts", "tokens", "idx",
+                                            "comb"))
+    w2 = ex["w2"].clone()
+    w2[:, -md.TILE:, :] = 0
+    faults = {
+        "gate weight not applied": (ex, (comb != 0).float(), None),
+        "last F tile left out": (dict(ex, w2=w2), comb, None),
+        "scatter on the neighbouring slot's token": (
+            ex, comb, torch.roll(idx, -1, dims=1).contiguous()),
+    }
+    for what, (exf, cb, dst) in faults.items():
+        got = md.fused_moe_ffn_slots(exf, tok, idx, cb,
+                                     scatter_idx=dst).to(case["dtype"])
+        err, ratio = moe_held(got, exact, scale, case["dtype"])
+        log(f"[moe] {case['name']}, planted fault ({what}): max abs err "
+            f"{err:.3g}, {ratio:.1f} x the row tolerance")
+        if ratio <= 1.0:
+            raise RuntimeError(f"{case['name']}: the row tolerance misses a "
+                               f"planted fault ({what})")
+    del w2
+
+
 # ------------------------------------------------------------ phase 5
 
 
 def reset_counts():
     """Every kernel's launch count to 0 (before a main path's run)."""
     from torchdistpackage_tpu_torch.ops import flash_attention as fa
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
     from torchdistpackage_tpu_torch.ops import paged_attention as pa
 
-    for counts in (fa.LAUNCHES, pa.LAUNCHES):
+    for counts in (fa.LAUNCHES, pa.LAUNCHES, md.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -812,15 +1031,14 @@ def mistral_train_phase(card):
 # ------------------------------------------------------------ phase 6
 
 
-def model_phase(params, cfg):
-    """Teacher-forced: both arms see the same tokens, so every logit row
-    is comparable.  bf16 through 32 layers: the two attention paths round
-    differently and the residual stream carries those differences on, so
-    the bound is relative to the logits' scale."""
-    from torchdistpackage_tpu_torch.serving.paged_cache import (
-        init_paged_kv,
-        paged_forward,
-    )
+def teacher_logits(params, cfg, forward, **kw):
+    """Teacher-forced logits of 2 slots through ``forward``: a 600-token
+    prompt in 512-row chunks, then 4 decode steps, on a fresh pool.
+    Returns the logits of each call stacked ([6, 2, V], f32) and, per
+    call, which of its B x S_in rows hold real tokens (the last chunk's
+    padded tail writes into the shared NULL block, so its values are
+    arbitrary and never read)."""
+    from torchdistpackage_tpu_torch.serving.paged_cache import init_paged_kv
 
     dev = torch.device("cuda")
     B, P, C, steps = 2, 600, 512, 4
@@ -835,41 +1053,141 @@ def model_phase(params, cfg):
     prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=g, device=dev)
     follow = torch.randint(0, cfg.vocab_size, (B, steps), generator=g,
                            device=dev)
-    logits = {}
-    for impl in ("cuda", "gather"):
-        cache = init_paged_kv(cfg, nb, BS, device=dev)
-        outs = []
-        with torch.no_grad():
-            for off in range(0, P, C):
-                tok = torch.zeros(B, C, dtype=torch.long, device=dev)
-                sl = prompt[:, off:off + C]
-                tok[:, :sl.shape[1]] = sl
-                last = torch.full((B,), min(P - 1 - off, C - 1), device=dev)
-                offs = torch.full((B,), off, dtype=torch.int32, device=dev)
-                cache, lg = paged_forward(params, tok, cfg, cache, tables,
-                                          offs, last_idx=last, attn_impl=impl)
-                outs.append(lg.float())
-            for t in range(steps):
-                offs = torch.full((B,), P + t, dtype=torch.int32, device=dev)
-                cache, lg = paged_forward(params, follow[:, t:t + 1], cfg,
-                                          cache, tables, offs,
-                                          attn_impl=impl)
-                outs.append(lg.float())
-        logits[impl] = torch.stack(outs)
-        del cache
-    got, want = logits["cuda"], logits["gather"]
+    cache = init_paged_kv(cfg, nb, BS, device=dev)
+    outs, real = [], []
+    with torch.no_grad():
+        for off in range(0, P, C):
+            tok = torch.zeros(B, C, dtype=torch.long, device=dev)
+            sl = prompt[:, off:off + C]
+            tok[:, :sl.shape[1]] = sl
+            real.append((torch.arange(C, device=dev) < sl.shape[1])
+                        .repeat(B))
+            last = torch.full((B,), min(P - 1 - off, C - 1), device=dev)
+            offs = torch.full((B,), off, dtype=torch.int32, device=dev)
+            cache, lg = forward(params, tok, cfg, cache, tables, offs,
+                                last_idx=last, **kw)
+            outs.append(lg.float())
+        for t in range(steps):
+            offs = torch.full((B,), P + t, dtype=torch.int32, device=dev)
+            cache, lg = forward(params, follow[:, t:t + 1], cfg, cache,
+                                tables, offs, **kw)
+            outs.append(lg.float())
+            real.append(torch.ones(B, dtype=torch.bool, device=dev))
+    del cache
+    return torch.stack(outs), real
+
+
+def logits_agree(got, want, what, tag):
+    """Max abs error relative to the logits' scale, argmax agreement."""
     if not torch.isfinite(got).all():
-        raise RuntimeError("kernel-path logits are not finite")
+        raise RuntimeError(f"{what}: kernel-path logits are not finite")
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
     agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
-    log(f"[model] teacher-forced logits, kernel vs plain: max abs err "
-        f"{err:.4g} at logit scale {scale:.4g} (rel {err / scale:.3g}); "
-        f"argmax agreement {agree:.3f} over {got.shape[0] * B} rows")
-    if err > 0.05 * scale:
-        raise RuntimeError(
-            f"full-width logits disagree: {err:.4g} > 5% of {scale:.4g}")
-    return {"max_abs_err": err, "scale": scale, "argmax_agree": agree}
+    log(f"[{tag}] teacher-forced logits, {what}: max abs err {err:.4g} at "
+        f"logit scale {scale:.4g} (rel {err / scale:.3g}); argmax agreement "
+        f"{agree:.3f} over {got.shape[0] * got.shape[1]} rows")
+    return {"max_abs_err": err, "scale": scale, "rel": err / scale,
+            "argmax_agree": agree}
+
+
+def model_phase(params, cfg):
+    """Teacher-forced: the kernel path ('cuda') and the plain path
+    ('gather') see the same tokens, so every logit row is comparable.
+    bf16 through 32 layers: the two attention paths round differently and
+    the residual stream carries those differences on, so the bound is
+    relative to the logits' scale (5 %)."""
+    from torchdistpackage_tpu_torch.serving.paged_cache import paged_forward
+
+    got, want = (teacher_logits(params, cfg, paged_forward,
+                                attn_impl=impl)[0]
+                 for impl in ("cuda", "gather"))
+    res = logits_agree(got, want, "kernel vs plain (attn_impl)", "model")
+    if res["rel"] > 0.05:
+        raise RuntimeError(f"full-width logits disagree: {res['rel']:.3g} > "
+                           f"5% of the scale")
+    return res
+
+
+def moe_model_phase(params, cfg):
+    """Teacher-forced logits of the MoE path with K6 (moe_dispatch 'cuda',
+    attention in K1) against the ragged plain arm ('gather').  Routing is
+    a discontinuous function of the hidden state: the two arms round
+    differently (the ragged arm rounds each product to bf16, K6 keeps f32
+    until the output), the rounding moves some tokens across a top-2
+    boundary, and a token routed to another expert gets another output —
+    so two free-running arms drift apart with depth for reasons that are
+    not faults.  The held comparison therefore pins the routing: the plain
+    arm replays, layer by layer, the (gate weights, experts) the K6 run
+    chose on its own hidden states, and runs the ragged FFN on them —
+    the FFN arithmetic of the two arms is then all that differs, held to
+    5 % of the logits' scale.  The free-running plain arm is reported
+    beside it, with the share of tokens whose expert pair differs at each
+    layer."""
+    from torchdistpackage_tpu_torch.parallel import moe as pm
+    from torchdistpackage_tpu_torch.serving.paged_cache import (
+        paged_forward_moe,
+    )
+
+    serve = pm.moe_serve_forward
+    routes = []   # (gate_vals, gate_idx) of every expert-layer call, in order
+    replay = []
+
+    def route(params_l, x, mcfg):
+        T = x.shape[0] * x.shape[1]
+        probs = torch.softmax((x.reshape(T, -1) @ params_l["router"]["w"])
+                              .float(), dim=-1)
+        gv, gi = torch.topk(probs, mcfg.top_k, dim=-1)
+        return gv / gv.sum(-1, keepdim=True).clamp_min(1e-9), gi
+
+    def recording(params_l, x, mcfg, dispatch=None, return_metrics=False):
+        routes.append(route(params_l, x, mcfg))
+        return serve(params_l, x, mcfg, dispatch=dispatch,
+                     return_metrics=return_metrics)
+
+    def replaying(params_l, x, mcfg, dispatch=None, return_metrics=False):
+        gv, gi = routes[len(replay)]
+        replay.append(route(params_l, x, mcfg)[1])
+        B, S, D = x.shape
+        y = pm._ragged_ffn(params_l["experts"], x.reshape(B * S, D), gv, gi)
+        return y.reshape(B, S, D).to(x.dtype)
+
+    def freeing(params_l, x, mcfg, dispatch=None, return_metrics=False):
+        replay.append(route(params_l, x, mcfg)[1])
+        return serve(params_l, x, mcfg, dispatch=dispatch,
+                     return_metrics=return_metrics)
+
+    def run(wrapper, dispatch):
+        pm.moe_serve_forward = wrapper
+        try:
+            return teacher_logits(params, cfg, paged_forward_moe,
+                                  attn_impl="cuda", moe_dispatch=dispatch)
+        finally:
+            pm.moe_serve_forward = serve
+
+    k6, real = run(recording, "cuda")
+    pinned, _ = run(replaying, "gather")
+    res = logits_agree(k6, pinned, "K6 vs the ragged arm, routing pinned",
+                       "moe-model")
+    replay.clear()
+    free, _ = run(freeing, "gather")
+    drift = logits_agree(k6, free, "K6 vs the ragged arm, each routing "
+                         "itself", "moe-model")
+    nl = cfg.nlayers
+    differs = [(torch.sort(a[1], -1).values != torch.sort(b, -1).values)
+               .any(-1) for a, b in zip(routes, replay)]
+    per_layer = []  # over the real rows of every call
+    for i in range(nl):
+        calls = list(zip(differs[i::nl], real))
+        per_layer.append(sum(int(d[m].sum()) for d, m in calls)
+                         / sum(int(m.sum()) for _, m in calls))
+    log(f"[moe-model] free-running arms: share of real tokens whose expert "
+        f"pair differs, by layer: "
+        + ", ".join(f"{f:.4f}" for f in per_layer))
+    if res["rel"] > 0.05:
+        raise RuntimeError(f"MoE logits disagree with the routing pinned: "
+                           f"{res['rel']:.3g} > 5% of the scale")
+    return {"pinned": res, "free": drift, "flips_by_layer": per_layer}
 
 
 def engine_phase(params, cfg, card):
@@ -930,18 +1248,18 @@ def engine_phase(params, cfg, card):
             "peak_gb": peak_gb}
 
 
-def profile_phase(params, cfg, card):
+def profile_phase(params, cfg, card, max_ctx=8192, tag="profile"):
     """Where a decode tick's time goes: 8 slots decoding at 2048 context,
     16 ticks timed one by one on the host clock (each ends by reading the
     tokens back, so it waits for the device), then 8 more under
-    torch.profiler — device time by kernel family, the device's idle
-    share."""
+    torch.profiler — device time by kernel family (K1, K6, GEMMs, the
+    rest), the device's idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     from torchdistpackage_tpu_torch.serving import Request, ServingEngine
 
     eng = ServingEngine(params, cfg, num_slots=8, block_size=BS, chunk=512,
-                        max_ctx=8192)
+                        max_ctx=max_ctx)
     rs = np.random.RandomState(1)
     for _ in range(8):
         eng.submit(Request(rs.randint(0, cfg.vocab_size, 2048).tolist(), 48))
@@ -965,18 +1283,20 @@ def profile_phase(params, cfg, card):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 8 / 1e3
     if busy_ms == 0.0:
-        log(f"[profile] decode tick {tick_ms:.2f} ms; device time not "
+        log(f"[{tag}] decode tick {tick_ms:.2f} ms; device time not "
             f"measured (the profiler recorded no kernels) — on {card}")
-        return
-    families = {"paged_attention": 0.0, "gemm": 0.0, "other": 0.0}
+        return None
+    families = {"paged_attention": 0.0, "moe_ffn": 0.0, "gemm": 0.0,
+                "other": 0.0}
     for e in kernels:
         name = e.key.lower()
         fam = ("paged_attention" if "paged_attention" in name else
+               "moe_ffn" if "moe_ffn" in name else
                "gemm" if re.search(r"gemm|xmma|cutlass|nvjet|sm90", name)
                else "other")
         families[fam] += e.self_device_time_total / 8 / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    log(f"[profile] decode tick (8 slots at 2048 context): median "
+    log(f"[{tag}] decode tick (8 slots at 2048 context): median "
         f"{tick_ms:.2f} ms (min {min(ticks):.2f}, max {max(ticks):.2f}) on "
         f"the host clock, {prof_ms:.2f} ms under the profiler; device busy "
         f"{busy_ms:.2f} ms per tick (idle {1 - busy_ms / prof_ms:.1%} of "
@@ -985,8 +1305,93 @@ def profile_phase(params, cfg, card):
         + f"; {sum(e.count for e in kernels) / 8:.0f} kernels per tick "
         f"— on {card}")
     for e in top:
-        log(f"[profile]   {e.self_device_time_total / 8 / 1e3:8.3f} ms "
+        log(f"[{tag}]   {e.self_device_time_total / 8 / 1e3:8.3f} ms "
             f"x{e.count // 8:<4d} {e.key[:90]}")
+    return {"tick_ms": tick_ms, "prof_ms": prof_ms, "busy_ms": busy_ms,
+            "families": families}
+
+
+def moe_engine_phase(params, cfg, card):
+    """The MoE serving main path: ``ServingEngine`` (8 slots, blocks of 16,
+    chunk 512, context 4096) serves 12 requests from ``RandomState(1)`` —
+    prompts 128-2048 tokens, 32-96 new tokens, 9 greedy and 3 sampled —
+    with K6 in every expert layer and K1 in every attention.  The counts
+    are set to 0 just before the run and read just after: each kernel
+    launches once a layer a device call; the ``moe`` summary counts top-k
+    choices of every row each expert layer saw."""
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+    from torchdistpackage_tpu_torch.ops import paged_attention as pa
+    from torchdistpackage_tpu_torch.serving import Request, ServingEngine
+
+    rs = np.random.RandomState(1)
+    lens = rs.randint(128, 2049, 12)
+    news = rs.randint(32, 97, 12)
+    reqs = []
+    for i, (n, m) in enumerate(zip(lens, news)):
+        toks = rs.randint(0, cfg.vocab_size, int(n)).tolist()
+        if i % 4 == 3:  # 3 sampled requests, 9 greedy
+            reqs.append(Request(toks, int(m), temperature=0.8, top_p=0.95,
+                                seed=i))
+        else:
+            reqs.append(Request(toks, int(m)))
+    eng = ServingEngine(params, cfg, num_slots=8, block_size=BS, chunk=512,
+                        max_ctx=4096)
+    if eng.attn_impl != "cuda" or eng.moe_dispatch != "cuda":
+        raise RuntimeError(f"engine resolved attn_impl={eng.attn_impl!r}, "
+                           f"moe_dispatch={eng.moe_dispatch!r}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rids = [eng.submit(r) for r in reqs]
+    reset_counts()
+    t0 = time.perf_counter()
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fused_moe_ffn": md.LAUNCHES["fused_moe_ffn"],
+                "paged_decode_attention": pa.LAUNCHES[
+                    "paged_decode_attention"]}
+    s = eng.serving_summary()
+    calls = s["prefill_chunks"] + s["decode_steps"]
+    for kname, n in launches.items():
+        if n != cfg.nlayers * calls:
+            raise RuntimeError(f"{kname} launches {n} != {cfg.nlayers} x "
+                               f"{calls} calls")
+    if s["requests"]["completed"] != len(reqs):
+        raise RuntimeError(f"completed {s['requests']} of {len(reqs)}")
+    for r, req in zip(rids, reqs):
+        f = eng.finished[r]
+        gen = f["tokens"][len(req.tokens):]
+        if (f["reason"] != "max_tokens" or len(gen) != req.max_new_tokens
+                or gen.min() < 0 or gen.max() >= cfg.vocab_size):
+            raise RuntimeError(f"request {r} finished wrong: {f['reason']}")
+    if not eng.audit(heal=False)["ok"] or eng._alloc.in_use:
+        raise RuntimeError("pool not conserved after the run")
+    moe = s["moe"]
+    rows = (s["prefill_chunks"] * eng.num_slots * eng.chunk
+            + s["decode_steps"] * eng.num_slots)
+    want = cfg.moe_top_k * rows * cfg.nlayers  # every layer an expert layer
+    if (len(moe["expert_tokens"]) != cfg.moe_experts
+            or sum(moe["expert_tokens"]) != want
+            or moe["dispatch"] != "cuda" or moe["dropped_token_rate"] != 0):
+        raise RuntimeError(f"moe summary wrong: {moe} (want {want} choices)")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ttft, tpot = s["ttft_s"], s["tpot_s"]
+    log(f"[moe-engine] {len(reqs)} requests, prompts "
+        f"{sorted(lens.tolist())}, {s['generated_tokens']} tokens in "
+        f"{wall:.2f} s: {s['tokens_per_sec']:.2f} tok/s, TTFT p50 "
+        f"{ttft['p50']:.3f} s p99 {ttft['p99']:.3f} s, TPOT p50 "
+        f"{tpot['p50'] * 1e3:.2f} ms p99 {tpot['p99'] * 1e3:.2f} ms, peak "
+        f"memory {peak_gb:.2f} GB, {s['prefill_chunks']} prefill calls + "
+        f"{s['decode_steps']} decode calls, launches {launches} — on {card}")
+    log(f"[moe-engine] expert load: tokens {moe['expert_tokens']} "
+        f"(sum {sum(moe['expert_tokens']):.0f} = 2 x {rows} rows x "
+        f"{cfg.nlayers} layers), imbalance {moe['imbalance']:.4f}, load "
+        f"entropy {moe['load_entropy']:.4f}")
+    out = {"launches": launches, "summary": s, "wall_s": wall,
+           "peak_gb": peak_gb}
+    del eng
+    torch.cuda.empty_cache()
+    return out
 
 
 FLASH_SOURCE = "torchdistpackage_tpu_torch/ops/csrc/flash_attention.cu"
@@ -998,25 +1403,32 @@ FLASH_REPLACES = {
 
 
 def build_phase():
-    """Both sources built at once (one nvcc each); ptxas' registers,
+    """The three sources built at once (one nvcc each); ptxas' registers,
     shared memory and spills of every instantiation."""
     from torchdistpackage_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    libs = _build.load_all(["paged_attention", "flash_attention"])
-    log(f"[build] both sources built in {time.perf_counter() - t0:.1f} s ("
+    libs = _build.load_all(["paged_attention", "flash_attention",
+                            "moe_dispatch"])
+    log(f"[build] all sources built in {time.perf_counter() - t0:.1f} s ("
         + ", ".join(f"{n}.cu {i['seconds']:.1f} s"
                     for n, i in _build.BUILD_INFO.items()) + ")")
     for src, info in _build.BUILD_INFO.items():
         kernel = "?"
         for line in str(info["log"]).splitlines():
             if "Compiling entry function" in line:  # name the instantiation
-                m = re.search(r"\d+((?:flash_\w+|paged_attention)_kernel)I",
-                              line)
-                kernel = (f"{m.group(1) if m else '?'} "
-                          f"{'bf16' if '13__nv_bfloat16' in line else 'f32'}"
-                          f"{' int8 pool' if 'Lb1E' in line else ''} "
-                          f"hd {128 if 'Li128E' in line else 64}")
+                m = re.search(
+                    r"\d+((?:flash_\w+|paged_attention|moe_ffn)_kernel)I",
+                    line)
+                name = m.group(1) if m else "?"
+                dt = "bf16" if "13__nv_bfloat16" in line else "f32"
+                if name == "moe_ffn_kernel":
+                    kernel = (f"{name} {dt} "
+                              f"{'swiglu' if 'Lb1E' in line else 'gelu'}")
+                else:
+                    kernel = (f"{name} {dt}"
+                              f"{' int8 pool' if 'Lb1E' in line else ''} "
+                              f"hd {128 if 'Li128E' in line else 64}")
             elif re.search(r"registers|spill|smem", line):
                 log(f"[build] {src}: {kernel}: {line.strip()}")
     smem = libs["paged_attention"].tdp_paged_attention_smem_bytes
@@ -1030,9 +1442,16 @@ def build_phase():
         f"{kern} {dt} hd {hd} {fsmem(i, tag, hd)} B"
         for i, kern in enumerate(("fwd", "dq", "dkv"))
         for tag, dt in ((0, "bf16"), (1, "f32")) for hd in (64, 128)))
+    msmem = libs["moe_dispatch"].tdp_moe_ffn_smem_bytes
+    msmem.argtypes, msmem.restype = [ctypes.c_int] * 2, ctypes.c_int
+    log("[build] moe_dispatch dynamic shared memory per CTA: " + ", ".join(
+        f"{dt} {act} {msmem(tag, sw)} B" for tag, dt in ((0, "bf16"),
+                                                           (1, "f32"))
+        for sw, act in ((0, "gelu"), (1, "swiglu"))))
 
 
-def kernel_entry(name, route_src, replaces, launches, rows, head):
+def kernel_entry(name, route_src, replaces, launches, rows, head,
+                 **extra):
     return {
         "name": name, "route": "cuda", "source": route_src,
         "replaces": replaces, "launches": launches,
@@ -1041,7 +1460,7 @@ def kernel_entry(name, route_src, replaces, launches, rows, head):
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"], "shape": head["case"],
-        "cases_passed": len(rows), "cases": rows,
+        "cases_passed": len(rows), "cases": rows, **extra,
     }
 
 
@@ -1051,10 +1470,14 @@ def main():
         raise SystemExit("chip_smoke: no CUDA device "
                          "(torch.cuda.is_available() is False)")
     from torchdistpackage_tpu_torch.models import (
+        init_gpt_moe_params,
         init_gpt_params,
         mistral_7b_config,
+        mixtral_8x7b_config,
     )
-
+    # the plain versions are the f32 references: no TF32 anywhere
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     card = card_line()
     log(f"[device] {name} x{count}; nvidia-smi: {card}; torch "
@@ -1067,6 +1490,7 @@ def main():
     # 3. every kernel against its plain version
     rows = kernel_phase()
     flash_rows = flash_kernel_phase()
+    moe_rows = moe_kernel_phase()
     log(f"[time] kernel checks done at {time.perf_counter() - t_start:.0f} s")
 
     # 4. the training path: GPT-125M main path, the kernel path against the
@@ -1088,10 +1512,30 @@ def main():
     model_phase(params, cfg)
     eng = engine_phase(params, cfg, card)
     profile_phase(params, cfg, card)
+    del params
+    torch.cuda.empty_cache()
     log(f"[time] serving done at {time.perf_counter() - t_start:.0f} s")
 
-    # 6. the kernels line (headline numbers: the decode step's shape for
-    # K1, the training shape for K3-K5)
+    # 6. the MoE serving path: Mixtral-8x7B-v0.1 widths at 16 of its 32
+    # layers (all 32 are 93.4 GB of bf16 weights, more than the card holds)
+    cfg = mixtral_8x7b_config(nlayers=16)
+    t0 = time.perf_counter()
+    params = init_gpt_moe_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"[moe-model] Mixtral-8x7B-v0.1 widths, {cfg.nlayers} of 32 layers, "
+        f"{cfg.num_params() / 1e9:.3f} B params in bf16 "
+        f"({torch.cuda.memory_allocated() / 1e9:.2f} GB on the card), "
+        f"initialised in {time.perf_counter() - t0:.1f} s")
+    moe_model_phase(params, cfg)
+    moe_eng = moe_engine_phase(params, cfg, card)
+    profile_phase(params, cfg, card, max_ctx=4096, tag="moe-profile")
+    del params
+    torch.cuda.empty_cache()
+    log(f"[time] MoE serving done at {time.perf_counter() - t_start:.0f} s")
+
+    # 7. the kernels line (headline numbers: the decode step's shape for
+    # K1 and K6, the training shape for K3-K5)
     entries = [kernel_entry("paged_decode_attention",
                             "torchdistpackage_tpu_torch/ops/csrc/"
                             "paged_attention.cu", TPU_SOURCE,
@@ -1101,6 +1545,11 @@ def main():
                                     FLASH_REPLACES[kname],
                                     train["launches"][kname], krows,
                                     krows[0]))
+    entries.append(kernel_entry(
+        "fused_moe_ffn", MOE_SOURCE, MOE_REPLACES,
+        moe_eng["launches"]["fused_moe_ffn"], moe_rows, moe_rows[0],
+        library="the ragged 'gather' arm: one cuBLAS product per expert "
+                "and weight (several calls)"))
     log(json.dumps({"kernels": entries}))
     log(card)
     log(json.dumps({"ok": True, "device": {

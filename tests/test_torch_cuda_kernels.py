@@ -229,3 +229,106 @@ def test_flash_kernels_noncausal_unequal_lengths(cuda, dtype):
     dk_x, dv_x = fa.flash_bwd_dkv_reference(*exact, lse_x, delta, *args)
     _grad_rows_close(dk, dk_x, sk, dt)
     _grad_rows_close(dv, dv_x, sv, dt)
+
+
+# ------------------------------------------------- fused MoE dispatch, K6
+
+
+def _moe_rows_close(got, exact, scale, dtype):
+    """Output row by output row (one token).  f32: 2e-5 of the row's
+    largest |value| (F-split partial sums meet by atomics, in an order
+    that varies).  bf16: 2 bf16 ulps of the row's largest |value| plus
+    4 x 2^-8 of the row's largest rounding scale (``moe_rounding_scale``:
+    the kernel rounds the activation to bf16 before the second
+    product)."""
+    err = (got.float() - exact).abs().amax(-1)
+    big = exact.abs().amax(-1)
+    if dtype == torch.float32:
+        tol = 2e-5 * big
+    else:
+        tol = (2.0 * torch.exp2(torch.floor(torch.log2(
+            big.clamp_min(2.0 ** -100))) - 7) + 4.0 * 2.0 ** -8
+            * scale.amax(-1))
+    assert torch.isfinite(got).all()
+    ratio = torch.where(err == 0, torch.zeros_like(err),
+                        err / tol.clamp_min(1e-30))
+    worst = float(ratio.max())
+    assert worst <= 1.0, f"{worst:.3f} of the row tolerance"
+
+
+def _moe_inputs(cuda, *, T, C, E, D, F, act, dtype, seed, holes=False):
+    from torchdistpackage_tpu_torch.ops.moe_dispatch import slot_maps
+    from torchdistpackage_tpu_torch.parallel.moe import _top_k_route
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g, device=cuda) * std).to(dtype)
+
+    swiglu = act == "swiglu"
+    experts = {"w1": rnd(*((E, 2, D, F) if swiglu else (E, D, F)),
+                         std=D ** -0.5),
+               "b1": rnd(*((E, 2, F) if swiglu else (E, F)), std=0.1),
+               "w2": rnd(E, F, D, std=F ** -0.5), "b2": rnd(E, D, std=0.1)}
+    tokens = rnd(T, D)
+    probs = torch.softmax(torch.randn(T, E, generator=g, device=cuda) * 2, -1)
+    route = _top_k_route(probs, 2, C)
+    idx, comb = slot_maps(*route, C)
+    if holes:  # empty slots inside filled tiles
+        comb = torch.where(torch.arange(C, device=cuda) % 5 == 2, 0.0, comb)
+    return experts, tokens, idx, comb.contiguous(), route
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("act", ["gelu", "swiglu"])
+@pytest.mark.parametrize("T,C,D,F,holes", [
+    (40, 40, 256, 128, False),      # one partial capacity tile, C = T
+    (300, 100, 576, 1408, False),   # drops; C, D, F not powers of two
+    (256, 256, 128, 192, True),     # trailing empty tiles, in-tile holes
+])
+def test_moe_kernel_matches_plain_on_card(cuda, dtype, act, T, C, D, F,
+                                          holes):
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+
+    dt = getattr(torch, dtype)
+    ex, tok, idx, comb, route = _moe_inputs(
+        cuda, T=T, C=C, E=8, D=D, F=F, act=act, dtype=dt, seed=T + D,
+        holes=holes)
+    before = md.LAUNCHES["fused_moe_ffn"]
+    got = md.fused_moe_ffn_slots(ex, tok, idx, comb)
+    torch.cuda.synchronize()
+    assert md.LAUNCHES["fused_moe_ffn"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (T, D)
+    exact = md.moe_ffn_slots_reference(ex, tok, idx, comb)
+    scale = md.moe_rounding_scale(ex, tok, idx, comb)
+    _moe_rows_close(got.to(dt), exact, scale, dt)
+    if not holes:  # the routing-level entry point, in the tokens' dtype
+        y = md.fused_moe_ffn(ex, tok, *route, C)
+        assert y.dtype == dt
+        _moe_rows_close(y, exact, scale, dt)
+
+
+@pytest.mark.gpu
+def test_moe_kernel_wrapper_refuses_what_it_does_not_take(cuda):
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+
+    ex, tok, idx, comb, _ = _moe_inputs(cuda, T=16, C=16, E=4, D=128,
+                                        F=128, act="swiglu",
+                                        dtype=torch.bfloat16, seed=1)
+    with pytest.raises(ValueError, match="device"):
+        md.fused_moe_ffn_slots(dict(ex, w2=ex["w2"].cpu()), tok, idx, comb)
+    with pytest.raises(ValueError, match="device"):
+        md.fused_moe_ffn_slots(ex, tok, idx.cpu(), comb)
+    q8 = dict(ex, w1=(ex["w1"].to(torch.int8),
+                      torch.ones(4, 2, 128, device=cuda)))
+    with pytest.raises(NotImplementedError, match="int8"):
+        md.fused_moe_ffn_slots(q8, tok, idx, comb)
+    odd = _moe_inputs(cuda, T=16, C=16, E=4, D=96, F=128, act="swiglu",
+                      dtype=torch.bfloat16, seed=2)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        md.fused_moe_ffn_slots(*odd[:4])
+    with pytest.raises(ValueError, match="tokens are"):
+        md.fused_moe_ffn_slots(ex, tok.float(), idx, comb)
+    with pytest.raises(ValueError, match="contiguous"):
+        md.fused_moe_ffn_slots(ex, tok, idx.t().contiguous().t(), comb)

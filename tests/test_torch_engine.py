@@ -200,8 +200,17 @@ def test_engine_refuses_queued_options():
         with pytest.raises(NotImplementedError, match=method.__name__):
             method()
     assert not eng.queue
-    with pytest.raises(NotImplementedError):
-        GPTConfig(**SMALL, moe_experts=4)
+    # the MoE family serves; what still refuses: expert parallelism on the
+    # engine, the non-causal expert-choice router, and moe_dispatch on a
+    # dense model
+    moe = GPTConfig(**SMALL, moe_experts=4)
+    with pytest.raises(NotImplementedError, match="ep_axis"):
+        ServingEngine(None, moe, device="cpu", ep_axis="ep", **ENGINE)
+    with pytest.raises(ValueError, match="expert_choice"):
+        GPTConfig(**SMALL, moe_experts=4, moe_router="expert_choice")
+    with pytest.raises(ValueError, match="no MoE"):
+        ServingEngine(None, cfg, device="cpu", moe_dispatch="gather",
+                      **ENGINE)
 
 
 def test_default_device_is_the_card():

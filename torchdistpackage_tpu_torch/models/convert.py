@@ -2,9 +2,10 @@
 
 The port keeps the reference's layouts leaf for leaf (``[in, out]``
 weights, block leaves stacked ``[L, ...]``, the Llama preset's zero
-biases), so the conversion is a dtype-preserving copy of every array —
-after which the port and the JAX package compute the same function on the
-same weights, which is what the parity tests rely on.
+biases; the MoE family's per-block list with its stacked ``[E, ...]``
+expert leaves), so the conversion is a dtype-preserving copy of every
+array — after which the port and the JAX package compute the same
+function on the same weights, which is what the parity tests rely on.
 """
 
 from __future__ import annotations
@@ -25,23 +26,40 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: GPTConfig,
     side — this module never imports JAX).  Returns the port's dict with
     each leaf a tensor of ``cfg.dtype`` on ``device`` (default: the
     card).  bfloat16 leaves (numpy's ``ml_dtypes`` extension type) pass
-    through float32, which holds every bfloat16 value exactly."""
+    through float32, which holds every bfloat16 value exactly.
+
+    ``blocks`` is the dense family's stacked dict, or — for an MoE config
+    (``cfg.moe_experts > 0``) — the per-block list of
+    ``init_gpt_moe_params``, one dict per block, kept a list."""
     dev = resolve_device(device)
 
     def conv(x):
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items()}
-        if isinstance(x, (list, tuple)):
+        if isinstance(x, tuple):
             raise TypeError(
-                "expected the stacked-blocks tree of init_gpt_params "
-                "(dict leaves), got a list")
+                "int8 (q8, scale) weight pairs are not carried over")
         arr = np.asarray(x)
         if arr.dtype.kind == "f" or arr.dtype.name == "bfloat16":
             arr = arr.astype(np.float32)
         return torch.from_numpy(np.ascontiguousarray(arr)).to(
             device=dev, dtype=cfg.dtype)
 
-    out = conv(dict(np_tree))
+    tree = dict(np_tree)
+    blocks = tree.pop("blocks", None)
+    out = conv(tree)
+    if isinstance(blocks, (list, tuple)):
+        if not cfg.moe_experts or len(blocks) != cfg.nlayers:
+            raise TypeError(
+                f"a per-block list of {len(blocks)} blocks needs an MoE "
+                f"config of as many layers (moe_experts "
+                f"{cfg.moe_experts}, nlayers {cfg.nlayers})")
+        out["blocks"] = [conv(dict(b)) for b in blocks]
+    elif blocks is not None:
+        if cfg.moe_experts:
+            raise TypeError("an MoE config needs the per-block list of "
+                            "init_gpt_moe_params, got stacked blocks")
+        out["blocks"] = conv(blocks)
     want = {"tok_emb", "blocks", "ln_f", "head"}
     if cfg.pos == "learned":
         want.add("pos_emb")

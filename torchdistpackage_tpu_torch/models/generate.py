@@ -85,11 +85,16 @@ def _cached_attention(q: torch.Tensor, ck: KV, cv: KV, offset,
 
 def cached_block_forward(p: Dict[str, Any], x: torch.Tensor,
                          cfg: TransformerConfig, ck: KV, cv: KV, offset, *,
-                         cache_ops, rope=None) -> Tuple[torch.Tensor, KV, KV]:
+                         cache_ops, rope=None,
+                         ffn=None) -> Tuple[torch.Tensor, KV, KV]:
     """One pre-norm block with KV caching through ``cache_ops = (write,
     attend)``: this call's k/v are written into the cache first, then the
     queries attend against it — so the chunk's own keys are read back
-    from the cache.  x [B, S_in, D]; returns ``(y, ck, cv)``."""
+    from the cache.  x [B, S_in, D]; returns ``(y, ck, cv)``.
+
+    ``ffn``: optional ``(p, h) -> z`` replacing the dense MLP half (``h``
+    the post-ln2 activation, ``z`` the complete FFN output) — how the MoE
+    family plugs its expert layer into the same block."""
     B, S_in, _ = x.shape
     write, attend = cache_ops
     h = layer_norm(x, p["ln1"], cfg.norm_eps)
@@ -100,7 +105,10 @@ def cached_block_forward(p: Dict[str, Any], x: torch.Tensor,
     out = out.transpose(1, 2).reshape(B, S_in, q.shape[1] * cfg.head_dim)
     x = x + dense(out, p["attn"]["wo"], p["attn"]["bo"])
     h = layer_norm(x, p["ln2"], cfg.norm_eps)
-    z = mlp_partial(p["mlp"], h) + p["mlp"]["b2"]
+    if ffn is None:
+        z = mlp_partial(p["mlp"], h) + p["mlp"]["b2"]
+    else:
+        z = ffn(p, h)
     return x + z, ck, cv
 
 

@@ -58,18 +58,41 @@ class GPTConfig:
     ffn_hidden: Optional[int] = None
     norm_eps: float = 1e-5
     sliding_window: Optional[int] = None
-    # Mixture-of-Experts is not ported yet: any value > 0 is refused
+    # Mixture-of-Experts (0 = dense model).  With ``moe_experts > 0`` every
+    # ``moe_every``-th block's FFN is an expert layer (``models/gpt_moe.py``
+    # builds the per-block list); serving runs it (``paged_forward_moe``),
+    # MoE training is not ported yet (ROADMAP queue A).
     moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_every: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 1e-2
+    # 'topk' only for this causal family: 'expert_choice' ranks the whole
+    # sequence per expert (a future-token leak), refused as in the reference
+    moe_router: str = "topk"
+    moe_dispatch: str = "auto"  # 'gather' | 'cuda' | 'auto' (see MoEConfig)
 
     def __post_init__(self):
         if not isinstance(self.dtype, torch.dtype):
             raise TypeError(f"dtype must be a torch.dtype, got {self.dtype!r}")
         if self.pos not in ("learned", "rope"):
             raise ValueError(f"pos must be 'learned' or 'rope', got {self.pos!r}")
-        if self.moe_experts:
-            raise NotImplementedError(
-                "MoE families are not ported yet (ROADMAP queue A)")
+        if self.moe_experts < 0 or self.moe_every < 1:
+            raise ValueError(
+                f"moe_experts must be >= 0 and moe_every >= 1, got "
+                f"{self.moe_experts} / {self.moe_every}")
+        if self.moe_experts and self.moe_router == "expert_choice" \
+                and self.causal:
+            raise ValueError(
+                "moe_router='expert_choice' is incompatible with a causal "
+                "model: each expert picks its top tokens over the whole "
+                "sequence, so token t's routing depends on tokens > t. Use "
+                "moe_router='topk'.")
         self.block  # validates the block fields
+        if self.moe_experts:
+            from ..models.gpt_moe import moe_layer_config
+
+            moe_layer_config(self)  # validates the MoE fields
 
     @property
     def block(self) -> TransformerConfig:
@@ -93,9 +116,15 @@ class GPTConfig:
         mlp = (3 * D * Fd + 2 * Fd + D) if self.act == "swiglu" else (
             2 * D * Fd + Fd + D)
         norm = D if self.norm == "rms" else 2 * D
-        per_block = attn + D * D + D + mlp + 2 * norm
+        per_block = attn + D * D + D + 2 * norm
+        # an expert block carries the router [D, E] and E expert MLPs of the
+        # dense MLP's shape in place of the one MLP
+        n_moe = sum(1 for i in range(L) if self.moe_experts
+                    and i % self.moe_every == self.moe_every - 1)
+        ffn = ((L - n_moe) * mlp
+               + n_moe * (D * self.moe_experts + self.moe_experts * mlp))
         pos = self.max_seq * D if self.pos == "learned" else 0
-        return V * D + pos + L * per_block + norm + D * V
+        return V * D + pos + L * per_block + ffn + norm + D * V
 
 
 def llama_config(
@@ -127,6 +156,19 @@ def mistral_7b_config() -> GPTConfig:
         vocab_size=32000, dim=4096, nheads=32, nlayers=32, max_seq=32768,
         kv_heads=8, ffn_hidden=14336, rope_theta=10000.0, norm_eps=1e-5,
         sliding_window=4096, dtype=torch.bfloat16)
+
+
+def mixtral_8x7b_config(nlayers: int = 32) -> GPTConfig:
+    """The published Mixtral-8x7B-v0.1 (its ``config.json``), in bf16:
+    hidden 4096, 32 query / 8 KV heads of dim 128, SwiGLU experts of
+    14336, 8 experts with top-2 routing in every layer, vocab 32000,
+    32768 positions, RoPE theta 1e6, RMSNorm eps 1e-5, no sliding window.
+    ``nlayers`` cuts the depth (32 published; 46.7 B parameters there)."""
+    return llama_config(
+        vocab_size=32000, dim=4096, nheads=32, nlayers=nlayers,
+        max_seq=32768, kv_heads=8, ffn_hidden=14336, rope_theta=1e6,
+        norm_eps=1e-5, dtype=torch.bfloat16, moe_experts=8, moe_top_k=2,
+        moe_every=1)
 
 
 # ------------------------------------------------------------------ model
@@ -228,6 +270,10 @@ def init_gpt_params(cfg: GPTConfig, gen: Optional[torch.Generator] = None,
     """Random parameters drawn from ``gen`` on ``device`` (default: the
     card).  The block leaves are stacked over the layer dim, filled one
     layer at a time so peak memory stays at the model plus one block."""
+    if cfg.moe_experts:
+        raise ValueError(
+            "an MoE config has a per-block list: use "
+            "models.gpt_moe.init_gpt_moe_params")
     dev = resolve_device(device)
     if gen is None:
         gen = torch.Generator(device=dev).manual_seed(0)

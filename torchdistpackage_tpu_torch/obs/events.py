@@ -1,8 +1,9 @@
 """Append-only structured event log — the minimum of
 ``torchdistpackage_tpu/obs/events.py`` that the serving engine's timeline
-needs: :class:`EventLog` (``emit``, ``as_list``) and the
-process-wide :func:`default_event_log`.  File sinks, tagging and the
-event-kind registry are not ported yet (ROADMAP queue A).
+needs: :class:`EventLog` (``emit``, ``as_list``), the process-wide
+:func:`default_event_log`, and :data:`EVENT_KINDS`, the part of the
+reference's kind registry that the port emits.  File sinks and tagging
+are not ported yet (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -10,7 +11,19 @@ from __future__ import annotations
 import collections
 import datetime
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, FrozenSet, Optional
+
+#: The event kinds the port emits (a subset of the reference's registry,
+#: same names and meaning); a new emitter adds its kind here.
+EVENT_KINDS: FrozenSet[str] = frozenset({
+    # serving: the request lifecycle and the engine's audit
+    "request_submitted", "request_admitted", "prefill_chunk",
+    "request_retired", "request_cancelled", "engine_fault_detected",
+    "engine_recovered",
+    # MoE: which dispatch 'auto' resolved to, and the host-side
+    # capacity-overflow alarm (dropped-token rate over threshold)
+    "moe_dispatch_selected", "expert_overflow",
+})
 
 
 def _process_index() -> int:

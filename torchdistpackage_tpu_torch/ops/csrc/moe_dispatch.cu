@@ -1,0 +1,448 @@
+// Fused MoE expert dispatch for Hopper (sm_90a): gather token rows through
+// the [E, C] slot maps, run each expert's FFN, and add the gate-weighted
+// result back into the [T, D] output — one launch a layer, with no
+// [T, E, C] dispatch tensor and no gathered [E, C, D] slot view in device
+// memory.
+//
+// Replaces the TPU kernel K6 of torchdistpackage_tpu/ops/moe_dispatch.py:
+// _pallas_moe_ffn (:289, body _kernel :202) -> moe_ffn_kernel.
+//
+// y[t] = sum over filled slots (e, c) with idx[e, c] = t and g = comb[e, c]
+//        of g * FFN_e(x[t]),
+// FFN_e(x) = (silu(x.W1[e,0] + b1[e,0]) * (x.W1[e,1] + b1[e,1])).W2[e] + b2[e]
+// (SwiGLU, w1 [E, 2, D, F]) or gelu_tanh(x.W1[e] + b1[e]).W2[e] + b2[e]
+// (GELU, w1 [E, D, F]); y is f32 and must be zeroed by the caller.
+//
+// What bounds it on an H100 (3.35 TB/s, 989 TFLOP/s bf16):
+// - decode (T = 8 rows, top-2 of 8 experts): the bytes of every expert hit,
+//   3 D F x 2 B = 352 MB an expert at Mixtral widths (D 4096, F 14336), up
+//   to 2.8 GB a layer against ~1e9 FLOP — bytes.  Every CTA streams its
+//   slice of W1 and W2 once through shared memory, and a warp whose 16 rows
+//   are all empty skips its products, so the weights are read once a layer
+//   and only for the experts that were hit.
+// - a 512-row prefill chunk of 8 slots (T = 4096): 2 (T k) 3 D F = 2.9e12
+//   FLOP — operations.  The products run on the tensor cores (mma.sync
+//   m16n8k16, bf16 in, f32 accumulate); the f32 instantiation computes the
+//   same tiles on the CUDA cores (exact f32, for checks).
+//
+// Design, against the TPU kernel:
+// - The TPU kernel loads one expert's whole W1/W2 per grid step (BlockSpec
+//   over everything but the expert dim).  At Mixtral widths one expert's W1
+//   is 235 MB, so here a CTA owns 64 capacity slots of one expert and one
+//   64-column tile of F: phase 1 walks D in 64-deep stages (gathered token
+//   rows and the W1 tile double-buffered with cp.async) into the gate/up
+//   accumulators, applies bias and activation in registers and keeps the
+//   [64, 64] activation in shared memory; phase 2 walks D in 64-column
+//   stages of W2, each a [64, 64] . [64, 64] product.
+// - The TPU grid runs in order, so it zeroes the output at its first step
+//   and read-modify-writes rows.  CTAs run in parallel in no order: the
+//   wrapper allocates y with torch.zeros, and each CTA adds g x its partial
+//   product with f32 atomicAdd (red.global.add.f32), staged per warp
+//   through shared memory so one warp instruction covers 128 contiguous
+//   bytes of one token row.  The partial sums over F tiles therefore meet
+//   in y in an order that changes from run to run (f32 summation order
+//   only).  b2 is added once, by the CTAs of the first F tile.
+// - Scalar-prefetched idx: each CTA loads its own 64 entries of idx / comb.
+// - The empty-tile skip (:239) stays: a CTA whose 64 comb values are all 0
+//   exits before any load.  At the serving capacity C = T only T k of the
+//   E T slots are filled, from slot 0 upward, so the trailing tiles of every
+//   expert exit at once and the E / k padded-compute tax never runs.
+// - Rounding: for bf16 the activation is rounded to bf16 before the second
+//   tensor-core product; the TPU kernel keeps it in f32.  Every accumulator
+//   stays f32.
+// Fragments are assembled with 16/32-bit shared loads, as in the flash
+// kernels.  A faster version would use wgmma fed by TMA in a persistent
+// grouped GEMM over the filled row groups, with a larger F tile (fewer
+// atomics) or a second pass for the F reduction (later work).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr int NWARPS = 4;
+constexpr int NTHREADS = NWARPS * 32;
+constexpr int BM = NWARPS * 16;  // capacity slots a CTA owns
+constexpr int BF = 64;           // columns of F a CTA owns
+constexpr int BK = 64;           // depth of D a phase-1 stage
+constexpr int BN = 64;           // columns of D a phase-2 stage
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// 16 bytes global -> shared; src_bytes 0 fills the 16 bytes with zeros
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes = 16) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo,
+                                          __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One warp: c[j] += A[16 x K] . B[K x 8j..8j+7] for j < NT8, in the m16n8
+// accumulator layout (lane = 4g + t holds rows g and g + 8, columns 2t and
+// 2t + 1 of each 8-column tile).  A(m, k) = a[m * lda + k] and
+// B(k, n) = b[k * ldb + n], both row-major in shared memory.
+template <typename T, int K, int NT8>
+__device__ __forceinline__ void warp_gemm(float (&c)[NT8][4], const T* a,
+                                          int lda, const T* b, int ldb) {
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+#pragma unroll
+    for (int k0 = 0; k0 < K; k0 += 16) {
+      uint32_t af[4];
+      af[0] = ld32(a + g * lda + k0 + 2 * t);
+      af[1] = ld32(a + (g + 8) * lda + k0 + 2 * t);
+      af[2] = ld32(a + g * lda + k0 + 2 * t + 8);
+      af[3] = ld32(a + (g + 8) * lda + k0 + 2 * t + 8);
+#pragma unroll
+      for (int j = 0; j < NT8; ++j) {
+        const int n = j * 8 + g;
+        uint32_t bf[2];
+        bf[0] = pack2(b[(k0 + 2 * t) * ldb + n], b[(k0 + 2 * t + 1) * ldb + n]);
+        bf[1] = pack2(b[(k0 + 2 * t + 8) * ldb + n],
+                      b[(k0 + 2 * t + 9) * ldb + n]);
+        mma_bf16(c[j], af, bf);
+      }
+    }
+  } else {
+    // f32: the same layout, exact products on the CUDA cores
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) {
+      const float a0 = to_f(a[g * lda + k]);
+      const float a1 = to_f(a[(g + 8) * lda + k]);
+#pragma unroll
+      for (int j = 0; j < NT8; ++j) {
+        const int n = j * 8 + 2 * t;
+        const float b0 = to_f(b[k * ldb + n]);
+        const float b1 = to_f(b[k * ldb + n + 1]);
+        c[j][0] += a0 * b0;
+        c[j][1] += a0 * b1;
+        c[j][2] += a1 * b0;
+        c[j][3] += a1 * b1;
+      }
+    }
+  }
+}
+
+template <int NT8>
+__device__ __forceinline__ void zero(float (&c)[NT8][4]) {
+#pragma unroll
+  for (int j = 0; j < NT8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+}
+
+// rows x (COLS elements) from device memory (row r at src + r * stride)
+// into a shared tile whose rows are LD elements apart
+template <typename T, int COLS, int LD>
+__device__ __forceinline__ void copy_tile(T* dst, const T* src,
+                                          long long stride, int rows) {
+  constexpr int CH = COLS * sizeof(T) / 16;
+  for (int i = threadIdx.x; i < rows * CH; i += NTHREADS) {
+    const int r = i / CH;
+    const int c = i % CH;
+    cp_async16(reinterpret_cast<unsigned char*>(dst + r * LD) + c * 16,
+               reinterpret_cast<const unsigned char*>(src + r * stride) +
+                   c * 16);
+  }
+}
+
+__device__ __forceinline__ float silu(float x) { return x / (1.f + expf(-x)); }
+// jax.nn.gelu's default (approximate=True), as the port's dense MLP
+__device__ __forceinline__ float gelu_tanh(float x) {
+  const float k0 = 0.7978845608028654f;  // sqrt(2 / pi)
+  return 0.5f * x * (1.f + tanhf(k0 * (x + 0.044715f * x * x * x)));
+}
+
+template <typename T, bool SWIGLU>
+struct Cfg {
+  static constexpr int PAD = 16 / sizeof(T);  // 16 bytes after each row
+  static constexpr int NW1 = SWIGLU ? 2 : 1;  // W1 tiles a stage (gate, up)
+  static constexpr int LDX = BK + PAD;        // gathered token rows
+  static constexpr int LDW = BF + PAD;        // W1 tiles, W2 tiles
+  static constexpr int LDH = BF + PAD;        // activation
+  static constexpr int LDO = BN + 4;          // f32 partials, per warp
+  static constexpr int STAGE1 = BM * LDX + NW1 * BK * LDW;  // elements
+  static constexpr int STAGE2 = BF * LDW;
+  static constexpr size_t HEAD = 3 * BM * sizeof(int);  // idx, dst, comb
+  static constexpr size_t H_BYTES = sizeof(T) * BM * LDH;
+  static constexpr size_t P1 = sizeof(T) * 2 * STAGE1;
+  static constexpr size_t P2 = sizeof(T) * 2 * STAGE2 + sizeof(float) * BM * LDO;
+  static constexpr size_t SMEM = HEAD + H_BYTES + (P1 > P2 ? P1 : P2);
+};
+
+// Grid (C / 64 capacity tiles, F / 64 F tiles, E experts), 128 threads.
+// dst: the token each slot's result is added to (the wrapper passes idx).
+template <typename T, bool SWIGLU>
+__global__ void __launch_bounds__(NTHREADS)
+moe_ffn_kernel(const T* __restrict__ x, const int* __restrict__ idx,
+               const float* __restrict__ comb, const int* __restrict__ dst,
+               const T* __restrict__ w1, const T* __restrict__ b1,
+               const T* __restrict__ w2, const T* __restrict__ b2,
+               float* __restrict__ y, int D, int F, int C) {
+  using G = Cfg<T, SWIGLU>;
+  constexpr int LDX = G::LDX, LDW = G::LDW, LDH = G::LDH, LDO = G::LDO;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int* idx_s = reinterpret_cast<int*>(smem_raw);
+  int* dst_s = idx_s + BM;
+  float* comb_s = reinterpret_cast<float*>(dst_s + BM);
+  T* hs = reinterpret_cast<T*>(smem_raw + G::HEAD);
+  T* buf = reinterpret_cast<T*>(smem_raw + G::HEAD + G::H_BYTES);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int c0 = blockIdx.x * BM;
+  const int f0 = blockIdx.y * BF;
+  const int e = blockIdx.z;
+
+  // this CTA's slots; a tile with no filled slot exits before any load
+  float gv = 0.f;
+  if (tid < BM) {
+    const int c = c0 + tid;
+    const long long s = static_cast<long long>(e) * C + c;
+    const bool in = c < C;
+    gv = in ? comb[s] : 0.f;
+    idx_s[tid] = in ? idx[s] : 0;
+    dst_s[tid] = in ? dst[s] : 0;
+    comb_s[tid] = gv;
+  }
+  if (!__syncthreads_or(gv != 0.f)) return;
+  // a warp whose 16 rows are all empty skips its products and its adds
+  const bool live = __any_sync(0xffffffffu,
+                               lane < 16 && comb_s[warp * 16 + lane] != 0.f);
+
+  // ---- phase 1: gate (and up) = X[64, D] . W1[e][D, f0:f0+64]
+  const long long wstride = static_cast<long long>(D) * F;
+  const T* wg = w1 + static_cast<long long>(e) * G::NW1 * wstride + f0;
+  const T* wu = wg + wstride;  // SwiGLU's up projection
+  auto fetch1 = [&](int k0, int stage) {
+    T* xs = buf + stage * G::STAGE1;
+    T* ws = xs + BM * LDX;
+    constexpr int CH = BK * sizeof(T) / 16;
+    for (int i = tid; i < BM * CH; i += NTHREADS) {
+      const int r = i / CH;
+      const int c = i % CH;
+      const bool filled = comb_s[r] != 0.f;
+      const T* src = x + static_cast<long long>(filled ? idx_s[r] : 0) * D +
+                     k0;
+      cp_async16(reinterpret_cast<unsigned char*>(xs + r * LDX) + c * 16,
+                 reinterpret_cast<const unsigned char*>(src) + c * 16,
+                 filled ? 16 : 0);
+    }
+    copy_tile<T, BF, LDW>(ws, wg + static_cast<long long>(k0) * F, F, BK);
+    if (SWIGLU)
+      copy_tile<T, BF, LDW>(ws + BK * LDW, wu + static_cast<long long>(k0) * F,
+                            F, BK);
+  };
+
+  float gate[BF / 8][4], up[BF / 8][4];
+  zero(gate);
+  zero(up);
+  const int nk = D / BK;
+  fetch1(0, 0);
+  cp_async_commit();
+  for (int kk = 0; kk < nk; ++kk) {
+    const int cur = kk & 1;
+    if (kk + 1 < nk) {
+      fetch1((kk + 1) * BK, cur ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (live) {
+      const T* xs = buf + cur * G::STAGE1;
+      const T* ws = xs + BM * LDX;
+      warp_gemm<T, BK, BF / 8>(gate, xs + warp * 16 * LDX, LDX, ws, LDW);
+      if (SWIGLU)
+        warp_gemm<T, BK, BF / 8>(up, xs + warp * 16 * LDX, LDX, ws + BK * LDW,
+                                 LDW);
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+
+  // bias and activation in registers; the activation in T (bf16: rounded
+  // before the second product)
+  if (live) {
+    const T* bg = b1 + static_cast<long long>(e) * G::NW1 * F + f0;
+#pragma unroll
+    for (int jj = 0; jj < BF / 8; ++jj)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int row = warp * 16 + g + (q >> 1) * 8;
+        const int col = jj * 8 + 2 * t + (q & 1);
+        float h;
+        if (SWIGLU)
+          h = silu(gate[jj][q] + to_f(bg[col])) *
+              (up[jj][q] + to_f(bg[F + col]));
+        else
+          h = gelu_tanh(gate[jj][q] + to_f(bg[col]));
+        hs[row * LDH + col] = from_f<T>(h);
+      }
+  }
+
+  // ---- phase 2: y[dst] += g * (H[64, 64] . W2[e][f0:f0+64, d0:d0+64] + b2)
+  const T* w2e = w2 + (static_cast<long long>(e) * F + f0) * D;
+  const T* b2e = b2 + static_cast<long long>(e) * D;
+  float* os = reinterpret_cast<float*>(buf + 2 * G::STAGE2) +
+              warp * 16 * LDO;
+  const bool first_tile = blockIdx.y == 0;
+  const int nd = D / BN;
+  copy_tile<T, BN, LDW>(buf, w2e, D, BF);
+  cp_async_commit();
+  for (int dd = 0; dd < nd; ++dd) {
+    const int cur = dd & 1;
+    if (dd + 1 < nd) {
+      copy_tile<T, BN, LDW>(buf + (cur ^ 1) * G::STAGE2, w2e + (dd + 1) * BN,
+                            D, BF);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // the stage has landed (and, at dd 0, every h row)
+    if (live) {
+      const int d0 = dd * BN;
+      float acc[BN / 8][4];
+      zero(acc);
+      warp_gemm<T, BF, BN / 8>(acc, hs + warp * 16 * LDH, LDH,
+                               buf + cur * G::STAGE2, LDW);
+#pragma unroll
+      for (int jj = 0; jj < BN / 8; ++jj)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int col = jj * 8 + 2 * t + (q & 1);
+          os[(g + (q >> 1) * 8) * LDO + col] =
+              acc[jj][q] + (first_tile ? to_f(b2e[d0 + col]) : 0.f);
+        }
+      __syncwarp();
+      // one row at a time: 32 lanes on 32 contiguous floats of one token
+      for (int r = 0; r < 16; ++r) {
+        const float w = comb_s[warp * 16 + r];
+        if (w == 0.f) continue;
+        float* yr = y + static_cast<long long>(dst_s[warp * 16 + r]) * D + d0;
+        atomicAdd(yr + lane, w * os[r * LDO + lane]);
+        atomicAdd(yr + lane + 32, w * os[r * LDO + lane + 32]);
+      }
+      __syncwarp();
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+}
+
+template <typename T, bool SWIGLU>
+cudaError_t launch(const void* x, const void* idx, const void* comb,
+                   const void* dst, const void* w1, const void* b1,
+                   const void* w2, const void* b2, void* y, int D, int F,
+                   int E, int C, cudaStream_t st) {
+  using G = Cfg<T, SWIGLU>;
+  auto kernel = moe_ffn_kernel<T, SWIGLU>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(G::SMEM));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((C + BM - 1) / BM, F / BF, E);
+  kernel<<<grid, NTHREADS, G::SMEM, st>>>(
+      static_cast<const T*>(x), static_cast<const int*>(idx),
+      static_cast<const float*>(comb), static_cast<const int*>(dst),
+      static_cast<const T*>(w1), static_cast<const T*>(b1),
+      static_cast<const T*>(w2), static_cast<const T*>(b2),
+      static_cast<float*>(y), D, F, C);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// x [T, D]; idx / dst int32 [E, C]; comb f32 [E, C]; w1 [E, 2, D, F]
+// (swiglu 1) or [E, D, F] (swiglu 0); b1 [E, 2, F] or [E, F]; w2 [E, F, D];
+// b2 [E, D]; y f32 [T, D], zeroed.  All contiguous and 16-byte aligned, D
+// and F multiples of 64; dtype_tag 0 = bf16, 1 = f32 (x and every weight).
+// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for a
+// shape the kernel does not take).
+extern "C" int tdp_moe_ffn(const void* x, const void* idx, const void* comb,
+                           const void* dst, const void* w1, const void* b1,
+                           const void* w2, const void* b2, void* y, int T,
+                           int D, int F, int E, int C, int swiglu,
+                           int dtype_tag, void* stream) {
+  if (T < 1 || E < 1 || C < 1 || D < BK || F < BF || D % BK != 0 ||
+      F % BF != 0 || E > 65535 || F / BF > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (dtype_tag * 2 + (swiglu ? 1 : 0)) {
+    case 0:
+      err = launch<__nv_bfloat16, false>(x, idx, comb, dst, w1, b1, w2, b2, y,
+                                         D, F, E, C, st);
+      break;
+    case 1:
+      err = launch<__nv_bfloat16, true>(x, idx, comb, dst, w1, b1, w2, b2, y,
+                                        D, F, E, C, st);
+      break;
+    case 2:
+      err = launch<float, false>(x, idx, comb, dst, w1, b1, w2, b2, y, D, F, E,
+                                 C, st);
+      break;
+    case 3:
+      err = launch<float, true>(x, idx, comb, dst, w1, b1, w2, b2, y, D, F, E,
+                                C, st);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err);
+}
+
+// Dynamic shared memory a CTA uses, for the build report; -1 if unknown.
+extern "C" int tdp_moe_ffn_smem_bytes(int dtype_tag, int swiglu) {
+  switch (dtype_tag * 2 + (swiglu ? 1 : 0)) {
+    case 0: return static_cast<int>(Cfg<__nv_bfloat16, false>::SMEM);
+    case 1: return static_cast<int>(Cfg<__nv_bfloat16, true>::SMEM);
+    case 2: return static_cast<int>(Cfg<float, false>::SMEM);
+    case 3: return static_cast<int>(Cfg<float, true>::SMEM);
+    default: return -1;
+  }
+}

@@ -1,0 +1,292 @@
+"""Fused MoE expert dispatch: gather token rows through the ``[E, C]``
+slot maps, run each expert's FFN and add the gate-weighted result back
+per token, with no ``[T, E, C]`` dispatch tensor and no gathered
+``[E, C, D]`` slot view in device memory.
+
+Replaces the TPU kernel K6, ``_pallas_moe_ffn``
+(``torchdistpackage_tpu/ops/moe_dispatch.py:289``, body ``_kernel`` :202),
+with a CUDA kernel written by hand for Hopper, ``ops/csrc/moe_dispatch.cu``
+(built by :mod:`._build` at first use).
+
+What bounds it on an H100: at decode (a few rows) the bytes of every
+expert that was hit — its whole W1 and W2, 352 MB an expert at Mixtral
+widths; at a prefill chunk (4096 rows) the operations, ``2 (T k) 3 D F``
+for SwiGLU.  A CTA owns 64 capacity slots of one expert and 64 columns of
+F, streams its W1 and W2 slices through shared memory once, and runs the
+products on the tensor cores; a tile with no filled slot exits at once,
+which is what lets serving run at the no-drop capacity ``C = T`` without
+the ``E / k`` padded-compute tax.  Partial sums over F tiles meet in the
+f32 output by atomic adds (so their order varies from run to run).  The
+source's header says what a faster version would add.
+
+- :func:`slot_maps` compresses a ``_top_k_route`` decision into the
+  kernel's maps: ``idx`` (the token in each slot) and ``comb`` (its gate
+  weight, 0 for an empty or dropped slot).
+- :func:`moe_ffn_slots_reference` is K6's plain version on those maps; it
+  does build the ``[E, C, D]`` slot view.  :func:`moe_ffn_oracle` is the
+  JAX package's oracle (maps built from the routing, output in the
+  tokens' dtype).
+- :func:`fused_moe_ffn_slots` is the kernel's wrapper: it launches K6 for
+  CUDA tensors and raises on anything K6 does not take (int8 expert
+  weights included), and takes the plain version only for CPU tensors.
+  ``LAUNCHES["fused_moe_ffn"]`` counts its launches.
+  :func:`fused_moe_ffn` is the routing-level entry point the serving
+  forward calls.
+
+The backward the reference gives ``fused_moe_ffn`` (a ``custom_vjp``
+through the oracle) belongs to MoE training, which is not ported yet
+(ROADMAP queue A): this module is forward-only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+#: kernel launches since the counter was last reset (the wrapper adds one
+#: where it launches, and nowhere else)
+LAUNCHES: Dict[str, int] = {"fused_moe_ffn": 0}
+
+_DTYPE_TAG = {torch.bfloat16: 0, torch.float32: 1}
+TILE = 64  # the kernel's D and F tile: both must be multiples of it
+_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+             + [ctypes.c_void_p])
+# x, idx, comb, dst, w1, b1, w2, b2, y, T, D, F, E, C, swiglu, dtype, stream
+
+
+def _kernel():
+    from ._build import load
+
+    fn = load("moe_dispatch").tdp_moe_ffn
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def resolve_moe_dispatch(dispatch: Optional[str], device) -> str:
+    """``'auto'``/None -> ``'cuda'`` (the kernel) on a CUDA device,
+    ``'gather'`` (the ragged plain path) on the CPU — by the device, where
+    the reference asks the backend.  Explicit values pass through
+    validated; ``'gather'`` stays legal on the card as the oracle arm.
+    The choice is recorded as a ``moe_dispatch_selected`` event."""
+    if dispatch in (None, "auto"):
+        chosen = "cuda" if torch.device(device).type == "cuda" else "gather"
+        from ..obs.events import default_event_log
+
+        default_event_log().emit("moe_dispatch_selected", requested="auto",
+                                 chosen=chosen, device=str(device))
+        return chosen
+    if dispatch not in ("cuda", "gather"):
+        raise ValueError(
+            f"moe dispatch must be 'cuda', 'gather' or 'auto', got "
+            f"{dispatch!r}")
+    return dispatch
+
+
+def _is_q(w) -> bool:
+    return isinstance(w, tuple)
+
+
+def slot_maps(gate_vals: torch.Tensor, gate_idx: torch.Tensor,
+              slot: torch.Tensor, keep: torch.Tensor, capacity: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A ``_top_k_route`` decision -> the kernel's two ``[E, C]`` maps:
+    ``idx`` int32 (the token in each slot; 0 where empty — harmless, its
+    weight is 0) and ``comb`` f32 (the renormalised gate weight of that
+    (token, choice); 0 for empty or dropped slots).  Dropped choices land
+    on a dumpster entry that is cut off."""
+    T, k = gate_idx.shape
+    E = keep.shape[-1]
+    dev = gate_idx.device
+    kept = keep.sum(-1)  # [T, k]: 1 iff the choice fit capacity
+    dest = torch.where(kept > 0, gate_idx.long() * capacity + slot.long(),
+                       E * capacity).reshape(-1)
+    tok = torch.arange(T, dtype=torch.int32, device=dev)[:, None].expand(
+        T, k).reshape(-1)
+    idx = torch.zeros(E * capacity + 1, dtype=torch.int32, device=dev)
+    idx[dest] = tok
+    comb = torch.zeros(E * capacity + 1, dtype=torch.float32, device=dev)
+    comb[dest] = (gate_vals * kept).float().reshape(-1)
+    return (idx[:E * capacity].reshape(E, capacity),
+            comb[:E * capacity].reshape(E, capacity))
+
+
+def expert_act(xs: torch.Tensor, w1: torch.Tensor,
+               b1: torch.Tensor) -> torch.Tensor:
+    """The expert's activation h on ``[..., G, D]`` rows: a ``[..., 2, D,
+    F]`` w1 (one more dim than the rows) is the stacked gate/up SwiGLU
+    expert, ``silu(x w1[0] + b1[0]) * (x w1[1] + b1[1])``; a ``[..., D,
+    F]`` one the GELU expert (tanh approximation, ``jax.nn.gelu``'s
+    default).  Leading dims batch over experts; the arithmetic is in the
+    inputs' dtype."""
+    if w1.dim() == xs.dim() + 1:
+        g = xs @ w1.select(-3, 0) + b1.select(-2, 0).unsqueeze(-2)
+        u = xs @ w1.select(-3, 1) + b1.select(-2, 1).unsqueeze(-2)
+        return F.silu(g) * u
+    return F.gelu(xs @ w1 + b1.unsqueeze(-2), approximate="tanh")
+
+
+def ffn_rows(xs: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+             w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """The expert FFN on ``[..., G, D]`` rows: :func:`expert_act`, then
+    ``h w2 + b2``."""
+    return expert_act(xs, w1, b1) @ w2 + b2.unsqueeze(-2)
+
+
+def _expert_weights_f32(experts: Dict[str, Any]):
+    if _is_q(experts["w1"]) or _is_q(experts["w2"]):
+        raise NotImplementedError(
+            "int8 (q8, scale) expert weights are a K6 variant not ported "
+            "yet (ROADMAP queue B)")
+    return tuple(experts[n].float() for n in ("w1", "b1", "w2", "b2"))
+
+
+@torch.no_grad()
+def moe_ffn_slots_reference(experts: Dict[str, Any], tokens: torch.Tensor,
+                            idx: torch.Tensor, comb: torch.Tensor,
+                            scatter_idx: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """K6's plain version on the slot maps: gather the ``[E, C, D]`` slot
+    view in f32 (empty slots zeroed), run each expert's FFN on its slots,
+    and add ``comb x`` each slot's output into f32 ``[T, D]`` at
+    ``scatter_idx`` (default ``idx``) — the reference oracle's
+    arithmetic."""
+    T, D = tokens.shape
+    E, C = idx.shape
+    w1, b1, w2, b2 = _expert_weights_f32(experts)
+    filled = (comb != 0.0)[..., None]
+    view = torch.where(filled, tokens.float()[idx.long()], 0.0)  # [E, C, D]
+    out = ffn_rows(view, w1, b1, w2, b2)  # [E, C, D]
+    dst = idx if scatter_idx is None else scatter_idx
+    y = torch.zeros(T, D, dtype=torch.float32, device=tokens.device)
+    y.index_add_(0, dst.reshape(-1).long(),
+                 comb.reshape(-1, 1) * out.reshape(E * C, D))
+    return y
+
+
+def moe_ffn_oracle(experts: Dict[str, Any], tokens: torch.Tensor,
+                   gate_vals: torch.Tensor, gate_idx: torch.Tensor,
+                   slot: torch.Tensor, keep: torch.Tensor, capacity: int
+                   ) -> torch.Tensor:
+    """The reference's ``moe_ffn_oracle``: slot maps from the routing
+    decision, the plain version, output in ``tokens.dtype``."""
+    idx, comb = slot_maps(gate_vals, gate_idx, slot, keep, capacity)
+    return moe_ffn_slots_reference(experts, tokens, idx, comb).to(
+        tokens.dtype)
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"fused_moe_ffn: {msg}")
+
+
+def fused_moe_ffn_slots(experts: Dict[str, Any], tokens: torch.Tensor,
+                        idx: torch.Tensor, comb: torch.Tensor,
+                        scatter_idx: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """K6 on the slot maps: tokens ``[T, D]``, ``idx`` int32 / ``comb``
+    f32 ``[E, C]`` -> f32 ``[T, D]``.  ``scatter_idx`` (default ``idx``)
+    names the token each slot's result is added to.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    which takes contiguous bf16 or f32 tokens and float expert weights of
+    the same dtype, with D and F multiples of 64.  int8 ``(q8, scale)``
+    expert weights raise ``NotImplementedError``."""
+    if _is_q(experts["w1"]) or _is_q(experts["w2"]):
+        raise NotImplementedError(
+            "int8 (q8, scale) expert weights are a K6 variant not ported "
+            "yet (ROADMAP queue B)")
+    if tokens.device.type == "cpu":
+        _check(all(t.device.type == "cpu" for t in
+                   (idx, comb, *(experts[n] for n in
+                                 ("w1", "b1", "w2", "b2")))),
+               "all tensors must be on the tokens' device")
+        return moe_ffn_slots_reference(experts, tokens, idx, comb,
+                                       scatter_idx)
+    _check(tokens.device.type == "cuda", f"unsupported device {tokens.device}")
+    dst = idx if scatter_idx is None else scatter_idx
+    w1, b1, w2, b2 = (experts[n] for n in ("w1", "b1", "w2", "b2"))
+    _check(tokens.dim() == 2, f"tokens must be [T, D], got "
+           f"{tuple(tokens.shape)}")
+    T, D = tokens.shape
+    tag = _DTYPE_TAG.get(tokens.dtype)
+    _check(tag is not None, f"tokens must be bf16 or f32, got {tokens.dtype}")
+    swiglu = w1.dim() == 4
+    _check(w1.dim() in (3, 4), f"w1 must be [E, D, F] or [E, 2, D, F], got "
+           f"{tuple(w1.shape)}")
+    E, Fd = w1.shape[0], w1.shape[-1]
+    want = {
+        "w1": (E, 2, D, Fd) if swiglu else (E, D, Fd),
+        "b1": (E, 2, Fd) if swiglu else (E, Fd),
+        "w2": (E, Fd, D),
+        "b2": (E, D),
+    }
+    for name, t in zip(("w1", "b1", "w2", "b2"), (w1, b1, w2, b2)):
+        _check(tuple(t.shape) == want[name],
+               f"{name} must be {want[name]}, got {tuple(t.shape)}")
+        _check(t.dtype == tokens.dtype,
+               f"{name} is {t.dtype}, tokens are {tokens.dtype}")
+    _check(D % TILE == 0 and Fd % TILE == 0,
+           f"D and F must be multiples of {TILE}, got {D} / {Fd}")
+    _check(idx.dim() == 2 and idx.shape[0] == E and idx.dtype == torch.int32,
+           f"idx must be int32 [{E}, C]")
+    C = idx.shape[1]
+    _check(comb.shape == idx.shape and comb.dtype == torch.float32,
+           f"comb must be f32 [{E}, {C}]")
+    _check(dst.shape == idx.shape and dst.dtype == torch.int32,
+           f"scatter_idx must be int32 [{E}, {C}]")
+    args = (tokens, idx, comb, dst, w1, b1, w2, b2)
+    for t in args:
+        _check(t.device == tokens.device, "all tensors must be on the "
+               "tokens' device")
+        _check(t.is_contiguous(), "all tensors must be contiguous")
+        _check(t.data_ptr() % 16 == 0, "all tensors must be 16-byte aligned")
+    y = torch.zeros(T, D, dtype=torch.float32, device=tokens.device)
+    with torch.cuda.device(tokens.device):
+        stream = torch.cuda.current_stream(tokens.device).cuda_stream
+        err = _kernel()(*(t.data_ptr() for t in args), y.data_ptr(), T, D,
+                        Fd, E, C, int(swiglu), tag, stream)
+    if err != 0:
+        raise RuntimeError(f"moe_dispatch kernel launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES["fused_moe_ffn"] += 1
+    return y
+
+
+def fused_moe_ffn(experts: Dict[str, Any], tokens: torch.Tensor,
+                  gate_vals: torch.Tensor, gate_idx: torch.Tensor,
+                  slot: torch.Tensor, keep: torch.Tensor, capacity: int
+                  ) -> torch.Tensor:
+    """Fused gather -> expert FFN -> weighted scatter-add over a
+    ``_top_k_route`` decision: tokens ``[T, D]`` -> ``[T, D]`` in
+    ``tokens.dtype`` (K6 on the card, the plain version on the CPU)."""
+    idx, comb = slot_maps(gate_vals, gate_idx, slot, keep, capacity)
+    return fused_moe_ffn_slots(experts, tokens, idx, comb).to(tokens.dtype)
+
+
+@torch.no_grad()
+def moe_rounding_scale(experts: Dict[str, Any], tokens: torch.Tensor,
+                       idx: torch.Tensor, comb: torch.Tensor) -> torch.Tensor:
+    """Per output element, ``sqrt(sum over its slots of g^2 sum_f (h_f
+    W2[f, d])^2)`` in f32 ``[T, D]``: the scale of the error that rounding
+    the activation h to bf16 before the second product (as the kernel
+    does) puts into each output, each term moving by up to 2^-8 of itself
+    in random directions.  One expert at a time, so the ``[C, F]``
+    activations of a long prefill stay within memory."""
+    T, D = tokens.shape
+    w1, b1, w2, b2 = _expert_weights_f32(experts)
+    out = torch.zeros(T, D, dtype=torch.float32, device=tokens.device)
+    for e in range(idx.shape[0]):
+        filled = comb[e] != 0.0
+        if not bool(filled.any()):
+            continue
+        h = expert_act(tokens.float()[idx[e][filled].long()], w1[e], b1[e])
+        sq = (h * h) @ (w2[e] * w2[e])
+        out.index_add_(0, idx[e][filled].long(),
+                       comb[e][filled, None] ** 2 * sq)
+    return out.sqrt()
+

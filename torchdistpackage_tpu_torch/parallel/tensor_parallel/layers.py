@@ -397,13 +397,15 @@ def _normal(shape, std: float, dtype: torch.dtype, gen: torch.Generator,
 
 
 def init_block_params(gen: torch.Generator, cfg: TransformerConfig,
-                      device=None) -> Params:
+                      device=None, mlp: bool = True) -> Params:
     """One block's parameters, drawn from ``gen`` on ``device``: the
     reference's layouts and scales (``N(0, 1/D)`` projections,
     ``N(0, 1/F)`` down-projection, zero biases).  The draws differ from
     JAX's; parity tests carry JAX's weights over with
     :func:`~..models.convert.params_from_jax` instead.  ``device``
-    defaults to the card, like every entry point of the port."""
+    defaults to the card, like every entry point of the port.
+    ``mlp=False`` leaves the MLP out (an expert block carries ``moe``
+    instead)."""
     device = resolve_device(device)
     D, Fd = cfg.dim, cfg.ffn_dim
     s = 1.0 / math.sqrt(D)
@@ -422,6 +424,10 @@ def init_block_params(gen: torch.Generator, cfg: TransformerConfig,
                 "bqkv": zeros(3, D)}
     attn["wo"] = _normal((D, D), s, dt, gen, device)
     attn["bo"] = zeros(D)
+    out = {"ln1": init_norm_params(D, dt, cfg.norm, device), "attn": attn,
+           "ln2": init_norm_params(D, dt, cfg.norm, device)}
+    if not mlp:
+        return out
     if cfg.act == "swiglu":
         mlp = {"w1": _normal((2, D, Fd), s, dt, gen, device),
                "b1": zeros(2, Fd)}
@@ -429,5 +435,5 @@ def init_block_params(gen: torch.Generator, cfg: TransformerConfig,
         mlp = {"w1": _normal((D, Fd), s, dt, gen, device), "b1": zeros(Fd)}
     mlp["w2"] = _normal((Fd, D), 1.0 / math.sqrt(Fd), dt, gen, device)
     mlp["b2"] = zeros(D)
-    return {"ln1": init_norm_params(D, dt, cfg.norm, device), "attn": attn,
-            "ln2": init_norm_params(D, dt, cfg.norm, device), "mlp": mlp}
+    out["mlp"] = mlp
+    return out

@@ -7,6 +7,7 @@ from .paged_cache import (
     init_paged_kv,
     paged_attention,
     paged_forward,
+    paged_forward_moe,
     paged_write,
 )
 from .sim import TorchDeviceStep
@@ -14,5 +15,5 @@ from .sim import TorchDeviceStep
 __all__ = [
     "BlockAllocator", "Request", "ServingEngine",
     "TorchDeviceStep", "gather_kv", "init_paged_kv", "paged_attention",
-    "paged_forward", "paged_write",
+    "paged_forward", "paged_forward_moe", "paged_write",
 ]

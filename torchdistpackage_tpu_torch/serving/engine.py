@@ -23,7 +23,12 @@ The scheduler is the reference's, on one device:
 
 Paged attention runs through the hand-written CUDA kernel on the card
 (``attn_impl='auto'`` resolves to ``'cuda'`` there, ``'gather'`` on the
-CPU).  Tensor / data / expert / context parallelism, the prefix cache,
+CPU).  An MoE model (``cfg.moe_experts > 0``, e.g. Mixtral) serves
+through ``paged_forward_moe``: its expert layers run the fused dispatch
+kernel K6 on the card (``moe_dispatch='auto'`` -> ``'cuda'``) or the
+ragged plain path (``'gather'``), and ``serving_summary()['moe']``
+reports the live expert load.  Tensor / data / expert / context
+parallelism, the prefix cache,
 speculative decoding, telemetry, chaos, the watchdog, metrics export,
 deadline shedding, preemption and drain/resume are not ported yet
 (ROADMAP queue A); the constructor refuses them with NotImplementedError.
@@ -39,9 +44,10 @@ import numpy as np
 import torch
 
 from ..models.gpt import GPTConfig
-from ..obs.aggregate import percentiles
+from ..obs.aggregate import moe_load_stats, percentiles
 from ..obs.events import EventLog, default_event_log
-from ..ops.paged_attention import LAUNCHES
+from ..ops import moe_dispatch as _moe_ops
+from ..ops import paged_attention as _attn_ops
 from .paged_cache import BlockAllocator, expected_pool_bytes, pool_bytes
 
 # slot lifecycle
@@ -186,6 +192,11 @@ class ServingEngine:
     attn_impl: ``'cuda'`` (the kernel), ``'gather'`` (the plain version,
         the oracle arm) or ``'auto'``: by the device.  Recorded in
         ``serving_summary()['attn_impl']``.
+    moe_dispatch: for an MoE model, ``'cuda'`` (the fused dispatch
+        kernel), ``'gather'`` (the ragged plain path, the oracle arm) or
+        ``'auto'`` (by the device); None defers to ``cfg.moe_dispatch``.
+        Resolved once; recorded in ``serving_summary()['moe']['dispatch']``.
+        Set on a dense model it raises.
     device: where the pool and the step live (default: the card).
     """
 
@@ -201,6 +212,7 @@ class ServingEngine:
         chunk: int = 16,
         kv_quant: bool = False,
         attn_impl: str = "auto",
+        moe_dispatch: Optional[str] = None,
         device=None,
         **queued: Any,
     ) -> None:
@@ -216,6 +228,15 @@ class ServingEngine:
             raise ValueError(
                 f"num_slots/chunk/block_size must be >= 1, got "
                 f"{num_slots}/{chunk}/{block_size}")
+        if moe_dispatch is not None:
+            if not cfg.moe_experts:
+                raise ValueError(
+                    "moe_dispatch is set but the model has no MoE layers "
+                    "(cfg.moe_experts == 0)")
+            if moe_dispatch not in ("gather", "cuda", "auto"):
+                raise ValueError(
+                    f"engine moe_dispatch must be 'gather', 'cuda' or "
+                    f"'auto', got {moe_dispatch!r}")
         self.cfg = cfg
         self.params = params
         self.num_slots = num_slots
@@ -226,9 +247,14 @@ class ServingEngine:
 
         from .sim import TorchDeviceStep
 
-        self._dev = TorchDeviceStep(cfg, device, attn_impl)
+        self._dev = TorchDeviceStep(cfg, device, attn_impl, moe_dispatch)
         self.device = self._dev.device
         self.attn_impl = self._dev.attn_impl
+        #: the resolved MoE dispatch ('cuda' | 'gather'); None when dense
+        self.moe_dispatch = self._dev.moe_dispatch
+        # the kernels this engine's step can launch
+        self._launch_counts = [_attn_ops.LAUNCHES] + (
+            [_moe_ops.LAUNCHES] if cfg.moe_experts else [])
 
         self.max_ctx = int(max_ctx if max_ctx is not None else cfg.max_seq)
         self.max_blocks = -(-self.max_ctx // block_size)
@@ -424,9 +450,10 @@ class ServingEngine:
             last_idx[i] = min(len(s.prompt) - 1 - s.off, C - 1)
             if s.off + C >= len(s.prompt) and self._temps[i] > 0.0:
                 gens[i] = self._gens[i]  # final slice: draws a token
-        self.cache, tok = self._dev.step(
+        self.cache, tok, moe = self._dev.step(
             self.params, self.cache, tokens, tables, offsets, last_idx,
             self._samp(), gens)
+        self._absorb_moe_stats(moe)
         self._prefill_sigs.add(("prefill",) + self._sig(tokens))
         now = time.perf_counter()
         rids = []
@@ -460,9 +487,10 @@ class ServingEngine:
         last_idx = np.zeros(self.num_slots, np.int32)
         gens = [g if m and t > 0.0 else None
                 for g, m, t in zip(self._gens, mask, self._temps)]
-        self.cache, tok = self._dev.step(
+        self.cache, tok, moe = self._dev.step(
             self.params, self.cache, tokens, tables, offsets, last_idx,
             self._samp(), gens)
+        self._absorb_moe_stats(moe)
         self._decode_sigs.add(("decode",) + self._sig(tokens))
         now = time.perf_counter()
         for i, s in enumerate(self._slots):
@@ -692,20 +720,65 @@ class ServingEngine:
         self._occ_ticks = 0
         self._t_first = float("inf")
         self._t_last_done = 0.0
-        self._launches0 = dict(LAUNCHES)
+        self._launches0 = self._launches()
         self.finished: Dict[int, Dict[str, Any]] = {}
         self._finished_order: List[int] = []
         self._alloc.peak_in_use = self._alloc.in_use
+        # live MoE expert load: per-expert routed-token counts summed over
+        # the measured steps, and the mean drop rate
+        self._moe_expert_tokens: Optional[np.ndarray] = None
+        self._moe_dropped_sum = 0.0
+        self._moe_steps = 0
+
+    def _launches(self) -> Dict[str, int]:
+        return {k: v for counts in self._launch_counts
+                for k, v in counts.items()}
+
+    def _absorb_moe_stats(self, moe) -> None:
+        """Fold one step's ``(expert_tokens [E], dropped_token_rate)`` into
+        the accumulators (None: a dense model's step)."""
+        if moe is None:
+            return
+        et, dr = moe
+        et = np.asarray(et, np.float64)
+        if self._moe_expert_tokens is None:
+            self._moe_expert_tokens = et.copy()
+        else:
+            self._moe_expert_tokens += et
+        self._moe_dropped_sum += float(dr)
+        self._moe_steps += 1
+
+    def moe_imbalance(self) -> float:
+        """Live expert-load imbalance (``max/mean - 1`` over the summed
+        per-expert counts; 0.0 when balanced, unknown, or not an MoE
+        model)."""
+        if self._moe_expert_tokens is None:
+            return 0.0
+        return float(moe_load_stats(self._moe_expert_tokens)["imbalance"])
 
     def serving_summary(self) -> Dict[str, Any]:
         """The reference's ``serving`` report, the subset this slice
         serves: request counts, generated tokens, tokens/s, TTFT/TPOT
-        percentiles, the attention implementation, the call signatures
-        and the kernel launches since :meth:`reset_metrics`."""
+        percentiles, the attention implementation, the call signatures,
+        the kernel launches since :meth:`reset_metrics` and, for an MoE
+        model, the ``moe`` expert-load block (its overflow tripwire fires
+        here)."""
         span = self._t_last_done - self._t_first
         completed = sum(1 for f in self.finished.values()
                         if f["reason"] in ("eos", "max_tokens"))
         st = self.stats
+        moe = None
+        if self.cfg.moe_experts:
+            from ..parallel.moe import check_expert_overflow
+
+            moe = moe_load_stats(
+                self._moe_expert_tokens
+                if self._moe_expert_tokens is not None
+                else [0.0] * self.cfg.moe_experts,
+                dropped_rate=(self._moe_dropped_sum / self._moe_steps
+                              if self._moe_steps else 0.0))
+            moe["dispatch"] = self.moe_dispatch
+            check_expert_overflow(moe, where="serving_summary")
         return {
             "requests": {"completed": completed, "queued": len(self.queue),
                          "in_flight": self.n_busy,
@@ -738,7 +811,7 @@ class ServingEngine:
             "attn_impl": self.attn_impl,
             "device": str(self.device),
             "kernel_launches": {k: v - self._launches0.get(k, 0)
-                                for k, v in LAUNCHES.items()},
+                                for k, v in self._launches().items()},
             "decode_steps": st["decode_steps"],
             "prefill_chunks": st["prefill_chunks"],
             "decode_batch_mean": (
@@ -746,4 +819,5 @@ class ServingEngine:
                 if st["decode_steps"] else 0.0),
             "decode_signatures": len(self._decode_sigs),
             "prefill_signatures": len(self._prefill_sigs),
+            **({"moe": moe} if moe is not None else {}),
         }

@@ -14,6 +14,9 @@ PyTorch counterpart of ``torchdistpackage_tpu/serving/paged_cache.py``.
   (:func:`~..ops.paged_attention.paged_decode_attention`) that walks the
   table on the card; ``'gather'`` gathers a dense per-slot view and runs
   the dense attention — the oracle, and the CPU path.
+- **Forward**: :func:`paged_forward` for the dense family,
+  :func:`paged_forward_moe` for the MoE family (expert FFN every
+  ``moe_every``-th block).
 
 :class:`BlockAllocator` is host-side and O(blocks).  The prefix-cache
 hash index, copy-on-write, block migration and the context-parallel
@@ -199,6 +202,25 @@ def _layer_kv(c, layer: int):
     return tuple(t[layer] for t in c) if isinstance(c, tuple) else c[layer]
 
 
+def _paged_inputs(params: Dict[str, Any], tokens: torch.Tensor,
+                  cfg: GPTConfig, cache: Dict[str, Any], tables: torch.Tensor,
+                  offset: torch.Tensor, attn_impl: str):
+    """What every layer of a paged forward shares: the embedded rows, the
+    int32 offsets, the rope tables and the ``(write, attend)`` pair."""
+    S_in = tokens.shape[1]
+    offset = offset.to(device=tokens.device, dtype=torch.int32)
+    tables = tables.to(device=tokens.device, dtype=torch.int32)
+    positions = offset[:, None] + torch.arange(
+        S_in, device=tokens.device, dtype=torch.int32)[None, :]
+    # padded prefill rows may run past a learned position table; their
+    # values are never read, so clamp instead of faulting on the device
+    h = _embed_at(params, tokens.long(),
+                  positions.clamp(max=cfg.max_seq - 1).long())
+    rope = _batched_rope(cfg.block, positions)
+    slots = _scatter_positions(tables, positions, block_size_of(cache))
+    return h, offset, rope, _paged_cache_ops(tables, attn_impl, slots)
+
+
 def paged_forward(params: Dict[str, Any], tokens: torch.Tensor,
                   cfg: GPTConfig, cache: Dict[str, Any], tables: torch.Tensor,
                   offset: torch.Tensor, last_idx=None,
@@ -212,26 +234,69 @@ def paged_forward(params: Dict[str, Any], tokens: torch.Tensor,
     chunk``; decode is ``S_in = 1`` — one implementation, both phases.
     The reference's ``all_logits`` (every row's logits, for speculative
     verify) waits for ``spec_k`` (ROADMAP queue A)."""
-    bcfg = cfg.block
-    S_in = tokens.shape[1]
-    offset = offset.to(device=tokens.device, dtype=torch.int32)
-    tables = tables.to(device=tokens.device, dtype=torch.int32)
-    positions = offset[:, None] + torch.arange(
-        S_in, device=tokens.device, dtype=torch.int32)[None, :]
-    # padded prefill rows may run past a learned position table; their
-    # values are never read, so clamp instead of faulting on the device
-    h = _embed_at(params, tokens.long(),
-                  positions.clamp(max=cfg.max_seq - 1).long())
-    rope = _batched_rope(bcfg, positions)
-    slots = _scatter_positions(tables, positions, block_size_of(cache))
-    ops = _paged_cache_ops(tables, attn_impl, slots)
+    h, offset, rope, ops = _paged_inputs(params, tokens, cfg, cache, tables,
+                                         offset, attn_impl)
     for layer in range(cfg.nlayers):
         h, _, _ = cached_block_forward(
-            layer_params(params, layer), h, bcfg,
+            layer_params(params, layer), h, cfg.block,
             _layer_kv(cache["k"], layer), _layer_kv(cache["v"], layer),
             offset, cache_ops=ops, rope=rope)
     logits = gpt_head(params, _select_row(h, last_idx), eps=cfg.norm_eps)
     return cache, logits[:, 0, :]
+
+
+def paged_forward_moe(params: Dict[str, Any], tokens: torch.Tensor,
+                      cfg: GPTConfig, cache: Dict[str, Any],
+                      tables: torch.Tensor, offset: torch.Tensor,
+                      last_idx=None, attn_impl: str = "gather",
+                      moe_dispatch: Optional[str] = None,
+                      moe_stats: bool = False):
+    """:func:`paged_forward` for the MoE family: ``params['blocks']`` is the
+    per-block list of ``init_gpt_moe_params``, and every expert block's FFN
+    is :func:`~..parallel.moe.moe_serve_forward` (exact no-drop routing).
+    ``moe_dispatch`` overrides ``cfg.moe_dispatch`` (``'gather'`` the
+    ragged plain arm, ``'cuda'`` the fused kernel K6, ``'auto'`` by the
+    device), resolved once a call.  ``moe_stats=True`` returns ``(cache,
+    logits, metrics)`` with the per-expert routed-token counts summed over
+    the expert layers and the drop rate averaged — the engine's live
+    expert-load signal.  Expert parallelism (``ep_axis``) and
+    ``all_logits`` wait (ROADMAP queue A)."""
+    from ..models.gpt_moe import moe_layer_config
+    from ..ops.moe_dispatch import resolve_moe_dispatch
+    from ..parallel.moe import moe_serve_forward
+
+    mcfg = moe_layer_config(cfg)
+    disp = resolve_moe_dispatch(
+        mcfg.dispatch if moe_dispatch is None else moe_dispatch,
+        tokens.device)
+    h, offset, rope, ops = _paged_inputs(params, tokens, cfg, cache, tables,
+                                         offset, attn_impl)
+    collected = []  # per-expert-layer metrics (moe_stats)
+
+    def moe_ffn(p, hh):
+        out = moe_serve_forward(p["moe"], hh, mcfg, dispatch=disp,
+                                return_metrics=moe_stats)
+        if not moe_stats:
+            return out
+        collected.append(out[1])
+        return out[0]
+
+    for layer, bp in enumerate(params["blocks"]):
+        h, _, _ = cached_block_forward(
+            bp, h, cfg.block, _layer_kv(cache["k"], layer),
+            _layer_kv(cache["v"], layer), offset, cache_ops=ops, rope=rope,
+            ffn=moe_ffn if "moe" in bp else None)
+    logits = gpt_head(params, _select_row(h, last_idx),
+                      eps=cfg.norm_eps)[:, 0, :]
+    if not moe_stats:
+        return cache, logits
+    # routed-token counts sum over the expert layers, the drop rate averages
+    metrics = {
+        "expert_tokens": sum(m["expert_tokens"] for m in collected),
+        "dropped_token_rate": sum(m["dropped_token_rate"] for m in collected)
+        / max(len(collected), 1),
+    }
+    return cache, logits, metrics
 
 
 class BlockAllocator:

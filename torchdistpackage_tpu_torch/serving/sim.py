@@ -19,21 +19,32 @@ import torch
 
 from ..device import resolve_device
 from ..models.gpt import GPTConfig
+from ..ops.moe_dispatch import resolve_moe_dispatch
 from ..ops.paged_attention import resolve_attn_impl
 from .engine import _slot_sample
-from .paged_cache import init_paged_kv, paged_forward
+from .paged_cache import init_paged_kv, paged_forward, paged_forward_moe
+
+MoEStats = Optional[Tuple[np.ndarray, float]]
 
 
 class TorchDeviceStep:
     """The pool, the step and the sampling streams on one torch device
     (default: the card).  ``attn_impl`` is resolved from the device
-    (``'auto'``: the kernel on the card, the plain version on the CPU)."""
+    (``'auto'``: the kernel on the card, the plain version on the CPU);
+    so is ``moe_dispatch`` for an MoE config (None defers to
+    ``cfg.moe_dispatch``), once, here."""
 
     def __init__(self, cfg: GPTConfig, device=None,
-                 attn_impl: str = "auto") -> None:
+                 attn_impl: str = "auto",
+                 moe_dispatch: Optional[str] = None) -> None:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.attn_impl = resolve_attn_impl(attn_impl, self.device)
+        self.moe_dispatch = None
+        if cfg.moe_experts:
+            self.moe_dispatch = resolve_moe_dispatch(
+                cfg.moe_dispatch if moe_dispatch is None else moe_dispatch,
+                self.device)
 
     def init_cache(self, num_blocks: int, block_size: int,
                    quantized: bool) -> Any:
@@ -51,15 +62,32 @@ class TorchDeviceStep:
     def step(self, params: Any, cache: Any, tokens: np.ndarray,
              tables: np.ndarray, offsets: np.ndarray, last_idx: np.ndarray,
              samp: Dict[str, np.ndarray],
-             gens: List[Optional[torch.Generator]]) -> Tuple[Any, np.ndarray]:
+             gens: List[Optional[torch.Generator]]
+             ) -> Tuple[Any, np.ndarray, MoEStats]:
         """ONE step serves both phases: ``tokens [B, 1]`` is decode,
         ``[B, chunk]`` a prefill slice.  Host arrays in, host tokens
-        ``[B]`` out; everything between runs on the device."""
-        cache, logits = paged_forward(
-            params, self._to_dev(tokens), self.cfg, cache,
-            self._to_dev(tables), self._to_dev(offsets),
-            last_idx=self._to_dev(last_idx), attn_impl=self.attn_impl)
+        ``[B]`` out; everything between runs on the device.  For an MoE
+        config the third element is the step's ``(expert_tokens [E],
+        dropped_token_rate)``, read back in the same host copy as the
+        tokens (one read-back a step); None for a dense config."""
+        args = (params, self._to_dev(tokens), self.cfg, cache,
+                self._to_dev(tables), self._to_dev(offsets))
+        kw = dict(last_idx=self._to_dev(last_idx), attn_impl=self.attn_impl)
+        moe = None
+        if self.cfg.moe_experts:
+            cache, logits, moe = paged_forward_moe(
+                *args, moe_dispatch=self.moe_dispatch, moe_stats=True, **kw)
+        else:
+            cache, logits = paged_forward(*args, **kw)
         tok = _slot_sample(logits, gens, self._to_dev(samp["temperature"]),
                            self._to_dev(samp["top_k"]),
                            self._to_dev(samp["top_p"]))
-        return cache, tok.to(torch.int32).cpu().numpy()
+        if moe is None:
+            return cache, tok.to(torch.int32).cpu().numpy(), None
+        # float64 holds every int32 token id exactly
+        host = torch.cat([tok.double(), moe["expert_tokens"].double(),
+                          moe["dropped_token_rate"].double().reshape(1)]
+                         ).cpu().numpy()
+        B = tok.shape[0]
+        return (cache, host[:B].astype(np.int32),
+                (host[B:-1], float(host[-1])))
