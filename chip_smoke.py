@@ -11,7 +11,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device  — a CUDA card is present; its name, count and power limit.
 2. build   — the three kernel sources under ``torchdistpackage_tpu_torch/
    ops/csrc`` are compiled at once (one nvcc each); build seconds and
-   ptxas' registers / shared memory / spills of every instantiation.
+   ptxas' registers / shared memory / spills of every instantiation (K6's
+   float and int8 ones named apart), and each one's dynamic shared memory.
 3. kernels — each kernel against its plain version on the card, row by
    row against the plain version run in f32 on the same values
    (``row_tolerance``, ``grad_held``, ``moe_held``), with planted faults
@@ -31,7 +32,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    f32 and capacity-drop cases at smaller widths (faults: the gate
    weight not applied, the last F tile left out, the scatter on the
    neighbouring slot's token; yardstick the ragged 'gather' arm, several
-   cuBLAS calls).
+   cuBLAS calls).  K6's int8 variant (experts from
+   ``quantize_moe_experts``) at the same Mixtral shapes, plus GELU, f32
+   tokens and capacity drops (faults: w2's scale not applied, the up half
+   scaled by the gate's scale row, each column scaled by its neighbour's
+   scale; yardstick the ragged arm over bf16 weights dequantised
+   beforehand).
 4. train   — the training main path: ``bench.py``'s GPT-125M at full
    depth, batch 16, S 2048, bf16, remat 'flash', 10 AdamW steps on one
    fixed batch (losses, step time, tokens/s, MFU, peak memory, launches
@@ -53,8 +59,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    requests (9 greedy, 3 sampled) through K6 and K1, each launched once
    per layer per device call; the ``moe`` summary's expert load; a
    decode tick of 8 slots profiled by kernel family.
-7. the ``{"kernels": [...]}`` line, then the card line, then the result
-   line ``{"ok": true, "device": {...}}`` last.
+7. int8 serve — Mixtral-8x7B-v0.1 whole, all 32 layers (46.7 B
+   parameters), int8 weight-only with bf16 activations, random weights,
+   built block by block (``quantize_moe_experts`` on each block's
+   experts, then ``quantize_decode_params`` on the attention and the
+   head): its bytes on the card by part (~47 GB); teacher-forced logits
+   with K6-int8 against the ragged arm over each layer's experts
+   dequantised to bf16 just before that layer's call (routing pinned, and
+   free-running); ``ServingEngine`` serves the same 12 requests as the MoE
+   phase through K6-int8 and K1, each launched once per layer per device
+   call; a decode tick profiled.
+8. the ``{"kernels": [...]}`` line (six entries), then the card line,
+   then the result line ``{"ok": true, "device": {...}}`` last.
 
 Every kernel's launch count is set to 0 just before each main path (the
 training steps, each engine run) and read just after.
@@ -589,6 +605,11 @@ def moe_experts(*, E, D, F, act, dtype, seed):
             "w2": rnd((E, F, D), F ** -0.5), "b2": rnd((E, D), 0.1)}
 
 
+def weight(w):
+    """An expert weight leaf's weight tensor (q8 of an int8 pair)."""
+    return w[0] if isinstance(w, tuple) else w
+
+
 def moe_case(name, experts, *, T, C, k, seed):
     """Tokens and a serving routing decision on the card: router
     probabilities from random logits, top-k, ``_top_k_route`` at capacity
@@ -598,8 +619,8 @@ def moe_case(name, experts, *, T, C, k, seed):
     from torchdistpackage_tpu_torch.parallel.moe import _top_k_route
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    E, D = experts["w2"].shape[0], experts["w2"].shape[2]
-    dtype = experts["w2"].dtype
+    E, D = weight(experts["w2"]).shape[0], weight(experts["w2"]).shape[2]
+    dtype = experts["b2"].dtype
     tokens = torch.randn(T, D, generator=g, device="cuda").to(dtype)
     probs = torch.softmax(torch.randn(T, E, generator=g, device="cuda") * 2,
                           dim=-1)
@@ -635,136 +656,206 @@ def moe_held(got, exact, scale, dtype):
 
 def moe_bound(case):
     """Least time for the call: the bytes it must move (tokens in, each
-    expert hit read once — W1, b1, W2, b2 — the maps, f32 out) over the
-    memory rate, or its operations (2 FLOP a MAC: three D x F products a
-    filled slot for SwiGLU, two for GELU) over the peak for its type."""
+    expert hit read once — W1, b1, W2, b2, and for int8 weights their
+    scales — the maps, f32 out) over the memory rate, or its operations
+    (2 FLOP a MAC: three D x F products a filled slot for SwiGLU, two for
+    GELU) over the peak for the tokens' type."""
+    from torchdistpackage_tpu_torch.obs.numerics import tree_leaves
+
     ex, comb = case["experts"], case["comb"]
-    e_sz = ex["w2"].element_size()
-    per_expert = sum(ex[n][0].numel() for n in ("w1", "b1", "w2", "b2")) * e_sz
+    per_expert = sum(t[0].numel() * t.element_size()
+                     for t in tree_leaves(ex))
     hit = int((comb != 0).any(-1).sum())
     filled = int((comb != 0).sum())
     T, D = case["tokens"].shape
-    F_ = ex["w2"].shape[1]
-    nbytes = (hit * per_expert + T * D * e_sz + T * D * 4
+    F_ = weight(ex["w2"]).shape[1]
+    nbytes = (hit * per_expert + case["tokens"].numel()
+              * case["tokens"].element_size() + T * D * 4
               + 2 * case["idx"].numel() * 4)
-    flops = 2 * filled * (3 if ex["w1"].dim() == 4 else 2) * D * F_
+    flops = 2 * filled * (3 if weight(ex["w1"]).dim() == 4 else 2) * D * F_
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[case["dtype"]]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", hit, filled)
 
 
-def moe_kernel_phase():
-    """K6 against its plain version (``moe_ffn_oracle``'s arithmetic, in
-    f32 on the same values), row by row: the main path's shapes at
-    Mixtral-8x7B widths (decode T 8 and a 512-row chunk of 8 slots, T
-    4096; C = T, bf16, SwiGLU), a GELU case and an f32 case at smaller
-    widths, and a case with capacity drops and a capacity that is not a
-    multiple of the 64-slot tile.  Planted faults at the decode shape must
-    fail the same check.  Then times at the two main-path shapes: the
-    kernel, the plain version, the ragged ``'gather'`` arm (one cuBLAS
-    product per expert and weight — several calls, the nearest library
-    yardstick; the kernel path never calls it) and the bound."""
+def moe_cases(tag, specs, counter, faults, gather_experts=None,
+              lib_label="gather arm (per-expert cuBLAS calls)"):
+    """Each case against the plain version (``moe_ffn_oracle``'s
+    arithmetic, in f32 on the same values; int8 weights ``_dequant``-ed),
+    row by row: the launch must move ``counter`` alone; ``faults(case)``
+    gives the planted faults of the first (decode) case, each of which
+    must fail the same check.  At the two Mixtral shapes the kernel, the
+    plain version and the ragged ``'gather'`` arm (over
+    ``gather_experts(experts)``, made outside the timing) are timed
+    beside the bound."""
     from torchdistpackage_tpu_torch.ops import moe_dispatch as md
     from torchdistpackage_tpu_torch.parallel.moe import _ragged_ffn
 
-    bf, f32 = torch.bfloat16, torch.float32
-    mixtral = moe_experts(E=8, D=4096, F=14336, act="swiglu", dtype=bf,
-                          seed=300)
-    specs = [
-        ("decode_bf16_mixtral", lambda: mixtral, dict(T=8, C=8, k=2)),
-        ("prefill4096_bf16_mixtral", lambda: mixtral,
-         dict(T=4096, C=4096, k=2)),
-        ("gelu_bf16", lambda: moe_experts(E=8, D=1024, F=4096, act="gelu",
-                                          dtype=bf, seed=301),
-         dict(T=256, C=256, k=2)),
-        ("swiglu_f32", lambda: moe_experts(E=8, D=1024, F=1408,
-                                           act="swiglu", dtype=f32,
-                                           seed=302),
-         dict(T=128, C=128, k=2)),
-        ("drops_c100_bf16", lambda: moe_experts(E=8, D=1024, F=2048,
-                                                act="swiglu", dtype=bf,
-                                                seed=303),
-         dict(T=512, C=100, k=2)),
-    ]
     rows = []
-    for i, (name, make, shape) in enumerate(specs):
-        case = moe_case(name, make(), seed=310 + i, **shape)
+    for name, case in specs:
         ex, tok, idx, comb = (case[n] for n in ("experts", "tokens", "idx",
                                                 "comb"))
         dt = case["dtype"]
-        before = md.LAUNCHES["fused_moe_ffn"]
+        before = dict(md.LAUNCHES)
         got = md.fused_moe_ffn_slots(ex, tok, idx, comb).to(dt)
         torch.cuda.synchronize()
-        if md.LAUNCHES["fused_moe_ffn"] != before + 1:
-            raise RuntimeError(f"{name}: the launch counter did not move")
+        if {n: md.LAUNCHES[n] - before[n] for n in before} != {
+                n: int(n == counter) for n in before}:
+            raise RuntimeError(f"{name}: {counter} did not launch once "
+                               f"(alone): {md.LAUNCHES}")
         exact = md.moe_ffn_slots_reference(ex, tok, idx, comb)
         scale = md.moe_rounding_scale(ex, tok, idx, comb)
         err, ratio = moe_held(got, exact, scale, dt)
         dropped = 1.0 - float((comb != 0).sum()) / (tok.shape[0] * case["k"])
-        log(f"[moe] {name}: T {tok.shape[0]}, C {idx.shape[1]}, D "
-            f"{tok.shape[1]}, F {ex['w2'].shape[1]}, drop rate "
+        log(f"[{tag}] {name}: T {tok.shape[0]}, C {idx.shape[1]}, D "
+            f"{tok.shape[1]}, F {weight(ex['w2']).shape[1]}, drop rate "
             f"{dropped:.3f}: vs the plain version in f32: max abs err "
             f"{err:.3g}, {ratio:.3f} of the row tolerance")
         if not ratio <= 1.0:
-            raise RuntimeError(f"{name}: K6 disagrees with its plain version: "
-                               f"{ratio:.3f} of the row tolerance")
+            raise RuntimeError(f"{name}: {counter} disagrees with its plain "
+                               f"version: {ratio:.3f} of the row tolerance")
         row = {"case": name, "max_abs_err": err, "tol_ratio": ratio}
-        if name == "decode_bf16_mixtral":
-            moe_planted_faults(case, exact, scale)
+        if not rows:
+            for what, (exf, cb, dst) in faults(case).items():
+                bad = md.fused_moe_ffn_slots(exf, tok, idx, cb,
+                                             scatter_idx=dst).to(dt)
+                f_err, f_ratio = moe_held(bad, exact, scale, dt)
+                log(f"[{tag}] {name}, planted fault ({what}): max abs err "
+                    f"{f_err:.3g}, {f_ratio:.1f} x the row tolerance")
+                if f_ratio <= 1.0:
+                    raise RuntimeError(f"{name}: the row tolerance misses a "
+                                       f"planted fault ({what})")
         if name.endswith("_mixtral"):
             heavy = tok.shape[0] > 8
             ms = cuda_ms(lambda: md.fused_moe_ffn_slots(ex, tok, idx, comb),
                          3 if heavy else 20)
             plain_ms = cuda_ms(lambda: md.moe_ffn_slots_reference(
                 ex, tok, idx, comb), 1 if heavy else 5)
+            lib_ex = gather_experts(ex) if gather_experts else ex
             lib_ms = cuda_ms(lambda: _ragged_ffn(
-                ex, tok, case["gate_vals"], case["gate_idx"]),
+                lib_ex, tok, case["gate_vals"], case["gate_idx"]),
                 3 if heavy else 20)
+            del lib_ex
             bound_ms, bound_by, hit, filled = moe_bound(case)
             row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=bound_ms, bound_by=bound_by,
                        experts_hit=hit, filled_slots=filled)
-            log(f"[moe] {name}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-                f"gather arm (per-expert cuBLAS calls) {lib_ms:.4f} ms  "
-                f"bound {bound_ms:.4f} ms ({bound_by}; {hit} experts hit, "
-                f"{filled} filled slots)")
+            log(f"[{tag}] {name}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
+                f"  {lib_label} {lib_ms:.4f} ms  bound {bound_ms:.4f} ms "
+                f"({bound_by}; {hit} experts hit, {filled} filled slots)")
         rows.append(row)
         del case, got, exact, scale
         torch.cuda.empty_cache()
-    del mixtral
-    torch.cuda.empty_cache()
     return rows
 
 
-def moe_planted_faults(case, exact, scale):
-    """The check must catch the faults it is there for: K6 run on
-    deliberately wrong arguments, held against the plain version on the
-    right ones — the gate weight not applied (every filled slot's g taken
-    as 1), the last F tile left out (its W2 rows zeroed) and the scatter
-    landing on the neighbouring slot's token.  Each must fail."""
+def moe_specs(make, seed, variant=""):
+    """The K6 cases, lazily (one case's experts on the card at a time,
+    the Mixtral stack shared by its two shapes): Mixtral-8x7B widths (E 8,
+    top-2, D 4096, F 14336, SwiGLU, bf16 tokens) at decode (T 8) and a
+    512-row chunk of 8 slots (T 4096) at the serving capacity C = T; GELU
+    and f32 at smaller widths; capacity drops with C 100 (not a multiple
+    of the 64-slot tile).  ``make(**kw)`` makes the experts; ``variant``
+    ('' or 'int8') goes into the case names."""
+    bf, f32 = torch.bfloat16, torch.float32
+    mixtral = make(E=8, D=4096, F=14336, act="swiglu", dtype=bf, seed=seed)
+    big = variant or "bf16"
+    cases = [(f"decode_{big}_mixtral", lambda: mixtral, dict(T=8, C=8, k=2)),
+             (f"prefill4096_{big}_mixtral", lambda: mixtral,
+              dict(T=4096, C=4096, k=2))]
+    small = [("gelu", "bf16", dict(act="gelu", F=4096, dtype=bf),
+              dict(T=256, C=256, k=2)),
+             ("swiglu", "f32", dict(act="swiglu", F=1408, dtype=f32),
+              dict(T=128, C=128, k=2)),
+             ("drops_c100", "bf16", dict(act="swiglu", F=2048, dtype=bf),
+              dict(T=512, C=100, k=2))]
+    for i, (base, dt, kw, shape) in enumerate(small):
+        name = "_".join(filter(None, (base, variant, dt)))
+        cases.append((name, lambda kw=kw, i=i: make(
+            E=8, D=1024, seed=seed + 1 + i, **kw), shape))
+    for i, (name, experts, shape) in enumerate(cases):
+        yield name, moe_case(name, experts(), seed=seed + 10 + i, **shape)
+
+
+def moe_kernel_phase():
+    """K6 (float experts) on the :func:`moe_specs` cases, bf16 where not
+    named f32.  Planted faults at the decode shape: the gate weight not
+    applied (every filled slot's g taken as 1), the last F tile left out
+    (its W2 rows zeroed) and the scatter landing on the neighbouring
+    slot's token.  Yardstick: the ragged ``'gather'`` arm (one cuBLAS
+    product per expert and weight — several calls, the nearest library
+    yardstick; the kernel path never calls it)."""
     from torchdistpackage_tpu_torch.ops import moe_dispatch as md
 
-    ex, tok, idx, comb = (case[n] for n in ("experts", "tokens", "idx",
-                                            "comb"))
-    w2 = ex["w2"].clone()
-    w2[:, -md.TILE:, :] = 0
-    faults = {
-        "gate weight not applied": (ex, (comb != 0).float(), None),
-        "last F tile left out": (dict(ex, w2=w2), comb, None),
-        "scatter on the neighbouring slot's token": (
-            ex, comb, torch.roll(idx, -1, dims=1).contiguous()),
-    }
-    for what, (exf, cb, dst) in faults.items():
-        got = md.fused_moe_ffn_slots(exf, tok, idx, cb,
-                                     scatter_idx=dst).to(case["dtype"])
-        err, ratio = moe_held(got, exact, scale, case["dtype"])
-        log(f"[moe] {case['name']}, planted fault ({what}): max abs err "
-            f"{err:.3g}, {ratio:.1f} x the row tolerance")
-        if ratio <= 1.0:
-            raise RuntimeError(f"{case['name']}: the row tolerance misses a "
-                               f"planted fault ({what})")
-    del w2
+    def faults(case):
+        ex, idx, comb = case["experts"], case["idx"], case["comb"]
+        w2 = ex["w2"].clone()
+        w2[:, -md.TILE:, :] = 0
+        return {
+            "gate weight not applied": (ex, (comb != 0).float(), None),
+            "last F tile left out": (dict(ex, w2=w2), comb, None),
+            "scatter on the neighbouring slot's token": (
+                ex, comb, torch.roll(idx, -1, dims=1).contiguous()),
+        }
+
+    return moe_cases("moe", moe_specs(moe_experts, 300), "fused_moe_ffn",
+                     faults)
+
+
+MOE_INT8_REPLACES = ("torchdistpackage_tpu/ops/moe_dispatch.py:348 "
+                     "(_kernel quantized branch :253-258)")
+
+
+def dequant_bf16(experts):
+    """int8 ``(q8, scale)`` expert leaves -> bf16 weights, one expert at a
+    time (the f32 product of a whole Mixtral stack would be 5.6 GB)."""
+    out = dict(experts)
+    for n in ("w1", "w2"):
+        q, s = experts[n]
+        w = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
+        for e in range(q.shape[0]):
+            w[e] = (q[e].float() * s[e].unsqueeze(-2)).to(torch.bfloat16)
+        out[n] = w
+    return out
+
+
+def moe_int8_kernel_phase():
+    """K6's int8 variant on the :func:`moe_specs` cases, experts drawn as
+    for K6 and put through ``quantize_moe_experts`` (f32 tokens in the
+    f32 case), held under K6's rule with the row's ``moe_rounding_scale``
+    taken on the dequantised weights.  Planted faults at the decode shape:
+    w2's scale not applied (all ones), the up half scaled by the gate's
+    scale row, and each column scaled by its neighbour's scale (both scale
+    rows rolled by one column).  Yardstick: the ragged ``'gather'`` arm
+    over bf16 weights dequantised once, outside the timing — no single
+    PyTorch call computes a bf16 x int8-weight product."""
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+
+    def int8(**kw):
+        return md.quantize_moe_experts(moe_experts(**kw))
+
+    def faults(case):
+        ex, comb = case["experts"], case["comb"]
+        (q1, s1), (q2, s2) = ex["w1"], ex["w2"]
+        gate_twice = s1.clone()
+        gate_twice[:, 1] = s1[:, 0]
+        return {
+            "w2's scale not applied": (
+                dict(ex, w2=(q2, torch.ones_like(s2))), comb, None),
+            "the up half scaled by the gate's scale row": (
+                dict(ex, w1=(q1, gate_twice)), comb, None),
+            "each column scaled by its neighbour's scale": (dict(
+                ex, w1=(q1, torch.roll(s1, 1, dims=-1).contiguous()),
+                w2=(q2, torch.roll(s2, 1, dims=-1).contiguous())), comb,
+                None),
+        }
+
+    return moe_cases("moe-int8", moe_specs(int8, 400, "int8"),
+                     "fused_moe_ffn_int8", faults,
+                     gather_experts=dequant_bf16,
+                     lib_label="gather arm over bf16 weights dequantised "
+                               "beforehand (per-expert cuBLAS calls)")
 
 
 # ------------------------------------------------------------ phase 5
@@ -1109,9 +1200,12 @@ def model_phase(params, cfg):
     return res
 
 
-def moe_model_phase(params, cfg):
+def moe_model_phase(params, cfg, tag="moe-model", gather_experts=None):
     """Teacher-forced logits of the MoE path with K6 (moe_dispatch 'cuda',
-    attention in K1) against the ragged plain arm ('gather').  Routing is
+    attention in K1) against the ragged plain arm ('gather').
+    ``gather_experts`` maps a layer's experts to what the ragged arm takes
+    (for int8 experts: bf16 weights dequantised just before that layer's
+    call, so no dequantised copy of the whole model exists).  Routing is
     a discontinuous function of the hidden state: the two arms round
     differently (the ragged arm rounds each product to bf16, K6 keeps f32
     until the output), the rounding moves some tokens across a top-2
@@ -1132,6 +1226,7 @@ def moe_model_phase(params, cfg):
     serve = pm.moe_serve_forward
     routes = []   # (gate_vals, gate_idx) of every expert-layer call, in order
     replay = []
+    prep = gather_experts or (lambda ex: ex)
 
     def route(params_l, x, mcfg):
         T = x.shape[0] * x.shape[1]
@@ -1149,13 +1244,14 @@ def moe_model_phase(params, cfg):
         gv, gi = routes[len(replay)]
         replay.append(route(params_l, x, mcfg)[1])
         B, S, D = x.shape
-        y = pm._ragged_ffn(params_l["experts"], x.reshape(B * S, D), gv, gi)
+        y = pm._ragged_ffn(prep(params_l["experts"]), x.reshape(B * S, D),
+                           gv, gi)
         return y.reshape(B, S, D).to(x.dtype)
 
     def freeing(params_l, x, mcfg, dispatch=None, return_metrics=False):
         replay.append(route(params_l, x, mcfg)[1])
-        return serve(params_l, x, mcfg, dispatch=dispatch,
-                     return_metrics=return_metrics)
+        return serve(dict(params_l, experts=prep(params_l["experts"])), x,
+                     mcfg, dispatch=dispatch, return_metrics=return_metrics)
 
     def run(wrapper, dispatch):
         pm.moe_serve_forward = wrapper
@@ -1168,11 +1264,11 @@ def moe_model_phase(params, cfg):
     k6, real = run(recording, "cuda")
     pinned, _ = run(replaying, "gather")
     res = logits_agree(k6, pinned, "K6 vs the ragged arm, routing pinned",
-                       "moe-model")
+                       tag)
     replay.clear()
     free, _ = run(freeing, "gather")
     drift = logits_agree(k6, free, "K6 vs the ragged arm, each routing "
-                         "itself", "moe-model")
+                         "itself", tag)
     nl = cfg.nlayers
     differs = [(torch.sort(a[1], -1).values != torch.sort(b, -1).values)
                .any(-1) for a, b in zip(routes, replay)]
@@ -1181,7 +1277,7 @@ def moe_model_phase(params, cfg):
         calls = list(zip(differs[i::nl], real))
         per_layer.append(sum(int(d[m].sum()) for d, m in calls)
                          / sum(int(m.sum()) for _, m in calls))
-    log(f"[moe-model] free-running arms: share of real tokens whose expert "
+    log(f"[{tag}] free-running arms: share of real tokens whose expert "
         f"pair differs, by layer: "
         + ", ".join(f"{f:.4f}" for f in per_layer))
     if res["rel"] > 0.05:
@@ -1302,8 +1398,9 @@ def profile_phase(params, cfg, card, max_ctx=8192, tag="profile"):
         f"{busy_ms:.2f} ms per tick (idle {1 - busy_ms / prof_ms:.1%} of "
         f"the profiled tick); by family: " + ", ".join(
             f"{k} {v:.2f} ms" for k, v in families.items())
-        + f"; {sum(e.count for e in kernels) / 8:.0f} kernels per tick "
-        f"— on {card}")
+        + f"; {sum(e.count for e in kernels) / 8:.0f} kernels per tick"
+        + (f"; K6 {families['moe_ffn'] / busy_ms:.1%} of the busy time"
+           if families["moe_ffn"] else "") + f" — on {card}")
     for e in top:
         log(f"[{tag}]   {e.self_device_time_total / 8 / 1e3:8.3f} ms "
             f"x{e.count // 8:<4d} {e.key[:90]}")
@@ -1311,14 +1408,16 @@ def profile_phase(params, cfg, card, max_ctx=8192, tag="profile"):
             "families": families}
 
 
-def moe_engine_phase(params, cfg, card):
+def moe_engine_phase(params, cfg, card, k6="fused_moe_ffn",
+                     tag="moe-engine"):
     """The MoE serving main path: ``ServingEngine`` (8 slots, blocks of 16,
     chunk 512, context 4096) serves 12 requests from ``RandomState(1)`` —
     prompts 128-2048 tokens, 32-96 new tokens, 9 greedy and 3 sampled —
-    with K6 in every expert layer and K1 in every attention.  The counts
-    are set to 0 just before the run and read just after: each kernel
-    launches once a layer a device call; the ``moe`` summary counts top-k
-    choices of every row each expert layer saw."""
+    with K6 in every expert layer (the variant ``k6`` names: float or
+    int8 experts) and K1 in every attention.  The counts are set to 0 just
+    before the run and read just after: each kernel launches once a layer
+    a device call, the other K6 variant never; the ``moe`` summary counts
+    top-k choices of every row each expert layer saw."""
     from torchdistpackage_tpu_torch.ops import moe_dispatch as md
     from torchdistpackage_tpu_torch.ops import paged_attention as pa
     from torchdistpackage_tpu_torch.serving import Request, ServingEngine
@@ -1347,15 +1446,17 @@ def moe_engine_phase(params, cfg, card):
     eng.run_until_idle()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"fused_moe_ffn": md.LAUNCHES["fused_moe_ffn"],
-                "paged_decode_attention": pa.LAUNCHES[
-                    "paged_decode_attention"]}
+    launches = {k6: md.LAUNCHES[k6], "paged_decode_attention": pa.LAUNCHES[
+        "paged_decode_attention"]}
     s = eng.serving_summary()
     calls = s["prefill_chunks"] + s["decode_steps"]
     for kname, n in launches.items():
         if n != cfg.nlayers * calls:
             raise RuntimeError(f"{kname} launches {n} != {cfg.nlayers} x "
                                f"{calls} calls")
+    other = sum(n for kname, n in md.LAUNCHES.items() if kname != k6)
+    if other:
+        raise RuntimeError(f"the other K6 variant launched: {md.LAUNCHES}")
     if s["requests"]["completed"] != len(reqs):
         raise RuntimeError(f"completed {s['requests']} of {len(reqs)}")
     for r, req in zip(rids, reqs):
@@ -1376,14 +1477,14 @@ def moe_engine_phase(params, cfg, card):
         raise RuntimeError(f"moe summary wrong: {moe} (want {want} choices)")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     ttft, tpot = s["ttft_s"], s["tpot_s"]
-    log(f"[moe-engine] {len(reqs)} requests, prompts "
+    log(f"[{tag}] {len(reqs)} requests, prompts "
         f"{sorted(lens.tolist())}, {s['generated_tokens']} tokens in "
         f"{wall:.2f} s: {s['tokens_per_sec']:.2f} tok/s, TTFT p50 "
         f"{ttft['p50']:.3f} s p99 {ttft['p99']:.3f} s, TPOT p50 "
         f"{tpot['p50'] * 1e3:.2f} ms p99 {tpot['p99'] * 1e3:.2f} ms, peak "
         f"memory {peak_gb:.2f} GB, {s['prefill_chunks']} prefill calls + "
         f"{s['decode_steps']} decode calls, launches {launches} — on {card}")
-    log(f"[moe-engine] expert load: tokens {moe['expert_tokens']} "
+    log(f"[{tag}] expert load: tokens {moe['expert_tokens']} "
         f"(sum {sum(moe['expert_tokens']):.0f} = 2 x {rows} rows x "
         f"{cfg.nlayers} layers), imbalance {moe['imbalance']:.4f}, load "
         f"entropy {moe['load_entropy']:.4f}")
@@ -1392,6 +1493,68 @@ def moe_engine_phase(params, cfg, card):
     del eng
     torch.cuda.empty_cache()
     return out
+
+
+def build_int8_mixtral(cfg, seed=0):
+    """Mixtral-8x7B-v0.1 at full depth, int8 weight-only, on the card,
+    built one block at a time from the public init functions so that no
+    bf16 copy of the whole model (93.4 GB) ever exists: each block's
+    attention and experts are drawn in bf16 from one seeded generator,
+    the experts go through ``quantize_moe_experts`` (2.8 GB of bf16 ->
+    1.4 GB of int8) and the bf16 experts are freed; after the last block
+    ``quantize_decode_params`` turns the attention projections and the
+    head into int8 ``QuantizedLinear`` leaves."""
+    import math
+
+    from torchdistpackage_tpu_torch.models.gpt_moe import moe_layer_config
+    from torchdistpackage_tpu_torch.ops.moe_dispatch import (
+        quantize_moe_experts,
+    )
+    from torchdistpackage_tpu_torch.parallel.moe import init_moe_params
+    from torchdistpackage_tpu_torch.parallel.tensor_parallel.layers import (
+        _normal,
+        init_block_params,
+        init_norm_params,
+    )
+    from torchdistpackage_tpu_torch.tools.surgery import (
+        quantize_decode_params,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    D, V, dt = cfg.dim, cfg.vocab_size, cfg.dtype
+    mcfg = moe_layer_config(cfg)
+    params = {"tok_emb": _normal((V, D), 0.02, dt, gen, dev), "blocks": []}
+    for _ in range(cfg.nlayers):
+        bp = init_block_params(gen, cfg.block, device=dev, mlp=False)
+        bp["moe"] = init_moe_params(gen, mcfg, device=dev)
+        bp["moe"]["experts"] = quantize_moe_experts(bp["moe"]["experts"])
+        params["blocks"].append(bp)
+    params["ln_f"] = init_norm_params(D, dt, cfg.norm, dev)
+    params["head"] = _normal((D, V), 1.0 / math.sqrt(D), dt, gen, dev)
+    return quantize_decode_params(params)
+
+
+def int8_model_bytes(params):
+    """Bytes on the card by part: expert int8 weights, their scales, the
+    int8 attention projections and head (with scales), ``tok_emb``, and
+    the rest (norms, biases, routers)."""
+    from torchdistpackage_tpu_torch.obs.numerics import tree_bytes
+
+    experts = [b["moe"]["experts"] for b in params["blocks"]]
+    parts = {
+        "experts_int8": sum(ex[n][0].numel() for ex in experts
+                            for n in ("w1", "w2")),
+        "expert_scales": sum(ex[n][1].numel() * 4 for ex in experts
+                             for n in ("w1", "w2")),
+        "attention_and_head_int8": tree_bytes(
+            [[b["attn"][n] for n in ("wq", "wkv", "wo")]
+             for b in params["blocks"]] + [params["head"]]),
+        "tok_emb": tree_bytes(params["tok_emb"]),
+    }
+    parts["rest"] = tree_bytes(params) - sum(parts.values())
+    parts["total"] = tree_bytes(params)
+    return parts
 
 
 FLASH_SOURCE = "torchdistpackage_tpu_torch/ops/csrc/flash_attention.cu"
@@ -1418,11 +1581,11 @@ def build_phase():
         for line in str(info["log"]).splitlines():
             if "Compiling entry function" in line:  # name the instantiation
                 m = re.search(
-                    r"\d+((?:flash_\w+|paged_attention|moe_ffn)_kernel)I",
-                    line)
+                    r"\d+((?:flash_\w+|paged_attention|moe_ffn(?:_int8)?)"
+                    r"_kernel)I", line)
                 name = m.group(1) if m else "?"
                 dt = "bf16" if "13__nv_bfloat16" in line else "f32"
-                if name == "moe_ffn_kernel":
+                if name.startswith("moe_ffn"):
                     kernel = (f"{name} {dt} "
                               f"{'swiglu' if 'Lb1E' in line else 'gelu'}")
                 else:
@@ -1445,8 +1608,9 @@ def build_phase():
     msmem = libs["moe_dispatch"].tdp_moe_ffn_smem_bytes
     msmem.argtypes, msmem.restype = [ctypes.c_int] * 2, ctypes.c_int
     log("[build] moe_dispatch dynamic shared memory per CTA: " + ", ".join(
-        f"{dt} {act} {msmem(tag, sw)} B" for tag, dt in ((0, "bf16"),
-                                                           (1, "f32"))
+        f"{dt} {act} {msmem(tag, sw)} B"
+        for tag, dt in ((0, "bf16"), (1, "f32"), (2, "bf16 int8 weights"),
+                        (3, "f32 int8 weights"))
         for sw, act in ((0, "gelu"), (1, "swiglu"))))
 
 
@@ -1491,6 +1655,7 @@ def main():
     rows = kernel_phase()
     flash_rows = flash_kernel_phase()
     moe_rows = moe_kernel_phase()
+    int8_rows = moe_int8_kernel_phase()
     log(f"[time] kernel checks done at {time.perf_counter() - t_start:.0f} s")
 
     # 4. the training path: GPT-125M main path, the kernel path against the
@@ -1534,8 +1699,29 @@ def main():
     torch.cuda.empty_cache()
     log(f"[time] MoE serving done at {time.perf_counter() - t_start:.0f} s")
 
-    # 7. the kernels line (headline numbers: the decode step's shape for
-    # K1 and K6, the training shape for K3-K5)
+    # 7. int8 weight-only serving: Mixtral-8x7B-v0.1 whole (all 32
+    # layers), expert layers in K6's int8 variant
+    cfg = mixtral_8x7b_config()
+    t0 = time.perf_counter()
+    params = build_int8_mixtral(cfg)
+    torch.cuda.synchronize()
+    parts = int8_model_bytes(params)
+    log(f"[int8-model] Mixtral-8x7B-v0.1, all {cfg.nlayers} layers, "
+        f"{cfg.num_params() / 1e9:.3f} B params, int8 weight-only: "
+        + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in parts.items())
+        + f" ({torch.cuda.memory_allocated() / 1e9:.2f} GB allocated on the "
+        f"card), built in {time.perf_counter() - t0:.1f} s")
+    moe_model_phase(params, cfg, tag="int8-model",
+                    gather_experts=dequant_bf16)
+    int8_eng = moe_engine_phase(params, cfg, card, k6="fused_moe_ffn_int8",
+                                tag="int8-engine")
+    profile_phase(params, cfg, card, max_ctx=4096, tag="int8-profile")
+    del params
+    torch.cuda.empty_cache()
+    log(f"[time] int8 serving done at {time.perf_counter() - t_start:.0f} s")
+
+    # 8. the kernels line (headline numbers: the decode step's shape for
+    # K1 and both K6 variants, the training shape for K3-K5)
     entries = [kernel_entry("paged_decode_attention",
                             "torchdistpackage_tpu_torch/ops/csrc/"
                             "paged_attention.cu", TPU_SOURCE,
@@ -1550,6 +1736,12 @@ def main():
         moe_eng["launches"]["fused_moe_ffn"], moe_rows, moe_rows[0],
         library="the ragged 'gather' arm: one cuBLAS product per expert "
                 "and weight (several calls)"))
+    entries.append(kernel_entry(
+        "fused_moe_ffn_int8", MOE_SOURCE, MOE_INT8_REPLACES,
+        int8_eng["launches"]["fused_moe_ffn_int8"], int8_rows, int8_rows[0],
+        library="the ragged 'gather' arm over bf16 weights dequantised "
+                "beforehand: one cuBLAS product per expert and weight "
+                "(several calls; no PyTorch call takes int8 weights)"))
     log(json.dumps({"kernels": entries}))
     log(card)
     log(json.dumps({"ok": True, "device": {

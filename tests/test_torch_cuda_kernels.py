@@ -332,3 +332,107 @@ def test_moe_kernel_wrapper_refuses_what_it_does_not_take(cuda):
         md.fused_moe_ffn_slots(ex, tok.float(), idx, comb)
     with pytest.raises(ValueError, match="contiguous"):
         md.fused_moe_ffn_slots(ex, tok, idx.t().contiguous().t(), comb)
+
+
+# --------------------------------------- fused MoE dispatch, K6's int8 variant
+
+
+def _moe_ratio(got, exact, scale, dtype):
+    """The worst row's error over its tolerance (``_moe_rows_close``'s
+    rule), for checks that must fail."""
+    err = (got.float() - exact).abs().amax(-1)
+    big = exact.abs().amax(-1)
+    if dtype == torch.float32:
+        tol = 2e-5 * big
+    else:
+        tol = (2.0 * torch.exp2(torch.floor(torch.log2(
+            big.clamp_min(2.0 ** -100))) - 7) + 4.0 * 2.0 ** -8
+            * scale.amax(-1))
+    return float((err / tol.clamp_min(1e-30)).max())
+
+
+def _int8_inputs(cuda, **kw):
+    from torchdistpackage_tpu_torch.ops.moe_dispatch import (
+        quantize_moe_experts,
+    )
+
+    ex, tok, idx, comb, route = _moe_inputs(cuda, **kw)
+    return quantize_moe_experts(ex), tok, idx, comb, route
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("act", ["gelu", "swiglu"])
+@pytest.mark.parametrize("T,C,D,F,holes", [
+    (40, 40, 256, 128, False),      # one partial capacity tile, C = T
+    (300, 100, 576, 1408, False),   # drops; C, D, F not powers of two
+    (256, 256, 128, 192, True),     # trailing empty tiles, in-tile holes
+])
+def test_moe_int8_kernel_matches_plain_on_card(cuda, dtype, act, T, C, D, F,
+                                               holes):
+    """K6-int8 (``quantize_moe_experts`` leaves) against its plain version
+    on the dequantised weights, in f32, row by row; bf16 and f32 tokens."""
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+
+    dt = getattr(torch, dtype)
+    ex, tok, idx, comb, route = _int8_inputs(
+        cuda, T=T, C=C, E=8, D=D, F=F, act=act, dtype=dt, seed=T + D + 1,
+        holes=holes)
+    before = dict(md.LAUNCHES)
+    got = md.fused_moe_ffn_slots(ex, tok, idx, comb)
+    torch.cuda.synchronize()
+    assert {n: md.LAUNCHES[n] - before[n] for n in before} == {
+        "fused_moe_ffn": 0, "fused_moe_ffn_int8": 1}
+    assert got.dtype == torch.float32 and got.shape == (T, D)
+    exact = md.moe_ffn_slots_reference(ex, tok, idx, comb)
+    scale = md.moe_rounding_scale(ex, tok, idx, comb)
+    _moe_rows_close(got.to(dt), exact, scale, dt)
+    if not holes:  # the routing-level entry point, in the tokens' dtype
+        y = md.fused_moe_ffn(ex, tok, *route, C)
+        assert y.dtype == dt
+        _moe_rows_close(y, exact, scale, dt)
+
+
+@pytest.mark.gpu
+def test_moe_int8_kernel_mixtral_decode_and_planted_fault(cuda):
+    """Mixtral-8x7B widths at decode (E 8, top-2, D 4096, F 14336, SwiGLU,
+    bf16 tokens, T = C = 8): held; with w2's scale not applied (all ones)
+    the same check fails."""
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+
+    ex, tok, idx, comb, _ = _int8_inputs(
+        cuda, T=8, C=8, E=8, D=4096, F=14336, act="swiglu",
+        dtype=torch.bfloat16, seed=7)
+    got = md.fused_moe_ffn_slots(ex, tok, idx, comb)
+    exact = md.moe_ffn_slots_reference(ex, tok, idx, comb)
+    scale = md.moe_rounding_scale(ex, tok, idx, comb)
+    _moe_rows_close(got.to(torch.bfloat16), exact, scale, torch.bfloat16)
+    q2, s2 = ex["w2"]
+    bad = md.fused_moe_ffn_slots(dict(ex, w2=(q2, torch.ones_like(s2))), tok,
+                                 idx, comb)
+    assert _moe_ratio(bad.to(torch.bfloat16), exact, scale,
+                      torch.bfloat16) > 1.0
+
+
+@pytest.mark.gpu
+def test_moe_int8_kernel_wrapper_refuses_what_it_does_not_take(cuda):
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+
+    ex, tok, idx, comb, _ = _int8_inputs(cuda, T=16, C=16, E=4, D=128,
+                                         F=128, act="swiglu",
+                                         dtype=torch.bfloat16, seed=3)
+    (q1, s1), (q2, s2) = ex["w1"], ex["w2"]
+    with pytest.raises(ValueError, match="w1 scale"):
+        md.fused_moe_ffn_slots(dict(ex, w1=(q1, s1.to(torch.bfloat16))),
+                               tok, idx, comb)
+    with pytest.raises(ValueError, match="w2 scale"):
+        md.fused_moe_ffn_slots(dict(ex, w2=(q2, s2[:, :64].contiguous())),
+                               tok, idx, comb)
+    with pytest.raises(ValueError, match="w2 is"):
+        md.fused_moe_ffn_slots(dict(ex, w2=(q2.to(torch.uint8), s2)), tok,
+                               idx, comb)
+    with pytest.raises(ValueError, match="device"):
+        md.fused_moe_ffn_slots(dict(ex, w1=(q1, s1.cpu())), tok, idx, comb)
+    with pytest.raises(NotImplementedError, match="int8"):
+        md.fused_moe_ffn_slots(dict(ex, w2=md._dequant(ex["w2"]).to(
+            torch.bfloat16)), tok, idx, comb)

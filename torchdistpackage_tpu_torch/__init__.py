@@ -15,7 +15,7 @@ PyTorch version stays beside it as the oracle and as the CPU path.
 
 from .device import resolve_device
 
-_SUBPACKAGES = ("models", "obs", "ops", "parallel", "serving")
+_SUBPACKAGES = ("models", "obs", "ops", "parallel", "serving", "tools")
 
 
 def __getattr__(name: str):

@@ -3,9 +3,10 @@
 The port keeps the reference's layouts leaf for leaf (``[in, out]``
 weights, block leaves stacked ``[L, ...]``, the Llama preset's zero
 biases; the MoE family's per-block list with its stacked ``[E, ...]``
-expert leaves), so the conversion is a dtype-preserving copy of every
-array — after which the port and the JAX package compute the same
-function on the same weights, which is what the parity tests rely on.
+expert leaves; the int8 weight-only leaves), so the conversion is a
+value-preserving copy of every array — after which the port and the JAX
+package compute the same function on the same weights, which is what the
+parity tests rely on.
 """
 
 from __future__ import annotations
@@ -16,7 +17,20 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..tools.surgery import QuantizedLinear, is_int8_weight
 from .gpt import GPTConfig
+
+
+def _tensor(x, device, dtype=None) -> torch.Tensor:
+    """One numpy array as a tensor on ``device``, of ``dtype`` or (None)
+    of its own dtype.  bfloat16 (numpy's ``ml_dtypes`` extension type)
+    passes through float32, which holds every bfloat16 value exactly."""
+    arr = np.asarray(x)
+    own = None
+    if arr.dtype.name == "bfloat16":
+        arr, own = arr.astype(np.float32), torch.bfloat16
+    t = torch.from_numpy(np.array(arr, order="C"))  # a writable copy
+    return t.to(device=device, dtype=dtype or own or t.dtype)
 
 
 def params_from_jax(np_tree: Dict[str, Any], cfg: GPTConfig,
@@ -24,9 +38,13 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: GPTConfig,
     """``np_tree``: the JAX param pytree with every leaf already turned
     into a numpy array (``jax.tree.map(np.asarray, params)`` on the JAX
     side — this module never imports JAX).  Returns the port's dict with
-    each leaf a tensor of ``cfg.dtype`` on ``device`` (default: the
-    card).  bfloat16 leaves (numpy's ``ml_dtypes`` extension type) pass
-    through float32, which holds every bfloat16 value exactly.
+    each float leaf a tensor of ``cfg.dtype`` on ``device`` (default: the
+    card).  int8 weight-only leaves keep their dtypes (int8 weights, their
+    scales' own float type): an ``ops.moe_dispatch.quantize_moe_experts``
+    ``(q8, scale)`` expert pair stays a tuple of two tensors, and a
+    ``tools.surgery.QuantizedLinear`` node of the reference (recognised by
+    its ``q`` / ``scale`` attributes, whatever its class) becomes the
+    port's :class:`~..tools.surgery.QuantizedLinear`.
 
     ``blocks`` is the dense family's stacked dict, or — for an MoE config
     (``cfg.moe_experts > 0``) — the per-block list of
@@ -37,13 +55,13 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: GPTConfig,
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items()}
         if isinstance(x, tuple):
-            raise TypeError(
-                "int8 (q8, scale) weight pairs are not carried over")
-        arr = np.asarray(x)
-        if arr.dtype.kind == "f" or arr.dtype.name == "bfloat16":
-            arr = arr.astype(np.float32)
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(
-            device=dev, dtype=cfg.dtype)
+            if len(x) != 2 or np.asarray(x[0]).dtype != np.int8:
+                raise TypeError(
+                    "a tuple leaf must be an int8 (q8, scale) expert pair")
+            return tuple(_tensor(a, dev) for a in x)
+        if is_int8_weight(x):
+            return QuantizedLinear(_tensor(x.q, dev), _tensor(x.scale, dev))
+        return _tensor(x, dev, cfg.dtype)
 
     tree = dict(np_tree)
     blocks = tree.pop("blocks", None)

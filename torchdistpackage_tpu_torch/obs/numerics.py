@@ -7,17 +7,30 @@ from typing import Any, Iterator
 
 import torch
 
+from ..tools.surgery import is_int8_weight
+
 
 def tree_leaves(tree: Any) -> Iterator[torch.Tensor]:
-    """The tensors of a nested dict / list tree, in insertion order."""
+    """The tensors of a nested dict / list / tuple tree, in insertion
+    order; an int8 weight node (``tools.surgery.QuantizedLinear``) gives
+    its two tensors."""
     if isinstance(tree, dict):
         for v in tree.values():
             yield from tree_leaves(v)
     elif isinstance(tree, (list, tuple)):
         for v in tree:
             yield from tree_leaves(v)
+    elif is_int8_weight(tree):
+        yield tree.q
+        yield tree.scale
     elif tree is not None:
         yield tree
+
+
+def tree_bytes(tree: Any) -> int:
+    """Bytes of every tensor of ``tree`` (int8 weights and their scales
+    counted as stored)."""
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
 
 def global_grad_norm(tree: Any) -> torch.Tensor:

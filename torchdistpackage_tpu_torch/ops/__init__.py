@@ -1,7 +1,8 @@
 """Kernels written by hand for Hopper, each beside its plain version:
 ``paged_attention`` (K1), ``flash_attention`` (K3-K5) and
-``moe_dispatch`` (K6).  Import the flash and MoE names from their
-submodules, whose own ``LAUNCHES`` count their kernels."""
+``moe_dispatch`` (K6, float and int8 expert weights).  Import the flash
+and MoE names from their submodules, whose own ``LAUNCHES`` count their
+kernels."""
 
 from .paged_attention import (
     LAUNCHES,

@@ -2,28 +2,35 @@
 // the [E, C] slot maps, run each expert's FFN, and add the gate-weighted
 // result back into the [T, D] output — one launch a layer, with no
 // [T, E, C] dispatch tensor and no gathered [E, C, D] slot view in device
-// memory.
+// memory.  Two variants: float expert weights (moe_ffn_kernel) and int8
+// weight-only experts (moe_ffn_int8_kernel).
 //
 // Replaces the TPU kernel K6 of torchdistpackage_tpu/ops/moe_dispatch.py:
-// _pallas_moe_ffn (:289, body _kernel :202) -> moe_ffn_kernel.
+// _pallas_moe_ffn (:289, body _kernel :202) -> moe_ffn_kernel, and its
+// quantized branch (_kernel :253-258, the (q8, scale) leaves of
+// quantize_moe_experts) -> moe_ffn_int8_kernel.
 //
 // y[t] = sum over filled slots (e, c) with idx[e, c] = t and g = comb[e, c]
 //        of g * FFN_e(x[t]),
 // FFN_e(x) = (silu(x.W1[e,0] + b1[e,0]) * (x.W1[e,1] + b1[e,1])).W2[e] + b2[e]
 // (SwiGLU, w1 [E, 2, D, F]) or gelu_tanh(x.W1[e] + b1[e]).W2[e] + b2[e]
-// (GELU, w1 [E, D, F]); y is f32 and must be zeroed by the caller.
+// (GELU, w1 [E, D, F]); y is f32 and must be zeroed by the caller.  In the
+// int8 variant W1[e, j][d, f] = q1[e, j][d, f] * s1[e, j][f] and
+// W2[e][f, d] = q2[e][f, d] * s2[e][d] (one f32 scale per output column).
 //
 // What bounds it on an H100 (3.35 TB/s, 989 TFLOP/s bf16):
 // - decode (T = 8 rows, top-2 of 8 experts): the bytes of every expert hit,
-//   3 D F x 2 B = 352 MB an expert at Mixtral widths (D 4096, F 14336), up
-//   to 2.8 GB a layer against ~1e9 FLOP — bytes.  Every CTA streams its
-//   slice of W1 and W2 once through shared memory, and a warp whose 16 rows
-//   are all empty skips its products, so the weights are read once a layer
-//   and only for the experts that were hit.
+//   3 D F x 2 B = 352 MB an expert at Mixtral widths (D 4096, F 14336) for
+//   bf16 weights, 3 D F x 1 B = 176 MB (plus 42 KB of scales) for int8; up
+//   to 2.8 / 1.4 GB a layer against ~1e9 FLOP — bytes.  Every CTA streams
+//   its slice of W1 and W2 once through shared memory, and a warp whose 16
+//   rows are all empty skips its products, so the weights are read once a
+//   layer and only for the experts that were hit.
 // - a 512-row prefill chunk of 8 slots (T = 4096): 2 (T k) 3 D F = 2.9e12
-//   FLOP — operations.  The products run on the tensor cores (mma.sync
-//   m16n8k16, bf16 in, f32 accumulate); the f32 instantiation computes the
-//   same tiles on the CUDA cores (exact f32, for checks).
+//   FLOP — operations, for either weight type.  The products run on the
+//   tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate); the f32
+//   instantiations compute the same tiles on the CUDA cores (exact f32, for
+//   checks).
 //
 // Design, against the TPU kernel:
 // - The TPU kernel loads one expert's whole W1/W2 per grid step (BlockSpec
@@ -47,10 +54,21 @@
 //   exits before any load.  At the serving capacity C = T only T k of the
 //   E T slots are filled, from slot 0 upward, so the trailing tiles of every
 //   expert exit at once and the E / k padded-compute tax never runs.
+// - int8: the TPU kernel dequantises the whole weight block in f32 before
+//   its products.  Here the int8 tiles stay int8 in shared memory (a
+//   [64 d x 64 f] stage is 4 KB, 16 weights a 16-byte cp.async) and each
+//   value becomes bf16 as the mma B fragment is assembled — exact, since
+//   |q| <= 127 fits bf16's 8 significant bits — or f32 on the CUDA cores
+//   for f32 tokens.  The scale, one per output column, multiplies the f32
+//   product once the walk over D ends: gate[f] *= s1[e,0,f] and up[f] *=
+//   s1[e,1,f] (s1[e,f] for GELU) before bias and activation, partial[d] *=
+//   s2[e,d] before g x and the atomic add.  That equals dequantise-then-
+//   multiply in exact arithmetic (f32 rounding only) and keeps the weight
+//   stream at 1 byte an element.
 // - Rounding: for bf16 the activation is rounded to bf16 before the second
 //   tensor-core product; the TPU kernel keeps it in f32.  Every accumulator
 //   stays f32.
-// Fragments are assembled with 16/32-bit shared loads, as in the flash
+// Fragments are assembled with 8/16/32-bit shared loads, as in the flash
 // kernels.  A faster version would use wgmma fed by TMA in a persistent
 // grouped GEMM over the filled row groups, with a larger F tile (fewer
 // atomics) or a second pass for the F reduction (later work).
@@ -74,6 +92,9 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(int8_t x) {
+  return static_cast<float>(x);
+}
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
@@ -81,6 +102,12 @@ __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+// a B-fragment value as bf16: int8 converts exactly (|q| <= 127 needs 7
+// significant bits of bf16's 8)
+__device__ __forceinline__ __nv_bfloat16 to_bf(__nv_bfloat16 x) { return x; }
+__device__ __forceinline__ __nv_bfloat16 to_bf(int8_t x) {
+  return __float2bfloat16_rn(static_cast<float>(x));
 }
 
 // 16 bytes global -> shared; src_bytes 0 fills the 16 bytes with zeros
@@ -119,14 +146,16 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 // One warp: c[j] += A[16 x K] . B[K x 8j..8j+7] for j < NT8, in the m16n8
 // accumulator layout (lane = 4g + t holds rows g and g + 8, columns 2t and
 // 2t + 1 of each 8-column tile).  A(m, k) = a[m * lda + k] and
-// B(k, n) = b[k * ldb + n], both row-major in shared memory.
-template <typename T, int K, int NT8>
-__device__ __forceinline__ void warp_gemm(float (&c)[NT8][4], const T* a,
-                                          int lda, const T* b, int ldb) {
+// B(k, n) = b[k * ldb + n], both row-major in shared memory.  A is the
+// tokens' type (bf16 or f32); B that type or int8 (converted on the way
+// into the product).
+template <typename TA, typename TB, int K, int NT8>
+__device__ __forceinline__ void warp_gemm(float (&c)[NT8][4], const TA* a,
+                                          int lda, const TB* b, int ldb) {
   const int lane = threadIdx.x % 32;
   const int g = lane >> 2;
   const int t = lane & 3;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+  if constexpr (std::is_same<TA, __nv_bfloat16>::value) {
 #pragma unroll
     for (int k0 = 0; k0 < K; k0 += 16) {
       uint32_t af[4];
@@ -138,9 +167,10 @@ __device__ __forceinline__ void warp_gemm(float (&c)[NT8][4], const T* a,
       for (int j = 0; j < NT8; ++j) {
         const int n = j * 8 + g;
         uint32_t bf[2];
-        bf[0] = pack2(b[(k0 + 2 * t) * ldb + n], b[(k0 + 2 * t + 1) * ldb + n]);
-        bf[1] = pack2(b[(k0 + 2 * t + 8) * ldb + n],
-                      b[(k0 + 2 * t + 9) * ldb + n]);
+        bf[0] = pack2(to_bf(b[(k0 + 2 * t) * ldb + n]),
+                      to_bf(b[(k0 + 2 * t + 1) * ldb + n]));
+        bf[1] = pack2(to_bf(b[(k0 + 2 * t + 8) * ldb + n]),
+                      to_bf(b[(k0 + 2 * t + 9) * ldb + n]));
         mma_bf16(c[j], af, bf);
       }
     }
@@ -194,40 +224,48 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   return 0.5f * x * (1.f + tanhf(k0 * (x + 0.044715f * x * x * x)));
 }
 
-template <typename T, bool SWIGLU>
+// Shared memory of one CTA, in bytes: T is the tokens' type, W the
+// weights' (T, or int8_t).  Every row of a tile is followed by 16 bytes of
+// padding, so the fragment loads of neighbouring rows fall in other banks.
+template <typename T, typename W, bool SWIGLU>
 struct Cfg {
-  static constexpr int PAD = 16 / sizeof(T);  // 16 bytes after each row
-  static constexpr int NW1 = SWIGLU ? 2 : 1;  // W1 tiles a stage (gate, up)
-  static constexpr int LDX = BK + PAD;        // gathered token rows
-  static constexpr int LDW = BF + PAD;        // W1 tiles, W2 tiles
-  static constexpr int LDH = BF + PAD;        // activation
-  static constexpr int LDO = BN + 4;          // f32 partials, per warp
-  static constexpr int STAGE1 = BM * LDX + NW1 * BK * LDW;  // elements
-  static constexpr int STAGE2 = BF * LDW;
+  static constexpr bool Q = std::is_same<W, int8_t>::value;
+  static constexpr int NW1 = SWIGLU ? 2 : 1;        // W1 tiles a stage
+  static constexpr int LDX = BK + 16 / sizeof(T);   // gathered token rows
+  static constexpr int LDW = BF + 16 / sizeof(W);   // W1 tiles, W2 tiles
+  static constexpr int LDH = BF + 16 / sizeof(T);   // activation
+  static constexpr int LDO = BN + 4;                // f32 partials, per warp
+  static constexpr size_t X_BYTES = sizeof(T) * BM * LDX;
+  static constexpr size_t W_BYTES = sizeof(W) * BK * LDW;  // BK == BF rows
+  static constexpr size_t STAGE1 = X_BYTES + NW1 * W_BYTES;
+  static constexpr size_t STAGE2 = W_BYTES;
   static constexpr size_t HEAD = 3 * BM * sizeof(int);  // idx, dst, comb
   static constexpr size_t H_BYTES = sizeof(T) * BM * LDH;
-  static constexpr size_t P1 = sizeof(T) * 2 * STAGE1;
-  static constexpr size_t P2 = sizeof(T) * 2 * STAGE2 + sizeof(float) * BM * LDO;
+  static constexpr size_t P1 = 2 * STAGE1;
+  static constexpr size_t P2 = 2 * STAGE2 + sizeof(float) * BM * LDO;
   static constexpr size_t SMEM = HEAD + H_BYTES + (P1 > P2 ? P1 : P2);
 };
 
-// Grid (C / 64 capacity tiles, F / 64 F tiles, E experts), 128 threads.
-// dst: the token each slot's result is added to (the wrapper passes idx).
-template <typename T, bool SWIGLU>
-__global__ void __launch_bounds__(NTHREADS)
-moe_ffn_kernel(const T* __restrict__ x, const int* __restrict__ idx,
-               const float* __restrict__ comb, const int* __restrict__ dst,
-               const T* __restrict__ w1, const T* __restrict__ b1,
-               const T* __restrict__ w2, const T* __restrict__ b2,
-               float* __restrict__ y, int D, int F, int C) {
-  using G = Cfg<T, SWIGLU>;
+// One CTA of either variant.  Grid (C / 64 capacity tiles, F / 64 F tiles,
+// E experts), 128 threads.  dst: the token each slot's result is added to
+// (the wrapper passes idx).  s1 / s2: the int8 variant's scales (unused,
+// null, for float weights).
+template <typename T, typename W, bool SWIGLU>
+__device__ __forceinline__ void moe_ffn_body(
+    const T* __restrict__ x, const int* __restrict__ idx,
+    const float* __restrict__ comb, const int* __restrict__ dst,
+    const W* __restrict__ w1, const float* __restrict__ s1,
+    const T* __restrict__ b1, const W* __restrict__ w2,
+    const float* __restrict__ s2, const T* __restrict__ b2,
+    float* __restrict__ y, int D, int F, int C) {
+  using G = Cfg<T, W, SWIGLU>;
   constexpr int LDX = G::LDX, LDW = G::LDW, LDH = G::LDH, LDO = G::LDO;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   int* idx_s = reinterpret_cast<int*>(smem_raw);
   int* dst_s = idx_s + BM;
   float* comb_s = reinterpret_cast<float*>(dst_s + BM);
   T* hs = reinterpret_cast<T*>(smem_raw + G::HEAD);
-  T* buf = reinterpret_cast<T*>(smem_raw + G::HEAD + G::H_BYTES);
+  unsigned char* buf = smem_raw + G::HEAD + G::H_BYTES;
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -256,11 +294,17 @@ moe_ffn_kernel(const T* __restrict__ x, const int* __restrict__ idx,
 
   // ---- phase 1: gate (and up) = X[64, D] . W1[e][D, f0:f0+64]
   const long long wstride = static_cast<long long>(D) * F;
-  const T* wg = w1 + static_cast<long long>(e) * G::NW1 * wstride + f0;
-  const T* wu = wg + wstride;  // SwiGLU's up projection
+  const W* wg = w1 + static_cast<long long>(e) * G::NW1 * wstride + f0;
+  const W* wu = wg + wstride;  // SwiGLU's up projection
+  auto xs_at = [&](int stage) {
+    return reinterpret_cast<T*>(buf + stage * G::STAGE1);
+  };
+  auto ws_at = [&](int stage) {
+    return reinterpret_cast<W*>(buf + stage * G::STAGE1 + G::X_BYTES);
+  };
   auto fetch1 = [&](int k0, int stage) {
-    T* xs = buf + stage * G::STAGE1;
-    T* ws = xs + BM * LDX;
+    T* xs = xs_at(stage);
+    W* ws = ws_at(stage);
     constexpr int CH = BK * sizeof(T) / 16;
     for (int i = tid; i < BM * CH; i += NTHREADS) {
       const int r = i / CH;
@@ -272,9 +316,9 @@ moe_ffn_kernel(const T* __restrict__ x, const int* __restrict__ idx,
                  reinterpret_cast<const unsigned char*>(src) + c * 16,
                  filled ? 16 : 0);
     }
-    copy_tile<T, BF, LDW>(ws, wg + static_cast<long long>(k0) * F, F, BK);
+    copy_tile<W, BF, LDW>(ws, wg + static_cast<long long>(k0) * F, F, BK);
     if (SWIGLU)
-      copy_tile<T, BF, LDW>(ws + BK * LDW, wu + static_cast<long long>(k0) * F,
+      copy_tile<W, BF, LDW>(ws + BK * LDW, wu + static_cast<long long>(k0) * F,
                             F, BK);
   };
 
@@ -295,50 +339,57 @@ moe_ffn_kernel(const T* __restrict__ x, const int* __restrict__ idx,
     }
     __syncthreads();
     if (live) {
-      const T* xs = buf + cur * G::STAGE1;
-      const T* ws = xs + BM * LDX;
-      warp_gemm<T, BK, BF / 8>(gate, xs + warp * 16 * LDX, LDX, ws, LDW);
+      const T* xs = xs_at(cur) + warp * 16 * LDX;
+      const W* ws = ws_at(cur);
+      warp_gemm<T, W, BK, BF / 8>(gate, xs, LDX, ws, LDW);
       if (SWIGLU)
-        warp_gemm<T, BK, BF / 8>(up, xs + warp * 16 * LDX, LDX, ws + BK * LDW,
-                                 LDW);
+        warp_gemm<T, W, BK, BF / 8>(up, xs, LDX, ws + BK * LDW, LDW);
     }
     __syncthreads();  // every warp is done with this stage
   }
 
-  // bias and activation in registers; the activation in T (bf16: rounded
-  // before the second product)
+  // (int8: each column's scale,) bias and activation in registers; the
+  // activation in T (bf16: rounded before the second product)
   if (live) {
-    const T* bg = b1 + static_cast<long long>(e) * G::NW1 * F + f0;
+    const long long row1 = static_cast<long long>(e) * G::NW1 * F + f0;
+    const T* bg = b1 + row1;
 #pragma unroll
     for (int jj = 0; jj < BF / 8; ++jj)
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int row = warp * 16 + g + (q >> 1) * 8;
         const int col = jj * 8 + 2 * t + (q & 1);
+        float a = gate[jj][q], u = up[jj][q];
+        if constexpr (G::Q) {
+          a *= s1[row1 + col];
+          if (SWIGLU) u *= s1[row1 + F + col];
+        }
         float h;
         if (SWIGLU)
-          h = silu(gate[jj][q] + to_f(bg[col])) *
-              (up[jj][q] + to_f(bg[F + col]));
+          h = silu(a + to_f(bg[col])) * (u + to_f(bg[F + col]));
         else
-          h = gelu_tanh(gate[jj][q] + to_f(bg[col]));
+          h = gelu_tanh(a + to_f(bg[col]));
         hs[row * LDH + col] = from_f<T>(h);
       }
   }
 
   // ---- phase 2: y[dst] += g * (H[64, 64] . W2[e][f0:f0+64, d0:d0+64] + b2)
-  const T* w2e = w2 + (static_cast<long long>(e) * F + f0) * D;
+  const W* w2e = w2 + (static_cast<long long>(e) * F + f0) * D;
   const T* b2e = b2 + static_cast<long long>(e) * D;
+  const float* s2e = G::Q ? s2 + static_cast<long long>(e) * D : nullptr;
+  auto w2_at = [&](int stage) {
+    return reinterpret_cast<W*>(buf + stage * G::STAGE2);
+  };
   float* os = reinterpret_cast<float*>(buf + 2 * G::STAGE2) +
               warp * 16 * LDO;
   const bool first_tile = blockIdx.y == 0;
   const int nd = D / BN;
-  copy_tile<T, BN, LDW>(buf, w2e, D, BF);
+  copy_tile<W, BN, LDW>(w2_at(0), w2e, D, BF);
   cp_async_commit();
   for (int dd = 0; dd < nd; ++dd) {
     const int cur = dd & 1;
     if (dd + 1 < nd) {
-      copy_tile<T, BN, LDW>(buf + (cur ^ 1) * G::STAGE2, w2e + (dd + 1) * BN,
-                            D, BF);
+      copy_tile<W, BN, LDW>(w2_at(cur ^ 1), w2e + (dd + 1) * BN, D, BF);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -349,15 +400,17 @@ moe_ffn_kernel(const T* __restrict__ x, const int* __restrict__ idx,
       const int d0 = dd * BN;
       float acc[BN / 8][4];
       zero(acc);
-      warp_gemm<T, BF, BN / 8>(acc, hs + warp * 16 * LDH, LDH,
-                               buf + cur * G::STAGE2, LDW);
+      warp_gemm<T, W, BF, BN / 8>(acc, hs + warp * 16 * LDH, LDH, w2_at(cur),
+                                  LDW);
 #pragma unroll
       for (int jj = 0; jj < BN / 8; ++jj)
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int col = jj * 8 + 2 * t + (q & 1);
+          float v = acc[jj][q];
+          if constexpr (G::Q) v *= s2e[d0 + col];
           os[(g + (q >> 1) * 8) * LDO + col] =
-              acc[jj][q] + (first_tile ? to_f(b2e[d0 + col]) : 0.f);
+              v + (first_tile ? to_f(b2e[d0 + col]) : 0.f);
         }
       __syncwarp();
       // one row at a time: 32 lanes on 32 contiguous floats of one token
@@ -375,11 +428,36 @@ moe_ffn_kernel(const T* __restrict__ x, const int* __restrict__ idx,
 }
 
 template <typename T, bool SWIGLU>
+__global__ void __launch_bounds__(NTHREADS)
+moe_ffn_kernel(const T* __restrict__ x, const int* __restrict__ idx,
+               const float* __restrict__ comb, const int* __restrict__ dst,
+               const T* __restrict__ w1, const T* __restrict__ b1,
+               const T* __restrict__ w2, const T* __restrict__ b2,
+               float* __restrict__ y, int D, int F, int C) {
+  moe_ffn_body<T, T, SWIGLU>(x, idx, comb, dst, w1, nullptr, b1, w2, nullptr,
+                             b2, y, D, F, C);
+}
+
+template <typename T, bool SWIGLU>
+__global__ void __launch_bounds__(NTHREADS)
+moe_ffn_int8_kernel(const T* __restrict__ x, const int* __restrict__ idx,
+                    const float* __restrict__ comb,
+                    const int* __restrict__ dst,
+                    const int8_t* __restrict__ q1,
+                    const float* __restrict__ s1, const T* __restrict__ b1,
+                    const int8_t* __restrict__ q2,
+                    const float* __restrict__ s2, const T* __restrict__ b2,
+                    float* __restrict__ y, int D, int F, int C) {
+  moe_ffn_body<T, int8_t, SWIGLU>(x, idx, comb, dst, q1, s1, b1, q2, s2, b2,
+                                  y, D, F, C);
+}
+
+template <typename T, bool SWIGLU>
 cudaError_t launch(const void* x, const void* idx, const void* comb,
                    const void* dst, const void* w1, const void* b1,
                    const void* w2, const void* b2, void* y, int D, int F,
                    int E, int C, cudaStream_t st) {
-  using G = Cfg<T, SWIGLU>;
+  using G = Cfg<T, T, SWIGLU>;
   auto kernel = moe_ffn_kernel<T, SWIGLU>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -395,6 +473,34 @@ cudaError_t launch(const void* x, const void* idx, const void* comb,
   return cudaGetLastError();
 }
 
+template <typename T, bool SWIGLU>
+cudaError_t launch_int8(const void* x, const void* idx, const void* comb,
+                        const void* dst, const void* q1, const void* s1,
+                        const void* b1, const void* q2, const void* s2,
+                        const void* b2, void* y, int D, int F, int E, int C,
+                        cudaStream_t st) {
+  using G = Cfg<T, int8_t, SWIGLU>;
+  auto kernel = moe_ffn_int8_kernel<T, SWIGLU>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(G::SMEM));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((C + BM - 1) / BM, F / BF, E);
+  kernel<<<grid, NTHREADS, G::SMEM, st>>>(
+      static_cast<const T*>(x), static_cast<const int*>(idx),
+      static_cast<const float*>(comb), static_cast<const int*>(dst),
+      static_cast<const int8_t*>(q1), static_cast<const float*>(s1),
+      static_cast<const T*>(b1), static_cast<const int8_t*>(q2),
+      static_cast<const float*>(s2), static_cast<const T*>(b2),
+      static_cast<float*>(y), D, F, C);
+  return cudaGetLastError();
+}
+
+bool bad_shape(int T, int D, int F, int E, int C) {
+  return T < 1 || E < 1 || C < 1 || D < BK || F < BF || D % BK != 0 ||
+         F % BF != 0 || E > 65535 || F / BF > 65535;
+}
+
 }  // namespace
 
 // x [T, D]; idx / dst int32 [E, C]; comb f32 [E, C]; w1 [E, 2, D, F]
@@ -408,9 +514,7 @@ extern "C" int tdp_moe_ffn(const void* x, const void* idx, const void* comb,
                            const void* w2, const void* b2, void* y, int T,
                            int D, int F, int E, int C, int swiglu,
                            int dtype_tag, void* stream) {
-  if (T < 1 || E < 1 || C < 1 || D < BK || F < BF || D % BK != 0 ||
-      F % BF != 0 || E > 65535 || F / BF > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(T, D, F, E, C)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (dtype_tag * 2 + (swiglu ? 1 : 0)) {
@@ -436,13 +540,56 @@ extern "C" int tdp_moe_ffn(const void* x, const void* idx, const void* comb,
   return static_cast<int>(err);
 }
 
-// Dynamic shared memory a CTA uses, for the build report; -1 if unknown.
-extern "C" int tdp_moe_ffn_smem_bytes(int dtype_tag, int swiglu) {
+// The int8 variant: as tdp_moe_ffn, with q1 / q2 int8 in w1's / w2's
+// layout, s1 f32 [E, 2, F] (swiglu 1) or [E, F], s2 f32 [E, D]; x, b1 and
+// b2 of dtype_tag (0 = bf16, 1 = f32).
+extern "C" int tdp_moe_ffn_int8(const void* x, const void* idx,
+                                const void* comb, const void* dst,
+                                const void* q1, const void* s1,
+                                const void* b1, const void* q2,
+                                const void* s2, const void* b2, void* y,
+                                int T, int D, int F, int E, int C, int swiglu,
+                                int dtype_tag, void* stream) {
+  if (bad_shape(T, D, F, E, C)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
   switch (dtype_tag * 2 + (swiglu ? 1 : 0)) {
-    case 0: return static_cast<int>(Cfg<__nv_bfloat16, false>::SMEM);
-    case 1: return static_cast<int>(Cfg<__nv_bfloat16, true>::SMEM);
-    case 2: return static_cast<int>(Cfg<float, false>::SMEM);
-    case 3: return static_cast<int>(Cfg<float, true>::SMEM);
+    case 0:
+      err = launch_int8<__nv_bfloat16, false>(x, idx, comb, dst, q1, s1, b1,
+                                              q2, s2, b2, y, D, F, E, C, st);
+      break;
+    case 1:
+      err = launch_int8<__nv_bfloat16, true>(x, idx, comb, dst, q1, s1, b1,
+                                             q2, s2, b2, y, D, F, E, C, st);
+      break;
+    case 2:
+      err = launch_int8<float, false>(x, idx, comb, dst, q1, s1, b1, q2, s2,
+                                      b2, y, D, F, E, C, st);
+      break;
+    case 3:
+      err = launch_int8<float, true>(x, idx, comb, dst, q1, s1, b1, q2, s2,
+                                     b2, y, D, F, E, C, st);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err);
+}
+
+// Dynamic shared memory a CTA uses, for the build report; -1 if unknown.
+// dtype_tag: 0 bf16, 1 f32 (float weights); 2 bf16, 3 f32 tokens with int8
+// weights.
+extern "C" int tdp_moe_ffn_smem_bytes(int dtype_tag, int swiglu) {
+  using BF16 = __nv_bfloat16;
+  switch (dtype_tag * 2 + (swiglu ? 1 : 0)) {
+    case 0: return static_cast<int>(Cfg<BF16, BF16, false>::SMEM);
+    case 1: return static_cast<int>(Cfg<BF16, BF16, true>::SMEM);
+    case 2: return static_cast<int>(Cfg<float, float, false>::SMEM);
+    case 3: return static_cast<int>(Cfg<float, float, true>::SMEM);
+    case 4: return static_cast<int>(Cfg<BF16, int8_t, false>::SMEM);
+    case 5: return static_cast<int>(Cfg<BF16, int8_t, true>::SMEM);
+    case 6: return static_cast<int>(Cfg<float, int8_t, false>::SMEM);
+    case 7: return static_cast<int>(Cfg<float, int8_t, true>::SMEM);
     default: return -1;
   }
 }

@@ -6,7 +6,10 @@ per token, with no ``[T, E, C]`` dispatch tensor and no gathered
 Replaces the TPU kernel K6, ``_pallas_moe_ffn``
 (``torchdistpackage_tpu/ops/moe_dispatch.py:289``, body ``_kernel`` :202),
 with a CUDA kernel written by hand for Hopper, ``ops/csrc/moe_dispatch.cu``
-(built by :mod:`._build` at first use).
+(built by :mod:`._build` at first use), in two variants: float expert
+weights, and int8 weight-only experts — the ``(q8, scale)`` pairs of
+:func:`quantize_moe_experts`, the TPU kernel's ``quantized`` branch
+(``_kernel`` :253-258).
 
 What bounds it on an H100: at decode (a few rows) the bytes of every
 expert that was hit — its whole W1 and W2, 352 MB an expert at Mixtral
@@ -15,27 +18,33 @@ for SwiGLU.  A CTA owns 64 capacity slots of one expert and 64 columns of
 F, streams its W1 and W2 slices through shared memory once, and runs the
 products on the tensor cores; a tile with no filled slot exits at once,
 which is what lets serving run at the no-drop capacity ``C = T`` without
-the ``E / k`` padded-compute tax.  Partial sums over F tiles meet in the
-f32 output by atomic adds (so their order varies from run to run).  The
-source's header says what a faster version would add.
+the ``E / k`` padded-compute tax.  The int8 variant streams 1-byte
+weights (half the bytes of bf16: 176 MB an expert at Mixtral widths) and
+applies each output column's scale to the product, not to the weights.
+Partial sums over F tiles meet in the f32 output by atomic adds (so their
+order varies from run to run).  The source's header says what a faster
+version would add.
 
 - :func:`slot_maps` compresses a ``_top_k_route`` decision into the
   kernel's maps: ``idx`` (the token in each slot) and ``comb`` (its gate
   weight, 0 for an empty or dropped slot).
+- :func:`quantize_moe_experts` makes the int8 expert leaves, and
+  :func:`_dequant` turns a leaf back into f32, as the reference does.
 - :func:`moe_ffn_slots_reference` is K6's plain version on those maps; it
-  does build the ``[E, C, D]`` slot view.  :func:`moe_ffn_oracle` is the
-  JAX package's oracle (maps built from the routing, output in the
-  tokens' dtype).
+  does build the ``[E, C, D]`` slot view, and takes int8 leaves through
+  :func:`_dequant`.  :func:`moe_ffn_oracle` is the JAX package's oracle
+  (maps built from the routing, output in the tokens' dtype).
 - :func:`fused_moe_ffn_slots` is the kernel's wrapper: it launches K6 for
-  CUDA tensors and raises on anything K6 does not take (int8 expert
-  weights included), and takes the plain version only for CPU tensors.
-  ``LAUNCHES["fused_moe_ffn"]`` counts its launches.
-  :func:`fused_moe_ffn` is the routing-level entry point the serving
-  forward calls.
+  CUDA tensors and raises on anything K6 does not take, and takes the
+  plain version only for CPU tensors.  ``LAUNCHES["fused_moe_ffn"]``
+  counts the float variant's launches, ``LAUNCHES["fused_moe_ffn_int8"]``
+  the int8 variant's.  :func:`fused_moe_ffn` is the routing-level entry
+  point the serving forward calls.
 
 The backward the reference gives ``fused_moe_ffn`` (a ``custom_vjp``
 through the oracle) belongs to MoE training, which is not ported yet
-(ROADMAP queue A): this module is forward-only.
+(ROADMAP queue A): this module is forward-only, and int8 is forward-only
+in the reference too.
 """
 
 from __future__ import annotations
@@ -46,23 +55,32 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..obs.numerics import tree_leaves
+
 #: kernel launches since the counter was last reset (the wrapper adds one
 #: where it launches, and nowhere else)
-LAUNCHES: Dict[str, int] = {"fused_moe_ffn": 0}
+LAUNCHES: Dict[str, int] = {"fused_moe_ffn": 0, "fused_moe_ffn_int8": 0}
 
 _DTYPE_TAG = {torch.bfloat16: 0, torch.float32: 1}
 TILE = 64  # the kernel's D and F tile: both must be multiples of it
-_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
-             + [ctypes.c_void_p])
-# x, idx, comb, dst, w1, b1, w2, b2, y, T, D, F, E, C, swiglu, dtype, stream
+_ARGTYPES = {
+    # x, idx, comb, dst, w1, b1, w2, b2, y, T, D, F, E, C, swiglu, dtype,
+    # stream
+    "tdp_moe_ffn": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+    + [ctypes.c_void_p],
+    # x, idx, comb, dst, q1, s1, b1, q2, s2, b2, y, T, D, F, E, C, swiglu,
+    # dtype, stream
+    "tdp_moe_ffn_int8": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+    + [ctypes.c_void_p],
+}
 
 
-def _kernel():
+def _kernel(name: str):
     from ._build import load
 
-    fn = load("moe_dispatch").tdp_moe_ffn
+    fn = getattr(load("moe_dispatch"), name)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return fn
 
@@ -89,6 +107,35 @@ def resolve_moe_dispatch(dispatch: Optional[str], device) -> str:
 
 def _is_q(w) -> bool:
     return isinstance(w, tuple)
+
+
+def _dequant(w) -> torch.Tensor:
+    """``(q8, scale)`` -> f32 ``q8 * scale`` (the scale broadcast over the
+    contracted dim -2); a float leaf upcast to f32 — the reference's
+    oracle numerics."""
+    if _is_q(w):
+        q, s = w
+        return q.float() * s.unsqueeze(-2)
+    return w.float()
+
+
+@torch.no_grad()
+def quantize_moe_experts(experts: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """Per-expert, per-output-column symmetric int8 for the matmul weights
+    (w1 / w2 -> ``(q8, scale)`` pairs; biases stay float), the reference's
+    arithmetic in the weights' own dtype: ``s = max|w|`` over the
+    contracted dim (-2) / 127, then ``max(s, 1e-8)``, ``q8 = clip(round(w /
+    s), -127, 127)`` (``torch.round`` rounds half to even, as
+    ``jnp.round``), the scale cast to f32 last."""
+
+    def q(w):
+        s = (w.abs().amax(-2) / 127.0).clamp_min(1e-8)
+        q8 = torch.round(w / s.unsqueeze(-2)).clamp_(-127, 127).to(
+            torch.int8)
+        return q8, s.float()
+
+    return {"w1": q(experts["w1"]), "b1": experts["b1"],
+            "w2": q(experts["w2"]), "b2": experts["b2"]}
 
 
 def slot_maps(gate_vals: torch.Tensor, gate_idx: torch.Tensor,
@@ -138,11 +185,7 @@ def ffn_rows(xs: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 
 
 def _expert_weights_f32(experts: Dict[str, Any]):
-    if _is_q(experts["w1"]) or _is_q(experts["w2"]):
-        raise NotImplementedError(
-            "int8 (q8, scale) expert weights are a K6 variant not ported "
-            "yet (ROADMAP queue B)")
-    return tuple(experts[n].float() for n in ("w1", "b1", "w2", "b2"))
+    return tuple(_dequant(experts[n]) for n in ("w1", "b1", "w2", "b2"))
 
 
 @torch.no_grad()
@@ -151,10 +194,10 @@ def moe_ffn_slots_reference(experts: Dict[str, Any], tokens: torch.Tensor,
                             scatter_idx: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
     """K6's plain version on the slot maps: gather the ``[E, C, D]`` slot
-    view in f32 (empty slots zeroed), run each expert's FFN on its slots,
-    and add ``comb x`` each slot's output into f32 ``[T, D]`` at
-    ``scatter_idx`` (default ``idx``) — the reference oracle's
-    arithmetic."""
+    view in f32 (empty slots zeroed), run each expert's FFN on its slots
+    (int8 weights ``_dequant``-ed to f32 first), and add ``comb x`` each
+    slot's output into f32 ``[T, D]`` at ``scatter_idx`` (default
+    ``idx``) — the reference oracle's arithmetic."""
     T, D = tokens.shape
     E, C = idx.shape
     w1, b1, w2, b2 = _expert_weights_f32(experts)
@@ -193,23 +236,28 @@ def fused_moe_ffn_slots(experts: Dict[str, Any], tokens: torch.Tensor,
     names the token each slot's result is added to.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
-    which takes contiguous bf16 or f32 tokens and float expert weights of
-    the same dtype, with D and F multiples of 64.  int8 ``(q8, scale)``
-    expert weights raise ``NotImplementedError``."""
-    if _is_q(experts["w1"]) or _is_q(experts["w2"]):
+    which takes contiguous bf16 or f32 tokens, D and F multiples of 64,
+    biases of the tokens' dtype and either float w1 / w2 of that dtype
+    (the float variant) or int8 ``(q8, scale)`` pairs of
+    :func:`quantize_moe_experts` for both (the int8 variant: q8 int8 of
+    the float layout, f32 scales ``[E, 2, F]`` / ``[E, F]`` for w1 and
+    ``[E, D]`` for w2).  One int8 and one float weight raise
+    ``NotImplementedError``, as neither variant takes the mix."""
+    quantized = _is_q(experts["w1"])
+    if quantized != _is_q(experts["w2"]):
         raise NotImplementedError(
-            "int8 (q8, scale) expert weights are a K6 variant not ported "
-            "yet (ROADMAP queue B)")
+            "K6 takes int8 (q8, scale) pairs for both w1 and w2, or float "
+            "weights for both; not an int8 / float mix")
     if tokens.device.type == "cpu":
-        _check(all(t.device.type == "cpu" for t in
-                   (idx, comb, *(experts[n] for n in
-                                 ("w1", "b1", "w2", "b2")))),
+        _check(all(t.device.type == "cpu"
+                   for t in (idx, comb, *tree_leaves(experts))),
                "all tensors must be on the tokens' device")
         return moe_ffn_slots_reference(experts, tokens, idx, comb,
                                        scatter_idx)
     _check(tokens.device.type == "cuda", f"unsupported device {tokens.device}")
     dst = idx if scatter_idx is None else scatter_idx
     w1, b1, w2, b2 = (experts[n] for n in ("w1", "b1", "w2", "b2"))
+    (w1, s1), (w2, s2) = (w1, w2) if quantized else ((w1, None), (w2, None))
     _check(tokens.dim() == 2, f"tokens must be [T, D], got "
            f"{tuple(tokens.shape)}")
     T, D = tokens.shape
@@ -219,17 +267,24 @@ def fused_moe_ffn_slots(experts: Dict[str, Any], tokens: torch.Tensor,
     _check(w1.dim() in (3, 4), f"w1 must be [E, D, F] or [E, 2, D, F], got "
            f"{tuple(w1.shape)}")
     E, Fd = w1.shape[0], w1.shape[-1]
-    want = {
-        "w1": (E, 2, D, Fd) if swiglu else (E, D, Fd),
-        "b1": (E, 2, Fd) if swiglu else (E, Fd),
-        "w2": (E, Fd, D),
-        "b2": (E, D),
+    wdt = torch.int8 if quantized else tokens.dtype
+    want = {  # name: (shape, dtype)
+        "w1": ((E, 2, D, Fd) if swiglu else (E, D, Fd), wdt),
+        "b1": ((E, 2, Fd) if swiglu else (E, Fd), tokens.dtype),
+        "w2": ((E, Fd, D), wdt),
+        "b2": ((E, D), tokens.dtype),
     }
-    for name, t in zip(("w1", "b1", "w2", "b2"), (w1, b1, w2, b2)):
-        _check(tuple(t.shape) == want[name],
-               f"{name} must be {want[name]}, got {tuple(t.shape)}")
-        _check(t.dtype == tokens.dtype,
-               f"{name} is {t.dtype}, tokens are {tokens.dtype}")
+    if quantized:
+        want["w1 scale"] = ((E, 2, Fd) if swiglu else (E, Fd), torch.float32)
+        want["w2 scale"] = ((E, D), torch.float32)
+    got = {"w1": w1, "b1": b1, "w2": w2, "b2": b2, "w1 scale": s1,
+           "w2 scale": s2}
+    for name, (shape, dt) in want.items():
+        t = got[name]
+        _check(tuple(t.shape) == shape,
+               f"{name} must be {shape}, got {tuple(t.shape)}")
+        _check(t.dtype == dt, f"{name} is {t.dtype}, must be {dt} (tokens "
+               f"are {tokens.dtype})")
     _check(D % TILE == 0 and Fd % TILE == 0,
            f"D and F must be multiples of {TILE}, got {D} / {Fd}")
     _check(idx.dim() == 2 and idx.shape[0] == E and idx.dtype == torch.int32,
@@ -239,21 +294,25 @@ def fused_moe_ffn_slots(experts: Dict[str, Any], tokens: torch.Tensor,
            f"comb must be f32 [{E}, {C}]")
     _check(dst.shape == idx.shape and dst.dtype == torch.int32,
            f"scatter_idx must be int32 [{E}, {C}]")
-    args = (tokens, idx, comb, dst, w1, b1, w2, b2)
+    weights = (w1, s1, b1, w2, s2, b2) if quantized else (w1, b1, w2, b2)
+    args = (tokens, idx, comb, dst) + weights
     for t in args:
         _check(t.device == tokens.device, "all tensors must be on the "
                "tokens' device")
         _check(t.is_contiguous(), "all tensors must be contiguous")
         _check(t.data_ptr() % 16 == 0, "all tensors must be 16-byte aligned")
+    name, entry = (("fused_moe_ffn_int8", "tdp_moe_ffn_int8") if quantized
+                   else ("fused_moe_ffn", "tdp_moe_ffn"))
     y = torch.zeros(T, D, dtype=torch.float32, device=tokens.device)
     with torch.cuda.device(tokens.device):
         stream = torch.cuda.current_stream(tokens.device).cuda_stream
-        err = _kernel()(*(t.data_ptr() for t in args), y.data_ptr(), T, D,
-                        Fd, E, C, int(swiglu), tag, stream)
+        err = _kernel(entry)(
+            *(t.data_ptr() for t in args), y.data_ptr(), T, D, Fd, E, C,
+            int(swiglu), tag, stream)
     if err != 0:
         raise RuntimeError(f"moe_dispatch kernel launch failed: CUDA error "
                            f"{err}")
-    LAUNCHES["fused_moe_ffn"] += 1
+    LAUNCHES[name] += 1
     return y
 
 
@@ -275,8 +334,9 @@ def moe_rounding_scale(experts: Dict[str, Any], tokens: torch.Tensor,
     W2[f, d])^2)`` in f32 ``[T, D]``: the scale of the error that rounding
     the activation h to bf16 before the second product (as the kernel
     does) puts into each output, each term moving by up to 2^-8 of itself
-    in random directions.  One expert at a time, so the ``[C, F]``
-    activations of a long prefill stay within memory."""
+    in random directions; int8 weights enter ``_dequant``-ed.  One expert
+    at a time, so the ``[C, F]`` activations of a long prefill stay
+    within memory."""
     T, D = tokens.shape
     w1, b1, w2, b2 = _expert_weights_f32(experts)
     out = torch.zeros(T, D, dtype=torch.float32, device=tokens.device)

@@ -8,9 +8,10 @@ capacity (exact, no drops) and runs the expert FFN through one of two
 arms: ``'gather'`` sorts the ``T k`` assignments by expert and runs one
 product per expert over its row group (the reference's ragged path,
 plain PyTorch), ``'cuda'`` hands the routing to the fused kernel K6
-(``ops/moe_dispatch.py``) at the no-drop capacity ``C = T``.  ``'auto'``
-picks ``'cuda'`` on a CUDA device and ``'gather'`` on the CPU.  The port's
-``'cuda'`` stands where the reference says ``'pallas'``.
+(``ops/moe_dispatch.py``) at the no-drop capacity ``C = T``, float or
+int8 weight-only experts.  ``'auto'`` picks ``'cuda'`` on a CUDA device
+and ``'gather'`` on the CPU.  The port's ``'cuda'`` stands where the
+reference says ``'pallas'``.
 
 The capacity (training) path ``moe_forward``, its load-balance loss, the
 dense and sorted dispatch materialisations, expert-choice routing and
@@ -27,7 +28,12 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from ..ops.moe_dispatch import ffn_rows, fused_moe_ffn, resolve_moe_dispatch
+from ..ops.moe_dispatch import (
+    _is_q,
+    ffn_rows,
+    fused_moe_ffn,
+    resolve_moe_dispatch,
+)
 from .tensor_parallel.layers import _normal
 
 Params = Dict[str, Any]
@@ -143,6 +149,12 @@ def _ragged_ffn(experts: Params, tokens: torch.Tensor,
     rows gathered, one product per expert and weight over its row group in
     the model dtype, then the gate-weighted scatter-add per token.  The
     group sizes are read back to the host to cut the groups."""
+    if _is_q(experts["w1"]) or _is_q(experts["w2"]):
+        # the reference's ragged arm dies here with an AttributeError
+        # (parallel/moe.py:588); it never dequantises silently, nor does this
+        raise TypeError(
+            "int8 (q8, scale) expert weights run only in the fused kernel: "
+            "use moe_dispatch='cuda' (the 'gather' arm takes float experts)")
     T, D = tokens.shape
     k = gate_idx.shape[1]
     E = experts["w2"].shape[0]
@@ -166,8 +178,9 @@ def moe_serve_forward(params: Params, x: torch.Tensor, cfg: MoEConfig,
     routing with no capacity (no drops, so causally safe), the router's
     product in the model dtype and its softmax in f32.  ``dispatch``
     overrides ``cfg.dispatch``: ``'gather'`` (the ragged plain path, the
-    oracle arm), ``'cuda'`` (K6 at ``C = T``; all-empty capacity tiles
-    exit at once) or ``'auto'`` (by the device).  ``return_metrics=True``
+    oracle arm; float experts only), ``'cuda'`` (K6 at ``C = T``; all-empty
+    capacity tiles exit at once; float experts or the int8 ``(q8, scale)``
+    pairs of ``quantize_moe_experts``) or ``'auto'`` (by the device).  ``return_metrics=True``
     also returns ``{'expert_tokens': [E] f32 (bincount of the choices of
     all T rows), 'dropped_token_rate': 0}``."""
     if cfg.router != "topk":

@@ -28,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ...device import resolve_device
 from ...obs.numerics import tree_leaves
+from ...tools.surgery import int8_matmul, is_int8_weight
 
 Params = Dict[str, torch.Tensor]
 
@@ -217,13 +218,21 @@ def apply_rope(x: torch.Tensor, cache) -> torch.Tensor:
 # ------------------------------------------------------------- projections
 
 
-def dense(x: torch.Tensor, w: torch.Tensor,
-          b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``x @ w (+ b)`` for a plain ``[in, out]`` weight (the reference's
-    int8 weight leaves are not ported).  The bias rides the GEMM's
-    epilogue (one kernel, not two); it rounds once where ``x @ w + b``
-    rounds twice, which is the same value for the zero biases of the
-    Llama preset and within f32 rounding otherwise."""
+def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None
+          ) -> torch.Tensor:
+    """``x @ w (+ b)`` with the reference's structural int8 dispatch: a
+    weight with ``q`` / ``scale`` (``tools.surgery.QuantizedLinear``) runs
+    :func:`~...tools.surgery.int8_matmul` (the int8 weight upcast to
+    ``x.dtype``, the product, the per-column scale in f32, a cast back),
+    and the bias is added after, as the reference adds it.  A plain
+    ``[in, out]`` weight takes the bias in the GEMM's epilogue (one
+    kernel, not two); it rounds once where ``x @ w + b`` rounds twice,
+    which is the same value for the zero biases of the Llama preset and
+    within f32 rounding otherwise.  A stacked int8 weight is indexed to
+    2-D before it gets here (``wqkv[i]``), its scale with it."""
+    if is_int8_weight(w):
+        y = int8_matmul(x, w)
+        return y if b is None else y + b
     return F.linear(x, w.t(), b)
 
 
@@ -266,7 +275,7 @@ def mlp_partial(p: Params, x: torch.Tensor) -> torch.Tensor:
     stacked ``[2, D, F]`` SwiGLU gate/up pair; a 2-dim one the GELU MLP,
     with the tanh approximation that ``jax.nn.gelu`` uses by default."""
     w1, b1 = p["w1"], p["b1"]
-    if w1.dim() == 3:
+    if w1.ndim == 3:
         h = F.silu(dense(x, w1[0], b1[0])) * dense(x, w1[1], b1[1])
     else:
         h = F.gelu(dense(x, w1, b1), approximate="tanh")
