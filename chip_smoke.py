@@ -12,7 +12,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build   — the three kernel sources under ``torchdistpackage_tpu_torch/
    ops/csrc`` are compiled at once (one nvcc each); build seconds and
    ptxas' registers / shared memory / spills of every instantiation (K6's
-   float and int8 ones named apart), and each one's dynamic shared memory.
+   and K7's float and int8 ones named apart), and each one's dynamic
+   shared memory.
 3. kernels — each kernel against its plain version on the card, row by
    row against the plain version run in f32 on the same values
    (``row_tolerance``, ``grad_held``, ``moe_held``), with planted faults
@@ -37,7 +38,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    tokens and capacity drops (faults: w2's scale not applied, the up half
    scaled by the gate's scale row, each column scaled by its neighbour's
    scale; yardstick the ragged arm over bf16 weights dequantised
-   beforehand).
+   beforehand).  K7 and K7-int8 (the expert-parallel expert FFN, every
+   row computed) at Mixtral's expert widths at the per-rank shapes of EP
+   1 and EP 4 — decode ([8, 8, 4096] / [2, 32, 4096]) and a 512-row
+   chunk of 8 slots ([8, 4096, 4096] / [2, 16384, 4096]) — plus GELU, f32
+   rows and a ragged G (faults: the last F tile left out, b2 added by
+   every F tile, each row in the next expert's block, and for int8 w2's
+   scale not applied; yardstick the torch.bmm chain, several cuBLAS
+   calls).
 4. train   — the training main path: ``bench.py``'s GPT-125M at full
    depth, batch 16, S 2048, bf16, remat 'flash', 10 AdamW steps on one
    fixed batch (losses, step time, tokens/s, MFU, peak memory, launches
@@ -58,7 +66,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    routing; the free-running drift reported), then ``ServingEngine`` serves 12
    requests (9 greedy, 3 sampled) through K6 and K1, each launched once
    per layer per device call; the ``moe`` summary's expert load; a
-   decode tick of 8 slots profiled by kernel family.
+   decode tick of 8 slots profiled by kernel family.  Then the same model
+   expert-parallel (``ep_phase``): a one-rank NCCL process group
+   (``init_distributed``, ``build_moe_groups(1)``), ``paged_forward_moe``
+   through ``moe_forward``'s exchange with K7 against the ragged arm
+   (routing pinned), the engine with ``ep_group`` serving the same 12
+   requests through K7 and K1 (K6 never), a decode tick profiled.
 7. int8 serve — Mixtral-8x7B-v0.1 whole, all 32 layers (46.7 B
    parameters), int8 weight-only with bf16 activations, random weights,
    built block by block (``quantize_moe_experts`` on each block's
@@ -68,8 +81,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    dequantised to bf16 just before that layer's call (routing pinned, and
    free-running); ``ServingEngine`` serves the same 12 requests as the MoE
    phase through K6-int8 and K1, each launched once per layer per device
-   call; a decode tick profiled.
-8. the ``{"kernels": [...]}`` line (six entries), then the card line,
+   call; a decode tick profiled; then expert-parallel as in phase 6,
+   through K7-int8.
+8. the ``{"kernels": [...]}`` line (eight entries), then the card line,
    then the result line ``{"ok": true, "device": {...}}`` last.
 
 Every kernel's launch count is set to 0 just before each main path (the
@@ -858,6 +872,181 @@ def moe_int8_kernel_phase():
                                "beforehand (per-expert cuBLAS calls)")
 
 
+# ------------------------------------------------------------ K7
+
+
+K7_REPLACES = {
+    "fused_expert_ffn": "torchdistpackage_tpu/ops/moe_dispatch.py:506",
+    "fused_expert_ffn_int8": ("torchdistpackage_tpu/ops/moe_dispatch.py:506 "
+                              "(_ep_kernel quantized branch :434-439)"),
+}
+
+
+def expert_ffn_bound(experts, x):
+    """Least time for a K7 call: every row is computed, so the bytes are
+    all e_loc experts' weights (W1, b1, W2, b2, and int8 scales) once,
+    x in and y out, over the memory rate; the operations 2 e_loc G (3 or
+    2) D F over the peak for x's type."""
+    from torchdistpackage_tpu_torch.obs.numerics import tree_bytes
+
+    E, G, D = x.shape
+    F_ = weight(experts["w2"]).shape[1]
+    nbytes = tree_bytes(experts) + 2 * x.numel() * x.element_size()
+    flops = 2 * E * G * (3 if weight(experts["w1"]).dim() == 4 else 2) * D * F_
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[x.dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def bmm_chain(experts, x):
+    """The library yardstick for K7: one cuBLAS batched product per
+    weight over the experts (``torch.bmm``), bias and activation between
+    — several calls, as no single PyTorch call computes the function."""
+    w1, b1, w2, b2 = (experts[n] for n in ("w1", "b1", "w2", "b2"))
+    if w1.dim() == 4:
+        g = torch.baddbmm(b1[:, 0, None], x, w1[:, 0])
+        u = torch.baddbmm(b1[:, 1, None], x, w1[:, 1])
+        h = F.silu(g) * u
+    else:
+        h = F.gelu(torch.baddbmm(b1[:, None], x, w1), approximate="tanh")
+    return torch.baddbmm(b2[:, None], h, w2)
+
+
+def expert_ffn_specs(make, seed, variant=""):
+    """K7's cases, lazily (the Mixtral stack shared by its four shapes):
+    Mixtral-8x7B expert widths (D 4096, F 14336, SwiGLU, bf16) at the
+    per-rank shapes of EP 1 and EP 4 (e_loc 8 or 2) — decode, 8 slots of
+    one token (G = C = T = 8 at EP 1; 4 ranks' 8 at EP 4), and a 512-row
+    chunk of 8 slots (G = C = T = 4096; 16384 at EP 4); then GELU, f32
+    rows and a ragged G (not a multiple of the 64-row tile) at smaller
+    widths.  Each case's rows are random with a band of zero pad rows."""
+    bf, f32 = torch.bfloat16, torch.float32
+    mixtral = make(E=8, D=4096, F=14336, act="swiglu", dtype=bf, seed=seed)
+    big = variant or "bf16"
+    cases = [(f"decode_ep1_{big}_mixtral", lambda: mixtral, 8, 8),
+             (f"decode_ep4_{big}_mixtral", lambda: mixtral, 2, 32),
+             (f"chunk_ep1_{big}_mixtral", lambda: mixtral, 8, 4096),
+             (f"chunk_ep4_{big}_mixtral", lambda: mixtral, 2, 16384)]
+    small = [("gelu", "bf16", dict(act="gelu", F=4096, dtype=bf), 256),
+             ("swiglu", "f32", dict(act="swiglu", F=1408, dtype=f32), 128),
+             ("ragged_g100", "bf16", dict(act="swiglu", F=2048, dtype=bf),
+              100)]
+    for i, (base, dt, kw, G) in enumerate(small):
+        name = "_".join(filter(None, (base, variant, dt)))
+        cases.append((name, lambda kw=kw, i=i: make(
+            E=4, D=1024, seed=seed + 1 + i, **kw), 4, G))
+    for i, (name, experts, e_loc, G) in enumerate(cases):
+        ex = experts()
+        ex = {n: (tuple(t[:e_loc] for t in v) if isinstance(v, tuple)
+                  else v[:e_loc]) for n, v in ex.items()}
+        g = torch.Generator(device="cuda").manual_seed(seed + 20 + i)
+        D = weight(ex["w2"]).shape[2]
+        x = torch.randn(e_loc, G, D, generator=g, device="cuda")
+        x[:, G // 2:G // 2 + G // 8 + 1] = 0  # pad rows
+        yield name, ex, x.to(ex["b2"].dtype)
+
+
+def expert_ffn_cases(tag, specs, counter, faults, lib_experts=None):
+    """Each K7 case against ``expert_ffn_reference`` (f32 on the same
+    values) row by row under ``moe_held``'s rule with
+    ``expert_ffn_rounding_scale``; the launch must move ``counter``
+    alone; ``faults(ex, x, got)`` gives the planted faults of the first
+    case, each of which must fail.  At the Mixtral shapes the kernel, the
+    plain version and the ``torch.bmm`` chain (over ``lib_experts(ex)``,
+    made outside the timing) are timed beside the bound."""
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+
+    rows = []
+    for name, ex, x in specs:
+        dt = x.dtype
+        before = dict(md.LAUNCHES)
+        got = md.fused_expert_ffn(ex, x)
+        torch.cuda.synchronize()
+        if {n: md.LAUNCHES[n] - before[n] for n in before} != {
+                n: int(n == counter) for n in before}:
+            raise RuntimeError(f"{name}: {counter} did not launch once "
+                               f"(alone): {md.LAUNCHES}")
+        exact = md.expert_ffn_reference(ex, x)
+        scale = md.expert_ffn_rounding_scale(ex, x)
+        err, ratio = moe_held(got, exact, scale, dt)
+        E, G, D = x.shape
+        log(f"[{tag}] {name}: e_loc {E}, G {G}, D {D}, F "
+            f"{weight(ex['w2']).shape[1]}: vs the plain version in f32: max "
+            f"abs err {err:.3g}, {ratio:.3f} of the row tolerance")
+        if not ratio <= 1.0:
+            raise RuntimeError(f"{name}: {counter} disagrees with its plain "
+                               f"version: {ratio:.3f} of the row tolerance")
+        row = {"case": name, "max_abs_err": err, "tol_ratio": ratio}
+        if not rows:
+            for what, bad in faults(ex, x, got).items():
+                f_err, f_ratio = moe_held(bad, exact, scale, dt)
+                log(f"[{tag}] {name}, planted fault ({what}): max abs err "
+                    f"{f_err:.3g}, {f_ratio:.1f} x the row tolerance")
+                if f_ratio <= 1.0:
+                    raise RuntimeError(f"{name}: the row tolerance misses a "
+                                       f"planted fault ({what})")
+        if name.endswith("_mixtral"):
+            heavy = G > 64
+            ms = cuda_ms(lambda: md.fused_expert_ffn(ex, x), 3 if heavy else 20)
+            plain_ms = cuda_ms(lambda: md.expert_ffn_reference(ex, x),
+                               1 if heavy else 5)
+            lib_ex = lib_experts(ex) if lib_experts else ex
+            lib_ms = cuda_ms(lambda: bmm_chain(lib_ex, x), 3 if heavy else 20)
+            del lib_ex
+            bound_ms, bound_by = expert_ffn_bound(ex, x)
+            row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=bound_ms, bound_by=bound_by)
+            log(f"[{tag}] {name}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
+                f"  torch.bmm chain {lib_ms:.4f} ms  bound {bound_ms:.4f} ms "
+                f"({bound_by})")
+        rows.append(row)
+        del ex, x, got, exact, scale
+        torch.cuda.empty_cache()
+    return rows
+
+
+def expert_ffn_kernel_phase():
+    """K7 and K7-int8 on the :func:`expert_ffn_specs` cases.  Planted
+    faults at EP 1 decode: the last F tile left out (its W2 rows zeroed),
+    b2 added by every F tile (b2 scaled by the F-tile count), each row
+    written to the next expert's block (the output rolled by one expert),
+    and for int8 w2's scale not applied.  Yardstick: the ``torch.bmm``
+    chain (for int8 over bf16 weights dequantised beforehand)."""
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+
+    def faults(ex, x, got):
+        w2 = weight(ex["w2"])
+        n_f = w2.shape[1] // md.TILE
+        if isinstance(ex["w2"], tuple):
+            cut = (ex["w2"][0].clone(), ex["w2"][1])
+        else:
+            cut = w2.clone()
+        weight(cut)[:, -md.TILE:] = 0
+        out = {
+            "last F tile left out": md.fused_expert_ffn(dict(ex, w2=cut), x),
+            "b2 added by every F tile": md.fused_expert_ffn(
+                dict(ex, b2=ex["b2"] * n_f), x),
+            "each row in the next expert's block": torch.roll(got, 1, 0),
+        }
+        if isinstance(ex["w2"], tuple):
+            q2, s2 = ex["w2"]
+            out["w2's scale not applied"] = md.fused_expert_ffn(
+                dict(ex, w2=(q2, torch.ones_like(s2))), x)
+        return out
+
+    def int8(**kw):
+        return md.quantize_moe_experts(moe_experts(**kw))
+
+    k7 = expert_ffn_cases("k7", expert_ffn_specs(moe_experts, 500),
+                          "fused_expert_ffn", faults)
+    k7_int8 = expert_ffn_cases("k7-int8",
+                               expert_ffn_specs(int8, 600, "int8"),
+                               "fused_expert_ffn_int8", faults,
+                               lib_experts=dequant_bf16)
+    return {"fused_expert_ffn": k7, "fused_expert_ffn_int8": k7_int8}
+
+
 # ------------------------------------------------------------ phase 5
 
 
@@ -1200,9 +1389,12 @@ def model_phase(params, cfg):
     return res
 
 
-def moe_model_phase(params, cfg, tag="moe-model", gather_experts=None):
+def moe_model_phase(params, cfg, tag="moe-model", gather_experts=None,
+                    ep_group=None):
     """Teacher-forced logits of the MoE path with K6 (moe_dispatch 'cuda',
-    attention in K1) against the ragged plain arm ('gather').
+    attention in K1) against the ragged plain arm ('gather') — or, with
+    ``ep_group``, of the expert-parallel path (``moe_forward``'s exchange
+    at the no-drop capacity, K7) against the same ragged arm.
     ``gather_experts`` maps a layer's experts to what the ragged arm takes
     (for int8 experts: bf16 weights dequantised just before that layer's
     call, so no dequantised copy of the whole model exists).  Routing is
@@ -1223,10 +1415,11 @@ def moe_model_phase(params, cfg, tag="moe-model", gather_experts=None):
         paged_forward_moe,
     )
 
-    serve = pm.moe_serve_forward
+    serve, capacity_path = pm.moe_serve_forward, pm.moe_forward
     routes = []   # (gate_vals, gate_idx) of every expert-layer call, in order
     replay = []
     prep = gather_experts or (lambda ex: ex)
+    kname = "K6" if ep_group is None else "K7 (EP)"
 
     def route(params_l, x, mcfg):
         T = x.shape[0] * x.shape[1]
@@ -1235,40 +1428,56 @@ def moe_model_phase(params, cfg, tag="moe-model", gather_experts=None):
         gv, gi = torch.topk(probs, mcfg.top_k, dim=-1)
         return gv / gv.sum(-1, keepdim=True).clamp_min(1e-9), gi
 
-    def recording(params_l, x, mcfg, dispatch=None, return_metrics=False):
-        routes.append(route(params_l, x, mcfg))
-        return serve(params_l, x, mcfg, dispatch=dispatch,
-                     return_metrics=return_metrics)
-
-    def replaying(params_l, x, mcfg, dispatch=None, return_metrics=False):
-        gv, gi = routes[len(replay)]
-        replay.append(route(params_l, x, mcfg)[1])
+    def ragged(params_l, x, gv, gi):
         B, S, D = x.shape
         y = pm._ragged_ffn(prep(params_l["experts"]), x.reshape(B * S, D),
                            gv, gi)
         return y.reshape(B, S, D).to(x.dtype)
 
-    def freeing(params_l, x, mcfg, dispatch=None, return_metrics=False):
+    # the serving arm's signature; under EP the capacity path's, whose
+    # (y, aux) the forward takes apart (at the no-drop capacity the
+    # routing is the plain top-k: every choice kept)
+    def recording(params_l, x, mcfg, dispatch=None, return_metrics=False,
+                  **ep):
+        routes.append(route(params_l, x, mcfg))
+        if ep_group is None:
+            return serve(params_l, x, mcfg, dispatch=dispatch,
+                         return_metrics=return_metrics)
+        return capacity_path(params_l, x, mcfg, **ep)
+
+    def replaying(params_l, x, mcfg, dispatch=None, return_metrics=False,
+                  **ep):
+        gv, gi = routes[len(replay)]
         replay.append(route(params_l, x, mcfg)[1])
-        return serve(dict(params_l, experts=prep(params_l["experts"])), x,
-                     mcfg, dispatch=dispatch, return_metrics=return_metrics)
+        y = ragged(params_l, x, gv, gi)
+        return y if ep_group is None else (y, torch.zeros(()))
+
+    def freeing(params_l, x, mcfg, dispatch=None, return_metrics=False,
+                **ep):
+        gv, gi = route(params_l, x, mcfg)
+        replay.append(gi)
+        y = ragged(params_l, x, gv, gi)
+        return y if ep_group is None else (y, torch.zeros(()))
 
     def run(wrapper, dispatch):
-        pm.moe_serve_forward = wrapper
+        name = "moe_serve_forward" if ep_group is None else "moe_forward"
+        setattr(pm, name, wrapper)
         try:
-            return teacher_logits(params, cfg, paged_forward_moe,
-                                  attn_impl="cuda", moe_dispatch=dispatch)
+            return teacher_logits(
+                params, cfg, paged_forward_moe, attn_impl="cuda",
+                moe_dispatch=dispatch,
+                **({} if ep_group is None else {"ep_group": ep_group}))
         finally:
-            pm.moe_serve_forward = serve
+            pm.moe_serve_forward, pm.moe_forward = serve, capacity_path
 
     k6, real = run(recording, "cuda")
     pinned, _ = run(replaying, "gather")
-    res = logits_agree(k6, pinned, "K6 vs the ragged arm, routing pinned",
-                       tag)
+    res = logits_agree(k6, pinned, f"{kname} vs the ragged arm, routing "
+                       "pinned", tag)
     replay.clear()
     free, _ = run(freeing, "gather")
-    drift = logits_agree(k6, free, "K6 vs the ragged arm, each routing "
-                         "itself", tag)
+    drift = logits_agree(k6, free, f"{kname} vs the ragged arm, each "
+                         "routing itself", tag)
     nl = cfg.nlayers
     differs = [(torch.sort(a[1], -1).values != torch.sort(b, -1).values)
                .any(-1) for a, b in zip(routes, replay)]
@@ -1344,18 +1553,19 @@ def engine_phase(params, cfg, card):
             "peak_gb": peak_gb}
 
 
-def profile_phase(params, cfg, card, max_ctx=8192, tag="profile"):
+def profile_phase(params, cfg, card, max_ctx=8192, tag="profile",
+                  ep_group=None):
     """Where a decode tick's time goes: 8 slots decoding at 2048 context,
     16 ticks timed one by one on the host clock (each ends by reading the
     tokens back, so it waits for the device), then 8 more under
-    torch.profiler — device time by kernel family (K1, K6, GEMMs, the
-    rest), the device's idle share."""
+    torch.profiler — device time by kernel family (K1, K6, K7, NCCL,
+    GEMMs, the rest), the device's idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     from torchdistpackage_tpu_torch.serving import Request, ServingEngine
 
     eng = ServingEngine(params, cfg, num_slots=8, block_size=BS, chunk=512,
-                        max_ctx=max_ctx)
+                        max_ctx=max_ctx, ep_group=ep_group)
     rs = np.random.RandomState(1)
     for _ in range(8):
         eng.submit(Request(rs.randint(0, cfg.vocab_size, 2048).tolist(), 48))
@@ -1382,12 +1592,14 @@ def profile_phase(params, cfg, card, max_ctx=8192, tag="profile"):
         log(f"[{tag}] decode tick {tick_ms:.2f} ms; device time not "
             f"measured (the profiler recorded no kernels) — on {card}")
         return None
-    families = {"paged_attention": 0.0, "moe_ffn": 0.0, "gemm": 0.0,
-                "other": 0.0}
+    families = {"paged_attention": 0.0, "moe_ffn": 0.0, "expert_ffn": 0.0,
+                "nccl": 0.0, "gemm": 0.0, "other": 0.0}
     for e in kernels:
         name = e.key.lower()
         fam = ("paged_attention" if "paged_attention" in name else
                "moe_ffn" if "moe_ffn" in name else
+               "expert_ffn" if "expert_ffn" in name else
+               "nccl" if "nccl" in name else
                "gemm" if re.search(r"gemm|xmma|cutlass|nvjet|sm90", name)
                else "other")
         families[fam] += e.self_device_time_total / 8 / 1e3
@@ -1400,7 +1612,9 @@ def profile_phase(params, cfg, card, max_ctx=8192, tag="profile"):
             f"{k} {v:.2f} ms" for k, v in families.items())
         + f"; {sum(e.count for e in kernels) / 8:.0f} kernels per tick"
         + (f"; K6 {families['moe_ffn'] / busy_ms:.1%} of the busy time"
-           if families["moe_ffn"] else "") + f" — on {card}")
+           if families["moe_ffn"] else "")
+        + (f"; K7 {families['expert_ffn'] / busy_ms:.1%} of the busy time"
+           if families["expert_ffn"] else "") + f" — on {card}")
     for e in top:
         log(f"[{tag}]   {e.self_device_time_total / 8 / 1e3:8.3f} ms "
             f"x{e.count // 8:<4d} {e.key[:90]}")
@@ -1409,15 +1623,16 @@ def profile_phase(params, cfg, card, max_ctx=8192, tag="profile"):
 
 
 def moe_engine_phase(params, cfg, card, k6="fused_moe_ffn",
-                     tag="moe-engine"):
+                     tag="moe-engine", ep_group=None):
     """The MoE serving main path: ``ServingEngine`` (8 slots, blocks of 16,
     chunk 512, context 4096) serves 12 requests from ``RandomState(1)`` —
     prompts 128-2048 tokens, 32-96 new tokens, 9 greedy and 3 sampled —
-    with K6 in every expert layer (the variant ``k6`` names: float or
-    int8 experts) and K1 in every attention.  The counts are set to 0 just
-    before the run and read just after: each kernel launches once a layer
-    a device call, the other K6 variant never; the ``moe`` summary counts
-    top-k choices of every row each expert layer saw."""
+    with the MoE kernel ``k6`` names in every expert layer (K6 or
+    K6-int8; with ``ep_group``, the expert-parallel path: K7 or K7-int8)
+    and K1 in every attention.  The counts are set to 0 just before the
+    run and read just after: each kernel launches once a layer a device
+    call, every other MoE kernel never; the ``moe`` summary counts top-k
+    choices of every row each expert layer saw."""
     from torchdistpackage_tpu_torch.ops import moe_dispatch as md
     from torchdistpackage_tpu_torch.ops import paged_attention as pa
     from torchdistpackage_tpu_torch.serving import Request, ServingEngine
@@ -1434,7 +1649,8 @@ def moe_engine_phase(params, cfg, card, k6="fused_moe_ffn",
         else:
             reqs.append(Request(toks, int(m)))
     eng = ServingEngine(params, cfg, num_slots=8, block_size=BS, chunk=512,
-                        max_ctx=4096)
+                        max_ctx=4096, ep_group=ep_group,
+                        moe_dispatch=None if ep_group is None else "cuda")
     if eng.attn_impl != "cuda" or eng.moe_dispatch != "cuda":
         raise RuntimeError(f"engine resolved attn_impl={eng.attn_impl!r}, "
                            f"moe_dispatch={eng.moe_dispatch!r}")
@@ -1456,7 +1672,7 @@ def moe_engine_phase(params, cfg, card, k6="fused_moe_ffn",
                                f"{calls} calls")
     other = sum(n for kname, n in md.LAUNCHES.items() if kname != k6)
     if other:
-        raise RuntimeError(f"the other K6 variant launched: {md.LAUNCHES}")
+        raise RuntimeError(f"another MoE kernel launched: {md.LAUNCHES}")
     if s["requests"]["completed"] != len(reqs):
         raise RuntimeError(f"completed {s['requests']} of {len(reqs)}")
     for r, req in zip(rids, reqs):
@@ -1493,6 +1709,54 @@ def moe_engine_phase(params, cfg, card, k6="fused_moe_ffn",
     del eng
     torch.cuda.empty_cache()
     return out
+
+
+def free_port():
+    """A free TCP port on the loopback, for the process group's
+    rendezvous."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def ep_phase(params, cfg, card, k7, tag, gather_experts=None):
+    """The expert-parallel serving path on the model already built: a
+    one-rank NCCL group (``init_distributed`` on the card,
+    ``build_moe_groups(1)``; at EP 1 both exchanges are identities, the
+    layout is the reference's at any EP size), the rank's expert share
+    (``shard_moe_params``: at EP 1 views of every expert), then
+    teacher-forced logits against the ragged arm with the routing pinned,
+    the engine serving the same 12 requests with ``k7`` (K7 or K7-int8)
+    in every expert layer, and a profiled decode tick.  The group is
+    destroyed before the model is freed."""
+    import torch.distributed as dist
+
+    from torchdistpackage_tpu_torch.dist import (
+        build_moe_groups,
+        init_distributed,
+    )
+    from torchdistpackage_tpu_torch.models import shard_moe_params
+
+    init_distributed(f"tcp://127.0.0.1:{free_port()}", 1, 0, "cuda")
+    try:
+        group = build_moe_groups(1)
+        log(f"[{tag}] process group: backend {dist.get_backend(group)}, EP "
+            f"size {group.size()}")
+        if dist.get_backend(group) != "nccl":
+            raise RuntimeError("the EP group on the card must use NCCL")
+        shard = shard_moe_params(params, cfg, 0, group.size())
+        model = moe_model_phase(shard, cfg, tag=f"{tag}-model",
+                                gather_experts=gather_experts,
+                                ep_group=group)
+        eng = moe_engine_phase(shard, cfg, card, k6=k7, tag=f"{tag}-engine",
+                               ep_group=group)
+        profile_phase(shard, cfg, card, max_ctx=4096, tag=f"{tag}-profile",
+                      ep_group=group)
+    finally:
+        dist.destroy_process_group()
+    return {"model": model, **eng}
 
 
 def build_int8_mixtral(cfg, seed=0):
@@ -1581,11 +1845,11 @@ def build_phase():
         for line in str(info["log"]).splitlines():
             if "Compiling entry function" in line:  # name the instantiation
                 m = re.search(
-                    r"\d+((?:flash_\w+|paged_attention|moe_ffn(?:_int8)?)"
-                    r"_kernel)I", line)
+                    r"\d+((?:flash_\w+|paged_attention|moe_ffn(?:_int8)?"
+                    r"|expert_ffn(?:_int8)?)_kernel)I", line)
                 name = m.group(1) if m else "?"
                 dt = "bf16" if "13__nv_bfloat16" in line else "f32"
-                if name.startswith("moe_ffn"):
+                if name.startswith(("moe_ffn", "expert_ffn")):
                     kernel = (f"{name} {dt} "
                               f"{'swiglu' if 'Lb1E' in line else 'gelu'}")
                 else:
@@ -1656,6 +1920,7 @@ def main():
     flash_rows = flash_kernel_phase()
     moe_rows = moe_kernel_phase()
     int8_rows = moe_int8_kernel_phase()
+    k7_rows = expert_ffn_kernel_phase()
     log(f"[time] kernel checks done at {time.perf_counter() - t_start:.0f} s")
 
     # 4. the training path: GPT-125M main path, the kernel path against the
@@ -1695,6 +1960,8 @@ def main():
     moe_model_phase(params, cfg)
     moe_eng = moe_engine_phase(params, cfg, card)
     profile_phase(params, cfg, card, max_ctx=4096, tag="moe-profile")
+    # the same model served expert-parallel, K7 in every expert layer
+    ep_eng = ep_phase(params, cfg, card, "fused_expert_ffn", "ep")
     del params
     torch.cuda.empty_cache()
     log(f"[time] MoE serving done at {time.perf_counter() - t_start:.0f} s")
@@ -1716,6 +1983,8 @@ def main():
     int8_eng = moe_engine_phase(params, cfg, card, k6="fused_moe_ffn_int8",
                                 tag="int8-engine")
     profile_phase(params, cfg, card, max_ctx=4096, tag="int8-profile")
+    ep_int8_eng = ep_phase(params, cfg, card, "fused_expert_ffn_int8",
+                           "ep-int8", gather_experts=dequant_bf16)
     del params
     torch.cuda.empty_cache()
     log(f"[time] int8 serving done at {time.perf_counter() - t_start:.0f} s")
@@ -1742,6 +2011,15 @@ def main():
         library="the ragged 'gather' arm over bf16 weights dequantised "
                 "beforehand: one cuBLAS product per expert and weight "
                 "(several calls; no PyTorch call takes int8 weights)"))
+    for kname, ep in (("fused_expert_ffn", ep_eng),
+                      ("fused_expert_ffn_int8", ep_int8_eng)):
+        krows = k7_rows[kname]
+        entries.append(kernel_entry(
+            kname, MOE_SOURCE, K7_REPLACES[kname], ep["launches"][kname],
+            krows, krows[0],
+            library="the torch.bmm chain: one cuBLAS batched product per "
+                    "weight (several calls; for int8 over bf16 weights "
+                    "dequantised beforehand)"))
     log(json.dumps({"kernels": entries}))
     log(card)
     log(json.dumps({"ok": True, "device": {

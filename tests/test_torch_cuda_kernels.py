@@ -382,7 +382,8 @@ def test_moe_int8_kernel_matches_plain_on_card(cuda, dtype, act, T, C, D, F,
     got = md.fused_moe_ffn_slots(ex, tok, idx, comb)
     torch.cuda.synchronize()
     assert {n: md.LAUNCHES[n] - before[n] for n in before} == {
-        "fused_moe_ffn": 0, "fused_moe_ffn_int8": 1}
+        "fused_moe_ffn": 0, "fused_moe_ffn_int8": 1, "fused_expert_ffn": 0,
+        "fused_expert_ffn_int8": 0}
     assert got.dtype == torch.float32 and got.shape == (T, D)
     exact = md.moe_ffn_slots_reference(ex, tok, idx, comb)
     scale = md.moe_rounding_scale(ex, tok, idx, comb)
@@ -436,3 +437,107 @@ def test_moe_int8_kernel_wrapper_refuses_what_it_does_not_take(cuda):
     with pytest.raises(NotImplementedError, match="int8"):
         md.fused_moe_ffn_slots(dict(ex, w2=md._dequant(ex["w2"]).to(
             torch.bfloat16)), tok, idx, comb)
+
+
+# ------------------------------------------------- the EP expert FFN, K7
+
+
+def _expert_inputs(cuda, *, E, G, D, F, act, dtype, seed, quantized=False):
+    from torchdistpackage_tpu_torch.ops.moe_dispatch import (
+        quantize_moe_experts,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(*shape, generator=g, device=cuda) * std
+
+    swiglu = act == "swiglu"
+    ex = {"w1": rnd(*((E, 2, D, F) if swiglu else (E, D, F)), std=D ** -0.5),
+          "b1": rnd(*((E, 2, F) if swiglu else (E, F)), std=0.1),
+          "w2": rnd(E, F, D, std=F ** -0.5), "b2": rnd(E, D, std=0.1)}
+    ex = {n: t.to(dtype) for n, t in ex.items()}
+    x = rnd(E, G, D)
+    x[:, G // 2:G // 2 + 3] = 0  # pad rows, as empty capacity slots
+    return (quantize_moe_experts(ex) if quantized else ex), x.to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quantized", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("act", ["gelu", "swiglu"])
+@pytest.mark.parametrize("E,G,D,F", [
+    (2, 40, 256, 128),      # one partial row tile an expert
+    (3, 130, 576, 1408),    # G, D, F not powers of two
+    (1, 64, 128, 192),      # one full tile
+])
+def test_expert_ffn_kernel_matches_plain_on_card(cuda, quantized, dtype, act,
+                                                 E, G, D, F):
+    """K7 (float or int8 experts) against its plain version in f32, row by
+    row under K6's rule, every row (pad rows included) computed."""
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+
+    dt = getattr(torch, dtype)
+    ex, x = _expert_inputs(cuda, E=E, G=G, D=D, F=F, act=act, dtype=dt,
+                           seed=E + G + D, quantized=quantized)
+    name = "fused_expert_ffn_int8" if quantized else "fused_expert_ffn"
+    before = dict(md.LAUNCHES)
+    got = md.fused_expert_ffn(ex, x)
+    torch.cuda.synchronize()
+    assert {n: md.LAUNCHES[n] - before[n] for n in before} == {
+        n: int(n == name) for n in before}
+    assert got.dtype == dt and got.shape == x.shape
+    exact = md.expert_ffn_reference(ex, x)
+    scale = md.expert_ffn_rounding_scale(ex, x)
+    _moe_rows_close(got, exact, scale, dt)
+
+
+@pytest.mark.gpu
+def test_expert_ffn_kernel_planted_faults_fail(cuda):
+    """The row check catches the faults it is there for: the last F tile
+    left out, b2 added by every F tile, each row in the next expert's
+    block, and (int8) w2's scale not applied."""
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+
+    bf = torch.bfloat16
+    ex, x = _expert_inputs(cuda, E=2, G=40, D=256, F=256, act="swiglu",
+                           dtype=bf, seed=11)
+    exact = md.expert_ffn_reference(ex, x)
+    scale = md.expert_ffn_rounding_scale(ex, x)
+    _moe_rows_close(md.fused_expert_ffn(ex, x), exact, scale, bf)
+    w2 = ex["w2"].clone()
+    w2[:, -md.TILE:] = 0
+    n_f = ex["w2"].shape[1] // md.TILE
+    bad = [md.fused_expert_ffn(dict(ex, w2=w2), x),
+           md.fused_expert_ffn(dict(ex, b2=ex["b2"] * n_f), x),
+           torch.roll(md.fused_expert_ffn(ex, x), 1, dims=0)]
+    q = md.quantize_moe_experts(ex)
+    q2, s2 = q["w2"]
+    exact_q = md.expert_ffn_reference(q, x)
+    scale_q = md.expert_ffn_rounding_scale(q, x)
+    _moe_rows_close(md.fused_expert_ffn(q, x), exact_q, scale_q, bf)
+    for got in bad:
+        assert _moe_ratio(got, exact, scale, bf) > 1.0
+    got = md.fused_expert_ffn(dict(q, w2=(q2, torch.ones_like(s2))), x)
+    assert _moe_ratio(got, exact_q, scale_q, bf) > 1.0
+
+
+@pytest.mark.gpu
+def test_expert_ffn_kernel_wrapper_refuses_what_it_does_not_take(cuda):
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+
+    ex, x = _expert_inputs(cuda, E=2, G=16, D=128, F=128, act="swiglu",
+                           dtype=torch.bfloat16, seed=5)
+    with pytest.raises(ValueError, match="experts"):
+        md.fused_expert_ffn(ex, x[:1].contiguous())
+    with pytest.raises(ValueError, match="device"):
+        md.fused_expert_ffn(dict(ex, b2=ex["b2"].cpu()), x)
+    with pytest.raises(ValueError, match="tokens are"):
+        md.fused_expert_ffn(ex, x.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        md.fused_expert_ffn(ex, x.transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(ValueError, match=r"\[e_loc, G, D\]"):
+        md.fused_expert_ffn(ex, x[0])
+    q = md.quantize_moe_experts(ex)
+    with pytest.raises(NotImplementedError, match="int8"):
+        md.fused_expert_ffn(dict(ex, w1=q["w1"]), x)

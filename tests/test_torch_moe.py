@@ -151,9 +151,11 @@ def test_configs_and_dispatch_resolution():
     with pytest.raises(ValueError, match="expert_choice"):
         tmoe.MoEConfig(dim=D, ffn_dim=48, num_experts=E, dispatch="cuda",
                        router="expert_choice")
-    for queued in ("dense", "sorted"):
-        with pytest.raises(NotImplementedError, match="training"):
-            tmoe.MoEConfig(dim=D, ffn_dim=48, num_experts=E, dispatch=queued)
+    with pytest.raises(NotImplementedError, match="training"):
+        tmoe.MoEConfig(dim=D, ffn_dim=48, num_experts=E, dispatch="dense")
+    # the capacity path's index dispatch is served (moe_forward)
+    assert tmoe.MoEConfig(dim=D, ffn_dim=48, num_experts=E,
+                          dispatch="sorted").dispatch == "sorted"
     log = default_event_log()
     n = len(log.as_list())
     assert md.resolve_moe_dispatch("auto", "cpu") == "gather"

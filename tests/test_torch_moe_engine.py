@@ -126,7 +126,9 @@ def test_moe_summary_equals_jax(family, arm):
     # the CPU path is the plain version of both kernels
     assert s["kernel_launches"] == {"paged_decode_attention": 0,
                                     "fused_moe_ffn": 0,
-                                    "fused_moe_ffn_int8": 0}
+                                    "fused_moe_ffn_int8": 0,
+                                    "fused_expert_ffn": 0,
+                                    "fused_expert_ffn_int8": 0}
     assert eng.audit(heal=False)["ok"] and eng._alloc.in_use == 0
 
 

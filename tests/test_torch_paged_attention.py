@@ -9,7 +9,8 @@ the CPU; the kernel itself against its plain version on the card.
   window None or 6, and the int8 pool.
 - The CUDA kernel itself is held against the plain version on the card
   by tests/test_torch_cuda_kernels.py (``gpu``-marked).
-- An AST check: nothing in the port, nor ``chip_smoke.py``, imports
+- An AST check: nothing in the port, nor ``chip_smoke.py``, nor the
+  expert-parallel test worker ``tests/_torch_ep_worker.py``, imports
   ``jax`` or ``torchdistpackage_tpu``.
 """
 
@@ -160,7 +161,7 @@ def _imports(path):
 
 def test_port_imports_no_jax():
     files = sorted((REPO / "torchdistpackage_tpu_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "tests" / "_torch_ep_worker.py"]
     assert len(files) > 10
     for path in files:
         for mod in _imports(path):

@@ -15,7 +15,8 @@ PyTorch version stays beside it as the oracle and as the CPU path.
 
 from .device import resolve_device
 
-_SUBPACKAGES = ("models", "obs", "ops", "parallel", "serving", "tools")
+_SUBPACKAGES = ("dist", "models", "obs", "ops", "parallel", "serving",
+                "tools")
 
 
 def __getattr__(name: str):

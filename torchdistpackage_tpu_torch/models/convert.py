@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..parallel.moe import shard_experts
 from ..tools.surgery import QuantizedLinear, is_int8_weight
 from .gpt import GPTConfig
 
@@ -34,7 +35,8 @@ def _tensor(x, device, dtype=None) -> torch.Tensor:
 
 
 def params_from_jax(np_tree: Dict[str, Any], cfg: GPTConfig,
-                    device=None) -> Dict[str, Any]:
+                    device=None, ep_rank: int = 0,
+                    ep_size: int = 1) -> Dict[str, Any]:
     """``np_tree``: the JAX param pytree with every leaf already turned
     into a numpy array (``jax.tree.map(np.asarray, params)`` on the JAX
     side — this module never imports JAX).  Returns the port's dict with
@@ -48,8 +50,14 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: GPTConfig,
 
     ``blocks`` is the dense family's stacked dict, or — for an MoE config
     (``cfg.moe_experts > 0``) — the per-block list of
-    ``init_gpt_moe_params``, one dict per block, kept a list."""
+    ``init_gpt_moe_params``, one dict per block, kept a list.
+    ``ep_size > 1`` converts only expert-parallel rank ``ep_rank``'s
+    share: each expert block's stacked expert leaves cut along E to the
+    rank's ``[E / ep_size, ...]`` block before they are copied (as
+    ``models.gpt_moe.shard_moe_params`` cuts a whole tree)."""
     dev = resolve_device(device)
+    if ep_size > 1 and not cfg.moe_experts:
+        raise ValueError(f"EP size {ep_size} needs an MoE config")
 
     def conv(x):
         if isinstance(x, dict):
@@ -72,6 +80,9 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: GPTConfig,
                 f"a per-block list of {len(blocks)} blocks needs an MoE "
                 f"config of as many layers (moe_experts "
                 f"{cfg.moe_experts}, nlayers {cfg.nlayers})")
+        if ep_size > 1:
+            blocks = [dict(b, moe=shard_experts(b["moe"], ep_rank, ep_size))
+                      if "moe" in b else b for b in blocks]
         out["blocks"] = [conv(dict(b)) for b in blocks]
     elif blocks is not None:
         if cfg.moe_experts:

@@ -20,7 +20,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from ..device import resolve_device
-from ..parallel.moe import MoEConfig, init_moe_params
+from ..parallel.moe import MoEConfig, init_moe_params, shard_experts
 from ..parallel.tensor_parallel.layers import (
     _normal,
     init_block_params,
@@ -75,3 +75,18 @@ def init_gpt_moe_params(cfg, gen: Optional[torch.Generator] = None,
     out["ln_f"] = init_norm_params(D, dt, cfg.norm, dev)
     out["head"] = _normal((D, V), 1.0 / math.sqrt(D), dt, gen, dev)
     return out
+
+
+def shard_moe_params(params: Params, cfg, rank: int, size: int) -> Params:
+    """Expert-parallel rank ``rank`` of ``size``'s share of an MoE model:
+    every expert block's stacked expert leaves cut along E to the rank's
+    ``[E / size, ...]`` block (:func:`~..parallel.moe.shard_experts`;
+    both halves of an int8 pair); attention, norms, routers, embeddings
+    and the head stay whole, as ``gpt_moe_param_specs`` replicates them.
+    The slices are views of ``params``."""
+    if cfg.moe_experts % size != 0:
+        raise ValueError(f"num_experts {cfg.moe_experts} not divisible by "
+                         f"EP size {size}")
+    blocks = [dict(bp, moe=shard_experts(bp["moe"], rank, size))
+              if "moe" in bp else bp for bp in params["blocks"]]
+    return dict(params, blocks=blocks)

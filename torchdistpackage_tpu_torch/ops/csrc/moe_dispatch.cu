@@ -72,6 +72,27 @@
 // kernels.  A faster version would use wgmma fed by TMA in a persistent
 // grouped GEMM over the filled row groups, with a larger F tile (fewer
 // atomics) or a second pass for the F reduction (later work).
+//
+// K7, the expert FFN of expert-parallel (EP) layers: expert_ffn_kernel and
+// expert_ffn_int8_kernel replace _pallas_expert_ffn (:479, pallas_call
+// :506, body _ep_kernel :418) and its int8 branch (:434-439).  Under EP the
+// all-to-all exchange needs the grouped [e_loc, G, D] layout in device
+// memory (it is the wire payload), so only the FFN fuses:
+//   y[e, g] = FFN_e(x[e, g]) for every g < G — every row, as on the TPU:
+//   a pad row (an empty capacity slot, zeros) gives act(b1).W2 + b2, which
+//   the combine discards.
+// Both run the body above with the identity slot map (IDENT): slot c of
+// expert e is row e G + c of x and of y, weight 1, so there is no empty-
+// tile skip (the TPU kernel computes every row too).  Grid (ceil(G / 64),
+// F / 64, e_loc); F-tile partials meet in the zeroed f32 y by atomicAdd
+// (their order varies from run to run), b2 is added by the first F tile,
+// and the wrapper casts y to x's type.  Bound on an H100: at decode (ep 1,
+// [8, 8, 4096], F 14336) the bytes of all e_loc experts' weights, 2.8 GB
+// bf16 -> 0.84 ms, 1.4 GB int8 -> 0.42 ms; at a 512-row chunk of 8 slots
+// ([8, 4096, 4096]) the operations, 2 e_loc G 3 D F = 1.15e13 FLOP ->
+// 11.7 ms — E / k = 4x K6's work on the same chunk, the padded-compute tax
+// of C = T that the reference's EP path pays by its semantics.  bf16 rounds
+// the activation to bf16 before the second product, as K6 does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -249,8 +270,10 @@ struct Cfg {
 // One CTA of either variant.  Grid (C / 64 capacity tiles, F / 64 F tiles,
 // E experts), 128 threads.  dst: the token each slot's result is added to
 // (the wrapper passes idx).  s1 / s2: the int8 variant's scales (unused,
-// null, for float weights).
-template <typename T, typename W, bool SWIGLU>
+// null, for float weights).  IDENT (K7): no maps (idx, comb and dst are
+// null); slot c < C of expert e reads row e C + c of x and adds into the
+// same row of y with weight 1.
+template <typename T, typename W, bool SWIGLU, bool IDENT = false>
 __device__ __forceinline__ void moe_ffn_body(
     const T* __restrict__ x, const int* __restrict__ idx,
     const float* __restrict__ comb, const int* __restrict__ dst,
@@ -282,9 +305,15 @@ __device__ __forceinline__ void moe_ffn_body(
     const int c = c0 + tid;
     const long long s = static_cast<long long>(e) * C + c;
     const bool in = c < C;
-    gv = in ? comb[s] : 0.f;
-    idx_s[tid] = in ? idx[s] : 0;
-    dst_s[tid] = in ? dst[s] : 0;
+    if constexpr (IDENT) {
+      gv = in ? 1.f : 0.f;
+      idx_s[tid] = in ? static_cast<int>(s) : 0;
+      dst_s[tid] = idx_s[tid];
+    } else {
+      gv = in ? comb[s] : 0.f;
+      idx_s[tid] = in ? idx[s] : 0;
+      dst_s[tid] = in ? dst[s] : 0;
+    }
     comb_s[tid] = gv;
   }
   if (!__syncthreads_or(gv != 0.f)) return;
@@ -501,6 +530,97 @@ bool bad_shape(int T, int D, int F, int E, int C) {
          F % BF != 0 || E > 65535 || F / BF > 65535;
 }
 
+// K7: x [e_loc, G, D] -> y [e_loc, G, D] f32, the identity slot map
+template <typename T, bool SWIGLU>
+__global__ void __launch_bounds__(NTHREADS)
+expert_ffn_kernel(const T* __restrict__ x, const T* __restrict__ w1,
+                  const T* __restrict__ b1, const T* __restrict__ w2,
+                  const T* __restrict__ b2, float* __restrict__ y, int D,
+                  int F, int G) {
+  moe_ffn_body<T, T, SWIGLU, true>(x, nullptr, nullptr, nullptr, w1, nullptr,
+                                   b1, w2, nullptr, b2, y, D, F, G);
+}
+
+template <typename T, bool SWIGLU>
+__global__ void __launch_bounds__(NTHREADS)
+expert_ffn_int8_kernel(const T* __restrict__ x,
+                       const int8_t* __restrict__ q1,
+                       const float* __restrict__ s1, const T* __restrict__ b1,
+                       const int8_t* __restrict__ q2,
+                       const float* __restrict__ s2, const T* __restrict__ b2,
+                       float* __restrict__ y, int D, int F, int G) {
+  moe_ffn_body<T, int8_t, SWIGLU, true>(x, nullptr, nullptr, nullptr, q1, s1,
+                                        b1, q2, s2, b2, y, D, F, G);
+}
+
+// K7's launch, either variant: W is T (float weights) or int8_t
+template <typename T, typename W, bool SWIGLU>
+cudaError_t launch_expert(const void* x, const void* w1, const void* s1,
+                          const void* b1, const void* w2, const void* s2,
+                          const void* b2, void* y, int D, int F, int E,
+                          int G, cudaStream_t st) {
+  using Gc = Cfg<T, W, SWIGLU>;
+  const dim3 grid((G + BM - 1) / BM, F / BF, E);
+  cudaError_t err;
+  if constexpr (std::is_same<W, int8_t>::value) {
+    auto kernel = expert_ffn_int8_kernel<T, SWIGLU>;
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(Gc::SMEM));
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, NTHREADS, Gc::SMEM, st>>>(
+        static_cast<const T*>(x), static_cast<const int8_t*>(w1),
+        static_cast<const float*>(s1), static_cast<const T*>(b1),
+        static_cast<const int8_t*>(w2), static_cast<const float*>(s2),
+        static_cast<const T*>(b2), static_cast<float*>(y), D, F, G);
+  } else {
+    auto kernel = expert_ffn_kernel<T, SWIGLU>;
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(Gc::SMEM));
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, NTHREADS, Gc::SMEM, st>>>(
+        static_cast<const T*>(x), static_cast<const T*>(w1),
+        static_cast<const T*>(b1), static_cast<const T*>(w2),
+        static_cast<const T*>(b2), static_cast<float*>(y), D, F, G);
+  }
+  return cudaGetLastError();
+}
+
+// Q: int8 weights; otherwise the weights are of the tokens' type
+template <bool Q>
+cudaError_t dispatch_expert(const void* x, const void* w1, const void* s1,
+                            const void* b1, const void* w2, const void* s2,
+                            const void* b2, void* y, int E, int G, int D,
+                            int F, int swiglu, int dtype_tag,
+                            cudaStream_t st) {
+  using BF16 = __nv_bfloat16;
+  using WB = std::conditional_t<Q, int8_t, BF16>;
+  using WF = std::conditional_t<Q, int8_t, float>;
+  switch (dtype_tag * 2 + (swiglu ? 1 : 0)) {
+    case 0:
+      return launch_expert<BF16, WB, false>(x, w1, s1, b1, w2, s2, b2, y, D,
+                                            F, E, G, st);
+    case 1:
+      return launch_expert<BF16, WB, true>(x, w1, s1, b1, w2, s2, b2, y, D,
+                                           F, E, G, st);
+    case 2:
+      return launch_expert<float, WF, false>(x, w1, s1, b1, w2, s2, b2, y, D,
+                                             F, E, G, st);
+    case 3:
+      return launch_expert<float, WF, true>(x, w1, s1, b1, w2, s2, b2, y, D,
+                                            F, E, G, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// K7's rows are addressed as int (e G + c), its grid is (G/64, F/64, E)
+bool bad_expert_shape(int E, int G, int D, int F) {
+  return G < 1 || bad_shape(1, D, F, E, 1) ||
+         static_cast<long long>(E) * G > 0x7fffffffLL;
+}
+
 }  // namespace
 
 // x [T, D]; idx / dst int32 [E, C]; comb f32 [E, C]; w1 [E, 2, D, F]
@@ -574,6 +694,38 @@ extern "C" int tdp_moe_ffn_int8(const void* x, const void* idx,
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);
+}
+
+// K7, the EP expert FFN: x [E, G, D] (E the local experts); w1 [E, 2, D,
+// F] (swiglu 1) or [E, D, F]; b1 [E, 2, F] or [E, F]; w2 [E, F, D]; b2
+// [E, D]; y f32 [E, G, D], zeroed.  All contiguous and 16-byte aligned, D
+// and F multiples of 64; dtype_tag 0 = bf16, 1 = f32 (x and every weight).
+// Returns cudaGetLastError() after the launch.
+extern "C" int tdp_expert_ffn(const void* x, const void* w1, const void* b1,
+                              const void* w2, const void* b2, void* y, int E,
+                              int G, int D, int F, int swiglu, int dtype_tag,
+                              void* stream) {
+  if (bad_expert_shape(E, G, D, F))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dispatch_expert<false>(
+      x, w1, nullptr, b1, w2, nullptr, b2, y, E, G, D, F, swiglu, dtype_tag,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// K7's int8 variant: as tdp_expert_ffn, with q1 / q2 int8 in w1's / w2's
+// layout, s1 f32 [E, 2, F] (swiglu 1) or [E, F], s2 f32 [E, D]; x, b1 and
+// b2 of dtype_tag (0 = bf16, 1 = f32).
+extern "C" int tdp_expert_ffn_int8(const void* x, const void* q1,
+                                   const void* s1, const void* b1,
+                                   const void* q2, const void* s2,
+                                   const void* b2, void* y, int E, int G,
+                                   int D, int F, int swiglu, int dtype_tag,
+                                   void* stream) {
+  if (bad_expert_shape(E, G, D, F))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dispatch_expert<true>(
+      x, q1, s1, b1, q2, s2, b2, y, E, G, D, F, swiglu, dtype_tag,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // Dynamic shared memory a CTA uses, for the build report; -1 if unknown.

@@ -41,10 +41,24 @@ version would add.
   the int8 variant's.  :func:`fused_moe_ffn` is the routing-level entry
   point the serving forward calls.
 
-The backward the reference gives ``fused_moe_ffn`` (a ``custom_vjp``
-through the oracle) belongs to MoE training, which is not ported yet
-(ROADMAP queue A): this module is forward-only, and int8 is forward-only
-in the reference too.
+K7, the expert FFN of expert-parallel layers, replaces
+``_pallas_expert_ffn`` (the reference's :479, ``pallas_call`` :506, body
+``_ep_kernel`` :418), float and int8: :func:`fused_expert_ffn` runs every
+local expert's FFN on every row of the exchanged ``[e_loc, G, D]``
+groups (pad rows included, as on the TPU) in the same CUDA source, the
+K6 body on the identity slot map (``expert_ffn_kernel`` /
+``expert_ffn_int8_kernel``, counted under ``LAUNCHES["fused_expert_ffn"]``
+/ ``["fused_expert_ffn_int8"]``); :func:`expert_ffn_reference` is its
+plain version (the reference's ``_ep_ffn_reference``) and
+:func:`expert_ffn_rounding_scale` the scale of its bf16 rounding.  With
+no empty-tile skip it pays what the reference pays under EP: at the
+no-drop capacity ``C = T`` every expert computes all its slots, ``E / k``
+times K6's work at a prefill chunk.
+
+The backward the reference gives ``fused_moe_ffn`` and
+``fused_expert_ffn`` (``custom_vjp``s through their oracles) belongs to
+MoE training, which is not ported yet (ROADMAP queue A): this module is
+forward-only, and int8 is forward-only in the reference too.
 """
 
 from __future__ import annotations
@@ -59,7 +73,9 @@ from ..obs.numerics import tree_leaves
 
 #: kernel launches since the counter was last reset (the wrapper adds one
 #: where it launches, and nowhere else)
-LAUNCHES: Dict[str, int] = {"fused_moe_ffn": 0, "fused_moe_ffn_int8": 0}
+LAUNCHES: Dict[str, int] = {"fused_moe_ffn": 0, "fused_moe_ffn_int8": 0,
+                             "fused_expert_ffn": 0,
+                             "fused_expert_ffn_int8": 0}
 
 _DTYPE_TAG = {torch.bfloat16: 0, torch.float32: 1}
 TILE = 64  # the kernel's D and F tile: both must be multiples of it
@@ -71,6 +87,12 @@ _ARGTYPES = {
     # x, idx, comb, dst, q1, s1, b1, q2, s2, b2, y, T, D, F, E, C, swiglu,
     # dtype, stream
     "tdp_moe_ffn_int8": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+    + [ctypes.c_void_p],
+    # K7: x, w1, b1, w2, b2, y, E, G, D, F, swiglu, dtype, stream
+    "tdp_expert_ffn": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+    + [ctypes.c_void_p],
+    # x, q1, s1, b1, q2, s2, b2, y, E, G, D, F, swiglu, dtype, stream
+    "tdp_expert_ffn_int8": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
 }
 
@@ -85,22 +107,25 @@ def _kernel(name: str):
     return fn
 
 
-def resolve_moe_dispatch(dispatch: Optional[str], device) -> str:
+def resolve_moe_dispatch(dispatch: Optional[str], device,
+                         plain: str = "gather") -> str:
     """``'auto'``/None -> ``'cuda'`` (the kernel) on a CUDA device,
-    ``'gather'`` (the ragged plain path) on the CPU — by the device, where
-    the reference asks the backend.  Explicit values pass through
-    validated; ``'gather'`` stays legal on the card as the oracle arm.
-    The choice is recorded as a ``moe_dispatch_selected`` event."""
+    ``plain`` on the CPU — by the device, where the reference asks the
+    backend.  ``plain`` names the plain arm of the caller: ``'gather'``
+    (the ragged serving path) or ``'sorted'`` (the capacity path's index
+    dispatch, ``moe_forward``).  Explicit values pass through validated;
+    the plain arm stays legal on the card as the oracle arm.  The choice
+    is recorded as a ``moe_dispatch_selected`` event."""
     if dispatch in (None, "auto"):
-        chosen = "cuda" if torch.device(device).type == "cuda" else "gather"
+        chosen = "cuda" if torch.device(device).type == "cuda" else plain
         from ..obs.events import default_event_log
 
         default_event_log().emit("moe_dispatch_selected", requested="auto",
                                  chosen=chosen, device=str(device))
         return chosen
-    if dispatch not in ("cuda", "gather"):
+    if dispatch not in ("cuda", plain):
         raise ValueError(
-            f"moe dispatch must be 'cuda', 'gather' or 'auto', got "
+            f"moe dispatch must be 'cuda', {plain!r} or 'auto', got "
             f"{dispatch!r}")
     return dispatch
 
@@ -227,40 +252,24 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"fused_moe_ffn: {msg}")
 
 
-def fused_moe_ffn_slots(experts: Dict[str, Any], tokens: torch.Tensor,
-                        idx: torch.Tensor, comb: torch.Tensor,
-                        scatter_idx: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
-    """K6 on the slot maps: tokens ``[T, D]``, ``idx`` int32 / ``comb``
-    f32 ``[E, C]`` -> f32 ``[T, D]``.  ``scatter_idx`` (default ``idx``)
-    names the token each slot's result is added to.
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel,
-    which takes contiguous bf16 or f32 tokens, D and F multiples of 64,
-    biases of the tokens' dtype and either float w1 / w2 of that dtype
-    (the float variant) or int8 ``(q8, scale)`` pairs of
-    :func:`quantize_moe_experts` for both (the int8 variant: q8 int8 of
-    the float layout, f32 scales ``[E, 2, F]`` / ``[E, F]`` for w1 and
-    ``[E, D]`` for w2).  One int8 and one float weight raise
-    ``NotImplementedError``, as neither variant takes the mix."""
+def _quantized(experts: Dict[str, Any], kernel: str) -> bool:
+    """Whether the experts are int8 pairs; a mix raises, as neither
+    variant of ``kernel`` takes it."""
     quantized = _is_q(experts["w1"])
     if quantized != _is_q(experts["w2"]):
         raise NotImplementedError(
-            "K6 takes int8 (q8, scale) pairs for both w1 and w2, or float "
-            "weights for both; not an int8 / float mix")
-    if tokens.device.type == "cpu":
-        _check(all(t.device.type == "cpu"
-                   for t in (idx, comb, *tree_leaves(experts))),
-               "all tensors must be on the tokens' device")
-        return moe_ffn_slots_reference(experts, tokens, idx, comb,
-                                       scatter_idx)
-    _check(tokens.device.type == "cuda", f"unsupported device {tokens.device}")
-    dst = idx if scatter_idx is None else scatter_idx
+            f"{kernel} takes int8 (q8, scale) pairs for both w1 and w2, or "
+            f"float weights for both; not an int8 / float mix")
+    return quantized
+
+
+def _kernel_weights(experts: Dict[str, Any], tokens: torch.Tensor, D: int,
+                    quantized: bool):
+    """The expert leaves checked against what K6 and K7 take: ``(weights,
+    E, F, swiglu, dtype tag)`` with ``weights`` in the C entry's order —
+    ``(w1, b1, w2, b2)``, or ``(q1, s1, b1, q2, s2, b2)`` for int8."""
     w1, b1, w2, b2 = (experts[n] for n in ("w1", "b1", "w2", "b2"))
     (w1, s1), (w2, s2) = (w1, w2) if quantized else ((w1, None), (w2, None))
-    _check(tokens.dim() == 2, f"tokens must be [T, D], got "
-           f"{tuple(tokens.shape)}")
-    T, D = tokens.shape
     tag = _DTYPE_TAG.get(tokens.dtype)
     _check(tag is not None, f"tokens must be bf16 or f32, got {tokens.dtype}")
     swiglu = w1.dim() == 4
@@ -287,6 +296,59 @@ def fused_moe_ffn_slots(experts: Dict[str, Any], tokens: torch.Tensor,
                f"are {tokens.dtype})")
     _check(D % TILE == 0 and Fd % TILE == 0,
            f"D and F must be multiples of {TILE}, got {D} / {Fd}")
+    weights = (w1, s1, b1, w2, s2, b2) if quantized else (w1, b1, w2, b2)
+    return weights, E, Fd, swiglu, tag
+
+
+def _launch(entry: str, name: str, args, y: torch.Tensor, *ints) -> None:
+    """Launch ``entry`` on ``args`` (checked for device, contiguity and
+    alignment) into ``y`` on the current stream, and count it under
+    ``name``."""
+    dev = y.device
+    for t in args:
+        _check(t.device == dev, "all tensors must be on the tokens' device")
+        _check(t.is_contiguous(), "all tensors must be contiguous")
+        _check(t.data_ptr() % 16 == 0, "all tensors must be 16-byte aligned")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _kernel(entry)(*(t.data_ptr() for t in args), y.data_ptr(),
+                             *ints, stream)
+    if err != 0:
+        raise RuntimeError(f"moe_dispatch kernel launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES[name] += 1
+
+
+def fused_moe_ffn_slots(experts: Dict[str, Any], tokens: torch.Tensor,
+                        idx: torch.Tensor, comb: torch.Tensor,
+                        scatter_idx: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """K6 on the slot maps: tokens ``[T, D]``, ``idx`` int32 / ``comb``
+    f32 ``[E, C]`` -> f32 ``[T, D]``.  ``scatter_idx`` (default ``idx``)
+    names the token each slot's result is added to.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    which takes contiguous bf16 or f32 tokens, D and F multiples of 64,
+    biases of the tokens' dtype and either float w1 / w2 of that dtype
+    (the float variant) or int8 ``(q8, scale)`` pairs of
+    :func:`quantize_moe_experts` for both (the int8 variant: q8 int8 of
+    the float layout, f32 scales ``[E, 2, F]`` / ``[E, F]`` for w1 and
+    ``[E, D]`` for w2).  One int8 and one float weight raise
+    ``NotImplementedError``, as neither variant takes the mix."""
+    quantized = _quantized(experts, "K6")
+    if tokens.device.type == "cpu":
+        _check(all(t.device.type == "cpu"
+                   for t in (idx, comb, *tree_leaves(experts))),
+               "all tensors must be on the tokens' device")
+        return moe_ffn_slots_reference(experts, tokens, idx, comb,
+                                       scatter_idx)
+    _check(tokens.device.type == "cuda", f"unsupported device {tokens.device}")
+    dst = idx if scatter_idx is None else scatter_idx
+    _check(tokens.dim() == 2, f"tokens must be [T, D], got "
+           f"{tuple(tokens.shape)}")
+    T, D = tokens.shape
+    weights, E, Fd, swiglu, tag = _kernel_weights(experts, tokens, D,
+                                                  quantized)
     _check(idx.dim() == 2 and idx.shape[0] == E and idx.dtype == torch.int32,
            f"idx must be int32 [{E}, C]")
     C = idx.shape[1]
@@ -294,25 +356,11 @@ def fused_moe_ffn_slots(experts: Dict[str, Any], tokens: torch.Tensor,
            f"comb must be f32 [{E}, {C}]")
     _check(dst.shape == idx.shape and dst.dtype == torch.int32,
            f"scatter_idx must be int32 [{E}, {C}]")
-    weights = (w1, s1, b1, w2, s2, b2) if quantized else (w1, b1, w2, b2)
-    args = (tokens, idx, comb, dst) + weights
-    for t in args:
-        _check(t.device == tokens.device, "all tensors must be on the "
-               "tokens' device")
-        _check(t.is_contiguous(), "all tensors must be contiguous")
-        _check(t.data_ptr() % 16 == 0, "all tensors must be 16-byte aligned")
     name, entry = (("fused_moe_ffn_int8", "tdp_moe_ffn_int8") if quantized
                    else ("fused_moe_ffn", "tdp_moe_ffn"))
     y = torch.zeros(T, D, dtype=torch.float32, device=tokens.device)
-    with torch.cuda.device(tokens.device):
-        stream = torch.cuda.current_stream(tokens.device).cuda_stream
-        err = _kernel(entry)(
-            *(t.data_ptr() for t in args), y.data_ptr(), T, D, Fd, E, C,
-            int(swiglu), tag, stream)
-    if err != 0:
-        raise RuntimeError(f"moe_dispatch kernel launch failed: CUDA error "
-                           f"{err}")
-    LAUNCHES[name] += 1
+    _launch(entry, name, (tokens, idx, comb, dst) + weights, y, T, D, Fd, E,
+            C, int(swiglu), tag)
     return y
 
 
@@ -325,6 +373,63 @@ def fused_moe_ffn(experts: Dict[str, Any], tokens: torch.Tensor,
     ``tokens.dtype`` (K6 on the card, the plain version on the CPU)."""
     idx, comb = slot_maps(gate_vals, gate_idx, slot, keep, capacity)
     return fused_moe_ffn_slots(experts, tokens, idx, comb).to(tokens.dtype)
+
+
+# ------------------------------------------- K7: the EP expert FFN
+
+
+@torch.no_grad()
+def expert_ffn_reference(experts: Dict[str, Any],
+                         x: torch.Tensor) -> torch.Tensor:
+    """K7's plain version, the reference's ``_ep_ffn_reference`` (:449)
+    before its cast: :func:`ffn_rows` per local expert on ``x [e_loc, G,
+    D]`` in f32 on the ``_dequant``-ed weights -> f32 ``[e_loc, G, D]``,
+    every row computed."""
+    return ffn_rows(x.float(), *_expert_weights_f32(experts))
+
+
+def fused_expert_ffn(experts: Dict[str, Any],
+                     x: torch.Tensor) -> torch.Tensor:
+    """K7, the expert FFN of an expert-parallel layer on the exchanged
+    groups: ``x [e_loc, G, D]`` -> ``[e_loc, G, D]`` in ``x.dtype``, every
+    row computed (a pad row gives ``act(b1) W2 + b2``, which the combine
+    discards) — ``moe_forward``'s FFN under ``dispatch='cuda'`` with an
+    EP group, the reference's ``fused_expert_ffn`` (:518).
+
+    CPU tensors take the plain version (cast to ``x.dtype``); CUDA tensors
+    launch the kernel, float or int8 ``(q8, scale)`` experts, with what K6
+    takes: contiguous bf16 or f32 rows, D and F multiples of 64, biases of
+    the rows' dtype.  Forward only, as K6."""
+    quantized = _quantized(experts, "K7")
+    if x.device.type == "cpu":
+        _check(all(t.device.type == "cpu" for t in tree_leaves(experts)),
+               "all tensors must be on the tokens' device")
+        return expert_ffn_reference(experts, x).to(x.dtype)
+    _check(x.device.type == "cuda", f"unsupported device {x.device}")
+    _check(x.dim() == 3, f"x must be [e_loc, G, D], got {tuple(x.shape)}")
+    E, G, D = x.shape
+    weights, e_w, Fd, swiglu, tag = _kernel_weights(experts, x, D, quantized)
+    _check(e_w == E, f"x holds {E} experts' rows, the weights {e_w} experts")
+    name, entry = (("fused_expert_ffn_int8", "tdp_expert_ffn_int8")
+                   if quantized else ("fused_expert_ffn", "tdp_expert_ffn"))
+    y = torch.zeros(E, G, D, dtype=torch.float32, device=x.device)
+    _launch(entry, name, (x,) + weights, y, E, G, D, Fd, int(swiglu), tag)
+    return y.to(x.dtype)
+
+
+@torch.no_grad()
+def expert_ffn_rounding_scale(experts: Dict[str, Any],
+                              x: torch.Tensor) -> torch.Tensor:
+    """K7's counterpart of :func:`moe_rounding_scale`: per output element
+    of ``x [e_loc, G, D]``, ``sqrt(sum_f (h_f W2[f, d])^2)`` in f32 — the
+    scale of the error that rounding the activation to bf16 before the
+    second product puts into it.  One expert at a time."""
+    w1, b1, w2, _ = _expert_weights_f32(experts)
+    out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    for e in range(x.shape[0]):
+        h = expert_act(x[e].float(), w1[e], b1[e])
+        out[e] = ((h * h) @ (w2[e] * w2[e])).sqrt()
+    return out
 
 
 @torch.no_grad()

@@ -1,7 +1,11 @@
-"""Mixture-of-Experts serving on one device — the PyTorch counterpart of
-the serving parts of ``torchdistpackage_tpu/parallel/moe.py``:
-:class:`MoEConfig` (:48), ``_top_k_route`` (:134), ``check_expert_overflow``
-(:297), ``moe_serve_forward`` (:501) and ``init_moe_params`` (:608).
+"""Mixture-of-Experts serving — the PyTorch counterpart of the serving
+parts of ``torchdistpackage_tpu/parallel/moe.py``: :class:`MoEConfig`
+(:48), ``_top_k_route`` (:134), ``_load_balance_loss`` (:227),
+``_expert_ffn`` (:242), ``_router_metrics`` (:254),
+``check_expert_overflow`` (:297), the token-choice capacity path of
+``moe_forward`` (:323) with its expert-parallel exchange,
+``moe_serve_forward`` (:501), ``init_moe_params`` (:608) and
+``moe_param_specs`` (:632, here :func:`shard_experts`).
 
 ``moe_serve_forward`` routes every token to its top-k experts with no
 capacity (exact, no drops) and runs the expert FFN through one of two
@@ -13,9 +17,18 @@ int8 weight-only experts.  ``'auto'`` picks ``'cuda'`` on a CUDA device
 and ``'gather'`` on the CPU.  The port's ``'cuda'`` stands where the
 reference says ``'pallas'``.
 
-The capacity (training) path ``moe_forward``, its load-balance loss, the
-dense and sorted dispatch materialisations, expert-choice routing and
-expert parallelism wait for MoE training (ROADMAP queue A).
+``moe_forward`` is the capacity path: top-k routing at a capacity of
+``ceil(T k cf / E)`` slots an expert (drops past it), the ``'sorted'``
+index dispatch into an ``[E, C, D]`` slot layout, the expert FFN, and the
+gate-weighted gather combine.  Under expert parallelism (``ep_group``, a
+``torch.distributed`` process group) every rank holds ``E / ep`` experts
+(:func:`shard_experts`) and the slots go to their experts' ranks and back
+by two ``all_to_all_single`` exchanges; the FFN of the exchanged groups
+runs in K7 (``fused_expert_ffn``) under ``'cuda'``, in plain PyTorch
+under ``'sorted'``.  Without a group, ``'cuda'`` runs K6 on the routing
+directly.  It is forward only (serving): an input that requires grad
+raises, as do the ``'dense'`` materialisation and the ``expert_choice``
+router, which wait for MoE training (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -25,12 +38,15 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..obs.numerics import tree_leaves
 from ..ops.moe_dispatch import (
     _is_q,
     ffn_rows,
+    fused_expert_ffn,
     fused_moe_ffn,
     resolve_moe_dispatch,
 )
@@ -40,15 +56,16 @@ Params = Dict[str, Any]
 
 #: dispatch values of the reference that are training-side
 #: materialisations of the capacity path, not ported yet
-_QUEUED_DISPATCH = ("dense", "sorted")
+_QUEUED_DISPATCH = ("dense",)
 
 
 @dataclasses.dataclass(frozen=True)
 class MoEConfig:
     """The reference's ``MoEConfig``.  ``dtype`` is a ``torch.dtype``.
-    ``dispatch``: ``'auto'`` | ``'gather'`` | ``'cuda'`` (the reference's
-    ``'pallas'``); its ``'dense'`` / ``'sorted'`` capacity-path
-    materialisations are refused until MoE training is ported.  ``act``:
+    ``dispatch``: ``'auto'`` | ``'gather'`` (the serving path's ragged
+    arm) | ``'sorted'`` (the capacity path's index dispatch) | ``'cuda'``
+    (the reference's ``'pallas'``: K6, or K7 under EP); the ``'dense'``
+    materialisation is refused until MoE training is ported.  ``act``:
     ``'gelu'`` | ``'swiglu'`` (stacked ``[E, 2, D, F]`` gate/up, the
     Mixtral expert)."""
 
@@ -70,7 +87,7 @@ class MoEConfig:
             raise NotImplementedError(
                 f"MoE dispatch {self.dispatch!r} belongs to the capacity "
                 f"(training) path, not ported yet (ROADMAP queue A)")
-        if self.dispatch not in ("auto", "gather", "cuda"):
+        if self.dispatch not in ("auto", "gather", "sorted", "cuda"):
             raise ValueError(f"unknown MoE dispatch {self.dispatch!r}")
         if self.dispatch == "cuda" and self.router != "topk":
             raise ValueError(
@@ -171,6 +188,133 @@ def _ragged_ffn(experts: Params, tokens: torch.Tensor,
     return y.index_add_(0, sorted_tok, g[:, None] * out)
 
 
+def _load_balance_loss(probs: torch.Tensor,
+                       dispatched: torch.Tensor) -> torch.Tensor:
+    """Switch-style aux loss: ``E sum_e mean_t(dispatched_e) mean_t(p_e)``
+    over ``dispatched [T, E]``, the kept choices of each token."""
+    E = probs.shape[-1]
+    return E * torch.sum(dispatched.mean(0) * probs.mean(0))
+
+
+def _expert_ffn(experts: Params, x: torch.Tensor) -> torch.Tensor:
+    """The per-expert FFN on stacked experts, ``x [E, G, D] -> [E, G,
+    D]`` in the experts' dtype — the ``'sorted'`` arm's plain path.  Float
+    experts only: the reference's ``_expert_ffn`` reads ``.ndim`` on an
+    int8 pair and dies, so it serves int8 experts under EP only through
+    its kernel, as this does."""
+    if _is_q(experts["w1"]) or _is_q(experts["w2"]):
+        raise TypeError(
+            "int8 (q8, scale) expert weights run only in the fused kernel: "
+            "use dispatch='cuda' (the 'sorted' arm takes float experts)")
+    return ffn_rows(x, *(experts[n] for n in ("w1", "b1", "w2", "b2")))
+
+
+def _router_metrics(probs: torch.Tensor, keep: torch.Tensor,
+                    top_k: int) -> Dict[str, torch.Tensor]:
+    """The capacity path's counters (f32): the mean per-token router
+    entropy over ``log E``, the kept choices per expert and the share of
+    the ``T k`` choices dropped past capacity.  Per rank under EP."""
+    T, E = probs.shape
+    plogp = torch.where(probs > 0, probs * torch.log(probs),
+                        torch.zeros_like(probs))
+    entropy = -plogp.sum(-1).mean() / math.log(max(E, 2))
+    return {"router_entropy": entropy.float(),
+            "expert_tokens": keep.sum((0, 1)).float(),
+            "dropped_token_rate": (1.0 - keep.sum() / (T * top_k)).float()}
+
+
+def _ep_exchange(send: torch.Tensor, group) -> torch.Tensor:
+    """One all-to-all over ``group``: ``send [ep, ...]``, block i to rank
+    i of the group; returns ``[ep, ...]`` with block i from rank i."""
+    send = send.contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return recv
+
+
+def moe_forward(params: Params, x: torch.Tensor, cfg: MoEConfig,
+                ep_group=None, causal: bool = False,
+                return_metrics: bool = False):
+    """The token-choice capacity path, ``x [B, S, D]`` (the rank's own
+    tokens under EP) -> ``(y [B, S, D], aux)`` (``aux`` the f32
+    load-balance loss), plus :func:`_router_metrics` with
+    ``return_metrics=True``.  Each expert takes ``C = ceil(T k cf / E)``
+    slots, ``T`` the rank's tokens; choices past C are dropped (they add
+    zero, so use the output as a residual).  ``causal=True`` ranks the
+    capacity token by token, so token t's output depends on tokens <= t
+    only.
+
+    ``cfg.dispatch``: ``'sorted'`` (plain PyTorch), ``'cuda'`` (K6 on the
+    routing without a group; K7 on the exchanged groups with one) or
+    ``'auto'`` (``'cuda'`` on the card, ``'sorted'`` on the CPU).
+    ``ep_group``: a ``torch.distributed`` group of ``ep`` ranks, each
+    holding ``E / ep`` experts (:func:`shard_experts`); the ``[E, C, D]``
+    slots go to their experts' ranks as ``[ep, E / ep, C, D]`` blocks by
+    ``all_to_all_single``, each rank runs its experts on ``[E / ep, ep C,
+    D]`` rows, and the inverse exchange brings the outputs back."""
+    if cfg.router != "topk":
+        raise NotImplementedError(
+            f"moe_forward serves router='topk' (got {cfg.router!r}); "
+            f"expert_choice waits for MoE training (ROADMAP queue A)")
+    if x.requires_grad or any(t.requires_grad for t in tree_leaves(params)):
+        raise NotImplementedError(
+            "moe_forward is forward only: its backward (K7's autograd "
+            "included) comes with MoE training (ROADMAP queue A)")
+    disp = resolve_moe_dispatch(cfg.dispatch, x.device, plain="sorted")
+    B, S, D = x.shape
+    T, E, k = B * S, cfg.num_experts, cfg.top_k
+    tokens = x.reshape(T, D)
+    probs = torch.softmax((tokens @ params["router"]["w"]).float(), dim=-1)
+    capacity = max(1, int(math.ceil(T * k * cfg.capacity_factor / E)))
+    gate_vals, gate_idx, slot, keep = _top_k_route(
+        probs, k, capacity, priority="token" if causal else "choice")
+    aux = _load_balance_loss(probs, keep.sum(1)).float()
+    metrics = _router_metrics(probs, keep, k) if return_metrics else None
+    experts = params["experts"]
+
+    def done(y):
+        out = (y.reshape(B, S, D).to(x.dtype), aux)
+        return out + (metrics,) if return_metrics else out
+
+    if disp == "cuda" and ep_group is None:
+        return done(fused_moe_ffn(experts, tokens, gate_vals, gate_idx,
+                                  slot, keep, capacity))
+    # the sorted dispatch: kept choice (t, j) writes token t into flat slot
+    # e C + c; dropped choices land on a dumpster row E C, cut off
+    kept = keep.sum(-1)  # [T, k]: 1 iff the choice fit
+    dest = torch.where(kept > 0, gate_idx * capacity + slot.long(),
+                       E * capacity)  # [T, k]
+    src = tokens[:, None, :].expand(T, k, D).reshape(T * k, D)
+    expert_in = torch.zeros(E * capacity + 1, D, dtype=x.dtype,
+                            device=x.device).index_add_(
+        0, dest.reshape(-1), src)[:E * capacity].reshape(E, capacity, D)
+    gates = (gate_vals * kept).to(x.dtype)  # [T, k]
+    ffn = fused_expert_ffn if disp == "cuda" else _expert_ffn
+    if ep_group is None:
+        expert_out = ffn(experts, expert_in)
+    else:
+        ep = ep_group.size()
+        if E % ep != 0:
+            raise ValueError(f"num_experts {E} not divisible by EP size {ep}")
+        e_loc = E // ep
+        held = experts["w2"][0] if _is_q(experts["w2"]) else experts["w2"]
+        if held.shape[0] != e_loc:
+            raise ValueError(
+                f"this rank holds {held.shape[0]} experts, EP {ep} of {E} "
+                f"needs {e_loc}: shard them with shard_experts")
+        recv = _ep_exchange(expert_in.reshape(ep, e_loc, capacity, D),
+                            ep_group)
+        # the local experts see ep C slots, C from every EP peer
+        grouped = recv.transpose(0, 1).reshape(e_loc, ep * capacity, D)
+        out = ffn(experts, grouped)
+        back = out.reshape(e_loc, ep, capacity, D).transpose(0, 1)
+        expert_out = _ep_exchange(back, ep_group).reshape(E, capacity, D)
+    out_flat = torch.cat([expert_out.reshape(E * capacity, D),
+                          expert_out.new_zeros(1, D)])  # dumpster -> 0
+    picked = out_flat[dest]  # [T, k, D]
+    return done((gates[..., None] * picked).sum(1))
+
+
 def moe_serve_forward(params: Params, x: torch.Tensor, cfg: MoEConfig,
                       dispatch: Optional[str] = None,
                       return_metrics: bool = False):
@@ -241,3 +385,28 @@ def init_moe_params(gen: torch.Generator, cfg: MoEConfig,
     experts["b2"] = torch.zeros(E, D, dtype=dt, device=dev)
     return {"router": {"w": _normal((D, E), s1, dt, gen, dev)},
             "experts": experts}
+
+
+def shard_experts(params: Params, rank: int, size: int) -> Params:
+    """This EP rank's share of an MoE layer's params — the reference's
+    ``moe_param_specs`` (:632) placement, as slices: every expert leaf
+    (both halves of an int8 ``(q8, scale)`` pair too) cut along E to its
+    ``[E / size, ...]`` block ``rank`` (EP ranks hold contiguous
+    experts); the router stays whole.  The slices are views (no copy);
+    ``.clone()`` them to free the full stack.  Raises unless ``size``
+    divides E."""
+    if not 0 <= rank < size:
+        raise ValueError(f"EP rank {rank} not in [0, {size})")
+    experts = params["experts"]
+    E = (experts["w2"][0] if _is_q(experts["w2"]) else experts["w2"]).shape[0]
+    if E % size != 0:
+        raise ValueError(f"num_experts {E} not divisible by EP size {size}")
+    e_loc = E // size
+    lo = rank * e_loc
+
+    def cut(leaf):
+        if isinstance(leaf, tuple):
+            return tuple(cut(t) for t in leaf)
+        return leaf[lo:lo + e_loc]
+
+    return dict(params, experts={n: cut(v) for n, v in experts.items()})

@@ -27,8 +27,9 @@ CPU).  An MoE model (``cfg.moe_experts > 0``, e.g. Mixtral) serves
 through ``paged_forward_moe``: its expert layers run the fused dispatch
 kernel K6 on the card (``moe_dispatch='auto'`` -> ``'cuda'``) or the
 ragged plain path (``'gather'``), and ``serving_summary()['moe']``
-reports the live expert load.  Tensor / data / expert / context
-parallelism, the prefix cache,
+reports the live expert load.  With ``ep_group`` its experts are sharded
+over a ``torch.distributed`` group (expert parallelism, K7 on the card).
+Tensor / data / context parallelism, the prefix cache,
 speculative decoding, telemetry, chaos, the watchdog, metrics export,
 deadline shedding, preemption and drain/resume are not ported yet
 (ROADMAP queue A); the constructor refuses them with NotImplementedError.
@@ -197,6 +198,16 @@ class ServingEngine:
         ``'auto'`` (by the device); None defers to ``cfg.moe_dispatch``.
         Resolved once; recorded in ``serving_summary()['moe']['dispatch']``.
         Set on a dense model it raises.
+    ep_group: expert parallelism — a ``torch.distributed`` process group
+        (``dist.build_moe_groups``) whose ranks each hold ``E / ep`` of
+        every expert layer's experts (``models.shard_moe_params``) and run
+        this engine on the same requests in the same order (replicated
+        tokens).  The expert layers exchange their capacity slots over the
+        group (``parallel.moe.moe_forward`` at the no-drop capacity), the
+        FFN in K7 under ``'cuda'`` or the index dispatch ``'sorted'`` (to
+        which ``'gather'`` maps), and every tick takes rank 0's sampled
+        tokens, so the ranks schedule alike.  The counterpart of the
+        reference's ``mesh=`` + ``ep_axis=``, which stay refused.
     device: where the pool and the step live (default: the card).
     """
 
@@ -213,6 +224,7 @@ class ServingEngine:
         kv_quant: bool = False,
         attn_impl: str = "auto",
         moe_dispatch: Optional[str] = None,
+        ep_group=None,
         device=None,
         **queued: Any,
     ) -> None:
@@ -221,9 +233,12 @@ class ServingEngine:
             raise TypeError(f"unexpected engine options {sorted(unknown)}")
         on = sorted(k for k, v in queued.items() if v != _QUEUED_OPTIONS[k])
         if on:
+            ep = ("; expert parallelism takes ep_group= (a torch.distributed "
+                  "process group), not mesh= / ep_axis="
+                  if {"mesh", "ep_axis"} & set(on) else "")
             raise NotImplementedError(
                 f"engine options {on} are not ported to the PyTorch engine "
-                f"yet (ROADMAP queue A)")
+                f"yet (ROADMAP queue A){ep}")
         if num_slots < 1 or chunk < 1 or block_size < 1:
             raise ValueError(
                 f"num_slots/chunk/block_size must be >= 1, got "
@@ -233,10 +248,16 @@ class ServingEngine:
                 raise ValueError(
                     "moe_dispatch is set but the model has no MoE layers "
                     "(cfg.moe_experts == 0)")
-            if moe_dispatch not in ("gather", "cuda", "auto"):
+            if moe_dispatch not in ("gather", "cuda", "auto") and not (
+                    ep_group is not None and moe_dispatch == "sorted"):
                 raise ValueError(
                     f"engine moe_dispatch must be 'gather', 'cuda' or "
-                    f"'auto', got {moe_dispatch!r}")
+                    f"'auto' ('sorted' too with ep_group), got "
+                    f"{moe_dispatch!r}")
+        if ep_group is not None and not cfg.moe_experts:
+            raise ValueError(
+                "ep_group is set but the model has no MoE layers "
+                "(cfg.moe_experts == 0)")
         self.cfg = cfg
         self.params = params
         self.num_slots = num_slots
@@ -247,10 +268,14 @@ class ServingEngine:
 
         from .sim import TorchDeviceStep
 
-        self._dev = TorchDeviceStep(cfg, device, attn_impl, moe_dispatch)
+        self._dev = TorchDeviceStep(cfg, device, attn_impl, moe_dispatch,
+                                    ep_group)
+        #: the expert-parallel group (None: every expert on this device)
+        self.ep_group = ep_group
         self.device = self._dev.device
         self.attn_impl = self._dev.attn_impl
-        #: the resolved MoE dispatch ('cuda' | 'gather'); None when dense
+        #: the resolved MoE dispatch ('cuda' | 'gather', or 'cuda' |
+        #: 'sorted' under EP); None when dense
         self.moe_dispatch = self._dev.moe_dispatch
         # the kernels this engine's step can launch
         self._launch_counts = [_attn_ops.LAUNCHES] + (

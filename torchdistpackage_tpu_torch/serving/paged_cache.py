@@ -16,7 +16,8 @@ PyTorch counterpart of ``torchdistpackage_tpu/serving/paged_cache.py``.
   the dense attention — the oracle, and the CPU path.
 - **Forward**: :func:`paged_forward` for the dense family,
   :func:`paged_forward_moe` for the MoE family (expert FFN every
-  ``moe_every``-th block).
+  ``moe_every``-th block; its experts sharded over an expert-parallel
+  group with ``ep_group``).
 
 :class:`BlockAllocator` is host-side and O(blocks).  The prefix-cache
 hash index, copy-on-write, block migration and the context-parallel
@@ -26,6 +27,7 @@ forward are not ported yet (ROADMAP queue A).
 from __future__ import annotations
 
 import collections
+import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -245,12 +247,27 @@ def paged_forward(params: Dict[str, Any], tokens: torch.Tensor,
     return cache, logits[:, 0, :]
 
 
+def resolve_serving_dispatch(dispatch: Optional[str], device,
+                             ep: bool = False) -> str:
+    """The MoE dispatch a serving forward runs: ``'cuda'`` or the plain
+    arm, ``'auto'`` / None by the device.  Without expert parallelism the
+    plain arm is the ragged ``'gather'``; with it (``ep``) the exchange has
+    no ragged form, so ``'gather'`` maps to the index dispatch
+    ``'sorted'``."""
+    from ..ops.moe_dispatch import resolve_moe_dispatch
+
+    if not ep:
+        return resolve_moe_dispatch(dispatch, device)
+    return resolve_moe_dispatch("sorted" if dispatch == "gather" else
+                                dispatch, device, plain="sorted")
+
+
 def paged_forward_moe(params: Dict[str, Any], tokens: torch.Tensor,
                       cfg: GPTConfig, cache: Dict[str, Any],
                       tables: torch.Tensor, offset: torch.Tensor,
                       last_idx=None, attn_impl: str = "gather",
                       moe_dispatch: Optional[str] = None,
-                      moe_stats: bool = False):
+                      moe_stats: bool = False, ep_group=None):
     """:func:`paged_forward` for the MoE family: ``params['blocks']`` is the
     per-block list of ``init_gpt_moe_params``, and every expert block's FFN
     is :func:`~..parallel.moe.moe_serve_forward` (exact no-drop routing).
@@ -259,23 +276,40 @@ def paged_forward_moe(params: Dict[str, Any], tokens: torch.Tensor,
     device), resolved once a call.  ``moe_stats=True`` returns ``(cache,
     logits, metrics)`` with the per-expert routed-token counts summed over
     the expert layers and the drop rate averaged — the engine's live
-    expert-load signal.  Expert parallelism (``ep_axis``) and
-    ``all_logits`` wait (ROADMAP queue A)."""
+    expert-load signal.
+
+    ``ep_group`` (a ``torch.distributed`` group; every rank runs the same
+    tokens, its blocks holding its share of the experts —
+    ``models.gpt_moe.shard_moe_params``): the expert layers run
+    :func:`~..parallel.moe.moe_forward`'s exchange path at the no-drop
+    capacity factor ``max(cf, E / top_k)`` (so ``C = T``: nothing drops),
+    with token-major priority for a causal model; ``'gather'`` maps to
+    the index dispatch ``'sorted'`` (the exchange has no ragged form) and
+    ``'cuda'`` runs K7.  ``all_logits`` waits (ROADMAP queue A)."""
     from ..models.gpt_moe import moe_layer_config
-    from ..ops.moe_dispatch import resolve_moe_dispatch
-    from ..parallel.moe import moe_serve_forward
+    from ..parallel.moe import moe_forward, moe_serve_forward
 
     mcfg = moe_layer_config(cfg)
-    disp = resolve_moe_dispatch(
+    disp = resolve_serving_dispatch(
         mcfg.dispatch if moe_dispatch is None else moe_dispatch,
-        tokens.device)
+        tokens.device, ep=ep_group is not None)
+    if ep_group is not None:
+        mcfg = dataclasses.replace(
+            mcfg, dispatch=disp, capacity_factor=max(
+                mcfg.capacity_factor, mcfg.num_experts / mcfg.top_k))
     h, offset, rope, ops = _paged_inputs(params, tokens, cfg, cache, tables,
                                          offset, attn_impl)
     collected = []  # per-expert-layer metrics (moe_stats)
 
     def moe_ffn(p, hh):
-        out = moe_serve_forward(p["moe"], hh, mcfg, dispatch=disp,
-                                return_metrics=moe_stats)
+        if ep_group is None:
+            out = moe_serve_forward(p["moe"], hh, mcfg, dispatch=disp,
+                                    return_metrics=moe_stats)
+        else:
+            out = moe_forward(p["moe"], hh, mcfg, ep_group=ep_group,
+                              causal=cfg.block.causal,
+                              return_metrics=moe_stats)
+            out = out[::2] if moe_stats else out[0]  # drop the aux loss
         if not moe_stats:
             return out
         collected.append(out[1])

@@ -16,13 +16,18 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
 from ..models.gpt import GPTConfig
-from ..ops.moe_dispatch import resolve_moe_dispatch
 from ..ops.paged_attention import resolve_attn_impl
 from .engine import _slot_sample
-from .paged_cache import init_paged_kv, paged_forward, paged_forward_moe
+from .paged_cache import (
+    init_paged_kv,
+    paged_forward,
+    paged_forward_moe,
+    resolve_serving_dispatch,
+)
 
 MoEStats = Optional[Tuple[np.ndarray, float]]
 
@@ -32,19 +37,22 @@ class TorchDeviceStep:
     (default: the card).  ``attn_impl`` is resolved from the device
     (``'auto'``: the kernel on the card, the plain version on the CPU);
     so is ``moe_dispatch`` for an MoE config (None defers to
-    ``cfg.moe_dispatch``), once, here."""
+    ``cfg.moe_dispatch``), once, here.  ``ep_group``: the expert-parallel
+    group the MoE layers exchange over; each step then broadcasts rank
+    0's sampled tokens to the group."""
 
     def __init__(self, cfg: GPTConfig, device=None,
                  attn_impl: str = "auto",
-                 moe_dispatch: Optional[str] = None) -> None:
+                 moe_dispatch: Optional[str] = None, ep_group=None) -> None:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.attn_impl = resolve_attn_impl(attn_impl, self.device)
         self.moe_dispatch = None
+        self.ep_group = ep_group
         if cfg.moe_experts:
-            self.moe_dispatch = resolve_moe_dispatch(
+            self.moe_dispatch = resolve_serving_dispatch(
                 cfg.moe_dispatch if moe_dispatch is None else moe_dispatch,
-                self.device)
+                self.device, ep=ep_group is not None)
 
     def init_cache(self, num_blocks: int, block_size: int,
                    quantized: bool) -> Any:
@@ -76,12 +84,20 @@ class TorchDeviceStep:
         moe = None
         if self.cfg.moe_experts:
             cache, logits, moe = paged_forward_moe(
-                *args, moe_dispatch=self.moe_dispatch, moe_stats=True, **kw)
+                *args, moe_dispatch=self.moe_dispatch, moe_stats=True,
+                ep_group=self.ep_group, **kw)
         else:
             cache, logits = paged_forward(*args, **kw)
         tok = _slot_sample(logits, gens, self._to_dev(samp["temperature"]),
                            self._to_dev(samp["top_k"]),
                            self._to_dev(samp["top_p"]))
+        if self.ep_group is not None:
+            # every rank takes rank 0's tokens: a row whose argmax is a
+            # near-tie may flip on one rank only (the F-tile atomics sum in
+            # another order), and ranks that schedule differently hang
+            # in the next exchange
+            dist.broadcast(tok, src=dist.get_global_rank(self.ep_group, 0),
+                           group=self.ep_group)
         if moe is None:
             return cache, tok.to(torch.int32).cpu().numpy(), None
         # float64 holds every int32 token id exactly
