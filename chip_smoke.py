@@ -45,7 +45,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    rows and a ragged G (faults: the last F tile left out, b2 added by
    every F tile, each row in the next expert's block, and for int8 w2's
    scale not applied; yardstick the torch.bmm chain, several cuBLAS
-   calls).
+   calls).  K2 (one hop of the context-parallel ring, the raw
+   online-softmax carry) at the serving shapes (B 8, G 4, Hkv 8, hd 128,
+   bs 16): decode and a 512-row chunk, windows 4096 / None / 64, bf16
+   and f32, each as one hop over the whole pool (cp 1) and as a four-hop
+   carry chain over four quarter-pool slices through re-based tables (the
+   per-rank work of cp 4), held after ``finalize_paged_carry`` with the
+   carry's m and l (``carry_held``; faults: the ownership mask off, the
+   carry not seeded, the window one block late, the carry merged once a
+   warp in split mode; yardsticks SDPA over the gathered view and K1 at
+   the same one-hop shape).
 4. train   — the training main path: ``bench.py``'s GPT-125M at full
    depth, batch 16, S 2048, bf16, remat 'flash', 10 AdamW steps on one
    fixed batch (losses, step time, tokens/s, MFU, peak memory, launches
@@ -58,7 +67,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``paged_forward`` with K1 against the plain path on identical tokens
    (teacher-forced logits), then ``ServingEngine`` serves 16 requests
    (12 greedy, 4 sampled) through K1, launched once per layer per device
-   call; a decode tick of 8 slots is timed and profiled.
+   call; a decode tick of 8 slots is timed and profiled.  Then the same
+   model context-parallel (``cp_phase``): a one-rank NCCL group
+   (``init_distributed``, ``build_cp_group(1)``), ``cp_paged_forward``
+   with K2 against ``paged_forward`` with K1 and against the CP gather arm
+   on a 4700-token context (teacher-forced logits), then
+   ``ServingEngine(cp_group=...)`` serves 4 greedy requests of 30720,
+   24576, 16384 and 8192 prompt tokens (Mistral's 32768 positions, a ~17
+   GB pool) through K2, launched once per layer per device call, K1
+   never; the share of its tokens equal to the K1 engine's on the same
+   requests; a decode tick profiled.
 6. MoE serve — Mixtral-8x7B-v0.1 widths at 16 of 32 layers (23.5 B
    parameters, 47 GB of bf16; all 32 layers do not fit one 80 GB card),
    random weights: ``paged_forward_moe`` with K6 against the ragged
@@ -83,7 +101,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    phase through K6-int8 and K1, each launched once per layer per device
    call; a decode tick profiled; then expert-parallel as in phase 6,
    through K7-int8.
-8. the ``{"kernels": [...]}`` line (eight entries), then the card line,
+8. the ``{"kernels": [...]}`` line (nine entries), then the card line,
    then the result line ``{"ok": true, "device": {...}}`` last.
 
 Every kernel's launch count is set to 0 just before each main path (the
@@ -1047,6 +1065,229 @@ def expert_ffn_kernel_phase():
     return {"fused_expert_ffn": k7, "fused_expert_ffn_int8": k7_int8}
 
 
+# ------------------------------------------------------------ K2
+
+
+CARRY_SOURCE = "torchdistpackage_tpu_torch/ops/csrc/paged_attention.cu"
+CARRY_REPLACES = "torchdistpackage_tpu/ops/paged_attention.py:509"
+NWARPS = 4  # K2's warps a CTA (its split-mode merge)
+
+
+def slice_hops(case, n):
+    """The case's pool cut into ``n`` slices of equal blocks (zero blocks
+    pad the last), each with the table re-based by its first block: the
+    per-rank work of cp ``n`` (one hop a slice), chained on one card."""
+    k, v, tables = case["k"], case["v"], case["tables"]
+    per = -(-k.shape[0] // n)
+    pad = per * n - k.shape[0]
+    if pad:
+        k = torch.cat([k, k.new_zeros((pad,) + k.shape[1:])])
+        v = torch.cat([v, v.new_zeros((pad,) + v.shape[1:])])
+    return [(k[i * per:(i + 1) * per], v[i * per:(i + 1) * per],
+             (tables - i * per).contiguous()) for i in range(n)]
+
+
+def chain(fn, q, hops, offsets, window, carry_fault=None):
+    """The carry through every hop in order; ``carry_fault`` maps the
+    carry handed to each hop after the first (a planted fault)."""
+    carry = None
+    for i, (k, v, tab) in enumerate(hops):
+        if i and carry_fault is not None:
+            carry = carry_fault(carry)
+        carry = fn(q, k, v, tab, offsets, carry=carry, window=window)
+    return carry
+
+
+def carry_held(got, exact, scale, dtype):
+    """``(max abs err, max ratio to the tolerance)`` of K2's final carry
+    against the plain version's in f32 on the same values.  The finished
+    output row by row (``finalize_paged_carry`` in the working type): f32
+    within 2e-5 (summation order only, as K1); bf16 within 2 ulps of the
+    row's largest |value| (the output's rounding) plus 4 x 2^-8 of the
+    row's largest ``paged_carry_rounding_scale`` (K2 rounds P to bf16
+    before P.V, each term off by up to 2^-8 of itself in random
+    directions: 4 scales are ~7 standard deviations).  The carry's ``m``
+    within 1e-4 (1 + |m|) (f32 scores, summation order) and ``l`` within
+    1e-4 of itself (a sequential f32 sum over up to ~300 blocks of 16
+    keys)."""
+    from torchdistpackage_tpu_torch.ops.paged_attention import (
+        finalize_paged_carry,
+    )
+
+    B, H, S_in, hd = scale.shape
+    out = finalize_paged_carry(got, B, H, S_in, hd, dtype).float()
+    want = finalize_paged_carry(exact, B, H, S_in, hd, torch.float32)
+    err = (out - want).abs().amax(-1)
+    if dtype == torch.float32:
+        tol = torch.full_like(err, 2e-5)
+    else:
+        big = want.abs().amax(-1).clamp_min(2.0 ** -100)
+        tol = (2.0 * torch.exp2(torch.floor(torch.log2(big)) - 7)
+               + 4.0 * 2.0 ** -8 * scale.amax(-1))
+    ratios = [float((err / tol).max()),
+              float(((got[1] - exact[1]).abs()
+                     / (1e-4 * (1 + exact[1].abs()))).max()),
+              float(((got[2] - exact[2]).abs()
+                     / (1e-4 * exact[2]).clamp_min(1e-30)).max())]
+    # a NaN anywhere (a row finished with l = 0 gives 0/0) fails
+    if not (bool(torch.isfinite(out).all()) and all(
+            bool(torch.isfinite(t).all()) for t in got)
+            and all(np.isfinite(ratios))):
+        return float(err.max()), float("inf")
+    return float(err.max()), max(ratios)
+
+
+def carry_bound(case, hops):
+    """Least time for the chain: the bytes it must move (each hop: the
+    live keys of ITS owned blocks once, q in, the carry out, the carry in
+    after the first hop, tables, offsets) over the memory rate, or its
+    operations (4 hd FLOP a visible owned (row, key) pair a head) over the
+    peak for q's type — K1's ``bound`` restricted to owned blocks."""
+    q = case["q"]
+    B, H, S_in, hd = q.shape
+    R = GROUPS * S_in
+    offs, window = case["offsets"].tolist(), case["window"]
+    carry_bytes = B * HKV * R * (hd + 2) * 4
+    nbytes, pairs = 0, 0
+    for i, (k, _v, tab) in enumerate(hops):
+        owned = ((tab >= 0) & (tab < k.shape[0])).cpu().numpy()
+        keys = 0
+        for b, off in enumerate(offs):
+            pos = np.repeat(owned[b], BS)
+            cum = np.concatenate([[0], np.cumsum(pos)])
+            qpos = off + np.arange(S_in)
+            hi = np.minimum(qpos, len(pos) - 1)
+            lo = np.zeros_like(qpos) if window is None else np.maximum(
+                qpos - window + 1, 0)
+            pairs += int(np.maximum(cum[hi + 1] - cum[lo], 0).sum())
+            keys += int(cum[hi.max() + 1] - cum[lo.min()])
+        nbytes += (2 * keys * HKV * hd * k.element_size()
+                   + q.numel() * q.element_size() + carry_bytes * (1 + (i > 0))
+                   + tab.numel() * 4 + B * 4)
+    flops = 4 * pairs * GROUPS * HKV * hd
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[q.dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def carry_kernel_phase():
+    """K2 at the serving shapes (B 8, G 4, Hkv 8, hd 128, bs 16): decode
+    (S_in 1, split mode) and a 512-row chunk (row mode), windows 4096,
+    None and 64, bf16 and f32; each as one hop over the whole pool (cp 1)
+    and as a four-hop carry chain over four quarter-pool slices through
+    re-based tables (the per-rank work of cp 4).  Each is held against
+    the plain version in f32 on the same values (``carry_held``).
+    Planted faults on the bf16 window-4096 chains: the ownership mask off
+    (the kernel given the re-based tables clamped into the slice, as the
+    TPU kernel's index map fetches a remote block, so every remote entry
+    reads a block it does not own), the carry not seeded (each hop after
+    the first starts empty), the window one block late and, in split mode,
+    the carry merged once a warp (each hop after the first given the carry
+    with acc and l times the 4 warps: what seeding every warp with it
+    gives).  Times: the kernel, the plain version, SDPA over the gathered
+    view and K1 at the same one-hop shape."""
+    from torchdistpackage_tpu_torch.ops.paged_attention import (
+        LAUNCHES,
+        paged_carry_attention,
+        paged_carry_attention_reference,
+        paged_carry_rounding_scale,
+        paged_decode_attention,
+    )
+
+    decode_offs = [0, 17, 255, 1023, 2047, 3001, 4095, 4607]
+    chunk_offs = [0, 512, 1024, 2048, 3072, 3584, 4096, 4608]
+    specs = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for s_in, offs in ((1, decode_offs), (512, chunk_offs)):
+            for window in (4096, None, 64):
+                name = (f"{'decode' if s_in == 1 else 'chunk512'}_"
+                        f"{str(dtype)[6:].replace('loat', '')}_"
+                        f"{'full' if window is None else f'w{window}'}")
+                specs.append((name, s_in, offs, window, dtype))
+    rows = []
+    for i, (name, s_in, offs, window, dtype) in enumerate(specs):
+        case = make_case(name, B=8, S_in=s_in, offsets=offs, window=window,
+                         dtype=dtype, quantized=False, seed=300 + i)
+        q, o = case["q"], case["offsets"]
+        heavy = s_in > 8
+        for n_hops in (1, 4):
+            hops = slice_hops(case, n_hops)
+            before = LAUNCHES["paged_carry_attention"]
+            got = chain(paged_carry_attention, q, hops, o, window)
+            torch.cuda.synchronize()
+            if LAUNCHES["paged_carry_attention"] != before + n_hops:
+                raise RuntimeError(f"{name}: the launch counter did not move")
+            exact_hops = [(k.float(), v.float(), t) for k, v, t in hops]
+            exact = chain(paged_carry_attention_reference, q.float(),
+                          exact_hops, o, window)
+            scale = paged_carry_rounding_scale(q, hops, o, window=window)
+            err, ratio = carry_held(got, exact, scale, dtype)
+            tag = f"{name} x{n_hops}"
+            log(f"[carry] {tag}: vs the plain version in f32: max abs err "
+                f"{err:.3g}, {ratio:.3f} of the tolerance")
+            if not ratio <= 1.0:
+                raise RuntimeError(
+                    f"{tag}: K2 disagrees with its plain version: "
+                    f"{ratio:.3f} of the tolerance")
+            if n_hops == 4 and dtype == torch.bfloat16 and window == 4096:
+                carry_planted_faults(tag, q, hops, o, window, exact, scale,
+                                     split=s_in == 1)
+            ms = cuda_ms(lambda: chain(paged_carry_attention, q, hops, o,
+                                       window), 5 if heavy else 50)
+            plain_ms = cuda_ms(lambda: chain(
+                paged_carry_attention_reference, q, hops, o, window),
+                2 if heavy else 10)
+            bound_ms, bound_by = carry_bound(case, hops)
+            row = {"case": tag, "max_abs_err": err, "tol_ratio": ratio,
+                   "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                   "k1_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+            if n_hops == 1:
+                args = (q, case["k"], case["v"], case["tables"], o)
+                row["library_ms"] = sdpa_ms(case, 5 if heavy else 50)
+                row["k1_ms"] = cuda_ms(lambda: paged_decode_attention(
+                    *args, window=window), 5 if heavy else 50)
+            rows.append(row)
+            log(f"[carry] {tag}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
+                + (f"  sdpa {row['library_ms']:.4f} ms  K1 "
+                   f"{row['k1_ms']:.4f} ms" if n_hops == 1 else "")
+                + f"  bound {bound_ms:.4f} ms ({bound_by})")
+            del got, exact, scale, hops, exact_hops
+        del case, q
+        torch.cuda.empty_cache()
+    return rows
+
+
+def carry_planted_faults(tag, q, hops, offsets, window, exact, scale, split):
+    """Each planted fault must fail ``carry_held`` (see
+    :func:`carry_kernel_phase`)."""
+    from torchdistpackage_tpu_torch.ops.paged_attention import (
+        paged_carry_attention,
+    )
+
+    clamped = [(k, v, t.clamp(0, k.shape[0] - 1).contiguous())
+               for k, v, t in hops]
+    faults = {
+        "ownership mask off": chain(paged_carry_attention, q, clamped,
+                                    offsets, window),
+        "carry not seeded": chain(paged_carry_attention, q, hops, offsets,
+                                  window, carry_fault=lambda c: None),
+        "window one block late": chain(paged_carry_attention, q, hops,
+                                       offsets, window + BS),
+    }
+    if split:
+        faults["carry merged once a warp"] = chain(
+            paged_carry_attention, q, hops, offsets, window,
+            carry_fault=lambda c: (c[0] * NWARPS, c[1], c[2] * NWARPS))
+    for what, got in faults.items():
+        err, ratio = carry_held(got, exact, scale, q.dtype)
+        log(f"[carry] {tag}, planted fault ({what}): max abs err {err:.3g}, "
+            f"{ratio:.1f} x the tolerance")
+        if ratio <= 1.0:
+            raise RuntimeError(f"{tag}: the check misses a planted fault "
+                               f"({what})")
+
+
 # ------------------------------------------------------------ phase 5
 
 
@@ -1311,9 +1552,10 @@ def mistral_train_phase(card):
 # ------------------------------------------------------------ phase 6
 
 
-def teacher_logits(params, cfg, forward, **kw):
-    """Teacher-forced logits of 2 slots through ``forward``: a 600-token
-    prompt in 512-row chunks, then 4 decode steps, on a fresh pool.
+def teacher_logits(params, cfg, forward, prompt_len=600, **kw):
+    """Teacher-forced logits of 2 slots through ``forward``: a
+    ``prompt_len``-token prompt in 512-row chunks, then 4 decode steps, on
+    a fresh pool.
     Returns the logits of each call stacked ([6, 2, V], f32) and, per
     call, which of its B x S_in rows hold real tokens (the last chunk's
     padded tail writes into the shared NULL block, so its values are
@@ -1321,7 +1563,7 @@ def teacher_logits(params, cfg, forward, **kw):
     from torchdistpackage_tpu_torch.serving.paged_cache import init_paged_kv
 
     dev = torch.device("cuda")
-    B, P, C, steps = 2, 600, 512, 4
+    B, P, C, steps = 2, prompt_len, 512, 4
     # as in the engine, the table is wider than the blocks a slot owns, so
     # the padded tail of the last chunk writes into the NULL block
     need, mb = -(-(P + steps) // BS), -(-(P + C) // BS)
@@ -1554,18 +1796,18 @@ def engine_phase(params, cfg, card):
 
 
 def profile_phase(params, cfg, card, max_ctx=8192, tag="profile",
-                  ep_group=None):
+                  ep_group=None, cp_group=None):
     """Where a decode tick's time goes: 8 slots decoding at 2048 context,
     16 ticks timed one by one on the host clock (each ends by reading the
     tokens back, so it waits for the device), then 8 more under
-    torch.profiler — device time by kernel family (K1, K6, K7, NCCL,
+    torch.profiler — device time by kernel family (K1, K2, K6, K7, NCCL,
     GEMMs, the rest), the device's idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     from torchdistpackage_tpu_torch.serving import Request, ServingEngine
 
     eng = ServingEngine(params, cfg, num_slots=8, block_size=BS, chunk=512,
-                        max_ctx=max_ctx, ep_group=ep_group)
+                        max_ctx=max_ctx, ep_group=ep_group, cp_group=cp_group)
     rs = np.random.RandomState(1)
     for _ in range(8):
         eng.submit(Request(rs.randint(0, cfg.vocab_size, 2048).tolist(), 48))
@@ -1592,11 +1834,12 @@ def profile_phase(params, cfg, card, max_ctx=8192, tag="profile",
         log(f"[{tag}] decode tick {tick_ms:.2f} ms; device time not "
             f"measured (the profiler recorded no kernels) — on {card}")
         return None
-    families = {"paged_attention": 0.0, "moe_ffn": 0.0, "expert_ffn": 0.0,
-                "nccl": 0.0, "gemm": 0.0, "other": 0.0}
+    families = {"paged_attention": 0.0, "paged_carry": 0.0, "moe_ffn": 0.0,
+                "expert_ffn": 0.0, "nccl": 0.0, "gemm": 0.0, "other": 0.0}
     for e in kernels:
         name = e.key.lower()
         fam = ("paged_attention" if "paged_attention" in name else
+               "paged_carry" if "paged_carry" in name else
                "moe_ffn" if "moe_ffn" in name else
                "expert_ffn" if "expert_ffn" in name else
                "nccl" if "nccl" in name else
@@ -1614,7 +1857,9 @@ def profile_phase(params, cfg, card, max_ctx=8192, tag="profile",
         + (f"; K6 {families['moe_ffn'] / busy_ms:.1%} of the busy time"
            if families["moe_ffn"] else "")
         + (f"; K7 {families['expert_ffn'] / busy_ms:.1%} of the busy time"
-           if families["expert_ffn"] else "") + f" — on {card}")
+           if families["expert_ffn"] else "")
+        + (f"; K2 {families['paged_carry'] / busy_ms:.1%} of the busy time"
+           if families["paged_carry"] else "") + f" — on {card}")
     for e in top:
         log(f"[{tag}]   {e.self_device_time_total / 8 / 1e3:8.3f} ms "
             f"x{e.count // 8:<4d} {e.key[:90]}")
@@ -1759,6 +2004,159 @@ def ep_phase(params, cfg, card, k7, tag, gather_experts=None):
     return {"model": model, **eng}
 
 
+CP_PROMPT = 4700  # past Mistral's 4096 window: the window masks
+
+
+def cp_model_phase(params, cfg, group):
+    """Teacher-forced logits of ``cp_paged_forward`` with K2 (one hop a
+    layer at cp 1) on a 4700-token context, against ``paged_forward`` with
+    K1 and against the CP path's gather arm (K2's plain version), within
+    5 % of the logits' scale as ``model_phase``; K2 launched once a layer
+    a call, K1 never."""
+    from torchdistpackage_tpu_torch.ops import paged_attention as pa
+    from torchdistpackage_tpu_torch.serving.paged_cache import (
+        cp_paged_forward,
+        paged_forward,
+    )
+
+    reset_counts()
+    got, real = teacher_logits(params, cfg, cp_paged_forward,
+                               prompt_len=CP_PROMPT, cp_group=group,
+                               attn_impl="cuda")
+    torch.cuda.synchronize()
+    calls = len(real)
+    if (pa.LAUNCHES["paged_carry_attention"] != cfg.nlayers * calls
+            or pa.LAUNCHES["paged_decode_attention"]):
+        raise RuntimeError(f"CP forward launches {pa.LAUNCHES}, want K2 "
+                           f"{cfg.nlayers} x {calls} and K1 0")
+    k1 = teacher_logits(params, cfg, paged_forward, prompt_len=CP_PROMPT,
+                        attn_impl="cuda")[0]
+    plain = teacher_logits(params, cfg, cp_paged_forward,
+                           prompt_len=CP_PROMPT, cp_group=group,
+                           attn_impl="gather")[0]
+    out = {}
+    for what, want in (("K2 (CP) vs K1 (paged_forward)", k1),
+                       ("K2 vs the CP gather arm", plain)):
+        res = logits_agree(got, want, what, "cp-model")
+        if res["rel"] > 0.05:
+            raise RuntimeError(f"CP logits disagree ({what}): "
+                               f"{res['rel']:.3g} > 5% of the scale")
+        out[what] = res
+    return out
+
+
+def cp_engine_phase(params, cfg, card, group):
+    """The CP serving main path at Mistral-7B-v0.1's published context:
+    ``ServingEngine(cp_group=...)`` (4 slots, blocks of 16, chunk 512,
+    max_ctx 32768) serves 4 greedy requests whose prompts are 30720,
+    24576, 16384 and 8192 tokens from ``RandomState(2)``, 32 new tokens
+    each.  Counts set to 0 just before the run and read just after: K2
+    once a layer a device call, K1 never.  Every request completes and
+    the pool is conserved.  Then the same requests through the K1 engine
+    (no group): the share of generated tokens equal to it, reported and
+    not held (random weights give near-ties)."""
+    from torchdistpackage_tpu_torch.ops import paged_attention as pa
+    from torchdistpackage_tpu_torch.serving import Request, ServingEngine
+
+    rs = np.random.RandomState(2)
+    lens = [30720, 24576, 16384, 8192]
+    reqs = [Request(rs.randint(0, cfg.vocab_size, n).tolist(), 32)
+            for n in lens]
+    kw = dict(num_slots=4, block_size=BS, chunk=512, max_ctx=32768)
+    eng = ServingEngine(params, cfg, cp_group=group, **kw)
+    if eng.attn_impl != "cuda" or eng.cp != 1:
+        raise RuntimeError(f"CP engine resolved attn_impl={eng.attn_impl!r}"
+                           f", cp={eng.cp}")
+    pool_gb = eng.serving_summary()["kv_pool"]["pool_bytes"] / 1e9
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rids = [eng.submit(r) for r in reqs]
+    reset_counts()
+    t0 = time.perf_counter()
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: pa.LAUNCHES[k] for k in ("paged_carry_attention",
+                                            "paged_decode_attention")}
+    s = eng.serving_summary()
+    calls = s["prefill_chunks"] + s["decode_steps"]
+    if launches != {"paged_carry_attention": cfg.nlayers * calls,
+                    "paged_decode_attention": 0}:
+        raise RuntimeError(f"CP engine launches {launches}, want K2 "
+                           f"{cfg.nlayers} x {calls} and K1 0")
+    if s["requests"]["completed"] != len(reqs):
+        raise RuntimeError(f"completed {s['requests']} of {len(reqs)}")
+    for r, req in zip(rids, reqs):
+        f = eng.finished[r]
+        gen = f["tokens"][len(req.tokens):]
+        if (f["reason"] != "max_tokens" or len(gen) != req.max_new_tokens
+                or gen.min() < 0 or gen.max() >= cfg.vocab_size):
+            raise RuntimeError(f"request {r} finished wrong: {f['reason']}")
+    if not eng.audit(heal=False)["ok"] or eng._alloc.in_use:
+        raise RuntimeError("pool not conserved after the run")
+    lc = s["long_context"]
+    if lc["cp"] != 1 or lc["ring_hops"] or lc["ring_bytes"]:
+        raise RuntimeError(f"long_context at cp 1 wrong: {lc}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    got = [eng.finished[r]["tokens"][len(q.tokens):] for r, q in
+           zip(rids, reqs)]
+    del eng
+    torch.cuda.empty_cache()
+    ref = ServingEngine(params, cfg, **kw)
+    ref_rids = [ref.submit(r) for r in reqs]
+    ref.run_until_idle()
+    want = [ref.finished[r]["tokens"][len(q.tokens):] for r, q in
+            zip(ref_rids, reqs)]
+    del ref
+    torch.cuda.empty_cache()
+    same = float(np.mean(np.concatenate(got) == np.concatenate(want)))
+    lead = [int(np.argmin(np.append(g == w, False))) for g, w in
+            zip(got, want)]
+    ttft, tpot = s["ttft_s"], s["tpot_s"]
+    log(f"[cp-engine] {len(reqs)} greedy requests, prompts {lens} (32768 "
+        f"positions), pool {pool_gb:.2f} GB: {s['generated_tokens']} tokens "
+        f"in {wall:.2f} s: {s['tokens_per_sec']:.2f} tok/s, TTFT p50 "
+        f"{ttft['p50']:.3f} s p99 {ttft['p99']:.3f} s, TPOT p50 "
+        f"{tpot['p50'] * 1e3:.2f} ms p99 {tpot['p99'] * 1e3:.2f} ms, peak "
+        f"memory {peak_gb:.2f} GB, {s['prefill_chunks']} prefill calls + "
+        f"{s['decode_steps']} decode calls, launches {launches}, "
+        f"long_context {lc} — on {card}")
+    log(f"[cp-engine] greedy tokens equal to the K1 engine's: {same:.3f} "
+        f"of {len(np.concatenate(got))} (first divergence at tokens "
+        f"{lead} of 32; reported, not held)")
+    return {"launches": launches, "summary": s, "wall_s": wall,
+            "peak_gb": peak_gb, "pool_gb": pool_gb, "k1_agree": same}
+
+
+def cp_phase(params, cfg, card):
+    """The context-parallel serving path on the Mistral model already
+    built: a one-rank NCCL group (``init_distributed`` on the card,
+    ``build_cp_group(1)``; at cp 1 the ring is one hop a layer and no
+    payload travels — the layout is the reference's at any cp), then the
+    teacher-forced logits, the engine at 32768 positions and a profiled
+    decode tick.  The group is destroyed before the model is freed."""
+    import torch.distributed as dist
+
+    from torchdistpackage_tpu_torch.dist import (
+        build_cp_group,
+        init_distributed,
+    )
+
+    init_distributed(f"tcp://127.0.0.1:{free_port()}", 1, 0, "cuda")
+    try:
+        group = build_cp_group(1)
+        log(f"[cp] process group: backend {dist.get_backend(group)}, CP "
+            f"size {group.size()}")
+        if dist.get_backend(group) != "nccl":
+            raise RuntimeError("the CP group on the card must use NCCL")
+        model = cp_model_phase(params, cfg, group)
+        eng = cp_engine_phase(params, cfg, card, group)
+        profile_phase(params, cfg, card, tag="cp-profile", cp_group=group)
+    finally:
+        dist.destroy_process_group()
+    return {"model": model, **eng}
+
+
 def build_int8_mixtral(cfg, seed=0):
     """Mixtral-8x7B-v0.1 at full depth, int8 weight-only, on the card,
     built one block at a time from the public init functions so that no
@@ -1845,7 +2243,8 @@ def build_phase():
         for line in str(info["log"]).splitlines():
             if "Compiling entry function" in line:  # name the instantiation
                 m = re.search(
-                    r"\d+((?:flash_\w+|paged_attention|moe_ffn(?:_int8)?"
+                    r"\d+((?:flash_\w+|paged_attention|paged_carry"
+                    r"|moe_ffn(?:_int8)?"
                     r"|expert_ffn(?:_int8)?)_kernel)I", line)
                 name = m.group(1) if m else "?"
                 dt = "bf16" if "13__nv_bfloat16" in line else "f32"
@@ -1863,6 +2262,11 @@ def build_phase():
     log("[build] paged_attention dynamic shared memory per CTA (hd 128): "
         + ", ".join(f"{name} {smem(tag, 128)} B" for name, tag in
                     (("bf16", 0), ("f32", 1), ("int8", 2))))
+    csmem = libs["paged_attention"].tdp_paged_carry_attention_smem_bytes
+    csmem.argtypes, csmem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    log("[build] paged_carry (K2) dynamic shared memory per CTA (hd 128): "
+        + ", ".join(f"{name} {csmem(tag, 128)} B" for name, tag in
+                    (("bf16", 0), ("f32", 1))))
     fsmem = libs["flash_attention"].tdp_flash_smem_bytes
     fsmem.argtypes, fsmem.restype = [ctypes.c_int] * 3, ctypes.c_int
     log("[build] flash_attention dynamic shared memory per CTA: " + ", ".join(
@@ -1921,6 +2325,7 @@ def main():
     moe_rows = moe_kernel_phase()
     int8_rows = moe_int8_kernel_phase()
     k7_rows = expert_ffn_kernel_phase()
+    carry_rows = carry_kernel_phase()
     log(f"[time] kernel checks done at {time.perf_counter() - t_start:.0f} s")
 
     # 4. the training path: GPT-125M main path, the kernel path against the
@@ -1942,6 +2347,8 @@ def main():
     model_phase(params, cfg)
     eng = engine_phase(params, cfg, card)
     profile_phase(params, cfg, card)
+    # the same model served context-parallel, K2 in every attention
+    cp_eng = cp_phase(params, cfg, card)
     del params
     torch.cuda.empty_cache()
     log(f"[time] serving done at {time.perf_counter() - t_start:.0f} s")
@@ -2020,6 +2427,12 @@ def main():
             library="the torch.bmm chain: one cuBLAS batched product per "
                     "weight (several calls; for int8 over bf16 weights "
                     "dequantised beforehand)"))
+    entries.append(kernel_entry(
+        "paged_carry_attention", CARRY_SOURCE, CARRY_REPLACES,
+        cp_eng["launches"]["paged_carry_attention"], carry_rows,
+        carry_rows[0], k1_ms=carry_rows[0]["k1_ms"],
+        library="SDPA over the gathered view at one hop; k1_ms: K1 on the "
+                "same one-hop inputs"))
     log(json.dumps({"kernels": entries}))
     log(card)
     log(json.dumps({"ok": True, "device": {

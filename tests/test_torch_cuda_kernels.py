@@ -541,3 +541,178 @@ def test_expert_ffn_kernel_wrapper_refuses_what_it_does_not_take(cuda):
     q = md.quantize_moe_experts(ex)
     with pytest.raises(NotImplementedError, match="int8"):
         md.fused_expert_ffn(dict(ex, w1=q["w1"]), x)
+
+
+# ------------------------------------------------ the CP carry kernel, K2
+
+
+def _carry_inputs(cuda, *, dtype, s_in, hd, seed, mb=280, b=3):
+    """q, a pool of 1 + b mb blocks of 16 positions, tables a permutation
+    of its blocks, offsets up to the table's end (past 4096, so a window
+    of 4096 masks)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    hkv, groups, bs = 2, 4, 16
+    nb = 1 + b * mb
+    tables = (torch.randperm(nb - 1, generator=g, device=cuda) + 1)
+    tables = tables.reshape(b, mb).to(torch.int32)
+    offs = torch.tensor([0, 70, mb * bs - s_in], dtype=torch.int32,
+                        device=cuda)
+    q = torch.randn(b, hkv * groups, s_in, hd, generator=g, device=cuda
+                    ).to(dtype)
+    k, v = (torch.randn(nb, hkv, bs, hd, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    return q, k, v, tables, offs
+
+
+def _slices(k, v, tables, n):
+    """The pool cut into n slices (zero blocks pad the last), each with
+    the table re-based by its first block: cp n's per-rank hops."""
+    per = -(-k.shape[0] // n)
+    pad = per * n - k.shape[0]
+    k = torch.cat([k, k.new_zeros((pad,) + k.shape[1:])])
+    v = torch.cat([v, v.new_zeros((pad,) + v.shape[1:])])
+    return [(k[i * per:(i + 1) * per], v[i * per:(i + 1) * per],
+             (tables - i * per).contiguous()) for i in range(n)]
+
+
+def _chain(fn, q, hops, offs, window, carry_fault=None):
+    carry = None
+    for i, (k, v, t) in enumerate(hops):
+        if i and carry_fault is not None:
+            carry = carry_fault(carry)
+        carry = fn(q, k, v, t, offs, carry=carry, window=window)
+    return carry
+
+
+def _carry_ratio(got, exact, scale, dtype):
+    """The worst ratio to its tolerance of: the finished output row by row
+    (f32 2e-5; bf16 2 ulps of the row's largest |value| plus 4 x 2^-8 of
+    its largest P-rounding scale), the carry's m (1e-4 (1 + |m|)) and l
+    (1e-4 of itself); inf on any NaN."""
+    from torchdistpackage_tpu_torch.ops.paged_attention import (
+        finalize_paged_carry,
+    )
+
+    B, H, S, hd = scale.shape
+    out = finalize_paged_carry(got, B, H, S, hd, dtype).float()
+    want = finalize_paged_carry(exact, B, H, S, hd, torch.float32)
+    err = (out - want).abs().amax(-1)
+    if dtype == torch.float32:
+        tol = torch.full_like(err, 2e-5)
+    else:
+        big = want.abs().amax(-1).clamp_min(2.0 ** -100)
+        tol = (2.0 * torch.exp2(torch.floor(torch.log2(big)) - 7)
+               + 4.0 * 2.0 ** -8 * scale.amax(-1))
+    ratios = torch.stack([
+        (err / tol).max(),
+        ((got[1] - exact[1]).abs() / (1e-4 * (1 + exact[1].abs()))).max(),
+        ((got[2] - exact[2]).abs() / (1e-4 * exact[2]).clamp_min(1e-30)
+         ).max()])
+    if not (torch.isfinite(ratios).all() and torch.isfinite(out).all()):
+        return float("inf")
+    return float(ratios.max())
+
+
+def _carry_check(q, hops, offs, window):
+    """K2 through the chain, and the plain version's chain in f32 on the
+    same values with the rounding scale."""
+    from torchdistpackage_tpu_torch.ops import paged_attention as pa
+
+    before = pa.LAUNCHES["paged_carry_attention"]
+    got = _chain(pa.paged_carry_attention, q, hops, offs, window)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES["paged_carry_attention"] == before + len(hops)
+    exact = _chain(pa.paged_carry_attention_reference, q.float(),
+                   [(k.float(), v.float(), t) for k, v, t in hops], offs,
+                   window)
+    scale = pa.paged_carry_rounding_scale(q, hops, offs, window=window)
+    return got, exact, scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("s_in", [1, 33], ids=["split", "rows"])
+@pytest.mark.parametrize("window", [None, 4096, 64])
+@pytest.mark.parametrize("n_hops", [1, 4])
+def test_carry_kernel_matches_plain_on_card(cuda, dtype, hd, s_in, window,
+                                            n_hops):
+    """K2 over one hop (the whole pool, cp 1) and a four-hop chain over
+    quarter-pool slices (cp 4's per-rank work), against the plain version
+    in f32 on the same values."""
+    dt = getattr(torch, dtype)
+    q, k, v, tables, offs = _carry_inputs(cuda, dtype=dt, s_in=s_in, hd=hd,
+                                          seed=hd + s_in)
+    got, exact, scale = _carry_check(q, _slices(k, v, tables, n_hops), offs,
+                                     window)
+    assert all(t.dtype == torch.float32 for t in got)
+    assert _carry_ratio(got, exact, scale, dt) <= 1.0
+
+
+@pytest.mark.gpu
+def test_carry_kernel_split_mode_seeded_carry_and_planted_faults(cuda):
+    """Decode in split mode through a four-hop chain (every hop after the
+    first seeded with the carry): it holds, and each planted fault fails
+    the same check — the ownership mask off (tables clamped into the
+    slice), the carry not seeded, the window one block late, the carry
+    merged once a warp (acc and l times the 4 warps)."""
+    from torchdistpackage_tpu_torch.ops import paged_attention as pa
+
+    bf = torch.bfloat16
+    q, k, v, tables, offs = _carry_inputs(cuda, dtype=bf, s_in=1, hd=128,
+                                          seed=7)
+    window = 4096
+    hops = _slices(k, v, tables, 4)
+    got, exact, scale = _carry_check(q, hops, offs, window)
+    assert _carry_ratio(got, exact, scale, bf) <= 1.0
+    clamped = [(kk, vv, t.clamp(0, kk.shape[0] - 1).contiguous())
+               for kk, vv, t in hops]
+    fn = pa.paged_carry_attention
+    bad = [_chain(fn, q, clamped, offs, window),
+           _chain(fn, q, hops, offs, window, carry_fault=lambda c: None),
+           _chain(fn, q, hops, offs, window + 16),
+           _chain(fn, q, hops, offs, window,
+                  carry_fault=lambda c: (c[0] * 4, c[1], c[2] * 4))]
+    for b in bad:
+        assert _carry_ratio(b, exact, scale, bf) > 1.0
+
+
+@pytest.mark.gpu
+def test_carry_kernel_rows_with_no_owned_key_keep_the_seed(cuda):
+    """A hop over a slice that owns none of a row's blocks leaves its
+    carry exactly as it came in, and without a carry gives (0, NEG_INF,
+    0) — no 0/0 inside the kernel."""
+    from torchdistpackage_tpu_torch.ops import paged_attention as pa
+
+    q, k, v, tables, offs = _carry_inputs(cuda, dtype=torch.bfloat16,
+                                          s_in=33, hd=128, seed=3, mb=20)
+    remote = torch.full_like(tables, k.shape[0] + 5)
+    acc, m, l = pa.paged_carry_attention(q, k, v, remote, offs)
+    assert (acc == 0).all() and (l == 0).all() and (m == pa.NEG_INF).all()
+    carry = pa.paged_carry_attention(q, k, v, tables, offs)
+    again = pa.paged_carry_attention(q, k, v, remote, offs, carry=carry)
+    for a, b in zip(again, carry):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_carry_kernel_wrapper_refuses_what_it_does_not_take(cuda):
+    from torchdistpackage_tpu_torch.ops import paged_attention as pa
+
+    q, k, v, tables, offs = _carry_inputs(cuda, dtype=torch.bfloat16,
+                                          s_in=4, hd=128, seed=1, mb=8)
+    pair = (k.to(torch.int8), torch.ones(k.shape[:3], device=cuda))
+    with pytest.raises(NotImplementedError, match="int8"):
+        pa.paged_carry_attention(q, pair, pair, tables, offs)
+    with pytest.raises(ValueError, match="contiguous"):
+        pa.paged_carry_attention(q.transpose(2, 3).contiguous()
+                                 .transpose(2, 3), k, v, tables, offs)
+    with pytest.raises(ValueError, match="not supported"):
+        pa.paged_carry_attention(q.float(), k, v, tables, offs)
+    with pytest.raises(ValueError, match="carry"):
+        acc, m, l = pa.paged_carry_attention(q, k, v, tables, offs)
+        pa.paged_carry_attention(q, k, v, tables, offs,
+                                 carry=(acc, m[..., :1], l))
+    with pytest.raises(ValueError, match="blocks of 16"):
+        pa.paged_carry_attention(q, k[:, :, :8].contiguous(),
+                                 v[:, :, :8].contiguous(), tables, offs)

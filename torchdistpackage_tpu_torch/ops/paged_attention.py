@@ -1,5 +1,6 @@
 """Paged attention: the query rows of each slot attend against that
-slot's KV, walking its block table inside one kernel.
+slot's KV, walking its block table inside one kernel (K1), and one hop of
+the context-parallel ring over one rank's slice of the pool (K2).
 
 Replaces the TPU kernel ``paged_decode_attention``
 (``torchdistpackage_tpu/ops/paged_attention.py:214``, body ``_kernel``
@@ -25,13 +26,26 @@ raises on anything it does not take; it computes the plain version,
 :func:`paged_decode_attention_reference`, only for tensors on the CPU.
 ``LAUNCHES["paged_decode_attention"]`` counts kernel launches, so a run
 can show that its main path went through the kernel.
+
+K2, :func:`paged_carry_attention`, replaces the TPU kernel of the same
+name (``torchdistpackage_tpu/ops/paged_attention.py:509``, body
+``_cp_kernel`` :332) with a second kernel in the same CUDA file: K1's
+walk over ONE rank's pool slice through a re-based table (entries outside
+the slice are other ranks' blocks, skipped), returning the raw
+online-softmax carry ``(acc, m, l)`` that the ring
+(:mod:`.ring_paged`) passes from hop to hop and
+:func:`finalize_paged_carry` divides once.  Its plain version is the
+gather arm's arithmetic, :func:`paged_carry_attention_reference`;
+``LAUNCHES["paged_carry_attention"]`` counts its launches.  The TPU
+kernel's 128-lane ``m``/``l`` and ``q_pad_to`` row padding have no
+counterpart: ``m`` and ``l`` are ``[B, Hkv, R]``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -39,7 +53,12 @@ NEG_INF = -1e30  # finite "minus infinity", as in the kernel
 
 #: kernel launches since the counter was last reset (the wrapper adds one
 #: where it launches, and nowhere else)
-LAUNCHES: Dict[str, int] = {"paged_decode_attention": 0}
+LAUNCHES: Dict[str, int] = {"paged_decode_attention": 0,
+                            "paged_carry_attention": 0}
+
+#: K2's online-softmax carry: (acc [B, Hkv, R, hd], m [B, Hkv, R],
+#: l [B, Hkv, R]), all f32, rows group-major (r = g * S_in + s)
+Carry = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 #: (q dtype, pool dtype) -> the C entry point's dtype tag
 _DTYPE_TAG = {
@@ -57,6 +76,14 @@ _ARGTYPES = (
 )                                      # sm_scale, dtype tag, stream
 
 
+_CARRY_ARGTYPES = (
+    [ctypes.c_void_p] * 11           # q, k, v, tables, offsets, acc/m/l in,
+    + [ctypes.c_int] * 8             # acc/m/l out; B, Hkv, R, S_in, hd, nb,
+    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+       ctypes.c_int, ctypes.c_void_p]  # bs, mb; block stride, table stride,
+)                                      # window, sm_scale, dtype tag, stream
+
+
 def resolve_attn_impl(impl: Optional[str], device) -> str:
     """``'auto'``/None -> ``'cuda'`` (the kernel) on a CUDA device,
     ``'gather'`` (the plain version) on the CPU.  Explicit values pass
@@ -70,13 +97,12 @@ def resolve_attn_impl(impl: Optional[str], device) -> str:
     return impl
 
 
-def _kernel():
+def _kernel(name: str = "tdp_paged_attention", argtypes=_ARGTYPES):
     from ._build import load
 
-    lib = load("paged_attention")
-    fn = lib.tdp_paged_attention
+    fn = getattr(load("paged_attention"), name)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
@@ -96,9 +122,20 @@ def paged_decode_attention_reference(q: torch.Tensor, k_pool: Any,
                              window=window)
 
 
-def _check(cond: bool, msg: str) -> None:
+def _check(cond: bool, msg: str,
+           where: str = "paged_decode_attention") -> None:
     if not cond:
-        raise ValueError(f"paged_decode_attention: {msg}")
+        raise ValueError(f"{where}: {msg}")
+
+
+def _offsets_on(offsets, B: int, device) -> torch.Tensor:
+    """``offsets`` (an int or [B]) as a contiguous int32 [B] on ``device``."""
+    if isinstance(offsets, torch.Tensor):
+        offs = offsets.to(device=device, dtype=torch.int32)
+        if offs.dim() == 0:
+            offs = offs.expand(B)
+        return offs.contiguous()
+    return torch.full((B,), int(offsets), dtype=torch.int32, device=device)
 
 
 def paged_decode_attention(q: torch.Tensor, k_pool: Any, v_pool: Any,
@@ -148,14 +185,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: Any, v_pool: Any,
     for t in scales:
         _check(t.dtype == torch.float32 and t.shape == (nb, Hkv, bs),
                f"int8 scales must be f32 [{nb}, {Hkv}, {bs}]")
-    if isinstance(offsets, torch.Tensor):
-        offs = offsets.to(device=q.device, dtype=torch.int32)
-        if offs.dim() == 0:
-            offs = offs.expand(B)
-        offs = offs.contiguous()
-    else:
-        offs = torch.full((B,), int(offsets), dtype=torch.int32,
-                          device=q.device)
+    offs = _offsets_on(offsets, B, q.device)
     _check(offs.shape == (B,), f"offsets must be scalar or [{B}]")
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -174,6 +204,194 @@ def paged_decode_attention(q: torch.Tensor, k_pool: Any, v_pool: Any,
             f"paged_attention kernel launch failed: CUDA error {err}")
     LAUNCHES["paged_decode_attention"] += 1
     return out
+
+
+# ------------------------------------------------------------------ K2
+
+
+def _no_int8(k_pool: Any) -> None:
+    if isinstance(k_pool, tuple):
+        raise NotImplementedError(
+            "paged_carry_attention does not support int8 pools")
+
+
+def paged_carry_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
+                                    v_pool: torch.Tensor,
+                                    tables_local: torch.Tensor, offsets, *,
+                                    carry: Optional[Carry] = None,
+                                    window: Optional[int] = None,
+                                    sm_scale: Optional[float] = None
+                                    ) -> Carry:
+    """The plain version of K2: the reference gather arm's arithmetic
+    (``ops/ring_paged.py`` ``_gather_slice`` :129, ``_valid_positions``
+    :167, ``_partial_update`` :139).  The slice's blocks are gathered
+    through ``tables_local`` into a dense per-slot view (another rank's
+    entries, outside ``[0, nb)``, gather zeros and are masked), scores
+    formed in f32, and one online-softmax update applied to ``carry``
+    (default: the empty carry).  A masked key adds exactly 0 to ``l`` and
+    ``acc`` — the reference's ``exp(NEG_INF - m)``, which is 0 once the row
+    has met a key; a row that has met none keeps ``(0, NEG_INF, 0)``, where
+    the reference's interim carry counts its masked keys until the next
+    owned key wipes them.  P stays f32 (the kernel rounds it to the pool
+    dtype)."""
+    _no_int8(k_pool)
+    B, H, S_in, hd = q.shape
+    nb, Hkv, bs, _ = k_pool.shape
+    g = H // Hkv
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(hd)
+    tab = tables_local.to(q.device).long()
+    owned = (tab >= 0) & (tab < nb)
+    idx = torch.where(owned, tab, torch.zeros_like(tab))
+    W = tab.shape[1] * bs
+
+    def view(pool):
+        blocks = pool[idx].float() * owned[:, :, None, None, None]
+        return blocks.permute(0, 2, 1, 3, 4).reshape(B, Hkv, W, hd)
+
+    offs = _offsets_on(offsets, B, q.device).long()
+    qpos = offs[:, None] + torch.arange(S_in, device=q.device)[None, :]
+    kpos = torch.arange(W, device=q.device)
+    keep = (owned.repeat_interleave(bs, dim=1)[:, None, :]
+            & (kpos[None, None, :] <= qpos[..., None]))
+    if window is not None:
+        keep = keep & (kpos[None, None, :] > qpos[..., None] - window)
+    keep = keep[:, None, None]                          # [B, 1, 1, S, W]
+    qg = q.float().reshape(B, Hkv, g, S_in, hd)
+    s = torch.matmul(qg, view(k_pool)[:, :, None].transpose(-1, -2))
+    s = torch.where(keep, s * sm_scale, NEG_INF)
+    R = g * S_in
+    if carry is None:
+        m = torch.full((B, Hkv, g, S_in, 1), NEG_INF, device=q.device)
+        l = torch.zeros((B, Hkv, g, S_in, 1), device=q.device)
+        acc = torch.zeros((B, Hkv, g, S_in, hd), device=q.device)
+    else:
+        acc, m, l = carry
+        acc = acc.reshape(B, Hkv, g, S_in, hd)
+        m = m.reshape(B, Hkv, g, S_in, 1)
+        l = l.reshape(B, Hkv, g, S_in, 1)
+    m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+    p = torch.where(keep, torch.exp(s - m_new), 0.0)
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(-1, keepdim=True)
+    acc = acc * corr + torch.matmul(p, view(v_pool)[:, :, None])
+    return (acc.reshape(B, Hkv, R, hd), m_new.reshape(B, Hkv, R),
+            l.reshape(B, Hkv, R))
+
+
+def finalize_paged_carry(carry: Carry, B: int, H: int, S_in: int, hd: int,
+                         dtype) -> torch.Tensor:
+    """Divide the last hop's ``acc`` by ``l`` once and restore the public
+    ``[B, H, S_in, hd]`` layout (undo the group-major packing)."""
+    acc, _m, l = carry
+    return (acc / l[..., None]).reshape(B, H, S_in, hd).to(dtype)
+
+
+def paged_carry_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                          v_pool: torch.Tensor, tables_local: torch.Tensor,
+                          offsets, *, carry: Optional[Carry] = None,
+                          window: Optional[int] = None,
+                          sm_scale: Optional[float] = None) -> Carry:
+    """One ring hop: accumulate ``q`` [B, H, S_in, hd] (rows at global
+    positions ``offsets[b] + arange(S_in)``) against ONE rank's pool slice
+    ``[nb, Hkv, bs, hd]`` through ``tables_local`` [B, max_blocks] int32
+    (the global tables minus that slice's first block id; entries outside
+    ``[0, nb)`` are other ranks' blocks), continuing ``carry`` (the
+    previous hop's return; None for the first).  Returns the raw carry
+    ``(acc [B, Hkv, R, hd], m [B, Hkv, R], l [B, Hkv, R])`` f32 with
+    ``R = (H / Hkv) * S_in`` group-major rows; finish with
+    :func:`finalize_paged_carry`.  ``l`` may be 0 mid-ring.
+
+    CPU tensors take the plain version; CUDA tensors launch K2, which
+    takes contiguous tensors, bf16 or f32 (q and pool alike), hd in {64,
+    128} and blocks of 16 positions.  Int8 pools raise
+    NotImplementedError, as in the reference."""
+    _no_int8(k_pool)
+    if q.device.type == "cpu":
+        return paged_carry_attention_reference(
+            q, k_pool, v_pool, tables_local, offsets, carry=carry,
+            window=window, sm_scale=sm_scale)
+    where = "paged_carry_attention"
+    _check(q.device.type == "cuda", f"unsupported device {q.device}", where)
+    _check(q.dim() == 4, f"q must be [B, H, S_in, hd], got {tuple(q.shape)}",
+           where)
+    B, H, S_in, hd = q.shape
+    nb, Hkv, bs, pool_hd = k_pool.shape
+    tag = {torch.bfloat16: 0, torch.float32: 1}.get(q.dtype)
+    _check(tag is not None and k_pool.dtype == q.dtype,
+           f"q {q.dtype} with a {k_pool.dtype} pool is not supported", where)
+    _check(hd == pool_hd and hd in (64, 128),
+           f"head dim must be 64 or 128 and match the pool, got {hd} / "
+           f"{pool_hd}", where)
+    _check(bs == 16, f"the kernel takes pool blocks of 16 positions, got "
+           f"{bs}", where)
+    _check(H % Hkv == 0, f"{H} query heads not divisible by {Hkv} kv heads",
+           where)
+    _check(tables_local.dim() == 2 and tables_local.shape[0] == B
+           and tables_local.dtype == torch.int32,
+           f"tables must be int32 [{B}, max_blocks]", where)
+    _check(v_pool.shape == k_pool.shape and v_pool.dtype == k_pool.dtype,
+           "k and v pools must match", where)
+    R = (H // Hkv) * S_in
+    shapes = ((B, Hkv, R, hd), (B, Hkv, R), (B, Hkv, R))
+    for t, shape in zip(carry or (), shapes):
+        _check(t.dtype == torch.float32 and tuple(t.shape) == shape,
+               f"the carry must be f32 {shapes}", where)
+    for t in (q, k_pool, v_pool, tables_local, *(carry or ())):
+        _check(t.device == q.device, "all tensors must be on q's device",
+               where)
+        _check(t.is_contiguous(), "all tensors must be contiguous", where)
+    offs = _offsets_on(offsets, B, q.device)
+    _check(offs.shape == (B,), f"offsets must be scalar or [{B}]", where)
+    out = tuple(torch.empty(shape, dtype=torch.float32, device=q.device)
+                for shape in shapes)
+    cin = carry if carry is not None else (None, None, None)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _kernel("tdp_paged_carry_attention", _CARRY_ARGTYPES)(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            tables_local.data_ptr(), offs.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in cin),
+            *(t.data_ptr() for t in out),
+            B, Hkv, R, S_in, hd, nb, bs, tables_local.shape[1],
+            Hkv * bs * hd, tables_local.shape[1],
+            -1 if window is None else int(window),
+            float(1.0 / math.sqrt(hd) if sm_scale is None else sm_scale),
+            tag, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"paged_carry_attention kernel launch failed: CUDA error {err}")
+    LAUNCHES["paged_carry_attention"] += 1
+    return out
+
+
+def paged_carry_rounding_scale(q: torch.Tensor,
+                               hops: Sequence[Tuple[torch.Tensor,
+                                                    torch.Tensor,
+                                                    torch.Tensor]],
+                               offsets, *, window: Optional[int] = None,
+                               sm_scale: Optional[float] = None
+                               ) -> torch.Tensor:
+    """For each element of the finished output ``[B, H, S_in, hd]``,
+    ``sqrt(Σ (p v)²)`` over the keys of every hop, ``p`` the final
+    normalised probability: the scale of the error K2 adds by rounding P
+    to a bf16 pool's dtype before P·V (each term off by at most 2^-8 of
+    itself, in random directions).  ``hops``: each hop's ``(k_pool,
+    v_pool, tables_local)`` in order.  Computed by the plain version in
+    f32 on ``(2 sm_scale, v²)``, whose ``acc`` is ``Σ exp(2 (s - m)) v²``,
+    divided by the plain run's ``l``."""
+    B, H, S_in, hd = q.shape
+    scale = 1.0 / math.sqrt(hd) if sm_scale is None else sm_scale
+    plain = sq = None
+    for k_pool, v_pool, tab in hops:
+        plain = paged_carry_attention_reference(
+            q.float(), k_pool.float(), v_pool.float(), tab, offsets,
+            carry=plain, window=window, sm_scale=scale)
+        sq = paged_carry_attention_reference(
+            q.float(), k_pool.float(), v_pool.float().square(), tab, offsets,
+            carry=sq, window=window, sm_scale=2.0 * scale)
+    return finalize_paged_carry((sq[0].sqrt(), plain[1], plain[2]), B, H,
+                                S_in, hd, torch.float32)
 
 
 def modeled_attend_temp_bytes(impl: str, *, batch: int, kv_heads: int,

@@ -3,6 +3,7 @@
 from .engine import Request, ServingEngine
 from .paged_cache import (
     BlockAllocator,
+    cp_paged_forward,
     gather_kv,
     init_paged_kv,
     paged_attention,
@@ -13,7 +14,7 @@ from .paged_cache import (
 from .sim import TorchDeviceStep
 
 __all__ = [
-    "BlockAllocator", "Request", "ServingEngine",
-    "TorchDeviceStep", "gather_kv", "init_paged_kv", "paged_attention",
+    "BlockAllocator", "Request", "ServingEngine", "TorchDeviceStep",
+    "cp_paged_forward", "gather_kv", "init_paged_kv", "paged_attention",
     "paged_forward", "paged_forward_moe", "paged_write",
 ]

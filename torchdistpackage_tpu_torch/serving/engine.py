@@ -29,7 +29,11 @@ kernel K6 on the card (``moe_dispatch='auto'`` -> ``'cuda'``) or the
 ragged plain path (``'gather'``), and ``serving_summary()['moe']``
 reports the live expert load.  With ``ep_group`` its experts are sharded
 over a ``torch.distributed`` group (expert parallelism, K7 on the card).
-Tensor / data / context parallelism, the prefix cache,
+With ``cp_group`` a dense model's pool is sharded by blocks over a
+``torch.distributed`` group and every prefill chunk is split across its
+ranks (context parallelism: ring paged attention, K2 on the card, and
+``serving_summary()['long_context']``).  Tensor / data parallelism, the
+prefix cache,
 speculative decoding, telemetry, chaos, the watchdog, metrics export,
 deadline shedding, preemption and drain/resume are not ported yet
 (ROADMAP queue A); the constructor refuses them with NotImplementedError.
@@ -169,6 +173,44 @@ _QUEUED_OPTIONS = {
 }
 
 
+def _check_cp(cfg: GPTConfig, cp_group, chunk: int,
+              num_blocks: Optional[int], kv_quant: bool, ep_group,
+              on: set) -> int:
+    """The size of the CP group, after the reference's refusals of what
+    context parallelism does not serve (JAX ``engine.py:407-436``)."""
+    import torch.distributed as dist
+
+    if ep_group is not None:
+        raise NotImplementedError(
+            "cp_group cannot be combined with ep_group: context parallelism "
+            "serves dense models only")
+    if "spec_k" in on:
+        raise NotImplementedError(
+            "cp_group + speculative decoding is not supported (a CP prefill "
+            "tier hands off before decode; run spec_k on the decode replica)")
+    if "prefix_cache" in on:
+        raise NotImplementedError(
+            "cp_group + prefix_cache is not supported (block hashes would "
+            "need cross-rank content)")
+    if kv_quant:
+        raise NotImplementedError(
+            "cp_group + kv_quant is not supported (the ring rotates fp pool "
+            "slices)")
+    if cfg.moe_experts:
+        raise NotImplementedError("cp_group + MoE serving is not supported "
+                                  "yet")
+    cp = dist.get_world_size(cp_group)
+    if chunk % cp:
+        raise ValueError(
+            f"chunk ({chunk}) must be divisible by the CP group size ({cp}) "
+            f"— each rank prefills chunk/cp rows")
+    if num_blocks is not None and num_blocks % cp:
+        raise ValueError(
+            f"num_blocks ({num_blocks}) must be divisible by the CP group "
+            f"size ({cp}) — the pool's block dim is sharded over the group")
+    return cp
+
+
 class ServingEngine:
     """Paged-KV continuous-batching engine on one device.  Typical
     use::
@@ -208,6 +250,19 @@ class ServingEngine:
         which ``'gather'`` maps), and every tick takes rank 0's sampled
         tokens, so the ranks schedule alike.  The counterpart of the
         reference's ``mesh=`` + ``ep_axis=``, which stay refused.
+    cp_group: context parallelism for a dense model — a
+        ``torch.distributed`` process group (``dist.build_cp_group``)
+        whose ranks run this engine on the same requests in the same
+        order.  Rank ``r`` holds global blocks ``[r nb_local, (r + 1)
+        nb_local)`` of the pool (``nb_local = num_blocks / cp``; the
+        allocator and the tables stay global), embeds ``chunk / cp`` rows
+        of every prefill chunk, and every attend runs the ring
+        (``ops/ring_paged.py``): K2 under ``'cuda'``, K1 never.  Every
+        tick takes rank 0's sampled tokens.  ``chunk`` and an explicit
+        ``num_blocks`` must be divisible by cp (the default rounds up);
+        ``kv_quant``, MoE, ``spec_k``, ``prefix_cache`` and ``ep_group``
+        are refused.  The counterpart of the reference's ``mesh=`` +
+        ``cp_axis=``, which stay refused.
     device: where the pool and the step live (default: the card).
     """
 
@@ -225,6 +280,7 @@ class ServingEngine:
         attn_impl: str = "auto",
         moe_dispatch: Optional[str] = None,
         ep_group=None,
+        cp_group=None,
         device=None,
         **queued: Any,
     ) -> None:
@@ -232,13 +288,21 @@ class ServingEngine:
         if unknown:
             raise TypeError(f"unexpected engine options {sorted(unknown)}")
         on = sorted(k for k, v in queued.items() if v != _QUEUED_OPTIONS[k])
+        cp = 1
+        if cp_group is not None:
+            cp = _check_cp(cfg, cp_group, chunk, num_blocks, kv_quant,
+                           ep_group, set(on))
         if on:
-            ep = ("; expert parallelism takes ep_group= (a torch.distributed "
-                  "process group), not mesh= / ep_axis="
-                  if {"mesh", "ep_axis"} & set(on) else "")
+            hint = [
+                "; expert parallelism takes ep_group= (a torch.distributed "
+                "process group), not mesh= / ep_axis="
+                if {"mesh", "ep_axis"} & set(on) else "",
+                "; context parallelism takes cp_group= (a torch.distributed "
+                "process group, dist.build_cp_group), not mesh= / cp_axis="
+                if {"mesh", "cp_axis"} & set(on) else ""]
             raise NotImplementedError(
                 f"engine options {on} are not ported to the PyTorch engine "
-                f"yet (ROADMAP queue A){ep}")
+                f"yet (ROADMAP queue A){''.join(hint)}")
         if num_slots < 1 or chunk < 1 or block_size < 1:
             raise ValueError(
                 f"num_slots/chunk/block_size must be >= 1, got "
@@ -269,22 +333,33 @@ class ServingEngine:
         from .sim import TorchDeviceStep
 
         self._dev = TorchDeviceStep(cfg, device, attn_impl, moe_dispatch,
-                                    ep_group)
+                                    ep_group, cp_group)
         #: the expert-parallel group (None: every expert on this device)
         self.ep_group = ep_group
+        #: the context-parallel group and its size (None / 1: the whole
+        #: pool on this device)
+        self.cp_group = cp_group
+        self.cp = cp
         self.device = self._dev.device
         self.attn_impl = self._dev.attn_impl
         #: the resolved MoE dispatch ('cuda' | 'gather', or 'cuda' |
         #: 'sorted' under EP); None when dense
         self.moe_dispatch = self._dev.moe_dispatch
         # the kernels this engine's step can launch
-        self._launch_counts = [_attn_ops.LAUNCHES] + (
-            [_moe_ops.LAUNCHES] if cfg.moe_experts else [])
+        # (a CP engine's attends all run the ring: K2, and K1 never — it
+        # reports K1 too, to show it)
+        attn = ["paged_decode_attention"] + (
+            ["paged_carry_attention"] if cp_group is not None else [])
+        self._launch_counts = [(_attn_ops.LAUNCHES, attn)] + (
+            [(_moe_ops.LAUNCHES, list(_moe_ops.LAUNCHES))]
+            if cfg.moe_experts else [])
 
         self.max_ctx = int(max_ctx if max_ctx is not None else cfg.max_seq)
         self.max_blocks = -(-self.max_ctx // block_size)
         if num_blocks is None:
             num_blocks = 1 + num_slots * self.max_blocks
+            num_blocks = -(-num_blocks // cp) * cp  # shards evenly over cp
+        #: global pool blocks (each CP rank holds num_blocks / cp of them)
         self.num_blocks = num_blocks
         self._alloc = BlockAllocator(num_blocks)
         self.cache = self._dev.init_cache(num_blocks, block_size, kv_quant)
@@ -500,6 +575,25 @@ class ServingEngine:
                 self._maybe_retire(i, int(tok[i]), now)
         self.stats["prefill_chunks"] += 1
         self._ev.emit("prefill_chunk", rids=rids, chunk=C, n_slots=len(rids))
+        if self.cp > 1:
+            # the modeled ring traffic of the chunk (host math,
+            # ops/ring_paged.py); the ring's own counter is RING_PAYLOADS
+            from ..ops.ring_paged import ring_chunk_bytes, ring_hops_per_chunk
+
+            hops = ring_hops_per_chunk(self.cfg.nlayers, self.cp)
+            bts = ring_chunk_bytes(
+                nlayers=self.cfg.nlayers, cp=self.cp, batch=self.num_slots,
+                kv_heads=self.cfg.block.kv_head_count,
+                head_dim=self.cfg.block.head_dim, chunk=C,
+                nb_local=self.num_blocks // self.cp,
+                block_size=self.block_size,
+                itemsize=torch.empty((), dtype=self.cfg.dtype).element_size())
+            self.stats["cp_ring_hops"] += hops
+            self.stats["cp_ring_bytes"] += bts
+            self._ev.emit("cp_prefill_chunk", rids=rids, chunk=C, cp=self.cp,
+                          sub_chunk=C // self.cp)
+            self._ev.emit("cp_ring_hop", tick=self._tick, hops=hops,
+                          bytes=bts)
         return len(rids)
 
     def _decode_tick(self) -> int:
@@ -735,7 +829,8 @@ class ServingEngine:
         self.stats = {"decode_steps": 0, "prefill_chunks": 0,
                       "decode_slot_steps": 0, "generated_tokens": 0,
                       "cancelled": 0, "faults_detected": 0,
-                      "faults_healed": 0, "audits": 0}
+                      "faults_healed": 0, "audits": 0, "cp_ring_hops": 0,
+                      "cp_ring_bytes": 0}
         self._decode_sigs: set = set()
         self._prefill_sigs: set = set()
         self._ttfts: List[Optional[float]] = []
@@ -756,8 +851,8 @@ class ServingEngine:
         self._moe_steps = 0
 
     def _launches(self) -> Dict[str, int]:
-        return {k: v for counts in self._launch_counts
-                for k, v in counts.items()}
+        return {k: counts[k] for counts, names in self._launch_counts
+                for k in names}
 
     def _absorb_moe_stats(self, moe) -> None:
         """Fold one step's ``(expert_tokens [E], dropped_token_rate)`` into
@@ -787,7 +882,9 @@ class ServingEngine:
         percentiles, the attention implementation, the call signatures,
         the kernel launches since :meth:`reset_metrics` and, for an MoE
         model, the ``moe`` expert-load block (its overflow tripwire fires
-        here)."""
+        here) and, with ``cp_group``, the ``long_context`` block (CP width,
+        the chunks that rode the ring and its modeled hops and bytes; 0 at
+        cp 1).  ``kv_pool.pool_bytes`` is this rank's slice."""
         span = self._t_last_done - self._t_first
         completed = sum(1 for f in self.finished.values()
                         if f["reason"] in ("eos", "max_tokens"))
@@ -830,7 +927,7 @@ class ServingEngine:
                                      / self._alloc.n_usable),
                 "pool_bytes": pool_bytes(self.cache),
                 "pool_bytes_expected": expected_pool_bytes(
-                    self.cfg, self.num_blocks, self.block_size,
+                    self.cfg, self.num_blocks // self.cp, self.block_size,
                     quantized=self.kv_quant),
             },
             "attn_impl": self.attn_impl,
@@ -844,5 +941,13 @@ class ServingEngine:
                 if st["decode_steps"] else 0.0),
             "decode_signatures": len(self._decode_sigs),
             "prefill_signatures": len(self._prefill_sigs),
+            **({"long_context": {
+                "cp": self.cp,
+                "max_ctx": self.max_ctx,
+                "chunk": self.chunk,
+                "prefill_chunks": st["prefill_chunks"],
+                "ring_hops": st["cp_ring_hops"],
+                "ring_bytes": st["cp_ring_bytes"],
+            }} if self.cp_group is not None else {}),
             **({"moe": moe} if moe is not None else {}),
         }

@@ -17,11 +17,13 @@ PyTorch counterpart of ``torchdistpackage_tpu/serving/paged_cache.py``.
 - **Forward**: :func:`paged_forward` for the dense family,
   :func:`paged_forward_moe` for the MoE family (expert FFN every
   ``moe_every``-th block; its experts sharded over an expert-parallel
-  group with ``ep_group``).
+  group with ``ep_group``), :func:`cp_paged_forward` for the dense family
+  over a context-parallel group whose ranks each hold a block slice of
+  the pool (ring paged attention, ``ops/ring_paged.py``, K2 on the card).
 
 :class:`BlockAllocator` is host-side and O(blocks).  The prefix-cache
-hash index, copy-on-write, block migration and the context-parallel
-forward are not ported yet (ROADMAP queue A).
+hash index, copy-on-write and block migration are not ported yet
+(ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
 from ..models.generate import _embed_at, _kv_quant, cached_block_forward
@@ -47,17 +50,23 @@ NULL_BLOCK = 0
 
 
 def init_paged_kv(cfg: GPTConfig, num_blocks: int, block_size: int,
-                  quantized: bool = False, device=None) -> Dict[str, Any]:
+                  quantized: bool = False, device=None,
+                  cp: int = 1) -> Dict[str, Any]:
     """Zeroed pool ``{'k','v': [L, num_blocks, Hkv, block_size, hd]}`` in
     ``cfg.dtype`` on ``device`` (default: the card); int8 pairs with unit
-    scales when ``quantized``."""
+    scales when ``quantized``.  ``cp > 1``: one rank's block slice of a
+    context-parallel pool, ``num_blocks / cp`` blocks."""
     device = resolve_device(device)
     if num_blocks < 2:
         raise ValueError(
             f"num_blocks must be >= 2 (block 0 is the reserved NULL block), "
             f"got {num_blocks}")
-    shape = (cfg.nlayers, num_blocks, cfg.block.kv_head_count, block_size,
-             cfg.block.head_dim)
+    if num_blocks % cp:
+        raise ValueError(
+            f"num_blocks ({num_blocks}) must be divisible by the CP group "
+            f"size ({cp})")
+    shape = (cfg.nlayers, num_blocks // cp, cfg.block.kv_head_count,
+             block_size, cfg.block.head_dim)
     if quantized:
         def entry():
             return (torch.zeros(shape, dtype=torch.int8, device=device),
@@ -244,6 +253,92 @@ def paged_forward(params: Dict[str, Any], tokens: torch.Tensor,
             _layer_kv(cache["k"], layer), _layer_kv(cache["v"], layer),
             offset, cache_ops=ops, rope=rope)
     logits = gpt_head(params, _select_row(h, last_idx), eps=cfg.norm_eps)
+    return cache, logits[:, 0, :]
+
+
+def _cp_paged_cache_ops(tables: torch.Tensor, group, attn_impl: str,
+                        prefill: bool):
+    """The ``(write, attend)`` pair for a pool whose block dim is sharded
+    over the CP ``group`` (``ops/ring_paged.py``): the write ring
+    completes the chunk's pool write before attend runs, so the attend
+    ring only ever moves pool slices.  ``prefill`` is the phase of the
+    WHOLE chunk (S_in > 1): at ``chunk == cp`` a sub-chunk is one row,
+    like decode."""
+    from ..ops.ring_paged import ring_paged_attend, ring_paged_write
+
+    def write(c, val, offset):
+        return ring_paged_write(c, val, offset, tables=tables, group=group,
+                                prefill=prefill)
+
+    def attend(q, ck, cv, offset, window=None):
+        return ring_paged_attend(q, ck, cv, offset, tables=tables,
+                                 group=group, window=window, impl=attn_impl,
+                                 prefill=prefill)
+    return write, attend
+
+
+def cp_paged_forward(params: Dict[str, Any], tokens: torch.Tensor,
+                     cfg: GPTConfig, cache: Dict[str, Any],
+                     tables: torch.Tensor, offset: torch.Tensor, *,
+                     cp_group, last_idx=None,
+                     attn_impl: str = "gather") -> Tuple[Dict[str, Any],
+                                                         torch.Tensor]:
+    """:func:`paged_forward` across a context-parallel (CP) group — ring
+    paged prefill.  Every rank calls it with the same tokens, tables and
+    offsets; ``cache`` is the rank's block slice of the pool
+    (``[L, num_blocks / cp, Hkv, bs, hd]``: global blocks ``[r nb_local,
+    (r + 1) nb_local)``).
+
+    Prefill (``S_in = chunk``, divisible by cp): rank ``r`` embeds and
+    projects only its sub-chunk rows ``[r Csub, (r + 1) Csub)``; per layer
+    the write ring lands every row in its owner's slice and the attend
+    ring carries each rank's rows across all slices.  A slot's head row
+    lives on one rank: its logits are kept there, zeroed elsewhere, and
+    summed over the group, so every rank samples from the same logits.
+    Decode (``S_in = 1``): every rank runs the same row, attends its local
+    slice, and the exact cross-rank combine leaves the output the same on
+    every rank.  At cp 1 there is no collective and one hop.
+    ``attn_impl``: ``'cuda'`` (K2) or ``'gather'`` (its plain version)."""
+    from ..ops.ring_paged import cp_size_rank
+
+    cp, r = cp_size_rank(cp_group)
+    dev = tokens.device
+    S_in = tokens.shape[1]
+    offset = offset.to(device=dev, dtype=torch.int32)
+    tables = tables.to(device=dev, dtype=torch.int32)
+    decode = S_in == 1
+    sub, base = S_in, 0
+    if not (decode or cp == 1):
+        if S_in % cp:
+            raise ValueError(
+                f"cp prefill needs the chunk ({S_in}) divisible by the "
+                f"CP group size ({cp})")
+        sub, base = S_in // cp, r * (S_in // cp)
+    positions = offset[:, None] + base + torch.arange(
+        sub, device=dev, dtype=torch.int32)[None, :]
+    # padded prefill rows may run past a learned position table; their
+    # values are never read, so clamp instead of faulting on the device
+    h = _embed_at(params, tokens[:, base:base + sub].long(),
+                  positions.clamp(max=cfg.max_seq - 1).long())
+    rope = _batched_rope(cfg.block, positions)
+    ops = _cp_paged_cache_ops(tables, cp_group, attn_impl,
+                              prefill=not decode)
+    for layer in range(cfg.nlayers):
+        h, _, _ = cached_block_forward(
+            layer_params(params, layer), h, cfg.block,
+            _layer_kv(cache["k"], layer), _layer_kv(cache["v"], layer),
+            offset, cache_ops=ops, rope=rope)
+    if decode or cp == 1:
+        logits = gpt_head(params, _select_row(h, last_idx), eps=cfg.norm_eps)
+        return cache, logits[:, 0, :]
+    li = (torch.full((tokens.shape[0],), S_in - 1, device=dev)
+          if last_idx is None else torch.as_tensor(last_idx, device=dev))
+    li = li.long()
+    mine = (li >= base) & (li < base + sub)
+    logits = gpt_head(params, _select_row(h, li - base), eps=cfg.norm_eps)
+    logits = torch.where(mine[:, None, None], logits,
+                         torch.zeros((), dtype=logits.dtype, device=dev))
+    dist.all_reduce(logits, group=cp_group)
     return cache, logits[:, 0, :]
 
 

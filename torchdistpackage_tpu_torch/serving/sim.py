@@ -23,6 +23,7 @@ from ..models.gpt import GPTConfig
 from ..ops.paged_attention import resolve_attn_impl
 from .engine import _slot_sample
 from .paged_cache import (
+    cp_paged_forward,
     init_paged_kv,
     paged_forward,
     paged_forward_moe,
@@ -38,17 +39,22 @@ class TorchDeviceStep:
     (``'auto'``: the kernel on the card, the plain version on the CPU);
     so is ``moe_dispatch`` for an MoE config (None defers to
     ``cfg.moe_dispatch``), once, here.  ``ep_group``: the expert-parallel
-    group the MoE layers exchange over; each step then broadcasts rank
-    0's sampled tokens to the group."""
+    group the MoE layers exchange over; ``cp_group``: the context-parallel
+    group whose ranks each hold a block slice of the pool (the step is
+    then :func:`~.paged_cache.cp_paged_forward`).  With either, each step
+    broadcasts the group's rank 0's sampled tokens to the group."""
 
     def __init__(self, cfg: GPTConfig, device=None,
                  attn_impl: str = "auto",
-                 moe_dispatch: Optional[str] = None, ep_group=None) -> None:
+                 moe_dispatch: Optional[str] = None, ep_group=None,
+                 cp_group=None) -> None:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.attn_impl = resolve_attn_impl(attn_impl, self.device)
         self.moe_dispatch = None
         self.ep_group = ep_group
+        self.cp_group = cp_group
+        self.cp = 1 if cp_group is None else dist.get_world_size(cp_group)
         if cfg.moe_experts:
             self.moe_dispatch = resolve_serving_dispatch(
                 cfg.moe_dispatch if moe_dispatch is None else moe_dispatch,
@@ -57,7 +63,8 @@ class TorchDeviceStep:
     def init_cache(self, num_blocks: int, block_size: int,
                    quantized: bool) -> Any:
         return init_paged_kv(self.cfg, num_blocks, block_size,
-                             quantized=quantized, device=self.device)
+                             quantized=quantized, device=self.device,
+                             cp=self.cp)
 
     def generator(self, seed: int) -> torch.Generator:
         """A request's private sampling stream, seeded from its seed."""
@@ -86,18 +93,23 @@ class TorchDeviceStep:
             cache, logits, moe = paged_forward_moe(
                 *args, moe_dispatch=self.moe_dispatch, moe_stats=True,
                 ep_group=self.ep_group, **kw)
+        elif self.cp_group is not None:
+            cache, logits = cp_paged_forward(*args, cp_group=self.cp_group,
+                                             **kw)
         else:
             cache, logits = paged_forward(*args, **kw)
         tok = _slot_sample(logits, gens, self._to_dev(samp["temperature"]),
                            self._to_dev(samp["top_k"]),
                            self._to_dev(samp["top_p"]))
-        if self.ep_group is not None:
-            # every rank takes rank 0's tokens: a row whose argmax is a
-            # near-tie may flip on one rank only (the F-tile atomics sum in
-            # another order), and ranks that schedule differently hang
-            # in the next exchange
-            dist.broadcast(tok, src=dist.get_global_rank(self.ep_group, 0),
-                           group=self.ep_group)
+        group = self.ep_group if self.ep_group is not None else self.cp_group
+        if group is not None:
+            # every rank takes rank 0's tokens (the reference's pmax): a
+            # row whose argmax is a near-tie may flip on one rank only (EP:
+            # the F-tile atomics sum in another order; CP: each rank's
+            # combine sums in its own order), and ranks that schedule
+            # differently hang in the next collective
+            dist.broadcast(tok, src=dist.get_global_rank(group, 0),
+                           group=group)
         if moe is None:
             return cache, tok.to(torch.int32).cpu().numpy(), None
         # float64 holds every int32 token id exactly
