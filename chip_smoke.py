@@ -12,17 +12,21 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build   — the three kernel sources under ``torchdistpackage_tpu_torch/
    ops/csrc`` are compiled at once (one nvcc each); build seconds and
    ptxas' registers / shared memory / spills of every instantiation (K6's
-   and K7's float and int8 ones named apart), and each one's dynamic
-   shared memory.
+   and K7's float and int8 ones named apart; a summary line of registers
+   and spills for each K1/K2 instantiation, walk and tensor-core), and
+   each one's dynamic shared memory.
 3. kernels — each kernel against its plain version on the card, row by
    row against the plain version run in f32 on the same values
    (``row_tolerance``, ``grad_held``, ``moe_held``), with planted faults
    that must fail the same checks; then its time, the plain version's
    time, a PyTorch yardstick the port never calls and the least time the
    card could take.  K1 (paged attention) at the serving shapes (decode,
-   a 3-row step and a 512-row prefill chunk; G 4, Hkv 8, hd 128, bs 16;
-   windows None / 4096 / 64; bf16, int8 and f32 pools; faults: a window
-   edge one block late, one stage of blocks misread; yardstick SDPA).
+   a 3-row step, a 512-row prefill chunk and a 200-row one; G 4, Hkv 8,
+   hd 128, bs 16; windows None / 4096 / 64 / 48; bf16, int8 and f32
+   pools; faults: a window edge one block late, one stage of blocks
+   misread, and on the window-64 chunk the window edge 3 positions late,
+   which only the tensor-core mode's per-element masks see; yardstick
+   SDPA).
    K3-K5 (flash attention forward, dq, dk/dv) at the training shape (B
    16, H 12, S 2048, hd 64, causal) and at Mistral-7B's attention (Hq 32,
    Hkv 8, hd 128, S 8192, window 4096), bf16 and f32 (faults: the
@@ -48,13 +52,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    calls).  K2 (one hop of the context-parallel ring, the raw
    online-softmax carry) at the serving shapes (B 8, G 4, Hkv 8, hd 128,
    bs 16): decode and a 512-row chunk, windows 4096 / None / 64, bf16
-   and f32, each as one hop over the whole pool (cp 1) and as a four-hop
-   carry chain over four quarter-pool slices through re-based tables (the
-   per-rank work of cp 4), held after ``finalize_paged_carry`` with the
-   carry's m and l (``carry_held``; faults: the ownership mask off, the
-   carry not seeded, the window one block late, the carry merged once a
-   warp in split mode; yardsticks SDPA over the gathered view and K1 at
-   the same one-hop shape).
+   and f32, and a 200-row chunk at window 48 in bf16, each as one hop
+   over the whole pool (cp 1) and as a four-hop carry chain over four
+   quarter-pool slices through re-based tables (the per-rank work of cp
+   4), held after ``finalize_paged_carry`` with the carry's m and l
+   (``carry_held``; faults: the ownership mask off, the carry not seeded,
+   the window one block late, the carry merged once a warp in split mode,
+   the window edge 3 positions late on the window-64 chunk; yardsticks
+   SDPA over the gathered view and K1 at the same one-hop shape).
 4. train   — the training main path: ``bench.py``'s GPT-125M at full
    depth, batch 16, S 2048, bf16, remat 'flash', 10 AdamW steps on one
    fixed batch (losses, step time, tokens/s, MFU, peak memory, launches
@@ -70,8 +75,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    call; a decode tick of 8 slots is timed and profiled.  Then the same
    model context-parallel (``cp_phase``): a one-rank NCCL group
    (``init_distributed``, ``build_cp_group(1)``), ``cp_paged_forward``
-   with K2 against ``paged_forward`` with K1 and against the CP gather arm
-   on a 4700-token context (teacher-forced logits), then
+   with K2 against ``paged_forward`` with K1 (equal bit for bit: at cp 1
+   K2 runs K1's body on K1's tiles) and against the CP gather arm on a
+   4700-token context (teacher-forced logits), then
    ``ServingEngine(cp_group=...)`` serves 4 greedy requests of 30720,
    24576, 16384 and 8192 prompt tokens (Mistral's 32768 positions, a ~17
    GB pool) through K2, launched once per layer per device call, K1
@@ -303,6 +309,8 @@ def kernel_phase():
                                      quantized=False)),
         ("chunk512_bf16_w64", dict(B=8, S_in=512, offsets=chunk_offs,
                                    window=64, dtype=bf, quantized=False)),
+        ("chunk200_bf16_w48", dict(B=8, S_in=200, offsets=chunk_offs,
+                                   window=48, dtype=bf, quantized=False)),
         ("decode_int8_w4096", dict(B=8, S_in=1, offsets=decode_offs,
                                    window=4096, dtype=bf, quantized=True)),
         ("chunk512_int8_full", dict(B=8, S_in=512, offsets=chunk_offs,
@@ -341,6 +349,8 @@ def kernel_phase():
                 f"{ratio:.3f} of the row tolerance")
         if name in ("decode_bf16_w4096", "chunk512_bf16_w4096"):
             planted_faults(case, exact)
+        if name == "chunk512_bf16_w64":
+            mask_planted_fault(case, exact)
         heavy = spec["S_in"] > 8
         ms = cuda_ms(lambda: paged_decode_attention(*args, **kw),
                      5 if heavy else 50)
@@ -358,6 +368,26 @@ def kernel_phase():
         del case, args, got, want, exact
         torch.cuda.empty_cache()
     return rows
+
+
+def mask_planted_fault(case, exact):
+    """The per-element masks of the tensor-core mode are checked: the
+    kernel run with the window edge 3 positions late (inside a pool
+    block, so only a key tile's element masks see it) must fail the row
+    tolerance."""
+    from torchdistpackage_tpu_torch.ops.paged_attention import (
+        paged_decode_attention,
+    )
+
+    got = paged_decode_attention(case["q"], case["k"], case["v"],
+                                 case["tables"], case["offsets"],
+                                 window=case["window"] + 3)
+    err, ratio = held(got, exact, case["q"].dtype)
+    log(f"[kernel] {case['name']}, planted fault (window edge 3 positions "
+        f"late): max abs err {err:.3g}, {ratio:.1f} x the row tolerance")
+    if ratio <= 1.0:
+        raise RuntimeError(f"{case['name']}: the row tolerance misses a "
+                           f"planted fault (window edge 3 positions late)")
 
 
 def planted_faults(case, exact):
@@ -1205,6 +1235,7 @@ def carry_kernel_phase():
                         f"{str(dtype)[6:].replace('loat', '')}_"
                         f"{'full' if window is None else f'w{window}'}")
                 specs.append((name, s_in, offs, window, dtype))
+    specs.append(("chunk200_bf16_w48", 200, chunk_offs, 48, torch.bfloat16))
     rows = []
     for i, (name, s_in, offs, window, dtype) in enumerate(specs):
         case = make_case(name, B=8, S_in=s_in, offsets=offs, window=window,
@@ -1233,6 +1264,17 @@ def carry_kernel_phase():
             if n_hops == 4 and dtype == torch.bfloat16 and window == 4096:
                 carry_planted_faults(tag, q, hops, o, window, exact, scale,
                                      split=s_in == 1)
+            if n_hops == 4 and name == "chunk512_bf16_w64":
+                bad = chain(paged_carry_attention, q, hops, o, window + 3)
+                bad_err, bad_ratio = carry_held(bad, exact, scale, dtype)
+                log(f"[carry] {tag}, planted fault (window edge 3 positions "
+                    f"late): max abs err {bad_err:.3g}, {bad_ratio:.1f} x "
+                    f"the tolerance")
+                if bad_ratio <= 1.0:
+                    raise RuntimeError(f"{tag}: the check misses a planted "
+                                       f"fault (window edge 3 positions "
+                                       f"late)")
+                del bad
             ms = cuda_ms(lambda: chain(paged_carry_attention, q, hops, o,
                                        window), 5 if heavy else 50)
             plain_ms = cuda_ms(lambda: chain(
@@ -1838,8 +1880,12 @@ def profile_phase(params, cfg, card, max_ctx=8192, tag="profile",
                 "expert_ffn": 0.0, "nccl": 0.0, "gemm": 0.0, "other": 0.0}
     for e in kernels:
         name = e.key.lower()
-        fam = ("paged_attention" if "paged_attention" in name else
-               "paged_carry" if "paged_carry" in name else
+        # K1 and K2 share two kernel bodies; the last template argument
+        # (carry) tells them apart
+        paged = re.search(r"paged_(?:walk|tc)_kernel<\d+, \d+, (true|false)>",
+                          name)
+        fam = ("paged_carry" if paged and paged.group(1) == "true" else
+               "paged_attention" if paged else
                "moe_ffn" if "moe_ffn" in name else
                "expert_ffn" if "expert_ffn" in name else
                "nccl" if "nccl" in name else
@@ -2010,9 +2056,9 @@ CP_PROMPT = 4700  # past Mistral's 4096 window: the window masks
 def cp_model_phase(params, cfg, group):
     """Teacher-forced logits of ``cp_paged_forward`` with K2 (one hop a
     layer at cp 1) on a 4700-token context, against ``paged_forward`` with
-    K1 and against the CP path's gather arm (K2's plain version), within
-    5 % of the logits' scale as ``model_phase``; K2 launched once a layer
-    a call, K1 never."""
+    K1 (equal bit for bit) and against the CP path's gather arm (K2's
+    plain version), within 5 % of the logits' scale as ``model_phase``;
+    K2 launched once a layer a call, K1 never."""
     from torchdistpackage_tpu_torch.ops import paged_attention as pa
     from torchdistpackage_tpu_torch.serving.paged_cache import (
         cp_paged_forward,
@@ -2042,6 +2088,11 @@ def cp_model_phase(params, cfg, group):
             raise RuntimeError(f"CP logits disagree ({what}): "
                                f"{res['rel']:.3g} > 5% of the scale")
         out[what] = res
+    # at cp 1 K2 runs K1's body on K1's tiles in K1's order, and the ring
+    # divides acc / l in f32 as K1 does: the logits are equal bit for bit
+    if not torch.equal(got, k1):
+        raise RuntimeError("CP logits differ from K1's: K2 at cp 1 must run "
+                           "K1's arithmetic in K1's order")
     return out
 
 
@@ -2227,9 +2278,26 @@ FLASH_REPLACES = {
 }
 
 
+PAGED_TAGS = ("bf16", "f32", "bf16 q int8 pool", "f32 q int8 pool")
+
+
+def paged_instantiation(line):
+    """``(name, label)`` of a K1/K2 instantiation named in a ptxas line
+    (``paged_{walk,tc}_kernel<dtype tag, hd, carry>``), or None."""
+    m = re.search(r"(paged_(?:walk|tc)_kernel)ILi(\d)ELi(\d+)ELb([01])E",
+                  line)
+    if m is None:
+        return None
+    name, tag, hd, carry = m.group(1), int(m.group(2)), m.group(3), m.group(4)
+    return name, (f"{'K2' if carry == '1' else 'K1'} {name} "
+                  f"{PAGED_TAGS[tag]} hd {hd}")
+
+
 def build_phase():
     """The three sources built at once (one nvcc each); ptxas' registers,
-    shared memory and spills of every instantiation."""
+    shared memory and spills of every instantiation, and a summary line
+    of each K1/K2 instantiation's registers and spills.  Returns that
+    summary (label -> {"registers", "spill_stores", "spill_loads"})."""
     from torchdistpackage_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -2238,35 +2306,52 @@ def build_phase():
     log(f"[build] all sources built in {time.perf_counter() - t0:.1f} s ("
         + ", ".join(f"{n}.cu {i['seconds']:.1f} s"
                     for n, i in _build.BUILD_INFO.items()) + ")")
+    paged = {}
     for src, info in _build.BUILD_INFO.items():
         kernel = "?"
         for line in str(info["log"]).splitlines():
             if "Compiling entry function" in line:  # name the instantiation
+                inst = paged_instantiation(line)
                 m = re.search(
-                    r"\d+((?:flash_\w+|paged_attention|paged_carry"
-                    r"|moe_ffn(?:_int8)?"
+                    r"\d+((?:flash_\w+|moe_ffn(?:_int8)?"
                     r"|expert_ffn(?:_int8)?)_kernel)I", line)
                 name = m.group(1) if m else "?"
                 dt = "bf16" if "13__nv_bfloat16" in line else "f32"
-                if name.startswith(("moe_ffn", "expert_ffn")):
+                if inst is not None:
+                    kernel = inst[1]
+                    paged[kernel] = {"registers": None, "spill_stores": None,
+                                     "spill_loads": None}
+                elif name.startswith(("moe_ffn", "expert_ffn")):
                     kernel = (f"{name} {dt} "
                               f"{'swiglu' if 'Lb1E' in line else 'gelu'}")
                 else:
-                    kernel = (f"{name} {dt}"
-                              f"{' int8 pool' if 'Lb1E' in line else ''} "
+                    kernel = (f"{name} {dt} "
                               f"hd {128 if 'Li128E' in line else 64}")
             elif re.search(r"registers|spill|smem", line):
                 log(f"[build] {src}: {kernel}: {line.strip()}")
-    smem = libs["paged_attention"].tdp_paged_attention_smem_bytes
-    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
-    log("[build] paged_attention dynamic shared memory per CTA (hd 128): "
-        + ", ".join(f"{name} {smem(tag, 128)} B" for name, tag in
-                    (("bf16", 0), ("f32", 1), ("int8", 2))))
-    csmem = libs["paged_attention"].tdp_paged_carry_attention_smem_bytes
-    csmem.argtypes, csmem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
-    log("[build] paged_carry (K2) dynamic shared memory per CTA (hd 128): "
-        + ", ".join(f"{name} {csmem(tag, 128)} B" for name, tag in
-                    (("bf16", 0), ("f32", 1))))
+                if kernel in paged:
+                    for key, pat in (
+                            ("registers", r"Used (\d+) registers"),
+                            ("spill_stores", r"(\d+) bytes spill stores"),
+                            ("spill_loads", r"(\d+) bytes spill loads")):
+                        m = re.search(pat, line)
+                        if m:
+                            paged[kernel][key] = int(m.group(1))
+    for kernel, regs in paged.items():
+        log(f"[build] {kernel}: {regs['registers']} registers, "
+            f"{regs['spill_stores']} bytes spill stores, "
+            f"{regs['spill_loads']} bytes spill loads")
+    smem = libs["paged_attention"].tdp_paged_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int] * 3, ctypes.c_int
+    log("[build] paged_attention (K1 and K2) dynamic shared memory per CTA "
+        "(hd 128): " + ", ".join(
+            f"{name} {smem(tag, 128, rows)} B"
+            for name, tag, rows in (
+                ("decode bf16", 0, GROUPS), ("decode f32", 1, GROUPS),
+                ("decode int8", 2, GROUPS),
+                ("prefill bf16 (tensor cores)", 0, GROUPS * 512),
+                ("prefill f32", 1, GROUPS * 512),
+                ("prefill int8", 2, GROUPS * 512))))
     fsmem = libs["flash_attention"].tdp_flash_smem_bytes
     fsmem.argtypes, fsmem.restype = [ctypes.c_int] * 3, ctypes.c_int
     log("[build] flash_attention dynamic shared memory per CTA: " + ", ".join(
@@ -2280,6 +2365,7 @@ def build_phase():
         for tag, dt in ((0, "bf16"), (1, "f32"), (2, "bf16 int8 weights"),
                         (3, "f32 int8 weights"))
         for sw, act in ((0, "gelu"), (1, "swiglu"))))
+    return paged
 
 
 def kernel_entry(name, route_src, replaces, launches, rows, head,
@@ -2317,7 +2403,7 @@ def main():
     t_start = time.perf_counter()
 
     # 2. build
-    build_phase()
+    paged_regs = build_phase()
 
     # 3. every kernel against its plain version
     rows = kernel_phase()
@@ -2401,7 +2487,9 @@ def main():
     entries = [kernel_entry("paged_decode_attention",
                             "torchdistpackage_tpu_torch/ops/csrc/"
                             "paged_attention.cu", TPU_SOURCE,
-                            eng["launches"], rows, rows[0])]
+                            eng["launches"], rows, rows[0],
+                            ptxas={k: v for k, v in paged_regs.items()
+                                   if k.startswith("K1")})]
     for kname, krows in flash_rows.items():
         entries.append(kernel_entry(kname, FLASH_SOURCE,
                                     FLASH_REPLACES[kname],
@@ -2431,6 +2519,7 @@ def main():
         "paged_carry_attention", CARRY_SOURCE, CARRY_REPLACES,
         cp_eng["launches"]["paged_carry_attention"], carry_rows,
         carry_rows[0], k1_ms=carry_rows[0]["k1_ms"],
+        ptxas={k: v for k, v in paged_regs.items() if k.startswith("K2")},
         library="SDPA over the gathered view at one hop; k1_ms: K1 on the "
                 "same one-hop inputs"))
     log(json.dumps({"kernels": entries}))

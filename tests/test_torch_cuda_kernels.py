@@ -716,3 +716,152 @@ def test_carry_kernel_wrapper_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="blocks of 16"):
         pa.paged_carry_attention(q, k[:, :, :8].contiguous(),
                                  v[:, :, :8].contiguous(), tables, offs)
+
+
+# ------------------------- K1 and K2 prefill rows on the tensor cores
+
+
+def _tc_inputs(cuda, *, s_in, hd, groups, seed, mb=280, b=3):
+    """bf16 q and a pool of 1 + b mb blocks of 16 positions, tables a
+    permutation of its blocks.  Slot 0's rows start at 0 (the causal
+    diagonal inside the first key tile), slot 1's at 70 (mid-block), and
+    slot 2's last 40 rows run past the end of its table (and past 4096,
+    so a window of 4096 masks) — each still sees at least 8 keys under a
+    window of 48."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    hkv, bs = 2, 16
+    nb = 1 + b * mb
+    tables = (torch.randperm(nb - 1, generator=g, device=cuda) + 1)
+    tables = tables.reshape(b, mb).to(torch.int32)
+    offs = torch.tensor([0, 70, mb * bs - s_in + 40], dtype=torch.int32,
+                        device=cuda)
+    q = torch.randn(b, hkv * groups, s_in, hd, generator=g, device=cuda
+                    ).to(torch.bfloat16)
+    k, v = (torch.randn(nb, hkv, bs, hd, generator=g, device=cuda
+                        ).to(torch.bfloat16) for _ in range(2))
+    return q, k, v, tables, offs
+
+
+TC_SHAPES = [pytest.param(hd, s_in, groups, window,
+                          id=f"hd{hd}-s{s_in}-g{groups}-w{window}")
+             for hd in (64, 128) for s_in in (64, 80, 200)
+             for groups in (1, 4, 8) for window in (None, 48, 4096)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd,s_in,groups,window", TC_SHAPES)
+def test_k1_tensor_core_rows_match_plain_on_card(cuda, hd, s_in, groups,
+                                                 window):
+    """K1's prefill rows on bf16 pools (the tensor-core mode): S_in 64
+    (whole row tiles), 80 (a ragged last tile; tiles across two query
+    heads once G > 1) and 200, G 1 / 4 / 8, against the plain version
+    in f32 on the same values, row by row."""
+    q, k, v, tables, offs = _tc_inputs(cuda, s_in=s_in, hd=hd,
+                                       groups=groups, seed=hd + s_in + groups)
+    before = LAUNCHES["paged_decode_attention"]
+    got = paged_decode_attention(q, k, v, tables, offs, window=window)
+    torch.cuda.synchronize()
+    assert LAUNCHES["paged_decode_attention"] == before + 1
+    want = paged_decode_attention_reference(
+        q.float(), k.float(), v.float(), tables, offs, window=window)
+    _assert_rows_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd,s_in,groups,window", TC_SHAPES)
+def test_k2_tensor_core_rows_match_plain_on_card(cuda, hd, s_in, groups,
+                                                 window):
+    """K2's prefill rows on bf16 pools through a four-hop chain over
+    quarter-pool slices: tables a random permutation, so nearly every
+    key tile mixes owned and other ranks' blocks, every hop after the
+    first is seeded with the carry, and rows meet no owned key in some
+    hops; the finished output, m and l against the plain version's chain
+    in f32 with the P-rounding term."""
+    q, k, v, tables, offs = _tc_inputs(cuda, s_in=s_in, hd=hd,
+                                       groups=groups, seed=hd + s_in + groups)
+    got, exact, scale = _carry_check(q, _slices(k, v, tables, 4), offs,
+                                     window)
+    assert _carry_ratio(got, exact, scale, torch.bfloat16) <= 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("s_in", [1, 200], ids=["split", "tc"])
+@pytest.mark.parametrize("window", [None, 48, 4096])
+def test_k2_one_hop_finished_equals_k1_bit_for_bit(cuda, hd, s_in, window):
+    """At cp 1 (one hop over the whole pool) K2 and K1 run one body with
+    the same tiles in the same order, so K2's carry finished by the ring
+    (acc / l in f32, then bf16) equals K1's output bit for bit — the CP
+    engine's logits equal the K1 engine's."""
+    from torchdistpackage_tpu_torch.ops import paged_attention as pa
+
+    q, k, v, tables, offs = _tc_inputs(cuda, s_in=s_in, hd=hd, groups=4,
+                                       seed=11)
+    k1 = pa.paged_decode_attention(q, k, v, tables, offs, window=window)
+    carry = pa.paged_carry_attention(q, k, v, tables, offs, window=window)
+    B, H, S, _ = q.shape
+    k2 = pa.finalize_paged_carry(carry, B, H, S, hd, q.dtype)
+    assert torch.equal(k1, k2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("s_in", [80, 200])
+def test_k2_tensor_core_rows_with_no_owned_key_keep_the_carry(cuda, hd,
+                                                              s_in):
+    """On the tensor-core mode: a hop whose slice owns none of a slot's
+    blocks leaves that slot's carry exactly as it came in (and gives
+    (0, NEG_INF, 0) without one); with the first half of a slot's blocks
+    another rank's and a window of 48, its rows whose window lies in that
+    half keep the carry exactly too, while the other rows move."""
+    from torchdistpackage_tpu_torch.ops import paged_attention as pa
+
+    q, k, v, tables, offs = _tc_inputs(cuda, s_in=s_in, hd=hd, groups=4,
+                                       seed=5, mb=20)
+    nb = k.shape[0]
+    remote = torch.full_like(tables, nb + 5)
+    acc, m, l = pa.paged_carry_attention(q, k, v, remote, offs)
+    assert (acc == 0).all() and (l == 0).all() and (m == pa.NEG_INF).all()
+    seed = pa.paged_carry_attention(q, k, v, tables, offs, window=48)
+    again = pa.paged_carry_attention(q, k, v, remote, offs, carry=seed,
+                                     window=48)
+    for a, b in zip(again, seed):
+        assert torch.equal(a, b)
+    half = tables.shape[1] // 2
+    mixed = tables.clone()
+    mixed[:, :half] = -3  # another rank's blocks (re-based below 0)
+    out = pa.paged_carry_attention(q, k, v, mixed, offs, carry=seed,
+                                   window=48)
+    qpos = offs[:, None] + torch.arange(s_in, device=cuda)[None]
+    blind = (qpos < half * 16).repeat(1, 4)[:, None, :]  # group-major rows
+    blind = blind.expand_as(seed[1])
+    assert blind.any() and (~blind).any()
+    assert torch.equal(out[1][blind], seed[1][blind])
+    assert torch.equal(out[2][blind], seed[2][blind])
+    assert torch.equal(out[0][blind], seed[0][blind])
+    assert not torch.equal(out[2][~blind], seed[2][~blind])
+
+
+@pytest.mark.gpu
+def test_tensor_core_mask_planted_faults_fail(cuda):
+    """The per-element masks of the tensor-core mode are checked: the
+    window edge moved by 2 positions (inside a pool block, so only a
+    tile's element masks see it) fails the row tolerance for K1 and the
+    carry check for K2."""
+    from torchdistpackage_tpu_torch.ops import paged_attention as pa
+
+    q, k, v, tables, offs = _tc_inputs(cuda, s_in=200, hd=128, groups=4,
+                                       seed=13)
+    window = 48
+    want = paged_decode_attention_reference(
+        q.float(), k.float(), v.float(), tables, offs, window=window)
+    got = paged_decode_attention(q, k, v, tables, offs, window=window)
+    _assert_rows_close(got, want, torch.bfloat16)
+    bad = paged_decode_attention(q, k, v, tables, offs, window=window + 2)
+    with pytest.raises(AssertionError):
+        _assert_rows_close(bad, want, torch.bfloat16)
+    hops = _slices(k, v, tables, 4)
+    got, exact, scale = _carry_check(q, hops, offs, window)
+    assert _carry_ratio(got, exact, scale, torch.bfloat16) <= 1.0
+    bad = _chain(pa.paged_carry_attention, q, hops, offs, window + 2)
+    assert _carry_ratio(bad, exact, scale, torch.bfloat16) > 1.0

@@ -6,7 +6,8 @@ the CPU; the kernel itself against its plain version on the card.
   interpret mode at the shapes of tests/test_paged_attention.py, and the
   JAX gather oracle, within f32 ``atol`` 2e-6 — decode, a 3-row verify
   shape and a prefill chunk, vector and scalar offsets, G in {1, 2},
-  window None or 6, and the int8 pool.
+  window None or 6, and the int8 pool; and at the card's tensor-core
+  tile shapes (blocks of 16, S_in 80 and 200, G 1 and 4, window 48).
 - The CUDA kernel itself is held against the plain version on the card
   by tests/test_torch_cuda_kernels.py (``gpu``-marked).
 - An AST check: nothing in the port, nor ``chip_smoke.py``, nor the
@@ -83,6 +84,35 @@ def test_plain_matches_jax_kernel_and_gather(groups, s_in, window, offsets):
     got = paged_decode_attention(_t(q), _t(kp), _t(vp), _t(tables),
                                  _t(offs) if offs.ndim else int(offs),
                                  window=window)
+    want_kernel = jax_kernel(_j(q), _j(kp), _j(vp), _j(tables), _j(offs),
+                             window=window)
+    want_gather = jax_gather(_j(q), _j(kp), _j(vp), _j(offs),
+                             tables=_j(tables), window=window)
+    for want in (want_kernel, want_gather):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                                   rtol=0)
+
+
+# The card's tensor-core tiling (64 query rows a CTA, key tiles of 4 pool
+# blocks of 16): S_in 80 (a ragged last row tile, tiles across two query
+# heads), 200, a window of 48 (its edge inside a block and inside a key
+# tile); blocks of 16 positions, 20 a slot.
+TILE_BS, TILE_MB = 16, 20
+TILE_NB = 1 + B * TILE_MB
+
+
+@pytest.mark.parametrize("groups,s_in,window", [
+    (4, 80, None), (4, 80, 48), (1, 200, 48), (4, 200, 48)])
+def test_plain_matches_jax_at_tile_shapes(groups, s_in, window):
+    rs = np.random.RandomState(s_in + groups)
+    kp, vp = (rs.randn(TILE_NB, HKV, TILE_BS, HD).astype(np.float32)
+              for _ in range(2))
+    tables = (rs.permutation(np.arange(1, TILE_NB))
+              .reshape(B, TILE_MB).astype(np.int32))
+    offs = np.asarray([0, 70], np.int32)
+    q = rs.randn(B, HKV * groups, s_in, HD).astype(np.float32)
+    got = paged_decode_attention(_t(q), _t(kp), _t(vp), _t(tables),
+                                 _t(offs), window=window)
     want_kernel = jax_kernel(_j(q), _j(kp), _j(vp), _j(tables), _j(offs),
                              window=window)
     want_gather = jax_gather(_j(q), _j(kp), _j(vp), _j(offs),

@@ -5,7 +5,9 @@ CPU, in f32 at small widths, in one process.
   JAX's own K2 (``paged_carry_attention`` in interpret mode, called
   outside ``shard_map``) and ``finalize_paged_carry``: one hop over the
   whole pool and a two-hop carry chain over half-pool slices through
-  re-based tables; GQA 4/2, windows None and 6, ``S_in`` 1 and a chunk.
+  re-based tables; GQA 4/2, windows None and 6, ``S_in`` 1 and a chunk;
+  and a four-hop chain over quarter slices at the card's tensor-core
+  tile shapes (``S_in`` 80 and 200, window 48).
 - ``ring_paged_write`` / ``ring_paged_attend`` through a one-rank gloo
   group against JAX's gather arm under ``shard_map`` on a one-device
   ``context`` mesh.
@@ -123,6 +125,50 @@ def test_k2_plain_matches_jax_k2(n_hops, window, s_in):
                                    _t(offs), window=window)
     _close(got.numpy(), pa.finalize_paged_carry(
         one, B, H, s_in, HD, torch.float32).numpy(), "chain vs one hop")
+
+
+@pytest.mark.parametrize("s_in,window", [(80, 48), (200, 48), (200, None)])
+def test_k2_plain_matches_jax_k2_on_quarter_slices(s_in, window):
+    """At the card's tensor-core tile shapes (S_in 80 and 200, a window of
+    48): a four-hop chain over quarter-pool slices of a randomly permuted
+    pool, so every 4-block key tile mixes owned and other ranks' blocks,
+    against JAX's K2 hop by hop (interim hops on rows with a real m) and
+    finished."""
+    mb = 20
+    nb = 1 + B * mb
+    rs = np.random.RandomState(s_in)
+    q = rs.randn(B, HKV * G, s_in, HD).astype(np.float32)
+    k, v = (rs.randn(nb, HKV, BS, HD).astype(np.float32) for _ in range(2))
+    tables = (rs.permutation(nb - 1) + 1).reshape(B, mb).astype(np.int32)
+    offs = np.asarray([0, 70], np.int32)
+    per = -(-nb // 4)
+    pad = np.zeros((per * 4 - nb,) + k.shape[1:], np.float32)
+    k, v = np.concatenate([k, pad]), np.concatenate([v, pad])
+    hops = [(k[i * per:(i + 1) * per], v[i * per:(i + 1) * per],
+             tables - i * per) for i in range(4)]
+    owned = [(t >= 0) & (t < per) for _, _, t in hops]
+    tiles = np.stack(owned).reshape(4, B, mb // 4, 4)
+    assert (tiles.any(-1) & ~tiles.all(-1)).mean() > 0.5  # mixed tiles
+    R = G * s_in
+    jcarry = tcarry = None
+    for i, (ks, vs, tab) in enumerate(hops):
+        jcarry = jpa.paged_carry_attention(
+            jnp.asarray(q), jnp.asarray(ks), jnp.asarray(vs),
+            jnp.asarray(tab), jnp.asarray(offs), carry=jcarry, window=window)
+        tcarry = pa.paged_carry_attention(
+            _t(q), _t(ks), _t(vs), _t(tab), _t(offs), carry=tcarry,
+            window=window)
+        acc, m, l = (t.numpy() for t in tcarry)
+        jacc = np.asarray(jcarry[0])[:, :, :R]
+        jm, jl = (np.asarray(x)[:, :, :R, 0] for x in jcarry[1:])
+        _close(m, jm, f"m after hop {i}")
+        met = jm > -1e29 if i < 3 else np.ones_like(jm, bool)
+        _close(l[met], jl[met], f"l after hop {i}")
+        _close(acc[met], jacc[met], f"acc after hop {i}")
+    H = HKV * G
+    got = pa.finalize_paged_carry(tcarry, B, H, s_in, HD, torch.float32)
+    want = jpa.finalize_paged_carry(jcarry, B, H, s_in, HD, jnp.float32)
+    _close(got.numpy(), np.asarray(want), "finished output")
 
 
 def test_k2_carry_seed_and_empty_rows():

@@ -9,13 +9,17 @@ Replaces the TPU kernel ``paged_decode_attention``
 One entry point serves decode (``S_in = 1``), chunked prefill
 (``S_in = chunk``), GQA, a sliding window and int8 pools.
 
-What bounds it on an H100: the bytes of live KV it reads, at 3.35 TB/s —
-a decode step does one or two operations per byte read.  The kernel
-therefore reads each live block once per CTA and only the blocks the
+What bounds it on an H100 depends on the shape.  Decode is bound by the
+bytes of live KV it reads, at 3.35 TB/s (one or two operations per byte):
+the kernel reads each live block once per CTA and only the blocks the
 CTA's rows can see (causal and window bounds per CTA), builds no gathered
 view, keeps int8 pools int8 until registers, and keeps stages of blocks
-in flight with ``cp.async``.  The source's header says what is still
-left for a faster version.
+in flight with ``cp.async``.  A prefill chunk is bound by operations:
+with bf16 pools its rows run on the tensor cores (``mma.sync`` m16n8k16,
+64 query rows a CTA, key tiles of 4 pool blocks, the online softmax on
+the accumulator fragments, P re-packed in registers for P·V); f32 and
+int8 pools keep their rows on the CUDA cores.  The source's header says
+what is still left for a faster version.
 
 The TPU kernel's v5e tuning knobs ``fetch_width`` and ``q_pad_to`` have no
 counterpart: a CTA loads its own table entries, and rows are tiled by
@@ -29,13 +33,16 @@ can show that its main path went through the kernel.
 
 K2, :func:`paged_carry_attention`, replaces the TPU kernel of the same
 name (``torchdistpackage_tpu/ops/paged_attention.py:509``, body
-``_cp_kernel`` :332) with a second kernel in the same CUDA file: K1's
-walk over ONE rank's pool slice through a re-based table (entries outside
-the slice are other ranks' blocks, skipped), returning the raw
-online-softmax carry ``(acc, m, l)`` that the ring
+``_cp_kernel`` :332).  It is K1's kernel bodies with the carry in and out:
+the walk over ONE rank's pool slice through a re-based table (entries
+outside the slice are other ranks' blocks, neither read nor scored; on
+the tensor cores each key tile packs the next 4 blocks the rank owns),
+returning the raw online-softmax carry ``(acc, m, l)`` that the ring
 (:mod:`.ring_paged`) passes from hop to hop and
-:func:`finalize_paged_carry` divides once.  Its plain version is the
-gather arm's arithmetic, :func:`paged_carry_attention_reference`;
+:func:`finalize_paged_carry` divides once.  At cp 1 it runs K1's tiles in
+K1's order, so the finished carry equals K1's output bit for bit.  Its
+plain version is the gather arm's arithmetic,
+:func:`paged_carry_attention_reference`;
 ``LAUNCHES["paged_carry_attention"]`` counts its launches.  The TPU
 kernel's 128-lane ``m``/``l`` and ``q_pad_to`` row padding have no
 counterpart: ``m`` and ``l`` are ``[B, Hkv, R]``.
@@ -128,6 +135,13 @@ def _check(cond: bool, msg: str,
         raise ValueError(f"{where}: {msg}")
 
 
+def _aligned(tensors, where: str = "paged_decode_attention") -> None:
+    """The kernels read q, the pools and the carry in 16-byte pieces."""
+    for t in tensors:
+        _check(t.data_ptr() % 16 == 0,
+               "q, the pools and the carry must start 16-byte aligned", where)
+
+
 def _offsets_on(offsets, B: int, device) -> torch.Tensor:
     """``offsets`` (an int or [B]) as a contiguous int32 [B] on ``device``."""
     if isinstance(offsets, torch.Tensor):
@@ -150,8 +164,9 @@ def paged_decode_attention(q: torch.Tensor, k_pool: Any, v_pool: Any,
     Returns [B, H, S_in, hd] in ``q.dtype``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
-    which takes contiguous tensors, hd in {64, 128}, blocks of 16
-    positions, and bf16 or f32 (q and pool alike) or an int8 pool."""
+    which takes contiguous tensors (q and the pools 16-byte aligned), hd
+    in {64, 128}, blocks of 16 positions, and bf16 or f32 (q and pool
+    alike) or an int8 pool."""
     if q.device.type == "cpu":
         return paged_decode_attention_reference(q, k_pool, v_pool, tables,
                                                 offsets, window=window)
@@ -179,6 +194,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: Any, v_pool: Any,
     for t in (q, *pools, *scales, tables):
         _check(t.device == q.device, "all tensors must be on q's device")
         _check(t.is_contiguous(), "all tensors must be contiguous")
+    _aligned((q, *pools))
     for t in pools[1:]:
         _check(t.shape == pools[0].shape and t.dtype == pools[0].dtype,
                "k and v pools must match")
@@ -303,8 +319,9 @@ def paged_carry_attention(q: torch.Tensor, k_pool: torch.Tensor,
     :func:`finalize_paged_carry`.  ``l`` may be 0 mid-ring.
 
     CPU tensors take the plain version; CUDA tensors launch K2, which
-    takes contiguous tensors, bf16 or f32 (q and pool alike), hd in {64,
-    128} and blocks of 16 positions.  Int8 pools raise
+    takes contiguous tensors (q, the pools and the carry 16-byte
+    aligned), bf16 or f32 (q and pool alike), hd in {64, 128} and blocks
+    of 16 positions.  Int8 pools raise
     NotImplementedError, as in the reference."""
     _no_int8(k_pool)
     if q.device.type == "cpu":
@@ -341,6 +358,7 @@ def paged_carry_attention(q: torch.Tensor, k_pool: torch.Tensor,
         _check(t.device == q.device, "all tensors must be on q's device",
                where)
         _check(t.is_contiguous(), "all tensors must be contiguous", where)
+    _aligned((q, k_pool, v_pool, *(carry or ())), where)
     offs = _offsets_on(offsets, B, q.device)
     _check(offs.shape == (B,), f"offsets must be scalar or [{B}]", where)
     out = tuple(torch.empty(shape, dtype=torch.float32, device=q.device)
