@@ -13,8 +13,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    ops/csrc`` are compiled at once (one nvcc each); build seconds and
    ptxas' registers / shared memory / spills of every instantiation (K6's
    and K7's float and int8 ones named apart; a summary line of registers
-   and spills for each K1/K2 instantiation, walk and tensor-core), and
-   each one's dynamic shared memory.
+   and spills for each K1/K2 instantiation, walk and tensor-core, and for
+   each bf16 K3/K5 warpgroup instantiation with its shared memory and its
+   HGMMA count from ``cuobjdump -sass``, which must not be 0), and each
+   one's dynamic shared memory.
 3. kernels — each kernel against its plain version on the card, row by
    row against the plain version run in f32 on the same values
    (``row_tolerance``, ``grad_held``, ``moe_held``), with planted faults
@@ -30,8 +32,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    K3-K5 (flash attention forward, dq, dk/dv) at the training shape (B
    16, H 12, S 2048, hd 64, causal) and at Mistral-7B's attention (Hq 32,
    Hkv 8, hd 128, S 8192, window 4096), bf16 and f32 (faults: the
-   backward without the dlse term, the window one tile late; yardstick
-   SDPA).  K6 (fused MoE dispatch) at Mixtral-8x7B's expert widths (E 8,
+   backward without the dlse term, K3's diagonal one key late, K5's lse
+   column one query off, the window one tile late; yardstick SDPA).  K6 (fused MoE dispatch) at Mixtral-8x7B's expert widths (E 8,
    top-2, D 4096, F 14336, SwiGLU, bf16) for decode (T 8) and a 512-row
    chunk of 8 slots (T 4096) at the serving capacity C = T, plus GELU,
    f32 and capacity-drop cases at smaller widths (faults: the gate
@@ -121,6 +123,7 @@ import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -606,9 +609,13 @@ def flash_planted_faults(case, ref):
     """The checks must catch the faults they are there for: the kernels
     run on deliberately wrong arguments, held against the plain version
     on the right ones.  Training shape: the backward without the dlse
-    term (K4 and K5 given delta = rowsum(dO·O) alone).  Mistral shape:
-    the window bound one 64-row tile late (K3 and K5 given window + 64).
-    Each must fail its row tolerance."""
+    term (K4 and K5 given delta = rowsum(dO·O) alone); K3's diagonal one
+    key late (each query row handed to K3 one position later, so query
+    i sees keys up to i + 1 — held on rows 1.., against the right output
+    of rows ..S-2); K5 reading its lse column one query off (lse shifted
+    by one along the sequence).  Mistral shape: the window bound one
+    64-row tile late (K3 and K5 given window + 64).  Each must fail its
+    row tolerance."""
     from torchdistpackage_tpu_torch.ops import flash_attention as fa
 
     q, k, v, do = (case[n] for n in ("q", "k", "v", "do"))
@@ -623,6 +630,16 @@ def flash_planted_faults(case, ref):
         dk, dv = fa.flash_bwd_dkv(q, k, v, do, ref["lse"], no_dlse, scale,
                                   True, None)
         faults["K5 without the dlse term"] = max(
+            grad_held(dk, ref["dk"], sk, dt), grad_held(dv, ref["dv"], sv, dt),
+            key=lambda r: r[1])
+        late = torch.cat([q[:, :, -1:], q[:, :, :-1]], dim=2).contiguous()
+        o, _ = fa.flash_fwd(late, k, v, scale, True, None)
+        faults["K3 diagonal one key late"] = held(
+            o[:, :, 1:], ref["o"][:, :, :-1], dt)
+        lse_off = torch.roll(ref["lse"], -1, dims=-1).contiguous()
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_off, ref["delta"], scale,
+                                  True, None)
+        faults["K5 lse column one query off"] = max(
             grad_held(dk, ref["dk"], sk, dt), grad_held(dv, ref["dv"], sv, dt),
             key=lambda r: r[1])
     else:
@@ -2293,11 +2310,37 @@ def paged_instantiation(line):
                   f"{PAGED_TAGS[tag]} hd {hd}")
 
 
+WGMMA_KERNELS = {"flash_fwd_wgmma_kernel": "K3",
+                 "flash_bwd_dkv_wgmma_kernel": "K5"}
+
+
+def hgmma_counts(lib_path):
+    """HGMMA (wgmma) instructions in each function of a built library, by
+    ``cuobjdump -sass``: {mangled name: count}."""
+    from torchdistpackage_tpu_torch.ops import _build
+
+    cuobjdump = str(Path(_build._nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
 def build_phase():
     """The three sources built at once (one nvcc each); ptxas' registers,
     shared memory and spills of every instantiation, and a summary line
-    of each K1/K2 instantiation's registers and spills.  Returns that
-    summary (label -> {"registers", "spill_stores", "spill_loads"})."""
+    of each K1/K2 instantiation's registers and spills and of each bf16
+    K3/K5 instantiation's registers, spills, shared memory and HGMMA
+    count (``cuobjdump -sass``; none fails the phase: the warpgroup
+    bodies must really run on wgmma).  Returns those summaries (label ->
+    {"registers", "spill_stores", "spill_loads", ...})."""
     from torchdistpackage_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -2306,7 +2349,7 @@ def build_phase():
     log(f"[build] all sources built in {time.perf_counter() - t0:.1f} s ("
         + ", ".join(f"{n}.cu {i['seconds']:.1f} s"
                     for n, i in _build.BUILD_INFO.items()) + ")")
-    paged = {}
+    summary = {}
     for src, info in _build.BUILD_INFO.items():
         kernel = "?"
         for line in str(info["log"]).splitlines():
@@ -2316,11 +2359,19 @@ def build_phase():
                     r"\d+((?:flash_\w+|moe_ffn(?:_int8)?"
                     r"|expert_ffn(?:_int8)?)_kernel)I", line)
                 name = m.group(1) if m else "?"
-                dt = "bf16" if "13__nv_bfloat16" in line else "f32"
+                dt = ("bf16" if "13__nv_bfloat16" in line
+                      or name in WGMMA_KERNELS else "f32")
                 if inst is not None:
                     kernel = inst[1]
-                    paged[kernel] = {"registers": None, "spill_stores": None,
+                    summary[kernel] = {"registers": None, "spill_stores": None,
                                      "spill_loads": None}
+                elif name in WGMMA_KERNELS:
+                    hd = 128 if "ILi128E" in line else 64
+                    kernel = f"{WGMMA_KERNELS[name]} {name} bf16 hd {hd}"
+                    summary[kernel] = {"registers": None, "spill_stores": None,
+                                     "spill_loads": None, "hd": hd,
+                                     "function": re.search(
+                                         r"function '(\S+)'", line).group(1)}
                 elif name.startswith(("moe_ffn", "expert_ffn")):
                     kernel = (f"{name} {dt} "
                               f"{'swiglu' if 'Lb1E' in line else 'gelu'}")
@@ -2329,18 +2380,41 @@ def build_phase():
                               f"hd {128 if 'Li128E' in line else 64}")
             elif re.search(r"registers|spill|smem", line):
                 log(f"[build] {src}: {kernel}: {line.strip()}")
-                if kernel in paged:
+                if kernel in summary:
                     for key, pat in (
                             ("registers", r"Used (\d+) registers"),
                             ("spill_stores", r"(\d+) bytes spill stores"),
                             ("spill_loads", r"(\d+) bytes spill loads")):
                         m = re.search(pat, line)
                         if m:
-                            paged[kernel][key] = int(m.group(1))
-    for kernel, regs in paged.items():
+                            summary[kernel][key] = int(m.group(1))
+    fsmem = libs["flash_attention"].tdp_flash_smem_bytes
+    fsmem.argtypes, fsmem.restype = [ctypes.c_int] * 3, ctypes.c_int
+    hgmma = hgmma_counts(_build.BUILD_INFO["flash_attention"]["path"])
+    for kernel, regs in summary.items():
+        extra = ""
+        if "function" in regs:
+            regs["smem_bytes"] = fsmem(0 if kernel.startswith("K3") else 2,
+                                       0, regs["hd"])
+            regs["hgmma"] = hgmma.get(regs.pop("function"), 0)
+            extra = (f", {regs['smem_bytes']} B dynamic shared memory, "
+                     f"{regs['hgmma']} HGMMA instructions")
+            if regs["hgmma"] == 0:
+                raise RuntimeError(f"{kernel}: no HGMMA instruction in its "
+                                   f"SASS: the body does not run on wgmma")
+            # K5's warpgroups trade registers by setmaxnreg, whose budget
+            # (24 x 128 + 240 x 256) is the launch's: 168 a thread at 384
+            # threads.  With fewer, setmaxnreg.inc would wait forever.
+            if kernel.startswith("K5") and regs["registers"] != 168:
+                raise RuntimeError(f"{kernel}: {regs['registers']} registers "
+                                   f"at launch, not the 168 its setmaxnreg "
+                                   f"budget assumes")
         log(f"[build] {kernel}: {regs['registers']} registers, "
             f"{regs['spill_stores']} bytes spill stores, "
-            f"{regs['spill_loads']} bytes spill loads")
+            f"{regs['spill_loads']} bytes spill loads{extra}")
+    if sum(k[:2] in ("K3", "K5") for k in summary) != 4:
+        raise RuntimeError("build: the four bf16 K3/K5 warpgroup "
+                           "instantiations were not all found in ptxas' log")
     smem = libs["paged_attention"].tdp_paged_smem_bytes
     smem.argtypes, smem.restype = [ctypes.c_int] * 3, ctypes.c_int
     log("[build] paged_attention (K1 and K2) dynamic shared memory per CTA "
@@ -2352,8 +2426,6 @@ def build_phase():
                 ("prefill bf16 (tensor cores)", 0, GROUPS * 512),
                 ("prefill f32", 1, GROUPS * 512),
                 ("prefill int8", 2, GROUPS * 512))))
-    fsmem = libs["flash_attention"].tdp_flash_smem_bytes
-    fsmem.argtypes, fsmem.restype = [ctypes.c_int] * 3, ctypes.c_int
     log("[build] flash_attention dynamic shared memory per CTA: " + ", ".join(
         f"{kern} {dt} hd {hd} {fsmem(i, tag, hd)} B"
         for i, kern in enumerate(("fwd", "dq", "dkv"))
@@ -2365,7 +2437,7 @@ def build_phase():
         for tag, dt in ((0, "bf16"), (1, "f32"), (2, "bf16 int8 weights"),
                         (3, "f32 int8 weights"))
         for sw, act in ((0, "gelu"), (1, "swiglu"))))
-    return paged
+    return summary
 
 
 def kernel_entry(name, route_src, replaces, launches, rows, head,
@@ -2403,7 +2475,7 @@ def main():
     t_start = time.perf_counter()
 
     # 2. build
-    paged_regs = build_phase()
+    ptxas_summary = build_phase()
 
     # 3. every kernel against its plain version
     rows = kernel_phase()
@@ -2488,13 +2560,16 @@ def main():
                             "torchdistpackage_tpu_torch/ops/csrc/"
                             "paged_attention.cu", TPU_SOURCE,
                             eng["launches"], rows, rows[0],
-                            ptxas={k: v for k, v in paged_regs.items()
+                            ptxas={k: v for k, v in ptxas_summary.items()
                                    if k.startswith("K1")})]
     for kname, krows in flash_rows.items():
+        k = {"flash_fwd": "K3", "flash_bwd_dkv": "K5"}.get(kname)
         entries.append(kernel_entry(kname, FLASH_SOURCE,
                                     FLASH_REPLACES[kname],
                                     train["launches"][kname], krows,
-                                    krows[0]))
+                                    krows[0], ptxas={
+                                        n: v for n, v in ptxas_summary.items()
+                                        if k and n.startswith(k)}))
     entries.append(kernel_entry(
         "fused_moe_ffn", MOE_SOURCE, MOE_REPLACES,
         moe_eng["launches"]["fused_moe_ffn"], moe_rows, moe_rows[0],
@@ -2519,7 +2594,7 @@ def main():
         "paged_carry_attention", CARRY_SOURCE, CARRY_REPLACES,
         cp_eng["launches"]["paged_carry_attention"], carry_rows,
         carry_rows[0], k1_ms=carry_rows[0]["k1_ms"],
-        ptxas={k: v for k, v in paged_regs.items() if k.startswith("K2")},
+        ptxas={k: v for k, v in ptxas_summary.items() if k.startswith("K2")},
         library="SDPA over the gathered view at one hop; k1_ms: K1 on the "
                 "same one-hop inputs"))
     log(json.dumps({"kernels": entries}))

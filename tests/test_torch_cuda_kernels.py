@@ -231,6 +231,60 @@ def test_flash_kernels_noncausal_unequal_lengths(cuda, dtype):
     _grad_rows_close(dv, dv_x, sv, dt)
 
 
+# bf16 K3 runs 128-row query tiles over 128-key tiles and K5 128-key CTAs
+# over 64- or 128-query tiles (wgmma, TMA-fed); sequence lengths are
+# multiples of 64.  These shapes put the edges where that tiling can go
+# wrong: a ragged last 128-row tile (S 192, 320), a window edge inside a
+# key tile (80, 100, 300), GQA groups of 1, 4 and 8, and the non-causal
+# Sq != Sk case.
+WG_SHAPES = [  # (q heads, kv heads, Sq, Sk, causal, window)
+    (4, 4, 192, 192, True, None),
+    (8, 2, 320, 320, True, None),
+    (8, 1, 320, 320, True, 100),
+    (4, 1, 192, 192, True, 80),
+    (8, 8, 320, 320, True, 80),
+    (4, 2, 192, 320, False, None),
+    (4, 4, 320, 192, False, None),
+    (8, 1, 1024, 1024, True, 300),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("h,kv_heads,sq,sk,causal,window", WG_SHAPES)
+def test_flash_wgmma_bodies_match_plain_on_card(cuda, hd, h, kv_heads, sq,
+                                                sk, causal, window):
+    """bf16 K3 and K5 (the warpgroup bodies) against their plain versions
+    in f32 on the same values; K4 rides along on the same inputs."""
+    from torchdistpackage_tpu_torch.ops import flash_attention as fa
+
+    bf = torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(sq + sk + hd + h)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=cuda).to(bf)
+
+    q, do = rnd(2, h, sq, hd), rnd(2, h, sq, hd)
+    k, v = rnd(2, kv_heads, sk, hd), rnd(2, kv_heads, sk, hd)
+    dlse = torch.randn(2, h, sq, generator=g, device=cuda)
+    args = (hd ** -0.5, causal, window)
+    exact = [t.float() for t in (q, k, v, do)]
+    o, lse = fa.flash_fwd(q, k, v, *args)
+    o_x, lse_x = fa.flash_fwd_reference(*exact[:3], *args)
+    delta = fa.flash_delta(o_x, exact[3], dlse)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse_x, delta, *args)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_x, delta, *args)
+    torch.cuda.synchronize()
+    _assert_rows_close(o, o_x, bf)
+    assert float((lse - lse_x).abs().max()) <= 2e-5
+    sq_, sk_, sv_ = fa.grad_rounding_scale(*exact, lse_x, delta, *args)
+    _grad_rows_close(dq, fa.flash_bwd_dq_reference(*exact, lse_x, delta,
+                                                   *args), sq_, bf)
+    dk_x, dv_x = fa.flash_bwd_dkv_reference(*exact, lse_x, delta, *args)
+    _grad_rows_close(dk, dk_x, sk_, bf)
+    _grad_rows_close(dv, dv_x, sv_, bf)
+
+
 # ------------------------------------------------- fused MoE dispatch, K6
 
 

@@ -156,3 +156,78 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         tfa.flash_fwd(q, q, q, 0.125, True, None)
     assert tfa.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dq": 0,
                             "flash_bwd_dkv": 0}
+
+
+# The card's bf16 K3 runs 128-row query tiles over 128-key tiles and K5
+# 128-key CTAs over 64- or 128-query tiles, while sequence lengths are
+# multiples of 64: these are the shapes that tiling makes risky (a ragged
+# last 128-row tile, a window edge inside a 128-key tile, GQA groups, the
+# non-causal Sq != Sk case).  The plain versions the card is held against
+# are held here against JAX's own ``_fwd`` / ``_bwd`` (Pallas, interpret
+# mode, 64-row blocks), f32, from the same numpy inputs.
+TILE_CASES = {
+    # name: (B, H, Hkv, Sq, Sk, hd, causal, window)
+    "s192_hd64_g1_causal": (1, 2, 2, 192, 192, 64, True, None),
+    "s320_hd128_g4_causal": (1, 4, 1, 320, 320, 128, True, None),
+    "s320_hd64_g4_w100": (1, 4, 1, 320, 320, 64, True, 100),
+    "s192_hd128_g1_w80": (1, 2, 2, 192, 192, 128, True, 80),
+    "s320_hd64_g1_w80": (1, 1, 1, 320, 320, 64, True, 80),
+    "s192_hd128_g4_w100": (1, 4, 1, 192, 192, 128, True, 100),
+    "sq192_sk320_hd64_g4_full": (1, 4, 1, 192, 320, 64, False, None),
+    "sq320_sk192_hd128_g1_full": (1, 2, 2, 320, 192, 128, False, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TILE_CASES))
+def test_plain_versions_match_jax_kernels_at_tile_shapes(case):
+    from torchdistpackage_tpu.ops.flash_attention import _bwd, _fwd
+
+    b, h, hkv, sq, sk, hd, causal, window = TILE_CASES[case]
+    rs = np.random.RandomState(sum(map(ord, case)))
+    q = rs.randn(b, h, sq, hd).astype(np.float32)
+    k = rs.randn(b, hkv, sk, hd).astype(np.float32)
+    v = rs.randn(b, hkv, sk, hd).astype(np.float32)
+    do = rs.randn(b, h, sq, hd).astype(np.float32)
+    dlse = rs.randn(b, h, sq).astype(np.float32)
+    scale, groups = hd ** -0.5, h // hkv
+
+    def flat(a):
+        return jnp.asarray(a.reshape(-1, *a.shape[2:]))
+
+    jq, jk, jv, jdo = map(flat, (q, k, v, do))
+    jo, jlse = _fwd(jq, jk, jv, scale, causal, 64, 64, groups, window)
+    jdq, jdk, jdv = _bwd(scale, causal, 64, 64, groups, window,
+                         (jq, jk, jv, jo, jlse), (jdo, flat(dlse)[..., None]))
+
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o, lse = tfa.flash_fwd_reference(tq, tk, tv, scale, causal, window)
+    _close(o.reshape(-1, sq, hd), jo, FWD_TOL, f"{case}: o")
+    _close(lse.reshape(-1, sq, 1), jlse, FWD_TOL, f"{case}: lse")
+    delta = tfa.flash_delta(o, tdo, torch.from_numpy(dlse))
+    args = (tq, tk, tv, tdo, lse, delta, scale, causal, window)
+    dq = tfa.flash_bwd_dq_reference(*args)
+    dk, dv = tfa.flash_bwd_dkv_reference(*args)
+    for name, got, want in (("dq", dq, jdq), ("dk", dk, jdk),
+                            ("dv", dv, jdv)):
+        _close(got.reshape(want.shape), want, GRAD_TOL, f"{case}: {name}")
+
+
+def test_wrappers_take_s192_and_refuse_s96():
+    """A sequence length a multiple of 64 but not of the kernels' 128-row
+    tiles is taken (the refusal that follows is only the meta device's);
+    one that is not a multiple of 64 is refused by the shape check."""
+    meta = torch.device("meta")
+    for name, call in (
+            ("flash_fwd", lambda q: tfa.flash_fwd(q, q, q, 0.125, True,
+                                                  None)),
+            ("flash_bwd_dkv", lambda q: tfa.flash_bwd_dkv(
+                q, q, q, q, q[..., 0].float(), q[..., 0].float(), 0.125,
+                True, None))):
+        q = torch.empty(1, 2, 192, 64, device=meta, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="unsupported device"):
+            call(q)
+        q = torch.empty(1, 2, 96, 64, device=meta, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="multiples of 64"):
+            call(q)
+    assert tfa.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                            "flash_bwd_dkv": 0}

@@ -30,7 +30,8 @@ _LOCK = threading.Lock()  # guards _LOCKS; each source builds under its own
 _LOCKS: Dict[str, threading.Lock] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: name -> {"seconds": build wall time (0.0 when reused), "log": nvcc's
-#: stderr, which holds ptxas' registers / shared memory / spills}
+#: stderr, which holds ptxas' registers / shared memory / spills, "path":
+#: the library}
 BUILD_INFO: Dict[str, Dict[str, object]] = {}
 
 
@@ -57,8 +58,11 @@ def load(name: str) -> ctypes.CDLL:
         if name in _LIBS:
             return _LIBS[name]
         src = CSRC / f"{name}.cu"
+        # the headers beside the sources are part of every build's key
+        headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
         digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+            src.read_bytes() + headers
+            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
         out_dir = BUILD_DIR / f"{name}-{digest}"
         lib_path = out_dir / f"lib{name}.so"
         log_path = out_dir / "nvcc.log"
@@ -79,6 +83,7 @@ def load(name: str) -> ctypes.CDLL:
         BUILD_INFO[name] = {
             "seconds": time.perf_counter() - t0,
             "log": log_path.read_text() if log_path.exists() else "",
+            "path": str(lib_path),
         }
         lib = ctypes.CDLL(str(lib_path))
         _LIBS[name] = lib

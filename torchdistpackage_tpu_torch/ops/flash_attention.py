@@ -16,12 +16,15 @@ with CUDA kernels written by hand for Hopper, ``ops/csrc/flash_attention.cu``
 What bounds them on an H100 at training shapes: operations.  A causal
 forward at B 16, H 12, S 2048, hd 64 does ~1.03e11 FLOP against ~50 MB
 of q, k, v, o — ~2000 operations a byte, far above the ~295 where the
-tensor cores and not memory set the pace.  So the kernels run Q·Kᵀ, P·V
-and the backward products on the tensor cores (``mma.sync`` m16n8k16,
-bf16 in, f32 accumulate), one warp per 16 rows, stream K/V (or Q/dO)
-tiles through shared memory with a ``cp.async`` double buffer, and cut
-the tile loop at the causal and window bounds.  The source's header says
-what a faster version would add.
+tensor cores and not memory set the pace.  So every product runs on the
+tensor cores and the tile loop is cut at the causal and window bounds.
+bf16 K3 and K5 run on Hopper's warpgroup MMA (``wgmma``, two 64-row
+warpgroups a CTA) on tiles that TMA loads into shared memory (shared
+pieces in ``ops/csrc/hopper.cuh``; the TMA descriptors are encoded on the
+host for each call); K4 and the f32 instantiations use ``mma.sync``
+m16n8k16 (f32: the same layout on the CUDA cores), one warp per 16 rows,
+with a ``cp.async`` double buffer.  The source's header says what each
+design does and what is left.
 
 Each wrapper launches its kernel for CUDA tensors and raises on anything
 it does not take (head dim 64 or 128, sequence lengths a multiple of 64,
@@ -276,7 +279,6 @@ def flash_delta(o: torch.Tensor, do: torch.Tensor,
 
 
 def _check_kernel_inputs(name: str, tensors, q, k, causal):
-    _check(q.device.type == "cuda", f"{name}: unsupported device {q.device}")
     tag = _DTYPE_TAG.get(q.dtype)
     _check(tag is not None, f"{name}: dtype {q.dtype} is not supported "
            f"(bf16 or f32)")
@@ -288,6 +290,7 @@ def _check_kernel_inputs(name: str, tensors, q, k, causal):
     _check(k.shape[0] == B and k.shape[3] == hd,
            f"{name}: k {tuple(k.shape)} does not match q {tuple(q.shape)}")
     _check(not causal or Sq == k.shape[2], f"{name}: causal needs Sq == Sk")
+    _check(q.device.type == "cuda", f"{name}: unsupported device {q.device}")
     for t in tensors:
         _check(t.device == q.device, f"{name}: all tensors must be on "
                f"q's device")
