@@ -14,9 +14,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    ptxas' registers / shared memory / spills of every instantiation (K6's
    and K7's float and int8 ones named apart; a summary line of registers
    and spills for each K1/K2 instantiation, walk and tensor-core, and for
-   each bf16 K3/K5 warpgroup instantiation with its shared memory and its
-   HGMMA count from ``cuobjdump -sass``, which must not be 0), and each
-   one's dynamic shared memory.
+   each warpgroup instantiation — bf16 K3, K4 and K5, K7's two passes —
+   with its shared memory and its HGMMA count from ``cuobjdump -sass``,
+   which must not be 0; a ptxas C75xx advisory, a serialised wgmma,
+   fails the build), and each one's dynamic shared memory.
 3. kernels — each kernel against its plain version on the card, row by
    row against the plain version run in f32 on the same values
    (``row_tolerance``, ``grad_held``, ``moe_held``), with planted faults
@@ -31,9 +32,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    SDPA).
    K3-K5 (flash attention forward, dq, dk/dv) at the training shape (B
    16, H 12, S 2048, hd 64, causal) and at Mistral-7B's attention (Hq 32,
-   Hkv 8, hd 128, S 8192, window 4096), bf16 and f32 (faults: the
-   backward without the dlse term, K3's diagonal one key late, K5's lse
-   column one query off, the window one tile late; yardstick SDPA).  K6 (fused MoE dispatch) at Mixtral-8x7B's expert widths (E 8,
+   Hkv 8, hd 128, S 8192, window 4096), bf16 (the warpgroup bodies) and
+   f32 (the CUDA-core bodies) (faults: the backward without the dlse
+   term, K3's diagonal one key late, K5's lse column one query off, K4's
+   delta one query row off, K4's dS.K on the key tile one tile late —
+   emulated on the output — and the window one tile late; yardstick
+   SDPA).  K6 (fused MoE dispatch) at Mixtral-8x7B's expert widths (E 8,
    top-2, D 4096, F 14336, SwiGLU, bf16) for decode (T 8) and a 512-row
    chunk of 8 slots (T 4096) at the serving capacity C = T, plus GELU,
    f32 and capacity-drop cases at smaller widths (faults: the gate
@@ -48,10 +52,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    row computed) at Mixtral's expert widths at the per-rank shapes of EP
    1 and EP 4 — decode ([8, 8, 4096] / [2, 32, 4096]) and a 512-row
    chunk of 8 slots ([8, 4096, 4096] / [2, 16384, 4096]) — plus GELU, f32
-   rows and a ragged G (faults: the last F tile left out, b2 added by
-   every F tile, each row in the next expert's block, and for int8 w2's
-   scale not applied; yardstick the torch.bmm chain, several cuBLAS
-   calls).  K2 (one hop of the context-parallel ring, the raw
+   rows and ragged G and F, each case naming the body it took (decode's
+   and f32 rows the walk, chunk rows the two-pass warpgroup GEMM; faults
+   on the first case of each body: the last F tile left out, b2 added by
+   every F tile, each row in the next expert's block, for int8 w2's
+   scale not applied, and on the warpgroup body gate and up swapped;
+   yardstick the torch.bmm chain, several cuBLAS calls).  K2 (one hop of the context-parallel ring, the raw
    online-softmax carry) at the serving shapes (B 8, G 4, Hkv 8, hd 128,
    bs 16): decode and a 512-row chunk, windows 4096 / None / 64, bf16
    and f32, and a 200-row chunk at window 48 in bf16, each as one hop
@@ -555,18 +561,20 @@ def flash_kernel_phase():
                   "flash_bwd_dq": [grad_held(dq, dq_x, sq, dt)],
                   "flash_bwd_dkv": [grad_held(dk, dk_x, sk, dt),
                                     grad_held(dv, dv_x, sv, dt)]}
+        body = ("wgmma, TMA-fed tiles" if dt == bf
+                else "CUDA cores (f32)")
         for kname, res in checks.items():
             err, ratio = max(r[0] for r in res), max(r[1] for r in res)
-            log(f"[flash] {name} {kname}: vs the plain version in f32: "
-                f"max abs err {err:.3g}, {ratio:.3f} of the row tolerance"
-                + (f" (lse err {lse_err:.3g})" if kname == "flash_fwd"
-                   else ""))
+            log(f"[flash] {name} {kname} ({body}): vs the plain version in "
+                f"f32: max abs err {err:.3g}, {ratio:.3f} of the row "
+                f"tolerance" + (f" (lse err {lse_err:.3g})"
+                                if kname == "flash_fwd" else ""))
             if not ratio <= 1.0:
                 raise RuntimeError(
                     f"{name}: {kname} disagrees with its plain version: "
                     f"{ratio:.3f} of the row tolerance")
-            rows[kname].append({"case": name, "max_abs_err": err,
-                                "tol_ratio": ratio})
+            rows[kname].append({"case": name, "body": body,
+                                "max_abs_err": err, "tol_ratio": ratio})
         ref = {"o": o_x, "dq": dq_x, "dk": dk_x, "dv": dv_x, "delta": delta,
                "lse": lse_x, "scales": (sq, sk, sv)}
         if dt == bf:
@@ -605,6 +613,31 @@ def flash_kernel_phase():
     return rows
 
 
+def dq_keys_late(case, ref, tile=128):
+    """dq as K4 would give it if its dS.K product read the key tile one
+    tile late (key j + tile in place of key j, zeros past the end), from
+    the plain pieces in f32 with dS rounded to bf16 as the kernel rounds
+    it.  S and dS.K read the same K, so no argument plants this fault: it
+    is emulated on the output, as K7's rows in the next expert's block
+    are."""
+    from torchdistpackage_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = (case[n].float() for n in ("q", "k", "v", "do"))
+    k_late = torch.cat([k[:, :, tile:], torch.zeros_like(k[:, :, :tile])],
+                       dim=2)
+    scale, groups = case["scale"], q.shape[1] // k.shape[1]
+    keep = fa._mask(q.shape[2], k.shape[2], True, case["window"], q.device)
+    dq = torch.empty_like(q)
+    for h, sl in fa._per_kv_head(q, k, groups):
+        p = fa._probs(q[:, sl], k[:, h:h + 1], ref["lse"][:, sl], scale,
+                      keep)
+        dp = torch.matmul(do[:, sl], v[:, h:h + 1].transpose(-1, -2))
+        ds = (p * (dp - ref["delta"][:, sl, :, None])).to(
+            case["dtype"]).float()
+        dq[:, sl] = torch.matmul(ds, k_late[:, h:h + 1]) * scale
+    return dq
+
+
 def flash_planted_faults(case, ref):
     """The checks must catch the faults they are there for: the kernels
     run on deliberately wrong arguments, held against the plain version
@@ -613,9 +646,11 @@ def flash_planted_faults(case, ref):
     key late (each query row handed to K3 one position later, so query
     i sees keys up to i + 1 — held on rows 1.., against the right output
     of rows ..S-2); K5 reading its lse column one query off (lse shifted
-    by one along the sequence).  Mistral shape: the window bound one
-    64-row tile late (K3 and K5 given window + 64).  Each must fail its
-    row tolerance."""
+    by one along the sequence); K4 reading delta one query row off
+    (delta shifted by one); K4's dS.K on the key tile one tile late
+    (emulated on the output, ``dq_keys_late``).  Mistral shape: the
+    window bound one 64-row tile late (K3 and K5 given window + 64).
+    Each must fail its row tolerance."""
     from torchdistpackage_tpu_torch.ops import flash_attention as fa
 
     q, k, v, do = (case[n] for n in ("q", "k", "v", "do"))
@@ -642,6 +677,12 @@ def flash_planted_faults(case, ref):
         faults["K5 lse column one query off"] = max(
             grad_held(dk, ref["dk"], sk, dt), grad_held(dv, ref["dv"], sv, dt),
             key=lambda r: r[1])
+        delta_off = torch.roll(ref["delta"], -1, dims=-1).contiguous()
+        faults["K4 delta one query row off"] = grad_held(
+            fa.flash_bwd_dq(q, k, v, do, ref["lse"], delta_off, scale, True,
+                            None), ref["dq"], sq, dt)
+        faults["K4 dS.K on the key tile one tile late (emulated)"] = (
+            grad_held(dq_keys_late(case, ref), ref["dq"], sq, dt))
     else:
         late = window + fa.TILE
         o, _ = fa.flash_fwd(q, k, v, scale, True, late)
@@ -984,7 +1025,8 @@ def expert_ffn_specs(make, seed, variant=""):
     per-rank shapes of EP 1 and EP 4 (e_loc 8 or 2) — decode, 8 slots of
     one token (G = C = T = 8 at EP 1; 4 ranks' 8 at EP 4), and a 512-row
     chunk of 8 slots (G = C = T = 4096; 16384 at EP 4); then GELU, f32
-    rows and a ragged G (not a multiple of the 64-row tile) at smaller
+    rows and ragged G (not a multiple of the 64- or 128-row tile; F 1472
+    not one of the warpgroup body's 128-column F tile) at smaller
     widths.  Each case's rows are random with a band of zero pad rows."""
     bf, f32 = torch.bfloat16, torch.float32
     mixtral = make(E=8, D=4096, F=14336, act="swiglu", dtype=bf, seed=seed)
@@ -996,7 +1038,9 @@ def expert_ffn_specs(make, seed, variant=""):
     small = [("gelu", "bf16", dict(act="gelu", F=4096, dtype=bf), 256),
              ("swiglu", "f32", dict(act="swiglu", F=1408, dtype=f32), 128),
              ("ragged_g100", "bf16", dict(act="swiglu", F=2048, dtype=bf),
-              100)]
+              100),
+             ("ragged_g200_f1472", "bf16",
+              dict(act="swiglu", F=1472, dtype=bf), 200)]
     for i, (base, dt, kw, G) in enumerate(small):
         name = "_".join(filter(None, (base, variant, dt)))
         cases.append((name, lambda kw=kw, i=i: make(
@@ -1015,9 +1059,10 @@ def expert_ffn_specs(make, seed, variant=""):
 def expert_ffn_cases(tag, specs, counter, faults, lib_experts=None):
     """Each K7 case against ``expert_ffn_reference`` (f32 on the same
     values) row by row under ``moe_held``'s rule with
-    ``expert_ffn_rounding_scale``; the launch must move ``counter``
-    alone; ``faults(ex, x, got)`` gives the planted faults of the first
-    case, each of which must fail.  At the Mixtral shapes the kernel, the
+    ``expert_ffn_rounding_scale``, naming the body it took
+    (``expert_ffn_body``); the launch must move ``counter`` alone;
+    ``faults(ex, x, got, body)`` gives the planted faults of the first
+    case each body takes, each of which must fail.  At the Mixtral shapes the kernel, the
     plain version and the ``torch.bmm`` chain (over ``lib_experts(ex)``,
     made outside the timing) are timed beside the bound."""
     from torchdistpackage_tpu_torch.ops import moe_dispatch as md
@@ -1036,18 +1081,21 @@ def expert_ffn_cases(tag, specs, counter, faults, lib_experts=None):
         scale = md.expert_ffn_rounding_scale(ex, x)
         err, ratio = moe_held(got, exact, scale, dt)
         E, G, D = x.shape
-        log(f"[{tag}] {name}: e_loc {E}, G {G}, D {D}, F "
+        body = md.expert_ffn_body(G, dt)
+        log(f"[{tag}] {name} ({body} body): e_loc {E}, G {G}, D {D}, F "
             f"{weight(ex['w2']).shape[1]}: vs the plain version in f32: max "
             f"abs err {err:.3g}, {ratio:.3f} of the row tolerance")
         if not ratio <= 1.0:
             raise RuntimeError(f"{name}: {counter} disagrees with its plain "
                                f"version: {ratio:.3f} of the row tolerance")
-        row = {"case": name, "max_abs_err": err, "tol_ratio": ratio}
-        if not rows:
-            for what, bad in faults(ex, x, got).items():
+        row = {"case": name, "body": body, "max_abs_err": err,
+               "tol_ratio": ratio}
+        if body not in {r["body"] for r in rows}:
+            for what, bad in faults(ex, x, got, body).items():
                 f_err, f_ratio = moe_held(bad, exact, scale, dt)
-                log(f"[{tag}] {name}, planted fault ({what}): max abs err "
-                    f"{f_err:.3g}, {f_ratio:.1f} x the row tolerance")
+                log(f"[{tag}] {name} ({body} body), planted fault ({what}): "
+                    f"max abs err {f_err:.3g}, {f_ratio:.1f} x the row "
+                    f"tolerance")
                 if f_ratio <= 1.0:
                     raise RuntimeError(f"{name}: the row tolerance misses a "
                                        f"planted fault ({what})")
@@ -1065,22 +1113,79 @@ def expert_ffn_cases(tag, specs, counter, faults, lib_experts=None):
             log(f"[{tag}] {name}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
                 f"  torch.bmm chain {lib_ms:.4f} ms  bound {bound_ms:.4f} ms "
                 f"({bound_by})")
+        if name.startswith("chunk_ep1"):
+            row["passes"] = expert_ffn_passes(tag, ex, x)
+            row["body_sweep"] = expert_ffn_body_sweep(tag, ex, x)
         rows.append(row)
         del ex, x, got, exact, scale
         torch.cuda.empty_cache()
     return rows
 
 
-def expert_ffn_kernel_phase():
-    """K7 and K7-int8 on the :func:`expert_ffn_specs` cases.  Planted
-    faults at EP 1 decode: the last F tile left out (its W2 rows zeroed),
-    b2 added by every F tile (b2 scaled by the F-tile count), each row
-    written to the next expert's block (the output rolled by one expert),
-    and for int8 w2's scale not applied.  Yardstick: the ``torch.bmm``
-    chain (for int8 over bf16 weights dequantised beforehand)."""
+def expert_ffn_passes(tag, ex, x):
+    """Device time of each kernel one K7 call launches, by
+    ``torch.profiler`` (the warpgroup body: its up and down passes; the
+    wrapper's allocations launch no kernel).  Returns {kernel: ms}."""
+    from torch.profiler import ProfilerActivity, profile
+
     from torchdistpackage_tpu_torch.ops import moe_dispatch as md
 
-    def faults(ex, x, got):
+    md.fused_expert_ffn(ex, x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        md.fused_expert_ffn(ex, x)
+        torch.cuda.synchronize()
+    out = {re.sub(r"^void (\(anonymous namespace\)::)?", "", e.key)[:40]:
+           e.self_device_time_total / 1e3 for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA}
+    log(f"[{tag}] one call at {list(x.shape)}, device time by kernel: "
+        + (", ".join(f"{k} {v:.3f} ms" for k, v in out.items())
+           or "not measured (the profiler recorded no kernels)"))
+    return out
+
+
+def expert_ffn_body_sweep(tag, ex, x, groups=(32, 64, 96, 128)):
+    """Both K7 bodies on the first G rows of each expert's group, for the
+    G around ``EXPERT_FFN_WGMMA_G_MIN``: the measurement its value rests
+    on.  Returns {G: {body: ms}}."""
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+
+    g_min, out = md.EXPERT_FFN_WGMMA_G_MIN, {}
+    try:
+        for G in groups:
+            xs = x[:, :G].contiguous()
+            out[G] = {}
+            for body, pin in (("wgmma", 1), ("walk", 1 << 30)):
+                md.EXPERT_FFN_WGMMA_G_MIN = pin
+                out[G][body] = cuda_ms(lambda: md.fused_expert_ffn(ex, xs),
+                                       20)
+            log(f"[{tag}] body sweep, e_loc {x.shape[0]}, G {G}: wgmma "
+                f"{out[G]['wgmma']:.4f} ms, walk {out[G]['walk']:.4f} ms "
+                f"(G_MIN {g_min})")
+    finally:
+        md.EXPERT_FFN_WGMMA_G_MIN = g_min
+    return out
+
+
+def expert_ffn_kernel_phase():
+    """K7 and K7-int8 on the :func:`expert_ffn_specs` cases.  Planted
+    faults on the first case of each body (EP 1 decode for the walk, EP
+    1's chunk for the warpgroup body): the last F tile left out (its W2
+    rows zeroed), b2 added by every F tile (b2 scaled by the F-tile
+    count), each row written to the next expert's block (the output
+    rolled by one expert), for int8 w2's scale not applied, and on the
+    warpgroup body, which keeps the gate and up accumulators side by
+    side, the two swapped (silu(up) * gate: w1's and b1's halves, and
+    int8 s1's, exchanged).  Yardstick: the ``torch.bmm`` chain (for int8
+    over bf16 weights dequantised beforehand)."""
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+
+    def swapped(leaf):
+        if isinstance(leaf, tuple):
+            return tuple(t.flip(1).contiguous() for t in leaf)
+        return leaf.flip(1).contiguous()
+
+    def faults(ex, x, got, body):
         w2 = weight(ex["w2"])
         n_f = w2.shape[1] // md.TILE
         if isinstance(ex["w2"], tuple):
@@ -1098,6 +1203,9 @@ def expert_ffn_kernel_phase():
             q2, s2 = ex["w2"]
             out["w2's scale not applied"] = md.fused_expert_ffn(
                 dict(ex, w2=(q2, torch.ones_like(s2))), x)
+        if body == "wgmma" and weight(ex["w1"]).dim() == 4:
+            out["gate and up swapped"] = md.fused_expert_ffn(
+                dict(ex, w1=swapped(ex["w1"]), b1=swapped(ex["b1"])), x)
         return out
 
     def int8(**kw):
@@ -2311,7 +2419,27 @@ def paged_instantiation(line):
 
 
 WGMMA_KERNELS = {"flash_fwd_wgmma_kernel": "K3",
-                 "flash_bwd_dkv_wgmma_kernel": "K5"}
+                 "flash_bwd_dq_wgmma_kernel": "K4",
+                 "flash_bwd_dkv_wgmma_kernel": "K5",
+                 "expert_ffn_up_wgmma_kernel": "K7",
+                 "expert_ffn_down_wgmma_kernel": "K7"}
+
+
+def wgmma_label(name, line):
+    """``(label, smem args)`` of a warpgroup instantiation named in a
+    ptxas line: K3-K5 by head dim (``tdp_flash_smem_bytes(kernel, 0,
+    hd)``), K7's passes by weight type and activation
+    (``tdp_expert_ffn_wgmma_smem_bytes(up, quantized, swiglu)``)."""
+    if name.startswith("flash"):
+        hd = 128 if "ILi128E" in line else 64
+        kernel = {"K3": 0, "K4": 1, "K5": 2}[WGMMA_KERNELS[name]]
+        return f"{WGMMA_KERNELS[name]} {name} bf16 hd {hd}", (kernel, 0, hd)
+    flags = [int(b) for b in re.findall(r"Lb([01])E", line)]
+    q, swiglu = flags[0], flags[1] if len(flags) > 1 else 0
+    up = int("_up_" in name)
+    act = ("swiglu" if swiglu else "gelu") if up else "any act"
+    return (f"K7 {name} bf16 rows, {'int8' if q else 'bf16'} weights, "
+            f"{act}", (up, q, swiglu))
 
 
 def hgmma_counts(lib_path):
@@ -2335,12 +2463,14 @@ def hgmma_counts(lib_path):
 
 def build_phase():
     """The three sources built at once (one nvcc each); ptxas' registers,
-    shared memory and spills of every instantiation, and a summary line
-    of each K1/K2 instantiation's registers and spills and of each bf16
-    K3/K5 instantiation's registers, spills, shared memory and HGMMA
-    count (``cuobjdump -sass``; none fails the phase: the warpgroup
-    bodies must really run on wgmma).  Returns those summaries (label ->
-    {"registers", "spill_stores", "spill_loads", ...})."""
+    shared memory and spills of every instantiation, its advisories
+    (C75xx: a serialised wgmma fails the phase), and a summary line of
+    each K1/K2 instantiation's registers and spills and of each
+    warpgroup instantiation (bf16 K3-K5, K7's two passes) with its
+    registers, spills, shared memory and HGMMA count (``cuobjdump
+    -sass``; none fails the phase: the warpgroup bodies must really run
+    on wgmma).  Returns those summaries (label -> {"registers",
+    "spill_stores", "spill_loads", ...})."""
     from torchdistpackage_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -2357,7 +2487,8 @@ def build_phase():
                 inst = paged_instantiation(line)
                 m = re.search(
                     r"\d+((?:flash_\w+|moe_ffn(?:_int8)?"
-                    r"|expert_ffn(?:_int8)?)_kernel)I", line)
+                    r"|expert_ffn(?:_int8|_up_wgmma|_down_wgmma)?)_kernel)I",
+                    line)
                 name = m.group(1) if m else "?"
                 dt = ("bf16" if "13__nv_bfloat16" in line
                       or name in WGMMA_KERNELS else "f32")
@@ -2366,10 +2497,10 @@ def build_phase():
                     summary[kernel] = {"registers": None, "spill_stores": None,
                                      "spill_loads": None}
                 elif name in WGMMA_KERNELS:
-                    hd = 128 if "ILi128E" in line else 64
-                    kernel = f"{WGMMA_KERNELS[name]} {name} bf16 hd {hd}"
+                    kernel, smem_args = wgmma_label(name, line)
                     summary[kernel] = {"registers": None, "spill_stores": None,
-                                     "spill_loads": None, "hd": hd,
+                                     "spill_loads": None, "lib": src,
+                                     "smem_args": smem_args,
                                      "function": re.search(
                                          r"function '(\S+)'", line).group(1)}
                 elif name.startswith(("moe_ffn", "expert_ffn")):
@@ -2378,6 +2509,9 @@ def build_phase():
                 else:
                     kernel = (f"{name} {dt} "
                               f"hd {128 if 'Li128E' in line else 64}")
+            elif re.search(r"C75\d\d", line):
+                raise RuntimeError(f"build: {src}: ptxas advisory (a "
+                                   f"serialised wgmma): {line.strip()}")
             elif re.search(r"registers|spill|smem", line):
                 log(f"[build] {src}: {kernel}: {line.strip()}")
                 if kernel in summary:
@@ -2390,31 +2524,38 @@ def build_phase():
                             summary[kernel][key] = int(m.group(1))
     fsmem = libs["flash_attention"].tdp_flash_smem_bytes
     fsmem.argtypes, fsmem.restype = [ctypes.c_int] * 3, ctypes.c_int
-    hgmma = hgmma_counts(_build.BUILD_INFO["flash_attention"]["path"])
+    ksmem = libs["moe_dispatch"].tdp_expert_ffn_wgmma_smem_bytes
+    ksmem.argtypes, ksmem.restype = [ctypes.c_int] * 3, ctypes.c_int
+    hgmma = {}
+    for src in ("flash_attention", "moe_dispatch"):
+        hgmma.update(hgmma_counts(_build.BUILD_INFO[src]["path"]))
     for kernel, regs in summary.items():
         extra = ""
         if "function" in regs:
-            regs["smem_bytes"] = fsmem(0 if kernel.startswith("K3") else 2,
-                                       0, regs["hd"])
+            smem = fsmem if regs.pop("lib") == "flash_attention" else ksmem
+            regs["smem_bytes"] = smem(*regs.pop("smem_args"))
             regs["hgmma"] = hgmma.get(regs.pop("function"), 0)
             extra = (f", {regs['smem_bytes']} B dynamic shared memory, "
                      f"{regs['hgmma']} HGMMA instructions")
             if regs["hgmma"] == 0:
                 raise RuntimeError(f"{kernel}: no HGMMA instruction in its "
                                    f"SASS: the body does not run on wgmma")
-            # K5's warpgroups trade registers by setmaxnreg, whose budget
-            # (24 x 128 + 240 x 256) is the launch's: 168 a thread at 384
-            # threads.  With fewer, setmaxnreg.inc would wait forever.
-            if kernel.startswith("K5") and regs["registers"] != 168:
+            # K4's, K5's and K7's warpgroups trade registers by setmaxnreg,
+            # whose budget (24 x 128 + 240 x 256, or 40 x 128 + 232 x 256)
+            # is the launch's: 168 a thread at 384 threads.  With fewer,
+            # setmaxnreg.inc would wait forever.
+            if kernel[:2] in ("K4", "K5", "K7") and regs["registers"] != 168:
                 raise RuntimeError(f"{kernel}: {regs['registers']} registers "
                                    f"at launch, not the 168 its setmaxnreg "
                                    f"budget assumes")
         log(f"[build] {kernel}: {regs['registers']} registers, "
             f"{regs['spill_stores']} bytes spill stores, "
             f"{regs['spill_loads']} bytes spill loads{extra}")
-    if sum(k[:2] in ("K3", "K5") for k in summary) != 4:
-        raise RuntimeError("build: the four bf16 K3/K5 warpgroup "
-                           "instantiations were not all found in ptxas' log")
+    found = [k[:2] for k in summary if k[:2] in ("K3", "K4", "K5", "K7")]
+    if sorted(found) != ["K3"] * 2 + ["K4"] * 2 + ["K5"] * 2 + ["K7"] * 6:
+        raise RuntimeError(f"build: not every warpgroup instantiation (2 each "
+                           f"of bf16 K3, K4, K5; 6 of K7) was found in "
+                           f"ptxas' log: {found}")
     smem = libs["paged_attention"].tdp_paged_smem_bytes
     smem.argtypes, smem.restype = [ctypes.c_int] * 3, ctypes.c_int
     log("[build] paged_attention (K1 and K2) dynamic shared memory per CTA "
@@ -2432,11 +2573,12 @@ def build_phase():
         for tag, dt in ((0, "bf16"), (1, "f32")) for hd in (64, 128)))
     msmem = libs["moe_dispatch"].tdp_moe_ffn_smem_bytes
     msmem.argtypes, msmem.restype = [ctypes.c_int] * 2, ctypes.c_int
-    log("[build] moe_dispatch dynamic shared memory per CTA: " + ", ".join(
-        f"{dt} {act} {msmem(tag, sw)} B"
-        for tag, dt in ((0, "bf16"), (1, "f32"), (2, "bf16 int8 weights"),
-                        (3, "f32 int8 weights"))
-        for sw, act in ((0, "gelu"), (1, "swiglu"))))
+    log("[build] moe_dispatch dynamic shared memory per CTA (the walk "
+        "body, K6 and K7's decode and f32 rows): " + ", ".join(
+            f"{dt} {act} {msmem(tag, sw)} B"
+            for tag, dt in ((0, "bf16"), (1, "f32"), (2, "bf16 int8 weights"),
+                            (3, "f32 int8 weights"))
+            for sw, act in ((0, "gelu"), (1, "swiglu"))))
     return summary
 
 
@@ -2563,13 +2705,14 @@ def main():
                             ptxas={k: v for k, v in ptxas_summary.items()
                                    if k.startswith("K1")})]
     for kname, krows in flash_rows.items():
-        k = {"flash_fwd": "K3", "flash_bwd_dkv": "K5"}.get(kname)
+        k = {"flash_fwd": "K3", "flash_bwd_dq": "K4",
+             "flash_bwd_dkv": "K5"}[kname]
         entries.append(kernel_entry(kname, FLASH_SOURCE,
                                     FLASH_REPLACES[kname],
                                     train["launches"][kname], krows,
                                     krows[0], ptxas={
                                         n: v for n, v in ptxas_summary.items()
-                                        if k and n.startswith(k)}))
+                                        if n.startswith(k)}))
     entries.append(kernel_entry(
         "fused_moe_ffn", MOE_SOURCE, MOE_REPLACES,
         moe_eng["launches"]["fused_moe_ffn"], moe_rows, moe_rows[0],
@@ -2584,9 +2727,12 @@ def main():
     for kname, ep in (("fused_expert_ffn", ep_eng),
                       ("fused_expert_ffn_int8", ep_int8_eng)):
         krows = k7_rows[kname]
+        weights = "int8 weights" if kname.endswith("int8") else "bf16 weights"
         entries.append(kernel_entry(
             kname, MOE_SOURCE, K7_REPLACES[kname], ep["launches"][kname],
             krows, krows[0],
+            ptxas={n: v for n, v in ptxas_summary.items()
+                   if n.startswith("K7") and weights in n},
             library="the torch.bmm chain: one cuBLAS batched product per "
                     "weight (several calls; for int8 over bf16 weights "
                     "dequantised beforehand)"))

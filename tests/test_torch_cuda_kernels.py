@@ -285,6 +285,75 @@ def test_flash_wgmma_bodies_match_plain_on_card(cuda, hd, h, kv_heads, sq,
     _grad_rows_close(dv, dv_x, sv_, bf)
 
 
+# bf16 K4 runs 128-row query tiles over 128-key tiles on wgmma: its
+# warpgroup body against the plain version in f32 at hd 64 and 128, with
+# the tile edges that body has — a ragged last row tile (S 192), a window
+# edge inside a key tile, GQA groups of 4, the non-causal Sq != Sk case —
+# and a non-zero dlse.
+DQ_WG_SHAPES = [  # (q heads, kv heads, Sq, Sk, causal, window)
+    (4, 4, 192, 192, True, None),
+    (8, 2, 192, 192, True, 70),
+    (4, 1, 320, 320, True, 150),
+    (8, 2, 256, 256, True, None),
+    (4, 1, 192, 320, False, None),
+]
+
+
+def _dq_case(cuda, hd, h, kv_heads, sq, sk, causal, window, seed):
+    from torchdistpackage_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=cuda).to(torch.bfloat16)
+
+    q, do = rnd(2, h, sq, hd), rnd(2, h, sq, hd)
+    k, v = rnd(2, kv_heads, sk, hd), rnd(2, kv_heads, sk, hd)
+    dlse = torch.randn(2, h, sq, generator=g, device=cuda)
+    args = (hd ** -0.5, causal, window)
+    exact = [t.float() for t in (q, k, v, do)]
+    o_x, lse_x = fa.flash_fwd_reference(*exact[:3], *args)
+    delta = fa.flash_delta(o_x, exact[3], dlse)
+    dq_x = fa.flash_bwd_dq_reference(*exact, lse_x, delta, *args)
+    sq_, _, _ = fa.grad_rounding_scale(*exact, lse_x, delta, *args)
+    return (q, k, v, do, lse_x, delta, args), exact, dq_x, sq_
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("h,kv_heads,sq,sk,causal,window", DQ_WG_SHAPES)
+def test_flash_dq_wgmma_body_matches_plain_on_card(cuda, hd, h, kv_heads, sq,
+                                                   sk, causal, window):
+    from torchdistpackage_tpu_torch.ops import flash_attention as fa
+
+    (q, k, v, do, lse, delta, args), _, dq_x, scale = _dq_case(
+        cuda, hd, h, kv_heads, sq, sk, causal, window, seed=sq + hd + h)
+    before = fa.LAUNCHES["flash_bwd_dq"]
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, *args)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_bwd_dq"] == before + 1
+    _grad_rows_close(dq, dq_x, scale, torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_flash_dq_wgmma_planted_faults_fail(cuda):
+    """The row check catches K4's faults: delta read one query row off
+    (the kernel handed delta shifted by one) and the dlse term left out
+    (delta without it)."""
+    from torchdistpackage_tpu_torch.ops import flash_attention as fa
+
+    (q, k, v, do, lse, delta, args), exact, dq_x, scale = _dq_case(
+        cuda, 128, 8, 2, 256, 256, True, 70, seed=3)
+    _grad_rows_close(fa.flash_bwd_dq(q, k, v, do, lse, delta, *args), dq_x,
+                     scale, torch.bfloat16)
+    o_x, _ = fa.flash_fwd_reference(*exact[:3], *args)
+    for bad in (torch.roll(delta, -1, dims=-1).contiguous(),
+                fa.flash_delta(o_x, exact[3], None)):
+        got = fa.flash_bwd_dq(q, k, v, do, lse, bad, *args)
+        with pytest.raises(AssertionError, match="row tolerance"):
+            _grad_rows_close(got, dq_x, scale, torch.bfloat16)
+
+
 # ------------------------------------------------- fused MoE dispatch, K6
 
 
@@ -595,6 +664,88 @@ def test_expert_ffn_kernel_wrapper_refuses_what_it_does_not_take(cuda):
     q = md.quantize_moe_experts(ex)
     with pytest.raises(NotImplementedError, match="int8"):
         md.fused_expert_ffn(dict(ex, w1=q["w1"]), x)
+
+
+@pytest.fixture
+def k7_body(monkeypatch):
+    """Pins K7's shape dispatch to one body: ``k7_body('wgmma')`` sends
+    every bf16 group there, ``k7_body('walk')`` none."""
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+
+    def pin(body):
+        monkeypatch.setattr(md, "EXPERT_FFN_WGMMA_G_MIN",
+                            1 if body == "wgmma" else 1 << 30)
+    return pin
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("body", ["wgmma", "walk"])
+@pytest.mark.parametrize("quantized", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("act", ["gelu", "swiglu"])
+@pytest.mark.parametrize("E,G,D,F", [
+    (2, 200, 256, 512),   # a ragged 128-row tile
+    (2, 130, 320, 192),   # F not a multiple of 128, D not of 256
+])
+def test_expert_ffn_wgmma_body_matches_plain_on_card(cuda, k7_body, body,
+                                                     quantized, act, E, G,
+                                                     D, F):
+    """K7's chunk rows through both of its bodies (the two-pass warpgroup
+    GEMM and the walk), bf16 rows, float and int8 experts, against the
+    plain version in f32, row by row under K6's rule."""
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+
+    bf = torch.bfloat16
+    k7_body(body)
+    ex, x = _expert_inputs(cuda, E=E, G=G, D=D, F=F, act=act, dtype=bf,
+                           seed=E + G + F, quantized=quantized)
+    assert md.expert_ffn_body(G, bf) == body
+    name = "fused_expert_ffn_int8" if quantized else "fused_expert_ffn"
+    before = dict(md.LAUNCHES)
+    got = md.fused_expert_ffn(ex, x)
+    torch.cuda.synchronize()
+    assert {n: md.LAUNCHES[n] - before[n] for n in before} == {
+        n: int(n == name) for n in before}
+    assert got.dtype == bf and got.shape == x.shape
+    _moe_rows_close(got, md.expert_ffn_reference(ex, x),
+                    md.expert_ffn_rounding_scale(ex, x), bf)
+
+
+@pytest.mark.gpu
+def test_expert_ffn_wgmma_planted_faults_fail(cuda, k7_body):
+    """On the warpgroup body the row check catches the walk body's faults
+    (the last F tile left out, b2 added by every F tile, each row in the
+    next expert's block, int8 w2's scale not applied) and the one only
+    this body can make: gate and up swapped, silu(up) * gate."""
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+
+    bf = torch.bfloat16
+    k7_body("wgmma")
+    ex, x = _expert_inputs(cuda, E=2, G=200, D=256, F=256, act="swiglu",
+                           dtype=bf, seed=12)
+    exact = md.expert_ffn_reference(ex, x)
+    scale = md.expert_ffn_rounding_scale(ex, x)
+    _moe_rows_close(md.fused_expert_ffn(ex, x), exact, scale, bf)
+    w2 = ex["w2"].clone()
+    w2[:, -md.TILE:] = 0
+    n_f = ex["w2"].shape[1] // md.TILE
+    bad = [md.fused_expert_ffn(dict(ex, w2=w2), x),
+           md.fused_expert_ffn(dict(ex, b2=ex["b2"] * n_f), x),
+           torch.roll(md.fused_expert_ffn(ex, x), 1, dims=0),
+           md.fused_expert_ffn(dict(ex, w1=ex["w1"].flip(1).contiguous(),
+                                    b1=ex["b1"].flip(1).contiguous()), x)]
+    for got in bad:
+        assert _moe_ratio(got, exact, scale, bf) > 1.0
+    q = md.quantize_moe_experts(ex)
+    q2, s2 = q["w2"]
+    exact_q = md.expert_ffn_reference(q, x)
+    scale_q = md.expert_ffn_rounding_scale(q, x)
+    _moe_rows_close(md.fused_expert_ffn(q, x), exact_q, scale_q, bf)
+    q1, s1 = q["w1"]
+    for got in (md.fused_expert_ffn(dict(q, w2=(q2, torch.ones_like(s2))), x),
+                md.fused_expert_ffn(dict(
+                    q, w1=(q1.flip(1).contiguous(), s1.flip(1).contiguous()),
+                    b1=q["b1"].flip(1).contiguous()), x)):
+        assert _moe_ratio(got, exact_q, scale_q, bf) > 1.0
 
 
 # ------------------------------------------------ the CP carry kernel, K2

@@ -194,6 +194,60 @@ def test_expert_ffn_plain_matches_jax_k7(act, quantized):
         rtol=1e-6, atol=1e-6)
 
 
+def _wide_experts(act, quantized, seed, dim=64, ffn_dim=192):
+    """JAX-initialised experts at K7's warpgroup-body widths (D and F
+    multiples of 64, F not of the body's 128-column F tile), non-zero
+    biases, optionally ``quantize_moe_experts``-ed; two local experts."""
+    cfg = jmoe.MoEConfig(dim=dim, ffn_dim=ffn_dim, num_experts=4, top_k=2,
+                         act=act)
+    ex = jax.tree.map(np.asarray, jmoe.init_moe_params(
+        jax.random.PRNGKey(seed), cfg))["experts"]
+    rs = np.random.RandomState(seed)
+    for b in ("b1", "b2"):
+        ex[b] = rs.randn(*ex[b].shape).astype(np.float32) * 0.1
+    if quantized:
+        ex = jax.tree.map(np.asarray, jmd.quantize_moe_experts(ex))
+    return {n: (tuple(a[:2] for a in v) if isinstance(v, tuple) else v[:2])
+            for n, v in ex.items()}
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("act", ["gelu", "swiglu"])
+def test_expert_ffn_plain_matches_jax_k7_at_chunk_rows(act, quantized):
+    """The rows K7's warpgroup body takes: [e_loc 2, G 200, D 64] (G a
+    ragged 128-row tile past the body's threshold), F 192 (a multiple of
+    64, not of the body's 128-column F tile); pad rows included."""
+    ex = _wide_experts(act, quantized, seed=6)
+    x = np.random.RandomState(7).randn(2, 200, 64).astype(np.float32)
+    x[:, 90:115] = 0  # pad rows, as empty capacity slots
+    jex = jax.tree.map(jnp.asarray, ex)
+    k7 = np.asarray(jmd._pallas_expert_ffn(jex, jnp.asarray(x)))
+    ref = np.asarray(jmd._ep_ffn_reference(jex, jnp.asarray(x)))
+    before = dict(md.LAUNCHES)
+    got = md.fused_expert_ffn(_t(ex), torch.from_numpy(x))
+    assert md.LAUNCHES == before  # CPU tensors: the plain version
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    for want in (k7, ref):
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("G,dtype,body", [
+    (8, torch.bfloat16, "walk"),      # EP 1 decode: [8, 8, 4096]
+    (32, torch.bfloat16, "walk"),     # EP 4 decode: [2, 32, 4096]
+    (63, torch.bfloat16, "walk"),
+    (64, torch.bfloat16, "wgmma"),
+    (200, torch.bfloat16, "wgmma"),
+    (4096, torch.bfloat16, "wgmma"),  # EP 1 chunk: [8, 4096, 4096]
+    (4096, torch.float32, "walk"),    # f32 rows: CUDA-core body only
+])
+def test_expert_ffn_body_routes_by_rows_and_dtype(G, dtype, body):
+    """K7's shape dispatch between its two hand-written bodies: a group of
+    at least ``EXPERT_FFN_WGMMA_G_MIN`` bf16 rows takes the warpgroup
+    body, decode's few rows and f32 rows the walk."""
+    assert md.EXPERT_FFN_WGMMA_G_MIN == 64
+    assert md.expert_ffn_body(G, dtype) == body
+
+
 # ------------------------------------------------------------ moe_forward
 
 

@@ -231,3 +231,63 @@ def test_wrappers_take_s192_and_refuse_s96():
             call(q)
     assert tfa.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dq": 0,
                             "flash_bwd_dkv": 0}
+
+
+# bf16 K4 runs 128-row query tiles over 128-key tiles (wgmma, TMA-fed):
+# these are the edges of that tiling — a ragged last 128-row tile (S 192),
+# a window edge inside a 128-key tile, GQA groups of 4 at hd 128, the
+# non-causal Sq != Sk case — each with a non-zero lse cotangent (dlse,
+# folded into delta).  dq's plain version is held against JAX's own
+# ``_bwd`` dq (Pallas, interpret mode), f32, from the same numpy inputs.
+DQ_EDGE_CASES = {
+    # name: (B, H, Hkv, Sq, Sk, hd, causal, window)
+    "s192_hd64_g1_causal": (1, 2, 2, 192, 192, 64, True, None),
+    "s192_hd128_g4_causal": (1, 4, 1, 192, 192, 128, True, None),
+    "s256_hd128_g4_w70": (1, 4, 1, 256, 256, 128, True, 70),
+    "s320_hd64_g1_w150": (1, 2, 2, 320, 320, 64, True, 150),
+    "sq192_sk320_hd128_g4_full": (1, 4, 1, 192, 320, 128, False, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DQ_EDGE_CASES))
+def test_dq_plain_version_matches_jax_at_k4_tile_edges(case):
+    from torchdistpackage_tpu.ops.flash_attention import _bwd, _fwd
+
+    b, h, hkv, sq, sk, hd, causal, window = DQ_EDGE_CASES[case]
+    rs = np.random.RandomState(sum(map(ord, case)))
+    q = rs.randn(b, h, sq, hd).astype(np.float32)
+    k = rs.randn(b, hkv, sk, hd).astype(np.float32)
+    v = rs.randn(b, hkv, sk, hd).astype(np.float32)
+    do = rs.randn(b, h, sq, hd).astype(np.float32)
+    dlse = rs.randn(b, h, sq).astype(np.float32)
+    scale, groups = hd ** -0.5, h // hkv
+
+    def flat(a):
+        return jnp.asarray(a.reshape(-1, *a.shape[2:]))
+
+    jq, jk, jv, jdo = map(flat, (q, k, v, do))
+    jo, jlse = _fwd(jq, jk, jv, scale, causal, 64, 64, groups, window)
+    jdq, _, _ = _bwd(scale, causal, 64, 64, groups, window,
+                     (jq, jk, jv, jo, jlse), (jdo, flat(dlse)[..., None]))
+
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o, lse = tfa.flash_fwd_reference(tq, tk, tv, scale, causal, window)
+    delta = tfa.flash_delta(o, tdo, torch.from_numpy(dlse))
+    dq = tfa.flash_bwd_dq_reference(tq, tk, tv, tdo, lse, delta, scale,
+                                    causal, window)
+    _close(dq.reshape(jdq.shape), jdq, GRAD_TOL, f"{case}: dq")
+
+
+def test_dq_wrapper_takes_s192_and_refuses_s96():
+    """``flash_bwd_dq`` as ``test_wrappers_take_s192_and_refuse_s96`` holds
+    K3's and K5's wrappers: S 192 (a ragged last 128-row tile of the
+    warpgroup body) reaches the device check, S 96 is refused by the shape
+    check, and nothing is counted."""
+    meta = torch.device("meta")
+    for s, match in ((192, "unsupported device"), (96, "multiples of 64")):
+        q = torch.empty(1, 2, s, 64, device=meta, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match=match):
+            tfa.flash_bwd_dq(q, q, q, q, q[..., 0].float(),
+                             q[..., 0].float(), 0.125, True, None)
+    assert tfa.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                            "flash_bwd_dkv": 0}

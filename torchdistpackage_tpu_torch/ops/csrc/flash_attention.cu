@@ -5,7 +5,8 @@
 // Replaces three TPU kernels of torchdistpackage_tpu/ops/flash_attention.py:
 //   K3  _fwd (:220, body _fwd_kernel :174)
 //       -> flash_fwd_wgmma_kernel (bf16), flash_fwd_kernel (f32)
-//   K4  _bwd dq (:369, body _bwd_dq_kernel :262) -> flash_bwd_dq_kernel
+//   K4  _bwd dq (:369, body _bwd_dq_kernel :262)
+//       -> flash_bwd_dq_wgmma_kernel (bf16), flash_bwd_dq_kernel (f32)
 //   K5  _bwd dkv (:395, body _bwd_dkv_kernel :301)
 //       -> flash_bwd_dkv_wgmma_kernel (bf16), flash_bwd_dkv_kernel (f32)
 //
@@ -16,22 +17,32 @@
 // softmax's exponentials (on the special-function unit, 16 a clock an SM)
 // take about as long as the products, so they matter as much.
 //
-// bf16 K3 and K5, the training path, run on the warpgroup MMA (hopper.cuh):
+// bf16 K3, K4 and K5, the training path, run on the warpgroup MMA
+// (hopper.cuh):
 // - Every product is wgmma m64nNk16, bf16 in, f32 accumulate; a CTA has
 //   two consumer warpgroups of 64 rows.  Tiles come in by TMA under the
 //   128-byte swizzle, completed on mbarriers, from 3-D maps [B*H, S, hd]
 //   (a row tile past S is zero-filled, never the next head's rows).  An
-//   operand not stored K-major (V for P.V; dO and Q for dV and dK) is read
-//   MN-major with wgmma's transpose bit: no transposed copy.
-// - P (K3), P^T and dS^T (K5) go from the f32 accumulator straight into
-//   bf16 A fragments in registers (for 16-bit A the accumulator layout is
-//   the next product's A layout): no shared-memory round trip.
+//   operand not stored K-major (V for P.V; K for dS.K; dO and Q for dV and
+//   dK) is read MN-major with wgmma's transpose bit: no transposed copy.
+// - P (K3), dS (K4), P^T and dS^T (K5) go from the f32 accumulator
+//   straight into bf16 A fragments in registers (for 16-bit A the
+//   accumulator layout is the next product's A layout): no shared-memory
+//   round trip.  A masked P or dS is selected to 0 (K4, K5), not
+//   multiplied.
 // - exp2 on the special-function unit with the scale and log2(e) folded
 //   into one FMA; per-element masks only on tiles that cross the diagonal,
 //   the window edge or the end of the keys (queries).  A masked score is
 //   -inf and a row with no visible key yet keeps max -inf, scaled by 0.
 // - K3: 128 query rows a CTA and one producer warp; Q loaded once, K and
 //   V tiles of 128 keys through 2 stages on separate barriers.
+// - K4: 128 query rows a CTA, Q and dO loaded once, K and V tiles of 128
+//   keys through 3 stages at hd 64 and 2 at hd 128 on one barrier a stage;
+//   lse and delta of a thread's two rows in registers.  S, dP and dq (and
+//   the dS fragments) need ~200 registers a thread at hd 128, so it hands
+//   registers over as K5 does.  64-key tiles (4 / 3 stages), which would
+//   fit without the hand-over, measured slower at both the training shape
+//   and Mistral's, and were not kept.
 // - K5: 128 keys of one KV head a CTA, walking (query head of the group,
 //   query tile) pairs so the GQA sum stays in registers; query tiles of 64
 //   rows at hd 128 and 128 at hd 64, 3 stages; lse and delta by bulk copy
@@ -48,13 +59,13 @@
 // - Not done yet: overlapping a K3 warpgroup's softmax with its own or the
 //   other warpgroup's products (an FA3-style intra-warpgroup overlap and a
 //   two-warpgroup ping-pong on named barriers, unserialised, both measured
-//   no faster than this body at hd 64), and K4.
+//   no faster than this body at hd 64), and the same in K4 and K5.
 //
-// K4 and the f32 instantiations keep the first body: mma.sync m16n8k16 (or,
-// for f32, the same register layout on the CUDA cores — exact f32 for
-// checks; wgmma has no f32), one warp per 16 rows, four warps (64 rows) a
-// CTA, the other side's tiles through a cp.async double buffer, P and dS
-// through a per-warp shared-memory tile.
+// The f32 instantiations keep the first body's layout on the CUDA cores —
+// exact f32 for checks; wgmma has no f32: the m16n8 accumulator layout,
+// one warp per 16 rows, four warps (64 rows) a CTA, the other side's tiles
+// through a cp.async double buffer, P and dS through a per-warp
+// shared-memory tile.
 //
 // Common to both bodies, against the TPU kernels' sequential grid:
 // - The TPU grid carries (acc, m, l) across its innermost KV grid dimension.
@@ -71,7 +82,7 @@
 //   dS to k's dtype before dS.K (:291), P^T and dS^T to the inputs' dtype
 //   before the dk/dv products (:339, :342); lse, delta and every
 //   accumulator stay f32.
-// - The mma.sync body uses the finite NEG_INF (-1e30) of the reference: a
+// - The f32 body uses the finite NEG_INF (-1e30) of the reference: a
 //   row whose keys in a tile are all masked is wiped by the later
 //   correction, never NaN.
 
@@ -101,10 +112,6 @@ template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -138,74 +145,31 @@ __device__ __forceinline__ void copy_f32(float* dst, const float* src, int n) {
     cp_async16(dst + 4 * i, src + 4 * i);
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo,
-                                          __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// One warp: c[j] (+)= A[16 x K] . B[K x 8j..8j+7] for j < NT8, in the
-// m16n8 accumulator layout (lane = 4g + t holds rows g and g + 8, columns
-// 2t and 2t + 1 of each 8-column tile).  A is row-major in shared memory
-// (A(m, k) = a[m * lda + k]); B(k, n) = b[n * ldb + k] when BT ("stored
-// transposed", e.g. K for Q.Kᵀ), else b[k * ldb + n].
+// One warp: c[j] (+)= A[16 x K] . B[K x 8j..8j+7] for j < NT8, exact f32
+// products on the CUDA cores in the m16n8 accumulator layout (lane = 4g +
+// t holds rows g and g + 8, columns 2t and 2t + 1 of each 8-column tile).
+// A is row-major in shared memory (A(m, k) = a[m * lda + k]); B(k, n) =
+// b[n * ldb + k] when BT ("stored transposed", e.g. K for Q.Kᵀ), else
+// b[k * ldb + n].
 template <typename T, bool BT, int K, int NT8>
 __device__ __forceinline__ void warp_gemm(float (&c)[NT8][4], const T* a,
                                           int lda, const T* b, int ldb) {
   const int lane = threadIdx.x % 32;
   const int g = lane >> 2;
   const int t = lane & 3;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-#pragma unroll
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      uint32_t af[4];
-      af[0] = ld32(a + g * lda + k0 + 2 * t);
-      af[1] = ld32(a + (g + 8) * lda + k0 + 2 * t);
-      af[2] = ld32(a + g * lda + k0 + 2 * t + 8);
-      af[3] = ld32(a + (g + 8) * lda + k0 + 2 * t + 8);
-#pragma unroll
-      for (int j = 0; j < NT8; ++j) {
-        const int n = j * 8 + g;
-        uint32_t bf[2];
-        if (BT) {
-          bf[0] = ld32(b + n * ldb + k0 + 2 * t);
-          bf[1] = ld32(b + n * ldb + k0 + 2 * t + 8);
-        } else {
-          bf[0] = pack2(b[(k0 + 2 * t) * ldb + n], b[(k0 + 2 * t + 1) * ldb + n]);
-          bf[1] = pack2(b[(k0 + 2 * t + 8) * ldb + n],
-                        b[(k0 + 2 * t + 9) * ldb + n]);
-        }
-        mma_bf16(c[j], af, bf);
-      }
-    }
-  } else {
-    // f32: the same layout, exact products on the CUDA cores
 #pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      const float a0 = to_f(a[g * lda + k]);
-      const float a1 = to_f(a[(g + 8) * lda + k]);
+  for (int k = 0; k < K; ++k) {
+    const float a0 = to_f(a[g * lda + k]);
+    const float a1 = to_f(a[(g + 8) * lda + k]);
 #pragma unroll
-      for (int j = 0; j < NT8; ++j) {
-        const int n = j * 8 + 2 * t;
-        const float b0 = to_f(BT ? b[n * ldb + k] : b[k * ldb + n]);
-        const float b1 = to_f(BT ? b[(n + 1) * ldb + k] : b[k * ldb + n + 1]);
-        c[j][0] += a0 * b0;
-        c[j][1] += a0 * b1;
-        c[j][2] += a1 * b0;
-        c[j][3] += a1 * b1;
-      }
+    for (int j = 0; j < NT8; ++j) {
+      const int n = j * 8 + 2 * t;
+      const float b0 = to_f(BT ? b[n * ldb + k] : b[k * ldb + n]);
+      const float b1 = to_f(BT ? b[(n + 1) * ldb + k] : b[k * ldb + n + 1]);
+      c[j][0] += a0 * b0;
+      c[j][1] += a0 * b1;
+      c[j][2] += a1 * b0;
+      c[j][3] += a1 * b1;
     }
   }
 }
@@ -381,6 +345,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     int H, int G, int Sq, int Sk, int causal, int window,
                     float scale) {
+  static_assert(std::is_same<T, float>::value,
+                "bf16 runs flash_bwd_dq_wgmma_kernel");
   using C = DqCfg<T, D>;
   constexpr int BN = C::BN, LD = C::LD, LP = C::LP, NT8 = BN / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -609,11 +575,6 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int CONSUMER_WARPS = 8;  // two consumer warpgroups of 64 rows
 
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~static_cast<uintptr_t>(1023));
-}
-
 // quad (4 lanes = one accumulator row) reductions
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -664,7 +625,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   using C = FwdWg<D>;
   constexpr int BM = C::BM, BN = C::BN, NS = C::NS, NB = D / 64;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* qs = align1024(smem_raw);
+  unsigned char* qs = hopper::align1024(smem_raw);
   unsigned char* ks = qs + C::Q_BYTES;
   unsigned char* vs = ks + NS * C::KV_BYTES;
   uint64_t* bar_q = reinterpret_cast<uint64_t*>(vs + NS * C::KV_BYTES);
@@ -874,7 +835,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   using C = DkvWg<D>;
   constexpr int BK = C::BK, BQ = C::BQ, NS = C::NS, NB = D / 64;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* ks = align1024(smem_raw);
+  unsigned char* ks = hopper::align1024(smem_raw);
   unsigned char* vs = ks + C::KV_BYTES;
   unsigned char* st0 = vs + C::KV_BYTES;  // stage s: Q, dO, lse, delta
   uint64_t* bar_kv = reinterpret_cast<uint64_t*>(st0 + NS * C::STAGE);
@@ -1060,6 +1021,213 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+template <int D>
+struct DqWg {
+  static constexpr int BM = 128;  // query rows a CTA
+  static constexpr int BK = 128;  // keys a tile
+  static constexpr int NS = D == 64 ? 3 : 2;  // K/V stages
+  // two consumer warpgroups and a producer warpgroup, which hands its
+  // registers over as K5's does: S, dP, dq and the dS fragments take ~200
+  // a consumer thread at hd 128
+  static constexpr int THREADS = 3 * 128;
+  static constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+  static constexpr int Q_BYTES = BM * D * 2;   // Q (or dO) of the CTA
+  static constexpr int KV_BYTES = BK * D * 2;  // one K (or V) tile
+  static constexpr int BAR_BYTES = 8 * (1 + 2 * NS);
+  static constexpr size_t SMEM =
+      1024 + 2 * Q_BYTES + 2 * NS * KV_BYTES + BAR_BYTES;
+};
+
+// K4 in bf16.  One CTA: 128 query rows of one (batch, head) — consumer
+// warpgroup w owns rows 64w..64w+63 — and a producer warpgroup, one thread
+// of which loads Q and dO once and streams K and V tiles of BK keys
+// through an NS-stage ring (one barrier a stage).  Per key tile: S = Q.K^T
+// and dP = dO.V^T by wgmma (A = the Q or dO rows, B = the K or V tile,
+// both K-major); P = exp2(S c - lse log2 e) and dS = P (dP - delta) in
+// registers, rounded to bf16 straight into A fragments; dq += dS.K by
+// wgmma with A from registers and B = the K tile read MN-major (transpose
+// bit).  lse and delta of the thread's two rows live in registers.
+template <int D>
+__global__ void __launch_bounds__(DqWg<D>::THREADS, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dq, int H, int G,
+                          int Sq, int Sk, int causal, int window,
+                          float scale) {
+  using C = DqWg<D>;
+  constexpr int BM = C::BM, BK = C::BK, NS = C::NS, NB = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = hopper::align1024(smem_raw);
+  unsigned char* dos = qs + C::Q_BYTES;
+  unsigned char* ks = dos + C::Q_BYTES;
+  unsigned char* vs = ks + NS * C::KV_BYTES;
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(vs + NS * C::KV_BYTES);
+  uint64_t* bar_f = bar_q + 1;   // a stage has landed
+  uint64_t* bar_e = bar_f + NS;  // a stage is free again
+
+  // warp-uniform as far as the compiler can see (see flash_fwd_wgmma_kernel;
+  // setmaxnreg needs it too)
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  const int lane = threadIdx.x % 32;
+  // heavy (late, causal) row tiles first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int bkv = b * (H / G) + (bh % H) / G;
+  const int hi = causal ? min(Sk, q0 + BM) : Sk;
+  const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int jlo = lo / BK;
+  const int n = (hi + BK - 1) / BK - jlo;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(bar_q, 1);
+    for (int s = 0; s < NS; ++s) {
+      hopper::mbar_init(bar_f + s, 1);
+      hopper::mbar_init(bar_e + s, CONSUMER_WARPS * 32);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+  if (warp >= CONSUMER_WARPS) {  // producer warpgroup
+    hopper::setmaxnreg_dec<C::PRODUCER_REGS>();
+    if (warp == CONSUMER_WARPS && lane == 0) {
+      hopper::mbar_expect_tx(bar_q, 2 * C::Q_BYTES);
+      for (int nb = 0; nb < NB; ++nb) {
+        hopper::tma_load_3d(qs + nb * BM * 128, &tq, bar_q, nb * 64, q0, bh);
+        hopper::tma_load_3d(dos + nb * BM * 128, &tdo, bar_q, nb * 64, q0,
+                            bh);
+      }
+      for (int it = 0; it < n; ++it) {
+        const int s = it % NS;
+        if (it >= NS) hopper::mbar_wait(bar_e + s, ((it / NS) - 1) & 1);
+        const int row = (jlo + it) * BK;
+        hopper::mbar_expect_tx(bar_f + s, 2 * C::KV_BYTES);
+        for (int nb = 0; nb < NB; ++nb) {
+          hopper::tma_load_3d(ks + s * C::KV_BYTES + nb * BK * 128, &tk,
+                              bar_f + s, nb * 64, row, bkv);
+          hopper::tma_load_3d(vs + s * C::KV_BYTES + nb * BK * 128, &tv,
+                              bar_f + s, nb * 64, row, bkv);
+        }
+      }
+    }
+    return;
+  }
+  hopper::setmaxnreg_inc<C::CONSUMER_REGS>();
+
+  const int wg = warp / 4;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int w0 = q0 + wg * 64;              // this warpgroup's rows
+  const int r0 = w0 + (warp % 4) * 16 + g;  // this thread's: r0, r0 + 8
+  const float c = scale * LOG2E;
+  float lse2[2], dlt[2];  // lse log2(e) and delta of the thread's rows
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + h * 8;
+    const long long r = static_cast<long long>(bh) * Sq + row;
+    lse2[h] = row < Sq ? lse[r] * LOG2E : 0.f;
+    dlt[h] = row < Sq ? delta[r] : 0.f;
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  hopper::mbar_wait(bar_q, 0);
+  const uint32_t qa = hopper::smem_u32(qs) + wg * 64 * 128;
+  const uint32_t da = hopper::smem_u32(dos) + wg * 64 * 128;
+  for (int it = 0; it < n; ++it) {
+    const int s = it % NS;
+    const int kt0 = (jlo + it) * BK;
+    // wait even on a tile it skips: an arrival on bar_e must not run ahead
+    // of the stage's current round
+    hopper::mbar_wait(bar_f + s, (it / NS) & 1);
+    // a tile none of whose (query, key) pairs this warpgroup sees adds 0
+    const bool dark = w0 >= Sq || (causal && kt0 > w0 + 63) ||
+                      (window > 0 && kt0 + BK - 1 <= w0 - window);
+    if (dark) {
+      hopper::mbar_arrive(bar_e + s);  // every consumer thread
+      continue;
+    }
+    const uint32_t ka = hopper::smem_u32(ks + s * C::KV_BYTES);
+    const uint32_t va = hopper::smem_u32(vs + s * C::KV_BYTES);
+
+    float sc[BK / 2], dp[BK / 2];
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::Wgmma<BK>::template ss<0>(
+          sc, hopper::desc_k(qa + (kk / 4) * BM * 128 + (kk % 4) * 32),
+          hopper::desc_k(ka + (kk / 4) * BK * 128 + (kk % 4) * 32), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::Wgmma<BK>::template ss<0>(
+          dp, hopper::desc_k(da + (kk / 4) * BM * 128 + (kk % 4) * 32),
+          hopper::desc_k(va + (kk / 4) * BK * 128 + (kk % 4) * 32), kk > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+    hopper::fence_regs(dp);
+
+    // per-element masks only on tiles that cross the diagonal, the window
+    // edge, the end of the keys or the end of the queries
+    const bool edge = kt0 + BK > Sk || w0 + 63 >= Sq ||
+                      (causal && kt0 + BK - 1 > w0) ||
+                      (window > 0 && kt0 <= w0 + 63 - window);
+    uint32_t dsf[BK / 16][4];
+#pragma unroll
+    for (int i = 0; i < BK / 2; i += 2) {
+      const int h = (i >> 1) & 1;
+      const float p0 = exp2_(fmaf(sc[i], c, -lse2[h]));
+      const float p1 = exp2_(fmaf(sc[i + 1], c, -lse2[h]));
+      float d0 = p0 * (dp[i] - dlt[h]);
+      float d1 = p1 * (dp[i + 1] - dlt[h]);
+      if (edge) {
+        // select, not multiply: a masked score's P is not 0 by itself
+        const int row = r0 + h * 8;
+        const int col = kt0 + (i >> 2) * 8 + 2 * t;
+        if (row >= Sq || col >= Sk || (causal && !visible(row, col, window)))
+          d0 = 0.f;
+        if (row >= Sq || col + 1 >= Sk ||
+            (causal && !visible(row, col + 1, window)))
+          d1 = 0.f;
+      }
+      // dS rounded to bf16 as the TPU kernel rounds it to k's dtype;
+      // accumulator pair (i, i + 1) -> A fragment of k step i / 8, register
+      // (i / 2) % 4
+      dsf[i / 8][(i / 2) % 4] = hopper::pack_bf16(d0, d1);
+    }
+
+    hopper::fence_regs(acc);
+    hopper::fence_regs(dsf);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      hopper::Wgmma<D>::template rs<1>(
+          acc, dsf[kk], hopper::desc_mn(ka + kk * 16 * 128, BK * 128), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    hopper::mbar_arrive(bar_e + s);  // every consumer thread
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + h * 8;
+    if (row >= Sq) continue;
+    __nv_bfloat16* drow = dq + (static_cast<long long>(bh) * Sq + row) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(drow + j * 8 + 2 * t) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h] * scale,
+                                acc[4 * j + 2 * h + 1] * scale);
+    }
+  }
+}
+
 // ------------------------------------------------------------------ launch
 
 template <typename Kern>
@@ -1124,7 +1292,7 @@ cudaError_t bwd_dkv_wgmma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// bf16 K3 and K5 run the warpgroup bodies; f32 the CUDA-core ones
+// bf16 K3, K4 and K5 run the warpgroup bodies; f32 the CUDA-core ones
 template <typename T, int D>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
                 void* lse, const Shape& s, cudaStream_t st) {
@@ -1144,21 +1312,48 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
   }
 }
 
+template <int D>
+cudaError_t bwd_dq_wgmma(const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse,
+                         const void* delta, void* dq, const Shape& s,
+                         cudaStream_t st) {
+  using C = DqWg<D>;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!encode_tile_map(&tq, q, s.B * s.H, s.Sq, D, C::BM) ||
+      !encode_tile_map(&tdo, dout, s.B * s.H, s.Sq, D, C::BM) ||
+      !encode_tile_map(&tk, k, s.B * s.Hkv, s.Sk, D, C::BK) ||
+      !encode_tile_map(&tv, v, s.B * s.Hkv, s.Sk, D, C::BK))
+    return cudaErrorNotSupported;
+  auto kernel = flash_bwd_dq_wgmma_kernel<D>;
+  cudaError_t err = prepare(kernel, C::SMEM);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((s.Sq + C::BM - 1) / C::BM, s.B * s.H), C::THREADS, C::SMEM,
+           st>>>(tq, tk, tv, tdo, static_cast<const float*>(lse),
+                 static_cast<const float*>(delta),
+                 static_cast<__nv_bfloat16*>(dq), s.H, s.H / s.Hkv, s.Sq,
+                 s.Sk, s.causal, s.window, s.scale);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t bwd_dq(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dq, const Shape& s, cudaStream_t st) {
-  const size_t smem = DqCfg<T, D>::SMEM;
-  auto kernel = flash_bwd_dq_kernel<T, D>;
-  cudaError_t err = prepare(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(s.Sq / BM, s.B * s.H), NTHREADS, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), s.H, s.H / s.Hkv, s.Sq, s.Sk, s.causal, s.window,
-      s.scale);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return bwd_dq_wgmma<D>(q, k, v, dout, lse, delta, dq, s, st);
+  } else {
+    const size_t smem = DqCfg<T, D>::SMEM;
+    auto kernel = flash_bwd_dq_kernel<T, D>;
+    cudaError_t err = prepare(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3(s.Sq / BM, s.B * s.H), NTHREADS, smem, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<T*>(dq), s.H, s.H / s.Hkv, s.Sq, s.Sk, s.causal,
+        s.window, s.scale);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T, int D>
@@ -1238,9 +1433,8 @@ extern "C" int tdp_flash_smem_bytes(int kernel, int dtype_tag, int hd) {
   const bool h = hd == 128;
   size_t n = 0;
   if (dtype_tag == 0) {
-    using T = __nv_bfloat16;
     n = kernel == 0 ? (h ? FwdWg<128>::SMEM : FwdWg<64>::SMEM)
-        : kernel == 1 ? (h ? DqCfg<T, 128>::SMEM : DqCfg<T, 64>::SMEM)
+        : kernel == 1 ? (h ? DqWg<128>::SMEM : DqWg<64>::SMEM)
                       : (h ? DkvWg<128>::SMEM : DkvWg<64>::SMEM);
   } else if (dtype_tag == 1) {
     using T = float;

@@ -2,9 +2,10 @@
 // shared-memory matrix descriptor of wgmma under the 128-byte swizzle, the
 // m64nNk16 bf16 -> f32 products (A from shared memory or from registers,
 // B with or without the transpose bit), their fence / commit / wait,
-// mbarrier init / expect-tx / parity wait, TMA tile loads and bulk copies,
-// and setmaxnreg.  Header-only; every function is device code except
-// encode_tile_map, which builds a TMA descriptor on the host.
+// mbarrier init / expect-tx / parity wait, the async-proxy fence, TMA tile
+// loads and bulk copies, and setmaxnreg.  Header-only; every function is
+// device code except encode_map / encode_tile_map, which build a TMA
+// descriptor on the host.
 //
 // Tile layout the descriptors assume: a tile of R rows x 64 bf16 columns
 // (128 bytes a row) loaded by TMA with CU_TENSOR_MAP_SWIZZLE_128B into a
@@ -32,6 +33,11 @@ namespace hopper {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// the first 1024-byte boundary at or after p (a swizzle atom's alignment)
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~static_cast<uintptr_t>(1023));
 }
 
 // ------------------------------------------------------------ descriptors
@@ -190,6 +196,57 @@ struct Wgmma<128> {
   }
 };
 
+template <>
+struct Wgmma<256> {
+  template <int TRANS_B>
+  static __device__ __forceinline__ void ss(float (&d)[128], uint64_t a,
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+        "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+        "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+        "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+        "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+        "%127 "
+        "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+          "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+          "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+          "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+          "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+          "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+          "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+          "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+          "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_B));
+  }
+};
+
 // Two f32 values as one bf16x2 register (lo in the low half), rounded to
 // nearest.  For 16-bit types, accumulator registers d[8k..8k+7] of an
 // m64nN product, packed in pairs, are the A fragment of k step k of the
@@ -245,6 +302,13 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
       : "memory");
 }
 
+// Makes this thread's ordinary shared-memory stores visible to the async
+// proxy (wgmma, TMA) once another thread has acquired them through an
+// mbarrier: the writer fences, then arrives.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // -------------------------------------------------------------------- TMA
 
 // One box of a 3-D tensor map at (c0, c1, c2), innermost first, into
@@ -288,14 +352,15 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 
 // ------------------------------------------------------------------ host
 
-// A 3-D TMA map over a contiguous bf16 tensor [outer, rows, cols] (cols 64
-// or 128), boxes of 64 columns x box_rows rows x 1 under the 128-byte
-// swizzle, zero fill past the edges.  cuTensorMapEncodeTiled is a driver
-// function; the library links only the runtime, so it is found through
-// cudaGetDriverEntryPoint once.  Returns false if the driver lacks it or
-// refuses the map.
-inline bool encode_tile_map(CUtensorMap* map, const void* base, int outer,
-                            int rows, int cols, int box_rows) {
+// A 3-D TMA map over a contiguous tensor [outer, rows, cols] of bf16 or
+// 8-bit elements, boxes of box_cols x box_rows x 1, zero fill past the
+// edges.  cuTensorMapEncodeTiled is a driver function; the library links
+// only the runtime, so it is found through cudaGetDriverEntryPoint once.
+// Returns false if the driver lacks it or refuses the map.
+inline bool encode_map(CUtensorMap* map, const void* base,
+                       CUtensorMapDataType dtype, int elem_bytes, int outer,
+                       int rows, int cols, int box_cols, int box_rows,
+                       CUtensorMapSwizzle swizzle) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = [] {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
@@ -309,13 +374,22 @@ inline bool encode_tile_map(CUtensorMap* map, const void* base, int outer,
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(outer)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 2,
-                                 static_cast<cuuint64_t>(rows) * cols * 2};
-  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint64_t strides[2] = {
+      static_cast<cuuint64_t>(cols) * elem_bytes,
+      static_cast<cuuint64_t>(rows) * cols * elem_bytes};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return encode(map, dtype, 3, const_cast<void*>(base), dims, strides, box,
+                elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The wgmma operand map: bf16 [outer, rows, cols], boxes of 64 columns (128
+// bytes) x box_rows rows under the 128-byte swizzle.
+inline bool encode_tile_map(CUtensorMap* map, const void* base, int outer,
+                            int rows, int cols, int box_rows) {
+  return encode_map(map, base, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, outer,
+                    rows, cols, 64, box_rows, CU_TENSOR_MAP_SWIZZLE_128B);
 }

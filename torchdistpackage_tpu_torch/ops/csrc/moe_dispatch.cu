@@ -68,10 +68,9 @@
 // - Rounding: for bf16 the activation is rounded to bf16 before the second
 //   tensor-core product; the TPU kernel keeps it in f32.  Every accumulator
 //   stays f32.
-// Fragments are assembled with 8/16/32-bit shared loads, as in the flash
-// kernels.  A faster version would use wgmma fed by TMA in a persistent
-// grouped GEMM over the filled row groups, with a larger F tile (fewer
-// atomics) or a second pass for the F reduction (later work).
+// Fragments are assembled with 8/16/32-bit shared loads.  K6 still runs
+// this body at every row count; K7's chunk rows run the two-pass
+// warpgroup GEMM below, which K6's prefill rows are to move onto next.
 //
 // K7, the expert FFN of expert-parallel (EP) layers: expert_ffn_kernel and
 // expert_ffn_int8_kernel replace _pallas_expert_ffn (:479, pallas_call
@@ -81,24 +80,32 @@
 //   y[e, g] = FFN_e(x[e, g]) for every g < G — every row, as on the TPU:
 //   a pad row (an empty capacity slot, zeros) gives act(b1).W2 + b2, which
 //   the combine discards.
-// Both run the body above with the identity slot map (IDENT): slot c of
-// expert e is row e G + c of x and of y, weight 1, so there is no empty-
-// tile skip (the TPU kernel computes every row too).  Grid (ceil(G / 64),
-// F / 64, e_loc); F-tile partials meet in the zeroed f32 y by atomicAdd
-// (their order varies from run to run), b2 is added by the first F tile,
-// and the wrapper casts y to x's type.  Bound on an H100: at decode (ep 1,
-// [8, 8, 4096], F 14336) the bytes of all e_loc experts' weights, 2.8 GB
-// bf16 -> 0.84 ms, 1.4 GB int8 -> 0.42 ms; at a 512-row chunk of 8 slots
-// ([8, 4096, 4096]) the operations, 2 e_loc G 3 D F = 1.15e13 FLOP ->
-// 11.7 ms — E / k = 4x K6's work on the same chunk, the padded-compute tax
-// of C = T that the reference's EP path pays by its semantics.  bf16 rounds
-// the activation to bf16 before the second product, as K6 does.
+// Bound on an H100: at decode (ep 1, [8, 8, 4096], F 14336) the bytes of
+// all e_loc experts' weights, 2.8 GB bf16 -> 0.84 ms, 1.4 GB int8 -> 0.42
+// ms; at a 512-row chunk of 8 slots ([8, 4096, 4096]) the operations,
+// 2 e_loc G 3 D F = 1.15e13 FLOP -> 11.7 ms — E / k = 4x K6's work on the
+// same chunk, the padded-compute tax of C = T that the reference's EP path
+// pays by its semantics.  bf16 rounds the activation to bf16 before the
+// second product, as K6 does.  Two bodies, chosen by the wrapper from the
+// rows' count and type (ops/moe_dispatch.py expert_ffn_body):
+// - decode's few rows and f32 rows: the body above with the identity slot
+//   map (IDENT): slot c of expert e is row e G + c of x and of y, weight
+//   1, so there is no empty-tile skip (the TPU kernel computes every row
+//   too).  Grid (ceil(G / 64), F / 64, e_loc); F-tile partials meet in
+//   the zeroed f32 y by atomicAdd (their order varies from run to run), b2
+//   is added by the first F tile, and the wrapper casts y to x's type.
+// - bf16 chunk rows (G >= 64): expert_ffn_up_wgmma_kernel and
+//   expert_ffn_down_wgmma_kernel, a two-pass grouped GEMM on the warpgroup
+//   MMA (described where they are defined): no atomics, no f32 y, output
+//   in x's type, the same bits from run to run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -621,6 +628,320 @@ bool bad_expert_shape(int E, int G, int D, int F) {
          static_cast<long long>(E) * G > 0x7fffffffLL;
 }
 
+// ----------------------------------------- K7 chunk rows on the warpgroup MMA
+//
+// A two-pass grouped GEMM for bf16 rows, one body templated on the weight
+// type (bf16, or int8 converted to bf16 in shared memory):
+//   pass 1 (up):   H[e] = act(X[e] . W1[e] + b1[e])  -> bf16 [E, G, F]
+//   pass 2 (down): Y[e] = H[e] . W2[e] + b2[e]       -> bf16 [E, G, D]
+// - A CTA owns 128 rows of one expert (two consumer warpgroups of 64) and
+//   N output columns (pass 1: 128 of F, the gate and up accumulators side
+//   by side for SwiGLU; pass 2: 256 of D), and walks the whole reduction
+//   (D or F) in 64-deep stages, so every sum stays in registers: no
+//   atomics, no f32 output, no cast, the same result from run to run.  H
+//   (bf16, rounded once as the walk body rounds it) lives in device memory
+//   between the passes: 0.94 GB at [8, 4096, 4096], F 14336.
+// - One thread of a producer warpgroup streams the stages through TMA:
+//   the rows K-major, the weight tile [64 k][N] with N contiguous, read
+//   MN-major by the transpose bit (no transposed weight copy); the
+//   producer hands its registers to the consumers (setmaxnreg), whose
+//   accumulators take 128 a thread.  Each stage's products stay in flight
+//   while the next stage's are issued (wgmma wait 1).
+// - int8 weights: TMA brings the int8 tile (1 byte an element, half the
+//   bf16 bytes) into a staging buffer, and the consumer warpgroups turn it
+//   into the bf16 tile in the swizzled layout wgmma reads while the
+//   previous stage's products run: exact (|q| <= 127 fits bf16), by
+//   integer ops and one bf16x2 FMA a pair (no int-to-float conversion,
+//   which runs at a sixteenth of the rate).  The conversion is in shared
+//   memory, not in registers with the weight as the A operand, because A
+//   from registers needs the weight K-major per row of the product and it
+//   is stored N-major; every CTA converts the tiles it reads, amortised
+//   over its 128 rows; three producer warps alone converted too slowly
+//   to keep up with the products.  The per-column scales multiply the f32
+//   sums in the epilogue, as in the walk body.
+
+constexpr int FFN_BM = 128;  // rows a CTA
+constexpr int FFN_BK = 64;   // reduction depth a stage
+constexpr int FFN_CONSUMERS = 256;  // two warpgroups
+
+template <bool UP, bool Q, bool SWIGLU>
+struct FfnWg {
+  static constexpr int N = UP ? 128 : 256;          // output columns a CTA
+  static constexpr int NW = UP && SWIGLU ? 2 : 1;   // weight tiles a stage
+  static constexpr int NS = Q ? 3 : 4;              // stages
+  static constexpr int THREADS = 3 * 128;
+  static constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+  static constexpr int A_BYTES = FFN_BM * FFN_BK * 2;  // X or H rows
+  static constexpr int W_BYTES = FFN_BK * N * 2;       // one bf16 weight tile
+  static constexpr int RAW_BYTES = Q ? FFN_BK * N : 0;  // one int8 tile
+  static constexpr int STAGE = A_BYTES + NW * (W_BYTES + RAW_BYTES);
+  static constexpr int BAR_BYTES = 8 * 2 * NS;
+  static constexpr size_t SMEM = 1024 + NS * STAGE + BAR_BYTES;
+};
+
+// Two int8 weights of `word` (bytes 2 half, 2 half + 1) as a bf16x2,
+// exactly, with integer ops and one bf16x2 FMA (no int -> float
+// conversions, which run at a sixteenth of the rate): a byte b is -128 s +
+// k (s its sign bit, k its low 7 bits), the bf16 0x4300 | k is 128 + k and
+// 0x4300 | (b & 0x80) is 128 + 128 s, so b is their difference.
+__device__ __forceinline__ uint32_t s8x2_to_bf16x2(uint32_t word, int half) {
+  const uint32_t two = __byte_perm(word, 0, half ? 0x4342 : 0x4140);
+  const uint32_t v = (two & 0x007F007Fu) | 0x43004300u;
+  const uint32_t neg_c = (two & 0x00800080u) | 0xC300C300u;  // -(128 + 128 s)
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(d)
+      : "r"(v), "r"(0x3F803F80u), "r"(neg_c));
+  return d;
+}
+
+// One CTA of either pass.  ta: the rows (X [E, G, D] or H [E, G, F]),
+// bf16 boxes of 64 x 128 under the 128-byte swizzle.  tw: the weights
+// viewed [E NW, K, NT] (W1 [E, 2, D, F] or [E, D, F]; W2 [E, F, D]) —
+// bf16 boxes of 64 x 64 under the swizzle, or int8 boxes of N x 64 with
+// no swizzle that the consumers turn into the bf16 layout.  s: the
+// int8 column scales ([E NW, NT], null for bf16 weights), b: the bias
+// ([E NW, NT]), out: [E, G, NT] bf16.  K is the reduction's length (D or
+// F), NT the output's width (F or D).
+template <bool UP, bool Q, bool SWIGLU>
+__device__ __forceinline__ void ffn_wgmma_body(
+    const CUtensorMap& ta, const CUtensorMap& tw,
+    const float* __restrict__ s, const __nv_bfloat16* __restrict__ b,
+    __nv_bfloat16* __restrict__ out, int G, int K, int NT) {
+  using C = FfnWg<UP, Q, SWIGLU>;
+  constexpr int N = C::N, NW = C::NW, NS = C::NS, NBOX = N / 64;
+  extern __shared__ unsigned char smem_raw[];
+  // stage s: the A rows, NW weight tiles, (int8) NW raw tiles
+  unsigned char* st0 = hopper::align1024(smem_raw);
+  uint64_t* bar_f = reinterpret_cast<uint64_t*>(st0 + NS * C::STAGE);
+  uint64_t* bar_e = bar_f + NS;  // a stage is free again
+
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  const int lane = threadIdx.x % 32;
+  const int m0 = blockIdx.x * FFN_BM;
+  const int n0 = blockIdx.y * N;
+  const int e = blockIdx.z;
+  const int nk = K / FFN_BK;
+  auto w_at = [&](int st, int w) {
+    return st0 + st * C::STAGE + C::A_BYTES + w * C::W_BYTES;
+  };
+  auto raw_at = [&](int st, int w) {
+    return st0 + st * C::STAGE + C::A_BYTES + NW * C::W_BYTES +
+           w * C::RAW_BYTES;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < NS; ++st) {
+      hopper::mbar_init(bar_f + st, 1);
+      hopper::mbar_init(bar_e + st, FFN_CONSUMERS);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // producer warpgroup
+    hopper::setmaxnreg_dec<C::PRODUCER_REGS>();
+    if (warp == 8 && lane == 0) {
+      for (int it = 0; it < nk; ++it) {
+        const int st = it % NS;
+        if (it >= NS) hopper::mbar_wait(bar_e + st, ((it / NS) - 1) & 1);
+        const int k0 = it * FFN_BK;
+        hopper::mbar_expect_tx(
+            bar_f + st, C::A_BYTES + NW * (Q ? C::RAW_BYTES : C::W_BYTES));
+        hopper::tma_load_3d(st0 + st * C::STAGE, &ta, bar_f + st, k0, m0, e);
+        for (int w = 0; w < NW; ++w) {
+          if constexpr (Q) {
+            hopper::tma_load_3d(raw_at(st, w), &tw, bar_f + st, n0, k0,
+                                e * NW + w);
+          } else {
+            for (int nb = 0; nb < NBOX; ++nb)
+              hopper::tma_load_3d(w_at(st, w) + nb * FFN_BK * 128, &tw,
+                                  bar_f + st, n0 + nb * 64, k0, e * NW + w);
+          }
+        }
+      }
+    }
+    return;
+  }
+  hopper::setmaxnreg_inc<C::CONSUMER_REGS>();
+
+  const int wg = warp / 4;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  float acc[NW][N / 2];
+#pragma unroll
+  for (int w = 0; w < NW; ++w)
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[w][i] = 0.f;
+
+  for (int it = 0; it < nk; ++it) {
+    const int st = it % NS;
+    hopper::mbar_wait(bar_f + st, (it / NS) & 1);
+    if constexpr (Q) {
+      // Both warpgroups turn each int8 tile [64 k][N] (row-major, N bytes
+      // a row) into the bf16 tile wgmma reads — NBOX boxes of [64 k][64]
+      // under the 128-byte swizzle (16-byte chunk c of row r at chunk c ^
+      // r % 8) — while the previous stage's products run, then meet on a
+      // named barrier before this stage's
+      constexpr int STEPS = FFN_BK * N / 16;  // 16 weights a step
+      static_assert(STEPS % FFN_CONSUMERS == 0, "whole steps a thread");
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        const unsigned char* raw = raw_at(st, w);
+        unsigned char* dst = w_at(st, w);
+#pragma unroll
+        for (int j = 0; j < STEPS / FFN_CONSUMERS; ++j) {
+          const int i = threadIdx.x + j * FFN_CONSUMERS;
+          const int r = i / (N / 16);
+          const int c8 = 2 * (i % (N / 16));  // first 8-weight chunk
+          const uint4 v =
+              *reinterpret_cast<const uint4*>(raw + r * N + c8 * 8);
+          const uint4 lo = {s8x2_to_bf16x2(v.x, 0), s8x2_to_bf16x2(v.x, 1),
+                            s8x2_to_bf16x2(v.y, 0), s8x2_to_bf16x2(v.y, 1)};
+          const uint4 hi = {s8x2_to_bf16x2(v.z, 0), s8x2_to_bf16x2(v.z, 1),
+                            s8x2_to_bf16x2(v.w, 0), s8x2_to_bf16x2(v.w, 1)};
+          unsigned char* row = dst + (c8 / 8) * FFN_BK * 128 + r * 128;
+          *reinterpret_cast<uint4*>(row + ((c8 % 8) ^ (r % 8)) * 16) = lo;
+          *reinterpret_cast<uint4*>(row + (((c8 + 1) % 8) ^ (r % 8)) * 16) =
+              hi;
+        }
+      }
+      hopper::fence_proxy_async();
+      asm volatile("bar.sync 1, %0;\n" ::"n"(FFN_CONSUMERS) : "memory");
+    }
+    const uint32_t aa = hopper::smem_u32(st0 + st * C::STAGE) + wg * 64 * 128;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) hopper::fence_regs(acc[w]);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < FFN_BK / 16; ++kk)
+#pragma unroll
+      for (int w = 0; w < NW; ++w)
+        hopper::Wgmma<N>::template ss<1>(
+            acc[w], hopper::desc_k(aa + kk * 32),
+            hopper::desc_mn(hopper::smem_u32(w_at(st, w)) + kk * 16 * 128,
+                            FFN_BK * 128),
+            1);
+    hopper::wgmma_commit();
+    // keep this stage's products in flight; the previous stage's are done
+    hopper::wgmma_wait<1>();
+#pragma unroll
+    for (int w = 0; w < NW; ++w) hopper::fence_regs(acc[w]);
+    if (it > 0) hopper::mbar_arrive(bar_e + (it - 1) % NS);
+  }
+  hopper::wgmma_wait<0>();
+#pragma unroll
+  for (int w = 0; w < NW; ++w) hopper::fence_regs(acc[w]);
+
+  // epilogue: (int8: each column's scale,) bias, (pass 1: activation,
+  // rounded to bf16 once, as the walk body does,) then the bf16 store
+  const float* se = Q ? s + static_cast<long long>(e) * NW * NT : nullptr;
+  const __nv_bfloat16* be = b + static_cast<long long>(e) * NW * NT;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = m0 + wg * 64 + (warp % 4) * 16 + g + h * 8;
+    if (row >= G) continue;
+    __nv_bfloat16* orow = out + (static_cast<long long>(e) * G + row) * NT;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const int col = n0 + j * 8 + 2 * t;  // NT is even: col + 1 < NT too
+      if (col >= NT) continue;
+      float v[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        float a = acc[0][4 * j + 2 * h + q];
+        if constexpr (Q) a *= se[col + q];
+        a += __bfloat162float(be[col + q]);
+        if constexpr (UP && SWIGLU) {
+          float u = acc[NW - 1][4 * j + 2 * h + q];
+          if constexpr (Q) u *= se[NT + col + q];
+          a = silu(a) * (u + __bfloat162float(be[NT + col + q]));
+        } else if constexpr (UP) {
+          a = gelu_tanh(a);
+        }
+        v[q] = a;
+      }
+      *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+          __floats2bfloat162_rn(v[0], v[1]);
+    }
+  }
+}
+
+template <bool Q, bool SWIGLU>
+__global__ void __launch_bounds__(3 * 128, 1)
+expert_ffn_up_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                           const __grid_constant__ CUtensorMap tw1,
+                           const float* __restrict__ s1,
+                           const __nv_bfloat16* __restrict__ b1,
+                           __nv_bfloat16* __restrict__ h, int G, int D,
+                           int F) {
+  ffn_wgmma_body<true, Q, SWIGLU>(tx, tw1, s1, b1, h, G, D, F);
+}
+
+template <bool Q>
+__global__ void __launch_bounds__(3 * 128, 1)
+expert_ffn_down_wgmma_kernel(const __grid_constant__ CUtensorMap th,
+                             const __grid_constant__ CUtensorMap tw2,
+                             const float* __restrict__ s2,
+                             const __nv_bfloat16* __restrict__ b2,
+                             __nv_bfloat16* __restrict__ y, int G, int D,
+                             int F) {
+  ffn_wgmma_body<false, Q, false>(th, tw2, s2, b2, y, G, F, D);
+}
+
+// the weight map of one pass: bf16 boxes of 64 x 64 under the swizzle, or
+// int8 boxes of N x 64 unswizzled
+template <bool UP, bool Q, bool SWIGLU>
+bool weight_map(CUtensorMap* map, const void* w, int outer, int rows,
+                int cols) {
+  constexpr int N = FfnWg<UP, Q, SWIGLU>::N;
+  if constexpr (Q)
+    return encode_map(map, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, outer, rows,
+                      cols, N, FFN_BK, CU_TENSOR_MAP_SWIZZLE_NONE);
+  else
+    return encode_tile_map(map, w, outer, rows, cols, FFN_BK);
+}
+
+template <typename Kern>
+cudaError_t allow_smem(Kern kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+template <bool Q, bool SWIGLU>
+cudaError_t launch_expert_wgmma(const void* x, const void* w1,
+                                const void* s1, const void* b1,
+                                const void* w2, const void* s2,
+                                const void* b2, void* h, void* y, int E,
+                                int G, int D, int F, cudaStream_t st) {
+  using Up = FfnWg<true, Q, SWIGLU>;
+  using Down = FfnWg<false, Q, false>;
+  constexpr int NW = Up::NW;
+  CUtensorMap tx, tw1, th, tw2;
+  if (!encode_tile_map(&tx, x, E, G, D, FFN_BM) ||
+      !weight_map<true, Q, SWIGLU>(&tw1, w1, E * NW, D, F) ||
+      !encode_tile_map(&th, h, E, G, F, FFN_BM) ||
+      !weight_map<false, Q, false>(&tw2, w2, E, F, D))
+    return cudaErrorNotSupported;
+  using BF16 = __nv_bfloat16;
+  auto up = expert_ffn_up_wgmma_kernel<Q, SWIGLU>;
+  auto down = expert_ffn_down_wgmma_kernel<Q>;
+  cudaError_t err = allow_smem(up, Up::SMEM);
+  if (err == cudaSuccess) err = allow_smem(down, Down::SMEM);
+  if (err != cudaSuccess) return err;
+  const int mt = (G + FFN_BM - 1) / FFN_BM;
+  up<<<dim3(mt, (F + Up::N - 1) / Up::N, E), Up::THREADS, Up::SMEM, st>>>(
+      tx, tw1, static_cast<const float*>(s1), static_cast<const BF16*>(b1),
+      static_cast<BF16*>(h), G, D, F);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  down<<<dim3(mt, (D + Down::N - 1) / Down::N, E), Down::THREADS, Down::SMEM,
+         st>>>(th, tw2, static_cast<const float*>(s2),
+               static_cast<const BF16*>(b2), static_cast<BF16*>(y), G, D, F);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x [T, D]; idx / dst int32 [E, C]; comb f32 [E, C]; w1 [E, 2, D, F]
@@ -726,6 +1047,59 @@ extern "C" int tdp_expert_ffn_int8(const void* x, const void* q1,
   return static_cast<int>(dispatch_expert<true>(
       x, q1, s1, b1, q2, s2, b2, y, E, G, D, F, swiglu, dtype_tag,
       static_cast<cudaStream_t>(stream)));
+}
+
+// K7's chunk rows on the warpgroup body: bf16 x [E, G, D]; w1 / w2 bf16 or
+// (quantized 1) int8 in the layouts above, with s1 / s2 their f32 scales
+// (null for bf16); b1, b2 bf16; h bf16 [E, G, F] scratch between the
+// passes; y bf16 [E, G, D], every element written.  Two launches (up,
+// down) on the stream; returns the first error.
+extern "C" int tdp_expert_ffn_wgmma(const void* x, const void* w1,
+                                    const void* s1, const void* b1,
+                                    const void* w2, const void* s2,
+                                    const void* b2, void* h, void* y, int E,
+                                    int G, int D, int F, int swiglu,
+                                    int quantized, void* stream) {
+  if (bad_expert_shape(E, G, D, F))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (quantized * 2 + (swiglu ? 1 : 0)) {
+    case 0:
+      err = launch_expert_wgmma<false, false>(x, w1, s1, b1, w2, s2, b2, h,
+                                              y, E, G, D, F, st);
+      break;
+    case 1:
+      err = launch_expert_wgmma<false, true>(x, w1, s1, b1, w2, s2, b2, h, y,
+                                             E, G, D, F, st);
+      break;
+    case 2:
+      err = launch_expert_wgmma<true, false>(x, w1, s1, b1, w2, s2, b2, h, y,
+                                             E, G, D, F, st);
+      break;
+    case 3:
+      err = launch_expert_wgmma<true, true>(x, w1, s1, b1, w2, s2, b2, h, y,
+                                            E, G, D, F, st);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err);
+}
+
+// Dynamic shared memory a CTA of the warpgroup body uses (up 1: pass 1),
+// for the build report.
+extern "C" int tdp_expert_ffn_wgmma_smem_bytes(int up, int quantized,
+                                               int swiglu) {
+  switch (up * 4 + quantized * 2 + (swiglu ? 1 : 0)) {
+    case 0: case 1: return static_cast<int>(FfnWg<false, false, false>::SMEM);
+    case 2: case 3: return static_cast<int>(FfnWg<false, true, false>::SMEM);
+    case 4: return static_cast<int>(FfnWg<true, false, false>::SMEM);
+    case 5: return static_cast<int>(FfnWg<true, false, true>::SMEM);
+    case 6: return static_cast<int>(FfnWg<true, true, false>::SMEM);
+    case 7: return static_cast<int>(FfnWg<true, true, true>::SMEM);
+    default: return -1;
+  }
 }
 
 // Dynamic shared memory a CTA uses, for the build report; -1 if unknown.

@@ -18,13 +18,12 @@ forward at B 16, H 12, S 2048, hd 64 does ~1.03e11 FLOP against ~50 MB
 of q, k, v, o — ~2000 operations a byte, far above the ~295 where the
 tensor cores and not memory set the pace.  So every product runs on the
 tensor cores and the tile loop is cut at the causal and window bounds.
-bf16 K3 and K5 run on Hopper's warpgroup MMA (``wgmma``, two 64-row
+bf16 K3, K4 and K5 run on Hopper's warpgroup MMA (``wgmma``, two 64-row
 warpgroups a CTA) on tiles that TMA loads into shared memory (shared
 pieces in ``ops/csrc/hopper.cuh``; the TMA descriptors are encoded on the
-host for each call); K4 and the f32 instantiations use ``mma.sync``
-m16n8k16 (f32: the same layout on the CUDA cores), one warp per 16 rows,
-with a ``cp.async`` double buffer.  The source's header says what each
-design does and what is left.
+host for each call); the f32 instantiations run exact f32 on the CUDA
+cores, one warp per 16 rows, with a ``cp.async`` double buffer.  The
+source's header says what each design does and what is left.
 
 Each wrapper launches its kernel for CUDA tensors and raises on anything
 it does not take (head dim 64 or 128, sequence lengths a multiple of 64,

@@ -22,8 +22,8 @@ the ``E / k`` padded-compute tax.  The int8 variant streams 1-byte
 weights (half the bytes of bf16: 176 MB an expert at Mixtral widths) and
 applies each output column's scale to the product, not to the weights.
 Partial sums over F tiles meet in the f32 output by atomic adds (so their
-order varies from run to run).  The source's header says what a faster
-version would add.
+order varies from run to run).  The source's header says what K6 moves
+onto next: the warpgroup body K7's chunk rows already run.
 
 - :func:`slot_maps` compresses a ``_top_k_route`` decision into the
   kernel's maps: ``idx`` (the token in each slot) and ``comb`` (its gate
@@ -45,15 +45,22 @@ K7, the expert FFN of expert-parallel layers, replaces
 ``_pallas_expert_ffn`` (the reference's :479, ``pallas_call`` :506, body
 ``_ep_kernel`` :418), float and int8: :func:`fused_expert_ffn` runs every
 local expert's FFN on every row of the exchanged ``[e_loc, G, D]``
-groups (pad rows included, as on the TPU) in the same CUDA source, the
-K6 body on the identity slot map (``expert_ffn_kernel`` /
-``expert_ffn_int8_kernel``, counted under ``LAUNCHES["fused_expert_ffn"]``
-/ ``["fused_expert_ffn_int8"]``); :func:`expert_ffn_reference` is its
+groups (pad rows included, as on the TPU) in the same CUDA source, in
+one of two hand-written bodies that :func:`expert_ffn_body` chooses from
+the rows' count and type.  bf16 chunk rows (G of at least
+:data:`EXPERT_FFN_WGMMA_G_MIN`) take a two-pass grouped GEMM on the
+warpgroup MMA (``expert_ffn_up_wgmma_kernel`` then
+``expert_ffn_down_wgmma_kernel``, the activation in bf16 device memory
+between them, the output in x's dtype with no atomics); decode's few rows
+and f32 rows take the K6 body on the identity slot map
+(``expert_ffn_kernel`` / ``expert_ffn_int8_kernel``).  Either counts one
+launch a call under ``LAUNCHES["fused_expert_ffn"]`` /
+``["fused_expert_ffn_int8"]``.  :func:`expert_ffn_reference` is its
 plain version (the reference's ``_ep_ffn_reference``) and
-:func:`expert_ffn_rounding_scale` the scale of its bf16 rounding.  With
-no empty-tile skip it pays what the reference pays under EP: at the
-no-drop capacity ``C = T`` every expert computes all its slots, ``E / k``
-times K6's work at a prefill chunk.
+:func:`expert_ffn_rounding_scale` the scale of its bf16 rounding.  It
+pays what the reference pays under EP: at the no-drop capacity ``C = T``
+every expert computes all its slots, ``E / k`` times K6's work at a
+prefill chunk.
 
 The backward the reference gives ``fused_moe_ffn`` and
 ``fused_expert_ffn`` (``custom_vjp``s through their oracles) belongs to
@@ -94,7 +101,14 @@ _ARGTYPES = {
     # x, q1, s1, b1, q2, s2, b2, y, E, G, D, F, swiglu, dtype, stream
     "tdp_expert_ffn_int8": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
+    # K7's warpgroup body: x, w1, s1, b1, w2, s2, b2, h, y, E, G, D, F,
+    # swiglu, quantized, stream
+    "tdp_expert_ffn_wgmma": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+    + [ctypes.c_void_p],
 }
+#: the fewest rows a group must have for K7 to take its warpgroup body
+#: (chunk rows); fewer (decode) and f32 rows take the walk body
+EXPERT_FFN_WGMMA_G_MIN = 64
 
 
 def _kernel(name: str):
@@ -302,17 +316,20 @@ def _kernel_weights(experts: Dict[str, Any], tokens: torch.Tensor, D: int,
 
 def _launch(entry: str, name: str, args, y: torch.Tensor, *ints) -> None:
     """Launch ``entry`` on ``args`` (checked for device, contiguity and
-    alignment) into ``y`` on the current stream, and count it under
-    ``name``."""
+    alignment; None passes a null pointer) into ``y`` on the current
+    stream, and count it under ``name`` — once, however many CUDA launches
+    the entry makes."""
     dev = y.device
     for t in args:
+        if t is None:
+            continue
         _check(t.device == dev, "all tensors must be on the tokens' device")
         _check(t.is_contiguous(), "all tensors must be contiguous")
         _check(t.data_ptr() % 16 == 0, "all tensors must be 16-byte aligned")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernel(entry)(*(t.data_ptr() for t in args), y.data_ptr(),
-                             *ints, stream)
+        err = _kernel(entry)(*(None if t is None else t.data_ptr()
+                               for t in args), y.data_ptr(), *ints, stream)
     if err != 0:
         raise RuntimeError(f"moe_dispatch kernel launch failed: CUDA error "
                            f"{err}")
@@ -388,6 +405,18 @@ def expert_ffn_reference(experts: Dict[str, Any],
     return ffn_rows(x.float(), *_expert_weights_f32(experts))
 
 
+def expert_ffn_body(G: int, dtype: torch.dtype) -> str:
+    """Which of K7's two bodies a CUDA call on ``[e_loc, G, D]`` rows of
+    ``dtype`` takes: ``'wgmma'``, the two-pass grouped GEMM on the
+    warpgroup MMA, for bf16 rows of at least
+    :data:`EXPERT_FFN_WGMMA_G_MIN` (a prefill chunk's groups);
+    ``'walk'``, the K6 body on the identity slot map, otherwise (decode's
+    few rows, where the weight bytes bound the call, and f32 rows)."""
+    if dtype == torch.bfloat16 and G >= EXPERT_FFN_WGMMA_G_MIN:
+        return "wgmma"
+    return "walk"
+
+
 def fused_expert_ffn(experts: Dict[str, Any],
                      x: torch.Tensor) -> torch.Tensor:
     """K7, the expert FFN of an expert-parallel layer on the exchanged
@@ -399,7 +428,10 @@ def fused_expert_ffn(experts: Dict[str, Any],
     CPU tensors take the plain version (cast to ``x.dtype``); CUDA tensors
     launch the kernel, float or int8 ``(q8, scale)`` experts, with what K6
     takes: contiguous bf16 or f32 rows, D and F multiples of 64, biases of
-    the rows' dtype.  Forward only, as K6."""
+    the rows' dtype.  :func:`expert_ffn_body` picks the body; the
+    warpgroup body allocates the ``[e_loc, G, F]`` activation between its
+    passes (0.94 GB at ``[8, 4096, 4096]``, F 14336).  Forward only, as
+    K6."""
     quantized = _quantized(experts, "K7")
     if x.device.type == "cpu":
         _check(all(t.device.type == "cpu" for t in tree_leaves(experts)),
@@ -410,8 +442,18 @@ def fused_expert_ffn(experts: Dict[str, Any],
     E, G, D = x.shape
     weights, e_w, Fd, swiglu, tag = _kernel_weights(experts, x, D, quantized)
     _check(e_w == E, f"x holds {E} experts' rows, the weights {e_w} experts")
-    name, entry = (("fused_expert_ffn_int8", "tdp_expert_ffn_int8")
-                   if quantized else ("fused_expert_ffn", "tdp_expert_ffn"))
+    name = "fused_expert_ffn_int8" if quantized else "fused_expert_ffn"
+    if expert_ffn_body(G, x.dtype) == "wgmma":
+        # the activation between the passes, then y in x's dtype directly
+        h = torch.empty(E, G, Fd, dtype=x.dtype, device=x.device)
+        y = torch.empty_like(x)
+        w1, s1, b1, w2, s2, b2 = (weights if quantized else (
+            weights[0], None, weights[1], weights[2], None, weights[3]))
+        _launch("tdp_expert_ffn_wgmma", name,
+                (x, w1, s1, b1, w2, s2, b2, h), y, E, G, D, Fd, int(swiglu),
+                int(quantized))
+        return y
+    entry = "tdp_expert_ffn_int8" if quantized else "tdp_expert_ffn"
     y = torch.zeros(E, G, D, dtype=torch.float32, device=x.device)
     _launch(entry, name, (x,) + weights, y, E, G, D, Fd, int(swiglu), tag)
     return y.to(x.dtype)
