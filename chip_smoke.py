@@ -803,12 +803,16 @@ def moe_cases(tag, specs, counter, faults, gather_experts=None,
               lib_label="gather arm (per-expert cuBLAS calls)"):
     """Each case against the plain version (``moe_ffn_oracle``'s
     arithmetic, in f32 on the same values; int8 weights ``_dequant``-ed),
-    row by row: the launch must move ``counter`` alone; ``faults(case)``
-    gives the planted faults of the first (decode) case, each of which
-    must fail the same check.  At the two Mixtral shapes the kernel, the
-    plain version and the ragged ``'gather'`` arm (over
-    ``gather_experts(experts)``, made outside the timing) are timed
-    beside the bound."""
+    row by row, naming the body it took (``moe_ffn_body``): the launch
+    must move ``counter`` alone; ``faults(case, body)`` gives the planted
+    faults of the first case each body takes (decode for the walk, the
+    prefill chunk for the warpgroup body) as ``(experts, idx, comb,
+    scatter_idx)`` inputs, each of which must fail the same check; at
+    top-2 two launches of the warpgroup body must agree bit for bit.  At
+    the two Mixtral shapes the kernel, the plain version and the ragged
+    ``'gather'`` arm (over ``gather_experts(experts)``, made outside the
+    timing) are timed beside the bound, and at the chunk both bodies are
+    swept over C = T (:func:`moe_ffn_body_sweep`)."""
     from torchdistpackage_tpu_torch.ops import moe_dispatch as md
     from torchdistpackage_tpu_torch.parallel.moe import _ragged_ffn
 
@@ -828,24 +832,37 @@ def moe_cases(tag, specs, counter, faults, gather_experts=None,
         scale = md.moe_rounding_scale(ex, tok, idx, comb)
         err, ratio = moe_held(got, exact, scale, dt)
         dropped = 1.0 - float((comb != 0).sum()) / (tok.shape[0] * case["k"])
-        log(f"[{tag}] {name}: T {tok.shape[0]}, C {idx.shape[1]}, D "
-            f"{tok.shape[1]}, F {weight(ex['w2']).shape[1]}, drop rate "
-            f"{dropped:.3f}: vs the plain version in f32: max abs err "
-            f"{err:.3g}, {ratio:.3f} of the row tolerance")
+        body = md.moe_ffn_body(idx.shape[1], dt)
+        log(f"[{tag}] {name} ({body} body): T {tok.shape[0]}, C "
+            f"{idx.shape[1]}, D {tok.shape[1]}, F "
+            f"{weight(ex['w2']).shape[1]}, drop rate {dropped:.3f}: vs the "
+            f"plain version in f32: max abs err {err:.3g}, {ratio:.3f} of "
+            f"the row tolerance")
         if not ratio <= 1.0:
             raise RuntimeError(f"{name}: {counter} disagrees with its plain "
                                f"version: {ratio:.3f} of the row tolerance")
-        row = {"case": name, "max_abs_err": err, "tol_ratio": ratio}
-        if not rows:
-            for what, (exf, cb, dst) in faults(case).items():
-                bad = md.fused_moe_ffn_slots(exf, tok, idx, cb,
+        row = {"case": name, "body": body, "max_abs_err": err,
+               "tol_ratio": ratio}
+        if body not in {r["body"] for r in rows}:
+            for what, (exf, ix, cb, dst) in faults(case, body).items():
+                bad = md.fused_moe_ffn_slots(exf, tok, ix, cb,
                                              scatter_idx=dst).to(dt)
                 f_err, f_ratio = moe_held(bad, exact, scale, dt)
-                log(f"[{tag}] {name}, planted fault ({what}): max abs err "
-                    f"{f_err:.3g}, {f_ratio:.1f} x the row tolerance")
+                log(f"[{tag}] {name} ({body} body), planted fault ({what}): "
+                    f"max abs err {f_err:.3g}, {f_ratio:.1f} x the row "
+                    f"tolerance")
                 if f_ratio <= 1.0:
                     raise RuntimeError(f"{name}: the row tolerance misses a "
                                        f"planted fault ({what})")
+                del exf, bad
+        if body == "wgmma" and case["k"] <= 2:
+            row["repeatable"] = bool(torch.equal(
+                got, md.fused_moe_ffn_slots(ex, tok, idx, comb).to(dt)))
+            log(f"[{tag}] {name}: two launches bit-identical: "
+                f"{row['repeatable']}")
+            if not row["repeatable"]:
+                raise RuntimeError(f"{name}: at top-{case['k']} two launches "
+                                   f"of the warpgroup body differ")
         if name.endswith("_mixtral"):
             heavy = tok.shape[0] > 8
             ms = cuda_ms(lambda: md.fused_moe_ffn_slots(ex, tok, idx, comb),
@@ -864,10 +881,77 @@ def moe_cases(tag, specs, counter, faults, gather_experts=None,
             log(f"[{tag}] {name}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
                 f"  {lib_label} {lib_ms:.4f} ms  bound {bound_ms:.4f} ms "
                 f"({bound_by}; {hit} experts hit, {filled} filled slots)")
+            if heavy:
+                row["passes"] = call_passes(
+                    tag, f"T = C = {tok.shape[0]}",
+                    lambda: md.fused_moe_ffn_slots(ex, tok, idx, comb))
+                row["body_sweep"] = moe_ffn_body_sweep(tag, ex)
         rows.append(row)
         del case, got, exact, scale
         torch.cuda.empty_cache()
     return rows
+
+
+def moe_ffn_body_sweep(tag, ex, sizes=(8, 16, 32, 64, 128, 256, 512)):
+    """Both K6 bodies on ``ex`` at C = T (top-2, a serving routing) for
+    each T of ``sizes``: the measurement ``MOE_FFN_WGMMA_C_MIN`` rests on.
+    Returns {T: {body: ms}}."""
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+
+    c_min, out = md.MOE_FFN_WGMMA_C_MIN, {}
+    try:
+        for T in sizes:
+            c = moe_case("sweep", ex, T=T, C=T, k=2, seed=T)
+            args = (ex, c["tokens"], c["idx"], c["comb"])
+            out[T] = {}
+            for body, pin in (("wgmma", 1), ("walk", 1 << 30)):
+                md.MOE_FFN_WGMMA_C_MIN = pin
+                out[T][body] = cuda_ms(lambda: md.fused_moe_ffn_slots(*args),
+                                       10)
+            log(f"[{tag}] body sweep, C = T = {T}: wgmma "
+                f"{out[T]['wgmma']:.4f} ms, walk {out[T]['walk']:.4f} ms "
+                f"(C_MIN {c_min})")
+    finally:
+        md.MOE_FFN_WGMMA_C_MIN = c_min
+    return out
+
+
+def flip_halves(leaf):
+    """w1's (or b1's) gate and up halves (dim 1) exchanged, an int8
+    pair's scales with them."""
+    if isinstance(leaf, tuple):
+        return tuple(t.flip(1).contiguous() for t in leaf)
+    return leaf.flip(1).contiguous()
+
+
+def moe_chunk_faults(case):
+    """The warpgroup body's planted faults on a chunk case, as
+    ``moe_cases`` takes them: the gate weight not applied, the last F tile
+    left out, the scatter on the neighbouring slot's token, the gather
+    from the neighbouring slot's token (idx rolled, scatter_idx kept), a
+    filled tile treated as empty (its comb zeroed on the kernel side
+    only) and gate and up swapped."""
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+
+    ex, idx, comb = case["experts"], case["idx"], case["comb"]
+    cut = weight(ex["w2"]).clone()
+    cut[:, -md.TILE:, :] = 0
+    empty = comb.clone()
+    empty[0, :md.CHUNK_ROWS] = 0
+    rolled = torch.roll(idx, -1, dims=1).contiguous()
+    q = isinstance(ex["w2"], tuple)
+    return {
+        "gate weight not applied": (ex, idx, (comb != 0).float(), None),
+        "last F tile left out": (
+            dict(ex, w2=(cut, ex["w2"][1]) if q else cut), idx, comb, None),
+        "scatter on the neighbouring slot's token": (ex, idx, comb, rolled),
+        "gathered from the neighbouring slot's token": (ex, rolled, comb,
+                                                        idx),
+        "a filled tile treated as empty": (ex, idx, empty, None),
+        "gate and up swapped": (dict(ex, w1=flip_halves(ex["w1"]),
+                                     b1=flip_halves(ex["b1"])), idx, comb,
+                                None),
+    }
 
 
 def moe_specs(make, seed, variant=""):
@@ -900,23 +984,26 @@ def moe_specs(make, seed, variant=""):
 
 def moe_kernel_phase():
     """K6 (float experts) on the :func:`moe_specs` cases, bf16 where not
-    named f32.  Planted faults at the decode shape: the gate weight not
-    applied (every filled slot's g taken as 1), the last F tile left out
-    (its W2 rows zeroed) and the scatter landing on the neighbouring
-    slot's token.  Yardstick: the ragged ``'gather'`` arm (one cuBLAS
-    product per expert and weight — several calls, the nearest library
-    yardstick; the kernel path never calls it)."""
+    named f32.  Planted faults at the decode shape (the walk): the gate
+    weight not applied (every filled slot's g taken as 1), the last F tile
+    left out (its W2 rows zeroed) and the scatter landing on the
+    neighbouring slot's token; at the chunk (the warpgroup body)
+    :func:`moe_chunk_faults`.  Yardstick: the ragged ``'gather'`` arm (one
+    cuBLAS product per expert and weight — several calls, the nearest
+    library yardstick; the kernel path never calls it)."""
     from torchdistpackage_tpu_torch.ops import moe_dispatch as md
 
-    def faults(case):
+    def faults(case, body):
+        if body == "wgmma":
+            return moe_chunk_faults(case)
         ex, idx, comb = case["experts"], case["idx"], case["comb"]
         w2 = ex["w2"].clone()
         w2[:, -md.TILE:, :] = 0
         return {
-            "gate weight not applied": (ex, (comb != 0).float(), None),
-            "last F tile left out": (dict(ex, w2=w2), comb, None),
+            "gate weight not applied": (ex, idx, (comb != 0).float(), None),
+            "last F tile left out": (dict(ex, w2=w2), idx, comb, None),
             "scatter on the neighbouring slot's token": (
-                ex, comb, torch.roll(idx, -1, dims=1).contiguous()),
+                ex, idx, comb, torch.roll(idx, -1, dims=1).contiguous()),
         }
 
     return moe_cases("moe", moe_specs(moe_experts, 300), "fused_moe_ffn",
@@ -947,7 +1034,8 @@ def moe_int8_kernel_phase():
     taken on the dequantised weights.  Planted faults at the decode shape:
     w2's scale not applied (all ones), the up half scaled by the gate's
     scale row, and each column scaled by its neighbour's scale (both scale
-    rows rolled by one column).  Yardstick: the ragged ``'gather'`` arm
+    rows rolled by one column); at the chunk (the warpgroup body) those
+    and :func:`moe_chunk_faults`.  Yardstick: the ragged ``'gather'`` arm
     over bf16 weights dequantised once, outside the timing — no single
     PyTorch call computes a bf16 x int8-weight product."""
     from torchdistpackage_tpu_torch.ops import moe_dispatch as md
@@ -955,21 +1043,24 @@ def moe_int8_kernel_phase():
     def int8(**kw):
         return md.quantize_moe_experts(moe_experts(**kw))
 
-    def faults(case):
-        ex, comb = case["experts"], case["comb"]
+    def faults(case, body):
+        ex, idx, comb = case["experts"], case["idx"], case["comb"]
         (q1, s1), (q2, s2) = ex["w1"], ex["w2"]
         gate_twice = s1.clone()
         gate_twice[:, 1] = s1[:, 0]
-        return {
+        out = {
             "w2's scale not applied": (
-                dict(ex, w2=(q2, torch.ones_like(s2))), comb, None),
+                dict(ex, w2=(q2, torch.ones_like(s2))), idx, comb, None),
             "the up half scaled by the gate's scale row": (
-                dict(ex, w1=(q1, gate_twice)), comb, None),
+                dict(ex, w1=(q1, gate_twice)), idx, comb, None),
             "each column scaled by its neighbour's scale": (dict(
                 ex, w1=(q1, torch.roll(s1, 1, dims=-1).contiguous()),
-                w2=(q2, torch.roll(s2, 1, dims=-1).contiguous())), comb,
-                None),
+                w2=(q2, torch.roll(s2, 1, dims=-1).contiguous())), idx,
+                comb, None),
         }
+        if body == "wgmma":
+            out.update(moe_chunk_faults(case))
+        return out
 
     return moe_cases("moe-int8", moe_specs(int8, 400, "int8"),
                      "fused_moe_ffn_int8", faults,
@@ -1113,8 +1204,10 @@ def expert_ffn_cases(tag, specs, counter, faults, lib_experts=None):
             log(f"[{tag}] {name}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
                 f"  torch.bmm chain {lib_ms:.4f} ms  bound {bound_ms:.4f} ms "
                 f"({bound_by})")
+        if name.startswith(("chunk_ep1", "decode_ep1")):
+            row["passes"] = call_passes(
+                tag, list(x.shape), lambda: md.fused_expert_ffn(ex, x))
         if name.startswith("chunk_ep1"):
-            row["passes"] = expert_ffn_passes(tag, ex, x)
             row["body_sweep"] = expert_ffn_body_sweep(tag, ex, x)
         rows.append(row)
         del ex, x, got, exact, scale
@@ -1122,68 +1215,69 @@ def expert_ffn_cases(tag, specs, counter, faults, lib_experts=None):
     return rows
 
 
-def expert_ffn_passes(tag, ex, x):
-    """Device time of each kernel one K7 call launches, by
-    ``torch.profiler`` (the warpgroup body: its up and down passes; the
-    wrapper's allocations launch no kernel).  Returns {kernel: ms}."""
+def call_passes(tag, what, fn):
+    """Device time of each kernel one call of ``fn`` launches, by
+    ``torch.profiler``: a warpgroup body's up and down passes, and the
+    wrapper's small kernels (zeroing, the tile list, a cast).  Returns
+    {kernel: ms}."""
     from torch.profiler import ProfilerActivity, profile
 
-    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
-
-    md.fused_expert_ffn(ex, x)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        md.fused_expert_ffn(ex, x)
+        fn()
         torch.cuda.synchronize()
-    out = {re.sub(r"^void (\(anonymous namespace\)::)?", "", e.key)[:40]:
-           e.self_device_time_total / 1e3 for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA}
-    log(f"[{tag}] one call at {list(x.shape)}, device time by kernel: "
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            k = re.sub(r"^void (\(anonymous namespace\)::)?", "", e.key)[:40]
+            out[k] = out.get(k, 0.0) + e.self_device_time_total / 1e3
+    log(f"[{tag}] one call at {what}, device time by kernel: "
         + (", ".join(f"{k} {v:.3f} ms" for k, v in out.items())
            or "not measured (the profiler recorded no kernels)"))
     return out
 
 
-def expert_ffn_body_sweep(tag, ex, x, groups=(32, 64, 96, 128)):
-    """Both K7 bodies on the first G rows of each expert's group, for the
-    G around ``EXPERT_FFN_WGMMA_G_MIN``: the measurement its value rests
-    on.  Returns {G: {body: ms}}."""
+def expert_ffn_body_sweep(tag, ex, x, groups=(1, 8, 16, 32, 64, 96, 128)):
+    """K7's three bodies on the first G rows of each expert's group: the
+    measurement ``EXPERT_FFN_WGMMA_G_MIN`` (chunk body against decode
+    body) and ``EXPERT_FFN_DECODE_G_MIN`` (decode body against the walk)
+    rest on.  Returns {G: {body: ms}}."""
     from torchdistpackage_tpu_torch.ops import moe_dispatch as md
 
-    g_min, out = md.EXPERT_FFN_WGMMA_G_MIN, {}
+    pins = {"wgmma": (1, 1), "decode": (1 << 30, 1),
+            "walk": (1 << 30, 1 << 30)}
+    mins = (md.EXPERT_FFN_WGMMA_G_MIN, md.EXPERT_FFN_DECODE_G_MIN)
+    out = {}
     try:
         for G in groups:
             xs = x[:, :G].contiguous()
             out[G] = {}
-            for body, pin in (("wgmma", 1), ("walk", 1 << 30)):
-                md.EXPERT_FFN_WGMMA_G_MIN = pin
+            for body, pin in pins.items():
+                md.EXPERT_FFN_WGMMA_G_MIN, md.EXPERT_FFN_DECODE_G_MIN = pin
                 out[G][body] = cuda_ms(lambda: md.fused_expert_ffn(ex, xs),
                                        20)
-            log(f"[{tag}] body sweep, e_loc {x.shape[0]}, G {G}: wgmma "
-                f"{out[G]['wgmma']:.4f} ms, walk {out[G]['walk']:.4f} ms "
-                f"(G_MIN {g_min})")
+            log(f"[{tag}] body sweep, e_loc {x.shape[0]}, G {G}: "
+                + ", ".join(f"{b} {t:.4f} ms" for b, t in out[G].items())
+                + f" (G_MIN {mins[0]}, DECODE_G_MIN {mins[1]})")
     finally:
-        md.EXPERT_FFN_WGMMA_G_MIN = g_min
+        md.EXPERT_FFN_WGMMA_G_MIN, md.EXPERT_FFN_DECODE_G_MIN = mins
     return out
 
 
 def expert_ffn_kernel_phase():
     """K7 and K7-int8 on the :func:`expert_ffn_specs` cases.  Planted
-    faults on the first case of each body (EP 1 decode for the walk, EP
-    1's chunk for the warpgroup body): the last F tile left out (its W2
-    rows zeroed), b2 added by every F tile (b2 scaled by the F-tile
-    count), each row written to the next expert's block (the output
-    rolled by one expert), for int8 w2's scale not applied, and on the
-    warpgroup body, which keeps the gate and up accumulators side by
-    side, the two swapped (silu(up) * gate: w1's and b1's halves, and
-    int8 s1's, exchanged).  Yardstick: the ``torch.bmm`` chain (for int8
-    over bf16 weights dequantised beforehand)."""
+    faults on the first case of each body (EP 1 decode for the decode
+    body, EP 1's chunk for the chunk body, the f32 case for the walk):
+    the last F tile left out (its W2 rows zeroed), b2 added by every F
+    tile (b2 scaled by the F-tile count), each row written to the next
+    expert's block (the output rolled by one expert), for int8 w2's scale
+    not applied, and on the two warpgroup bodies, which keep the gate and
+    up accumulators side by side, the two swapped (silu(up) * gate: w1's
+    and b1's halves, and int8 s1's, exchanged).  Yardstick: the
+    ``torch.bmm`` chain (for int8 over bf16 weights dequantised
+    beforehand)."""
     from torchdistpackage_tpu_torch.ops import moe_dispatch as md
-
-    def swapped(leaf):
-        if isinstance(leaf, tuple):
-            return tuple(t.flip(1).contiguous() for t in leaf)
-        return leaf.flip(1).contiguous()
 
     def faults(ex, x, got, body):
         w2 = weight(ex["w2"])
@@ -1203,9 +1297,10 @@ def expert_ffn_kernel_phase():
             q2, s2 = ex["w2"]
             out["w2's scale not applied"] = md.fused_expert_ffn(
                 dict(ex, w2=(q2, torch.ones_like(s2))), x)
-        if body == "wgmma" and weight(ex["w1"]).dim() == 4:
+        if body != "walk" and weight(ex["w1"]).dim() == 4:
             out["gate and up swapped"] = md.fused_expert_ffn(
-                dict(ex, w1=swapped(ex["w1"]), b1=swapped(ex["b1"])), x)
+                dict(ex, w1=flip_halves(ex["w1"]),
+                     b1=flip_halves(ex["b1"])), x)
         return out
 
     def int8(**kw):
@@ -1962,6 +2057,80 @@ def engine_phase(params, cfg, card):
             "peak_gb": peak_gb}
 
 
+def kernel_families(prof, calls):
+    """A profile's device kernels, their device time per call (ms) and
+    that time by family: K1, K2 (one pair of kernel bodies; the last
+    template argument, carry, tells them apart), K6, K7, NCCL, GEMMs, the
+    rest."""
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / calls / 1e3
+    families = {"paged_attention": 0.0, "paged_carry": 0.0, "moe_ffn": 0.0,
+                "expert_ffn": 0.0, "nccl": 0.0, "gemm": 0.0, "other": 0.0}
+    for e in kernels:
+        name = e.key.lower()
+        paged = re.search(r"paged_(?:walk|tc)_kernel<\d+, \d+, (true|false)>",
+                          name)
+        fam = ("paged_carry" if paged and paged.group(1) == "true" else
+               "paged_attention" if paged else
+               "moe_ffn" if "moe_ffn" in name else
+               "expert_ffn" if "expert_ffn" in name else
+               "nccl" if "nccl" in name else
+               "gemm" if re.search(r"gemm|xmma|cutlass|nvjet|sm90", name)
+               else "other")
+        families[fam] += e.self_device_time_total / calls / 1e3
+    return kernels, busy_ms, families
+
+
+def profile_prefill(params, cfg, card, tag):
+    """Where a prefill device call's time goes: 8 slots each start a
+    2048-token prompt (chunk 512, so one call prefills 8 x 512 = 4096
+    rows, the MoE layer's C = T chunk); after one warm call, one call
+    under torch.profiler on the host clock to its end — device busy time
+    by kernel family, the MoE kernel's share of it, the device's idle
+    share of the call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchdistpackage_tpu_torch.serving import Request, ServingEngine
+
+    eng = ServingEngine(params, cfg, num_slots=8, block_size=BS, chunk=512,
+                        max_ctx=4096)
+    rs = np.random.RandomState(3)
+    for _ in range(8):
+        eng.submit(Request(rs.randint(0, cfg.vocab_size, 2048).tolist(), 4))
+    eng.step()
+    torch.cuda.synchronize()
+    before = dict(eng.stats)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        call_ms = (time.perf_counter() - t0) * 1e3
+    if (eng.stats["prefill_chunks"] != before["prefill_chunks"] + 1
+            or eng.stats["decode_steps"] != before["decode_steps"]):
+        raise RuntimeError(f"[{tag}] the profiled step was not one prefill "
+                           f"call: {before} -> {eng.stats}")
+    kernels, busy_ms, families = kernel_families(prof, 1)
+    del eng
+    torch.cuda.empty_cache()
+    if busy_ms == 0.0:
+        log(f"[{tag}] prefill call {call_ms:.2f} ms; device time not "
+            f"measured (the profiler recorded no kernels) — on {card}")
+        return None
+    moe = families["moe_ffn"] + families["expert_ffn"]
+    log(f"[{tag}] one prefill call (8 slots x 512 rows): {call_ms:.2f} ms "
+        f"on the host clock under the profiler; device busy {busy_ms:.2f} "
+        f"ms (idle {1 - busy_ms / call_ms:.1%}); by family: " + ", ".join(
+            f"{k} {v:.2f} ms" for k, v in families.items())
+        + f"; the MoE kernel {moe / busy_ms:.1%} of the busy time, "
+        f"{moe / call_ms:.1%} of the call — on {card}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"[{tag}]   {e.self_device_time_total / 1e3:8.3f} ms "
+            f"x{e.count:<4d} {e.key[:90]}")
+    return {"call_ms": call_ms, "busy_ms": busy_ms, "families": families}
+
+
 def profile_phase(params, cfg, card, max_ctx=8192, tag="profile",
                   ep_group=None, cp_group=None):
     """Where a decode tick's time goes: 8 slots decoding at 2048 context,
@@ -1994,29 +2163,11 @@ def profile_phase(params, cfg, card, max_ctx=8192, tag="profile",
             eng.step()
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) / 8 * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 8 / 1e3
+    kernels, busy_ms, families = kernel_families(prof, 8)
     if busy_ms == 0.0:
         log(f"[{tag}] decode tick {tick_ms:.2f} ms; device time not "
             f"measured (the profiler recorded no kernels) — on {card}")
         return None
-    families = {"paged_attention": 0.0, "paged_carry": 0.0, "moe_ffn": 0.0,
-                "expert_ffn": 0.0, "nccl": 0.0, "gemm": 0.0, "other": 0.0}
-    for e in kernels:
-        name = e.key.lower()
-        # K1 and K2 share two kernel bodies; the last template argument
-        # (carry) tells them apart
-        paged = re.search(r"paged_(?:walk|tc)_kernel<\d+, \d+, (true|false)>",
-                          name)
-        fam = ("paged_carry" if paged and paged.group(1) == "true" else
-               "paged_attention" if paged else
-               "moe_ffn" if "moe_ffn" in name else
-               "expert_ffn" if "expert_ffn" in name else
-               "nccl" if "nccl" in name else
-               "gemm" if re.search(r"gemm|xmma|cutlass|nvjet|sm90", name)
-               else "other")
-        families[fam] += e.self_device_time_total / 8 / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     log(f"[{tag}] decode tick (8 slots at 2048 context): median "
         f"{tick_ms:.2f} ms (min {min(ticks):.2f}, max {max(ticks):.2f}) on "
@@ -2421,25 +2572,41 @@ def paged_instantiation(line):
 WGMMA_KERNELS = {"flash_fwd_wgmma_kernel": "K3",
                  "flash_bwd_dq_wgmma_kernel": "K4",
                  "flash_bwd_dkv_wgmma_kernel": "K5",
+                 "moe_ffn_up_wgmma_kernel": "K6",
+                 "moe_ffn_down_wgmma_kernel": "K6",
                  "expert_ffn_up_wgmma_kernel": "K7",
-                 "expert_ffn_down_wgmma_kernel": "K7"}
+                 "expert_ffn_down_wgmma_kernel": "K7",
+                 "expert_ffn_up_decode_kernel": "K7",
+                 "expert_ffn_down_decode_kernel": "K7"}
+# the warpgroup instantiations the build must hold, by kernel
+WGMMA_COUNTS = {"K3": 2, "K4": 2, "K5": 2, "K6": 6, "K7": 24}
 
 
 def wgmma_label(name, line):
-    """``(label, smem args)`` of a warpgroup instantiation named in a
-    ptxas line: K3-K5 by head dim (``tdp_flash_smem_bytes(kernel, 0,
-    hd)``), K7's passes by weight type and activation
-    (``tdp_expert_ffn_wgmma_smem_bytes(up, quantized, swiglu)``)."""
+    """``(label, (smem function, its args))`` of a warpgroup instantiation
+    named in a ptxas line: K3-K5 by head dim (``tdp_flash_smem_bytes(
+    kernel, 0, hd)``), K6's and K7's chunk passes by weight type and
+    activation (``tdp_expert_ffn_wgmma_smem_bytes(up, quantized,
+    swiglu)``: the two share the body), K7's decode passes by those and
+    the row tile (``tdp_expert_ffn_decode_smem_bytes(up, quantized,
+    swiglu, rows)``)."""
     if name.startswith("flash"):
         hd = 128 if "ILi128E" in line else 64
         kernel = {"K3": 0, "K4": 1, "K5": 2}[WGMMA_KERNELS[name]]
-        return f"{WGMMA_KERNELS[name]} {name} bf16 hd {hd}", (kernel, 0, hd)
+        return (f"{WGMMA_KERNELS[name]} {name} bf16 hd {hd}",
+                ("tdp_flash_smem_bytes", (kernel, 0, hd)))
     flags = [int(b) for b in re.findall(r"Lb([01])E", line)]
     q, swiglu = flags[0], flags[1] if len(flags) > 1 else 0
     up = int("_up_" in name)
     act = ("swiglu" if swiglu else "gelu") if up else "any act"
-    return (f"K7 {name} bf16 rows, {'int8' if q else 'bf16'} weights, "
-            f"{act}", (up, q, swiglu))
+    label = (f"{WGMMA_KERNELS[name]} {name} bf16 "
+             f"{'tokens' if name.startswith('moe') else 'rows'}, "
+             f"{'int8' if q else 'bf16'} weights, {act}")
+    if "_decode_" in name:
+        rows = int(re.search(r"Li(\d+)E", line).group(1))
+        return (f"{label}, row tile {rows}",
+                ("tdp_expert_ffn_decode_smem_bytes", (up, q, swiglu, rows)))
+    return label, ("tdp_expert_ffn_wgmma_smem_bytes", (up, q, swiglu))
 
 
 def hgmma_counts(lib_path):
@@ -2466,10 +2633,10 @@ def build_phase():
     shared memory and spills of every instantiation, its advisories
     (C75xx: a serialised wgmma fails the phase), and a summary line of
     each K1/K2 instantiation's registers and spills and of each
-    warpgroup instantiation (bf16 K3-K5, K7's two passes) with its
-    registers, spills, shared memory and HGMMA count (``cuobjdump
-    -sass``; none fails the phase: the warpgroup bodies must really run
-    on wgmma).  Returns those summaries (label -> {"registers",
+    warpgroup instantiation (bf16 K3-K5; K6's chunk passes; K7's chunk
+    and decode passes) with its registers, spills, shared memory and
+    HGMMA count (``cuobjdump -sass``; none fails the phase: the warpgroup
+    bodies must really run on wgmma).  Returns those summaries (label -> {"registers",
     "spill_stores", "spill_loads", ...})."""
     from torchdistpackage_tpu_torch.ops import _build
 
@@ -2486,9 +2653,10 @@ def build_phase():
             if "Compiling entry function" in line:  # name the instantiation
                 inst = paged_instantiation(line)
                 m = re.search(
-                    r"\d+((?:flash_\w+|moe_ffn(?:_int8)?"
-                    r"|expert_ffn(?:_int8|_up_wgmma|_down_wgmma)?)_kernel)I",
-                    line)
+                    r"\d+((?:flash_\w+"
+                    r"|moe_ffn(?:_int8|_up_wgmma|_down_wgmma)?"
+                    r"|expert_ffn(?:_int8|_up_wgmma|_down_wgmma|_up_decode"
+                    r"|_down_decode)?)_kernel)I", line)
                 name = m.group(1) if m else "?"
                 dt = ("bf16" if "13__nv_bfloat16" in line
                       or name in WGMMA_KERNELS else "f32")
@@ -2500,7 +2668,7 @@ def build_phase():
                     kernel, smem_args = wgmma_label(name, line)
                     summary[kernel] = {"registers": None, "spill_stores": None,
                                      "spill_loads": None, "lib": src,
-                                     "smem_args": smem_args,
+                                     "smem": smem_args,
                                      "function": re.search(
                                          r"function '(\S+)'", line).group(1)}
                 elif name.startswith(("moe_ffn", "expert_ffn")):
@@ -2524,38 +2692,42 @@ def build_phase():
                             summary[kernel][key] = int(m.group(1))
     fsmem = libs["flash_attention"].tdp_flash_smem_bytes
     fsmem.argtypes, fsmem.restype = [ctypes.c_int] * 3, ctypes.c_int
-    ksmem = libs["moe_dispatch"].tdp_expert_ffn_wgmma_smem_bytes
-    ksmem.argtypes, ksmem.restype = [ctypes.c_int] * 3, ctypes.c_int
     hgmma = {}
     for src in ("flash_attention", "moe_dispatch"):
         hgmma.update(hgmma_counts(_build.BUILD_INFO[src]["path"]))
     for kernel, regs in summary.items():
         extra = ""
         if "function" in regs:
-            smem = fsmem if regs.pop("lib") == "flash_attention" else ksmem
-            regs["smem_bytes"] = smem(*regs.pop("smem_args"))
+            fn_name, args = regs.pop("smem")
+            smem = getattr(libs[regs.pop("lib")], fn_name)
+            smem.argtypes = [ctypes.c_int] * len(args)
+            smem.restype = ctypes.c_int
+            regs["smem_bytes"] = smem(*args)
             regs["hgmma"] = hgmma.get(regs.pop("function"), 0)
             extra = (f", {regs['smem_bytes']} B dynamic shared memory, "
                      f"{regs['hgmma']} HGMMA instructions")
             if regs["hgmma"] == 0:
                 raise RuntimeError(f"{kernel}: no HGMMA instruction in its "
                                    f"SASS: the body does not run on wgmma")
-            # K4's, K5's and K7's warpgroups trade registers by setmaxnreg,
-            # whose budget (24 x 128 + 240 x 256, or 40 x 128 + 232 x 256)
-            # is the launch's: 168 a thread at 384 threads.  With fewer,
-            # setmaxnreg.inc would wait forever.
-            if kernel[:2] in ("K4", "K5", "K7") and regs["registers"] != 168:
+            # K4's, K5's and K6's / K7's chunk warpgroups trade registers
+            # by setmaxnreg, whose budget (24 x 128 + 240 x 256) is the
+            # launch's: 168 a thread at 384 threads.  With fewer,
+            # setmaxnreg.inc would wait forever.  (K7's decode body does
+            # not trade.)
+            if (kernel[:2] in ("K4", "K5", "K6", "K7")
+                    and "_decode_" not in kernel
+                    and regs["registers"] != 168):
                 raise RuntimeError(f"{kernel}: {regs['registers']} registers "
                                    f"at launch, not the 168 its setmaxnreg "
                                    f"budget assumes")
         log(f"[build] {kernel}: {regs['registers']} registers, "
             f"{regs['spill_stores']} bytes spill stores, "
             f"{regs['spill_loads']} bytes spill loads{extra}")
-    found = [k[:2] for k in summary if k[:2] in ("K3", "K4", "K5", "K7")]
-    if sorted(found) != ["K3"] * 2 + ["K4"] * 2 + ["K5"] * 2 + ["K7"] * 6:
-        raise RuntimeError(f"build: not every warpgroup instantiation (2 each "
-                           f"of bf16 K3, K4, K5; 6 of K7) was found in "
-                           f"ptxas' log: {found}")
+    found = {k: sum(1 for n in summary if n[:2] == k) for k in WGMMA_COUNTS}
+    if found != WGMMA_COUNTS:
+        raise RuntimeError(f"build: not every warpgroup instantiation "
+                           f"({WGMMA_COUNTS}) was found in ptxas' log: "
+                           f"{found}")
     smem = libs["paged_attention"].tdp_paged_smem_bytes
     smem.argtypes, smem.restype = [ctypes.c_int] * 3, ctypes.c_int
     log("[build] paged_attention (K1 and K2) dynamic shared memory per CTA "
@@ -2667,6 +2839,7 @@ def main():
     moe_model_phase(params, cfg)
     moe_eng = moe_engine_phase(params, cfg, card)
     profile_phase(params, cfg, card, max_ctx=4096, tag="moe-profile")
+    profile_prefill(params, cfg, card, tag="moe-prefill-profile")
     # the same model served expert-parallel, K7 in every expert layer
     ep_eng = ep_phase(params, cfg, card, "fused_expert_ffn", "ep")
     del params
@@ -2690,6 +2863,7 @@ def main():
     int8_eng = moe_engine_phase(params, cfg, card, k6="fused_moe_ffn_int8",
                                 tag="int8-engine")
     profile_phase(params, cfg, card, max_ctx=4096, tag="int8-profile")
+    profile_prefill(params, cfg, card, tag="int8-prefill-profile")
     ep_int8_eng = ep_phase(params, cfg, card, "fused_expert_ffn_int8",
                            "ep-int8", gather_experts=dequant_bf16)
     del params
@@ -2716,11 +2890,15 @@ def main():
     entries.append(kernel_entry(
         "fused_moe_ffn", MOE_SOURCE, MOE_REPLACES,
         moe_eng["launches"]["fused_moe_ffn"], moe_rows, moe_rows[0],
+        ptxas={n: v for n, v in ptxas_summary.items()
+               if n.startswith("K6") and "bf16 weights" in n},
         library="the ragged 'gather' arm: one cuBLAS product per expert "
                 "and weight (several calls)"))
     entries.append(kernel_entry(
         "fused_moe_ffn_int8", MOE_SOURCE, MOE_INT8_REPLACES,
         int8_eng["launches"]["fused_moe_ffn_int8"], int8_rows, int8_rows[0],
+        ptxas={n: v for n, v in ptxas_summary.items()
+               if n.startswith("K6") and "int8 weights" in n},
         library="the ragged 'gather' arm over bf16 weights dequantised "
                 "beforehand: one cuBLAS product per expert and weight "
                 "(several calls; no PyTorch call takes int8 weights)"))

@@ -669,17 +669,20 @@ def test_expert_ffn_kernel_wrapper_refuses_what_it_does_not_take(cuda):
 @pytest.fixture
 def k7_body(monkeypatch):
     """Pins K7's shape dispatch to one body: ``k7_body('wgmma')`` sends
-    every bf16 group there, ``k7_body('walk')`` none."""
+    every bf16 group to the chunk body, ``k7_body('decode')`` to the
+    decode body, ``k7_body('walk')`` to neither."""
     from torchdistpackage_tpu_torch.ops import moe_dispatch as md
 
     def pin(body):
         monkeypatch.setattr(md, "EXPERT_FFN_WGMMA_G_MIN",
                             1 if body == "wgmma" else 1 << 30)
+        monkeypatch.setattr(md, "EXPERT_FFN_DECODE_G_MIN",
+                            1 if body == "decode" else 1 << 30)
     return pin
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("body", ["wgmma", "walk"])
+@pytest.mark.parametrize("body", ["wgmma", "walk", "decode"])
 @pytest.mark.parametrize("quantized", [False, True], ids=["float", "int8"])
 @pytest.mark.parametrize("act", ["gelu", "swiglu"])
 @pytest.mark.parametrize("E,G,D,F", [
@@ -689,9 +692,10 @@ def k7_body(monkeypatch):
 def test_expert_ffn_wgmma_body_matches_plain_on_card(cuda, k7_body, body,
                                                      quantized, act, E, G,
                                                      D, F):
-    """K7's chunk rows through both of its bodies (the two-pass warpgroup
-    GEMM and the walk), bf16 rows, float and int8 experts, against the
-    plain version in f32, row by row under K6's rule."""
+    """K7's chunk rows through each of its bodies (the two-pass warpgroup
+    GEMM, the walk and the decode body's row tiles), bf16 rows, float and
+    int8 experts, against the plain version in f32, row by row under K6's
+    rule."""
     from torchdistpackage_tpu_torch.ops import moe_dispatch as md
 
     bf = torch.bfloat16
@@ -746,6 +750,284 @@ def test_expert_ffn_wgmma_planted_faults_fail(cuda, k7_body):
                     q, w1=(q1.flip(1).contiguous(), s1.flip(1).contiguous()),
                     b1=q["b1"].flip(1).contiguous()), x)):
         assert _moe_ratio(got, exact_q, scale_q, bf) > 1.0
+
+
+def _kernel_names(fn):
+    """The CUDA kernels one call of ``fn`` launches, by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return " ".join(e.key for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quantized", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("E", [1, 2, 8])
+@pytest.mark.parametrize("G", [1, 8, 16, 32])
+def test_expert_ffn_decode_body_matches_plain_on_card(cuda, quantized, E, G):
+    """K7's decode rows on the swap-AB body at the routing's own
+    threshold (bf16, G below ``EXPERT_FFN_WGMMA_G_MIN``): G 1 to 32 rows
+    (one 16- or 64-row tile), e_loc 1 to 8, float and int8 experts, pad
+    rows included, against the plain version in f32 under K6's rule."""
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+
+    bf = torch.bfloat16
+    ex, x = _expert_inputs(cuda, E=E, G=G, D=256, F=512, act="swiglu",
+                           dtype=bf, seed=E * 100 + G, quantized=quantized)
+    assert md.expert_ffn_body(G, bf) == "decode"
+    name = "fused_expert_ffn_int8" if quantized else "fused_expert_ffn"
+    before = dict(md.LAUNCHES)
+    got = md.fused_expert_ffn(ex, x)
+    torch.cuda.synchronize()
+    assert {n: md.LAUNCHES[n] - before[n] for n in before} == {
+        n: int(n == name) for n in before}
+    assert got.dtype == bf and got.shape == x.shape
+    _moe_rows_close(got, md.expert_ffn_reference(ex, x),
+                    md.expert_ffn_rounding_scale(ex, x), bf)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quantized", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("act", ["gelu", "swiglu"])
+@pytest.mark.parametrize("E,G,D,F", [
+    (2, 8, 320, 192),    # D and F not multiples of the 128-column tile
+    (2, 20, 256, 384),   # a ragged 32-row tile
+    (3, 40, 256, 1472),  # a ragged 64-row tile, F 1472
+    (2, 100, 128, 256),  # two row tiles (pinned past the threshold)
+])
+def test_expert_ffn_decode_body_ragged_on_card(cuda, k7_body, quantized, act,
+                                               E, G, D, F):
+    """The decode body at ragged widths and row counts, GELU and SwiGLU,
+    pinned to it, against the plain version in f32 under K6's rule."""
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+
+    bf = torch.bfloat16
+    k7_body("decode")
+    ex, x = _expert_inputs(cuda, E=E, G=G, D=D, F=F, act=act, dtype=bf,
+                           seed=E + G + D + F, quantized=quantized)
+    assert md.expert_ffn_body(G, bf) == "decode"
+    _moe_rows_close(md.fused_expert_ffn(ex, x), md.expert_ffn_reference(ex, x),
+                    md.expert_ffn_rounding_scale(ex, x), bf)
+
+
+@pytest.mark.gpu
+def test_expert_ffn_decode_planted_faults_fail(cuda):
+    """On the decode body the row check catches the last F tile left out,
+    b2 added by every F tile (the stream-K runs each add one partial sum;
+    only the run that starts the F sum adds b2), each row in the next
+    expert's block, gate and up swapped and int8 w2's scale not
+    applied."""
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+
+    bf = torch.bfloat16
+    ex, x = _expert_inputs(cuda, E=2, G=8, D=256, F=512, act="swiglu",
+                           dtype=bf, seed=13)
+    assert md.expert_ffn_body(8, bf) == "decode"
+    exact = md.expert_ffn_reference(ex, x)
+    scale = md.expert_ffn_rounding_scale(ex, x)
+    _moe_rows_close(md.fused_expert_ffn(ex, x), exact, scale, bf)
+    w2 = ex["w2"].clone()
+    w2[:, -md.TILE:] = 0
+    n_f = ex["w2"].shape[1] // md.TILE
+    bad = [md.fused_expert_ffn(dict(ex, w2=w2), x),
+           md.fused_expert_ffn(dict(ex, b2=ex["b2"] * n_f), x),
+           torch.roll(md.fused_expert_ffn(ex, x), 1, dims=0),
+           md.fused_expert_ffn(dict(ex, w1=ex["w1"].flip(1).contiguous(),
+                                    b1=ex["b1"].flip(1).contiguous()), x)]
+    for got in bad:
+        assert _moe_ratio(got, exact, scale, bf) > 1.0
+    q = md.quantize_moe_experts(ex)
+    q2, s2 = q["w2"]
+    exact_q = md.expert_ffn_reference(q, x)
+    scale_q = md.expert_ffn_rounding_scale(q, x)
+    _moe_rows_close(md.fused_expert_ffn(q, x), exact_q, scale_q, bf)
+    got = md.fused_expert_ffn(dict(q, w2=(q2, torch.ones_like(s2))), x)
+    assert _moe_ratio(got, exact_q, scale_q, bf) > 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,dtype,kernel", [
+    (8, "bfloat16", "expert_ffn_up_decode_kernel"),
+    (63, "bfloat16", "expert_ffn_up_decode_kernel"),
+    (64, "bfloat16", "expert_ffn_up_wgmma_kernel"),
+    (8, "float32", "expert_ffn_kernel<"),
+])
+def test_expert_ffn_routing_launches_the_named_body(cuda, G, dtype, kernel):
+    """``expert_ffn_body``'s answer is the body that runs: the kernel
+    names torch.profiler records (``EXPERT_FFN_WGMMA_G_MIN`` 64)."""
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+
+    dt = getattr(torch, dtype)
+    ex, x = _expert_inputs(cuda, E=2, G=G, D=128, F=256, act="swiglu",
+                           dtype=dt, seed=G)
+    names = _kernel_names(lambda: md.fused_expert_ffn(ex, x))
+    assert kernel in names, names
+    others = {"expert_ffn_up_decode_kernel", "expert_ffn_up_wgmma_kernel",
+              "expert_ffn_kernel<"} - {kernel}
+    assert not any(o in names for o in others), names
+
+
+# ------------------------------------- K6's chunk rows on the warpgroup body
+
+
+@pytest.fixture
+def k6_body(monkeypatch):
+    """Pins K6's dispatch: ``k6_body('wgmma')`` sends every bf16 call to
+    the warpgroup body, ``k6_body('walk')`` none."""
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+
+    def pin(body):
+        monkeypatch.setattr(md, "MOE_FFN_WGMMA_C_MIN",
+                            1 if body == "wgmma" else 1 << 30)
+    return pin
+
+
+def _k6_inputs(cuda, quantized, **kw):
+    return (_int8_inputs if quantized else _moe_inputs)(cuda, **kw)
+
+
+def _scatter_perm(cuda, idx, T, seed):
+    """A ``scatter_idx`` other than ``idx``: each slot's token sent
+    through a fixed permutation of the T tokens; returns (dst, perm)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    perm = torch.randperm(T, generator=g, device=cuda)
+    return perm[idx.long()].to(torch.int32).contiguous(), perm
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("body", ["wgmma", "walk"])
+@pytest.mark.parametrize("quantized", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("act", ["gelu", "swiglu"])
+@pytest.mark.parametrize("T,C,D,F,holes,scatter", [
+    (256, 256, 256, 512, False, False),    # C = T at top-2: 3/4 empty
+    (4096, 4096, 128, 192, False, False),  # a chunk's C = T: 24 of 32
+                                           # tiles an expert empty; F not
+                                           # of the 128-column tile
+    (512, 100, 320, 256, False, False),    # drops; C not of 128, D not of
+                                           # 256
+    (400, 200, 256, 256, True, False),     # holes inside filled tiles
+    (256, 256, 256, 256, False, True),     # scatter_idx other than idx
+])
+def test_moe_bodies_match_plain_on_card(cuda, k6_body, body, quantized, act,
+                                        T, C, D, F, holes, scatter):
+    """K6's chunk rows on each of its bodies (pinned), float and int8
+    experts, SwiGLU and GELU, bf16 tokens, against the plain version in
+    f32 row by row under K6's rule."""
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+
+    bf = torch.bfloat16
+    k6_body(body)
+    ex, tok, idx, comb, _ = _k6_inputs(cuda, quantized, T=T, C=C, E=8, D=D,
+                                       F=F, act=act, dtype=bf,
+                                       seed=T + C + D + F, holes=holes)
+    dst, scale_of = None, None
+    if scatter:
+        dst, perm = _scatter_perm(cuda, idx, T, seed=T)
+    assert md.moe_ffn_body(C, bf) == body
+    name = "fused_moe_ffn_int8" if quantized else "fused_moe_ffn"
+    before = dict(md.LAUNCHES)
+    got = md.fused_moe_ffn_slots(ex, tok, idx, comb, scatter_idx=dst)
+    torch.cuda.synchronize()
+    assert {n: md.LAUNCHES[n] - before[n] for n in before} == {
+        n: int(n == name) for n in before}
+    assert got.dtype == torch.float32 and got.shape == (T, D)
+    exact = md.moe_ffn_slots_reference(ex, tok, idx, comb, dst)
+    scale = md.moe_rounding_scale(ex, tok, idx, comb)
+    if scatter:  # token t's output lands in row perm[t]
+        scale_of = torch.empty_like(scale)
+        scale_of[perm] = scale
+        scale = scale_of
+    _moe_rows_close(got.to(bf), exact, scale, bf)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quantized", [False, True], ids=["float", "int8"])
+def test_moe_wgmma_body_is_bitwise_repeatable_at_top2(cuda, quantized):
+    """At top-2 each output element gets one add per routed choice into
+    zeros, so two launches give the same bits."""
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+
+    ex, tok, idx, comb, _ = _k6_inputs(cuda, quantized, T=1024, C=1024, E=8,
+                                       D=256, F=512, act="swiglu",
+                                       dtype=torch.bfloat16, seed=21)
+    assert md.moe_ffn_body(1024, torch.bfloat16) == "wgmma"
+    a = md.fused_moe_ffn_slots(ex, tok, idx, comb)
+    b = md.fused_moe_ffn_slots(ex, tok, idx, comb)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,dtype,kernel", [
+    ("min", "bfloat16", "moe_ffn_up_wgmma_kernel"),
+    ("below", "bfloat16", "moe_ffn_kernel<"),
+    (4096, "bfloat16", "moe_ffn_up_wgmma_kernel"),
+    (4096, "float32", "moe_ffn_kernel<"),
+])
+def test_moe_routing_launches_the_named_body(cuda, C, dtype, kernel):
+    """``moe_ffn_body``'s answer is the body that runs, by the kernel
+    names torch.profiler records, at ``MOE_FFN_WGMMA_C_MIN`` and one
+    below it."""
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+
+    C = {"min": md.MOE_FFN_WGMMA_C_MIN,
+         "below": md.MOE_FFN_WGMMA_C_MIN - 1}.get(C, C)
+    dt = getattr(torch, dtype)
+    ex, tok, idx, comb, _ = _moe_inputs(cuda, T=C, C=C, E=8, D=128, F=128,
+                                        act="swiglu", dtype=dt, seed=C)
+    names = _kernel_names(lambda: md.fused_moe_ffn_slots(ex, tok, idx, comb))
+    assert kernel in names, names
+    other = ("moe_ffn_kernel<" if kernel != "moe_ffn_kernel<"
+             else "moe_ffn_up_wgmma_kernel")
+    assert other not in names, names
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quantized", [False, True], ids=["float", "int8"])
+def test_moe_wgmma_planted_faults_fail(cuda, k6_body, quantized):
+    """On K6's warpgroup body the row check catches: the gate weight not
+    applied, the last F tile left out, the scatter on the neighbouring
+    slot's token, the gather from the neighbouring slot's token, a filled
+    tile treated as empty (its comb zeroed on the kernel side only), gate
+    and up swapped, and (int8) w2's scale not applied."""
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+
+    bf = torch.bfloat16
+    k6_body("wgmma")
+    ex, tok, idx, comb, _ = _k6_inputs(cuda, quantized, T=512, C=512, E=4,
+                                       D=256, F=256, act="swiglu", dtype=bf,
+                                       seed=31)
+    exact = md.moe_ffn_slots_reference(ex, tok, idx, comb)
+    scale = md.moe_rounding_scale(ex, tok, idx, comb)
+    _moe_rows_close(md.fused_moe_ffn_slots(ex, tok, idx, comb).to(bf), exact,
+                    scale, bf)
+    (w1, s1), (w2, s2) = ((ex["w1"], ex["w2"]) if quantized
+                          else ((ex["w1"], None), (ex["w2"], None)))
+    cut = w2.clone()
+    cut[:, -md.TILE:] = 0
+    empty = comb.clone()
+    empty[0, :md.CHUNK_ROWS] = 0
+    swap_w1 = (w1.flip(1).contiguous() if s1 is None else
+               (w1.flip(1).contiguous(), s1.flip(1).contiguous()))
+    faults = [
+        (ex, idx, (comb != 0).float(), None),
+        (dict(ex, w2=cut if s2 is None else (cut, s2)), idx, comb, None),
+        (ex, idx, comb, torch.roll(idx, -1, dims=1).contiguous()),
+        (ex, torch.roll(idx, -1, dims=1).contiguous(), comb, idx),
+        (ex, idx, empty, None),
+        (dict(ex, w1=swap_w1, b1=ex["b1"].flip(1).contiguous()), idx, comb,
+         None),
+    ]
+    if quantized:
+        faults.append((dict(ex, w2=(w2, torch.ones_like(s2))), idx, comb,
+                       None))
+    for exf, i, cb, dst in faults:
+        got = md.fused_moe_ffn_slots(exf, tok, i, cb, scatter_idx=dst)
+        assert _moe_ratio(got.to(bf), exact, scale, bf) > 1.0
 
 
 # ------------------------------------------------ the CP carry kernel, K2

@@ -232,18 +232,18 @@ def test_expert_ffn_plain_matches_jax_k7_at_chunk_rows(act, quantized):
 
 
 @pytest.mark.parametrize("G,dtype,body", [
-    (8, torch.bfloat16, "walk"),      # EP 1 decode: [8, 8, 4096]
-    (32, torch.bfloat16, "walk"),     # EP 4 decode: [2, 32, 4096]
-    (63, torch.bfloat16, "walk"),
+    (8, torch.bfloat16, "decode"),    # EP 1 decode: [8, 8, 4096]
+    (32, torch.bfloat16, "decode"),   # EP 4 decode: [2, 32, 4096]
+    (63, torch.bfloat16, "decode"),
     (64, torch.bfloat16, "wgmma"),
     (200, torch.bfloat16, "wgmma"),
     (4096, torch.bfloat16, "wgmma"),  # EP 1 chunk: [8, 4096, 4096]
     (4096, torch.float32, "walk"),    # f32 rows: CUDA-core body only
 ])
 def test_expert_ffn_body_routes_by_rows_and_dtype(G, dtype, body):
-    """K7's shape dispatch between its two hand-written bodies: a group of
-    at least ``EXPERT_FFN_WGMMA_G_MIN`` bf16 rows takes the warpgroup
-    body, decode's few rows and f32 rows the walk."""
+    """K7's shape dispatch between its three hand-written bodies: a group
+    of at least ``EXPERT_FFN_WGMMA_G_MIN`` bf16 rows takes the chunk
+    body, fewer bf16 rows (decode) the decode body, f32 rows the walk."""
     assert md.EXPERT_FFN_WGMMA_G_MIN == 64
     assert md.expert_ffn_body(G, dtype) == body
 

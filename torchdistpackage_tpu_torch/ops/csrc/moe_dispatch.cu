@@ -2,13 +2,14 @@
 // the [E, C] slot maps, run each expert's FFN, and add the gate-weighted
 // result back into the [T, D] output — one launch a layer, with no
 // [T, E, C] dispatch tensor and no gathered [E, C, D] slot view in device
-// memory.  Two variants: float expert weights (moe_ffn_kernel) and int8
-// weight-only experts (moe_ffn_int8_kernel).
+// memory.  Two variants: float expert weights and int8 weight-only
+// experts, each in two bodies (the walk: moe_ffn_kernel /
+// moe_ffn_int8_kernel; chunk rows: moe_ffn_up_wgmma_kernel then
+// moe_ffn_down_wgmma_kernel).
 //
 // Replaces the TPU kernel K6 of torchdistpackage_tpu/ops/moe_dispatch.py:
-// _pallas_moe_ffn (:289, body _kernel :202) -> moe_ffn_kernel, and its
-// quantized branch (_kernel :253-258, the (q8, scale) leaves of
-// quantize_moe_experts) -> moe_ffn_int8_kernel.
+// _pallas_moe_ffn (:289, body _kernel :202), and its quantized branch
+// (_kernel :253-258, the (q8, scale) leaves of quantize_moe_experts).
 //
 // y[t] = sum over filled slots (e, c) with idx[e, c] = t and g = comb[e, c]
 //        of g * FFN_e(x[t]),
@@ -22,17 +23,19 @@
 // - decode (T = 8 rows, top-2 of 8 experts): the bytes of every expert hit,
 //   3 D F x 2 B = 352 MB an expert at Mixtral widths (D 4096, F 14336) for
 //   bf16 weights, 3 D F x 1 B = 176 MB (plus 42 KB of scales) for int8; up
-//   to 2.8 / 1.4 GB a layer against ~1e9 FLOP — bytes.  Every CTA streams
-//   its slice of W1 and W2 once through shared memory, and a warp whose 16
-//   rows are all empty skips its products, so the weights are read once a
-//   layer and only for the experts that were hit.
+//   to 2.8 / 1.4 GB a layer against ~1e9 FLOP — bytes.
 // - a 512-row prefill chunk of 8 slots (T = 4096): 2 (T k) 3 D F = 2.9e12
-//   FLOP — operations, for either weight type.  The products run on the
-//   tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate); the f32
-//   instantiations compute the same tiles on the CUDA cores (exact f32, for
-//   checks).
+//   FLOP — operations, for either weight type.
+// Two bodies, chosen by the wrapper (ops/moe_dispatch.py moe_ffn_body)
+// from the capacity and the tokens' type: decode's few slots and f32
+// tokens take the walk below, bf16 tokens at a chunk's capacity the
+// two-pass warpgroup GEMM further down (its K6 mode), the walk's costs
+// being what bounds a chunk: each filled row's [D] output arrived as F /
+// 64 f32 partial sums by atomics (7.5e9 adds at the chunk), every F tile
+// gathered its token rows again over the whole of D, and the products
+// ran on 64 x 64 mma.sync tiles.
 //
-// Design, against the TPU kernel:
+// The walk, against the TPU kernel:
 // - The TPU kernel loads one expert's whole W1/W2 per grid step (BlockSpec
 //   over everything but the expert dim).  At Mixtral widths one expert's W1
 //   is 235 MB, so here a CTA owns 64 capacity slots of one expert and one
@@ -40,7 +43,9 @@
 //   rows and the W1 tile double-buffered with cp.async) into the gate/up
 //   accumulators, applies bias and activation in registers and keeps the
 //   [64, 64] activation in shared memory; phase 2 walks D in 64-column
-//   stages of W2, each a [64, 64] . [64, 64] product.
+//   stages of W2, each a [64, 64] . [64, 64] product on the tensor cores
+//   (mma.sync m16n8k16, bf16 in, f32 accumulate); the f32 instantiations
+//   compute the same tiles on the CUDA cores (exact f32, for checks).
 // - The TPU grid runs in order, so it zeroes the output at its first step
 //   and read-modify-writes rows.  CTAs run in parallel in no order: the
 //   wrapper allocates y with torch.zeros, and each CTA adds g x its partial
@@ -51,9 +56,10 @@
 //   only).  b2 is added once, by the CTAs of the first F tile.
 // - Scalar-prefetched idx: each CTA loads its own 64 entries of idx / comb.
 // - The empty-tile skip (:239) stays: a CTA whose 64 comb values are all 0
-//   exits before any load.  At the serving capacity C = T only T k of the
-//   E T slots are filled, from slot 0 upward, so the trailing tiles of every
-//   expert exit at once and the E / k padded-compute tax never runs.
+//   exits before any load.  At decode every CTA streams its slice of W1
+//   and W2 once through shared memory, and a warp whose 16 rows are all
+//   empty skips its products, so the weights are read once a layer and
+//   only for the experts that were hit.
 // - int8: the TPU kernel dequantises the whole weight block in f32 before
 //   its products.  Here the int8 tiles stay int8 in shared memory (a
 //   [64 d x 64 f] stage is 4 KB, 16 weights a 16-byte cp.async) and each
@@ -67,10 +73,7 @@
 //   stream at 1 byte an element.
 // - Rounding: for bf16 the activation is rounded to bf16 before the second
 //   tensor-core product; the TPU kernel keeps it in f32.  Every accumulator
-//   stays f32.
-// Fragments are assembled with 8/16/32-bit shared loads.  K6 still runs
-// this body at every row count; K7's chunk rows run the two-pass
-// warpgroup GEMM below, which K6's prefill rows are to move onto next.
+//   stays f32.  Fragments are assembled with 8/16/32-bit shared loads.
 //
 // K7, the expert FFN of expert-parallel (EP) layers: expert_ffn_kernel and
 // expert_ffn_int8_kernel replace _pallas_expert_ffn (:479, pallas_call
@@ -86,18 +89,23 @@
 // 2 e_loc G 3 D F = 1.15e13 FLOP -> 11.7 ms — E / k = 4x K6's work on the
 // same chunk, the padded-compute tax of C = T that the reference's EP path
 // pays by its semantics.  bf16 rounds the activation to bf16 before the
-// second product, as K6 does.  Two bodies, chosen by the wrapper from the
-// rows' count and type (ops/moe_dispatch.py expert_ffn_body):
-// - decode's few rows and f32 rows: the body above with the identity slot
-//   map (IDENT): slot c of expert e is row e G + c of x and of y, weight
-//   1, so there is no empty-tile skip (the TPU kernel computes every row
-//   too).  Grid (ceil(G / 64), F / 64, e_loc); F-tile partials meet in
-//   the zeroed f32 y by atomicAdd (their order varies from run to run), b2
-//   is added by the first F tile, and the wrapper casts y to x's type.
+// second product, as K6 does.  Three bodies, chosen by the wrapper from
+// the rows' count and type (ops/moe_dispatch.py expert_ffn_body):
+// - f32 rows: the walk with the identity slot map (IDENT): slot c of
+//   expert e is row e G + c of x and of y, weight 1, so there is no
+//   empty-tile skip (the TPU kernel computes every row too).  Grid
+//   (ceil(G / 64), F / 64, e_loc); F-tile partials meet in the zeroed f32
+//   y by atomicAdd (their order varies from run to run), b2 is added by
+//   the first F tile, and the wrapper casts y to x's type.
 // - bf16 chunk rows (G >= 64): expert_ffn_up_wgmma_kernel and
-//   expert_ffn_down_wgmma_kernel, a two-pass grouped GEMM on the warpgroup
-//   MMA (described where they are defined): no atomics, no f32 y, output
-//   in x's type, the same bits from run to run.
+//   expert_ffn_down_wgmma_kernel, the two-pass grouped GEMM on the
+//   warpgroup MMA (described where they are defined): no atomics, no f32
+//   y, output in x's type, the same bits from run to run.
+// - bf16 decode rows: expert_ffn_up_decode_kernel and
+//   expert_ffn_down_decode_kernel, the same two passes with A and B
+//   swapped (the weight the 64-row side of wgmma, the rows the narrow
+//   side), one CTA an SM streaming the weights (described where they are
+//   defined).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -151,6 +159,13 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+// an arrival on `bar` once every cp.async this thread has issued so far
+// has landed; the barrier's count includes it (.noinc)
+__device__ __forceinline__ void cp_async_arrive_noinc(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(bar)))
+               : "memory");
 }
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
@@ -628,19 +643,19 @@ bool bad_expert_shape(int E, int G, int D, int F) {
          static_cast<long long>(E) * G > 0x7fffffffLL;
 }
 
-// ----------------------------------------- K7 chunk rows on the warpgroup MMA
+// ------------------------------- chunk rows (K7 and K6) on the warpgroup MMA
 //
 // A two-pass grouped GEMM for bf16 rows, one body templated on the weight
-// type (bf16, or int8 converted to bf16 in shared memory):
-//   pass 1 (up):   H[e] = act(X[e] . W1[e] + b1[e])  -> bf16 [E, G, F]
-//   pass 2 (down): Y[e] = H[e] . W2[e] + b2[e]       -> bf16 [E, G, D]
+// type (bf16, or int8 converted to bf16 in shared memory) and on where the
+// rows come from (SLOTS):
+//   pass 1 (up):   H = act(X . W1[e] + b1[e])  -> bf16
+//   pass 2 (down): Y = H . W2[e] + b2[e]
 // - A CTA owns 128 rows of one expert (two consumer warpgroups of 64) and
 //   N output columns (pass 1: 128 of F, the gate and up accumulators side
 //   by side for SwiGLU; pass 2: 256 of D), and walks the whole reduction
-//   (D or F) in 64-deep stages, so every sum stays in registers: no
-//   atomics, no f32 output, no cast, the same result from run to run.  H
-//   (bf16, rounded once as the walk body rounds it) lives in device memory
-//   between the passes: 0.94 GB at [8, 4096, 4096], F 14336.
+//   (D or F) in 64-deep stages, so every sum stays in registers.  H (bf16,
+//   rounded once as the walk body rounds it) lives in device memory
+//   between the passes.
 // - One thread of a producer warpgroup streams the stages through TMA:
 //   the rows K-major, the weight tile [64 k][N] with N contiguous, read
 //   MN-major by the transpose bit (no transposed weight copy); the
@@ -659,10 +674,37 @@ bool bad_expert_shape(int E, int G, int D, int F) {
 //   over its 128 rows; three producer warps alone converted too slowly
 //   to keep up with the products.  The per-column scales multiply the f32
 //   sums in the epilogue, as in the walk body.
+// K7 (SLOTS false): X is the exchanged [E, G, D] groups, one CTA a
+// (128-row tile, column tile, expert) of the grid, H [E, G, F], output
+// bf16 [E, G, D] stored once: no atomics, no f32 output, the same result
+// from run to run.  K6 (SLOTS true), the slot maps of a prefill chunk:
+// - The gather: TMA has no row gather on sm_90, so in pass 1 the whole
+//   producer warpgroup gathers the rows: 16-byte cp.async copies, 8
+//   threads a 128-byte row (one line a row per instruction), each chunk c
+//   of row r placed by hand at c ^ r % 8 (the 128-byte swizzle desc_k
+//   reads); an empty slot's row is zero-filled (src-size 0), as the
+//   reference's where(filled, ..., 0).  Each thread's copies arrive on
+//   the stage's full barrier by themselves once landed
+//   (cp.async.mbarrier.arrive.noinc: 128 arrivals beside the weight
+//   TMA's expect-tx), so the producers run as far ahead as the stages
+//   allow; the consumers fence the async proxy after their wait, before
+//   wgmma reads what the generic proxy wrote.  The weight tiles keep TMA.
+// - The skip: only the non-empty 128-slot tiles are listed (a device-side
+//   list, by expert, and each expert's start in it, built by the wrapper
+//   with no host sync), and a grid of one CTA an SM walks (listed tile,
+//   column tile) items in the K7 grid's order, so an empty tile costs
+//   nothing; H is indexed by list position.
+// - The combine: pass 2 keeps the whole F reduction in registers and adds
+//   g (H . W2 + b2) of each filled slot into the zeroed f32 y[dst] by
+//   8-byte vector atomics (red.global.add.v2.f32): one add per output
+//   element and routed choice (2 at top-2, against F / 64 partial sums in
+//   the walk), so at k <= 2 the sum is the same bits from run to run
+//   (0 + a + b = 0 + b + a).
 
 constexpr int FFN_BM = 128;  // rows a CTA
 constexpr int FFN_BK = 64;   // reduction depth a stage
 constexpr int FFN_CONSUMERS = 256;  // two warpgroups
+constexpr int SMEM_MAX = 232448;    // dynamic shared memory a block can use
 
 template <bool UP, bool Q, bool SWIGLU>
 struct FfnWg {
@@ -676,7 +718,8 @@ struct FfnWg {
   static constexpr int RAW_BYTES = Q ? FFN_BK * N : 0;  // one int8 tile
   static constexpr int STAGE = A_BYTES + NW * (W_BYTES + RAW_BYTES);
   static constexpr int BAR_BYTES = 8 * 2 * NS;
-  static constexpr size_t SMEM = 1024 + NS * STAGE + BAR_BYTES;
+  static constexpr int TOK_BYTES = 2 * FFN_BM * 4;  // K6's gathered rows
+  static constexpr size_t SMEM = 1024 + NS * STAGE + BAR_BYTES + TOK_BYTES;
 };
 
 // Two int8 weights of `word` (bytes 2 half, 2 half + 1) as a bf16x2,
@@ -695,33 +738,107 @@ __device__ __forceinline__ uint32_t s8x2_to_bf16x2(uint32_t word, int half) {
   return d;
 }
 
-// One CTA of either pass.  ta: the rows (X [E, G, D] or H [E, G, F]),
-// bf16 boxes of 64 x 128 under the 128-byte swizzle.  tw: the weights
-// viewed [E NW, K, NT] (W1 [E, 2, D, F] or [E, D, F]; W2 [E, F, D]) —
-// bf16 boxes of 64 x 64 under the swizzle, or int8 boxes of N x 64 with
-// no swizzle that the consumers turn into the bf16 layout.  s: the
-// int8 column scales ([E NW, NT], null for bf16 weights), b: the bias
-// ([E NW, NT]), out: [E, G, NT] bf16.  K is the reduction's length (D or
-// F), NT the output's width (F or D).
-template <bool UP, bool Q, bool SWIGLU>
+// Threads tid < THREADS turn COLS columns of an int8 tile [64 k][LD bytes]
+// (raw: its first column) into the bf16 tile wgmma reads: COLS / 64 boxes
+// of [64 k][64] under the 128-byte swizzle (16-byte chunk c of row r at
+// chunk c ^ r % 8).
+template <int COLS, int LD, int THREADS>
+__device__ __forceinline__ void s8_tile_to_bf16(const unsigned char* raw,
+                                                unsigned char* dst, int tid) {
+  constexpr int STEPS = FFN_BK * COLS / 16;  // 16 weights a step
+  static_assert(STEPS % THREADS == 0, "whole steps a thread");
+#pragma unroll
+  for (int j = 0; j < STEPS / THREADS; ++j) {
+    const int i = tid + j * THREADS;
+    const int r = i / (COLS / 16);
+    const int c8 = 2 * (i % (COLS / 16));  // first 8-weight chunk
+    const uint4 v = *reinterpret_cast<const uint4*>(raw + r * LD + c8 * 8);
+    const uint4 lo = {s8x2_to_bf16x2(v.x, 0), s8x2_to_bf16x2(v.x, 1),
+                      s8x2_to_bf16x2(v.y, 0), s8x2_to_bf16x2(v.y, 1)};
+    const uint4 hi = {s8x2_to_bf16x2(v.z, 0), s8x2_to_bf16x2(v.z, 1),
+                      s8x2_to_bf16x2(v.w, 0), s8x2_to_bf16x2(v.w, 1)};
+    unsigned char* row = dst + (c8 / 8) * FFN_BK * 128 + r * 128;
+    *reinterpret_cast<uint4*>(row + ((c8 % 8) ^ (r % 8)) * 16) = lo;
+    *reinterpret_cast<uint4*>(row + (((c8 + 1) % 8) ^ (r % 8)) * 16) = hi;
+  }
+}
+
+// K6's slot maps, for the warpgroup body's SLOTS mode (zeros for K7)
+struct SlotMaps {
+  const __nv_bfloat16* x;  // tokens [T, D]
+  const int* idx;          // [E, C]: the token in each slot
+  const float* comb;       // [E, C]: its gate weight, 0 where empty
+  const int* dst;          // [E, C]: the token its result is added to
+  const int* tiles;        // the non-empty 128-slot tiles (e ceil(C/128) + t)
+  const int* offs;         // [E + 1]: listed tiles before expert e
+  float* y;                // [T, D] f32, zeroed
+  int C, E;
+};
+
+// One work item of the warpgroup body: expert e; its first row m0 (K7:
+// of the group, K6: the slot); first output column n0; K6: i, the tile's
+// position in the list (its block of H)
+struct FfnItem {
+  int e, m0, n0, i;
+};
+
+// One CTA of either pass.  ta: the rows (K7: X [E, G, D] or H [E, G, F];
+// K6 pass 2: H [n, 128, F]; K6 pass 1 gathers them instead), bf16 boxes of
+// 64 x 128 under the 128-byte swizzle.  tw: the weights viewed [E NW, K,
+// NT] (W1 [E, 2, D, F] or [E, D, F]; W2 [E, F, D]) — bf16 boxes of 64 x 64
+// under the swizzle, or int8 boxes of N x 64 with no swizzle that the
+// consumers turn into the bf16 layout.  s: the int8 column scales ([E NW,
+// NT], null for bf16 weights), b: the bias ([E NW, NT]), out: bf16 [E, G,
+// NT] (K7) or [n, 128, F] (K6 pass 1; K6 pass 2 adds into sm.y).  K is
+// the reduction's length (D or F), NT the output's width (F or D).
+template <bool UP, bool Q, bool SWIGLU, bool SLOTS>
 __device__ __forceinline__ void ffn_wgmma_body(
     const CUtensorMap& ta, const CUtensorMap& tw,
     const float* __restrict__ s, const __nv_bfloat16* __restrict__ b,
-    __nv_bfloat16* __restrict__ out, int G, int K, int NT) {
+    __nv_bfloat16* __restrict__ out, int G, int K, int NT,
+    const SlotMaps& sm) {
   using C = FfnWg<UP, Q, SWIGLU>;
   constexpr int N = C::N, NW = C::NW, NS = C::NS, NBOX = N / 64;
+  constexpr bool GATHER = SLOTS && UP;  // the producers gather the rows
   extern __shared__ unsigned char smem_raw[];
   // stage s: the A rows, NW weight tiles, (int8) NW raw tiles
   unsigned char* st0 = hopper::align1024(smem_raw);
   uint64_t* bar_f = reinterpret_cast<uint64_t*>(st0 + NS * C::STAGE);
   uint64_t* bar_e = bar_f + NS;  // a stage is free again
+  // gathered rows: each row's token (-1: a zero row), for two items
+  int* row_tok = reinterpret_cast<int*>(bar_e + NS);
 
   const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
   const int lane = threadIdx.x % 32;
-  const int m0 = blockIdx.x * FFN_BM;
-  const int n0 = blockIdx.y * N;
-  const int e = blockIdx.z;
   const int nk = K / FFN_BK;
+  // K7: the grid's one item.  K6: (listed tile, column tile) items in
+  // K7's grid order — expert by expert, then column tile, the expert's
+  // tiles fastest — so the CTAs in flight share one expert's weight
+  // columns and rows in L2
+  const int nn = (NT + N - 1) / N;  // column tiles
+  const int ntc = SLOTS ? (sm.C + FFN_BM - 1) / FFN_BM : 1;
+  const int n_items = SLOTS ? sm.offs[sm.E] * nn : 1;
+  const int w0 = SLOTS ? blockIdx.x : 0;
+  const int dw = SLOTS ? gridDim.x : 1;
+  auto item = [&](int w) {
+    FfnItem t;
+    if constexpr (SLOTS) {
+      // w / nn is a list position inside expert e's run of the list
+      t.e = sm.tiles[w / nn] / ntc;
+      const int o = sm.offs[t.e];
+      const int ne = sm.offs[t.e + 1] - o;
+      const int j = w - o * nn;
+      t.n0 = (j / ne) * N;
+      t.i = o + j % ne;
+      t.m0 = (sm.tiles[t.i] - t.e * ntc) * FFN_BM;
+    } else {
+      t.e = blockIdx.z;
+      t.m0 = blockIdx.x * FFN_BM;
+      t.n0 = blockIdx.y * N;
+      t.i = 0;
+    }
+    return t;
+  };
   auto w_at = [&](int st, int w) {
     return st0 + st * C::STAGE + C::A_BYTES + w * C::W_BYTES;
   };
@@ -729,10 +846,25 @@ __device__ __forceinline__ void ffn_wgmma_body(
     return st0 + st * C::STAGE + C::A_BYTES + NW * C::W_BYTES +
            w * C::RAW_BYTES;
   };
+  // one stage's weight tiles by TMA (one thread)
+  auto load_w = [&](int st, int k0, const FfnItem& t) {
+    for (int w = 0; w < NW; ++w) {
+      if constexpr (Q) {
+        hopper::tma_load_3d(raw_at(st, w), &tw, bar_f + st, t.n0, k0,
+                            t.e * NW + w);
+      } else {
+        for (int nb = 0; nb < NBOX; ++nb)
+          hopper::tma_load_3d(w_at(st, w) + nb * FFN_BK * 128, &tw,
+                              bar_f + st, t.n0 + nb * 64, k0, t.e * NW + w);
+      }
+    }
+  };
+  constexpr uint32_t W_TX = NW * (Q ? C::RAW_BYTES : C::W_BYTES);
 
   if (threadIdx.x == 0) {
     for (int st = 0; st < NS; ++st) {
-      hopper::mbar_init(bar_f + st, 1);
+      // gathered rows: the weight TMA's expect-tx and 128 copy arrivals
+      hopper::mbar_init(bar_f + st, GATHER ? 1 + 128 : 1);
       hopper::mbar_init(bar_e + st, FFN_CONSUMERS);
     }
     hopper::mbar_init_fence();
@@ -741,23 +873,61 @@ __device__ __forceinline__ void ffn_wgmma_body(
 
   if (warp >= 8) {  // producer warpgroup
     hopper::setmaxnreg_dec<C::PRODUCER_REGS>();
-    if (warp == 8 && lane == 0) {
-      for (int it = 0; it < nk; ++it) {
-        const int st = it % NS;
-        if (it >= NS) hopper::mbar_wait(bar_e + st, ((it / NS) - 1) & 1);
-        const int k0 = it * FFN_BK;
-        hopper::mbar_expect_tx(
-            bar_f + st, C::A_BYTES + NW * (Q ? C::RAW_BYTES : C::W_BYTES));
-        hopper::tma_load_3d(st0 + st * C::STAGE, &ta, bar_f + st, k0, m0, e);
-        for (int w = 0; w < NW; ++w) {
-          if constexpr (Q) {
-            hopper::tma_load_3d(raw_at(st, w), &tw, bar_f + st, n0, k0,
-                                e * NW + w);
-          } else {
-            for (int nb = 0; nb < NBOX; ++nb)
-              hopper::tma_load_3d(w_at(st, w) + nb * FFN_BK * 128, &tw,
-                                  bar_f + st, n0 + nb * 64, k0, e * NW + w);
+    if constexpr (GATHER) {
+      const int p = threadIdx.x - FFN_CONSUMERS;
+      const int ch = p % 8;  // this thread's 16-byte chunk of its rows
+      const int rb = p / 8;  // and its first row; the others 16 apart
+      int it = 0, n = 0;
+      for (int w = w0; w < n_items; w += dw, ++n) {
+        const FfnItem t = item(w);
+        // row p's token into this item's half of the table; the barrier
+        // also tells every producer thread is done with item n - 2's half
+        int* tok = row_tok + (n % 2) * FFN_BM;
+        {
+          const int c = t.m0 + p;
+          const long long sl = static_cast<long long>(t.e) * sm.C + c;
+          tok[p] = c < sm.C && sm.comb[sl] != 0.f ? sm.idx[sl] : -1;
+        }
+        asm volatile("bar.sync 2, 128;\n" ::: "memory");
+        for (int kk = 0; kk < nk; ++kk, ++it) {
+          const int st = it % NS;
+          if (it >= NS) hopper::mbar_wait(bar_e + st, ((it / NS) - 1) & 1);
+          const int k0 = kk * FFN_BK;
+          if (p == 0) {
+            hopper::mbar_expect_tx(bar_f + st, W_TX);
+            load_w(st, k0, t);
           }
+          unsigned char* a = st0 + st * C::STAGE;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int row = rb + 16 * j;
+            const int tk = tok[row];
+            const __nv_bfloat16* src =
+                sm.x + (tk < 0 ? 0 : static_cast<long long>(tk) * K + k0 +
+                                         ch * 8);
+            cp_async16(a + row * 128 + ((ch ^ (row % 8)) << 4), src,
+                       tk < 0 ? 0 : 16);
+          }
+          // arrives on its own once this thread's copies have landed
+          cp_async_arrive_noinc(bar_f + st);
+        }
+      }
+    } else if (warp == 8 && lane == 0) {
+      int it = 0;
+      for (int w = w0; w < n_items; w += dw) {
+        const FfnItem t = item(w);
+        for (int kk = 0; kk < nk; ++kk, ++it) {
+          const int st = it % NS;
+          if (it >= NS) hopper::mbar_wait(bar_e + st, ((it / NS) - 1) & 1);
+          const int k0 = kk * FFN_BK;
+          hopper::mbar_expect_tx(bar_f + st, C::A_BYTES + W_TX);
+          if constexpr (SLOTS)
+            hopper::tma_load_3d(st0 + st * C::STAGE, &ta, bar_f + st, k0, 0,
+                                t.i);
+          else
+            hopper::tma_load_3d(st0 + st * C::STAGE, &ta, bar_f + st, k0,
+                                t.m0, t.e);
+          load_w(st, k0, t);
         }
       }
     }
@@ -767,102 +937,109 @@ __device__ __forceinline__ void ffn_wgmma_body(
 
   const int wg = warp / 4;
   const int g = lane >> 2;
-  const int t = lane & 3;
+  const int t4 = lane & 3;
   float acc[NW][N / 2];
+  int it = 0;
+  for (int w = w0; w < n_items; w += dw) {
+    const FfnItem t = item(w);
 #pragma unroll
-  for (int w = 0; w < NW; ++w)
+    for (int v = 0; v < NW; ++v)
 #pragma unroll
-    for (int i = 0; i < N / 2; ++i) acc[w][i] = 0.f;
+      for (int i = 0; i < N / 2; ++i) acc[v][i] = 0.f;
 
-  for (int it = 0; it < nk; ++it) {
-    const int st = it % NS;
-    hopper::mbar_wait(bar_f + st, (it / NS) & 1);
-    if constexpr (Q) {
-      // Both warpgroups turn each int8 tile [64 k][N] (row-major, N bytes
-      // a row) into the bf16 tile wgmma reads — NBOX boxes of [64 k][64]
-      // under the 128-byte swizzle (16-byte chunk c of row r at chunk c ^
-      // r % 8) — while the previous stage's products run, then meet on a
-      // named barrier before this stage's
-      constexpr int STEPS = FFN_BK * N / 16;  // 16 weights a step
-      static_assert(STEPS % FFN_CONSUMERS == 0, "whole steps a thread");
+    for (int kk = 0; kk < nk; ++kk, ++it) {
+      const int st = it % NS;
+      hopper::mbar_wait(bar_f + st, (it / NS) & 1);
+      // the gathered rows were written by cp.async (the generic proxy):
+      // order them before this thread's wgmma reads (the async proxy)
+      if constexpr (GATHER) hopper::fence_proxy_async();
+      if constexpr (Q) {
+        // both warpgroups convert this stage's int8 tiles while the
+        // previous stage's products run, then meet before this stage's
 #pragma unroll
-      for (int w = 0; w < NW; ++w) {
-        const unsigned char* raw = raw_at(st, w);
-        unsigned char* dst = w_at(st, w);
-#pragma unroll
-        for (int j = 0; j < STEPS / FFN_CONSUMERS; ++j) {
-          const int i = threadIdx.x + j * FFN_CONSUMERS;
-          const int r = i / (N / 16);
-          const int c8 = 2 * (i % (N / 16));  // first 8-weight chunk
-          const uint4 v =
-              *reinterpret_cast<const uint4*>(raw + r * N + c8 * 8);
-          const uint4 lo = {s8x2_to_bf16x2(v.x, 0), s8x2_to_bf16x2(v.x, 1),
-                            s8x2_to_bf16x2(v.y, 0), s8x2_to_bf16x2(v.y, 1)};
-          const uint4 hi = {s8x2_to_bf16x2(v.z, 0), s8x2_to_bf16x2(v.z, 1),
-                            s8x2_to_bf16x2(v.w, 0), s8x2_to_bf16x2(v.w, 1)};
-          unsigned char* row = dst + (c8 / 8) * FFN_BK * 128 + r * 128;
-          *reinterpret_cast<uint4*>(row + ((c8 % 8) ^ (r % 8)) * 16) = lo;
-          *reinterpret_cast<uint4*>(row + (((c8 + 1) % 8) ^ (r % 8)) * 16) =
-              hi;
-        }
+        for (int v = 0; v < NW; ++v)
+          s8_tile_to_bf16<N, N, FFN_CONSUMERS>(raw_at(st, v), w_at(st, v),
+                                               threadIdx.x);
+        hopper::fence_proxy_async();
+        asm volatile("bar.sync 1, %0;\n" ::"n"(FFN_CONSUMERS) : "memory");
       }
-      hopper::fence_proxy_async();
-      asm volatile("bar.sync 1, %0;\n" ::"n"(FFN_CONSUMERS) : "memory");
+      const uint32_t aa =
+          hopper::smem_u32(st0 + st * C::STAGE) + wg * 64 * 128;
+#pragma unroll
+      for (int v = 0; v < NW; ++v) hopper::fence_regs(acc[v]);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int k16 = 0; k16 < FFN_BK / 16; ++k16)
+#pragma unroll
+        for (int v = 0; v < NW; ++v)
+          hopper::Wgmma<N>::template ss<1>(
+              acc[v], hopper::desc_k(aa + k16 * 32),
+              hopper::desc_mn(hopper::smem_u32(w_at(st, v)) + k16 * 16 * 128,
+                              FFN_BK * 128),
+              1);
+      hopper::wgmma_commit();
+      // keep this stage's products in flight; the previous stage's are done
+      hopper::wgmma_wait<1>();
+#pragma unroll
+      for (int v = 0; v < NW; ++v) hopper::fence_regs(acc[v]);
+      if (kk > 0) hopper::mbar_arrive(bar_e + (it - 1) % NS);
     }
-    const uint32_t aa = hopper::smem_u32(st0 + st * C::STAGE) + wg * 64 * 128;
+    hopper::wgmma_wait<0>();
 #pragma unroll
-    for (int w = 0; w < NW; ++w) hopper::fence_regs(acc[w]);
-    hopper::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < FFN_BK / 16; ++kk)
-#pragma unroll
-      for (int w = 0; w < NW; ++w)
-        hopper::Wgmma<N>::template ss<1>(
-            acc[w], hopper::desc_k(aa + kk * 32),
-            hopper::desc_mn(hopper::smem_u32(w_at(st, w)) + kk * 16 * 128,
-                            FFN_BK * 128),
-            1);
-    hopper::wgmma_commit();
-    // keep this stage's products in flight; the previous stage's are done
-    hopper::wgmma_wait<1>();
-#pragma unroll
-    for (int w = 0; w < NW; ++w) hopper::fence_regs(acc[w]);
-    if (it > 0) hopper::mbar_arrive(bar_e + (it - 1) % NS);
-  }
-  hopper::wgmma_wait<0>();
-#pragma unroll
-  for (int w = 0; w < NW; ++w) hopper::fence_regs(acc[w]);
+    for (int v = 0; v < NW; ++v) hopper::fence_regs(acc[v]);
+    hopper::mbar_arrive(bar_e + (it - 1) % NS);
 
-  // epilogue: (int8: each column's scale,) bias, (pass 1: activation,
-  // rounded to bf16 once, as the walk body does,) then the bf16 store
-  const float* se = Q ? s + static_cast<long long>(e) * NW * NT : nullptr;
-  const __nv_bfloat16* be = b + static_cast<long long>(e) * NW * NT;
+    // epilogue: (int8: each column's scale,) bias, (pass 1: activation,
+    // rounded to bf16 once, as the walk body does,) then the bf16 store —
+    // or, K6's pass 2, g x the row added into y at the slot's token
+    const float* se = Q ? s + static_cast<long long>(t.e) * NW * NT : nullptr;
+    const __nv_bfloat16* be = b + static_cast<long long>(t.e) * NW * NT;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = m0 + wg * 64 + (warp % 4) * 16 + g + h * 8;
-    if (row >= G) continue;
-    __nv_bfloat16* orow = out + (static_cast<long long>(e) * G + row) * NT;
-#pragma unroll
-    for (int j = 0; j < N / 8; ++j) {
-      const int col = n0 + j * 8 + 2 * t;  // NT is even: col + 1 < NT too
-      if (col >= NT) continue;
-      float v[2];
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        float a = acc[0][4 * j + 2 * h + q];
-        if constexpr (Q) a *= se[col + q];
-        a += __bfloat162float(be[col + q]);
-        if constexpr (UP && SWIGLU) {
-          float u = acc[NW - 1][4 * j + 2 * h + q];
-          if constexpr (Q) u *= se[NT + col + q];
-          a = silu(a) * (u + __bfloat162float(be[NT + col + q]));
-        } else if constexpr (UP) {
-          a = gelu_tanh(a);
-        }
-        v[q] = a;
+    for (int h = 0; h < 2; ++h) {
+      const int r = wg * 64 + (warp % 4) * 16 + g + h * 8;  // tile row
+      float gv = 1.f;
+      float* yrow = nullptr;
+      __nv_bfloat16* orow = nullptr;
+      if constexpr (SLOTS && !UP) {
+        const int c = t.m0 + r;
+        if (c >= sm.C) continue;
+        const long long sl = static_cast<long long>(t.e) * sm.C + c;
+        gv = sm.comb[sl];
+        if (gv == 0.f) continue;
+        yrow = sm.y + static_cast<long long>(sm.dst[sl]) * NT;
+      } else if constexpr (SLOTS) {
+        orow = out + (static_cast<long long>(t.i) * FFN_BM + r) * NT;
+      } else {
+        if (t.m0 + r >= G) continue;
+        orow = out + (static_cast<long long>(t.e) * G + t.m0 + r) * NT;
       }
-      *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-          __floats2bfloat162_rn(v[0], v[1]);
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        const int col = t.n0 + j * 8 + 2 * t4;  // NT is even: col + 1 < NT too
+        if (col >= NT) continue;
+        float v[2];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          float a = acc[0][4 * j + 2 * h + q];
+          if constexpr (Q) a *= se[col + q];
+          a += __bfloat162float(be[col + q]);
+          if constexpr (UP && SWIGLU) {
+            float u = acc[NW - 1][4 * j + 2 * h + q];
+            if constexpr (Q) u *= se[NT + col + q];
+            a = silu(a) * (u + __bfloat162float(be[NT + col + q]));
+          } else if constexpr (UP) {
+            a = gelu_tanh(a);
+          }
+          v[q] = a;
+        }
+        if constexpr (SLOTS && !UP) {  // one 8-byte vector add (sm_90)
+          atomicAdd(reinterpret_cast<float2*>(yrow + col),
+                    make_float2(gv * v[0], gv * v[1]));
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+              __floats2bfloat162_rn(v[0], v[1]);
+        }
+      }
     }
   }
 }
@@ -875,7 +1052,8 @@ expert_ffn_up_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
                            const __nv_bfloat16* __restrict__ b1,
                            __nv_bfloat16* __restrict__ h, int G, int D,
                            int F) {
-  ffn_wgmma_body<true, Q, SWIGLU>(tx, tw1, s1, b1, h, G, D, F);
+  ffn_wgmma_body<true, Q, SWIGLU, false>(tx, tw1, s1, b1, h, G, D, F,
+                                         SlotMaps{});
 }
 
 template <bool Q>
@@ -886,18 +1064,42 @@ expert_ffn_down_wgmma_kernel(const __grid_constant__ CUtensorMap th,
                              const __nv_bfloat16* __restrict__ b2,
                              __nv_bfloat16* __restrict__ y, int G, int D,
                              int F) {
-  ffn_wgmma_body<false, Q, false>(th, tw2, s2, b2, y, G, F, D);
+  ffn_wgmma_body<false, Q, false, false>(th, tw2, s2, b2, y, G, F, D,
+                                         SlotMaps{});
 }
 
-// the weight map of one pass: bf16 boxes of 64 x 64 under the swizzle, or
-// int8 boxes of N x 64 unswizzled
-template <bool UP, bool Q, bool SWIGLU>
+// K6's passes: one CTA an SM walks the listed tiles.  Pass 1 gathers its
+// rows through the maps (there is no row map: tw1 stands in for it).
+template <bool Q, bool SWIGLU>
+__global__ void __launch_bounds__(3 * 128, 1)
+moe_ffn_up_wgmma_kernel(const __grid_constant__ CUtensorMap tw1,
+                        const float* __restrict__ s1,
+                        const __nv_bfloat16* __restrict__ b1,
+                        __nv_bfloat16* __restrict__ h, int D, int F,
+                        const __grid_constant__ SlotMaps sm) {
+  ffn_wgmma_body<true, Q, SWIGLU, true>(tw1, tw1, s1, b1, h, FFN_BM, D, F,
+                                        sm);
+}
+
+template <bool Q>
+__global__ void __launch_bounds__(3 * 128, 1)
+moe_ffn_down_wgmma_kernel(const __grid_constant__ CUtensorMap th,
+                          const __grid_constant__ CUtensorMap tw2,
+                          const float* __restrict__ s2,
+                          const __nv_bfloat16* __restrict__ b2, int D, int F,
+                          const __grid_constant__ SlotMaps sm) {
+  ffn_wgmma_body<false, Q, false, true>(th, tw2, s2, b2, nullptr, FFN_BM, F,
+                                        D, sm);
+}
+
+// A weight map: bf16 boxes of 64 x 64 under the swizzle, or int8 boxes of
+// box_cols x 64 unswizzled
+template <bool Q>
 bool weight_map(CUtensorMap* map, const void* w, int outer, int rows,
-                int cols) {
-  constexpr int N = FfnWg<UP, Q, SWIGLU>::N;
+                int cols, int box_cols) {
   if constexpr (Q)
     return encode_map(map, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, outer, rows,
-                      cols, N, FFN_BK, CU_TENSOR_MAP_SWIZZLE_NONE);
+                      cols, box_cols, FFN_BK, CU_TENSOR_MAP_SWIZZLE_NONE);
   else
     return encode_tile_map(map, w, outer, rows, cols, FFN_BK);
 }
@@ -907,6 +1109,15 @@ cudaError_t allow_smem(Kern kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
+}
+
+// the SMs of the current device: the persistent grids' width
+cudaError_t sm_count(int* n) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(n, cudaDevAttrMultiProcessorCount, dev);
+  return err;
 }
 
 template <bool Q, bool SWIGLU>
@@ -920,9 +1131,9 @@ cudaError_t launch_expert_wgmma(const void* x, const void* w1,
   constexpr int NW = Up::NW;
   CUtensorMap tx, tw1, th, tw2;
   if (!encode_tile_map(&tx, x, E, G, D, FFN_BM) ||
-      !weight_map<true, Q, SWIGLU>(&tw1, w1, E * NW, D, F) ||
+      !weight_map<Q>(&tw1, w1, E * NW, D, F, Up::N) ||
       !encode_tile_map(&th, h, E, G, F, FFN_BM) ||
-      !weight_map<false, Q, false>(&tw2, w2, E, F, D))
+      !weight_map<Q>(&tw2, w2, E, F, D, Down::N))
     return cudaErrorNotSupported;
   using BF16 = __nv_bfloat16;
   auto up = expert_ffn_up_wgmma_kernel<Q, SWIGLU>;
@@ -940,6 +1151,382 @@ cudaError_t launch_expert_wgmma(const void* x, const void* w1,
          st>>>(th, tw2, static_cast<const float*>(s2),
                static_cast<const BF16*>(b2), static_cast<BF16*>(y), G, D, F);
   return cudaGetLastError();
+}
+
+template <bool Q, bool SWIGLU>
+cudaError_t launch_moe_wgmma(const SlotMaps& sm, const void* w1,
+                             const void* s1, const void* b1, const void* w2,
+                             const void* s2, const void* b2, void* h, int D,
+                             int F, cudaStream_t st) {
+  using Up = FfnWg<true, Q, SWIGLU>;
+  using Down = FfnWg<false, Q, false>;
+  const int n_max = sm.E * ((sm.C + FFN_BM - 1) / FFN_BM);  // H's tiles
+  CUtensorMap tw1, th, tw2;
+  if (!weight_map<Q>(&tw1, w1, sm.E * Up::NW, D, F, Up::N) ||
+      !encode_tile_map(&th, h, n_max, FFN_BM, F, FFN_BM) ||
+      !weight_map<Q>(&tw2, w2, sm.E, F, D, Down::N))
+    return cudaErrorNotSupported;
+  using BF16 = __nv_bfloat16;
+  auto up = moe_ffn_up_wgmma_kernel<Q, SWIGLU>;
+  auto down = moe_ffn_down_wgmma_kernel<Q>;
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err == cudaSuccess) err = allow_smem(up, Up::SMEM);
+  if (err == cudaSuccess) err = allow_smem(down, Down::SMEM);
+  if (err != cudaSuccess) return err;
+  // one CTA an SM, fewer where even a full list has fewer items
+  const long long i1 = static_cast<long long>(n_max) * ((F + Up::N - 1) /
+                                                        Up::N);
+  const long long i2 = static_cast<long long>(n_max) * ((D + Down::N - 1) /
+                                                        Down::N);
+  up<<<static_cast<int>(i1 < sms ? i1 : sms), Up::THREADS, Up::SMEM, st>>>(
+      tw1, static_cast<const float*>(s1), static_cast<const BF16*>(b1),
+      static_cast<BF16*>(h), D, F, sm);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  down<<<static_cast<int>(i2 < sms ? i2 : sms), Down::THREADS, Down::SMEM,
+         st>>>(th, tw2, static_cast<const float*>(s2),
+               static_cast<const BF16*>(b2), D, F, sm);
+  return cudaGetLastError();
+}
+
+// ---------------------------------- K7 decode rows: swap A and B, stream K
+//
+// At decode the rows are few (e_loc 8 experts of G 8 at EP 1) and every
+// weight byte is read once: 2.8 GB bf16 / 1.4 GB int8 a layer, a bound set
+// by bytes.  The warpgroup body above would waste 15/16 of each 128-row
+// tile, so this body swaps the operands: H^T [F, G] = W1^T . X^T and Y^T
+// [D, G] = W2^T . H^T, the weight tile the A operand (64 of its columns a
+// consumer warpgroup, read MN-major by the transpose bit on A, no
+// transposed copy) and the G rows the N side (16 or 64).
+// - The weight stream is the work: one thread of the producer warpgroup
+//   keeps as many stages in flight as shared memory holds (3-16), one CTA
+//   an SM; a pass that streams one weight (pass 2, GELU's pass 1) takes
+//   its stages 128 deep, which halves their fixed costs.  Pass 1 gives each CTA a contiguous run of whole (expert, 128
+//   F columns, row tile) units, since the activation needs each whole D
+//   sum; pass 2 cuts the expert x 128 D columns x F stages evenly between
+//   the CTAs (stream-K), each run's partial sum added into the zeroed f32
+//   y by atomics (b2 by the run that starts the F sum), so every SM
+//   streams the same bytes; the wrapper casts y to x's type.
+// - int8: each weight tile is read and converted exactly once in the
+//   whole call.  The stage is only the int8 tiles and the rows; each
+//   consumer warpgroup converts its own 64 columns (and copies the rows)
+//   into one of two bf16 buffers and frees the stage at once, so the int8
+//   stages in flight are not held by the products, and the warpgroups
+//   meet only their own warps.
+// - Every row is computed, pad rows included; H (bf16, rounded once) sits
+//   in device memory between the passes.
+
+constexpr int DEC_M = 128;  // weight columns a CTA: 64 a consumer warpgroup
+
+template <bool UP, bool Q, bool SWIGLU, int NR>
+struct DecWg {
+  static constexpr int NW = UP && SWIGLU ? 2 : 1;   // weight tiles a stage
+  static constexpr int THREADS = 3 * 128;
+  static constexpr int W_BYTES = FFN_BK * DEC_M * 2;  // bf16 [64 k][128]
+  static constexpr int RAW_BYTES = FFN_BK * DEC_M;    // int8 [64 k][128]
+  static constexpr int B_BYTES = NR * 128;            // rows [NR][64 k]
+  // 64-deep boxes a stage: two where one weight is streamed (pass 2,
+  // GELU's pass 1), which halves the stages' fixed costs
+  static constexpr int KB = NW == 1 ? 2 : 1;
+  static constexpr int BK = FFN_BK * KB;  // reduction depth a stage
+  static constexpr int NT = KB * NW;      // weight tiles a stage (k box b,
+                                          // weight w: tile b NW + w)
+  // a stage as TMA fills it: the weight tiles (int8: raw), then the rows
+  static constexpr int STAGE = NT * (Q ? RAW_BYTES : W_BYTES) + KB * B_BYTES;
+  // int8: two bf16 buffers of converted tiles, each with a copy of the
+  // rows for either warpgroup
+  static constexpr int SLOT = NT * W_BYTES + 2 * KB * B_BYTES;
+  static constexpr int RING = Q ? 2 * SLOT : 0;
+  static constexpr int NS_FIT = (SMEM_MAX - 1024 - RING - 16 * 16) / STAGE;
+  static constexpr int NS = NS_FIT < 16 ? NS_FIT : 16;
+  static constexpr size_t SMEM = 1024 + RING + NS * STAGE + 16 * NS;
+  static_assert(NS >= 3, "too few stages");
+  static_assert(STAGE % 1024 == 0 && SLOT % 1024 == 0, "1024-byte tiles");
+};
+
+// One CTA of either decode pass.  ta: the rows (X [E, G, D] or H [E, G,
+// F]) in bf16 boxes of 64 x NR under the swizzle; tw: the weights viewed
+// [E NW, K, MT] (bf16 boxes of 64 x 64 under the swizzle, int8 boxes of
+// 128 x 64 unswizzled); s / b as in the warpgroup body.  UP: out is H [E,
+// G, F] bf16; otherwise y [E, G, D] f32, zeroed, into which partial sums
+// are added.  K is the reduction's length, MT the weight's width (F or D).
+template <bool UP, bool Q, bool SWIGLU, int NR>
+__device__ __forceinline__ void ffn_decode_body(
+    const CUtensorMap& ta, const CUtensorMap& tw,
+    const float* __restrict__ s, const __nv_bfloat16* __restrict__ b,
+    void* __restrict__ out, int E, int G, int K, int MT) {
+  using C = DecWg<UP, Q, SWIGLU, NR>;
+  constexpr int NW = C::NW, NS = C::NS, KB = C::KB, NT = C::NT;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = hopper::align1024(smem_raw);
+  unsigned char* st0 = ring + C::RING;
+  uint64_t* bar_f = reinterpret_cast<uint64_t*>(st0 + NS * C::STAGE);
+  uint64_t* bar_e = bar_f + NS;
+
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  const int lane = threadIdx.x % 32;
+  const int nk = (K + C::BK - 1) / C::BK;  // a last half stage reads zeros
+  const int mt = (MT + DEC_M - 1) / DEC_M;
+  const int gt = (G + NR - 1) / NR;
+  const long long units = static_cast<long long>(E) * mt * gt;
+  // this CTA's run of stages: whole units in pass 1, any run in pass 2
+  long long beg, end;
+  if constexpr (UP) {
+    beg = units * blockIdx.x / gridDim.x * nk;
+    end = units * (blockIdx.x + 1) / gridDim.x * nk;
+  } else {
+    beg = units * nk * blockIdx.x / gridDim.x;
+    end = units * nk * (blockIdx.x + 1) / gridDim.x;
+  }
+  // unit u: row tile fastest (the CTAs that share a weight tile run side
+  // by side), then the weight-column tile, then the expert
+  auto unit = [&](long long u, int& e, int& m0, int& g0) {
+    g0 = static_cast<int>(u % gt) * NR;
+    m0 = static_cast<int>((u / gt) % mt) * DEC_M;
+    e = static_cast<int>(u / (static_cast<long long>(gt) * mt));
+  };
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < NS; ++st) {
+      hopper::mbar_init(bar_f + st, 1);
+      hopper::mbar_init(bar_e + st, FFN_CONSUMERS);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // producer warpgroup: one thread streams the stages
+    if (warp == 8 && lane == 0) {
+      int it = 0;
+      for (long long pos = beg; pos < end;) {
+        const long long u = pos / nk;
+        const int kb = static_cast<int>(pos % nk);
+        const int ke = static_cast<int>(
+            nk < kb + (end - pos) ? nk : kb + (end - pos));
+        int e, m0, g0;
+        unit(u, e, m0, g0);
+        for (int kk = kb; kk < ke; ++kk, ++it) {
+          const int st = it % NS;
+          if (it >= NS) hopper::mbar_wait(bar_e + st, ((it / NS) - 1) & 1);
+          unsigned char* sp = st0 + st * C::STAGE;
+          unsigned char* rows = sp + NT * (Q ? C::RAW_BYTES : C::W_BYTES);
+          hopper::mbar_expect_tx(bar_f + st, C::STAGE);
+          for (int box = 0; box < KB; ++box) {
+            const int k0 = kk * C::BK + box * FFN_BK;
+            for (int w = 0; w < NW; ++w) {
+              const int t = box * NW + w;
+              if constexpr (Q) {
+                hopper::tma_load_3d(sp + t * C::RAW_BYTES, &tw, bar_f + st,
+                                    m0, k0, e * NW + w);
+              } else {
+                for (int nb = 0; nb < DEC_M / 64; ++nb)
+                  hopper::tma_load_3d(
+                      sp + t * C::W_BYTES + nb * FFN_BK * 128, &tw,
+                      bar_f + st, m0 + nb * 64, k0, e * NW + w);
+              }
+            }
+            hopper::tma_load_3d(rows + box * C::B_BYTES, &ta, bar_f + st, k0,
+                                g0, e);
+          }
+        }
+        pos += ke - kb;
+      }
+    }
+    return;
+  }
+
+  const int wg = warp / 4;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  float acc[NW][NR / 2];
+  int it = 0;
+  for (long long pos = beg; pos < end;) {
+    const long long u = pos / nk;
+    const int kb = static_cast<int>(pos % nk);
+    const int ke =
+        static_cast<int>(nk < kb + (end - pos) ? nk : kb + (end - pos));
+    int e, m0, g0;
+    unit(u, e, m0, g0);
+#pragma unroll
+    for (int v = 0; v < NW; ++v)
+#pragma unroll
+      for (int i = 0; i < NR / 2; ++i) acc[v][i] = 0.f;
+    for (int kk = kb; kk < ke; ++kk, ++it) {
+      const int st = it % NS;
+      hopper::mbar_wait(bar_f + st, (it / NS) & 1);
+      unsigned char* sp = st0 + st * C::STAGE;
+      const unsigned char* wt = sp;                     // weight tiles
+      const unsigned char* bt = sp + NT * C::W_BYTES;   // the rows
+      if constexpr (Q) {
+        // Each warpgroup converts its own 64 columns of the int8 tiles and
+        // copies the rows into buffer it % 2, which only its own products
+        // read (the last, of stage it - 2, waited for at it - 1), meets its
+        // own four warps, and frees the stage: the two warpgroups never
+        // wait for each other.
+        unsigned char* slot = ring + (it % 2) * C::SLOT;
+        const int tid = threadIdx.x % 128;
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+          s8_tile_to_bf16<64, DEC_M, 128>(
+              sp + t * C::RAW_BYTES + wg * 64,
+              slot + t * C::W_BYTES + wg * FFN_BK * 128, tid);
+        const uint4* rows =
+            reinterpret_cast<const uint4*>(sp + NT * C::RAW_BYTES);
+        uint4* copy = reinterpret_cast<uint4*>(slot + NT * C::W_BYTES +
+                                               wg * KB * C::B_BYTES);
+        // the same offsets keep the swizzle; every thread copies the same
+        // count (a duplicate writes the same bytes), so no path diverges
+        constexpr int B16 = KB * C::B_BYTES / 16;
+#pragma unroll
+        for (int j = 0; j < (B16 + 127) / 128; ++j) {
+          const int i = (tid + j * 128) % B16;
+          copy[i] = rows[i];
+        }
+        hopper::fence_proxy_async();
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+        hopper::mbar_arrive(bar_e + st);  // the stage is free already
+        wt = slot;
+        bt = slot + NT * C::W_BYTES + wg * KB * C::B_BYTES;
+      }
+#pragma unroll
+      for (int v = 0; v < NW; ++v) hopper::fence_regs(acc[v]);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int box = 0; box < KB; ++box)
+#pragma unroll
+        for (int k16 = 0; k16 < FFN_BK / 16; ++k16)
+#pragma unroll
+          for (int v = 0; v < NW; ++v)
+            hopper::WgmmaT<NR>::ss(
+                acc[v],
+                hopper::desc_mn(
+                    hopper::smem_u32(wt + (box * NW + v) * C::W_BYTES +
+                                     wg * FFN_BK * 128) +
+                        k16 * 16 * 128,
+                    FFN_BK * 128),
+                hopper::desc_k(hopper::smem_u32(bt + box * C::B_BYTES) +
+                               k16 * 32),
+                1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();
+#pragma unroll
+      for (int v = 0; v < NW; ++v) hopper::fence_regs(acc[v]);
+      if (!Q && kk > kb) hopper::mbar_arrive(bar_e + (it - 1) % NS);
+    }
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int v = 0; v < NW; ++v) hopper::fence_regs(acc[v]);
+    if (!Q) hopper::mbar_arrive(bar_e + (it - 1) % NS);
+
+    // epilogue: accumulator (row m of the weight's columns, column n of
+    // the rows); int8 scale, bias, and pass 1's activation
+    const float* se = Q ? s + static_cast<long long>(e) * NW * MT : nullptr;
+    const __nv_bfloat16* be = b + static_cast<long long>(e) * NW * MT;
+#pragma unroll
+    for (int j = 0; j < NR / 8; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int m = m0 + wg * 64 + (warp % 4) * 16 + g + (q / 2) * 8;
+        const int row = g0 + j * 8 + 2 * t4 + q % 2;
+        if (m >= MT || row >= G) continue;
+        float a = acc[0][4 * j + q];
+        if constexpr (Q) a *= se[m];
+        const long long o = (static_cast<long long>(e) * G + row) * MT + m;
+        if constexpr (UP) {
+          a += __bfloat162float(be[m]);
+          if constexpr (SWIGLU) {
+            float up = acc[NW - 1][4 * j + q];
+            if constexpr (Q) up *= se[MT + m];
+            a = silu(a) * (up + __bfloat162float(be[MT + m]));
+          } else {
+            a = gelu_tanh(a);
+          }
+          static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(a);
+        } else {
+          if (kb == 0) a += __bfloat162float(be[m]);
+          atomicAdd(static_cast<float*>(out) + o, a);
+        }
+      }
+    pos += ke - kb;
+  }
+}
+
+template <bool Q, bool SWIGLU, int NR>
+__global__ void __launch_bounds__(3 * 128, 1)
+expert_ffn_up_decode_kernel(const __grid_constant__ CUtensorMap tx,
+                            const __grid_constant__ CUtensorMap tw1,
+                            const float* __restrict__ s1,
+                            const __nv_bfloat16* __restrict__ b1,
+                            __nv_bfloat16* __restrict__ h, int E, int G,
+                            int D, int F) {
+  ffn_decode_body<true, Q, SWIGLU, NR>(tx, tw1, s1, b1, h, E, G, D, F);
+}
+
+template <bool Q, int NR>
+__global__ void __launch_bounds__(3 * 128, 1)
+expert_ffn_down_decode_kernel(const __grid_constant__ CUtensorMap th,
+                              const __grid_constant__ CUtensorMap tw2,
+                              const float* __restrict__ s2,
+                              const __nv_bfloat16* __restrict__ b2,
+                              float* __restrict__ y, int E, int G, int D,
+                              int F) {
+  ffn_decode_body<false, Q, false, NR>(th, tw2, s2, b2, y, E, G, F, D);
+}
+
+template <bool Q, bool SWIGLU, int NR>
+cudaError_t launch_expert_decode(const void* x, const void* w1,
+                                 const void* s1, const void* b1,
+                                 const void* w2, const void* s2,
+                                 const void* b2, void* h, void* y, int E,
+                                 int G, int D, int F, cudaStream_t st) {
+  using Up = DecWg<true, Q, SWIGLU, NR>;
+  using Down = DecWg<false, Q, false, NR>;
+  CUtensorMap tx, tw1, th, tw2;
+  if (!encode_tile_map(&tx, x, E, G, D, NR) ||
+      !weight_map<Q>(&tw1, w1, E * Up::NW, D, F, DEC_M) ||
+      !encode_tile_map(&th, h, E, G, F, NR) ||
+      !weight_map<Q>(&tw2, w2, E, F, D, DEC_M))
+    return cudaErrorNotSupported;
+  using BF16 = __nv_bfloat16;
+  auto up = expert_ffn_up_decode_kernel<Q, SWIGLU, NR>;
+  auto down = expert_ffn_down_decode_kernel<Q, NR>;
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err == cudaSuccess) err = allow_smem(up, Up::SMEM);
+  if (err == cudaSuccess) err = allow_smem(down, Down::SMEM);
+  if (err != cudaSuccess) return err;
+  const long long gt = (G + NR - 1) / NR;
+  const long long u1 = E * gt * ((F + DEC_M - 1) / DEC_M);
+  const long long s2n =
+      E * gt * ((D + DEC_M - 1) / DEC_M) * ((F + Down::BK - 1) / Down::BK);
+  up<<<static_cast<int>(u1 < sms ? u1 : sms), Up::THREADS, Up::SMEM, st>>>(
+      tx, tw1, static_cast<const float*>(s1), static_cast<const BF16*>(b1),
+      static_cast<BF16*>(h), E, G, D, F);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  down<<<static_cast<int>(s2n < sms ? s2n : sms), Down::THREADS, Down::SMEM,
+         st>>>(th, tw2, static_cast<const float*>(s2),
+               static_cast<const BF16*>(b2), static_cast<float*>(y), E, G, D,
+               F);
+  return cudaGetLastError();
+}
+
+// the decode body's row tile: 16 or 32 up to that many rows, else 64
+// (more rows in more tiles)
+template <bool Q, bool SWIGLU>
+cudaError_t dispatch_decode(const void* x, const void* w1, const void* s1,
+                            const void* b1, const void* w2, const void* s2,
+                            const void* b2, void* h, void* y, int E, int G,
+                            int D, int F, cudaStream_t st) {
+  if (G <= 16)
+    return launch_expert_decode<Q, SWIGLU, 16>(x, w1, s1, b1, w2, s2, b2, h,
+                                               y, E, G, D, F, st);
+  if (G <= 32)
+    return launch_expert_decode<Q, SWIGLU, 32>(x, w1, s1, b1, w2, s2, b2, h,
+                                               y, E, G, D, F, st);
+  return launch_expert_decode<Q, SWIGLU, 64>(x, w1, s1, b1, w2, s2, b2, h, y,
+                                             E, G, D, F, st);
 }
 
 }  // namespace
@@ -1085,6 +1672,118 @@ extern "C" int tdp_expert_ffn_wgmma(const void* x, const void* w1,
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);
+}
+
+// K7's decode rows on the swap-AB body: the arguments of
+// tdp_expert_ffn_wgmma, with h bf16 [E, G, F] scratch and y f32 [E, G, D]
+// zeroed (partial sums are added into it).  Two launches; returns the
+// first error.
+extern "C" int tdp_expert_ffn_decode(const void* x, const void* w1,
+                                     const void* s1, const void* b1,
+                                     const void* w2, const void* s2,
+                                     const void* b2, void* h, void* y, int E,
+                                     int G, int D, int F, int swiglu,
+                                     int quantized, void* stream) {
+  if (bad_expert_shape(E, G, D, F))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (quantized * 2 + (swiglu ? 1 : 0)) {
+    case 0:
+      err = dispatch_decode<false, false>(x, w1, s1, b1, w2, s2, b2, h, y, E,
+                                          G, D, F, st);
+      break;
+    case 1:
+      err = dispatch_decode<false, true>(x, w1, s1, b1, w2, s2, b2, h, y, E,
+                                         G, D, F, st);
+      break;
+    case 2:
+      err = dispatch_decode<true, false>(x, w1, s1, b1, w2, s2, b2, h, y, E,
+                                         G, D, F, st);
+      break;
+    case 3:
+      err = dispatch_decode<true, true>(x, w1, s1, b1, w2, s2, b2, h, y, E, G,
+                                        D, F, st);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err);
+}
+
+// K6's chunk rows on the warpgroup body: bf16 x [T, D]; idx / dst int32
+// and comb f32 [E, C]; tiles int32 [E ceil(C / 128)] listing the
+// non-empty 128-slot tiles first, by expert, and offs int32 [E + 1] how
+// many of them come before expert e (offs[E]: all of them); w1 /
+// w2 bf16 or (quantized 1) int8 in tdp_moe_ffn's layouts with s1 / s2
+// their f32 scales (null for bf16); b1, b2 bf16; h bf16 [E ceil(C / 128),
+// 128, F] scratch between the passes; y f32 [T, D], zeroed.  Two launches
+// on the stream; returns the first error.
+extern "C" int tdp_moe_ffn_wgmma(const void* x, const void* idx,
+                                 const void* comb, const void* dst,
+                                 const void* tiles, const void* offs,
+                                 const void* w1, const void* s1,
+                                 const void* b1, const void* w2,
+                                 const void* s2, const void* b2, void* h,
+                                 void* y, int T, int D, int F, int E, int C,
+                                 int swiglu, int quantized, void* stream) {
+  if (bad_shape(T, D, F, E, C)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const SlotMaps sm{static_cast<const __nv_bfloat16*>(x),
+                    static_cast<const int*>(idx),
+                    static_cast<const float*>(comb),
+                    static_cast<const int*>(dst),
+                    static_cast<const int*>(tiles),
+                    static_cast<const int*>(offs), static_cast<float*>(y), C,
+                    E};
+  cudaError_t err;
+  switch (quantized * 2 + (swiglu ? 1 : 0)) {
+    case 0:
+      err = launch_moe_wgmma<false, false>(sm, w1, s1, b1, w2, s2, b2, h,
+                                           D, F, st);
+      break;
+    case 1:
+      err = launch_moe_wgmma<false, true>(sm, w1, s1, b1, w2, s2, b2, h, D,
+                                          F, st);
+      break;
+    case 2:
+      err = launch_moe_wgmma<true, false>(sm, w1, s1, b1, w2, s2, b2, h, D,
+                                          F, st);
+      break;
+    case 3:
+      err = launch_moe_wgmma<true, true>(sm, w1, s1, b1, w2, s2, b2, h, D,
+                                         F, st);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err);
+}
+
+// Dynamic shared memory a CTA of the decode body uses (up 1: pass 1; nr:
+// its row tile, 16, 32 or 64), for the build report; -1 if unknown.
+template <int NR>
+int decode_smem(int key) {
+  switch (key) {
+    case 0: return static_cast<int>(DecWg<false, false, false, NR>::SMEM);
+    case 2: return static_cast<int>(DecWg<false, true, false, NR>::SMEM);
+    case 4: return static_cast<int>(DecWg<true, false, false, NR>::SMEM);
+    case 5: return static_cast<int>(DecWg<true, false, true, NR>::SMEM);
+    case 6: return static_cast<int>(DecWg<true, true, false, NR>::SMEM);
+    case 7: return static_cast<int>(DecWg<true, true, true, NR>::SMEM);
+    default: return -1;
+  }
+}
+
+extern "C" int tdp_expert_ffn_decode_smem_bytes(int up, int quantized,
+                                                int swiglu, int nr) {
+  const int key = up * 4 + quantized * 2 + (swiglu && up ? 1 : 0);
+  switch (nr) {
+    case 16: return decode_smem<16>(key);
+    case 32: return decode_smem<32>(key);
+    case 64: return decode_smem<64>(key);
+    default: return -1;
+  }
 }
 
 // Dynamic shared memory a CTA of the warpgroup body uses (up 1: pass 1),

@@ -14,16 +14,31 @@ weights, and int8 weight-only experts — the ``(q8, scale)`` pairs of
 What bounds it on an H100: at decode (a few rows) the bytes of every
 expert that was hit — its whole W1 and W2, 352 MB an expert at Mixtral
 widths; at a prefill chunk (4096 rows) the operations, ``2 (T k) 3 D F``
-for SwiGLU.  A CTA owns 64 capacity slots of one expert and 64 columns of
-F, streams its W1 and W2 slices through shared memory once, and runs the
-products on the tensor cores; a tile with no filled slot exits at once,
-which is what lets serving run at the no-drop capacity ``C = T`` without
-the ``E / k`` padded-compute tax.  The int8 variant streams 1-byte
-weights (half the bytes of bf16: 176 MB an expert at Mixtral widths) and
-applies each output column's scale to the product, not to the weights.
-Partial sums over F tiles meet in the f32 output by atomic adds (so their
-order varies from run to run).  The source's header says what K6 moves
-onto next: the warpgroup body K7's chunk rows already run.
+for SwiGLU.  K6 has two hand-written bodies, chosen by
+:func:`moe_ffn_body` from the capacity and the tokens' type:
+
+- the walk (decode's few slots, f32 tokens): a CTA owns 64 capacity slots
+  of one expert and 64 columns of F, streams its W1 and W2 slices
+  through shared memory once, and runs the products on the tensor cores
+  (``mma.sync``); a tile with no filled slot exits at once, and partial
+  sums over F tiles meet in the f32 output by atomic adds (their order
+  varies from run to run);
+- bf16 tokens at a prefill chunk's capacity: a two-pass grouped GEMM on
+  the warpgroup MMA (``wgmma``), the body K7's chunk rows run, with the
+  slot-map gather fused in.  Pass 1's producer warpgroup gathers each
+  128-slot tile's token rows through ``idx`` with ``cp.async`` into the
+  swizzled layout ``wgmma`` reads (empty slots zero-filled; no gathered
+  ``[E, C, D]`` view is written), pass 2 keeps the whole F reduction in
+  registers and adds ``comb x`` each filled slot's row into the f32
+  output once (one add per routed choice: at top-2 the same bits from
+  run to run).  Only the tiles :func:`chunk_tiles` lists on the device
+  (those holding a filled slot) are walked, with no host sync, so
+  serving at the no-drop capacity ``C = T`` pays no ``E / k`` padded
+  tax.
+
+The int8 variant streams 1-byte weights (half the bytes of bf16: 176 MB
+an expert at Mixtral widths) and applies each output column's scale to
+the product, not to the weights.
 
 - :func:`slot_maps` compresses a ``_top_k_route`` decision into the
   kernel's maps: ``idx`` (the token in each slot) and ``comb`` (its gate
@@ -37,24 +52,28 @@ onto next: the warpgroup body K7's chunk rows already run.
 - :func:`fused_moe_ffn_slots` is the kernel's wrapper: it launches K6 for
   CUDA tensors and raises on anything K6 does not take, and takes the
   plain version only for CPU tensors.  ``LAUNCHES["fused_moe_ffn"]``
-  counts the float variant's launches, ``LAUNCHES["fused_moe_ffn_int8"]``
-  the int8 variant's.  :func:`fused_moe_ffn` is the routing-level entry
-  point the serving forward calls.
+  counts the float variant's calls, ``LAUNCHES["fused_moe_ffn_int8"]``
+  the int8 variant's, one a call whichever body runs.
+  :func:`fused_moe_ffn` is the routing-level entry point the serving
+  forward calls.
 
 K7, the expert FFN of expert-parallel layers, replaces
 ``_pallas_expert_ffn`` (the reference's :479, ``pallas_call`` :506, body
 ``_ep_kernel`` :418), float and int8: :func:`fused_expert_ffn` runs every
 local expert's FFN on every row of the exchanged ``[e_loc, G, D]``
 groups (pad rows included, as on the TPU) in the same CUDA source, in
-one of two hand-written bodies that :func:`expert_ffn_body` chooses from
-the rows' count and type.  bf16 chunk rows (G of at least
-:data:`EXPERT_FFN_WGMMA_G_MIN`) take a two-pass grouped GEMM on the
-warpgroup MMA (``expert_ffn_up_wgmma_kernel`` then
-``expert_ffn_down_wgmma_kernel``, the activation in bf16 device memory
-between them, the output in x's dtype with no atomics); decode's few rows
-and f32 rows take the K6 body on the identity slot map
-(``expert_ffn_kernel`` / ``expert_ffn_int8_kernel``).  Either counts one
-launch a call under ``LAUNCHES["fused_expert_ffn"]`` /
+one of three hand-written bodies that :func:`expert_ffn_body` chooses
+from the rows' count and type.  bf16 chunk rows (G of at least
+:data:`EXPERT_FFN_WGMMA_G_MIN`) take the two-pass grouped GEMM
+(``expert_ffn_up_wgmma_kernel`` then ``expert_ffn_down_wgmma_kernel``,
+the activation in bf16 device memory between them, the output in x's
+dtype with no atomics); bf16 decode rows take a swap-AB warpgroup body
+(``expert_ffn_up_decode_kernel`` then ``expert_ffn_down_decode_kernel``:
+the weight tile is ``wgmma``'s 64-row A side and the few rows its N
+side, one CTA an SM streams the weights, pass 2 split evenly over the
+CTAs with f32 partial sums added into y); f32 rows take the K6 walk on
+the identity slot map (``expert_ffn_kernel`` / ``expert_ffn_int8_kernel``).
+Each counts one launch a call under ``LAUNCHES["fused_expert_ffn"]`` /
 ``["fused_expert_ffn_int8"]``.  :func:`expert_ffn_reference` is its
 plain version (the reference's ``_ep_ffn_reference``) and
 :func:`expert_ffn_rounding_scale` the scale of its bf16 rounding.  It
@@ -105,10 +124,33 @@ _ARGTYPES = {
     # swiglu, quantized, stream
     "tdp_expert_ffn_wgmma": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
+    # K7's decode body: the same arguments (y f32, zeroed)
+    "tdp_expert_ffn_decode": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+    + [ctypes.c_void_p],
+    # K6's warpgroup body: x, idx, comb, dst, tiles, offs, w1, s1, b1, w2,
+    # s2, b2, h, y, T, D, F, E, C, swiglu, quantized, stream
+    "tdp_moe_ffn_wgmma": [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
+    + [ctypes.c_void_p],
 }
 #: the fewest rows a group must have for K7 to take its warpgroup body
-#: (chunk rows); fewer (decode) and f32 rows take the walk body
+#: (chunk rows); fewer bf16 rows (decode) take the decode body.  Set from
+#: ``chip_smoke.py``'s ``expert_ffn_body_sweep`` (e_loc 8, Mixtral widths):
+#: with int8 experts the decode body is faster up to 64 rows, with bf16
+#: ones up to 16 and within 2 % at 32
 EXPERT_FFN_WGMMA_G_MIN = 64
+#: the fewest bf16 rows a group must have for K7's decode body; 1: every
+#: bf16 group takes a warpgroup body, and the walk runs f32 rows only (the
+#: same sweep: the decode body beats the walk from G 1 up)
+EXPERT_FFN_DECODE_G_MIN = 1
+#: the fewest capacity slots an expert must have for K6 to take its
+#: warpgroup body (a prefill chunk's slot maps); fewer (decode's 8) and f32
+#: tokens take the walk.  Set from ``chip_smoke.py``'s
+#: ``moe_ffn_body_sweep`` at Mixtral widths: the warpgroup body is faster
+#: from C = T = 16 up, float and int8 experts alike, the walk at 8.
+MOE_FFN_WGMMA_C_MIN = 16
+#: the slots of one of K6's warpgroup tiles (the unit of its empty-tile
+#: skip)
+CHUNK_ROWS = 128
 
 
 def _kernel(name: str):
@@ -336,6 +378,49 @@ def _launch(entry: str, name: str, args, y: torch.Tensor, *ints) -> None:
     LAUNCHES[name] += 1
 
 
+def moe_ffn_body(C: int, dtype: torch.dtype) -> str:
+    """Which of K6's two bodies a CUDA call with ``C`` capacity slots an
+    expert and tokens of ``dtype`` takes, float or int8 experts alike:
+    ``'wgmma'``, the two-pass grouped GEMM on the warpgroup MMA with the
+    slot-map gather fused in, for bf16 tokens at ``C`` of at least
+    :data:`MOE_FFN_WGMMA_C_MIN` (a prefill chunk's maps); ``'walk'``
+    otherwise (decode's few slots, where the weight bytes bound the call,
+    and f32 tokens)."""
+    if dtype == torch.bfloat16 and C >= MOE_FFN_WGMMA_C_MIN:
+        return "wgmma"
+    return "walk"
+
+
+def chunk_tiles(comb: torch.Tensor, rows: int = CHUNK_ROWS
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6's tile list on the maps' device, with no host sync: the
+    ``[E, C]`` slots cut into tiles of ``rows`` per expert (the last one
+    ragged), tile ``t`` of expert ``e`` named ``e ceil(C / rows) + t`` ->
+    ``(tiles, offs)``: int32 ``[E ceil(C / rows)]`` listing the tiles that
+    hold a filled slot (``comb != 0``) first, in order (so by expert),
+    then the others; and int32 ``[E + 1]``, how many listed tiles come
+    before expert ``e`` (``offs[E]``: all of them).  The kernel walks only
+    the listed tiles, expert by expert."""
+    E, C = comb.shape
+    n = -(-C // rows)
+    filled = torch.zeros(E, n * rows, dtype=torch.bool, device=comb.device)
+    filled[:, :C] = comb != 0
+    busy = filled.reshape(E, n, rows).any(-1)
+    tiles = torch.argsort((~busy.reshape(-1)).to(torch.int32), stable=True)
+    offs = torch.zeros(E + 1, dtype=torch.int32, device=comb.device)
+    offs[1:] = busy.sum(-1).cumsum(0)
+    return tiles.to(torch.int32), offs
+
+
+def _named_weights(weights, quantized: bool):
+    """``_kernel_weights``' tuple as ``(w1, s1, b1, w2, s2, b2)``, the
+    scales None for float weights: the warpgroup bodies' argument order."""
+    if quantized:
+        return weights
+    w1, b1, w2, b2 = weights
+    return w1, None, b1, w2, None, b2
+
+
 def fused_moe_ffn_slots(experts: Dict[str, Any], tokens: torch.Tensor,
                         idx: torch.Tensor, comb: torch.Tensor,
                         scatter_idx: Optional[torch.Tensor] = None
@@ -351,7 +436,11 @@ def fused_moe_ffn_slots(experts: Dict[str, Any], tokens: torch.Tensor,
     :func:`quantize_moe_experts` for both (the int8 variant: q8 int8 of
     the float layout, f32 scales ``[E, 2, F]`` / ``[E, F]`` for w1 and
     ``[E, D]`` for w2).  One int8 and one float weight raise
-    ``NotImplementedError``, as neither variant takes the mix."""
+    ``NotImplementedError``, as neither variant takes the mix.
+    :func:`moe_ffn_body` picks the body; the warpgroup body lists the
+    non-empty slot tiles on the device (:func:`chunk_tiles`) and allocates
+    the activation between its passes, bf16 ``[E ceil(C / 128), 128, F]``
+    (0.94 GB at ``E`` 8, ``C`` 4096, F 14336)."""
     quantized = _quantized(experts, "K6")
     if tokens.device.type == "cpu":
         _check(all(t.device.type == "cpu"
@@ -376,6 +465,15 @@ def fused_moe_ffn_slots(experts: Dict[str, Any], tokens: torch.Tensor,
     name, entry = (("fused_moe_ffn_int8", "tdp_moe_ffn_int8") if quantized
                    else ("fused_moe_ffn", "tdp_moe_ffn"))
     y = torch.zeros(T, D, dtype=torch.float32, device=tokens.device)
+    if moe_ffn_body(C, tokens.dtype) == "wgmma":
+        tiles, offs = chunk_tiles(comb)
+        h = torch.empty(tiles.numel(), CHUNK_ROWS, Fd, dtype=tokens.dtype,
+                        device=tokens.device)
+        _launch("tdp_moe_ffn_wgmma", name,
+                (tokens, idx, comb, dst, tiles, offs)
+                + _named_weights(weights, quantized) + (h,), y, T, D, Fd, E,
+                C, int(swiglu), int(quantized))
+        return y
     _launch(entry, name, (tokens, idx, comb, dst) + weights, y, T, D, Fd, E,
             C, int(swiglu), tag)
     return y
@@ -406,14 +504,18 @@ def expert_ffn_reference(experts: Dict[str, Any],
 
 
 def expert_ffn_body(G: int, dtype: torch.dtype) -> str:
-    """Which of K7's two bodies a CUDA call on ``[e_loc, G, D]`` rows of
+    """Which of K7's three bodies a CUDA call on ``[e_loc, G, D]`` rows of
     ``dtype`` takes: ``'wgmma'``, the two-pass grouped GEMM on the
     warpgroup MMA, for bf16 rows of at least
     :data:`EXPERT_FFN_WGMMA_G_MIN` (a prefill chunk's groups);
-    ``'walk'``, the K6 body on the identity slot map, otherwise (decode's
-    few rows, where the weight bytes bound the call, and f32 rows)."""
+    ``'decode'``, the swap-AB warpgroup body, for fewer bf16 rows (down to
+    :data:`EXPERT_FFN_DECODE_G_MIN`: decode, where the weight bytes bound
+    the call); ``'walk'``, the K6 body on the identity slot map, for f32
+    rows."""
     if dtype == torch.bfloat16 and G >= EXPERT_FFN_WGMMA_G_MIN:
         return "wgmma"
+    if dtype == torch.bfloat16 and G >= EXPERT_FFN_DECODE_G_MIN:
+        return "decode"
     return "walk"
 
 
@@ -428,10 +530,10 @@ def fused_expert_ffn(experts: Dict[str, Any],
     CPU tensors take the plain version (cast to ``x.dtype``); CUDA tensors
     launch the kernel, float or int8 ``(q8, scale)`` experts, with what K6
     takes: contiguous bf16 or f32 rows, D and F multiples of 64, biases of
-    the rows' dtype.  :func:`expert_ffn_body` picks the body; the
-    warpgroup body allocates the ``[e_loc, G, F]`` activation between its
-    passes (0.94 GB at ``[8, 4096, 4096]``, F 14336).  Forward only, as
-    K6."""
+    the rows' dtype.  :func:`expert_ffn_body` picks the body; both
+    warpgroup bodies allocate the ``[e_loc, G, F]`` activation between
+    their passes (0.94 GB at ``[8, 4096, 4096]``, F 14336; 1.8 MB at
+    decode's ``[8, 8, 4096]``).  Forward only, as K6."""
     quantized = _quantized(experts, "K7")
     if x.device.type == "cpu":
         _check(all(t.device.type == "cpu" for t in tree_leaves(experts)),
@@ -443,16 +545,18 @@ def fused_expert_ffn(experts: Dict[str, Any],
     weights, e_w, Fd, swiglu, tag = _kernel_weights(experts, x, D, quantized)
     _check(e_w == E, f"x holds {E} experts' rows, the weights {e_w} experts")
     name = "fused_expert_ffn_int8" if quantized else "fused_expert_ffn"
-    if expert_ffn_body(G, x.dtype) == "wgmma":
-        # the activation between the passes, then y in x's dtype directly
+    body = expert_ffn_body(G, x.dtype)
+    if body != "walk":
+        # the activation between the passes; the chunk body writes y in
+        # x's dtype directly, the decode body adds partial sums into f32
         h = torch.empty(E, G, Fd, dtype=x.dtype, device=x.device)
-        y = torch.empty_like(x)
-        w1, s1, b1, w2, s2, b2 = (weights if quantized else (
-            weights[0], None, weights[1], weights[2], None, weights[3]))
-        _launch("tdp_expert_ffn_wgmma", name,
-                (x, w1, s1, b1, w2, s2, b2, h), y, E, G, D, Fd, int(swiglu),
-                int(quantized))
-        return y
+        chunk = body == "wgmma"
+        y = (torch.empty_like(x) if chunk else
+             torch.zeros(E, G, D, dtype=torch.float32, device=x.device))
+        _launch("tdp_expert_ffn_wgmma" if chunk else "tdp_expert_ffn_decode",
+                name, (x,) + _named_weights(weights, quantized) + (h,), y, E,
+                G, D, Fd, int(swiglu), int(quantized))
+        return y if chunk else y.to(x.dtype)
     entry = "tdp_expert_ffn_int8" if quantized else "tdp_expert_ffn"
     y = torch.zeros(E, G, D, dtype=torch.float32, device=x.device)
     _launch(entry, name, (x,) + weights, y, E, G, D, Fd, int(swiglu), tag)
