@@ -10,7 +10,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device  — a CUDA card is present; its name, count and power limit.
 2. build   — the three kernel sources under ``torchdistpackage_tpu_torch/
-   ops/csrc`` are compiled at once (one nvcc each); build seconds and
+   ops/csrc`` are compiled at once (one nvcc each), beside four
+   planted-fault builds of ``paged_attention.cu``; build seconds and
    ptxas' registers / shared memory / spills of every instantiation (K6's
    and K7's float and int8 ones named apart; a summary line of registers
    and spills for each K1/K2 instantiation, walk and tensor-core, and for
@@ -26,10 +27,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    card could take.  K1 (paged attention) at the serving shapes (decode,
    a 3-row step, a 512-row prefill chunk and a 200-row one; G 4, Hkv 8,
    hd 128, bs 16; windows None / 4096 / 64 / 48; bf16, int8 and f32
-   pools; faults: a window edge one block late, one stage of blocks
-   misread, and on the window-64 chunk the window edge 3 positions late,
-   which only the tensor-core mode's per-element masks see; yardstick
-   SDPA).
+   pools; 4 slots of Mixtral-8x7B-v0.1's 32768 positions without a
+   window; 64 and 320 slots of up to 2048 and 1024 positions; faults: a
+   window edge one block late, one stage of blocks misread, and on the
+   window-64 chunk the window edge 3 positions late,
+   which only the tensor-core mode's per-element masks see; on the
+   decode rows' split path, from planted-fault builds of the source:
+   one split's partial dropped, a split boundary one block late, the
+   merge taking the next split's m; yardstick SDPA).  Decode rows (the
+   split-KV body and its merge) are also timed from a CUDA graph
+   (``graph_ms``), since the wrapper's host time is as long as the
+   kernels, checked bit-identical over two launches, and swept over
+   NSPLIT and over the slot order (longest first or the grid's own).
    K3-K5 (flash attention forward, dq, dk/dv) at the training shape (B
    16, H 12, S 2048, hd 64, causal) and at Mistral-7B's attention (Hq 32,
    Hkv 8, hd 128, S 8192, window 4096), bf16 (the warpgroup bodies) and
@@ -66,8 +75,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    4), held after ``finalize_paged_carry`` with the carry's m and l
    (``carry_held``; faults: the ownership mask off, the carry not seeded,
    the window one block late, the carry merged once a warp in split mode,
-   the window edge 3 positions late on the window-64 chunk; yardsticks
-   SDPA over the gathered view and K1 at the same one-hop shape).
+   the window edge 3 positions late on the window-64 chunk, and on the
+   decode chains the four split-path faults, K2's carry seeded in every
+   split among them; yardsticks SDPA over the gathered view and K1 at
+   the same one-hop shape); and the 32k decode case as one hop and four.
 4. train   — the training main path: ``bench.py``'s GPT-125M at full
    depth, batch 16, S 2048, bf16, remat 'flash', 10 AdamW steps on one
    fixed batch (losses, step time, tokens/s, MFU, peak memory, launches
@@ -168,6 +179,19 @@ def cuda_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters):
+    """Mean milliseconds of ``fn()`` replayed from a CUDA graph: the
+    device's time for the call's kernels without the host's cost of
+    launching them (which, for a decode call, is as long as the kernels).
+    Capturing it also shows the call reads nothing back from the card."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, iters)
 
 
 # ------------------------------------------------------------ phase 3
@@ -296,6 +320,7 @@ def exact_inputs(case):
 
 def kernel_phase():
     from torchdistpackage_tpu_torch.ops.paged_attention import (
+        DECODE_ROWS,
         LAUNCHES,
         paged_decode_attention,
         paged_decode_attention_reference,
@@ -311,6 +336,18 @@ def kernel_phase():
                                   window=None, dtype=bf, quantized=False)),
         ("decode_bf16_w64", dict(B=8, S_in=1, offsets=decode_offs,
                                  window=64, dtype=bf, quantized=False)),
+        ("decode_bf16_full_32k", dict(B=4, S_in=1, offsets=LONG_OFFS,
+                                      window=None, dtype=bf,
+                                      quantized=False)),
+        # many slots, on both sides of DECODE_ORDER_MAX_SLOTS
+        ("decode_bf16_64slots_2k", dict(B=64, S_in=1,
+                                        offsets=spread_offsets(64, 2048),
+                                        window=4096, dtype=bf,
+                                        quantized=False)),
+        ("decode_bf16_320slots_1k", dict(B=320, S_in=1,
+                                         offsets=spread_offsets(320, 1024),
+                                         window=4096, dtype=bf,
+                                         quantized=False)),
         ("rows3_bf16_w4096", dict(B=8, S_in=3, offsets=decode_offs,
                                   window=4096, dtype=bf, quantized=False)),
         ("chunk512_bf16_w4096", dict(B=8, S_in=512, offsets=chunk_offs,
@@ -356,13 +393,35 @@ def kernel_phase():
             raise RuntimeError(
                 f"{name}: kernel disagrees with its plain version: "
                 f"{ratio:.3f} of the row tolerance")
+        decode = GROUPS * spec["S_in"] <= DECODE_ROWS
+        if decode:
+            repeatable(name, got, lambda: paged_decode_attention(*args, **kw))
         if name in ("decode_bf16_w4096", "chunk512_bf16_w4096"):
             planted_faults(case, exact)
         if name == "chunk512_bf16_w64":
             mask_planted_fault(case, exact)
+        if name in ("decode_bf16_w4096", "decode_bf16_full_32k"):
+            for fault in (1, 2, 4):
+                bad = with_paged_fault(fault, lambda: paged_decode_attention(
+                    *args, **kw))
+                split_fault_fails(name, fault, *held(bad, exact,
+                                                     spec["dtype"]))
+            nsplit_sweep(name, lambda: paged_decode_attention(*args, **kw),
+                         splits_of(case))
+        if name in ("decode_bf16_w4096", "decode_bf16_64slots_2k",
+                    "decode_bf16_320slots_1k"):
+            order_sweep(name, got, lambda: paged_decode_attention(*args,
+                                                                  **kw))
+        if "slots" in name:
+            nsplit_sweep(name, lambda: paged_decode_attention(*args, **kw),
+                         splits_of(case), counts=(1, 2, 3, 4, 8))
         heavy = spec["S_in"] > 8
         ms = cuda_ms(lambda: paged_decode_attention(*args, **kw),
                      5 if heavy else 50)
+        # decode rows: also the device time alone, from a CUDA graph (the
+        # wrapper's host time is about as long as the kernels)
+        g_ms = graph_ms(lambda: paged_decode_attention(*args, **kw),
+                        50) if decode else None
         plain_ms = cuda_ms(lambda: paged_decode_attention_reference(
             *args, **kw), 2 if heavy else 10)
         lib_ms = sdpa_ms(case, 5 if heavy else 50)
@@ -370,13 +429,139 @@ def kernel_phase():
         row = {"case": name, "max_abs_err": err, "tol_ratio": ratio,
                "plain_dtype_err": plain_err, "ms": ms,
                "plain_ms": plain_ms, "library_ms": lib_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by}
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "nsplit": splits_of(case) if decode else None,
+               "graph_ms": g_ms}
         rows.append(row)
-        log(f"[kernel] {name}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-            f"sdpa {lib_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})")
+        log(f"[kernel] {name}: kernel {ms:.4f} ms"
+            + (f" ({g_ms:.4f} ms from a CUDA graph; NSPLIT "
+               f"{row['nsplit']})" if decode else "")
+            + f"  plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
         del case, args, got, want, exact
         torch.cuda.empty_cache()
+    slot_order_sweep()
     return rows
+
+
+LONG_OFFS = [32767, 24575, 16383, 8191]  # Mixtral-8x7B-v0.1's 32k context
+
+
+def spread_offsets(B, context):
+    """B slots' offsets spread evenly over [0, context): a server's slots
+    at every stage of their contexts."""
+    return [i * (context - 1) // (B - 1) for i in range(B)]
+
+
+#: the kernel source's planted-fault variants (``-DTDP_PAGED_FAULT=n``),
+#: built beside it by ``build_phase``
+PAGED_FAULTS = {1: "one split's partial dropped",
+                2: "a split boundary one block late",
+                3: "K2's carry seeded in every split",
+                4: "the merge taking the next split's m"}
+
+
+def paged_fault_defines(fault):
+    return (f"TDP_PAGED_FAULT={fault}",)
+
+
+def with_paged_fault(fault, fn):
+    """``fn()`` with K1 and K2 taken from planted-fault variant ``fault``
+    of ``paged_attention.cu``."""
+    from torchdistpackage_tpu_torch.ops import _build
+
+    with _build.variant("paged_attention", paged_fault_defines(fault)):
+        return fn()
+
+
+def split_fault_fails(tag, fault, err, ratio):
+    log(f"[kernel] {tag}, planted fault ({PAGED_FAULTS[fault]}): max abs "
+        f"err {err:.3g}, {ratio:.1f} x the tolerance")
+    if ratio <= 1.0:
+        raise RuntimeError(f"{tag}: the check misses a planted fault "
+                           f"({PAGED_FAULTS[fault]})")
+
+
+def repeatable(tag, got, fn):
+    """The decode rows' merge adds the partials in split order: a second
+    launch on the same inputs gives the same bits."""
+    again = fn()
+    pairs = zip(got, again) if isinstance(got, tuple) else [(got, again)]
+    if not all(torch.equal(a, b) for a, b in pairs):
+        raise RuntimeError(f"{tag}: two launches differ")
+    log(f"[kernel] {tag}: two launches bit-identical")
+
+
+def splits_of(case):
+    from torchdistpackage_tpu_torch.ops.paged_attention import decode_splits
+
+    tables = case["tables"]
+    return decode_splits(tables.shape[0] * HKV, tables.shape[1],
+                         torch.cuda.get_device_properties(
+                             0).multi_processor_count)
+
+
+def nsplit_sweep(tag, fn, default,
+                 counts=(1, 2, 4, 8, 12, 16, 24, 33, 48, 66)):
+    """The decode rows' time at split counts pinned around the default
+    (``decode_splits``): the measurement its choice rests on."""
+    from torchdistpackage_tpu_torch.ops import paged_attention as pa
+
+    chosen = pa.decode_splits
+    times = []
+    try:
+        for n in counts:
+            pa.decode_splits = lambda bh, mb, sms, n=n: n
+            times.append(f"{n}: {graph_ms(fn, 30):.4f}")
+    finally:
+        pa.decode_splits = chosen
+    log(f"[kernel] {tag}: NSPLIT sweep (ms from a CUDA graph; the default "
+        f"is {default}) " + ", ".join(times))
+
+
+def order_sweep(tag, got, fn):
+    """The bf16 decode rows' time with the split grid's longest-first
+    order on and off (``DECODE_ORDER_MAX_SLOTS`` pinned above and below
+    B): the measurement that threshold rests on.  The order moves work
+    between CTAs, never the arithmetic, so both give ``got``'s bits."""
+    from torchdistpackage_tpu_torch.ops import paged_attention as pa
+
+    chosen = pa.DECODE_ORDER_MAX_SLOTS
+    times = []
+    try:
+        for what, limit in (("longest first", 1 << 30), ("grid order", 0)):
+            pa.DECODE_ORDER_MAX_SLOTS = limit
+            if not torch.equal(fn(), got):
+                raise RuntimeError(f"{tag}: the {what} grid changes the "
+                                   f"output")
+            times.append(f"{what} {graph_ms(fn, 30):.4f}")
+    finally:
+        pa.DECODE_ORDER_MAX_SLOTS = chosen
+    log(f"[kernel] {tag}: slot order (ms from a CUDA graph; the default "
+        f"orders up to {chosen} slots) " + ", ".join(times))
+
+
+def slot_order_sweep(slots=(96, 128, 160, 192, 256)):
+    """:func:`order_sweep` at more slot counts (contexts spread over 2048
+    positions, Mistral's window): where the longest-first order stops
+    paying for each CTA's ranking of the slots."""
+    from torchdistpackage_tpu_torch.ops.paged_attention import (
+        paged_decode_attention,
+    )
+
+    for i, B in enumerate(slots):
+        case = make_case(f"decode_bf16_{B}slots_2k", B=B, S_in=1,
+                         offsets=spread_offsets(B, 2048), window=4096,
+                         dtype=torch.bfloat16, quantized=False, seed=200 + i)
+        args = (case["q"], case["k"], case["v"], case["tables"],
+                case["offsets"])
+
+        def fn():
+            return paged_decode_attention(*args, window=4096)
+
+        order_sweep(case["name"], fn(), fn)
+        del case, args
+    torch.cuda.empty_cache()
 
 
 def mask_planted_fault(case, exact):
@@ -1423,19 +1608,23 @@ def carry_bound(case, hops):
 
 def carry_kernel_phase():
     """K2 at the serving shapes (B 8, G 4, Hkv 8, hd 128, bs 16): decode
-    (S_in 1, split mode) and a 512-row chunk (row mode), windows 4096,
-    None and 64, bf16 and f32; each as one hop over the whole pool (cp 1)
-    and as a four-hop carry chain over four quarter-pool slices through
-    re-based tables (the per-rank work of cp 4).  Each is held against
-    the plain version in f32 on the same values (``carry_held``).
-    Planted faults on the bf16 window-4096 chains: the ownership mask off
-    (the kernel given the re-based tables clamped into the slice, as the
-    TPU kernel's index map fetches a remote block, so every remote entry
-    reads a block it does not own), the carry not seeded (each hop after
-    the first starts empty), the window one block late and, in split mode,
-    the carry merged once a warp (each hop after the first given the carry
-    with acc and l times the 4 warps: what seeding every warp with it
-    gives).  Times: the kernel, the plain version, SDPA over the gathered
+    (S_in 1, the split-KV body) and a 512-row chunk (row mode), windows
+    4096, None and 64, bf16 and f32, and 4 slots of 32768 positions
+    without a window; each as one hop over the whole pool (cp 1) and as a
+    four-hop carry chain over four quarter-pool slices through re-based
+    tables (the per-rank work of cp 4).  Each is held against the plain
+    version in f32 on the same values (``carry_held``); decode chains
+    are bit-identical over two launches.  Planted faults on the bf16
+    window-4096 chains: the ownership mask off (the kernel given the
+    re-based tables clamped into the slice, as the TPU kernel's index map
+    fetches a remote block, so every remote entry reads a block it does
+    not own), the carry not seeded (each hop after the first starts
+    empty), the window one block late and, at decode, the carry merged
+    once a warp (each hop after the first given the carry with acc and l
+    times the 4 warps); on the bf16 decode chains (window 4096 and 32k)
+    the planted-fault builds of the split path (``PAGED_FAULTS``).  Times
+    (CUDA events around eager calls; decode also from a CUDA graph,
+    ``graph_ms``): the kernel, the plain version, SDPA over the gathered
     view and K1 at the same one-hop shape."""
     from torchdistpackage_tpu_torch.ops.paged_attention import (
         LAUNCHES,
@@ -1456,10 +1645,13 @@ def carry_kernel_phase():
                         f"{'full' if window is None else f'w{window}'}")
                 specs.append((name, s_in, offs, window, dtype))
     specs.append(("chunk200_bf16_w48", 200, chunk_offs, 48, torch.bfloat16))
+    specs.append(("decode_bf16_full_32k", 1, LONG_OFFS, None,
+                  torch.bfloat16))
     rows = []
     for i, (name, s_in, offs, window, dtype) in enumerate(specs):
-        case = make_case(name, B=8, S_in=s_in, offsets=offs, window=window,
-                         dtype=dtype, quantized=False, seed=300 + i)
+        case = make_case(name, B=len(offs), S_in=s_in, offsets=offs,
+                         window=window, dtype=dtype, quantized=False,
+                         seed=300 + i)
         q, o = case["q"], case["offsets"]
         heavy = s_in > 8
         for n_hops in (1, 4):
@@ -1481,9 +1673,19 @@ def carry_kernel_phase():
                 raise RuntimeError(
                     f"{tag}: K2 disagrees with its plain version: "
                     f"{ratio:.3f} of the tolerance")
+            if s_in == 1:
+                repeatable(tag, got, lambda: chain(
+                    paged_carry_attention, q, hops, o, window))
             if n_hops == 4 and dtype == torch.bfloat16 and window == 4096:
                 carry_planted_faults(tag, q, hops, o, window, exact, scale,
                                      split=s_in == 1)
+            if n_hops == 4 and s_in == 1 and dtype == torch.bfloat16 and (
+                    window == 4096 or name.endswith("32k")):
+                for fault in PAGED_FAULTS:
+                    bad = with_paged_fault(fault, lambda: chain(
+                        paged_carry_attention, q, hops, o, window))
+                    split_fault_fails(tag, fault, *carry_held(
+                        bad, exact, scale, dtype))
             if n_hops == 4 and name == "chunk512_bf16_w64":
                 bad = chain(paged_carry_attention, q, hops, o, window + 3)
                 bad_err, bad_ratio = carry_held(bad, exact, scale, dtype)
@@ -1497,22 +1699,33 @@ def carry_kernel_phase():
                 del bad
             ms = cuda_ms(lambda: chain(paged_carry_attention, q, hops, o,
                                        window), 5 if heavy else 50)
+            g_ms = graph_ms(lambda: chain(paged_carry_attention, q, hops, o,
+                                          window), 50) if s_in == 1 else None
             plain_ms = cuda_ms(lambda: chain(
                 paged_carry_attention_reference, q, hops, o, window),
                 2 if heavy else 10)
             bound_ms, bound_by = carry_bound(case, hops)
             row = {"case": tag, "max_abs_err": err, "tol_ratio": ratio,
                    "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-                   "k1_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+                   "k1_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+                   "graph_ms": g_ms, "k1_graph_ms": None}
             if n_hops == 1:
                 args = (q, case["k"], case["v"], case["tables"], o)
                 row["library_ms"] = sdpa_ms(case, 5 if heavy else 50)
-                row["k1_ms"] = cuda_ms(lambda: paged_decode_attention(
-                    *args, window=window), 5 if heavy else 50)
+                def k1():
+                    return paged_decode_attention(*args, window=window)
+                row["k1_ms"] = cuda_ms(k1, 5 if heavy else 50)
+                if s_in == 1:
+                    row["k1_graph_ms"] = graph_ms(k1, 50)
             rows.append(row)
-            log(f"[carry] {tag}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
+            log(f"[carry] {tag}: kernel {ms:.4f} ms"
+                + (f" ({g_ms:.4f} ms from a CUDA graph)" if s_in == 1
+                   else "")
+                + f"  plain {plain_ms:.4f} ms"
                 + (f"  sdpa {row['library_ms']:.4f} ms  K1 "
                    f"{row['k1_ms']:.4f} ms" if n_hops == 1 else "")
+                + (f" ({row['k1_graph_ms']:.4f} from a CUDA graph)"
+                   if n_hops == 1 and s_in == 1 else "")
                 + f"  bound {bound_ms:.4f} ms ({bound_by})")
             del got, exact, scale, hops, exact_hops
         del case, q
@@ -2069,8 +2282,9 @@ def kernel_families(prof, calls):
                 "expert_ffn": 0.0, "nccl": 0.0, "gemm": 0.0, "other": 0.0}
     for e in kernels:
         name = e.key.lower()
-        paged = re.search(r"paged_(?:walk|tc)_kernel<\d+, \d+, (true|false)>",
-                          name)
+        paged = re.search(
+            r"paged_(?:walk|tc|split|merge)_kernel<\d+, \d+, (true|false)>",
+            name)
         fam = ("paged_carry" if paged and paged.group(1) == "true" else
                "paged_attention" if paged else
                "moe_ffn" if "moe_ffn" in name else
@@ -2559,9 +2773,11 @@ PAGED_TAGS = ("bf16", "f32", "bf16 q int8 pool", "f32 q int8 pool")
 
 def paged_instantiation(line):
     """``(name, label)`` of a K1/K2 instantiation named in a ptxas line
-    (``paged_{walk,tc}_kernel<dtype tag, hd, carry>``), or None."""
-    m = re.search(r"(paged_(?:walk|tc)_kernel)ILi(\d)ELi(\d+)ELb([01])E",
-                  line)
+    (``paged_{walk,tc,split,merge}_kernel<dtype tag, hd, carry>``), or
+    None."""
+    m = re.search(
+        r"(paged_(?:walk|tc|split|merge)_kernel)ILi(\d)ELi(\d+)ELb([01])E",
+        line)
     if m is None:
         return None
     name, tag, hd, carry = m.group(1), int(m.group(2)), m.group(3), m.group(4)
@@ -2629,7 +2845,9 @@ def hgmma_counts(lib_path):
 
 
 def build_phase():
-    """The three sources built at once (one nvcc each); ptxas' registers,
+    """The three sources built at once (one nvcc each), with the
+    planted-fault builds of paged_attention.cu (``PAGED_FAULTS``, run by
+    ``with_paged_fault``); ptxas' registers,
     shared memory and spills of every instantiation, its advisories
     (C75xx: a serialised wgmma fails the phase), and a summary line of
     each K1/K2 instantiation's registers and spills and of each
@@ -2640,14 +2858,26 @@ def build_phase():
     "spill_stores", "spill_loads", ...})."""
     from torchdistpackage_tpu_torch.ops import _build
 
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
-    libs = _build.load_all(["paged_attention", "flash_attention",
-                            "moe_dispatch"])
-    log(f"[build] all sources built in {time.perf_counter() - t0:.1f} s ("
+    with ThreadPoolExecutor(max_workers=1 + len(PAGED_FAULTS)) as pool:
+        faults = [pool.submit(_build.load, "paged_attention",
+                              paged_fault_defines(f)) for f in PAGED_FAULTS]
+        libs = pool.submit(_build.load_all, ["paged_attention",
+                                             "flash_attention",
+                                             "moe_dispatch"]).result()
+        for fut in faults:
+            fut.result()
+    log(f"[build] all sources and the {len(PAGED_FAULTS)} planted-fault "
+        f"variants of paged_attention.cu built in "
+        f"{time.perf_counter() - t0:.1f} s ("
         + ", ".join(f"{n}.cu {i['seconds']:.1f} s"
                     for n, i in _build.BUILD_INFO.items()) + ")")
     summary = {}
     for src, info in _build.BUILD_INFO.items():
+        if " -D" in src:  # a planted-fault variant
+            continue
         kernel = "?"
         for line in str(info["log"]).splitlines():
             if "Compiling entry function" in line:  # name the instantiation
@@ -2764,6 +2994,7 @@ def kernel_entry(name, route_src, replaces, launches, rows, head,
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"], "shape": head["case"],
+        "graph_ms": head.get("graph_ms"),
         "cases_passed": len(rows), "cases": rows, **extra,
     }
 
@@ -2918,9 +3149,11 @@ def main():
         "paged_carry_attention", CARRY_SOURCE, CARRY_REPLACES,
         cp_eng["launches"]["paged_carry_attention"], carry_rows,
         carry_rows[0], k1_ms=carry_rows[0]["k1_ms"],
+        k1_graph_ms=carry_rows[0]["k1_graph_ms"],
         ptxas={k: v for k, v in ptxas_summary.items() if k.startswith("K2")},
         library="SDPA over the gathered view at one hop; k1_ms: K1 on the "
-                "same one-hop inputs"))
+                "same one-hop inputs (graph_ms, k1_graph_ms: replayed from "
+                "a CUDA graph)"))
     log(json.dumps({"kernels": entries}))
     log(card)
     log(json.dumps({"ok": True, "device": {

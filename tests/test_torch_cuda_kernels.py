@@ -1352,3 +1352,219 @@ def test_tensor_core_mask_planted_faults_fail(cuda):
     assert _carry_ratio(got, exact, scale, torch.bfloat16) <= 1.0
     bad = _chain(pa.paged_carry_attention, q, hops, offs, window + 2)
     assert _carry_ratio(bad, exact, scale, torch.bfloat16) > 1.0
+
+
+# ------------------------- K1 and K2 decode rows: the split-KV body
+
+
+def _decode_inputs(cuda, *, dtype, s_in, hd, groups, seed, mb=280, b=4,
+                   offsets=None):
+    """q and a pool of 1 + b mb blocks of 16 positions (bf16, f32, or an
+    int8 pool with f32 scales and f32 q, or bf16 q for
+    ``"bfloat16_int8"``), tables a permutation of its blocks.  Slot
+    0's single row sits at position 0 (one key), slot 1's at 70 (mid-
+    block), slot 2's last row at the table's last position, and slot 3's
+    rows run 40 positions past its table (and past 4096, so a window of
+    4096 masks), each still seeing keys under a window of 48."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    hkv, bs = 2, 16
+    nb = 1 + b * mb
+    tables = (torch.randperm(nb - 1, generator=g, device=cuda) + 1)
+    tables = tables.reshape(b, mb).to(torch.int32)
+    if offsets is None:
+        offsets = [0, 70, mb * bs - s_in, mb * bs - s_in + 40][:b]
+    offs = torch.tensor(offsets, dtype=torch.int32, device=cuda)
+    qdt = torch.bfloat16 if dtype.startswith("bfloat16") else torch.float32
+    q = torch.randn(b, hkv * groups, s_in, hd, generator=g, device=cuda
+                    ).to(qdt)
+    if dtype.endswith("int8"):
+        pools = [(torch.randint(-127, 128, (nb, hkv, bs, hd), generator=g,
+                                device=cuda, dtype=torch.int8),
+                  torch.rand(nb, hkv, bs, generator=g, device=cuda) * 0.02
+                  + 1e-3) for _ in range(2)]
+    else:
+        pools = [torch.randn(nb, hkv, bs, hd, generator=g, device=cuda
+                             ).to(qdt) for _ in range(2)]
+    return q, pools[0], pools[1], tables, offs
+
+
+def _k1_decode_check(q, k, v, tables, offs, window):
+    before = LAUNCHES["paged_decode_attention"]
+    got = paged_decode_attention(q, k, v, tables, offs, window=window)
+    torch.cuda.synchronize()
+    assert LAUNCHES["paged_decode_attention"] == before + 1
+    want = paged_decode_attention_reference(
+        q.float(), _f32(k), _f32(v), tables, offs, window=window)
+    _assert_rows_close(got, want, q.dtype)
+    return got
+
+
+# (G, S_in): R = G S_in rows a (slot, KV head), up to the decode body's
+# 16 (G 16 and 4 x 4 at the edge)
+DECODE_ROWS = [(1, 1), (4, 1), (8, 1), (1, 3), (4, 3), (16, 1), (4, 4)]
+DECODE_SHAPES = [pytest.param(hd, g, s, w, id=f"hd{hd}-g{g}-s{s}-w{w}")
+                 for hd in (64, 128) for g, s in DECODE_ROWS
+                 for w in (None, 48, 4096)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd,groups,s_in,window", DECODE_SHAPES)
+def test_k1_split_decode_rows_match_plain_on_card(cuda, hd, groups, s_in,
+                                                  window):
+    """K1's decode rows on bf16 pools (the split-KV body on the tensor
+    cores and the merge), against the plain version in f32, row by row:
+    a slot with one key, one mid-block, one ending at its table's last
+    position and one running past it."""
+    q, k, v, tables, offs = _decode_inputs(
+        cuda, dtype="bfloat16", s_in=s_in, hd=hd, groups=groups,
+        seed=hd + 10 * groups + s_in)
+    _k1_decode_check(q, k, v, tables, offs, window)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "int8", "bfloat16_int8"])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("groups,s_in", [(4, 1), (4, 3), (16, 1)])
+@pytest.mark.parametrize("window", [None, 48, 4096])
+def test_k1_split_decode_rows_f32_and_int8_pools_on_card(cuda, dtype, hd,
+                                                         groups, s_in,
+                                                         window):
+    """f32 and int8 pools keep the walk's CUDA-core arithmetic on the same
+    split grid (its split mode at R <= 4, its row mode above)."""
+    q, k, v, tables, offs = _decode_inputs(
+        cuda, dtype=dtype, s_in=s_in, hd=hd, groups=groups, seed=hd + s_in)
+    _k1_decode_check(q, k, v, tables, offs, window)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("groups,s_in", [(1, 1), (4, 1), (8, 1), (4, 3)])
+@pytest.mark.parametrize("window", [None, 48, 4096])
+def test_k2_split_decode_rows_on_quarter_slices_on_card(cuda, dtype, hd,
+                                                        groups, s_in,
+                                                        window):
+    """K2's decode rows through a four-hop chain over quarter-pool slices
+    (tables a random permutation), every hop after the first seeded with
+    the carry, which the merge takes exactly once; some splits own no
+    block of a hop's slice (they write the neutral partial).  The
+    finished output, m and l against the plain version's chain in f32."""
+    from torchdistpackage_tpu_torch.ops import paged_attention as pa
+
+    q, k, v, tables, offs = _decode_inputs(
+        cuda, dtype=dtype, s_in=s_in, hd=hd, groups=groups, seed=hd + s_in)
+    hops = _slices(k, v, tables, 4)
+    nsplit = pa._splits_for(tables.shape[0] * k.shape[1], tables.shape[1],
+                            cuda)
+    plan = pa.decode_split_plan(offs.tolist(), s_in, window,
+                                tables.shape[1], nsplit)
+    idle = 0  # (hop, slot, split) whose share holds blocks, none owned
+    for kk, _, tab in hops:
+        for slot, shares in enumerate(plan):
+            for lo, hi in shares:
+                row = tab[slot, lo:hi]
+                idle += int(hi > lo and not bool(
+                    ((row >= 0) & (row < kk.shape[0])).any()))
+    assert idle > 0
+    got, exact, scale = _carry_check(q, hops, offs, window)
+    assert _carry_ratio(got, exact, scale, getattr(torch, dtype)) <= 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nsplit", [1, 2, 7, 64, 1000])
+def test_split_decode_rows_hold_at_any_split_count(cuda, monkeypatch,
+                                                   nsplit):
+    """The split count pinned from 1 to far more than any slot's live
+    blocks (most splits then empty): K1 holds, and K2 at cp 1 finished
+    equals K1 bit for bit at every count."""
+    from torchdistpackage_tpu_torch.ops import paged_attention as pa
+
+    monkeypatch.setattr(pa, "decode_splits", lambda bh, mb, sms: nsplit)
+    q, k, v, tables, offs = _decode_inputs(
+        cuda, dtype="bfloat16", s_in=1, hd=128, groups=4, seed=nsplit)
+    k1 = _k1_decode_check(q, k, v, tables, offs, 4096)
+    carry = pa.paged_carry_attention(q, k, v, tables, offs, window=4096)
+    B, H, S, hd = q.shape
+    assert torch.equal(k1, pa.finalize_paged_carry(carry, B, H, S, hd,
+                                                   q.dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "int8"])
+def test_split_decode_rows_at_a_32k_context(cuda, dtype):
+    """Mixtral-8x7B-v0.1's 32768 positions without a window: 4 slots at
+    32767, 24575, 16383 and 8191 (2048 blocks of table), K1 against the
+    plain version and (float pools) K2's four-hop chain."""
+    mb = 2048
+    q, k, v, tables, offs = _decode_inputs(
+        cuda, dtype=dtype, s_in=1, hd=128, groups=4, seed=32, mb=mb,
+        offsets=[32767, 24575, 16383, 8191])
+    _k1_decode_check(q, k, v, tables, offs, None)
+    if dtype != "int8":
+        got, exact, scale = _carry_check(q, _slices(k, v, tables, 4), offs,
+                                         None)
+        assert _carry_ratio(got, exact, scale, q.dtype) <= 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "int8"])
+def test_split_decode_rows_are_bitwise_repeatable(cuda, dtype):
+    """The merge adds the partials in split order (no atomics), so two
+    launches on the same inputs give the same bits: K1, and K2 seeded
+    with a carry over quarter slices."""
+    from torchdistpackage_tpu_torch.ops import paged_attention as pa
+
+    q, k, v, tables, offs = _decode_inputs(
+        cuda, dtype=dtype, s_in=1, hd=128, groups=4, seed=5)
+    runs = [pa.paged_decode_attention(q, k, v, tables, offs, window=4096)
+            for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    if dtype != "int8":
+        hops = _slices(k, v, tables, 4)
+        chains = [_chain(pa.paged_carry_attention, q, hops, offs, 4096)
+                  for _ in range(2)]
+        for a, b in zip(*chains):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_split_decode_rows_past_the_ordered_slot_count(cuda):
+    """With more slots than the kernel ranks longest-first
+    (``DECODE_ORDER_MAX_SLOTS``), the split grid keeps its own order: K1
+    still holds, and K2 at cp 1 finished still equals K1 bit for bit."""
+    from torchdistpackage_tpu_torch.ops import paged_attention as pa
+
+    b, mb = pa.DECODE_ORDER_MAX_SLOTS + 4, 8
+    offs = torch.randint(0, mb * 16, (b,), generator=torch.Generator(
+        ).manual_seed(3)).tolist()
+    q, k, v, tables, offs = _decode_inputs(
+        cuda, dtype="bfloat16", s_in=1, hd=128, groups=4, seed=260, mb=mb,
+        b=b, offsets=offs)
+    k1 = _k1_decode_check(q, k, v, tables, offs, 48)
+    carry = pa.paged_carry_attention(q, k, v, tables, offs, window=48)
+    B, H, S, hd = q.shape
+    assert torch.equal(k1, pa.finalize_paged_carry(carry, B, H, S, hd,
+                                                   q.dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [8, 64])
+def test_split_decode_slot_order_keeps_the_bits(cuda, monkeypatch, b):
+    """The longest-first order only moves (slot, head, split) items
+    between CTAs: K1 and K2 give the same bits with the grid's own
+    order."""
+    from torchdistpackage_tpu_torch.ops import paged_attention as pa
+
+    offs = torch.randint(0, 64 * 16, (b,), generator=torch.Generator(
+        ).manual_seed(b)).tolist()
+    q, k, v, tables, offs = _decode_inputs(
+        cuda, dtype="bfloat16", s_in=1, hd=128, groups=4, seed=b, mb=64,
+        b=b, offsets=offs)
+    assert b <= pa.DECODE_ORDER_MAX_SLOTS
+    outs = []
+    for limit in (pa.DECODE_ORDER_MAX_SLOTS, 0):
+        monkeypatch.setattr(pa, "DECODE_ORDER_MAX_SLOTS", limit)
+        outs.append((pa.paged_decode_attention(q, k, v, tables, offs),
+                     *pa.paged_carry_attention(q, k, v, tables, offs)))
+    for a, c in zip(*outs):
+        assert torch.equal(a, c)

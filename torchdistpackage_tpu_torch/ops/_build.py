@@ -11,6 +11,7 @@ every module on a machine with no ``nvcc``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -19,7 +20,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterator, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -47,22 +48,27 @@ def _nvcc() -> str:
         "toolkit")
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; raises on a failed
     build with nvcc's output.  Thread-safe, with one lock per source, so
     several sources build at once (see :func:`load_all`); the library is
-    cached per process."""
+    cached per process.  ``defines`` (``-D`` macros, e.g.
+    ``("TDP_PAGED_FAULT=1",)``) build a variant of the source under its
+    own key, ``"<name> -D<macro> ..."``, beside the library (see
+    :func:`variant`)."""
+    key = " ".join([name, *(f"-D{d}" for d in defines)])
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
     with _LOCK:
-        lock = _LOCKS.setdefault(name, threading.Lock())
+        lock = _LOCKS.setdefault(key, threading.Lock())
     with lock:
-        if name in _LIBS:
-            return _LIBS[name]
+        if key in _LIBS:
+            return _LIBS[key]
         src = CSRC / f"{name}.cu"
         # the headers beside the sources are part of every build's key
         headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
         digest = hashlib.sha256(
             src.read_bytes() + headers
-            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+            + " ".join(flags).encode()).hexdigest()[:16]
         out_dir = BUILD_DIR / f"{name}-{digest}"
         lib_path = out_dir / f"lib{name}.so"
         log_path = out_dir / "nvcc.log"
@@ -72,7 +78,7 @@ def load(name: str) -> ctypes.CDLL:
             out_dir.mkdir(parents=True, exist_ok=True)
             tmp = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
             proc = subprocess.run(
-                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                [nvcc, *flags, "-o", str(tmp), str(src)],
                 capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(
@@ -80,13 +86,13 @@ def load(name: str) -> ctypes.CDLL:
                     f"(exit {proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
             log_path.write_text(proc.stderr)
             os.replace(tmp, lib_path)  # atomic: a reader never sees half
-        BUILD_INFO[name] = {
+        BUILD_INFO[key] = {
             "seconds": time.perf_counter() - t0,
             "log": log_path.read_text() if log_path.exists() else "",
             "path": str(lib_path),
         }
         lib = ctypes.CDLL(str(lib_path))
-        _LIBS[name] = lib
+        _LIBS[key] = lib
         return lib
 
 
@@ -98,3 +104,23 @@ def load_all(names) -> Dict[str, ctypes.CDLL]:
     names = list(names)
     with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
         return dict(zip(names, pool.map(load, names)))
+
+
+@contextlib.contextmanager
+def variant(name: str, defines: Sequence[str]) -> Iterator[ctypes.CDLL]:
+    """Within the block, the kernels of ``csrc/<name>.cu`` come from its
+    build with ``defines`` (built if needed, see :func:`load`): every
+    wrapper that loads ``name`` launches the variant, e.g. a planted
+    fault that a check must catch.  The library is restored on exit."""
+    lib = load(name, defines)
+    with _LOCK:
+        saved = _LIBS.get(name)
+        _LIBS[name] = lib
+    try:
+        yield lib
+    finally:
+        with _LOCK:
+            if saved is None:
+                _LIBS.pop(name, None)
+            else:
+                _LIBS[name] = saved

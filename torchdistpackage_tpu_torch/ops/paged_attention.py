@@ -9,12 +9,19 @@ Replaces the TPU kernel ``paged_decode_attention``
 One entry point serves decode (``S_in = 1``), chunked prefill
 (``S_in = chunk``), GQA, a sliding window and int8 pools.
 
-What bounds it on an H100 depends on the shape.  Decode is bound by the
-bytes of live KV it reads, at 3.35 TB/s (one or two operations per byte):
-the kernel reads each live block once per CTA and only the blocks the
-CTA's rows can see (causal and window bounds per CTA), builds no gathered
-view, keeps int8 pools int8 until registers, and keeps stages of blocks
-in flight with ``cp.async``.  A prefill chunk is bound by operations:
+What bounds it on an H100 depends on the shape.  Decode rows (``R = (H /
+Hkv) * S_in <= DECODE_ROWS``) are bound by the bytes of live KV they read,
+at 3.35 TB/s (one or two operations per byte): they run split-KV — a grid
+of ``(B * Hkv, nsplit)`` CTAs, each over one near-equal share of its
+slot's visible blocks (:func:`decode_split_plan`), bf16 pools on the
+tensor cores, f32 and int8 pools on the CUDA cores — and a second kernel
+merges each row's partials in split order from a workspace the wrapper
+takes from PyTorch's caching allocator, so the output is the same bits
+run to run.  ``nsplit`` (:func:`decode_splits`) depends on the grid and
+the table width only, never on ``offsets``: a decode step reads nothing
+back from the card.  The kernel reads only the blocks a CTA's rows can
+see, builds no gathered view and keeps int8 pools int8 until registers.
+A prefill chunk is bound by operations:
 with bf16 pools its rows run on the tensor cores (``mma.sync`` m16n8k16,
 64 query rows a CTA, key tiles of 4 pool blocks, the online softmax on
 the accumulator fragments, P re-packed in registers for P·V); f32 and
@@ -28,15 +35,20 @@ the grid's second dimension instead of being padded.
 ``paged_decode_attention`` launches the kernel for CUDA tensors and
 raises on anything it does not take; it computes the plain version,
 :func:`paged_decode_attention_reference`, only for tensors on the CPU.
-``LAUNCHES["paged_decode_attention"]`` counts kernel launches, so a run
-can show that its main path went through the kernel.
+``LAUNCHES["paged_decode_attention"]`` counts wrapper calls that launch
+(one a call, also where decode rows launch the split kernel and the
+merge), so a run can show that its main path went through the kernel.
+:func:`paged_decode_split_reference` is the plain version of the decode
+rows' split schedule itself: K2's plain version over each split's share,
+merged in the kernels' order.
 
 K2, :func:`paged_carry_attention`, replaces the TPU kernel of the same
 name (``torchdistpackage_tpu/ops/paged_attention.py:509``, body
 ``_cp_kernel`` :332).  It is K1's kernel bodies with the carry in and out:
 the walk over ONE rank's pool slice through a re-based table (entries
 outside the slice are other ranks' blocks, neither read nor scored; on
-the tensor cores each key tile packs the next 4 blocks the rank owns),
+the tensor cores each key tile packs the next 4 blocks the rank owns;
+decode rows seed the incoming carry once, in the merge),
 returning the raw online-softmax carry ``(acc, m, l)`` that the ring
 (:mod:`.ring_paged`) passes from hop to hop and
 :func:`finalize_paged_carry` divides once.  At cp 1 it runs K1's tiles in
@@ -51,12 +63,14 @@ counterpart: ``m`` and ``l`` are ``[B, Hkv, R]``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 NEG_INF = -1e30  # finite "minus infinity", as in the kernel
+BLOCK = 16  # the kernels' pool block (positions)
 
 #: kernel launches since the counter was last reset (the wrapper adds one
 #: where it launches, and nowhere else)
@@ -76,19 +90,36 @@ _DTYPE_TAG = {
 }
 
 _ARGTYPES = (
-    [ctypes.c_void_p] * 8            # q, k, v, k_scale, v_scale, tables, offsets, out
-    + [ctypes.c_int] * 8             # B, Hkv, R, S_in, hd, nb, bs, mb
+    [ctypes.c_void_p] * 9            # q, k, v, k_scale, v_scale, tables,
+    + [ctypes.c_int] * 10            # offsets, out, workspace; B, Hkv, R,
     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-       ctypes.c_int, ctypes.c_void_p]  # block stride, table stride, window,
-)                                      # sm_scale, dtype tag, stream
+       ctypes.c_int, ctypes.c_void_p]  # S_in, hd, nb, bs, mb, nsplit,
+)                                      # order; block stride, table stride,
+                                       # window, sm_scale, dtype tag, stream
 
 
 _CARRY_ARGTYPES = (
-    [ctypes.c_void_p] * 11           # q, k, v, tables, offsets, acc/m/l in,
-    + [ctypes.c_int] * 8             # acc/m/l out; B, Hkv, R, S_in, hd, nb,
+    [ctypes.c_void_p] * 12           # q, k, v, tables, offsets, acc/m/l in,
+    + [ctypes.c_int] * 10            # acc/m/l out, workspace; B, Hkv, R,
     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-       ctypes.c_int, ctypes.c_void_p]  # bs, mb; block stride, table stride,
-)                                      # window, sm_scale, dtype tag, stream
+       ctypes.c_int, ctypes.c_void_p]  # S_in, hd, nb, bs, mb, nsplit,
+)                                      # order; block stride, table stride,
+                                       # window, sm_scale, dtype tag, stream
+
+#: decode rows: a call with R = (H / Hkv) * S_in <= DECODE_ROWS rows a
+#: (slot, KV head) runs the split-KV body and the merge (one m16 tile)
+DECODE_ROWS = 16
+#: CTAs the decode rows' split grid holds at most, per SM: two waves of
+#: the two that fit an SM (``chip_smoke.py``'s NSPLIT sweep)
+DECODE_CTAS_PER_SM = 4
+#: fewest table blocks a split is cut to (one stage of the tensor-core
+#: body)
+DECODE_MIN_BLOCKS = 4
+#: most slots whose bf16 split grid starts the longest slots first: each
+#: CTA ranks the B slots itself, B^2 / 128 compares a thread, which
+#: outweighs the shorter tail above about 128 slots (``chip_smoke.py``'s
+#: ``order_sweep`` and ``slot_order_sweep``)
+DECODE_ORDER_MAX_SLOTS = 128
 
 
 def resolve_attn_impl(impl: Optional[str], device) -> str:
@@ -114,6 +145,102 @@ def _kernel(name: str = "tdp_paged_attention", argtypes=_ARGTYPES):
     return fn
 
 
+def decode_splits(bh: int, mb: int, sms: int = 132) -> int:
+    """NSPLIT of the decode rows' split grid ``(bh, NSPLIT)``, from the
+    number of (slot, KV head) pairs ``bh``, the table width ``mb`` and
+    the card's SM count alone — never from ``offsets``, so a decode step
+    needs no read back from the device: as many splits as keep the grid
+    within ``DECODE_CTAS_PER_SM`` CTAs an SM, but none cut below
+    ``DECODE_MIN_BLOCKS`` blocks of the widest table, and at least one."""
+    want = DECODE_CTAS_PER_SM * sms // bh
+    return max(1, min(want, -(-mb // DECODE_MIN_BLOCKS)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _splits_for(bh: int, mb: int, device) -> int:
+    """:func:`decode_splits` on ``device``'s SM count."""
+    return decode_splits(bh, mb, _sm_count(torch.device(device)))
+
+
+def decode_split_plan(offsets: Sequence[int], S_in: int,
+                      window: Optional[int], mb: int,
+                      nsplit: int) -> List[List[Tuple[int, int]]]:
+    """The kernels' split plan of decode rows, per slot and split: the
+    table blocks ``[lo, hi)`` the slot's rows can see — causal above (the
+    block of its last row), the window below (the first block its first
+    row still sees), as ``cta_bounds`` in the source — cut into
+    ``nsplit`` near-equal shares ``[lo + n s // nsplit, lo + n (s + 1) //
+    nsplit)``, ``n = hi - lo``: every block in exactly one share."""
+    plan = []
+    for off in offsets:
+        qmin, qmax = int(off), int(off) + S_in - 1
+        hi = min(qmax // BLOCK + 1, mb)
+        lo = (max(0, qmin - window + 1) // BLOCK
+              if window is not None and window > 0 else 0)
+        n = max(hi - lo, 0)
+        plan.append([(lo + n * s // nsplit, lo + n * (s + 1) // nsplit)
+                     for s in range(nsplit)])
+    return plan
+
+
+def merge_partials(partials: Sequence[Carry],
+                   carry: Optional[Carry] = None) -> Carry:
+    """The split-KV merge, in the kernels' order: ``carry`` (K2's incoming
+    one, entering exactly once) then each partial in index order, all
+    rescaled to the max over the states that met a key (``l > 0``; one
+    that met none adds nothing)."""
+    acc0, m0, _ = partials[0]
+    if carry is None:
+        acc = torch.zeros_like(acc0)
+        m = torch.full_like(m0, NEG_INF)
+        l = torch.zeros_like(m0)
+    else:
+        acc, m, l = carry
+    mm = m
+    for _, pm, pl in partials:
+        mm = torch.where(pl > 0, torch.maximum(mm, pm), mm)
+    f0 = torch.exp(m - mm)
+    acc, l = acc * f0[..., None], l * f0
+    for pa, pm, pl in partials:
+        f = torch.where(pl > 0, torch.exp(pm - mm), 0.0)
+        acc = acc + pa * f[..., None]
+        l = l + pl * f
+    return acc, mm, l
+
+
+def paged_decode_split_reference(q: torch.Tensor, k_pool: torch.Tensor,
+                                 v_pool: torch.Tensor, tables: torch.Tensor,
+                                 offsets, *, nsplit: int,
+                                 carry: Optional[Carry] = None,
+                                 window: Optional[int] = None,
+                                 sm_scale: Optional[float] = None) -> Carry:
+    """The plain version of the decode rows' split-KV schedule: each
+    split's partial carry by K2's plain version over that split's blocks
+    under :func:`decode_split_plan` (every other entry marked another
+    rank's), merged by :func:`merge_partials` in index order after
+    ``carry``.  Returns the carry; :func:`finalize_paged_carry` gives K1's
+    output.  ``tables`` may be K2's re-based slice tables."""
+    B, _, S_in, _ = q.shape
+    tab = tables.to(q.device)
+    offs = _offsets_on(offsets, B, q.device)
+    plan = decode_split_plan(offs.tolist(), S_in, window, tab.shape[1],
+                             nsplit)
+    cols = torch.arange(tab.shape[1], device=q.device)[None]
+    partials = []
+    for s in range(nsplit):
+        lo, hi = (torch.tensor([p[s][i] for p in plan], device=q.device)
+                  [:, None] for i in (0, 1))
+        mine = (cols >= lo) & (cols < hi)
+        partials.append(paged_carry_attention_reference(
+            q, k_pool, v_pool, torch.where(mine, tab, -1), offs,
+            window=window, sm_scale=sm_scale))
+    return merge_partials(partials, carry)
+
+
 def paged_decode_attention_reference(q: torch.Tensor, k_pool: Any,
                                      v_pool: Any, tables: torch.Tensor,
                                      offsets, *, window: Optional[int] = None
@@ -127,6 +254,20 @@ def paged_decode_attention_reference(q: torch.Tensor, k_pool: Any,
     return _cached_attention(q, gather_kv(k_pool, tables),
                              gather_kv(v_pool, tables), offsets,
                              window=window)
+
+
+def _workspace(B: int, Hkv: int, R: int, hd: int, mb: int, device
+               ) -> Tuple[int, int, Optional[torch.Tensor]]:
+    """``(nsplit, order, workspace)`` of one launch: for decode rows the
+    split count, whether the grid starts the longest slots first (up to
+    ``DECODE_ORDER_MAX_SLOTS`` slots) and the f32 partial states (acc, m,
+    l of ``nsplit`` splits of every (slot, KV head)'s R rows) from
+    PyTorch's caching allocator; ``(0, 0, None)`` for prefill rows."""
+    if R > DECODE_ROWS:
+        return 0, 0, None
+    nsplit = _splits_for(B * Hkv, mb, device)
+    return nsplit, int(B <= DECODE_ORDER_MAX_SLOTS), torch.empty(
+        B * Hkv * nsplit * R * (hd + 2), dtype=torch.float32, device=device)
 
 
 def _check(cond: bool, msg: str,
@@ -204,6 +345,9 @@ def paged_decode_attention(q: torch.Tensor, k_pool: Any, v_pool: Any,
     offs = _offsets_on(offsets, B, q.device)
     _check(offs.shape == (B,), f"offsets must be scalar or [{B}]")
     out = torch.empty_like(q)
+    R = (H // Hkv) * S_in
+    nsplit, order, ws = _workspace(B, Hkv, R, hd, tables.shape[1],
+                                   q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _kernel()(
@@ -211,7 +355,8 @@ def paged_decode_attention(q: torch.Tensor, k_pool: Any, v_pool: Any,
             scales[0].data_ptr() if quantized else None,
             scales[1].data_ptr() if quantized else None,
             tables.data_ptr(), offs.data_ptr(), out.data_ptr(),
-            B, Hkv, (H // Hkv) * S_in, S_in, hd, nb, bs, tables.shape[1],
+            None if ws is None else ws.data_ptr(),
+            B, Hkv, R, S_in, hd, nb, bs, tables.shape[1], nsplit, order,
             Hkv * bs * hd, tables.shape[1],
             -1 if window is None else int(window), 1.0 / math.sqrt(hd), tag,
             stream)
@@ -364,6 +509,8 @@ def paged_carry_attention(q: torch.Tensor, k_pool: torch.Tensor,
     out = tuple(torch.empty(shape, dtype=torch.float32, device=q.device)
                 for shape in shapes)
     cin = carry if carry is not None else (None, None, None)
+    nsplit, order, ws = _workspace(B, Hkv, R, hd, tables_local.shape[1],
+                                   q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _kernel("tdp_paged_carry_attention", _CARRY_ARGTYPES)(
@@ -371,7 +518,9 @@ def paged_carry_attention(q: torch.Tensor, k_pool: torch.Tensor,
             tables_local.data_ptr(), offs.data_ptr(),
             *(None if t is None else t.data_ptr() for t in cin),
             *(t.data_ptr() for t in out),
-            B, Hkv, R, S_in, hd, nb, bs, tables_local.shape[1],
+            None if ws is None else ws.data_ptr(),
+            B, Hkv, R, S_in, hd, nb, bs, tables_local.shape[1], nsplit,
+            order,
             Hkv * bs * hd, tables_local.shape[1],
             -1 if window is None else int(window),
             float(1.0 / math.sqrt(hd) if sm_scale is None else sm_scale),

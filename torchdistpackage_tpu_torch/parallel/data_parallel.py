@@ -1,7 +1,8 @@
 """The train step — the single-device branch of
 ``torchdistpackage_tpu/parallel/data_parallel.py``'s
 ``DataParallel.make_train_step`` (:443) and of ``bench.py``'s step
-(:421-427).  Data parallelism over several cards is queued (ROADMAP A4).
+(:421-427).  Data parallelism over several cards is queued (ROADMAP,
+queue A: "Training completion, data parallelism and a port bench").
 
 The optimizer is optax's ``adamw`` as ``torch.optim.AdamW``:
 :func:`adamw` keeps optax's defaults (betas 0.9 / 0.999, eps 1e-8,

@@ -45,8 +45,8 @@ class TransformerConfig:
     and training paths read.  ``dtype`` is a ``torch.dtype``.
     ``attn_impl``: ``'naive'`` (the [S, S] score matrix, plain ops) or
     ``'flash'`` (kernels K3-K5); ``'ring'``/``'ulysses'`` are context
-    parallel and queued (ROADMAP A9).  ``dropout_rate`` must be 0 until
-    dropout is ported."""
+    parallel and queued (ROADMAP, queue A: "Training CP").
+    ``dropout_rate`` must be 0 until dropout is ported."""
 
     dim: int
     nheads: int
@@ -310,7 +310,7 @@ def core_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if cfg.attn_impl in ("ring", "ulysses"):
         raise NotImplementedError(
             f"attn_impl={cfg.attn_impl!r} is context-parallel attention, "
-            f"not ported yet (ROADMAP A9)")
+            f"not ported yet (ROADMAP, queue A: 'Training CP')")
     return mha_reference(q, k, v, causal=cfg.causal,
                          window=cfg.sliding_window)
 
