@@ -11,11 +11,13 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device  — a CUDA card is present; its name, count and power limit.
 2. build   — the three kernel sources under ``torchdistpackage_tpu_torch/
    ops/csrc`` are compiled at once (one nvcc each), beside four
-   planted-fault builds of ``paged_attention.cu``; build seconds and
+   planted-fault builds of ``paged_attention.cu`` and one of
+   ``moe_dispatch.cu``; build seconds and
    ptxas' registers / shared memory / spills of every instantiation (K6's
    and K7's float and int8 ones named apart; a summary line of registers
    and spills for each K1/K2 instantiation, walk and tensor-core, and for
-   each warpgroup instantiation — bf16 K3, K4 and K5, K7's two passes —
+   each warpgroup instantiation — bf16 K3, K4 and K5, K6's and K7's
+   chunk and decode passes —
    with its shared memory and its HGMMA count from ``cuobjdump -sass``,
    which must not be 0; a ptxas C75xx advisory, a serialised wgmma,
    fails the build), and each one's dynamic shared memory.
@@ -49,24 +51,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    SDPA).  K6 (fused MoE dispatch) at Mixtral-8x7B's expert widths (E 8,
    top-2, D 4096, F 14336, SwiGLU, bf16) for decode (T 8) and a 512-row
    chunk of 8 slots (T 4096) at the serving capacity C = T, plus GELU,
-   f32 and capacity-drop cases at smaller widths (faults: the gate
-   weight not applied, the last F tile left out, the scatter on the
-   neighbouring slot's token; yardstick the ragged 'gather' arm, several
-   cuBLAS calls).  K6's int8 variant (experts from
-   ``quantize_moe_experts``) at the same Mixtral shapes, plus GELU, f32
-   tokens and capacity drops (faults: w2's scale not applied, the up half
-   scaled by the gate's scale row, each column scaled by its neighbour's
-   scale; yardstick the ragged arm over bf16 weights dequantised
-   beforehand).  K7 and K7-int8 (the expert-parallel expert FFN, every
+   f32 and capacity-drop cases at smaller widths, each case naming the
+   body it took (decode the swap-AB decode body, the chunk the two-pass
+   warpgroup GEMM, f32 the walk; faults on the first case of each body:
+   the gate weight not applied, the last F tile left out, the scatter on
+   the neighbouring slot's token, and on the two warpgroup bodies the
+   gather from the neighbouring slot's token and a hit expert or filled
+   tile treated as empty, on the decode body one pass-2 run dropped from
+   the merge (the planted-fault build), on the chunk body gate and up
+   swapped; the decode body, and the chunk body at top-2, bit-identical
+   over two launches; the three bodies swept over C = T 1-64; yardstick
+   the ragged 'gather' arm, several cuBLAS calls).  K6's int8 variant
+   (experts from ``quantize_moe_experts``) at the same Mixtral shapes,
+   plus GELU, f32 tokens and capacity drops (faults: those, and w2's
+   scale not applied, the up half scaled by the gate's scale row, each
+   column scaled by its neighbour's scale; yardstick the ragged arm over
+   bf16 weights dequantised beforehand).  K7 and K7-int8 (the expert-parallel expert FFN, every
    row computed) at Mixtral's expert widths at the per-rank shapes of EP
    1 and EP 4 — decode ([8, 8, 4096] / [2, 32, 4096]) and a 512-row
    chunk of 8 slots ([8, 4096, 4096] / [2, 16384, 4096]) — plus GELU, f32
-   rows and ragged G and F, each case naming the body it took (decode's
-   and f32 rows the walk, chunk rows the two-pass warpgroup GEMM; faults
-   on the first case of each body: the last F tile left out, b2 added by
-   every F tile, each row in the next expert's block, for int8 w2's
-   scale not applied, and on the warpgroup body gate and up swapped;
-   yardstick the torch.bmm chain, several cuBLAS calls).  K2 (one hop of the context-parallel ring, the raw
+   rows and ragged G and F, each case naming the body it took (decode
+   rows the swap-AB decode body, checked bit-identical over two
+   launches, chunk rows the two-pass warpgroup GEMM, f32 rows the walk;
+   faults on the first case of each body: the last F tile left out, b2
+   added by every F tile, each row in the next expert's block, for int8
+   w2's scale not applied, on the warpgroup bodies gate and up swapped,
+   on the decode body one pass-2 run dropped from the merge; yardstick
+   the torch.bmm chain, several cuBLAS calls).  K2 (one hop of the context-parallel ring, the raw
    online-softmax carry) at the serving shapes (B 8, G 4, Hkv 8, hd 128,
    bs 16): decode and a 512-row chunk, windows 4096 / None / 64, bf16
    and f32, and a 200-row chunk at window 48 in bf16, each as one hop
@@ -133,6 +144,7 @@ Every kernel's launch count is set to 0 just before each main path (the
 training steps, each engine run) and read just after.
 """
 
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -890,6 +902,10 @@ def flash_planted_faults(case, ref):
 
 MOE_SOURCE = "torchdistpackage_tpu_torch/ops/csrc/moe_dispatch.cu"
 MOE_REPLACES = "torchdistpackage_tpu/ops/moe_dispatch.py:289"
+MOE_NAME = "moe_dispatch"
+# the planted-fault build of moe_dispatch.cu: the decode bodies' merge
+# drops the last of a unit's pass-2 runs where it has more than one
+MOE_RUN_DROPPED = ("TDP_MOE_FAULT=1",)
 
 
 def moe_experts(*, E, D, F, act, dtype, seed):
@@ -990,14 +1006,20 @@ def moe_cases(tag, specs, counter, faults, gather_experts=None,
     arithmetic, in f32 on the same values; int8 weights ``_dequant``-ed),
     row by row, naming the body it took (``moe_ffn_body``): the launch
     must move ``counter`` alone; ``faults(case, body)`` gives the planted
-    faults of the first case each body takes (decode for the walk, the
-    prefill chunk for the warpgroup body) as ``(experts, idx, comb,
-    scatter_idx)`` inputs, each of which must fail the same check; at
-    top-2 two launches of the warpgroup body must agree bit for bit.  At
-    the two Mixtral shapes the kernel, the plain version and the ragged
-    ``'gather'`` arm (over ``gather_experts(experts)``, made outside the
-    timing) are timed beside the bound, and at the chunk both bodies are
-    swept over C = T (:func:`moe_ffn_body_sweep`)."""
+    faults of the first case each body takes (decode for the decode body,
+    the prefill chunk for the warpgroup body, the f32 case for the walk)
+    as ``(experts, idx, comb, scatter_idx)`` inputs, or with a fifth item
+    the ``-D`` defines of a planted-fault build of the source to run them
+    on, each of which must fail the same check; two launches of the
+    decode body, and at top-2 of the warpgroup body, must agree bit for
+    bit.  At the two Mixtral shapes the kernel, the plain version and the
+    ragged ``'gather'`` arm (over ``gather_experts(experts)``, made
+    outside the timing) are timed beside the bound and each call's
+    kernels profiled (:func:`call_passes`); at decode the body is also
+    timed from a CUDA graph (``graph_ms``) and the walk on the same inputs
+    (``walk_ms``), and the three bodies are swept over C = T
+    (:func:`moe_ffn_body_sweep`)."""
+    from torchdistpackage_tpu_torch.ops import _build
     from torchdistpackage_tpu_torch.ops import moe_dispatch as md
     from torchdistpackage_tpu_torch.parallel.moe import _ragged_ffn
 
@@ -1029,9 +1051,12 @@ def moe_cases(tag, specs, counter, faults, gather_experts=None,
         row = {"case": name, "body": body, "max_abs_err": err,
                "tol_ratio": ratio}
         if body not in {r["body"] for r in rows}:
-            for what, (exf, ix, cb, dst) in faults(case, body).items():
-                bad = md.fused_moe_ffn_slots(exf, tok, ix, cb,
-                                             scatter_idx=dst).to(dt)
+            for what, (exf, ix, cb, dst, *defines) in faults(
+                    case, body).items():
+                with (_build.variant(MOE_NAME, defines[0]) if defines
+                      else contextlib.nullcontext()):
+                    bad = md.fused_moe_ffn_slots(exf, tok, ix, cb,
+                                                 scatter_idx=dst).to(dt)
                 f_err, f_ratio = moe_held(bad, exact, scale, dt)
                 log(f"[{tag}] {name} ({body} body), planted fault ({what}): "
                     f"max abs err {f_err:.3g}, {f_ratio:.1f} x the row "
@@ -1040,14 +1065,14 @@ def moe_cases(tag, specs, counter, faults, gather_experts=None,
                     raise RuntimeError(f"{name}: the row tolerance misses a "
                                        f"planted fault ({what})")
                 del exf, bad
-        if body == "wgmma" and case["k"] <= 2:
+        if body == "decode" or (body == "wgmma" and case["k"] <= 2):
             row["repeatable"] = bool(torch.equal(
                 got, md.fused_moe_ffn_slots(ex, tok, idx, comb).to(dt)))
             log(f"[{tag}] {name}: two launches bit-identical: "
                 f"{row['repeatable']}")
             if not row["repeatable"]:
                 raise RuntimeError(f"{name}: at top-{case['k']} two launches "
-                                   f"of the warpgroup body differ")
+                                   f"of the {body} body differ")
         if name.endswith("_mixtral"):
             heavy = tok.shape[0] > 8
             ms = cuda_ms(lambda: md.fused_moe_ffn_slots(ex, tok, idx, comb),
@@ -1066,10 +1091,21 @@ def moe_cases(tag, specs, counter, faults, gather_experts=None,
             log(f"[{tag}] {name}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
                 f"  {lib_label} {lib_ms:.4f} ms  bound {bound_ms:.4f} ms "
                 f"({bound_by}; {hit} experts hit, {filled} filled slots)")
-            if heavy:
-                row["passes"] = call_passes(
-                    tag, f"T = C = {tok.shape[0]}",
-                    lambda: md.fused_moe_ffn_slots(ex, tok, idx, comb))
+            row["passes"] = call_passes(
+                tag, f"T = C = {tok.shape[0]}",
+                lambda: md.fused_moe_ffn_slots(ex, tok, idx, comb))
+            if not heavy:
+                # the decode body from a CUDA graph (the capture also shows
+                # the call reads nothing back), and the walk it replaced
+                # on the same inputs
+                row["graph_ms"] = graph_ms(
+                    lambda: md.fused_moe_ffn_slots(ex, tok, idx, comb), 20)
+                row["walk_ms"] = pinned_body_ms(
+                    "walk", lambda: md.fused_moe_ffn_slots(ex, tok, idx,
+                                                           comb))
+                log(f"[{tag}] {name}: {body} body from a CUDA graph "
+                    f"{row['graph_ms']:.4f} ms; the walk on the same inputs "
+                    f"{row['walk_ms']:.4f} ms")
                 row["body_sweep"] = moe_ffn_body_sweep(tag, ex)
         rows.append(row)
         del case, got, exact, scale
@@ -1077,27 +1113,42 @@ def moe_cases(tag, specs, counter, faults, gather_experts=None,
     return rows
 
 
-def moe_ffn_body_sweep(tag, ex, sizes=(8, 16, 32, 64, 128, 256, 512)):
-    """Both K6 bodies on ``ex`` at C = T (top-2, a serving routing) for
-    each T of ``sizes``: the measurement ``MOE_FFN_WGMMA_C_MIN`` rests on.
-    Returns {T: {body: ms}}."""
+MOE_BODY_PINS = {"wgmma": (1, 1), "decode": (1 << 30, 1),
+                 "walk": (1 << 30, 1 << 30)}
+
+
+def pinned_body_ms(body, fn, iters=20):
+    """``cuda_ms`` of ``fn`` with K6 pinned to ``body`` by its thresholds
+    (``MOE_FFN_WGMMA_C_MIN``, ``MOE_FFN_DECODE_C_MIN``), restored after."""
     from torchdistpackage_tpu_torch.ops import moe_dispatch as md
 
-    c_min, out = md.MOE_FFN_WGMMA_C_MIN, {}
+    mins = (md.MOE_FFN_WGMMA_C_MIN, md.MOE_FFN_DECODE_C_MIN)
     try:
-        for T in sizes:
-            c = moe_case("sweep", ex, T=T, C=T, k=2, seed=T)
-            args = (ex, c["tokens"], c["idx"], c["comb"])
-            out[T] = {}
-            for body, pin in (("wgmma", 1), ("walk", 1 << 30)):
-                md.MOE_FFN_WGMMA_C_MIN = pin
-                out[T][body] = cuda_ms(lambda: md.fused_moe_ffn_slots(*args),
-                                       10)
-            log(f"[{tag}] body sweep, C = T = {T}: wgmma "
-                f"{out[T]['wgmma']:.4f} ms, walk {out[T]['walk']:.4f} ms "
-                f"(C_MIN {c_min})")
+        md.MOE_FFN_WGMMA_C_MIN, md.MOE_FFN_DECODE_C_MIN = MOE_BODY_PINS[body]
+        return cuda_ms(fn, iters)
     finally:
-        md.MOE_FFN_WGMMA_C_MIN = c_min
+        md.MOE_FFN_WGMMA_C_MIN, md.MOE_FFN_DECODE_C_MIN = mins
+
+
+def moe_ffn_body_sweep(tag, ex, sizes=(1, 2, 4, 8, 12, 16, 32, 48, 64)):
+    """K6's three bodies on ``ex`` at C = T (top-2, a serving routing) for
+    each T of ``sizes``: the measurement ``MOE_FFN_WGMMA_C_MIN`` (the
+    warpgroup body against the decode body) and ``MOE_FFN_DECODE_C_MIN``
+    (the decode body against the walk) rest on.  Returns {T: {body:
+    ms}}."""
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+
+    mins, out = (md.MOE_FFN_WGMMA_C_MIN, md.MOE_FFN_DECODE_C_MIN), {}
+    for T in sizes:
+        c = moe_case("sweep", ex, T=T, C=T, k=2, seed=T)
+        args = (ex, c["tokens"], c["idx"], c["comb"])
+        out[T] = {body: pinned_body_ms(
+            body, lambda: md.fused_moe_ffn_slots(*args), 10)
+            for body in MOE_BODY_PINS}
+        log(f"[{tag}] body sweep, C = T = {T} ({moe_bound(c)[2]} experts "
+            f"hit): " + ", ".join(f"{b} {t:.4f} ms"
+                                  for b, t in out[T].items())
+            + f" (C_MIN {mins[0]}, DECODE_C_MIN {mins[1]})")
     return out
 
 
@@ -1139,6 +1190,35 @@ def moe_chunk_faults(case):
     }
 
 
+def moe_decode_faults(case):
+    """The decode body's planted faults on a decode case, as ``moe_cases``
+    takes them: the gate weight not applied, the last F tile left out,
+    the scatter on the neighbouring slot's token, the gather from the
+    neighbouring slot's token (idx rolled, scatter_idx kept), a hit
+    expert treated as unhit (its comb zeroed on the kernel side only),
+    and one pass-2 run dropped from the merge (the planted-fault build)."""
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+
+    ex, idx, comb = case["experts"], case["idx"], case["comb"]
+    cut = weight(ex["w2"]).clone()
+    cut[:, -md.TILE:, :] = 0
+    unhit = comb.clone()
+    unhit[int(torch.nonzero(comb)[0, 0])] = 0
+    rolled = torch.roll(idx, -1, dims=1).contiguous()
+    q = isinstance(ex["w2"], tuple)
+    return {
+        "gate weight not applied": (ex, idx, (comb != 0).float(), None),
+        "last F tile left out": (
+            dict(ex, w2=(cut, ex["w2"][1]) if q else cut), idx, comb, None),
+        "scatter on the neighbouring slot's token": (ex, idx, comb, rolled),
+        "gathered from the neighbouring slot's token": (ex, rolled, comb,
+                                                        idx),
+        "a hit expert treated as unhit": (ex, idx, unhit, None),
+        "one pass-2 run dropped from the merge": (ex, idx, comb, None,
+                                                  MOE_RUN_DROPPED),
+    }
+
+
 def moe_specs(make, seed, variant=""):
     """The K6 cases, lazily (one case's experts on the card at a time,
     the Mixtral stack shared by its two shapes): Mixtral-8x7B widths (E 8,
@@ -1169,18 +1249,21 @@ def moe_specs(make, seed, variant=""):
 
 def moe_kernel_phase():
     """K6 (float experts) on the :func:`moe_specs` cases, bf16 where not
-    named f32.  Planted faults at the decode shape (the walk): the gate
-    weight not applied (every filled slot's g taken as 1), the last F tile
-    left out (its W2 rows zeroed) and the scatter landing on the
-    neighbouring slot's token; at the chunk (the warpgroup body)
-    :func:`moe_chunk_faults`.  Yardstick: the ragged ``'gather'`` arm (one
-    cuBLAS product per expert and weight — several calls, the nearest
-    library yardstick; the kernel path never calls it)."""
+    named f32.  Planted faults at the decode shape (the decode body):
+    :func:`moe_decode_faults`; at the chunk (the warpgroup body)
+    :func:`moe_chunk_faults`; on the f32 case (the walk) the gate weight
+    not applied (every filled slot's g taken as 1), the last F tile left
+    out (its W2 rows zeroed) and the scatter landing on the neighbouring
+    slot's token.  Yardstick: the ragged ``'gather'`` arm (one cuBLAS
+    product per expert and weight — several calls, the nearest library
+    yardstick; the kernel path never calls it)."""
     from torchdistpackage_tpu_torch.ops import moe_dispatch as md
 
     def faults(case, body):
         if body == "wgmma":
             return moe_chunk_faults(case)
+        if body == "decode":
+            return moe_decode_faults(case)
         ex, idx, comb = case["experts"], case["idx"], case["comb"]
         w2 = ex["w2"].clone()
         w2[:, -md.TILE:, :] = 0
@@ -1195,6 +1278,13 @@ def moe_kernel_phase():
                      faults)
 
 
+# K6's bodies (``moe_ffn_body``) by the kernels each launches
+MOE_BODY_KERNELS = {
+    "decode": "moe_ffn_up_decode_kernel, moe_ffn_down_decode_kernel, "
+              "moe_ffn_merge_kernel",
+    "wgmma": "moe_ffn_up_wgmma_kernel, moe_ffn_down_wgmma_kernel",
+    "walk": "moe_ffn_kernel / moe_ffn_int8_kernel",
+}
 MOE_INT8_REPLACES = ("torchdistpackage_tpu/ops/moe_dispatch.py:348 "
                      "(_kernel quantized branch :253-258)")
 
@@ -1216,11 +1306,12 @@ def moe_int8_kernel_phase():
     """K6's int8 variant on the :func:`moe_specs` cases, experts drawn as
     for K6 and put through ``quantize_moe_experts`` (f32 tokens in the
     f32 case), held under K6's rule with the row's ``moe_rounding_scale``
-    taken on the dequantised weights.  Planted faults at the decode shape:
-    w2's scale not applied (all ones), the up half scaled by the gate's
-    scale row, and each column scaled by its neighbour's scale (both scale
-    rows rolled by one column); at the chunk (the warpgroup body) those
-    and :func:`moe_chunk_faults`.  Yardstick: the ragged ``'gather'`` arm
+    taken on the dequantised weights.  Planted faults on the first case
+    of each body: w2's scale not applied (all ones), the up half scaled
+    by the gate's scale row, and each column scaled by its neighbour's
+    scale (both scale rows rolled by one column); at decode (the decode
+    body) those and :func:`moe_decode_faults`, at the chunk (the
+    warpgroup body) those and :func:`moe_chunk_faults`.  Yardstick: the ragged ``'gather'`` arm
     over bf16 weights dequantised once, outside the timing — no single
     PyTorch call computes a bf16 x int8-weight product."""
     from torchdistpackage_tpu_torch.ops import moe_dispatch as md
@@ -1245,6 +1336,8 @@ def moe_int8_kernel_phase():
         }
         if body == "wgmma":
             out.update(moe_chunk_faults(case))
+        if body == "decode":
+            out.update(moe_decode_faults(case))
         return out
 
     return moe_cases("moe-int8", moe_specs(int8, 400, "int8"),
@@ -1366,6 +1459,14 @@ def expert_ffn_cases(tag, specs, counter, faults, lib_experts=None):
                                f"version: {ratio:.3f} of the row tolerance")
         row = {"case": name, "body": body, "max_abs_err": err,
                "tol_ratio": ratio}
+        if body == "decode":
+            row["repeatable"] = bool(torch.equal(
+                got, md.fused_expert_ffn(ex, x)))
+            log(f"[{tag}] {name}: two launches bit-identical: "
+                f"{row['repeatable']}")
+            if not row["repeatable"]:
+                raise RuntimeError(f"{name}: two launches of the decode "
+                                   f"body differ")
         if body not in {r["body"] for r in rows}:
             for what, bad in faults(ex, x, got, body).items():
                 f_err, f_ratio = moe_held(bad, exact, scale, dt)
@@ -1386,6 +1487,11 @@ def expert_ffn_cases(tag, specs, counter, faults, lib_experts=None):
             bound_ms, bound_by = expert_ffn_bound(ex, x)
             row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=bound_ms, bound_by=bound_by)
+            if body == "decode":
+                row["graph_ms"] = graph_ms(lambda: md.fused_expert_ffn(ex, x),
+                                           20)
+                log(f"[{tag}] {name}: decode body from a CUDA graph "
+                    f"{row['graph_ms']:.4f} ms")
             log(f"[{tag}] {name}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
                 f"  torch.bmm chain {lib_ms:.4f} ms  bound {bound_ms:.4f} ms "
                 f"({bound_by})")
@@ -1459,9 +1565,12 @@ def expert_ffn_kernel_phase():
     expert's block (the output rolled by one expert), for int8 w2's scale
     not applied, and on the two warpgroup bodies, which keep the gate and
     up accumulators side by side, the two swapped (silu(up) * gate: w1's
-    and b1's halves, and int8 s1's, exchanged).  Yardstick: the
+    and b1's halves, and int8 s1's, exchanged), and on the decode body
+    one pass-2 run dropped from the merge (the planted-fault build).  Two
+    launches of the decode body must agree bit for bit.  Yardstick: the
     ``torch.bmm`` chain (for int8 over bf16 weights dequantised
     beforehand)."""
+    from torchdistpackage_tpu_torch.ops import _build
     from torchdistpackage_tpu_torch.ops import moe_dispatch as md
 
     def faults(ex, x, got, body):
@@ -1486,6 +1595,10 @@ def expert_ffn_kernel_phase():
             out["gate and up swapped"] = md.fused_expert_ffn(
                 dict(ex, w1=flip_halves(ex["w1"]),
                      b1=flip_halves(ex["b1"])), x)
+        if body == "decode":
+            with _build.variant(MOE_NAME, MOE_RUN_DROPPED):
+                out["one pass-2 run dropped from the merge"] = (
+                    md.fused_expert_ffn(ex, x))
         return out
 
     def int8(**kw):
@@ -2793,9 +2906,11 @@ WGMMA_KERNELS = {"flash_fwd_wgmma_kernel": "K3",
                  "expert_ffn_up_wgmma_kernel": "K7",
                  "expert_ffn_down_wgmma_kernel": "K7",
                  "expert_ffn_up_decode_kernel": "K7",
-                 "expert_ffn_down_decode_kernel": "K7"}
+                 "expert_ffn_down_decode_kernel": "K7",
+                 "moe_ffn_up_decode_kernel": "K6",
+                 "moe_ffn_down_decode_kernel": "K6"}
 # the warpgroup instantiations the build must hold, by kernel
-WGMMA_COUNTS = {"K3": 2, "K4": 2, "K5": 2, "K6": 6, "K7": 24}
+WGMMA_COUNTS = {"K3": 2, "K4": 2, "K5": 2, "K6": 12, "K7": 24}
 
 
 def wgmma_label(name, line):
@@ -2803,9 +2918,9 @@ def wgmma_label(name, line):
     named in a ptxas line: K3-K5 by head dim (``tdp_flash_smem_bytes(
     kernel, 0, hd)``), K6's and K7's chunk passes by weight type and
     activation (``tdp_expert_ffn_wgmma_smem_bytes(up, quantized,
-    swiglu)``: the two share the body), K7's decode passes by those and
-    the row tile (``tdp_expert_ffn_decode_smem_bytes(up, quantized,
-    swiglu, rows)``)."""
+    swiglu)``: the two share the body), K6's and K7's decode passes by
+    those and the row tile (K6's is 16;
+    ``tdp_expert_ffn_decode_smem_bytes(up, quantized, swiglu, rows)``)."""
     if name.startswith("flash"):
         hd = 128 if "ILi128E" in line else 64
         kernel = {"K3": 0, "K4": 1, "K5": 2}[WGMMA_KERNELS[name]]
@@ -2819,7 +2934,8 @@ def wgmma_label(name, line):
              f"{'tokens' if name.startswith('moe') else 'rows'}, "
              f"{'int8' if q else 'bf16'} weights, {act}")
     if "_decode_" in name:
-        rows = int(re.search(r"Li(\d+)E", line).group(1))
+        rows = (16 if name.startswith("moe")
+                else int(re.search(r"Li(\d+)E", line).group(1)))
         return (f"{label}, row tile {rows}",
                 ("tdp_expert_ffn_decode_smem_bytes", (up, q, swiglu, rows)))
     return label, ("tdp_expert_ffn_wgmma_smem_bytes", (up, q, swiglu))
@@ -2847,12 +2963,13 @@ def hgmma_counts(lib_path):
 def build_phase():
     """The three sources built at once (one nvcc each), with the
     planted-fault builds of paged_attention.cu (``PAGED_FAULTS``, run by
-    ``with_paged_fault``); ptxas' registers,
+    ``with_paged_fault``) and of moe_dispatch.cu (``MOE_RUN_DROPPED``,
+    run by the MoE phases' decode faults); ptxas' registers,
     shared memory and spills of every instantiation, its advisories
     (C75xx: a serialised wgmma fails the phase), and a summary line of
     each K1/K2 instantiation's registers and spills and of each
-    warpgroup instantiation (bf16 K3-K5; K6's chunk passes; K7's chunk
-    and decode passes) with its registers, spills, shared memory and
+    warpgroup instantiation (bf16 K3-K5; K6's and K7's chunk and decode
+    passes) with its registers, spills, shared memory and
     HGMMA count (``cuobjdump -sass``; none fails the phase: the warpgroup
     bodies must really run on wgmma).  Returns those summaries (label -> {"registers",
     "spill_stores", "spill_loads", ...})."""
@@ -2861,16 +2978,18 @@ def build_phase():
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=1 + len(PAGED_FAULTS)) as pool:
+    with ThreadPoolExecutor(max_workers=2 + len(PAGED_FAULTS)) as pool:
         faults = [pool.submit(_build.load, "paged_attention",
                               paged_fault_defines(f)) for f in PAGED_FAULTS]
+        faults.append(pool.submit(_build.load, MOE_NAME, MOE_RUN_DROPPED))
         libs = pool.submit(_build.load_all, ["paged_attention",
                                              "flash_attention",
                                              "moe_dispatch"]).result()
         for fut in faults:
             fut.result()
-    log(f"[build] all sources and the {len(PAGED_FAULTS)} planted-fault "
-        f"variants of paged_attention.cu built in "
+    log(f"[build] all sources, the {len(PAGED_FAULTS)} planted-fault "
+        f"variants of paged_attention.cu and the one of moe_dispatch.cu "
+        f"built in "
         f"{time.perf_counter() - t0:.1f} s ("
         + ", ".join(f"{n}.cu {i['seconds']:.1f} s"
                     for n, i in _build.BUILD_INFO.items()) + ")")
@@ -2884,9 +3003,11 @@ def build_phase():
                 inst = paged_instantiation(line)
                 m = re.search(
                     r"\d+((?:flash_\w+"
-                    r"|moe_ffn(?:_int8|_up_wgmma|_down_wgmma)?"
+                    r"|moe_tiles"
+                    r"|moe_ffn(?:_int8|_up_wgmma|_down_wgmma|_up_decode"
+                    r"|_down_decode|_merge)?"
                     r"|expert_ffn(?:_int8|_up_wgmma|_down_wgmma|_up_decode"
-                    r"|_down_decode)?)_kernel)I", line)
+                    r"|_down_decode|_merge)?)_kernel)[IE]", line)
                 name = m.group(1) if m else "?"
                 dt = ("bf16" if "13__nv_bfloat16" in line
                       or name in WGMMA_KERNELS else "f32")
@@ -2901,6 +3022,12 @@ def build_phase():
                                      "smem": smem_args,
                                      "function": re.search(
                                          r"function '(\S+)'", line).group(1)}
+                elif name.endswith("_merge_kernel"):  # the decode merges
+                    kernel = (f"{name} "
+                              f"{'int8' if 'Lb1E' in line else 'bf16'} "
+                              f"weights")
+                elif name == "moe_tiles_kernel":
+                    kernel = name
                 elif name.startswith(("moe_ffn", "expert_ffn")):
                     kernel = (f"{name} {dt} "
                               f"{'swiglu' if 'Lb1E' in line else 'gelu'}")
@@ -2976,7 +3103,7 @@ def build_phase():
     msmem = libs["moe_dispatch"].tdp_moe_ffn_smem_bytes
     msmem.argtypes, msmem.restype = [ctypes.c_int] * 2, ctypes.c_int
     log("[build] moe_dispatch dynamic shared memory per CTA (the walk "
-        "body, K6 and K7's decode and f32 rows): " + ", ".join(
+        "body, K6's and K7's f32 rows): " + ", ".join(
             f"{dt} {act} {msmem(tag, sw)} B"
             for tag, dt in ((0, "bf16"), (1, "f32"), (2, "bf16 int8 weights"),
                             (3, "f32 int8 weights"))
@@ -3121,6 +3248,7 @@ def main():
     entries.append(kernel_entry(
         "fused_moe_ffn", MOE_SOURCE, MOE_REPLACES,
         moe_eng["launches"]["fused_moe_ffn"], moe_rows, moe_rows[0],
+        body=moe_rows[0]["body"], body_kernels=MOE_BODY_KERNELS,
         ptxas={n: v for n, v in ptxas_summary.items()
                if n.startswith("K6") and "bf16 weights" in n},
         library="the ragged 'gather' arm: one cuBLAS product per expert "
@@ -3128,6 +3256,7 @@ def main():
     entries.append(kernel_entry(
         "fused_moe_ffn_int8", MOE_SOURCE, MOE_INT8_REPLACES,
         int8_eng["launches"]["fused_moe_ffn_int8"], int8_rows, int8_rows[0],
+        body=int8_rows[0]["body"], body_kernels=MOE_BODY_KERNELS,
         ptxas={n: v for n, v in ptxas_summary.items()
                if n.startswith("K6") and "int8 weights" in n},
         library="the ragged 'gather' arm over bf16 weights dequantised "

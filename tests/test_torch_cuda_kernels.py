@@ -851,6 +851,32 @@ def test_expert_ffn_decode_planted_faults_fail(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("quantized", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("E,G", [(8, 8), (2, 32), (3, 20)])
+def test_expert_ffn_decode_body_is_bitwise_repeatable(cuda, quantized, E, G):
+    """K7's decode body adds each output element's pass-2 runs in run
+    order in a merge launch (no atomics), so two launches give the same
+    bits; with one run dropped from the merge (the ``TDP_MOE_FAULT=1``
+    build) the row check fails."""
+    from torchdistpackage_tpu_torch.ops import _build
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+
+    bf = torch.bfloat16
+    ex, x = _expert_inputs(cuda, E=E, G=G, D=256, F=1024, act="swiglu",
+                           dtype=bf, seed=E * 10 + G, quantized=quantized)
+    assert md.expert_ffn_body(G, bf) == "decode"
+    a = md.fused_expert_ffn(ex, x)
+    b = md.fused_expert_ffn(ex, x)
+    assert torch.equal(a, b)
+    exact = md.expert_ffn_reference(ex, x)
+    scale = md.expert_ffn_rounding_scale(ex, x)
+    _moe_rows_close(a, exact, scale, bf)
+    with _build.variant("moe_dispatch", ("TDP_MOE_FAULT=1",)):
+        bad = md.fused_expert_ffn(ex, x)
+    assert _moe_ratio(bad, exact, scale, bf) > 1.0
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("G,dtype,kernel", [
     (8, "bfloat16", "expert_ffn_up_decode_kernel"),
     (63, "bfloat16", "expert_ffn_up_decode_kernel"),
@@ -878,12 +904,15 @@ def test_expert_ffn_routing_launches_the_named_body(cuda, G, dtype, kernel):
 @pytest.fixture
 def k6_body(monkeypatch):
     """Pins K6's dispatch: ``k6_body('wgmma')`` sends every bf16 call to
-    the warpgroup body, ``k6_body('walk')`` none."""
+    the warpgroup body, ``k6_body('decode')`` to the decode body,
+    ``k6_body('walk')`` to neither."""
     from torchdistpackage_tpu_torch.ops import moe_dispatch as md
 
     def pin(body):
         monkeypatch.setattr(md, "MOE_FFN_WGMMA_C_MIN",
                             1 if body == "wgmma" else 1 << 30)
+        monkeypatch.setattr(md, "MOE_FFN_DECODE_C_MIN",
+                            1 if body == "decode" else 1 << 30)
     return pin
 
 
@@ -900,7 +929,7 @@ def _scatter_perm(cuda, idx, T, seed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("body", ["wgmma", "walk"])
+@pytest.mark.parametrize("body", ["wgmma", "walk", "decode"])
 @pytest.mark.parametrize("quantized", [False, True], ids=["float", "int8"])
 @pytest.mark.parametrize("act", ["gelu", "swiglu"])
 @pytest.mark.parametrize("T,C,D,F,holes,scatter", [
@@ -915,9 +944,10 @@ def _scatter_perm(cuda, idx, T, seed):
 ])
 def test_moe_bodies_match_plain_on_card(cuda, k6_body, body, quantized, act,
                                         T, C, D, F, holes, scatter):
-    """K6's chunk rows on each of its bodies (pinned), float and int8
-    experts, SwiGLU and GELU, bf16 tokens, against the plain version in
-    f32 row by row under K6's rule."""
+    """K6's chunk rows on each of its bodies (pinned: the decode body then
+    walks several 16-slot tiles an expert), float and int8 experts,
+    SwiGLU and GELU, bf16 tokens, against the plain version in f32 row by
+    row under K6's rule."""
     from torchdistpackage_tpu_torch.ops import moe_dispatch as md
 
     bf = torch.bfloat16
@@ -964,26 +994,146 @@ def test_moe_wgmma_body_is_bitwise_repeatable_at_top2(cuda, quantized):
 @pytest.mark.gpu
 @pytest.mark.parametrize("C,dtype,kernel", [
     ("min", "bfloat16", "moe_ffn_up_wgmma_kernel"),
-    ("below", "bfloat16", "moe_ffn_kernel<"),
+    ("below", "bfloat16", "moe_ffn_up_decode_kernel"),
+    ("decode_min", "bfloat16", "moe_ffn_up_decode_kernel"),
+    (8, "bfloat16", "moe_ffn_up_decode_kernel"),
     (4096, "bfloat16", "moe_ffn_up_wgmma_kernel"),
     (4096, "float32", "moe_ffn_kernel<"),
+    (8, "float32", "moe_ffn_kernel<"),
 ])
 def test_moe_routing_launches_the_named_body(cuda, C, dtype, kernel):
     """``moe_ffn_body``'s answer is the body that runs, by the kernel
-    names torch.profiler records, at ``MOE_FFN_WGMMA_C_MIN`` and one
-    below it."""
+    names torch.profiler records, at ``MOE_FFN_WGMMA_C_MIN``, one below
+    it and at ``MOE_FFN_DECODE_C_MIN``; the decode body's merge runs with
+    it, and no other body's kernel."""
     from torchdistpackage_tpu_torch.ops import moe_dispatch as md
 
     C = {"min": md.MOE_FFN_WGMMA_C_MIN,
-         "below": md.MOE_FFN_WGMMA_C_MIN - 1}.get(C, C)
+         "below": md.MOE_FFN_WGMMA_C_MIN - 1,
+         "decode_min": md.MOE_FFN_DECODE_C_MIN}.get(C, C)
     dt = getattr(torch, dtype)
     ex, tok, idx, comb, _ = _moe_inputs(cuda, T=C, C=C, E=8, D=128, F=128,
                                         act="swiglu", dtype=dt, seed=C)
     names = _kernel_names(lambda: md.fused_moe_ffn_slots(ex, tok, idx, comb))
     assert kernel in names, names
-    other = ("moe_ffn_kernel<" if kernel != "moe_ffn_kernel<"
-             else "moe_ffn_up_wgmma_kernel")
-    assert other not in names, names
+    if kernel == "moe_ffn_up_decode_kernel":
+        assert "moe_ffn_merge_kernel" in names, names
+    others = {"moe_ffn_kernel<", "moe_ffn_up_wgmma_kernel",
+              "moe_ffn_up_decode_kernel"} - {kernel}
+    assert not any(o in names for o in others), names
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E,C,case", [
+    (8, 8, "serving"), (8, 1, "serving"), (4, 15, "holes"),
+    (8, 100, "serving"), (8, 4096, "serving"),  # 2048 tiles: two chunks
+    (3, 300, "empty"), (6, 700, "sparse"), (200, 40, "serving")])
+def test_decode_tiles_kernel_matches_chunk_tiles(cuda, E, C, case):
+    """The decode body's first launch lists the 16-slot tiles by
+    ``chunk_tiles``' rule: the kernel (``decode_tiles`` on the card)
+    against ``chunk_tiles`` on the CPU, for serving routings, holes, no
+    filled slot at all, sparse fills and more tiles than one CTA's
+    1024 threads."""
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+
+    g = torch.Generator().manual_seed(E * 1000 + C)
+    if case == "serving":
+        _, _, _, comb, _ = _moe_inputs(cuda, T=C, C=C, E=E, D=64, F=64,
+                                       act="swiglu", dtype=torch.bfloat16,
+                                       seed=C)
+        comb = comb.cpu()
+    elif case == "holes":
+        comb = torch.rand(E, C, generator=g)
+        comb[:, ::3] = 0
+        comb[1] = 0
+    elif case == "empty":
+        comb = torch.zeros(E, C)
+    else:
+        comb = torch.where(torch.rand(E, C, generator=g) < 0.002,
+                           torch.rand(E, C, generator=g), 0.0)
+    tiles, offs = md.decode_tiles(comb.to(cuda).contiguous())
+    want_tiles, want_offs = md.chunk_tiles(comb, md.DECODE_ROWS)
+    assert torch.equal(offs.cpu(), want_offs)
+    assert torch.equal(tiles.cpu(), want_tiles)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quantized", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("T,C", [(8, 8), (12, 12), (15, 15), (40, 40)])
+def test_moe_decode_body_is_bitwise_repeatable(cuda, k6_body, quantized, T,
+                                               C):
+    """K6's decode body merges each output element's routed choices and
+    each choice's F runs in a fixed order (no atomics), so two launches
+    give the same bits — at decode's C = T and past one 16-slot tile."""
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+
+    k6_body("decode")
+    ex, tok, idx, comb, _ = _k6_inputs(cuda, quantized, T=T, C=C, E=8,
+                                       D=256, F=1024, act="swiglu",
+                                       dtype=torch.bfloat16, seed=T + 50)
+    assert md.moe_ffn_body(C, torch.bfloat16) == "decode"
+    a = md.fused_moe_ffn_slots(ex, tok, idx, comb)
+    b = md.fused_moe_ffn_slots(ex, tok, idx, comb)
+    assert torch.equal(a, b)
+    _moe_rows_close(a.to(torch.bfloat16),
+                    md.moe_ffn_slots_reference(ex, tok, idx, comb),
+                    md.moe_rounding_scale(ex, tok, idx, comb),
+                    torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quantized", [False, True], ids=["float", "int8"])
+def test_moe_decode_planted_faults_fail(cuda, quantized):
+    """On K6's decode body (T = C = 8, a decode step) the row check
+    catches: the gate weight not applied, the last F tile left out, the
+    scatter on the neighbouring slot's token, the gather from the
+    neighbouring slot's token, a hit expert treated as unhit (its comb
+    zeroed on the kernel side only), one pass-2 run dropped from the
+    merge (the ``TDP_MOE_FAULT=1`` build), and for int8 w2's scale not
+    applied, the up half on the gate's scale row and each column on its
+    neighbour's scale."""
+    from torchdistpackage_tpu_torch.ops import _build
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+
+    bf = torch.bfloat16
+    ex, tok, idx, comb, _ = _k6_inputs(cuda, quantized, T=8, C=8, E=8,
+                                       D=256, F=1024, act="swiglu", dtype=bf,
+                                       seed=33)
+    assert md.moe_ffn_body(8, bf) == "decode"
+    exact = md.moe_ffn_slots_reference(ex, tok, idx, comb)
+    scale = md.moe_rounding_scale(ex, tok, idx, comb)
+    _moe_rows_close(md.fused_moe_ffn_slots(ex, tok, idx, comb).to(bf), exact,
+                    scale, bf)
+    (w1, s1), (w2, s2) = ((ex["w1"], ex["w2"]) if quantized
+                          else ((ex["w1"], None), (ex["w2"], None)))
+    cut = w2.clone()
+    cut[:, -md.TILE:] = 0
+    unhit = comb.clone()
+    unhit[int(torch.nonzero(comb)[0, 0])] = 0
+    rolled = torch.roll(idx, -1, dims=1).contiguous()
+    faults = [
+        (ex, idx, (comb != 0).float(), None),
+        (dict(ex, w2=cut if s2 is None else (cut, s2)), idx, comb, None),
+        (ex, idx, comb, rolled),
+        (ex, rolled, comb, idx),
+        (ex, idx, unhit, None),
+    ]
+    if quantized:
+        gate_twice = s1.clone()
+        gate_twice[:, 1] = s1[:, 0]
+        faults += [
+            (dict(ex, w2=(w2, torch.ones_like(s2))), idx, comb, None),
+            (dict(ex, w1=(w1, gate_twice)), idx, comb, None),
+            (dict(ex, w1=(w1, torch.roll(s1, 1, dims=-1).contiguous()),
+                  w2=(w2, torch.roll(s2, 1, dims=-1).contiguous())), idx,
+             comb, None),
+        ]
+    for exf, i, cb, dst in faults:
+        got = md.fused_moe_ffn_slots(exf, tok, i, cb, scatter_idx=dst)
+        assert _moe_ratio(got.to(bf), exact, scale, bf) > 1.0
+    with _build.variant("moe_dispatch", ("TDP_MOE_FAULT=1",)):
+        got = md.fused_moe_ffn_slots(ex, tok, idx, comb)
+    assert _moe_ratio(got.to(bf), exact, scale, bf) > 1.0
 
 
 @pytest.mark.gpu

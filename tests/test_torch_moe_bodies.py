@@ -27,19 +27,25 @@ E, K, D, FF = 4, 2, 64, 192  # D and F multiples of 64, F not of 128
 
 
 @pytest.mark.parametrize("C,dtype,body", [
-    (8, torch.bfloat16, "walk"),       # decode: T = C = 8
-    (15, torch.bfloat16, "walk"),
-    (16, torch.bfloat16, "wgmma"),     # the threshold
+    (8, torch.bfloat16, "decode"),     # decode: T = C = 8
+    (15, torch.bfloat16, "decode"),
+    (16, torch.bfloat16, "decode"),
     (200, torch.bfloat16, "wgmma"),
     (4096, torch.bfloat16, "wgmma"),   # a 512-row chunk of 8 slots
     (4096, torch.float32, "walk"),     # f32 tokens: CUDA-core body only
+    (1, torch.bfloat16, "decode"),     # the decode body's threshold
+    (8, torch.float32, "walk"),
+    (63, torch.bfloat16, "decode"),
+    (64, torch.bfloat16, "wgmma"),     # the warpgroup body's threshold
 ])
 def test_moe_ffn_body_routes_by_slots_and_dtype(C, dtype, body):
-    """K6's dispatch between its two hand-written bodies: bf16 tokens at
+    """K6's dispatch between its three hand-written bodies: bf16 tokens at
     ``MOE_FFN_WGMMA_C_MIN`` slots an expert or more take the warpgroup
-    body (float and int8 experts alike: the choice reads neither),
-    decode's few slots and f32 tokens the walk."""
-    assert md.MOE_FFN_WGMMA_C_MIN == 16
+    body (float and int8 experts alike: the choice reads neither), fewer
+    bf16 slots down to ``MOE_FFN_DECODE_C_MIN`` (decode) the swap-AB
+    decode body, f32 tokens the walk."""
+    assert md.MOE_FFN_WGMMA_C_MIN == 64
+    assert md.MOE_FFN_DECODE_C_MIN == 1
     assert md.moe_ffn_body(C, dtype) == body
 
 

@@ -248,16 +248,30 @@ struct Wgmma<256> {
   }
 };
 
-// d[64 x N] (+)= A[64 x 16] . B[16 x N] with A MN-major (the transpose bit
-// on A: the 64 rows contiguous, desc_mn) and B K-major (desc_k), bf16 in,
-// f32 accumulate, one warpgroup: the swap-AB form, where a weight tile
-// stored [k][m] is A and a few rows are the N side.  Accumulator layout
-// as Wgmma's.
+// d[64 x N] (+)= A[64 x 16] . B[16 x N] with B K-major (desc_k), bf16
+// in, f32 accumulate, one warpgroup: the swap-AB form, where a weight tile
+// stored [k][m] is A and a few rows are the N side.  ss: A MN-major by
+// descriptor (the transpose bit on A: the 64 rows contiguous, desc_mn);
+// rs: A from registers (the mma.sync m16n8k16 A fragment of this warp's
+// 16 rows), for a tile the threads convert themselves.  Accumulator
+// layout as Wgmma's.
 template <int N>
 struct WgmmaT;
 
 template <>
 struct WgmmaT<16> {
+  static __device__ __forceinline__ void rs(float (&d)[8],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
   static __device__ __forceinline__ void ss(float (&d)[8], uint64_t a,
                                             uint64_t b, int scale_d) {
     asm volatile(
@@ -272,6 +286,21 @@ struct WgmmaT<16> {
 
 template <>
 struct WgmmaT<32> {
+  static __device__ __forceinline__ void rs(float (&d)[16],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
   static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a,
                                             uint64_t b, int scale_d) {
     asm volatile(
@@ -289,6 +318,25 @@ struct WgmmaT<32> {
 
 template <>
 struct WgmmaT<64> {
+  static __device__ __forceinline__ void rs(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
   static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a,
                                             uint64_t b, int scale_d) {
     asm volatile(

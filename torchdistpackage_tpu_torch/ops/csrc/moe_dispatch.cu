@@ -3,9 +3,10 @@
 // result back into the [T, D] output — one launch a layer, with no
 // [T, E, C] dispatch tensor and no gathered [E, C, D] slot view in device
 // memory.  Two variants: float expert weights and int8 weight-only
-// experts, each in two bodies (the walk: moe_ffn_kernel /
-// moe_ffn_int8_kernel; chunk rows: moe_ffn_up_wgmma_kernel then
-// moe_ffn_down_wgmma_kernel).
+// experts, each in three bodies (decode rows: moe_ffn_up_decode_kernel,
+// moe_ffn_down_decode_kernel, then moe_ffn_merge_kernel; chunk rows:
+// moe_ffn_up_wgmma_kernel then moe_ffn_down_wgmma_kernel; f32 tokens: the
+// walk, moe_ffn_kernel / moe_ffn_int8_kernel).
 //
 // Replaces the TPU kernel K6 of torchdistpackage_tpu/ops/moe_dispatch.py:
 // _pallas_moe_ffn (:289, body _kernel :202), and its quantized branch
@@ -26,14 +27,22 @@
 //   to 2.8 / 1.4 GB a layer against ~1e9 FLOP — bytes.
 // - a 512-row prefill chunk of 8 slots (T = 4096): 2 (T k) 3 D F = 2.9e12
 //   FLOP — operations, for either weight type.
-// Two bodies, chosen by the wrapper (ops/moe_dispatch.py moe_ffn_body)
-// from the capacity and the tokens' type: decode's few slots and f32
-// tokens take the walk below, bf16 tokens at a chunk's capacity the
-// two-pass warpgroup GEMM further down (its K6 mode), the walk's costs
-// being what bounds a chunk: each filled row's [D] output arrived as F /
-// 64 f32 partial sums by atomics (7.5e9 adds at the chunk), every F tile
-// gathered its token rows again over the whole of D, and the products
-// ran on 64 x 64 mma.sync tiles.
+// Three bodies, chosen by the wrapper (ops/moe_dispatch.py moe_ffn_body)
+// from the capacity and the tokens' type:
+// - bf16 tokens at decode's few slots: the swap-AB decode body further
+//   down (its K6 mode), which streams the hit experts' weights once at
+//   one CTA an SM through deep TMA stages, gathers the token rows inside
+//   pass 1 and merges pass 2's partial sums in a fixed order: the output
+//   is the same bits from run to run.  The walk it replaced read the
+//   weights at 0.40 (int8) and 0.78 (bf16) of the byte bound: two
+//   cp.async stages of 4 KB a CTA, the pipeline drained between its two
+//   phases, 56 of 64 slot rows empty, and 14.7 M f32 atomics a call;
+// - bf16 tokens at a chunk's capacity: the two-pass warpgroup GEMM (its
+//   K6 mode), the walk's costs being what bounds a chunk: each filled
+//   row's [D] output arrived as F / 64 f32 partial sums by atomics (7.5e9
+//   adds at the chunk), every F tile gathered its token rows again over
+//   the whole of D, and the products ran on 64 x 64 mma.sync tiles;
+// - f32 tokens (a check path; no engine drives it): the walk below.
 //
 // The walk, against the TPU kernel:
 // - The TPU kernel loads one expert's whole W1/W2 per grid step (BlockSpec
@@ -56,10 +65,9 @@
 //   only).  b2 is added once, by the CTAs of the first F tile.
 // - Scalar-prefetched idx: each CTA loads its own 64 entries of idx / comb.
 // - The empty-tile skip (:239) stays: a CTA whose 64 comb values are all 0
-//   exits before any load.  At decode every CTA streams its slice of W1
-//   and W2 once through shared memory, and a warp whose 16 rows are all
-//   empty skips its products, so the weights are read once a layer and
-//   only for the experts that were hit.
+//   exits before any load, and a warp whose 16 rows are all empty skips
+//   its products, so the weights are read only for the experts that were
+//   hit.
 // - int8: the TPU kernel dequantises the whole weight block in f32 before
 //   its products.  Here the int8 tiles stay int8 in shared memory (a
 //   [64 d x 64 f] stage is 4 KB, 16 weights a 16-byte cp.async) and each
@@ -104,8 +112,10 @@
 // - bf16 decode rows: expert_ffn_up_decode_kernel and
 //   expert_ffn_down_decode_kernel, the same two passes with A and B
 //   swapped (the weight the 64-row side of wgmma, the rows the narrow
-//   side), one CTA an SM streaming the weights (described where they are
-//   defined).
+//   side), one CTA an SM streaming the weights, then
+//   expert_ffn_merge_kernel, which adds pass 2's partial sums in a fixed
+//   order into y in x's type: the same bits from run to run (described
+//   where they are defined).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1190,34 +1200,59 @@ cudaError_t launch_moe_wgmma(const SlotMaps& sm, const void* w1,
   return cudaGetLastError();
 }
 
-// ---------------------------------- K7 decode rows: swap A and B, stream K
+// ------------------------- decode rows (K7 and K6): swap A and B, stream K
 //
-// At decode the rows are few (e_loc 8 experts of G 8 at EP 1) and every
-// weight byte is read once: 2.8 GB bf16 / 1.4 GB int8 a layer, a bound set
-// by bytes.  The warpgroup body above would waste 15/16 of each 128-row
-// tile, so this body swaps the operands: H^T [F, G] = W1^T . X^T and Y^T
-// [D, G] = W2^T . H^T, the weight tile the A operand (64 of its columns a
-// consumer warpgroup, read MN-major by the transpose bit on A, no
-// transposed copy) and the G rows the N side (16 or 64).
+// At decode the rows are few (K7: e_loc 8 experts of G 8 at EP 1; K6: 8
+// tokens' 16 routed choices over the experts they hit) and every weight
+// byte is read once: 2.8 GB bf16 / 1.4 GB int8 a layer for all 8
+// experts, a bound set by bytes.  The warpgroup body above would waste
+// 15/16 of each 128-row tile, so this body swaps the operands: H^T [F, G]
+// = W1^T . X^T and Y^T [D, G] = W2^T . H^T, the weight tile the A operand
+// (64 of its columns a consumer warpgroup, read MN-major by the transpose
+// bit on A, no transposed copy) and the rows the N side (NR: 16, 32 or
+// 64 for K7, 16 for K6).
 // - The weight stream is the work: one thread of the producer warpgroup
 //   keeps as many stages in flight as shared memory holds (3-16), one CTA
 //   an SM; a pass that streams one weight (pass 2, GELU's pass 1) takes
-//   its stages 128 deep, which halves their fixed costs.  Pass 1 gives each CTA a contiguous run of whole (expert, 128
-//   F columns, row tile) units, since the activation needs each whole D
-//   sum; pass 2 cuts the expert x 128 D columns x F stages evenly between
-//   the CTAs (stream-K), each run's partial sum added into the zeroed f32
-//   y by atomics (b2 by the run that starts the F sum), so every SM
-//   streams the same bytes; the wrapper casts y to x's type.
+//   its stages 128 deep, which halves their fixed costs.  Pass 1 gives
+//   each CTA a contiguous run of whole (rows, 128 F columns) units, since
+//   the activation needs each whole D sum; pass 2 cuts the (rows, 128 D
+//   columns) units x F stages evenly between the CTAs (stream-K), so
+//   every SM streams the same bytes.
+// - Pass 2 uses no atomics: each CTA writes the f32 partial sum of each
+//   unit its run meets into its own slots of a scratch the host sizes
+//   from the grid ([grid, segs, NR, 128]), and a merge launch adds, for
+//   each output element, the runs that met its unit in run order, then
+//   the int8 scale and b2 (K7: stored in x's type; K6: each routed choice
+//   of the token in (expert, slot) order, scaled by its gate weight, into
+//   f32 y).  The order is fixed, so the output is the same bits from run
+//   to run.
 // - int8: each weight tile is read and converted exactly once in the
-//   whole call.  The stage is only the int8 tiles and the rows; each
-//   consumer warpgroup converts its own 64 columns (and copies the rows)
-//   into one of two bf16 buffers and frees the stage at once, so the int8
-//   stages in flight are not held by the products, and the warpgroups
-//   meet only their own warps.
-// - Every row is computed, pad rows included; H (bf16, rounded once) sits
-//   in device memory between the passes.
+//   whole call.  TMA writes the int8 tiles under the 128-byte swizzle,
+//   and each consumer thread turns its own wgmma A fragments into bf16
+//   registers (s8_frag: 16-bit loads, a byte_perm and s8x2_to_bf16x2,
+//   exact), which the products read in place of a converted tile: no
+//   bf16 copy of the weights is written to or read from shared memory
+//   (the chunk body's conversion costs three times the int8 tile's
+//   bytes of shared-memory traffic), no barrier joins the warps, and a
+//   stage holds only the int8 tiles and the rows, so more of them fit.
+// - K7 (SLOTS false): the rows are X [E, G, D], every row computed, pad
+//   rows included; H (bf16, rounded once) [E, G, F] sits in device memory
+//   between the passes.
+// - K6 (SLOTS true), the slot maps of a decode step: the units are the
+//   16-slot tiles that hold a filled slot, listed on the device by
+//   chunk_tiles (at C <= 16 one tile an expert: the experts that were
+//   hit), expert by expert; each CTA derives its share from the list's
+//   length, so the call needs no host sync and keeps a fixed grid.  Pass
+//   1's producer warpgroup gathers each tile's token rows through idx by
+//   16-byte cp.async into the swizzled [16 rows][64] layout wgmma reads
+//   (an empty slot's row zero-filled; the weight tiles keep TMA), and H
+//   [listed tile, 16, F] is indexed by list position.  No gathered
+//   [E, C, D] view is written.
 
-constexpr int DEC_M = 128;  // weight columns a CTA: 64 a consumer warpgroup
+constexpr int DEC_M = 128;    // weight columns a CTA: 64 a consumer warpgroup
+constexpr int DEC_ROWS = 16;  // K6's slot tile on the decode body
+constexpr int MERGE_THREADS = 128;  // 4 output columns a thread
 
 template <bool UP, bool Q, bool SWIGLU, int NR>
 struct DecWg {
@@ -1232,35 +1267,63 @@ struct DecWg {
   static constexpr int BK = FFN_BK * KB;  // reduction depth a stage
   static constexpr int NT = KB * NW;      // weight tiles a stage (k box b,
                                           // weight w: tile b NW + w)
-  // a stage as TMA fills it: the weight tiles (int8: raw), then the rows
-  static constexpr int STAGE = NT * (Q ? RAW_BYTES : W_BYTES) + KB * B_BYTES;
-  // int8: two bf16 buffers of converted tiles, each with a copy of the
-  // rows for either warpgroup
-  static constexpr int SLOT = NT * W_BYTES + 2 * KB * B_BYTES;
-  static constexpr int RING = Q ? 2 * SLOT : 0;
-  static constexpr int NS_FIT = (SMEM_MAX - 1024 - RING - 16 * 16) / STAGE;
+  // a stage as it is filled: the weight tiles (int8: raw), then the rows
+  static constexpr int W_STAGE = NT * (Q ? RAW_BYTES : W_BYTES);
+  static constexpr int STAGE = W_STAGE + KB * B_BYTES;
+  static constexpr int NS_FIT = (SMEM_MAX - 1024 - 16 * 16) / STAGE;
   static constexpr int NS = NS_FIT < 16 ? NS_FIT : 16;
-  static constexpr size_t SMEM = 1024 + RING + NS * STAGE + 16 * NS;
+  static constexpr size_t SMEM = 1024 + NS * STAGE + 16 * NS;
   static_assert(NS >= 3, "too few stages");
-  static_assert(STAGE % 1024 == 0 && SLOT % 1024 == 0, "1024-byte tiles");
+  static_assert(STAGE % 1024 == 0, "1024-byte tiles");
 };
 
-// One CTA of either decode pass.  ta: the rows (X [E, G, D] or H [E, G,
-// F]) in bf16 boxes of 64 x NR under the swizzle; tw: the weights viewed
-// [E NW, K, MT] (bf16 boxes of 64 x 64 under the swizzle, int8 boxes of
-// 128 x 64 unswizzled); s / b as in the warpgroup body.  UP: out is H [E,
-// G, F] bf16; otherwise y [E, G, D] f32, zeroed, into which partial sums
-// are added.  K is the reduction's length, MT the weight's width (F or D).
-template <bool UP, bool Q, bool SWIGLU, int NR>
+// This thread's wgmma A fragment, as bf16, of k16 step s of an int8 weight
+// tile [64 k][128 columns] that TMA wrote under the 128-byte swizzle (the
+// 16-byte chunk c of row k at chunk c ^ k % 8).  The swap-AB product is
+// free to order the weight columns along A's 64 rows, so A-rows g and
+// g + 8 of warp w are the adjacent columns 2 g and 2 g + 1 of the warp's
+// 16-byte chunk `chunk`: each (k, row pair) is one 16-bit load, and two
+// loads of neighbouring k make two fragment registers (one byte_perm, then
+// s8x2_to_bf16x2, exact).  The loads of a warp fall on 4 rows whose chunks
+// the swizzle puts in different banks.
+__device__ __forceinline__ void s8_frag(const unsigned char* raw, int chunk,
+                                        int g, int t4, int s,
+                                        uint32_t (&a)[4]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k = 16 * s + 2 * t4 + (i & 1) + (i >> 1) * 8;
+    w[i] = *reinterpret_cast<const uint16_t*>(
+        raw + k * 128 + ((chunk ^ (k & 7)) << 4) + 2 * g);
+  }
+  // bytes (k, 2g), (k + 1, 2g), (k, 2g + 1), (k + 1, 2g + 1)
+  const uint32_t lo = __byte_perm(w[0], w[1], 0x5140);
+  const uint32_t hi = __byte_perm(w[2], w[3], 0x5140);
+  a[0] = s8x2_to_bf16x2(lo, 0);  // A-row g, k and k + 1
+  a[1] = s8x2_to_bf16x2(lo, 1);  // A-row g + 8
+  a[2] = s8x2_to_bf16x2(hi, 0);  // A-row g, k + 8 and k + 9
+  a[3] = s8x2_to_bf16x2(hi, 1);  // A-row g + 8
+}
+
+// One CTA of either decode pass.  ta: the rows (K7: X [E, G, D] or H [E,
+// G, F]; K6 pass 2: H [listed tile, 16, F]; K6 pass 1 gathers them
+// instead) in bf16 boxes of 64 x NR under the swizzle; tw: the weights
+// viewed [E NW, K, MT] (bf16 boxes of 64 x 64 under the swizzle, int8
+// boxes of 128 x 64 unswizzled); s / b (pass 1) as in the warpgroup body.
+// UP: out is H, bf16; otherwise the f32 partial sums [gridDim.x, segs,
+// NR, 128], segs a CTA.  K is the reduction's length, MT the weight's
+// width (F or D).
+template <bool UP, bool Q, bool SWIGLU, int NR, bool SLOTS>
 __device__ __forceinline__ void ffn_decode_body(
     const CUtensorMap& ta, const CUtensorMap& tw,
     const float* __restrict__ s, const __nv_bfloat16* __restrict__ b,
-    void* __restrict__ out, int E, int G, int K, int MT) {
+    void* __restrict__ out, int E, int G, int K, int MT, int segs,
+    const SlotMaps& sm) {
   using C = DecWg<UP, Q, SWIGLU, NR>;
   constexpr int NW = C::NW, NS = C::NS, KB = C::KB, NT = C::NT;
+  constexpr bool GATHER = SLOTS && UP;  // the producers gather the rows
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* ring = hopper::align1024(smem_raw);
-  unsigned char* st0 = ring + C::RING;
+  unsigned char* st0 = hopper::align1024(smem_raw);
   uint64_t* bar_f = reinterpret_cast<uint64_t*>(st0 + NS * C::STAGE);
   uint64_t* bar_e = bar_f + NS;
 
@@ -1269,7 +1332,10 @@ __device__ __forceinline__ void ffn_decode_body(
   const int nk = (K + C::BK - 1) / C::BK;  // a last half stage reads zeros
   const int mt = (MT + DEC_M - 1) / DEC_M;
   const int gt = (G + NR - 1) / NR;
-  const long long units = static_cast<long long>(E) * mt * gt;
+  const int ntc = SLOTS ? (sm.C + NR - 1) / NR : 1;
+  const long long units =
+      SLOTS ? static_cast<long long>(sm.offs[sm.E]) * mt
+            : static_cast<long long>(E) * mt * gt;
   // this CTA's run of stages: whole units in pass 1, any run in pass 2
   long long beg, end;
   if constexpr (UP) {
@@ -1279,56 +1345,129 @@ __device__ __forceinline__ void ffn_decode_body(
     beg = units * nk * blockIdx.x / gridDim.x;
     end = units * nk * (blockIdx.x + 1) / gridDim.x;
   }
-  // unit u: row tile fastest (the CTAs that share a weight tile run side
-  // by side), then the weight-column tile, then the expert
-  auto unit = [&](long long u, int& e, int& m0, int& g0) {
-    g0 = static_cast<int>(u % gt) * NR;
-    m0 = static_cast<int>((u / gt) % mt) * DEC_M;
-    e = static_cast<int>(u / (static_cast<long long>(gt) * mt));
+  // Unit u -> its expert e, weight-column tile m0 and first row g0 (K6:
+  // first slot), and where its rows sit in ta and out: (row gr, outer
+  // ti).  K7: row tile fastest (the CTAs that share a weight tile run side
+  // by side), then the column tile, then the expert.  K6: the same order
+  // over the list, whose run for expert e holds its ne tiles from
+  // position offs[e] on.
+  struct Unit {
+    int e, m0, g0, gr, ti;
+  };
+  auto unit = [&](long long u) {
+    Unit t;
+    if constexpr (SLOTS) {
+      const int w = static_cast<int>(u);
+      t.e = sm.tiles[w / mt] / ntc;
+      const int o = sm.offs[t.e];
+      const int ne = sm.offs[t.e + 1] - o;
+      const int j = w - o * mt;
+      t.m0 = (j / ne) * DEC_M;
+      t.ti = o + j % ne;
+      t.g0 = (sm.tiles[t.ti] - t.e * ntc) * NR;
+      t.gr = 0;
+    } else {
+      t.g0 = static_cast<int>(u % gt) * NR;
+      t.m0 = static_cast<int>((u / gt) % mt) * DEC_M;
+      t.e = static_cast<int>(u / (static_cast<long long>(gt) * mt));
+      t.gr = t.g0;
+      t.ti = t.e;
+    }
+    return t;
+  };
+  // one stage's weight tiles by TMA (one thread)
+  auto load_w = [&](int st, int kk, const Unit& t) {
+    unsigned char* sp = st0 + st * C::STAGE;
+    for (int box = 0; box < KB; ++box) {
+      const int k0 = kk * C::BK + box * FFN_BK;
+      for (int w = 0; w < NW; ++w) {
+        const int ti = box * NW + w;
+        if constexpr (Q) {
+          hopper::tma_load_3d(sp + ti * C::RAW_BYTES, &tw, bar_f + st, t.m0,
+                              k0, t.e * NW + w);
+        } else {
+          for (int nb = 0; nb < DEC_M / 64; ++nb)
+            hopper::tma_load_3d(sp + ti * C::W_BYTES + nb * FFN_BK * 128,
+                                &tw, bar_f + st, t.m0 + nb * 64, k0,
+                                t.e * NW + w);
+        }
+      }
+    }
   };
 
   if (threadIdx.x == 0) {
     for (int st = 0; st < NS; ++st) {
-      hopper::mbar_init(bar_f + st, 1);
+      // gathered rows: the weight TMA's expect-tx and 128 copy arrivals
+      hopper::mbar_init(bar_f + st, GATHER ? 1 + 128 : 1);
       hopper::mbar_init(bar_e + st, FFN_CONSUMERS);
     }
     hopper::mbar_init_fence();
   }
   __syncthreads();
 
-  if (warp >= 8) {  // producer warpgroup: one thread streams the stages
-    if (warp == 8 && lane == 0) {
+  if (warp >= 8) {  // producer warpgroup
+    if constexpr (GATHER) {
+      // every producer thread copies chunk ch of rows rb + 16 j (8
+      // threads a 128-byte row) and arrives once its copies have landed;
+      // thread 0 also streams the weight tiles
+      constexpr int RJ = NR / 16;
+      const int p = threadIdx.x - FFN_CONSUMERS;
+      const int ch = p % 8;
+      const int rb = p / 8;
+      int it = 0;
+      for (long long pos = beg; pos < end; pos += nk) {
+        const Unit t = unit(pos / nk);
+        int tok[RJ];
+#pragma unroll
+        for (int j = 0; j < RJ; ++j) {
+          const int c = t.g0 + rb + 16 * j;
+          const long long sl = static_cast<long long>(t.e) * sm.C + c;
+          tok[j] = c < sm.C && sm.comb[sl] != 0.f ? sm.idx[sl] : -1;
+        }
+        for (int kk = 0; kk < nk; ++kk, ++it) {
+          const int st = it % NS;
+          if (it >= NS) hopper::mbar_wait(bar_e + st, ((it / NS) - 1) & 1);
+          if (p == 0) {
+            hopper::mbar_expect_tx(bar_f + st, C::W_STAGE);
+            load_w(st, kk, t);
+          }
+          unsigned char* rows = st0 + st * C::STAGE + C::W_STAGE;
+#pragma unroll
+          for (int box = 0; box < KB; ++box) {
+            const int k0 = kk * C::BK + box * FFN_BK;
+#pragma unroll
+            for (int j = 0; j < RJ; ++j) {
+              const int row = rb + 16 * j;
+              const bool on = tok[j] >= 0 && k0 < K;
+              const __nv_bfloat16* src =
+                  sm.x + (on ? static_cast<long long>(tok[j]) * K + k0 +
+                                   ch * 8
+                             : 0);
+              cp_async16(rows + box * C::B_BYTES + row * 128 +
+                             ((ch ^ (row % 8)) << 4),
+                         src, on ? 16 : 0);
+            }
+          }
+          cp_async_arrive_noinc(bar_f + st);
+        }
+      }
+    } else if (warp == 8 && lane == 0) {
       int it = 0;
       for (long long pos = beg; pos < end;) {
         const long long u = pos / nk;
         const int kb = static_cast<int>(pos % nk);
         const int ke = static_cast<int>(
             nk < kb + (end - pos) ? nk : kb + (end - pos));
-        int e, m0, g0;
-        unit(u, e, m0, g0);
+        const Unit t = unit(u);
         for (int kk = kb; kk < ke; ++kk, ++it) {
           const int st = it % NS;
           if (it >= NS) hopper::mbar_wait(bar_e + st, ((it / NS) - 1) & 1);
-          unsigned char* sp = st0 + st * C::STAGE;
-          unsigned char* rows = sp + NT * (Q ? C::RAW_BYTES : C::W_BYTES);
+          unsigned char* rows = st0 + st * C::STAGE + C::W_STAGE;
           hopper::mbar_expect_tx(bar_f + st, C::STAGE);
-          for (int box = 0; box < KB; ++box) {
-            const int k0 = kk * C::BK + box * FFN_BK;
-            for (int w = 0; w < NW; ++w) {
-              const int t = box * NW + w;
-              if constexpr (Q) {
-                hopper::tma_load_3d(sp + t * C::RAW_BYTES, &tw, bar_f + st,
-                                    m0, k0, e * NW + w);
-              } else {
-                for (int nb = 0; nb < DEC_M / 64; ++nb)
-                  hopper::tma_load_3d(
-                      sp + t * C::W_BYTES + nb * FFN_BK * 128, &tw,
-                      bar_f + st, m0 + nb * 64, k0, e * NW + w);
-              }
-            }
-            hopper::tma_load_3d(rows + box * C::B_BYTES, &ta, bar_f + st, k0,
-                                g0, e);
-          }
+          load_w(st, kk, t);
+          for (int box = 0; box < KB; ++box)
+            hopper::tma_load_3d(rows + box * C::B_BYTES, &ta, bar_f + st,
+                                kk * C::BK + box * FFN_BK, t.gr, t.ti);
         }
         pos += ke - kb;
       }
@@ -1346,8 +1485,7 @@ __device__ __forceinline__ void ffn_decode_body(
     const int kb = static_cast<int>(pos % nk);
     const int ke =
         static_cast<int>(nk < kb + (end - pos) ? nk : kb + (end - pos));
-    int e, m0, g0;
-    unit(u, e, m0, g0);
+    const Unit t = unit(u);
 #pragma unroll
     for (int v = 0; v < NW; ++v)
 #pragma unroll
@@ -1355,101 +1493,189 @@ __device__ __forceinline__ void ffn_decode_body(
     for (int kk = kb; kk < ke; ++kk, ++it) {
       const int st = it % NS;
       hopper::mbar_wait(bar_f + st, (it / NS) & 1);
-      unsigned char* sp = st0 + st * C::STAGE;
-      const unsigned char* wt = sp;                     // weight tiles
-      const unsigned char* bt = sp + NT * C::W_BYTES;   // the rows
+      // the gathered rows were written by cp.async (the generic proxy):
+      // order them before this thread's wgmma reads (the async proxy)
+      if constexpr (GATHER) hopper::fence_proxy_async();
+      const unsigned char* sp = st0 + st * C::STAGE;  // the weight tiles
+      const unsigned char* bt = sp + C::W_STAGE;       // the rows
       if constexpr (Q) {
-        // Each warpgroup converts its own 64 columns of the int8 tiles and
-        // copies the rows into buffer it % 2, which only its own products
-        // read (the last, of stage it - 2, waited for at it - 1), meets its
-        // own four warps, and frees the stage: the two warpgroups never
-        // wait for each other.
-        unsigned char* slot = ring + (it % 2) * C::SLOT;
-        const int tid = threadIdx.x % 128;
+        // int8: each thread turns its A fragments of the stage into bf16
+        // registers (s8_frag) and the products read A from them, so no
+        // converted tile is written to or read from shared memory; the
+        // stage is free once its products are done
+        uint32_t a[KB * 4][NW][4];
 #pragma unroll
-        for (int t = 0; t < NT; ++t)
-          s8_tile_to_bf16<64, DEC_M, 128>(
-              sp + t * C::RAW_BYTES + wg * 64,
-              slot + t * C::W_BYTES + wg * FFN_BK * 128, tid);
-        const uint4* rows =
-            reinterpret_cast<const uint4*>(sp + NT * C::RAW_BYTES);
-        uint4* copy = reinterpret_cast<uint4*>(slot + NT * C::W_BYTES +
-                                               wg * KB * C::B_BYTES);
-        // the same offsets keep the swizzle; every thread copies the same
-        // count (a duplicate writes the same bytes), so no path diverges
-        constexpr int B16 = KB * C::B_BYTES / 16;
+        for (int box = 0; box < KB; ++box)
 #pragma unroll
-        for (int j = 0; j < (B16 + 127) / 128; ++j) {
-          const int i = (tid + j * 128) % B16;
-          copy[i] = rows[i];
-        }
-        hopper::fence_proxy_async();
-        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
-        hopper::mbar_arrive(bar_e + st);  // the stage is free already
-        wt = slot;
-        bt = slot + NT * C::W_BYTES + wg * KB * C::B_BYTES;
+          for (int k16 = 0; k16 < FFN_BK / 16; ++k16)
+#pragma unroll
+            for (int v = 0; v < NW; ++v)
+              s8_frag(sp + (box * NW + v) * C::RAW_BYTES, wg * 4 + warp % 4,
+                      g, t4, k16, a[box * 4 + k16][v]);
+#pragma unroll
+        for (int v = 0; v < NW; ++v) hopper::fence_regs(acc[v]);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int box = 0; box < KB; ++box)
+#pragma unroll
+          for (int k16 = 0; k16 < FFN_BK / 16; ++k16)
+#pragma unroll
+            for (int v = 0; v < NW; ++v)
+              hopper::WgmmaT<NR>::rs(
+                  acc[v], a[box * 4 + k16][v],
+                  hopper::desc_k(hopper::smem_u32(bt + box * C::B_BYTES) +
+                                 k16 * 32),
+                  1);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+#pragma unroll
+        for (int v = 0; v < NW; ++v) hopper::fence_regs(acc[v]);
+        hopper::mbar_arrive(bar_e + st);
+      } else {
+#pragma unroll
+        for (int v = 0; v < NW; ++v) hopper::fence_regs(acc[v]);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int box = 0; box < KB; ++box)
+#pragma unroll
+          for (int k16 = 0; k16 < FFN_BK / 16; ++k16)
+#pragma unroll
+            for (int v = 0; v < NW; ++v)
+              hopper::WgmmaT<NR>::ss(
+                  acc[v],
+                  hopper::desc_mn(
+                      hopper::smem_u32(sp + (box * NW + v) * C::W_BYTES +
+                                       wg * FFN_BK * 128) +
+                          k16 * 16 * 128,
+                      FFN_BK * 128),
+                  hopper::desc_k(hopper::smem_u32(bt + box * C::B_BYTES) +
+                                 k16 * 32),
+                  1);
+        hopper::wgmma_commit();
+        // keep this stage's products in flight; free the previous stage
+        hopper::wgmma_wait<1>();
+#pragma unroll
+        for (int v = 0; v < NW; ++v) hopper::fence_regs(acc[v]);
+        if (kk > kb) hopper::mbar_arrive(bar_e + (it - 1) % NS);
       }
-#pragma unroll
-      for (int v = 0; v < NW; ++v) hopper::fence_regs(acc[v]);
-      hopper::wgmma_fence();
-#pragma unroll
-      for (int box = 0; box < KB; ++box)
-#pragma unroll
-        for (int k16 = 0; k16 < FFN_BK / 16; ++k16)
-#pragma unroll
-          for (int v = 0; v < NW; ++v)
-            hopper::WgmmaT<NR>::ss(
-                acc[v],
-                hopper::desc_mn(
-                    hopper::smem_u32(wt + (box * NW + v) * C::W_BYTES +
-                                     wg * FFN_BK * 128) +
-                        k16 * 16 * 128,
-                    FFN_BK * 128),
-                hopper::desc_k(hopper::smem_u32(bt + box * C::B_BYTES) +
-                               k16 * 32),
-                1);
-      hopper::wgmma_commit();
-      hopper::wgmma_wait<1>();
-#pragma unroll
-      for (int v = 0; v < NW; ++v) hopper::fence_regs(acc[v]);
-      if (!Q && kk > kb) hopper::mbar_arrive(bar_e + (it - 1) % NS);
     }
-    hopper::wgmma_wait<0>();
+    if constexpr (!Q) {
+      hopper::wgmma_wait<0>();
 #pragma unroll
-    for (int v = 0; v < NW; ++v) hopper::fence_regs(acc[v]);
-    if (!Q) hopper::mbar_arrive(bar_e + (it - 1) % NS);
+      for (int v = 0; v < NW; ++v) hopper::fence_regs(acc[v]);
+      hopper::mbar_arrive(bar_e + (it - 1) % NS);
+    }
 
-    // epilogue: accumulator (row m of the weight's columns, column n of
-    // the rows); int8 scale, bias, and pass 1's activation
-    const float* se = Q ? s + static_cast<long long>(e) * NW * MT : nullptr;
-    const __nv_bfloat16* be = b + static_cast<long long>(e) * NW * MT;
+    // epilogue: accumulator (column ml of the weight tile, row r of the
+    // rows' tile).  Pass 1: int8 scale, bias and activation, H rounded to
+    // bf16 once.  Pass 2: the run's partial sum of this unit, as it is.
+    float* part = nullptr;
+    if constexpr (!UP)
+      part = static_cast<float*>(out) +
+             (static_cast<long long>(blockIdx.x) * segs + (u - beg / nk)) *
+                 NR * DEC_M;
 #pragma unroll
     for (int j = 0; j < NR / 8; ++j)
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        const int m = m0 + wg * 64 + (warp % 4) * 16 + g + (q / 2) * 8;
-        const int row = g0 + j * 8 + 2 * t4 + q % 2;
-        if (m >= MT || row >= G) continue;
+        // the weight column of accumulator row g + 8 (q / 2) (s8_frag's
+        // order for int8)
+        const int ml = wg * 64 + (warp % 4) * 16 +
+                       (Q ? 2 * g + q / 2 : g + (q / 2) * 8);
+        const int r = j * 8 + 2 * t4 + q % 2;
         float a = acc[0][4 * j + q];
-        if constexpr (Q) a *= se[m];
-        const long long o = (static_cast<long long>(e) * G + row) * MT + m;
         if constexpr (UP) {
-          a += __bfloat162float(be[m]);
+          const int m = t.m0 + ml;
+          const int row = t.g0 + r;
+          if (m >= MT || (!SLOTS && row >= G)) continue;
+          const long long rw = static_cast<long long>(t.e) * NW * MT;
+          if constexpr (Q) a *= s[rw + m];
+          a += __bfloat162float(b[rw + m]);
           if constexpr (SWIGLU) {
             float up = acc[NW - 1][4 * j + q];
-            if constexpr (Q) up *= se[MT + m];
-            a = silu(a) * (up + __bfloat162float(be[MT + m]));
+            if constexpr (Q) up *= s[rw + MT + m];
+            a = silu(a) * (up + __bfloat162float(b[rw + MT + m]));
           } else {
             a = gelu_tanh(a);
           }
+          const long long o =
+              SLOTS ? (static_cast<long long>(t.ti) * NR + r) * MT + m
+                    : (static_cast<long long>(t.e) * G + row) * MT + m;
           static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(a);
         } else {
-          if (kb == 0) a += __bfloat162float(be[m]);
-          atomicAdd(static_cast<float*>(out) + o, a);
+          part[r * DEC_M + ml] = a;
         }
       }
     pos += ke - kb;
   }
+}
+
+// The decode body's weight map: bf16 boxes of 64 x 64 under the swizzle,
+// or int8 boxes of 128 x 64 under the 128-byte swizzle (read by s8_frag)
+template <bool Q>
+bool decode_weight_map(CUtensorMap* map, const void* w, int outer, int rows,
+                       int cols) {
+  if constexpr (Q)
+    return encode_map(map, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, outer, rows,
+                      cols, DEC_M, FFN_BK, CU_TENSOR_MAP_SWIZZLE_128B);
+  else
+    return encode_tile_map(map, w, outer, rows, cols, FFN_BK);
+}
+
+// The f32 sum over F of pass-2 unit u at row r of its rows' tile and
+// columns col..col+3 of its 128: the partial sums of the CTAs whose runs
+// [total b / grid, total (b + 1) / grid) met the unit's nk stages, added
+// in run order (the first such CTA is the last whose run starts at or
+// before the unit's first stage).
+__device__ __forceinline__ float4 run_sum(const float* __restrict__ part,
+                                          long long u, int nk,
+                                          long long total, int grid,
+                                          int segs, int nr, int r, int col) {
+  const long long s0 = u * nk;
+  const int b0 = static_cast<int>(((s0 + 1) * grid - 1) / total);
+  const int b1 = static_cast<int>(((s0 + nk) * grid - 1) / total);
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int cta = b0; cta <= b1; ++cta) {
+    const long long beg = total * cta / grid;
+    if (beg >= total * (cta + 1) / grid) continue;  // an empty run
+#if defined(TDP_MOE_FAULT) && TDP_MOE_FAULT == 1
+    if (cta == b1 && b1 > b0) continue;  // planted: a run dropped
+#endif
+    const float4 p = *reinterpret_cast<const float4*>(
+        part + ((static_cast<long long>(cta) * segs + (u - beg / nk)) * nr +
+                r) * DEC_M + col);
+    v.x += p.x;
+    v.y += p.y;
+    v.z += p.z;
+    v.w += p.w;
+  }
+  return v;
+}
+
+// A unit's sum, then (int8) w2's column scales and b2 of expert e, at
+// columns d..d+3
+template <bool Q>
+__device__ __forceinline__ float4 finish(float4 v,
+                                         const float* __restrict__ s2,
+                                         const __nv_bfloat16* __restrict__ b2,
+                                         long long o) {
+  if constexpr (Q) {
+    const float4 sc = *reinterpret_cast<const float4*>(s2 + o);
+    v.x *= sc.x;
+    v.y *= sc.y;
+    v.z *= sc.z;
+    v.w *= sc.w;
+  }
+  const uint2 bb = *reinterpret_cast<const uint2*>(b2 + o);
+  const float2 lo = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&bb.x));
+  const float2 hi = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&bb.y));
+  v.x += lo.x;
+  v.y += lo.y;
+  v.z += hi.x;
+  v.w += hi.y;
+  return v;
 }
 
 template <bool Q, bool SWIGLU, int NR>
@@ -1460,73 +1686,319 @@ expert_ffn_up_decode_kernel(const __grid_constant__ CUtensorMap tx,
                             const __nv_bfloat16* __restrict__ b1,
                             __nv_bfloat16* __restrict__ h, int E, int G,
                             int D, int F) {
-  ffn_decode_body<true, Q, SWIGLU, NR>(tx, tw1, s1, b1, h, E, G, D, F);
+  ffn_decode_body<true, Q, SWIGLU, NR, false>(tx, tw1, s1, b1, h, E, G, D,
+                                              F, 0, SlotMaps{});
 }
 
 template <bool Q, int NR>
 __global__ void __launch_bounds__(3 * 128, 1)
 expert_ffn_down_decode_kernel(const __grid_constant__ CUtensorMap th,
                               const __grid_constant__ CUtensorMap tw2,
-                              const float* __restrict__ s2,
-                              const __nv_bfloat16* __restrict__ b2,
-                              float* __restrict__ y, int E, int G, int D,
-                              int F) {
-  ffn_decode_body<false, Q, false, NR>(th, tw2, s2, b2, y, E, G, F, D);
+                              float* __restrict__ part, int E, int G, int D,
+                              int F, int segs) {
+  ffn_decode_body<false, Q, false, NR, false>(th, tw2, nullptr, nullptr,
+                                              part, E, G, F, D, segs,
+                                              SlotMaps{});
+}
+
+// K7's merge: y [E, G, D] in bf16, one row (e, g) a block row, 4 columns
+// a thread
+template <bool Q>
+__global__ void __launch_bounds__(MERGE_THREADS)
+expert_ffn_merge_kernel(const float* __restrict__ part,
+                        const float* __restrict__ s2,
+                        const __nv_bfloat16* __restrict__ b2,
+                        __nv_bfloat16* __restrict__ y, int E, int G, int D,
+                        int F, int nr, int grid, int segs) {
+  const int d = (blockIdx.y * MERGE_THREADS + threadIdx.x) * 4;
+  if (d >= D) return;
+  const int e = blockIdx.x / G;
+  const int row = blockIdx.x % G;
+  const int mt = (D + DEC_M - 1) / DEC_M;
+  const int nk = (F + 2 * FFN_BK - 1) / (2 * FFN_BK);  // pass 2's stages
+  const int gt = (G + nr - 1) / nr;
+  const long long total = static_cast<long long>(E) * mt * gt * nk;
+  const long long u =
+      (static_cast<long long>(e) * mt + d / DEC_M) * gt + row / nr;
+  const float4 v = finish<Q>(
+      run_sum(part, u, nk, total, grid, segs, nr, row % nr, d % DEC_M), s2,
+      b2, static_cast<long long>(e) * D + d);
+  uint2 o;
+  *reinterpret_cast<__nv_bfloat162*>(&o.x) = __floats2bfloat162_rn(v.x, v.y);
+  *reinterpret_cast<__nv_bfloat162*>(&o.y) = __floats2bfloat162_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(y + static_cast<long long>(blockIdx.x) * D + d) =
+      o;
+}
+
+// K6's decode passes on the slot maps (there is no row map for pass 1:
+// tw1 stands in for it)
+template <bool Q, bool SWIGLU>
+__global__ void __launch_bounds__(3 * 128, 1)
+moe_ffn_up_decode_kernel(const __grid_constant__ CUtensorMap tw1,
+                         const float* __restrict__ s1,
+                         const __nv_bfloat16* __restrict__ b1,
+                         __nv_bfloat16* __restrict__ h, int D, int F,
+                         const __grid_constant__ SlotMaps sm) {
+  ffn_decode_body<true, Q, SWIGLU, DEC_ROWS, true>(
+      tw1, tw1, s1, b1, h, sm.E, DEC_ROWS, D, F, 0, sm);
+}
+
+template <bool Q>
+__global__ void __launch_bounds__(3 * 128, 1)
+moe_ffn_down_decode_kernel(const __grid_constant__ CUtensorMap th,
+                           const __grid_constant__ CUtensorMap tw2,
+                           float* __restrict__ part, int D, int F, int segs,
+                           const __grid_constant__ SlotMaps sm) {
+  ffn_decode_body<false, Q, false, DEC_ROWS, true>(
+      th, tw2, nullptr, nullptr, part, sm.E, DEC_ROWS, F, D, segs, sm);
+}
+
+// K6's merge: y [T, D] f32, every element written — token t (a block row)
+// takes its routed choices in (expert, slot) order, each choice's unit sum
+// (finish) scaled by its gate weight.  The block stages the slots' gate
+// weights and tokens in shared memory, MERGE_SLOTS at a time, and every
+// thread scans them (at decode all E C <= 120 slots at once), so no
+// inverse map is needed; a choice's list position is counted on the way
+// (one more for each earlier filled tile of its expert).
+constexpr int MERGE_SLOTS = 1024;
+
+template <bool Q>
+__global__ void __launch_bounds__(MERGE_THREADS)
+moe_ffn_merge_kernel(const float* __restrict__ part,
+                     const float* __restrict__ comb,
+                     const int* __restrict__ dst,
+                     const int* __restrict__ offs,
+                     const float* __restrict__ s2,
+                     const __nv_bfloat16* __restrict__ b2,
+                     float* __restrict__ y, int D, int F, int E, int C,
+                     int grid, int segs) {
+  __shared__ float comb_s[MERGE_SLOTS];
+  __shared__ int dst_s[MERGE_SLOTS];
+  const int d = (blockIdx.y * MERGE_THREADS + threadIdx.x) * 4;
+  const bool on = d < D;  // no early exit: every thread meets the barriers
+  const int tok = blockIdx.x;
+  const int mt = (D + DEC_M - 1) / DEC_M;
+  const int nk = (F + 2 * FFN_BK - 1) / (2 * FFN_BK);  // pass 2's stages
+  const long long total = static_cast<long long>(offs[E]) * mt * nk;
+  const long long slots = static_cast<long long>(E) * C;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  int e = 0, c = 0, o = 0, ne = 0, i = 0;  // i: slot c's list position
+  bool busy = false;
+  for (long long base = 0; base < slots; base += MERGE_SLOTS) {
+    const int n = static_cast<int>(
+        slots - base < MERGE_SLOTS ? slots - base : MERGE_SLOTS);
+    __syncthreads();
+    for (int j = threadIdx.x; j < n; j += MERGE_THREADS) {
+      comb_s[j] = comb[base + j];
+      dst_s[j] = dst[base + j];
+    }
+    __syncthreads();
+    for (int j = 0; j < n; ++j, ++c) {
+      if (c == C) {
+        c = 0;
+        ++e;
+      }
+      if (c == 0) {
+        o = offs[e];
+        ne = offs[e + 1] - o;
+        i = o;
+        busy = false;
+      } else if (c % DEC_ROWS == 0 && busy) {
+        ++i;
+        busy = false;
+      }
+      const float gv = comb_s[j];
+      if (gv == 0.f) continue;
+      busy = true;
+      if (!on || dst_s[j] != tok) continue;
+      const long long u = static_cast<long long>(o) * mt +
+                          static_cast<long long>(d / DEC_M) * ne + (i - o);
+      const float4 v = finish<Q>(
+          run_sum(part, u, nk, total, grid, segs, DEC_ROWS, c % DEC_ROWS,
+                  d % DEC_M),
+          s2, b2, static_cast<long long>(e) * D + d);
+      acc.x += gv * v.x;
+      acc.y += gv * v.y;
+      acc.z += gv * v.z;
+      acc.w += gv * v.w;
+    }
+  }
+  if (on)
+    *reinterpret_cast<float4*>(y + static_cast<long long>(tok) * D + d) =
+        acc;
+}
+
+// K6's tile list for the decode body in one launch, chunk_tiles' rule
+// (ops/moe_dispatch.py): the [E, C] slots in tiles of `rows` a expert (the
+// last ragged), tile t of expert e named e ntc + t; tiles holds those with
+// a filled slot (comb != 0) first, in order, then the others, and offs[e]
+// how many listed tiles come before expert e (offs[E]: all of them).  One
+// CTA of 1024 threads scans the tiles 1024 at a time (a ballot a warp,
+// then the warps' counts), twice: the listed count first, since the
+// unlisted tiles follow them.
+constexpr int TILES_THREADS = 1024;
+
+__global__ void __launch_bounds__(TILES_THREADS)
+moe_tiles_kernel(const float* __restrict__ comb, int* __restrict__ tiles,
+                 int* __restrict__ offs, int E, int C, int rows) {
+  __shared__ int wsum[TILES_THREADS / 32];
+  const int ntc = (C + rows - 1) / rows;
+  const int n = E * ntc;
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  auto busy = [&](int t) {
+    if (t >= n) return false;
+    const int e = t / ntc;
+    const int c0 = (t % ntc) * rows;
+    const int c1 = C < c0 + rows ? C : c0 + rows;
+    bool b = false;
+    for (int c = c0; c < c1; ++c)
+      b |= comb[static_cast<long long>(e) * C + c] != 0.f;
+    return b;
+  };
+  // the flags of one chunk: busy tiles before this thread's, and in all
+  auto scan = [&](bool f, int& before, int& total) {
+    const unsigned m = __ballot_sync(0xffffffffu, f);
+    const int mine = __popc(m & ((1u << lane) - 1u));
+    if (lane == 0) wsum[warp] = __popc(m);
+    __syncthreads();
+    if (warp == 0) {
+      int v = wsum[lane];
+      for (int o = 1; o < 32; o <<= 1) {
+        const int x = __shfl_up_sync(0xffffffffu, v, o);
+        if (lane >= o) v += x;
+      }
+      wsum[lane] = v;  // inclusive
+    }
+    __syncthreads();
+    before = (warp ? wsum[warp - 1] : 0) + mine;
+    total = wsum[31];
+    __syncthreads();  // wsum is reused by the next chunk
+  };
+  int listed = 0;
+  for (int t0 = 0; t0 < n; t0 += TILES_THREADS) {
+    int before, total;
+    scan(busy(t0 + threadIdx.x), before, total);
+    listed += total;
+  }
+  int nb = 0, nf = 0;  // listed / unlisted tiles before this chunk
+  for (int t0 = 0; t0 < n; t0 += TILES_THREADS) {
+    const int t = t0 + threadIdx.x;
+    const bool b = busy(t);
+    int before, total;
+    scan(b, before, total);
+    if (t < n) {
+      tiles[b ? nb + before : listed + nf + (t - t0 - before)] = t;
+      if (t % ntc == 0) offs[t / ntc] = nb + before;
+    }
+    nb += total;
+    nf += (n - t0 < TILES_THREADS ? n - t0 : TILES_THREADS) - total;
+  }
+  if (threadIdx.x == 0) offs[E] = listed;
+}
+
+dim3 merge_grid(long long rows, int D) {
+  return dim3(static_cast<unsigned>(rows),
+              (D + 4 * MERGE_THREADS - 1) / (4 * MERGE_THREADS));
 }
 
 template <bool Q, bool SWIGLU, int NR>
 cudaError_t launch_expert_decode(const void* x, const void* w1,
                                  const void* s1, const void* b1,
                                  const void* w2, const void* s2,
-                                 const void* b2, void* h, void* y, int E,
-                                 int G, int D, int F, cudaStream_t st) {
+                                 const void* b2, void* h, void* part,
+                                 void* y, int E, int G, int D, int F,
+                                 int grid1, int grid2, int segs,
+                                 cudaStream_t st) {
   using Up = DecWg<true, Q, SWIGLU, NR>;
   using Down = DecWg<false, Q, false, NR>;
   CUtensorMap tx, tw1, th, tw2;
   if (!encode_tile_map(&tx, x, E, G, D, NR) ||
-      !weight_map<Q>(&tw1, w1, E * Up::NW, D, F, DEC_M) ||
+      !decode_weight_map<Q>(&tw1, w1, E * Up::NW, D, F) ||
       !encode_tile_map(&th, h, E, G, F, NR) ||
-      !weight_map<Q>(&tw2, w2, E, F, D, DEC_M))
+      !decode_weight_map<Q>(&tw2, w2, E, F, D))
     return cudaErrorNotSupported;
   using BF16 = __nv_bfloat16;
   auto up = expert_ffn_up_decode_kernel<Q, SWIGLU, NR>;
   auto down = expert_ffn_down_decode_kernel<Q, NR>;
-  int sms = 0;
-  cudaError_t err = sm_count(&sms);
-  if (err == cudaSuccess) err = allow_smem(up, Up::SMEM);
+  cudaError_t err = allow_smem(up, Up::SMEM);
   if (err == cudaSuccess) err = allow_smem(down, Down::SMEM);
   if (err != cudaSuccess) return err;
-  const long long gt = (G + NR - 1) / NR;
-  const long long u1 = E * gt * ((F + DEC_M - 1) / DEC_M);
-  const long long s2n =
-      E * gt * ((D + DEC_M - 1) / DEC_M) * ((F + Down::BK - 1) / Down::BK);
-  up<<<static_cast<int>(u1 < sms ? u1 : sms), Up::THREADS, Up::SMEM, st>>>(
+  up<<<grid1, Up::THREADS, Up::SMEM, st>>>(
       tx, tw1, static_cast<const float*>(s1), static_cast<const BF16*>(b1),
       static_cast<BF16*>(h), E, G, D, F);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  down<<<static_cast<int>(s2n < sms ? s2n : sms), Down::THREADS, Down::SMEM,
-         st>>>(th, tw2, static_cast<const float*>(s2),
-               static_cast<const BF16*>(b2), static_cast<float*>(y), E, G, D,
-               F);
+  down<<<grid2, Down::THREADS, Down::SMEM, st>>>(
+      th, tw2, static_cast<float*>(part), E, G, D, F, segs);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  expert_ffn_merge_kernel<Q><<<merge_grid(static_cast<long long>(E) * G, D),
+                               MERGE_THREADS, 0, st>>>(
+      static_cast<const float*>(part), static_cast<const float*>(s2),
+      static_cast<const BF16*>(b2), static_cast<BF16*>(y), E, G, D, F, NR,
+      grid2, segs);
   return cudaGetLastError();
 }
 
-// the decode body's row tile: 16 or 32 up to that many rows, else 64
-// (more rows in more tiles)
 template <bool Q, bool SWIGLU>
 cudaError_t dispatch_decode(const void* x, const void* w1, const void* s1,
                             const void* b1, const void* w2, const void* s2,
-                            const void* b2, void* h, void* y, int E, int G,
-                            int D, int F, cudaStream_t st) {
-  if (G <= 16)
-    return launch_expert_decode<Q, SWIGLU, 16>(x, w1, s1, b1, w2, s2, b2, h,
-                                               y, E, G, D, F, st);
-  if (G <= 32)
-    return launch_expert_decode<Q, SWIGLU, 32>(x, w1, s1, b1, w2, s2, b2, h,
-                                               y, E, G, D, F, st);
-  return launch_expert_decode<Q, SWIGLU, 64>(x, w1, s1, b1, w2, s2, b2, h, y,
-                                             E, G, D, F, st);
+                            const void* b2, void* h, void* part, void* y,
+                            int E, int G, int D, int F, int nr, int grid1,
+                            int grid2, int segs, cudaStream_t st) {
+  switch (nr) {
+    case 16:
+      return launch_expert_decode<Q, SWIGLU, 16>(
+          x, w1, s1, b1, w2, s2, b2, h, part, y, E, G, D, F, grid1, grid2,
+          segs, st);
+    case 32:
+      return launch_expert_decode<Q, SWIGLU, 32>(
+          x, w1, s1, b1, w2, s2, b2, h, part, y, E, G, D, F, grid1, grid2,
+          segs, st);
+    case 64:
+      return launch_expert_decode<Q, SWIGLU, 64>(
+          x, w1, s1, b1, w2, s2, b2, h, part, y, E, G, D, F, grid1, grid2,
+          segs, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <bool Q, bool SWIGLU>
+cudaError_t launch_moe_decode(const SlotMaps& sm, const void* w1,
+                              const void* s1, const void* b1, const void* w2,
+                              const void* s2, const void* b2, void* h,
+                              void* part, int T, int D, int F, int grid1,
+                              int grid2, int segs, cudaStream_t st) {
+  using Up = DecWg<true, Q, SWIGLU, DEC_ROWS>;
+  using Down = DecWg<false, Q, false, DEC_ROWS>;
+  const int n_max = sm.E * ((sm.C + DEC_ROWS - 1) / DEC_ROWS);  // H's tiles
+  CUtensorMap tw1, th, tw2;
+  if (!decode_weight_map<Q>(&tw1, w1, sm.E * Up::NW, D, F) ||
+      !encode_tile_map(&th, h, n_max, DEC_ROWS, F, DEC_ROWS) ||
+      !decode_weight_map<Q>(&tw2, w2, sm.E, F, D))
+    return cudaErrorNotSupported;
+  using BF16 = __nv_bfloat16;
+  auto up = moe_ffn_up_decode_kernel<Q, SWIGLU>;
+  auto down = moe_ffn_down_decode_kernel<Q>;
+  cudaError_t err = allow_smem(up, Up::SMEM);
+  if (err == cudaSuccess) err = allow_smem(down, Down::SMEM);
+  if (err != cudaSuccess) return err;
+  up<<<grid1, Up::THREADS, Up::SMEM, st>>>(
+      tw1, static_cast<const float*>(s1), static_cast<const BF16*>(b1),
+      static_cast<BF16*>(h), D, F, sm);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  down<<<grid2, Down::THREADS, Down::SMEM, st>>>(
+      th, tw2, static_cast<float*>(part), D, F, segs, sm);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  moe_ffn_merge_kernel<Q><<<merge_grid(T, D), MERGE_THREADS, 0, st>>>(
+      static_cast<const float*>(part), sm.comb, sm.dst, sm.offs,
+      static_cast<const float*>(s2), static_cast<const BF16*>(b2), sm.y, D,
+      F, sm.E, sm.C, grid2, segs);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1675,35 +2147,44 @@ extern "C" int tdp_expert_ffn_wgmma(const void* x, const void* w1,
 }
 
 // K7's decode rows on the swap-AB body: the arguments of
-// tdp_expert_ffn_wgmma, with h bf16 [E, G, F] scratch and y f32 [E, G, D]
-// zeroed (partial sums are added into it).  Two launches; returns the
+// tdp_expert_ffn_wgmma, with h bf16 [E, G, F] scratch, part f32 [grid2,
+// segs, nr, 128] scratch for pass 2's partial sums and y bf16 [E, G, D],
+// every element written; nr the row tile (16, 32 or 64), grid1 / grid2
+// the passes' CTAs and segs the units a pass-2 run may meet (the
+// wrapper's decode_grid).  Three launches (up, down, merge); returns the
 // first error.
 extern "C" int tdp_expert_ffn_decode(const void* x, const void* w1,
                                      const void* s1, const void* b1,
                                      const void* w2, const void* s2,
-                                     const void* b2, void* h, void* y, int E,
-                                     int G, int D, int F, int swiglu,
-                                     int quantized, void* stream) {
-  if (bad_expert_shape(E, G, D, F))
+                                     const void* b2, void* h, void* part,
+                                     void* y, int E, int G, int D, int F,
+                                     int swiglu, int quantized, int nr,
+                                     int grid1, int grid2, int segs,
+                                     void* stream) {
+  if (bad_expert_shape(E, G, D, F) || grid1 < 1 || grid2 < 1 || segs < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (quantized * 2 + (swiglu ? 1 : 0)) {
     case 0:
-      err = dispatch_decode<false, false>(x, w1, s1, b1, w2, s2, b2, h, y, E,
-                                          G, D, F, st);
+      err = dispatch_decode<false, false>(x, w1, s1, b1, w2, s2, b2, h, part,
+                                          y, E, G, D, F, nr, grid1, grid2,
+                                          segs, st);
       break;
     case 1:
-      err = dispatch_decode<false, true>(x, w1, s1, b1, w2, s2, b2, h, y, E,
-                                         G, D, F, st);
+      err = dispatch_decode<false, true>(x, w1, s1, b1, w2, s2, b2, h, part,
+                                         y, E, G, D, F, nr, grid1, grid2,
+                                         segs, st);
       break;
     case 2:
-      err = dispatch_decode<true, false>(x, w1, s1, b1, w2, s2, b2, h, y, E,
-                                         G, D, F, st);
+      err = dispatch_decode<true, false>(x, w1, s1, b1, w2, s2, b2, h, part,
+                                         y, E, G, D, F, nr, grid1, grid2,
+                                         segs, st);
       break;
     case 3:
-      err = dispatch_decode<true, true>(x, w1, s1, b1, w2, s2, b2, h, y, E, G,
-                                        D, F, st);
+      err = dispatch_decode<true, true>(x, w1, s1, b1, w2, s2, b2, h, part,
+                                        y, E, G, D, F, nr, grid1, grid2,
+                                        segs, st);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -1753,6 +2234,78 @@ extern "C" int tdp_moe_ffn_wgmma(const void* x, const void* idx,
     case 3:
       err = launch_moe_wgmma<true, true>(sm, w1, s1, b1, w2, s2, b2, h, D,
                                          F, st);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err);
+}
+
+// K6's decode tile list alone (the first launch of tdp_moe_ffn_decode):
+// comb f32 [E, C] -> tiles int32 [E ceil(C / rows)], offs int32 [E + 1].
+extern "C" int tdp_moe_tiles(const void* comb, void* tiles, void* offs,
+                             int E, int C, int rows, void* stream) {
+  if (E < 1 || C < 1 || rows < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  moe_tiles_kernel<<<1, TILES_THREADS, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(comb), static_cast<int*>(tiles),
+      static_cast<int*>(offs), E, C, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6's decode rows on the decode body: the arguments of
+// tdp_moe_ffn_wgmma, with tiles int32 [E ceil(C / 16)] / offs int32 [E +
+// 1] scratch into which the first launch lists the non-empty 16-slot
+// tiles (chunk_tiles' rule at 16 rows), h bf16 [E ceil(C / 16), 16, F]
+// scratch, part f32 [grid2, segs, 16, 128] scratch for pass 2's partial
+// sums and y f32 [T, D], every element written; grid1 / grid2 / segs as
+// for tdp_expert_ffn_decode.  Four launches (tiles, up, down, merge);
+// returns the first error.
+extern "C" int tdp_moe_ffn_decode(const void* x, const void* idx,
+                                  const void* comb, const void* dst,
+                                  void* tiles, void* offs,
+                                  const void* w1, const void* s1,
+                                  const void* b1, const void* w2,
+                                  const void* s2, const void* b2, void* h,
+                                  void* part, void* y, int T, int D, int F,
+                                  int E, int C, int swiglu, int quantized,
+                                  int grid1, int grid2, int segs,
+                                  void* stream) {
+  if (bad_shape(T, D, F, E, C) || grid1 < 1 || grid2 < 1 || segs < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err_tiles = tdp_moe_tiles(comb, tiles, offs, E, C, DEC_ROWS,
+                                      stream);
+  if (err_tiles != 0) return err_tiles;
+  const SlotMaps sm{static_cast<const __nv_bfloat16*>(x),
+                    static_cast<const int*>(idx),
+                    static_cast<const float*>(comb),
+                    static_cast<const int*>(dst),
+                    static_cast<const int*>(tiles),
+                    static_cast<const int*>(offs), static_cast<float*>(y), C,
+                    E};
+  cudaError_t err;
+  switch (quantized * 2 + (swiglu ? 1 : 0)) {
+    case 0:
+      err = launch_moe_decode<false, false>(sm, w1, s1, b1, w2, s2, b2, h,
+                                            part, T, D, F, grid1, grid2,
+                                            segs, st);
+      break;
+    case 1:
+      err = launch_moe_decode<false, true>(sm, w1, s1, b1, w2, s2, b2, h,
+                                           part, T, D, F, grid1, grid2, segs,
+                                           st);
+      break;
+    case 2:
+      err = launch_moe_decode<true, false>(sm, w1, s1, b1, w2, s2, b2, h,
+                                           part, T, D, F, grid1, grid2, segs,
+                                           st);
+      break;
+    case 3:
+      err = launch_moe_decode<true, true>(sm, w1, s1, b1, w2, s2, b2, h,
+                                          part, T, D, F, grid1, grid2, segs,
+                                          st);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -14,15 +14,24 @@ weights, and int8 weight-only experts — the ``(q8, scale)`` pairs of
 What bounds it on an H100: at decode (a few rows) the bytes of every
 expert that was hit — its whole W1 and W2, 352 MB an expert at Mixtral
 widths; at a prefill chunk (4096 rows) the operations, ``2 (T k) 3 D F``
-for SwiGLU.  K6 has two hand-written bodies, chosen by
+for SwiGLU.  K6 has three hand-written bodies, chosen by
 :func:`moe_ffn_body` from the capacity and the tokens' type:
 
-- the walk (decode's few slots, f32 tokens): a CTA owns 64 capacity slots
-  of one expert and 64 columns of F, streams its W1 and W2 slices
-  through shared memory once, and runs the products on the tensor cores
-  (``mma.sync``); a tile with no filled slot exits at once, and partial
-  sums over F tiles meet in the f32 output by atomic adds (their order
-  varies from run to run);
+- bf16 tokens at decode's few slots (below :data:`MOE_FFN_WGMMA_C_MIN`):
+  the swap-AB decode body K7's decode rows run, with the slot-map gather
+  fused in.  Only the 16-slot tiles that hold a filled slot are walked
+  (its first launch lists them on the device, :func:`chunk_tiles`' rule,
+  :func:`decode_tiles`: at C <= 16, the experts that were hit), with no
+  host sync and a fixed grid; one CTA an SM streams their weights once
+  through up to
+  16 TMA stages, pass 1's producer warpgroup gathers the token rows
+  through ``idx`` by ``cp.async`` into the layout ``wgmma`` reads, pass
+  2 splits the F sum evenly over the CTAs (stream-K) into a partials
+  scratch, and a merge launch adds each token's routed choices in
+  (expert, slot) order, each choice's runs in run order: no atomics, so
+  the output is the same bits from run to run.  Its plan is
+  :func:`moe_decode_plan`, and :func:`moe_decode_split_reference` its
+  schedule in plain form;
 - bf16 tokens at a prefill chunk's capacity: a two-pass grouped GEMM on
   the warpgroup MMA (``wgmma``), the body K7's chunk rows run, with the
   slot-map gather fused in.  Pass 1's producer warpgroup gathers each
@@ -34,7 +43,11 @@ for SwiGLU.  K6 has two hand-written bodies, chosen by
   run to run).  Only the tiles :func:`chunk_tiles` lists on the device
   (those holding a filled slot) are walked, with no host sync, so
   serving at the no-drop capacity ``C = T`` pays no ``E / k`` padded
-  tax.
+  tax;
+- f32 tokens (a check path no engine drives): the walk, a CTA a (64
+  slots, 64 columns of F) tile on ``mma.sync``, whose F-tile partial
+  sums meet in the f32 output by atomic adds (their order varies from
+  run to run).
 
 The int8 variant streams 1-byte weights (half the bytes of bf16: 176 MB
 an expert at Mixtral widths) and applies each output column's scale to
@@ -67,13 +80,15 @@ from the rows' count and type.  bf16 chunk rows (G of at least
 :data:`EXPERT_FFN_WGMMA_G_MIN`) take the two-pass grouped GEMM
 (``expert_ffn_up_wgmma_kernel`` then ``expert_ffn_down_wgmma_kernel``,
 the activation in bf16 device memory between them, the output in x's
-dtype with no atomics); bf16 decode rows take a swap-AB warpgroup body
-(``expert_ffn_up_decode_kernel`` then ``expert_ffn_down_decode_kernel``:
-the weight tile is ``wgmma``'s 64-row A side and the few rows its N
-side, one CTA an SM streams the weights, pass 2 split evenly over the
-CTAs with f32 partial sums added into y); f32 rows take the K6 walk on
-the identity slot map (``expert_ffn_kernel`` / ``expert_ffn_int8_kernel``).
-Each counts one launch a call under ``LAUNCHES["fused_expert_ffn"]`` /
+dtype with no atomics); bf16 decode rows take the swap-AB decode body
+(``expert_ffn_up_decode_kernel``, ``expert_ffn_down_decode_kernel``,
+then ``expert_ffn_merge_kernel``: the weight tile is ``wgmma``'s 64-row
+A side and the few rows its N side, one CTA an SM streams the weights,
+pass 2 split evenly over the CTAs into a partials scratch that the merge
+adds in run order, with the scale and b2, into x's dtype: the same bits
+from run to run); f32 rows take the K6 walk on the identity slot map
+(``expert_ffn_kernel`` / ``expert_ffn_int8_kernel``).  Each counts one
+launch a call under ``LAUNCHES["fused_expert_ffn"]`` /
 ``["fused_expert_ffn_int8"]``.  :func:`expert_ffn_reference` is its
 plain version (the reference's ``_ep_ffn_reference``) and
 :func:`expert_ffn_rounding_scale` the scale of its bf16 rounding.  It
@@ -90,12 +105,13 @@ forward-only, and int8 is forward-only in the reference too.
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..obs.numerics import tree_leaves
+from .paged_attention import _sm_count
 
 #: kernel launches since the counter was last reset (the wrapper adds one
 #: where it launches, and nowhere else)
@@ -124,12 +140,22 @@ _ARGTYPES = {
     # swiglu, quantized, stream
     "tdp_expert_ffn_wgmma": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
-    # K7's decode body: the same arguments (y f32, zeroed)
-    "tdp_expert_ffn_decode": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+    # K7's decode body: x, w1, s1, b1, w2, s2, b2, h, part, y, E, G, D, F,
+    # swiglu, quantized, rows, grid1, grid2, segs, stream
+    "tdp_expert_ffn_decode": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
     + [ctypes.c_void_p],
     # K6's warpgroup body: x, idx, comb, dst, tiles, offs, w1, s1, b1, w2,
     # s2, b2, h, y, T, D, F, E, C, swiglu, quantized, stream
     "tdp_moe_ffn_wgmma": [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
+    + [ctypes.c_void_p],
+    # K6's decode body: x, idx, comb, dst, tiles, offs, w1, s1, b1, w2, s2,
+    # b2, h, part, y, T, D, F, E, C, swiglu, quantized, grid1, grid2, segs,
+    # stream
+    "tdp_moe_ffn_decode": [ctypes.c_void_p] * 15 + [ctypes.c_int] * 10
+    + [ctypes.c_void_p],
+    # the decode body's tile list alone: comb, tiles, offs, E, C, rows,
+    # stream
+    "tdp_moe_tiles": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
     + [ctypes.c_void_p],
 }
 #: the fewest rows a group must have for K7 to take its warpgroup body
@@ -143,14 +169,26 @@ EXPERT_FFN_WGMMA_G_MIN = 64
 #: same sweep: the decode body beats the walk from G 1 up)
 EXPERT_FFN_DECODE_G_MIN = 1
 #: the fewest capacity slots an expert must have for K6 to take its
-#: warpgroup body (a prefill chunk's slot maps); fewer (decode's 8) and f32
-#: tokens take the walk.  Set from ``chip_smoke.py``'s
-#: ``moe_ffn_body_sweep`` at Mixtral widths: the warpgroup body is faster
-#: from C = T = 16 up, float and int8 experts alike, the walk at 8.
-MOE_FFN_WGMMA_C_MIN = 16
+#: warpgroup body (a prefill chunk's slot maps); fewer bf16 slots (decode's
+#: 8) take the decode body, f32 tokens the walk.  Set from
+#: ``chip_smoke.py``'s ``moe_ffn_body_sweep`` at Mixtral widths (C = T,
+#: top-2): the decode body is faster up to C 48, float and int8 experts
+#: alike, the warpgroup body at 64 with float experts (int8 experts still
+#: favour the decode body there; the choice reads neither)
+MOE_FFN_WGMMA_C_MIN = 64
+#: the fewest capacity slots an expert must have for K6 to take its decode
+#: body (bf16 tokens below ``MOE_FFN_WGMMA_C_MIN``); 1: every such call
+#: (the same sweep: the decode body beats the walk from C = T = 1 up), and
+#: the walk runs f32 tokens only
+MOE_FFN_DECODE_C_MIN = 1
 #: the slots of one of K6's warpgroup tiles (the unit of its empty-tile
 #: skip)
 CHUNK_ROWS = 128
+#: the slots of one of K6's decode-body tiles: at decode's C <= 16 one
+#: tile an expert, so the listed tiles are the experts that were hit
+DECODE_ROWS = 16
+#: the decode body's weight-column tile (64 columns a consumer warpgroup)
+DECODE_COLS = 128
 
 
 def _kernel(name: str):
@@ -379,15 +417,19 @@ def _launch(entry: str, name: str, args, y: torch.Tensor, *ints) -> None:
 
 
 def moe_ffn_body(C: int, dtype: torch.dtype) -> str:
-    """Which of K6's two bodies a CUDA call with ``C`` capacity slots an
+    """Which of K6's three bodies a CUDA call with ``C`` capacity slots an
     expert and tokens of ``dtype`` takes, float or int8 experts alike:
     ``'wgmma'``, the two-pass grouped GEMM on the warpgroup MMA with the
     slot-map gather fused in, for bf16 tokens at ``C`` of at least
-    :data:`MOE_FFN_WGMMA_C_MIN` (a prefill chunk's maps); ``'walk'``
-    otherwise (decode's few slots, where the weight bytes bound the call,
-    and f32 tokens)."""
+    :data:`MOE_FFN_WGMMA_C_MIN` (a prefill chunk's maps); ``'decode'``,
+    the swap-AB warpgroup body with the gather fused in and a fixed-order
+    merge, for fewer bf16 slots down to :data:`MOE_FFN_DECODE_C_MIN`
+    (decode, where the weight bytes bound the call); ``'walk'``, the
+    ``mma.sync`` walk, otherwise (f32 tokens)."""
     if dtype == torch.bfloat16 and C >= MOE_FFN_WGMMA_C_MIN:
         return "wgmma"
+    if dtype == torch.bfloat16 and C >= MOE_FFN_DECODE_C_MIN:
+        return "decode"
     return "walk"
 
 
@@ -410,6 +452,246 @@ def chunk_tiles(comb: torch.Tensor, rows: int = CHUNK_ROWS
     offs = torch.zeros(E + 1, dtype=torch.int32, device=comb.device)
     offs[1:] = busy.sum(-1).cumsum(0)
     return tiles.to(torch.int32), offs
+
+
+# ------------------------------------------------ the decode body's plan
+
+
+class DecodeSegment(NamedTuple):
+    """Part of a CTA's run of a decode-body pass: stages ``[kb, ke)`` of
+    unit ``u`` — expert ``e``, row tile ``rows`` (K6: of the expert's
+    slots), weight-column tile ``cols``, and the position ``pos`` of the
+    unit's rows in H (K6: its tile's list position; K7: ``e``)."""
+    u: int
+    e: int
+    rows: int
+    cols: int
+    pos: int
+    kb: int
+    ke: int
+
+
+def decode_rows(G: int) -> int:
+    """K7's row tile on the decode body for ``G`` rows an expert: 16 or 32
+    up to that many rows, else 64 (more rows in more tiles)."""
+    return 16 if G <= 16 else 32 if G <= 32 else 64
+
+
+def decode_depth(two_weights: bool) -> int:
+    """The reduction depth of one decode-body stage: 64 where a stage holds
+    two weight tiles (SwiGLU's pass 1, gate and up), 128 where the pass
+    streams one weight."""
+    return 64 if two_weights else 128
+
+
+def decode_grid(units1: int, units2: int, nk2: int,
+                sms: int) -> Tuple[int, int, int]:
+    """``(grid1, grid2, segs)`` of a decode-body call from the most units
+    its passes can have (``units1`` of pass 1, ``units2`` of pass 2 with
+    ``nk2`` stages each) and the card's SM count: one CTA an SM, fewer
+    where there are fewer units (pass 1) or stages (pass 2); ``segs``
+    bounds the units one pass-2 run can meet (its slots in the partials'
+    scratch ``[grid2, segs, rows, 128]``)."""
+    grid1 = max(1, min(units1, sms))
+    total = units2 * nk2
+    grid2 = max(1, min(total, sms))
+    run = -(-total // grid2)
+    return grid1, grid2, (run + nk2 - 1) // nk2 + 1
+
+
+def decode_runs(units: int, nk: int, grid: int,
+                whole: bool) -> List[List[Tuple[int, int, int]]]:
+    """Each CTA's run of a decode-body pass over ``units`` units of ``nk``
+    stages, as ``(unit, kb, ke)`` pieces in run order: pass 1 (``whole``)
+    gives CTA ``b`` units ``[units b // grid, units (b + 1) // grid)``;
+    pass 2 stages ``[units nk b // grid, units nk (b + 1) // grid)``, cut
+    where a unit ends.  A run's j-th piece is its unit ``beg // nk + j``."""
+    out = []
+    for b in range(grid):
+        if whole:
+            beg, end = units * b // grid * nk, units * (b + 1) // grid * nk
+        else:
+            beg, end = units * nk * b // grid, units * nk * (b + 1) // grid
+        run, pos = [], beg
+        while pos < end:
+            u, kb = divmod(pos, nk)
+            ke = min(nk, kb + end - pos)
+            run.append((u, kb, ke))
+            pos += ke - kb
+        out.append(run)
+    return out
+
+
+def merge_runs(u: int, nk: int, total: int, grid: int
+               ) -> List[Tuple[int, int]]:
+    """The merge's order for pass-2 unit ``u`` (of ``total`` stages over
+    ``grid`` CTAs): ``(cta, slot)`` of each run that meets the unit, in run
+    order, by the kernel's closed form — from the last CTA whose run
+    starts at or before the unit's first stage to the one holding its
+    last, empty runs skipped; ``slot`` is the unit's place in that run."""
+    s0 = u * nk
+    out = []
+    for b in range(((s0 + 1) * grid - 1) // total,
+                   ((s0 + nk) * grid - 1) // total + 1):
+        beg = total * b // grid
+        if beg < total * (b + 1) // grid:
+            out.append((b, u - beg // nk))
+    return out
+
+
+def _slot_unit(u: int, mt: int, tiles, offs, ntc: int):
+    """K6's unit ``u`` -> ``(e, row tile, column tile, list position)``:
+    the list's run for expert ``e`` holds its ``ne`` tiles from position
+    ``offs[e]``; its units take the row tile fastest, then the column
+    tile."""
+    e = tiles[u // mt] // ntc
+    o, ne = offs[e], offs[e + 1] - offs[e]
+    j = u - o * mt
+    pos = o + j % ne
+    return e, tiles[pos] - e * ntc, j // ne, pos
+
+
+def moe_decode_plan(comb: torch.Tensor, D: int, F_: int, swiglu: bool,
+                    sms: int) -> Dict[str, Any]:
+    """K6's decode-body plan on ``comb`` ``[E, C]`` (the kernels compute
+    the same on the device from :func:`chunk_tiles` at
+    :data:`DECODE_ROWS`): the grids and scratch slots from the list's
+    longest length (:func:`decode_grid`), and each CTA's run of pass 1
+    (whole units of 16 slots x 128 F columns over D) and pass 2 (16 slots
+    x 128 D columns over F, cut evenly) as :class:`DecodeSegment` lists."""
+    E, C = comb.shape
+    tiles, offs = (t.tolist() for t in chunk_tiles(comb.cpu(), DECODE_ROWS))
+    ntc = -(-C // DECODE_ROWS)
+    mt1, mt2 = -(-F_ // DECODE_COLS), -(-D // DECODE_COLS)
+    nk1 = -(-D // decode_depth(swiglu))
+    nk2 = -(-F_ // decode_depth(False))
+    grid1, grid2, segs = decode_grid(E * ntc * mt1, E * ntc * mt2, nk2, sms)
+    n = offs[E]
+
+    def pieces(mt, nk, grid, whole):
+        return [[DecodeSegment(u, *_slot_unit(u, mt, tiles, offs, ntc), kb,
+                               ke) for u, kb, ke in run]
+                for run in decode_runs(n * mt, nk, grid, whole)]
+
+    return {"tiles": tiles, "offs": offs, "grid": (grid1, grid2),
+            "segs": segs, "nk": (nk1, nk2), "mt": (mt1, mt2),
+            "up": pieces(mt1, nk1, grid1, True),
+            "down": pieces(mt2, nk2, grid2, False)}
+
+
+def expert_decode_plan(E: int, G: int, D: int, F_: int, swiglu: bool,
+                       sms: int) -> Dict[str, Any]:
+    """K7's decode-body plan on ``[E, G, D]`` rows: row tile
+    (:func:`decode_rows`), grids and scratch slots, and each CTA's run of
+    both passes as :class:`DecodeSegment` lists (units: row tile fastest,
+    then the column tile, then the expert)."""
+    nr = decode_rows(G)
+    gt = -(-G // nr)
+    mt1, mt2 = -(-F_ // DECODE_COLS), -(-D // DECODE_COLS)
+    nk1 = -(-D // decode_depth(swiglu))
+    nk2 = -(-F_ // decode_depth(False))
+    grid1, grid2, segs = decode_grid(E * gt * mt1, E * gt * mt2, nk2, sms)
+
+    def pieces(mt, nk, grid, whole):
+        return [[DecodeSegment(u, u // (gt * mt), u % gt, u // gt % mt,
+                               u // (gt * mt), kb, ke)
+                 for u, kb, ke in run]
+                for run in decode_runs(E * gt * mt, nk, grid, whole)]
+
+    return {"rows": nr, "grid": (grid1, grid2), "segs": segs,
+            "nk": (nk1, nk2), "mt": (mt1, mt2),
+            "up": pieces(mt1, nk1, grid1, True),
+            "down": pieces(mt2, nk2, grid2, False)}
+
+
+@torch.no_grad()
+def moe_decode_split_reference(experts: Dict[str, Any],
+                               tokens: torch.Tensor, idx: torch.Tensor,
+                               comb: torch.Tensor,
+                               scatter_idx: Optional[torch.Tensor] = None,
+                               sms: int = 132) -> torch.Tensor:
+    """The plain version of K6's decode-body schedule, in f32 on the
+    ``_dequant``-ed weights: pass 1's H of each listed 16-slot tile (the
+    gathered rows, an empty slot's zeroed), each pass-2 run's partial sum
+    over its F stages under :func:`moe_decode_plan`, and the merge in the
+    kernel's order — token by token its routed choices in (expert, slot)
+    order, each the sum of its unit's runs in run order
+    (:func:`merge_runs`) plus b2, scaled by its gate weight.  Returns f32
+    ``[T, D]``."""
+    T, D = tokens.shape
+    E, C = idx.shape
+    w1, b1, w2, b2 = _expert_weights_f32(experts)
+    F_ = w2.shape[1]
+    plan = moe_decode_plan(comb, D, F_, w1.dim() == 4, sms)
+    tiles, offs = plan["tiles"], plan["offs"]
+    (_, grid2), (_, nk2), (_, mt2) = plan["grid"], plan["nk"], plan["mt"]
+    R, M, K2 = DECODE_ROWS, DECODE_COLS, decode_depth(False)
+    ntc = -(-C // R)
+    dst = (idx if scatter_idx is None else scatter_idx).tolist()
+    filled = (comb != 0).tolist()
+    idx_l, comb_l = idx.tolist(), comb.tolist()
+    x = tokens.float()
+    h = []
+    for i in range(offs[E]):
+        e, t = divmod(tiles[i], ntc)
+        rows = torch.zeros(R, D, dtype=torch.float32, device=x.device)
+        for r in range(R):
+            c = t * R + r
+            if c < C and filled[e][c]:
+                rows[r] = x[idx_l[e][c]]
+        h.append(expert_act(rows, w1[e], b1[e]))
+    part = {}
+    for b, run in enumerate(plan["down"]):
+        for j, s in enumerate(run):
+            f = slice(s.kb * K2, min(s.ke * K2, F_))
+            d = slice(s.cols * M, min((s.cols + 1) * M, D))
+            part[b, j] = h[s.pos][:, f] @ w2[s.e][f, d]
+    total = offs[E] * mt2 * nk2
+    y = torch.zeros(T, D, dtype=torch.float32, device=x.device)
+    for tok in range(T):
+        for e in range(E):
+            o, ne = offs[e], offs[e + 1] - offs[e]
+            i, busy = o, False
+            for c in range(C):
+                if c % R == 0 and busy:
+                    i, busy = i + 1, False
+                if not filled[e][c]:
+                    continue
+                busy = True
+                if dst[e][c] != tok:
+                    continue
+                for ct in range(mt2):
+                    d = slice(ct * M, min((ct + 1) * M, D))
+                    v = torch.zeros(d.stop - d.start, dtype=torch.float32,
+                                    device=x.device)
+                    for b, j in merge_runs(o * mt2 + ct * ne + (i - o), nk2,
+                                           total, grid2):
+                        v = v + part[b, j][c % R]
+                    y[tok, d] += comb_l[e][c] * (v + b2[e, d])
+    return y
+
+
+def decode_tiles(comb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The decode body's tile list, :func:`chunk_tiles` at
+    :data:`DECODE_ROWS` slots a tile: on CUDA by the kernel the decode
+    body launches first (one launch, no host sync), on the CPU by
+    :func:`chunk_tiles` itself."""
+    if comb.device.type == "cpu":
+        return chunk_tiles(comb, DECODE_ROWS)
+    _check(comb.dtype == torch.float32 and comb.dim() == 2
+           and comb.is_contiguous(), "comb must be contiguous f32 [E, C]")
+    E, C = comb.shape
+    tiles = torch.empty(E * -(-C // DECODE_ROWS), dtype=torch.int32,
+                        device=comb.device)
+    offs = torch.empty(E + 1, dtype=torch.int32, device=comb.device)
+    with torch.cuda.device(comb.device):
+        err = _kernel("tdp_moe_tiles")(
+            comb.data_ptr(), tiles.data_ptr(), offs.data_ptr(), E, C,
+            DECODE_ROWS, torch.cuda.current_stream(comb.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"moe_dispatch kernel launch failed: CUDA error "
+                           f"{err}")
+    return tiles, offs
 
 
 def _named_weights(weights, quantized: bool):
@@ -437,10 +719,17 @@ def fused_moe_ffn_slots(experts: Dict[str, Any], tokens: torch.Tensor,
     the float layout, f32 scales ``[E, 2, F]`` / ``[E, F]`` for w1 and
     ``[E, D]`` for w2).  One int8 and one float weight raise
     ``NotImplementedError``, as neither variant takes the mix.
-    :func:`moe_ffn_body` picks the body; the warpgroup body lists the
-    non-empty slot tiles on the device (:func:`chunk_tiles`) and allocates
-    the activation between its passes, bf16 ``[E ceil(C / 128), 128, F]``
-    (0.94 GB at ``E`` 8, ``C`` 4096, F 14336)."""
+    :func:`moe_ffn_body` picks the body.  Both warpgroup bodies list the
+    non-empty slot tiles on the device with no host sync (the chunk body
+    by :func:`chunk_tiles`, the decode body in its first launch, the same
+    rule) and allocate the activation between their passes: the chunk body
+    bf16 ``[E ceil(C / 128), 128, F]`` (0.94 GB at ``E`` 8, ``C`` 4096, F
+    14336), the decode body bf16 ``[E ceil(C / 16), 16, F]`` (3.7 MB at
+    decode's ``C`` 8) and f32 pass-2 partials ``[grid2, segs, 16, 128]``
+    sized from the grid (:func:`decode_grid`; 3.2 MB on 132 SMs).  The
+    decode body writes every element of the output in a fixed order, so
+    its result is the same bits from run to run; the walk's (f32 tokens)
+    is not."""
     quantized = _quantized(experts, "K6")
     if tokens.device.type == "cpu":
         _check(all(t.device.type == "cpu"
@@ -464,11 +753,32 @@ def fused_moe_ffn_slots(experts: Dict[str, Any], tokens: torch.Tensor,
            f"scatter_idx must be int32 [{E}, {C}]")
     name, entry = (("fused_moe_ffn_int8", "tdp_moe_ffn_int8") if quantized
                    else ("fused_moe_ffn", "tdp_moe_ffn"))
-    y = torch.zeros(T, D, dtype=torch.float32, device=tokens.device)
-    if moe_ffn_body(C, tokens.dtype) == "wgmma":
+    dev = tokens.device
+    body = moe_ffn_body(C, tokens.dtype)
+    if body == "decode":
+        # the first launch lists the tiles (chunk_tiles' rule); every
+        # element of y is written by the merge, in a fixed order
+        n_max = E * -(-C // DECODE_ROWS)
+        tiles = torch.empty(n_max, dtype=torch.int32, device=dev)
+        offs = torch.empty(E + 1, dtype=torch.int32, device=dev)
+        grid1, grid2, segs = decode_grid(
+            n_max * -(-Fd // DECODE_COLS), n_max * -(-D // DECODE_COLS),
+            -(-Fd // decode_depth(False)), _sm_count(dev))
+        h = torch.empty(n_max, DECODE_ROWS, Fd, dtype=tokens.dtype,
+                        device=dev)
+        part = torch.empty(grid2 * segs * DECODE_ROWS * DECODE_COLS,
+                           dtype=torch.float32, device=dev)
+        y = torch.empty(T, D, dtype=torch.float32, device=dev)
+        _launch("tdp_moe_ffn_decode", name,
+                (tokens, idx, comb, dst, tiles, offs)
+                + _named_weights(weights, quantized) + (h, part), y, T, D,
+                Fd, E, C, int(swiglu), int(quantized), grid1, grid2, segs)
+        return y
+    y = torch.zeros(T, D, dtype=torch.float32, device=dev)
+    if body == "wgmma":
         tiles, offs = chunk_tiles(comb)
         h = torch.empty(tiles.numel(), CHUNK_ROWS, Fd, dtype=tokens.dtype,
-                        device=tokens.device)
+                        device=dev)
         _launch("tdp_moe_ffn_wgmma", name,
                 (tokens, idx, comb, dst, tiles, offs)
                 + _named_weights(weights, quantized) + (h,), y, T, D, Fd, E,
@@ -533,7 +843,10 @@ def fused_expert_ffn(experts: Dict[str, Any],
     the rows' dtype.  :func:`expert_ffn_body` picks the body; both
     warpgroup bodies allocate the ``[e_loc, G, F]`` activation between
     their passes (0.94 GB at ``[8, 4096, 4096]``, F 14336; 1.8 MB at
-    decode's ``[8, 8, 4096]``).  Forward only, as K6."""
+    decode's ``[8, 8, 4096]``), the decode body also its f32 pass-2
+    partials, sized from the grid (:func:`decode_grid`), which a merge
+    launch adds in a fixed order: its output is the same bits from run
+    to run.  Forward only, as K6."""
     quantized = _quantized(experts, "K7")
     if x.device.type == "cpu":
         _check(all(t.device.type == "cpu" for t in tree_leaves(experts)),
@@ -547,16 +860,26 @@ def fused_expert_ffn(experts: Dict[str, Any],
     name = "fused_expert_ffn_int8" if quantized else "fused_expert_ffn"
     body = expert_ffn_body(G, x.dtype)
     if body != "walk":
-        # the activation between the passes; the chunk body writes y in
-        # x's dtype directly, the decode body adds partial sums into f32
+        # the activation between the passes; both bodies write every
+        # element of y in x's dtype
         h = torch.empty(E, G, Fd, dtype=x.dtype, device=x.device)
-        chunk = body == "wgmma"
-        y = (torch.empty_like(x) if chunk else
-             torch.zeros(E, G, D, dtype=torch.float32, device=x.device))
-        _launch("tdp_expert_ffn_wgmma" if chunk else "tdp_expert_ffn_decode",
-                name, (x,) + _named_weights(weights, quantized) + (h,), y, E,
-                G, D, Fd, int(swiglu), int(quantized))
-        return y if chunk else y.to(x.dtype)
+        y = torch.empty_like(x)
+        named = _named_weights(weights, quantized)
+        if body == "wgmma":
+            _launch("tdp_expert_ffn_wgmma", name, (x,) + named + (h,), y, E,
+                    G, D, Fd, int(swiglu), int(quantized))
+            return y
+        nr = decode_rows(G)
+        units = E * -(-G // nr)
+        grid1, grid2, segs = decode_grid(
+            units * -(-Fd // DECODE_COLS), units * -(-D // DECODE_COLS),
+            -(-Fd // decode_depth(False)), _sm_count(x.device))
+        part = torch.empty(grid2 * segs * nr * DECODE_COLS,
+                           dtype=torch.float32, device=x.device)
+        _launch("tdp_expert_ffn_decode", name, (x,) + named + (h, part), y,
+                E, G, D, Fd, int(swiglu), int(quantized), nr, grid1, grid2,
+                segs)
+        return y
     entry = "tdp_expert_ffn_int8" if quantized else "tdp_expert_ffn"
     y = torch.zeros(E, G, D, dtype=torch.float32, device=x.device)
     _launch(entry, name, (x,) + weights, y, E, G, D, Fd, int(swiglu), tag)
