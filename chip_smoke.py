@@ -97,7 +97,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel family; the kernel path against the plain ('naive') path on
    identical weights and batch at batch 2 (loss and every gradient
    leaf, bf16 and f32); 2 steps at Mistral-7B-v0.1 widths (2 layers, S
-   8192) through GQA, the window, RoPE and SwiGLU.
+   8192) through GQA, the window, RoPE and SwiGLU; then data parallel
+   (``dp_train_phase``): a one-rank NCCL group and ``tpc``'s ``data``
+   axis, the GPT-125M run through ``make_train_step`` and through
+   ``DataParallel.make_train_step`` (25 MB buckets, per-layer slice
+   hooks), losses and parameters after 10 steps bit-identical, K3-K5
+   once a layer a step, the step medians, the bucket count and the
+   bytes whose all-reduce started inside the backward; remat
+   'flash_offload' (losses equal to 'flash', step median; then, in one
+   helper on one set of parameters and one batch, a forward and
+   backward in each mode: the card bytes held at the end of the forward
+   lower by the 12 kept ``o`` (12 B S D 2 bytes, within 1 %), the peak
+   at least 0.5 GB lower); dropout 0.1 twice under one key (3 steps,
+   bit-identical, apart from rate 0).
 5. serve   — Mistral-7B-v0.1 widths, all 32 layers, bf16, random weights:
    ``paged_forward`` with K1 against the plain path on identical tokens
    (teacher-forced logits), then ``ServingEngine`` serves 16 requests
@@ -147,6 +159,7 @@ training steps, each engine run) and read just after.
 import contextlib
 import ctypes
 import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -2137,6 +2150,242 @@ def mistral_train_phase(card):
     return out
 
 
+def dp_train_run(cfg, rows, steps, remat="flash", dp=None, dropout_key=None):
+    """``steps`` AdamW steps of GPT ``cfg`` on the fixed batch of
+    ``train_run`` (the same init seed and batch), through
+    ``make_train_step`` or, with ``dp``, ``DataParallel.make_train_step``
+    (the batch through ``dp.shard_batch``).  The kernels' counts are set
+    to 0 just before the steps and read just after; the peak memory is
+    over the steps, less what was allocated before the run began (so
+    runs made one after another compare), its gradients freed at the
+    end."""
+    from torchdistpackage_tpu_torch.models import gpt_loss, init_gpt_params
+    from torchdistpackage_tpu_torch.obs.numerics import tree_leaves
+    from torchdistpackage_tpu_torch.ops import flash_attention as fa
+    from torchdistpackage_tpu_torch.parallel.data_parallel import (
+        adamw,
+        make_train_step,
+    )
+
+    gc.collect()  # an earlier run's tensors, freed before the baseline
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params = init_gpt_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    opt = adamw(3e-4)
+    state = opt.init(params)
+
+    def loss_fn(p, b):
+        return gpt_loss(p, b, cfg, remat=remat, dropout_key=dropout_key)
+
+    if dp is None:
+        step = make_train_step(loss_fn, opt)
+        batch = random_batch(cfg, rows, 1)
+    else:
+        step = dp.make_train_step(loss_fn, opt)
+        batch = dp.shard_batch(random_batch(cfg, rows, 1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, times = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss, _ = step(params, state, batch)
+        losses.append(float(loss))  # reads back: waits for the step
+        times.append(time.perf_counter() - t0)
+    out = {"losses": losses, "times": times, "launches": dict(fa.LAUNCHES),
+           "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+           "params": params,
+           "stats": None if dp is None else dict(dp.last_stats)}
+    del state
+    for p in tree_leaves(params):
+        p.grad = None
+    return out
+
+
+def remat_memory(cfg, rows, modes):
+    """For each remat mode, on one set of GPT ``cfg`` parameters (init
+    seed 0) and ``train_run``'s batch: the card bytes allocated at the
+    end of the forward and the peak over the forward and backward, both
+    less what was allocated before the forward.  Each mode runs once to
+    warm up (kernels built, library workspaces made), then once measured;
+    the grads are freed after each pass, so every pass starts from the
+    same allocations."""
+    from torchdistpackage_tpu_torch.models import gpt_loss, init_gpt_params
+    from torchdistpackage_tpu_torch.obs.numerics import tree_leaves
+
+    params = init_gpt_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    batch = random_batch(cfg, rows, 1)
+
+    def settle():
+        torch.cuda.synchronize()
+        # frees held back by record_stream (the offload copies) are
+        # returned at the allocator's next call
+        torch.empty(1, device="cuda")
+        gc.collect()
+        return torch.cuda.memory_allocated()
+
+    out = {}
+    for mode in modes:
+        for _ in range(2):  # warm-up pass, measured pass
+            for p in tree_leaves(params):
+                p.grad = None
+            base = settle()
+            torch.cuda.reset_peak_memory_stats()
+            loss = gpt_loss(params, batch, cfg, remat=mode)
+            held = settle() - base
+            loss.backward()
+            del loss
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+        out[mode] = {"held": held, "peak": peak}
+    for p in tree_leaves(params):
+        p.grad = None
+    del params, batch
+    settle()
+    return out
+
+
+def median_ms(times, warmup=3):
+    return float(np.median(times[warmup:])) * 1e3
+
+
+DP_DROPOUT = 0.1
+
+
+def dp_train_phase(card):
+    """The data-parallel training path at world 1 on the card: a one-rank
+    NCCL group (``init_distributed``), ``tpc.setup_process_groups([('data',
+    1)])``, then GPT-125M as ``train_phase`` trains it (batch 16, S 2048,
+    bf16, remat 'flash', 10 AdamW steps, the same init seed and batch):
+
+    - through ``make_train_step`` and through ``DataParallel.make_train_step``
+      (25 MB buckets, per-layer slice hooks): losses and every parameter
+      after step 10 bit-identical (a mean over one rank is exact); K3-K5
+      launched once a layer a step on the data-parallel run; step medians,
+      the bucket count and the bytes whose all-reduce started before the
+      backward returned and before the block stack's backward was done;
+    - remat 'flash_offload' (o in pinned host memory): the losses equal
+      the 'flash' run's, the step median; then ``remat_memory`` for both
+      modes: the bytes held at the end of the forward lower by the kept
+      ``o`` of every layer (``nlayers`` B S D 2 bytes, within 1 %) and
+      the peak at least 0.5 GB lower;
+    - residual dropout 0.1 keyed by ``axis_unique_key(key, 'data')``: two
+      3-step runs bit-identical, finite, and apart from the rate-0 run."""
+    import torch.distributed as dist
+
+    from torchdistpackage_tpu_torch.dist import init_distributed, tpc
+    from torchdistpackage_tpu_torch.obs.numerics import tree_leaves
+    from torchdistpackage_tpu_torch.parallel.data_parallel import (
+        DataParallel,
+    )
+    from torchdistpackage_tpu_torch.utils import axis_unique_key
+
+    cfg, rows, steps = gpt_125m(), TRAIN_BATCH, 10
+    init_distributed(f"tcp://127.0.0.1:{free_port()}", 1, 0, "cuda")
+    try:
+        tpc.setup_process_groups([("data", 1)])
+        group = tpc.get_group("data")
+        if dist.get_backend(group) != "nccl":
+            raise RuntimeError("the data group on the card must use NCCL")
+        single = dp_train_run(cfg, rows, steps)
+        dp = DataParallel()
+        par = dp_train_run(cfg, rows, steps, dp=dp)
+        same_params = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(par["params"]), tree_leaves(single["params"])))
+        want = cfg.nlayers * steps
+        s = par["stats"]
+        log(f"[dp-train] GPT-125M, batch 16, S 2048, bf16, remat 'flash', "
+            f"{steps} steps, DataParallel over a one-rank NCCL group: losses "
+            + ", ".join(f"{x:.6f}" for x in par["losses"])
+            + f"; bit-identical to make_train_step: losses "
+            f"{par['losses'] == single['losses']}, parameters {same_params};"
+            f" step median {median_ms(par['times']):.2f} ms (make_train_step "
+            f"{median_ms(single['times']):.2f} ms); launches "
+            f"{par['launches']} ({want} each); peak memory over the run's "
+            f"start {par['peak_gb']:.3f} GB (make_train_step "
+            f"{single['peak_gb']:.3f}) — on {card}")
+        log(f"[dp-train] buckets a step {s['buckets']} of at most 25 MB, "
+            f"{s['bytes'] / 1e6:.1f} MB reduced; all-reduce started before "
+            f"the backward returned: {s['bytes_before_backward_returned'] / 1e6:.1f}"
+            f" MB; before the block stack's backward was done: "
+            f"{s['bytes_before_blocks_done'] / 1e6:.1f} MB — on {card}")
+        if par["losses"] != single["losses"] or not same_params:
+            raise RuntimeError("the data-parallel step at world 1 is not "
+                               "bit-identical to make_train_step")
+        if any(n != want for n in par["launches"].values()):
+            raise RuntimeError(f"flash launches {par['launches']}: each "
+                               f"kernel must launch once a layer a step")
+        dp_ms = median_ms(par["times"])
+        del par, dp
+        torch.cuda.empty_cache()
+
+        off = dp_train_run(cfg, rows, steps, remat="flash_offload")
+        same = off["losses"] == single["losses"]
+        log(f"[dp-train] remat 'flash_offload': losses "
+            + ", ".join(f"{x:.6f}" for x in off["losses"])
+            + f" (equal to 'flash': {same}); step median "
+            f"{median_ms(off['times']):.2f} ms ('flash' "
+            f"{median_ms(single['times']):.2f}, x"
+            f"{median_ms(off['times']) / median_ms(single['times']):.3f}); "
+            f"launches {off['launches']} — on {card}")
+        if not same:
+            raise RuntimeError("remat 'flash_offload' changed the losses")
+        off_ms = median_ms(off["times"])
+        del off
+        torch.cuda.empty_cache()
+        mem = remat_memory(cfg, rows, ("flash", "flash_offload"))
+        kept_o = cfg.nlayers * rows * cfg.max_seq * cfg.dim * 2  # bf16
+        held = mem["flash"]["held"] - mem["flash_offload"]["held"]
+        saved = (mem["flash"]["peak"] - mem["flash_offload"]["peak"]) / 1e9
+        log(f"[dp-train] remat memory, one forward and backward each on "
+            f"the same parameters and batch: held at the end of the "
+            f"forward 'flash' {mem['flash']['held']} B, 'flash_offload' "
+            f"{mem['flash_offload']['held']} B, {held} B lower (the kept "
+            f"o: {cfg.nlayers} x B S D x 2 = {kept_o} B); peak 'flash' "
+            f"{mem['flash']['peak'] / 1e9:.3f} GB, 'flash_offload' "
+            f"{mem['flash_offload']['peak'] / 1e9:.3f} GB, {saved:.3f} GB "
+            f"lower — on {card}")
+        if abs(held - kept_o) > 0.01 * kept_o:
+            raise RuntimeError(f"remat 'flash_offload' moved {held} B off "
+                               f"the card at the end of the forward, not "
+                               f"the kept o's {kept_o} B")
+        if saved < 0.5:
+            raise RuntimeError(f"remat 'flash_offload' saved {saved:.3f} GB "
+                               f"of peak memory, not >= 0.5")
+
+        dcfg = dataclasses.replace(cfg, dropout_rate=DP_DROPOUT)
+        key = axis_unique_key(1234, "data")
+        runs = [dp_train_run(dcfg, rows, 3, dp=DataParallel(),
+                             dropout_key=key) for _ in range(2)]
+        d0, d1 = (r["losses"] for r in runs)
+        log(f"[dp-train] dropout {DP_DROPOUT}, the same key twice, 3 steps: "
+            + ", ".join(f"{x:.6f}" for x in d0) + " / "
+            + ", ".join(f"{x:.6f}" for x in d1)
+            + f" (bit-identical: {d0 == d1}; rate 0: "
+            + ", ".join(f"{x:.6f}" for x in single["losses"][:3])
+            + f"); step times " + ", ".join(
+                f"{t * 1e3:.1f}" for t in runs[0]["times"])
+            + f" ms — on {card}")
+        if not (d0 == d1 and all(np.isfinite(d0))
+                and d0 != single["losses"][:3]):
+            raise RuntimeError("dropout runs not repeatable, not finite, or "
+                               "equal to the rate-0 run")
+        out = {"dp_ms": dp_ms, "single_ms": median_ms(single["times"]),
+               "offload_ms": off_ms, "offload_saved_gb": saved,
+               "offload_held_bytes": held, "stats": s}
+        del runs, single
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        tpc.reset()
+    return out
+
+
 # ------------------------------------------------------------ phase 6
 
 
@@ -3163,6 +3412,7 @@ def main():
     train = train_phase(card)
     path_parity_phase()
     mistral_train_phase(card)
+    dp_train_phase(card)
     log(f"[time] training done at {time.perf_counter() - t_start:.0f} s")
 
     # 5. the serving path: full-width teacher-forced, then the engine

@@ -191,7 +191,10 @@ def _imports(path):
 
 def test_port_imports_no_jax():
     files = sorted((REPO / "torchdistpackage_tpu_torch").rglob("*.py"))
-    files += [REPO / "chip_smoke.py", REPO / "tests" / "_torch_ep_worker.py"]
+    files += [REPO / "chip_smoke.py"]
+    files += sorted((REPO / "tests").glob("_torch_*_worker.py"))
+    files += sorted((REPO / "tests").glob("test_torch_*_cuda.py"))
+    files += [REPO / "tests" / "test_torch_cuda_kernels.py"]
     assert len(files) > 10
     for path in files:
         for mod in _imports(path):

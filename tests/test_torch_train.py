@@ -143,12 +143,17 @@ def test_remat_modes_validated():
     params = _torch_params(np_params, cfg)
     with pytest.raises(ValueError, match="remat"):
         gpt_loss(params, _torch_batch(batch), cfg, remat="flsh")
-    with pytest.raises(NotImplementedError, match="flash_offload"):
-        gpt_loss(params, _torch_batch(batch), cfg, remat="flash_offload")
-    with pytest.raises(NotImplementedError, match="dropout"):
+    # 'flash_offload' is 'flash' on the CPU; a dropout rate without a
+    # dropout_key is the identity, as in the reference
+    flash = gpt_loss(params, _torch_batch(batch), cfg, remat="flash")
+    assert torch.equal(
+        gpt_loss(params, _torch_batch(batch), cfg, remat="flash_offload"),
+        flash)
+    assert torch.equal(
         gpt_loss(params, _torch_batch(batch),
                  llama_config(**LLAMA, dtype=torch.float32,
-                              dropout_rate=0.1))
+                              dropout_rate=0.1)),
+        gpt_loss(params, _torch_batch(batch), cfg))
     with pytest.raises(NotImplementedError, match="Training CP"):
         gpt_loss(params, _torch_batch(batch),
                  llama_config(**{**LLAMA, "sliding_window": None,

@@ -16,7 +16,7 @@ PyTorch version stays beside it as the oracle and as the CPU path.
 from .device import resolve_device
 
 _SUBPACKAGES = ("dist", "models", "obs", "ops", "parallel", "serving",
-                "tools")
+                "tools", "utils")
 
 
 def __getattr__(name: str):

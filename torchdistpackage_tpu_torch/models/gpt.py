@@ -47,7 +47,7 @@ class GPTConfig:
     dtype: torch.dtype = torch.float32
     # 'naive' (plain score matrix) | 'flash' (kernels K3-K5)
     attn_impl: str = "naive"
-    dropout_rate: float = 0.0  # refused above 0 until dropout is ported
+    dropout_rate: float = 0.0  # residual dropout (needs a dropout_key)
     kv_heads: Optional[int] = None
     # 'learned' (table added at embed) | 'rope' (q/k rotated in attention)
     pos: str = "learned"
@@ -207,18 +207,24 @@ def gpt_embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def gpt_hidden(params: Params, tokens: torch.Tensor, cfg: GPTConfig,
-               remat: RematMode = False) -> torch.Tensor:
+               remat: RematMode = False,
+               dropout_key: Optional[int] = None) -> torch.Tensor:
     """tokens [B, S] -> hidden after the block stack [B, S, D] (before
-    the final norm).  ``remat``: False | True | 'flash' — see
-    :func:`..parallel.tensor_parallel.layers.scan_blocks`."""
+    the final norm).  ``remat``: False | True | 'flash' | 'flash_offload'
+    — see :func:`..parallel.tensor_parallel.layers.scan_blocks`.
+    ``dropout_key`` turns on residual dropout at ``cfg.dropout_rate``;
+    under data parallelism derive it with
+    ``utils.random.axis_unique_key(key, 'data')``."""
     h = gpt_embed(params, tokens)
-    return scan_blocks(params["blocks"], h, cfg.block, remat=remat)
+    return scan_blocks(params["blocks"], h, cfg.block, remat=remat,
+                       dropout_key=dropout_key)
 
 
 def gpt_forward(params: Params, tokens: torch.Tensor, cfg: GPTConfig,
-                remat: RematMode = False) -> torch.Tensor:
+                remat: RematMode = False,
+                dropout_key: Optional[int] = None) -> torch.Tensor:
     """tokens [B, S] -> logits [B, S, V]."""
-    h = gpt_hidden(params, tokens, cfg, remat=remat)
+    h = gpt_hidden(params, tokens, cfg, remat=remat, dropout_key=dropout_key)
     return gpt_head(params, h, eps=cfg.norm_eps)
 
 
@@ -252,16 +258,18 @@ def streamed_head_loss(params: Params, h: torch.Tensor,
 
 
 def gpt_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: GPTConfig,
-             remat: RematMode = False,
+             remat: RematMode = False, dropout_key: Optional[int] = None,
              xent_chunk: Optional[int] = None) -> torch.Tensor:
     """Mean next-token cross-entropy.  ``batch``: {'tokens': [B, S],
     'targets': [B, S]}.  ``xent_chunk`` streams the head and the loss
     over sequence chunks of that size (:func:`streamed_head_loss`)."""
     if xent_chunk is not None:
-        h = gpt_hidden(params, batch["tokens"], cfg, remat=remat)
+        h = gpt_hidden(params, batch["tokens"], cfg, remat=remat,
+                       dropout_key=dropout_key)
         return streamed_head_loss(params, h, batch["targets"],
                                   chunk=xent_chunk, eps=cfg.norm_eps)
-    logits = gpt_forward(params, batch["tokens"], cfg, remat=remat)
+    logits = gpt_forward(params, batch["tokens"], cfg, remat=remat,
+                         dropout_key=dropout_key)
     return vocab_parallel_xent(logits, batch["targets"])
 
 

@@ -379,22 +379,65 @@ _STASH: contextvars.ContextVar = contextvars.ContextVar("flash_stash",
                                                         default=None)
 
 
+class _Offloaded:
+    """A kept ``o`` parked in pinned host memory (remat 'flash_offload'):
+    copied out on a side stream behind the forward, copied back on the
+    same stream when the block's recompute starts, and waited for by the
+    stream that reads it."""
+
+    def __init__(self, o: torch.Tensor):
+        self.device = o.device
+        self.stream = torch.cuda.Stream(self.device)  # from torch's pool
+        self.host = torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self.stream):
+            self.host.copy_(o, non_blocking=True)
+        o.record_stream(self.stream)  # o's memory waits for the copy
+        self.back = self.arrived = None
+
+    def prefetch(self) -> None:
+        if self.back is not None:
+            return
+        with torch.cuda.stream(self.stream):
+            self.back = torch.empty(self.host.shape, dtype=self.host.dtype,
+                                    device=self.device)
+            self.back.copy_(self.host, non_blocking=True)
+            self.arrived = torch.cuda.Event()
+            self.arrived.record(self.stream)
+
+    def get(self) -> torch.Tensor:
+        self.prefetch()
+        cur = torch.cuda.current_stream(self.device)
+        cur.wait_event(self.arrived)
+        self.back.record_stream(cur)
+        return self.back
+
+
 @contextlib.contextmanager
-def _stash_mode(stash: List, mode: str):
-    token = _STASH.set((stash, mode))
+def _stash_mode(stash: List, mode: str, offload: bool = False):
+    if mode == "replay":
+        for o, _ in stash:
+            if isinstance(o, _Offloaded):
+                o.prefetch()
+    token = _STASH.set((stash, mode, offload))
     try:
         yield
     finally:
         _STASH.reset(token)
 
 
-def flash_residual_contexts():
+def flash_residual_contexts(offload: bool = False):
     """``context_fn`` for ``torch.utils.checkpoint``: the forward context
     keeps each flash call's ``(o, lse)``, the recompute context hands them
     back instead of launching K3 again — the counterpart of the
-    reference's ``save_only_these_names('flash_out', 'flash_lse')``."""
+    reference's ``save_only_these_names('flash_out', 'flash_lse')``.
+    ``offload`` (remat 'flash_offload', the reference's
+    ``save_and_offload_only_these_names``): a CUDA ``o`` is kept in
+    pinned host memory instead (:class:`_Offloaded`) and ``lse`` on the
+    card; on the CPU it is the same as 'flash'."""
     stash: List = []
-    return _stash_mode(stash, "record"), _stash_mode(stash, "replay")
+    return (_stash_mode(stash, "record", offload),
+            _stash_mode(stash, "replay", offload))
 
 
 class _Flash(torch.autograd.Function):
@@ -427,11 +470,15 @@ class _Flash(torch.autograd.Function):
 def _flash(q, k, v, sm_scale, causal, window):
     stash = _STASH.get()
     if stash is not None and stash[1] == "replay" and stash[0]:
-        return _Flash.apply(q, k, v, sm_scale, causal, window,
-                            stash[0].pop(0))
+        o, lse = stash[0].pop(0)
+        if isinstance(o, _Offloaded):
+            o = o.get()
+        return _Flash.apply(q, k, v, sm_scale, causal, window, (o, lse))
     o, lse = _Flash.apply(q, k, v, sm_scale, causal, window, None)
     if stash is not None and stash[1] == "record":
-        stash[0].append((o.detach(), lse.detach()))
+        kept = (_Offloaded(o.detach()) if stash[2] and o.is_cuda
+                else o.detach())
+        stash[0].append((kept, lse.detach()))
     return o, lse
 
 

@@ -1,2 +1,2 @@
-"""Parallel layers and the train step — the serial block math and the
-single-device step so far."""
+"""Parallel layers and the train step — the serial block math, the
+single-device step and data parallelism (``data_parallel.DataParallel``)."""

@@ -13,14 +13,19 @@ Tensor parallelism is not ported yet (ROADMAP queue A): every function
 here is the ``axis=None`` branch of its reference.  The training block
 (:func:`block_forward`, :func:`scan_blocks`) runs its attention through
 :func:`core_attention`: the plain ``'naive'`` path or the flash kernels
-K3-K5 (``ops/flash_attention.py``).
+K3-K5 (``ops/flash_attention.py``), with residual dropout
+(:func:`dropout`) when a key is given.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
+import functools
 import math
-from typing import Dict, Optional, Tuple, Union
+import warnings
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -29,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 from ...device import resolve_device
 from ...obs.numerics import tree_leaves
 from ...tools.surgery import int8_matmul, is_int8_weight
+from ...utils.random import fold_in, split
 
 Params = Dict[str, torch.Tensor]
 
@@ -46,7 +52,8 @@ class TransformerConfig:
     ``attn_impl``: ``'naive'`` (the [S, S] score matrix, plain ops) or
     ``'flash'`` (kernels K3-K5); ``'ring'``/``'ulysses'`` are context
     parallel and queued (ROADMAP, queue A: "Training CP").
-    ``dropout_rate`` must be 0 until dropout is ported."""
+    ``dropout_rate``: residual dropout, applied when the caller passes a
+    ``dropout_key``."""
 
     dim: int
     nheads: int
@@ -325,27 +332,83 @@ def attention_partial(p: Params, x: torch.Tensor, cfg: TransformerConfig,
     return dense(out.transpose(1, 2).reshape(B, S, -1), p["wo"])
 
 
+def dropout(x: torch.Tensor, rate: float, key: Optional[int]
+            ) -> torch.Tensor:
+    """Inverted dropout; the identity when ``key`` is None or ``rate`` is
+    0.  The mask is drawn from a ``torch.Generator`` on ``x``'s device
+    (Philox on the card) seeded with ``key`` alone, so the same key gives
+    the same mask — a checkpointed block's recompute included, whatever
+    any generator's running state.  Derive the key per data rank with
+    ``utils.random.axis_unique_key(key, 'data')`` so data shards draw
+    distinct masks while tensor shards agree."""
+    if key is None or rate == 0.0:
+        return x
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(key)
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def block_forward(p: Params, x: torch.Tensor, cfg: TransformerConfig,
-                  rope=None) -> torch.Tensor:
+                  rope=None, dropout_key: Optional[int] = None
+                  ) -> torch.Tensor:
     """Pre-norm block: x + attn(norm(x)) + bo, then + mlp(norm(.)) + b2.
-    Residual dropout is refused until it is ported (``bench.py`` trains
-    with rate 0)."""
-    if cfg.dropout_rate > 0.0:
-        raise NotImplementedError(
-            "residual dropout is not ported yet (ROADMAP queue A)")
+    ``dropout_key`` turns on residual dropout at ``cfg.dropout_rate`` on
+    both branches, each site with its own key."""
+    k_attn = k_mlp = None
+    if dropout_key is not None and cfg.dropout_rate > 0.0:
+        k_attn, k_mlp = split(dropout_key)
     h = layer_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + (attention_partial(p["attn"], h, cfg, rope=rope)
-             + p["attn"]["bo"])
+    x = x + dropout(attention_partial(p["attn"], h, cfg, rope=rope)
+                    + p["attn"]["bo"], cfg.dropout_rate, k_attn)
     h = layer_norm(x, p["ln2"], cfg.norm_eps)
-    return x + (mlp_partial(p["mlp"], h) + p["mlp"]["b2"])
+    return x + dropout(mlp_partial(p["mlp"], h) + p["mlp"]["b2"],
+                       cfg.dropout_rate, k_mlp)
 
 
 #: ``remat`` values: False/None (no checkpointing), True (each block
 #: recomputed in the backward), 'flash' (recomputed, but the flash
-#: kernel's (o, lse) are kept, so the backward does not run K3 again);
-#: 'flash_offload' (the same with o parked in host memory) is queued.
+#: kernel's (o, lse) are kept, so the backward does not run K3 again),
+#: 'flash_offload' ('flash' with each kept o parked in pinned host
+#: memory between the forward and the backward; lse stays on the card).
 RematMode = Union[bool, None, str]
 _REMAT_MODES = (False, None, True, "flash", "flash_offload")
+
+
+def _device_hbm_bytes(device: torch.device) -> Optional[int]:
+    """The card's memory, or None off the card."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.get_device_properties(device).total_memory
+
+
+def offload_advice(cfg: TransformerConfig, x_shape: Tuple[int, ...],
+                   nlayers: int, hbm_bytes: Optional[int] = None,
+                   device: Optional[torch.device] = None) -> Optional[str]:
+    """Guard-rail for ``remat='flash_offload'``: a warning when the
+    'flash' policy's resident activations fit comfortably (under half of
+    the device's memory), where the offload's copies buy nothing; None when
+    the offload is plausibly needed or the memory is unknown (the CPU).
+    The estimate, as the reference's: per block one boundary carry and
+    the saved o ([B, S, D] in ``cfg.dtype`` each) and the f32 lse [B, H,
+    S]; parameters, optimizer state and temporaries are not modelled."""
+    if hbm_bytes is None and device is not None:
+        hbm_bytes = _device_hbm_bytes(device)
+    if not hbm_bytes:
+        return None
+    B, S, D = x_shape
+    dt = torch.empty((), dtype=cfg.dtype).element_size()
+    total = nlayers * (2 * B * S * D * dt + B * cfg.nheads * S * 4)
+    if total >= 0.5 * hbm_bytes:
+        return None
+    return (
+        f"remat='flash_offload': the 'flash' policy's resident activations "
+        f"are ~{total / 1e9:.2f} GB for this config against "
+        f"~{hbm_bytes / 1e9:.1f} GB of device memory, so plain "
+        f"remat='flash' should fit; 'flash_offload' adds a copy of each "
+        f"block's o to host memory and back every step, which pays only "
+        f"when 'flash' runs out of memory.")
 
 
 def checkpoint_block(fn, remat: RematMode):
@@ -355,14 +418,12 @@ def checkpoint_block(fn, remat: RematMode):
         raise ValueError(f"remat must be one of {_REMAT_MODES}, got {remat!r}")
     if not remat:
         return fn
-    if remat == "flash_offload":
-        raise NotImplementedError(
-            "remat='flash_offload' is not ported yet (ROADMAP queue A)")
     kw = {}
-    if remat == "flash":
+    if remat in ("flash", "flash_offload"):
         from ...ops.flash_attention import flash_residual_contexts
 
-        kw["context_fn"] = flash_residual_contexts
+        kw["context_fn"] = functools.partial(
+            flash_residual_contexts, offload=remat == "flash_offload")
 
     def wrapped(*args):
         return checkpoint(fn, *args, use_reentrant=False,
@@ -370,29 +431,78 @@ def checkpoint_block(fn, remat: RematMode):
     return wrapped
 
 
+# Set by :func:`grad_taps` (data parallelism) while a forward runs.
+_GRAD_TAP: contextvars.ContextVar = contextvars.ContextVar("grad_tap",
+                                                         default=None)
+
+
+class _GradTap(torch.autograd.Function):
+    """The identity, whose backward first hands the incoming gradient to
+    a callback."""
+
+    @staticmethod
+    def forward(ctx, x, fn):
+        ctx.fn = fn
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.fn(g)
+        return g, None
+
+
+@contextlib.contextmanager
+def grad_taps(callback: Callable[[torch.Tensor, int, torch.Tensor], None]):
+    """While active, :func:`scan_blocks` passes each layer's slice of a
+    stacked leaf that requires grad through an identity whose backward
+    calls ``callback(leaf, layer, grad)`` as soon as that layer's
+    backward has produced the slice's gradient — long before the stacked
+    leaf's own gradient exists (it is formed once layer 0's backward is
+    done).  The gradients themselves are unchanged."""
+    token = _GRAD_TAP.set(callback)
+    try:
+        yield
+    finally:
+        _GRAD_TAP.reset(token)
+
+
 def scan_blocks(stacked: Params, x: torch.Tensor, cfg: TransformerConfig,
-                remat: RematMode = False) -> torch.Tensor:
+                remat: RematMode = False, dropout_key: Optional[int] = None
+                ) -> torch.Tensor:
     """Run ``x`` through the layer-stacked block params ([L, ...] leaves)
     — the reference's ``lax.scan`` as a Python loop.  The stacked leaves
     are unbound once (their backward is one stack, not L scatter-adds),
-    and the rope cache is computed once for all layers."""
+    and the rope cache is computed once for all layers.  ``dropout_key``
+    turns on residual dropout; layer ``i`` folds ``i`` into the key, so
+    layers draw distinct masks."""
+    tap = _GRAD_TAP.get()
+
     def unbind(tree):
         if isinstance(tree, dict):
             return {k: unbind(v) for k, v in tree.items()}
-        return tree.unbind(0)
+        return tree, tree.unbind(0)
 
     def layer(tree, i):
         if isinstance(tree, dict):
             return {k: layer(v, i) for k, v in tree.items()}
-        return tree[i]
+        leaf, parts = tree
+        if tap is None or not leaf.requires_grad:
+            return parts[i]
+        return _GradTap.apply(parts[i], functools.partial(tap, leaf, i))
 
     per_layer = unbind(stacked)
     L = len(next(tree_leaves(stacked)))
     rope = block_rope_cache(cfg, x.shape[1], x.device)
+    if remat == "flash_offload":
+        advice = offload_advice(cfg, tuple(x.shape), L, device=x.device)
+        if advice:
+            warnings.warn(advice, stacklevel=2)
     for i in range(L):
         lp = layer(per_layer, i)
+        key = None if dropout_key is None else fold_in(dropout_key, i)
         x = checkpoint_block(
-            lambda h, lp=lp: block_forward(lp, h, cfg, rope=rope), remat)(x)
+            lambda h, lp=lp, key=key: block_forward(
+                lp, h, cfg, rope=rope, dropout_key=key), remat)(x)
     return x
 
 
