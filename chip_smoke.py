@@ -11,8 +11,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device  — a CUDA card is present; its name, count and power limit.
 2. build   — the three kernel sources under ``torchdistpackage_tpu_torch/
    ops/csrc`` are compiled at once (one nvcc each), beside four
-   planted-fault builds of ``paged_attention.cu`` and one of
-   ``moe_dispatch.cu``; build seconds and
+   planted-fault builds of ``paged_attention.cu`` and one each of
+   ``moe_dispatch.cu`` and ``flash_attention.cu``; build seconds and
    ptxas' registers / shared memory / spills of every instantiation (K6's
    and K7's float and int8 ones named apart; a summary line of registers
    and spills for each K1/K2 instantiation, walk and tensor-core, and for
@@ -48,7 +48,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    term, K3's diagonal one key late, K5's lse column one query off, K4's
    delta one query row off, K4's dS.K on the key tile one tile late —
    emulated on the output — and the window one tile late; yardstick
-   SDPA).  K6 (fused MoE dispatch) at Mixtral-8x7B's expert widths (E 8,
+   SDPA); then at sequence lengths no tile divides (S 1, 63, 65, 100,
+   1000, and Sq 100 over Sk 65; hd 64 and 128; causal, window 48 and
+   non-causal; bf16 and f32), K3's bf16 calls timed beside SDPA's forward
+   (fault: the planted-fault build of bf16 K3 without its key bound, on a
+   non-causal S 1000 case), and the generate prefill's own call (B 4,
+   32 / 8 heads, S 1000, window 4096) timed beside its plain version,
+   SDPA and its bound.  K6 (fused MoE dispatch) at Mixtral-8x7B's
+   expert widths (E 8,
    top-2, D 4096, F 14336, SwiGLU, bf16) for decode (T 8) and a 512-row
    chunk of 8 slots (T 4096) at the serving capacity C = T, plus GELU,
    f32 and capacity-drop cases at smaller widths, each case naming the
@@ -124,7 +131,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    24576, 16384 and 8192 prompt tokens (Mistral's 32768 positions, a ~17
    GB pool) through K2, launched once per layer per device call, K1
    never; the share of its tokens equal to the K1 engine's on the same
-   requests; a decode tick profiled.
+   requests; a decode tick profiled.  Then the contiguous-cache decoding
+   family (``generate_phase``, ``attn_impl='flash'``): greedy
+   ``generate`` at B 4 on 1000-token prompts, 64 new tokens (K3 once a
+   layer for the prefill, never in a decode step; every token held by
+   teacher forcing through ``gpt_forward``: within 5 % of its row's
+   scale of the row's maximum; prefill and decode-step ms), sampled
+   ``generate`` twice from one seed (identical), ``beam_generate`` with 4
+   beams (distinct; the best one's teacher-forced log-probability no
+   lower than greedy's within tolerance) and with 1, and
+   ``speculative_generate`` with 4 drafts from the target itself and
+   from its int8 copy (equal to greedy ``generate`` bit for bit, or at
+   the first difference a teacher-forced near-tie; acceptance printed);
+   then ``ServingEngine(spec_k=3)`` and ``spec_k=4`` beside the plain
+   engine on 8 requests (4 greedy, 4 sampled) whose prompts repeat a
+   64-token segment (``spec_engine_phase``: K1 once a layer a device
+   call, verify included; greedy rows teacher-forced; acceptance, tokens
+   a slot a tick, TPOT and tokens/s; the K1 body a verify call runs, by
+   torch.profiler: the split decode body at K 3, ``paged_tc_kernel`` at
+   K 4).
 6. MoE serve — Mixtral-8x7B-v0.1 widths at 16 of 32 layers (23.5 B
    parameters, 47 GB of bf16; all 32 layers do not fit one 80 GB card),
    random weights: ``paged_forward_moe`` with K6 against the ragged
@@ -137,7 +162,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``init_distributed``, ``build_moe_groups(1)``), ``paged_forward_moe``
    through ``moe_forward``'s exchange with K7 against the ragged arm
    (routing pinned), the engine with ``ep_group`` serving the same 12
-   requests through K7 and K1 (K6 never), a decode tick profiled.
+   requests through K7 and K1 (K6 never), a decode tick profiled, and
+   greedy ``generate`` (``moe_generate_phase``: B 4, 500-token prompts,
+   32 new tokens) through K6 and over the same group through K7, each
+   launched exactly 16 x forward calls (the other 0).
 7. int8 serve — Mixtral-8x7B-v0.1 whole, all 32 layers (46.7 B
    parameters), int8 weight-only with bf16 activations, random weights,
    built block by block (``quantize_moe_experts`` on each block's
@@ -820,6 +848,8 @@ def flash_kernel_phase():
                 f"{lib:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})")
         del case, q, k, v, do, exact, o_x, lse_x, delta, plain, kern
         torch.cuda.empty_cache()
+    for kname, ragged in flash_ragged_phase().items():
+        rows[kname].extend(ragged)
     return rows
 
 
@@ -908,6 +938,143 @@ def flash_planted_faults(case, ref):
         if ratio <= 1.0:
             raise RuntimeError(f"{case['name']}: the check misses a planted "
                                f"fault ({what})")
+
+
+FLASH_FAULT = ("TDP_FLASH_FAULT=1",)  # bf16 K3 without the key bound
+RAGGED_S = (1, 63, 65, 100, 1000)
+RAGGED_MASKS = (("causal", True, None), ("window 48", True, 48),
+                ("non-causal", False, None))
+
+
+def ragged_case(S, hd, causal, window, dtype, seed, Sk=None):
+    """q, k, v, dO at a sequence length that is no multiple of any tile:
+    hd 128 with Mistral's GQA group of 4 (8 query heads, 2 KV heads), hd
+    64 without GQA (4 heads); ``Sk`` differs from S only non-causally."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    H, Hkv = (8, 2) if hd == 128 else (4, 4)
+    Sk = S if Sk is None else Sk
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+
+    return {"q": rnd(2, H, S, hd), "k": rnd(2, Hkv, Sk, hd),
+            "v": rnd(2, Hkv, Sk, hd), "do": rnd(2, H, S, hd),
+            "dlse": torch.randn(2, H, S, generator=g, device="cuda"),
+            "args": (hd ** -0.5, causal, window)}
+
+
+def ragged_check(case, dt):
+    """K3, K4 and K5 on a ragged case against their plain versions in f32
+    on the same values: ``{kernel: (max abs err, ratio)}``."""
+    from torchdistpackage_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = (case[n] for n in ("q", "k", "v", "do"))
+    args = case["args"]
+    exact = [t.float() for t in (q, k, v, do)]
+    o_x, lse_x = fa.flash_fwd_reference(*exact[:3], *args)
+    delta = fa.flash_delta(o_x, exact[3], case["dlse"])
+    o, lse = fa.flash_fwd(q, k, v, *args)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse_x, delta, *args)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_x, delta, *args)
+    sq, sk, sv = fa.grad_rounding_scale(*exact, lse_x, delta, *args)
+    dk_x, dv_x = fa.flash_bwd_dkv_reference(*exact, lse_x, delta, *args)
+    lse_err = float((lse - lse_x).abs().max())
+    fwd = held(o, o_x, dt)
+    return {"flash_fwd": max(fwd, (lse_err, lse_err / 2e-5),
+                             key=lambda r: r[1]),
+            "flash_bwd_dq": grad_held(
+                dq, fa.flash_bwd_dq_reference(*exact, lse_x, delta, *args),
+                sq, dt),
+            "flash_bwd_dkv": max(grad_held(dk, dk_x, sk, dt),
+                                 grad_held(dv, dv_x, sv, dt),
+                                 key=lambda r: r[1])}
+
+
+def flash_ragged_phase():
+    """K3-K5 at sequence lengths no tile divides (S 1, 63, 65, 100, 1000;
+    hd 64 and 128; causal, window 48 and non-causal, plus a non-causal Sq
+    100 over Sk 65; bf16 and f32), each held row by row against its plain
+    version at the phase's tolerances, K3's bf16 calls timed beside SDPA's
+    forward on the same shapes; then the planted fault (the build of
+    bf16 K3 without its key bound) must fail a non-causal ragged case.
+    Returns rows for the kernels line."""
+    from torchdistpackage_tpu_torch.ops import _build
+    from torchdistpackage_tpu_torch.ops import flash_attention as fa
+
+    rows = {n: [] for n in fa.LAUNCHES}
+    specs = [(S, None, hd, m, dt) for S in RAGGED_S for hd in (64, 128)
+             for m in RAGGED_MASKS for dt in (torch.bfloat16, torch.float32)]
+    specs += [(100, 65, hd, RAGGED_MASKS[2], dt) for hd in (64, 128)
+              for dt in (torch.bfloat16, torch.float32)]
+    for i, (S, Sk, hd, (mname, causal, window), dt) in enumerate(specs):
+        case = ragged_case(S, hd, causal, window, dt, 300 + i, Sk=Sk)
+        name = (f"ragged S {S}{'' if Sk is None else f' Sk {Sk}'} hd {hd} "
+                f"{mname} {'bf16' if dt == torch.bfloat16 else 'f32'}")
+        res = ragged_check(case, dt)
+        extra = {}
+        if dt == torch.bfloat16 and Sk is None:
+            q, k, v = case["q"], case["k"], case["v"]
+            extra["ms"] = cuda_ms(lambda: fa.flash_fwd(q, k, v,
+                                                       *case["args"]), 20)
+            kw = {"enable_gqa": q.shape[1] != k.shape[1]}
+            if window is not None:
+                i_ = torch.arange(S, device="cuda")
+                kw["attn_mask"] = ((i_[None] <= i_[:, None])
+                                   & (i_[None] > i_[:, None] - window))
+            else:
+                kw["is_causal"] = causal
+            extra["library_ms"] = cuda_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v, **kw), 20)
+        for kname, (err, ratio) in res.items():
+            if not ratio <= 1.0:
+                raise RuntimeError(f"{name}: {kname} disagrees with its "
+                                   f"plain version: {ratio:.3f} of the row "
+                                   f"tolerance")
+            rows[kname].append({"case": name, "max_abs_err": err,
+                                "tol_ratio": ratio,
+                                **(extra if kname == "flash_fwd" else {})})
+        log(f"[flash-ragged] {name}: " + ", ".join(
+            f"{k} err {e:.3g} ({r:.3f} of tol)" for k, (e, r) in res.items())
+            + (f"; K3 {extra['ms']:.4f} ms, sdpa fwd "
+               f"{extra['library_ms']:.4f} ms" if extra else ""))
+    # the generate path's own call: Mistral's prefill of 4 prompts of 1000
+    case = flash_case("ragged generate prefill: Mistral B 4, S 1000",
+                      B=4, H=32, Hkv=8, S=1000, hd=128, window=4096,
+                      dtype=torch.bfloat16, seed=398)
+    q, k, v = case["q"], case["k"], case["v"]
+    args = (case["scale"], True, 4096)
+    o_x, _ = fa.flash_fwd_reference(q.float(), k.float(), v.float(), *args)
+    err, ratio = held(fa.flash_fwd(q, k, v, *args)[0], o_x,
+                      torch.bfloat16)
+    if not ratio <= 1.0:
+        raise RuntimeError(f"{case['name']}: K3 disagrees with its plain "
+                           f"version: {ratio:.3f} of the row tolerance")
+    i_ = torch.arange(1000, device="cuda")
+    mask = (i_[None] <= i_[:, None]) & (i_[None] > i_[:, None] - 4096)
+    bound_ms, bound_by, _ = flash_bounds(case)["flash_fwd"]
+    row = {"case": case["name"], "max_abs_err": err, "tol_ratio": ratio,
+           "ms": cuda_ms(lambda: fa.flash_fwd(q, k, v, *args), 20),
+           "plain_ms": cuda_ms(lambda: fa.flash_fwd_reference(q, k, v,
+                                                              *args), 3),
+           "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+               q, k, v, attn_mask=mask, enable_gqa=True), 20),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    rows["flash_fwd"].append(row)
+    log(f"[flash-ragged] {case['name']}, window 4096, bf16: err {err:.3g} "
+        f"({ratio:.3f} of tol); K3 {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, sdpa fwd {row['library_ms']:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by})")
+    del case, q, k, v, o_x, mask
+    bad = ragged_case(1000, 128, False, None, torch.bfloat16, 399)
+    with _build.variant("flash_attention", FLASH_FAULT):
+        err, ratio = ragged_check(bad, torch.bfloat16)["flash_fwd"]
+    log(f"[flash-ragged] planted fault (bf16 K3 without the key bound, "
+        f"non-causal S 1000 hd 128): max abs err {err:.3g}, {ratio:.1f} x "
+        f"the row tolerance")
+    if ratio <= 1.0:
+        raise RuntimeError("ragged K3: the check misses the planted fault "
+                           "(the key bound off)")
+    return rows
 
 
 # ------------------------------------------------------------ K6
@@ -2854,6 +3021,395 @@ def moe_engine_phase(params, cfg, card, k6="fused_moe_ffn",
     return out
 
 
+# ------------------------------------------------------------ generate
+
+#: the teacher-forced check: a row's top logit minus the emitted token's,
+#: at most this share of the row's largest |logit| (model_phase's 5 %
+#: bound on bf16 logits through the whole depth)
+TF_TOL = 0.05
+GEN_PROMPT, GEN_NEW = 1000, 64  # 1000 % 64 = 40, 1000 % 128 = 104
+
+
+def gen_module():
+    import importlib
+
+    return importlib.import_module(
+        "torchdistpackage_tpu_torch.models.generate")
+
+
+@torch.no_grad()
+def teacher_logits_of(params, cfg, seq):
+    """f32 logits [B, S, V] of ``seq`` by one uncached forward: dense
+    ``gpt_forward`` (flash, K3, over the whole sequence), or for an MoE
+    model ``forward_cached_moe`` at offset 0 with ``all_logits``."""
+    from torchdistpackage_tpu_torch.models import gpt_forward
+
+    if not cfg.moe_experts:
+        return gpt_forward(params, seq, cfg).float()
+    gm = gen_module()
+    cache = gm.init_kv_cache(cfg, seq.shape[0], seq.shape[1])
+    return gm.forward_cached_moe(params, seq, cfg, cache, 0,
+                                 all_logits=True)[1].float()
+
+
+def tf_gaps(logits, seq, P):
+    """Per emitted token (positions P..): (the row's top logit - the
+    token's) / the row's largest |logit|, from teacher-forced logits."""
+    rows = logits[:, P - 1:-1]
+    got = rows.gather(-1, seq[:, P:, None].long())[..., 0]
+    return (rows.amax(-1) - got) / rows.abs().amax(-1)
+
+
+def tf_check(params, cfg, seq, P, what, tag, gate=True):
+    """Every emitted token of ``seq`` within ``TF_TOL`` of its
+    teacher-forced row maximum (printed with the exact-argmax share);
+    ``gate=False`` only prints.  Returns the teacher-forced logits."""
+    logits = teacher_logits_of(params, cfg, seq)
+    gaps = tf_gaps(logits, seq, P)
+    ok = float((gaps <= TF_TOL).float().mean())
+    exact = float((gaps == 0).float().mean())
+    log(f"[{tag}] {what}: teacher-forced, {gaps.numel()} emitted tokens: "
+        f"{ok:.3f} within {TF_TOL} of the row's scale (max gap "
+        f"{float(gaps.max()):.4f}), {exact:.3f} the exact argmax")
+    if gate and ok < 1.0:
+        raise RuntimeError(f"{what}: an emitted token is off its "
+                           f"teacher-forced argmax by more than {TF_TOL}")
+    if not ((0 <= seq).all() and (seq < cfg.vocab_size).all()):
+        raise RuntimeError(f"{what}: a token out of the vocabulary")
+    return logits
+
+
+def seq_logprob(logits, seq, P):
+    """Teacher-forced log-probability of ``seq``'s emitted tokens."""
+    lp = torch.log_softmax(logits[:, P - 1:-1], dim=-1)
+    return lp.gather(-1, seq[:, P:, None].long())[..., 0].sum(-1)
+
+
+def launches_now():
+    from torchdistpackage_tpu_torch.ops import flash_attention as fa
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+    from torchdistpackage_tpu_torch.ops import paged_attention as pa
+
+    return {**fa.LAUNCHES, **pa.LAUNCHES, **md.LAUNCHES}
+
+
+def expect_launches(what, want):
+    """Every kernel count is ``want``'s (0 where it names none)."""
+    got = launches_now()
+    bad = {k: v for k, v in got.items() if v != want.get(k, 0)}
+    if bad:
+        raise RuntimeError(f"{what}: launches {bad}, expected {want} "
+                           f"(all others 0)")
+
+
+@torch.no_grad()
+def generate_phase(params, cfg, card):
+    """The contiguous-cache decoding family at Mistral-7B-v0.1 widths (all
+    32 layers, bf16, ``attn_impl='flash'``): greedy ``generate`` at B 4
+    on 1000-token prompts (K3's last tile ragged) and 64 new tokens —
+    K3 launched once a layer for the prefill call and never in a decode
+    step, every token held by teacher forcing, the prefill's and a decode
+    step's ms; sampled ``generate`` twice from one seed (identical);
+    ``beam_generate`` with 4 beams and with 1, 32 new tokens (distinct
+    beams, the best beam's teacher-forced log-probability no lower than
+    the greedy sequence's within tolerance); ``speculative_generate``
+    with 4 drafts, 64 new tokens, drafted by the target itself and by its
+    int8 copy (``quantize_decode_params``), held to greedy ``generate``
+    bit for bit or, at the first difference, to a teacher-forced top-2
+    margin within ``TF_TOL``; acceptance printed."""
+    from torchdistpackage_tpu_torch.models import (
+        beam_generate,
+        generate,
+        speculative_generate,
+    )
+    from torchdistpackage_tpu_torch.tools.surgery import (
+        quantize_decode_params,
+    )
+
+    gm = gen_module()
+    cfg = dataclasses.replace(cfg, attn_impl="flash")
+    L, B, P, N = cfg.nlayers, 4, GEN_PROMPT, GEN_NEW
+    g = torch.Generator(device="cuda").manual_seed(5)
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=g,
+                           device="cuda")
+    out = {}
+    generate(params, prompt, cfg, 2)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    greedy = generate(params, prompt, cfg, N)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    expect_launches("greedy generate", {"flash_fwd": L})
+    out["launches"] = {"flash_fwd": L}
+    tf_check(params, cfg, greedy, P, f"greedy generate B {B} P {P} +{N}",
+             "generate")
+    cache = gm.init_kv_cache(cfg, B, P + N)
+    prefill_ms = cuda_ms(lambda: gm.forward_cached(params, prompt, cfg,
+                                                   cache, 0), 3)
+    tok = greedy[:, P:P + 1]
+    step_ms = cuda_ms(lambda: gm.forward_cached(params, tok, cfg, cache, P),
+                      10)
+    H, hd = cfg.nheads, cfg.block.head_dim
+    q = torch.randn(B, H, 1, hd, generator=g, device="cuda").to(cfg.dtype)
+    attn_ms = cuda_ms(lambda: gm._cached_attention(
+        q, cache["k"][0], cache["v"][0], P, window=cfg.sliding_window), 20)
+    out.update(prefill_ms=prefill_ms, step_ms=step_ms, wall_s=wall,
+               cached_attention_ms=attn_ms)
+    log(f"[generate] greedy B {B}, prompt {P}, {N} new: {wall:.3f} s "
+        f"wall; prefill call {prefill_ms:.2f} ms ({B * P} rows, K3), decode "
+        f"step {step_ms:.2f} ms, of which _cached_attention (plain "
+        f"PyTorch) {attn_ms:.4f} ms a layer, {attn_ms * L:.3f} ms a step; "
+        f"K3 launches {L} (one prefill call) — on {card}")
+
+    def sampled():
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        return generate(params, prompt, cfg, N, generator=gen,
+                        temperature=0.8, top_k=50, top_p=0.9)
+    a, b = sampled(), sampled()
+    if not torch.equal(a, b):
+        raise RuntimeError("sampled generate: two runs from one seed differ")
+    differ = float((a != greedy).float()[:, P:].mean())
+    log(f"[generate] sampled (temperature 0.8, top-k 50, top-p 0.9) twice "
+        f"from one seed: identical; {differ:.3f} of its tokens differ from "
+        f"greedy")
+
+    one = prompt[:1]
+    reset_counts()
+    beams = beam_generate(params, one, cfg, 32, num_beams=4,
+                          return_all=True)
+    torch.cuda.synchronize()
+    expect_launches("beam_generate", {"flash_fwd": L})
+    if len({tuple(r.tolist()) for r in beams}) != 4:
+        raise RuntimeError("beam_generate: the 4 beams are not distinct")
+    width1 = beam_generate(params, one, cfg, 32, num_beams=1)
+    tf_check(params, cfg, width1, P, "beam width 1, +32", "beam")
+    greedy1 = generate(params, one, cfg, 32)
+    lg_best = teacher_logits_of(params, cfg, beams[:1])
+    lg_greedy = tf_check(params, cfg, greedy1, P, "greedy B 1, +32", "beam")
+    lp_best = float(seq_logprob(lg_best, beams[:1], P))
+    lp_greedy = float(seq_logprob(lg_greedy, greedy1, P))
+    tol = TF_TOL * float(lg_greedy[:, P - 1:-1].abs().amax(-1).sum())
+    log(f"[beam] 4 beams, +32: teacher-forced log-probability of the best "
+        f"beam {lp_best:.4f}, of the greedy sequence {lp_greedy:.4f} "
+        f"(tolerance {tol:.3f}); width 1 equal to greedy: "
+        f"{torch.equal(width1, greedy1)}")
+    if lp_best < lp_greedy - tol:
+        raise RuntimeError("beam_generate: the best beam scores below the "
+                           "greedy sequence")
+
+    t0 = time.perf_counter()
+    want = generate(params, one, cfg, N)
+    torch.cuda.synchronize()
+    wall1 = time.perf_counter() - t0
+    lg_want = teacher_logits_of(params, cfg, want)
+    steps = []
+    real = gm._spec_macro_step
+
+    def counted(*args):
+        res = real(*args)
+        steps.append(res[2])
+        return res
+    drafts = {"self": params, "int8": quantize_decode_params(params)}
+    out["spec"] = {}
+    gm._spec_macro_step = counted
+    try:
+        for name, draft in drafts.items():
+            steps.clear()
+            reset_counts()
+            t0 = time.perf_counter()
+            got = speculative_generate(params, draft, one, cfg, N,
+                                       num_draft=4)
+            torch.cuda.synchronize()
+            swall = time.perf_counter() - t0
+            expect_launches(f"speculative ({name} draft)",
+                            {"flash_fwd": 2 * L})
+            equal = torch.equal(got, want)
+            if not equal:
+                j = int((got != want)[0].nonzero()[0])
+                top2 = lg_want[0, j - 1].topk(2).values
+                margin = float((top2[0] - top2[1])
+                               / lg_want[0, j - 1].abs().max())
+                log(f"[spec] {name} draft: first difference from greedy at "
+                    f"position {j}: teacher-forced top-2 margin {margin:.4f}")
+                if margin > TF_TOL:
+                    raise RuntimeError(f"speculative ({name} draft) differs "
+                                       f"from greedy past a near-tie")
+            tf_check(params, cfg, got, P, f"speculative, {name} draft",
+                     "spec")
+            acc = sum(steps) / (4 * len(steps))
+            out["spec"][name] = {"equal": equal, "accept_rate": acc,
+                                 "macro_steps": len(steps), "wall_s": swall,
+                                 "greedy_b1_wall_s": wall1}
+            log(f"[spec] {name} draft, K 4, +{N}: equal to greedy generate "
+                f"bit for bit: {equal}; {len(steps)} macro steps, "
+                f"acceptance {acc:.3f}, {(N - 1) / len(steps):.2f} tokens a "
+                f"verify; {swall:.3f} s (greedy generate at B 1: "
+                f"{wall1:.3f} s) — on {card}")
+    finally:
+        gm._spec_macro_step = real
+    del drafts
+    torch.cuda.empty_cache()
+    return out
+
+
+SPEC_NEW = 64
+
+
+def spec_requests(vocab):
+    """8 requests whose prompts repeat a 64-token segment after a
+    16-token head (the n-gram drafter finds it): 4 greedy, 4 sampled."""
+    rs = np.random.RandomState(3)
+    seg = rs.randint(0, vocab, 64).tolist()
+    from torchdistpackage_tpu_torch.serving import Request
+
+    reqs = []
+    for i, m in enumerate((8, 12, 16, 24) * 2):
+        toks = rs.randint(0, vocab, 16).tolist() + seg * m
+        if i >= 4:
+            reqs.append(Request(toks, SPEC_NEW, temperature=0.8, top_k=50,
+                                top_p=0.95, seed=i))
+        else:
+            reqs.append(Request(toks, SPEC_NEW))
+    return reqs
+
+
+@torch.no_grad()
+def spec_engine_phase(params, cfg, card):
+    """``ServingEngine`` with ``spec_k`` 3 and 4 at Mistral-7B-v0.1 widths
+    (8 slots, chunk 512), and without it, on the same 8 requests: K1
+    launched exactly once a layer a device call, verify calls included;
+    the greedy rows held by teacher forcing; acceptance, tokens a verify
+    tick, TPOT and tokens/s beside the plain engine's; and which K1 body
+    a verify call runs (R = 4 (K + 1) rows a KV head: 16, the split
+    decode body; 20, ``paged_tc_kernel``), by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchdistpackage_tpu_torch.ops import paged_attention as pa
+    from torchdistpackage_tpu_torch.serving import ServingEngine
+
+    tf_cfg = dataclasses.replace(cfg, attn_impl="flash")
+    out = {}
+    tokens = {}
+    for k in (0, 3, 4):
+        reqs = spec_requests(cfg.vocab_size)
+        eng = ServingEngine(params, cfg, num_slots=8, block_size=BS,
+                            chunk=512, max_ctx=2048, spec_k=k)
+        rids = [eng.submit(r) for r in reqs]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        s = eng.serving_summary()
+        calls = s["prefill_chunks"] + s["decode_steps"]
+        expect_launches(f"spec_k {k} engine",
+                        {"paged_decode_attention": cfg.nlayers * calls})
+        if s["requests"]["completed"] != len(reqs):
+            raise RuntimeError(f"spec_k {k}: completed {s['requests']}")
+        tokens[k] = [eng.finished[r]["tokens"] for r in rids]
+        for r, req in zip(rids, reqs):
+            if req.temperature > 0.0:  # sampled rows: nothing to force
+                continue
+            f = eng.finished[r]
+            seq = torch.from_numpy(f["tokens"][None]).cuda().long()
+            tf_check(params, tf_cfg, seq, f["prompt_len"],
+                     f"spec_k {k} greedy request {r}", "spec-engine")
+        st = eng.stats
+        per_tick = 1 + st["spec_accepted"] / max(st["decode_slot_steps"], 1)
+        same = (np.mean([np.array_equal(a, b) for a, b in
+                         zip(tokens[k][:4], tokens[0][:4])]) if k else 1.0)
+        out[k] = {"launches": cfg.nlayers * calls, "wall_s": wall,
+                  "tokens_per_sec": s["tokens_per_sec"],
+                  "tpot_p50_ms": s["tpot_s"]["p50"] * 1e3,
+                  "accept_rate": s["spec_accept_rate"],
+                  "tokens_per_slot_tick": per_tick,
+                  "decode_steps": s["decode_steps"],
+                  "greedy_equal_plain": same}
+        log(f"[spec-engine] spec_k {k}: {len(reqs)} requests (4 greedy, 4 "
+            f"sampled), {s['generated_tokens']} tokens in {wall:.2f} s: "
+            f"{s['tokens_per_sec']:.2f} tok/s, TPOT p50 "
+            f"{s['tpot_s']['p50'] * 1e3:.2f} ms p99 "
+            f"{s['tpot_s']['p99'] * 1e3:.2f} ms, TTFT p50 "
+            f"{s['ttft_s']['p50']:.3f} s; {s['prefill_chunks']} prefill + "
+            f"{s['decode_steps']} decode calls, K1 launches "
+            f"{cfg.nlayers * calls}; acceptance {s['spec_accept_rate']:.3f}"
+            f", {per_tick:.2f} tokens a slot a tick; greedy rows equal to "
+            f"the plain engine's: {same:.2f} — on {card}")
+    for k in (3, 4):
+        case = make_case(f"verify K {k}", B=8, S_in=k + 1,
+                         offsets=[1500] * 8, window=4096,
+                         dtype=torch.bfloat16, quantized=False, seed=40 + k)
+        fn = lambda: pa.paged_decode_attention(  # noqa: E731
+            case["q"], case["k"], case["v"], case["tables"],
+            case["offsets"], window=4096)
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = sorted({m.group(1) for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        for m in [re.search(r"(paged_\w+?_kernel)", e.key)]
+                        if m})
+        # the wrapper's own route: a split count > 0 is the split body
+        nsplit = pa._workspace(8, HKV, GROUPS * (k + 1), HD,
+                               case["tables"].shape[1], "cuda")[0]
+        want = "paged_split_kernel" if nsplit else "paged_tc_kernel"
+        log(f"[spec-engine] a verify call at K {k} (R = {GROUPS * (k + 1)} "
+            f"rows a KV head): the wrapper routes it to {want} (NSPLIT "
+            f"{nsplit}); torch.profiler saw {names or 'no kernel'}")
+        if (want == "paged_split_kernel") != (k == 3) or (
+                names and not any(want in n for n in names)):
+            raise RuntimeError(f"verify K {k}: routed to {want}, the "
+                               f"profiler saw {names}")
+        out[k]["k1_body"] = want
+    return out
+
+
+@torch.no_grad()
+def moe_generate_phase(params, shard, cfg, card, group):
+    """Greedy ``generate`` on the 16-layer Mixtral-8x7B-v0.1 widths (bf16,
+    ``attn_impl='flash'``), B 4, 500-token prompts, 32 new tokens: once
+    serial through K6 (16 x 32 forward calls = 512 launches, K3 16 for the
+    prefill), once over the one-rank NCCL ``group`` through K7 (the same
+    count; K6 0).  Teacher forcing (``forward_cached_moe`` over the whole
+    sequence) is printed, not gated: a decode row and the same row inside
+    a 532-row call round differently, which can flip a near-tied routing
+    choice (``moe_model_phase``'s free-running drift)."""
+    from torchdistpackage_tpu_torch.models import generate
+
+    cfg = dataclasses.replace(cfg, attn_impl="flash")
+    L, B, P, N = cfg.nlayers, 4, 500, 32
+    g = torch.Generator(device="cuda").manual_seed(6)
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=g,
+                           device="cuda")
+    out = {}
+    for name, kern, p, grp in (("K6", "fused_moe_ffn", params, None),
+                               ("K7", "fused_expert_ffn", shard, group)):
+        generate(p, prompt, cfg, 2, ep_group=grp)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        toks = generate(p, prompt, cfg, N, ep_group=grp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        expect_launches(f"MoE generate ({name})",
+                        {"flash_fwd": L, kern: L * N})
+        tf_check(params, cfg, toks, P, f"MoE generate through {name}",
+                 "moe-generate", gate=False)
+        out[name] = {"launches": L * N, "wall_s": wall, "tokens": toks}
+        log(f"[moe-generate] {name}: B {B}, prompt {P}, {N} new in "
+            f"{wall:.3f} s, {kern} launches {L * N} ({L} x {N} forward "
+            f"calls), K3 {L} — on {card}")
+    same = float((out["K6"]["tokens"] == out["K7"]["tokens"]).float()
+                 [:, P:].mean())
+    log(f"[moe-generate] K6 and K7 runs: {same:.3f} of the new tokens equal")
+    return {k: {kk: vv for kk, vv in v.items() if kk != "tokens"}
+            for k, v in out.items()}
+
+
 def free_port():
     """A free TCP port on the loopback, for the process group's
     rendezvous."""
@@ -2864,7 +3420,7 @@ def free_port():
         return sock.getsockname()[1]
 
 
-def ep_phase(params, cfg, card, k7, tag, gather_experts=None):
+def ep_phase(params, cfg, card, k7, tag, gather_experts=None, then=None):
     """The expert-parallel serving path on the model already built: a
     one-rank NCCL group (``init_distributed`` on the card,
     ``build_moe_groups(1)``; at EP 1 both exchanges are identities, the
@@ -2872,8 +3428,9 @@ def ep_phase(params, cfg, card, k7, tag, gather_experts=None):
     (``shard_moe_params``: at EP 1 views of every expert), then
     teacher-forced logits against the ragged arm with the routing pinned,
     the engine serving the same 12 requests with ``k7`` (K7 or K7-int8)
-    in every expert layer, and a profiled decode tick.  The group is
-    destroyed before the model is freed."""
+    in every expert layer, and a profiled decode tick; then ``then(shard,
+    group)`` if given.  The group is destroyed before the model is
+    freed."""
     import torch.distributed as dist
 
     from torchdistpackage_tpu_torch.dist import (
@@ -2897,9 +3454,10 @@ def ep_phase(params, cfg, card, k7, tag, gather_experts=None):
                                ep_group=group)
         profile_phase(shard, cfg, card, max_ctx=4096, tag=f"{tag}-profile",
                       ep_group=group)
+        extra = then(shard, group) if then is not None else None
     finally:
         dist.destroy_process_group()
-    return {"model": model, **eng}
+    return {"model": model, **eng, "then": extra}
 
 
 CP_PROMPT = 4700  # past Mistral's 4096 window: the window masks
@@ -3227,18 +3785,20 @@ def build_phase():
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2 + len(PAGED_FAULTS)) as pool:
+    with ThreadPoolExecutor(max_workers=3 + len(PAGED_FAULTS)) as pool:
         faults = [pool.submit(_build.load, "paged_attention",
                               paged_fault_defines(f)) for f in PAGED_FAULTS]
         faults.append(pool.submit(_build.load, MOE_NAME, MOE_RUN_DROPPED))
+        faults.append(pool.submit(_build.load, "flash_attention",
+                                  FLASH_FAULT))
         libs = pool.submit(_build.load_all, ["paged_attention",
                                              "flash_attention",
                                              "moe_dispatch"]).result()
         for fut in faults:
             fut.result()
     log(f"[build] all sources, the {len(PAGED_FAULTS)} planted-fault "
-        f"variants of paged_attention.cu and the one of moe_dispatch.cu "
-        f"built in "
+        f"variants of paged_attention.cu and the one each of moe_dispatch.cu "
+        f"and flash_attention.cu built in "
         f"{time.perf_counter() - t0:.1f} s ("
         + ", ".join(f"{n}.cu {i['seconds']:.1f} s"
                     for n, i in _build.BUILD_INFO.items()) + ")")
@@ -3429,6 +3989,12 @@ def main():
     profile_phase(params, cfg, card)
     # the same model served context-parallel, K2 in every attention
     cp_eng = cp_phase(params, cfg, card)
+    # the contiguous-cache decoding family (K3 at the prefill) and the
+    # speculative engine (K1 on the K+1-row verify)
+    gen = generate_phase(params, cfg, card)
+    spec_eng = spec_engine_phase(params, cfg, card)
+    log(f"[time] generate and speculative serving done at "
+        f"{time.perf_counter() - t_start:.0f} s")
     del params
     torch.cuda.empty_cache()
     log(f"[time] serving done at {time.perf_counter() - t_start:.0f} s")
@@ -3436,6 +4002,7 @@ def main():
     # 6. the MoE serving path: Mixtral-8x7B-v0.1 widths at 16 of its 32
     # layers (all 32 are 93.4 GB of bf16 weights, more than the card holds)
     cfg = mixtral_8x7b_config(nlayers=16)
+    cfg_moe_layers = cfg.nlayers
     t0 = time.perf_counter()
     params = init_gpt_moe_params(
         cfg, torch.Generator(device="cuda").manual_seed(0))
@@ -3448,8 +4015,11 @@ def main():
     moe_eng = moe_engine_phase(params, cfg, card)
     profile_phase(params, cfg, card, max_ctx=4096, tag="moe-profile")
     profile_prefill(params, cfg, card, tag="moe-prefill-profile")
-    # the same model served expert-parallel, K7 in every expert layer
-    ep_eng = ep_phase(params, cfg, card, "fused_expert_ffn", "ep")
+    # the same model served expert-parallel, K7 in every expert layer;
+    # then greedy generate through K6 and, over the same group, K7
+    ep_eng = ep_phase(params, cfg, card, "fused_expert_ffn", "ep",
+                      then=lambda shard, group: moe_generate_phase(
+                          params, shard, cfg, card, group))
     del params
     torch.cuda.empty_cache()
     log(f"[time] MoE serving done at {time.perf_counter() - t_start:.0f} s")
@@ -3485,20 +4055,29 @@ def main():
                             "paged_attention.cu", TPU_SOURCE,
                             eng["launches"], rows, rows[0],
                             ptxas={k: v for k, v in ptxas_summary.items()
-                                   if k.startswith("K1")})]
+                                   if k.startswith("K1")},
+                            spec_engine_launches={
+                                f"spec_k {k}": spec_eng[k]["launches"]
+                                for k in (3, 4)})]
     for kname, krows in flash_rows.items():
         k = {"flash_fwd": "K3", "flash_bwd_dq": "K4",
              "flash_bwd_dkv": "K5"}[kname]
+        extra = {}
+        if kname == "flash_fwd":  # the generate path's prefill calls
+            extra["generate_launches"] = {
+                "generate": gen["launches"]["flash_fwd"],
+                "moe_generate": cfg_moe_layers}
         entries.append(kernel_entry(kname, FLASH_SOURCE,
                                     FLASH_REPLACES[kname],
                                     train["launches"][kname], krows,
                                     krows[0], ptxas={
                                         n: v for n, v in ptxas_summary.items()
-                                        if n.startswith(k)}))
+                                        if n.startswith(k)}, **extra))
     entries.append(kernel_entry(
         "fused_moe_ffn", MOE_SOURCE, MOE_REPLACES,
         moe_eng["launches"]["fused_moe_ffn"], moe_rows, moe_rows[0],
         body=moe_rows[0]["body"], body_kernels=MOE_BODY_KERNELS,
+        generate_launches=ep_eng["then"]["K6"]["launches"],
         ptxas={n: v for n, v in ptxas_summary.items()
                if n.startswith("K6") and "bf16 weights" in n},
         library="the ragged 'gather' arm: one cuBLAS product per expert "
@@ -3516,9 +4095,11 @@ def main():
                       ("fused_expert_ffn_int8", ep_int8_eng)):
         krows = k7_rows[kname]
         weights = "int8 weights" if kname.endswith("int8") else "bf16 weights"
+        extra = ({"generate_launches": ep["then"]["K7"]["launches"]}
+                 if ep["then"] else {})
         entries.append(kernel_entry(
             kname, MOE_SOURCE, K7_REPLACES[kname], ep["launches"][kname],
-            krows, krows[0],
+            krows, krows[0], **extra,
             ptxas={n: v for n, v in ptxas_summary.items()
                    if n.startswith("K7") and weights in n},
             library="the torch.bmm chain: one cuBLAS batched product per "

@@ -190,9 +190,14 @@ def test_flash_attention_autograd_launches_each_kernel_once(cuda):
     assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
         "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
     assert k.grad.shape == k.shape and torch.isfinite(q.grad).all()
-    with pytest.raises(ValueError, match="multiples of 64"):
-        fa.flash_attention(q[:, :, :96].detach(), k[:, :, :96].detach(),
-                           v[:, :, :96].detach())
+    # any S runs (the last tile is ragged); a head dim other than 64 / 128
+    # is refused
+    ragged = fa.flash_attention(*(t[:, :, :96].detach().contiguous()
+                                  for t in (q, k, v)))
+    assert ragged.shape == (1, 4, 96, 64) and torch.isfinite(ragged).all()
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(*(t[..., :32].detach().contiguous()
+                             for t in (q, k, v)))
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_fwd(q.detach().transpose(2, 3).contiguous().transpose(2, 3),
                      k.detach(), v.detach(), 0.125, True, None)
@@ -283,6 +288,87 @@ def test_flash_wgmma_bodies_match_plain_on_card(cuda, hd, h, kv_heads, sq,
     dk_x, dv_x = fa.flash_bwd_dkv_reference(*exact, lse_x, delta, *args)
     _grad_rows_close(dk, dk_x, sk_, bf)
     _grad_rows_close(dv, dv_x, sv_, bf)
+
+
+# Any sequence length: the last row or key tile is ragged (TMA zero-fills
+# past S on the bf16 bodies, the f32 bodies zero by plain stores), keys
+# past Sk are masked, rows past S are not stored.  S 1 (a one-token
+# prompt), 63 and 65 (either side of the f32 bodies' 64-row tile), 100,
+# 1000 (a prompt whose last 128-row tile holds 104 rows); hd 128 with
+# Mistral's GQA group of 4.
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 48),
+                                           (False, None)])
+@pytest.mark.parametrize("s", [1, 63, 65, 100, 1000])
+def test_flash_kernels_at_any_sequence_length(cuda, dtype, hd, causal,
+                                              window, s):
+    _ragged_case(cuda, getattr(torch, dtype), hd, s, s, causal, window)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("sq,sk", [(100, 65), (65, 1000), (1, 37)])
+def test_flash_kernels_ragged_noncausal_unequal_lengths(cuda, dtype, sq, sk):
+    _ragged_case(cuda, getattr(torch, dtype), 128, sq, sk, False, None)
+
+
+def _ragged_case(cuda, dt, hd, sq, sk, causal, window):
+    """K3, K4 and K5 at ragged lengths against their plain versions in
+    f32 on the same values, at the row tolerances above."""
+    from torchdistpackage_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=cuda).manual_seed(sq * 7 + sk + hd)
+    h, hkv = (8, 2) if hd == 128 else (4, 4)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=cuda).to(dt)
+
+    q, do = rnd(2, h, sq, hd), rnd(2, h, sq, hd)
+    k, v = rnd(2, hkv, sk, hd), rnd(2, hkv, sk, hd)
+    dlse = torch.randn(2, h, sq, generator=g, device=cuda)
+    args = (hd ** -0.5, causal, window)
+    exact = [t.float() for t in (q, k, v, do)]
+    before = dict(fa.LAUNCHES)
+    o, lse = fa.flash_fwd(q, k, v, *args)
+    o_x, lse_x = fa.flash_fwd_reference(*exact[:3], *args)
+    delta = fa.flash_delta(o_x, exact[3], dlse)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse_x, delta, *args)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_x, delta, *args)
+    torch.cuda.synchronize()
+    assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
+        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    _assert_rows_close(o, o_x, dt)
+    assert float((lse - lse_x).abs().max()) <= 2e-5
+    sq_, sk_, sv_ = fa.grad_rounding_scale(*exact, lse_x, delta, *args)
+    _grad_rows_close(dq, fa.flash_bwd_dq_reference(*exact, lse_x, delta,
+                                                   *args), sq_, dt)
+    dk_x, dv_x = fa.flash_bwd_dkv_reference(*exact, lse_x, delta, *args)
+    _grad_rows_close(dk, dk_x, sk_, dt)
+    _grad_rows_close(dv, dv_x, sv_, dt)
+
+
+@pytest.mark.gpu
+def test_flash_ragged_key_bound_fault_fails(cuda):
+    """The planted-fault build of bf16 K3 without its key bound
+    (``-DTDP_FLASH_FAULT=1``) must fail a non-causal ragged case that
+    the real build passes."""
+    from torchdistpackage_tpu_torch.ops import _build
+    from torchdistpackage_tpu_torch.ops import flash_attention as fa
+
+    bf = torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q = torch.randn(1, 8, 100, 128, generator=g, device=cuda).to(bf)
+    k, v = (torch.randn(1, 2, 100, 128, generator=g, device=cuda).to(bf)
+            for _ in range(2))
+    args = (128 ** -0.5, False, None)
+    want, _ = fa.flash_fwd_reference(q.float(), k.float(), v.float(), *args)
+    _assert_rows_close(fa.flash_fwd(q, k, v, *args)[0], want, bf)
+    with _build.variant("flash_attention", ("TDP_FLASH_FAULT=1",)):
+        bad, _ = fa.flash_fwd(q, k, v, *args)
+    with pytest.raises(AssertionError, match="row tolerance"):
+        _assert_rows_close(bad, want, bf)
 
 
 # bf16 K4 runs 128-row query tiles over 128-key tiles on wgmma: its

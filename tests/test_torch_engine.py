@@ -187,8 +187,10 @@ def test_engine_refuses_queued_options():
     cfg = GPTConfig(**SMALL)
     with pytest.raises(NotImplementedError, match="prefix_cache"):
         ServingEngine(None, cfg, device="cpu", prefix_cache=True)
-    with pytest.raises(NotImplementedError, match="spec_k"):
-        ServingEngine(None, cfg, device="cpu", spec_k=2)
+    # spec_k serves (tests/test_torch_spec_engine.py); a negative one is
+    # refused as in the reference
+    with pytest.raises(ValueError, match="spec_k"):
+        ServingEngine(None, cfg, device="cpu", spec_k=-1)
     with pytest.raises(TypeError):
         ServingEngine(None, cfg, device="cpu", no_such_option=1)
     eng = ServingEngine(None, cfg, device="cpu", **ENGINE)

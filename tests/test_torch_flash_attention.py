@@ -213,9 +213,11 @@ def test_plain_versions_match_jax_kernels_at_tile_shapes(case):
 
 
 def test_wrappers_take_s192_and_refuse_s96():
-    """A sequence length a multiple of 64 but not of the kernels' 128-row
-    tiles is taken (the refusal that follows is only the meta device's);
-    one that is not a multiple of 64 is refused by the shape check."""
+    """Sequence lengths that no tile divides (192 for the 128-row tiles,
+    96 and 1 for every tile) are taken — the kernels' last tile is ragged,
+    so the refusal that follows is only the meta device's; what the shape
+    check still refuses is a head dim of 96 (the name is older than the
+    ragged-length repair, when S 96 was refused)."""
     meta = torch.device("meta")
     for name, call in (
             ("flash_fwd", lambda q: tfa.flash_fwd(q, q, q, 0.125, True,
@@ -223,11 +225,12 @@ def test_wrappers_take_s192_and_refuse_s96():
             ("flash_bwd_dkv", lambda q: tfa.flash_bwd_dkv(
                 q, q, q, q, q[..., 0].float(), q[..., 0].float(), 0.125,
                 True, None))):
-        q = torch.empty(1, 2, 192, 64, device=meta, dtype=torch.bfloat16)
-        with pytest.raises(ValueError, match="unsupported device"):
-            call(q)
-        q = torch.empty(1, 2, 96, 64, device=meta, dtype=torch.bfloat16)
-        with pytest.raises(ValueError, match="multiples of 64"):
+        for S in (192, 96, 1):
+            q = torch.empty(1, 2, S, 64, device=meta, dtype=torch.bfloat16)
+            with pytest.raises(ValueError, match="unsupported device"):
+                call(q)
+        q = torch.empty(1, 2, 96, 96, device=meta, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head dim must be 64 or 128"):
             call(q)
     assert tfa.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dq": 0,
                             "flash_bwd_dkv": 0}
@@ -280,12 +283,14 @@ def test_dq_plain_version_matches_jax_at_k4_tile_edges(case):
 
 def test_dq_wrapper_takes_s192_and_refuses_s96():
     """``flash_bwd_dq`` as ``test_wrappers_take_s192_and_refuse_s96`` holds
-    K3's and K5's wrappers: S 192 (a ragged last 128-row tile of the
-    warpgroup body) reaches the device check, S 96 is refused by the shape
-    check, and nothing is counted."""
+    K3's and K5's wrappers: S 192 and S 96 (ragged last tiles) reach the
+    device check, a head dim of 96 is refused by the shape check, and
+    nothing is counted."""
     meta = torch.device("meta")
-    for s, match in ((192, "unsupported device"), (96, "multiples of 64")):
-        q = torch.empty(1, 2, s, 64, device=meta, dtype=torch.bfloat16)
+    for s, hd, match in ((192, 64, "unsupported device"),
+                         (96, 64, "unsupported device"),
+                         (96, 96, "head dim must be 64 or 128")):
+        q = torch.empty(1, 2, s, hd, device=meta, dtype=torch.bfloat16)
         with pytest.raises(ValueError, match=match):
             tfa.flash_bwd_dq(q, q, q, q, q[..., 0].float(),
                              q[..., 0].float(), 0.125, True, None)

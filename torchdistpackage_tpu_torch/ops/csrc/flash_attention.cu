@@ -61,6 +61,15 @@
 //   two-warpgroup ping-pong on named barriers, unserialised, both measured
 //   no faster than this body at hd 64), and the same in K4 and K5.
 //
+// Any sequence length: a row tile or key tile past the end of the sequence
+// is ragged.  TMA zero-fills the rows past S (the maps are 3-D, so never
+// the next head's rows) and the f32 bodies zero them by plain stores; keys
+// past Sk are masked on the edge tile in every call, causal or not; a
+// query row past Sq adds nothing to dk/dv (its P and dS are selected to 0);
+// and no row past Sq (Sk) is stored.  K5's lse and delta rows come by bulk
+// copy only when 16-byte aligned (Sq % 4 == 0), else straight from device
+// memory.  Nothing is padded on the host.
+//
 // The f32 instantiations keep the first body's layout on the CUDA cores —
 // exact f32 for checks; wgmma has no f32: the m16n8 accumulator layout,
 // one warp per 16 rows, four warps (64 rows) a CTA, the other side's tiles
@@ -95,6 +104,12 @@
 
 #include "hopper.cuh"
 
+// A planted-fault build (chip_smoke.py's flash_kernel_phase) defines
+// TDP_FLASH_FAULT: 1 = bf16 K3 without the key bound (keys past Sk unmasked)
+#ifndef TDP_FLASH_FAULT
+#define TDP_FLASH_FAULT 0
+#endif
+
 namespace {
 
 constexpr int NWARPS = 4;
@@ -127,22 +142,31 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // rows x D elements, rows contiguous in device memory, into a shared tile
-// whose rows are LD elements apart; 16-byte chunks spread over the CTA
+// whose rows are LD elements apart; 16-byte chunks spread over the CTA.
+// Rows from `valid` on lie past the end of the sequence: they are zeroed
+// by plain stores (seen after the next __syncthreads), never read.
 template <typename T, int D, int LD>
-__device__ __forceinline__ void copy_rows(T* dst, const T* src, int rows) {
+__device__ __forceinline__ void copy_rows(T* dst, const T* src, int rows,
+                                          int valid) {
   constexpr int CH = D * sizeof(T) / 16;
   for (int i = threadIdx.x; i < rows * CH; i += NTHREADS) {
     const int r = i / CH;
     const int c = i % CH;
-    cp_async16(reinterpret_cast<unsigned char*>(dst + r * LD) + c * 16,
-               reinterpret_cast<const unsigned char*>(src + r * D) + c * 16);
+    unsigned char* d = reinterpret_cast<unsigned char*>(dst + r * LD) + c * 16;
+    if (r < valid)
+      cp_async16(d, reinterpret_cast<const unsigned char*>(src + r * D) +
+                        c * 16);
+    else
+      *reinterpret_cast<int4*>(d) = make_int4(0, 0, 0, 0);
   }
 }
 
-// n f32 values (n a multiple of 4) into shared memory
-__device__ __forceinline__ void copy_f32(float* dst, const float* src, int n) {
-  for (int i = threadIdx.x; i < n / 4; i += NTHREADS)
-    cp_async16(dst + 4 * i, src + 4 * i);
+// n f32 values into shared memory by plain loads, 0 from `valid` on (a
+// row's lse or delta need not be 16-byte aligned when S is ragged)
+__device__ __forceinline__ void copy_f32(float* dst, const float* src, int n,
+                                         int valid) {
+  for (int i = threadIdx.x; i < n; i += NTHREADS)
+    dst[i] = i < valid ? src[i] : 0.f;
 }
 
 // One warp: c[j] (+)= A[16 x K] . B[K x 8j..8j+7] for j < NT8, exact f32
@@ -234,9 +258,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int jlo = lo / BN;
   const int jhi = (hi + BN - 1) / BN;
 
-  copy_rows<T, D, LD>(qs, qb, BM);
-  copy_rows<T, D, LD>(ks, kb + static_cast<long long>(jlo) * BN * D, BN);
-  copy_rows<T, D, LD>(vs, vb + static_cast<long long>(jlo) * BN * D, BN);
+  // keys of tile j that exist (the last tile may be ragged)
+  auto kvalid = [&](int j) { return min(BN, Sk - j * BN); };
+  copy_rows<T, D, LD>(qs, qb, BM, Sq - q0);
+  copy_rows<T, D, LD>(ks, kb + static_cast<long long>(jlo) * BN * D, BN,
+                      kvalid(jlo));
+  copy_rows<T, D, LD>(vs, vb + static_cast<long long>(jlo) * BN * D, BN,
+                      kvalid(jlo));
   cp_async_commit();
 
   const int r0 = q0 + warp * 16 + g;  // this thread's rows: r0, r0 + 8
@@ -250,8 +278,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int cur = (j - jlo) & 1;
     if (j + 1 < jhi) {
       const long long off = static_cast<long long>(j + 1) * BN * D;
-      copy_rows<T, D, LD>(ks + (cur ^ 1) * C::TILE, kb + off, BN);
-      copy_rows<T, D, LD>(vs + (cur ^ 1) * C::TILE, vb + off, BN);
+      copy_rows<T, D, LD>(ks + (cur ^ 1) * C::TILE, kb + off, BN,
+                          kvalid(j + 1));
+      copy_rows<T, D, LD>(vs + (cur ^ 1) * C::TILE, vb + off, BN,
+                          kvalid(j + 1));
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -273,7 +303,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int row = r0 + (e >> 1) * 8;
         const int col = j * BN + jj * 8 + 2 * t + (e & 1);
         float x = s[jj][e] * scale;
-        if (causal && !visible(row, col, window)) x = NEG_INF;
+        if (col >= Sk || (causal && !visible(row, col, window))) x = NEG_INF;
         s[jj][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -315,6 +345,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = r0 + i * 8;
+    if (row >= Sq) continue;  // the last row tile may be ragged
     T* orow = o + (static_cast<long long>(bh) * Sq + row) * D;
 #pragma unroll
     for (int jj = 0; jj < D / 8; ++jj) {
@@ -373,16 +404,21 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int jlo = lo / BN;
   const int jhi = (hi + BN - 1) / BN;
 
-  copy_rows<T, D, LD>(qs, q + qoff, BM);
-  copy_rows<T, D, LD>(dos, dout + qoff, BM);
-  copy_rows<T, D, LD>(ks, kb + static_cast<long long>(jlo) * BN * D, BN);
-  copy_rows<T, D, LD>(vs, vb + static_cast<long long>(jlo) * BN * D, BN);
+  auto kvalid = [&](int j) { return min(BN, Sk - j * BN); };
+  copy_rows<T, D, LD>(qs, q + qoff, BM, Sq - q0);
+  copy_rows<T, D, LD>(dos, dout + qoff, BM, Sq - q0);
+  copy_rows<T, D, LD>(ks, kb + static_cast<long long>(jlo) * BN * D, BN,
+                      kvalid(jlo));
+  copy_rows<T, D, LD>(vs, vb + static_cast<long long>(jlo) * BN * D, BN,
+                      kvalid(jlo));
   cp_async_commit();
 
   const int r0 = q0 + warp * 16 + g;
   const long long rb = static_cast<long long>(bh) * Sq;
-  const float lse_r[2] = {lse[rb + r0], lse[rb + r0 + 8]};
-  const float dlt_r[2] = {delta[rb + r0], delta[rb + r0 + 8]};
+  const float lse_r[2] = {r0 < Sq ? lse[rb + r0] : 0.f,
+                          r0 + 8 < Sq ? lse[rb + r0 + 8] : 0.f};
+  const float dlt_r[2] = {r0 < Sq ? delta[rb + r0] : 0.f,
+                          r0 + 8 < Sq ? delta[rb + r0 + 8] : 0.f};
   float acc[D / 8][4];
   zero(acc);
   T* dsw = dss + warp * 16 * LP;
@@ -391,8 +427,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int cur = (j - jlo) & 1;
     if (j + 1 < jhi) {
       const long long off = static_cast<long long>(j + 1) * BN * D;
-      copy_rows<T, D, LD>(ks + (cur ^ 1) * C::TILE, kb + off, BN);
-      copy_rows<T, D, LD>(vs + (cur ^ 1) * C::TILE, vb + off, BN);
+      copy_rows<T, D, LD>(ks + (cur ^ 1) * C::TILE, kb + off, BN,
+                          kvalid(j + 1));
+      copy_rows<T, D, LD>(vs + (cur ^ 1) * C::TILE, vb + off, BN,
+                          kvalid(j + 1));
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -415,7 +453,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int row = r0 + i * 8;
         const int col = j * BN + jj * 8 + 2 * t + (e & 1);
         float x = s[jj][e] * scale;
-        if (causal && !visible(row, col, window)) x = NEG_INF;
+        // a row past Sq has lse 0: masking its keys too makes its dS 0
+        if (row >= Sq || col >= Sk || (causal && !visible(row, col, window)))
+          x = NEG_INF;
         const float p = expf(x - lse_r[i]);
         dsw[(i * 8 + g) * LP + jj * 8 + 2 * t + (e & 1)] =
             from_f<T>(p * (dp[jj][e] - dlt_r[i]));
@@ -427,6 +467,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
+    if (r0 + i * 8 >= Sq) continue;
     T* drow = dq + (rb + r0 + i * 8) * D;
 #pragma unroll
     for (int jj = 0; jj < D / 8; ++jj) {
@@ -490,16 +531,17 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int nq = (hi + BN - 1) / BN - ilo;
   const int n_it = G * nq;  // (query head, query tile) pairs
 
-  copy_rows<T, D, LD>(ks, k + koff, BM);
-  copy_rows<T, D, LD>(vs, v + koff, BM);
+  copy_rows<T, D, LD>(ks, k + koff, BM, Sk - k0);
+  copy_rows<T, D, LD>(vs, v + koff, BM, Sk - k0);
   auto fetch = [&](int it, int stage) {
     const int hq = hq0 + it / nq;
     const int i = ilo + it % nq;
     const long long row = static_cast<long long>(b * H + hq) * Sq + i * BN;
-    copy_rows<T, D, LD>(qs + stage * C::TILE, q + row * D, BN);
-    copy_rows<T, D, LD>(dos + stage * C::TILE, dout + row * D, BN);
-    copy_f32(lse_s + stage * BN, lse + row, BN);
-    copy_f32(dlt_s + stage * BN, delta + row, BN);
+    const int valid = min(BN, Sq - i * BN);  // the last tile may be ragged
+    copy_rows<T, D, LD>(qs + stage * C::TILE, q + row * D, BN, valid);
+    copy_rows<T, D, LD>(dos + stage * C::TILE, dout + row * D, BN, valid);
+    copy_f32(lse_s + stage * BN, lse + row, BN, valid);
+    copy_f32(dlt_s + stage * BN, delta + row, BN, valid);
   };
   fetch(0, 0);
   cp_async_commit();
@@ -540,7 +582,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int key = kr0 + i * 8;
         const int c = jj * 8 + 2 * t + (e & 1);
         float x = st[jj][e] * scale;
-        if (causal && !visible(qbase + c, key, window)) x = NEG_INF;
+        // a query past Sq (lse 0 there) adds nothing
+        if (qbase + c >= Sq || (causal && !visible(qbase + c, key, window)))
+          x = NEG_INF;
         const float p = expf(x - lt[c]);
         pw[(i * 8 + g) * LP + c] = from_f<T>(p);
         dsw[(i * 8 + g) * LP + c] = from_f<T>(p * (dpt[jj][e] - dt[c]));
@@ -553,6 +597,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
+    if (kr0 + i * 8 >= Sk) continue;
     const long long row = static_cast<long long>(bkv) * Sk + kr0 + i * 8;
     T* krow = dk + row * D;
     T* vrow = dv + row * D;
@@ -723,8 +768,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       for (int i = 0; i < BN / 2; ++i) {
         const int row = r0 + ((i >> 1) & 1) * 8;
         const int col = kt0 + (i >> 2) * 8 + 2 * t + (i & 1);
+#if TDP_FLASH_FAULT == 1
+        // planted fault: the key bound off (TMA's zero-filled keys past Sk
+        // then take a share of every non-causal row's softmax)
+        if (causal && !visible(row, col, window)) sc[i] = -INFINITY;
+#else
         if (col >= Sk || (causal && !visible(row, col, window)))
           sc[i] = -INFINITY;
+#endif
       }
     }
     float mx[2] = {m[0], m[1]};
@@ -858,11 +909,14 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int nq = (hi + BQ - 1) / BQ - ilo;
   const int n_it = G * nq;
 
+  // lse and delta come by bulk copy, which needs 16-byte aligned rows:
+  // at Sq % 4 != 0 the consumers read them from device memory instead
+  const bool bulk = (Sq & 3) == 0;
   auto load_stage = [&](int it) {
     const int s = it % NS;
     const int bhq = b * H + hq0 + it / nq;
     const int row = (ilo + it % nq) * BQ;
-    const uint32_t rbytes = min(BQ, Sq - row) * 4;  // no read past Sq
+    const uint32_t rbytes = bulk ? min(BQ, Sq - row) * 4 : 0;  // to Sq
     unsigned char* st = st0 + s * C::STAGE;
     hopper::mbar_expect_tx(bar_f + s, 2 * C::T_BYTES + 2 * rbytes);
     for (int nb = 0; nb < NB; ++nb) {
@@ -871,10 +925,12 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       hopper::tma_load_3d(st + C::T_BYTES + nb * BQ * 128, &tdo, bar_f + s,
                           nb * 64, row, bhq);
     }
-    const long long r = static_cast<long long>(bhq) * Sq + row;
-    hopper::bulk_load(st + 2 * C::T_BYTES, lse + r, rbytes, bar_f + s);
-    hopper::bulk_load(st + 2 * C::T_BYTES + BQ * 4, delta + r, rbytes,
-                      bar_f + s);
+    if (bulk) {
+      const long long r = static_cast<long long>(bhq) * Sq + row;
+      hopper::bulk_load(st + 2 * C::T_BYTES, lse + r, rbytes, bar_f + s);
+      hopper::bulk_load(st + 2 * C::T_BYTES + BQ * 4, delta + r, rbytes,
+                        bar_f + s);
+    }
   };
   auto load_kv = [&] {
     hopper::mbar_expect_tx(bar_kv, 2 * C::KV_BYTES);
@@ -937,6 +993,9 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const uint32_t da = qa + C::T_BYTES;
     const float* lse_s = reinterpret_cast<const float*>(st + 2 * C::T_BYTES);
     const float* dlt_s = lse_s + BQ;
+    // the tile's rows of lse and delta in device memory (when !bulk)
+    const long long rg =
+        static_cast<long long>(b * H + hq0 + it / nq) * Sq + qt0;
 
     float sT[BQ / 2], dpT[BQ / 2];
     hopper::wgmma_fence();
@@ -962,8 +1021,17 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int i = 0; i < BQ / 2; i += 2) {
       const int key = kr0 + ((i >> 1) & 1) * 8;
       const int col = (i >> 2) * 8 + 2 * t;  // query qt0 + col, col + 1
-      const float2 ls = *reinterpret_cast<const float2*>(lse_s + col);
-      const float2 dl = *reinterpret_cast<const float2*>(dlt_s + col);
+      float2 ls, dl;
+      if (bulk) {
+        ls = *reinterpret_cast<const float2*>(lse_s + col);
+        dl = *reinterpret_cast<const float2*>(dlt_s + col);
+      } else {  // 0 past Sq; those columns are selected to 0 below
+        const bool in0 = qt0 + col < Sq, in1 = qt0 + col + 1 < Sq;
+        ls = make_float2(in0 ? lse[rg + col] : 0.f,
+                         in1 ? lse[rg + col + 1] : 0.f);
+        dl = make_float2(in0 ? delta[rg + col] : 0.f,
+                         in1 ? delta[rg + col + 1] : 0.f);
+      }
       float p0 = exp2_(fmaf(sT[i], c, -ls.x * LOG2E));
       float p1 = exp2_(fmaf(sT[i + 1], c, -ls.y * LOG2E));
       float d0 = p0 * (dpT[i] - dl.x);
@@ -1242,11 +1310,12 @@ struct Shape {
   float scale;
 };
 
+// any sequence lengths >= 1: every body masks keys past Sk and stores no
+// row past Sq (or Sk) in its last, ragged tile
 bool bad(const Shape& s) {
   return s.B < 1 || s.Hkv < 1 || s.H % s.Hkv != 0 ||
-         (s.hd != 64 && s.hd != 128) || s.Sq < BM || s.Sk < BM ||
-         s.Sq % BM != 0 || s.Sk % BM != 0 || (s.causal && s.Sq != s.Sk) ||
-         (s.window > 0 && !s.causal);
+         (s.hd != 64 && s.hd != 128) || s.Sq < 1 || s.Sk < 1 ||
+         (s.causal && s.Sq != s.Sk) || (s.window > 0 && !s.causal);
 }
 
 template <int D>
@@ -1303,7 +1372,7 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
     auto kernel = flash_fwd_kernel<T, D>;
     cudaError_t err = prepare(kernel, smem);
     if (err != cudaSuccess) return err;
-    kernel<<<dim3(s.Sq / BM, s.B * s.H), NTHREADS, smem, st>>>(
+    kernel<<<dim3((s.Sq + BM - 1) / BM, s.B * s.H), NTHREADS, smem, st>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(o),
         static_cast<float*>(lse), s.H, s.H / s.Hkv, s.Sq, s.Sk, s.causal,
@@ -1346,7 +1415,7 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v,
     auto kernel = flash_bwd_dq_kernel<T, D>;
     cudaError_t err = prepare(kernel, smem);
     if (err != cudaSuccess) return err;
-    kernel<<<dim3(s.Sq / BM, s.B * s.H), NTHREADS, smem, st>>>(
+    kernel<<<dim3((s.Sq + BM - 1) / BM, s.B * s.H), NTHREADS, smem, st>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -1367,7 +1436,8 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
     auto kernel = flash_bwd_dkv_kernel<T, D>;
     cudaError_t err = prepare(kernel, smem);
     if (err != cudaSuccess) return err;
-    kernel<<<dim3(s.Sk / BM, s.B * s.Hkv), NTHREADS, smem, st>>>(
+    kernel<<<dim3((s.Sk + BM - 1) / BM, s.B * s.Hkv), NTHREADS, smem,
+             st>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout),
         static_cast<const float*>(lse), static_cast<const float*>(delta),

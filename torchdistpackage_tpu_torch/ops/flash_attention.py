@@ -26,8 +26,13 @@ cores, one warp per 16 rows, with a ``cp.async`` double buffer.  The
 source's header says what each design does and what is left.
 
 Each wrapper launches its kernel for CUDA tensors and raises on anything
-it does not take (head dim 64 or 128, sequence lengths a multiple of 64,
-contiguous bf16 or f32); it computes its plain version
+it does not take (head dim 64 or 128, contiguous, 16-byte aligned bf16
+or f32); any sequence length runs, as in the reference, whose block
+sizes shrink to a divisor of S (``math.gcd``, its ``_prep`` :479-482):
+here the last row or key tile is ragged instead — keys past Sk are
+masked, rows past S are neither read nor stored, and nothing is padded
+(a padded copy of q, k and v on every prefill is the cost this avoids).
+It computes its plain version
 (``flash_fwd_reference``, ``flash_bwd_dq_reference``,
 ``flash_bwd_dkv_reference``) only for tensors on the CPU.  ``LAUNCHES``
 counts kernel launches, so a run can show that its path went through the
@@ -56,7 +61,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 NEG_INF = -1e30  # finite "minus infinity": no (-inf) - (-inf) NaN
-TILE = 64        # the kernels' row tile: sequence lengths are multiples
+TILE = 64        # the f32 bodies' row tile (any S: the last one is ragged)
 
 #: kernel launches since the counters were last reset (each wrapper adds
 #: one where it launches its kernel, and nowhere else)
@@ -283,9 +288,8 @@ def _check_kernel_inputs(name: str, tensors, q, k, causal):
            f"(bf16 or f32)")
     B, H, Sq, hd = q.shape
     _check(hd in (64, 128), f"{name}: head dim must be 64 or 128, got {hd}")
-    _check(Sq % TILE == 0 and k.shape[2] % TILE == 0,
-           f"{name}: sequence lengths must be multiples of {TILE}, got "
-           f"{Sq} / {k.shape[2]}")
+    _check(Sq >= 1 and k.shape[2] >= 1,
+           f"{name}: empty sequence ({Sq} / {k.shape[2]})")
     _check(k.shape[0] == B and k.shape[3] == hd,
            f"{name}: k {tuple(k.shape)} does not match q {tuple(q.shape)}")
     _check(not causal or Sq == k.shape[2], f"{name}: causal needs Sq == Sk")
@@ -489,8 +493,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``window``: key in ``(q - window, q]`` (needs ``causal``).  GQA:
     ``k``/``v`` may carry fewer heads; grads come back in the kv heads'
     own shape.  CUDA tensors go through the kernels (contiguous, hd 64 or
-    128, S a multiple of 64, bf16 or f32); CPU tensors through the plain
-    versions."""
+    128, any S, bf16 or f32); CPU tensors through the plain versions."""
     _, sm_scale, window = prep_args(q, k, sm_scale, causal, window)
     o, _ = _flash(q, k, v, sm_scale, bool(causal), window)
     return o

@@ -20,6 +20,17 @@ The scheduler is the reference's, on one device:
 - **Retirement** on EOS or ``max_new_tokens`` frees the blocks the same
   tick; every tick starts with the block-conservation audit, which heals
   what it finds by requeueing the poisoned slot.
+- **Speculative decoding** (``spec_k=K``).  A host-side n-gram drafter
+  (:meth:`ServingEngine._draft`: the tokens that followed the last
+  bigram's, else the last unigram's, most recent earlier occurrence,
+  else the last token repeated) proposes K tokens a decoding slot each
+  tick, and one verify call (``TorchDeviceStep.verify``) scores all K+1
+  positions through the paged forward's ``all_logits``: greedy rows
+  accept while the draft equals the argmax (tokens equal plain decode),
+  sampled rows run residual rejection sampling from the slot's stream.
+  A slot advances 1..K+1 tokens a tick; a rejection truncates host-side
+  (the stale KV tail is overwritten before it is attended).  Every
+  table covers ``max_ctx + spec_k`` positions for the overshoot writes.
 
 Paged attention runs through the hand-written CUDA kernel on the card
 (``attn_impl='auto'`` resolves to ``'cuda'`` there, ``'gather'`` on the
@@ -33,10 +44,9 @@ With ``cp_group`` a dense model's pool is sharded by blocks over a
 ``torch.distributed`` group and every prefill chunk is split across its
 ranks (context parallelism: ring paged attention, K2 on the card, and
 ``serving_summary()['long_context']``).  Tensor / data parallelism, the
-prefix cache,
-speculative decoding, telemetry, chaos, the watchdog, metrics export,
-deadline shedding, preemption and drain/resume are not ported yet
-(ROADMAP queue A); the constructor refuses them with NotImplementedError.
+prefix cache, telemetry, chaos, the watchdog, metrics export, deadline
+shedding, preemption and drain/resume are not ported yet (ROADMAP queue
+A); the constructor refuses them with NotImplementedError.
 """
 
 from __future__ import annotations
@@ -168,7 +178,7 @@ class _SlotState:
 #: serve yet, with the value that means "off"
 _QUEUED_OPTIONS = {
     "mesh": None, "axis": None, "dp_axis": None, "ep_axis": None,
-    "cp_axis": None, "prefix_cache": False, "spec_k": 0, "telemetry": None,
+    "cp_axis": None, "prefix_cache": False, "telemetry": None,
     "chaos": None, "watchdog": None, "metrics_sink": None,
 }
 
@@ -263,6 +273,9 @@ class ServingEngine:
         ``kv_quant``, MoE, ``spec_k``, ``prefix_cache`` and ``ep_group``
         are refused.  The counterpart of the reference's ``mesh=`` +
         ``cp_axis=``, which stay refused.
+    spec_k: draft tokens a decoding slot a tick (0: off); see the module
+        docstring.  Works with the MoE family and ``ep_group``;
+        ``serving_summary()['spec']`` counts drafted and accepted tokens.
     device: where the pool and the step live (default: the card).
     """
 
@@ -281,17 +294,21 @@ class ServingEngine:
         moe_dispatch: Optional[str] = None,
         ep_group=None,
         cp_group=None,
+        spec_k: int = 0,
         device=None,
         **queued: Any,
     ) -> None:
         unknown = set(queued) - set(_QUEUED_OPTIONS)
         if unknown:
             raise TypeError(f"unexpected engine options {sorted(unknown)}")
+        if spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
         on = sorted(k for k, v in queued.items() if v != _QUEUED_OPTIONS[k])
         cp = 1
         if cp_group is not None:
             cp = _check_cp(cfg, cp_group, chunk, num_blocks, kv_quant,
-                           ep_group, set(on))
+                           ep_group, set(on) | ({"spec_k"} if spec_k
+                                                else set()))
         if on:
             hint = [
                 "; expert parallelism takes ep_group= (a torch.distributed "
@@ -328,6 +345,7 @@ class ServingEngine:
         self.block_size = block_size
         self.chunk = chunk
         self.kv_quant = kv_quant
+        self.spec_k = int(spec_k)
         self._ev: EventLog = default_event_log()
 
         from .sim import TorchDeviceStep
@@ -355,7 +373,11 @@ class ServingEngine:
             if cfg.moe_experts else [])
 
         self.max_ctx = int(max_ctx if max_ctx is not None else cfg.max_seq)
-        self.max_blocks = -(-self.max_ctx // block_size)
+        # spec slack: a verify step writes up to spec_k positions past the
+        # committed length, so the table covers max_ctx + spec_k positions
+        # (else the clamp in _scatter_positions folds an overshoot write
+        # back onto a real block)
+        self.max_blocks = -(-(self.max_ctx + self.spec_k) // block_size)
         if num_blocks is None:
             num_blocks = 1 + num_slots * self.max_blocks
             num_blocks = -(-num_blocks // cp) * cp  # shards evenly over cp
@@ -383,7 +405,10 @@ class ServingEngine:
     # ---------------------------------------------------------------- admission
 
     def _blocks_needed(self, req: Request) -> int:
-        return -(-(len(req.tokens) + req.max_new_tokens) // self.block_size)
+        # + spec_k: a verify step writes drafts up to spec_k positions
+        # past the committed length
+        return -(-(len(req.tokens) + req.max_new_tokens + self.spec_k)
+                 // self.block_size)
 
     def _queue_sort(self) -> None:
         """Priority order, FIFO within a class: the sort key is
@@ -597,6 +622,8 @@ class ServingEngine:
         return len(rids)
 
     def _decode_tick(self) -> int:
+        if self.spec_k:
+            return self._spec_decode_tick()
         mask, tables = self._masked(DECODE)
         n_active = int(mask.sum())
         if n_active == 0:
@@ -624,6 +651,109 @@ class ServingEngine:
             s.tpot_s.append(now - s.t_last)
             s.t_last = now
             self._maybe_retire(i, int(tok[i]), now)
+        self.stats["decode_steps"] += 1
+        self.stats["decode_slot_steps"] += n_active
+        return n_active
+
+    # ------------------------------------------------------ speculative decode
+
+    def _draft(self, s: _SlotState) -> List[int]:
+        """The host-side n-gram drafter (JAX :1417): the ``spec_k`` tokens
+        that followed the most recent earlier occurrence of the slot's
+        last bigram in its own history (prompt + generated, the last 256
+        tokens), else of its last unigram, padded by repeating the last
+        token.  A bad draft costs only acceptance."""
+        hist = (list(int(t) for t in s.prompt) + s.generated)[-256:]
+        K = self.spec_k
+        cand: Optional[List[int]] = None
+        if len(hist) >= 3:
+            a, b = hist[-2], hist[-1]
+            for j in range(len(hist) - 3, -1, -1):
+                if hist[j] == a and hist[j + 1] == b:
+                    cand = hist[j + 2:j + 2 + K]
+                    break
+        if not cand:
+            last = hist[-1]
+            for j in range(len(hist) - 2, -1, -1):
+                if hist[j] == last:
+                    cand = hist[j + 1:j + 1 + K]
+                    break
+        cand = list(cand or [])
+        while len(cand) < K:
+            cand.append(cand[-1] if cand else hist[-1])
+        return cand[:K]
+
+    def _spec_decode_tick(self) -> int:
+        """The speculative decode tick (JAX :1445): K drafts a decoding
+        slot, one verify call over the K+1 positions, then the host walks
+        the accept bits — the accepted prefix plus the model's correction
+        (or the bonus token when every draft survives) advance the slot;
+        a rejection needs no rollback (the stale tail is overwritten
+        before it is attended).  1..K+1 tokens a slot a tick, at one
+        decode signature."""
+        mask, tables = self._masked(DECODE)
+        n_active = int(mask.sum())
+        if n_active == 0:
+            return 0
+        K = self.spec_k
+        tokens = np.zeros((self.num_slots, K + 1), np.int32)
+        offsets = np.where(mask, self._lengths, 0).astype(np.int32)
+        rids = []
+        for i, s in enumerate(self._slots):
+            if s.state != DECODE:
+                continue
+            rids.append(s.rid)
+            tokens[i, 0] = self._last_tok[i]
+            tokens[i, 1:] = self._draft(s)
+        self._ev.emit("spec_draft", k=K, n_slots=len(rids), rids=rids)
+        gens = [g if m and t > 0.0 else None
+                for g, m, t in zip(self._gens, mask, self._temps)]
+        self.cache, verify, accept = self._dev.verify(
+            self.params, self.cache, tokens, tables, offsets, self._samp(),
+            gens)
+        self._decode_sigs.add(("decode",) + self._sig(tokens))
+        now = time.perf_counter()
+        emitted_total = accepted_total = 0
+        for i, s in enumerate(self._slots):
+            if s.state != DECODE:
+                continue
+            emitted: List[int] = []
+            for j in range(K):
+                if accept[i, j]:
+                    emitted.append(int(tokens[i, j + 1]))
+                else:
+                    emitted.append(int(verify[i, j]))
+                    break
+            else:
+                emitted.append(int(verify[i, K]))
+            self.stats["spec_drafted"] += K
+            bad = [t for t in [int(verify[i, 0])] + emitted
+                   if self._token_poisoned(t)]
+            if bad:
+                self._poisoned_token_recover(i, bad[0])
+                continue
+            req = s.req
+            took, done, reason = 0, False, "max_tokens"
+            for t in emitted:
+                s.generated.append(t)
+                took += 1
+                if req.eos_id is not None and t == req.eos_id:
+                    done, reason = True, "eos"
+                    break
+                if len(s.generated) >= req.max_new_tokens:
+                    done = True
+                    break
+            self.stats["spec_accepted"] += took - 1
+            accepted_total += took - 1
+            emitted_total += took
+            self._lengths[i] += took
+            self._last_tok[i] = s.generated[-1]
+            s.tpot_s.extend([(now - s.t_last) / took] * took)
+            s.t_last = now
+            if done:
+                self._finish_slot(i, reason, now)
+        self._ev.emit("spec_verify", k=K, n_slots=len(rids),
+                      emitted=emitted_total, accepted=accepted_total)
         self.stats["decode_steps"] += 1
         self.stats["decode_slot_steps"] += n_active
         return n_active
@@ -830,7 +960,8 @@ class ServingEngine:
                       "decode_slot_steps": 0, "generated_tokens": 0,
                       "cancelled": 0, "faults_detected": 0,
                       "faults_healed": 0, "audits": 0, "cp_ring_hops": 0,
-                      "cp_ring_bytes": 0}
+                      "cp_ring_bytes": 0, "spec_drafted": 0,
+                      "spec_accepted": 0}
         self._decode_sigs: set = set()
         self._prefill_sigs: set = set()
         self._ttfts: List[Optional[float]] = []
@@ -882,9 +1013,11 @@ class ServingEngine:
         percentiles, the attention implementation, the call signatures,
         the kernel launches since :meth:`reset_metrics` and, for an MoE
         model, the ``moe`` expert-load block (its overflow tripwire fires
-        here) and, with ``cp_group``, the ``long_context`` block (CP width,
+        here), with ``cp_group``, the ``long_context`` block (CP width,
         the chunks that rode the ring and its modeled hops and bytes; 0 at
-        cp 1).  ``kv_pool.pool_bytes`` is this rank's slice."""
+        cp 1), and the ``spec`` block (K, drafted and accepted tokens) with
+        ``spec_accept_rate`` (0.0 when off).  ``kv_pool.pool_bytes`` is
+        this rank's slice."""
         span = self._t_last_done - self._t_first
         completed = sum(1 for f in self.finished.values()
                         if f["reason"] in ("eos", "max_tokens"))
@@ -941,6 +1074,10 @@ class ServingEngine:
                 if st["decode_steps"] else 0.0),
             "decode_signatures": len(self._decode_sigs),
             "prefill_signatures": len(self._prefill_sigs),
+            "spec_accept_rate": (st["spec_accepted"] / st["spec_drafted"]
+                                 if st["spec_drafted"] else 0.0),
+            "spec": {"k": self.spec_k, "drafted": st["spec_drafted"],
+                     "accepted": st["spec_accepted"]},
             **({"long_context": {
                 "cp": self.cp,
                 "max_ctx": self.max_ctx,

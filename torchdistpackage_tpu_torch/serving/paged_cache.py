@@ -235,16 +235,18 @@ def _paged_inputs(params: Dict[str, Any], tokens: torch.Tensor,
 def paged_forward(params: Dict[str, Any], tokens: torch.Tensor,
                   cfg: GPTConfig, cache: Dict[str, Any], tables: torch.Tensor,
                   offset: torch.Tensor, last_idx=None,
-                  attn_impl: str = "gather") -> Tuple[Dict[str, Any],
-                                                      torch.Tensor]:
+                  attn_impl: str = "gather",
+                  all_logits: bool = False) -> Tuple[Dict[str, Any],
+                                                     torch.Tensor]:
     """Run ``tokens`` [B, S_in] (slot b's rows at positions ``offset[b] +
     arange(S_in)``) through the cached stack on the pool: every layer
     writes its k/v into the slots' blocks (in place) and attends through
     the tables.  Returns the pool and the logits [B, V] at per-slot row
     ``last_idx`` (default: the last row).  Chunked prefill is ``S_in =
     chunk``; decode is ``S_in = 1`` — one implementation, both phases.
-    The reference's ``all_logits`` (every row's logits, for speculative
-    verify) waits for ``spec_k`` (ROADMAP queue A)."""
+    ``all_logits=True`` (JAX :254-297) returns every row's logits [B,
+    S_in, V] instead: the speculative verify's ``K + 1`` rows a slot, one
+    K1 call a layer."""
     h, offset, rope, ops = _paged_inputs(params, tokens, cfg, cache, tables,
                                          offset, attn_impl)
     for layer in range(cfg.nlayers):
@@ -252,6 +254,8 @@ def paged_forward(params: Dict[str, Any], tokens: torch.Tensor,
             layer_params(params, layer), h, cfg.block,
             _layer_kv(cache["k"], layer), _layer_kv(cache["v"], layer),
             offset, cache_ops=ops, rope=rope)
+    if all_logits:
+        return cache, gpt_head(params, h, eps=cfg.norm_eps)
     logits = gpt_head(params, _select_row(h, last_idx), eps=cfg.norm_eps)
     return cache, logits[:, 0, :]
 
@@ -362,7 +366,8 @@ def paged_forward_moe(params: Dict[str, Any], tokens: torch.Tensor,
                       tables: torch.Tensor, offset: torch.Tensor,
                       last_idx=None, attn_impl: str = "gather",
                       moe_dispatch: Optional[str] = None,
-                      moe_stats: bool = False, ep_group=None):
+                      moe_stats: bool = False, ep_group=None,
+                      all_logits: bool = False):
     """:func:`paged_forward` for the MoE family: ``params['blocks']`` is the
     per-block list of ``init_gpt_moe_params``, and every expert block's FFN
     is :func:`~..parallel.moe.moe_serve_forward` (exact no-drop routing).
@@ -380,7 +385,8 @@ def paged_forward_moe(params: Dict[str, Any], tokens: torch.Tensor,
     capacity factor ``max(cf, E / top_k)`` (so ``C = T``: nothing drops),
     with token-major priority for a causal model; ``'gather'`` maps to
     the index dispatch ``'sorted'`` (the exchange has no ragged form) and
-    ``'cuda'`` runs K7.  ``all_logits`` waits (ROADMAP queue A)."""
+    ``'cuda'`` runs K7.  ``all_logits=True``: every row's logits [B, S_in,
+    V], as in :func:`paged_forward` (JAX :415)."""
     from ..models.gpt_moe import moe_layer_config
     from ..parallel.moe import moe_forward, moe_serve_forward
 
@@ -415,8 +421,11 @@ def paged_forward_moe(params: Dict[str, Any], tokens: torch.Tensor,
             bp, h, cfg.block, _layer_kv(cache["k"], layer),
             _layer_kv(cache["v"], layer), offset, cache_ops=ops, rope=rope,
             ffn=moe_ffn if "moe" in bp else None)
-    logits = gpt_head(params, _select_row(h, last_idx),
-                      eps=cfg.norm_eps)[:, 0, :]
+    if all_logits:
+        logits = gpt_head(params, h, eps=cfg.norm_eps)
+    else:
+        logits = gpt_head(params, _select_row(h, last_idx),
+                          eps=cfg.norm_eps)[:, 0, :]
     if not moe_stats:
         return cache, logits
     # routed-token counts sum over the expert layers, the drop rate averages

@@ -2,10 +2,11 @@
 counterpart of ``torchdistpackage_tpu/serving/sim.py`` (``DeviceStep``
 :54, ``CompiledDeviceStep`` :101).
 
-``ServingEngine`` touches the device in three places: the pool
-allocation, the shared prefill/decode step, and the per-request sampling
-stream.  :class:`TorchDeviceStep` holds all three, and the engine builds
-it itself.  The reference puts its step behind a ``DeviceStep`` seam so
+``ServingEngine`` touches the device in four places: the pool
+allocation, the shared prefill/decode step, the speculative verify step
+(``spec_k``) and the per-request sampling stream.
+:class:`TorchDeviceStep` holds all four, and the engine builds it
+itself.  The reference puts its step behind a ``DeviceStep`` seam so
 that a host-only ``StubDeviceStep`` can stand in; neither the seam nor
 the stub is ported yet (ROADMAP queue A).
 """
@@ -21,7 +22,7 @@ import torch.distributed as dist
 from ..device import resolve_device
 from ..models.gpt import GPTConfig
 from ..ops.paged_attention import resolve_attn_impl
-from .engine import _slot_sample
+from .engine import _filtered_logits, _slot_sample
 from .paged_cache import (
     cp_paged_forward,
     init_paged_kv,
@@ -119,3 +120,92 @@ class TorchDeviceStep:
         B = tok.shape[0]
         return (cache, host[:B].astype(np.int32),
                 (host[B:-1], float(host[-1])))
+
+    @torch.no_grad()
+    def verify(self, params: Any, cache: Any, tokens: np.ndarray,
+               tables: np.ndarray, offsets: np.ndarray,
+               samp: Dict[str, np.ndarray],
+               gens: List[Optional[torch.Generator]]
+               ) -> Tuple[Any, np.ndarray, np.ndarray]:
+        """The speculative verify step (JAX ``engine.py:703-790``):
+        ``tokens [B, K+1]`` is each slot's last token and its K drafts at
+        offsets ``length..length+K``, run through the paged forward with
+        ``all_logits`` (every position's distribution in one call, one
+        K1 launch a layer), then judged by :meth:`judge`.  Host arrays
+        in; ``(cache, verify [B, K+1], accept [B, K])`` out, in one
+        read-back.  Under EP every rank takes rank 0's verdict, as
+        :meth:`step` takes its tokens."""
+        tok = self._to_dev(tokens)
+        args = (params, tok, self.cfg, cache, self._to_dev(tables),
+                self._to_dev(offsets))
+        kw = dict(attn_impl=self.attn_impl, all_logits=True)
+        if self.cfg.moe_experts:
+            cache, logits = paged_forward_moe(
+                *args, moe_dispatch=self.moe_dispatch,
+                ep_group=self.ep_group, **kw)
+        else:
+            cache, logits = paged_forward(*args, **kw)
+        ver, acc = self.judge(logits, tok, samp, gens)
+        both = torch.cat([ver, acc.long()], dim=1)
+        if self.ep_group is not None:
+            dist.broadcast(both, src=dist.get_global_rank(self.ep_group, 0),
+                           group=self.ep_group)
+        host = both.to(torch.int32).cpu().numpy()
+        K1 = tokens.shape[1]
+        return cache, host[:, :K1], host[:, K1:]
+
+    def judge(self, logits: torch.Tensor, tokens: torch.Tensor,
+              samp: Dict[str, np.ndarray],
+              gens: List[Optional[torch.Generator]]
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Each slot's verdict on its drafts ``tokens[:, 1:]`` from the
+        logits ``[B, K+1, V]`` at its K+1 positions.  Greedy rows (no
+        generator: temperature <= 0, or an idle slot) accept while the
+        draft equals the argmax, and ``verify`` is the argmax row —
+        exact, so greedy output equals plain decode.  Sampled rows run
+        residual rejection sampling against the ``_filtered_logits``
+        distribution p (a draft is a point mass: accept draft i iff u_i <
+        p(draft_i); a rejection draws from p with the draft's mass
+        removed, or the filtered argmax when nothing is left), with a
+        fixed 2K + 1 draws from the slot's generator a call — K
+        uniforms, K residual draws and one bonus draw, each draw a
+        Gumbel-max over V uniforms — taken by one ``torch.rand``, so a
+        replay consumes the stream alike.  Returns ``(verify [B, K+1],
+        accept [B, K] bool)`` on the device: ``verify[:, i]`` is the
+        token emitted when draft i is the first rejection, column K the
+        bonus when every draft survives."""
+        x = logits.float()
+        B, K1, V = x.shape
+        K = K1 - 1
+        greedy = torch.argmax(x, dim=-1)
+        drafts = tokens[:, 1:].long()
+        ver, acc = greedy.clone(), drafts == greedy[:, :K]
+        rows = [i for i, g in enumerate(gens) if g is not None]
+        if not rows:
+            return ver, acc
+        idx = torch.tensor(rows, device=x.device)
+        temp = self._to_dev(samp["temperature"])[idx]
+        xf = _filtered_logits(
+            x[idx].reshape(-1, V), temp.repeat_interleave(K1),
+            self._to_dev(samp["top_k"])[idx].repeat_interleave(K1),
+            self._to_dev(samp["top_p"])[idx].repeat_interleave(K1)
+        ).reshape(len(rows), K1, V)
+        d = drafts[idx]
+        p_draft = torch.softmax(xf[:, :K], dim=-1).gather(
+            -1, d[..., None])[..., 0]
+        r = torch.stack([torch.rand(K + K1 * V, generator=gens[i],
+                                    device=x.device) for i in rows])
+        u = r[:, :K]
+        tiny = torch.finfo(torch.float32).tiny
+        gumbel = -torch.log(-torch.log(
+            r[:, K:].reshape(len(rows), K1, V).clamp_min(tiny)))
+        xr = xf[:, :K].scatter(-1, d[..., None], float("-inf"))
+        resid = torch.argmax(xr + gumbel[:, :K], dim=-1)
+        has = xr.amax(-1) > float("-inf")
+        resid = torch.where(has, resid, torch.argmax(xf[:, :K], dim=-1))
+        bonus = torch.argmax(xf[:, K] + gumbel[:, K], dim=-1)
+        sampled = (temp > 0.0)[:, None]
+        ver[idx] = torch.where(sampled, torch.cat([resid, bonus[:, None]],
+                                                  dim=1), ver[idx])
+        acc[idx] = torch.where(sampled, u < p_draft, acc[idx])
+        return ver, acc
