@@ -250,15 +250,21 @@ def graph_ms(fn, iters):
 # ------------------------------------------------------------ phase 3
 
 
-def make_case(name, *, B, S_in, offsets, window, dtype, quantized, seed):
+def make_case(name, *, B, S_in, offsets, window, dtype, quantized, seed,
+              live=None):
     """Random q and pool on the card; tables are a permutation of the
-    pool's blocks, wide enough for the deepest slot's rows."""
+    pool's blocks, wide enough for the deepest slot's rows.  ``live``:
+    only these slots hold blocks, the others a NULL row (the idle slots
+    of an engine's prefill call)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = torch.device("cuda")
     mb = -(-(max(offsets) + S_in) // BS)
     nb = 1 + B * mb
     tables = (torch.randperm(nb - 1, generator=g, device=dev) + 1)
-    tables = tables.reshape(B, mb).to(torch.int32).contiguous()
+    tables = tables.reshape(B, mb).to(torch.int32)
+    if live is not None:
+        tables[[b for b in range(B) if b not in live]] = 0
+    tables = tables.contiguous()
     offs = torch.tensor(offsets, dtype=torch.int32, device=dev)
     q = torch.randn(B, HKV * GROUPS, S_in, HD, generator=g,
                     device=dev).to(dtype)
@@ -410,6 +416,17 @@ def kernel_phase():
                                    window=64, dtype=bf, quantized=False)),
         ("chunk200_bf16_w48", dict(B=8, S_in=200, offsets=chunk_offs,
                                    window=48, dtype=bf, quantized=False)),
+        # the prefix cache's shapes: a prefix hit's chunk starts at a block
+        # boundary inside the prompt (2048 + 16 k: a multiple of 16, not of
+        # the chunk), and a COW admission is one live row at P - 1 = 2047
+        # with its chunk's pad rows past the prompt, the other slots idle
+        # on NULL tables
+        ("prefix_hit_bf16_w4096", dict(B=8, S_in=512, offsets=PREFIX_OFFS,
+                                       window=4096, dtype=bf,
+                                       quantized=False)),
+        ("cow_bf16_w4096", dict(B=8, S_in=512, offsets=COW_OFFS,
+                                window=4096, dtype=bf, quantized=False,
+                                live={2})),
         ("decode_int8_w4096", dict(B=8, S_in=1, offsets=decode_offs,
                                    window=4096, dtype=bf, quantized=True)),
         ("chunk512_int8_full", dict(B=8, S_in=512, offsets=chunk_offs,
@@ -449,8 +466,11 @@ def kernel_phase():
         decode = GROUPS * spec["S_in"] <= DECODE_ROWS
         if decode:
             repeatable(name, got, lambda: paged_decode_attention(*args, **kw))
-        if name in ("decode_bf16_w4096", "chunk512_bf16_w4096"):
+        if name in ("decode_bf16_w4096", "chunk512_bf16_w4096",
+                    "prefix_hit_bf16_w4096"):
             planted_faults(case, exact)
+        if name == "cow_bf16_w4096":
+            planted_faults(case, exact, window_fault=False)
         if name == "chunk512_bf16_w64":
             mask_planted_fault(case, exact)
         if name in ("decode_bf16_w4096", "decode_bf16_full_32k"):
@@ -498,6 +518,9 @@ def kernel_phase():
 
 
 LONG_OFFS = [32767, 24575, 16383, 8191]  # Mixtral-8x7B-v0.1's 32k context
+#: K1 at the prefix cache's prefill shapes (kernel_phase)
+PREFIX_OFFS = [2048 + 16 * k for k in (1, 3, 7, 13, 40, 64, 96, 130)]
+COW_OFFS = [0, 0, 2047, 0, 0, 0, 0, 0]
 
 
 def spread_offsets(B, context):
@@ -637,12 +660,14 @@ def mask_planted_fault(case, exact):
                            f"planted fault (window edge 3 positions late)")
 
 
-def planted_faults(case, exact):
+def planted_faults(case, exact, window_fault=True):
     """The check must catch the faults it is there for.  The kernel is
     run on deliberately wrong arguments and held against the plain
     version on the right ones: the window edge one pool block late, and
     one stage of 8 blocks of the deepest slot read from other blocks
-    (a stage lost or misplaced).  Each must fail the row tolerance."""
+    (a stage lost or misplaced).  Each must fail the row tolerance.
+    ``window_fault=False`` plants the stage fault only (a case whose
+    rows the window never reaches)."""
     from torchdistpackage_tpu_torch.ops.paged_attention import (
         paged_decode_attention,
     )
@@ -657,6 +682,8 @@ def planted_faults(case, exact):
         "window one block late": (tables, case["window"] + BS),
         "one stage read from other blocks": (moved, case["window"]),
     }
+    if not window_fault:
+        del faults["window one block late"]
     whole = 2.0 * 2.0 ** (np.floor(np.log2(float(exact.abs().max()))) - 7)
     for what, (tab, window) in faults.items():
         got = paged_decode_attention(q, case["k"], case["v"], tab, offs,
@@ -3368,6 +3395,480 @@ def spec_engine_phase(params, cfg, card):
     return out
 
 
+FEAT_NEW = 32          # tokens a request in engine_features_phase
+SYS_LEN = 2048         # a shared system prompt
+
+
+def feat_engine(params, cfg, **kw):
+    """The phase's engine: Mistral-7B-v0.1 widths as given, 8 slots,
+    chunk 512, block 16, max_ctx 8192, K1's CUDA path."""
+    from torchdistpackage_tpu_torch.obs.events import EventLog
+    from torchdistpackage_tpu_torch.serving import ServingEngine
+
+    eng = ServingEngine(params, cfg, num_slots=8, block_size=BS, chunk=512,
+                        max_ctx=8192, **kw)
+    if eng.attn_impl != "cuda":
+        raise RuntimeError(f"engine resolved attn_impl={eng.attn_impl!r}")
+    eng._ev = EventLog()  # the phase reads its own engine's timeline
+    return eng
+
+
+def feat_run(eng, cfg, what, drive):
+    """``drive(eng)`` from counts of 0; the K1 launches must be exactly
+    nlayers x the device calls it made (a COW or a block migration adds
+    a copy, not a forward), and every other kernel 0.  Returns the K1
+    launches and the wall seconds."""
+    torch.cuda.synchronize()
+    reset_counts()
+    s0 = dict(eng.stats)
+    t0 = time.perf_counter()
+    drive(eng)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    calls = (eng.stats["prefill_chunks"] - s0["prefill_chunks"]
+             + eng.stats["decode_steps"] - s0["decode_steps"])
+    expect_launches(what, {"paged_decode_attention": cfg.nlayers * calls})
+    return cfg.nlayers * calls, wall
+
+
+def feat_leak_check(eng, what):
+    rep = eng.audit(heal=False)
+    if not rep["ok"] or eng._alloc.in_use:
+        raise RuntimeError(f"{what}: blocks leaked ({eng._alloc.in_use} in "
+                           f"use, audit {rep['violations'][:3]})")
+
+
+def feat_tf(params, cfg, tokens, P, what, gate=True):
+    """Teacher-forced check of one finished sequence (K3 over the whole
+    sequence, ``TF_TOL`` of the row's scale); returns the exact share."""
+    tf_cfg = dataclasses.replace(cfg, attn_impl="flash")
+    seq = torch.from_numpy(np.asarray(tokens)[None]).cuda().long()
+    logits = teacher_logits_of(params, tf_cfg, seq)
+    gaps = tf_gaps(logits, seq, P)
+    if gate and float((gaps <= TF_TOL).float().mean()) < 1.0:
+        raise RuntimeError(f"{what}: an emitted token is off its "
+                           f"teacher-forced argmax by more than {TF_TOL} "
+                           f"(max gap {float(gaps.max()):.4f})")
+    if not ((0 <= seq).all() and (seq < cfg.vocab_size).all()):
+        raise RuntimeError(f"{what}: a token out of the vocabulary")
+    return float((gaps == 0).float().mean())
+
+
+def same_share(a, b):
+    """The share of generated positions where two runs emitted the same
+    token (over requests, each compared on its shorter output)."""
+    eq = tot = 0
+    for x, y in zip(a, b):
+        n = min(len(x), len(y))
+        eq += int((np.asarray(x[:n]) == np.asarray(y[:n])).sum())
+        tot += n
+    return eq / max(tot, 1)
+
+
+def prefix_requests(vocab):
+    """4 system prompts of 2048 tokens, each with 4 distinct tails of
+    128-512 tokens (every fourth request sampled), and one whole-prompt
+    request: exactly the first system prompt."""
+    from torchdistpackage_tpu_torch.serving import Request
+
+    rs = np.random.RandomState(15)
+    sysp = [rs.randint(0, vocab, SYS_LEN).tolist() for _ in range(4)]
+    reqs = []
+    for j in range(4):
+        for i in range(4):
+            toks = sysp[i] + rs.randint(0, vocab,
+                                        int(rs.randint(128, 513))).tolist()
+            if j == 3:
+                reqs.append(Request(toks, FEAT_NEW, temperature=0.8,
+                                    top_k=50, top_p=0.95, seed=i))
+            else:
+                reqs.append(Request(toks, FEAT_NEW))
+    reqs.append(Request(list(sysp[0]), FEAT_NEW))
+    return reqs
+
+
+def feat_prefix(params, cfg, card):
+    """(a) The same 17 requests with the prefix cache off, then on: each
+    system prompt's first request, then the rest once those prefilled."""
+    out, toks = {}, {}
+    for on in (False, True):
+        eng = feat_engine(params, cfg, prefix_cache=on)
+        reqs = prefix_requests(cfg.vocab_size)
+
+        def drive(eng):
+            first = [eng.submit(r) for r in reqs[:4]]
+            while any(s.state == "prefill" for s in eng._slots) or eng.queue:
+                eng.step()
+            rest = [eng.submit(r) for r in reqs[4:]]
+            eng.run_until_idle()
+            drive.rids = first + rest
+
+        launches, wall = feat_run(eng, cfg, f"prefix cache {on}", drive)
+        rids = drive.rids
+        s = eng.serving_summary()
+        slot_chunks = sum(e["n_slots"] for e in eng._ev.as_list()
+                          if e["kind"] == "prefill_chunk")
+        if s["requests"]["completed"] != len(reqs):
+            raise RuntimeError(f"prefix cache {on}: {s['requests']}")
+        toks[on] = [eng.finished[r]["tokens"][len(q.tokens):]
+                    for r, q in zip(rids, reqs)]
+        exact = [feat_tf(params, cfg, eng.finished[r]["tokens"],
+                         len(q.tokens), f"prefix cache {on}, request {r}")
+                 for r, q in zip(rids, reqs) if q.temperature == 0.0]
+        pc = s["prefix_cache"]
+        out[on] = {"launches": launches, "wall_s": wall,
+                   "prefill_calls": s["prefill_chunks"],
+                   "slot_chunks": slot_chunks,
+                   "ttft_p50": s["ttft_s"]["p50"],
+                   "ttft_p99": s["ttft_s"]["p99"],
+                   "tok_s": s["tokens_per_sec"], "prefix": pc,
+                   "tf_exact": float(np.mean(exact))}
+        log(f"[engine-features] prefix cache {'on' if on else 'off'}: "
+            f"{len(reqs)} requests, {s['generated_tokens']} tokens in "
+            f"{wall:.2f} s: {s['tokens_per_sec']:.2f} tok/s, TTFT p50 "
+            f"{s['ttft_s']['p50']:.3f} s p99 {s['ttft_s']['p99']:.3f} s; "
+            f"{s['prefill_chunks']} prefill calls ({slot_chunks} slot "
+            f"chunks) + {s['decode_steps']} decode calls, K1 launches "
+            f"{launches}; hits {pc['hits']}, cached tokens "
+            f"{pc['cached_tokens']}, COW copies {pc['cow_copies']}; greedy "
+            f"tokens the teacher-forced argmax: {out[on]['tf_exact']:.3f} "
+            f"— on {card}")
+        feat_leak_check(eng, f"prefix cache {on}")
+        if on:
+            # what the schedule implies: the 12 followers hit their 2048-
+            # token system prompt (128 blocks), the whole-prompt request
+            # hits all 128 and recomputes its last token through a COW
+            want = {"hits": 13, "cached_tokens": 12 * SYS_LEN + SYS_LEN - 1,
+                    "cow_copies": 1, "evictions": 0}
+            got = {k: pc[k] for k in want}
+            if got != want:
+                raise RuntimeError(f"prefix cache: {got} != {want}")
+            saved = sum(-(-len(q.tokens) // 512) for q in reqs[4:]) - sum(
+                -(-(len(q.tokens) - SYS_LEN) // 512) for q in reqs[4:-1]) - 1
+            if out[False]["slot_chunks"] - slot_chunks != saved:
+                raise RuntimeError(
+                    f"prefix cache: slot chunks {out[False]['slot_chunks']} "
+                    f"-> {slot_chunks}, not {saved} fewer")
+        del eng
+        torch.cuda.empty_cache()
+    share = same_share(toks[True], toks[False])
+    log(f"[engine-features] prefix cache on vs off: TTFT p50 "
+        f"{out[True]['ttft_p50']:.3f} / {out[False]['ttft_p50']:.3f} s, p99 "
+        f"{out[True]['ttft_p99']:.3f} / {out[False]['ttft_p99']:.3f} s, "
+        f"{out[True]['tok_s']:.2f} / {out[False]['tok_s']:.2f} tok/s, "
+        f"prefill calls {out[True]['prefill_calls']} / "
+        f"{out[False]['prefill_calls']}; tokens exactly equal between the "
+        f"runs: {share:.3f} — on {card}")
+    out["same_share"] = share
+    return out
+
+
+def feat_preempt(params, cfg, card):
+    """(b) A priority-1 request arriving into 8 busy priority-0 slots on a
+    pool sized for them preempts one; the replayed request is held by
+    teacher forcing and against its uninterrupted tokens."""
+    from torchdistpackage_tpu_torch.serving import Request
+
+    rs = np.random.RandomState(16)
+    lows = [Request(rs.randint(0, cfg.vocab_size, 1024).tolist(), FEAT_NEW)
+            for _ in range(8)]
+    high = Request(rs.randint(0, cfg.vocab_size, 1024).tolist(), FEAT_NEW,
+                   priority=1)
+    need = -(-(1024 + FEAT_NEW) // BS)
+    base = feat_engine(params, cfg, num_blocks=1 + 8 * need)
+    rids = [base.submit(r) for r in lows]
+    feat_run(base, cfg, "preemption baseline", lambda e: e.run_until_idle())
+    want = {i: base.finished[r]["tokens"] for i, r in enumerate(rids)}
+    del base
+    eng = feat_engine(params, cfg, num_blocks=1 + 8 * need)
+
+    def drive(eng):
+        drive.rids = [eng.submit(r) for r in lows]
+        for _ in range(4):
+            eng.step()
+        drive.hi = eng.submit(high)
+        eng.run_until_idle()
+
+    launches, _ = feat_run(eng, cfg, "preemption", drive)
+    st = eng.serving_summary()
+    if st["requests"]["preempted"] < 1:
+        raise RuntimeError(f"preemption: nothing preempted {st['requests']}")
+    victims = {e["rid"] for e in eng._ev.as_list()
+               if e["kind"] == "request_preempted"}
+    exact = []
+    for i, r in enumerate(drive.rids):
+        f = eng.finished[r]
+        if r in victims:
+            feat_tf(params, cfg, f["tokens"], 1024,
+                    f"preempted request {r}")
+            exact.append(float(np.array_equal(f["tokens"], want[i])))
+    feat_tf(params, cfg, eng.finished[drive.hi]["tokens"], 1024,
+            "the priority-1 request")
+    feat_leak_check(eng, "preemption")
+    share = float(np.mean(exact)) if exact else float("nan")
+    log(f"[engine-features] preemption: {st['requests']['preempted']} "
+        f"preempted ({sorted(victims)}), replayed greedy requests exactly "
+        f"equal to their uninterrupted tokens: {share:.3f}; K1 launches "
+        f"{launches}; verdict {st['verdict']} — on {card}")
+    del eng
+    torch.cuda.empty_cache()
+    return {"launches": launches, "preempted": st["requests"]["preempted"],
+            "exact_share": share}
+
+
+def feat_requests(vocab, n=8, sampled=(3, 7), seed=17):
+    from torchdistpackage_tpu_torch.serving import Request
+
+    rs = np.random.RandomState(seed)
+    return [Request(rs.randint(0, vocab, int(rs.randint(300, 1500)))
+                    .tolist(), FEAT_NEW,
+                    **({"temperature": 0.8, "top_k": 50, "seed": i}
+                       if i in sampled else {})) for i in range(n)]
+
+
+def feat_drain(params, cfg, card):
+    """(c) Drain mid-run to a file; a copy with one byte flipped is
+    refused; a fresh engine on the same params resumes."""
+    import shutil
+    import tempfile
+
+    from torchdistpackage_tpu_torch.resilience import CheckpointCorruptError
+
+    reqs = feat_requests(cfg.vocab_size)
+    base = feat_engine(params, cfg)
+    rids = [base.submit(r) for r in reqs]
+    feat_run(base, cfg, "drain baseline", lambda e: e.run_until_idle())
+    want = [base.finished[r]["tokens"] for r in rids]
+    del base
+    torch.cuda.empty_cache()
+    eng = feat_engine(params, cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "drain.json")
+
+        def drive(eng):
+            for r in reqs:
+                eng.submit(r)
+            while not any(len(s.generated) >= 8 for s in eng._slots):
+                if not (eng.queue or eng.n_busy):
+                    raise RuntimeError("drain: the run ended before it")
+                eng.step()
+            drive.payload = eng.drain(persist_path=path)
+
+        l1, _ = feat_run(eng, cfg, "drain", drive)
+        states = sorted({len(d["emitted"]) > 0
+                         for d in drive.payload["requests"]})
+        bad = str(Path(tmp) / "bad.json")
+        shutil.copy(path, bad)
+        shutil.copy(path + ".manifest.json", bad + ".manifest.json")
+        raw = bytearray(Path(bad).read_bytes())
+        raw[len(raw) // 2] ^= 0x01
+        Path(bad).write_bytes(bytes(raw))
+        del eng
+        torch.cuda.empty_cache()
+        eng2 = feat_engine(params, cfg)
+        try:
+            eng2.resume(bad)
+        except CheckpointCorruptError as e:
+            refused = str(e)
+        else:
+            raise RuntimeError("a drain file with a flipped byte resumed")
+        holder = {}
+
+        def drive2(eng):
+            holder["rids"] = eng.resume(path)
+            eng.run_until_idle()
+
+        l2, _ = feat_run(eng2, cfg, "resume", drive2)
+    got = [eng2.finished[r]["tokens"] for r in holder["rids"]]
+    for i, (g, req) in enumerate(zip(got, reqs)):
+        if req.temperature == 0.0:
+            feat_tf(params, cfg, g, len(req.tokens), f"resumed request {i}")
+    greedy = [float(np.array_equal(g, w)) for g, w, q in zip(got, want, reqs)
+              if q.temperature == 0.0]
+    sampled = [float(np.array_equal(g, w)) for g, w, q in zip(got, want, reqs)
+               if q.temperature > 0.0]
+    feat_leak_check(eng2, "resume")
+    log(f"[engine-features] drain/resume: {len(drive.payload['requests'])} "
+        f"descriptors (with emitted tokens: {states}); the flipped byte "
+        f"refused ({refused[:60]}); resumed requests exactly equal to the "
+        f"uninterrupted run: greedy {np.mean(greedy):.3f}, sampled "
+        f"{np.mean(sampled):.3f}; K1 launches {l1} + {l2} — on {card}")
+    del eng2
+    torch.cuda.empty_cache()
+    return {"launches": l1 + l2, "greedy_exact": float(np.mean(greedy)),
+            "sampled_exact": float(np.mean(sampled))}
+
+
+def feat_migrate(params, cfg, card):
+    """(d) A prefill engine (``hold_decode``) exports after prefill;
+    ``migrate_blocks`` moves the blocks into a decode engine with the
+    prefix cache on, which imports and decodes; a second request with
+    the same 2048-token prefix imports warm (128 blocks shared, only the
+    tail shipped)."""
+    from torchdistpackage_tpu_torch.serving import (
+        Request,
+        migrate_blocks,
+        migration_wire_bytes,
+    )
+
+    rs = np.random.RandomState(18)
+    sysp = rs.randint(0, cfg.vocab_size, SYS_LEN).tolist()
+    reqs = [Request(sysp + rs.randint(0, cfg.vocab_size, n).tolist(),
+                    FEAT_NEW, **kw)
+            for n, kw in ((300, {}), (200, {"temperature": 0.8, "top_k": 50,
+                                            "seed": 5}))]
+    base = feat_engine(params, cfg)
+    rids = [base.submit(r) for r in reqs]
+    feat_run(base, cfg, "migration baseline", lambda e: e.run_until_idle())
+    want = [base.finished[r]["tokens"] for r in rids]
+    del base
+    torch.cuda.empty_cache()
+    pre = feat_engine(params, cfg)
+    pre.hold_decode = True
+    dec = feat_engine(params, cfg, prefix_cache=True)
+    moved = []
+
+    def drive_pre(eng):
+        for r in reqs:
+            eng.submit(r)
+        while len(eng.decode_slots()) < len(reqs):
+            eng.step()
+
+    l_pre, _ = feat_run(pre, cfg, "prefill tier", drive_pre)
+    order = [rid for rid, _ in pre.decode_slots()]
+    for rid in order:
+        desc, snap = pre.export_slot(rid)
+        got = dec.import_slot(desc)
+        lo, hi = got["n_shared"], got["n_live"]
+        nbytes = migration_wire_bytes(cfg, hi - lo, BS)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        dec.cache = migrate_blocks(snap, dec.cache, desc["blocks"][lo:hi],
+                                   got["blocks"][lo:hi])
+        end.record()
+        torch.cuda.synchronize()
+        moved.append({"rid": got["rid"], "n_shared": lo, "n_live": hi,
+                      "wire_bytes": nbytes,
+                      "copy_ms": start.elapsed_time(end)})
+        del snap
+    if moved[1]["n_shared"] != SYS_LEN // BS:
+        raise RuntimeError(f"warm import shared {moved[1]['n_shared']} "
+                           f"blocks, not {SYS_LEN // BS}")
+    l_dec, _ = feat_run(dec, cfg, "decode tier",
+                        lambda e: e.run_until_idle())
+    got = [dec.finished[m["rid"]]["tokens"] for m in moved]
+    feat_tf(params, cfg, got[0], len(reqs[0].tokens), "migrated request")
+    exact = [float(np.array_equal(g, w)) for g, w in zip(got, want)]
+    feat_leak_check(pre, "prefill tier")
+    feat_leak_check(dec, "decode tier")
+    for m in moved:
+        log(f"[engine-features] migration: request {m['rid']} shared "
+            f"{m['n_shared']} of {m['n_live']} live blocks, shipped "
+            f"{m['wire_bytes']} B (migration_wire_bytes) in "
+            f"{m['copy_ms']:.3f} ms (one migrate_blocks, CUDA events) — on "
+            f"{card}")
+    log(f"[engine-features] migration: tokens exactly equal to the "
+        f"single-engine run: greedy {exact[0]:.0f}, sampled {exact[1]:.0f}; "
+        f"K1 launches {l_pre} (prefill tier, 0 decode calls) + {l_dec}")
+    del pre, dec
+    torch.cuda.empty_cache()
+    return {"launches": l_pre + l_dec, "moved": moved, "exact": exact}
+
+
+def feat_shed(params, cfg, card):
+    """(e) A burst of 24 requests at ``max_queue`` 8 with mixed deadlines,
+    after one request has measured the tick time."""
+    from torchdistpackage_tpu_torch.serving import Request
+
+    eng = feat_engine(params, cfg, max_queue=8)
+    rs = np.random.RandomState(19)
+
+    def drive(eng):
+        eng.submit(Request(rs.randint(0, cfg.vocab_size, 256).tolist(), 8))
+        eng.run_until_idle()
+        drive.tick = eng._tick_ewma
+        for i in range(24):
+            dl = (None, 0.05, 2.0, 30.0)[i % 4]
+            eng.submit(Request(rs.randint(0, cfg.vocab_size, 256).tolist(),
+                               16, deadline_s=dl, priority=i % 2))
+        eng.run_until_idle()
+
+    launches, wall = feat_run(eng, cfg, "shedding", drive)
+    s = eng.serving_summary()
+    verdicts = {}
+    for v in eng.rejected.values():
+        verdicts[v["reason"]] = verdicts.get(v["reason"], 0) + 1
+    if s["requests"]["shed"] == 0 or sum(verdicts.values()) != (
+            s["requests"]["shed"] + s["requests"]["expired"]):
+        raise RuntimeError(f"shedding: {s['requests']}, {verdicts}")
+    cal = s["slo"]["calibration"]
+    feat_leak_check(eng, "shedding")
+    log(f"[engine-features] shedding: 24 requests at max_queue 8 (tick "
+        f"EWMA {drive.tick * 1e3:.2f} ms when the burst came): shed "
+        f"{s['requests']['shed']} ({verdicts}), expired "
+        f"{s['requests']['expired']}, completed {s['requests']['completed']}"
+        f"; estimate_ttft calibration: n {cal['n']}, bias {cal['bias']}, "
+        f"relative error {cal['priorities']}; attainment "
+        f"{s['slo']['attainment']}; K1 launches {launches} — on {card}")
+    del eng
+    torch.cuda.empty_cache()
+    return {"launches": launches, "shed": s["requests"]["shed"],
+            "verdicts": verdicts, "expired": s["requests"]["expired"],
+            "calibration": cal}
+
+
+def feat_rope(card):
+    """(f) ``model_phase``'s teacher-forced check (K1 against the plain
+    path) on a 2-layer Mistral-width model under 'yarn' and 'dynamic'
+    rope scaling, with 600-token prompts past the original length
+    (256)."""
+    from torchdistpackage_tpu_torch.models import (
+        init_gpt_params,
+        mistral_7b_config,
+    )
+
+    out = {}
+    for kind in ("yarn", "dynamic"):
+        sc = {"rope_type": kind, "factor": 4.0,
+              "original_max_position_embeddings": 256}
+        cfg = dataclasses.replace(mistral_7b_config(), nlayers=2,
+                                  rope_scaling=sc)
+        params = init_gpt_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0))
+        res = model_phase(params, cfg)
+        out[kind] = res["rel"]
+        log(f"[engine-features] rope '{kind}' (factor 4, original length "
+            f"256, 600-token prompts): K1 vs the plain path {res['rel']:.3g}"
+            f" of the logit scale — on {card}")
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+@torch.no_grad()
+def engine_features_phase(params, cfg, card):
+    """The engine's scheduling and KV-state features at Mistral-7B-v0.1
+    widths (32 layers, bf16, 8 slots, chunk 512, block 16, max_ctx 8192,
+    K1's CUDA path): (a) the prefix cache off and on, (b) preemption, (c)
+    drain / resume through a verified file, (d) slot migration between a
+    prefill and a decode engine, (e) deadline shedding, (f) rope scaling
+    'yarn' and 'dynamic'.  Every engine's K1 launches are exactly 32 x
+    its device calls; no block leaks; a failed gate raises."""
+    out = {"prefix": feat_prefix(params, cfg, card),
+           "preempt": feat_preempt(params, cfg, card),
+           "drain": feat_drain(params, cfg, card),
+           "migrate": feat_migrate(params, cfg, card),
+           "shed": feat_shed(params, cfg, card),
+           "rope": feat_rope(card)}
+    out["launches"] = (out["prefix"][False]["launches"]
+                       + out["prefix"][True]["launches"]
+                       + sum(out[k]["launches"] for k in
+                             ("preempt", "drain", "migrate", "shed")))
+    return out
+
+
 @torch.no_grad()
 def moe_generate_phase(params, shard, cfg, card, group):
     """Greedy ``generate`` on the 16-layer Mixtral-8x7B-v0.1 widths (bf16,
@@ -3995,6 +4496,11 @@ def main():
     spec_eng = spec_engine_phase(params, cfg, card)
     log(f"[time] generate and speculative serving done at "
         f"{time.perf_counter() - t_start:.0f} s")
+    # the engine's prefix cache, preemption, drain / resume, slot
+    # migration, shedding and rope scaling
+    feat = engine_features_phase(params, cfg, card)
+    log(f"[time] engine features done at "
+        f"{time.perf_counter() - t_start:.0f} s")
     del params
     torch.cuda.empty_cache()
     log(f"[time] serving done at {time.perf_counter() - t_start:.0f} s")
@@ -4058,7 +4564,15 @@ def main():
                                    if k.startswith("K1")},
                             spec_engine_launches={
                                 f"spec_k {k}": spec_eng[k]["launches"]
-                                for k in (3, 4)})]
+                                for k in (3, 4)},
+                            engine_features_launches={
+                                "prefix_cache_off":
+                                    feat["prefix"][False]["launches"],
+                                "prefix_cache_on":
+                                    feat["prefix"][True]["launches"],
+                                **{k: feat[k]["launches"] for k in
+                                   ("preempt", "drain", "migrate", "shed")},
+                                "all": feat["launches"]})]
     for kname, krows in flash_rows.items():
         k = {"flash_fwd": "K3", "flash_bwd_dq": "K4",
              "flash_bwd_dkv": "K5"}[kname]

@@ -185,23 +185,23 @@ def test_audit_heals_a_corrupted_table(pair):
 
 def test_engine_refuses_queued_options():
     cfg = GPTConfig(**SMALL)
-    with pytest.raises(NotImplementedError, match="prefix_cache"):
-        ServingEngine(None, cfg, device="cpu", prefix_cache=True)
     # spec_k serves (tests/test_torch_spec_engine.py); a negative one is
     # refused as in the reference
     with pytest.raises(ValueError, match="spec_k"):
         ServingEngine(None, cfg, device="cpu", spec_k=-1)
     with pytest.raises(TypeError):
         ServingEngine(None, cfg, device="cpu", no_such_option=1)
-    eng = ServingEngine(None, cfg, device="cpu", **ENGINE)
-    with pytest.raises(NotImplementedError, match="deadline_s"):
-        eng.submit(Request([1, 2], 2, deadline_s=1.0))
-    with pytest.raises(NotImplementedError, match="preemption"):
-        eng.submit(Request([1, 2], 2, priority=1))
-    for method in (eng.drain, eng.resume, eng.export_slot, eng.import_slot):
-        with pytest.raises(NotImplementedError, match=method.__name__):
-            method()
-    assert not eng.queue
+    # what still waits, each refusal naming its queue item
+    for option, item in (("telemetry", "Obs, resilience"),
+                         ("chaos", "Obs, resilience"),
+                         ("watchdog", "Obs, resilience"),
+                         ("metrics_sink", "Obs, resilience"),
+                         ("mesh", "TP \\+ SP"), ("axis", "TP \\+ SP"),
+                         ("dp_axis", "TP \\+ SP")):
+        with pytest.raises(NotImplementedError,
+                           match=f"{option}.*{item}"):
+            ServingEngine(None, cfg, device="cpu", **{option: object()},
+                          **ENGINE)
     # the MoE family serves; what still refuses: expert parallelism on the
     # engine, the non-causal expert-choice router, and moe_dispatch on a
     # dense model

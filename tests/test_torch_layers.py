@@ -32,6 +32,14 @@ ROPE_SCALINGS = {
     "llama3": {"rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0,
                "high_freq_factor": 4.0,
                "original_max_position_embeddings": 16},
+    "dynamic": {"rope_type": "dynamic", "factor": 2.0,
+                "original_max_position_embeddings": 16},
+    "yarn": {"rope_type": "yarn", "factor": 4.0,
+             "original_max_position_embeddings": 16},
+    "yarn_mscale": {"rope_type": "yarn", "factor": 4.0,
+                    "original_max_position_embeddings": 16,
+                    "mscale": 0.707, "mscale_all_dim": 1.0,
+                    "beta_fast": 16, "truncate": False},
 }
 
 
@@ -68,14 +76,6 @@ def test_rope(scaling):
         _close(a, b)
     _close(tl.apply_rope(torch.from_numpy(x), tc),
            jl.apply_rope(jnp.asarray(x), cache=jc))
-
-
-def test_rope_scaling_types_queued_are_refused():
-    for kind in ("dynamic", "yarn"):
-        with pytest.raises(NotImplementedError, match=kind):
-            tl.TransformerConfig(dim=64, nheads=4, rope=True, rope_scaling={
-                "rope_type": kind, "factor": 2.0,
-                "original_max_position_embeddings": 16})
 
 
 def _block_pair(jcfg, tcfg):
@@ -146,3 +146,38 @@ def test_mistral_7b_widths():
         4096, 32, 32, 8, 128, 14336, 32000, 4096)
     assert cfg.dtype == torch.bfloat16 and cfg.norm == "rms"
     assert abs(cfg.num_params() - 7.24e9) < 0.01e9
+
+
+@pytest.mark.parametrize("scaling", sorted(k for k in ROPE_SCALINGS if k != "none"))
+def test_rope_scaled_forward(scaling):
+    """The block stack under each rope scaling, past its original length
+    (``original_max_position_embeddings`` 16, sequences of 40): the whole
+    forward (``gpt_forward``) and the paged serving forward over a batch
+    of two slots at different offsets — under ``'dynamic'`` the paged
+    step reads the length from the whole batch's positions, as the
+    reference does."""
+    from torchdistpackage_tpu.models import gpt_forward as jfwd
+    from torchdistpackage_tpu.serving import paged_cache as jpc
+    from torchdistpackage_tpu_torch.models import gpt_forward as tfwd
+    from torchdistpackage_tpu_torch.serving import paged_cache as tpc
+
+    sc = ROPE_SCALINGS[scaling]
+    jcfg = jllama(**SMALL, kv_heads=2, ffn_hidden=96, dtype=jnp.float32,
+                  rope_scaling=sc)
+    tcfg = llama_config(**SMALL, kv_heads=2, ffn_hidden=96,
+                        dtype=torch.float32, rope_scaling=sc)
+    jp = jinit(jax.random.PRNGKey(2), jcfg)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
+    toks = np.random.RandomState(6).randint(0, 64, (2, 40)).astype(np.int32)
+    _close(tfwd(tp, torch.from_numpy(toks).long(), tcfg),
+           jfwd(jp, jnp.asarray(toks), jcfg), atol=1e-4)
+    tables = np.arange(1, 1 + 2 * 12, dtype=np.int32).reshape(2, 12)
+    offs = np.array([30, 2], np.int32)
+    jpool = jpc.init_paged_kv(jcfg, 25, 4)
+    tpool = tpc.init_paged_kv(tcfg, 25, 4, device="cpu")
+    _, jlog = jpc.paged_forward(jp, jnp.asarray(toks[:, :8]), jcfg, jpool,
+                                jnp.asarray(tables), jnp.asarray(offs))
+    _, tlog = tpc.paged_forward(tp, torch.from_numpy(toks[:, :8]), tcfg,
+                                tpool, torch.from_numpy(tables),
+                                torch.from_numpy(offs))
+    _close(tlog, jlog, atol=1e-4)

@@ -10,12 +10,14 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 
 
-def percentiles(samples: Sequence[float]) -> Dict[str, float]:
-    """``{"p50": ..., "p95": ..., "p99": ...}`` (empty input -> {})."""
+def percentiles(samples: Sequence[float], ps=(50, 95, 99)
+                ) -> Dict[str, float]:
+    """``{"p50": ..., "p95": ..., "p99": ...}`` (empty input -> {});
+    ``ps`` picks the percentiles."""
     arr = np.asarray(list(samples), dtype=np.float64)
     if arr.size == 0:
         return {}
-    return {f"p{p}": float(np.percentile(arr, p)) for p in (50, 95, 99)}
+    return {f"p{p}": float(np.percentile(arr, p)) for p in ps}
 
 
 def moe_load_stats(expert_tokens: Sequence[float],

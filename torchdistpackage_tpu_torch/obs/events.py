@@ -20,6 +20,17 @@ EVENT_KINDS: FrozenSet[str] = frozenset({
     "request_submitted", "request_admitted", "prefill_chunk",
     "request_retired", "request_cancelled", "engine_fault_detected",
     "engine_recovered",
+    # serving under stress: shedding, expiry, preemption, drain / resume
+    "request_shed", "request_expired", "request_preempted",
+    "engine_drained", "request_resumed",
+    # the prefix cache
+    "prefix_hit", "block_cow", "cache_evict",
+    # slot migration between engines
+    "request_exported", "request_imported", "import_aborted",
+    # speculative decoding and the CP prefill ring
+    "spec_draft", "spec_verify", "cp_prefill_chunk", "cp_ring_hop",
+    # a termination signal arrived (utils/preemption.GracefulShutdown)
+    "preemption",
     # MoE: which dispatch 'auto' resolved to, and the host-side
     # capacity-overflow alarm (dropped-token rate over threshold)
     "moe_dispatch_selected", "expert_overflow",

@@ -38,10 +38,8 @@ from ...utils.random import fold_in, split
 
 Params = Dict[str, torch.Tensor]
 
-#: rope-scaling types the port computes; the reference's 'dynamic' and
-#: 'yarn' are queued (ROADMAP queue A) and refused with a clear error
-_ROPE_SCALING_TYPES = ("linear", "llama3")
-_ROPE_SCALING_QUEUED = ("dynamic", "yarn")
+#: the rope-scaling types, the reference's four
+_ROPE_SCALING_TYPES = ("linear", "llama3", "dynamic", "yarn")
 _ATTN_IMPLS = ("naive", "flash", "ring", "ulysses")
 
 
@@ -91,10 +89,6 @@ class TransformerConfig:
         if self.rope_scaling is not None:
             kind = self.rope_scaling.get(
                 "rope_type", self.rope_scaling.get("type"))
-            if kind in _ROPE_SCALING_QUEUED:
-                raise NotImplementedError(
-                    f"rope_scaling type {kind!r} is not ported yet; the port "
-                    f"computes {_ROPE_SCALING_TYPES}")
             if kind not in _ROPE_SCALING_TYPES:
                 raise NotImplementedError(
                     f"rope_scaling type {kind!r}; supported: "
@@ -103,6 +97,8 @@ class TransformerConfig:
                 "linear": ("factor",),
                 "llama3": ("factor", "low_freq_factor", "high_freq_factor",
                            "original_max_position_embeddings"),
+                "dynamic": ("factor", "original_max_position_embeddings"),
+                "yarn": ("factor", "original_max_position_embeddings"),
             }[kind]
             missing = [k for k in need if k not in self.rope_scaling]
             if missing:
@@ -171,11 +167,28 @@ def init_norm_params(dim: int, dtype: torch.dtype, norm: str = "layer",
 # ------------------------------------------------------------------- rope
 
 
-def _scaled_inv_freq(inv_freq: torch.Tensor, scaling: dict
+def _scaled_inv_freq(inv_freq: torch.Tensor, scaling: dict,
+                     theta: float = 10000.0,
+                     pos: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, float]:
-    """The 'linear' and 'llama3' rope-scaling recipes of the reference
-    (``transformers``' ``modeling_rope_utils``); returns ``(inv_freq,
-    attention_factor)`` with the factor 1.0 for both."""
+    """A rope-scaling recipe applied to the base inverse frequencies
+    (JAX ``layers.py:257``, ``transformers``' ``modeling_rope_utils``);
+    returns ``(inv_freq, attention_factor)``, the factor 1.0 for every
+    type but yarn.
+
+    - 'linear': every frequency / factor.
+    - 'llama3': long wavelengths / factor, short ones kept, the band
+      between interpolated.
+    - 'dynamic' (NTK): the base theta grows with the current length past
+      ``original_max_position_embeddings``, ``theta * ((f s / orig) - (f
+      - 1)) ^ (d / (d - 2))``; the length ``s`` is ``max(pos) + 1``
+      floored at the original length, read on ``pos``'s device (no host
+      read).  At or below the original length it is the unscaled rope.
+    - 'yarn': interpolated below ``beta_slow`` rotations, extrapolated
+      above ``beta_fast``, a linear ramp between, and the attention
+      factor ``0.1 ln(factor) + 1`` (or the ``mscale`` /
+      ``mscale_all_dim`` ratio) that the caller folds into the tables;
+      ``truncate`` (default True) rounds the ramp's ends outward."""
     kind = scaling.get("rope_type", scaling.get("type"))
     factor = float(scaling["factor"])
     if kind == "linear":
@@ -191,13 +204,58 @@ def _scaled_inv_freq(inv_freq: torch.Tensor, scaling: dict
         smoothed = (1.0 - smooth) * scaled / factor + smooth * scaled
         medium = (wavelen >= old_len / hi) & (wavelen <= old_len / lo)
         return torch.where(medium, smoothed, scaled), 1.0
-    raise NotImplementedError(f"rope_scaling type {kind!r}")
+    half = inv_freq.shape[0]
+    dim = 2 * half
+    steps = torch.arange(0, half, dtype=torch.float32,
+                         device=inv_freq.device)
+    if kind == "dynamic":
+        orig = float(scaling["original_max_position_embeddings"])
+        if pos is None:
+            seq_len = torch.tensor(orig, dtype=torch.float32,
+                                   device=inv_freq.device)
+        else:
+            seq_len = (pos.max() + 1).to(torch.float32).clamp_min(orig)
+        base = theta * ((factor * seq_len / orig) - (factor - 1.0)) ** (
+            dim / (dim - 2.0))
+        return base ** (-steps / half), 1.0
+    if kind != "yarn":
+        raise NotImplementedError(f"rope_scaling type {kind!r}")
+    orig = float(scaling["original_max_position_embeddings"])
+    beta_fast = float(scaling.get("beta_fast") or 32)
+    beta_slow = float(scaling.get("beta_slow") or 1)
+
+    def get_mscale(scale, m=1.0):
+        return 0.1 * m * math.log(scale) + 1.0 if scale > 1 else 1.0
+
+    af = scaling.get("attention_factor")
+    if af is None:
+        ms, msad = scaling.get("mscale"), scaling.get("mscale_all_dim")
+        af = (get_mscale(factor, ms) / get_mscale(factor, msad)
+              if ms and msad else get_mscale(factor))
+
+    def correction_dim(n_rot):
+        return dim * math.log(orig / (n_rot * 2 * math.pi)) / (
+            2 * math.log(theta))
+
+    low, high = correction_dim(beta_fast), correction_dim(beta_slow)
+    if scaling.get("truncate", True):
+        low, high = math.floor(low), math.ceil(high)
+    low, high = max(low, 0), min(high, dim - 1)
+    if low == high:
+        high += 0.001  # transformers' singularity guard
+    ramp = ((steps - low) / (high - low)).clamp(0.0, 1.0)
+    extrap_w = 1.0 - ramp
+    inv = inv_freq / factor * (1.0 - extrap_w) + inv_freq * extrap_w
+    return inv, float(af)
 
 
 def rope_cache(pos: torch.Tensor, head_dim: int, theta: float = 10000.0,
                scaling: Optional[dict] = None):
     """(cos, sin) tables ``[1, 1, S, hd/2]`` in f32 for the positions
-    ``pos`` [S] — compute once per forward and reuse in every layer."""
+    ``pos`` [S] — compute once per forward and reuse in every layer.
+    ``scaling``: a rope-scaling dict (:func:`_scaled_inv_freq`; yarn's
+    attention factor is folded into the tables, dynamic reads the current
+    length from ``pos``)."""
     if head_dim % 2:
         raise ValueError(f"rope needs an even head_dim, got {head_dim}")
     half = head_dim // 2
@@ -205,7 +263,8 @@ def rope_cache(pos: torch.Tensor, head_dim: int, theta: float = 10000.0,
         -torch.arange(0, half, dtype=torch.float32, device=pos.device) / half)
     af = 1.0
     if scaling is not None:
-        inv_freq, af = _scaled_inv_freq(inv_freq, scaling)
+        inv_freq, af = _scaled_inv_freq(inv_freq, scaling, theta=theta,
+                                        pos=pos)
     ang = pos.float()[:, None] * inv_freq[None, :]
     return torch.cos(ang)[None, None] * af, torch.sin(ang)[None, None] * af
 

@@ -21,17 +21,25 @@ PyTorch counterpart of ``torchdistpackage_tpu/serving/paged_cache.py``.
   over a context-parallel group whose ranks each hold a block slice of
   the pool (ring paged attention, ``ops/ring_paged.py``, K2 on the card).
 
-:class:`BlockAllocator` is host-side and O(blocks).  The prefix-cache
-hash index, copy-on-write and block migration are not ported yet
-(ROADMAP queue A).
+:class:`BlockAllocator` is host-side and O(blocks): refcounts, the
+chained content-hash index of the prefix cache (:func:`chain_block_hashes`)
+and the refcount-0 LRU of retained blocks.  The device halves of the
+prefix cache and of slot migration are block copies on the pool's own
+device and stream: :func:`copy_blocks` (the copy-on-write within one
+pool) and :func:`migrate_blocks` (pool to pool), neither reading a value
+back to the host.  A torch pool is written in place, so a migration
+source that must outlive the source engine's next step is a
+:class:`PoolSnapshot` of the slot's live blocks.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from collections import OrderedDict
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -92,16 +100,18 @@ def block_size_of(cache: Dict[str, Any]) -> int:
 
 
 def pool_bytes(cache: Dict[str, Any]) -> int:
-    """Bytes of the pool's device buffers (k + v, scales included)."""
-    return sum(t.numel() * t.element_size() for t in _leaves(cache))
+    """Bytes of the pool's buffers (k + v, scales included; a host-only
+    stub's numpy pool too)."""
+    return sum(int(t.nbytes) for t in _leaves(cache))
 
 
 def expected_pool_bytes(cfg: GPTConfig, num_blocks: int, block_size: int,
-                        quantized: bool = False) -> int:
+                        quantized: bool = False, axis_size: int = 1) -> int:
     """What :func:`init_paged_kv` should allocate, from shape math alone —
-    the independent half of the pool-accounting cross-check."""
-    entries = (cfg.nlayers * num_blocks * cfg.block.kv_head_count
-               * block_size)
+    the independent half of the pool-accounting cross-check.
+    ``axis_size``: the KV heads' split (1: every head here)."""
+    entries = (cfg.nlayers * num_blocks
+               * (cfg.block.kv_head_count // axis_size) * block_size)
     hd = cfg.block.head_dim
     if quantized:
         per_kv = entries * hd * 1 + entries * 4  # int8 q + f32 scale
@@ -188,7 +198,10 @@ def _paged_cache_ops(tables: torch.Tensor, attn_impl: str, slots):
 
 def _batched_rope(bcfg, positions: torch.Tensor):
     """Per-slot rope tables: positions [B, S] -> (cos, sin) [B, 1, S,
-    hd/2], from ``rope_cache`` on the flattened positions."""
+    hd/2], from ``rope_cache`` on the flattened positions (JAX :221).
+    Under ``'dynamic'`` scaling the length is therefore the longest
+    position of the whole call, so one slot's rotation depends on the
+    batch it shares — the reference's semantics, kept as they are."""
     if not bcfg.rope:
         return None
     B, S = positions.shape
@@ -437,11 +450,156 @@ def paged_forward_moe(params: Dict[str, Any], tokens: torch.Tensor,
     return cache, logits, metrics
 
 
+# ----------------------------------------------------- block copies
+
+
+def _lane(ids, device) -> torch.Tensor:
+    """A block-id lane vector (list, numpy or tensor) as int64 on
+    ``device``; a host vector crosses in one copy, nothing is read back."""
+    if isinstance(ids, torch.Tensor):
+        return ids.to(device=device, dtype=torch.long)
+    return torch.as_tensor(np.asarray(ids, np.int64)).to(device)
+
+
+def _pairs(src_cache: Dict[str, Any], dst_cache: Dict[str, Any]):
+    """(src leaf, dst leaf) for every leaf of two pools of one layout
+    (a quantized pool's ``(q8, scale)`` pairs leaf by leaf)."""
+    for name in ("k", "v"):
+        s, d = src_cache[name], dst_cache[name]
+        if isinstance(s, tuple) != isinstance(d, tuple):
+            raise ValueError(
+                "migrate_blocks between a quantized and a float pool")
+        yield from (zip(s, d) if isinstance(s, tuple) else ((s, d),))
+
+
+def copy_blocks(cache: Dict[str, Any], src, dst) -> Dict[str, Any]:
+    """Copy block contents ``src[i] -> dst[i]`` along the pool's block dim
+    (dim 1 of every leaf, quantized pairs included), in place — the device
+    half of copy-on-write (JAX :516).  ``src`` / ``dst`` are fixed-width
+    lane vectors, unused lanes padded ``NULL -> NULL`` (the write-off
+    block is never read, so colliding pad writes are harmless).  Every
+    source block is read before any lane is written, as in the
+    reference's functional update.  One gather and one scatter a leaf on
+    the pool's stream; no host sync."""
+    for leaf in _leaves(cache):
+        s, d = _lane(src, leaf.device), _lane(dst, leaf.device)
+        leaf[:, d] = leaf[:, s]
+    return cache
+
+
+class PoolSnapshot(dict):
+    """One slot's live blocks copied out of a pool: ``{'k','v'}`` leaves
+    ``[L, 1 + n, ...]`` whose row 0 is the pool's NULL block and row
+    ``1 + j`` block ``block_ids[j]``.  The reference's ``export_slot``
+    hands back the pool value itself, immutable in JAX; a torch pool is
+    overwritten in place once its engine reuses the blocks, so the export
+    copies them (on the pool's device, no host sync) into tensors the
+    snapshot owns.  :func:`migrate_blocks` reads it through the source
+    engine's block ids, NULL pad lanes included."""
+
+    def __init__(self, cache: Dict[str, Any], blocks: Sequence[int]) -> None:
+        ids = [NULL_BLOCK] + [int(b) for b in blocks]
+
+        def take(leaf):
+            if isinstance(leaf, np.ndarray):
+                return leaf[:, ids].copy()
+            return leaf[:, _lane(ids, leaf.device)]
+
+        super().__init__({
+            name: (tuple(take(t) for t in x) if isinstance(x, tuple)
+                   else take(x)) for name, x in cache.items()})
+        #: the source pool's id of each row
+        self.block_ids = ids
+        self._row = {}
+        for r, b in enumerate(ids):
+            self._row.setdefault(b, r)
+
+    def rows(self, ids) -> np.ndarray:
+        """The snapshot rows of source block ids (host ids)."""
+        ids = ids.tolist() if isinstance(ids, (np.ndarray, torch.Tensor)) \
+            else ids
+        try:
+            return np.asarray([self._row[int(b)] for b in ids], np.int64)
+        except KeyError as e:
+            raise ValueError(
+                f"block {e.args[0]} is not in this snapshot (it holds "
+                f"{self.block_ids[1:]})") from None
+
+
+def migrate_blocks(src_cache: Dict[str, Any], dst_cache: Dict[str, Any],
+                   src_ids, dst_ids, compress: bool = False
+                   ) -> Dict[str, Any]:
+    """Cross-pool block copy ``dst[:, dst_ids[i]] = src[:, src_ids[i]]``
+    for every leaf pair, into ``dst_cache`` in place (JAX :530): the
+    device half of a prefill -> decode handoff.  The lane vectors are
+    fixed width, unused lanes ``NULL -> NULL``.  ``src_cache`` is a pool
+    or a :class:`PoolSnapshot` (then ``src_ids`` are the source pool's
+    block ids).  The payload moves to the destination's device in the
+    same copy.
+
+    ``compress=True`` models the int8 wire of an fp pool: the payload is
+    quantised per position vector (``_kv_quant``) and dequantised into the
+    destination's dtype.  A quantized pool's ``(q8, scale)`` pairs are the
+    wire format already and copy verbatim."""
+    compress = compress and not isinstance(dst_cache["k"], tuple)
+    if isinstance(src_cache, PoolSnapshot):
+        src_ids = src_cache.rows(src_ids)
+    for s_leaf, d_leaf in _pairs(src_cache, dst_cache):
+        payload = s_leaf[:, _lane(src_ids, s_leaf.device)]
+        if compress:
+            q, scale = _kv_quant(payload)
+            payload = q.float() * scale[..., None]
+        d_leaf[:, _lane(dst_ids, d_leaf.device)] = payload.to(
+            device=d_leaf.device, dtype=d_leaf.dtype)
+    return dst_cache
+
+
+def migration_wire_bytes(cfg: GPTConfig, n_blocks: int, block_size: int,
+                         axis_size: int = 1, quantized: bool = False,
+                         compressed: bool = False) -> int:
+    """Bytes a migration of ``n_blocks`` pool blocks puts on the wire
+    (JAX :570): the k + v payload in the pool's storage format, or the
+    int8 ``(q8, scale)`` wire format when ``quantized`` or
+    ``compressed``."""
+    if n_blocks <= 0:
+        return 0
+    return expected_pool_bytes(cfg, n_blocks, block_size,
+                               quantized=quantized or compressed,
+                               axis_size=axis_size)
+
+
+# ------------------------------------------------------------ allocator
+
+
+def chain_block_hashes(tokens, block_size: int) -> List[Any]:
+    """Per-full-block content hashes chained from position 0 (JAX :587):
+    ``h_i = hash((h_{i-1}, tokens of block i))``, so a hash names a
+    block's contents AND everything before it — equal hashes mean equal
+    KV.  Full blocks only.  Python hashes an int tuple the same in every
+    process, so the port and the reference index equal blocks alike."""
+    h: Any = 0
+    out: List[Any] = []
+    for i in range(len(tokens) // block_size):
+        h = hash((h, tuple(
+            int(t) for t in tokens[i * block_size:(i + 1) * block_size])))
+        out.append(h)
+    return out
+
+
 class BlockAllocator:
     """Host-side free list over a pool's blocks (block 0 reserved as the
-    NULL block), LIFO reuse.  Every in-use block has one owner in this
-    slice: the refcounts, the content-hash index and the cached LRU of
-    the reference's prefix cache are not ported yet."""
+    NULL block), LIFO reuse — the reference's allocator (JAX :603).
+
+    Every in-use block carries a refcount.  :meth:`share` maps a resident
+    block into another slot's table (refcount + 1), :meth:`free`
+    decrements, and only a block's last owner releases it.
+    :meth:`register` binds a block to a content hash; a released
+    registered block is retained on a refcount-0 LRU instead of the free
+    list, so its KV survives for the next request with the same prefix.
+    :meth:`alloc` evicts retained blocks LRU-first, and only when the free
+    list alone falls short (:meth:`pop_evicted` reports them).
+    Conservation under sharing: ``unique in_use + cached + free ==
+    usable``, ownership refcount-weighted (:meth:`audit`)."""
 
     def __init__(self, num_blocks: int) -> None:
         if num_blocks < 2:
@@ -450,12 +608,24 @@ class BlockAllocator:
                 f"got {num_blocks}")
         self.num_blocks = num_blocks
         self._free: List[int] = list(range(num_blocks - 1, 0, -1))
-        self._in_use: set = set()
+        #: block -> refcount (> 0: in use)
+        self._ref: Dict[int, int] = {}
+        #: refcount-0 retained blocks; insertion order is the LRU order
+        self._cached: "OrderedDict[int, None]" = OrderedDict()
+        self._hash_of: Dict[int, Any] = {}   # block -> content hash
+        self._by_hash: Dict[Any, int] = {}   # content hash -> block
+        self._evicted: List[int] = []        # since the last pop_evicted()
+        self.cache_evictions = 0
         self.peak_in_use = 0
 
     @property
     def n_free(self) -> int:
         return len(self._free)
+
+    @property
+    def n_cached(self) -> int:
+        """Refcount-0 blocks retained for prefix reuse (reclaimable)."""
+        return len(self._cached)
 
     @property
     def n_usable(self) -> int:
@@ -464,74 +634,153 @@ class BlockAllocator:
 
     @property
     def in_use(self) -> int:
-        return len(self._in_use)
+        """Unique blocks with a live owner (a shared block counts once)."""
+        return len(self._ref)
 
     def utilization(self) -> float:
         return self.in_use / self.n_usable
 
     def alloc(self, n: int) -> Optional[List[int]]:
         """``n`` blocks, or None when the pool cannot cover the request
-        (nothing is partially allocated)."""
+        (nothing is partially allocated).  Free blocks first; only when
+        they fall short are retained blocks evicted, LRU first (their
+        hashes leave the index)."""
         if n < 0:
             raise ValueError(f"alloc({n})")
-        if n > len(self._free):
+        if n > len(self._free) + len(self._cached):
             return None
+        while len(self._free) < n:
+            b, _ = self._cached.popitem(last=False)  # LRU
+            self._drop_hash(b)
+            self._free.append(b)
+            self._evicted.append(b)
+            self.cache_evictions += 1
         blocks = [self._free.pop() for _ in range(n)]
-        self._in_use.update(blocks)
-        self.peak_in_use = max(self.peak_in_use, len(self._in_use))
+        for b in blocks:
+            self._ref[b] = 1
+        self.peak_in_use = max(self.peak_in_use, len(self._ref))
         return blocks
 
+    def pop_evicted(self) -> List[int]:
+        """Blocks evicted from the prefix cache since the last call."""
+        out, self._evicted = self._evicted, []
+        return out
+
+    def _drop_hash(self, b: int) -> None:
+        h = self._hash_of.pop(b, None)
+        if h is not None and self._by_hash.get(h) == b:
+            del self._by_hash[h]
+
+    def share(self, block: int) -> None:
+        """Map a resident block into another owner's table: refcount + 1
+        for an in-use block, a retained block revived off the LRU.
+        Raises on a block that is not resident."""
+        b = int(block)
+        if b in self._ref:
+            self._ref[b] += 1
+        elif b in self._cached:
+            del self._cached[b]
+            self._ref[b] = 1
+        else:
+            raise ValueError(f"share of non-resident block {b}")
+        self.peak_in_use = max(self.peak_in_use, len(self._ref))
+
+    def register(self, block: int, content_hash: Any) -> bool:
+        """Bind an in-use block to a content hash for :meth:`match`.  The
+        first registration wins: when the hash already names another
+        resident block, the newcomer stays unregistered.  Returns True
+        when registered."""
+        b = int(block)
+        if b not in self._ref:
+            raise ValueError(f"register of block {b} not in use")
+        if content_hash in self._by_hash and self._by_hash[content_hash] != b:
+            return False
+        self._by_hash[content_hash] = b
+        self._hash_of[b] = content_hash
+        return True
+
+    def match(self, hashes: Sequence[Any]) -> List[int]:
+        """The longest prefix of ``hashes`` whose blocks are resident (in
+        use or retained), in order.  A pure read: :meth:`share` pins."""
+        out: List[int] = []
+        for h in hashes:
+            b = self._by_hash.get(h)
+            if b is None or (b not in self._ref and b not in self._cached):
+                break
+            out.append(b)
+        return out
+
     def free(self, blocks: List[int]) -> None:
-        """Return blocks to the free list; raises on a block this
-        allocator did not hand out (or already took back)."""
+        """Release one ownership reference a block.  At refcount 0 a
+        registered block moves to the LRU's most-recent end, an
+        unregistered one to the free list.  Raises on a block this
+        allocator does not hold in use."""
         for b in blocks:
             b = int(b)
-            if b == NULL_BLOCK or b not in self._in_use:
+            r = self._ref.get(b)
+            if b == NULL_BLOCK or r is None:
                 raise ValueError(
                     f"freeing block {b} not handed out by this allocator")
-            self._in_use.discard(b)
-            self._free.append(b)
+            if r > 1:
+                self._ref[b] = r - 1
+                continue
+            del self._ref[b]
+            if b in self._hash_of:
+                self._cached[b] = None
+            else:
+                self._free.append(b)
 
     def audit(self, slot_tables) -> Dict[str, Any]:
         """Block conservation against the live slots' owned-block lists:
-        ``orphaned`` in-use blocks no slot owns (a leak), ``unknown``
-        blocks a slot owns that are free (a use-after-free), ``shared``
-        blocks owned by more than one slot (a collision), and
-        ``conserved``: in-use + free == usable with disjoint sets and no
-        NULL entry.  ``ok`` iff all four are clean."""
+        ``orphaned`` in-use blocks no slot references (a leak),
+        ``unknown`` blocks a slot references that are free or retained (a
+        use-after-free), ``shared`` blocks whose number of referencing
+        slots differs from their refcount, and ``conserved``: unique
+        in-use + retained + free == usable with disjoint sets and no NULL
+        entry.  ``ok`` iff all four are clean."""
         counts = collections.Counter(
             int(b) for t in slot_tables for b in t if int(b) != NULL_BLOCK)
         refset = set(counts)
         free_set = set(self._free)
+        ref_keys = set(self._ref)
+        cached_set = set(self._cached)
         report = {
-            "orphaned": sorted(self._in_use - refset),
-            "unknown": sorted(refset - self._in_use),
+            "orphaned": sorted(ref_keys - refset),
+            "unknown": sorted(refset - ref_keys),
             "shared": sorted(b for b, c in counts.items()
-                             if b in self._in_use and c != 1),
+                             if b in self._ref and c != self._ref[b]),
             "conserved": (
-                len(self._in_use) + len(self._free) == self.n_usable
+                len(self._ref) + len(self._cached) + len(self._free)
+                == self.n_usable
                 and len(free_set) == len(self._free)
-                and not (free_set & self._in_use)
+                and not (free_set & ref_keys)
+                and not (free_set & cached_set)
+                and not (cached_set & ref_keys)
                 and NULL_BLOCK not in free_set
-                and NULL_BLOCK not in self._in_use),
+                and NULL_BLOCK not in ref_keys
+                and NULL_BLOCK not in cached_set),
             "in_use": self.in_use,
             "n_free": self.n_free,
+            "n_cached": self.n_cached,
         }
         report["ok"] = (report["conserved"] and not report["orphaned"]
                         and not report["unknown"] and not report["shared"])
         return report
 
     def reclaim(self, blocks) -> List[int]:
-        """Force-return ``blocks`` to the free list whatever their state
-        (the self-healing half of :meth:`audit`); returns the blocks
-        actually recovered.  NULL and already-free blocks are no-ops."""
+        """Force ``blocks`` back to the free list whatever their state
+        (the self-healing half of :meth:`audit`): refcounts, retention
+        and hash registrations are dropped.  Returns the blocks actually
+        recovered; NULL and already-free blocks are no-ops."""
         healed = []
         free_set = set(self._free)
         for b in blocks:
             b = int(b)
             if b == NULL_BLOCK or not (0 < b < self.num_blocks):
                 continue
-            self._in_use.discard(b)
+            self._ref.pop(b, None)
+            self._cached.pop(b, None)
+            self._drop_hash(b)
             if b not in free_set:
                 self._free.append(b)
                 free_set.add(b)

@@ -1,19 +1,38 @@
-"""The engine's device touches on one torch device — the PyTorch
-counterpart of ``torchdistpackage_tpu/serving/sim.py`` (``DeviceStep``
-:54, ``CompiledDeviceStep`` :101).
+"""The engine's device touches behind one seam — the PyTorch counterpart
+of ``torchdistpackage_tpu/serving/sim.py`` (``DeviceStep`` :54,
+``CompiledDeviceStep`` :101, ``LatencyModel`` :136, ``StubDeviceStep``
+:168, ``host_migrate_blocks`` :273).
 
-``ServingEngine`` touches the device in four places: the pool
+``ServingEngine`` touches the device in five places: the pool
 allocation, the shared prefill/decode step, the speculative verify step
-(``spec_k``) and the per-request sampling stream.
-:class:`TorchDeviceStep` holds all four, and the engine builds it
-itself.  The reference puts its step behind a ``DeviceStep`` seam so
-that a host-only ``StubDeviceStep`` can stand in; neither the seam nor
-the stub is ported yet (ROADMAP queue A).
+(``spec_k``), the copy-on-write of the prefix cache and the per-slot
+sampling streams.  :class:`DeviceStep` names them; everything else in
+the engine is host-side scheduling, so the same queue, admission,
+preemption, shedding, allocator and audit run against either
+implementation:
+
+- :class:`TorchDeviceStep` — the real one on a torch device (default:
+  the card), built by the engine when no ``device_step=`` is given.  Its
+  sampling stream is a ``torch.Generator``; the stream's state is the
+  generator's ``get_state()`` (on CUDA Philox seed and offset, on the CPU
+  the MT19937 state) as a list of ints.
+- :class:`StubDeviceStep` — the host-only double: no model (the engine
+  takes ``params=None``), a tiny numpy pool with the real block layout,
+  tokens from a deterministic hash and a :class:`LatencyModel` of what
+  each call would have cost.  Its stream is the reference stub's
+  two-word key with the same hash and LCG advance, so on the same
+  requests the port's engine on this stub replays the reference's engine
+  on the reference's stub token for token, sampled rows included.
+
+The engine hands a step the streams of the rows that emit a token in
+that call (``None`` for the others); a step advances exactly those
+streams (the real step draws only for rows with temperature > 0), so a
+stream's state is the reference's carried key at the same moments.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +43,8 @@ from ..models.gpt import GPTConfig
 from ..ops.paged_attention import resolve_attn_impl
 from .engine import _filtered_logits, _slot_sample
 from .paged_cache import (
+    PoolSnapshot,
+    copy_blocks,
     cp_paged_forward,
     init_paged_kv,
     paged_forward,
@@ -33,8 +54,87 @@ from .paged_cache import (
 
 MoEStats = Optional[Tuple[np.ndarray, float]]
 
+#: mix constants of the stub's token hash and key advance — the
+#: reference stub's (JAX ``sim.py:45-48``), so both stubs agree
+_MIX_A = np.uint64(2654435761)
+_MIX_B = np.uint64(0x9E3779B97F4A7C15)
+_LCG_MUL = np.uint64(6364136223846793005)
+_LCG_ADD = np.uint64(1442695040888963407)
 
-class TorchDeviceStep:
+
+class DeviceStep:
+    """The interface between ``ServingEngine`` and its device programs.
+
+    ``bind(engine)`` is called once from the engine's constructor, after
+    its shape attributes (``num_slots``, ``block_size``, ``num_blocks``,
+    ``max_blocks``) are set and before the pool is made; it keeps no
+    reference to the engine.  An
+    implementation also carries ``device``, ``attn_impl`` and
+    ``moe_dispatch`` (what the engine reports) and ``host_only`` (True:
+    it never touches a device, and the engine refuses it with a process
+    group).
+
+    Streams: ``stream(seed)`` starts a request's sampling stream,
+    ``stream_state(s)`` is its state as a JSON-serialisable list of ints
+    (what a drain or an export carries), and ``restore_stream(state)``
+    continues from such a state.  ``step`` and ``verify`` advance the
+    streams they are given, and only those."""
+
+    host_only = False
+    device: torch.device
+    attn_impl: str
+    moe_dispatch: Optional[str] = None
+
+    def bind(self, engine: Any) -> None:
+        """Read what the implementation needs off the engine; keep no
+        reference to it (the engine holds the step, and a cycle would
+        keep a freed engine's pool alive until the cyclic collector
+        runs)."""
+
+    def init_cache(self, num_blocks: int, block_size: int,
+                   quantized: bool) -> Any:
+        raise NotImplementedError
+
+    def step(self, params: Any, cache: Any, tokens: np.ndarray,
+             tables: np.ndarray, offsets: np.ndarray, last_idx: np.ndarray,
+             samp: Dict[str, np.ndarray], streams: List[Any]
+             ) -> Tuple[Any, np.ndarray, MoEStats]:
+        """``tokens [B, S]`` at per-slot offsets -> ``(cache, tok [B],
+        moe)``: the shared prefill-chunk / decode step."""
+        raise NotImplementedError
+
+    def verify(self, params: Any, cache: Any, tokens: np.ndarray,
+               tables: np.ndarray, offsets: np.ndarray,
+               samp: Dict[str, np.ndarray], streams: List[Any]
+               ) -> Tuple[Any, np.ndarray, np.ndarray]:
+        """``tokens [B, K+1]`` -> ``(cache, verify [B, K+1], accept [B,
+        K])``: the speculative verify step."""
+        raise NotImplementedError
+
+    def cow(self, cache: Any, src: np.ndarray, dst: np.ndarray) -> Any:
+        """Copy blocks ``src[i] -> dst[i]`` (lane vectors, NULL-padded)
+        before the next step: the prefix cache's copy-on-write."""
+        raise NotImplementedError
+
+    def stream(self, seed: int) -> Any:
+        raise NotImplementedError
+
+    def stream_state(self, stream: Any) -> List[int]:
+        raise NotImplementedError
+
+    def restore_stream(self, state: Sequence[int]) -> Any:
+        raise NotImplementedError
+
+
+def _sampled(streams: List[Any], samp: Dict[str, np.ndarray]) -> List[Any]:
+    """The streams of the rows that draw: given a stream and a
+    temperature > 0 (a greedy row's stream is not drawn from)."""
+    temps = samp["temperature"]
+    return [g if g is not None and temps[i] > 0.0 else None
+            for i, g in enumerate(streams)]
+
+
+class TorchDeviceStep(DeviceStep):
     """The pool, the step and the sampling streams on one torch device
     (default: the card).  ``attn_impl`` is resolved from the device
     (``'auto'``: the kernel on the card, the plain version on the CPU);
@@ -67,9 +167,24 @@ class TorchDeviceStep:
                              quantized=quantized, device=self.device,
                              cp=self.cp)
 
-    def generator(self, seed: int) -> torch.Generator:
+    def stream(self, seed: int) -> torch.Generator:
         """A request's private sampling stream, seeded from its seed."""
         return torch.Generator(device=self.device).manual_seed(int(seed))
+
+    def stream_state(self, stream: torch.Generator) -> List[int]:
+        """The generator's state as ints (a host read: on CUDA the Philox
+        seed and offset the host keeps, no device sync)."""
+        return [int(b) for b in stream.get_state().tolist()]
+
+    def restore_stream(self, state: Sequence[int]) -> torch.Generator:
+        g = torch.Generator(device=self.device)
+        g.set_state(torch.tensor(list(state), dtype=torch.uint8))
+        return g
+
+    def cow(self, cache: Any, src: np.ndarray, dst: np.ndarray) -> Any:
+        """:func:`~.paged_cache.copy_blocks` on the pool's stream, ordered
+        before the next step's writes by the stream itself."""
+        return copy_blocks(cache, src, dst)
 
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -78,7 +193,7 @@ class TorchDeviceStep:
     def step(self, params: Any, cache: Any, tokens: np.ndarray,
              tables: np.ndarray, offsets: np.ndarray, last_idx: np.ndarray,
              samp: Dict[str, np.ndarray],
-             gens: List[Optional[torch.Generator]]
+             streams: List[Optional[torch.Generator]]
              ) -> Tuple[Any, np.ndarray, MoEStats]:
         """ONE step serves both phases: ``tokens [B, 1]`` is decode,
         ``[B, chunk]`` a prefill slice.  Host arrays in, host tokens
@@ -99,7 +214,8 @@ class TorchDeviceStep:
                                              **kw)
         else:
             cache, logits = paged_forward(*args, **kw)
-        tok = _slot_sample(logits, gens, self._to_dev(samp["temperature"]),
+        tok = _slot_sample(logits, _sampled(streams, samp),
+                           self._to_dev(samp["temperature"]),
                            self._to_dev(samp["top_k"]),
                            self._to_dev(samp["top_p"]))
         group = self.ep_group if self.ep_group is not None else self.cp_group
@@ -125,7 +241,7 @@ class TorchDeviceStep:
     def verify(self, params: Any, cache: Any, tokens: np.ndarray,
                tables: np.ndarray, offsets: np.ndarray,
                samp: Dict[str, np.ndarray],
-               gens: List[Optional[torch.Generator]]
+               streams: List[Optional[torch.Generator]]
                ) -> Tuple[Any, np.ndarray, np.ndarray]:
         """The speculative verify step (JAX ``engine.py:703-790``):
         ``tokens [B, K+1]`` is each slot's last token and its K drafts at
@@ -145,7 +261,7 @@ class TorchDeviceStep:
                 ep_group=self.ep_group, **kw)
         else:
             cache, logits = paged_forward(*args, **kw)
-        ver, acc = self.judge(logits, tok, samp, gens)
+        ver, acc = self.judge(logits, tok, samp, _sampled(streams, samp))
         both = torch.cat([ver, acc.long()], dim=1)
         if self.ep_group is not None:
             dist.broadcast(both, src=dist.get_global_rank(self.ep_group, 0),
@@ -209,3 +325,168 @@ class TorchDeviceStep:
                                                   dim=1), ver[idx])
         acc[idx] = torch.where(sampled, u < p_draft, acc[idx])
         return ver, acc
+
+
+class LatencyModel:
+    """Predicted seconds a stub call (JAX :136): an affine model a
+    program, ``base_s + per_token_s * rows * width`` — dispatch overhead
+    plus linear token work.  The defaults are CPU-scale magnitudes, good
+    for relative policy curves, not for absolute TTFT claims."""
+
+    def __init__(self, prefill_base_s: float = 4e-4,
+                 prefill_per_token_s: float = 6e-6,
+                 decode_base_s: float = 3e-4,
+                 decode_per_token_s: float = 2e-5,
+                 verify_base_s: float = 4e-4,
+                 verify_per_token_s: float = 8e-6,
+                 cow_s: float = 1e-4) -> None:
+        self.coeffs = {
+            "prefill": (prefill_base_s, prefill_per_token_s),
+            "decode": (decode_base_s, decode_per_token_s),
+            "verify": (verify_base_s, verify_per_token_s),
+            "cow": (cow_s, 0.0),
+        }
+
+    def step_s(self, kind: str, rows: int, width: int = 1) -> float:
+        base, per_tok = self.coeffs[kind]
+        return base + per_tok * rows * width
+
+
+class StubStream:
+    """The stub's sampling stream: the reference stub's two-word key
+    (``uint32[2]``, the threefry layout), advanced in place."""
+
+    __slots__ = ("key",)
+
+    def __init__(self, key) -> None:
+        self.key = np.asarray(key, np.uint32).reshape(2).copy()
+
+
+class StubDeviceStep(DeviceStep):
+    """Host-only :class:`DeviceStep` (JAX :168): a numpy pool, hash
+    tokens, modeled latency.  A greedy row's token depends only on (its
+    input token, its position) — both restored by a drain descriptor or
+    an export — and a sampled row's also on its stream's key, which the
+    descriptors carry; so an interrupted request continues on the stub
+    exactly as it does on the real step.  ``calls`` / ``sim_s`` count
+    the calls and their modeled device seconds (``sim_summary()``)."""
+
+    host_only = True
+
+    def __init__(self, latency: Optional[LatencyModel] = None) -> None:
+        self.latency = latency if latency is not None else LatencyModel()
+        self.calls: Dict[str, int] = {
+            "prefill": 0, "decode": 0, "verify": 0, "cow": 0}
+        self.sim_s = 0.0
+        self.device = torch.device("cpu")
+        self.attn_impl = resolve_attn_impl("auto", self.device)
+
+    def bind(self, engine: Any) -> None:
+        self.vocab_size = engine.cfg.vocab_size
+        if engine.cfg.moe_experts:
+            self.moe_dispatch = resolve_serving_dispatch(
+                engine.cfg.moe_dispatch, self.device)
+
+    def _charge(self, kind: str, rows: int, width: int = 1) -> None:
+        self.calls[kind] += 1
+        self.sim_s += self.latency.step_s(kind, rows, width)
+
+    def sim_summary(self) -> Dict[str, Any]:
+        return {"sim_device_s": round(self.sim_s, 6),
+                "calls": dict(self.calls)}
+
+    def init_cache(self, num_blocks: int, block_size: int,
+                   quantized: bool) -> Any:
+        # the real block layout at one byte a position: dim 1 is the block
+        # dim the lane copies index, shape[3] the block size
+        shape = (1, num_blocks, 1, block_size, 1)
+        return {"k": np.zeros(shape, np.int8), "v": np.zeros(shape, np.int8)}
+
+    # ------------------------------------------------------------ tokens
+
+    def _keys(self, streams: List[Optional[StubStream]]) -> np.ndarray:
+        return np.stack([s.key if s is not None
+                         else np.zeros(2, np.uint32) for s in streams])
+
+    def _tokens(self, keys: np.ndarray, last_tok: np.ndarray,
+                pos: np.ndarray, temps: np.ndarray) -> np.ndarray:
+        vocab = np.uint64(self.vocab_size)
+        h = (last_tok.astype(np.uint64) * _MIX_A) ^ (
+            pos.astype(np.uint64) * _MIX_B)
+        h_sampled = h ^ (keys[:, 0].astype(np.uint64) << np.uint64(17)) ^ (
+            keys[:, 1].astype(np.uint64))
+        h = np.where(temps <= 0.0, h, h_sampled)
+        return (h % vocab).astype(np.int32)
+
+    @staticmethod
+    def _advance(streams: List[Optional[StubStream]]) -> None:
+        live = [s for s in streams if s is not None]
+        if not live:
+            return
+        keys = np.stack([s.key for s in live])
+        mixed = (keys[:, 0].astype(np.uint64) * _LCG_MUL
+                 + keys[:, 1].astype(np.uint64) * _LCG_ADD + np.uint64(1))
+        for s, m in zip(live, mixed):
+            s.key = np.array([m >> np.uint64(32), m & np.uint64(0xFFFFFFFF)],
+                             np.uint32)
+
+    # ---------------------------------------------------------- programs
+
+    def step(self, params, cache, tokens, tables, offsets, last_idx, samp,
+             streams):
+        B, S = tokens.shape
+        self._charge("prefill" if S > 1 else "decode", B, S)
+        last_tok = tokens[np.arange(B), last_idx]
+        tok = self._tokens(self._keys(streams), last_tok,
+                           offsets + last_idx, samp["temperature"])
+        self._advance(streams)
+        return cache, tok, None
+
+    def verify(self, params, cache, tokens, tables, offsets, samp, streams):
+        B, K1 = tokens.shape
+        K = K1 - 1
+        self._charge("verify", B, K1)
+        temps = samp["temperature"]
+        keys = self._keys(streams)
+        # position j's token from (token j, offset + j): the plain step's
+        # function, so a greedy verify equals plain stub decode
+        ver = np.stack([self._tokens(keys, tokens[:, j], offsets + j, temps)
+                        for j in range(K1)], axis=1).astype(np.int32)
+        acc = (tokens[:, 1:] == ver[:, :K]).astype(np.int32)
+        acc[temps > 0.0] = 0  # no acceptance distribution is modeled
+        self._advance(streams)
+        return cache, ver, acc
+
+    def cow(self, cache, src, dst):
+        self._charge("cow", len(src))
+        for leaf in (cache["k"], cache["v"]):
+            leaf[:, dst] = leaf[:, src]
+        return cache
+
+    def stream(self, seed: int) -> StubStream:
+        # the threefry key layout of the seed, [hi32, lo32]
+        s = np.uint64(int(seed) & 0xFFFFFFFFFFFFFFFF)
+        return StubStream([s >> np.uint64(32), s & np.uint64(0xFFFFFFFF)])
+
+    def stream_state(self, stream: StubStream) -> List[int]:
+        return [int(v) for v in stream.key]
+
+    def restore_stream(self, state: Sequence[int]) -> StubStream:
+        return StubStream(state)
+
+
+def host_migrate_blocks(src_cache: Dict[str, Any], dst_cache: Dict[str, Any],
+                        src_ids, dst_ids, compress: bool = False
+                        ) -> Dict[str, Any]:
+    """Numpy twin of :func:`~.paged_cache.migrate_blocks` for host-only
+    pools (JAX :273): ``dst[:, dst_ids[i]] = src[:, src_ids[i]]`` a leaf.
+    ``src_cache`` may be a :class:`~.paged_cache.PoolSnapshot`.
+    ``compress`` is accepted for the signature: the int8 stub pool is at
+    wire precision already."""
+    del compress
+    if isinstance(src_cache, PoolSnapshot):
+        src_ids = src_cache.rows(src_ids)
+    src_ids, dst_ids = np.asarray(src_ids), np.asarray(dst_ids)
+    for name, d_leaf in dst_cache.items():
+        d_leaf[:, dst_ids] = src_cache[name][:, src_ids]
+    return dst_cache
