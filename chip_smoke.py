@@ -116,7 +116,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    backward in each mode: the card bytes held at the end of the forward
    lower by the 12 kept ``o`` (12 B S D 2 bytes, within 1 %), the peak
    at least 0.5 GB lower); dropout 0.1 twice under one key (3 steps,
-   bit-identical, apart from rate 0).
+   bit-identical, apart from rate 0).  Then tensor parallel
+   (``tp_train_phase``): a one-rank NCCL group as ``tpc``'s ``tensor``
+   axis, the GPT-125M run through ``make_train_step``'s TP step at
+   ``sp=False`` and at ``sp=True`` (``collective_matmul`` set, but at
+   one rank the rings take the reference's shortcut, so the card runs
+   the fused regions; ``ring_ag_matmul`` / ``ring_matmul_rs`` are proven
+   by the gloo tests alone): every step's loss within 1e-3 relative of the serial step's, K3-K5 once a
+   layer a step, each region's collectives exactly as many as a step
+   runs (``tp_collectives``), the step medians beside the serial one.
 5. serve   — Mistral-7B-v0.1 widths, all 32 layers, bf16, random weights:
    ``paged_forward`` with K1 against the plain path on identical tokens
    (teacher-forced logits), then ``ServingEngine`` serves 16 requests
@@ -148,8 +156,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    64-token segment (``spec_engine_phase``: K1 once a layer a device
    call, verify included; greedy rows teacher-forced; acceptance, tokens
    a slot a tick, TPOT and tokens/s; the K1 body a verify call runs, by
-   torch.profiler: the split decode body at K 3, ``paged_tc_kernel`` at
-   K 4).
+   the library's launch counts: the split decode body at K 3,
+   ``paged_tc_kernel`` at K 4).  Then tensor parallel over a one-rank
+   NCCL ``tensor`` group: ``ServingEngine(tp_group=)`` on the engine's 16
+   requests (``tp_engine_phase``: every token equal to the plain
+   engine's, K1 once a layer a device call, tok/s, TTFT and TPOT beside
+   the plain engine's), ``generate(tp_group=)`` at B 4, 1000-token
+   prompts, 16 new tokens (equal to ``generate()``'s, K3 once a layer),
+   and on a 2-layer model of Mixtral-8x7B-v0.1's widths (equal, K6 once a
+   layer a forward call; ``tp_generate_phase``).
 6. MoE serve — Mixtral-8x7B-v0.1 widths at 16 of 32 layers (23.5 B
    parameters, 47 GB of bf16; all 32 layers do not fit one 80 GB card),
    random weights: ``paged_forward_moe`` with K6 against the ragged
@@ -2344,21 +2359,31 @@ def mistral_train_phase(card):
     return out
 
 
-def dp_train_run(cfg, rows, steps, remat="flash", dp=None, dropout_key=None):
+def dp_train_run(cfg, rows, steps, remat="flash", dp=None, dropout_key=None,
+                 tp_group=None, sp=False):
     """``steps`` AdamW steps of GPT ``cfg`` on the fixed batch of
     ``train_run`` (the same init seed and batch), through
     ``make_train_step`` or, with ``dp``, ``DataParallel.make_train_step``
-    (the batch through ``dp.shard_batch``).  The kernels' counts are set
-    to 0 just before the steps and read just after; the peak memory is
-    over the steps, less what was allocated before the run began (so
-    runs made one after another compare), its gradients freed at the
-    end."""
+    (the batch through ``dp.shard_batch``); with ``tp_group`` the rank's
+    shard (``shard_gpt_params``) through ``make_train_step``'s tensor-
+    parallel step (``sp``: sequence parallel).  The kernels' counts and
+    the regions' collectives are set to 0 just before the steps and read
+    just after; the peak memory is over the steps, less what was
+    allocated before the run began (so runs made one after another
+    compare), its gradients freed at the end."""
     from torchdistpackage_tpu_torch.models import gpt_loss, init_gpt_params
+    from torchdistpackage_tpu_torch.models.gpt import (
+        gpt_param_specs,
+        shard_gpt_params,
+    )
     from torchdistpackage_tpu_torch.obs.numerics import tree_leaves
     from torchdistpackage_tpu_torch.ops import flash_attention as fa
     from torchdistpackage_tpu_torch.parallel.data_parallel import (
         adamw,
         make_train_step,
+    )
+    from torchdistpackage_tpu_torch.parallel.tensor_parallel import (
+        COLLECTIVES,
     )
 
     gc.collect()  # an earlier run's tensors, freed before the baseline
@@ -2366,13 +2391,22 @@ def dp_train_run(cfg, rows, steps, remat="flash", dp=None, dropout_key=None):
     base = torch.cuda.memory_allocated()
     params = init_gpt_params(
         cfg, torch.Generator(device="cuda").manual_seed(0))
+    if tp_group is not None:
+        params = shard_gpt_params(params, cfg, tp_group.rank(),
+                                  tp_group.size())
     opt = adamw(3e-4)
     state = opt.init(params)
 
     def loss_fn(p, b):
-        return gpt_loss(p, b, cfg, remat=remat, dropout_key=dropout_key)
+        return gpt_loss(p, b, cfg, remat=remat, dropout_key=dropout_key,
+                        tp_group=tp_group, sp=sp)
 
-    if dp is None:
+    if tp_group is not None:
+        step = make_train_step(loss_fn, opt,
+                               param_specs=gpt_param_specs(params), sp=sp,
+                               tp_group=tp_group)
+        batch = random_batch(cfg, rows, 1)
+    elif dp is None:
         step = make_train_step(loss_fn, opt)
         batch = random_batch(cfg, rows, 1)
     else:
@@ -2381,6 +2415,8 @@ def dp_train_run(cfg, rows, steps, remat="flash", dp=None, dropout_key=None):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    for name in COLLECTIVES:
+        COLLECTIVES[name] = 0
     losses, times = [], []
     for _ in range(steps):
         torch.cuda.synchronize()
@@ -2389,6 +2425,7 @@ def dp_train_run(cfg, rows, steps, remat="flash", dp=None, dropout_key=None):
         losses.append(float(loss))  # reads back: waits for the step
         times.append(time.perf_counter() - t0)
     out = {"losses": losses, "times": times, "launches": dict(fa.LAUNCHES),
+           "collectives": dict(COLLECTIVES),
            "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
            "params": params,
            "stats": None if dp is None else dict(dp.last_stats)}
@@ -2768,9 +2805,9 @@ def moe_model_phase(params, cfg, tag="moe-model", gather_experts=None,
     return {"pinned": res, "free": drift, "flips_by_layer": per_layer}
 
 
-def engine_phase(params, cfg, card):
-    from torchdistpackage_tpu_torch.ops.paged_attention import LAUNCHES
-    from torchdistpackage_tpu_torch.serving import Request, ServingEngine
+def engine_requests(cfg):
+    """The serving phase's 16 requests (12 greedy, 4 sampled)."""
+    from torchdistpackage_tpu_torch.serving import Request
 
     rs = np.random.RandomState(0)
     lens = rs.choice([256, 1024, 2048, 4608], 16)
@@ -2785,8 +2822,21 @@ def engine_phase(params, cfg, card):
                                 top_p=0.95, seed=i))
         else:
             reqs.append(Request(toks, int(m)))
+    return reqs, lens
+
+
+def engine_phase(params, cfg, card, tag="engine", **kw):
+    """The Mistral engine (8 slots, chunk 512) on :func:`engine_requests`:
+    K1 exactly once a layer a device call, every request finished as
+    asked, the pool conserved; tok/s, TTFT, TPOT.  ``kw`` goes to the
+    engine (``tp_group``).  Returns the counts, the summary and every
+    request's tokens."""
+    from torchdistpackage_tpu_torch.ops.paged_attention import LAUNCHES
+    from torchdistpackage_tpu_torch.serving import ServingEngine
+
+    reqs, lens = engine_requests(cfg)
     eng = ServingEngine(params, cfg, num_slots=8, block_size=BS, chunk=512,
-                        max_ctx=8192)
+                        max_ctx=8192, **kw)
     if eng.attn_impl != "cuda":
         raise RuntimeError(f"engine resolved attn_impl={eng.attn_impl!r}")
     torch.cuda.synchronize()
@@ -2815,7 +2865,7 @@ def engine_phase(params, cfg, card):
         raise RuntimeError("pool not conserved after the run")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     ttft, tpot = s["ttft_s"], s["tpot_s"]
-    log(f"[engine] {len(reqs)} requests, prompts {sorted(lens.tolist())}, "
+    log(f"[{tag}] {len(reqs)} requests, prompts {sorted(lens.tolist())}, "
         f"{s['generated_tokens']} tokens in {wall:.2f} s: "
         f"{s['tokens_per_sec']:.2f} tok/s, TTFT p50 {ttft['p50']:.3f} s "
         f"p99 {ttft['p99']:.3f} s, TPOT p50 {tpot['p50'] * 1e3:.2f} ms "
@@ -2823,7 +2873,8 @@ def engine_phase(params, cfg, card):
         f"{s['prefill_chunks']} prefill calls + {s['decode_steps']} decode "
         f"calls, {launches} kernel launches — on {card}")
     return {"launches": launches, "summary": s, "wall_s": wall,
-            "peak_gb": peak_gb}
+            "peak_gb": peak_gb,
+            "tokens": [eng.finished[r]["tokens"] for r in rids]}
 
 
 def kernel_families(prof, calls):
@@ -3309,9 +3360,9 @@ def spec_engine_phase(params, cfg, card):
     the greedy rows held by teacher forcing; acceptance, tokens a verify
     tick, TPOT and tokens/s beside the plain engine's; and which K1 body
     a verify call runs (R = 4 (K + 1) rows a KV head: 16, the split
-    decode body; 20, ``paged_tc_kernel``), by torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
+    decode body; 20, ``paged_tc_kernel``), by the library's launch
+    counts (``_build.body_launches``)."""
+    from torchdistpackage_tpu_torch.ops import _build
     from torchdistpackage_tpu_torch.ops import paged_attention as pa
     from torchdistpackage_tpu_torch.serving import ServingEngine
 
@@ -3371,26 +3422,23 @@ def spec_engine_phase(params, cfg, card):
         fn = lambda: pa.paged_decode_attention(  # noqa: E731
             case["q"], case["k"], case["v"], case["tables"],
             case["offsets"], window=4096)
+        bodies = ("paged_split_kernel", "paged_tc_kernel")
+        before = [_build.body_launches("paged_attention", b) for b in bodies]
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = sorted({m.group(1) for e in prof.key_averages()
-                        if e.device_type == torch.autograd.DeviceType.CUDA
-                        for m in [re.search(r"(paged_\w+?_kernel)", e.key)]
-                        if m})
+        got = {b: _build.body_launches("paged_attention", b) - n
+               for b, n in zip(bodies, before)}
         # the wrapper's own route: a split count > 0 is the split body
         nsplit = pa._workspace(8, HKV, GROUPS * (k + 1), HD,
                                case["tables"].shape[1], "cuda")[0]
         want = "paged_split_kernel" if nsplit else "paged_tc_kernel"
         log(f"[spec-engine] a verify call at K {k} (R = {GROUPS * (k + 1)} "
             f"rows a KV head): the wrapper routes it to {want} (NSPLIT "
-            f"{nsplit}); torch.profiler saw {names or 'no kernel'}")
-        if (want == "paged_split_kernel") != (k == 3) or (
-                names and not any(want in n for n in names)):
+            f"{nsplit}); the library launched {got}")
+        if (want == "paged_split_kernel") != (k == 3) or got != {
+                b: int(b == want) for b in bodies}:
             raise RuntimeError(f"verify K {k}: routed to {want}, the "
-                               f"profiler saw {names}")
+                               f"library launched {got}")
         out[k]["k1_body"] = want
     return out
 
@@ -3909,6 +3957,256 @@ def moe_generate_phase(params, shard, cfg, card, group):
     log(f"[moe-generate] K6 and K7 runs: {same:.3f} of the new tokens equal")
     return {k: {kk: vv for kk, vv in v.items() if kk != "tokens"}
             for k, v in out.items()}
+
+
+@contextlib.contextmanager
+def tensor_group(tag):
+    """A one-rank NCCL process group (the card machine has one H100) and
+    ``tpc``'s ``tensor`` axis over it; yields the tensor group.  At one
+    rank every region's collective is a copy and the rings take the
+    reference's shortcut: these phases prove the TP paths run through the
+    kernels at full width with every collective made; the multi-rank
+    exchange is proven on the CPU over gloo (tests/test_torch_tp.py)."""
+    import torch.distributed as dist
+
+    from torchdistpackage_tpu_torch.dist import init_distributed, tpc
+
+    init_distributed(f"tcp://127.0.0.1:{free_port()}", 1, 0, "cuda")
+    try:
+        tpc.setup_process_groups([("data", 1), ("tensor", 1)])
+        group = tpc.get_group("tensor")
+        if dist.get_backend(group) != "nccl":
+            raise RuntimeError("the tensor group on the card must use NCCL")
+        # NCCL makes a group's communicator at its first collective: once
+        # here, so that no phase times it
+        t0 = time.perf_counter()
+        dist.all_reduce(torch.zeros(1, device="cuda"), group=group)
+        torch.cuda.synchronize()
+        log(f"[{tag}] process group: backend {dist.get_backend(group)}, TP "
+            f"size {group.size()}, first collective "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+        yield group
+    finally:
+        tpc.reset()
+        dist.destroy_process_group()
+
+
+def tp_collectives(L, sp):
+    """Each region's collectives in one training step under remat
+    'flash'.  The backward recomputes each block's forward up to its last
+    saved tensor (checkpoint's early stop): the attention's closing
+    collective again, the MLP's not.  Non-SP: ``reduce_from_tp`` closes
+    the embedding, two products a block (the attention's twice) and the
+    loss; ``copy_to_tp``'s backward opens two products a block and the
+    head.  SP: the gathers into two products a block and the head run
+    forward, again in the recompute (the block's) and backward; the
+    scatters out of two a block forward and backward, the attention's
+    again; one split (its backward); the embedding and the loss still
+    reduce."""
+    if sp:
+        return {"split_to_sp": 1, "gather_from_sp": 6 * L + 2,
+                "scatter_to_sp": 5 * L, "reduce_from_tp": 2, "xent_max": 1}
+    return {"reduce_from_tp": 3 * L + 2, "copy_to_tp": 2 * L + 1,
+            "xent_max": 1}
+
+
+def tp_train_phase(card):
+    """GPT-125M as ``train_phase`` trains it (batch 16, S 2048, bf16, remat
+    'flash', 10 AdamW steps, the same init seed and batch) through
+    ``make_train_step`` and through its tensor-parallel step over a
+    one-rank NCCL ``tensor`` group, at ``sp=False`` and at ``sp=True``
+    (``collective_matmul`` set, but a one-rank group takes the rings'
+    shortcut: ``ring_ag_matmul`` / ``ring_matmul_rs`` never run here and
+    are proven by the gloo tests alone, tests/test_torch_tp.py): every
+    step's loss within 1e-3 relative of
+    the serial step's (the vocab-parallel loss forms its log-sum-exp by
+    hand where the serial one calls ``F.cross_entropy``), the largest
+    parameter difference after 10 steps printed, K3-K5 once a layer a
+    step, every region's collectives exactly as many as a step runs
+    (``tp_collectives``); step medians against the serial step's."""
+    from torchdistpackage_tpu_torch.obs.numerics import tree_leaves
+
+    cfg, rows, steps, warm = gpt_125m(), TRAIN_BATCH, 10, 3
+    L = cfg.nlayers
+    base = dp_train_run(cfg, rows, steps)
+    base_ms = median_ms(base["times"], warm)
+    out = {"serial_ms": base_ms, "losses": base["losses"]}
+    with tensor_group("tp-train") as group:
+        for sp in (False, True):
+            tcfg = dataclasses.replace(cfg, collective_matmul=sp)
+            run = dp_train_run(tcfg, rows, steps, tp_group=group, sp=sp)
+            rel = max(abs(a - b) / abs(b)
+                      for a, b in zip(run["losses"], base["losses"]))
+            dp = max(float((a.float() - b.float()).abs().max())
+                     for a, b in zip(tree_leaves(run["params"]),
+                                     tree_leaves(base["params"])))
+            want = {k: v * steps for k, v in tp_collectives(L, sp).items()}
+            got = {k: v for k, v in run["collectives"].items() if v}
+            ms = median_ms(run["times"], warm)
+            tag = ("sp; collective_matmul set, the rings take the "
+                   "one-rank shortcut" if sp else "no sp")
+            log(f"[tp-train] GPT-125M, batch {rows}, S {cfg.max_seq}, bf16, "
+                f"remat 'flash', {steps} steps through the TP step ({tag}) "
+                f"over a one-rank NCCL group: losses "
+                + ", ".join(f"{x:.6f}" for x in run["losses"])
+                + f"; largest relative loss difference from make_train_step "
+                f"{rel:.3e}, largest parameter difference after {steps} "
+                f"steps {dp:.3e}; step median {ms:.2f} ms (serial "
+                f"{base_ms:.2f}, x{ms / base_ms:.4f}); launches "
+                f"{run['launches']}; collectives {got} — on {card}")
+            if rel > 1e-3:
+                raise RuntimeError(f"TP train ({tag}): a loss off the "
+                                   f"serial step's by {rel:.3e} > 1e-3")
+            if any(n != L * steps for n in run["launches"].values()):
+                raise RuntimeError(f"TP train ({tag}): launches "
+                                   f"{run['launches']}, expected "
+                                   f"{L * steps} each")
+            if got != want:
+                raise RuntimeError(f"TP train ({tag}): collectives {got}, "
+                                   f"expected {want}")
+            out["sp" if sp else "tp"] = {
+                "losses": run["losses"], "step_ms": ms, "rel_loss": rel,
+                "param_diff": dp, "launches": run["launches"],
+                "collectives": got}
+            del run
+    del base
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_engine_phase(params, cfg, card, plain):
+    """The Mistral engine (all 32 layers) over a one-rank NCCL ``tensor``
+    group: the rank's shard (``shard_gpt_params``: at one rank views of
+    every leaf), ``ServingEngine(tp_group=)`` on :func:`engine_requests`.
+    At one rank the collectives are copies and each row-parallel bias is
+    added after them, so the arithmetic is the plain engine's: every
+    token equal to ``plain``'s (12 greedy and 4 sampled requests), K1
+    once a layer a device call, the pool's bytes as
+    ``expected_pool_bytes(axis_size=1)``; tok/s, TTFT and TPOT beside the
+    plain engine's; and what one region costs at a decode tick's shape
+    (``region_ms``), the overhead a tick pays ``2 L + 3`` times."""
+    from torchdistpackage_tpu_torch.models.gpt import shard_gpt_params
+
+    with tensor_group("tp-engine") as group:
+        shard = shard_gpt_params(params, cfg, 0, group.size())
+        run = engine_phase(shard, cfg, card, tag="tp-engine",
+                           tp_group=group)
+        cost = region_ms(group, (8, 1, cfg.dim), cfg.dtype)
+    same = [np.array_equal(a, b) for a, b in zip(run["tokens"],
+                                                 plain["tokens"])]
+    s, p = run["summary"], plain["summary"]
+    pool = s["kv_pool"]
+    log(f"[tp-engine] tokens equal to the plain engine's: {sum(same)} of "
+        f"{len(same)} requests; tok/s {s['tokens_per_sec']:.2f} (plain "
+        f"{p['tokens_per_sec']:.2f}), TTFT p50 {s['ttft_s']['p50']:.3f} s "
+        f"(plain {p['ttft_s']['p50']:.3f}), TPOT p50 "
+        f"{s['tpot_s']['p50'] * 1e3:.2f} ms (plain "
+        f"{p['tpot_s']['p50'] * 1e3:.2f}); pool {pool['pool_bytes']} B, "
+        f"expected {pool['pool_bytes_expected']} — on {card}")
+    per_tick = 2 * cfg.nlayers + 3  # the blocks, embedding, logits, tokens
+    log(f"[tp-engine] one reduce_from_tp on [8, 1, {cfg.dim}] "
+        f"{str(cfg.dtype)[6:]} over the one-rank NCCL group, back to back: "
+        f"{cost['region']:.4f} ms a call (a clone alone {cost['clone']:.4f} "
+        f"ms); a decode tick makes {per_tick} collective calls: "
+        f"{per_tick * cost['region']:.2f} ms a tick — on {card}")
+    if not all(same):
+        raise RuntimeError("TP engine: tokens differ from the plain "
+                           f"engine's in {len(same) - sum(same)} requests")
+    if pool["pool_bytes"] != pool["pool_bytes_expected"]:
+        raise RuntimeError("TP engine: pool bytes off the expected")
+    return {**{k: v for k, v in run.items() if k != "tokens"},
+            "region_ms": cost}
+
+
+def region_ms(group, shape, dtype, iters=200):
+    """Host-clock ms a call of ``reduce_from_tp`` over ``group`` (and of
+    the clone inside it, alone) takes back to back on a ``shape``
+    tensor, the device synchronised at the ends: at one rank NCCL's sum
+    is a copy, so this is the call's overhead."""
+    from torchdistpackage_tpu_torch.parallel.tensor_parallel import (
+        reduce_from_tp,
+    )
+
+    x = torch.randn(shape, device="cuda").to(dtype)
+    out = {}
+    for name, fn in (("region", lambda: reduce_from_tp(x, group)),
+                     ("clone", x.clone)):
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / iters * 1e3
+    return out
+
+
+@torch.no_grad()
+def tp_generate_phase(params, cfg, card, moe_layers=2):
+    """``generate(tp_group=)`` over a one-rank NCCL group at Mistral-7B-v0.1
+    widths (32 layers, bf16, flash), B 4, 1000-token prompts, 16 new
+    tokens: every token equal to ``generate()``'s, K3 once a layer (the
+    prefill call), K1 never; then a ``moe_layers``-layer model of
+    Mixtral-8x7B-v0.1's widths (the experts whole on the rank, K6 in every
+    expert layer): tokens equal to ``generate()``'s, K6 once a layer a
+    forward call."""
+    from torchdistpackage_tpu_torch.models import (
+        generate,
+        init_gpt_moe_params,
+        mixtral_8x7b_config,
+    )
+    from torchdistpackage_tpu_torch.models.gpt import shard_gpt_params
+
+    B, P, N = 4, GEN_PROMPT, 16
+    out = {}
+    with tensor_group("tp-generate") as group:
+        for what in ("dense", "moe"):
+            if what == "dense":
+                gcfg, p = dataclasses.replace(cfg, attn_impl="flash"), params
+            else:
+                gcfg = dataclasses.replace(
+                    mixtral_8x7b_config(nlayers=moe_layers),
+                    attn_impl="flash")
+                p = init_gpt_moe_params(
+                    gcfg, torch.Generator(device="cuda").manual_seed(3))
+            L = gcfg.nlayers
+            g = torch.Generator(device="cuda").manual_seed(7)
+            prompt = torch.randint(0, gcfg.vocab_size, (B, P), generator=g,
+                                   device="cuda")
+            generate(p, prompt, gcfg, 2)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = generate(p, prompt, gcfg, N)
+            torch.cuda.synchronize()
+            plain = time.perf_counter() - t0
+            shard = shard_gpt_params(p, gcfg, 0, group.size())
+            generate(shard, prompt, gcfg, 2, tp_group=group)  # warm-up
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            got = generate(shard, prompt, gcfg, N, tp_group=group)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {"flash_fwd": L}
+            if what == "moe":
+                launches["fused_moe_ffn"] = L * N
+            expect_launches(f"TP generate ({what})", launches)
+            same = float((got == want).float()[:, P:].mean())
+            log(f"[tp-generate] {what} ({L} layers): B {B}, prompt {P}, {N} "
+                f"new in {wall:.3f} s through generate(tp_group=) "
+                f"(generate() {plain:.3f} s); "
+                f"{same:.3f} of the new tokens equal to generate()'s; "
+                f"launches {launches} — on {card}")
+            if same != 1.0:
+                raise RuntimeError(f"TP generate ({what}): tokens differ "
+                                   f"from generate()'s")
+            out[what] = {"launches": launches, "wall_s": wall,
+                         "plain_s": plain}
+            del shard
+        del p
+    torch.cuda.empty_cache()
+    return out
 
 
 def free_port():
@@ -4474,6 +4772,7 @@ def main():
     path_parity_phase()
     mistral_train_phase(card)
     dp_train_phase(card)
+    tp_train = tp_train_phase(card)
     log(f"[time] training done at {time.perf_counter() - t_start:.0f} s")
 
     # 5. the serving path: full-width teacher-forced, then the engine
@@ -4500,6 +4799,12 @@ def main():
     # migration, shedding and rope scaling
     feat = engine_features_phase(params, cfg, card)
     log(f"[time] engine features done at "
+        f"{time.perf_counter() - t_start:.0f} s")
+    # tensor parallelism over a one-rank NCCL group: the engine on the
+    # same requests, generate() dense and MoE
+    tp_eng = tp_engine_phase(params, cfg, card, eng)
+    tp_gen = tp_generate_phase(params, cfg, card)
+    log(f"[time] tensor-parallel serving done at "
         f"{time.perf_counter() - t_start:.0f} s")
     del params
     torch.cuda.empty_cache()
@@ -4572,15 +4877,19 @@ def main():
                                     feat["prefix"][True]["launches"],
                                 **{k: feat[k]["launches"] for k in
                                    ("preempt", "drain", "migrate", "shed")},
-                                "all": feat["launches"]})]
+                                "all": feat["launches"]},
+                            tp_engine_launches=tp_eng["launches"])]
     for kname, krows in flash_rows.items():
         k = {"flash_fwd": "K3", "flash_bwd_dq": "K4",
              "flash_bwd_dkv": "K5"}[kname]
-        extra = {}
+        extra = {"tp_train_launches": {
+            m: tp_train[m]["launches"][kname] for m in ("tp", "sp")}}
         if kname == "flash_fwd":  # the generate path's prefill calls
             extra["generate_launches"] = {
                 "generate": gen["launches"]["flash_fwd"],
-                "moe_generate": cfg_moe_layers}
+                "moe_generate": cfg_moe_layers,
+                "tp_generate": tp_gen["dense"]["launches"]["flash_fwd"],
+                "tp_moe_generate": tp_gen["moe"]["launches"]["flash_fwd"]}
         entries.append(kernel_entry(kname, FLASH_SOURCE,
                                     FLASH_REPLACES[kname],
                                     train["launches"][kname], krows,
@@ -4592,6 +4901,7 @@ def main():
         moe_eng["launches"]["fused_moe_ffn"], moe_rows, moe_rows[0],
         body=moe_rows[0]["body"], body_kernels=MOE_BODY_KERNELS,
         generate_launches=ep_eng["then"]["K6"]["launches"],
+        tp_generate_launches=tp_gen["moe"]["launches"]["fused_moe_ffn"],
         ptxas={n: v for n, v in ptxas_summary.items()
                if n.startswith("K6") and "bf16 weights" in n},
         library="the ragged 'gather' arm: one cuBLAS product per expert "

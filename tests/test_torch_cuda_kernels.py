@@ -838,17 +838,19 @@ def test_expert_ffn_wgmma_planted_faults_fail(cuda, k7_body):
         assert _moe_ratio(got, exact_q, scale_q, bf) > 1.0
 
 
-def _kernel_names(fn):
-    """The CUDA kernels one call of ``fn`` launches, by torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
+def _bodies_launched(bodies, fn):
+    """How many times one call of ``fn`` launched each kernel body of
+    ``moe_dispatch.cu``: the library's own count at its launch sites
+    (``_build.body_launches``).  Names may end in ``<`` (the template's
+    opening bracket, which the profiler's names carry)."""
+    from torchdistpackage_tpu_torch.ops import _build
 
+    names = [b.rstrip("<") for b in bodies]
+    before = [_build.body_launches("moe_dispatch", b) for b in names]
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return " ".join(e.key for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    return {b: _build.body_launches("moe_dispatch", n) - k0
+            for b, n, k0 in zip(bodies, names, before)}
 
 
 @pytest.mark.gpu
@@ -970,18 +972,18 @@ def test_expert_ffn_decode_body_is_bitwise_repeatable(cuda, quantized, E, G):
     (8, "float32", "expert_ffn_kernel<"),
 ])
 def test_expert_ffn_routing_launches_the_named_body(cuda, G, dtype, kernel):
-    """``expert_ffn_body``'s answer is the body that runs: the kernel
-    names torch.profiler records (``EXPERT_FFN_WGMMA_G_MIN`` 64)."""
+    """``expert_ffn_body``'s answer is the body that runs
+    (``EXPERT_FFN_WGMMA_G_MIN`` 64): one call launches the named body
+    once and no other body, by the library's launch counts."""
     from torchdistpackage_tpu_torch.ops import moe_dispatch as md
 
     dt = getattr(torch, dtype)
     ex, x = _expert_inputs(cuda, E=2, G=G, D=128, F=256, act="swiglu",
                            dtype=dt, seed=G)
-    names = _kernel_names(lambda: md.fused_expert_ffn(ex, x))
-    assert kernel in names, names
-    others = {"expert_ffn_up_decode_kernel", "expert_ffn_up_wgmma_kernel",
-              "expert_ffn_kernel<"} - {kernel}
-    assert not any(o in names for o in others), names
+    bodies = ("expert_ffn_up_decode_kernel", "expert_ffn_up_wgmma_kernel",
+              "expert_ffn_kernel<")
+    got = _bodies_launched(bodies, lambda: md.fused_expert_ffn(ex, x))
+    assert got == {b: int(b == kernel) for b in bodies}, got
 
 
 # ------------------------------------- K6's chunk rows on the warpgroup body
@@ -1089,9 +1091,9 @@ def test_moe_wgmma_body_is_bitwise_repeatable_at_top2(cuda, quantized):
 ])
 def test_moe_routing_launches_the_named_body(cuda, C, dtype, kernel):
     """``moe_ffn_body``'s answer is the body that runs, by the kernel
-    names torch.profiler records, at ``MOE_FFN_WGMMA_C_MIN``, one below
-    it and at ``MOE_FFN_DECODE_C_MIN``; the decode body's merge runs with
-    it, and no other body's kernel."""
+    library's launch counts, at ``MOE_FFN_WGMMA_C_MIN``, one below it
+    and at ``MOE_FFN_DECODE_C_MIN``: one call launches it once, the
+    decode body's merge once with it, and no other body's kernel."""
     from torchdistpackage_tpu_torch.ops import moe_dispatch as md
 
     C = {"min": md.MOE_FFN_WGMMA_C_MIN,
@@ -1100,13 +1102,13 @@ def test_moe_routing_launches_the_named_body(cuda, C, dtype, kernel):
     dt = getattr(torch, dtype)
     ex, tok, idx, comb, _ = _moe_inputs(cuda, T=C, C=C, E=8, D=128, F=128,
                                         act="swiglu", dtype=dt, seed=C)
-    names = _kernel_names(lambda: md.fused_moe_ffn_slots(ex, tok, idx, comb))
-    assert kernel in names, names
-    if kernel == "moe_ffn_up_decode_kernel":
-        assert "moe_ffn_merge_kernel" in names, names
-    others = {"moe_ffn_kernel<", "moe_ffn_up_wgmma_kernel",
-              "moe_ffn_up_decode_kernel"} - {kernel}
-    assert not any(o in names for o in others), names
+    bodies = ("moe_ffn_kernel<", "moe_ffn_up_wgmma_kernel",
+              "moe_ffn_up_decode_kernel", "moe_ffn_merge_kernel")
+    got = _bodies_launched(
+        bodies, lambda: md.fused_moe_ffn_slots(ex, tok, idx, comb))
+    want = {b: int(b == kernel) for b in bodies}
+    want["moe_ffn_merge_kernel"] = int(kernel == "moe_ffn_up_decode_kernel")
+    assert got == want, got
 
 
 @pytest.mark.gpu

@@ -196,8 +196,9 @@ def test_engine_refuses_queued_options():
                          ("chaos", "Obs, resilience"),
                          ("watchdog", "Obs, resilience"),
                          ("metrics_sink", "Obs, resilience"),
-                         ("mesh", "TP \\+ SP"), ("axis", "TP \\+ SP"),
-                         ("dp_axis", "TP \\+ SP")):
+                         ("mesh", "tensor parallelism takes tp_group"),
+                         ("axis", "tensor parallelism takes tp_group"),
+                         ("dp_axis", "Engine data-parallel groups")):
         with pytest.raises(NotImplementedError,
                            match=f"{option}.*{item}"):
             ServingEngine(None, cfg, device="cpu", **{option: object()},

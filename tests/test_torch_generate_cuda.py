@@ -11,8 +11,8 @@ head: GQA group 4, bf16, ``attn_impl='flash'``).
 - ``ServingEngine(spec_k=K)``: K1 launches exactly once a layer a device
   call, verify calls included, at K 3 (R = 4 x 4 = 16 rows a KV head:
   the split decode body) and K 4 (R = 20: ``paged_tc_kernel``), the
-  body the wrapper routes to (and torch.profiler's kernel names, when it
-  reads any).
+  body the wrapper routes to, launched once a call by the library's own
+  launch counts.
 
 Every test is ``gpu``-marked and skips without a CUDA device.  The file
 imports neither JAX nor the JAX package::
@@ -87,16 +87,17 @@ def test_generate_launches_k3_for_the_prefill_only(model):
     assert float(_teacher_forced_gap(params, cfg, spec, 100).max()) <= TF_TOL
 
 
-def _kernel_names(fn):
-    from torch.profiler import ProfilerActivity, profile
+def _bodies_launched(bodies, fn):
+    """How many times one call of ``fn`` launched each kernel body of
+    ``paged_attention.cu``, by the library's count at its launch sites
+    (``_build.body_launches``)."""
+    from torchdistpackage_tpu_torch.ops import _build
 
+    before = [_build.body_launches("paged_attention", b) for b in bodies]
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return " ".join(e.key for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    return {b: _build.body_launches("paged_attention", b) - k0
+            for b, k0 in zip(bodies, before)}
 
 
 @pytest.mark.parametrize("k,body", [(3, "paged_split_kernel"),
@@ -136,8 +137,12 @@ def test_spec_engine_k1_launches_and_body(model, k, body):
     offs = torch.tensor([20, 40], dtype=torch.int32, device="cuda")
     nsplit = pa._workspace(2, 1, 4 * (k + 1), 64, 4, "cuda")[0]
     assert (nsplit > 0) == (body == "paged_split_kernel")
-    # torch.profiler has read an empty kernel list late in a long process;
-    # when it sees kernels, the routed body must be among them
-    names = _kernel_names(lambda: pa.paged_decode_attention(
+    # the routed body runs, once, and the other one not at all (the
+    # split body with its merge)
+    bodies = ("paged_split_kernel", "paged_tc_kernel", "paged_merge_kernel")
+    got = _bodies_launched(bodies, lambda: pa.paged_decode_attention(
         q, pool, pool, tables, offs))
-    assert not names or body in names, names
+    split = body == "paged_split_kernel"
+    assert got == {"paged_split_kernel": int(split),
+                   "paged_tc_kernel": int(not split),
+                   "paged_merge_kernel": int(split)}, got

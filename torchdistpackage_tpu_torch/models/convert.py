@@ -19,7 +19,7 @@ import torch
 from ..device import resolve_device
 from ..parallel.moe import shard_experts
 from ..tools.surgery import QuantizedLinear, is_int8_weight
-from .gpt import GPTConfig
+from .gpt import GPTConfig, shard_gpt_params
 
 
 def _tensor(x, device, dtype=None) -> torch.Tensor:
@@ -35,8 +35,8 @@ def _tensor(x, device, dtype=None) -> torch.Tensor:
 
 
 def params_from_jax(np_tree: Dict[str, Any], cfg: GPTConfig,
-                    device=None, ep_rank: int = 0,
-                    ep_size: int = 1) -> Dict[str, Any]:
+                    device=None, ep_rank: int = 0, ep_size: int = 1,
+                    tp_rank: int = 0, tp_size: int = 1) -> Dict[str, Any]:
     """``np_tree``: the JAX param pytree with every leaf already turned
     into a numpy array (``jax.tree.map(np.asarray, params)`` on the JAX
     side — this module never imports JAX).  Returns the port's dict with
@@ -54,10 +54,20 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: GPTConfig,
     ``ep_size > 1`` converts only expert-parallel rank ``ep_rank``'s
     share: each expert block's stacked expert leaves cut along E to the
     rank's ``[E / ep_size, ...]`` block before they are copied (as
-    ``models.gpt_moe.shard_moe_params`` cuts a whole tree)."""
+    ``models.gpt_moe.shard_moe_params`` cuts a whole tree).
+    ``tp_size > 1`` converts only tensor-parallel rank ``tp_rank``'s
+    shard: ``models.gpt.shard_gpt_params`` cuts the numpy tree before the
+    copy (an int8 leaf the table splits raises: the reference's specs
+    shard none)."""
     dev = resolve_device(device)
     if ep_size > 1 and not cfg.moe_experts:
         raise ValueError(f"EP size {ep_size} needs an MoE config")
+    if ep_size > 1 and tp_size > 1:
+        raise NotImplementedError(
+            "EP and TP shards of one tree wait for ROADMAP queue A's 'TP "
+            "compositions in serving'")
+    if tp_size > 1:
+        np_tree = shard_gpt_params(np_tree, cfg, tp_rank, tp_size)
 
     def conv(x):
         if isinstance(x, dict):
@@ -97,3 +107,4 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: GPTConfig,
             f"param tree keys {sorted(out)} do not match the config "
             f"(expected {sorted(want)})")
     return out
+

@@ -16,6 +16,15 @@ counterpart of ``torchdistpackage_tpu/models/generate.py``.
   (:521) and :func:`beam_generate` (:635) are the decoding loops, and
   :func:`_sample` (:374) the sampler.
 
+Tensor parallelism (``tp_group``, the reference's ``axis``): each rank
+holds its shard (``models.gpt.shard_gpt_params``: ``Hkv / tp`` KV heads
+of the cache, ``V / tp`` vocabulary rows and columns), every block closes
+its row-parallel products with ``reduce_from_tp``, and the step's
+vocabulary slices are all-gathered into the full logits
+(:func:`_full_logits`) before sampling; every rank takes the group's
+rank 0's token.  ``speculative_generate`` and ``beam_generate`` take no
+group, as in the reference.
+
 Where JAX jits one ``lax.scan`` of decode steps, the port runs a Python
 loop of single-token steps on the device; positions are host integers,
 so a step reads nothing back (``speculative_generate`` reads one count a
@@ -31,10 +40,12 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
 from ..parallel.tensor_parallel.layers import (
     TransformerConfig,
+    _close_row_parallel,
     compute_qkv,
     core_attention,
     dense,
@@ -42,21 +53,31 @@ from ..parallel.tensor_parallel.layers import (
     mlp_partial,
     rope_cache,
 )
+from ..parallel.tensor_parallel.tp_utils import (
+    gather_vocab,
+    tp_size,
+)
 from .gpt import GPTConfig, gpt_head, layer_params, vocab_parallel_embed
 
 KV = Any  # a tensor, or an int8 ``(q8, scale)`` pair
 
 
 def init_kv_cache(cfg: GPTConfig, batch: int, max_len: int,
-                  quantized: bool = False, device=None) -> Dict[str, Any]:
-    """Zeroed cache ``{'k', 'v': [L, B, Hkv, max_len, hd]}`` in
-    ``cfg.dtype`` on ``device`` (default: the card), JAX :57 (serial: its
-    ``axis_size`` head split waits for "TP + SP").  ``quantized=True``:
-    each entry is an int8 ``(q8, scale [L, B, Hkv, max_len] f32)`` pair
-    with unit scales, one scale per written position-vector."""
+                  quantized: bool = False, device=None,
+                  axis_size: int = 1) -> Dict[str, Any]:
+    """Zeroed cache ``{'k', 'v': [L, B, Hkv / axis_size, max_len, hd]}``
+    in ``cfg.dtype`` on ``device`` (default: the card), JAX :57;
+    ``axis_size`` is the tensor-parallel size (whole KV heads a rank).
+    ``quantized=True``: each entry is an int8 ``(q8, scale [L, B, Hkv,
+    max_len] f32)`` pair with unit scales, one scale per written
+    position-vector."""
     device = resolve_device(device)
-    shape = (cfg.nlayers, batch, cfg.block.kv_head_count, max_len,
-             cfg.block.head_dim)
+    hkv, rem = divmod(cfg.block.kv_head_count, axis_size)
+    if rem or hkv == 0:
+        raise ValueError(
+            f"kv_heads {cfg.block.kv_head_count} not divisible by tp "
+            f"{axis_size} (whole KV heads per shard)")
+    shape = (cfg.nlayers, batch, hkv, max_len, cfg.block.head_dim)
     if quantized:
         def entry():
             return (torch.zeros(shape, dtype=torch.int8, device=device),
@@ -140,8 +161,8 @@ def _cached_attention(q: torch.Tensor, ck: KV, cv: KV, offset,
 
 def cached_block_forward(p: Dict[str, Any], x: torch.Tensor,
                          cfg: TransformerConfig, ck: KV, cv: KV, offset, *,
-                         cache_ops=None, rope=None,
-                         ffn=None) -> Tuple[torch.Tensor, KV, KV]:
+                         cache_ops=None, rope=None, ffn=None,
+                         tp_group=None) -> Tuple[torch.Tensor, KV, KV]:
     """One pre-norm block with KV caching (JAX :164): this call's k/v are
     written into the cache first, then the queries attend against it.  x
     [B, S_in, D]; returns ``(y, ck, cv)``.
@@ -155,7 +176,10 @@ def cached_block_forward(p: Dict[str, Any], x: torch.Tensor,
     -> z`` replacing the dense MLP half (``h`` the post-ln2 activation,
     ``z`` the complete FFN output) — how the MoE family plugs its expert
     layer into the same block.  The biases ``bo`` and ``b2`` are added
-    where the serial ``_close_row_parallel`` adds them."""
+    where the serial ``_close_row_parallel`` adds them.  ``tp_group``
+    (forward only): ``p`` is the rank's shard and the cache holds its
+    KV heads; each row-parallel product is summed over the group before
+    its bias is added."""
     B, S_in, _ = x.shape
     write, attend = (cache_ops if cache_ops is not None
                      else (_cache_write, _cached_attention))
@@ -169,19 +193,21 @@ def cached_block_forward(p: Dict[str, Any], x: torch.Tensor,
     else:
         out = attend(q, ck, cv, offset, window=cfg.sliding_window)
     out = out.transpose(1, 2).reshape(B, S_in, q.shape[1] * cfg.head_dim)
-    x = x + dense(out, p["attn"]["wo"], p["attn"]["bo"])
+    x = x + _close_row_parallel(dense(out, p["attn"]["wo"]),
+                                p["attn"]["bo"], tp_group, False)
     h = layer_norm(x, p["ln2"], cfg.norm_eps)
     if ffn is None:
-        z = mlp_partial(p["mlp"], h) + p["mlp"]["b2"]
+        z = _close_row_parallel(mlp_partial(p["mlp"], h), p["mlp"]["b2"],
+                                tp_group, False)
     else:
         z = ffn(p, h)
     return x + z, ck, cv
 
 
 def _embed_at(params: Dict[str, Any], tokens: torch.Tensor,
-              positions: torch.Tensor) -> torch.Tensor:
+              positions: torch.Tensor, tp_group=None) -> torch.Tensor:
     """[B, S_in] ids at the given global positions -> [B, S_in, D]."""
-    h = vocab_parallel_embed(params["tok_emb"], tokens)
+    h = vocab_parallel_embed(params["tok_emb"], tokens, tp_group)
     if "pos_emb" in params:  # learned positions; rope models skip this
         h = h + params["pos_emb"][positions]
     return h
@@ -200,36 +226,48 @@ def _rope_at(bcfg: TransformerConfig, offset: int, S_in: int, device):
                       scaling=bcfg.rope_scaling)
 
 
-def _embed(params, tokens: torch.Tensor, offset: int) -> torch.Tensor:
+def _embed(params, tokens: torch.Tensor, offset: int,
+           tp_group=None) -> torch.Tensor:
     positions = offset + torch.arange(tokens.shape[1], device=tokens.device)
-    return _embed_at(params, tokens.long(), positions)
+    return _embed_at(params, tokens.long(), positions, tp_group)
+
+
+def _head(params, h: torch.Tensor, cfg: GPTConfig, all_logits: bool,
+          tp_group=None) -> torch.Tensor:
+    """The LAST row's logits [B, V] (every row's [B, S_in, V] with
+    ``all_logits``); this rank's vocabulary slice under ``tp_group``."""
+    if all_logits:
+        return gpt_head(params, h, eps=cfg.norm_eps, tp_group=tp_group)
+    return gpt_head(params, h[:, -1:], eps=cfg.norm_eps,
+                    tp_group=tp_group)[:, 0]
 
 
 def forward_cached(params: Dict[str, Any], tokens: torch.Tensor,
                    cfg: GPTConfig, cache: Dict[str, Any], offset: int,
-                   all_logits: bool = False
+                   all_logits: bool = False, tp_group=None
                    ) -> Tuple[Dict[str, Any], torch.Tensor]:
     """Run ``tokens`` [B, S_in] (at global positions ``offset +
     arange(S_in)``) through the cached stack (JAX :239; a loop over
     ``layer_params`` where JAX scans).  The cache is written in place and
     returned with the LAST position's logits [B, V], or every position's
-    [B, S_in, V] with ``all_logits`` (the speculative verify)."""
-    h = _embed(params, tokens, offset)
+    [B, S_in, V] with ``all_logits`` (the speculative verify).  With
+    ``tp_group`` (JAX's ``axis``) ``params`` and the cache are the rank's
+    shard and the logits its vocabulary slice [..., V / tp]
+    (:func:`_full_logits` gathers them)."""
+    h = _embed(params, tokens, offset, tp_group)
     rope = _rope_at(cfg.block, offset, tokens.shape[1], tokens.device)
     for layer in range(cfg.nlayers):
         h, _, _ = cached_block_forward(
             layer_params(params, layer), h, cfg.block,
             _layer_cache(cache["k"], layer), _layer_cache(cache["v"], layer),
-            offset, rope=rope)
-    if all_logits:
-        return cache, gpt_head(params, h, eps=cfg.norm_eps)
-    return cache, gpt_head(params, h[:, -1:], eps=cfg.norm_eps)[:, 0]
+            offset, rope=rope, tp_group=tp_group)
+    return cache, _head(params, h, cfg, all_logits, tp_group)
 
 
 def forward_cached_moe(params: Dict[str, Any], tokens: torch.Tensor,
                        cfg: GPTConfig, cache: Dict[str, Any], offset: int,
                        ep_group=None, moe_dispatch: Optional[str] = None,
-                       all_logits: bool = False
+                       all_logits: bool = False, tp_group=None
                        ) -> Tuple[Dict[str, Any], torch.Tensor]:
     """:func:`forward_cached` for the MoE family (JAX :283; the block list
     of ``init_gpt_moe_params``).  Routing is exact no-drop top-k, so token
@@ -245,12 +283,20 @@ def forward_cached_moe(params: Dict[str, Any], tokens: torch.Tensor,
       exchange at the no-drop capacity ``max(cf, E / top_k)``, K7 on the
       card, token-major priority for a causal model.
 
+    - ``tp_group`` (JAX's ``axis``): attention, the embedding and the
+      head are the rank's shard (``models.gpt_moe.gpt_moe_param_specs``),
+      the router and the experts whole, so every expert layer runs on
+      every rank as it does serially.  With ``ep_group`` it waits for
+      ROADMAP queue A's "TP compositions in serving".
+
     ``all_logits`` as in :func:`forward_cached` (JAX's has none; the port
     uses it to teacher-force an MoE sequence)."""
     from ..parallel.moe import moe_forward, moe_serve_forward
     from ..serving.paged_cache import resolve_serving_dispatch
     from .gpt_moe import moe_layer_config
 
+    if tp_group is not None and ep_group is not None:
+        raise NotImplementedError(_TP_EP)
     bcfg = cfg.block
     mcfg = moe_layer_config(cfg)
     disp = resolve_serving_dispatch(
@@ -266,26 +312,40 @@ def forward_cached_moe(params: Dict[str, Any], tokens: torch.Tensor,
         return moe_forward(p["moe"], hh, mcfg, ep_group=ep_group,
                            causal=bcfg.causal)[0]
 
-    h = _embed(params, tokens, offset)
+    h = _embed(params, tokens, offset, tp_group)
     rope = _rope_at(bcfg, offset, tokens.shape[1], tokens.device)
     for layer, bp in enumerate(params["blocks"]):
         h, _, _ = cached_block_forward(
             bp, h, bcfg, _layer_cache(cache["k"], layer),
             _layer_cache(cache["v"], layer), offset, rope=rope,
-            ffn=moe_ffn if "moe" in bp else None)
-    if all_logits:
-        return cache, gpt_head(params, h, eps=cfg.norm_eps)
-    return cache, gpt_head(params, h[:, -1:], eps=cfg.norm_eps)[:, 0]
+            ffn=moe_ffn if "moe" in bp else None, tp_group=tp_group)
+    return cache, _head(params, h, cfg, all_logits, tp_group)
+
+
+_TP_EP = ("tensor parallelism with expert parallelism waits for ROADMAP "
+          "queue A's \"TP compositions in serving\"")
 
 
 def _full_logits(logits: torch.Tensor, cfg: GPTConfig, tp_group=None):
-    """Vocab-local logits -> full [..., V] (JAX :359): the identity when
-    serial.  The vocab-sharded head waits for tensor parallelism."""
+    """Vocab-local logits [..., V / tp] -> full [..., V] (JAX :359): the
+    group's slices all-gathered in rank order; the identity when
+    serial."""
+    if tp_group is None:
+        return logits
+    full = gather_vocab(logits, tp_group)
+    if full.shape[-1] != cfg.vocab_size:
+        raise ValueError(f"gathered {full.shape[-1]} logits, vocab "
+                         f"{cfg.vocab_size}")
+    return full
+
+
+def _agree(tok: torch.Tensor, tp_group) -> torch.Tensor:
+    """Every rank of the group takes rank 0's tokens (the reference's
+    ``pmax``), so the ranks feed the same next step."""
     if tp_group is not None:
-        raise NotImplementedError(
-            "tensor-parallel decoding (a vocab-sharded head) is not ported "
-            "yet (ROADMAP queue A, 'TP + SP')")
-    return logits
+        dist.broadcast(tok, src=dist.get_global_rank(tp_group, 0),
+                       group=tp_group)
+    return tok
 
 
 def _sample_filter(logits: torch.Tensor, temperature: float,
@@ -373,10 +433,14 @@ def generate(params: Dict[str, Any], prompt: torch.Tensor, cfg: GPTConfig,
     ``kv_quant``).  MoE configs run :func:`forward_cached_moe`; its
     experts sharded over ``ep_group`` with one (the port's ``ep_axis``).
     ``device``: where the cache and the tokens live (default: the card;
-    ``params`` must be there); ``tp_group`` raises (queue A, "TP +
-    SP")."""
+    ``params`` must be there).  ``tp_group`` (JAX's ``axis``): ``params``
+    is the rank's shard (``shard_gpt_params``), the cache holds ``Hkv /
+    tp`` heads, and each step gathers the full logits and takes the
+    group's rank 0's token, so every rank returns the same tokens."""
     if ep_group is not None and not cfg.moe_experts:
         raise ValueError("ep_group is only meaningful for MoE configs")
+    if ep_group is not None and tp_group is not None:
+        raise NotImplementedError(_TP_EP)
     B, P = prompt.shape
     total = P + max_new_tokens
     _check_decode(cfg, max_new_tokens, total)
@@ -384,20 +448,26 @@ def generate(params: Dict[str, Any], prompt: torch.Tensor, cfg: GPTConfig,
     if cfg.moe_experts:
         def fwd(tok, cache, off):
             return forward_cached_moe(params, tok, cfg, cache, off,
-                                      ep_group=ep_group)
+                                      ep_group=ep_group, tp_group=tp_group)
     else:
         def fwd(tok, cache, off):
-            return forward_cached(params, tok, cfg, cache, off)
-    cache = init_kv_cache(cfg, B, total, quantized=kv_quant, device=dev)
+            return forward_cached(params, tok, cfg, cache, off,
+                                  tp_group=tp_group)
+
+    def sample(logits):
+        return _agree(_sample(_full_logits(logits, cfg, tp_group), generator,
+                              temperature, top_k, top_p), tp_group)
+
+    tp = 1 if tp_group is None else tp_size(tp_group)
+    cache = init_kv_cache(cfg, B, total, quantized=kv_quant, device=dev,
+                          axis_size=tp)
     tokens = torch.zeros(B, total, dtype=torch.long, device=dev)
     tokens[:, :P] = prompt.to(dev)
     cache, logits = fwd(tokens[:, :P], cache, 0)
-    tokens[:, P] = _sample(_full_logits(logits, cfg, tp_group), generator,
-                           temperature, top_k, top_p)
+    tokens[:, P] = sample(logits)
     for pos in range(P, total - 1):  # the position of the token fed
         cache, logits = fwd(tokens[:, pos:pos + 1], cache, pos)
-        tokens[:, pos + 1] = _sample(_full_logits(logits, cfg, tp_group),
-                                     generator, temperature, top_k, top_p)
+        tokens[:, pos + 1] = sample(logits)
     return tokens
 
 

@@ -4,10 +4,14 @@ counterpart of ``torchdistpackage_tpu/models/gpt.py`` (serial branch).
 Parameters are a plain dict with the reference's tree: ``tok_emb`` [V, D],
 ``pos_emb`` [max_seq, D] (learned positions only), ``blocks`` with every
 leaf stacked over the layer dim ``[L, ...]``, ``ln_f`` and ``head``
-[D, V].  The serial training path is here: :func:`gpt_embed`,
+[D, V].  The training path is here: :func:`gpt_embed`,
 :func:`gpt_hidden`, :func:`gpt_forward`, the cross-entropy
 (:func:`vocab_parallel_xent`, :func:`streamed_head_loss`) and
-:func:`gpt_loss`; the parallel paths are queued (ROADMAP queue A).
+:func:`gpt_loss`, serial or over a tensor-parallel group (``tp_group``,
+optionally sequence parallel, ``sp``): each rank then holds its shard
+(:func:`shard_gpt_params`), the embedding and the head split over the
+vocabulary, and the loss closes the vocabulary split with two small
+collectives.
 """
 
 from __future__ import annotations
@@ -25,11 +29,22 @@ from ..parallel.tensor_parallel.layers import (
     RematMode,
     TransformerConfig,
     _normal,
+    _open_column_parallel,
     dense,
     init_block_params,
     init_norm_params,
     layer_norm,
+    param_specs,
     scan_blocks,
+    shard_params,
+)
+from ..parallel.tensor_parallel.tp_utils import (
+    copy_to_tp,
+    gather_from_sp,
+    reduce_from_tp,
+    split_to_sp,
+    tp_rank,
+    vocab_max,
 )
 
 Params = Dict[str, Any]
@@ -58,6 +73,9 @@ class GPTConfig:
     ffn_hidden: Optional[int] = None
     norm_eps: float = 1e-5
     sliding_window: Optional[int] = None
+    # sequence parallelism's rings (TransformerConfig.collective_matmul)
+    collective_matmul: bool = False
+    cm_min_bytes: int = 1 << 20
     # Mixture-of-Experts (0 = dense model).  With ``moe_experts > 0`` every
     # ``moe_every``-th block's FFN is an expert layer (``models/gpt_moe.py``
     # builds the per-block list); serving runs it (``paged_forward_moe``),
@@ -103,7 +121,9 @@ class GPTConfig:
             kv_heads=self.kv_heads, rope=self.pos == "rope",
             rope_theta=self.rope_theta, rope_scaling=self.rope_scaling,
             norm=self.norm, act=self.act, ffn_hidden=self.ffn_hidden,
-            norm_eps=self.norm_eps, sliding_window=self.sliding_window)
+            norm_eps=self.norm_eps, sliding_window=self.sliding_window,
+            collective_matmul=self.collective_matmul,
+            cm_min_bytes=self.cm_min_bytes)
 
     def num_params(self) -> int:
         D, V, L = self.dim, self.vocab_size, self.nlayers
@@ -174,33 +194,65 @@ def mixtral_8x7b_config(nlayers: int = 32) -> GPTConfig:
 # ------------------------------------------------------------------ model
 
 
-def vocab_parallel_embed(tok_emb: torch.Tensor,
-                         tokens: torch.Tensor) -> torch.Tensor:
-    """Token lookup [B, S] -> [B, S, D] (the serial branch; the
-    vocab-sharded lookup waits for tensor parallelism)."""
-    return tok_emb[tokens]
+def vocab_parallel_embed(tok_emb: torch.Tensor, tokens: torch.Tensor,
+                         tp_group=None) -> torch.Tensor:
+    """Token lookup [B, S] -> [B, S, D].  With ``tp_group``, ``tok_emb``
+    is this rank's vocabulary rows ``[V / tp, D]``: ids outside them
+    contribute zeros and ``reduce_from_tp`` sums the shards (the table's
+    gradient stays in the rank's own rows)."""
+    if tp_group is None:
+        return tok_emb[tokens]
+    v_loc = tok_emb.shape[0]
+    local = tokens - tp_rank(tp_group) * v_loc
+    valid = (local >= 0) & (local < v_loc)
+    emb = tok_emb[torch.where(valid, local, 0)]
+    emb = torch.where(valid[..., None], emb,
+                      torch.zeros((), dtype=emb.dtype, device=emb.device))
+    return reduce_from_tp(emb, tp_group)
 
 
-def gpt_head(params: Params, h: torch.Tensor, eps: float = 1e-5
-             ) -> torch.Tensor:
-    """Final norm + LM head: [B, S, D] -> logits [B, S, V]."""
-    return dense(layer_norm(h, params["ln_f"], eps), params["head"])
+def gpt_head(params: Params, h: torch.Tensor, eps: float = 1e-5,
+             tp_group=None, sp: bool = False) -> torch.Tensor:
+    """Final norm + LM head: [B, S, D] -> logits [B, S, V], or this
+    rank's vocabulary columns [B, S, V / tp] with ``tp_group`` (the
+    normed rows gathered first under ``sp``)."""
+    h = layer_norm(h, params["ln_f"], eps)
+    return dense(_open_column_parallel(h, tp_group, sp), params["head"])
 
 
-def vocab_parallel_xent(logits: torch.Tensor,
-                        targets: torch.Tensor) -> torch.Tensor:
+def vocab_parallel_xent(logits: torch.Tensor, targets: torch.Tensor,
+                        tp_group=None) -> torch.Tensor:
     """Mean token cross-entropy of ``logits`` [..., V] against int
-    ``targets`` [...] (the serial branch: ``mean(logsumexp - target
-    logit)``).  The log-sum-exp runs in f32 whatever the logits' dtype."""
-    V = logits.shape[-1]
-    return F.cross_entropy(logits.reshape(-1, V).float(),
-                           targets.reshape(-1))
+    ``targets`` [...]: ``mean(logsumexp - target logit)`` in f32 whatever
+    the logits' dtype.  With ``tp_group`` the logits are this rank's
+    vocabulary columns [..., V / tp] and the full softmax is never
+    formed: the max shift is an all-reduce MAX outside autograd (it
+    cancels in the gradient), and the sum of exponentials and the target
+    logit (kept by the rank that holds the target) close in one
+    ``reduce_from_tp``."""
+    if tp_group is None:
+        V = logits.shape[-1]
+        return F.cross_entropy(logits.reshape(-1, V).float(),
+                               targets.reshape(-1))
+    x = logits.float()
+    v_loc = x.shape[-1]
+    m = vocab_max(x.detach().amax(dim=-1), tp_group)
+    local = targets.long() - tp_rank(tp_group) * v_loc
+    valid = (local >= 0) & (local < v_loc)
+    tl = x.gather(-1, torch.where(valid, local, 0)[..., None])[..., 0]
+    zt = reduce_from_tp(torch.stack([
+        torch.exp(x - m[..., None]).sum(dim=-1),
+        torch.where(valid, tl, torch.zeros((), device=x.device))]),
+        tp_group)
+    return (torch.log(zt[0]) + m - zt[1]).mean()
 
 
-def gpt_embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    """[B, S] ids -> [B, S, D]: the token lookup, plus the learned
-    position table when the config has one (rope enters in attention)."""
-    h = vocab_parallel_embed(params["tok_emb"], tokens)
+def gpt_embed(params: Params, tokens: torch.Tensor,
+              tp_group=None) -> torch.Tensor:
+    """[B, S] ids -> [B, S, D]: the token lookup (vocab-parallel with
+    ``tp_group``), plus the learned position table when the config has
+    one (rope enters in attention)."""
+    h = vocab_parallel_embed(params["tok_emb"], tokens, tp_group)
     if "pos_emb" not in params:
         return h
     return h + params["pos_emb"][:tokens.shape[-1]]
@@ -208,35 +260,52 @@ def gpt_embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
 
 def gpt_hidden(params: Params, tokens: torch.Tensor, cfg: GPTConfig,
                remat: RematMode = False,
-               dropout_key: Optional[int] = None) -> torch.Tensor:
+               dropout_key: Optional[int] = None, tp_group=None,
+               sp: bool = False) -> torch.Tensor:
     """tokens [B, S] -> hidden after the block stack [B, S, D] (before
-    the final norm).  ``remat``: False | True | 'flash' | 'flash_offload'
-    — see :func:`..parallel.tensor_parallel.layers.scan_blocks`.
+    the final norm; this rank's rows [B, S / tp, D] under ``sp``).
+    ``remat``: False | True | 'flash' | 'flash_offload' — see
+    :func:`..parallel.tensor_parallel.layers.scan_blocks`.
     ``dropout_key`` turns on residual dropout at ``cfg.dropout_rate``;
     under data parallelism derive it with
-    ``utils.random.axis_unique_key(key, 'data')``."""
-    h = gpt_embed(params, tokens)
+    ``utils.random.axis_unique_key(key, 'data')`` (tensor ranks then
+    agree).  ``tp_group`` / ``sp``: tensor / sequence parallelism over
+    this rank's shard of the parameters."""
+    h = gpt_embed(params, tokens, tp_group)
+    if tp_group is not None and sp:
+        h = split_to_sp(h, tp_group)
     return scan_blocks(params["blocks"], h, cfg.block, remat=remat,
-                       dropout_key=dropout_key)
+                       dropout_key=dropout_key, tp_group=tp_group, sp=sp)
 
 
 def gpt_forward(params: Params, tokens: torch.Tensor, cfg: GPTConfig,
                 remat: RematMode = False,
-                dropout_key: Optional[int] = None) -> torch.Tensor:
-    """tokens [B, S] -> logits [B, S, V]."""
-    h = gpt_hidden(params, tokens, cfg, remat=remat, dropout_key=dropout_key)
-    return gpt_head(params, h, eps=cfg.norm_eps)
+                dropout_key: Optional[int] = None, tp_group=None,
+                sp: bool = False) -> torch.Tensor:
+    """tokens [B, S] -> logits [B, S, V] (this rank's [B, S, V / tp]
+    with ``tp_group``)."""
+    h = gpt_hidden(params, tokens, cfg, remat=remat, dropout_key=dropout_key,
+                   tp_group=tp_group, sp=sp)
+    return gpt_head(params, h, eps=cfg.norm_eps, tp_group=tp_group, sp=sp)
 
 
 def streamed_head_loss(params: Params, h: torch.Tensor,
                        targets: torch.Tensor, chunk: int = 256,
-                       eps: float = 1e-5) -> torch.Tensor:
+                       eps: float = 1e-5, tp_group=None,
+                       sp: bool = False) -> torch.Tensor:
     """Final norm + head + cross-entropy over sequence chunks of
     ``chunk``: each [B, chunk, V] slab is formed, reduced and dropped,
     and recomputed in the backward (checkpointed per chunk), so the full
     [B, S, V] logits never exist.  Equal chunks: the mean of chunk means
-    is the token mean."""
+    is the token mean.  ``h`` is the whole sequence; with ``tp_group``
+    each slab is this rank's vocabulary columns.  ``sp``: the caller
+    gathered ``h`` from sequence shards, and that gather's backward (a
+    reduce-scatter) sums the partial cotangent, so ``copy_to_tp``'s
+    all-reduce is left out (``ln_f``'s grad is then partial, summed once
+    by the train step's SP sum)."""
     h = layer_norm(h, params["ln_f"], eps)
+    if tp_group is not None and not sp:
+        h = copy_to_tp(h, tp_group)
     S = h.shape[1]
     if S % chunk:
         raise ValueError(
@@ -245,7 +314,7 @@ def streamed_head_loss(params: Params, h: torch.Tensor,
             f"opted out of")
 
     def body(hh, tt):
-        return vocab_parallel_xent(dense(hh, params["head"]), tt)
+        return vocab_parallel_xent(dense(hh, params["head"]), tt, tp_group)
 
     n = S // chunk
     total = h.new_zeros((), dtype=torch.float32)
@@ -259,18 +328,26 @@ def streamed_head_loss(params: Params, h: torch.Tensor,
 
 def gpt_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: GPTConfig,
              remat: RematMode = False, dropout_key: Optional[int] = None,
-             xent_chunk: Optional[int] = None) -> torch.Tensor:
+             xent_chunk: Optional[int] = None, tp_group=None,
+             sp: bool = False) -> torch.Tensor:
     """Mean next-token cross-entropy.  ``batch``: {'tokens': [B, S],
     'targets': [B, S]}.  ``xent_chunk`` streams the head and the loss
-    over sequence chunks of that size (:func:`streamed_head_loss`)."""
+    over sequence chunks of that size (:func:`streamed_head_loss`).
+    ``tp_group`` / ``sp``: tensor / sequence parallelism, every rank of
+    the group on the same batch with its shard of the parameters; the
+    loss comes out the same on every rank of the group."""
     if xent_chunk is not None:
         h = gpt_hidden(params, batch["tokens"], cfg, remat=remat,
-                       dropout_key=dropout_key)
+                       dropout_key=dropout_key, tp_group=tp_group, sp=sp)
+        if tp_group is not None and sp:
+            h = gather_from_sp(h, tp_group)
         return streamed_head_loss(params, h, batch["targets"],
-                                  chunk=xent_chunk, eps=cfg.norm_eps)
+                                  chunk=xent_chunk, eps=cfg.norm_eps,
+                                  tp_group=tp_group,
+                                  sp=tp_group is not None and sp)
     logits = gpt_forward(params, batch["tokens"], cfg, remat=remat,
-                         dropout_key=dropout_key)
-    return vocab_parallel_xent(logits, batch["targets"])
+                         dropout_key=dropout_key, tp_group=tp_group, sp=sp)
+    return vocab_parallel_xent(logits, batch["targets"], tp_group)
 
 
 def init_gpt_params(cfg: GPTConfig, gen: Optional[torch.Generator] = None,
@@ -320,3 +397,32 @@ def _zip_apply(fn, a, b) -> None:
 def layer_params(params: Params, layer: int) -> Params:
     """Layer ``layer``'s block params as views of the stacked leaves."""
     return _map(lambda a: a[layer], params["blocks"])
+
+
+# ------------------------------------------------------------------ specs
+
+
+def gpt_param_specs(params: Params) -> Params:
+    """The tensor-parallel spec tree of a GPT param tree (JAX :747, the
+    placement table ``layers.TP_SPLIT_DIMS``): ``tok_emb`` split on its
+    vocabulary rows, ``head`` on its vocabulary columns, the blocks'
+    column- and row-parallel leaves on their heads / hidden units;
+    norms, row biases, ``pos_emb``, and an MoE block's router and
+    experts replicated."""
+    return param_specs(params)
+
+
+def shard_gpt_params(params: Params, cfg: GPTConfig, rank: int,
+                     size: int) -> Params:
+    """Tensor-parallel rank ``rank`` of ``size``'s shard of a GPT param
+    tree (dense or MoE): views of ``params`` cut by
+    :func:`gpt_param_specs`.  The vocabulary and the KV heads must divide
+    by ``size`` (whole KV heads a shard)."""
+    if cfg.vocab_size % size:
+        raise ValueError(f"vocab_size {cfg.vocab_size} not divisible by tp "
+                         f"{size} (whole vocabulary slices per shard)")
+    if cfg.block.kv_head_count % size:
+        raise ValueError(
+            f"kv_heads {cfg.block.kv_head_count} not divisible by tp "
+            f"{size} (whole KV heads per shard)")
+    return shard_params(params, gpt_param_specs(params), rank, size)

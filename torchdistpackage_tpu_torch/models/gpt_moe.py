@@ -1,6 +1,7 @@
 """The MoE GPT family — the serving subset of
 ``torchdistpackage_tpu/models/gpt_moe.py``: :func:`moe_layer_config`
-(:69), :func:`is_moe_block` (:86) and :func:`init_gpt_moe_params` (:308).
+(:69), :func:`is_moe_block` (:86), :func:`init_gpt_moe_params` (:308)
+and :func:`gpt_moe_param_specs` (:545).
 
 Every ``cfg.moe_every``-th block's FFN is an expert layer.  Blocks are a
 heterogeneous Python list of per-block param dicts — dense blocks carry
@@ -25,6 +26,7 @@ from ..parallel.tensor_parallel.layers import (
     _normal,
     init_block_params,
     init_norm_params,
+    param_specs,
 )
 
 Params = Dict[str, Any]
@@ -90,3 +92,13 @@ def shard_moe_params(params: Params, cfg, rank: int, size: int) -> Params:
     blocks = [dict(bp, moe=shard_experts(bp["moe"], rank, size))
               if "moe" in bp else bp for bp in params["blocks"]]
     return dict(params, blocks=blocks)
+
+
+def gpt_moe_param_specs(params: Params) -> List[Any]:
+    """The tensor-parallel spec tree of an MoE param tree (JAX :545 with
+    ``tp_axis`` and no ``ep_axis``): attention, the embedding and the head
+    split as in the dense family, the router and the experts replicated
+    — the MoE FFN runs whole on every tensor rank (K6 on the card).
+    Expert parallelism beside tensor parallelism waits for ROADMAP queue
+    A's "TP compositions in serving"."""
+    return param_specs(params)

@@ -124,3 +124,14 @@ def variant(name: str, defines: Sequence[str]) -> Iterator[ctypes.CDLL]:
                 _LIBS.pop(name, None)
             else:
                 _LIBS[name] = saved
+
+
+def body_launches(name: str, body: str) -> int:
+    """Launches of the kernel body ``body`` (``"paged_split_kernel"``)
+    that the library of ``csrc/<name>.cu`` the wrappers use now (a
+    :func:`variant` inside one) has launched in this process: a count kept
+    at each launch site (``csrc/launch_counts.cuh``), the proof of which
+    body a call ran."""
+    fn = load(name).tdp_body_launches
+    fn.argtypes, fn.restype = [ctypes.c_char_p], ctypes.c_ulonglong
+    return int(fn(body.encode()))

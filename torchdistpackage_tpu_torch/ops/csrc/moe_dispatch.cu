@@ -125,6 +125,8 @@
 
 #include "hopper.cuh"
 
+#include "launch_counts.cuh"
+
 namespace {
 
 constexpr int NWARPS = 4;
@@ -525,6 +527,7 @@ cudaError_t launch(const void* x, const void* idx, const void* comb,
       static_cast<int>(G::SMEM));
   if (err != cudaSuccess) return err;
   const dim3 grid((C + BM - 1) / BM, F / BF, E);
+  TDP_NOTE("moe_ffn_kernel");
   kernel<<<grid, NTHREADS, G::SMEM, st>>>(
       static_cast<const T*>(x), static_cast<const int*>(idx),
       static_cast<const float*>(comb), static_cast<const int*>(dst),
@@ -547,6 +550,7 @@ cudaError_t launch_int8(const void* x, const void* idx, const void* comb,
       static_cast<int>(G::SMEM));
   if (err != cudaSuccess) return err;
   const dim3 grid((C + BM - 1) / BM, F / BF, E);
+  TDP_NOTE("moe_ffn_int8_kernel");
   kernel<<<grid, NTHREADS, G::SMEM, st>>>(
       static_cast<const T*>(x), static_cast<const int*>(idx),
       static_cast<const float*>(comb), static_cast<const int*>(dst),
@@ -600,6 +604,7 @@ cudaError_t launch_expert(const void* x, const void* w1, const void* s1,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(Gc::SMEM));
     if (err != cudaSuccess) return err;
+    TDP_NOTE("expert_ffn_int8_kernel");
     kernel<<<grid, NTHREADS, Gc::SMEM, st>>>(
         static_cast<const T*>(x), static_cast<const int8_t*>(w1),
         static_cast<const float*>(s1), static_cast<const T*>(b1),
@@ -611,6 +616,7 @@ cudaError_t launch_expert(const void* x, const void* w1, const void* s1,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(Gc::SMEM));
     if (err != cudaSuccess) return err;
+    TDP_NOTE("expert_ffn_kernel");
     kernel<<<grid, NTHREADS, Gc::SMEM, st>>>(
         static_cast<const T*>(x), static_cast<const T*>(w1),
         static_cast<const T*>(b1), static_cast<const T*>(w2),
@@ -1152,11 +1158,13 @@ cudaError_t launch_expert_wgmma(const void* x, const void* w1,
   if (err == cudaSuccess) err = allow_smem(down, Down::SMEM);
   if (err != cudaSuccess) return err;
   const int mt = (G + FFN_BM - 1) / FFN_BM;
+  TDP_NOTE("expert_ffn_up_wgmma_kernel");
   up<<<dim3(mt, (F + Up::N - 1) / Up::N, E), Up::THREADS, Up::SMEM, st>>>(
       tx, tw1, static_cast<const float*>(s1), static_cast<const BF16*>(b1),
       static_cast<BF16*>(h), G, D, F);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  TDP_NOTE("expert_ffn_down_wgmma_kernel");
   down<<<dim3(mt, (D + Down::N - 1) / Down::N, E), Down::THREADS, Down::SMEM,
          st>>>(th, tw2, static_cast<const float*>(s2),
                static_cast<const BF16*>(b2), static_cast<BF16*>(y), G, D, F);
@@ -1189,11 +1197,13 @@ cudaError_t launch_moe_wgmma(const SlotMaps& sm, const void* w1,
                                                         Up::N);
   const long long i2 = static_cast<long long>(n_max) * ((D + Down::N - 1) /
                                                         Down::N);
+  TDP_NOTE("moe_ffn_up_wgmma_kernel");
   up<<<static_cast<int>(i1 < sms ? i1 : sms), Up::THREADS, Up::SMEM, st>>>(
       tw1, static_cast<const float*>(s1), static_cast<const BF16*>(b1),
       static_cast<BF16*>(h), D, F, sm);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  TDP_NOTE("moe_ffn_down_wgmma_kernel");
   down<<<static_cast<int>(i2 < sms ? i2 : sms), Down::THREADS, Down::SMEM,
          st>>>(th, tw2, static_cast<const float*>(s2),
                static_cast<const BF16*>(b2), D, F, sm);
@@ -1924,15 +1934,18 @@ cudaError_t launch_expert_decode(const void* x, const void* w1,
   cudaError_t err = allow_smem(up, Up::SMEM);
   if (err == cudaSuccess) err = allow_smem(down, Down::SMEM);
   if (err != cudaSuccess) return err;
+  TDP_NOTE("expert_ffn_up_decode_kernel");
   up<<<grid1, Up::THREADS, Up::SMEM, st>>>(
       tx, tw1, static_cast<const float*>(s1), static_cast<const BF16*>(b1),
       static_cast<BF16*>(h), E, G, D, F);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  TDP_NOTE("expert_ffn_down_decode_kernel");
   down<<<grid2, Down::THREADS, Down::SMEM, st>>>(
       th, tw2, static_cast<float*>(part), E, G, D, F, segs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  TDP_NOTE("expert_ffn_merge_kernel");
   expert_ffn_merge_kernel<Q><<<merge_grid(static_cast<long long>(E) * G, D),
                                MERGE_THREADS, 0, st>>>(
       static_cast<const float*>(part), static_cast<const float*>(s2),
@@ -1985,15 +1998,18 @@ cudaError_t launch_moe_decode(const SlotMaps& sm, const void* w1,
   cudaError_t err = allow_smem(up, Up::SMEM);
   if (err == cudaSuccess) err = allow_smem(down, Down::SMEM);
   if (err != cudaSuccess) return err;
+  TDP_NOTE("moe_ffn_up_decode_kernel");
   up<<<grid1, Up::THREADS, Up::SMEM, st>>>(
       tw1, static_cast<const float*>(s1), static_cast<const BF16*>(b1),
       static_cast<BF16*>(h), D, F, sm);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  TDP_NOTE("moe_ffn_down_decode_kernel");
   down<<<grid2, Down::THREADS, Down::SMEM, st>>>(
       th, tw2, static_cast<float*>(part), D, F, segs, sm);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  TDP_NOTE("moe_ffn_merge_kernel");
   moe_ffn_merge_kernel<Q><<<merge_grid(T, D), MERGE_THREADS, 0, st>>>(
       static_cast<const float*>(part), sm.comb, sm.dst, sm.offs,
       static_cast<const float*>(s2), static_cast<const BF16*>(b2), sm.y, D,
@@ -2247,6 +2263,7 @@ extern "C" int tdp_moe_tiles(const void* comb, void* tiles, void* offs,
                              int E, int C, int rows, void* stream) {
   if (E < 1 || C < 1 || rows < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  TDP_NOTE("moe_tiles_kernel");
   moe_tiles_kernel<<<1, TILES_THREADS, 0,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(comb), static_cast<int*>(tiles),

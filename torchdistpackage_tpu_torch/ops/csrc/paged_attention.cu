@@ -112,6 +112,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "launch_counts.cuh"
+
 // A check's variants of this file plant one fault each (1: one split's
 // partial dropped by the merge; 2: a split boundary one block late; 3:
 // K2's carry seeded in every split instead of once in the merge; 4: the
@@ -1415,11 +1417,13 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
       auto kernel = paged_split_kernel<TAG, HD, CARRY>;
       const size_t smem = Dec<HD>::smem(a);
       if ((err = set_smem(kernel, smem)) != cudaSuccess) return err;
+      TDP_NOTE("paged_split_kernel");
       kernel<<<grid, NTHREADS, smem, stream>>>(a);
     } else {
       auto kernel = paged_walk_kernel<TAG, HD, CARRY>;
       const size_t smem = walk_smem_bytes<TAG, HD>();
       if ((err = set_smem(kernel, smem)) != cudaSuccess) return err;
+      TDP_NOTE("paged_walk_kernel");
       kernel<<<grid, NTHREADS, smem, stream>>>(a);
     }
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -1427,6 +1431,7 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
     auto merge = paged_merge_kernel<TAG, HD, CARRY>;
     if (msmem > 48 * 1024 && (err = set_smem(merge, msmem)) != cudaSuccess)
       return err;  // above the default only for a very large nsplit
+    TDP_NOTE("paged_merge_kernel");
     merge<<<dim3(bh, a.R), HD, msmem, stream>>>(a);
     return cudaGetLastError();
   }
@@ -1434,6 +1439,7 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
     auto kernel = paged_tc_kernel<TAG, HD, CARRY>;
     if ((err = set_smem(kernel, Tc<HD>::SMEM)) != cudaSuccess) return err;
     const dim3 grid(bh, (a.R + Tc<HD>::BM - 1) / Tc<HD>::BM);
+    TDP_NOTE("paged_tc_kernel");
     kernel<<<grid, NTHREADS, Tc<HD>::SMEM, stream>>>(a);
   } else {  // f32 and int8 prefill rows: the walk's row mode
     Args rows = a;
@@ -1442,6 +1448,7 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
     const size_t smem = walk_smem_bytes<TAG, HD>();
     if ((err = set_smem(kernel, smem)) != cudaSuccess) return err;
     const dim3 grid(bh, (a.R + ROWS - 1) / ROWS);
+    TDP_NOTE("paged_walk_kernel");
     kernel<<<grid, NTHREADS, smem, stream>>>(rows);
   }
   return cudaGetLastError();

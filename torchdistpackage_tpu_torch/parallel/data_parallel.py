@@ -26,6 +26,16 @@ into its row of the leaf's ``.grad`` before the optimizer.  Leaves
 that are not stacked (the embeddings, ``ln_f``, the head) are bucketed
 whole, by a post-accumulate hook.
 
+Tensor parallelism composes with both steps: given the tensor group's
+spec tree (``models.gpt_param_specs``) each rank trains its shard, AdamW
+elementwise on it as on the whole leaf; under sequence parallelism the
+gradients of the leaves the specs mark ``PARTIAL_UNDER_SP`` (norms and
+row-parallel biases, which see only the rank's sequence rows) are
+summed over the tensor group in the step — by :func:`make_train_step`
+after the backward, by :class:`DataParallel` in the same buckets as the
+data reduction (the bucket's group spans the data and tensor axes) —
+and the gradient norm sums the split leaves' squares over the group.
+
 The optimizer is optax's ``adamw`` as ``torch.optim.AdamW``:
 :func:`adamw` keeps optax's defaults (betas 0.9 / 0.999, eps 1e-8,
 weight decay 1e-4 on every leaf — torch's own default is 1e-2), and the
@@ -43,12 +53,12 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
 import torch
 import torch.distributed as dist
 
-from ..dist.topology import DATA_AXIS, ParallelContext, tpc
+from ..dist.topology import DATA_AXIS, TENSOR_AXIS, ParallelContext, tpc
 from ..obs.numerics import global_grad_norm, tree_leaves
 from ..utils.data import microbatch
 from ..utils.data import shard_batch as _shard_batch
 from ..utils.partition import named_leaves
-from .tensor_parallel.layers import grad_taps
+from .tensor_parallel.layers import PARTIAL_UNDER_SP, grad_taps, spec_pairs
 
 AxisName = Union[str, Tuple[str, ...]]
 
@@ -80,35 +90,93 @@ def adamw(lr: float = 3e-4) -> AdamW:
     return AdamW(lr=lr)
 
 
+@dataclasses.dataclass(frozen=True)
+class _TP:
+    """A step's tensor parallelism: the group, each leaf's spec (aligned
+    with ``tree_leaves(params)``) and whether SP is on."""
+
+    group: Any
+    specs: Tuple[Any, ...]
+    sp: bool
+
+    def split(self, i: int) -> bool:
+        return isinstance(self.specs[i], int)
+
+
+def _tp_of(group, params, specs, sp: bool) -> Optional[_TP]:
+    if specs is None:
+        if sp:
+            raise ValueError("sp needs the tensor group's param_specs")
+        return None
+    return _TP(group, tuple(s for _, s in spec_pairs(params, specs)), sp)
+
+
+def _norms(tensors: List[torch.Tensor], tp: _TP) -> torch.Tensor:
+    """[sum of squares, non-finite count] of ``tensors`` (f64; each sum
+    of squares formed in f32, as ``global_grad_norm``), the split leaves'
+    shares summed over the tensor group."""
+    def part(ts):
+        out = torch.zeros(2, dtype=torch.float64, device=tensors[0].device)
+        for t in ts:
+            out += torch.stack([torch.sum(torch.square(t.float())).double(),
+                                (~torch.isfinite(t)).sum().double()])
+        return out
+    split = part([t for i, t in enumerate(tensors) if tp.split(i)])
+    dist.all_reduce(split, group=tp.group)
+    return split + part([t for i, t in enumerate(tensors)
+                         if not tp.split(i)])
+
+
 def _update(params, opt_state: torch.optim.AdamW, loss: torch.Tensor,
-            numerics: bool):
+            numerics: bool, tp: Optional[_TP] = None):
     """The step's tail once every leaf's ``.grad`` is final: the global
-    gradient norm (or the numerics dict) and one AdamW update."""
-    grads = [p.grad for p in tree_leaves(params)]
+    gradient norm (or the numerics dict) and one AdamW update.  Under
+    tensor parallelism the norms are the whole model's: the split
+    leaves' squares summed over the tensor group."""
+    leaves = list(tree_leaves(params))
+    grads = [p.grad for p in leaves]
     if any(g is None for g in grads):
         # AdamW would skip the leaf, weight decay included, where
         # optax decays every leaf
         raise RuntimeError("a parameter leaf got no gradient")
-    gnorm = global_grad_norm(grads)
-    if numerics:
-        with torch.no_grad():
-            stats = {
-                "grad_norm": gnorm,
-                "param_norm": global_grad_norm(
-                    [p.detach() for p in tree_leaves(params)]),
-                "nonfinite_grads": sum(
-                    (~torch.isfinite(g)).sum() for g in grads),
-            }
+    with torch.no_grad():
+        if tp is None:
+            gnorm = global_grad_norm(grads)
+            if numerics:
+                stats = {
+                    "grad_norm": gnorm,
+                    "param_norm": global_grad_norm(
+                        [p.detach() for p in leaves]),
+                    "nonfinite_grads": sum(
+                        (~torch.isfinite(g)).sum() for g in grads),
+                }
+        else:
+            g = _norms(grads, tp)
+            gnorm = torch.sqrt(g[0]).float()
+            if numerics:
+                stats = {"grad_norm": gnorm,
+                         "param_norm": torch.sqrt(_norms(
+                             [p.detach() for p in leaves], tp)[0]).float(),
+                         "nonfinite_grads": g[1].long()}
     opt_state.step()
     return params, opt_state, loss.detach(), stats if numerics else gnorm
 
 
 def make_train_step(loss_fn: Callable[[Dict[str, Any], Dict[str, Any]],
                                       torch.Tensor],
-                    optimizer: AdamW, numerics: bool = False):
+                    optimizer: AdamW, numerics: bool = False,
+                    param_specs: Any = None, sp: bool = False,
+                    tp_group=None):
     """``step(params, opt_state, batch) -> (params, opt_state, loss,
     gnorm)``: the loss and its gradients by autograd, the global gradient
     norm, one AdamW update.  ``opt_state`` is ``optimizer.init(params)``.
+
+    Tensor parallelism: ``params`` is this rank's shard, ``param_specs``
+    its spec tree (``models.gpt_param_specs``), ``tp_group`` the tensor
+    group (default ``tpc``'s ``'tensor'`` group) and ``loss_fn`` runs
+    with that group.  ``sp=True``: the gradients of the leaves the specs
+    mark ``PARTIAL_UNDER_SP`` are summed over the group after the
+    backward.  The loss is the same on every rank of the group.
 
     Unlike the reference's functional step, the update is in place: the
     returned ``params`` is the same dict, its leaves updated, and the
@@ -119,14 +187,25 @@ def make_train_step(loss_fn: Callable[[Dict[str, Any], Dict[str, Any]],
     if not isinstance(optimizer, AdamW):
         raise TypeError(
             f"optimizer must be the port's adamw(), got {type(optimizer)}")
+    if param_specs is not None and tp_group is None:
+        tp_group = tpc.get_group(TENSOR_AXIS)
 
     def step(params: Dict[str, Any], opt_state: torch.optim.AdamW,
              batch: Dict[str, Any]) -> Tuple[Dict[str, Any], Any,
                                              torch.Tensor, Any]:
+        tp = _tp_of(tp_group, params, param_specs, sp)
         opt_state.zero_grad(set_to_none=True)
         loss = loss_fn(params, batch)
         loss.backward()
-        return _update(params, opt_state, loss, numerics)
+        if tp is not None and sp:
+            buckets = _Buckets(lambda axes: tp_group, BUCKET_CAP_MB * 2**20)
+            for i, p in enumerate(tree_leaves(params)):
+                if tp.specs[i] == PARTIAL_UNDER_SP:
+                    buckets.add(p, p.grad, _Plan((TENSOR_AXIS,), 1.0))
+            buckets.flush()
+            for p, red in buckets.finish():
+                p.grad.copy_(red)
+        return _update(params, opt_state, loss, numerics, tp)
 
     return step
 
@@ -336,19 +415,34 @@ def local_value_and_grad(loss_fn: Callable[[Any, Any], torch.Tensor],
     return loss * inv, _tree_map(lambda g: g * inv, grads)
 
 
+#: the queue-A items that the model axes besides ``tensor`` wait for
+_MODEL_AXIS_ITEMS = {"pipe": "ZeRO / FSDP / EMA / clip, then the pipeline",
+                     "context": "Training CP"}
+
+
 def normalize_model_axis_grads(loss, grads, ctx: Optional[ParallelContext]
                                = None, data_axes=(DATA_AXIS,)):
-    """The reference rescales grads for model-axis redundancy (TP's
-    summed cotangents).  Tensor parallelism is not ported (ROADMAP queue
-    A, "TP + SP"), so every non-data axis must have size 1; returns
-    ``(grads, ())`` then and raises otherwise."""
+    """``(grads, other)``: the reference divides the grads by the size of
+    every non-data axis the loss VARIES on (its vma type), whose
+    cotangents shard_map has summed, and returns those axes.  The port
+    has no vma types; the rule that takes their place: every tensor-
+    parallel loss of the port closes its regions with a collective
+    (``reduce_from_tp``, the vocab-parallel cross-entropy), so it is the
+    same on every rank of the ``tensor`` group and varies on no model
+    axis — ``other`` is ``()`` and the grads come back unscaled, which is
+    what the reference returns for such a loss.  Model axes other than
+    ``tensor`` wait for their queue-A items and raise when larger than
+    1."""
     ctx = tpc if ctx is None else ctx
-    other = [a for a in ctx.axis_names
-             if a not in data_axes and ctx.get_group_size(a) > 1]
-    if other:
-        raise NotImplementedError(
-            f"model axes {other}: tensor parallelism is not ported yet "
-            f"(ROADMAP queue A, 'TP + SP')")
+    waiting = [a for a in ctx.axis_names
+               if a not in data_axes and a != TENSOR_AXIS
+               and ctx.get_group_size(a) > 1]
+    if waiting:
+        raise NotImplementedError("; ".join(
+            f"model axis {a!r} waits for ROADMAP queue A's "
+            f"{_MODEL_AXIS_ITEMS[a]!r}" if a in _MODEL_AXIS_ITEMS else
+            f"model axis {a!r} is no axis of the port's models"
+            for a in waiting))
     del loss
     return grads, ()
 
@@ -400,7 +494,9 @@ class DataParallel:
 
     def broadcast_params(self, params: Any) -> Any:
         """Every leaf set, in place, to rank 0 of the data group's value
-        (the reference's wrap-time broadcast); returns ``params``."""
+        (the reference's wrap-time broadcast); returns ``params``.  Under
+        tensor parallelism ``params`` is this rank's shard, and the ranks
+        of its data group hold the same shard."""
         src = dist.get_global_rank(self.group, 0)
         with torch.no_grad():
             for p in tree_leaves(params):
@@ -414,10 +510,19 @@ class DataParallel:
 
     # ---------------------------------------------------------- step
 
-    def _plans(self, params) -> List[Tuple[torch.Tensor, _Plan]]:
-        return [(p, _leaf_plan(name, self.axes, self.reduce_op,
-                               self.grad_reduce_overrides, self.ctx))
-                for name, p in named_leaves(params)]
+    def _plans(self, params, tp: Optional[_TP] = None
+               ) -> List[Tuple[torch.Tensor, _Plan]]:
+        """Each leaf's plan; under SP a leaf the specs mark
+        ``PARTIAL_UNDER_SP`` also sums over the tensor axis, in the same
+        bucket's all-reduce."""
+        out = []
+        for i, (name, p) in enumerate(named_leaves(params)):
+            plan = _leaf_plan(name, self.axes, self.reduce_op,
+                              self.grad_reduce_overrides, self.ctx)
+            if tp is not None and tp.sp and tp.specs[i] == PARTIAL_UNDER_SP:
+                plan = _Plan(plan.axes + (TENSOR_AXIS,), plan.scale)
+            out.append((p, plan))
+        return out
 
     @contextlib.contextmanager
     def _hooked(self, plans, buckets: _Buckets):
@@ -475,7 +580,8 @@ class DataParallel:
                         grad_accum_iters: int = 1,
                         value_and_grad_fn: Optional[Callable] = None,
                         accum_reduce: str = "final",
-                        numerics: bool = False):
+                        numerics: bool = False, param_specs: Any = None,
+                        sp: bool = False):
         """``step(params, opt_state, batch) -> (params, opt_state, loss,
         gnorm)`` on this rank's local batch, as :func:`make_train_step`
         but with the gradients reduced over the data group.
@@ -490,6 +596,11 @@ class DataParallel:
           microbatch reduces its own grads, and the reduced grads are
           averaged.
         - ``numerics``: as :func:`make_train_step`.
+        - ``param_specs`` / ``sp``: tensor (and sequence) parallelism
+          over ``ctx``'s ``'tensor'`` axis, as :func:`make_train_step`
+          (``params`` this rank's shard, ``loss_fn`` run over the tensor
+          group); under ``sp`` the ``PARTIAL_UNDER_SP`` grads reduce over
+          the data and tensor axes at once.
 
         The loss returned is the mean over the data ranks."""
         if (loss_fn is None) == (value_and_grad_fn is None):
@@ -507,11 +618,19 @@ class DataParallel:
             raise ValueError(f"accum_reduce must be 'final' or 'microbatch', "
                              f"got {accum_reduce!r}")
         M = grad_accum_iters
+        tp_group = None
+        if param_specs is not None:
+            tp_group = self.ctx.get_group(TENSOR_AXIS)
+            if sp:  # made now, every rank together, not inside a backward
+                self.ctx.get_group(self.axes + (TENSOR_AXIS,))
+                for ax in self.grad_reduce_overrides.values():
+                    self.ctx.get_group(ax + (TENSOR_AXIS,))
 
         def vag_step(params, opt_state, batch):
+            tp = _tp_of(tp_group, params, param_specs, sp)
             opt_state.zero_grad(set_to_none=True)
             loss, grads = value_and_grad_fn(params, batch)
-            plans = self._plans(params)
+            plans = self._plans(params, tp)
             buckets = _Buckets(self.ctx.get_group, self.bucket_bytes)
             for (p, plan), g in zip(plans, tree_leaves(grads)):
                 buckets.add((p, None), g, plan)
@@ -524,11 +643,12 @@ class DataParallel:
                                "bytes_before_backward_returned": 0,
                                "bytes_before_blocks_done": 0}
             return _update(params, opt_state, self._mean_loss(loss),
-                           numerics)
+                           numerics, tp)
 
         def step(params, opt_state, batch):
+            tp = _tp_of(tp_group, params, param_specs, sp)
             opt_state.zero_grad(set_to_none=True)
-            plans = self._plans(params)
+            plans = self._plans(params, tp)
             micro = [batch] if M == 1 else _split_micro(batch, M)
             # one microbatch: reducing it is reducing the final grads
             per_micro = accum_reduce == "microbatch" and M > 1
@@ -575,6 +695,6 @@ class DataParallel:
                 loss = loss * (1.0 / M)
             self.last_stats = stats
             return _update(params, opt_state, self._mean_loss(loss),
-                           numerics)
+                           numerics, tp)
 
         return vag_step if value_and_grad_fn is not None else step

@@ -1,5 +1,5 @@
-"""The transformer block's math, serial — the PyTorch counterpart of
-``torchdistpackage_tpu/parallel/tensor_parallel/layers.py``.
+"""The transformer block's math, serial and tensor-parallel — the PyTorch
+counterpart of ``torchdistpackage_tpu/parallel/tensor_parallel/layers.py``.
 
 Parameters are plain dicts of tensors with the JAX package's layouts, so
 the parity tests compare like with like: weights are ``[in, out]`` and
@@ -9,12 +9,21 @@ SwiGLU gate/up ``[2, D, F]``.  The norm kind and the activation are
 carried by the parameter structure exactly as in the reference: a norm
 without a ``bias`` leaf is RMSNorm, a 3-dim ``w1`` is SwiGLU.
 
-Tensor parallelism is not ported yet (ROADMAP queue A): every function
-here is the ``axis=None`` branch of its reference.  The training block
-(:func:`block_forward`, :func:`scan_blocks`) runs its attention through
-:func:`core_attention`: the plain ``'naive'`` path or the flash kernels
-K3-K5 (``ops/flash_attention.py``), with residual dropout
-(:func:`dropout`) when a key is given.
+One implementation serves both modes, as in the reference.  With
+``tp_group=None`` a function runs serially on whole weights; with a
+tensor-parallel group (``tp_utils``) each rank holds its shard of every
+leaf (:func:`shard_params` cuts it by :data:`TP_SPLIT_DIMS`) and the
+block inserts the Megatron regions: ``copy_to_tp`` (or, with ``sp``,
+``gather_from_sp``) before the column-parallel QKV / W1, and
+``reduce_from_tp`` (``scatter_to_sp``) after the row-parallel WO / W2,
+the output bias added once after the reduction.  Under ``sp`` the
+residual stream holds this rank's sequence rows; with
+``cfg.collective_matmul`` the SP boundaries run as rings
+(:func:`attention_partial_cm`, :func:`mlp_partial_cm`).  The training
+block (:func:`block_forward`, :func:`scan_blocks`) runs its attention
+through :func:`core_attention`: the plain ``'naive'`` path or the flash
+kernels K3-K5 (``ops/flash_attention.py``), at ``H / tp`` local heads,
+with residual dropout (:func:`dropout`) when a key is given.
 """
 
 from __future__ import annotations
@@ -35,6 +44,16 @@ from ...device import resolve_device
 from ...obs.numerics import tree_leaves
 from ...tools.surgery import int8_matmul, is_int8_weight
 from ...utils.random import fold_in, split
+from .tp_utils import (
+    copy_to_tp,
+    gather_from_sp,
+    reduce_from_tp,
+    ring_ag_matmul,
+    ring_matmul_rs,
+    scatter_to_sp,
+    split_to_sp,
+    tp_size,
+)
 
 Params = Dict[str, torch.Tensor]
 
@@ -51,7 +70,12 @@ class TransformerConfig:
     ``'flash'`` (kernels K3-K5); ``'ring'``/``'ulysses'`` are context
     parallel and queued (ROADMAP, queue A: "Training CP").
     ``dropout_rate``: residual dropout, applied when the caller passes a
-    ``dropout_key``."""
+    ``dropout_key``.  ``collective_matmul`` (SP only): the block's SP
+    boundaries as rings once the gathered activation reaches
+    ``cm_min_bytes``.  ``ag_compress='int8'`` (quantized SP boundaries)
+    raises: it waits for the int8 rings (ROADMAP queue A,
+    "Collectives"); ``compress_min_bytes``, their size threshold, is kept
+    for parity with the reference and read by nothing until then."""
 
     dim: int
     nheads: int
@@ -70,6 +94,10 @@ class TransformerConfig:
     ffn_hidden: Optional[int] = None
     norm_eps: float = 1e-5
     sliding_window: Optional[int] = None
+    collective_matmul: bool = False
+    cm_min_bytes: int = 1 << 20
+    ag_compress: Optional[str] = None
+    compress_min_bytes: int = 1 << 16
 
     def __post_init__(self):
         if self.attn_impl not in _ATTN_IMPLS:
@@ -82,6 +110,9 @@ class TransformerConfig:
             if self.sliding_window < 1:
                 raise ValueError(
                     f"sliding_window must be >= 1, got {self.sliding_window}")
+        if self.ag_compress not in (None, "int8"):
+            raise ValueError(
+                f"ag_compress must be None or 'int8', got {self.ag_compress!r}")
         if self.norm not in ("layer", "rms"):
             raise ValueError(f"norm must be 'layer' or 'rms', got {self.norm!r}")
         if self.act not in ("gelu", "swiglu"):
@@ -302,12 +333,9 @@ def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None
     return F.linear(x, w.t(), b)
 
 
-def compute_qkv(p: Params, x: torch.Tensor, cfg: TransformerConfig,
-                rope=None):
-    """x [B, S, D] -> rope-rotated ``(q [B, H, S, hd], k, v [B, Hkv, S,
-    hd])`` from either the fused ``wqkv`` layout or the GQA ``wq``/``wkv``
-    layout.  ``rope`` is the (cos, sin) cache; required when
-    ``cfg.rope``."""
+def _project_qkv(p: Params, x: torch.Tensor, cfg: TransformerConfig):
+    """x [B, S, D] -> unrotated ``(q [B, H_loc, S, hd], k, v [B, Hkv_loc,
+    S, hd])``; the head counts are read off the (local) weights."""
     B, S, _ = x.shape
     hd = cfg.head_dim
 
@@ -316,23 +344,42 @@ def compute_qkv(p: Params, x: torch.Tensor, cfg: TransformerConfig,
 
     if "wqkv" in p:
         w, b = p["wqkv"], p["bqkv"]
-        q, k, v = (heads(dense(x, w[i], b[i])) for i in range(3))
-    else:
-        if p["wkv"].shape[-1] % hd:
-            raise ValueError(
-                f"wkv holds {p['wkv'].shape[-1]} columns, not whole heads of "
-                f"dim {hd}")
-        q = heads(dense(x, p["wq"], p["bq"]))
-        k = heads(dense(x, p["wkv"][0], p["bkv"][0]))
-        v = heads(dense(x, p["wkv"][1], p["bkv"][1]))
+        return tuple(heads(dense(x, w[i], b[i])) for i in range(3))
+    cols = p["wkv"].shape[-1]
+    hkv_loc, rem = divmod(cols, hd)
+    if rem or hkv_loc == 0:
+        # e.g. MQA (kv_heads 1) under TP 2: the shard holds half a head
+        raise ValueError(
+            f"TP shard holds {cols} kv columns = {cols / hd:g} heads of dim "
+            f"{hd}; GQA under TP needs kv_heads % tp_size == 0 (whole heads "
+            f"per shard)")
+    return (heads(dense(x, p["wq"], p["bq"])),
+            heads(dense(x, p["wkv"][0], p["bkv"][0])),
+            heads(dense(x, p["wkv"][1], p["bkv"][1])))
+
+
+def _rotate(q: torch.Tensor, k: torch.Tensor, rope):
+    # q and k rotate in one pass: the same elementwise arithmetic, half
+    # the kernels
+    qk = apply_rope(torch.cat([q, k], dim=1), rope)
+    return qk.split([q.shape[1], k.shape[1]], dim=1)
+
+
+def compute_qkv(p: Params, x: torch.Tensor, cfg: TransformerConfig,
+                rope=None):
+    """x [B, S, D] -> rope-rotated ``(q [B, H, S, hd], k, v [B, Hkv, S,
+    hd])`` from either the fused ``wqkv`` layout or the GQA ``wq``/``wkv``
+    layout; under TP the local heads of the rank's shard (a GQA shard
+    must hold whole KV heads).  ``rope`` is the (cos, sin) cache;
+    computed here when ``cfg.rope`` and None."""
+    S = x.shape[1]
+    hd = cfg.head_dim
+    q, k, v = _project_qkv(p, x, cfg)
     if cfg.rope:
         if rope is None:
             rope = rope_cache(torch.arange(S, device=x.device), hd,
                               cfg.rope_theta, scaling=cfg.rope_scaling)
-        # q and k rotate in one pass: the same elementwise arithmetic,
-        # half the kernels
-        qk = apply_rope(torch.cat([q, k], dim=1), rope)
-        q, k = qk.split([q.shape[1], k.shape[1]], dim=1)
+        q, k = _rotate(q, k, rope)
     return q, k, v
 
 
@@ -351,12 +398,17 @@ def mlp_partial(p: Params, x: torch.Tensor) -> torch.Tensor:
 # ------------------------------------------------------- training block
 
 
-def block_rope_cache(cfg: TransformerConfig, s: int, device):
-    """The layer-invariant (cos, sin) rope cache for ``s`` sequence rows,
-    or None when rope is off — computed once per forward and passed to
-    every block."""
+def block_rope_cache(cfg: TransformerConfig, s: int, device,
+                     tp_group=None, sp: bool = False):
+    """The layer-invariant (cos, sin) rope cache for a block stack whose
+    activations have ``s`` sequence rows, or None when rope is off —
+    computed once per forward and passed to every block.  Attention sees
+    the SP-gathered sequence, so under ``sp`` the table covers ``s tp``
+    rows."""
     if not cfg.rope:
         return None
+    if tp_group is not None and sp:
+        s *= tp_size(tp_group)
     return rope_cache(torch.arange(s, device=device), cfg.head_dim,
                       cfg.rope_theta, scaling=cfg.rope_scaling)
 
@@ -409,21 +461,136 @@ def dropout(x: torch.Tensor, rate: float, key: Optional[int]
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def _open_column_parallel(h: torch.Tensor, tp_group, sp: bool
+                          ) -> torch.Tensor:
+    """The activation a column-parallel product reads: ``h`` serially,
+    the SP-gathered sequence under ``sp``, else ``h`` through
+    ``copy_to_tp`` (its gradient summed over the group)."""
+    if tp_group is None:
+        return h
+    return gather_from_sp(h, tp_group) if sp else copy_to_tp(h, tp_group)
+
+
+def _close_row_parallel(y: torch.Tensor, bias: torch.Tensor, tp_group,
+                        sp: bool) -> torch.Tensor:
+    """Finish a row-parallel product: reduce the partial sums over the
+    group (into SP layout under ``sp``) and add the output bias once."""
+    if tp_group is not None:
+        y = scatter_to_sp(y, tp_group) if sp else reduce_from_tp(y, tp_group)
+    return y + bias
+
+
+def _sp_compress(cfg: TransformerConfig, tp_group, sp: bool) -> None:
+    """The reference quantizes the SP boundaries under
+    ``ag_compress='int8'``; the int8 rings are not ported."""
+    if cfg.ag_compress == "int8" and tp_group is not None and sp:
+        raise NotImplementedError(
+            "ag_compress='int8': the quantized SP boundaries ride the int8 "
+            "rings of dist/compressed.py, not ported yet (ROADMAP queue A, "
+            "'Collectives')")
+
+
+def _use_cm(cfg: TransformerConfig, x: torch.Tensor, tp_group,
+            sp: bool) -> bool:
+    """Collective matmul only under SP on a group of more than one rank,
+    and only once the gathered activation reaches ``cm_min_bytes``."""
+    if not (cfg.collective_matmul and tp_group is not None and sp):
+        return False
+    n = tp_size(tp_group)
+    return n > 1 and x.numel() * n * x.element_size() >= cfg.cm_min_bytes
+
+
+def attention_partial_cm(p: Params, x: torch.Tensor, cfg: TransformerConfig,
+                         tp_group, rope=None) -> torch.Tensor:
+    """Collective-matmul attention on an SP shard: x [B, s, D] -> [B, s,
+    D], reduced over the group into SP layout, without ``bo`` (the ring
+    reduces; the caller adds only the bias).  The QKV projection runs
+    inside :func:`~.tp_utils.ring_ag_matmul`, attention on the assembled
+    sequence, the output projection through
+    :func:`~.tp_utils.ring_matmul_rs`."""
+    B, s, _ = x.shape
+    S = s * tp_size(tp_group)
+    qkv = ring_ag_matmul(
+        x, lambda xc: dict(zip("qkv", _project_qkv(p, xc, cfg))), tp_group,
+        out_seq_dim=2)
+    q, k, v = qkv["q"], qkv["k"], qkv["v"]
+    if cfg.rope:
+        if rope is None:
+            rope = rope_cache(torch.arange(S, device=x.device),
+                              cfg.head_dim, cfg.rope_theta,
+                              scaling=cfg.rope_scaling)
+        q, k = _rotate(q, k, rope)
+    out = core_attention(q, k, v, cfg).transpose(1, 2).reshape(B, S, -1)
+    return ring_matmul_rs(out, lambda oc: dense(oc, p["wo"]), tp_group)
+
+
+def mlp_partial_cm(p: Params, x: torch.Tensor, tp_group) -> torch.Tensor:
+    """Collective-matmul MLP on an SP shard: [B, s, D] -> [B, s, D]
+    reduced into SP layout, without ``b2``; the activation is row-wise,
+    so it folds into the ring's chunk product and the hidden [B, S, F]
+    is never whole."""
+    w1, b1 = p["w1"], p["b1"]
+    if w1.ndim == 3:
+        def mm1(xc):
+            return F.silu(dense(xc, w1[0], b1[0])) * dense(xc, w1[1], b1[1])
+    else:
+        def mm1(xc):
+            return F.gelu(dense(xc, w1, b1), approximate="tanh")
+    h = ring_ag_matmul(x, mm1, tp_group, out_seq_dim=1)
+    return ring_matmul_rs(h, lambda hc: dense(hc, p["w2"]), tp_group)
+
+
 def block_forward(p: Params, x: torch.Tensor, cfg: TransformerConfig,
-                  rope=None, dropout_key: Optional[int] = None
-                  ) -> torch.Tensor:
+                  rope=None, dropout_key: Optional[int] = None,
+                  tp_group=None, sp: bool = False) -> torch.Tensor:
     """Pre-norm block: x + attn(norm(x)) + bo, then + mlp(norm(.)) + b2.
     ``dropout_key`` turns on residual dropout at ``cfg.dropout_rate`` on
-    both branches, each site with its own key."""
+    both branches, each site with its own key.  ``tp_group``: the
+    tensor-parallel group ``p``'s shards belong to (None: serial);
+    ``sp``: x is this rank's sequence rows [B, S / tp, D] (sequence
+    parallelism), the norms run on them and the attention / MLP
+    boundaries gather and reduce-scatter."""
     k_attn = k_mlp = None
     if dropout_key is not None and cfg.dropout_rate > 0.0:
         k_attn, k_mlp = split(dropout_key)
+    _sp_compress(cfg, tp_group, sp)
+    use_cm = _use_cm(cfg, x, tp_group, sp)
     h = layer_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + dropout(attention_partial(p["attn"], h, cfg, rope=rope)
-                    + p["attn"]["bo"], cfg.dropout_rate, k_attn)
+    if use_cm:
+        y = attention_partial_cm(p["attn"], h, cfg, tp_group, rope=rope) \
+            + p["attn"]["bo"]
+    else:
+        y = _close_row_parallel(
+            attention_partial(p["attn"], _open_column_parallel(h, tp_group,
+                                                               sp),
+                              cfg, rope=rope),
+            p["attn"]["bo"], tp_group, sp)
+    x = x + dropout(y, cfg.dropout_rate, k_attn)
     h = layer_norm(x, p["ln2"], cfg.norm_eps)
-    return x + dropout(mlp_partial(p["mlp"], h) + p["mlp"]["b2"],
-                       cfg.dropout_rate, k_mlp)
+    if use_cm:
+        z = mlp_partial_cm(p["mlp"], h, tp_group) + p["mlp"]["b2"]
+    else:
+        z = _close_row_parallel(
+            mlp_partial(p["mlp"], _open_column_parallel(h, tp_group, sp)),
+            p["mlp"]["b2"], tp_group, sp)
+    return x + dropout(z, cfg.dropout_rate, k_mlp)
+
+
+def transformer_forward(params: Params, x: torch.Tensor,
+                        cfg: TransformerConfig, tp_group=None,
+                        sp: bool = False) -> torch.Tensor:
+    """The block list ``params['blocks']`` then ``ln_f`` on a full
+    activation x [B, S, D] (JAX :876).  Under ``sp`` the input is split
+    to this rank's rows first, and gathered back at the end."""
+    if tp_group is not None and sp:
+        x = split_to_sp(x, tp_group)
+    rope = block_rope_cache(cfg, x.shape[1], x.device, tp_group, sp)
+    for bp in params["blocks"]:
+        x = block_forward(bp, x, cfg, rope=rope, tp_group=tp_group, sp=sp)
+    x = layer_norm(x, params["ln_f"], cfg.norm_eps)
+    if tp_group is not None and sp:
+        x = gather_from_sp(x, tp_group)
+    return x
 
 
 #: ``remat`` values: False/None (no checkpointing), True (each block
@@ -526,14 +693,15 @@ def grad_taps(callback: Callable[[torch.Tensor, int, torch.Tensor], None]):
 
 
 def scan_blocks(stacked: Params, x: torch.Tensor, cfg: TransformerConfig,
-                remat: RematMode = False, dropout_key: Optional[int] = None
-                ) -> torch.Tensor:
+                remat: RematMode = False, dropout_key: Optional[int] = None,
+                tp_group=None, sp: bool = False) -> torch.Tensor:
     """Run ``x`` through the layer-stacked block params ([L, ...] leaves)
     — the reference's ``lax.scan`` as a Python loop.  The stacked leaves
     are unbound once (their backward is one stack, not L scatter-adds),
     and the rope cache is computed once for all layers.  ``dropout_key``
     turns on residual dropout; layer ``i`` folds ``i`` into the key, so
-    layers draw distinct masks."""
+    layers draw distinct masks.  ``tp_group`` / ``sp`` as in
+    :func:`block_forward` (x is [B, S / tp, D] under ``sp``)."""
     tap = _GRAD_TAP.get()
 
     def unbind(tree):
@@ -551,17 +719,19 @@ def scan_blocks(stacked: Params, x: torch.Tensor, cfg: TransformerConfig,
 
     per_layer = unbind(stacked)
     L = len(next(tree_leaves(stacked)))
-    rope = block_rope_cache(cfg, x.shape[1], x.device)
+    rope = block_rope_cache(cfg, x.shape[1], x.device, tp_group, sp)
     if remat == "flash_offload":
         advice = offload_advice(cfg, tuple(x.shape), L, device=x.device)
         if advice:
             warnings.warn(advice, stacklevel=2)
+    # the serial call passes no tensor-parallel arguments at all
+    tp = {} if tp_group is None else {"tp_group": tp_group, "sp": sp}
     for i in range(L):
         lp = layer(per_layer, i)
         key = None if dropout_key is None else fold_in(dropout_key, i)
         x = checkpoint_block(
             lambda h, lp=lp, key=key: block_forward(
-                lp, h, cfg, rope=rope, dropout_key=key), remat)(x)
+                lp, h, cfg, rope=rope, dropout_key=key, **tp), remat)(x)
     return x
 
 
@@ -614,4 +784,130 @@ def init_block_params(gen: torch.Generator, cfg: TransformerConfig,
     mlp["w2"] = _normal((Fd, D), 1.0 / math.sqrt(Fd), dt, gen, device)
     mlp["b2"] = zeros(D)
     out["mlp"] = mlp
+    return out
+
+
+# ------------------------------------------------------------------ specs
+
+#: The one table of tensor-parallel placement (the reference's
+#: ``block_param_specs`` / ``stacked_block_specs`` /
+#: ``transformer_param_specs`` / ``gpt_param_specs``): the dimension
+#: each leaf is split on over the tensor group, by the leaf's name,
+#: counted from the end so that a layer-stacked ``[L, ...]`` leaf keeps
+#: its leading layer dim.  Column-parallel weights and biases split
+#: their output columns (-1; whole heads, since the columns are
+#: head-major), row-parallel weights their input rows (-2), the
+#: vocab-parallel embedding its rows and the head its columns.  Every
+#: other leaf is replicated, and so is everything under ``moe`` (the
+#: router and the experts: the MoE FFN runs whole on every tensor rank).
+TP_SPLIT_DIMS: Dict[str, int] = {
+    "wqkv": -1, "bqkv": -1, "wq": -1, "bq": -1, "wkv": -1, "bkv": -1,
+    "wo": -2, "w1": -1, "b1": -1, "w2": -2, "tok_emb": -2, "head": -1}
+#: Replicated leaves that sequence parallelism applies to this rank's
+#: sequence rows only (the norms, and the row-parallel biases added after
+#: the reduce-scatter): under ``sp`` each rank's gradient of such a leaf
+#: is a partial sum, to be summed over the tensor group before the
+#: update.  The reference gets that sum from ``shard_map``'s transpose.
+SEQUENCE_PARTIAL = ("ln1", "ln2", "ln_f", "bo", "b2")
+#: a spec tree's leaf for a replicated leaf whose grad is partial under SP
+PARTIAL_UNDER_SP = "partial_under_sp"
+
+
+def param_specs(tree) -> object:
+    """The spec tree of a parameter tree (dicts and lists, the dense GPT's
+    stacked blocks or the MoE family's block list): at each leaf its
+    split dim (an int, from :data:`TP_SPLIT_DIMS`), None for a replicated
+    leaf, or :data:`PARTIAL_UNDER_SP` for a replicated leaf of
+    :data:`SEQUENCE_PARTIAL`."""
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (str(k),)) for k, v in node.items()}
+        if isinstance(node, (list, tuple)) and not _is_leaf(node):
+            return type(node)(walk(v, path) for v in node)
+        if "moe" in path:
+            return None
+        if any(name in SEQUENCE_PARTIAL for name in path):
+            return PARTIAL_UNDER_SP
+        return TP_SPLIT_DIMS.get(path[-1])
+    return walk(tree, ())
+
+
+def _is_leaf(node) -> bool:
+    # an int8 expert (q8, scale) pair is one leaf of the tree
+    return isinstance(node, tuple) and len(node) == 2 and not any(
+        isinstance(t, (dict, list, tuple)) for t in node)
+
+
+def _zip_specs(fn, tree, specs):
+    if isinstance(tree, dict):
+        return {k: _zip_specs(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not _is_leaf(tree):
+        return type(tree)(_zip_specs(fn, v, s) for v, s in zip(tree, specs))
+    return fn(tree, specs)
+
+
+def _split_dim(spec) -> Optional[int]:
+    return spec if isinstance(spec, int) else None
+
+
+def shard_params(tree, specs, rank: int, size: int):
+    """Rank ``rank`` of ``size``'s shard of a full parameter tree: every
+    split leaf cut to its ``1 / size`` slice along its spec's dim (views
+    of ``tree``'s tensors — or numpy arrays —, like
+    ``parallel.moe.shard_experts``), every other leaf as it is.  A split
+    dim not divisible by ``size`` raises, and so does a split int8
+    weight-only leaf: the reference's specs do not shard one."""
+    if not 0 <= rank < size:
+        raise ValueError(f"rank {rank} not in [0, {size})")
+
+    def cut(leaf, spec):
+        d = _split_dim(spec)
+        if d is None or size == 1:
+            return leaf
+        if is_int8_weight(leaf) or _is_leaf(leaf):
+            raise NotImplementedError(
+                "an int8 weight-only leaf under tensor parallelism: the "
+                "reference's specs do not shard one (ROADMAP C)")
+        d %= leaf.ndim
+        n = leaf.shape[d]
+        if n % size:
+            raise ValueError(f"leaf of shape {tuple(leaf.shape)} not "
+                             f"divisible by TP size {size} on dim {d}")
+        c = n // size
+        return leaf[(slice(None),) * d + (slice(rank * c, (rank + 1) * c),)]
+    return _zip_specs(cut, tree, specs)
+
+
+def gather_params(tree, specs, group=None):
+    """The full parameter tree from every rank's shard (``shard_params``'
+    inverse): each split leaf all-gathered over the tensor group along its
+    spec's dim, every other leaf as it is.  Every rank of the group calls
+    it; for the tests and for checkpoints."""
+    from .tp_utils import _all_gather, get_tp_group
+
+    group = group if group is not None else get_tp_group()
+
+    def full(leaf, spec):
+        d = _split_dim(spec)
+        if d is None:
+            return leaf
+        with torch.no_grad():
+            return _all_gather(leaf, group, d % leaf.dim(), "gather_params")
+    return _zip_specs(full, tree, specs)
+
+
+def spec_pairs(tree, specs):
+    """``(tensor, spec)`` for every tensor of ``tree`` in
+    ``obs.numerics.tree_leaves`` order (an int8 weight's or an int8
+    expert pair's two tensors share the leaf's spec)."""
+    out = []
+
+    def add(leaf, spec):
+        if is_int8_weight(leaf):
+            out.extend(((leaf.q, spec), (leaf.scale, spec)))
+        elif _is_leaf(leaf):
+            out.extend((t, spec) for t in leaf)
+        elif leaf is not None:
+            out.append((leaf, spec))
+    _zip_specs(add, tree, specs)
     return out

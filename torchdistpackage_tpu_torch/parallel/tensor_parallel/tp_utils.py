@@ -1,0 +1,354 @@
+"""Tensor- and sequence-parallel regions — the PyTorch counterpart of
+``torchdistpackage_tpu/parallel/tensor_parallel/tp_utils.py``.
+
+The JAX package runs one SPMD program inside ``shard_map`` and names a
+mesh axis; JAX's autodiff supplies every backward collective.  The port
+runs the same Python on every rank over its own shards, so the axis
+becomes a ``torch.distributed`` process group (default: ``tpc``'s
+``'tensor'`` group, or the one :func:`set_tp_group` sets) and each
+Megatron region is a ``torch.autograd.Function`` whose backward is
+written out:
+
+=================  ===========================  ======================
+region             forward                      backward
+=================  ===========================  ======================
+``reduce_from_tp``  all-reduce                   identity
+``copy_to_tp``      identity                     all-reduce
+``gather_from_sp``  all-gather (sequence dim)    reduce-scatter
+``scatter_to_sp``   reduce-scatter (sequence)    all-gather
+``split_to_sp``     this rank's sequence slice   all-gather
+=================  ===========================  ======================
+
+``copy_to_tp`` is the Megatron "f" region: a replicated activation
+entering a column-parallel product gets its gradient summed over the
+group (JAX gets that sum from ``pvary``'s transpose).  Every region
+makes its collective at every group size, one rank included, so a
+one-rank group runs the same code as N ranks.  :data:`COLLECTIVES`
+counts the collectives made, by region.
+
+``torch.distributed``'s gather and scatter work on dim 0, the package's
+sequence dim is 1: the gather collects the ranks' whole tensors along a
+new leading dim and moves it next to the sequence, the reduce-scatter
+lays the sequence slices out along a new leading dim first; both give
+contiguous tensors (the products after them then take the serial path's
+layouts) and copy nothing beyond the collective's own at one rank.
+
+The collective-matmul rings (:func:`ring_ag_matmul`,
+:func:`ring_matmul_rs`) compose the caller's product with one
+differentiable ring shift, :func:`ppermute` (forward to rank ``+1`` by
+``batch_isend_irecv``, backward to ``-1``), so autograd builds the
+reverse ring as JAX's AD transposes ``ppermute``.  A one-rank group
+takes the reference's shortcut: the product alone, no shift.
+
+The int8 rings of ``compress='int8'`` are not ported (ROADMAP queue A,
+"Collectives").
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional
+
+import torch
+import torch.distributed as dist
+
+from ...dist.topology import TENSOR_AXIS, tpc
+
+#: collectives made, by region (forward and backward alike);
+#: ``ring_shift`` counts the rings' point-to-point exchanges,
+#: ``xent_max`` the vocab-parallel loss's all-reduce MAX,
+#: ``gather_params`` the all-gathers of ``layers.gather_params`` and
+#: ``full_logits`` decoding's all-gather of the vocabulary slices
+COLLECTIVES: Dict[str, int] = dict.fromkeys(
+    ("reduce_from_tp", "copy_to_tp", "gather_from_sp", "scatter_to_sp",
+     "split_to_sp", "ring_shift", "xent_max", "gather_params",
+     "full_logits"), 0)
+
+_TP_GROUP = None
+
+
+def set_tp_group(group) -> None:
+    """The group the regions default to (``set_tp_axis``'s counterpart);
+    None restores ``tpc.get_group('tensor')``."""
+    global _TP_GROUP
+    _TP_GROUP = group
+
+
+def get_tp_group():
+    """The default tensor-parallel group: the one :func:`set_tp_group`
+    set, else ``tpc``'s ``'tensor'`` group."""
+    return _TP_GROUP if _TP_GROUP is not None else tpc.get_group(TENSOR_AXIS)
+
+
+def tp_size(group=None) -> int:
+    return dist.get_world_size(group if group is not None else get_tp_group())
+
+
+def tp_rank(group=None) -> int:
+    return dist.get_rank(group if group is not None else get_tp_group())
+
+
+def _check_compress(compress: Optional[str]) -> None:
+    if compress == "int8":
+        raise NotImplementedError(
+            "compress='int8': the quantized rings of dist/compressed.py are "
+            "not ported yet (ROADMAP queue A, 'Collectives')")
+    if compress is not None:
+        raise ValueError(f"compress must be None or 'int8', got {compress!r}")
+
+
+def _count(name: str) -> None:
+    COLLECTIVES[name] += 1
+
+
+def _all_reduce(x: torch.Tensor, group, name: str) -> torch.Tensor:
+    out = x.clone(memory_format=torch.contiguous_format)
+    _count(name)
+    dist.all_reduce(out, group=group)
+    return out
+
+
+def _all_gather(x: torch.Tensor, group, dim: int, name: str) -> torch.Tensor:
+    """Concatenate every rank's ``x`` along ``dim``, in rank order, into
+    a contiguous tensor: the ranks' whole tensors are gathered along a new
+    leading dim (the collective's own layout), then moved into place — a
+    copy that a one-rank group does not need."""
+    n = dist.get_world_size(group)
+    x = x.contiguous()
+    out = x.new_empty((n,) + tuple(x.shape))
+    _count(name)
+    dist.all_gather_into_tensor(out.view((n * x.shape[0],) + x.shape[1:])
+                                if x.dim() else out, x, group=group)
+    shape = list(x.shape)
+    shape[dim] *= n
+    return out.movedim(0, dim).reshape(shape)
+
+
+def _reduce_scatter(x: torch.Tensor, group, dim: int,
+                    name: str) -> torch.Tensor:
+    """Sum ``x`` over the group and keep this rank's slice of ``dim``,
+    contiguous: the slices are laid out along a new leading dim for the
+    collective (a copy that a one-rank group does not need)."""
+    n = dist.get_world_size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"seq dim {x.shape[dim]} not divisible by TP size "
+                         f"{n}")
+    xs = x.unflatten(dim, (n, x.shape[dim] // n)).movedim(dim, 0).contiguous()
+    out = xs.new_empty(xs.shape[1:])
+    _count(name)
+    dist.reduce_scatter_tensor(out, xs.view((-1,) + tuple(xs.shape[2:])),
+                               op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group, "reduce_from_tp")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group, "copy_to_tp"), None
+
+
+class _GatherFromSP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _all_gather(x, group, dim, "gather_from_sp")
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_reduce_scatter(g, ctx.group, ctx.dim, "gather_from_sp"),
+                None, None)
+
+
+class _ScatterToSP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _reduce_scatter(x, group, dim, "scatter_to_sp")
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.group, ctx.dim, "scatter_to_sp"), None, None
+
+
+class _SplitToSP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        n, r = dist.get_world_size(group), dist.get_rank(group)
+        if x.shape[dim] % n:
+            raise ValueError(f"seq dim {x.shape[dim]} not divisible by TP "
+                             f"size {n}")
+        c = x.shape[dim] // n
+        return x.narrow(dim, r * c, c).clone(
+            memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.group, ctx.dim, "split_to_sp"), None, None
+
+
+def reduce_from_tp(x: torch.Tensor, group=None) -> torch.Tensor:
+    """All-reduce (sum) over the tensor group; backward identity —
+    closes a row-parallel product (``_ReduceFromModelParallelRegion``)."""
+    return _ReduceFromTP.apply(x, group if group is not None
+                               else get_tp_group())
+
+
+def copy_to_tp(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Identity; backward all-reduce — opens a column-parallel product on
+    a replicated activation (the Megatron "f" region)."""
+    return _CopyToTP.apply(x, group if group is not None else get_tp_group())
+
+
+def gather_from_sp(x: torch.Tensor, group=None, seq_dim: int = 1,
+                   compress: Optional[str] = None) -> torch.Tensor:
+    """SP -> full: all-gather along the sequence dim; backward
+    reduce-scatter (``_GatherFromSequenceParallelRegion``)."""
+    _check_compress(compress)
+    return _GatherFromSP.apply(
+        x, group if group is not None else get_tp_group(), seq_dim)
+
+
+def scatter_to_sp(x: torch.Tensor, group=None, seq_dim: int = 1,
+                  compress: Optional[str] = None) -> torch.Tensor:
+    """Full -> SP: reduce-scatter along the sequence dim; backward
+    all-gather (``_ReduceScatterToSequenceParallelRegion``)."""
+    _check_compress(compress)
+    return _ScatterToSP.apply(
+        x, group if group is not None else get_tp_group(), seq_dim)
+
+
+def split_to_sp(x: torch.Tensor, group=None, seq_dim: int = 1
+                ) -> torch.Tensor:
+    """Full -> SP without a reduction: this rank's slice of the sequence;
+    backward all-gather — enters SP from a replicated activation."""
+    return _SplitToSP.apply(
+        x, group if group is not None else get_tp_group(), seq_dim)
+
+
+# ------------------------------------------------ vocabulary-parallel ends
+
+
+def vocab_max(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The elementwise max of ``x`` over the group (an all-reduce MAX),
+    outside autograd: the vocab-parallel loss's log-sum-exp shift, which
+    cancels in the gradient (JAX's ``pmax`` under ``stop_gradient``)."""
+    group = group if group is not None else get_tp_group()
+    with torch.no_grad():
+        out = x.clone(memory_format=torch.contiguous_format)
+        _count("xent_max")
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
+
+
+def gather_vocab(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Vocabulary slices [..., V / tp] -> [..., V] in rank order
+    (forward only: decoding's full logits)."""
+    group = group if group is not None else get_tp_group()
+    return _all_gather(x, group, x.dim() - 1, "full_logits")
+
+
+# ------------------------------------------------------- collective matmul
+
+
+class _RingShift(torch.autograd.Function):
+    """``x`` sent to rank ``r + shift`` of the group, the tensor of rank
+    ``r - shift`` received; the backward shifts the gradient back."""
+
+    @staticmethod
+    def forward(ctx, x, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return _shift(x, group, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g, ctx.group, -ctx.shift), None, None
+
+
+def _shift(x: torch.Tensor, group, shift: int) -> torch.Tensor:
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    _count("ring_shift")
+    ops = [dist.P2POp(dist.isend, x,
+                      dist.get_global_rank(group, (r + shift) % n), group),
+           dist.P2POp(dist.irecv, out,
+                      dist.get_global_rank(group, (r - shift) % n), group)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return out
+
+
+def ppermute(x: torch.Tensor, group=None, shift: int = 1) -> torch.Tensor:
+    """One differentiable ring step over the tensor group (JAX's
+    ``ppermute`` with the permutation ``p -> p + shift``)."""
+    return _RingShift.apply(x, group if group is not None else get_tp_group(),
+                            shift)
+
+
+def _tree_map(fn, *trees):
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def ring_ag_matmul(x: torch.Tensor, mm: Callable[[torch.Tensor], Any],
+                   group=None, out_seq_dim: int = 1) -> Any:
+    """``mm(gather_from_sp(x))`` without gathering first.  ``x`` is this
+    rank's sequence chunk ``[B, s, D]``; ``mm`` maps a chunk to its output
+    (a tensor or a dict of tensors whose ``out_seq_dim`` is the sequence
+    dim) and must be row-wise in the sequence.  Each of the ``n`` steps
+    applies ``mm`` to the chunk held and passes the raw chunk on to rank
+    ``+1``; the outputs are concatenated in their owners' order."""
+    group = group if group is not None else get_tp_group()
+    n, i = dist.get_world_size(group), dist.get_rank(group)
+    if n == 1:
+        return mm(x)
+    buf, ys = x, []
+    for k in range(n):
+        ys.append(mm(buf))  # rank i holds rank (i - k)'s chunk at step k
+        if k < n - 1:
+            buf = ppermute(buf, group, 1)
+    order = [ys[(i - o) % n] for o in range(n)]
+    return _tree_map(lambda *c: torch.cat(c, dim=out_seq_dim), *order)
+
+
+def ring_matmul_rs(h: torch.Tensor, mm: Callable[[torch.Tensor],
+                                                 torch.Tensor],
+                   group=None, seq_dim: int = 1) -> torch.Tensor:
+    """``scatter_to_sp(mm(h))`` as a ring of partial products.  ``h`` is
+    the full-sequence activation holding this rank's partial features;
+    ``mm`` maps a sequence chunk to its partial product.  Chunk ``j``'s
+    sum starts at rank ``j + 1`` and travels ``+1`` a step, each rank
+    adding its share, and lands home at rank ``j`` after ``n - 1``
+    hops."""
+    group = group if group is not None else get_tp_group()
+    n, i = dist.get_world_size(group), dist.get_rank(group)
+    if n == 1:
+        return mm(h)
+    S = h.shape[seq_dim]
+    if S % n:
+        raise ValueError(f"seq dim {S} not divisible by TP size {n}")
+    c = S // n
+
+    def chunk(j):
+        return h.narrow(seq_dim, j * c, c)
+
+    acc = mm(chunk((i - 1) % n))
+    for k in range(1, n):
+        acc = ppermute(acc, group, 1) + mm(chunk((i - 1 - k) % n))
+    return acc

@@ -74,10 +74,16 @@ fused dispatch kernel K6 on the card (``moe_dispatch='auto'`` ->
 pool is sharded by blocks over a ``torch.distributed`` group and every
 prefill chunk is split across its ranks (context parallelism: ring paged
 attention, K2 on the card, and ``serving_summary()['long_context']``).
-Tensor / data parallelism (``mesh``, ``axis``, ``dp_axis``) waits for
-ROADMAP queue A's "TP + SP"; telemetry, chaos, the watchdog and the
-metrics sink wait for its "Obs, resilience, tools, utils and HF
-conversion".  The constructor refuses them with NotImplementedError.
+With ``tp_group`` the model (dense or MoE) is tensor-parallel over a
+``torch.distributed`` group: each rank holds its shard and ``Hkv / tp``
+heads of the pool, and every step gathers the full logits.  The
+reference's ``mesh`` / ``axis`` stay refused (tensor parallelism takes
+``tp_group``); its data-parallel slot groups (``dp_axis``) wait for
+ROADMAP queue A's "Engine data-parallel groups", ``tp_group`` beside
+``ep_group`` or ``cp_group`` for its "TP compositions in serving";
+telemetry, chaos, the watchdog and the metrics sink wait for its "Obs,
+resilience, tools, utils and HF conversion".  The constructor refuses
+them with NotImplementedError.
 """
 
 from __future__ import annotations
@@ -88,6 +94,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.gpt import GPTConfig
 from ..obs.aggregate import moe_load_stats, percentiles
@@ -224,8 +231,13 @@ class _SlotState:
         self.pre_gen = 0
 
 
-_TP = ("a mesh (tensor and data parallelism) waits for ROADMAP queue A's "
-       "\"TP + SP\"")
+_TP = ("tensor parallelism takes tp_group= (a torch.distributed process "
+       "group), not mesh= / axis=")
+_DP = ("the engine's data-parallel slot groups (dp_axis, a BlockAllocator "
+       "a group) wait for ROADMAP queue A's \"Engine data-parallel "
+       "groups\"")
+_TP_WITH = ("tp_group with {} waits for ROADMAP queue A's \"TP "
+            "compositions in serving\"")
 _OBS = ("telemetry, chaos, the watchdog and the metrics sink wait for "
         "ROADMAP queue A's \"Obs, resilience, tools, utils and HF "
         "conversion\"")
@@ -238,8 +250,8 @@ _CP = ("context parallelism takes cp_group= (a torch.distributed process "
 #: serve yet: the value that means "off", and what each waits for
 _QUEUED_OPTIONS = {
     "mesh": (None, (_TP, _EP, _CP)), "axis": (None, (_TP,)),
-    "dp_axis": (None, (_TP,)), "ep_axis": (None, (_EP, _TP)),
-    "cp_axis": (None, (_CP, _TP)), "telemetry": (None, (_OBS,)),
+    "dp_axis": (None, (_DP,)), "ep_axis": (None, (_EP,)),
+    "cp_axis": (None, (_CP,)), "telemetry": (None, (_OBS,)),
     "chaos": (None, (_OBS,)), "watchdog": (None, (_OBS,)),
     "metrics_sink": (None, (_OBS,)),
 }
@@ -250,8 +262,6 @@ def _check_cp(cfg: GPTConfig, cp_group, chunk: int,
               on: set) -> int:
     """The size of the CP group, after the reference's refusals of what
     context parallelism does not serve (JAX ``engine.py:407-436``)."""
-    import torch.distributed as dist
-
     if ep_group is not None:
         raise NotImplementedError(
             "cp_group cannot be combined with ep_group: context parallelism "
@@ -340,6 +350,17 @@ class ServingEngine:
         ``kv_quant``, MoE, ``spec_k``, ``prefix_cache`` and ``ep_group``
         are refused.  The counterpart of the reference's ``mesh=`` +
         ``cp_axis=``, which stay refused.
+    tp_group: tensor parallelism — a ``torch.distributed`` process group
+        whose ranks each hold their shard of ``params``
+        (``models.gpt.shard_gpt_params``, or ``params_from_jax(tp_rank=,
+        tp_size=)``; an MoE model's router and experts whole) and run
+        this engine on the same requests in the same order.  Each rank's
+        pool holds ``Hkv / tp`` KV heads (K1 over them), every block sums
+        its row-parallel products over the group, and every step gathers
+        the full logits and takes rank 0's sampled tokens.  Works with
+        ``kv_quant``, ``spec_k``, ``prefix_cache`` and the MoE family;
+        with ``ep_group`` or ``cp_group`` it is refused.  The counterpart
+        of the reference's ``mesh=`` + ``axis=``, which stay refused.
     spec_k: draft tokens a decoding slot a tick (0: off); see the module
         docstring.  Works with the MoE family and ``ep_group``;
         ``serving_summary()['spec']`` counts drafted and accepted tokens.
@@ -373,6 +394,7 @@ class ServingEngine:
         moe_dispatch: Optional[str] = None,
         ep_group=None,
         cp_group=None,
+        tp_group=None,
         spec_k: int = 0,
         device=None,
         device_step: Optional[Any] = None,
@@ -385,6 +407,10 @@ class ServingEngine:
             raise ValueError(f"spec_k must be >= 0, got {spec_k}")
         on = sorted(k for k, v in queued.items()
                     if v != _QUEUED_OPTIONS[k][0])
+        if tp_group is not None:
+            for name, g in (("ep_group", ep_group), ("cp_group", cp_group)):
+                if g is not None:
+                    raise NotImplementedError(_TP_WITH.format(name))
         cp = 1
         if cp_group is not None:
             cp = _check_cp(cfg, cp_group, chunk, num_blocks, kv_quant,
@@ -436,9 +462,11 @@ class ServingEngine:
             from .sim import TorchDeviceStep
 
             device_step = TorchDeviceStep(cfg, device, attn_impl,
-                                          moe_dispatch, ep_group, cp_group)
+                                          moe_dispatch, ep_group, cp_group,
+                                          tp_group)
         elif getattr(device_step, "host_only", False) and (
-                ep_group is not None or cp_group is not None):
+                ep_group is not None or cp_group is not None
+                or tp_group is not None):
             raise ValueError(
                 "a host-only DeviceStep cannot run over a process group")
         #: the device seam (serving/sim.py): every device touch goes here
@@ -449,6 +477,10 @@ class ServingEngine:
         #: pool on this device)
         self.cp_group = cp_group
         self.cp = cp
+        #: the tensor-parallel group and its size (None / 1: whole
+        #: weights and every KV head on this device)
+        self.tp_group = tp_group
+        self.tp = 1 if tp_group is None else dist.get_world_size(tp_group)
         # the kernels this engine's step can launch
         # (a CP engine's attends all run the ring: K2, and K1 never — it
         # reports K1 too, to show it)
@@ -1906,7 +1938,7 @@ class ServingEngine:
                 "pool_bytes": pool_bytes(self.cache),
                 "pool_bytes_expected": expected_pool_bytes(
                     self.cfg, self.num_blocks // self.cp, self.block_size,
-                    quantized=self.kv_quant),
+                    quantized=self.kv_quant, axis_size=self.tp),
             },
             "attn_impl": self.attn_impl,
             "device": str(self.device),

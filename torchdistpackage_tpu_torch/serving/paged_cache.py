@@ -20,6 +20,10 @@ PyTorch counterpart of ``torchdistpackage_tpu/serving/paged_cache.py``.
   group with ``ep_group``), :func:`cp_paged_forward` for the dense family
   over a context-parallel group whose ranks each hold a block slice of
   the pool (ring paged attention, ``ops/ring_paged.py``, K2 on the card).
+  With ``tp_group`` the dense and MoE forwards run tensor-parallel: the
+  pool holds the rank's ``Hkv / tp`` KV heads (``init_paged_kv(axis_size=
+  tp)``), the parameters are the rank's shard, and the logits come back
+  as the rank's vocabulary slice.
 
 :class:`BlockAllocator` is host-side and O(blocks): refcounts, the
 chained content-hash index of the prefix cache (:func:`chain_block_hashes`)
@@ -44,7 +48,12 @@ import torch
 import torch.distributed as dist
 
 from ..device import resolve_device
-from ..models.generate import _embed_at, _kv_quant, cached_block_forward
+from ..models.generate import (
+    _TP_EP,
+    _embed_at,
+    _kv_quant,
+    cached_block_forward,
+)
 from ..models.gpt import GPTConfig, gpt_head, layer_params
 from ..ops.paged_attention import (
     paged_decode_attention,
@@ -59,12 +68,19 @@ NULL_BLOCK = 0
 
 def init_paged_kv(cfg: GPTConfig, num_blocks: int, block_size: int,
                   quantized: bool = False, device=None,
-                  cp: int = 1) -> Dict[str, Any]:
+                  cp: int = 1, axis_size: int = 1) -> Dict[str, Any]:
     """Zeroed pool ``{'k','v': [L, num_blocks, Hkv, block_size, hd]}`` in
     ``cfg.dtype`` on ``device`` (default: the card); int8 pairs with unit
     scales when ``quantized``.  ``cp > 1``: one rank's block slice of a
-    context-parallel pool, ``num_blocks / cp`` blocks."""
+    context-parallel pool, ``num_blocks / cp`` blocks.  ``axis_size``:
+    the tensor-parallel size — the rank's ``Hkv / axis_size`` heads (JAX
+    :75)."""
     device = resolve_device(device)
+    hkv, rem = divmod(cfg.block.kv_head_count, axis_size)
+    if rem or hkv == 0:
+        raise ValueError(
+            f"kv_heads {cfg.block.kv_head_count} not divisible by tp "
+            f"{axis_size} (whole KV heads per shard)")
     if num_blocks < 2:
         raise ValueError(
             f"num_blocks must be >= 2 (block 0 is the reserved NULL block), "
@@ -73,8 +89,8 @@ def init_paged_kv(cfg: GPTConfig, num_blocks: int, block_size: int,
         raise ValueError(
             f"num_blocks ({num_blocks}) must be divisible by the CP group "
             f"size ({cp})")
-    shape = (cfg.nlayers, num_blocks // cp, cfg.block.kv_head_count,
-             block_size, cfg.block.head_dim)
+    shape = (cfg.nlayers, num_blocks // cp, hkv, block_size,
+             cfg.block.head_dim)
     if quantized:
         def entry():
             return (torch.zeros(shape, dtype=torch.int8, device=device),
@@ -228,7 +244,7 @@ def _layer_kv(c, layer: int):
 
 def _paged_inputs(params: Dict[str, Any], tokens: torch.Tensor,
                   cfg: GPTConfig, cache: Dict[str, Any], tables: torch.Tensor,
-                  offset: torch.Tensor, attn_impl: str):
+                  offset: torch.Tensor, attn_impl: str, tp_group=None):
     """What every layer of a paged forward shares: the embedded rows, the
     int32 offsets, the rope tables and the ``(write, attend)`` pair."""
     S_in = tokens.shape[1]
@@ -239,7 +255,7 @@ def _paged_inputs(params: Dict[str, Any], tokens: torch.Tensor,
     # padded prefill rows may run past a learned position table; their
     # values are never read, so clamp instead of faulting on the device
     h = _embed_at(params, tokens.long(),
-                  positions.clamp(max=cfg.max_seq - 1).long())
+                  positions.clamp(max=cfg.max_seq - 1).long(), tp_group)
     rope = _batched_rope(cfg.block, positions)
     slots = _scatter_positions(tables, positions, block_size_of(cache))
     return h, offset, rope, _paged_cache_ops(tables, attn_impl, slots)
@@ -248,9 +264,8 @@ def _paged_inputs(params: Dict[str, Any], tokens: torch.Tensor,
 def paged_forward(params: Dict[str, Any], tokens: torch.Tensor,
                   cfg: GPTConfig, cache: Dict[str, Any], tables: torch.Tensor,
                   offset: torch.Tensor, last_idx=None,
-                  attn_impl: str = "gather",
-                  all_logits: bool = False) -> Tuple[Dict[str, Any],
-                                                     torch.Tensor]:
+                  attn_impl: str = "gather", all_logits: bool = False,
+                  tp_group=None) -> Tuple[Dict[str, Any], torch.Tensor]:
     """Run ``tokens`` [B, S_in] (slot b's rows at positions ``offset[b] +
     arange(S_in)``) through the cached stack on the pool: every layer
     writes its k/v into the slots' blocks (in place) and attends through
@@ -259,18 +274,28 @@ def paged_forward(params: Dict[str, Any], tokens: torch.Tensor,
     chunk``; decode is ``S_in = 1`` — one implementation, both phases.
     ``all_logits=True`` (JAX :254-297) returns every row's logits [B,
     S_in, V] instead: the speculative verify's ``K + 1`` rows a slot, one
-    K1 call a layer."""
+    K1 call a layer.  ``tp_group`` (JAX's ``axis``): ``params`` and the
+    pool are the rank's shard (K1 over its ``Hkv / tp`` heads) and the
+    logits its vocabulary slice [..., V / tp]."""
     h, offset, rope, ops = _paged_inputs(params, tokens, cfg, cache, tables,
-                                         offset, attn_impl)
+                                         offset, attn_impl, tp_group)
     for layer in range(cfg.nlayers):
         h, _, _ = cached_block_forward(
             layer_params(params, layer), h, cfg.block,
             _layer_kv(cache["k"], layer), _layer_kv(cache["v"], layer),
-            offset, cache_ops=ops, rope=rope)
+            offset, cache_ops=ops, rope=rope, tp_group=tp_group)
+    return cache, _logits(params, h, cfg, last_idx, all_logits, tp_group)
+
+
+def _logits(params, h: torch.Tensor, cfg: GPTConfig, last_idx,
+            all_logits: bool, tp_group) -> torch.Tensor:
+    """Every row's logits [B, S_in, V] (``all_logits``) or row
+    ``last_idx``'s [B, V]; the rank's vocabulary slice under
+    ``tp_group``."""
     if all_logits:
-        return cache, gpt_head(params, h, eps=cfg.norm_eps)
-    logits = gpt_head(params, _select_row(h, last_idx), eps=cfg.norm_eps)
-    return cache, logits[:, 0, :]
+        return gpt_head(params, h, eps=cfg.norm_eps, tp_group=tp_group)
+    return gpt_head(params, _select_row(h, last_idx), eps=cfg.norm_eps,
+                    tp_group=tp_group)[:, 0, :]
 
 
 def _cp_paged_cache_ops(tables: torch.Tensor, group, attn_impl: str,
@@ -380,7 +405,7 @@ def paged_forward_moe(params: Dict[str, Any], tokens: torch.Tensor,
                       last_idx=None, attn_impl: str = "gather",
                       moe_dispatch: Optional[str] = None,
                       moe_stats: bool = False, ep_group=None,
-                      all_logits: bool = False):
+                      all_logits: bool = False, tp_group=None):
     """:func:`paged_forward` for the MoE family: ``params['blocks']`` is the
     per-block list of ``init_gpt_moe_params``, and every expert block's FFN
     is :func:`~..parallel.moe.moe_serve_forward` (exact no-drop routing).
@@ -399,10 +424,16 @@ def paged_forward_moe(params: Dict[str, Any], tokens: torch.Tensor,
     with token-major priority for a causal model; ``'gather'`` maps to
     the index dispatch ``'sorted'`` (the exchange has no ragged form) and
     ``'cuda'`` runs K7.  ``all_logits=True``: every row's logits [B, S_in,
-    V], as in :func:`paged_forward` (JAX :415)."""
+    V], as in :func:`paged_forward` (JAX :415).  ``tp_group``: attention,
+    the embedding and the head as in :func:`paged_forward`, the router
+    and the experts whole on every rank
+    (``models.gpt_moe.gpt_moe_param_specs``); with ``ep_group`` it waits
+    for ROADMAP queue A's "TP compositions in serving"."""
     from ..models.gpt_moe import moe_layer_config
     from ..parallel.moe import moe_forward, moe_serve_forward
 
+    if tp_group is not None and ep_group is not None:
+        raise NotImplementedError(_TP_EP)
     mcfg = moe_layer_config(cfg)
     disp = resolve_serving_dispatch(
         mcfg.dispatch if moe_dispatch is None else moe_dispatch,
@@ -412,7 +443,7 @@ def paged_forward_moe(params: Dict[str, Any], tokens: torch.Tensor,
             mcfg, dispatch=disp, capacity_factor=max(
                 mcfg.capacity_factor, mcfg.num_experts / mcfg.top_k))
     h, offset, rope, ops = _paged_inputs(params, tokens, cfg, cache, tables,
-                                         offset, attn_impl)
+                                         offset, attn_impl, tp_group)
     collected = []  # per-expert-layer metrics (moe_stats)
 
     def moe_ffn(p, hh):
@@ -433,12 +464,8 @@ def paged_forward_moe(params: Dict[str, Any], tokens: torch.Tensor,
         h, _, _ = cached_block_forward(
             bp, h, cfg.block, _layer_kv(cache["k"], layer),
             _layer_kv(cache["v"], layer), offset, cache_ops=ops, rope=rope,
-            ffn=moe_ffn if "moe" in bp else None)
-    if all_logits:
-        logits = gpt_head(params, h, eps=cfg.norm_eps)
-    else:
-        logits = gpt_head(params, _select_row(h, last_idx),
-                          eps=cfg.norm_eps)[:, 0, :]
+            ffn=moe_ffn if "moe" in bp else None, tp_group=tp_group)
+    logits = _logits(params, h, cfg, last_idx, all_logits, tp_group)
     if not moe_stats:
         return cache, logits
     # routed-token counts sum over the expert layers, the drop rate averages

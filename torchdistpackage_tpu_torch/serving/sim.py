@@ -39,6 +39,7 @@ import torch
 import torch.distributed as dist
 
 from ..device import resolve_device
+from ..models.generate import _full_logits
 from ..models.gpt import GPTConfig
 from ..ops.paged_attention import resolve_attn_impl
 from .engine import _filtered_logits, _slot_sample
@@ -142,20 +143,29 @@ class TorchDeviceStep(DeviceStep):
     ``cfg.moe_dispatch``), once, here.  ``ep_group``: the expert-parallel
     group the MoE layers exchange over; ``cp_group``: the context-parallel
     group whose ranks each hold a block slice of the pool (the step is
-    then :func:`~.paged_cache.cp_paged_forward`).  With either, each step
-    broadcasts the group's rank 0's sampled tokens to the group."""
+    then :func:`~.paged_cache.cp_paged_forward`); ``tp_group``: the
+    tensor-parallel group whose ranks each hold their shard of the
+    parameters and ``Hkv / tp`` heads of the pool — the step gathers the
+    full logits (``models.generate._full_logits``) before it samples.
+    With any of them, each step broadcasts the group's rank 0's sampled
+    tokens to the group."""
 
     def __init__(self, cfg: GPTConfig, device=None,
                  attn_impl: str = "auto",
                  moe_dispatch: Optional[str] = None, ep_group=None,
-                 cp_group=None) -> None:
+                 cp_group=None, tp_group=None) -> None:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.attn_impl = resolve_attn_impl(attn_impl, self.device)
         self.moe_dispatch = None
         self.ep_group = ep_group
         self.cp_group = cp_group
+        self.tp_group = tp_group
         self.cp = 1 if cp_group is None else dist.get_world_size(cp_group)
+        self.tp = 1 if tp_group is None else dist.get_world_size(tp_group)
+        #: the group whose rank 0's tokens every rank takes
+        self.group = next((g for g in (ep_group, cp_group, tp_group)
+                           if g is not None), None)
         if cfg.moe_experts:
             self.moe_dispatch = resolve_serving_dispatch(
                 cfg.moe_dispatch if moe_dispatch is None else moe_dispatch,
@@ -165,7 +175,7 @@ class TorchDeviceStep(DeviceStep):
                    quantized: bool) -> Any:
         return init_paged_kv(self.cfg, num_blocks, block_size,
                              quantized=quantized, device=self.device,
-                             cp=self.cp)
+                             cp=self.cp, axis_size=self.tp)
 
     def stream(self, seed: int) -> torch.Generator:
         """A request's private sampling stream, seeded from its seed."""
@@ -208,25 +218,25 @@ class TorchDeviceStep(DeviceStep):
         if self.cfg.moe_experts:
             cache, logits, moe = paged_forward_moe(
                 *args, moe_dispatch=self.moe_dispatch, moe_stats=True,
-                ep_group=self.ep_group, **kw)
+                ep_group=self.ep_group, tp_group=self.tp_group, **kw)
         elif self.cp_group is not None:
             cache, logits = cp_paged_forward(*args, cp_group=self.cp_group,
                                              **kw)
         else:
-            cache, logits = paged_forward(*args, **kw)
-        tok = _slot_sample(logits, _sampled(streams, samp),
+            cache, logits = paged_forward(*args, tp_group=self.tp_group, **kw)
+        tok = _slot_sample(_full_logits(logits, self.cfg, self.tp_group),
+                           _sampled(streams, samp),
                            self._to_dev(samp["temperature"]),
                            self._to_dev(samp["top_k"]),
                            self._to_dev(samp["top_p"]))
-        group = self.ep_group if self.ep_group is not None else self.cp_group
-        if group is not None:
+        if self.group is not None:
             # every rank takes rank 0's tokens (the reference's pmax): a
             # row whose argmax is a near-tie may flip on one rank only (EP:
             # the F-tile atomics sum in another order; CP: each rank's
             # combine sums in its own order), and ranks that schedule
             # differently hang in the next collective
-            dist.broadcast(tok, src=dist.get_global_rank(group, 0),
-                           group=group)
+            dist.broadcast(tok, src=dist.get_global_rank(self.group, 0),
+                           group=self.group)
         if moe is None:
             return cache, tok.to(torch.int32).cpu().numpy(), None
         # float64 holds every int32 token id exactly
@@ -249,23 +259,25 @@ class TorchDeviceStep(DeviceStep):
         ``all_logits`` (every position's distribution in one call, one
         K1 launch a layer), then judged by :meth:`judge`.  Host arrays
         in; ``(cache, verify [B, K+1], accept [B, K])`` out, in one
-        read-back.  Under EP every rank takes rank 0's verdict, as
+        read-back.  Under EP or TP every rank takes rank 0's verdict, as
         :meth:`step` takes its tokens."""
         tok = self._to_dev(tokens)
         args = (params, tok, self.cfg, cache, self._to_dev(tables),
                 self._to_dev(offsets))
-        kw = dict(attn_impl=self.attn_impl, all_logits=True)
+        kw = dict(attn_impl=self.attn_impl, all_logits=True,
+                  tp_group=self.tp_group)
         if self.cfg.moe_experts:
             cache, logits = paged_forward_moe(
                 *args, moe_dispatch=self.moe_dispatch,
                 ep_group=self.ep_group, **kw)
         else:
             cache, logits = paged_forward(*args, **kw)
-        ver, acc = self.judge(logits, tok, samp, _sampled(streams, samp))
+        ver, acc = self.judge(_full_logits(logits, self.cfg, self.tp_group),
+                              tok, samp, _sampled(streams, samp))
         both = torch.cat([ver, acc.long()], dim=1)
-        if self.ep_group is not None:
-            dist.broadcast(both, src=dist.get_global_rank(self.ep_group, 0),
-                           group=self.ep_group)
+        if self.group is not None:
+            dist.broadcast(both, src=dist.get_global_rank(self.group, 0),
+                           group=self.group)
         host = both.to(torch.int32).cpu().numpy()
         K1 = tokens.shape[1]
         return cache, host[:, :K1], host[:, K1:]
