@@ -139,7 +139,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    24576, 16384 and 8192 prompt tokens (Mistral's 32768 positions, a ~17
    GB pool) through K2, launched once per layer per device call, K1
    never; the share of its tokens equal to the K1 engine's on the same
-   requests; a decode tick profiled.  Then the contiguous-cache decoding
+   requests; a decode tick profiled; and TP beside CP
+   (``tp_cp_phase``: a one-rank NCCL context x tensor layout,
+   ``ServingEngine(cp_group=, tp_group=, replica_group=)`` on the same 4
+   requests, every token equal to the CP engine's, K2 once a layer a
+   device call, K1 never).  Then the contiguous-cache decoding
    family (``generate_phase``, ``attn_impl='flash'``): greedy
    ``generate`` at B 4 on 1000-token prompts, 64 new tokens (K3 once a
    layer for the prefill, never in a decode step; every token held by
@@ -164,7 +168,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    the plain engine's), ``generate(tp_group=)`` at B 4, 1000-token
    prompts, 16 new tokens (equal to ``generate()``'s, K3 once a layer),
    and on a 2-layer model of Mixtral-8x7B-v0.1's widths (equal, K6 once a
-   layer a forward call; ``tp_generate_phase``).
+   layer a forward call; ``tp_generate_phase``); TP beside EP on that
+   model over a one-rank NCCL tensor x moe_ep layout (``tp_ep_phase``:
+   the engine on the 16 requests and ``generate`` at B 4, 1000 + 16,
+   every token equal to the EP engine's and ``generate(ep_group=)``'s,
+   K7 once an expert layer a forward call, K6 never, K3 once a layer at
+   the prefill).  Then, with this process's model freed, the engine's
+   data-parallel slot groups (``dp_engine_phase``): two processes on the
+   card (spawned, gloo between them), each with the whole model and the
+   pool of 4 of the 8 slots, serve the 16 requests with ``dp_group=``:
+   each rank's K1 once a layer a device call on its own 4 rows, its
+   allocator's peak and ``dp_groups`` printed, both hosts' tokens equal,
+   and every greedy token the plain engine's or a teacher-forced
+   near-tie within 5 % of its row's scale (the exact share printed).
 6. MoE serve — Mixtral-8x7B-v0.1 widths at 16 of 32 layers (23.5 B
    parameters, 47 GB of bf16; all 32 layers do not fit one 80 GB card),
    random weights: ``paged_forward_moe`` with K6 against the ragged
@@ -3960,35 +3976,46 @@ def moe_generate_phase(params, shard, cfg, card, group):
 
 
 @contextlib.contextmanager
-def tensor_group(tag):
-    """A one-rank NCCL process group (the card machine has one H100) and
-    ``tpc``'s ``tensor`` axis over it; yields the tensor group.  At one
-    rank every region's collective is a copy and the rings take the
-    reference's shortcut: these phases prove the TP paths run through the
-    kernels at full width with every collective made; the multi-rank
-    exchange is proven on the CPU over gloo (tests/test_torch_tp.py)."""
+def one_rank_layout(tag, config, moe_ep=False):
+    """A one-rank NCCL process group (the card machine has one H100) laid
+    out by ``tpc`` over ``config`` (and its MoE view, ``build_moe_mesh``,
+    with ``moe_ep``); yields ``tpc``.  At one rank every axis's group is
+    the same rank, every collective a copy: these phases prove the
+    parallel paths run through the kernels at full width with every
+    collective made; the multi-rank exchanges are proven on the CPU over
+    gloo (tests/test_torch_tp.py, tests/test_torch_serving_compose.py)."""
     import torch.distributed as dist
 
     from torchdistpackage_tpu_torch.dist import init_distributed, tpc
 
     init_distributed(f"tcp://127.0.0.1:{free_port()}", 1, 0, "cuda")
     try:
-        tpc.setup_process_groups([("data", 1), ("tensor", 1)])
-        group = tpc.get_group("tensor")
+        tpc.setup_process_groups(config)
+        if moe_ep:
+            tpc.build_moe_mesh(moe_ep_size=1)
+        group = tpc.get_group(config[-1][0])
         if dist.get_backend(group) != "nccl":
-            raise RuntimeError("the tensor group on the card must use NCCL")
+            raise RuntimeError(f"the {tag} groups on the card must use NCCL")
         # NCCL makes a group's communicator at its first collective: once
         # here, so that no phase times it
         t0 = time.perf_counter()
         dist.all_reduce(torch.zeros(1, device="cuda"), group=group)
         torch.cuda.synchronize()
-        log(f"[{tag}] process group: backend {dist.get_backend(group)}, TP "
-            f"size {group.size()}, first collective "
-            f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
-        yield group
+        log(f"[{tag}] process group: backend {dist.get_backend(group)}, "
+            f"layout {config}{' + moe_ep 1' if moe_ep else ''}, first "
+            f"collective {(time.perf_counter() - t0) * 1e3:.1f} ms")
+        yield tpc
     finally:
         tpc.reset()
         dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def tensor_group(tag):
+    """A one-rank NCCL ``tensor`` group (:func:`one_rank_layout` over data
+    1 x tensor 1); yields the tensor group."""
+    with one_rank_layout(tag, [("data", 1), ("tensor", 1)]) as ctx:
+        yield ctx.get_group("tensor")
 
 
 def tp_collectives(L, sp):
@@ -4316,12 +4343,10 @@ def cp_engine_phase(params, cfg, card, group):
     (no group): the share of generated tokens equal to it, reported and
     not held (random weights give near-ties)."""
     from torchdistpackage_tpu_torch.ops import paged_attention as pa
-    from torchdistpackage_tpu_torch.serving import Request, ServingEngine
+    from torchdistpackage_tpu_torch.serving import ServingEngine
 
-    rs = np.random.RandomState(2)
-    lens = [30720, 24576, 16384, 8192]
-    reqs = [Request(rs.randint(0, cfg.vocab_size, n).tolist(), 32)
-            for n in lens]
+    reqs = cp_requests(cfg)
+    lens = [len(r.tokens) for r in reqs]
     kw = dict(num_slots=4, block_size=BS, chunk=512, max_ctx=32768)
     eng = ServingEngine(params, cfg, cp_group=group, **kw)
     if eng.attn_impl != "cuda" or eng.cp != 1:
@@ -4385,7 +4410,8 @@ def cp_engine_phase(params, cfg, card, group):
         f"of {len(np.concatenate(got))} (first divergence at tokens "
         f"{lead} of 32; reported, not held)")
     return {"launches": launches, "summary": s, "wall_s": wall,
-            "peak_gb": peak_gb, "pool_gb": pool_gb, "k1_agree": same}
+            "peak_gb": peak_gb, "pool_gb": pool_gb, "k1_agree": same,
+            "tokens": got}
 
 
 def cp_phase(params, cfg, card):
@@ -4415,6 +4441,390 @@ def cp_phase(params, cfg, card):
     finally:
         dist.destroy_process_group()
     return {"model": model, **eng}
+
+
+def cp_requests(cfg):
+    """:func:`cp_engine_phase`'s 4 greedy requests (prompts 30720, 24576,
+    16384 and 8192 tokens from ``RandomState(2)``, 32 new tokens each)."""
+    from torchdistpackage_tpu_torch.serving import Request
+
+    rs = np.random.RandomState(2)
+    return [Request(rs.randint(0, cfg.vocab_size, n).tolist(), 32)
+            for n in (30720, 24576, 16384, 8192)]
+
+
+def tp_cp_phase(params, cfg, card, cp_run):
+    """TP beside CP: the Mistral model (all 32 layers) over a one-rank
+    NCCL context x tensor layout (``tpc`` over ``[('context', 1),
+    ('tensor', 1)]``; the replica group over both), ``ServingEngine(
+    cp_group=, tp_group=, replica_group=)`` on :func:`cp_engine_phase`'s
+    requests with its engine shape.  Counts set to 0 just before the run
+    and read just after: K2 once a layer a device call, K1 never.  At one
+    rank every collective is a copy and each row-parallel bias is added
+    after it, so the arithmetic is the CP engine's: every token equal to
+    ``cp_run``'s."""
+    from torchdistpackage_tpu_torch.models.gpt import shard_gpt_params
+    from torchdistpackage_tpu_torch.ops import paged_attention as pa
+    from torchdistpackage_tpu_torch.serving import ServingEngine
+
+    reqs = cp_requests(cfg)
+    with one_rank_layout("tp-cp", [("context", 1), ("tensor", 1)]) as ctx:
+        shard = shard_gpt_params(params, cfg, 0, 1)
+        eng = ServingEngine(shard, cfg, num_slots=4, block_size=BS,
+                            chunk=512, max_ctx=32768,
+                            cp_group=ctx.get_group("context"),
+                            tp_group=ctx.get_group("tensor"),
+                            replica_group=ctx.replica_group())
+        rids = [eng.submit(r) for r in reqs]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        s = eng.serving_summary()
+        calls = s["prefill_chunks"] + s["decode_steps"]
+        launches = {"paged_carry_attention": cfg.nlayers * calls}
+        expect_launches("TP x CP engine", launches)
+        got = [eng.finished[r]["tokens"][len(q.tokens):] for r, q in
+               zip(rids, reqs)]
+        done = s["requests"]["completed"]
+        conserved = eng.audit(heal=False)["ok"] and not eng._alloc.in_use
+        del eng
+        cost = region_ms(ctx.get_group("tensor"), (4, 1, cfg.dim),
+                         cfg.dtype)
+    torch.cuda.empty_cache()
+    same = float(np.mean(np.concatenate(got)
+                         == np.concatenate(cp_run["tokens"])))
+    ttft, tpot = s["ttft_s"], s["tpot_s"]
+    log(f"[tp-cp] {len(reqs)} greedy requests through ServingEngine("
+        f"cp_group=, tp_group=, replica_group=), {s['generated_tokens']} "
+        f"tokens in {wall:.2f} s: {s['tokens_per_sec']:.2f} tok/s (CP "
+        f"engine {cp_run['summary']['tokens_per_sec']:.2f}), TTFT p50 "
+        f"{ttft['p50']:.3f} s, TPOT p50 {tpot['p50'] * 1e3:.2f} ms, "
+        f"{s['prefill_chunks']} prefill calls + {s['decode_steps']} decode "
+        f"calls, launches {launches} (K1 0); {same:.3f} of the tokens "
+        f"equal to the CP engine's; one reduce_from_tp on [4, 1, "
+        f"{cfg.dim}] {cost['region']:.4f} ms a call (a clone alone "
+        f"{cost['clone']:.4f}), {2 * cfg.nlayers + 3} such calls a decode "
+        f"tick — on {card}")
+    if done != len(reqs) or not conserved:
+        raise RuntimeError(f"TP x CP engine: completed {done} of "
+                           f"{len(reqs)}, pool conserved {conserved}")
+    if same != 1.0:
+        raise RuntimeError("TP x CP engine: tokens differ from the CP "
+                           "engine's")
+    return {"launches": launches, "summary": s, "wall_s": wall,
+            "same": same, "region_ms": cost}
+
+
+@torch.no_grad()
+def tp_ep_phase(card, layers=2):
+    """TP beside EP: ``layers`` layers of Mixtral-8x7B-v0.1's widths (bf16,
+    flash, random weights from seed 3, as ``tp_generate_phase``) over a
+    one-rank NCCL tensor x moe_ep layout (``build_moe_mesh`` on data 1 x
+    tensor 1; the replica group over moe_ep x tensor), the rank's share
+    from ``shard_moe_params(..., tp_rank=, tp_size=)``.  The engine (8
+    slots, chunk 512) on :func:`engine_requests`' 16 requests through
+    ``ServingEngine(ep_group=)`` and through ``ServingEngine(ep_group=,
+    tp_group=, replica_group=)``: K7 and K1 once a layer a device call, K6
+    never, every token equal (at one rank the collectives are copies, the
+    arithmetic the EP engine's); then ``generate(ep_group=)`` and
+    ``generate(tp_group=, ep_group=)``, B 4, 1000-token prompts, 16 new
+    tokens: K3 once a layer (the prefill call), K7 once a layer a forward
+    call, tokens equal."""
+    from torchdistpackage_tpu_torch.models import (
+        generate,
+        init_gpt_moe_params,
+        mixtral_8x7b_config,
+        shard_moe_params,
+    )
+    from torchdistpackage_tpu_torch.serving import ServingEngine
+
+    cfg = dataclasses.replace(mixtral_8x7b_config(nlayers=layers),
+                              attn_impl="flash")
+    L = cfg.nlayers
+    p = init_gpt_moe_params(cfg, torch.Generator(device="cuda").manual_seed(3))
+    out = {}
+    with one_rank_layout("tp-ep", [("data", 1), ("tensor", 1)],
+                         moe_ep=True) as ctx:
+        tp, ep = ctx.get_group("tensor"), ctx.get_group("moe_ep")
+        shard = shard_moe_params(p, cfg, 0, 1, tp_rank=0, tp_size=1)
+        runs = {}
+        for name, kw in (("ep", dict(ep_group=ep)),
+                         ("tp_ep", dict(ep_group=ep, tp_group=tp,
+                                        replica_group=ctx.replica_group(
+                                            "moe")))):
+            reqs, _ = engine_requests(cfg)
+            eng = ServingEngine(shard, cfg, num_slots=8, block_size=BS,
+                                chunk=512, max_ctx=8192, moe_dispatch="cuda",
+                                **kw)
+            rids = [eng.submit(r) for r in reqs]
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            eng.run_until_idle()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            s = eng.serving_summary()
+            calls = s["prefill_chunks"] + s["decode_steps"]
+            launches = {"fused_expert_ffn": L * calls,
+                        "paged_decode_attention": L * calls}
+            expect_launches(f"{name} engine", launches)
+            if s["requests"]["completed"] != len(reqs):
+                raise RuntimeError(f"{name} engine: completed "
+                                   f"{s['requests']} of {len(reqs)}")
+            runs[name] = {"tokens": [eng.finished[r]["tokens"] for r in rids],
+                          "launches": launches, "wall_s": wall,
+                          "tok_s": s["tokens_per_sec"],
+                          "tpot_ms": s["tpot_s"]["p50"] * 1e3}
+            del eng
+        same = [np.array_equal(a, b) for a, b in
+                zip(runs["tp_ep"]["tokens"], runs["ep"]["tokens"])]
+        log(f"[tp-ep] engine, {L} Mixtral layers, 16 requests through "
+            f"ServingEngine(ep_group=, tp_group=, replica_group=): "
+            f"{runs['tp_ep']['tok_s']:.2f} tok/s, TPOT p50 "
+            f"{runs['tp_ep']['tpot_ms']:.2f} ms (EP engine "
+            f"{runs['ep']['tok_s']:.2f} tok/s, "
+            f"{runs['ep']['tpot_ms']:.2f} ms); launches "
+            f"{runs['tp_ep']['launches']} (K6 0); tokens equal to the EP "
+            f"engine's in {sum(same)} of {len(same)} requests — on {card}")
+        if not all(same):
+            raise RuntimeError("TP x EP engine: tokens differ from the EP "
+                               "engine's")
+        out["engine"] = {k: {kk: vv for kk, vv in v.items()
+                             if kk != "tokens"} for k, v in runs.items()}
+        B, P, N = 4, GEN_PROMPT, 16
+        g = torch.Generator(device="cuda").manual_seed(7)
+        prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=g,
+                               device="cuda")
+        toks = {}
+        for name, kw in (("ep", dict(ep_group=ep)),
+                         ("tp_ep", dict(ep_group=ep, tp_group=tp))):
+            generate(shard, prompt, cfg, 2, **kw)  # warm-up
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            toks[name] = generate(shard, prompt, cfg, N, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {"flash_fwd": L, "fused_expert_ffn": L * N}
+            expect_launches(f"{name} generate", launches)
+            out[f"generate_{name}"] = {"launches": launches, "wall_s": wall}
+        same = float((toks["tp_ep"] == toks["ep"]).float()[:, P:].mean())
+        log(f"[tp-ep] generate(tp_group=, ep_group=), {L} layers: B {B}, "
+            f"prompt {P}, {N} new in {out['generate_tp_ep']['wall_s']:.3f} s "
+            f"(generate(ep_group=) {out['generate_ep']['wall_s']:.3f} s); "
+            f"{same:.3f} of the new tokens equal; launches "
+            f"{out['generate_tp_ep']['launches']} — on {card}")
+        if same != 1.0:
+            raise RuntimeError("TP x EP generate: tokens differ from "
+                               "generate(ep_group=)'s")
+        del shard
+    del p
+    torch.cuda.empty_cache()
+    return out
+
+
+DP_GROUPS = 2  # two processes on the one card, gloo between them
+
+
+def dp_engine_rank(rank, world, port, tmp):
+    """One rank of :func:`dp_engine_phase`, in its own process: gloo over
+    the loopback (NCCL puts no two ranks of one communicator on one card),
+    the kernels loaded from the parent's build, Mistral-7B-v0.1 from the
+    parent's seed, ``ServingEngine(dp_group=)`` on
+    :func:`engine_requests`; rank 0 teacher-forces every greedy request
+    whose tokens differ from the plain engine's.  Writes
+    ``rank<r>.json`` under ``tmp``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from torchdistpackage_tpu_torch.models import (
+        init_gpt_params,
+        mistral_7b_config,
+    )
+    from torchdistpackage_tpu_torch.ops import _build
+    from torchdistpackage_tpu_torch.ops.paged_attention import LAUNCHES
+    from torchdistpackage_tpu_torch.serving import ServingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        _build.load_all(["paged_attention", "flash_attention"])
+        cfg = mistral_7b_config()
+        params = init_gpt_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0))
+        reqs, lens = engine_requests(cfg)
+        eng = ServingEngine(params, cfg, num_slots=8, block_size=BS,
+                            chunk=512, max_ctx=8192,
+                            dp_group=dist.group.WORLD)
+        rids = [eng.submit(r) for r in reqs]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        reset_counts()
+        t0 = time.perf_counter()
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        s = eng.serving_summary()
+        tokens = [eng.finished[r]["tokens"] for r in rids]
+        res = {"rank": rank, "nlayers": cfg.nlayers,
+               "launches": LAUNCHES["paged_decode_attention"],
+               "calls": s["prefill_chunks"] + s["decode_steps"],
+               "prefill_calls": s["prefill_chunks"],
+               "decode_calls": s["decode_steps"],
+               "dp_groups": s["kv_pool"]["dp_groups"],
+               "num_blocks": s["kv_pool"]["num_blocks"],
+               "pool_bytes": s["kv_pool"]["pool_bytes"],
+               "peaks": [a.peak_in_use for a in eng._allocs],
+               "in_use": [a.in_use for a in eng._allocs],
+               "audit_ok": eng.audit(heal=False)["ok"],
+               "completed": s["requests"]["completed"],
+               "wall_s": wall, "tok_s": s["tokens_per_sec"],
+               "ttft_p50": s["ttft_s"]["p50"], "tpot_p50": s["tpot_s"]["p50"],
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "tokens": [t.tolist() for t in tokens],
+               "generated": [eng.finished[r]["tokens"][len(q.tokens):]
+                             .tolist() for r, q in zip(rids, reqs)],
+               "sampled": [i for i, q in enumerate(reqs)
+                           if q.temperature > 0]}
+        del eng
+        torch.cuda.empty_cache()
+        gaps = {}
+        if rank == 0:
+            plain = np.load(Path(tmp) / "plain.npz")
+            tcfg = dataclasses.replace(cfg, attn_impl="flash")
+            for i, (req, tok) in enumerate(zip(reqs, tokens)):
+                if req.temperature > 0 or np.array_equal(
+                        tok, plain[f"arr_{i}"]):
+                    continue
+                seq = torch.from_numpy(tok[None].astype(np.int64)).cuda()
+                logits = teacher_logits_of(params, tcfg, seq)
+                g = tf_gaps(logits, seq, len(req.tokens))
+                gaps[i] = [float(g.max()), float((g == 0).float().mean())]
+                del logits
+        res["tf_max_gap"] = gaps
+        (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(res))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_engine_phase(card, plain, timeout=900):
+    """The engine's data-parallel slot groups on the one card: two
+    processes (``torch.multiprocessing``, spawn — this process has CUDA
+    up), a data 2 x tensor 1 layout whose data group is gloo (NCCL puts
+    no two ranks of one communicator on one card; over gloo the step's
+    gather moves the host copy of the tokens it reads back anyway).  Each
+    holds Mistral-7B-v0.1 whole (32 layers, ~14.5 GB bf16, the serving
+    phase's seed) and its group's pool for 4 of the 8 slots; both serve
+    :func:`engine_requests`' 16 requests, the slots split 4 + 4.  Each
+    rank's K1 launches are once a layer a device call (each call on its
+    own 4 rows), its own allocator's peak and ``dp_groups`` are printed,
+    and both hosts hold the same tokens.  Gated against ``plain`` (the
+    plain engine's tokens): the exact share is printed; a greedy request
+    that differs passes only if every emitted token is within ``TF_TOL``
+    of its teacher-forced row maximum (a bf16 near-tie: a group's step
+    runs 4 rows where the plain engine's runs 8, so K1's split count and
+    the GEMMs' tiling differ); a sampled request is printed, not held.
+    Two processes share one card, so the phase's tok/s is not
+    data-parallel scaling.  The caller frees its model and engines
+    first: two ranks' weights and pools fit in 80 GB only so."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    tmp = Path(tempfile.mkdtemp(prefix="tdp-dp-engine-"))
+    try:
+        np.savez(tmp / "plain.npz", *plain["tokens"])
+        ctx = mp.get_context("spawn")
+        port = free_port()
+        procs = [ctx.Process(target=dp_engine_rank,
+                             args=(r, DP_GROUPS, port, str(tmp)))
+                 for r in range(DP_GROUPS)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout)
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(30)
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * DP_GROUPS:
+            raise RuntimeError(f"DP engine ranks exited {codes}")
+        res = [json.loads((tmp / f"rank{r}.json").read_text())
+               for r in range(DP_GROUPS)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    total = time.perf_counter() - t0
+    L = res[0]["nlayers"]
+    for r in res:
+        log(f"[dp-engine] rank {r['rank']} of {DP_GROUPS} (data group "
+            f"{r['rank']}, slots {4 * r['rank']}-{4 * r['rank'] + 3}): K1 "
+            f"launches {r['launches']} ({L} x {r['calls']} device calls: "
+            f"{r['prefill_calls']} prefill + {r['decode_calls']} decode, "
+            f"each on its own 4 rows); its allocator's peak "
+            f"{r['peaks'][r['rank']]} of {r['num_blocks'] - 1} blocks (the "
+            f"other group's {r['peaks'][1 - r['rank']]}); dp_groups "
+            f"{r['dp_groups']}; pool {r['pool_bytes']} B; peak memory "
+            f"{r['peak_gb']:.2f} GB; {r['completed']} requests in "
+            f"{r['wall_s']:.2f} s: {r['tok_s']:.2f} tok/s (two processes on "
+            f"one card: not data-parallel scaling), TTFT p50 "
+            f"{r['ttft_p50']:.3f} s, TPOT p50 {r['tpot_p50'] * 1e3:.2f} ms "
+            f"— on {card}")
+        if r["launches"] != L * r["calls"]:
+            raise RuntimeError(f"DP rank {r['rank']}: K1 launches "
+                               f"{r['launches']} != {L} x {r['calls']}")
+        if (r["dp_groups"] != DP_GROUPS or r["completed"] != 16
+                or not r["audit_ok"] or any(r["in_use"])):
+            raise RuntimeError(f"DP rank {r['rank']}: dp_groups "
+                               f"{r['dp_groups']}, completed "
+                               f"{r['completed']}, audit {r['audit_ok']}, "
+                               f"in use {r['in_use']}")
+    if res[0]["tokens"] != res[1]["tokens"]:
+        raise RuntimeError("DP ranks' hosts hold different tokens")
+    got = [np.asarray(t) for t in res[0]["tokens"]]
+    same = [np.array_equal(a, b) for a, b in zip(got, plain["tokens"])]
+    n_prompt = [len(t) - len(g) for t, g in zip(
+        got, res[0]["generated"])]
+    new = [(a[p:], b[p:]) for a, b, p in zip(got, plain["tokens"], n_prompt)]
+    token_share = float(np.mean(np.concatenate([a == b for a, b in new])))
+    lead = [int(np.argmin(np.append(a == b, False))) for a, b in new]
+    gaps = {int(k): v for k, v in res[0]["tf_max_gap"].items()}
+    sampled = set(res[0]["sampled"])
+    greedy = [ok for i, ok in enumerate(same) if i not in sampled]
+    greedy_bad = [i for i, ok in enumerate(same)
+                  if not ok and i not in sampled
+                  and not (i in gaps and gaps[i][0] <= TF_TOL)]
+    log(f"[dp-engine] tokens equal to the plain engine's in {sum(same)} of "
+        f"{len(same)} requests (greedy {sum(greedy)} of {len(greedy)}, "
+        f"sampled {sum(same) - sum(greedy)} of {len(sampled)}, printed "
+        f"only), {token_share:.3f} of the generated tokens; first "
+        f"divergence at generated token {lead} (of "
+        f"{[len(a) for a, _ in new]}); each greedy request that differs, "
+        f"by teacher forcing its largest gap and its exact-argmax share: "
+        + ", ".join(f"{i}: {g:.4f} / {e:.3f}" for i, (g, e) in gaps.items())
+        + f" (gate {TF_TOL}: a group's step runs 4 rows where the plain "
+        f"engine's runs 8, so the GEMMs' tiling and K1's split count "
+        f"differ and bf16 near-ties flip); phase {total:.1f} s with both "
+        f"processes' start — on {card}")
+    if greedy_bad:
+        raise RuntimeError(f"DP engine: greedy requests {greedy_bad} differ "
+                           f"from the plain engine's beyond a near-tie")
+    return {"launches": [r["launches"] for r in res],
+            "calls": [r["calls"] for r in res],
+            "peaks": [r["peaks"][r["rank"]] for r in res],
+            "same": sum(same), "tf_max_gap": gaps,
+            "tok_s": [r["tok_s"] for r in res]}
 
 
 def build_int8_mixtral(cfg, seed=0):
@@ -4789,6 +5199,8 @@ def main():
     profile_phase(params, cfg, card)
     # the same model served context-parallel, K2 in every attention
     cp_eng = cp_phase(params, cfg, card)
+    # and beside tensor parallelism (TP x CP), K2 in every attention
+    tp_cp = tp_cp_phase(params, cfg, card, cp_eng)
     # the contiguous-cache decoding family (K3 at the prefill) and the
     # speculative engine (K1 on the K+1-row verify)
     gen = generate_phase(params, cfg, card)
@@ -4804,10 +5216,19 @@ def main():
     # same requests, generate() dense and MoE
     tp_eng = tp_engine_phase(params, cfg, card, eng)
     tp_gen = tp_generate_phase(params, cfg, card)
+    # TP beside EP on 2 Mixtral layers: the engine and generate(), K7
+    tp_ep = tp_ep_phase(card)
     log(f"[time] tensor-parallel serving done at "
         f"{time.perf_counter() - t_start:.0f} s")
     del params
+    gc.collect()
     torch.cuda.empty_cache()
+    # the engine's data-parallel slot groups: two processes on the card,
+    # each with the whole model; this process holds nothing large now
+    log(f"[dp-engine] this process holds "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB before the two "
+        f"ranks start")
+    dp_eng = dp_engine_phase(card, eng)
     log(f"[time] serving done at {time.perf_counter() - t_start:.0f} s")
 
     # 6. the MoE serving path: Mixtral-8x7B-v0.1 widths at 16 of its 32
@@ -4878,7 +5299,10 @@ def main():
                                 **{k: feat[k]["launches"] for k in
                                    ("preempt", "drain", "migrate", "shed")},
                                 "all": feat["launches"]},
-                            tp_engine_launches=tp_eng["launches"])]
+                            tp_engine_launches=tp_eng["launches"],
+                            dp_engine_launches_by_rank=dp_eng["launches"],
+                            tp_ep_engine_launches=tp_ep["engine"]["tp_ep"][
+                                "launches"]["paged_decode_attention"])]
     for kname, krows in flash_rows.items():
         k = {"flash_fwd": "K3", "flash_bwd_dq": "K4",
              "flash_bwd_dkv": "K5"}[kname]
@@ -4889,7 +5313,9 @@ def main():
                 "generate": gen["launches"]["flash_fwd"],
                 "moe_generate": cfg_moe_layers,
                 "tp_generate": tp_gen["dense"]["launches"]["flash_fwd"],
-                "tp_moe_generate": tp_gen["moe"]["launches"]["flash_fwd"]}
+                "tp_moe_generate": tp_gen["moe"]["launches"]["flash_fwd"],
+                "tp_ep_generate":
+                    tp_ep["generate_tp_ep"]["launches"]["flash_fwd"]}
         entries.append(kernel_entry(kname, FLASH_SOURCE,
                                     FLASH_REPLACES[kname],
                                     train["launches"][kname], krows,
@@ -4919,7 +5345,11 @@ def main():
                       ("fused_expert_ffn_int8", ep_int8_eng)):
         krows = k7_rows[kname]
         weights = "int8 weights" if kname.endswith("int8") else "bf16 weights"
-        extra = ({"generate_launches": ep["then"]["K7"]["launches"]}
+        extra = ({"generate_launches": ep["then"]["K7"]["launches"],
+                  "tp_ep_engine_launches": tp_ep["engine"]["tp_ep"][
+                      "launches"]["fused_expert_ffn"],
+                  "tp_ep_generate_launches": tp_ep["generate_tp_ep"][
+                      "launches"]["fused_expert_ffn"]}
                  if ep["then"] else {})
         entries.append(kernel_entry(
             kname, MOE_SOURCE, K7_REPLACES[kname], ep["launches"][kname],
@@ -4933,6 +5363,7 @@ def main():
         "paged_carry_attention", CARRY_SOURCE, CARRY_REPLACES,
         cp_eng["launches"]["paged_carry_attention"], carry_rows,
         carry_rows[0], k1_ms=carry_rows[0]["k1_ms"],
+        tp_cp_engine_launches=tp_cp["launches"]["paged_carry_attention"],
         k1_graph_ms=carry_rows[0]["k1_graph_ms"],
         ptxas={k: v for k, v in ptxas_summary.items() if k.startswith("K2")},
         library="SDPA over the gathered view at one hop; k1_ms: K1 on the "

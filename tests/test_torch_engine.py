@@ -198,7 +198,7 @@ def test_engine_refuses_queued_options():
                          ("metrics_sink", "Obs, resilience"),
                          ("mesh", "tensor parallelism takes tp_group"),
                          ("axis", "tensor parallelism takes tp_group"),
-                         ("dp_axis", "Engine data-parallel groups")):
+                         ("dp_axis", "takes dp_group=")):
         with pytest.raises(NotImplementedError,
                            match=f"{option}.*{item}"):
             ServingEngine(None, cfg, device="cpu", **{option: object()},

@@ -381,9 +381,8 @@ def test_guards_raise_with_the_reference_messages(families):
                           2, device="cpu")),
         (ValueError, "only meaningful for MoE configs",
          lambda: generate(p, one, cfg, 2, ep_group=object(), device="cpu")),
-        (NotImplementedError, "TP compositions in serving",
-         lambda: generate(families["moe"]["tparams"], one,
-                          families["moe"]["tcfg"], 2, tp_group=object(),
+        (ValueError, "only meaningful for MoE configs",
+         lambda: generate(p, one, cfg, 2, tp_group=object(),
                           ep_group=object(), device="cpu")),
         (ValueError, "B == 1",
          lambda: speculative_generate(p, p, torch.zeros(2, 4, dtype=int),

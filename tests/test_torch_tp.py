@@ -656,11 +656,17 @@ def test_refusals(group1):
                       tp_group=group1, sp=True)
     moe = GPTConfig(vocab_size=64, dim=32, nheads=4, nlayers=2, max_seq=16,
                     moe_experts=4)
-    for kw, item in (({"ep_group": object()}, "TP compositions in serving"),
-                     ({"cp_group": object()}, "TP compositions in serving")):
+    # tp_group serves beside ep_group and cp_group
+    # (tests/test_torch_serving_compose.py); what still refuses beside it:
+    # context parallelism with data groups or with expert parallelism
+    for kw, item in (
+            ({"cp_group": object(), "dp_group": object()},
+             "cp_group cannot be combined with dp_group"),
+            ({"cp_group": object(), "ep_group": object()},
+             "cp_group cannot be combined with ep_group")):
         with pytest.raises(NotImplementedError, match=item):
             ServingEngine(None, moe, device="cpu", tp_group=object(), **kw)
-    for option, item in (("dp_axis", "Engine data-parallel groups"),
+    for option, item in (("dp_axis", "takes dp_group="),
                          ("mesh", "tensor parallelism takes tp_group"),
                          ("axis", "tensor parallelism takes tp_group")):
         with pytest.raises(NotImplementedError, match=item):

@@ -12,7 +12,10 @@ a host integer (:meth:`ParallelContext.get_group_rank`).  Views factor
 an axis in two, as the reference's view meshes do:
 :meth:`~ParallelContext.build_moe_mesh` splits ``data`` into ``('moe_dp',
 'moe_ep')`` with EP innermost, :meth:`~ParallelContext.build_hybrid_mesh`
-into ``('data_inter', 'data_intra')``.
+into ``('data_inter', 'data_intra')``.  A serving replica spans every
+axis but the data one (:meth:`~ParallelContext.replica_group`): data x
+tensor, moe_dp x moe_ep x tensor (``build_moe_mesh`` on a data x tensor
+layout) and context x tensor are the compositions the engine serves.
 
 The reference's ``_assign_devices`` (ICI / DCN torus placement) has no
 counterpart: ranks follow C order, and which ranks share a node is the
@@ -348,6 +351,28 @@ class ParallelContext:
         base = {DATA_AXIS, MOE_DATA_AXIS, EXPERT_AXIS, "data_inter",
                 "data_intra"}
         return tuple(a for a in self.get_view(view).axis_names if a in base)
+
+    def replica_group(self, view: str = "default"):
+        """This rank's group over every axis of ``view`` but the data axis
+        the serving slots split over (``data``, or ``moe_dp`` on the MoE
+        view) — ``tensor`` on data x tensor, ``moe_ep`` x ``tensor`` on
+        moe_dp x moe_ep x tensor, ``context`` x ``tensor`` on context x
+        tensor — made on first use, so every rank must ask for it
+        together: the ranks that run one replica of a serving engine and
+        must take one rank's sampled tokens, the group
+        ``ServingEngine(replica_group=)`` broadcasts them over.  A
+        broadcast over one of its axes alone would leave the ranks of the
+        others free to differ."""
+        axes = tuple(a for a in self.get_view(view).axis_names
+                     if a not in (DATA_AXIS, MOE_DATA_AXIS))
+        if not axes:
+            raise ValueError(f"view {view!r} has no axis beside the data "
+                             f"axis: a replica is one rank")
+        self._require()
+        if not self.with_groups:
+            raise RuntimeError("a layout set up without torch.distributed "
+                               "has no process groups")
+        return self._build_group(self.get_view(view), axes)
 
     def is_first_in_group(self, mode: AxisName) -> bool:
         return self.get_group_rank(mode) == 0

@@ -58,14 +58,14 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: GPTConfig,
     ``tp_size > 1`` converts only tensor-parallel rank ``tp_rank``'s
     shard: ``models.gpt.shard_gpt_params`` cuts the numpy tree before the
     copy (an int8 leaf the table splits raises: the reference's specs
-    shard none)."""
+    shard none).  Both at once give rank ``(ep_rank, tp_rank)``'s share
+    of an MoE tree, JAX ``gpt_moe_param_specs(tp_axis, ep_axis)``:
+    attention, the embedding and the head cut over the tensor group, the
+    experts cut along E over the expert group and replicated over the
+    tensor group (so an int8 expert pair passes)."""
     dev = resolve_device(device)
     if ep_size > 1 and not cfg.moe_experts:
         raise ValueError(f"EP size {ep_size} needs an MoE config")
-    if ep_size > 1 and tp_size > 1:
-        raise NotImplementedError(
-            "EP and TP shards of one tree wait for ROADMAP queue A's 'TP "
-            "compositions in serving'")
     if tp_size > 1:
         np_tree = shard_gpt_params(np_tree, cfg, tp_rank, tp_size)
 

@@ -285,9 +285,14 @@ def forward_cached_moe(params: Dict[str, Any], tokens: torch.Tensor,
 
     - ``tp_group`` (JAX's ``axis``): attention, the embedding and the
       head are the rank's shard (``models.gpt_moe.gpt_moe_param_specs``),
-      the router and the experts whole, so every expert layer runs on
-      every rank as it does serially.  With ``ep_group`` it waits for
-      ROADMAP queue A's "TP compositions in serving".
+      the router and the experts replicated over the tensor group.
+      Alone, every expert layer runs whole on every rank as it does
+      serially; with ``ep_group`` (JAX's ``axis`` with ``ep_axis``: the
+      ``moe_ep`` group of this tensor rank, ``models.shard_moe_params(...,
+      tp_rank=, tp_size=)``) each tensor rank runs the exchange over its
+      own expert group, on the activations the attention's all-reduce
+      left the same on every tensor rank — the all-reduce first, then
+      the exchange, in every layer, on every rank.
 
     ``all_logits`` as in :func:`forward_cached` (JAX's has none; the port
     uses it to teacher-force an MoE sequence)."""
@@ -295,8 +300,6 @@ def forward_cached_moe(params: Dict[str, Any], tokens: torch.Tensor,
     from ..serving.paged_cache import resolve_serving_dispatch
     from .gpt_moe import moe_layer_config
 
-    if tp_group is not None and ep_group is not None:
-        raise NotImplementedError(_TP_EP)
     bcfg = cfg.block
     mcfg = moe_layer_config(cfg)
     disp = resolve_serving_dispatch(
@@ -320,10 +323,6 @@ def forward_cached_moe(params: Dict[str, Any], tokens: torch.Tensor,
             _layer_cache(cache["v"], layer), offset, rope=rope,
             ffn=moe_ffn if "moe" in bp else None, tp_group=tp_group)
     return cache, _head(params, h, cfg, all_logits, tp_group)
-
-
-_TP_EP = ("tensor parallelism with expert parallelism waits for ROADMAP "
-          "queue A's \"TP compositions in serving\"")
 
 
 def _full_logits(logits: torch.Tensor, cfg: GPTConfig, tp_group=None):
@@ -436,11 +435,13 @@ def generate(params: Dict[str, Any], prompt: torch.Tensor, cfg: GPTConfig,
     ``params`` must be there).  ``tp_group`` (JAX's ``axis``): ``params``
     is the rank's shard (``shard_gpt_params``), the cache holds ``Hkv /
     tp`` heads, and each step gathers the full logits and takes the
-    group's rank 0's token, so every rank returns the same tokens."""
+    group's rank 0's token, so every rank returns the same tokens.  Both
+    groups at once serve TP x EP (``models.shard_moe_params(..., tp_rank=,
+    tp_size=)``; :func:`forward_cached_moe`): each expert-parallel rank
+    runs its own prompt rows, as it does without ``tp_group``, and its
+    tensor ranks take their rank 0's token."""
     if ep_group is not None and not cfg.moe_experts:
         raise ValueError("ep_group is only meaningful for MoE configs")
-    if ep_group is not None and tp_group is not None:
-        raise NotImplementedError(_TP_EP)
     B, P = prompt.shape
     total = P + max_new_tokens
     _check_decode(cfg, max_new_tokens, total)

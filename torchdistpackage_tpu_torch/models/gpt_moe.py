@@ -1,7 +1,8 @@
 """The MoE GPT family — the serving subset of
 ``torchdistpackage_tpu/models/gpt_moe.py``: :func:`moe_layer_config`
 (:69), :func:`is_moe_block` (:86), :func:`init_gpt_moe_params` (:308)
-and :func:`gpt_moe_param_specs` (:545).
+and :func:`gpt_moe_param_specs` (:545), and the expert-parallel /
+tensor-parallel shard of a tree (:func:`shard_moe_params`).
 
 Every ``cfg.moe_every``-th block's FFN is an expert layer.  Blocks are a
 heterogeneous Python list of per-block param dicts — dense blocks carry
@@ -79,26 +80,44 @@ def init_gpt_moe_params(cfg, gen: Optional[torch.Generator] = None,
     return out
 
 
-def shard_moe_params(params: Params, cfg, rank: int, size: int) -> Params:
+def shard_moe_params(params: Params, cfg, rank: int, size: int,
+                     tp_rank: int = 0, tp_size: int = 1) -> Params:
     """Expert-parallel rank ``rank`` of ``size``'s share of an MoE model:
     every expert block's stacked expert leaves cut along E to the rank's
     ``[E / size, ...]`` block (:func:`~..parallel.moe.shard_experts`;
     both halves of an int8 pair); attention, norms, routers, embeddings
     and the head stay whole, as ``gpt_moe_param_specs`` replicates them.
-    The slices are views of ``params``."""
+    ``tp_size > 1`` also cuts the tensor-parallel shard of tensor rank
+    ``tp_rank`` (``models.gpt.shard_gpt_params``: attention, the
+    embedding and the head), the experts replicated over the tensor
+    group — JAX ``gpt_moe_param_specs(tp_axis, ep_axis)``.  The slices
+    are views of ``params``."""
     if cfg.moe_experts % size != 0:
         raise ValueError(f"num_experts {cfg.moe_experts} not divisible by "
                          f"EP size {size}")
+    if tp_size > 1:
+        from .gpt import shard_gpt_params
+
+        params = shard_gpt_params(params, cfg, tp_rank, tp_size)
     blocks = [dict(bp, moe=shard_experts(bp["moe"], rank, size))
               if "moe" in bp else bp for bp in params["blocks"]]
     return dict(params, blocks=blocks)
 
 
-def gpt_moe_param_specs(params: Params) -> List[Any]:
-    """The tensor-parallel spec tree of an MoE param tree (JAX :545 with
-    ``tp_axis`` and no ``ep_axis``): attention, the embedding and the head
-    split as in the dense family, the router and the experts replicated
-    — the MoE FFN runs whole on every tensor rank (K6 on the card).
-    Expert parallelism beside tensor parallelism waits for ROADMAP queue
-    A's "TP compositions in serving"."""
-    return param_specs(params)
+def gpt_moe_param_specs(params: Params,
+                        ep_axis: Optional[str] = None) -> List[Any]:
+    """The spec tree of an MoE param tree (JAX :545): attention, the
+    embedding and the head split over the tensor group as in the dense
+    family (an int dim, ``layers.TP_SPLIT_DIMS``), the router replicated.
+    The expert leaves are replicated over the tensor group — the MoE FFN
+    runs whole on every tensor rank — and, with ``ep_axis`` (the
+    reference's ``moe_ep``), split along E over that axis: their spec is
+    the axis name, which every tensor-parallel helper reads as
+    replicated (:func:`shard_moe_params` cuts them)."""
+    specs = param_specs(params)
+    if ep_axis is None:
+        return specs
+    return dict(specs, blocks=[
+        dict(sp, moe=dict(sp["moe"], experts={
+            n: ep_axis for n in sp["moe"]["experts"]}))
+        if "moe" in sp else sp for sp in specs["blocks"]])

@@ -25,6 +25,11 @@ of ``torchdistpackage_tpu/ops/ring_paged.py``.
   the group (``all_reduce`` MAX on ``m``, then SUM on the weighted
   ``acc`` and ``l``), so every rank holds the same output.
 
+Under tensor parallelism (TP x CP) every query, payload and pool slice
+here holds the rank's ``Hkv / tp`` KV heads (``H / tp`` query heads):
+the rings run over the CP group of this tensor rank and K2's hop runs on
+the local heads, as ``cp_paged_forward(tp_group=)`` lays them out.
+
 ``prefill`` is an explicit flag, never inferred from a shape: at
 ``chunk == cp`` a prefill sub-chunk is one row, like decode.  At ``cp ==
 1`` nothing travels and the one hop is the local slice.

@@ -76,14 +76,27 @@ prefill chunk is split across its ranks (context parallelism: ring paged
 attention, K2 on the card, and ``serving_summary()['long_context']``).
 With ``tp_group`` the model (dense or MoE) is tensor-parallel over a
 ``torch.distributed`` group: each rank holds its shard and ``Hkv / tp``
-heads of the pool, and every step gathers the full logits.  The
-reference's ``mesh`` / ``axis`` stay refused (tensor parallelism takes
-``tp_group``); its data-parallel slot groups (``dp_axis``) wait for
-ROADMAP queue A's "Engine data-parallel groups", ``tp_group`` beside
-``ep_group`` or ``cp_group`` for its "TP compositions in serving";
-telemetry, chaos, the watchdog and the metrics sink wait for its "Obs,
-resilience, tools, utils and HF conversion".  The constructor refuses
-them with NotImplementedError.
+heads of the pool, and every step gathers the full logits; it composes
+with ``ep_group`` (TP x EP: attention over ``tensor``, experts over
+``moe_ep``) and with ``cp_group`` (TP x CP: the rings over ``context``
+at ``Hkv / tp`` heads), both with ``replica_group``.  With ``dp_group``
+the slots and the pool split over data-parallel groups (the
+reference's ``dp_axis``): one ``BlockAllocator`` a group, block ids
+local to the group, each group's rows run by its own replica.
+
+A replica is a set of processes, each running this scheduler: every
+rank must take the same decisions every tick.  Admission and slot
+choice follow from the submits; the sampled tokens are one rank's
+(``replica_group``, gathered over ``dp_group``); and a decision that
+reads the host clock would not, so an engine over any process group
+refuses ``Request.deadline_s`` (deadline shedding and queue expiry)
+at submit.
+
+The reference's ``mesh`` / ``axis`` / ``dp_axis`` / ``ep_axis`` /
+``cp_axis`` stay refused (the groups take their place); telemetry,
+chaos, the watchdog and the metrics sink wait for ROADMAP queue A's
+"Obs, resilience, tools, utils and HF conversion".  The constructor
+refuses them with NotImplementedError.
 """
 
 from __future__ import annotations
@@ -233,11 +246,8 @@ class _SlotState:
 
 _TP = ("tensor parallelism takes tp_group= (a torch.distributed process "
        "group), not mesh= / axis=")
-_DP = ("the engine's data-parallel slot groups (dp_axis, a BlockAllocator "
-       "a group) wait for ROADMAP queue A's \"Engine data-parallel "
-       "groups\"")
-_TP_WITH = ("tp_group with {} waits for ROADMAP queue A's \"TP "
-            "compositions in serving\"")
+_DP = ("data parallelism takes dp_group= (a torch.distributed process "
+       "group, this rank's data group), not mesh= / dp_axis=")
 _OBS = ("telemetry, chaos, the watchdog and the metrics sink wait for "
         "ROADMAP queue A's \"Obs, resilience, tools, utils and HF "
         "conversion\"")
@@ -249,7 +259,7 @@ _CP = ("context parallelism takes cp_group= (a torch.distributed process "
 #: constructor options of the reference engine that the port does not
 #: serve yet: the value that means "off", and what each waits for
 _QUEUED_OPTIONS = {
-    "mesh": (None, (_TP, _EP, _CP)), "axis": (None, (_TP,)),
+    "mesh": (None, (_TP, _DP, _EP, _CP)), "axis": (None, (_TP,)),
     "dp_axis": (None, (_DP,)), "ep_axis": (None, (_EP,)),
     "cp_axis": (None, (_CP,)), "telemetry": (None, (_OBS,)),
     "chaos": (None, (_OBS,)), "watchdog": (None, (_OBS,)),
@@ -257,11 +267,23 @@ _QUEUED_OPTIONS = {
 }
 
 
+#: why a grouped engine refuses ``Request.deadline_s``
+_CLOCK = ("deadline_s is refused by an engine over a process group: "
+          "deadline shedding and queue expiry read the host clock, which "
+          "differs from rank to rank, and ranks that decide differently "
+          "schedule apart and hang in the next collective")
+
+
 def _check_cp(cfg: GPTConfig, cp_group, chunk: int,
-              num_blocks: Optional[int], kv_quant: bool, ep_group,
+              num_blocks: Optional[int], kv_quant: bool, ep_group, dp_group,
               on: set) -> int:
     """The size of the CP group, after the reference's refusals of what
     context parallelism does not serve (JAX ``engine.py:407-436``)."""
+    if dp_group is not None:
+        raise NotImplementedError(
+            "cp_group cannot be combined with dp_group: the pool's block "
+            "dim carries exactly one axis (run a CP prefill tier as its own "
+            "replica)")
     if ep_group is not None:
         raise NotImplementedError(
             "cp_group cannot be combined with ep_group: context parallelism "
@@ -347,9 +369,11 @@ class ServingEngine:
         (``ops/ring_paged.py``): K2 under ``'cuda'``, K1 never.  Every
         tick takes rank 0's sampled tokens.  ``chunk`` and an explicit
         ``num_blocks`` must be divisible by cp (the default rounds up);
-        ``kv_quant``, MoE, ``spec_k``, ``prefix_cache`` and ``ep_group``
-        are refused.  The counterpart of the reference's ``mesh=`` +
-        ``cp_axis=``, which stay refused.
+        ``kv_quant``, MoE, ``spec_k``, ``prefix_cache``, ``ep_group`` and
+        ``dp_group`` are refused.  With ``tp_group`` each rank's slice
+        holds its ``Hkv / tp`` heads and the rings run at them.  The
+        counterpart of the reference's ``mesh=`` + ``cp_axis=``, which
+        stay refused.
     tp_group: tensor parallelism — a ``torch.distributed`` process group
         whose ranks each hold their shard of ``params``
         (``models.gpt.shard_gpt_params``, or ``params_from_jax(tp_rank=,
@@ -358,9 +382,28 @@ class ServingEngine:
         pool holds ``Hkv / tp`` KV heads (K1 over them), every block sums
         its row-parallel products over the group, and every step gathers
         the full logits and takes rank 0's sampled tokens.  Works with
-        ``kv_quant``, ``spec_k``, ``prefix_cache`` and the MoE family;
-        with ``ep_group`` or ``cp_group`` it is refused.  The counterpart
-        of the reference's ``mesh=`` + ``axis=``, which stay refused.
+        ``kv_quant``, ``spec_k``, ``prefix_cache`` and the MoE family,
+        beside ``ep_group`` (the rank's ``moe_ep`` group;
+        ``models.shard_moe_params(..., tp_rank=, tp_size=)``) and beside
+        ``cp_group`` (the rank's ``context`` group).  The counterpart of
+        the reference's ``mesh=`` + ``axis=``, which stay refused.
+    dp_group: data parallelism — this rank's data group
+        (``tpc.get_group('data')``, or ``'moe_dp'`` on the MoE view).  The
+        ``num_slots`` rows split into ``dp`` groups of ``slots_per_group``;
+        group ``g`` (this rank's rank in ``dp_group``) runs rows ``[g spg,
+        (g + 1) spg)`` on its own pool of ``num_blocks`` blocks (per
+        group; default sized for its slots), and every group keeps one
+        ``BlockAllocator`` of its own, so block ids are group-local.
+        Every rank runs the whole scheduler on the same requests; each
+        step gathers the groups' tokens over ``dp_group``.  Composes with
+        ``tp_group`` and ``ep_group`` (the replica's groups), not with
+        ``cp_group`` (as in the reference).  The counterpart of the
+        reference's ``dp_axis``, which stays refused.
+    replica_group: the group over every rank of one replica (every axis
+        but the data one, ``dist.ParallelContext.replica_group``): the
+        step broadcasts its first rank's tokens over it.  Required when
+        ``tp_group`` is composed with ``ep_group`` or ``cp_group``; None
+        otherwise means the one group given.
     spec_k: draft tokens a decoding slot a tick (0: off); see the module
         docstring.  Works with the MoE family and ``ep_group``;
         ``serving_summary()['spec']`` counts drafted and accepted tokens.
@@ -395,6 +438,8 @@ class ServingEngine:
         ep_group=None,
         cp_group=None,
         tp_group=None,
+        dp_group=None,
+        replica_group=None,
         spec_k: int = 0,
         device=None,
         device_step: Optional[Any] = None,
@@ -407,14 +452,10 @@ class ServingEngine:
             raise ValueError(f"spec_k must be >= 0, got {spec_k}")
         on = sorted(k for k, v in queued.items()
                     if v != _QUEUED_OPTIONS[k][0])
-        if tp_group is not None:
-            for name, g in (("ep_group", ep_group), ("cp_group", cp_group)):
-                if g is not None:
-                    raise NotImplementedError(_TP_WITH.format(name))
         cp = 1
         if cp_group is not None:
             cp = _check_cp(cfg, cp_group, chunk, num_blocks, kv_quant,
-                           ep_group, set(on)
+                           ep_group, dp_group, set(on)
                            | ({"spec_k"} if spec_k else set())
                            | ({"prefix_cache"} if prefix_cache else set()))
         if on:
@@ -463,10 +504,10 @@ class ServingEngine:
 
             device_step = TorchDeviceStep(cfg, device, attn_impl,
                                           moe_dispatch, ep_group, cp_group,
-                                          tp_group)
-        elif getattr(device_step, "host_only", False) and (
-                ep_group is not None or cp_group is not None
-                or tp_group is not None):
+                                          tp_group, dp_group, replica_group)
+        elif getattr(device_step, "host_only", False) and any(
+                g is not None for g in (ep_group, cp_group, tp_group,
+                                        dp_group, replica_group)):
             raise ValueError(
                 "a host-only DeviceStep cannot run over a process group")
         #: the device seam (serving/sim.py): every device touch goes here
@@ -481,6 +522,17 @@ class ServingEngine:
         #: weights and every KV head on this device)
         self.tp_group = tp_group
         self.tp = 1 if tp_group is None else dist.get_world_size(tp_group)
+        #: the data-parallel group and its size (None / 1: every slot on
+        #: this replica)
+        self.dp_group = dp_group
+        self.dp = 1 if dp_group is None else dist.get_world_size(dp_group)
+        if num_slots % self.dp:
+            raise ValueError(
+                f"num_slots {num_slots} not divisible by dp {self.dp}")
+        self.slots_per_group = num_slots // self.dp
+        #: any process group: the clock's decisions are refused
+        self._grouped = any(g is not None for g in (
+            ep_group, cp_group, tp_group, dp_group, replica_group))
         # the kernels this engine's step can launch
         # (a CP engine's attends all run the ring: K2, and K1 never — it
         # reports K1 too, to show it)
@@ -497,11 +549,13 @@ class ServingEngine:
         # back onto a real block)
         self.max_blocks = -(-(self.max_ctx + self.spec_k) // block_size)
         if num_blocks is None:
-            num_blocks = 1 + num_slots * self.max_blocks
+            num_blocks = 1 + self.slots_per_group * self.max_blocks
             num_blocks = -(-num_blocks // cp) * cp  # shards evenly over cp
-        #: global pool blocks (each CP rank holds num_blocks / cp of them)
+        #: pool blocks a data group (each CP rank holds num_blocks / cp
+        #: of them)
         self.num_blocks = num_blocks
-        self._alloc = BlockAllocator(num_blocks)
+        #: one allocator a data group; slot i's is _allocs[i // spg]
+        self._allocs = [BlockAllocator(num_blocks) for _ in range(self.dp)]
         device_step.bind(self)
         self.device = device_step.device
         self.attn_impl = device_step.attn_impl
@@ -536,6 +590,23 @@ class ServingEngine:
 
     # ---------------------------------------------------------------- admission
 
+    def _group(self, i: int) -> int:
+        """The data group of slot ``i``."""
+        return i // self.slots_per_group
+
+    def _alloc_of(self, i: int) -> BlockAllocator:
+        """The allocator of slot ``i``'s data group."""
+        return self._allocs[i // self.slots_per_group]
+
+    @property
+    def _alloc(self) -> BlockAllocator:
+        """The allocator of an engine with one data group."""
+        if self.dp != 1:
+            raise AttributeError(
+                "a data-parallel engine keeps one allocator a group: "
+                "_allocs[g]")
+        return self._allocs[0]
+
     def _blocks_needed(self, req: Request) -> int:
         # + spec_k: a verify step writes drafts up to spec_k positions
         # past the committed length
@@ -555,7 +626,7 @@ class ServingEngine:
         if self.prefix_cache:
             hashes = self._prefix_hashes(tokens)
             if hashes:
-                n_hit = len(self._alloc.match(hashes))
+                n_hit = max(len(a.match(hashes)) for a in self._allocs)
                 cached = min(n_hit * self.block_size, p_len - 1)
         return -(-(p_len - cached) // self.chunk)
 
@@ -646,10 +717,12 @@ class ServingEngine:
         if P + N > self.max_ctx:
             raise ValueError(
                 f"prompt {P} + max_new {N} exceeds max_ctx {self.max_ctx}")
-        if need > self._alloc.n_usable:
+        if need > self._allocs[0].n_usable:
             raise ValueError(
                 f"request needs {need} blocks, pool has "
-                f"{self._alloc.n_usable}")
+                f"{self._allocs[0].n_usable} per group")
+        if self._grouped and req.deadline_s is not None:
+            raise NotImplementedError(_CLOCK)
         if self.cfg.pos == "learned" and P + N > self.cfg.max_seq:
             raise ValueError(
                 f"P + max_new_tokens = {P + N} exceeds the learned position "
@@ -738,7 +811,7 @@ class ServingEngine:
         state), so the final tokens equal the uninterrupted run's."""
         s = self._slots[i]
         rid, req, t_submit = s.rid, s.req, s.t_submit
-        self._release_blocks(self._alloc, s.blocks)
+        self._release_blocks(self._alloc_of(i), s.blocks)
         self._clear_slot_rows(i)
         s.reset()
         # the prediction's premise was undone by scheduling, not by a
@@ -768,19 +841,25 @@ class ServingEngine:
         self._top_p[i] = 1.0
         self._streams[i] = None
 
-    def _first_free(self) -> Optional[int]:
-        return next((i for i, s in enumerate(self._slots) if s.state == FREE),
-                    None)
+    def _free_slots_by_group(self) -> List[int]:
+        """The first free slot of each data group, in slot order: every
+        slot of a group shares its allocator, so a request that fails
+        for one free slot of a group fails for all of them."""
+        out, seen = [], set()
+        for i, s in enumerate(self._slots):
+            if s.state == FREE and self._group(i) not in seen:
+                seen.add(self._group(i))
+                out.append(i)
+        return out
 
-    def _claim_blocks(self, hit: List[int], pin: List[int],
+    @staticmethod
+    def _claim_blocks(alloc: BlockAllocator, hit: List[int], pin: List[int],
                       n_fresh: int) -> Optional[List[int]]:
         """Share the resident blocks ``hit`` (refcount + 1 each), pin
         ``pin`` while ``n_fresh`` fresh blocks are allocated (eviction must
         not take it), then unpin; when the allocation fails every share
         is reverted, so nothing is half admitted.  Returns the fresh
-        blocks or None.  One allocator serves every slot, so a request
-        that fails for the first free slot fails for all of them."""
-        alloc = self._alloc
+        blocks or None."""
         for b in hit + pin:
             alloc.share(b)
         fresh = alloc.alloc(n_fresh)
@@ -793,26 +872,28 @@ class ServingEngine:
 
     def _try_place(self, req: Request):
         """A free slot and blocks for ``req`` (JAX :1092), as ``(slot,
-        shared, cow_src, fresh)``, or None (back-pressure).  With the
-        prefix cache on, the longest resident prefix of the prompt's full
-        blocks is shared and only the rest allocated; a whole-prompt hit
-        keeps all but its last block and copy-on-writes that one (the
-        last token's logits are recomputed, and its write may not land in
-        a block others read), its source pinned while the fresh blocks
-        are allocated.  The copy is enqueued before the next device
-        call."""
-        i = self._first_free()
-        if i is None:
-            return None
+        shared, cow_src, fresh)``, or None (back-pressure): the first
+        free slot whose data group's pool can cover it.  With the prefix
+        cache on, the longest resident prefix of the prompt's full blocks
+        in that group is shared and only the rest allocated; a
+        whole-prompt hit keeps all but its last block and copy-on-writes
+        that one (the last token's logits are recomputed, and its write
+        may not land in a block others read), its source pinned while
+        the fresh blocks are allocated.  The copy is enqueued before the
+        next device call."""
         hashes = self._prefix_hashes(req.tokens)
-        hit = self._alloc.match(hashes) if hashes else []
-        cow_src = None
-        if hit and len(hit) * self.block_size >= len(req.tokens):
-            cow_src, hit = hit[-1], hit[:-1]
-        fresh = self._claim_blocks(
-            hit, [] if cow_src is None else [cow_src],
-            self._blocks_needed(req) - len(hit))
-        return None if fresh is None else (i, hit, cow_src, fresh)
+        for i in self._free_slots_by_group():
+            alloc = self._alloc_of(i)
+            hit = alloc.match(hashes) if hashes else []
+            cow_src = None
+            if hit and len(hit) * self.block_size >= len(req.tokens):
+                cow_src, hit = hit[-1], hit[:-1]
+            fresh = self._claim_blocks(
+                alloc, hit, [] if cow_src is None else [cow_src],
+                self._blocks_needed(req) - len(hit))
+            if fresh is not None:
+                return i, hit, cow_src, fresh
+        return None
 
     def _admit(self) -> int:
         """Priority admission: the head of the queue takes the first free
@@ -835,7 +916,7 @@ class ServingEngine:
                 continue  # blocks and/or a slot freed: retry the head
             self.queue.pop(0)
             i, shared, cow_src, fresh = placed
-            evicted = self._alloc.pop_evicted()
+            evicted = self._alloc_of(i).pop_evicted()
             blocks = shared + fresh
             s = self._slots[i]
             s.state, s.rid, s.req, s.blocks = PREFILL, req.rid, req, blocks
@@ -854,7 +935,7 @@ class ServingEngine:
             if evicted:
                 self.stats["cache_evictions"] += len(evicted)
                 self._ev.emit("cache_evict", tick=self._tick,
-                              n_blocks=len(evicted), group=0)
+                              n_blocks=len(evicted), group=self._group(i))
             if self.prefix_cache:
                 self.stats["prefix_prompt_tokens"] += P
             if s.off:
@@ -985,7 +1066,7 @@ class ServingEngine:
                     for bh, blk in zip(
                             chain_block_hashes(s.prompt, self.block_size),
                             s.blocks):
-                        self._alloc.register(blk, bh)
+                        self._alloc_of(i).register(blk, bh)
                 s.ttft_s = now - s.t_submit
                 self._resolve_ttft(s.rid, s.ttft_s, int(s.req.priority))
                 s.t_last = now
@@ -996,14 +1077,15 @@ class ServingEngine:
         self.stats["prefill_chunks"] += 1
         self._ev.emit("prefill_chunk", rids=rids, chunk=C, n_slots=len(rids))
         if self.cp > 1:
-            # the modeled ring traffic of the chunk (host math,
-            # ops/ring_paged.py); the ring's own counter is RING_PAYLOADS
+            # the modeled ring traffic of the chunk from each rank (host
+            # math, ops/ring_paged.py; a rank's Hkv / tp heads under TP);
+            # the ring's own counter is RING_PAYLOADS
             from ..ops.ring_paged import ring_chunk_bytes, ring_hops_per_chunk
 
             hops = ring_hops_per_chunk(self.cfg.nlayers, self.cp)
             bts = ring_chunk_bytes(
                 nlayers=self.cfg.nlayers, cp=self.cp, batch=self.num_slots,
-                kv_heads=self.cfg.block.kv_head_count,
+                kv_heads=self.cfg.block.kv_head_count // self.tp,
                 head_dim=self.cfg.block.head_dim, chunk=C,
                 nb_local=self.num_blocks // self.cp,
                 block_size=self.block_size,
@@ -1220,7 +1302,7 @@ class ServingEngine:
             self._ev.emit(
                 "request_cancelled", rid=s.rid, slot=i, where="slot",
                 emitted_tokens=new_tokens, blocks_freed=len(s.blocks))
-        self._alloc.free(s.blocks)
+        self._alloc_of(i).free(s.blocks)
         self._clear_slot_rows(i)
         s.reset()
 
@@ -1262,51 +1344,63 @@ class ServingEngine:
     # ------------------------------------------------------------ invariant audit
 
     def audit(self, heal: bool = True) -> Dict[str, Any]:
-        """Per-tick block-conservation check: every active slot's table row
-        equals its owned blocks (padded with NULL), every owned block is
-        live in the allocator with refcount-weighted ownership (as many
-        slots reference a block as its refcount says), no in-use block is
+        """Per-tick block-conservation check, per data group (JAX :1647):
+        every active slot's table row equals its owned blocks (padded with
+        NULL), every owned block is live in its group's allocator with
+        refcount-weighted ownership (as many of the group's slots
+        reference a block as its refcount says), no in-use block is
         orphaned, inactive rows are all-NULL, and unique in-use + cached
         + free == usable.  ``heal=True`` requeues poisoned slots, reclaims
         orphans and zeroes stale rows, bracketed by
         ``engine_fault_detected`` / ``engine_recovered`` events.  Pure
-        host arithmetic."""
+        host arithmetic.  A violation names its ``group`` when the engine
+        has more than one."""
         violations: List[Dict[str, Any]] = []
         poisoned: List[int] = []
         stale_rows: List[int] = []
-        owned_lists = []
-        for i, s in enumerate(self._slots):
-            row = self._tables[i]
-            if s.state == FREE:
-                if row.any():
-                    violations.append({"kind": "stale_table_row", "slot": i})
-                    stale_rows.append(i)
-                continue
-            owned_lists.append(s.blocks)
-            want = np.zeros(self.max_blocks, np.int32)
-            want[:len(s.blocks)] = s.blocks
-            if not np.array_equal(row, want):
+        orphans: Dict[int, List[int]] = {}
+        tag = (lambda g: {"group": g}) if self.dp > 1 else (lambda g: {})
+        for g, alloc in enumerate(self._allocs):
+            lo, hi = g * self.slots_per_group, (g + 1) * self.slots_per_group
+            owned_lists = []
+            for i in range(lo, hi):
+                s = self._slots[i]
+                row = self._tables[i]
+                if s.state == FREE:
+                    if row.any():
+                        violations.append(
+                            {"kind": "stale_table_row", "slot": i})
+                        stale_rows.append(i)
+                    continue
+                owned_lists.append(s.blocks)
+                want = np.zeros(self.max_blocks, np.int32)
+                want[:len(s.blocks)] = s.blocks
+                if not np.array_equal(row, want):
+                    violations.append({
+                        "kind": "table_mismatch", "slot": i, "rid": s.rid,
+                        "row": row.tolist(), "owned": list(s.blocks)})
+                    poisoned.append(i)
+            rep = alloc.audit(owned_lists)
+            for b in rep["shared"]:
+                refs = [i for i in range(lo, hi)
+                        if b in self._slots[i].blocks]
+                violations.append({"kind": "shared_block", "block": int(b),
+                                   **tag(g), "slots": refs})
+                poisoned.extend(i for i in refs if i not in poisoned)
+            if rep["orphaned"]:
+                violations.append({"kind": "orphaned_blocks", **tag(g),
+                                   "blocks": rep["orphaned"]})
+                orphans[g] = rep["orphaned"]
+            for b in rep["unknown"]:
+                violations.append({"kind": "unowned_block", **tag(g),
+                                   "block": int(b)})
+                poisoned.extend(i for i in range(lo, hi)
+                                if b in self._slots[i].blocks
+                                and i not in poisoned)
+            if not rep["conserved"]:
                 violations.append({
-                    "kind": "table_mismatch", "slot": i, "rid": s.rid,
-                    "row": row.tolist(), "owned": list(s.blocks)})
-                poisoned.append(i)
-        rep = self._alloc.audit(owned_lists)
-        for b in rep["shared"]:
-            refs = [i for i, s in enumerate(self._slots) if b in s.blocks]
-            violations.append({"kind": "shared_block", "block": int(b),
-                               "slots": refs})
-            poisoned.extend(i for i in refs if i not in poisoned)
-        if rep["orphaned"]:
-            violations.append({"kind": "orphaned_blocks",
-                               "blocks": rep["orphaned"]})
-        for b in rep["unknown"]:
-            violations.append({"kind": "unowned_block", "block": int(b)})
-            poisoned.extend(i for i, s in enumerate(self._slots)
-                            if b in s.blocks and i not in poisoned)
-        if not rep["conserved"]:
-            violations.append({
-                "kind": "conservation", "in_use": rep["in_use"],
-                "n_free": rep["n_free"], "n_usable": self._alloc.n_usable})
+                    "kind": "conservation", **tag(g), "in_use": rep["in_use"],
+                    "n_free": rep["n_free"], "n_usable": alloc.n_usable})
         if violations and heal:
             self.stats["faults_detected"] += len(violations)
             self._ev.emit(
@@ -1317,7 +1411,8 @@ class ServingEngine:
             requeued = [self._requeue_slot(i) for i in sorted(poisoned)]
             for i in stale_rows:
                 self._tables[i] = 0
-            reclaimed = len(self._alloc.reclaim(rep["orphaned"]))
+            reclaimed = sum(len(self._allocs[g].reclaim(blocks))
+                            for g, blocks in orphans.items())
             self.stats["faults_healed"] += len(violations)
             self._ev.emit(
                 "engine_recovered", fault="invariant_audit",
@@ -1347,7 +1442,8 @@ class ServingEngine:
         decoded = self._decode_tick()
         busy = self.n_busy
         self._occ_sum += busy / self.num_slots
-        self._util_sum += self._alloc.utilization()
+        self._util_sum += float(np.mean([a.utilization()
+                                         for a in self._allocs]))
         self._occ_ticks += 1
         if decoded:
             dt = time.perf_counter() - t0
@@ -1375,9 +1471,15 @@ class ServingEngine:
 
     # ----------------------------------------------------------- drain / resume
 
+    def _group_key(self, i: int) -> Dict[str, int]:
+        """``{'group': g}`` of slot ``i`` on an engine with more than one
+        data group (a descriptor names where the slot's blocks were); {}
+        on one."""
+        return {"group": self._group(i)} if self.dp > 1 else {}
+
     def _descriptor(self, req: Request, *, emitted: Sequence[int],
                     key: Optional[List[int]], orig_prompt_len: int,
-                    pre_gen: int) -> Dict[str, Any]:
+                    pre_gen: int, **extra: Any) -> Dict[str, Any]:
         """One restartable request descriptor (JAX :1881): the original
         prompt, every token emitted so far, the original budget, the
         sampling parameters and ``key``, the state of the stream that
@@ -1397,6 +1499,7 @@ class ServingEngine:
             "deadline_s": req.deadline_s,
             "orig_rid": int(req.rid),
             "key": None if key is None else [int(v) for v in key],
+            **extra,
         }
 
     def _queued_descriptor(self, req: Request) -> Dict[str, Any]:
@@ -1416,7 +1519,9 @@ class ServingEngine:
         request into restartable descriptors.  A DECODE slot carries its
         stream's state after its last draw; a PREFILL slot has drawn
         nothing, so it carries None (its seed) or the state it was
-        resumed with.  Blocks are released and slots reset.
+        resumed with; with more than one data group an in-flight
+        descriptor names its slot's ``group``.  Blocks are released and
+        slots reset.
         ``persist_path`` writes the payload as JSON with a
         ``<path>.manifest.json`` SHA-256 sidecar; :meth:`resume` replays
         it."""
@@ -1434,8 +1539,9 @@ class ServingEngine:
                 key = inj.get("key")
             descs.append(self._descriptor(
                 s.req, emitted=s.generated, key=key,
-                orig_prompt_len=s.orig_prompt_len, pre_gen=s.pre_gen))
-            self._release_blocks(self._alloc, s.blocks)
+                orig_prompt_len=s.orig_prompt_len, pre_gen=s.pre_gen,
+                **self._group_key(i)))
+            self._release_blocks(self._alloc_of(i), s.blocks)
             self._clear_slot_rows(i)
             self._inject.pop(s.rid, None)
             self._ttft_pred.pop(s.rid, None)
@@ -1549,7 +1655,7 @@ class ServingEngine:
         hashes = self._prefix_hashes(tokens)
         if not hashes:
             return 0
-        n_hit = len(self._alloc.match(hashes))
+        n_hit = max(len(a.match(hashes)) for a in self._allocs)
         return min(n_hit * self.block_size, max(0, len(tokens) - 1))
 
     def decode_slots(self) -> List[Tuple[int, int]]:
@@ -1568,7 +1674,10 @@ class ServingEngine:
         released — a torch pool is overwritten in place once these blocks
         are reused, so the snapshot, not the pool, is the
         ``migrate_blocks`` source.  The request now lives only in the
-        descriptor, to be imported or resumed, never both."""
+        descriptor, to be imported or resumed, never both.  With more
+        than one data group the descriptor names the slot's ``group``:
+        only that group's ranks hold its blocks, so elsewhere the
+        snapshot holds none (``migrate_blocks`` from it raises)."""
         for i, s in enumerate(self._slots):
             if s.state == DECODE and s.rid == rid:
                 break
@@ -1582,7 +1691,8 @@ class ServingEngine:
         desc = self._descriptor(
             s.req, emitted=s.generated,
             key=self.device_step.stream_state(self._streams[i]),
-            orig_prompt_len=s.orig_prompt_len, pre_gen=s.pre_gen)
+            orig_prompt_len=s.orig_prompt_len, pre_gen=s.pre_gen,
+            **self._group_key(i))
         desc.update({
             "length": length,
             "blocks": [int(b) for b in s.blocks],
@@ -1591,8 +1701,9 @@ class ServingEngine:
             "ttft_s": s.ttft_s,
             "tpot_s": [float(t) for t in s.tpot_s],
         })
-        source = PoolSnapshot(self.cache, s.blocks[:n_live])
-        self._release_blocks(self._alloc, s.blocks)
+        mine = self._group(i) == getattr(self.device_step, "group_index", 0)
+        source = PoolSnapshot(self.cache, s.blocks[:n_live] if mine else [])
+        self._release_blocks(self._alloc_of(i), s.blocks)
         self._clear_slot_rows(i)
         self._inject.pop(s.rid, None)
         self._ttft_pred.pop(s.rid, None)
@@ -1612,7 +1723,10 @@ class ServingEngine:
         registered.  Returns ``{rid, slot, blocks, n_shared, n_live}`` —
         the caller copies source blocks ``[n_shared:n_live]`` onto these
         ``blocks[n_shared:n_live]`` (``migrate_blocks``) before this
-        engine's next step — or None (no capacity; nothing admitted)."""
+        engine's next step — or None (no capacity; nothing admitted).
+        The slot is the first free one whose data group can hold it; with
+        more than one group the answer names its ``group``, whose ranks
+        alone copy."""
         emitted = [int(t) for t in desc.get("emitted") or []]
         if not emitted:
             raise ValueError(
@@ -1650,13 +1764,13 @@ class ServingEngine:
         # match over the written context only: the pending token's block
         # has no KV for it yet
         hashes = self._prefix_hashes(prompt_full[:length])
-        i = self._first_free()
-        if i is None:
-            return None
-        alloc = self._alloc
-        hit = alloc.match(hashes) if hashes else []
-        fresh = self._claim_blocks(hit, [], need - len(hit))
-        if fresh is None:
+        for i in self._free_slots_by_group():
+            alloc = self._alloc_of(i)
+            hit = alloc.match(hashes) if hashes else []
+            fresh = self._claim_blocks(alloc, hit, [], need - len(hit))
+            if fresh is not None:
+                break
+        else:
             return None
         evicted = alloc.pop_evicted()
         blocks = hit + fresh
@@ -1699,14 +1813,15 @@ class ServingEngine:
         if evicted:
             self.stats["cache_evictions"] += len(evicted)
             self._ev.emit("cache_evict", tick=self._tick,
-                          n_blocks=len(evicted), group=0)
+                          n_blocks=len(evicted), group=self._group(i))
         self.stats["migrated_in"] += 1
         self._ev.emit(
             "request_imported", rid=rid,
             orig_rid=int(desc.get("orig_rid", -1)), length=length,
             n_shared=len(hit), n_live=n_live, emitted_tokens=len(emitted))
         return {"rid": rid, "slot": i, "blocks": list(blocks),
-                "n_shared": len(hit), "n_live": n_live}
+                "n_shared": len(hit), "n_live": n_live,
+                **self._group_key(i)}
 
     def abort_import(self, rid: int, n_valid: int = 0) -> None:
         """Unwind an :meth:`import_slot` whose KV never arrived: the hashes
@@ -1718,9 +1833,10 @@ class ServingEngine:
                 break
         else:
             raise ValueError(f"abort_import: rid {rid} holds no slot")
+        alloc = self._alloc_of(i)
         for b in s.blocks[n_valid:]:
-            self._alloc._drop_hash(int(b))
-        self._release_blocks(self._alloc, s.blocks)
+            alloc._drop_hash(int(b))
+        self._release_blocks(alloc, s.blocks)
         self._clear_slot_rows(i)
         self._seq.pop(s.rid, None)
         self._inject.pop(s.rid, None)
@@ -1779,7 +1895,8 @@ class ServingEngine:
         self.rejected: Dict[int, Dict[str, Any]] = {}
         self._finished_order: List[int] = []
         self._rejected_order: List[int] = []
-        self._alloc.peak_in_use = self._alloc.in_use
+        for a in self._allocs:
+            a.peak_in_use = a.in_use
         # live MoE expert load: per-expert routed-token counts summed over
         # the measured steps, and the mean drop rate
         self._moe_expert_tokens: Optional[np.ndarray] = None
@@ -1859,7 +1976,11 @@ class ServingEngine:
         implementation, the kernel launches since :meth:`reset_metrics`,
         the call signatures, the ``prefix_cache`` and ``spec`` blocks and,
         where they apply, ``moe`` and ``long_context``.
-        ``kv_pool.pool_bytes`` is this rank's slice."""
+        ``kv_pool.pool_bytes`` is this rank's slice and
+        ``pool_bytes_expected`` its shape math; ``num_blocks`` is a data
+        group's, ``dp_groups`` the number of groups, and
+        ``pool_bytes_all_groups`` the reference's ``pool_bytes``: every
+        group's pool, every head (``dp * num_blocks`` blocks)."""
         span = self._t_last_done - self._t_first
         completed = sum(1 for f in self.finished.values()
                         if f["reason"] in ("eos", "max_tokens"))
@@ -1933,12 +2054,16 @@ class ServingEngine:
                 "block_size": self.block_size,
                 "mean_utilization": (self._util_sum / self._occ_ticks
                                      if self._occ_ticks else 0.0),
-                "peak_utilization": (self._alloc.peak_in_use
-                                     / self._alloc.n_usable),
+                "dp_groups": self.dp,
+                "peak_utilization": (max(a.peak_in_use for a in self._allocs)
+                                     / self._allocs[0].n_usable),
                 "pool_bytes": pool_bytes(self.cache),
                 "pool_bytes_expected": expected_pool_bytes(
                     self.cfg, self.num_blocks // self.cp, self.block_size,
                     quantized=self.kv_quant, axis_size=self.tp),
+                "pool_bytes_all_groups": expected_pool_bytes(
+                    self.cfg, self.dp * self.num_blocks, self.block_size,
+                    quantized=self.kv_quant),
             },
             "attn_impl": self.attn_impl,
             "device": str(self.device),
@@ -1962,7 +2087,7 @@ class ServingEngine:
                 "cached_tokens": st["prefix_cached_tokens"],
                 "cow_copies": st["cow_copies"],
                 "evictions": st["cache_evictions"],
-                "cached_blocks": self._alloc.n_cached,
+                "cached_blocks": sum(a.n_cached for a in self._allocs),
                 "cow_signatures": len(self._cow_sigs),
             },
             "spec": {"k": self.spec_k, "drafted": st["spec_drafted"],

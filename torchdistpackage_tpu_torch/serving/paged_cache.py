@@ -20,10 +20,11 @@ PyTorch counterpart of ``torchdistpackage_tpu/serving/paged_cache.py``.
   group with ``ep_group``), :func:`cp_paged_forward` for the dense family
   over a context-parallel group whose ranks each hold a block slice of
   the pool (ring paged attention, ``ops/ring_paged.py``, K2 on the card).
-  With ``tp_group`` the dense and MoE forwards run tensor-parallel: the
-  pool holds the rank's ``Hkv / tp`` KV heads (``init_paged_kv(axis_size=
+  With ``tp_group`` the three forwards run tensor-parallel: the pool
+  holds the rank's ``Hkv / tp`` KV heads (``init_paged_kv(axis_size=
   tp)``), the parameters are the rank's shard, and the logits come back
-  as the rank's vocabulary slice.
+  as the rank's vocabulary slice — beside ``ep_group`` (TP x EP) and
+  beside ``cp_group`` (TP x CP: the rings at the local heads).
 
 :class:`BlockAllocator` is host-side and O(blocks): refcounts, the
 chained content-hash index of the prefix cache (:func:`chain_block_hashes`)
@@ -49,7 +50,6 @@ import torch.distributed as dist
 
 from ..device import resolve_device
 from ..models.generate import (
-    _TP_EP,
     _embed_at,
     _kv_quant,
     cached_block_forward,
@@ -322,9 +322,8 @@ def _cp_paged_cache_ops(tables: torch.Tensor, group, attn_impl: str,
 def cp_paged_forward(params: Dict[str, Any], tokens: torch.Tensor,
                      cfg: GPTConfig, cache: Dict[str, Any],
                      tables: torch.Tensor, offset: torch.Tensor, *,
-                     cp_group, last_idx=None,
-                     attn_impl: str = "gather") -> Tuple[Dict[str, Any],
-                                                         torch.Tensor]:
+                     cp_group, last_idx=None, attn_impl: str = "gather",
+                     tp_group=None) -> Tuple[Dict[str, Any], torch.Tensor]:
     """:func:`paged_forward` across a context-parallel (CP) group — ring
     paged prefill.  Every rank calls it with the same tokens, tables and
     offsets; ``cache`` is the rank's block slice of the pool
@@ -340,7 +339,16 @@ def cp_paged_forward(params: Dict[str, Any], tokens: torch.Tensor,
     Decode (``S_in = 1``): every rank runs the same row, attends its local
     slice, and the exact cross-rank combine leaves the output the same on
     every rank.  At cp 1 there is no collective and one hop.
-    ``attn_impl``: ``'cuda'`` (K2) or ``'gather'`` (its plain version)."""
+    ``attn_impl``: ``'cuda'`` (K2) or ``'gather'`` (its plain version).
+
+    ``tp_group`` (JAX :321 with ``axis``): ``params`` is the rank's
+    tensor shard and ``cache`` holds its ``Hkv / tp`` heads, so both rings
+    run over the CP group (the ranks of this tensor rank) at the local
+    heads; each block sums its row-parallel products over the tensor
+    group.  The head row's logits are this rank's vocabulary slice, kept
+    on its owning CP rank and summed over the CP group, in the
+    reference's order; the caller gathers the slices over the tensor
+    group (``models.generate._full_logits``)."""
     from ..ops.ring_paged import cp_size_rank
 
     cp, r = cp_size_rank(cp_group)
@@ -361,7 +369,7 @@ def cp_paged_forward(params: Dict[str, Any], tokens: torch.Tensor,
     # padded prefill rows may run past a learned position table; their
     # values are never read, so clamp instead of faulting on the device
     h = _embed_at(params, tokens[:, base:base + sub].long(),
-                  positions.clamp(max=cfg.max_seq - 1).long())
+                  positions.clamp(max=cfg.max_seq - 1).long(), tp_group)
     rope = _batched_rope(cfg.block, positions)
     ops = _cp_paged_cache_ops(tables, cp_group, attn_impl,
                               prefill=not decode)
@@ -369,15 +377,17 @@ def cp_paged_forward(params: Dict[str, Any], tokens: torch.Tensor,
         h, _, _ = cached_block_forward(
             layer_params(params, layer), h, cfg.block,
             _layer_kv(cache["k"], layer), _layer_kv(cache["v"], layer),
-            offset, cache_ops=ops, rope=rope)
+            offset, cache_ops=ops, rope=rope, tp_group=tp_group)
     if decode or cp == 1:
-        logits = gpt_head(params, _select_row(h, last_idx), eps=cfg.norm_eps)
+        logits = gpt_head(params, _select_row(h, last_idx), eps=cfg.norm_eps,
+                          tp_group=tp_group)
         return cache, logits[:, 0, :]
     li = (torch.full((tokens.shape[0],), S_in - 1, device=dev)
           if last_idx is None else torch.as_tensor(last_idx, device=dev))
     li = li.long()
     mine = (li >= base) & (li < base + sub)
-    logits = gpt_head(params, _select_row(h, li - base), eps=cfg.norm_eps)
+    logits = gpt_head(params, _select_row(h, li - base), eps=cfg.norm_eps,
+                      tp_group=tp_group)
     logits = torch.where(mine[:, None, None], logits,
                          torch.zeros((), dtype=logits.dtype, device=dev))
     dist.all_reduce(logits, group=cp_group)
@@ -426,14 +436,15 @@ def paged_forward_moe(params: Dict[str, Any], tokens: torch.Tensor,
     ``'cuda'`` runs K7.  ``all_logits=True``: every row's logits [B, S_in,
     V], as in :func:`paged_forward` (JAX :415).  ``tp_group``: attention,
     the embedding and the head as in :func:`paged_forward`, the router
-    and the experts whole on every rank
-    (``models.gpt_moe.gpt_moe_param_specs``); with ``ep_group`` it waits
-    for ROADMAP queue A's "TP compositions in serving"."""
+    and the experts replicated over the tensor group
+    (``models.gpt_moe.gpt_moe_param_specs``).  Both groups at once (JAX
+    :407 with ``axis`` and ``ep_axis``): each tensor rank's expert layers
+    exchange over its own ``moe_ep`` group, on the activations the
+    attention's all-reduce left the same on every tensor rank; in every
+    layer every rank issues the all-reduce before the exchange."""
     from ..models.gpt_moe import moe_layer_config
     from ..parallel.moe import moe_forward, moe_serve_forward
 
-    if tp_group is not None and ep_group is not None:
-        raise NotImplementedError(_TP_EP)
     mcfg = moe_layer_config(cfg)
     disp = resolve_serving_dispatch(
         mcfg.dispatch if moe_dispatch is None else moe_dispatch,

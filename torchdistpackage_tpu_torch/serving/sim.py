@@ -147,13 +147,32 @@ class TorchDeviceStep(DeviceStep):
     tensor-parallel group whose ranks each hold their shard of the
     parameters and ``Hkv / tp`` heads of the pool — the step gathers the
     full logits (``models.generate._full_logits``) before it samples.
-    With any of them, each step broadcasts the group's rank 0's sampled
-    tokens to the group."""
+    ``tp_group`` composes with ``ep_group`` or ``cp_group``.
+
+    The ranks of these groups form one replica, and every step makes the
+    replica take its first rank's sampled tokens by one broadcast over
+    the replica's group: the one group given, or, when ``tp_group`` is
+    composed with ``ep_group`` or ``cp_group``, ``replica_group``
+    (``dist.ParallelContext.replica_group``: every axis but the data
+    one), which is then required.  A broadcast over one axis of a TP x EP
+    or TP x CP replica alone would leave the ranks of the other axis free
+    to differ at a near-tie, and ranks that schedule differently hang in
+    the next collective.
+
+    ``dp_group``: the engine's data-parallel slot groups (JAX
+    ``dp_axis``) — this rank is replica ``g = dist.get_rank(dp_group)``
+    of ``dp``, its pool is group ``g``'s (block ids local to the group),
+    and it runs only slot rows ``[g spg, (g + 1) spg)``; the sampled
+    tokens (with the verify / accept rows and the MoE statistics) are
+    then gathered over the data group, so every rank's host holds every
+    group's results.  Over gloo the gather moves the host copy the step
+    reads back anyway; over NCCL the device tensor."""
 
     def __init__(self, cfg: GPTConfig, device=None,
                  attn_impl: str = "auto",
                  moe_dispatch: Optional[str] = None, ep_group=None,
-                 cp_group=None, tp_group=None) -> None:
+                 cp_group=None, tp_group=None, dp_group=None,
+                 replica_group=None) -> None:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.attn_impl = resolve_attn_impl(attn_impl, self.device)
@@ -161,15 +180,33 @@ class TorchDeviceStep(DeviceStep):
         self.ep_group = ep_group
         self.cp_group = cp_group
         self.tp_group = tp_group
+        self.dp_group = dp_group
         self.cp = 1 if cp_group is None else dist.get_world_size(cp_group)
         self.tp = 1 if tp_group is None else dist.get_world_size(tp_group)
-        #: the group whose rank 0's tokens every rank takes
-        self.group = next((g for g in (ep_group, cp_group, tp_group)
-                           if g is not None), None)
+        self.dp = 1 if dp_group is None else dist.get_world_size(dp_group)
+        #: this rank's data group, and its slot rows (set by bind)
+        self.group_index = 0 if dp_group is None else dist.get_rank(dp_group)
+        self.rows = slice(None)
+        groups = [g for g in (tp_group, ep_group, cp_group)
+                  if g is not None]
+        if replica_group is None and len(groups) > 1:
+            raise ValueError(
+                "tp_group beside ep_group or cp_group needs replica_group= "
+                "(dist.ParallelContext.replica_group): the group over every "
+                "rank of the replica, whose first rank's tokens they all "
+                "take")
+        #: the group whose first rank's tokens every rank of it takes
+        self.replica_group = (replica_group if replica_group is not None
+                              else (groups[0] if groups else None))
         if cfg.moe_experts:
             self.moe_dispatch = resolve_serving_dispatch(
                 cfg.moe_dispatch if moe_dispatch is None else moe_dispatch,
                 self.device, ep=ep_group is not None)
+
+    def bind(self, engine: Any) -> None:
+        spg = engine.slots_per_group
+        self.rows = slice(self.group_index * spg,
+                          (self.group_index + 1) * spg)
 
     def init_cache(self, num_blocks: int, block_size: int,
                    quantized: bool) -> Any:
@@ -193,11 +230,53 @@ class TorchDeviceStep(DeviceStep):
 
     def cow(self, cache: Any, src: np.ndarray, dst: np.ndarray) -> Any:
         """:func:`~.paged_cache.copy_blocks` on the pool's stream, ordered
-        before the next step's writes by the stream itself."""
-        return copy_blocks(cache, src, dst)
+        before the next step's writes by the stream itself; under
+        ``dp_group`` the lanes of this rank's group only (its pool)."""
+        return copy_blocks(cache, src[self.rows], dst[self.rows])
 
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _local(self, samp: Dict[str, np.ndarray], streams: List[Any],
+               *arrays: np.ndarray):
+        """This rank's rows of the step's inputs, and the sampled streams
+        of the other data groups' rows: :meth:`_skip` advances them by
+        the draws their own group takes, so a stream's state — what a
+        drain or an export reads on any rank — is the same on every
+        rank."""
+        r = self.rows
+        local = [a[r] for a in arrays]
+        samp_l = {k: v[r] for k, v in samp.items()}
+        if self.dp_group is None:
+            return local, samp_l, streams, []
+        mine = set(range(len(streams))[r])
+        others = [g for i, g in enumerate(_sampled(streams, samp))
+                  if i not in mine and g is not None]
+        return local, samp_l, streams[r], others
+
+    def _skip(self, others: List[torch.Generator], n: int) -> None:
+        for g in others:
+            torch.rand(n, generator=g, device=self.device)
+
+    def _agree(self, t: torch.Tensor) -> None:
+        """Every rank of the replica takes its first rank's ``t``: a
+        near-tied argmax may flip on one rank only (EP: the f32 walks sum
+        by atomics; CP: each rank's combine sums in its own order)."""
+        if self.replica_group is not None:
+            dist.broadcast(t, src=dist.get_global_rank(self.replica_group, 0),
+                           group=self.replica_group)
+
+    def _gather(self, t: torch.Tensor) -> np.ndarray:
+        """``t`` [n, ...] of every data group, stacked [dp, n, ...] on the
+        host (one read-back); the rank's own without a data group."""
+        if self.dp_group is None:
+            return t.cpu().numpy()[None]
+        if dist.get_backend(self.dp_group) == "gloo":
+            t = t.cpu()
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(self.dp)]
+        dist.all_gather(parts, t, group=self.dp_group)
+        return torch.stack(parts).cpu().numpy()
 
     @torch.no_grad()
     def step(self, params: Any, cache: Any, tokens: np.ndarray,
@@ -210,42 +289,43 @@ class TorchDeviceStep(DeviceStep):
         ``[B]`` out; everything between runs on the device.  For an MoE
         config the third element is the step's ``(expert_tokens [E],
         dropped_token_rate)``, read back in the same host copy as the
-        tokens (one read-back a step); None for a dense config."""
+        tokens (one read-back a step) — under ``dp_group`` the groups'
+        counts summed and their drop rates averaged (JAX's host does the
+        same with its per-group out_specs rows); None for a dense
+        config."""
+        (tokens, tables, offsets, last_idx), samp, streams, others = \
+            self._local(samp, streams, tokens, tables, offsets, last_idx)
         args = (params, self._to_dev(tokens), self.cfg, cache,
                 self._to_dev(tables), self._to_dev(offsets))
-        kw = dict(last_idx=self._to_dev(last_idx), attn_impl=self.attn_impl)
+        kw = dict(last_idx=self._to_dev(last_idx), attn_impl=self.attn_impl,
+                  tp_group=self.tp_group)
         moe = None
         if self.cfg.moe_experts:
             cache, logits, moe = paged_forward_moe(
                 *args, moe_dispatch=self.moe_dispatch, moe_stats=True,
-                ep_group=self.ep_group, tp_group=self.tp_group, **kw)
+                ep_group=self.ep_group, **kw)
         elif self.cp_group is not None:
             cache, logits = cp_paged_forward(*args, cp_group=self.cp_group,
                                              **kw)
         else:
-            cache, logits = paged_forward(*args, tp_group=self.tp_group, **kw)
+            cache, logits = paged_forward(*args, **kw)
         tok = _slot_sample(_full_logits(logits, self.cfg, self.tp_group),
                            _sampled(streams, samp),
                            self._to_dev(samp["temperature"]),
                            self._to_dev(samp["top_k"]),
                            self._to_dev(samp["top_p"]))
-        if self.group is not None:
-            # every rank takes rank 0's tokens (the reference's pmax): a
-            # row whose argmax is a near-tie may flip on one rank only (EP:
-            # the F-tile atomics sum in another order; CP: each rank's
-            # combine sums in its own order), and ranks that schedule
-            # differently hang in the next collective
-            dist.broadcast(tok, src=dist.get_global_rank(self.group, 0),
-                           group=self.group)
-        if moe is None:
-            return cache, tok.to(torch.int32).cpu().numpy(), None
-        # float64 holds every int32 token id exactly
-        host = torch.cat([tok.double(), moe["expert_tokens"].double(),
-                          moe["dropped_token_rate"].double().reshape(1)]
-                         ).cpu().numpy()
+        self._skip(others, self.cfg.vocab_size)
+        self._agree(tok)
         B = tok.shape[0]
-        return (cache, host[:B].astype(np.int32),
-                (host[B:-1], float(host[-1])))
+        if moe is None:
+            host = self._gather(tok.to(torch.int32))
+            return cache, host.reshape(-1), None
+        # float64 holds every int32 token id exactly
+        host = self._gather(torch.cat([
+            tok.double(), moe["expert_tokens"].double(),
+            moe["dropped_token_rate"].double().reshape(1)]))
+        return (cache, host[:, :B].reshape(-1).astype(np.int32),
+                (host[:, B:-1].sum(0), float(host[:, -1].mean())))
 
     @torch.no_grad()
     def verify(self, params: Any, cache: Any, tokens: np.ndarray,
@@ -259,8 +339,12 @@ class TorchDeviceStep(DeviceStep):
         ``all_logits`` (every position's distribution in one call, one
         K1 launch a layer), then judged by :meth:`judge`.  Host arrays
         in; ``(cache, verify [B, K+1], accept [B, K])`` out, in one
-        read-back.  Under EP or TP every rank takes rank 0's verdict, as
-        :meth:`step` takes its tokens."""
+        read-back.  The replica takes its first rank's verdict, as
+        :meth:`step` takes its tokens, and a data group's rows are
+        gathered alike."""
+        K1 = tokens.shape[1]
+        (tokens, tables, offsets), samp, streams, others = self._local(
+            samp, streams, tokens, tables, offsets)
         tok = self._to_dev(tokens)
         args = (params, tok, self.cfg, cache, self._to_dev(tables),
                 self._to_dev(offsets))
@@ -274,12 +358,11 @@ class TorchDeviceStep(DeviceStep):
             cache, logits = paged_forward(*args, **kw)
         ver, acc = self.judge(_full_logits(logits, self.cfg, self.tp_group),
                               tok, samp, _sampled(streams, samp))
+        self._skip(others, K1 - 1 + K1 * self.cfg.vocab_size)
         both = torch.cat([ver, acc.long()], dim=1)
-        if self.group is not None:
-            dist.broadcast(both, src=dist.get_global_rank(self.group, 0),
-                           group=self.group)
-        host = both.to(torch.int32).cpu().numpy()
-        K1 = tokens.shape[1]
+        self._agree(both)
+        host = self._gather(both.to(torch.int32))
+        host = host.reshape(-1, host.shape[-1])
         return cache, host[:, :K1], host[:, K1:]
 
     def judge(self, logits: torch.Tensor, tokens: torch.Tensor,
