@@ -125,6 +125,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    by the gloo tests alone): every step's loss within 1e-3 relative of the serial step's, K3-K5 once a
    layer a step, each region's collectives exactly as many as a step
    runs (``tp_collectives``), the step medians beside the serial one.
+   Then the sharded training state (``zero_fsdp_phase``): a one-rank
+   NCCL group as ``tpc``'s ``data`` axis, the GPT-125M run through
+   ``make_train_step`` (11 steps) and through ``ZeroOptimizer`` (bf16
+   parameters, f32 master shards; step 1's loss bit-identical, every
+   loss within ``ZERO_TOL`` relative, the largest gap printed;
+   ``ShardedEMA(0.99)`` exact against a dense EMA formed on the card),
+   the same with ``chain(clip_by_global_norm_parallel(1.0), adamw)``
+   (step 1's norm before the clip within 1e-3 relative of
+   ``make_train_step``'s, the clipped norm <= 1 + 1e-5),
+   ``FSDP.make_train_step`` and ``make_overlap_train_step`` (losses and
+   parameters after 10 steps bit-identical), ``offload_to_host`` /
+   ``reload_to_device`` of the FSDP run's shards and AdamW state (the
+   card's bytes lower by theirs, step 11 after the reload bit-identical
+   to ``make_train_step``'s), and ``prefetched_layer_scan`` over the 12
+   blocks with prefetch on and off (bit-identical); K3-K5 once a layer a
+   step on every run; step medians, peaks and collectives a step.
 5. serve   — Mistral-7B-v0.1 widths, all 32 layers, bf16, random weights:
    ``paged_forward`` with K1 against the plain path on identical tokens
    (teacher-forced logits), then ``ServingEngine`` serves 16 requests
@@ -4101,6 +4117,368 @@ def tp_train_phase(card):
     return out
 
 
+# ------------------------------------------------ the sharded training state
+
+ZERO_TOL = 0.05  # f32 masters against bf16 AdamW: largest relative loss gap
+
+
+def sharded_run(cfg, rows, steps, kind, ema_decay=None, snapshot_at=None):
+    """``steps`` AdamW(3e-4) steps of GPT ``cfg`` on ``train_run``'s fixed
+    batch (the same init seed) through one of the steps a user calls:
+    ``'plain'`` ``make_train_step``; ``'zero'`` ``ZeroOptimizer`` (bf16
+    parameters, f32 master shards); ``'zero_clip'`` the same with
+    ``chain(clip_by_global_norm_parallel(1.0), adamw)``; ``'fsdp'`` /
+    ``'fsdp_overlap'`` ``FSDP.make_train_step`` /
+    ``make_overlap_train_step`` on ``shard_params``' shards.  Over
+    ``tpc``'s data group (one rank).  The kernels' counts and the
+    collectives are set to 0 just before the steps and read just after
+    (K3-K5 checked once a layer after every step); the peak memory is
+    over the steps, less what was allocated before the run began.  With
+    ``ema_decay`` a ``ShardedEMA`` is updated after each step (outside
+    the timing) beside a dense f32 EMA of the same parameters formed on
+    the card by the same formula.  ``snapshot_at``: a copy of the
+    parameters after that step is kept (``'snapshot'``)."""
+    from torchdistpackage_tpu_torch.models import gpt_loss, init_gpt_params
+    from torchdistpackage_tpu_torch.obs.numerics import tree_leaves
+    from torchdistpackage_tpu_torch.ops import flash_attention as fa
+    from torchdistpackage_tpu_torch.parallel import (
+        FSDP,
+        ShardedEMA,
+        ZeroOptimizer,
+        adamw,
+        chain,
+        clip_by_global_norm_parallel,
+    )
+    from torchdistpackage_tpu_torch.parallel.data_parallel import (
+        make_train_step,
+    )
+    from torchdistpackage_tpu_torch.parallel.tensor_parallel import (
+        COLLECTIVES,
+    )
+
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params = init_gpt_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    lf = lambda p, b: gpt_loss(p, b, cfg, remat="flash")  # noqa: E731
+    opt = adamw(3e-4)
+    owner = None
+    if kind == "plain":
+        state = opt.init(params)
+        step = make_train_step(lf, opt)
+    elif kind in ("zero", "zero_clip"):
+        if kind == "zero_clip":
+            opt = chain(clip_by_global_norm_parallel(1.0), opt)
+        owner = ZeroOptimizer(opt, param_dtype=cfg.dtype)
+        params = owner.place_params(params)
+        state = owner.init(params)
+        step = owner.make_train_step(lf)
+    else:
+        owner = FSDP()
+        params = owner.shard_params(params)
+        state = opt.init(params)
+        step = (owner.make_train_step(lf, opt) if kind == "fsdp" else
+                owner.make_overlap_train_step(lf, opt))
+    batch = random_batch(cfg, rows, 1)
+    ema = dense = None
+    if ema_decay is not None:
+        ema = ShardedEMA(ema_decay)
+        es = ema.init(params)
+        d = torch.tensor(ema_decay, dtype=torch.float32)
+        dense = [p.detach().float().clone() for p in tree_leaves(params)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    for name in COLLECTIVES:
+        COLLECTIVES[name] = 0
+    losses, norms, times, snapshot = [], [], [], None
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss, gnorm = step(params, state, batch)
+        losses.append(float(loss))  # reads back: waits for the step
+        times.append(time.perf_counter() - t0)
+        norms.append(float(gnorm))
+        want = cfg.nlayers * (i + 1)
+        if any(n != want for n in fa.LAUNCHES.values()):
+            raise RuntimeError(
+                f"{kind}: flash launches {dict(fa.LAUNCHES)} after step "
+                f"{i + 1}: each kernel must launch once a layer a step")
+        if snapshot_at == i + 1:
+            snapshot = [p.detach().clone() for p in tree_leaves(params)]
+        if ema is not None:
+            ema.update(es, params)
+            with torch.no_grad():
+                dense = [e * d + p.float() * (1.0 - d)
+                         for e, p in zip(dense, tree_leaves(params))]
+    out = {"losses": losses, "norms": norms, "times": times,
+           "launches": dict(fa.LAUNCHES),
+           "collectives": {k: v // steps for k, v in COLLECTIVES.items()
+                           if v},
+           "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+           "params": params, "state": state, "step": step, "batch": batch,
+           "owner": owner, "snapshot": snapshot}
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"{kind}: losses not finite and falling: "
+                           f"{losses}")
+    if ema is not None:
+        out["ema_exact"] = ema.verify_with_gt(es, dense, atol=0.0)
+        del es, dense
+    return out
+
+
+def prefetch_scan(cfg, rows, prefetch):
+    """GPT ``cfg``'s block stack through ``prefetched_layer_scan`` over
+    the one-rank data group (the stack's shards placed by
+    ``stacked_fsdp_specs``), each layer ``block_forward`` under remat
+    'flash', on ``train_run``'s embedded batch: the output, the grads of
+    the shards and of the input, the K3-K5 launches."""
+    from torchdistpackage_tpu_torch.dist import tpc
+    from torchdistpackage_tpu_torch.models import gpt_embed, init_gpt_params
+    from torchdistpackage_tpu_torch.obs.numerics import tree_leaves
+    from torchdistpackage_tpu_torch.ops import flash_attention as fa
+    from torchdistpackage_tpu_torch.parallel import (
+        prefetched_layer_scan,
+        stacked_fsdp_specs,
+    )
+    from torchdistpackage_tpu_torch.parallel.tensor_parallel import (
+        block_forward,
+        block_rope_cache,
+        checkpoint_block,
+    )
+    from torchdistpackage_tpu_torch.parallel.zero import shard_of
+
+    group = tpc.get_group("data")
+    params = init_gpt_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    _, dims = stacked_fsdp_specs(params["blocks"], 1)
+    stack = {k: v for k, v in params["blocks"].items()}
+
+    def shards(tree, dtree):
+        if isinstance(tree, dict):
+            return {k: shards(v, dtree[k]) for k, v in tree.items()}
+        return shard_of(tree.detach(), dtree, 0, 1).clone().requires_grad_()
+    stack = shards(stack, dims)
+    with torch.no_grad():
+        x = gpt_embed(params, random_batch(cfg, rows, 1)["tokens"])
+    x.requires_grad_(True)
+    rope = block_rope_cache(cfg.block, cfg.max_seq, x.device)
+
+    def apply_fn(lp, h, i):
+        return checkpoint_block(
+            lambda hh: block_forward(lp, hh, cfg.block, rope=rope),
+            "flash")(h)
+
+    reset_counts()
+    y = prefetched_layer_scan(stack, x, apply_fn, group, dims,
+                              prefetch=prefetch)
+    leaves = list(tree_leaves(stack))
+    grads = torch.autograd.grad(y.float().pow(2).mean(), leaves + [x])
+    torch.cuda.synchronize()
+    return {"y": y.detach(), "grads": grads, "launches": dict(fa.LAUNCHES)}
+
+
+def offload_round_trip(run, base, steps, tag, card):
+    """``offload_to_host`` of an FSDP run's shards and AdamW state, then
+    ``reload_to_device``; ``memory_report`` at each point, and one more
+    step against ``base``'s step ``steps + 1`` (loss and every
+    parameter, bit for bit)."""
+    from torchdistpackage_tpu_torch.obs.numerics import tree_bytes, tree_leaves
+    from torchdistpackage_tpu_torch.parallel import (
+        memory_report,
+        offload_to_host,
+        reload_to_device,
+    )
+
+    shards, state = run["params"], run["state"]
+    moved = {"params": shards, "opt": state}
+    nbytes = tree_bytes(shards) + sum(
+        tree_bytes([v for v in st.values() if v.dim() > 0])
+        for st in state.state.values())
+    torch.cuda.synchronize()
+    before = memory_report()["cuda:0"]["bytes_in_use"]
+    offload_to_host(moved)
+    torch.cuda.synchronize()
+    off = memory_report()["cuda:0"]["bytes_in_use"]
+    on_host = all(p.device.type == "cpu" and p.is_pinned()
+                  for p in tree_leaves(shards))
+    reload_to_device(moved)
+    torch.cuda.synchronize()
+    back = memory_report()["cuda:0"]["bytes_in_use"]
+    shards, state, loss, _ = run["step"](shards, state, run["batch"])
+    loss = float(loss)
+    same = loss == base["losses"][steps] and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(shards),
+                                          tree_leaves(base["params"])))
+    log(f"{tag} offload after the FSDP run: parameters and AdamW state "
+        f"{nbytes} B; memory_report bytes in use before {before}, "
+        f"offloaded {off} ({before - off} B lower; pinned on the host: "
+        f"{on_host}), reloaded {back}; step {steps + 1} after the reload: "
+        f"loss {loss:.6f} (make_train_step {base['losses'][steps]:.6f}), "
+        f"loss and every parameter bit-identical: {same} — on {card}")
+    if before - off < nbytes or not on_host or not same:
+        raise RuntimeError("offload round trip: the card's bytes did not "
+                           "drop by the state's, or the step after the "
+                           "reload differs")
+    return {"state_bytes": nbytes, "before": before, "offloaded": off,
+            "reloaded": back, "step_equal": same}
+
+def zero_fsdp_phase(card):
+    """The sharded training state at world 1 on the card: a one-rank NCCL
+    group as ``tpc``'s ``data`` axis, GPT-125M as ``train_phase`` trains it
+    (batch 16, S 2048, bf16, remat 'flash', 10 AdamW steps, the same init
+    seed and batch) through ``make_train_step`` (11 steps, the last the
+    offload's reference) and through:
+
+    - ``ZeroOptimizer(adamw(3e-4))`` (bf16 parameters, f32 master
+      shards): step 1's loss bit-identical to ``make_train_step``'s, the
+      losses finite and falling, every later loss within ``ZERO_TOL``
+      relative (f32 masters and bf16 AdamW part ways by design; the
+      largest gap printed); ``ShardedEMA(0.99)`` updated after each step,
+      exact (``verify_with_gt(atol=0)``) against a dense f32 EMA formed on
+      the card by the same formula;
+    - the same with ``chain(clip_by_global_norm_parallel(1.0), adamw)``:
+      step 1's norm before the clip within 1e-3 relative of
+      ``make_train_step``'s ``gnorm``, the clipped grads' norm <= 1 + 1e-5;
+    - ``FSDP.make_train_step`` and ``make_overlap_train_step``: losses
+      and every parameter after step 10 bit-identical to
+      ``make_train_step``'s (at one rank a gather and a scatter are
+      copies); then ``offload_to_host`` of the FSDP run's parameters and
+      optimizer state and ``reload_to_device``: ``memory_report`` before,
+      offloaded and reloaded, the card's bytes lower by at least the
+      parameters' and state's bytes, and step 11 after the reload (loss
+      and every parameter) bit-identical to ``make_train_step``'s step 11;
+    - ``prefetched_layer_scan`` over the 12 blocks (``block_forward``
+      under remat 'flash'), prefetch on against off: output and every
+      grad bit-identical, K3-K5 once a layer each.
+
+    K3-K5 launch once a layer a step on every run; step medians, peaks
+    and each run's collectives a step printed beside the card."""
+    from torchdistpackage_tpu_torch.obs.numerics import tree_leaves
+    from torchdistpackage_tpu_torch.parallel import global_grad_norm
+
+    cfg, rows, steps, warm = gpt_125m(), TRAIN_BATCH, 10, 3
+    L = cfg.nlayers
+    tag = "[zero-fsdp]"
+    out = {}
+    with one_rank_layout("zero-fsdp", [("data", 1)]) as ctx:
+        group = ctx.get_group("data")
+        base = sharded_run(cfg, rows, steps + 1, "plain", snapshot_at=steps)
+        base_ms = median_ms(base["times"][:steps], warm)
+        runs = {}
+
+        def line(name, run, extra=""):
+            log(f"{tag} {name}: GPT-125M, batch {rows}, S {cfg.max_seq}, "
+                f"bf16, remat 'flash', {len(run['losses'])} steps over a "
+                f"one-rank NCCL data group: losses "
+                + ", ".join(f"{x:.6f}" for x in run["losses"])
+                + f"; step median {median_ms(run['times'], warm):.2f} ms "
+                f"(make_train_step {base_ms:.2f}); peak memory over the "
+                f"run's start {run['peak_gb']:.3f} GB (make_train_step "
+                f"{base['peak_gb']:.3f}); launches {run['launches']}; "
+                f"collectives a step {run['collectives']}{extra} — on "
+                f"{card}")
+
+        # make_train_step's run, 11 steps: the reference of every check
+        line("make_train_step", base)
+        for name in ("zero", "zero_clip"):
+            run = sharded_run(cfg, rows, steps, name,
+                              ema_decay=0.99 if name == "zero" else None)
+            gap = max(abs(a - b) / abs(b)
+                      for a, b in zip(run["losses"], base["losses"]))
+            extra = (f"; step 1 loss bit-identical: "
+                     f"{run['losses'][0] == base['losses'][0]}; largest "
+                     f"relative loss gap {gap:.3e} (tolerance {ZERO_TOL})")
+            if name == "zero":
+                extra += f"; ShardedEMA(0.99) exact: {run['ema_exact']}"
+            else:
+                master = run["state"]["master"]
+                post = float(global_grad_norm(
+                    [m.grad for m in tree_leaves(master)],
+                    [(group,) if d >= 0 else () for d in tree_leaves(
+                        run["owner"].shard_dims(run["params"]))]))
+                pre_rel = abs(run["norms"][0] - base["norms"][0]) \
+                    / base["norms"][0]
+                bit = [i + 1 for i, n in enumerate(run["norms"]) if n > 1.0]
+                extra += (f"; step 1 norm before the clip "
+                          f"{run['norms'][0]:.6f} (make_train_step "
+                          f"{base['norms'][0]:.6f}, relative "
+                          f"{pre_rel:.3e}); norms before the clip "
+                          + ", ".join(f"{n:.4f}" for n in run["norms"])
+                          + f" (clipped at steps {bit}); the last step's "
+                          f"clipped norm {post:.6f}")
+                if pre_rel > 1e-3 or post > 1.0 + 1e-5:
+                    raise RuntimeError(f"clip chain: pre-clip norm off by "
+                                       f"{pre_rel:.3e} or clipped norm "
+                                       f"{post} > 1")
+            line(name, run, extra)
+            if run["losses"][0] != base["losses"][0] or gap > ZERO_TOL:
+                raise RuntimeError(f"{name}: step 1 loss not bit-identical "
+                                   f"or a loss {gap:.3e} off")
+            if name == "zero" and not run["ema_exact"]:
+                raise RuntimeError("ShardedEMA is not exact against the "
+                                   "dense EMA")
+            runs[name] = {"losses": run["losses"], "norms": run["norms"],
+                          "step_ms": median_ms(run["times"], warm),
+                          "peak_gb": run["peak_gb"], "gap": gap,
+                          "launches": run["launches"],
+                          "collectives": run["collectives"]}
+            del run
+            torch.cuda.empty_cache()
+
+        # FSDP against make_train_step's parameters after step 10, then
+        # the offload round trip and step 11 against its step 11
+        after10 = base["snapshot"]
+        for name in ("fsdp", "fsdp_overlap"):
+            run = sharded_run(cfg, rows, steps, name)
+            same_losses = run["losses"] == base["losses"][:steps]
+            same_params = all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(run["params"]), after10))
+            first = next((i + 1 for i, (a, b) in enumerate(zip(
+                run["losses"], base["losses"])) if a != b), None)
+            diff = max(float((a.detach().float() - b.float()).abs().max())
+                       for a, b in zip(tree_leaves(run["params"]), after10))
+            line(name, run, f"; bit-identical to make_train_step: losses "
+                 f"{same_losses} (first difference at step {first}), "
+                 f"parameters after step {steps} {same_params} (largest "
+                 f"difference {diff:.3e})")
+            if not (same_losses and same_params):
+                raise RuntimeError(f"{name} at world 1 is not bit-identical "
+                                   f"to make_train_step")
+            runs[name] = {"losses": run["losses"],
+                          "step_ms": median_ms(run["times"], warm),
+                          "peak_gb": run["peak_gb"],
+                          "launches": run["launches"],
+                          "collectives": run["collectives"]}
+            if name == "fsdp":
+                runs["offload"] = offload_round_trip(run, base, steps, tag,
+                                                     card)
+            del run
+            torch.cuda.empty_cache()
+        del after10, base
+        torch.cuda.empty_cache()
+
+        scans = [prefetch_scan(cfg, rows, p) for p in (True, False)]
+        same = torch.equal(scans[0]["y"], scans[1]["y"]) and all(
+            torch.equal(a, b) for a, b in zip(scans[0]["grads"],
+                                              scans[1]["grads"]))
+        log(f"{tag} prefetched_layer_scan over the {L} blocks "
+            f"(block_forward, remat 'flash'), prefetch on against off: "
+            f"output and all {len(scans[0]['grads'])} grads bit-identical: "
+            f"{same}; launches {scans[0]['launches']} / "
+            f"{scans[1]['launches']} — on {card}")
+        if not same or any(n != L for s in scans
+                           for n in s["launches"].values()):
+            raise RuntimeError("prefetched_layer_scan: prefetch on and off "
+                               "differ, or K3-K5 not once a layer")
+        runs["prefetch_equal"] = same
+        del scans
+        torch.cuda.empty_cache()
+        out = runs
+    return out
+
+
 def tp_engine_phase(params, cfg, card, plain):
     """The Mistral engine (all 32 layers) over a one-rank NCCL ``tensor``
     group: the rank's shard (``shard_gpt_params``: at one rank views of
@@ -5183,6 +5561,7 @@ def main():
     mistral_train_phase(card)
     dp_train_phase(card)
     tp_train = tp_train_phase(card)
+    zero_fsdp = zero_fsdp_phase(card)
     log(f"[time] training done at {time.perf_counter() - t_start:.0f} s")
 
     # 5. the serving path: full-width teacher-forced, then the engine
@@ -5307,7 +5686,10 @@ def main():
         k = {"flash_fwd": "K3", "flash_bwd_dq": "K4",
              "flash_bwd_dkv": "K5"}[kname]
         extra = {"tp_train_launches": {
-            m: tp_train[m]["launches"][kname] for m in ("tp", "sp")}}
+            m: tp_train[m]["launches"][kname] for m in ("tp", "sp")},
+            "zero_fsdp_launches": {
+                m: zero_fsdp[m]["launches"][kname] for m in (
+                    "zero", "zero_clip", "fsdp", "fsdp_overlap")}}
         if kname == "flash_fwd":  # the generate path's prefill calls
             extra["generate_launches"] = {
                 "generate": gen["launches"]["flash_fwd"],

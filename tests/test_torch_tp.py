@@ -618,7 +618,7 @@ def test_normalize_model_axis_grads_rule(group1):
 
     assert normalize_model_axis_grads(
         torch.tensor(1.0), grads, Layout(data=2, tensor=2))[1] == ()
-    with pytest.raises(NotImplementedError, match="the pipeline"):
+    with pytest.raises(NotImplementedError, match="The pipeline"):
         normalize_model_axis_grads(torch.tensor(1.0), grads,
                                    Layout(data=1, tensor=2, pipe=2))
 

@@ -29,6 +29,8 @@ EVENT_KINDS: FrozenSet[str] = frozenset({
     "request_exported", "request_imported", "import_aborted",
     # speculative decoding and the CP prefill ring
     "spec_draft", "spec_verify", "cp_prefill_chunk", "cp_ring_hop",
+    # training: a dynamic loss scale changed (parallel.clip)
+    "loss_scale",
     # a termination signal arrived (utils/preemption.GracefulShutdown)
     "preemption",
     # MoE: which dispatch 'auto' resolved to, and the host-side

@@ -40,7 +40,9 @@ The optimizer is optax's ``adamw`` as ``torch.optim.AdamW``:
 :func:`adamw` keeps optax's defaults (betas 0.9 / 0.999, eps 1e-8,
 weight decay 1e-4 on every leaf — torch's own default is 1e-2), and the
 moments take the parameters' dtype, as optax's do.  Both update
-``p <- p - lr * (m̂ / (sqrt(v̂) + eps) + wd * p)``.
+``p <- p - lr * (m̂ / (sqrt(v̂) + eps) + wd * p)``.  Every step also
+takes ``clip.chain(clip_by_global_norm_parallel(c), adamw(lr))``, the
+global-norm clip before the update.
 """
 
 from __future__ import annotations
@@ -58,6 +60,7 @@ from ..obs.numerics import global_grad_norm, tree_leaves
 from ..utils.data import microbatch
 from ..utils.data import shard_batch as _shard_batch
 from ..utils.partition import named_leaves
+from .clip import _norms, clip_of, clip_scale, scale_
 from .tensor_parallel.layers import PARTIAL_UNDER_SP, grad_taps, spec_pairs
 
 AxisName = Union[str, Tuple[str, ...]]
@@ -111,28 +114,20 @@ def _tp_of(group, params, specs, sp: bool) -> Optional[_TP]:
     return _TP(group, tuple(s for _, s in spec_pairs(params, specs)), sp)
 
 
-def _norms(tensors: List[torch.Tensor], tp: _TP) -> torch.Tensor:
-    """[sum of squares, non-finite count] of ``tensors`` (f64; each sum
-    of squares formed in f32, as ``global_grad_norm``), the split leaves'
-    shares summed over the tensor group."""
-    def part(ts):
-        out = torch.zeros(2, dtype=torch.float64, device=tensors[0].device)
-        for t in ts:
-            out += torch.stack([torch.sum(torch.square(t.float())).double(),
-                                (~torch.isfinite(t)).sum().double()])
-        return out
-    split = part([t for i, t in enumerate(tensors) if tp.split(i)])
-    dist.all_reduce(split, group=tp.group)
-    return split + part([t for i, t in enumerate(tensors)
-                         if not tp.split(i)])
+def _norm_groups(tp: _TP) -> List[Tuple[Any, ...]]:
+    """Each leaf's groups for ``clip._norms``: the split leaves' squares
+    are summed over the tensor group."""
+    return [(tp.group,) if tp.split(i) else () for i in range(len(tp.specs))]
 
 
 def _update(params, opt_state: torch.optim.AdamW, loss: torch.Tensor,
-            numerics: bool, tp: Optional[_TP] = None):
+            numerics: bool, tp: Optional[_TP] = None,
+            clip: Optional[float] = None):
     """The step's tail once every leaf's ``.grad`` is final: the global
-    gradient norm (or the numerics dict) and one AdamW update.  Under
-    tensor parallelism the norms are the whole model's: the split
-    leaves' squares summed over the tensor group."""
+    gradient norm (or the numerics dict), the clip of a :func:`~.clip.chain`
+    (``clip``: its ``max_norm``) and one AdamW update.  Under tensor
+    parallelism the norms are the whole model's: the split leaves'
+    squares summed over the tensor group."""
     leaves = list(tree_leaves(params))
     grads = [p.grad for p in leaves]
     if any(g is None for g in grads):
@@ -151,25 +146,32 @@ def _update(params, opt_state: torch.optim.AdamW, loss: torch.Tensor,
                         (~torch.isfinite(g)).sum() for g in grads),
                 }
         else:
-            g = _norms(grads, tp)
+            groups = _norm_groups(tp)
+            g = _norms(grads, groups)
             gnorm = torch.sqrt(g[0]).float()
             if numerics:
                 stats = {"grad_norm": gnorm,
                          "param_norm": torch.sqrt(_norms(
-                             [p.detach() for p in leaves], tp)[0]).float(),
+                             [p.detach() for p in leaves], groups)[0]).float(),
                          "nonfinite_grads": g[1].long()}
+        if clip is not None:
+            scale_(grads, clip_scale(gnorm, clip))
     opt_state.step()
     return params, opt_state, loss.detach(), stats if numerics else gnorm
 
 
 def make_train_step(loss_fn: Callable[[Dict[str, Any], Dict[str, Any]],
                                       torch.Tensor],
-                    optimizer: AdamW, numerics: bool = False,
+                    optimizer: Any, numerics: bool = False,
                     param_specs: Any = None, sp: bool = False,
                     tp_group=None):
     """``step(params, opt_state, batch) -> (params, opt_state, loss,
     gnorm)``: the loss and its gradients by autograd, the global gradient
-    norm, one AdamW update.  ``opt_state`` is ``optimizer.init(params)``.
+    norm, one AdamW update.  ``opt_state`` is ``optimizer.init(params)``;
+    ``optimizer`` is ``adamw()`` or ``clip.chain(
+    clip_by_global_norm_parallel(c), adamw())``, which scales the grads
+    by ``min(1, c / (gnorm + 1e-6))`` before the update (``gnorm`` is
+    the norm before the clip).
 
     Tensor parallelism: ``params`` is this rank's shard, ``param_specs``
     its spec tree (``models.gpt_param_specs``), ``tp_group`` the tensor
@@ -184,9 +186,7 @@ def make_train_step(loss_fn: Callable[[Dict[str, Any], Dict[str, Any]],
     0-dim tensors on the device (reading them syncs).  ``numerics=True``
     returns a dict instead of ``gnorm``: ``grad_norm``, ``param_norm``
     (before the update) and ``nonfinite_grads``."""
-    if not isinstance(optimizer, AdamW):
-        raise TypeError(
-            f"optimizer must be the port's adamw(), got {type(optimizer)}")
+    clip = clip_of(optimizer)
     if param_specs is not None and tp_group is None:
         tp_group = tpc.get_group(TENSOR_AXIS)
 
@@ -205,7 +205,7 @@ def make_train_step(loss_fn: Callable[[Dict[str, Any], Dict[str, Any]],
             buckets.flush()
             for p, red in buckets.finish():
                 p.grad.copy_(red)
-        return _update(params, opt_state, loss, numerics, tp)
+        return _update(params, opt_state, loss, numerics, tp, clip)
 
     return step
 
@@ -416,7 +416,7 @@ def local_value_and_grad(loss_fn: Callable[[Any, Any], torch.Tensor],
 
 
 #: the queue-A items that the model axes besides ``tensor`` wait for
-_MODEL_AXIS_ITEMS = {"pipe": "ZeRO / FSDP / EMA / clip, then the pipeline",
+_MODEL_AXIS_ITEMS = {"pipe": "The pipeline",
                      "context": "Training CP"}
 
 
@@ -576,7 +576,7 @@ class DataParallel:
         return loss / n if n > 1 else loss
 
     def make_train_step(self, loss_fn: Optional[Callable] = None,
-                        optimizer: Optional[AdamW] = None,
+                        optimizer: Any = None,
                         grad_accum_iters: int = 1,
                         value_and_grad_fn: Optional[Callable] = None,
                         accum_reduce: str = "final",
@@ -607,9 +607,7 @@ class DataParallel:
             raise ValueError("pass exactly one of loss_fn / value_and_grad_fn")
         if optimizer is None:
             raise ValueError("make_train_step requires an optimizer")
-        if not isinstance(optimizer, AdamW):
-            raise TypeError(
-                f"optimizer must be the port's adamw(), got {type(optimizer)}")
+        clip = clip_of(optimizer)
         if value_and_grad_fn is not None and grad_accum_iters != 1:
             raise ValueError(
                 "grad_accum_iters applies to the loss_fn path only; a "
@@ -643,7 +641,7 @@ class DataParallel:
                                "bytes_before_backward_returned": 0,
                                "bytes_before_blocks_done": 0}
             return _update(params, opt_state, self._mean_loss(loss),
-                           numerics, tp)
+                           numerics, tp, clip)
 
         def step(params, opt_state, batch):
             tp = _tp_of(tp_group, params, param_specs, sp)
@@ -695,6 +693,6 @@ class DataParallel:
                 loss = loss * (1.0 / M)
             self.last_stats = stats
             return _update(params, opt_state, self._mean_loss(loss),
-                           numerics, tp)
+                           numerics, tp, clip)
 
         return vag_step if value_and_grad_fn is not None else step

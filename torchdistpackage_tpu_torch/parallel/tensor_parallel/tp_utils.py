@@ -56,12 +56,20 @@ from ...dist.topology import TENSOR_AXIS, tpc
 #: collectives made, by region (forward and backward alike);
 #: ``ring_shift`` counts the rings' point-to-point exchanges,
 #: ``xent_max`` the vocab-parallel loss's all-reduce MAX,
-#: ``gather_params`` the all-gathers of ``layers.gather_params`` and
-#: ``full_logits`` decoding's all-gather of the vocabulary slices
+#: ``gather_params`` the all-gathers of ``layers.gather_params``,
+#: ``full_logits`` decoding's all-gather of the vocabulary slices; and
+#: the sharded training state's (``parallel.zero``, ``parallel.fsdp``,
+#: ``parallel.ema``): ZeRO's grad reduce-scatters, its all-reduces (the
+#: other data axes, whole leaves, the SP sum, the logged loss) and its
+#: re-gathers of the updated masters; FSDP's parameter all-gathers,
+#: their backward reduce-scatters and its all-reduces; the sharded
+#: EMA's gathers for ``state_dict``
 COLLECTIVES: Dict[str, int] = dict.fromkeys(
     ("reduce_from_tp", "copy_to_tp", "gather_from_sp", "scatter_to_sp",
      "split_to_sp", "ring_shift", "xent_max", "gather_params",
-     "full_logits"), 0)
+     "full_logits", "zero_reduce_scatter", "zero_all_reduce",
+     "zero_all_gather", "fsdp_all_gather", "fsdp_reduce_scatter",
+     "fsdp_all_reduce", "ema_all_gather"), 0)
 
 _TP_GROUP = None
 
@@ -107,20 +115,39 @@ def _all_reduce(x: torch.Tensor, group, name: str) -> torch.Tensor:
     return out
 
 
+def _start_all_gather(x: torch.Tensor, group, dim: int, name: str,
+                      async_op: bool = True) -> Callable[[], torch.Tensor]:
+    """Start the gather of :func:`_all_gather` and return the call that
+    finishes it: waits for the collective (the calling stream waits on
+    NCCL's) and returns the gathered tensor.  The output is allocated,
+    and read after the wait, on the calling stream, and the closure keeps
+    ``x`` alive until then, so no buffer crosses streams in the caching
+    allocator's view."""
+    n = dist.get_world_size(group)
+    x = x.contiguous()
+    out = x.new_empty((n,) + tuple(x.shape))
+    _count(name)
+    work = dist.all_gather_into_tensor(
+        out.view((n * x.shape[0],) + x.shape[1:]) if x.dim() else out, x,
+        group=group, async_op=async_op)
+    shape = list(x.shape)
+    if x.dim():
+        shape[dim] *= n
+
+    def finish() -> torch.Tensor:
+        if work is not None:
+            work.wait()
+        # reads x: the closure holds it until the collective is done
+        return out.movedim(0, dim).reshape(shape) if x.dim() else out
+    return finish
+
+
 def _all_gather(x: torch.Tensor, group, dim: int, name: str) -> torch.Tensor:
     """Concatenate every rank's ``x`` along ``dim``, in rank order, into
     a contiguous tensor: the ranks' whole tensors are gathered along a new
     leading dim (the collective's own layout), then moved into place — a
     copy that a one-rank group does not need."""
-    n = dist.get_world_size(group)
-    x = x.contiguous()
-    out = x.new_empty((n,) + tuple(x.shape))
-    _count(name)
-    dist.all_gather_into_tensor(out.view((n * x.shape[0],) + x.shape[1:])
-                                if x.dim() else out, x, group=group)
-    shape = list(x.shape)
-    shape[dim] *= n
-    return out.movedim(0, dim).reshape(shape)
+    return _start_all_gather(x, group, dim, name, async_op=False)()
 
 
 def _reduce_scatter(x: torch.Tensor, group, dim: int,
