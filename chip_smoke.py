@@ -141,6 +141,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    to ``make_train_step``'s), and ``prefetched_layer_scan`` over the 12
    blocks with prefetch on and off (bit-identical); K3-K5 once a layer a
    step on every run; step medians, peaks and collectives a step.
+   Then the pipeline (``pipeline_phase``): (a) over a one-rank NCCL data
+   1 x pipe 1 layout, ``gpt_pipeline_1f1b`` at M 4 against
+   ``local_value_and_grad(gpt_loss, grad_accum_iters=4)`` (loss within
+   1e-3 relative, every grad leaf within 2 % of its largest |grad|), 10
+   AdamW steps through ``DataParallel.make_train_step(value_and_grad_fn=
+   gpt_pipeline_1f1b)`` (losses within 1e-3 relative of the accumulating
+   step's) and through ``ZeroOptimizer`` (within ``ZERO_TOL``), K3-K5
+   exactly 12 x 4 a step; (b) two spawned processes on the card, a pipe
+   group of 2 over gloo (6 layers each), against the parent's serial
+   reference at accumulation 8: 1F1B, interleaved V 2 and zero-bubble at
+   M 8, one warm-up and three timed steps each (every loss within 1e-3
+   relative, the embedding's and the head's grads within 2 % of their
+   scale, K3-K5 exactly 6 x 8 a step, ZB 3 x / 2 x / 2 x that, in-flight
+   maxima within the bound), and a 1F1B step with the replicated leaves'
+   pipe sum planted out, which must fail its gate.
 5. serve   — Mistral-7B-v0.1 widths, all 32 layers, bf16, random weights:
    ``paged_forward`` with K1 against the plain path on identical tokens
    (teacher-forced logits), then ``ServingEngine`` serves 16 requests
@@ -4479,6 +4494,408 @@ def zero_fsdp_phase(card):
     return out
 
 
+# --------------------------------------------------------------- the pipeline
+
+PIPE_M = 4        # (a): microbatches of the one-stage schedule
+PIPE_M2 = 8       # (b): microbatches of the two-stage schedules
+PIPE_STAGES = 2   # (b): two processes on the one card, gloo between them
+PIPE_LOSS_TOL = 1e-3   # relative loss against the serial reference
+PIPE_GRAD_TOL = 0.02   # of each grad leaf's largest |value|
+#: K3 / K4 / K5 launches a layer and microbatch of each schedule (remat
+#: 'flash'): 1F1B and interleaved keep the forward's graph; ZB recomputes
+#: the stage in the dgrad and in the wgrad (parallel/pipeline_parallel/
+#: zero_bubble.py's note)
+PIPE_LAUNCHES = {"1f1b": (1, 1, 1), "interleaved": (1, 1, 1),
+                 "zb": (3, 2, 2)}
+
+
+def microbatched(batch, m):
+    return {k: v.reshape((m, v.shape[0] // m) + tuple(v.shape[1:]))
+            for k, v in batch.items()}
+
+
+def grad_gap(got, want):
+    """The largest |got - want| of a leaf over the leaf's largest
+    |want|."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def pipeline_one_stage(cfg, rows, card, base_ms):
+    """(a) of :func:`pipeline_phase`, inside its one-rank layout."""
+    from torchdistpackage_tpu_torch.models import (
+        gpt_loss,
+        gpt_pipeline_1f1b,
+        init_gpt_params,
+    )
+    from torchdistpackage_tpu_torch.obs.numerics import tree_leaves
+    from torchdistpackage_tpu_torch.ops import flash_attention as fa
+    from torchdistpackage_tpu_torch.parallel import (
+        DataParallel,
+        ZeroOptimizer,
+        adamw,
+    )
+    from torchdistpackage_tpu_torch.parallel.data_parallel import (
+        local_value_and_grad,
+    )
+    from torchdistpackage_tpu_torch.parallel.pipeline_parallel import (
+        last_stats,
+    )
+
+    tag, L, m = "[pipeline]", cfg.nlayers, PIPE_M
+    lf = lambda p, b: gpt_loss(p, b, cfg, remat="flash")  # noqa: E731
+    vg = lambda p, b: gpt_pipeline_1f1b(  # noqa: E731
+        p, b, cfg, m, remat="flash")
+    batch = random_batch(cfg, rows, 1)
+    pbatch = microbatched(batch, m)
+    params = init_gpt_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    ref_loss, ref_grads = local_value_and_grad(lf, params, batch,
+                                               grad_accum_iters=m)
+    torch.cuda.synchronize()
+    reset_counts()
+    loss, grads = vg(params, pbatch)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    gaps = [grad_gap(g, r) for g, r in zip(tree_leaves(grads),
+                                           tree_leaves(ref_grads))]
+    exact = all(torch.equal(g, r) for g, r in zip(tree_leaves(grads),
+                                                  tree_leaves(ref_grads)))
+    log(f"{tag} (a) gpt_pipeline_1f1b, one stage (data 1 x pipe 1, NCCL), "
+        f"GPT-125M, batch {rows} as M {m} x {rows // m}, S {cfg.max_seq}, "
+        f"bf16, remat 'flash': loss {float(loss):.6f} against "
+        f"local_value_and_grad(gpt_loss, grad_accum_iters={m}) "
+        f"{float(ref_loss):.6f} (relative {rel:.3e}, tolerance "
+        f"{PIPE_LOSS_TOL}); largest grad gap {max(gaps):.3e} of its leaf's "
+        f"largest |grad| over {len(gaps)} leaves (tolerance "
+        f"{PIPE_GRAD_TOL}), bit-identical: {exact}; launches {launches} "
+        f"({L} x {m} each); in flight {last_stats['max_in_flight']} of "
+        f"{last_stats['in_flight_bound']} — on {card}")
+    if rel > PIPE_LOSS_TOL or max(gaps) > PIPE_GRAD_TOL:
+        raise RuntimeError(f"one-stage 1F1B: loss {rel:.3e} or a grad "
+                           f"{max(gaps):.3e} off")
+    if any(n != L * m for n in launches.values()):
+        raise RuntimeError(f"one-stage 1F1B launches {launches} != "
+                           f"{L} x {m}")
+    out = {"loss_rel": rel, "grad_gap": max(gaps), "exact": exact,
+           "launches": launches}
+    del params, grads, ref_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def run(kind, steps=10, warm=3):
+        params = init_gpt_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0))
+        opt = adamw(3e-4)
+        b = batch
+        if kind == "accum":
+            state = opt.init(params)
+            step = DataParallel().make_train_step(lf, opt,
+                                                  grad_accum_iters=m)
+        elif kind == "dp":
+            state = opt.init(params)
+            step = DataParallel().make_train_step(value_and_grad_fn=vg,
+                                                  optimizer=opt)
+            b = pbatch
+        else:
+            zero = ZeroOptimizer(opt, param_dtype=cfg.dtype)
+            params = zero.place_params(params)
+            state = zero.init(params)
+            step = zero.make_train_step(value_and_grad_fn=vg)
+            b = pbatch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        losses, times = [], []
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, loss, _ = step(params, state, b)
+            losses.append(float(loss))
+            times.append(time.perf_counter() - t0)
+            if any(n != L * m * (i + 1) for n in fa.LAUNCHES.values()):
+                raise RuntimeError(f"{kind}: launches {dict(fa.LAUNCHES)} "
+                                   f"after step {i + 1} != {L} x {m} a step")
+        return {"losses": losses, "ms": median_ms(times, warm),
+                "launches": {k: v // steps for k, v in fa.LAUNCHES.items()},
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+    runs = {k: run(k) for k in ("accum", "dp", "zero")}
+    ref = runs["accum"]["losses"]
+    for kind, tol in (("dp", PIPE_LOSS_TOL), ("zero", ZERO_TOL)):
+        r = runs[kind]
+        gap = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], ref))
+        r["gap"] = gap
+        log(f"{tag} (a) 10 AdamW(3e-4) steps, {kind} "
+            f"({'DataParallel' if kind == 'dp' else 'ZeroOptimizer'}"
+            f"(value_and_grad_fn=gpt_pipeline_1f1b)): losses "
+            + ", ".join(f"{x:.6f}" for x in r["losses"])
+            + f"; largest relative gap to DataParallel(grad_accum_iters="
+            f"{m})'s {gap:.3e} (tolerance {tol}); step median "
+            f"{r['ms']:.2f} ms (accumulating step {runs['accum']['ms']:.2f}"
+            f", train_phase's plain step {base_ms:.2f}); launches a step "
+            f"{r['launches']}; peak {r['peak_gb']:.3f} GB (accumulating "
+            f"{runs['accum']['peak_gb']:.3f}) — on {card}")
+        if gap > tol or not all(np.isfinite(r["losses"])):
+            raise RuntimeError(f"one-stage pipeline {kind}: losses "
+                               f"{gap:.3e} off")
+    out["runs"] = runs
+    return out
+
+
+def pipeline_rank(rank, world, port, tmp):
+    """One stage of :func:`pipeline_phase` (b), in its own process: a pipe
+    group of ``world`` over gloo on the loopback (NCCL puts no two ranks
+    of one communicator on one card), the flash kernels loaded from the
+    parent's build, GPT-125M from the parent's seed (this stage's 6
+    layers and the whole leaves), ``train_run``'s batch as M 8 x 2.
+    1F1B, interleaved (V 2) and ZB: one warm-up and three timed steps
+    each, every step's loss and the first step's embedding and head grads
+    against the parent's serial reference (``ref.npz``), K3-K5 launches a
+    step, the in-flight maximum, the point-to-point traffic a step and
+    the host copies gloo needed; then one 1F1B step with the replicated
+    leaves' pipe sum left out.  Writes ``rank<r>.json`` under ``tmp``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from torchdistpackage_tpu_torch.dist import tpc
+    from torchdistpackage_tpu_torch.models import (
+        gpt_pipeline_1f1b,
+        gpt_pipeline_zb,
+        init_gpt_params,
+        pipe_slab,
+    )
+    from torchdistpackage_tpu_torch.ops import _build
+    from torchdistpackage_tpu_torch.ops import flash_attention as fa
+    from torchdistpackage_tpu_torch.parallel.pipeline_parallel import (
+        _p2p,
+        last_stats,
+        pipeline_sched,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(2)  # two ranks and the parent share the host
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        _build.load_all(["flash_attention"])
+        tpc.setup_process_groups([("pipe", world)])
+        cfg, m = gpt_125m(), PIPE_M2
+        full = init_gpt_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0))
+        batch = microbatched(random_batch(cfg, TRAIN_BATCH, 1), m)
+        ref = np.load(Path(tmp) / "ref.npz")
+        ref_loss = float(ref["loss"])
+        ref_g = {k: torch.from_numpy(ref[k]).cuda() for k in
+                 ("tok_emb", "head")}
+
+        def local(V):
+            out = pipe_slab(full, rank, world, V)
+
+            def own(t):
+                if isinstance(t, dict):
+                    return {k: own(v) for k, v in t.items()}
+                return t.detach().clone().requires_grad_(True)
+            return own(out)
+
+        def gates(loss, grads):
+            rel = abs(float(loss) - ref_loss) / abs(ref_loss)
+            gaps = {k: grad_gap(grads[k], ref_g[k]) for k in ref_g}
+            return rel, gaps
+
+        res = {"rank": rank, "schedules": {}}
+        scheds = (("1f1b", gpt_pipeline_1f1b, 1),
+                  ("interleaved", gpt_pipeline_1f1b, 2),
+                  ("zb", gpt_pipeline_zb, 1))
+        base = torch.cuda.memory_allocated()
+        for name, fn, V in scheds:
+            params = local(V)
+            kw = {"num_chunks": V} if V > 1 else {}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            rows = []
+            for i in range(4):
+                dist.barrier()
+                reset_counts()
+                _p2p.reset_stats()
+                t0 = time.perf_counter()
+                loss, grads = fn(params, batch, cfg, m, remat="flash", **kw)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                if i == 0:
+                    rel, gaps = gates(loss, grads)
+                else:
+                    rel, gaps = abs(float(loss) - ref_loss) / abs(ref_loss), \
+                        None
+                rows.append({"ms": ms, "loss": float(loss), "rel": rel,
+                             "gaps": gaps, "launches": dict(fa.LAUNCHES),
+                             "p2p": dict(_p2p.P2P_STATS),
+                             "in_flight": last_stats["max_in_flight"],
+                             "bound": last_stats["in_flight_bound"]})
+                del grads
+            res["schedules"][name] = {
+                "rows": rows,
+                "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
+            del params
+            torch.cuda.empty_cache()
+        # the planted fault: the replicated leaves' pipe sum left out
+        sync = pipeline_sched._Stage.sync
+        pipeline_sched._Stage.sync = lambda self, g: None
+        try:
+            loss, grads = gpt_pipeline_1f1b(local(1), batch, cfg, m,
+                                            remat="flash")
+            rel, gaps = gates(loss, grads)
+            res["planted"] = {"rel": rel, "gaps": gaps}
+            del grads
+        finally:
+            pipeline_sched._Stage.sync = sync
+        res["nlayers_here"] = cfg.nlayers // world
+        (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(res))
+        dist.barrier()
+    finally:
+        tpc.reset()
+        dist.destroy_process_group()
+
+
+def pipeline_two_stages(cfg, card, serial_ms, timeout=600):
+    """(b) of :func:`pipeline_phase`: the parent's serial reference, then
+    :func:`pipeline_rank` on two spawned processes."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from torchdistpackage_tpu_torch.models import gpt_loss, init_gpt_params
+    from torchdistpackage_tpu_torch.obs.numerics import tree_leaves
+    from torchdistpackage_tpu_torch.parallel.data_parallel import (
+        local_value_and_grad,
+    )
+
+    tag, m = "[pipeline]", PIPE_M2
+    tmp = Path(tempfile.mkdtemp(prefix="tdp-pipeline-"))
+    try:
+        params = init_gpt_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0))
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+        batch = random_batch(cfg, TRAIN_BATCH, 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = local_value_and_grad(
+            lambda p, b: gpt_loss(p, b, cfg, remat="flash"), params, batch,
+            grad_accum_iters=m)
+        torch.cuda.synchronize()
+        ref_ms = (time.perf_counter() - t0) * 1e3
+        np.savez(tmp / "ref.npz", loss=np.float64(float(loss)),
+                 tok_emb=grads["tok_emb"].float().cpu().numpy(),
+                 head=grads["head"].float().cpu().numpy())
+        del params, grads, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+        ctx = mp.get_context("spawn")
+        port = free_port()
+        procs = [ctx.Process(target=pipeline_rank,
+                             args=(r, PIPE_STAGES, port, str(tmp)))
+                 for r in range(PIPE_STAGES)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.perf_counter() + timeout
+        for p in procs:
+            p.join(max(1.0, deadline - time.perf_counter()))
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(30)
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * PIPE_STAGES:
+            raise RuntimeError(f"pipeline ranks exited {codes}")
+        res = [json.loads((tmp / f"rank{r}.json").read_text())
+               for r in range(PIPE_STAGES)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    total = time.perf_counter() - t0
+    out = {"ref_loss_step_ms": ref_ms, "phase_s": total, "ranks": res}
+    bad = []
+    for r in res:
+        L = r["nlayers_here"]
+        for name, sch in r["schedules"].items():
+            rows = sch["rows"]
+            k = PIPE_LAUNCHES[name]
+            want = {"flash_fwd": k[0] * L * m, "flash_bwd_dq": k[1] * L * m,
+                    "flash_bwd_dkv": k[2] * L * m}
+            first, timed = rows[0], rows[1:]
+            p2p = first["p2p"]
+            log(f"{tag} (b) rank {r['rank']} of {PIPE_STAGES} (stage "
+                f"{r['rank']}, {L} layers and the whole leaves), {name}, "
+                f"M {m} x 2: losses " + ", ".join(
+                    f"{x['loss']:.6f}" for x in rows)
+                + f" (largest relative gap {max(x['rel'] for x in rows):.3e} "
+                f"to the serial reference; tolerance {PIPE_LOSS_TOL}); step "
+                f"1 grad gaps {first['gaps']} of their leaves' largest "
+                f"|grad| (tolerance {PIPE_GRAD_TOL}); launches a step "
+                f"{first['launches']} (want {want}); in flight "
+                f"{first['in_flight']} of {first['bound']}; a step's p2p: "
+                f"{p2p['sends']} sends / {p2p['recvs']} receives, "
+                f"{p2p['bytes_sent']} / {p2p['bytes_recv']} B, "
+                f"{p2p['host_copies']} host copies of "
+                f"{p2p['host_copy_bytes']} B (gloo moves a CUDA payload "
+                f"through the host), {p2p['all_reduces']} pipe all-reduces, "
+                f"{p2p['preambles']} shape preamble; step median "
+                f"{float(np.median([x['ms'] for x in timed])):.2f} ms of 3 "
+                f"(two processes share one card: not pipeline scaling; the "
+                f"serial step at accumulation {m} {ref_ms:.2f} ms, (a)'s "
+                f"one-stage step {serial_ms:.2f} ms); peak over the "
+                f"schedule's start {sch['peak_gb']:.3f} GB — on {card}")
+            if (max(x["rel"] for x in rows) > PIPE_LOSS_TOL
+                    or max(first["gaps"].values()) > PIPE_GRAD_TOL):
+                bad.append(f"rank {r['rank']} {name}: loss or grads off")
+            if any(x["launches"] != want for x in rows):
+                bad.append(f"rank {r['rank']} {name}: launches "
+                           f"{[x['launches'] for x in rows]} != {want}")
+            if any(not 0 < x["in_flight"] <= x["bound"] for x in rows):
+                bad.append(f"rank {r['rank']} {name}: in flight over the "
+                           f"bound")
+        pl = r["planted"]
+        caught = pl["rel"] > PIPE_LOSS_TOL or max(
+            pl["gaps"].values()) > PIPE_GRAD_TOL
+        log(f"{tag} (b) rank {r['rank']}: planted fault (the replicated "
+            f"leaves' pipe sum left out): grad gaps {pl['gaps']} — "
+            f"{'caught' if caught else 'NOT caught'} by the gate")
+        if not caught:
+            bad.append(f"rank {r['rank']}: the planted fault passed")
+    log(f"{tag} (b) two processes on one card, phase {total:.1f} s with "
+        f"both processes' start — on {card}")
+    if bad:
+        raise RuntimeError("pipeline (b): " + "; ".join(bad))
+    return out
+
+
+def pipeline_phase(card, base_ms):
+    """The pipeline schedules on the card, GPT-125M (batch 16, S 2048,
+    bf16, remat 'flash'): (a) one stage in this process over a one-rank
+    NCCL data 1 x pipe 1 layout; (b) two stages as two processes on the
+    card over gloo (the multi-stage exchanges at P 2 and 4 and beside
+    data, ZeRO and tensor groups are held on the CPU,
+    tests/test_torch_pipeline.py and tests/test_torch_pipeline_compose.py).
+    ``base_ms``: ``train_phase``'s step median."""
+    cfg, rows = gpt_125m(), TRAIN_BATCH
+    with one_rank_layout("pipeline", [("data", 1), ("pipe", 1)]):
+        a = pipeline_one_stage(cfg, rows, card, base_ms)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[pipeline] this process holds "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB before the two "
+        f"stages start")
+    b = pipeline_two_stages(cfg, card, a["runs"]["dp"]["ms"])
+    return {"one_stage": a, "two_stages": b}
+
+
 def tp_engine_phase(params, cfg, card, plain):
     """The Mistral engine (all 32 layers) over a one-rank NCCL ``tensor``
     group: the rank's shard (``shard_gpt_params``: at one rank views of
@@ -5562,6 +5979,7 @@ def main():
     dp_train_phase(card)
     tp_train = tp_train_phase(card)
     zero_fsdp = zero_fsdp_phase(card)
+    pipe = pipeline_phase(card, train["step_ms"])
     log(f"[time] training done at {time.perf_counter() - t_start:.0f} s")
 
     # 5. the serving path: full-width teacher-forced, then the engine
@@ -5689,7 +6107,15 @@ def main():
             m: tp_train[m]["launches"][kname] for m in ("tp", "sp")},
             "zero_fsdp_launches": {
                 m: zero_fsdp[m]["launches"][kname] for m in (
-                    "zero", "zero_clip", "fsdp", "fsdp_overlap")}}
+                    "zero", "zero_clip", "fsdp", "fsdp_overlap")},
+            "pipeline_launches_a_step": {
+                "one_stage_1f1b": pipe["one_stage"]["launches"][kname],
+                **{f"{m}_one_stage": pipe["one_stage"]["runs"][m][
+                    "launches"][kname] for m in ("dp", "zero")},
+                **{f"{name}_two_stages": [
+                    r["schedules"][name]["rows"][0]["launches"][kname]
+                    for r in pipe["two_stages"]["ranks"]]
+                   for name in PIPE_LAUNCHES}}}
         if kname == "flash_fwd":  # the generate path's prefill calls
             extra["generate_launches"] = {
                 "generate": gen["launches"]["flash_fwd"],

@@ -618,9 +618,13 @@ def test_normalize_model_axis_grads_rule(group1):
 
     assert normalize_model_axis_grads(
         torch.tensor(1.0), grads, Layout(data=2, tensor=2))[1] == ()
-    with pytest.raises(NotImplementedError, match="The pipeline"):
+    # the pipelined loss is the same on every stage too
+    # (tests/test_torch_pipeline_compose.py holds the rule to JAX's)
+    assert normalize_model_axis_grads(
+        torch.tensor(1.0), grads, Layout(data=1, tensor=2, pipe=2))[1] == ()
+    with pytest.raises(NotImplementedError, match="Training CP"):
         normalize_model_axis_grads(torch.tensor(1.0), grads,
-                                   Layout(data=1, tensor=2, pipe=2))
+                                   Layout(data=1, tensor=2, context=2))
 
 
 def test_refusals(group1):

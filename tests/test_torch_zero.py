@@ -492,19 +492,25 @@ def test_zero_refuses_what_waits(kw, item):
 
 
 @pytest.mark.parametrize("axes,item", [
-    ([("data", 2), ("pipe", 2)], "The pipeline"),
+    ([("data", 2), ("pipe", 2)], None),
     ([("data", 2), ("context", 2)], "Training CP"),
 ])
 def test_model_axes_wait_for_their_items(axes, item):
-    """ZeRO beside 1F1B and beside the ring CP, and DataParallel's
-    ``pipe`` axis, name their queue-A items."""
+    """ZeRO beside the ring CP, and DataParallel's ``context`` axis, name
+    their queue-A item; beside 1F1B (a ``pipe`` axis, ported:
+    tests/test_torch_pipeline_compose.py) both accept the layout."""
     ctx = _layout(axes)
-    with pytest.raises(NotImplementedError, match=item):
-        ZeroOptimizer(adamw(), ctx=ctx)
     from torchdistpackage_tpu_torch.parallel.data_parallel import (
         normalize_model_axis_grads,
     )
 
+    if item is None:  # past the refusal, to the groups a layout lacks
+        with pytest.raises(RuntimeError, match="no process groups"):
+            ZeroOptimizer(adamw(), ctx=ctx)
+        assert normalize_model_axis_grads(None, None, ctx) == (None, ())
+        return
+    with pytest.raises(NotImplementedError, match=item):
+        ZeroOptimizer(adamw(), ctx=ctx)
     with pytest.raises(NotImplementedError, match=item):
         normalize_model_axis_grads(None, None, ctx)
 

@@ -1,5 +1,5 @@
 """Model families: the GPT / Llama config, init, the cached block, the
-training loss and KV-cache generation (``generate``,
+training loss, the pipelined GPT steps and KV-cache generation (``generate``,
 ``speculative_generate``, ``beam_generate``); the MoE family's config,
 per-block init and presets."""
 
@@ -14,15 +14,24 @@ from .generate import (
 )
 from .gpt import (
     GPTConfig,
+    deinterleave_stage_params,
     gpt_embed,
     gpt_forward,
     gpt_head,
     gpt_hidden,
+    gpt_interleaved_param_specs,
     gpt_loss,
+    gpt_param_specs,
+    gpt_pipeline_1f1b,
+    gpt_pipeline_loss,
+    gpt_pipeline_zb,
     init_gpt_params,
+    interleave_stage_params,
     llama_config,
     mistral_7b_config,
     mixtral_8x7b_config,
+    pipe_slab,
+    shard_gpt_params,
 )
 from .gpt_moe import (
     init_gpt_moe_params,
@@ -31,10 +40,13 @@ from .gpt_moe import (
     shard_moe_params,
 )
 
-__all__ = ["GPTConfig", "beam_generate", "forward_cached",
-           "forward_cached_moe", "generate", "gpt_embed", "gpt_forward",
-           "gpt_head", "gpt_hidden", "gpt_loss", "init_gpt_moe_params",
-           "init_gpt_params", "init_kv_cache", "is_moe_block",
-           "llama_config", "mistral_7b_config", "mixtral_8x7b_config",
-           "moe_layer_config", "params_from_jax", "shard_moe_params",
-           "speculative_generate"]
+__all__ = ["GPTConfig", "beam_generate", "deinterleave_stage_params",
+           "forward_cached", "forward_cached_moe", "generate", "gpt_embed",
+           "gpt_forward", "gpt_head", "gpt_hidden",
+           "gpt_interleaved_param_specs", "gpt_loss", "gpt_param_specs",
+           "gpt_pipeline_1f1b", "gpt_pipeline_loss", "gpt_pipeline_zb",
+           "init_gpt_moe_params", "init_gpt_params", "init_kv_cache",
+           "interleave_stage_params", "is_moe_block", "llama_config",
+           "mistral_7b_config", "mixtral_8x7b_config", "moe_layer_config",
+           "params_from_jax", "pipe_slab", "shard_gpt_params",
+           "shard_moe_params", "speculative_generate"]

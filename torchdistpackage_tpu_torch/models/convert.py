@@ -36,7 +36,8 @@ def _tensor(x, device, dtype=None) -> torch.Tensor:
 
 def params_from_jax(np_tree: Dict[str, Any], cfg: GPTConfig,
                     device=None, ep_rank: int = 0, ep_size: int = 1,
-                    tp_rank: int = 0, tp_size: int = 1) -> Dict[str, Any]:
+                    tp_rank: int = 0, tp_size: int = 1, pp_rank: int = 0,
+                    pp_size: int = 1, num_chunks: int = 1) -> Dict[str, Any]:
     """``np_tree``: the JAX param pytree with every leaf already turned
     into a numpy array (``jax.tree.map(np.asarray, params)`` on the JAX
     side — this module never imports JAX).  Returns the port's dict with
@@ -66,8 +67,10 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: GPTConfig,
     dev = resolve_device(device)
     if ep_size > 1 and not cfg.moe_experts:
         raise ValueError(f"EP size {ep_size} needs an MoE config")
-    if tp_size > 1:
-        np_tree = shard_gpt_params(np_tree, cfg, tp_rank, tp_size)
+    if tp_size > 1 or pp_size > 1 or num_chunks > 1:
+        np_tree = shard_gpt_params(np_tree, cfg, tp_rank, tp_size,
+                                   pp_rank=pp_rank, pp_size=pp_size,
+                                   num_chunks=num_chunks)
 
     def conv(x):
         if isinstance(x, dict):

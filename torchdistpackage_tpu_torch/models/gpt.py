@@ -402,22 +402,111 @@ def layer_params(params: Params, layer: int) -> Params:
 # ------------------------------------------------------------------ specs
 
 
-def gpt_param_specs(params: Params) -> Params:
+def gpt_param_specs(params: Params, pipe_axis: Optional[str] = None,
+                    tp_axis: Optional[str] = None,
+                    interleaved: bool = False) -> Params:
     """The tensor-parallel spec tree of a GPT param tree (JAX :747, the
     placement table ``layers.TP_SPLIT_DIMS``): ``tok_emb`` split on its
     vocabulary rows, ``head`` on its vocabulary columns, the blocks'
     column- and row-parallel leaves on their heads / hidden units;
     norms, row biases, ``pos_emb``, and an MoE block's router and
-    experts replicated."""
-    return param_specs(params)
+    experts replicated.
+
+    With ``pipe_axis`` (or ``tp_axis``) the PartitionSpec-like form
+    instead, JAX's ``gpt_param_specs(cfg, tp_axis, pipe_axis)``: each
+    leaf a tuple of axis names, one a dim — the ``[L, ...]`` block leaves
+    split dim 0 over ``pipe_axis`` (``interleaved``: the ``[V, P, Lc,
+    ...]`` layout of :func:`interleave_stage_params`, dim 1),
+    ``tp_axis`` on each leaf's tensor-parallel dim.  The pipeline
+    schedules read which leaves are a stage's own slab from it."""
+    specs = param_specs(params)
+    if pipe_axis is None and tp_axis is None:
+        return specs
+
+    def tup(leaf, spec, stacked):
+        entries = [None] * leaf.ndim
+        if tp_axis is not None and isinstance(spec, int):
+            entries[spec % leaf.ndim] = tp_axis
+        if stacked and pipe_axis is not None:
+            entries[1 if interleaved else 0] = pipe_axis
+        return tuple(entries)
+
+    def walk(node, spec, stacked):
+        if isinstance(node, dict):
+            return {k: walk(v, spec[k], stacked or k == "blocks")
+                    for k, v in node.items()}
+        return tup(node, spec, stacked)
+    return walk(params, specs, False)
+
+
+def interleave_stage_params(params: Params, num_chunks: int,
+                            pipe_size: int) -> Params:
+    """The ``[L, ...]`` block leaves reshaped to the interleaved layout
+    ``[V, P, L / (P V), ...]``: chunk ``v`` of stage ``s`` holds layer slab
+    ``v P + s`` (JAX :496).  Works on tensors and numpy arrays (views)."""
+    def r(a):
+        L = a.shape[0]
+        if L % (num_chunks * pipe_size):
+            raise ValueError(f"nlayers {L} not divisible by num_chunks*pipe "
+                             f"({num_chunks}*{pipe_size})")
+        return a.reshape((num_chunks, pipe_size,
+                          L // (num_chunks * pipe_size)) + tuple(a.shape[1:]))
+    return {**params, "blocks": _map(r, params["blocks"])}
+
+
+def deinterleave_stage_params(params: Params, num_chunks: int,
+                              pipe_size: int) -> Params:
+    """:func:`interleave_stage_params`' inverse: ``[V, P, Lc, ...]`` back
+    to the serial ``[L, ...]`` layout."""
+    def r(a):
+        if tuple(a.shape[:2]) != (num_chunks, pipe_size):
+            raise ValueError(
+                f"leaf leading dims {tuple(a.shape[:2])} != (V={num_chunks}, "
+                f"P={pipe_size}) — not an interleaved layout")
+        return a.reshape((num_chunks * pipe_size * a.shape[2],)
+                         + tuple(a.shape[3:]))
+    return {**params, "blocks": _map(r, params["blocks"])}
+
+
+def gpt_interleaved_param_specs(params: Params, tp_axis: Optional[str] = None,
+                                pipe_axis: str = "pipe") -> Params:
+    """Specs of the :func:`interleave_stage_params` layout: the block
+    leaves ``[V, P, Lc, ...]`` split dim 1 over ``pipe_axis`` (JAX :540)."""
+    return gpt_param_specs(params, pipe_axis=pipe_axis, tp_axis=tp_axis,
+                           interleaved=True)
+
+
+def pipe_slab(params: Params, pp_rank: int, pp_size: int,
+              num_chunks: int = 1) -> Params:
+    """Stage ``pp_rank`` of ``pp_size``'s params: views of the ``[L,
+    ...]`` block leaves' contiguous ``[L / P, ...]`` slab (``num_chunks >
+    1``: the interleaved layout's ``[V, 1, Lc, ...]``), every other leaf
+    whole."""
+    if not 0 <= pp_rank < pp_size:
+        raise ValueError(f"pp_rank {pp_rank} not in [0, {pp_size})")
+    if num_chunks > 1:
+        params = interleave_stage_params(params, num_chunks, pp_size)
+        cut = lambda a: a[:, pp_rank:pp_rank + 1]  # noqa: E731
+    else:
+        def cut(a):
+            L = a.shape[0]
+            if L % pp_size:
+                raise ValueError(f"nlayers {L} not divisible by pipe "
+                                 f"{pp_size} (equal stage slabs)")
+            c = L // pp_size
+            return a[pp_rank * c:(pp_rank + 1) * c]
+    return {**params, "blocks": _map(cut, params["blocks"])}
 
 
 def shard_gpt_params(params: Params, cfg: GPTConfig, rank: int,
-                     size: int) -> Params:
+                     size: int, pp_rank: int = 0, pp_size: int = 1,
+                     num_chunks: int = 1) -> Params:
     """Tensor-parallel rank ``rank`` of ``size``'s shard of a GPT param
     tree (dense or MoE): views of ``params`` cut by
     :func:`gpt_param_specs`.  The vocabulary and the KV heads must divide
-    by ``size`` (whole KV heads a shard)."""
+    by ``size`` (whole KV heads a shard).  ``pp_size > 1``: then pipeline
+    stage ``pp_rank``'s slab of the block leaves (:func:`pipe_slab`;
+    dense stacked blocks only)."""
     if cfg.vocab_size % size:
         raise ValueError(f"vocab_size {cfg.vocab_size} not divisible by tp "
                          f"{size} (whole vocabulary slices per shard)")
@@ -425,4 +514,150 @@ def shard_gpt_params(params: Params, cfg: GPTConfig, rank: int,
         raise ValueError(
             f"kv_heads {cfg.block.kv_head_count} not divisible by tp "
             f"{size} (whole KV heads per shard)")
-    return shard_params(params, gpt_param_specs(params), rank, size)
+    out = shard_params(params, gpt_param_specs(params), rank, size)
+    if pp_size > 1 or num_chunks > 1:
+        if not isinstance(out.get("blocks"), dict):
+            raise NotImplementedError(
+                "the MoE pipelines wait for ROADMAP queue A's 'MoE training' "
+                "(the pipeline takes the dense family's stacked blocks)")
+        out = pipe_slab(out, pp_rank, pp_size, num_chunks)
+    return out
+
+
+# ------------------------------------------------------------------ pipeline
+
+
+def _pipe_block_specs(params: Params, pipe_axis: str) -> Params:
+    """The schedules' placement: the block leaves a stage's own, the rest
+    replicated over the pipe group."""
+    return {k: (_map(lambda _: (pipe_axis,), v) if k == "blocks" else None)
+            for k, v in params.items()}
+
+
+def _gpt_stage_fns(cfg: GPTConfig, tp_group, sp: bool, remat: RematMode,
+                   dropout_key: Optional[int], stage: int, num_chunks: int):
+    """``(first_fn, stage_fn, last_fn)`` of the GPT pipelines (JAX
+    :598-650): stage 0 embeds (and enters SP), each stage scans its slab,
+    the last runs the final norm, the head and the vocab-parallel loss.
+    Dropout folds (stage, microbatch[, chunk]) into the key, then
+    ``scan_blocks`` the layer."""
+    from ..utils.random import fold_in
+
+    def first_fn(p, toks):
+        h = gpt_embed(p, toks, tp_group)
+        if tp_group is not None and sp:
+            h = split_to_sp(h, tp_group)
+        return h
+
+    def key(m, v=None):
+        if dropout_key is None or cfg.dropout_rate <= 0.0:
+            return None
+        k = fold_in(fold_in(dropout_key, stage), m)
+        return k if v is None else fold_in(k, v)
+
+    if num_chunks == 1:
+        def stage_fn(p, x, m):
+            return scan_blocks(p["blocks"], x, cfg.block, remat=remat,
+                               dropout_key=key(m), tp_group=tp_group, sp=sp)
+    else:
+        def stage_fn(p, x, m, v):
+            slab = _map(lambda a: a[v, 0], p["blocks"])
+            return scan_blocks(slab, x, cfg.block, remat=remat,
+                               dropout_key=key(m, v), tp_group=tp_group,
+                               sp=sp)
+
+    def last_fn(p, y, tgt):
+        logits = gpt_head(p, y, eps=cfg.norm_eps, tp_group=tp_group, sp=sp)
+        return vocab_parallel_xent(logits, tgt, tp_group)
+    return first_fn, stage_fn, last_fn
+
+
+def gpt_pipeline_loss(params: Params, batch: Dict[str, torch.Tensor],
+                      cfg: GPTConfig, num_microbatches: int, tp_group=None,
+                      pipe_axis: str = "pipe", sp: bool = False,
+                      remat: RematMode = True, pipe_group=None
+                      ) -> torch.Tensor:
+    """The pipelined GPT loss on the fill-drain schedule (JAX :443),
+    differentiated by the caller (``loss.backward()`` on every stage).
+    ``params``: this stage's (its ``[L / P, ...]`` block slab, every other
+    leaf whole); ``batch``: {'tokens', 'targets'} ``[M, mbs, S]``.  Stage 0
+    embeds per tick, the last stage runs the head and the loss; the
+    embedding's and the head's grads are summed over the pipe group inside
+    the backward (``pipeline_loss(params=)``)."""
+    from ..parallel.pipeline_parallel import pipeline_loss
+
+    first_fn, _, last_fn = _gpt_stage_fns(cfg, tp_group, sp, False, None,
+                                          0, 1)
+    whole = {k: v for k, v in params.items() if k != "blocks"}
+
+    def stage_fn(stacked, x):
+        return scan_blocks(stacked, x, cfg.block, tp_group=tp_group, sp=sp)
+
+    return pipeline_loss(
+        params["blocks"], batch["tokens"], batch["targets"],
+        stage_fn=stage_fn, loss_fn=last_fn,
+        num_microbatches=num_microbatches, pipe_axis=pipe_axis, remat=remat,
+        first_fn=first_fn, params=whole, pipe_group=pipe_group,
+        loss_takes_params=True)
+
+
+def gpt_pipeline_1f1b(params: Params, batch: Dict[str, torch.Tensor],
+                      cfg: GPTConfig, num_microbatches: int, tp_group=None,
+                      pipe_axis: str = "pipe", sp: bool = False,
+                      remat: RematMode = True,
+                      dropout_key: Optional[int] = None, num_chunks: int = 1,
+                      shard_transfers: Optional[bool] = None,
+                      pipe_group=None):
+    """The 1F1B GPT step's core (JAX :556): ``(loss, grads)`` directly (do
+    not call ``backward``).  ``params``: this stage's — its block slab
+    (``shard_gpt_params(..., pp_rank=, pp_size=)`` / ``params_from_jax``),
+    every other leaf whole; ``num_chunks > 1`` the interleaved layout's
+    ``[V, 1, Lc, ...]`` slab and schedule (``M % P == 0``).  ``batch``:
+    {'tokens', 'targets'} ``[M, mbs, S]``.  Stage 0 embeds, the last stage
+    runs the head and the loss; their grads are summed over the pipe group
+    once, after the schedule.  ``dropout_key`` folds (stage, microbatch[,
+    chunk]).  ``tp_group`` / ``sp``: tensor parallelism inside each stage
+    (this rank's TP shards); ``shard_transfers`` (default: on exactly when
+    ``tp_group`` is set and ``sp`` off) carries the inter-stage activation
+    sliced 1/tp over the tensor group.  The pipe group is ``pipe_group``,
+    else ``tpc``'s ``pipe_axis`` group."""
+    from ..parallel.pipeline_parallel import pipeline_1f1b, stage_index
+
+    if shard_transfers is None:
+        shard_transfers = tp_group is not None and not sp
+    first_fn, stage_fn, last_fn = _gpt_stage_fns(
+        cfg, tp_group, sp, remat, dropout_key,
+        stage_index(pipe_axis, pipe_group), num_chunks)
+    return pipeline_1f1b(
+        params, batch["tokens"], batch["targets"], first_fn=first_fn,
+        stage_fn=stage_fn, last_fn=last_fn,
+        num_microbatches=num_microbatches, pipe_axis=pipe_axis,
+        stage_takes_mb=True, num_chunks=num_chunks, pipe_group=pipe_group,
+        param_specs=_pipe_block_specs(params, pipe_axis),
+        transfer_shard_group=tp_group if shard_transfers else None)
+
+
+def gpt_pipeline_zb(params: Params, batch: Dict[str, torch.Tensor],
+                    cfg: GPTConfig, num_microbatches: int, tp_group=None,
+                    pipe_axis: str = "pipe", sp: bool = False,
+                    remat: RematMode = True,
+                    dropout_key: Optional[int] = None,
+                    shard_transfers: Optional[bool] = None, pipe_group=None):
+    """:func:`gpt_pipeline_1f1b`'s contract on the zero-bubble schedule
+    (JAX :663; no ``num_chunks``): the dgrad on the wavefront, the wgrad
+    in a drain, the same key recipe, so both recomputes replay the
+    forward's dropout masks."""
+    from ..parallel.pipeline_parallel import pipeline_zb_1f1b, stage_index
+
+    if shard_transfers is None:
+        shard_transfers = tp_group is not None and not sp
+    first_fn, stage_fn, last_fn = _gpt_stage_fns(
+        cfg, tp_group, sp, remat, dropout_key,
+        stage_index(pipe_axis, pipe_group), 1)
+    return pipeline_zb_1f1b(
+        params, batch["tokens"], batch["targets"], first_fn=first_fn,
+        stage_fn=stage_fn, last_fn=last_fn,
+        num_microbatches=num_microbatches, pipe_axis=pipe_axis,
+        stage_takes_mb=True, pipe_group=pipe_group,
+        param_specs=_pipe_block_specs(params, pipe_axis),
+        transfer_shard_group=tp_group if shard_transfers else None)

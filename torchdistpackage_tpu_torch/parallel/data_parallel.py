@@ -55,7 +55,13 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
 import torch
 import torch.distributed as dist
 
-from ..dist.topology import DATA_AXIS, TENSOR_AXIS, ParallelContext, tpc
+from ..dist.topology import (
+    DATA_AXIS,
+    PIPE_AXIS,
+    TENSOR_AXIS,
+    ParallelContext,
+    tpc,
+)
 from ..obs.numerics import global_grad_norm, tree_leaves
 from ..utils.data import microbatch
 from ..utils.data import shard_batch as _shard_batch
@@ -114,28 +120,36 @@ def _tp_of(group, params, specs, sp: bool) -> Optional[_TP]:
     return _TP(group, tuple(s for _, s in spec_pairs(params, specs)), sp)
 
 
-def _norm_groups(tp: _TP) -> List[Tuple[Any, ...]]:
-    """Each leaf's groups for ``clip._norms``: the split leaves' squares
-    are summed over the tensor group."""
-    return [(tp.group,) if tp.split(i) else () for i in range(len(tp.specs))]
+def _norm_groups(tp: Optional[_TP], pipe: Optional[tuple], n: int
+                 ) -> Optional[List[Tuple[Any, ...]]]:
+    """Each leaf's groups for ``clip._norms`` (None: every leaf whole):
+    the tensor-split leaves' squares are summed over the tensor group, a
+    stage slab's over the pipe group (``pipe``: :func:`pipe_of`)."""
+    if tp is None and pipe is None:
+        return None
+    return [((tp.group,) if tp is not None and tp.split(i) else ())
+            + ((pipe[0],) if pipe is not None and pipe[1][i] else ())
+            for i in range(n)]
 
 
 def _update(params, opt_state: torch.optim.AdamW, loss: torch.Tensor,
             numerics: bool, tp: Optional[_TP] = None,
-            clip: Optional[float] = None):
+            clip: Optional[float] = None, pipe: Optional[tuple] = None):
     """The step's tail once every leaf's ``.grad`` is final: the global
     gradient norm (or the numerics dict), the clip of a :func:`~.clip.chain`
     (``clip``: its ``max_norm``) and one AdamW update.  Under tensor
     parallelism the norms are the whole model's: the split leaves'
-    squares summed over the tensor group."""
+    squares summed over the tensor group; pipelined (``pipe``:
+    :func:`pipe_of`), the stage slabs' over the pipe group."""
     leaves = list(tree_leaves(params))
     grads = [p.grad for p in leaves]
+    groups = _norm_groups(tp, pipe, len(leaves))
     if any(g is None for g in grads):
         # AdamW would skip the leaf, weight decay included, where
         # optax decays every leaf
         raise RuntimeError("a parameter leaf got no gradient")
     with torch.no_grad():
-        if tp is None:
+        if groups is None:
             gnorm = global_grad_norm(grads)
             if numerics:
                 stats = {
@@ -146,7 +160,6 @@ def _update(params, opt_state: torch.optim.AdamW, loss: torch.Tensor,
                         (~torch.isfinite(g)).sum() for g in grads),
                 }
         else:
-            groups = _norm_groups(tp)
             g = _norms(grads, groups)
             gnorm = torch.sqrt(g[0]).float()
             if numerics:
@@ -415,9 +428,9 @@ def local_value_and_grad(loss_fn: Callable[[Any, Any], torch.Tensor],
     return loss * inv, _tree_map(lambda g: g * inv, grads)
 
 
-#: the queue-A items that the model axes besides ``tensor`` wait for
-_MODEL_AXIS_ITEMS = {"pipe": "The pipeline",
-                     "context": "Training CP"}
+#: the queue-A items that the model axes besides ``tensor`` and ``pipe``
+#: wait for
+_MODEL_AXIS_ITEMS = {"context": "Training CP"}
 
 
 def normalize_model_axis_grads(loss, grads, ctx: Optional[ParallelContext]
@@ -425,17 +438,19 @@ def normalize_model_axis_grads(loss, grads, ctx: Optional[ParallelContext]
     """``(grads, other)``: the reference divides the grads by the size of
     every non-data axis the loss VARIES on (its vma type), whose
     cotangents shard_map has summed, and returns those axes.  The port
-    has no vma types; the rule that takes their place: every tensor-
-    parallel loss of the port closes its regions with a collective
-    (``reduce_from_tp``, the vocab-parallel cross-entropy), so it is the
-    same on every rank of the ``tensor`` group and varies on no model
-    axis — ``other`` is ``()`` and the grads come back unscaled, which is
-    what the reference returns for such a loss.  Model axes other than
-    ``tensor`` wait for their queue-A items and raise when larger than
-    1."""
+    has no vma types; the rule that takes their place: every model-axis
+    loss of the port is the same on every rank of its group — a tensor-
+    parallel loss closes its regions with collectives (``reduce_from_tp``,
+    the vocab-parallel cross-entropy), a pipelined loss is broadcast from
+    the last stage (``pipeline_parallel.last_stage_value``, the schedules'
+    all-reduce), and the pipe sum of the leaves every stage holds whole is
+    the schedule's own — so it varies on no model axis: ``other`` is
+    ``()`` and the grads come back unscaled, which is what the reference
+    returns for such a loss.  Model axes the port does not train over yet
+    raise when larger than 1, naming their queue-A items."""
     ctx = tpc if ctx is None else ctx
     waiting = [a for a in ctx.axis_names
-               if a not in data_axes and a != TENSOR_AXIS
+               if a not in data_axes and a not in (TENSOR_AXIS, PIPE_AXIS)
                and ctx.get_group_size(a) > 1]
     if waiting:
         raise NotImplementedError("; ".join(
@@ -445,6 +460,25 @@ def normalize_model_axis_grads(loss, grads, ctx: Optional[ParallelContext]
             for a in waiting))
     del loss
     return grads, ()
+
+
+def pipe_of(ctx: ParallelContext, params, pipe_specs) -> Optional[tuple]:
+    """``(pipe group, each leaf's is-a-stage-slab flag)`` for the norm of a
+    pipelined step, or None without a pipe axis above 1.  A pipe axis
+    above 1 needs ``pipe_specs`` (``pipeline_parallel.stacked_param_specs``
+    or ``models.gpt_param_specs(params, pipe_axis='pipe')``): the norm
+    sums the stage slabs' squares over the pipe group and counts the
+    leaves every stage holds whole once."""
+    from .pipeline_parallel.pipeline_helper import pipe_split_flags
+
+    if PIPE_AXIS not in ctx.axis_names or ctx.get_group_size(PIPE_AXIS) == 1:
+        return None
+    if pipe_specs is None:
+        raise ValueError(
+            f"a pipe axis of {ctx.get_group_size(PIPE_AXIS)} needs "
+            f"pipe_specs: the global norm sums each stage slab's squares "
+            f"over the pipe group")
+    return ctx.get_group(PIPE_AXIS), pipe_split_flags(params, pipe_specs)
 
 
 # ---------------------------------------------------------- DataParallel
@@ -525,18 +559,29 @@ class DataParallel:
         return out
 
     @contextlib.contextmanager
-    def _hooked(self, plans, buckets: _Buckets):
+    def _hooked(self, plans, buckets: _Buckets, taps: bool = True):
         """Gradient hooks for one backward: each layer's slice of a
         stacked leaf (``grad_taps``) and every other leaf's accumulated
         grad (a post-accumulate hook) go into ``buckets`` as they become
         ready.  ``buckets.bytes_before_blocks_done`` notes
-        the bytes already started when layer 0's backward ends."""
+        the bytes already started when layer 0's backward ends.
+        ``taps=False`` (a pipelined loss, whose stage runs each of its
+        layers once a microbatch within the one backward): every leaf,
+        stacked or not, is bucketed whole once its grad is accumulated; a
+        slice tapped twice in one backward raises."""
         plan_of = {id(p): plan for p, plan in plans}
         tapped = set()  # every slice is tapped before its leaf's hook runs
+        slices = set()
 
         def on_slice(leaf, i, g):
             if i == 0 and buckets.bytes_before_blocks_done is None:
                 buckets.bytes_before_blocks_done = buckets.bytes_started
+            if (id(leaf), i) in slices:
+                raise RuntimeError(
+                    "a layer ran twice in one backward (a pipelined loss?): "
+                    "its slice would be reduced before its grad is whole; "
+                    "pass pipe_specs to make_train_step")
+            slices.add((id(leaf), i))
             tapped.add(id(leaf))
             if leaf.grad is not None:  # earlier microbatches' sum
                 g = g + leaf.grad[i]
@@ -549,18 +594,19 @@ class DataParallel:
         handles = [p.register_post_accumulate_grad_hook(on_leaf)
                    for p, _ in plans if p.requires_grad]
         try:
-            with grad_taps(on_slice):
+            with (grad_taps(on_slice) if taps else contextlib.nullcontext()):
                 yield
         finally:
             for h in handles:
                 h.remove()
 
-    def _reduced_backward(self, loss_fn, params, mb, plans, extra_scale):
+    def _reduced_backward(self, loss_fn, params, mb, plans, extra_scale,
+                          taps: bool = True):
         """One microbatch's forward and backward with the hooks on, the
         rest of the buckets flushed; returns the loss and the buckets."""
         buckets = _Buckets(self.ctx.get_group, self.bucket_bytes,
                            extra_scale)
-        with self._hooked(plans, buckets):
+        with self._hooked(plans, buckets, taps):
             loss = loss_fn(params, mb)
             loss.backward()
         buckets.bytes_before_backward_returned = buckets.bytes_started
@@ -581,7 +627,7 @@ class DataParallel:
                         value_and_grad_fn: Optional[Callable] = None,
                         accum_reduce: str = "final",
                         numerics: bool = False, param_specs: Any = None,
-                        sp: bool = False):
+                        sp: bool = False, pipe_specs: Any = None):
         """``step(params, opt_state, batch) -> (params, opt_state, loss,
         gnorm)`` on this rank's local batch, as :func:`make_train_step`
         but with the gradients reduced over the data group.
@@ -601,6 +647,14 @@ class DataParallel:
           (``params`` this rank's shard, ``loss_fn`` run over the tensor
           group); under ``sp`` the ``PARTIAL_UNDER_SP`` grads reduce over
           the data and tensor axes at once.
+        - ``pipe_specs``: a data x pipe layout (``params`` this stage's,
+          ``loss_fn`` a pipelined loss such as
+          ``pipeline_parallel.pipeline_loss``, or ``value_and_grad_fn`` a
+          schedule such as ``models.gpt_pipeline_1f1b``): the grads still
+          reduce over the data group only, each leaf bucketed whole (a
+          stage runs each layer once a microbatch in one backward); the
+          norm sums the stage slabs' squares over the pipe group
+          (:func:`pipe_of`).
 
         The loss returned is the mean over the data ranks."""
         if (loss_fn is None) == (value_and_grad_fn is None):
@@ -626,6 +680,7 @@ class DataParallel:
 
         def vag_step(params, opt_state, batch):
             tp = _tp_of(tp_group, params, param_specs, sp)
+            pipe = pipe_of(self.ctx, params, pipe_specs)
             opt_state.zero_grad(set_to_none=True)
             loss, grads = value_and_grad_fn(params, batch)
             plans = self._plans(params, tp)
@@ -641,10 +696,11 @@ class DataParallel:
                                "bytes_before_backward_returned": 0,
                                "bytes_before_blocks_done": 0}
             return _update(params, opt_state, self._mean_loss(loss),
-                           numerics, tp, clip)
+                           numerics, tp, clip, pipe)
 
         def step(params, opt_state, batch):
             tp = _tp_of(tp_group, params, param_specs, sp)
+            pipe = pipe_of(self.ctx, params, pipe_specs)
             opt_state.zero_grad(set_to_none=True)
             plans = self._plans(params, tp)
             micro = [batch] if M == 1 else _split_micro(batch, M)
@@ -665,7 +721,8 @@ class DataParallel:
                         p.grad = None
                 loss, buckets = self._reduced_backward(
                     loss_fn, params, mb, plans,
-                    1.0 if per_micro else 1.0 / M)
+                    1.0 if per_micro else 1.0 / M,
+                    taps=pipe_specs is None)
                 losses.append(loss)
                 stats["buckets"] += len(buckets.started)
                 for (leaf, i), red in buckets.finish():
@@ -693,6 +750,6 @@ class DataParallel:
                 loss = loss * (1.0 / M)
             self.last_stats = stats
             return _update(params, opt_state, self._mean_loss(loss),
-                           numerics, tp, clip)
+                           numerics, tp, clip, pipe)
 
         return vag_step if value_and_grad_fn is not None else step

@@ -694,14 +694,24 @@ def grad_taps(callback: Callable[[torch.Tensor, int, torch.Tensor], None]):
 
 def scan_blocks(stacked: Params, x: torch.Tensor, cfg: TransformerConfig,
                 remat: RematMode = False, dropout_key: Optional[int] = None,
-                tp_group=None, sp: bool = False) -> torch.Tensor:
+                tp_group=None, sp: bool = False,
+                layer_mask=None) -> torch.Tensor:
     """Run ``x`` through the layer-stacked block params ([L, ...] leaves)
     — the reference's ``lax.scan`` as a Python loop.  The stacked leaves
     are unbound once (their backward is one stack, not L scatter-adds),
     and the rope cache is computed once for all layers.  ``dropout_key``
     turns on residual dropout; layer ``i`` folds ``i`` into the key, so
     layers draw distinct masks.  ``tp_group`` / ``sp`` as in
-    :func:`block_forward` (x is [B, S / tp, D] under ``sp``)."""
+    :func:`block_forward` (x is [B, S / tp, D] under ``sp``).
+
+    ``layer_mask`` ([L] floats or a sequence, 1 = real layer, 0 =
+    padding) runs a padded stage slab of
+    ``pipeline_parallel.balanced_stage_stack``: a padding layer is
+    skipped, so it costs no FLOPs and its slice of every leaf gets an
+    exactly zero grad (zero-initialised padding stays zero under any
+    optimizer).  The reference selects with ``jnp.where`` (one SPMD
+    program pays the padding's FLOPs); here the mask is read on the
+    host, once a call."""
     tap = _GRAD_TAP.get()
 
     def unbind(tree):
@@ -726,7 +736,17 @@ def scan_blocks(stacked: Params, x: torch.Tensor, cfg: TransformerConfig,
             warnings.warn(advice, stacklevel=2)
     # the serial call passes no tensor-parallel arguments at all
     tp = {} if tp_group is None else {"tp_group": tp_group, "sp": sp}
+    real = [True] * L
+    if layer_mask is not None:
+        flags = [float(m) for m in (layer_mask.tolist() if isinstance(
+            layer_mask, torch.Tensor) else layer_mask)]
+        if len(flags) != L:
+            raise ValueError(f"layer_mask has {len(flags)} entries for {L} "
+                             f"layers")
+        real = [m > 0 for m in flags]
     for i in range(L):
+        if not real[i]:
+            continue
         lp = layer(per_layer, i)
         key = None if dropout_key is None else fold_in(dropout_key, i)
         x = checkpoint_block(

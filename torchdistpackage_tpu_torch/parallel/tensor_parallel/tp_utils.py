@@ -63,13 +63,15 @@ from ...dist.topology import TENSOR_AXIS, tpc
 #: other data axes, whole leaves, the SP sum, the logged loss) and its
 #: re-gathers of the updated masters; FSDP's parameter all-gathers,
 #: their backward reduce-scatters and its all-reduces; the sharded
-#: EMA's gathers for ``state_dict``
+#: EMA's gathers for ``state_dict``; ``transfer_gather`` the pipeline's
+#: gathers of a tensor-sharded inter-stage state (its slices count as
+#: ``split_to_sp``)
 COLLECTIVES: Dict[str, int] = dict.fromkeys(
     ("reduce_from_tp", "copy_to_tp", "gather_from_sp", "scatter_to_sp",
      "split_to_sp", "ring_shift", "xent_max", "gather_params",
      "full_logits", "zero_reduce_scatter", "zero_all_reduce",
      "zero_all_gather", "fsdp_all_gather", "fsdp_reduce_scatter",
-     "fsdp_all_reduce", "ema_all_gather"), 0)
+     "fsdp_all_reduce", "ema_all_gather", "transfer_gather"), 0)
 
 _TP_GROUP = None
 

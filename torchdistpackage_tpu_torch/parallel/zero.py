@@ -37,10 +37,18 @@ Beside TP: ``param_specs`` is the tensor group's spec tree
 (``models.gpt_param_specs``), the parameters are this rank's TP shards,
 and the loss runs its tensor regions as in ``data_parallel``.
 
+Beside the pipeline (ZeRO x 1F1B): a data x pipe layout, the step's
+``value_and_grad_fn`` a schedule (``models.gpt_pipeline_1f1b``) whose
+grads are this stage's (the slab's own, the whole leaves' already summed
+over the pipe group); each stage's masters are its own leaves' shards
+over the shard axis, and ``pipe_specs`` (which leaves are stage slabs)
+makes the clip chain's norm sum the slabs' squares over the pipe group
+and count the whole leaves once (the reference's ``clip_grad_parallel``
+over the pipe group).
+
 Not ported yet, each refused by its ROADMAP queue-A item: the int8
 compression modes ("Collectives"), ZeRO beside MoE experts and EP
-("MoE training"), beside the ring CP ("Training CP") and beside 1F1B
-("The pipeline").
+("MoE training") and beside the ring CP ("Training CP").
 """
 
 from __future__ import annotations
@@ -67,6 +75,7 @@ from .data_parallel import (
     _unflatten_like,
     local_value_and_grad,
     normalize_model_axis_grads,
+    pipe_of,
 )
 from .tensor_parallel.layers import PARTIAL_UNDER_SP, spec_pairs
 from .tensor_parallel.tp_utils import COLLECTIVES, _all_gather, _reduce_scatter
@@ -141,7 +150,8 @@ class ZeroOptimizer:
         params, state, loss, gnorm = step(params, state, local_batch)
 
     Every rank builds it at the same point (the groups it reduces over
-    are made here).  ``ctx`` defaults to ``tpc``."""
+    are made here).  ``ctx`` defaults to ``tpc``.  On a data x pipe
+    layout ``pipe_specs`` names the stage slabs (see the module note)."""
 
     def __init__(self, inner, shard_axis: str = DATA_AXIS,
                  grad_reduce_axes: Optional[Tuple[str, ...]] = None,
@@ -151,7 +161,8 @@ class ZeroOptimizer:
                  grad_reduce_overrides: Optional[Dict[str, Any]] = None,
                  grad_compress: Optional[str] = None,
                  gather_compress: Optional[str] = "follow",
-                 ctx: Optional[ParallelContext] = None) -> None:
+                 ctx: Optional[ParallelContext] = None,
+                 pipe_specs: Any = None) -> None:
         self.clip = clip_of(inner)
         self.inner = inner
         self.ctx = tpc if ctx is None else ctx
@@ -204,6 +215,7 @@ class ZeroOptimizer:
             self._groups[other] = ctx.get_group(other) if other else None
         self.tp_group = (ctx.get_group(TENSOR_AXIS)
                          if param_specs is not None else None)
+        self.pipe_specs = pipe_specs
 
     # ----------------------------------------------------------- specs
 
@@ -216,10 +228,15 @@ class ZeroOptimizer:
 
     def _norm_groups(self, params: Any, dims: List[int]) -> List[tuple]:
         """Each shard's groups for the global norm: the shard group when
-        it is sharded, the tensor group when the tensor group splits it."""
+        it is sharded, the tensor group when the tensor group splits it,
+        the pipe group when it is a stage slab."""
+        pipe = pipe_of(self.ctx, params, self.pipe_specs)
+        flags = pipe[1] if pipe is not None else [False] * len(dims)
         return [((self.shard_group,) if d >= 0 else ())
                 + ((self.tp_group,) if isinstance(s, int) else ())
-                for d, s in zip(dims, leaf_specs(params, self.param_specs))]
+                + ((pipe[0],) if f else ())
+                for d, s, f in zip(dims, leaf_specs(params, self.param_specs),
+                                   flags)]
 
     # ------------------------------------------------------- placement
 
