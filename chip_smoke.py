@@ -155,7 +155,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    relative, the embedding's and the head's grads within 2 % of their
    scale, K3-K5 exactly 6 x 8 a step, ZB 3 x / 2 x / 2 x that, in-flight
    maxima within the bound), and a 1F1B step with the replicated leaves'
-   pipe sum planted out, which must fail its gate.
+   pipe sum planted out, which must fail its gate.  Then MoE training
+   (``moe_train_phase``) at ``bench.py``'s ``--moe`` leaf (GPT-MoE
+   8x125M, batch 8, S 2048, bf16, remat 'flash'): 10 steps through K6
+   under autograd against the plain ``'sorted'`` arm (losses within
+   ``MOE_LOSS_TOL``; step, tokens/s, MFU, peak; K3-K6 12 a step), one K6
+   step replaying that arm's routing (every grad leaf within 5 %); K6's
+   and K7's Functions at one expert block of the training shape against
+   the f32 oracles, each with a planted fault; the moe view's
+   ``DataParallel`` with ``ep_group`` (K7 12 a step) against the arm, its
+   grads with the routing replayed; accumulation 4, the one-stage MoE
+   1F1B and ZeRO x 1F1B (K3-K5 and K7 48 a step).
 5. serve   — Mistral-7B-v0.1 widths, all 32 layers, bf16, random weights:
    ``paged_forward`` with K1 against the plain path on identical tokens
    (teacher-forced logits), then ``ServingEngine`` serves 16 requests
@@ -4896,6 +4906,756 @@ def pipeline_phase(card, base_ms):
     return {"one_stage": a, "two_stages": b}
 
 
+MOE_TRAIN_BATCH = 8     # bench.py's --moe leaf's first candidate (:128)
+MOE_TRAIN_M = 4         # (d): microbatches of the accumulating / 1F1B steps
+MOE_LOSS_TOL = 5e-4     # (a): K6 against the plain 'sorted' arm, relative
+#: (c) against the 'sorted' arm's step 1: the loss (relative) of the run
+#: that routes itself, each grad leaf (of its largest |value|) of the run
+#: that replays the 'sorted' arm's routing (:class:`RouteTap`)
+MOE_VIEW_TOL = {"loss": 2e-4, "grad": 0.05}
+MOE_ZERO_TOL = 1e-3     # (d): ZeRO x 1F1B against the accumulating step
+MOE_FN_TOL = 0.02       # (b): of each grad's largest |value|
+
+
+def gpt_moe_8x125m(dispatch="auto"):
+    """``bench.py``'s ``--moe`` leaf (bench.py:955-965): GPT-125M's trunk
+    (vocab 32768, d 768, 12 heads, 12 layers, S 2048, GELU, learned
+    positions) with 8 experts, top-2, every 2nd block (6 expert blocks),
+    capacity factor 1.25, bf16, flash attention."""
+    from torchdistpackage_tpu_torch.models import GPTConfig
+
+    return GPTConfig(vocab_size=32768, dim=768, nheads=12, nlayers=12,
+                     max_seq=2048, ffn_mult=4, dtype=torch.bfloat16,
+                     attn_impl="flash", moe_experts=8, moe_top_k=2,
+                     moe_every=2, moe_capacity_factor=1.25,
+                     moe_dispatch=dispatch)
+
+
+def moe_matmul_params(params, cfg):
+    """``bench.py``'s MoE accounting (:374-393): the parameters that enter
+    a matmul a token, the experts at ``top_k / E`` (a token runs only its
+    routed experts), the router whole, no embedding tables."""
+    from torchdistpackage_tpu_torch.obs.numerics import tree_leaves
+
+    n = 0
+    for k, sub in params.items():
+        if k in ("tok_emb", "pos_emb"):
+            continue
+        if k != "blocks":
+            n += sum(t.numel() for t in tree_leaves(sub))
+            continue
+        for bp in sub:
+            for name, leaf in bp.items():
+                if name == "moe":
+                    n += leaf["router"]["w"].numel()
+                    n += sum(t.numel() for t in tree_leaves(
+                        leaf["experts"])) * cfg.moe_top_k // cfg.moe_experts
+                else:
+                    n += sum(t.numel() for t in tree_leaves(leaf))
+    return n
+
+
+def moe_launches():
+    from torchdistpackage_tpu_torch.ops import flash_attention as fa
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+
+    out = dict(fa.LAUNCHES)
+    out.update(K6=md.LAUNCHES["fused_moe_ffn"],
+               K7=md.LAUNCHES["fused_expert_ffn"])
+    return out
+
+
+def moe_expected(cfg, per_block, k6=0, k7=0):
+    """The launches a step: K3-K5 once a layer and microbatch (remat
+    'flash' keeps K3's (o, lse)); the expert kernel twice an expert block
+    and microbatch (the forward and the checkpoint's recompute; its
+    backward is plain PyTorch, the reference's oracle VJP)."""
+    n_moe = sum(1 for i in range(cfg.nlayers)
+                if i % cfg.moe_every == cfg.moe_every - 1)
+    return {"flash_fwd": cfg.nlayers * per_block,
+            "flash_bwd_dq": cfg.nlayers * per_block,
+            "flash_bwd_dkv": cfg.nlayers * per_block,
+            "K6": 2 * n_moe * per_block * k6,
+            "K7": 2 * n_moe * per_block * k7}
+
+
+def gated_steps(step, params, state, batch, steps, want, tag,
+                keep_grads=True):
+    """``steps`` calls of ``step``, the counts set to 0 just before and
+    checked after each against ``want`` a step; returns the losses, the
+    host times, the counts a step, the peak and (``keep_grads``) step 1's
+    grads, the leaves' ``.grad``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, times, g1 = [], [], None
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss, _ = step(params, state, batch)
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+        if i == 0 and keep_grads:
+            g1 = [p.grad.detach().clone() for p in leaves_of(params)]
+        got = moe_launches()
+        if any(got[k] != v * (i + 1) for k, v in want.items()):
+            raise RuntimeError(f"{tag}: launches {got} after step {i + 1}, "
+                               f"want {want} a step")
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"{tag}: losses not finite: {losses}")
+    return {"losses": losses, "times": times, "launches": want,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "grads1": g1, "params": params}
+
+
+def leaves_of(params):
+    from torchdistpackage_tpu_torch.obs.numerics import tree_leaves
+
+    return list(tree_leaves(params))
+
+
+def grad_gaps(got, want, params):
+    """Each leaf's largest |got - want| over its largest |want|; the QKV
+    bias's key rows are left out (their grad is 0 in exact arithmetic:
+    both sides hold rounding noise)."""
+    from torchdistpackage_tpu_torch.utils.partition import named_leaves
+
+    out = {}
+    for (name, _), g, w in zip(named_leaves(params), got, want):
+        if name.endswith("attn/bqkv"):
+            g, w = g[[0, 2]], w[[0, 2]]
+        out[name] = grad_gap(g, w)
+    return out
+
+
+def top_gaps(gaps, skip=(), n=4):
+    """The ``n`` largest of ``gaps`` outside ``skip``, printed."""
+    top = sorted(((v, k) for k, v in gaps.items() if k not in skip),
+                 reverse=True)[:n]
+    return ", ".join(f"{k} {v:.3e}" for v, k in top)
+
+
+class RouteTap:
+    """``parallel.moe._top_k_route`` wrapped while the tap is open.  It
+    records the routing decisions (``gate_idx``, ``slot``, ``keep``) of
+    the first ``limit`` calls in call order; given ``replay``, another
+    run's record, call ``j`` takes decision ``j`` instead: that run's
+    experts, slots and kept choices, with the gates this run's own
+    probabilities give those experts (renormalised over the k choices as
+    ``_top_k_gates`` does), so the gradient still reaches the router.
+    Routing is a discontinuous function of the hidden state: two arms
+    that round differently send a few near-tie tokens to other experts,
+    and a token routed apart moves its block's output and the grads that
+    depend on it for reasons that are not faults.  A run that replays
+    another's routing differs from it by the arithmetic alone.  Two runs
+    of one model and remat mode call the router in the same order: each
+    expert block's forward, then under remat its recompute."""
+
+    def __init__(self, limit=None, replay=None):
+        self.limit, self.replay, self.calls, self.n = limit, replay, [], 0
+
+    def __enter__(self):
+        from torchdistpackage_tpu_torch.parallel import moe as pm
+
+        self._pm, self._true = pm, pm._top_k_route
+        pm._top_k_route = self._route
+        return self
+
+    def __exit__(self, *exc):
+        self._pm._top_k_route = self._true
+
+    def _route(self, probs, k, capacity, priority="choice"):
+        j, self.n = self.n, self.n + 1
+        if self.replay is None:
+            out = self._true(probs, k, capacity, priority)
+        elif j < len(self.replay):
+            gi, slot, keep = self.replay[j]
+            gv = probs.gather(-1, gi)
+            out = (gv / gv.sum(-1, keepdim=True).clamp_min(1e-9), gi, slot,
+                   keep)
+        else:
+            raise RuntimeError(f"router call {j + 1}, but the replayed run "
+                               f"recorded {len(self.replay)}")
+        if self.limit is None or j < self.limit:
+            self.calls.append(tuple(t.detach().clone() for t in out[1:]))
+        return out
+
+
+def routes_apart(a, b, n):
+    """Per expert block, over the first ``n`` calls of two
+    :class:`RouteTap` records (a step's forward): the tokens whose expert
+    pair differs, and the tokens whose kept experts differ (those, plus
+    the tokens dropped past capacity in one run and not the other)."""
+    pairs, kept = [], []
+    for (gi_a, _, keep_a), (gi_b, _, keep_b) in zip(a[:n], b[:n]):
+        pairs.append(int((gi_a.sort(-1).values != gi_b.sort(-1).values)
+                         .any(-1).sum()))
+        kept.append(int((keep_a.sum(1) != keep_b.sum(1)).any(-1).sum()))
+    return pairs, kept
+
+
+def frozen_gap(losses):
+    """The largest relative gap to ``losses`` of a run whose state never
+    moves (every loss the first): a loss gate tells a fault only below
+    it."""
+    return max(abs(losses[0] - x) / abs(x) for x in losses)
+
+
+def moe_serial(cfg, batch, steps, card, keep_grads=True, tap=None):
+    """(a): ``make_train_step(gpt_moe_loss)``, AdamW 3e-4, remat 'flash',
+    ``steps`` steps from the seed-0 weights on one batch, under ``tap``
+    (a :class:`RouteTap`) if given."""
+    from torchdistpackage_tpu_torch.models import (
+        gpt_moe_loss,
+        init_gpt_moe_params,
+    )
+    from torchdistpackage_tpu_torch.parallel.data_parallel import (
+        adamw,
+        make_train_step,
+    )
+
+    params = init_gpt_moe_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    opt = adamw(3e-4)
+    state = opt.init(params)
+    step = make_train_step(lambda p, b: gpt_moe_loss(p, b, cfg,
+                                                     remat="flash"), opt)
+    k6 = int(cfg.moe_dispatch != "sorted")
+    with tap or contextlib.nullcontext():
+        run = gated_steps(step, params, state, batch, steps,
+                          moe_expected(cfg, 1, k6=k6),
+                          f"moe-train (a) {cfg.moe_dispatch}", keep_grads)
+    run["matmul_params"] = moe_matmul_params(params, cfg)
+    run["num_params"] = sum(p.numel() for p in leaves_of(params))
+    return run
+
+
+def train_block_inputs(cfg):
+    """One expert block's inputs at the training shape: bf16 GELU experts
+    of the model's widths, T = batch x S tokens, a routing from random
+    router logits at the model's capacity; and the generator, for the
+    cotangent."""
+    from torchdistpackage_tpu_torch.parallel.moe import _top_k_route
+
+    T, D, Fd, E, k = (MOE_TRAIN_BATCH * cfg.max_seq, cfg.dim,
+                      cfg.block.ffn_dim, cfg.moe_experts, cfg.moe_top_k)
+    C = int(np.ceil(T * k * cfg.moe_capacity_factor / E))
+    ex = moe_experts(E=E, D=D, F=Fd, act="gelu", dtype=torch.bfloat16,
+                     seed=31)
+    g = torch.Generator(device="cuda").manual_seed(32)
+    x = torch.randn(T, D, generator=g, device="cuda").bfloat16()
+    probs = torch.softmax(torch.randn(T, E, generator=g, device="cuda") * 2,
+                          -1)
+    return ex, x, _top_k_route(probs, k, C), C, g
+
+
+def backward_ms(fwd, cot, n=4):
+    """Median milliseconds of ``fwd().backward(cot)``'s backward alone,
+    by CUDA events, the first of ``n`` calls left out."""
+    times = []
+    for _ in range(n):
+        y = fwd()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        y.backward(cot)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times[1:]))
+
+
+def moe_fn_check(cfg, card, fails):
+    """(b) for K6: its Function at one expert block of the training shape
+    — the grads of the experts, the tokens and ``gate_vals`` from a fixed
+    routing against the f32 oracle's autograd on f32 copies, K6's forward
+    against its plain version (``moe_held``), the planted fault (the gate
+    cotangent dropped), and the forward, backward and plain times."""
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+
+    ex, x, (gv, gi, slot, keep), C, g = train_block_inputs(cfg)
+    (T, D), Fd, E, k = x.shape, cfg.block.ffn_dim, cfg.moe_experts, gi.shape[1]
+    cot = (torch.randn(T, D, generator=g, device="cuda") * 1e-3).bfloat16()
+
+    def grads(fault=False):
+        exr = {n: w.detach().clone().requires_grad_(True)
+               for n, w in ex.items()}
+        xr, gvr = (t.detach().clone().requires_grad_(True) for t in (x, gv))
+        true_backward = md._FusedMoE.backward
+        if fault:
+            def dropped(ctx, gg):
+                out = list(true_backward(ctx, gg))
+                out[4] = torch.zeros_like(out[4])  # the gate cotangent
+                return tuple(out)
+            md._FusedMoE.backward = staticmethod(dropped)
+        try:
+            y = md.fused_moe_ffn(exr, xr, gvr, gi, slot, keep, C)
+            y.backward(cot)
+        finally:
+            md._FusedMoE.backward = true_backward
+        out = {n: w.grad for n, w in exr.items()}
+        out.update(tokens=xr.grad, gate_vals=gvr.grad)
+        return y.detach(), out
+
+    reset_counts()
+    y, got = grads()
+    launches = md.LAUNCHES["fused_moe_ffn"]
+    exf = {n: w.float().requires_grad_(True) for n, w in ex.items()}
+    xf, gvf = x.float().requires_grad_(True), gv.detach().requires_grad_(True)
+    md.moe_ffn_oracle_diff(exf, xf, gvf, gi, slot, keep, C).backward(
+        cot.float())
+    want = {n: w.grad for n, w in exf.items()}
+    want.update(tokens=xf.grad, gate_vals=gvf.grad)
+    gaps = {n: grad_gap(got[n], want[n]) for n in want}
+    _, faulty = grads(fault=True)
+    fault_gap = grad_gap(faulty["gate_vals"], want["gate_vals"])
+    del exf, xf, gvf, want, faulty
+    idx, comb = md.slot_maps(gv, gi, slot, keep, C)
+    with torch.no_grad():
+        exact = md.moe_ffn_slots_reference(ex, x, idx, comb)
+        scale = md.moe_rounding_scale(ex, x, idx, comb)
+    err, ratio = moe_held(y.float(), exact, scale, torch.bfloat16)
+    del exact, scale
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: md.fused_moe_ffn(ex, x, gv, gi, slot, keep,
+                                                  C), 10)
+        plain_ms = cuda_ms(lambda: md.moe_ffn_slots_reference(
+            ex, x, idx, comb), 3)
+    exr = {n: w.detach().clone().requires_grad_(True) for n, w in ex.items()}
+    xr, gvr = (t.detach().clone().requires_grad_(True) for t in (x, gv))
+    bwd_ms = backward_ms(
+        lambda: md.fused_moe_ffn(exr, xr, gvr, gi, slot, keep, C), cot)
+    filled = int((comb != 0).sum())
+    flops = 2 * filled * 2 * D * Fd
+    bound = max(flops / PEAK_FLOPS[torch.bfloat16],
+                (sum(t.numel() * t.element_size() for t in ex.values())
+                 + x.numel() * 2 + T * D * 4) / HBM_BYTES_PER_S) * 1e3
+    log(f"[moe-train] (b) K6's Function at one expert block of the training "
+        f"shape (tokens [{T}, {D}] bf16, E {E}, top-{k}, C {C}, F {Fd}, "
+        f"GELU; {filled} slots filled): {launches} K6 launch for the forward "
+        f"and backward; grad gaps to the f32 oracle's autograd "
+        + ", ".join(f"{n} {v:.3e}" for n, v in gaps.items())
+        + f" (tolerance {MOE_FN_TOL} of each leaf's largest |grad|); the "
+        f"planted fault (gate cotangent dropped): gate_vals gap "
+        f"{fault_gap:.3e}; forward against the plain version: max abs err "
+        f"{err:.3e}, tolerance ratio {ratio:.3f}; K6 forward {fwd_ms:.4f} ms "
+        f"({flops / fwd_ms / 1e9:.1f} TFLOP/s; bound {bound:.4f} ms), the "
+        f"oracle backward {bwd_ms:.3f} ms, the plain f32 forward "
+        f"{plain_ms:.3f} ms — on {card}")
+    if max(gaps.values()) > MOE_FN_TOL or ratio > 1.0 or launches != 1:
+        fails.append(f"(b) K6: grads {gaps}, forward ratio {ratio}, "
+                     f"launches {launches}")
+    if not fault_gap > MOE_FN_TOL:
+        fails.append(f"(b) K6: the planted gate fault passed "
+                     f"({fault_gap:.3e})")
+    return {"gaps": gaps, "fault_gap": fault_gap, "max_abs_err": err,
+            "tol_ratio": ratio, "ms": fwd_ms, "backward_ms": bwd_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "filled": filled,
+            "C": C}
+
+
+def expert_fn_check(cfg, card, fails):
+    """(b) for K7: its Function on the exchange's layout at the training
+    shape — ``[E / ep, ep C, D]`` = ``[8, 5120, 768]`` bf16 at ep 1, the
+    slots that the sorted dispatch fills from K6's check's tokens and
+    routing, empty slots 0, a cotangent on the filled slots — the grads
+    of the experts and the rows against ``expert_ffn_reference_diff``'s
+    f32 autograd on f32 copies (``MOE_FN_TOL`` of each leaf's largest
+    |grad|), its forward against ``expert_ffn_reference`` (``moe_held``),
+    the planted fault (the rows' cotangent dropped), and the forward,
+    backward, plain and ``torch.bmm`` times beside the bound."""
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+
+    ex, x, route, C, _ = train_block_inputs(cfg)
+    idx, comb = md.slot_maps(*route, C)
+    filled = (comb != 0)[..., None]
+    rows = torch.where(filled, x[idx.long()], 0).contiguous()  # [E, C, D]
+    del x, route
+    g = torch.Generator(device="cuda").manual_seed(33)
+    cot = (torch.randn(rows.shape, generator=g, device="cuda")
+           * 1e-3).bfloat16() * filled
+
+    def grads(fault=False):
+        exr = {n: w.detach().clone().requires_grad_(True)
+               for n, w in ex.items()}
+        xr = rows.detach().clone().requires_grad_(True)
+        true_backward = md._ExpertFFN.backward
+        if fault:
+            def dropped(ctx, gg):
+                out = list(true_backward(ctx, gg))
+                out[0] = torch.zeros_like(out[0])  # the rows' cotangent
+                return tuple(out)
+            md._ExpertFFN.backward = staticmethod(dropped)
+        try:
+            y = md.fused_expert_ffn(exr, xr)
+            y.backward(cot)
+        finally:
+            md._ExpertFFN.backward = true_backward
+        out = {n: w.grad for n, w in exr.items()}
+        out["rows"] = xr.grad
+        return y.detach(), out
+
+    reset_counts()
+    y, got = grads()
+    launches = md.LAUNCHES["fused_expert_ffn"]
+    exf = {n: w.float().requires_grad_(True) for n, w in ex.items()}
+    xf = rows.float().requires_grad_(True)
+    md.expert_ffn_reference_diff(exf, xf).backward(cot.float())
+    want = {n: w.grad for n, w in exf.items()}
+    want["rows"] = xf.grad
+    gaps = {n: grad_gap(got[n], want[n]) for n in want}
+    _, faulty = grads(fault=True)
+    fault_gap = grad_gap(faulty["rows"], want["rows"])
+    del exf, xf, want, faulty
+    with torch.no_grad():
+        exact = md.expert_ffn_reference(ex, rows)
+        scale = md.expert_ffn_rounding_scale(ex, rows)
+    err, ratio = moe_held(y, exact, scale, torch.bfloat16)
+    del exact, scale
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: md.fused_expert_ffn(ex, rows), 10)
+        plain_ms = cuda_ms(lambda: md.expert_ffn_reference(ex, rows), 3)
+        lib_ms = cuda_ms(lambda: bmm_chain(ex, rows), 10)
+    exr = {n: w.detach().clone().requires_grad_(True) for n, w in ex.items()}
+    xr = rows.detach().clone().requires_grad_(True)
+    bwd_ms = backward_ms(lambda: md.fused_expert_ffn(exr, xr), cot)
+    bound, bound_by = expert_ffn_bound(ex, rows)
+    E, G, D = rows.shape
+    log(f"[moe-train] (b) K7's Function on the exchange's layout at the "
+        f"training shape (rows [{E}, {G}, {D}] bf16 at ep 1, "
+        f"{int(filled.sum())} slots filled, F {cfg.block.ffn_dim}, GELU, "
+        f"{md.expert_ffn_body(G, rows.dtype)} body): {launches} K7 launch "
+        f"for the forward and backward; grad gaps to the f32 reference's "
+        f"autograd " + ", ".join(f"{n} {v:.3e}" for n, v in gaps.items())
+        + f" (tolerance {MOE_FN_TOL} of each leaf's largest |grad|); the "
+        f"planted fault (the rows' cotangent dropped): rows gap "
+        f"{fault_gap:.3e}; forward against the plain version: max abs err "
+        f"{err:.3e}, tolerance ratio {ratio:.3f}; K7 forward {fwd_ms:.4f} ms "
+        f"(bound {bound:.4f} ms, by {bound_by}; torch.bmm chain "
+        f"{lib_ms:.4f} ms), the reference backward {bwd_ms:.3f} ms, the "
+        f"plain f32 forward {plain_ms:.3f} ms — on {card}")
+    if max(gaps.values()) > MOE_FN_TOL or ratio > 1.0 or launches != 1:
+        fails.append(f"(b) K7: grads {gaps}, forward ratio {ratio}, "
+                     f"launches {launches}")
+    if not fault_gap > MOE_FN_TOL:
+        fails.append(f"(b) K7: the planted rows fault passed "
+                     f"({fault_gap:.3e})")
+    return {"gaps": gaps, "fault_gap": fault_gap, "max_abs_err": err,
+            "tol_ratio": ratio, "ms": fwd_ms, "backward_ms": bwd_ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
+            "bound_by": bound_by, "rows": [E, G, D]}
+
+
+def moe_view_runs(cfg, batch, ref, card, fails):
+    """(c) and (d), inside a one-rank NCCL data 1 x pipe 1 layout and its
+    moe view (moe_dp 1 x moe_ep 1): ``DataParallel(axis=('moe_dp',
+    'moe_ep'), grad_reduce_overrides=moe_grad_reduce_overrides())`` with
+    ``ep_group`` — the sorted layout, the two exchanges and K7 under
+    autograd.  One step that routes itself: its loss against the plain
+    'sorted' arm's step 1, and the tokens it routes apart from that arm.
+    One step that replays the 'sorted' arm's routing (:class:`RouteTap`):
+    every grad leaf against that arm's step 1, which shares the layout
+    and the combine, so what differs is K7, the exchanges and the
+    overrides.  Then 3 steps each of the accumulating step (M 4), the MoE
+    1F1B at one stage under ``DataParallel`` and under ZeRO over
+    ``moe_dp``, against the accumulating step."""
+    from torchdistpackage_tpu_torch.dist import tpc
+    from torchdistpackage_tpu_torch.models import (
+        gpt_moe_loss,
+        gpt_moe_pipeline_1f1b,
+        gpt_moe_pipeline_param_specs,
+        init_gpt_moe_params,
+    )
+    from torchdistpackage_tpu_torch.parallel import (
+        DataParallel,
+        ZeroOptimizer,
+        adamw,
+    )
+    from torchdistpackage_tpu_torch.parallel.moe import (
+        moe_grad_reduce_overrides,
+    )
+
+    ep = tpc.get_group("moe_ep")
+    ovr = moe_grad_reduce_overrides()
+    m = MOE_TRAIN_M
+    n_moe = len(ref["routes"]) // 2
+
+    def fresh():
+        return init_gpt_moe_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0))
+
+    def lf(p, b):
+        return gpt_moe_loss(p, b, cfg, remat="flash", ep_group=ep)
+
+    def vg(p, b):
+        return gpt_moe_pipeline_1f1b(p, b, cfg, m, ep_group=ep,
+                                     remat="flash")
+
+    dp = DataParallel(axis=("moe_dp", "moe_ep"), grad_reduce_overrides=ovr)
+
+    def view_step(tap, tag):
+        params = fresh()
+        total = sum(p.numel() * p.element_size() for p in leaves_of(params))
+        opt = adamw(3e-4)
+        with tap:
+            r = gated_steps(dp.make_train_step(lf, opt), params,
+                            opt.init(params), batch, 1,
+                            moe_expected(cfg, 1, k7=1), f"moe-train {tag}")
+        r["bucketed"] = (dp.last_stats["bytes"], total,
+                         dp.last_stats["buckets"])
+        if dp.last_stats["bytes"] != total:
+            fails.append(f"{tag}: {dp.last_stats['bytes']} of {total} B "
+                         f"bucketed")
+        r["loss_rel"] = (abs(r["losses"][0] - ref["losses"][0])
+                         / abs(ref["losses"][0]))
+        if r["loss_rel"] > MOE_VIEW_TOL["loss"]:
+            fails.append(f"{tag}: loss {r['loss_rel']:.3e} off the 'sorted' "
+                         f"arm's")
+        r["gaps"] = grad_gaps(r.pop("grads1"), ref["grads1"], params)
+        return r
+
+    free_tap = RouteTap(limit=n_moe)
+    c = view_step(free_tap, "(c)")
+    pairs, kept = routes_apart(free_tap.calls, ref["routes"], n_moe)
+    del free_tap
+    pin_tap = RouteTap(replay=ref["routes"])
+    cp = view_step(pin_tap, "(c) routing replayed")
+    if pin_tap.n != len(ref["routes"]):
+        fails.append(f"(c) routing replayed: {pin_tap.n} router calls, the "
+                     f"'sorted' arm made {len(ref['routes'])}")
+    gaps = cp["gaps"]
+    worst = max(gaps, key=gaps.get)
+    routers = [n for n in gaps if n.endswith("router/w")]
+    T = MOE_TRAIN_BATCH * cfg.max_seq
+    log(f"[moe-train] (c) DataParallel on the moe view (moe_dp 1 x moe_ep 1, "
+        f"NCCL), ep_group: the sorted layout, two exchanges and K7 a block; "
+        f"against the plain 'sorted' arm's step 1 ({ref['losses'][0]:.6f}; "
+        f"K6's {ref['k6_loss']:.6f}). Routing itself: loss "
+        f"{c['losses'][0]:.6f} (relative {c['loss_rel']:.3e}, tolerance "
+        f"{MOE_VIEW_TOL['loss']}; to K6's "
+        f"{abs(c['losses'][0] - ref['k6_loss']) / abs(ref['k6_loss']):.3e});"
+        f" tokens routed apart from the 'sorted' arm by expert block, of "
+        f"{T}: expert pair " + ", ".join(map(str, pairs)) + "; kept experts "
+        + ", ".join(map(str, kept)) + f"; largest grad gaps "
+        f"{top_gaps(c['gaps'], routers)}, the routers' "
+        + ", ".join(f"{c['gaps'][n]:.3e}" for n in routers) + ". Routing "
+        f"replayed: loss {cp['losses'][0]:.6f} (relative "
+        f"{cp['loss_rel']:.3e}); largest grad gaps {top_gaps(gaps, routers)}"
+        f", the routers' " + ", ".join(f"{gaps[n]:.3e}" for n in routers)
+        + f" over {len(gaps)} leaves (tolerance {MOE_VIEW_TOL['grad']} of "
+        f"each leaf's largest |grad|; the largest {worst} "
+        f"{gaps[worst]:.3e}); bucketed {cp['bucketed'][0]} of "
+        f"{cp['bucketed'][1]} B in {cp['bucketed'][2]} buckets; launches a "
+        f"step {cp['launches']}; peak {cp['peak_gb']:.3f} GB — on {card}")
+    if gaps[worst] > MOE_VIEW_TOL["grad"]:
+        fails.append(f"(c) routing replayed: grad {gaps[worst]:.3e} "
+                     f"({worst}) off the 'sorted' arm's")
+    out = {"c": {"loss_rel": c["loss_rel"], "routes_apart": pairs,
+                 "kept_apart": kept, "free_gaps": c["gaps"],
+                 "launches": c["launches"], "peak_gb": c["peak_gb"]},
+           "c_pinned": {"loss_rel": cp["loss_rel"], "grad_gap": gaps[worst],
+                        "worst": worst, "gaps": gaps,
+                        "launches": cp["launches"]}}
+    del c, cp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    pbatch = microbatched(batch, m)
+    runs = {}
+    for kind in ("accum", "1f1b", "zero_1f1b"):
+        params = fresh()
+        opt = adamw(3e-4)
+        b = pbatch
+        if kind == "accum":
+            state = opt.init(params)
+            step = dp.make_train_step(lf, opt, grad_accum_iters=m)
+            b = batch
+        elif kind == "1f1b":
+            state = opt.init(params)
+            step = dp.make_train_step(
+                value_and_grad_fn=vg, optimizer=opt,
+                pipe_specs=gpt_moe_pipeline_param_specs(params))
+        else:
+            zero = ZeroOptimizer(opt, shard_axis="moe_dp",
+                                 grad_reduce_axes=("moe_dp", "moe_ep"),
+                                 grad_reduce_overrides=ovr,
+                                 param_dtype=cfg.dtype,
+                                 pipe_specs=gpt_moe_pipeline_param_specs(
+                                     params))
+            params = zero.place_params(params)
+            state = zero.init(params)
+            step = zero.make_train_step(value_and_grad_fn=vg)
+        r = gated_steps(step, params, state, b, 3,
+                        moe_expected(cfg, m, k7=1), f"moe-train (d) {kind}",
+                        keep_grads=False)
+        runs[kind] = {"losses": r["losses"], "ms": median_ms(r["times"], 1),
+                      "peak_gb": r["peak_gb"], "launches": r["launches"]}
+        del r, params, state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    ref_l = runs["accum"]["losses"]
+    frozen = frozen_gap(ref_l)
+    for kind, tol in (("1f1b", PIPE_LOSS_TOL), ("zero_1f1b", MOE_ZERO_TOL)):
+        r = runs[kind]
+        r["gap"] = max(abs(a - b) / abs(b) for a, b in zip(r["losses"],
+                                                           ref_l))
+        log(f"[moe-train] (d) {kind} (M {m} x {MOE_TRAIN_BATCH // m} rows, "
+            f"one stage, "
+            f"{'ZeroOptimizer over moe_dp' if kind == 'zero_1f1b' else 'DataParallel'}"
+            f"): losses " + ", ".join(f"{x:.6f}" for x in r["losses"])
+            + f"; largest relative gap to the accumulating step's "
+            + ", ".join(f"{x:.6f}" for x in ref_l) + f" {r['gap']:.3e} "
+            f"(tolerance {tol}; a state that never moved would read "
+            f"{frozen:.3e}); step median {r['ms']:.2f} ms (accumulating "
+            f"{runs['accum']['ms']:.2f}); launches a step {r['launches']}; "
+            f"peak {r['peak_gb']:.3f} GB (accumulating "
+            f"{runs['accum']['peak_gb']:.3f}) — on {card}")
+        if r["gap"] > tol:
+            fails.append(f"(d) {kind}: losses {r['gap']:.3e} off")
+        if not tol < frozen:
+            fails.append(f"(d) {kind}: tolerance {tol} cannot tell a state "
+                         f"that never moved ({frozen:.3e})")
+    runs["frozen_gap"] = frozen
+    out["d"] = runs
+    return out
+
+
+def moe_train_launches(run, kernel):
+    """``kernel``'s launches a step in each of :func:`moe_train_phase`'s
+    runs."""
+    return {"serial_k6": run["a"]["launches"][kernel],
+            "serial_k6_routing_replayed":
+                run["a_pinned"]["launches"][kernel],
+            "serial_sorted": run["plain"]["launches"][kernel],
+            "moe_view": run["c"]["launches"][kernel],
+            "moe_view_routing_replayed": run["c_pinned"]["launches"][kernel],
+            **{k: v["launches"][kernel] for k, v in run["d"].items()
+               if k != "frozen_gap"}}
+
+
+def moe_train_phase(card):
+    """MoE training on the card at ``bench.py``'s ``--moe`` leaf (GPT-MoE
+    8x125M, batch 8, S 2048, bf16, remat 'flash'): (a) the serial step
+    through K6 under autograd, 10 AdamW steps, against 3 steps of the
+    plain ``'sorted'`` arm, and one K6 step that replays that arm's
+    routing (:class:`RouteTap`), every grad leaf against the arm's; (b)
+    K6's and K7's Functions at one expert block of the training shape
+    against the f32 oracles, each with a planted fault; (c) the moe
+    view's ``DataParallel`` with ``ep_group`` (K7 under autograd) against
+    the 'sorted' arm's step 1; (d) the accumulating step, the one-stage
+    MoE 1F1B and ZeRO over ``moe_dp`` x 1F1B (the multi-rank exchanges
+    are held on the CPU: tests/test_torch_moe_train_dist.py).  Every gate
+    is read before the phase raises, naming each that failed."""
+    t_phase = time.perf_counter()
+    fails = []
+    cfg = gpt_moe_8x125m()
+    n_moe = sum(1 for i in range(cfg.nlayers)
+                if i % cfg.moe_every == cfg.moe_every - 1)
+    batch = random_batch(cfg, MOE_TRAIN_BATCH, 1)
+    a_tap = RouteTap(limit=n_moe)
+    a = moe_serial(cfg, batch, 10, card, tap=a_tap)
+    tokens = MOE_TRAIN_BATCH * cfg.max_seq
+    step_s = float(np.median(a["times"][3:]))
+    fpt = 6 * a["matmul_params"] + 12 * cfg.nlayers * cfg.max_seq * cfg.dim
+    mfu = fpt * tokens / step_s / PEAK_FLOPS[torch.bfloat16]
+    log(f"[moe-train] (a) GPT-MoE 8x125M (bench.py's --moe leaf: "
+        f"{a['num_params'] / 1e9:.4f} B parameters, "
+        f"{a['matmul_params'] / 1e6:.1f} M a token by bench.py's accounting),"
+        f" batch {MOE_TRAIN_BATCH}, S {cfg.max_seq}, bf16, remat 'flash', "
+        f"moe_dispatch 'auto' (K6 under autograd): losses "
+        + ", ".join(f"{x:.4f}" for x in a["losses"]))
+    log(f"[moe-train] (a) step median {step_s * 1e3:.2f} ms after 3 warm-up "
+        f"steps (all: " + ", ".join(f"{t * 1e3:.1f}" for t in a["times"])
+        + f" ms); {tokens / step_s:.0f} tokens/s; MFU {mfu:.4f} (6N + 12LSD "
+        f"= {fpt / 1e6:.1f} MFLOP a token against 989 TFLOP/s); peak memory "
+        f"{a['peak_gb']:.3f} GB; launches a step {a['launches']} — on {card}")
+    s_tap = RouteTap(limit=2 * n_moe)  # the forward and the recompute
+    plain = moe_serial(gpt_moe_8x125m("sorted"), batch, 3, card, tap=s_tap)
+    pairs, kept = routes_apart(a_tap.calls, s_tap.calls, n_moe)
+    del a_tap
+    plain_gaps = grad_gaps(a["grads1"], plain["grads1"], a["params"])
+    routers = [n for n in plain_gaps if n.endswith("router/w")]
+    gap = max(abs(x - y) / abs(y) for x, y in zip(a["losses"][:3],
+                                                  plain["losses"]))
+    frozen = frozen_gap(plain["losses"])
+    log(f"[moe-train] (a) the plain 'sorted' arm from the same start: losses "
+        + ", ".join(f"{x:.6f}" for x in plain["losses"]) + " against K6's "
+        + ", ".join(f"{x:.6f}" for x in a["losses"][:3])
+        + f": largest relative gap {gap:.3e} (tolerance {MOE_LOSS_TOL}; a "
+        f"state that never moved would read {frozen:.3e}); step median "
+        f"{median_ms(plain['times'], 1):.2f} ms; launches a step "
+        f"{plain['launches']}; peak {plain['peak_gb']:.3f} GB; step 1: "
+        f"tokens routed apart from K6's by expert block, of {tokens}: "
+        f"expert pair " + ", ".join(map(str, pairs)) + "; kept experts "
+        + ", ".join(map(str, kept)) + "; K6's grad gaps to the arm's: "
+        f"routers " + ", ".join(f"{plain_gaps[n]:.3e}" for n in routers)
+        + "; the largest of the other leaves "
+        + top_gaps(plain_gaps, routers) + f" — on {card}")
+    if gap > MOE_LOSS_TOL or not a["losses"][-1] < a["losses"][0]:
+        fails.append(f"(a): losses {gap:.3e} off the plain arm, or not "
+                     f"falling: {a['losses']}")
+    if not MOE_LOSS_TOL < frozen:
+        fails.append(f"(a): tolerance {MOE_LOSS_TOL} cannot tell a state "
+                     f"that never moved ({frozen:.3e})")
+    out = {"a": {k: a[k] for k in ("losses", "launches", "peak_gb",
+                                    "num_params", "matmul_params")},
+           "plain": {k: plain[k] for k in ("losses", "launches", "peak_gb")}}
+    out["a"].update(step_ms=step_s * 1e3, tokens_per_s=tokens / step_s,
+                    mfu=mfu, plain_gap=gap, frozen_gap=frozen,
+                    plain_step_ms=median_ms(plain["times"], 1),
+                    plain_grad_gaps=plain_gaps, routes_apart=pairs,
+                    kept_apart=kept)
+    del a
+    gc.collect()
+    torch.cuda.empty_cache()
+    pin_tap = RouteTap(replay=s_tap.calls)
+    ap = moe_serial(cfg, batch, 1, card, tap=pin_tap)
+    pin_gaps = grad_gaps(ap["grads1"], plain["grads1"], ap["params"])
+    pin_rel = abs(ap["losses"][0] - plain["losses"][0]) / abs(
+        plain["losses"][0])
+    worst = max(pin_gaps, key=pin_gaps.get)
+    log(f"[moe-train] (a) K6 replaying the 'sorted' arm's routing, one step: "
+        f"loss {ap['losses'][0]:.6f} against the arm's "
+        f"{plain['losses'][0]:.6f} (relative {pin_rel:.3e}); grad gaps: "
+        f"routers " + ", ".join(f"{pin_gaps[n]:.3e}" for n in routers)
+        + "; the largest of the other leaves " + top_gaps(pin_gaps, routers)
+        + f" (tolerance {MOE_VIEW_TOL['grad']} of each leaf's largest "
+        f"|grad|); {pin_tap.n} router calls replayed; launches a step "
+        f"{ap['launches']} — on {card}")
+    if (pin_gaps[worst] > MOE_VIEW_TOL["grad"]
+            or pin_rel > MOE_VIEW_TOL["loss"]
+            or pin_tap.n != len(s_tap.calls)):
+        fails.append(f"(a) routing replayed: grad {pin_gaps[worst]:.3e} "
+                     f"({worst}), loss {pin_rel:.3e}, {pin_tap.n} router "
+                     f"calls of {len(s_tap.calls)}")
+    out["a_pinned"] = {"loss_rel": pin_rel, "gaps": pin_gaps,
+                       "grad_gap": pin_gaps[worst], "worst": worst,
+                       "launches": ap["launches"]}
+    ref = {"losses": plain["losses"], "grads1": plain["grads1"],
+           "routes": s_tap.calls, "k6_loss": out["a"]["losses"][0]}
+    del ap, plain, pin_tap, s_tap
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["b"] = {"K6": moe_fn_check(cfg, card, fails)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["b"]["K7"] = expert_fn_check(cfg, card, fails)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with one_rank_layout("moe-train", [("data", 1), ("pipe", 1)],
+                         moe_ep=True):
+        out.update(moe_view_runs(cfg, batch, ref, card, fails))
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[moe-train] phase done in {out['seconds']:.1f} s")
+    if fails:
+        raise RuntimeError("moe-train: " + "; ".join(fails))
+    return out
+
+
 def tp_engine_phase(params, cfg, card, plain):
     """The Mistral engine (all 32 layers) over a one-rank NCCL ``tensor``
     group: the rank's shard (``shard_gpt_params``: at one rank views of
@@ -5980,6 +6740,8 @@ def main():
     tp_train = tp_train_phase(card)
     zero_fsdp = zero_fsdp_phase(card)
     pipe = pipeline_phase(card, train["step_ms"])
+    # MoE training: K6 and K7 under autograd at bench.py's --moe leaf
+    moe_train = moe_train_phase(card)
     log(f"[time] training done at {time.perf_counter() - t_start:.0f} s")
 
     # 5. the serving path: full-width teacher-forced, then the engine
@@ -6115,7 +6877,9 @@ def main():
                 **{f"{name}_two_stages": [
                     r["schedules"][name]["rows"][0]["launches"][kname]
                     for r in pipe["two_stages"]["ranks"]]
-                   for name in PIPE_LAUNCHES}}}
+                   for name in PIPE_LAUNCHES}},
+            "moe_train_launches_a_step": moe_train_launches(moe_train,
+                                                            kname)}
         if kname == "flash_fwd":  # the generate path's prefill calls
             extra["generate_launches"] = {
                 "generate": gen["launches"]["flash_fwd"],
@@ -6136,6 +6900,10 @@ def main():
         body=moe_rows[0]["body"], body_kernels=MOE_BODY_KERNELS,
         generate_launches=ep_eng["then"]["K6"]["launches"],
         tp_generate_launches=tp_gen["moe"]["launches"]["fused_moe_ffn"],
+        moe_train_launches_a_step=moe_train_launches(moe_train, "K6"),
+        train_shape={k: moe_train["b"]["K6"][k] for k in (
+            "ms", "backward_ms", "plain_ms", "bound_ms", "max_abs_err",
+            "tol_ratio", "C", "filled")},
         ptxas={n: v for n, v in ptxas_summary.items()
                if n.startswith("K6") and "bf16 weights" in n},
         library="the ragged 'gather' arm: one cuBLAS product per expert "
@@ -6157,7 +6925,10 @@ def main():
                   "tp_ep_engine_launches": tp_ep["engine"]["tp_ep"][
                       "launches"]["fused_expert_ffn"],
                   "tp_ep_generate_launches": tp_ep["generate_tp_ep"][
-                      "launches"]["fused_expert_ffn"]}
+                      "launches"]["fused_expert_ffn"],
+                  "moe_train_launches_a_step": moe_train_launches(
+                      moe_train, "K7"),
+                  "train_shape": moe_train["b"]["K7"]}
                  if ep["then"] else {})
         entries.append(kernel_entry(
             kname, MOE_SOURCE, K7_REPLACES[kname], ep["launches"][kname],

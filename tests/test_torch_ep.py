@@ -297,13 +297,14 @@ def test_moe_forward_matches_jax_serial(world1, name):
 
 
 def test_moe_forward_auto_resolves_by_device(world1):
-    """``'auto'`` is the plain ``'sorted'`` arm on the CPU (``'cuda'`` on
-    the card), recorded as a ``moe_dispatch_selected`` event."""
+    """``'auto'`` is a plain arm on the CPU (``'cuda'`` on the card):
+    ``'dense'`` at this size, below ``_DENSE_DISPATCH_MAX`` (JAX's rule
+    off the TPU), recorded as a ``moe_dispatch_selected`` event."""
     from torchdistpackage_tpu_torch.obs import default_event_log
 
     p = _t(_layer_params())
     x = torch.from_numpy(_rank_tokens()[0])
-    base = tmoe.MoEConfig(**W.LAYER, capacity_factor=4.0, dispatch="sorted")
+    base = tmoe.MoEConfig(**W.LAYER, capacity_factor=4.0, dispatch="dense")
     want = tmoe.moe_forward(p, x, base, ep_group=world1)[0]
     log = default_event_log()
     n = len(log.as_list())
@@ -311,7 +312,7 @@ def test_moe_forward_auto_resolves_by_device(world1):
                            ep_group=world1)[0]
     assert torch.equal(got, want)
     ev = [e for e in log.as_list()[n:] if e["kind"] == "moe_dispatch_selected"]
-    assert [e["chosen"] for e in ev] == ["sorted"]
+    assert [e["chosen"] for e in ev] == ["dense"]
 
 
 @pytest.fixture(scope="module")
@@ -528,11 +529,12 @@ def test_ep_refusals(world1):
     with pytest.raises(ValueError, match="shard_experts"):
         tmoe.moe_forward(tmoe.shard_experts(p, 0, 2), x, cfg,
                          ep_group=world1)
-    with pytest.raises(NotImplementedError, match="forward only"):
-        tmoe.moe_forward(p, x.clone().requires_grad_(), cfg)
-    with pytest.raises(NotImplementedError, match="expert_choice"):
+    # trains (tests/test_torch_moe_train.py); the expert-choice router
+    # refuses a causal model
+    tmoe.moe_forward(p, x.clone().requires_grad_(), cfg)[0].sum().backward()
+    with pytest.raises(ValueError, match="causal"):
         tmoe.moe_forward(p, x, dataclasses.replace(
-            cfg, router="expert_choice"))
+            cfg, router="expert_choice"), causal=True)
     with pytest.raises(ValueError, match="does not divide"):
         build_moe_groups(3)
     with pytest.raises(RuntimeError, match="already"):

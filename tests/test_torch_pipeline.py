@@ -744,11 +744,14 @@ def test_data_parallel_one_stage_pipelined_loss(group1):
 
 
 def test_refusals_name_their_items():
-    """The MoE pipelines wait for "MoE training" (JAX gpt_moe.py:338)."""
+    """The MoE pipeline (tests/test_torch_moe_train*.py) refuses a stage
+    layout whose slabs differ in their dense / expert pattern, as JAX's
+    ``moe_stage_pattern`` (gpt_moe.py:338) does: at 2 layers over 2
+    stages slab 0 is dense, slab 1 an expert block."""
     from torchdistpackage_tpu_torch.models import GPTConfig, shard_gpt_params
 
     cfg = GPTConfig(vocab_size=64, dim=32, nheads=4, nlayers=2, max_seq=16,
                     moe_experts=4)
-    with pytest.raises(NotImplementedError, match="MoE training"):
+    with pytest.raises(ValueError, match="slab-invariant"):
         shard_gpt_params({"blocks": [{}, {}]}, cfg, 0, 1, pp_rank=0,
                          pp_size=2)

@@ -483,8 +483,6 @@ def _layout(axes):
     ({"grad_compress": "int8_ef"}, "Collectives"),
     ({"grad_compress": "auto"}, "Collectives"),
     ({"gather_compress": "int8"}, "Collectives"),
-    ({"shard_axis": "moe_dp", "grad_reduce_axes": ("moe_dp", "moe_ep")},
-     "MoE training"),
 ])
 def test_zero_refuses_what_waits(kw, item):
     with pytest.raises(NotImplementedError, match=item):

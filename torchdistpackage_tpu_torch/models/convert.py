@@ -63,10 +63,25 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: GPTConfig,
     of an MoE tree, JAX ``gpt_moe_param_specs(tp_axis, ep_axis)``:
     attention, the embedding and the head cut over the tensor group, the
     experts cut along E over the expert group and replicated over the
-    tensor group (so an int8 expert pair passes)."""
+    tensor group (so an int8 expert pair passes).
+
+    ``pp_size > 1`` (or ``num_chunks > 1``) converts pipeline stage
+    ``pp_rank``'s params: the dense family's slab of the stacked block
+    leaves, or an MoE tree's slab of its block list
+    (``models.gpt_moe.moe_stage_params``) — from the serial list, or from
+    JAX's pipeline layout (``stack_moe_stage_params``: a list of ``L / (P
+    V)`` positions whose leaves are stacked ``[P, ...]``, or ``[V, P,
+    ...]`` interleaved), whose stage slices are taken first."""
     dev = resolve_device(device)
     if ep_size > 1 and not cfg.moe_experts:
         raise ValueError(f"EP size {ep_size} needs an MoE config")
+    blocks = np_tree.get("blocks")
+    nslabs, stages = pp_size * num_chunks, pp_size
+    if (isinstance(blocks, (list, tuple)) and nslabs > 1
+            and len(blocks) * nslabs == cfg.nlayers):
+        np_tree = dict(np_tree, blocks=_jax_stage_slab(
+            blocks, pp_rank, pp_size, num_chunks))
+        pp_size = num_chunks = 1
     if tp_size > 1 or pp_size > 1 or num_chunks > 1:
         np_tree = shard_gpt_params(np_tree, cfg, tp_rank, tp_size,
                                    pp_rank=pp_rank, pp_size=pp_size,
@@ -88,7 +103,7 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: GPTConfig,
     blocks = tree.pop("blocks", None)
     out = conv(tree)
     if isinstance(blocks, (list, tuple)):
-        if not cfg.moe_experts or len(blocks) != cfg.nlayers:
+        if not cfg.moe_experts or len(blocks) * stages != cfg.nlayers:
             raise TypeError(
                 f"a per-block list of {len(blocks)} blocks needs an MoE "
                 f"config of as many layers (moe_experts "
@@ -111,3 +126,15 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: GPTConfig,
             f"(expected {sorted(want)})")
     return out
 
+
+
+def _jax_stage_slab(blocks, pp_rank: int, pp_size: int, num_chunks: int):
+    """Stage ``pp_rank``'s block list from JAX's MoE pipeline layout:
+    position ``i``'s leaves ``[P, ...]`` (or ``[V, P, ...]``) sliced to the
+    stage, chunk-major — the order of ``moe_stage_params``."""
+    def take(node, v):
+        if isinstance(node, dict):
+            return {k: take(a, v) for k, a in node.items()}
+        a = np.asarray(node)
+        return a[pp_rank] if num_chunks == 1 else a[v, pp_rank]
+    return [take(b, v) for v in range(num_chunks) for b in blocks]

@@ -79,7 +79,7 @@ class GPTConfig:
     # Mixture-of-Experts (0 = dense model).  With ``moe_experts > 0`` every
     # ``moe_every``-th block's FFN is an expert layer (``models/gpt_moe.py``
     # builds the per-block list); serving runs it (``paged_forward_moe``),
-    # MoE training is not ported yet (ROADMAP queue A).
+    # training ``gpt_moe_loss`` / ``gpt_moe_pipeline_1f1b``.
     moe_experts: int = 0
     moe_top_k: int = 2
     moe_every: int = 2
@@ -88,7 +88,9 @@ class GPTConfig:
     # 'topk' only for this causal family: 'expert_choice' ranks the whole
     # sequence per expert (a future-token leak), refused as in the reference
     moe_router: str = "topk"
-    moe_dispatch: str = "auto"  # 'gather' | 'cuda' | 'auto' (see MoEConfig)
+    # 'auto' | 'cuda' | 'gather' (serving) | 'dense' | 'sorted' (training's
+    # capacity path); see MoEConfig
+    moe_dispatch: str = "auto"
 
     def __post_init__(self):
         if not isinstance(self.dtype, torch.dtype):
@@ -505,8 +507,8 @@ def shard_gpt_params(params: Params, cfg: GPTConfig, rank: int,
     tree (dense or MoE): views of ``params`` cut by
     :func:`gpt_param_specs`.  The vocabulary and the KV heads must divide
     by ``size`` (whole KV heads a shard).  ``pp_size > 1``: then pipeline
-    stage ``pp_rank``'s slab of the block leaves (:func:`pipe_slab`;
-    dense stacked blocks only)."""
+    stage ``pp_rank``'s slab of the block leaves (:func:`pipe_slab`; an
+    MoE tree's block list: ``models.gpt_moe.moe_stage_params``)."""
     if cfg.vocab_size % size:
         raise ValueError(f"vocab_size {cfg.vocab_size} not divisible by tp "
                          f"{size} (whole vocabulary slices per shard)")
@@ -516,10 +518,10 @@ def shard_gpt_params(params: Params, cfg: GPTConfig, rank: int,
             f"{size} (whole KV heads per shard)")
     out = shard_params(params, gpt_param_specs(params), rank, size)
     if pp_size > 1 or num_chunks > 1:
-        if not isinstance(out.get("blocks"), dict):
-            raise NotImplementedError(
-                "the MoE pipelines wait for ROADMAP queue A's 'MoE training' "
-                "(the pipeline takes the dense family's stacked blocks)")
+        if isinstance(out.get("blocks"), list):
+            from .gpt_moe import moe_stage_params
+
+            return moe_stage_params(out, cfg, pp_rank, pp_size, num_chunks)
         out = pipe_slab(out, pp_rank, pp_size, num_chunks)
     return out
 

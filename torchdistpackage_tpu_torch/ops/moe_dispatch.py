@@ -96,10 +96,18 @@ pays what the reference pays under EP: at the no-drop capacity ``C = T``
 every expert computes all its slots, ``E / k`` times K6's work at a
 prefill chunk.
 
-The backward the reference gives ``fused_moe_ffn`` and
-``fused_expert_ffn`` (``custom_vjp``s through their oracles) belongs to
-MoE training, which is not ported yet (ROADMAP queue A): this module is
-forward-only, and int8 is forward-only in the reference too.
+Both entry points are differentiable, as the reference's ``custom_vjp``s
+(:361-387, :461-476): :func:`fused_moe_ffn` and :func:`fused_expert_ffn`
+run their kernel forward (the plain version for CPU tensors) inside an
+autograd Function whose backward is autograd through the f32 oracle on
+the saved inputs — :func:`moe_ffn_oracle_diff` (grads of the experts,
+the tokens, ``gate_vals`` and ``keep``; none for ``gate_idx`` / ``slot``)
+and :func:`expert_ffn_reference_diff` — each grad cast to its input's
+dtype.  The reference has no backward kernel: its backwards are these
+oracles' VJPs in XLA.  Under ``torch.no_grad()``, or with no input that
+requires grad, a call is the forward alone and launches what it
+launched before.  int8 experts are forward-only, as in the reference: a
+backward through them raises.
 """
 
 from __future__ import annotations
@@ -264,7 +272,8 @@ def slot_maps(gate_vals: torch.Tensor, gate_idx: torch.Tensor,
     ``idx`` int32 (the token in each slot; 0 where empty — harmless, its
     weight is 0) and ``comb`` f32 (the renormalised gate weight of that
     (token, choice); 0 for empty or dropped slots).  Dropped choices land
-    on a dumpster entry that is cut off."""
+    on a dumpster entry that is cut off.  ``comb`` carries autograd to
+    ``gate_vals`` and ``keep``."""
     T, k = gate_idx.shape
     E = keep.shape[-1]
     dev = gate_idx.device
@@ -275,8 +284,9 @@ def slot_maps(gate_vals: torch.Tensor, gate_idx: torch.Tensor,
         T, k).reshape(-1)
     idx = torch.zeros(E * capacity + 1, dtype=torch.int32, device=dev)
     idx[dest] = tok
-    comb = torch.zeros(E * capacity + 1, dtype=torch.float32, device=dev)
-    comb[dest] = (gate_vals * kept).float().reshape(-1)
+    comb = torch.zeros(E * capacity + 1, dtype=torch.float32,
+                       device=dev).index_put(
+        (dest,), (gate_vals * kept).float().reshape(-1))
     return (idx[:E * capacity].reshape(E, capacity),
             comb[:E * capacity].reshape(E, capacity))
 
@@ -307,6 +317,23 @@ def _expert_weights_f32(experts: Dict[str, Any]):
     return tuple(_dequant(experts[n]) for n in ("w1", "b1", "w2", "b2"))
 
 
+def _slots_f32(experts: Dict[str, Any], tokens: torch.Tensor,
+               idx: torch.Tensor, comb: torch.Tensor,
+               scatter_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`moe_ffn_slots_reference`'s arithmetic, differentiable in
+    the experts, the tokens and ``comb``."""
+    T, D = tokens.shape
+    E, C = idx.shape
+    w1, b1, w2, b2 = _expert_weights_f32(experts)
+    filled = (comb != 0.0)[..., None]
+    view = torch.where(filled, tokens.float()[idx.long()], 0.0)  # [E, C, D]
+    out = ffn_rows(view, w1, b1, w2, b2)  # [E, C, D]
+    dst = idx if scatter_idx is None else scatter_idx
+    y = torch.zeros(T, D, dtype=torch.float32, device=tokens.device)
+    return y.index_add(0, dst.reshape(-1).long(),
+                       comb.reshape(-1, 1) * out.reshape(E * C, D))
+
+
 @torch.no_grad()
 def moe_ffn_slots_reference(experts: Dict[str, Any], tokens: torch.Tensor,
                             idx: torch.Tensor, comb: torch.Tensor,
@@ -317,17 +344,7 @@ def moe_ffn_slots_reference(experts: Dict[str, Any], tokens: torch.Tensor,
     (int8 weights ``_dequant``-ed to f32 first), and add ``comb x`` each
     slot's output into f32 ``[T, D]`` at ``scatter_idx`` (default
     ``idx``) — the reference oracle's arithmetic."""
-    T, D = tokens.shape
-    E, C = idx.shape
-    w1, b1, w2, b2 = _expert_weights_f32(experts)
-    filled = (comb != 0.0)[..., None]
-    view = torch.where(filled, tokens.float()[idx.long()], 0.0)  # [E, C, D]
-    out = ffn_rows(view, w1, b1, w2, b2)  # [E, C, D]
-    dst = idx if scatter_idx is None else scatter_idx
-    y = torch.zeros(T, D, dtype=torch.float32, device=tokens.device)
-    y.index_add_(0, dst.reshape(-1).long(),
-                 comb.reshape(-1, 1) * out.reshape(E * C, D))
-    return y
+    return _slots_f32(experts, tokens, idx, comb, scatter_idx)
 
 
 def moe_ffn_oracle(experts: Dict[str, Any], tokens: torch.Tensor,
@@ -339,6 +356,19 @@ def moe_ffn_oracle(experts: Dict[str, Any], tokens: torch.Tensor,
     idx, comb = slot_maps(gate_vals, gate_idx, slot, keep, capacity)
     return moe_ffn_slots_reference(experts, tokens, idx, comb).to(
         tokens.dtype)
+
+
+def moe_ffn_oracle_diff(experts: Dict[str, Any], tokens: torch.Tensor,
+                        gate_vals: torch.Tensor, gate_idx: torch.Tensor,
+                        slot: torch.Tensor, keep: torch.Tensor,
+                        capacity: int) -> torch.Tensor:
+    """:func:`moe_ffn_oracle` under autograd — K6's backward, the
+    reference's ``moe_ffn_oracle`` as ``jax.vjp`` differentiates it:
+    ``comb`` is a scatter of ``gate_vals * kept`` (``kept`` the choice's
+    sum over ``keep``), so the gate and ``keep`` get their grads through
+    it; a slot whose gate is 0 is empty on both sides."""
+    idx, comb = slot_maps(gate_vals, gate_idx, slot, keep, capacity)
+    return _slots_f32(experts, tokens, idx, comb).to(tokens.dtype)
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -789,15 +819,94 @@ def fused_moe_ffn_slots(experts: Dict[str, Any], tokens: torch.Tensor,
     return y
 
 
+_NAMES = ("w1", "b1", "w2", "b2")
+
+
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def _grads_of(out: torch.Tensor, g: torch.Tensor, inputs) -> List[Any]:
+    """Autograd of ``out`` (built from ``inputs``) against ``g``: each
+    input's grad in its own dtype, None where it has none."""
+    want = [t for t in inputs if t.requires_grad]
+    got = iter(torch.autograd.grad(out, want, g, allow_unused=True))
+    return [(lambda d, t: None if d is None else d.to(t.dtype))(next(got), t)
+            if t.requires_grad else None for t in inputs]
+
+
+def _detached(ts, grads_needed):
+    return [t.detach().requires_grad_(need) for t, need in
+            zip(ts, grads_needed)]
+
+
+class _FusedMoE(torch.autograd.Function):
+    """:func:`fused_moe_ffn` under autograd (the reference's
+    ``_fused_diff``): forward K6 (the plain version for CPU tensors),
+    backward autograd through :func:`moe_ffn_oracle_diff` on the saved
+    inputs.  Inputs: ``capacity, gate_idx, slot, tokens, gate_vals, keep,
+    w1, b1, w2, b2``."""
+
+    @staticmethod
+    def forward(ctx, capacity, gate_idx, slot, tokens, gate_vals, keep,
+                *weights):
+        ctx.capacity = capacity
+        ctx.save_for_backward(gate_idx, slot, tokens, gate_vals, keep,
+                              *weights)
+        idx, comb = slot_maps(gate_vals, gate_idx, slot, keep, capacity)
+        return fused_moe_ffn_slots(dict(zip(_NAMES, weights)), tokens, idx,
+                                   comb).to(tokens.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        gate_idx, slot, *diff = ctx.saved_tensors
+        with torch.enable_grad():
+            diff = _detached(diff, ctx.needs_input_grad[3:])
+            tokens, gate_vals, keep, *weights = diff
+            y = moe_ffn_oracle_diff(dict(zip(_NAMES, weights)), tokens,
+                                    gate_vals, gate_idx, slot, keep,
+                                    ctx.capacity)
+            grads = _grads_of(y, g, diff)
+        return (None, None, None, *grads)
+
+
+class _ForwardOnly(torch.autograd.Function):
+    """An int8-expert call under autograd: the forward as it is, a
+    backward that raises — the reference's int8 path has no VJP."""
+
+    @staticmethod
+    def forward(ctx, fn, *inputs):
+        return fn()
+
+    @staticmethod
+    def backward(ctx, g):
+        raise NotImplementedError(
+            "int8 (q8, scale) experts are forward only (the reference's "
+            "int8 kernels have no VJP): train on float experts")
+
+
 def fused_moe_ffn(experts: Dict[str, Any], tokens: torch.Tensor,
                   gate_vals: torch.Tensor, gate_idx: torch.Tensor,
                   slot: torch.Tensor, keep: torch.Tensor, capacity: int
                   ) -> torch.Tensor:
     """Fused gather -> expert FFN -> weighted scatter-add over a
     ``_top_k_route`` decision: tokens ``[T, D]`` -> ``[T, D]`` in
-    ``tokens.dtype`` (K6 on the card, the plain version on the CPU)."""
-    idx, comb = slot_maps(gate_vals, gate_idx, slot, keep, capacity)
-    return fused_moe_ffn_slots(experts, tokens, idx, comb).to(tokens.dtype)
+    ``tokens.dtype`` (K6 on the card, the plain version on the CPU).
+    Differentiable in the float experts, the tokens, ``gate_vals`` and
+    ``keep`` (:class:`_FusedMoE`); int8 experts are forward only."""
+    def forward():
+        idx, comb = slot_maps(gate_vals, gate_idx, slot, keep, capacity)
+        return fused_moe_ffn_slots(experts, tokens, idx, comb).to(
+            tokens.dtype)
+
+    leaves = list(tree_leaves(experts))
+    if not _wants_grad(tokens, gate_vals, keep, *leaves):
+        return forward()
+    if _quantized(experts, "K6"):
+        return _ForwardOnly.apply(forward, tokens, gate_vals, keep, *leaves)
+    return _FusedMoE.apply(int(capacity), gate_idx, slot, tokens, gate_vals,
+                           keep, *(experts[n] for n in _NAMES))
 
 
 # ------------------------------------------- K7: the EP expert FFN
@@ -811,6 +920,33 @@ def expert_ffn_reference(experts: Dict[str, Any],
     D]`` in f32 on the ``_dequant``-ed weights -> f32 ``[e_loc, G, D]``,
     every row computed."""
     return ffn_rows(x.float(), *_expert_weights_f32(experts))
+
+
+def expert_ffn_reference_diff(experts: Dict[str, Any],
+                              x: torch.Tensor) -> torch.Tensor:
+    """:func:`expert_ffn_reference` under autograd, cast to ``x.dtype``:
+    the reference's ``_ep_ffn_reference`` whole, K7's backward."""
+    return ffn_rows(x.float(), *_expert_weights_f32(experts)).to(x.dtype)
+
+
+class _ExpertFFN(torch.autograd.Function):
+    """:func:`fused_expert_ffn` under autograd (the reference's
+    ``_ep_diff``): forward K7 (the plain version for CPU tensors),
+    backward autograd through :func:`expert_ffn_reference_diff`.  Inputs:
+    ``x, w1, b1, w2, b2``."""
+
+    @staticmethod
+    def forward(ctx, x, *weights):
+        ctx.save_for_backward(x, *weights)
+        return _expert_ffn_call(dict(zip(_NAMES, weights)), x)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            diff = _detached(ctx.saved_tensors, ctx.needs_input_grad)
+            x, *weights = diff
+            y = expert_ffn_reference_diff(dict(zip(_NAMES, weights)), x)
+            return tuple(_grads_of(y, g, diff))
 
 
 def expert_ffn_body(G: int, dtype: torch.dtype) -> str:
@@ -831,6 +967,20 @@ def expert_ffn_body(G: int, dtype: torch.dtype) -> str:
 
 def fused_expert_ffn(experts: Dict[str, Any],
                      x: torch.Tensor) -> torch.Tensor:
+    """K7 on the exchanged groups (:func:`_expert_ffn_call`),
+    differentiable in ``x`` and float experts (:class:`_ExpertFFN`); int8
+    experts are forward only."""
+    leaves = list(tree_leaves(experts))
+    if not _wants_grad(x, *leaves):
+        return _expert_ffn_call(experts, x)
+    if _quantized(experts, "K7"):
+        return _ForwardOnly.apply(lambda: _expert_ffn_call(experts, x), x,
+                                  *leaves)
+    return _ExpertFFN.apply(x, *(experts[n] for n in _NAMES))
+
+
+def _expert_ffn_call(experts: Dict[str, Any],
+                     x: torch.Tensor) -> torch.Tensor:
     """K7, the expert FFN of an expert-parallel layer on the exchanged
     groups: ``x [e_loc, G, D]`` -> ``[e_loc, G, D]`` in ``x.dtype``, every
     row computed (a pad row gives ``act(b1) W2 + b2``, which the combine
@@ -846,7 +996,7 @@ def fused_expert_ffn(experts: Dict[str, Any],
     decode's ``[8, 8, 4096]``), the decode body also its f32 pass-2
     partials, sized from the grid (:func:`decode_grid`), which a merge
     launch adds in a fixed order: its output is the same bits from run
-    to run.  Forward only, as K6."""
+    to run."""
     quantized = _quantized(experts, "K7")
     if x.device.type == "cpu":
         _check(all(t.device.type == "cpu" for t in tree_leaves(experts)),

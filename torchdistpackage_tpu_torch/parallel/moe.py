@@ -1,11 +1,14 @@
-"""Mixture-of-Experts serving — the PyTorch counterpart of the serving
-parts of ``torchdistpackage_tpu/parallel/moe.py``: :class:`MoEConfig`
-(:48), ``_top_k_route`` (:134), ``_load_balance_loss`` (:227),
+"""Mixture-of-Experts — the PyTorch counterpart of
+``torchdistpackage_tpu/parallel/moe.py``: :class:`MoEConfig` (:48), the
+dispatch resolution (``_DENSE_DISPATCH_MAX``, ``_use_sorted``, :113-131),
+``_top_k_route`` (:134), ``_dense_topk_tensors`` (:183),
+``_expert_choice_dispatch`` (:199), ``_load_balance_loss`` (:227),
 ``_expert_ffn`` (:242), ``_router_metrics`` (:254),
-``check_expert_overflow`` (:297), the token-choice capacity path of
-``moe_forward`` (:323) with its expert-parallel exchange,
-``moe_serve_forward`` (:501), ``init_moe_params`` (:608) and
-``moe_param_specs`` (:632, here :func:`shard_experts`).
+``check_expert_overflow`` (:297), ``moe_forward`` (:323) with its
+expert-parallel exchange, ``moe_serve_forward`` (:501),
+``init_moe_params`` (:608), ``moe_param_specs`` (:632, and its placement
+as slices, :func:`shard_experts`) and ``moe_grad_reduce_overrides``
+(:649).
 
 ``moe_serve_forward`` routes every token to its top-k experts with no
 capacity (exact, no drops) and runs the expert FFN through one of two
@@ -17,18 +20,23 @@ int8 weight-only experts.  ``'auto'`` picks ``'cuda'`` on a CUDA device
 and ``'gather'`` on the CPU.  The port's ``'cuda'`` stands where the
 reference says ``'pallas'``.
 
-``moe_forward`` is the capacity path: top-k routing at a capacity of
-``ceil(T k cf / E)`` slots an expert (drops past it), the ``'sorted'``
-index dispatch into an ``[E, C, D]`` slot layout, the expert FFN, and the
-gate-weighted gather combine.  Under expert parallelism (``ep_group``, a
-``torch.distributed`` process group) every rank holds ``E / ep`` experts
-(:func:`shard_experts`) and the slots go to their experts' ranks and back
-by two ``all_to_all_single`` exchanges; the FFN of the exchanged groups
-runs in K7 (``fused_expert_ffn``) under ``'cuda'``, in plain PyTorch
-under ``'sorted'``.  Without a group, ``'cuda'`` runs K6 on the routing
-directly.  It is forward only (serving): an input that requires grad
-raises, as do the ``'dense'`` materialisation and the ``expert_choice``
-router, which wait for MoE training (ROADMAP queue A).
+``moe_forward`` is the capacity path, forward and backward: the
+token-choice router (top-k at a capacity of ``ceil(T k cf / E)`` slots
+an expert, drops past it) or the expert-choice router (each expert picks
+its top ``ceil(T cf / E)`` tokens; non-causal, refused under
+``causal=True``), materialised as ``'dense'`` ``[T, E, C]`` one-hot
+products, the ``'sorted'`` index dispatch into an ``[E, C, D]`` slot
+layout, or ``'cuda'`` (token-choice only): K6 on the routing directly,
+or under expert parallelism the sorted layout with K7 on the exchanged
+groups.  Under expert parallelism (``ep_group``, a ``torch.distributed``
+process group) every rank holds ``E / ep`` experts (:func:`shard_experts`)
+and the slots go to their experts' ranks and back by two
+``all_to_all_single`` exchanges, each an autograd Function whose
+backward is the same exchange of the cotangent (the transpose of the
+reference's ``all_to_all``).  An expert's grad on its rank then holds
+every EP peer's tokens — the overcount that the data-parallel reduction
+divides out (expert grads summed over ``moe_dp`` only, divided by the
+whole data group: :func:`moe_grad_reduce_overrides`).
 """
 
 from __future__ import annotations
@@ -42,7 +50,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from ..obs.numerics import tree_leaves
+from ..dist.topology import EXPERT_AXIS, MOE_DATA_AXIS
 from ..ops.moe_dispatch import (
     _is_q,
     ffn_rows,
@@ -54,20 +62,22 @@ from .tensor_parallel.layers import _normal
 
 Params = Dict[str, Any]
 
-#: dispatch values of the reference that are training-side
-#: materialisations of the capacity path, not ported yet
-_QUEUED_DISPATCH = ("dense",)
+#: Above this many dense-dispatch elements (``T E C``) ``'auto'`` takes
+#: the index (``'sorted'``) dispatch where it does not take the kernel —
+#: the reference's threshold.
+_DENSE_DISPATCH_MAX = 1 << 24
 
 
 @dataclasses.dataclass(frozen=True)
 class MoEConfig:
     """The reference's ``MoEConfig``.  ``dtype`` is a ``torch.dtype``.
+    ``router``: ``'topk'`` (token choice) | ``'expert_choice'``.
     ``dispatch``: ``'auto'`` | ``'gather'`` (the serving path's ragged
-    arm) | ``'sorted'`` (the capacity path's index dispatch) | ``'cuda'``
-    (the reference's ``'pallas'``: K6, or K7 under EP); the ``'dense'``
-    materialisation is refused until MoE training is ported.  ``act``:
-    ``'gelu'`` | ``'swiglu'`` (stacked ``[E, 2, D, F]`` gate/up, the
-    Mixtral expert)."""
+    arm) | ``'dense'`` / ``'sorted'`` (the capacity path's one-hot and
+    index materialisations) | ``'cuda'`` (the reference's ``'pallas'``:
+    K6, or K7 under EP; token choice only).  ``act``: ``'gelu'`` |
+    ``'swiglu'`` (stacked ``[E, 2, D, F]`` gate/up, the Mixtral
+    expert)."""
 
     dim: int
     ffn_dim: int
@@ -83,11 +93,8 @@ class MoEConfig:
     def __post_init__(self):
         if self.router not in ("topk", "expert_choice"):
             raise ValueError(f"unknown MoE router {self.router!r}")
-        if self.dispatch in _QUEUED_DISPATCH:
-            raise NotImplementedError(
-                f"MoE dispatch {self.dispatch!r} belongs to the capacity "
-                f"(training) path, not ported yet (ROADMAP queue A)")
-        if self.dispatch not in ("auto", "gather", "sorted", "cuda"):
+        if self.dispatch not in ("auto", "gather", "dense", "sorted",
+                                 "cuda"):
             raise ValueError(f"unknown MoE dispatch {self.dispatch!r}")
         if self.dispatch == "cuda" and self.router != "topk":
             raise ValueError(
@@ -209,23 +216,114 @@ def _expert_ffn(experts: Params, x: torch.Tensor) -> torch.Tensor:
     return ffn_rows(x, *(experts[n] for n in ("w1", "b1", "w2", "b2")))
 
 
-def _router_metrics(probs: torch.Tensor, keep: torch.Tensor,
-                    top_k: int) -> Dict[str, torch.Tensor]:
-    """The capacity path's counters (f32): the mean per-token router
-    entropy over ``log E``, the kept choices per expert and the share of
-    the ``T k`` choices dropped past capacity.  Per rank under EP."""
+def _use_sorted(cfg: MoEConfig, T: int, capacity: int) -> bool:
+    """Whether the plain capacity path takes the index dispatch: always
+    under ``'sorted'``, never under ``'dense'``; under ``'auto'`` once the
+    dense tensors pass :data:`_DENSE_DISPATCH_MAX` elements — the
+    reference's ``_use_sorted``."""
+    if cfg.dispatch == "auto":
+        return T * cfg.num_experts * capacity > _DENSE_DISPATCH_MAX
+    return cfg.dispatch == "sorted"
+
+
+def _forward_dispatch(cfg: MoEConfig, device, T: int, capacity: int) -> str:
+    """``moe_forward``'s arm: ``'cuda'`` (the kernels), ``'dense'`` or
+    ``'sorted'``.  ``'auto'`` takes ``'cuda'`` for the token-choice router
+    on a CUDA device, else the plain arm by size (:func:`_use_sorted`; the
+    expert-choice router has no kernel, as the reference's ``_use_pallas``
+    is False for it), recorded as a ``moe_dispatch_selected`` event."""
+    if cfg.dispatch == "gather":
+        raise ValueError(
+            "moe dispatch 'gather' is the serving path's ragged arm "
+            "(moe_serve_forward); moe_forward takes 'dense', 'sorted', "
+            "'cuda' or 'auto'")
+    if cfg.dispatch != "auto":
+        return cfg.dispatch
+    if cfg.router == "topk" and torch.device(device).type == "cuda":
+        chosen = "cuda"
+    else:
+        chosen = "sorted" if _use_sorted(cfg, T, capacity) else "dense"
+    from ..obs.events import default_event_log
+
+    default_event_log().emit("moe_dispatch_selected", requested="auto",
+                             chosen=chosen, device=str(device))
+    return chosen
+
+
+def _dense_topk_tensors(gate_vals: torch.Tensor, slot: torch.Tensor,
+                        keep: torch.Tensor, capacity: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense ``[T, E, C]`` dispatch / combine of a :func:`_top_k_route`
+    decision: ``dispatch[t, e, c]`` 1 where token t holds slot c of
+    expert e, ``combine`` its gate there (0 for a dropped choice, whose
+    slot index lies past C and so hits no column)."""
+    slot_oh = (slot.long()[..., None] == torch.arange(
+        capacity, device=slot.device)).to(keep.dtype)  # [T, k, C]
+    dispatch = torch.einsum("tke,tkc->tec", keep, slot_oh)
+    combine = torch.einsum("tk,tke,tkc->tec", gate_vals, keep, slot_oh)
+    return dispatch, combine
+
+
+def _expert_choice_dispatch(probs: torch.Tensor, capacity: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-choice dispatch / combine ``[T, E, C]`` (Zhou et al. 2022):
+    each expert picks its top ``capacity`` tokens by router probability,
+    so every expert is full and a token may be picked by none or many;
+    ``combine`` carries the raw probability of each pick.  Not causal:
+    an expert ranks the whole sequence."""
+    T = probs.shape[0]
+    gate, tok_idx = torch.topk(probs.t(), capacity, dim=-1)  # [E, C]
+    tok_oh = F.one_hot(tok_idx, T).to(probs.dtype)  # [E, C, T]
+    return (tok_oh.permute(2, 0, 1),
+            (tok_oh * gate[..., None]).permute(2, 0, 1))
+
+
+def _router_metrics(probs: torch.Tensor, keep: Optional[torch.Tensor],
+                    top_k: int, ec_tok_idx: Optional[torch.Tensor] = None,
+                    capacity: int = 0) -> Dict[str, torch.Tensor]:
+    """The capacity path's counters (f32, outside autograd): the mean
+    per-token router entropy over ``log E``; token choice (``keep``): the
+    kept choices per expert and the share of the ``T k`` choices dropped
+    past capacity; expert choice (``ec_tok_idx [E, C]``): every expert
+    full at ``capacity``, and the share of tokens no expert picked.  Per
+    rank under EP."""
+    probs = probs.detach()
     T, E = probs.shape
     plogp = torch.where(probs > 0, probs * torch.log(probs),
                         torch.zeros_like(probs))
     entropy = -plogp.sum(-1).mean() / math.log(max(E, 2))
+    if keep is not None:
+        keep = keep.detach()
+        expert_tokens = keep.sum((0, 1))
+        dropped = 1.0 - keep.sum() / (T * top_k)
+    else:
+        expert_tokens = torch.full((E,), float(capacity),
+                                   device=probs.device)
+        covered = torch.bincount(ec_tok_idx.reshape(-1), minlength=T) > 0
+        dropped = 1.0 - covered.float().mean()
     return {"router_entropy": entropy.float(),
-            "expert_tokens": keep.sum((0, 1)).float(),
-            "dropped_token_rate": (1.0 - keep.sum() / (T * top_k)).float()}
+            "expert_tokens": expert_tokens.float(),
+            "dropped_token_rate": dropped.float()}
 
 
-def _ep_exchange(send: torch.Tensor, group) -> torch.Tensor:
-    """One all-to-all over ``group``: ``send [ep, ...]``, block i to rank
-    i of the group; returns ``[ep, ...]`` with block i from rank i."""
+class _EPExchange(torch.autograd.Function):
+    """One ``all_to_all_single`` over ``group``: ``send [ep, ...]``, block
+    i to rank i of the group, returns ``[ep, ...]`` with block i from rank
+    i.  Its backward is the same exchange of the cotangent (an all-to-all
+    is its own transpose: the block that came from rank i goes back to
+    rank i)."""
+
+    @staticmethod
+    def forward(ctx, send, group):
+        ctx.group = group
+        return _all_to_all(send, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
+
+
+def _all_to_all(send: torch.Tensor, group) -> torch.Tensor:
     send = send.contiguous()
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv, send, group=group)
@@ -235,60 +333,102 @@ def _ep_exchange(send: torch.Tensor, group) -> torch.Tensor:
 def moe_forward(params: Params, x: torch.Tensor, cfg: MoEConfig,
                 ep_group=None, causal: bool = False,
                 return_metrics: bool = False):
-    """The token-choice capacity path, ``x [B, S, D]`` (the rank's own
-    tokens under EP) -> ``(y [B, S, D], aux)`` (``aux`` the f32
-    load-balance loss), plus :func:`_router_metrics` with
-    ``return_metrics=True``.  Each expert takes ``C = ceil(T k cf / E)``
-    slots, ``T`` the rank's tokens; choices past C are dropped (they add
-    zero, so use the output as a residual).  ``causal=True`` ranks the
-    capacity token by token, so token t's output depends on tokens <= t
-    only.
+    """The MoE FFN of the capacity path, forward and backward: ``x [B, S,
+    D]`` (the rank's own tokens under EP) -> ``(y [B, S, D], aux)``,
+    ``aux`` the f32 load-balance loss (0 for expert choice; add
+    ``cfg.aux_loss_weight * aux`` to the loss), plus the router's
+    counters (:func:`_router_metrics`, outside autograd) with
+    ``return_metrics=True``.  Dropped tokens add zero: use the output as
+    a residual.
 
-    ``cfg.dispatch``: ``'sorted'`` (plain PyTorch), ``'cuda'`` (K6 on the
-    routing without a group; K7 on the exchanged groups with one) or
-    ``'auto'`` (``'cuda'`` on the card, ``'sorted'`` on the CPU).
-    ``ep_group``: a ``torch.distributed`` group of ``ep`` ranks, each
-    holding ``E / ep`` experts (:func:`shard_experts`); the ``[E, C, D]``
-    slots go to their experts' ranks as ``[ep, E / ep, C, D]`` blocks by
-    ``all_to_all_single``, each rank runs its experts on ``[E / ep, ep C,
-    D]`` rows, and the inverse exchange brings the outputs back."""
-    if cfg.router != "topk":
-        raise NotImplementedError(
-            f"moe_forward serves router='topk' (got {cfg.router!r}); "
-            f"expert_choice waits for MoE training (ROADMAP queue A)")
-    if x.requires_grad or any(t.requires_grad for t in tree_leaves(params)):
-        raise NotImplementedError(
-            "moe_forward is forward only: its backward (K7's autograd "
-            "included) comes with MoE training (ROADMAP queue A)")
-    disp = resolve_moe_dispatch(cfg.dispatch, x.device, plain="sorted")
+    Token choice: each expert takes ``C = ceil(T k cf / E)`` slots, ``T``
+    the rank's tokens; ``causal=True`` ranks the capacity token by token,
+    so token t's output depends on tokens <= t only.  Expert choice: each
+    expert picks its top ``C = min(ceil(T cf / E), T)`` tokens over the
+    whole sequence, which ``causal=True`` refuses (a future-token leak).
+
+    ``cfg.dispatch`` (:func:`_forward_dispatch`): ``'dense'``,
+    ``'sorted'``, ``'cuda'`` (K6 on the routing without a group, K7 on
+    the exchanged groups with one) or ``'auto'``.  ``ep_group``: a
+    ``torch.distributed`` group of ``ep`` ranks, each holding ``E / ep``
+    experts (:func:`shard_experts`); the ``[E, C, D]`` slots go to their
+    experts' ranks as ``[ep, E / ep, C, D]`` blocks, each rank runs its
+    experts on ``[E / ep, ep C, D]`` rows, and the inverse exchange brings
+    the outputs back."""
     B, S, D = x.shape
-    T, E, k = B * S, cfg.num_experts, cfg.top_k
+    T, E = B * S, cfg.num_experts
     tokens = x.reshape(T, D)
     probs = torch.softmax((tokens @ params["router"]["w"]).float(), dim=-1)
-    capacity = max(1, int(math.ceil(T * k * cfg.capacity_factor / E)))
-    gate_vals, gate_idx, slot, keep = _top_k_route(
-        probs, k, capacity, priority="token" if causal else "choice")
-    aux = _load_balance_loss(probs, keep.sum(1)).float()
-    metrics = _router_metrics(probs, keep, k) if return_metrics else None
     experts = params["experts"]
+    if cfg.router == "expert_choice":
+        if causal:
+            raise ValueError(
+                "router='expert_choice' is incompatible with causal=True: "
+                "each expert picks its top-capacity tokens over the whole "
+                "sequence, so token t's routing depends on tokens > t (a "
+                "future-information leak in an autoregressive model). Use "
+                "router='topk' for causal LMs.")
+        capacity = min(max(1, int(math.ceil(T * cfg.capacity_factor / E))),
+                       T)
+        disp = _forward_dispatch(cfg, x.device, T, capacity)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        gate_ec, tok_idx = torch.topk(probs.t(), capacity, dim=-1)  # [E, C]
+        metrics = (_router_metrics(probs, None, cfg.top_k, tok_idx, capacity)
+                   if return_metrics else None)
+        if disp == "sorted":
+            # the pick is a gather spec: tok_idx[e, c] is slot c's token
+            expert_in = tokens[tok_idx]
 
-    def done(y):
-        out = (y.reshape(B, S, D).to(x.dtype), aux)
-        return out + (metrics,) if return_metrics else out
+            def combine_out(out):
+                # a token picked by several experts sums their outputs,
+                # one picked by none stays 0
+                w = gate_ec.to(out.dtype)[..., None] * out
+                return out.new_zeros(T, D).index_add(
+                    0, tok_idx.reshape(-1), w.reshape(E * capacity, D))
+        else:
+            dispatch, combine = (t.to(x.dtype) for t in
+                                 _expert_choice_dispatch(probs, capacity))
+            expert_in = torch.einsum("tec,td->ecd", dispatch, tokens)
 
-    if disp == "cuda" and ep_group is None:
-        return done(fused_moe_ffn(experts, tokens, gate_vals, gate_idx,
-                                  slot, keep, capacity))
-    # the sorted dispatch: kept choice (t, j) writes token t into flat slot
-    # e C + c; dropped choices land on a dumpster row E C, cut off
-    kept = keep.sum(-1)  # [T, k]: 1 iff the choice fit
-    dest = torch.where(kept > 0, gate_idx * capacity + slot.long(),
-                       E * capacity)  # [T, k]
-    src = tokens[:, None, :].expand(T, k, D).reshape(T * k, D)
-    expert_in = torch.zeros(E * capacity + 1, D, dtype=x.dtype,
-                            device=x.device).index_add_(
-        0, dest.reshape(-1), src)[:E * capacity].reshape(E, capacity, D)
-    gates = (gate_vals * kept).to(x.dtype)  # [T, k]
+            def combine_out(out):
+                return torch.einsum("tec,ecd->td", combine, out)
+    else:
+        k = cfg.top_k
+        capacity = max(1, int(math.ceil(T * k * cfg.capacity_factor / E)))
+        disp = _forward_dispatch(cfg, x.device, T, capacity)
+        gate_vals, gate_idx, slot, keep = _top_k_route(
+            probs, k, capacity, priority="token" if causal else "choice")
+        aux = _load_balance_loss(probs, keep.sum(1)).float()
+        metrics = (_router_metrics(probs, keep, k) if return_metrics
+                   else None)
+        if disp == "cuda" and ep_group is None:
+            y = fused_moe_ffn(experts, tokens, gate_vals, gate_idx, slot,
+                              keep, capacity)
+            return _done(y, x, aux, metrics, return_metrics)
+        if disp == "dense":
+            dispatch, combine = (t.to(x.dtype) for t in _dense_topk_tensors(
+                gate_vals, slot, keep, capacity))
+            expert_in = torch.einsum("tec,td->ecd", dispatch, tokens)
+
+            def combine_out(out):
+                return torch.einsum("tec,ecd->td", combine, out)
+        else:
+            # the sorted dispatch (also the exchange's layout under
+            # 'cuda'): kept choice (t, j) writes token t into flat slot
+            # e C + c; dropped choices land on a dumpster row E C, cut off
+            kept = keep.sum(-1)  # [T, k]: 1 iff the choice fit
+            dest = torch.where(kept > 0, gate_idx * capacity + slot.long(),
+                               E * capacity)  # [T, k]
+            src = tokens[:, None, :].expand(T, k, D).reshape(T * k, D)
+            expert_in = tokens.new_zeros(E * capacity + 1, D).index_add(
+                0, dest.reshape(-1), src)[:E * capacity].reshape(
+                E, capacity, D)
+            gates = (gate_vals * kept).to(x.dtype)  # [T, k]
+
+            def combine_out(out):
+                out_flat = torch.cat([out.reshape(E * capacity, D),
+                                      out.new_zeros(1, D)])  # dumpster -> 0
+                return (gates[..., None] * out_flat[dest]).sum(1)
     ffn = fused_expert_ffn if disp == "cuda" else _expert_ffn
     if ep_group is None:
         expert_out = ffn(experts, expert_in)
@@ -302,17 +442,21 @@ def moe_forward(params: Params, x: torch.Tensor, cfg: MoEConfig,
             raise ValueError(
                 f"this rank holds {held.shape[0]} experts, EP {ep} of {E} "
                 f"needs {e_loc}: shard them with shard_experts")
-        recv = _ep_exchange(expert_in.reshape(ep, e_loc, capacity, D),
-                            ep_group)
+        recv = _EPExchange.apply(
+            expert_in.reshape(ep, e_loc, capacity, D), ep_group)
         # the local experts see ep C slots, C from every EP peer
         grouped = recv.transpose(0, 1).reshape(e_loc, ep * capacity, D)
         out = ffn(experts, grouped)
         back = out.reshape(e_loc, ep, capacity, D).transpose(0, 1)
-        expert_out = _ep_exchange(back, ep_group).reshape(E, capacity, D)
-    out_flat = torch.cat([expert_out.reshape(E * capacity, D),
-                          expert_out.new_zeros(1, D)])  # dumpster -> 0
-    picked = out_flat[dest]  # [T, k, D]
-    return done((gates[..., None] * picked).sum(1))
+        expert_out = _EPExchange.apply(back, ep_group).reshape(
+            E, capacity, D)
+    return _done(combine_out(expert_out), x, aux, metrics, return_metrics)
+
+
+def _done(y: torch.Tensor, x: torch.Tensor, aux: torch.Tensor, metrics,
+          return_metrics: bool):
+    out = (y.reshape(x.shape).to(x.dtype), aux)
+    return out + (metrics,) if return_metrics else out
 
 
 def moe_serve_forward(params: Params, x: torch.Tensor, cfg: MoEConfig,
@@ -410,3 +554,24 @@ def shard_experts(params: Params, rank: int, size: int) -> Params:
         return leaf[lo:lo + e_loc]
 
     return dict(params, experts={n: cut(v) for n, v in experts.items()})
+
+
+def moe_param_specs(ep_axis: Optional[str] = EXPERT_AXIS) -> Params:
+    """The reference's ``moe_param_specs`` (:632) in the port's spec form
+    (``models.gpt_moe.gpt_moe_param_specs``): the router replicated (None),
+    every expert leaf split along E over ``ep_axis`` — its spec the axis
+    name, which the tensor-parallel helpers read as replicated;
+    :func:`shard_experts` cuts it.  ``ep_axis=None``: all replicated."""
+    return {"router": {"w": None},
+            "experts": {n: ep_axis for n in ("w1", "b1", "w2", "b2")}}
+
+
+def moe_grad_reduce_overrides(moe_dp_axis: str = MOE_DATA_AXIS
+                              ) -> Dict[str, Tuple[str, ...]]:
+    """The override dict of ``DataParallel`` / ``ZeroOptimizer`` for an
+    expert-parallel model (the reference's :649): expert grads reduce over
+    ``moe_dp`` only — each EP rank owns different experts — and, under
+    ``'mean'``, divide by the whole data group, which cancels the EP
+    exchange's overcount (an expert's grad holds every EP peer's
+    tokens); every other leaf reduces over the whole data group."""
+    return {"experts": (moe_dp_axis,)}

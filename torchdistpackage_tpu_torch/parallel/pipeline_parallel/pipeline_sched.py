@@ -68,7 +68,7 @@ import torch.distributed as dist
 from ...dist.topology import PIPE_AXIS, tpc
 from ...obs.numerics import tree_leaves
 from ..tensor_parallel.layers import RematMode, checkpoint_block
-from ..tensor_parallel.tp_utils import _all_gather, split_to_sp
+from ..tensor_parallel.tp_utils import gather_whole, split_to_sp
 from . import _p2p
 from ._p2p import ACT, COT
 from .pipeline_helper import pipe_split_flags
@@ -201,24 +201,6 @@ class _Tie(torch.autograd.Function):
 # ----------------------------------------------------- tensor-sharded state
 
 
-class _GatherToFull(torch.autograd.Function):
-    """All-gather along ``dim`` over the tensor group; backward: this
-    rank's slice of the (whole, replicated) cotangent."""
-
-    @staticmethod
-    def forward(ctx, x, group, dim):
-        ctx.group, ctx.dim = group, dim
-        return _all_gather(x, group, dim, "transfer_gather")
-
-    @staticmethod
-    def backward(ctx, g):
-        n, r = dist.get_world_size(ctx.group), dist.get_rank(ctx.group)
-        c = g.shape[ctx.dim] // n
-        return (g.narrow(ctx.dim, r * c, c).contiguous(memory_format=
-                                                        torch.contiguous_format),
-                None, None)
-
-
 def _transfer_dim(shape, n: int) -> int:
     """The dim a sharded transfer slices: the first one ``n`` divides
     (batch and sequence dims come first); -1: the state goes whole."""
@@ -243,8 +225,8 @@ class _Transfer:
         return x if self.dim < 0 else split_to_sp(x, self.group, self.dim)
 
     def gather(self, x):
-        return x if self.dim < 0 else _GatherToFull.apply(x, self.group,
-                                                          self.dim)
+        return x if self.dim < 0 else gather_whole(x, self.group, self.dim,
+                                                   "transfer_gather")
 
 
 

@@ -65,13 +65,15 @@ from ...dist.topology import TENSOR_AXIS, tpc
 #: their backward reduce-scatters and its all-reduces; the sharded
 #: EMA's gathers for ``state_dict``; ``transfer_gather`` the pipeline's
 #: gathers of a tensor-sharded inter-stage state (its slices count as
-#: ``split_to_sp``)
+#: ``split_to_sp``); ``moe_gather`` the MoE block's gather of its SP
+#: rows into the whole sequence (``gather_whole``)
 COLLECTIVES: Dict[str, int] = dict.fromkeys(
     ("reduce_from_tp", "copy_to_tp", "gather_from_sp", "scatter_to_sp",
      "split_to_sp", "ring_shift", "xent_max", "gather_params",
      "full_logits", "zero_reduce_scatter", "zero_all_reduce",
      "zero_all_gather", "fsdp_all_gather", "fsdp_reduce_scatter",
-     "fsdp_all_reduce", "ema_all_gather", "transfer_gather"), 0)
+     "fsdp_all_reduce", "ema_all_gather", "transfer_gather",
+     "moe_gather"), 0)
 
 _TP_GROUP = None
 
@@ -230,6 +232,20 @@ class _SplitToSP(torch.autograd.Function):
         return _all_gather(g, ctx.group, ctx.dim, "split_to_sp"), None, None
 
 
+class _GatherWhole(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, name):
+        ctx.group, ctx.dim = group, dim
+        return _all_gather(x, group, dim, name)
+
+    @staticmethod
+    def backward(ctx, g):
+        n, r = dist.get_world_size(ctx.group), dist.get_rank(ctx.group)
+        c = g.shape[ctx.dim] // n
+        return (g.narrow(ctx.dim, r * c, c).contiguous(
+            memory_format=torch.contiguous_format), None, None, None)
+
+
 def reduce_from_tp(x: torch.Tensor, group=None) -> torch.Tensor:
     """All-reduce (sum) over the tensor group; backward identity —
     closes a row-parallel product (``_ReduceFromModelParallelRegion``)."""
@@ -267,6 +283,19 @@ def split_to_sp(x: torch.Tensor, group=None, seq_dim: int = 1
     backward all-gather — enters SP from a replicated activation."""
     return _SplitToSP.apply(
         x, group if group is not None else get_tp_group(), seq_dim)
+
+
+def gather_whole(x: torch.Tensor, group=None, dim: int = 1,
+                 name: str = "moe_gather") -> torch.Tensor:
+    """All-gather along ``dim`` into the whole tensor for a region that
+    every rank of the group then computes whole (replicated weights: the
+    MoE half of a block under SP, a pipeline stage's entry under sharded
+    transfers); backward this rank's slice of the cotangent, which such
+    a region leaves whole and the same on every rank — where
+    :func:`gather_from_sp`'s reduce-scatter would sum it tp times.
+    Counted under ``name``."""
+    return _GatherWhole.apply(
+        x, group if group is not None else get_tp_group(), dim, name)
 
 
 # ------------------------------------------------ vocabulary-parallel ends

@@ -46,9 +46,18 @@ makes the clip chain's norm sum the slabs' squares over the pipe group
 and count the whole leaves once (the reference's ``clip_grad_parallel``
 over the pipe group).
 
+Beside MoE experts and expert parallelism (the moe view of
+``tpc.build_moe_mesh``): ``shard_axis='moe_dp'``, ``grad_reduce_axes=
+('moe_dp', 'moe_ep')``, ``grad_reduce_overrides=
+parallel.moe.moe_grad_reduce_overrides()`` — each rank's masters are the
+shards over ``moe_dp`` of its own leaves (its ``E / ep`` experts
+included); an expert grad reduce-scatters over ``moe_dp`` only and is
+divided by the whole data group, the dense grads also sum over
+``moe_ep``.
+
 Not ported yet, each refused by its ROADMAP queue-A item: the int8
-compression modes ("Collectives"), ZeRO beside MoE experts and EP
-("MoE training") and beside the ring CP ("Training CP").
+compression modes ("Collectives") and ZeRO beside the ring CP
+("Training CP").
 """
 
 from __future__ import annotations
@@ -61,8 +70,6 @@ import torch.distributed as dist
 
 from ..dist.topology import (
     DATA_AXIS,
-    EXPERT_AXIS,
-    MOE_DATA_AXIS,
     TENSOR_AXIS,
     ParallelContext,
     tpc,
@@ -188,12 +195,6 @@ class ZeroOptimizer:
                     f"grad_reduce_overrides[{tok!r}] axes {sorted(extra)} "
                     f"not in grad_reduce_axes {self.grad_reduce_axes}")
         _check_compress(grad_compress, gather_compress)
-        moe = {MOE_DATA_AXIS, EXPERT_AXIS} & set(self.grad_reduce_axes)
-        if moe:
-            raise NotImplementedError(
-                f"ZeRO over the MoE axes {sorted(moe)}: ZeRO beside MoE "
-                f"experts and expert parallelism waits for ROADMAP queue A's "
-                f"'MoE training'")
         # 'data' itself is a data axis when the shard axes are its parts
         self.data_axes = self.grad_reduce_axes + (DATA_AXIS,)
         normalize_model_axis_grads(None, None, self.ctx, self.data_axes)
