@@ -165,7 +165,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    the f32 oracles, each with a planted fault; the moe view's
    ``DataParallel`` with ``ep_group`` (K7 12 a step) against the arm, its
    grads with the routing replayed; accumulation 4, the one-stage MoE
-   1F1B and ZeRO x 1F1B (K3-K5 and K7 48 a step).
+   1F1B and ZeRO x 1F1B (K3-K5 and K7 48 a step).  Then the ViT family
+   and training context parallelism: ``vit_train_phase`` (ViT-B/16 at
+   its published widths, batch 128, bf16, flash, remat 'flash': the
+   first forward against the same weights' 'naive' one, loss within
+   ``VIT_LOSS_TOL`` and logits within ``VIT_LOGIT_TOL``, a planted
+   causal K3 that must miss; 8 AdamW steps, K3-K5 12 a step; step,
+   images/s, MFU, peak), ``vit_moe_train_phase`` (the same widths with 8
+   experts, top-2, every 2nd block: K6 under autograd 12 a step, its
+   first loss against the ``'sorted'`` arm's; the expert-choice router
+   on its plain arm; one expert layer's K6 forward at T 128 x 196 and at
+   GPT-MoE's T 16384 beside the ``'sorted'`` arm), and
+   ``cp_train_phase``: (a) GPT-125M over a one-rank NCCL context group,
+   ``'ring'`` and ``'ulysses'`` bit-identical to ``'flash'``; (b) two
+   spawned processes over gloo at S 8192 (4096 a rank): ring
+   contiguous, ring zigzag and Ulysses against the serial step (loss
+   within ``CP_LOSS_TOL``, the ``CP_LEAVES`` grads within
+   ``CP_GRAD_TOL``), K3 a rank a layer by hop arithmetic
+   (``CP_K3_A_LAYER``), three planted faults (the lse cotangent
+   dropped, a past hop run causally, zigzag on contiguous chunks) that
+   must miss, and ViT-B/16 under the ring at cp 2 (every leaf's grad
+   whole on each rank).  K3-K5 are also held at the ViT's shape and at
+   one ring hop (``cp_kernel_rows``, in phase 3).
 5. serve   — Mistral-7B-v0.1 widths, all 32 layers, bf16, random weights:
    ``paged_forward`` with K1 against the plain path on identical tokens
    (teacher-forced logits), then ``ServingEngine`` serves 16 requests
@@ -774,8 +795,9 @@ def planted_faults(case, exact, window_fault=True):
 # ------------------------------------------------------------ phase 4
 
 
-def flash_case(name, *, B, H, Hkv, S, hd, window, dtype, seed):
-    """Random q, k, v, dO and an lse cotangent on the card (causal)."""
+def flash_case(name, *, B, H, Hkv, S, hd, window, dtype, seed,
+               causal=True):
+    """Random q, k, v, dO and an lse cotangent on the card."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rnd(*shape):
@@ -784,7 +806,8 @@ def flash_case(name, *, B, H, Hkv, S, hd, window, dtype, seed):
     return {"name": name, "q": rnd(B, H, S, hd), "k": rnd(B, Hkv, S, hd),
             "v": rnd(B, Hkv, S, hd), "do": rnd(B, H, S, hd),
             "dlse": torch.randn(B, H, S, generator=g, device="cuda"),
-            "window": window, "dtype": dtype, "scale": hd ** -0.5}
+            "window": window, "dtype": dtype, "scale": hd ** -0.5,
+            "causal": causal}
 
 
 def flash_bounds(case):
@@ -798,6 +821,8 @@ def flash_bounds(case):
     i = np.arange(S)
     seen = i + 1 if case["window"] is None else np.minimum(i + 1,
                                                            case["window"])
+    if not case.get("causal", True):
+        seen = np.full(S, S)
     pairs = B * H * int(seen.sum())
     e = q.element_size()
     qb, kb, rows = q.numel() * e, k.numel() * e, B * H * S * 4
@@ -843,7 +868,7 @@ def sdpa_flash_ms(case, iters):
     S = q.shape[2]
     kw = {"enable_gqa": q.shape[1] != k.shape[1]}
     if case["window"] is None:
-        kw["is_causal"] = True
+        kw["is_causal"] = case.get("causal", True)
     else:
         i = torch.arange(S, device="cuda")
         kw["attn_mask"] = ((i[None] <= i[:, None])
@@ -5656,6 +5681,786 @@ def moe_train_phase(card):
     return out
 
 
+# ------------------------------------------- ViT and context parallelism
+
+VIT_BATCH = 128        # vit_train_phase: images a step
+VIT_LOSS_TOL = 2e-3    # relative loss: the flash step against the 'naive' one
+VIT_LOGIT_TOL = 0.05   # of the largest |logit|: the same forward's logits
+CP_SEQ = 8192          # cp_train_phase (b): the sequence, 4096 a rank
+CP_BATCH = 2           # (b): rows
+CP_RANKS = 2           # (b): two processes on the one card, gloo between
+CP_ONE_RANK_BATCH = 4  # (a): rows of S 2048
+CP_LOSS_TOL = 1e-3     # (b): relative loss against the serial step
+CP_GRAD_TOL = 0.02     # (b): of each compared grad leaf's largest |value|
+#: (b): the attention op alone — its output and q / k / v grads against
+#: one serial flash call on the whole sequence, each within this share of
+#: the serial value's largest |value|; q scaled by CP_OP_Q_SCALE so the
+#: softmax is peaked and the hops' logsumexps differ (at a random model's
+#: near-uniform attention the lse cotangent hardly moves the grads)
+CP_OP_TOL = 0.02
+CP_OP_Q_SCALE = 3.0
+#: (b): the grads held (the position table sees the shard positions, the
+#: attention weights every hop, the head the loss)
+CP_LEAVES = ("pos_emb", "head", "blocks/attn/wqkv")
+#: (b): the K3 launches a rank a layer by hop arithmetic at cp 2 — the
+#: contiguous ring's rank 0 computes its diagonal hop, rank 1 that and
+#: one past hop; zigzag 2 cp + 1 half-sized calls on each rank; Ulysses
+#: one call at H / 2 heads
+CP_K3_A_LAYER = {"ring": (1, 2), "zigzag": (5, 5), "ulysses": (1, 1)}
+VIT_CP_BATCH = 16      # (b): ViT-B/16 images under ring CP
+
+
+def vit_b16(**kw):
+    """ViT-B/16 at its published widths (Dosovitskiy et al., ICLR 2021,
+    Table 1): image 224, patch 16 (196 patches), d 768, 12 heads, 12
+    layers, MLP 3072, 1000 classes; bf16, flash attention."""
+    from torchdistpackage_tpu_torch.models import ViTConfig
+
+    return ViTConfig(**dict(dict(
+        image_size=224, patch_size=16, channels=3, num_classes=1000,
+        dim=768, nheads=12, nlayers=12, ffn_mult=4, dtype=torch.bfloat16,
+        attn_impl="flash"), **kw))
+
+
+def vit_batch(cfg, rows, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return {"images": torch.randn(rows, cfg.image_size, cfg.image_size,
+                                  cfg.channels, generator=g,
+                                  device="cuda").to(cfg.dtype),
+            "labels": torch.randint(0, cfg.num_classes, (rows,),
+                                    generator=g, device="cuda")}
+
+
+def cp_kernel_rows():
+    """K3-K5 at the shapes the new paths give them, against their plain
+    versions row by row in f32: ViT-B/16's attention (B 128, H 12, S 196,
+    hd 64, non-causal; the cotangent on o only, as its blocks give it) and
+    one ring hop of ``cp_train_phase``'s GPT (B 2, H 12, S 4096 a rank,
+    hd 64; the diagonal hop causal, a past hop non-causal; a live lse
+    cotangent, as the hops' combine gives it), bf16; each timed beside
+    its plain version, SDPA and its bound (operations)."""
+    from torchdistpackage_tpu_torch.ops import flash_attention as fa
+
+    bf = torch.bfloat16
+    specs = [("vit_b16_bf16", dict(B=VIT_BATCH, H=12, Hkv=12, S=196, hd=64,
+                                   causal=False), False),
+             ("ring_hop_diagonal_bf16", dict(B=CP_BATCH, H=12, Hkv=12,
+                                             S=CP_SEQ // CP_RANKS, hd=64,
+                                             causal=True), True),
+             ("ring_hop_past_bf16", dict(B=CP_BATCH, H=12, Hkv=12,
+                                         S=CP_SEQ // CP_RANKS, hd=64,
+                                         causal=False), True)]
+    rows = {n: [] for n in fa.LAUNCHES}
+    for i, (name, spec, with_dlse) in enumerate(specs):
+        case = flash_case(name, window=None, dtype=bf, seed=500 + i, **spec)
+        q, k, v, do = (case[n] for n in ("q", "k", "v", "do"))
+        args = (case["scale"], spec["causal"], None)
+        dlse = case["dlse"] if with_dlse else None
+        exact = [t.float() for t in (q, k, v, do)]
+        o_x, lse_x = fa.flash_fwd_reference(*exact[:3], *args)
+        delta = fa.flash_delta(o_x, exact[3], dlse)
+        o, lse = fa.flash_fwd(q, k, v, *args)
+        dq = fa.flash_bwd_dq(q, k, v, do, lse_x, delta, *args)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_x, delta, *args)
+        torch.cuda.synchronize()
+        dq_x = fa.flash_bwd_dq_reference(*exact, lse_x, delta, *args)
+        dk_x, dv_x = fa.flash_bwd_dkv_reference(*exact, lse_x, delta, *args)
+        sq, sk, sv = fa.grad_rounding_scale(*exact, lse_x, delta, *args)
+        lse_err = float((lse - lse_x).abs().max())
+        checks = {"flash_fwd": [held(o, o_x, bf), (lse_err, lse_err / 2e-5)],
+                  "flash_bwd_dq": [grad_held(dq, dq_x, sq, bf)],
+                  "flash_bwd_dkv": [grad_held(dk, dk_x, sk, bf),
+                                    grad_held(dv, dv_x, sv, bf)]}
+        del o, lse, dq, dk, dv, dq_x, dk_x, dv_x, sq, sk, sv
+        torch.cuda.empty_cache()
+        plain = {"flash_fwd": lambda: fa.flash_fwd_reference(q, k, v, *args),
+                 "flash_bwd_dq": lambda: fa.flash_bwd_dq_reference(
+                     q, k, v, do, lse_x, delta, *args),
+                 "flash_bwd_dkv": lambda: fa.flash_bwd_dkv_reference(
+                     q, k, v, do, lse_x, delta, *args)}
+        kern = {"flash_fwd": lambda: fa.flash_fwd(q, k, v, *args),
+                "flash_bwd_dq": lambda: fa.flash_bwd_dq(
+                    q, k, v, do, lse_x, delta, *args),
+                "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(
+                    q, k, v, do, lse_x, delta, *args)}
+        lib_fwd, lib_bwd = sdpa_flash_ms(case, 10)
+        bounds = flash_bounds(case)
+        for kname, res in checks.items():
+            err, ratio = max(r[0] for r in res), max(r[1] for r in res)
+            ms, plain_ms = cuda_ms(kern[kname], 10), cuda_ms(plain[kname], 3)
+            lib = lib_fwd if kname == "flash_fwd" else lib_bwd
+            bound_ms, bound_by, flops = bounds[kname]
+            log(f"[cp-kernels] {name} {kname} (B {spec['B']}, H 12, S "
+                f"{spec['S']}, hd 64, {'causal' if spec['causal'] else 'non-causal'}"
+                f"{', lse cotangent' if with_dlse else ''}): vs the plain "
+                f"version in f32: max abs err {err:.3g}, {ratio:.3f} of the "
+                f"row tolerance; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+                f"TFLOP/s)  plain {plain_ms:.4f} ms  sdpa "
+                f"{'fwd' if kname == 'flash_fwd' else 'bwd'} {lib:.4f} ms  "
+                f"bound {bound_ms:.4f} ms ({bound_by})")
+            if not ratio <= 1.0:
+                raise RuntimeError(
+                    f"{name}: {kname} disagrees with its plain version: "
+                    f"{ratio:.3f} of the row tolerance")
+            rows[kname].append({
+                "case": name, "body": "wgmma, TMA-fed tiles",
+                "max_abs_err": err, "tol_ratio": ratio, "ms": ms,
+                "plain_ms": plain_ms, "library_ms": lib, "bound_ms": bound_ms,
+                "bound_by": bound_by, "tflops": flops / ms / 1e9})
+        del case, q, k, v, do, exact, o_x, lse_x, delta, plain, kern
+        torch.cuda.empty_cache()
+    return rows
+
+
+def vit_forward_logits(params, batch, cfg):
+    from torchdistpackage_tpu_torch.models import vit_forward
+
+    with torch.no_grad():
+        return vit_forward(params, batch["images"], cfg).float()
+
+
+def vit_train_phase(card):
+    """ViT-B/16 training on the card (batch 128, bf16, flash attention,
+    remat 'flash'): the first step's forward held against the same
+    weights' 'naive' forward (loss and logits), with a planted fault (K3
+    run causally) that must fail the gate; then 8 AdamW steps, the counts
+    set to 0 before and read after each (K3 / K4 / K5 12 a step); the step
+    median after 3 warm-ups, images/s, MFU and peak memory."""
+    import dataclasses as dc
+
+    from torchdistpackage_tpu_torch.models import init_vit_params, vit_loss
+    from torchdistpackage_tpu_torch.ops import flash_attention as fa
+    from torchdistpackage_tpu_torch.parallel.data_parallel import (
+        adamw,
+        make_train_step,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = vit_b16()
+    params = init_vit_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(0))
+    batch = vit_batch(cfg, VIT_BATCH, 1)
+
+    def held_to_naive(logits, want):
+        loss = F.cross_entropy(logits, batch["labels"])
+        ref = F.cross_entropy(want, batch["labels"])
+        return (float(abs(loss - ref) / abs(ref)),
+                float((logits - want).abs().max() / want.abs().max()))
+
+    naive = vit_forward_logits(params, batch, dc.replace(cfg,
+                                                         attn_impl="naive"))
+    got = held_to_naive(vit_forward_logits(params, batch, cfg), naive)
+    real = fa.flash_attention
+    fa.flash_attention = lambda q, k, v, causal=True, **kw: real(
+        q, k, v, causal=True, **kw)
+    try:
+        fault = held_to_naive(vit_forward_logits(params, batch, cfg), naive)
+    finally:
+        fa.flash_attention = real
+    sound = got[0] <= VIT_LOSS_TOL and got[1] <= VIT_LOGIT_TOL
+    caught = fault[0] > VIT_LOSS_TOL or fault[1] > VIT_LOGIT_TOL
+    log(f"[vit-train] ViT-B/16 ({cfg.num_params() / 1e6:.2f} M parameters), "
+        f"batch {VIT_BATCH}: the flash forward against the same weights' "
+        f"'naive' one: loss {got[0]:.3e} relative (tolerance "
+        f"{VIT_LOSS_TOL}), logits {got[1]:.3e} of the largest (tolerance "
+        f"{VIT_LOGIT_TOL}); the planted fault (K3 run causally): loss "
+        f"{fault[0]:.3e}, logits {fault[1]:.3e} — "
+        f"{'caught' if caught else 'NOT caught'} by the gate")
+    if not sound or not caught:
+        raise RuntimeError(f"vit-train: flash vs naive {got}, planted fault "
+                           f"{fault}: the gate must pass the one and fail "
+                           f"the other")
+    del naive
+    opt = adamw(3e-4)
+    state = opt.init(params)
+    step = make_train_step(lambda p, b: vit_loss(p, b, cfg, remat="flash"),
+                           opt)
+    steps, warmup = 8, 3
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, times = [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss, _ = step(params, state, batch)
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+        want = cfg.nlayers * (i + 1)
+        if any(n != want for n in fa.LAUNCHES.values()):
+            raise RuntimeError(f"vit-train: flash launches {dict(fa.LAUNCHES)}"
+                               f" after step {i + 1}, want {want} each")
+    launches = {n: c // steps for n, c in fa.LAUNCHES.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"vit-train: losses not finite and falling: "
+                           f"{losses}")
+    step_s = float(np.median(times[warmup:]))
+    S = cfg.num_patches
+    fpt = 6 * matmul_params(params) + 12 * cfg.nlayers * S * cfg.dim
+    mfu = fpt * VIT_BATCH * S / step_s / PEAK_FLOPS[torch.bfloat16]
+    log(f"[vit-train] ViT-B/16, batch {VIT_BATCH} ({S} patches an image), "
+        f"bf16, flash, remat 'flash', AdamW: losses "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; step median {step_s * 1e3:.2f} ms after {warmup} warm-up steps "
+        f"(all: " + ", ".join(f"{t * 1e3:.1f}" for t in times)
+        + f" ms); {VIT_BATCH / step_s:.1f} images/s; MFU {mfu:.4f} (6N + "
+        f"12LSD = {fpt / 1e6:.1f} MFLOP a patch against 989 TFLOP/s); peak "
+        f"memory {peak_gb:.3f} GB; launches a step {launches} — on {card}")
+    del params, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"step_ms": step_s * 1e3, "images_per_s": VIT_BATCH / step_s,
+            "mfu": mfu, "peak_gb": peak_gb, "launches": launches,
+            "losses": losses, "naive_gap": got, "fault_gap": fault,
+            "seconds": time.perf_counter() - t_phase}
+
+
+def moe_layer_times(cfg, T, card, tag):
+    """One expert layer of ``cfg`` on T random bf16 tokens: K6's forward
+    alone (``fused_moe_ffn`` on a fixed routing) beside its bound, and the
+    layer's forward through ``moe_forward`` on the K6 arm and on the plain
+    ``'sorted'`` arm (router, dispatch, experts, combine) — the arm's the
+    yardstick: one PyTorch index_add, a bmm chain and a gather."""
+    from torchdistpackage_tpu_torch.models import moe_layer_config
+    from torchdistpackage_tpu_torch.ops import moe_dispatch as md
+    from torchdistpackage_tpu_torch.parallel.moe import (
+        _top_k_route,
+        init_moe_params,
+        moe_forward,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(41)
+    mcfg = moe_layer_config(cfg)
+    layer = init_moe_params(g, mcfg, device="cuda")
+    ex = layer["experts"]
+    D, Fd, E, k = cfg.dim, cfg.block.ffn_dim, cfg.moe_experts, cfg.moe_top_k
+    C = int(np.ceil(T * k * cfg.moe_capacity_factor / E))
+    x = torch.randn(T, D, generator=g, device="cuda").to(cfg.dtype)
+    probs = torch.softmax(torch.randn(T, E, generator=g, device="cuda") * 2,
+                          -1)
+    gv, gi, slot, keep = _top_k_route(probs, k, C)
+    with torch.no_grad():
+        k6_ms = cuda_ms(lambda: md.fused_moe_ffn(ex, x, gv, gi, slot, keep,
+                                                 C), 10)
+        arms = {}
+        for disp in ("cuda", "sorted"):
+            c = dataclasses.replace(mcfg, dispatch=disp)
+            arms[disp] = cuda_ms(lambda: moe_forward(layer, x[None], c), 10)
+    filled = int(keep.sum())
+    flops = 2 * filled * 2 * D * Fd
+    t_ops = flops / PEAK_FLOPS[torch.bfloat16]
+    t_bytes = (sum(t.numel() * t.element_size() for t in ex.values())
+               + 2 * x.numel() * x.element_size()) / HBM_BYTES_PER_S
+    bound, bound_by = max(t_ops, t_bytes) * 1e3, (
+        "operations" if t_ops >= t_bytes else "bytes")
+    log(f"[{tag}] one expert layer, T {T} tokens, E {E}, top-{k}, C "
+        f"{C}, D {D}, F {Fd} ({filled} slots filled): K6 forward "
+        f"{k6_ms:.4f} ms ({flops / k6_ms / 1e9:.1f} TFLOP/s; bound "
+        f"{bound:.4f} ms, {bound_by}); the layer through moe_forward: K6 "
+        f"arm {arms['cuda']:.4f} ms, plain 'sorted' arm {arms['sorted']:.4f}"
+        f" ms — on {card}")
+    return {"T": T, "C": C, "filled": filled, "ms": k6_ms, "bound_ms": bound,
+            "bound_by": bound_by, "k6_layer_ms": arms["cuda"], "sorted_layer_ms": arms["sorted"]}
+
+
+def vit_moe_train_phase(card):
+    """ViT-MoE at ViT-B/16's widths with 8 experts, top-2, every 2nd
+    block (6 expert blocks), capacity 1.25, aux 1e-2 (the JAX
+    ``ViTConfig``'s MoE defaults with 8 experts), batch 128: the top-k
+    router through K6 under autograd (``'auto'``), its first forward
+    held against the plain ``'sorted'`` arm's on the same weights, then 5
+    AdamW steps (K3-K5 12, K6 12 a step: the forward and the recompute of
+    each expert block); the expert-choice router on its plain arm (one
+    step, K6 0); and one expert layer's K6 forward at T 128 x 196 and at
+    the GPT-MoE training shape (T 16384) beside the 'sorted' arm."""
+    import dataclasses as dc
+
+    from torchdistpackage_tpu_torch.models import (
+        init_vit_moe_params,
+        vit_moe_loss,
+    )
+    from torchdistpackage_tpu_torch.parallel.data_parallel import (
+        adamw,
+        make_train_step,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = vit_b16(moe_experts=8, moe_top_k=2, moe_every=2,
+                  moe_capacity_factor=1.25, moe_aux_weight=1e-2)
+    n_moe = sum(1 for i in range(cfg.nlayers)
+                if i % cfg.moe_every == cfg.moe_every - 1)
+    params = init_vit_moe_params(cfg, torch.Generator(device="cuda")
+                                 .manual_seed(0))
+    batch = vit_batch(cfg, VIT_BATCH, 1)
+    with torch.no_grad():
+        first = float(vit_moe_loss(params, batch, cfg))
+        sorted_first = float(vit_moe_loss(
+            params, batch, dc.replace(cfg, moe_dispatch="sorted")))
+    gap = abs(first - sorted_first) / abs(sorted_first)
+    opt = adamw(3e-4)
+    state = opt.init(params)
+    step = make_train_step(
+        lambda p, b: vit_moe_loss(p, b, cfg, remat="flash"), opt)
+    want = moe_expected(cfg, 1, k6=1)
+    run = gated_steps(step, params, state, batch, 5, want, "vit-moe-train",
+                      keep_grads=False)
+    step_s = float(np.median(run["times"][2:]))
+    S = cfg.num_patches
+    fpt = 6 * moe_matmul_params(params, cfg) + 12 * cfg.nlayers * S * cfg.dim
+    mfu = fpt * VIT_BATCH * S / step_s / PEAK_FLOPS[torch.bfloat16]
+    log(f"[vit-moe-train] ViT-MoE-B/16 (8 experts, top-2, every 2nd block: "
+        f"{n_moe} expert blocks, capacity 1.25, aux 1e-2), batch "
+        f"{VIT_BATCH}, bf16, remat 'flash', top-k through K6: first loss "
+        f"{first:.6f} against the 'sorted' arm's {sorted_first:.6f} "
+        f"(relative {gap:.3e}, tolerance {MOE_LOSS_TOL}); losses "
+        + ", ".join(f"{x:.4f}" for x in run["losses"])
+        + f"; step median {step_s * 1e3:.2f} ms after 2 warm-up steps (all: "
+        + ", ".join(f"{t * 1e3:.1f}" for t in run["times"])
+        + f" ms); {VIT_BATCH / step_s:.1f} images/s; MFU {mfu:.4f}; peak "
+        f"{run['peak_gb']:.3f} GB; launches a step {want} — on {card}")
+    fails = []
+    if gap > MOE_LOSS_TOL or not run["losses"][-1] < run["losses"][0]:
+        fails.append(f"top-k: first loss {gap:.3e} off the 'sorted' arm or "
+                     f"losses not falling {run['losses']}")
+    del state, step, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    ec = dc.replace(cfg, moe_router="expert_choice")
+    opt = adamw(3e-4)
+    state = opt.init(params)
+    ec_run = gated_steps(make_train_step(
+        lambda p, b: vit_moe_loss(p, b, ec, remat="flash"), opt), params,
+        state, batch, 1, moe_expected(ec, 1), "vit-moe-train EC",
+        keep_grads=False)
+    log(f"[vit-moe-train] the expert-choice router (the plain arm, as the "
+        f"reference): loss {ec_run['losses'][0]:.4f}; launches a step "
+        f"{ec_run['launches']} — on {card}")
+    del params, state, ec_run
+    gc.collect()
+    torch.cuda.empty_cache()
+    shape = moe_layer_times(cfg, VIT_BATCH * S, card, "vit-moe-train")
+    gpt_moe = gpt_moe_8x125m()
+    gpt_shape = moe_layer_times(gpt_moe, MOE_TRAIN_BATCH * gpt_moe.max_seq,
+                                card, "vit-moe-train: GPT-MoE 8x125M's")
+    if fails:
+        raise RuntimeError("vit-moe-train: " + "; ".join(fails))
+    return {"step_ms": step_s * 1e3, "images_per_s": VIT_BATCH / step_s,
+            "mfu": mfu, "first_gap": gap, "launches": want,
+            "ec_launches": moe_expected(ec, 1), "shape": shape,
+            "gpt_moe_shape": gpt_shape,
+            "seconds": time.perf_counter() - t_phase}
+
+
+def npz_key(path):
+    return path.replace("/", ".")
+
+
+def grads_of(loss, params, names=None):
+    """``{path: grad}`` of ``loss`` for the leaves of ``params`` (all, or
+    those whose '/'-joined path is in ``names``)."""
+    from torchdistpackage_tpu_torch.utils.partition import named_leaves
+
+    pairs = [(n, p) for n, p in named_leaves(params)
+             if names is None or n in names]
+    grads = torch.autograd.grad(loss, [p for _, p in pairs])
+    return {n: g for (n, _), g in zip(pairs, grads)}
+
+
+def cp_one_rank(card):
+    """(a) of :func:`cp_train_phase`: GPT-125M (batch 4, S 2048, bf16,
+    remat 'flash') over a one-rank NCCL context group with ``'ring'`` and
+    ``'ulysses'`` against the ``'flash'`` step: one hop is the same K3
+    call, the all-to-alls move nothing, so the loss and every grad must
+    be the flash step's bit for bit, and K3 / K4 / K5 launch 12 times
+    each."""
+    import dataclasses as dc
+
+    from torchdistpackage_tpu_torch.models import gpt_loss, init_gpt_params
+    from torchdistpackage_tpu_torch.obs.numerics import tree_leaves
+    from torchdistpackage_tpu_torch.ops import flash_attention as fa
+
+    cfg = gpt_125m()
+    params = init_gpt_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(0))
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    batch = random_batch(cfg, CP_ONE_RANK_BATCH, 1)
+    out, bad = {}, []
+    with one_rank_layout("cp-train", [("data", 1), ("context", 1)]) as ctx:
+        cp = ctx.get_group("context")
+        ref = None
+        for impl in ("flash", "ring", "ulysses"):
+            c = dc.replace(cfg, attn_impl=impl)
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = gpt_loss(params, batch, c, remat="flash",
+                            cp_group=None if impl == "flash" else cp)
+            grads = grads_of(loss, params)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = dict(fa.LAUNCHES)
+            if ref is None:
+                ref = (loss.detach(), grads)
+                same = True
+            else:
+                same = torch.equal(loss, ref[0]) and all(
+                    torch.equal(grads[n], ref[1][n]) for n in grads)
+            out[impl] = {"loss": float(loss.detach()), "bit_identical": same,
+                         "launches": launches, "ms": ms}
+            log(f"[cp-train] (a) GPT-125M, batch {CP_ONE_RANK_BATCH}, S "
+                f"{cfg.max_seq}, attn_impl {impl!r} over a one-rank NCCL "
+                f"context group: loss {float(loss.detach()):.6f}, forward and "
+                f"backward {ms:.1f} ms; launches {launches}; loss and all "
+                f"{len(grads)} grads bit-identical to the 'flash' step: "
+                f"{same} — on {card}")
+            if not same or any(v != cfg.nlayers for v in launches.values()):
+                bad.append(f"(a) {impl}: bit-identical {same}, launches "
+                           f"{launches}")
+            del loss, grads
+    del params, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, bad
+
+
+def cp_rank(rank, world, port, tmp):
+    """One rank of :func:`cp_train_phase` (b) in its own process: a
+    context group of ``world`` over gloo on the loopback (NCCL puts no
+    two ranks of a communicator on one card; the ring's sends and
+    Ulysses' all-to-alls go through the host), the flash kernels from
+    the parent's build.  GPT-125M at S 8192 (this rank's 4096) from the
+    parent's seed, remat 'flash': the ring contiguous and zigzag and
+    Ulysses, each a forward and backward with K3-K5 counted, the loss and
+    the ``CP_LEAVES`` grads averaged over the group against the parent's
+    serial step (``ref.npz``), a second call timed; the three planted
+    faults; then ViT-B/16 under the ring (98 patches a rank), whose grads
+    come out whole on every rank.  Writes ``rank<r>.json``."""
+    import datetime
+    import importlib
+
+    import torch.distributed as dist
+
+    from torchdistpackage_tpu_torch.dist import tpc
+    from torchdistpackage_tpu_torch.models import (
+        gpt_loss,
+        init_gpt_params,
+        init_vit_params,
+        vit_loss,
+    )
+    from torchdistpackage_tpu_torch.obs.numerics import tree_leaves
+    from torchdistpackage_tpu_torch.ops import _build
+    from torchdistpackage_tpu_torch.ops import flash_attention as fa
+    from torchdistpackage_tpu_torch.parallel.tensor_parallel.tp_utils import (
+        HOST_STAGING,
+    )
+
+    ra = importlib.import_module(
+        "torchdistpackage_tpu_torch.ops.ring_attention")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(2)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        _build.load_all(["flash_attention"])
+        tpc.setup_process_groups([("context", world)])
+        cp = tpc.get_group("context")
+        ref = np.load(Path(tmp) / "ref.npz")
+        cfg = dataclasses.replace(gpt_125m(), max_seq=CP_SEQ)
+        params = init_gpt_params(cfg, torch.Generator(device="cuda")
+                                 .manual_seed(0))
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+        full = random_batch(cfg, CP_BATCH, 1)
+        s = CP_SEQ // world
+
+        def shard(batch, zig):
+            if zig:
+                batch = {k: ra.zigzag_permute(v, world, 1)
+                         for k, v in batch.items()}
+            return {k: v[:, rank * s:(rank + 1) * s] for k, v in
+                    batch.items()}
+
+        def run(impl, layout, zig, timed=True):
+            c = dataclasses.replace(cfg, attn_impl=impl, cp_layout=layout)
+            b = shard(full, zig)
+            reset_counts()
+            for k in HOST_STAGING:
+                HOST_STAGING[k] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = gpt_loss(params, b, c, remat="flash", cp_group=cp)
+            grads = grads_of(loss, params, CP_LEAVES)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = {n: v / cfg.nlayers for n, v in fa.LAUNCHES.items()}
+            staged = dict(HOST_STAGING)
+            if timed:  # a second call, the first having warmed the path
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                again = gpt_loss(params, b, c, remat="flash", cp_group=cp)
+                grads_of(again, params, CP_LEAVES)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            vals = torch.cat([loss.detach().float().reshape(1)]
+                             + [grads[n].float().reshape(-1)
+                                for n in CP_LEAVES]).cpu()
+            dist.all_reduce(vals, group=cp)
+            vals /= world
+            loss_rel = abs(float(vals[0]) - float(ref["loss"])) / abs(
+                float(ref["loss"]))
+            gaps, off = {}, 1
+            for n in CP_LEAVES:
+                want = torch.from_numpy(ref[npz_key(n)]).reshape(-1)
+                got = vals[off:off + want.numel()]
+                off += want.numel()
+                gaps[n] = float((got - want).abs().max() / want.abs().max())
+            return {"loss_rel": loss_rel, "gaps": gaps, "ms": ms,
+                    "launches": launches, "staged": staged}
+
+        g = torch.Generator(device="cuda").manual_seed(7)
+        qkvo = [torch.randn(1, 12, CP_SEQ, 64, generator=g, device="cuda")
+                for _ in range(4)]
+        qkvo[0] = qkvo[0] * CP_OP_Q_SCALE
+        qkvo = [t.to(cfg.dtype) for t in qkvo]
+        leaves = [t.clone().requires_grad_(True) for t in qkvo[:3]]
+        whole = fa.flash_attention(*leaves, causal=True)
+        whole = (whole.detach(),) + torch.autograd.grad(whole, leaves,
+                                                        qkvo[3])
+
+        def op(impl, layout, zig):
+            """The attention op alone on this rank's shard against the
+            serial call's shard: each of out, dq, dk, dv's largest error
+            over the serial value's largest |value|."""
+            def cut(t):
+                t = ra.zigzag_permute(t, world, 2) if zig else t
+                return t[:, :, rank * s:(rank + 1) * s].contiguous()
+            loc = [cut(t).requires_grad_(True) for t in qkvo[:3]]
+            if impl == "ulysses":
+                out = ra.ulysses_attention(*loc, group=cp, causal=True)
+            else:
+                out = ra.ring_attention(*loc, group=cp, causal=True,
+                                        layout=layout)
+            got = (out.detach(),) + torch.autograd.grad(out, loc,
+                                                        cut(qkvo[3]))
+            return {n: grad_gap(a, cut(b)) for n, a, b in
+                    zip(("out", "dq", "dk", "dv"), got, whole)}
+
+        res = {"rank": rank, "gpt": {}, "faults": {}}
+        for name, impl, layout, zig in (
+                ("ring", "ring", "contiguous", False),
+                ("zigzag", "ring", "zigzag", True),
+                ("ulysses", "ulysses", "contiguous", False)):
+            res["gpt"][name] = run(impl, layout, zig)
+            res["gpt"][name]["op"] = op(impl, layout, zig)
+        real = ra.flash_attention_with_lse
+        faults = {
+            "no_lse_cotangent": lambda *a, **kw: (
+                lambda o, lse: (o, lse.detach()))(*real(*a, **kw)),
+            "past_hop_causal": lambda q, k, v, causal=True, **kw: real(
+                q, k, v, causal=True, **kw)}
+        for name, fn in faults.items():
+            ra.flash_attention_with_lse = fn
+            try:
+                res["faults"][name] = run("ring", "contiguous", False,
+                                          timed=False)
+                res["faults"][name]["op"] = op("ring", "contiguous", False)
+            finally:
+                ra.flash_attention_with_lse = real
+        res["faults"]["zigzag_contiguous_positions"] = run(
+            "ring", "zigzag", False, timed=False)
+        res["faults"]["zigzag_contiguous_positions"]["op"] = op(
+            "ring", "zigzag", False)
+        del whole, leaves, qkvo
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        vcfg = vit_b16(attn_impl="ring")
+        vparams = init_vit_params(vcfg, torch.Generator(device="cuda")
+                                  .manual_seed(0))
+        for p in tree_leaves(vparams):
+            p.requires_grad_(True)
+        vbatch = vit_batch(vcfg, VIT_CP_BATCH, 2)
+        reset_counts()
+        loss = vit_loss(vparams, vbatch, vcfg, remat="flash", cp_group=cp)
+        vnames = ("head/w", "patch_proj/w", "blocks/attn/wqkv")
+        grads = grads_of(loss, vparams, vnames)
+        torch.cuda.synchronize()
+        res["vit"] = {
+            "loss_rel": abs(float(loss.detach()) - float(ref["vit_loss"]))
+            / abs(float(ref["vit_loss"])),
+            "gaps": {n: grad_gap(grads[n].float().cpu(), torch.from_numpy(
+                ref[npz_key("vit/" + n)])) for n in vnames},
+            "launches": {n: v / vcfg.nlayers for n, v in fa.LAUNCHES.items()}}
+        (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(res))
+        dist.barrier()
+    finally:
+        tpc.reset()
+        dist.destroy_process_group()
+
+
+def cp_two_ranks(card, timeout=900):
+    """(b) of :func:`cp_train_phase`: the parent's serial references
+    (GPT-125M at S 8192 and ViT-B/16 on 16 images, remat 'flash'), then
+    :func:`cp_rank` on two spawned processes; every gate read."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from torchdistpackage_tpu_torch.models import (
+        gpt_loss,
+        init_gpt_params,
+        init_vit_params,
+        vit_loss,
+    )
+    from torchdistpackage_tpu_torch.obs.numerics import tree_leaves
+
+    tmp = Path(tempfile.mkdtemp(prefix="tdp-cp-"))
+    try:
+        cfg = dataclasses.replace(gpt_125m(), max_seq=CP_SEQ)
+        params = init_gpt_params(cfg, torch.Generator(device="cuda")
+                                 .manual_seed(0))
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = gpt_loss(params, random_batch(cfg, CP_BATCH, 1), cfg,
+                        remat="flash")
+        grads = grads_of(loss, params, CP_LEAVES)
+        torch.cuda.synchronize()
+        serial_ms = (time.perf_counter() - t0) * 1e3
+        ref = {"loss": np.float64(float(loss.detach())),
+               **{npz_key(n): grads[n].float().cpu().numpy()
+                  for n in CP_LEAVES}}
+        del params, grads, loss
+        vcfg = vit_b16()
+        vparams = init_vit_params(vcfg, torch.Generator(device="cuda")
+                                  .manual_seed(0))
+        for p in tree_leaves(vparams):
+            p.requires_grad_(True)
+        vloss = vit_loss(vparams, vit_batch(vcfg, VIT_CP_BATCH, 2), vcfg,
+                         remat="flash")
+        vnames = ("head/w", "patch_proj/w", "blocks/attn/wqkv")
+        vgrads = grads_of(vloss, vparams, vnames)
+        ref["vit_loss"] = np.float64(float(vloss.detach()))
+        ref.update({npz_key("vit/" + n): vgrads[n].float().cpu().numpy()
+                    for n in vnames})
+        np.savez(tmp / "ref.npz", **ref)
+        del vparams, vgrads, vloss, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        ctx = mp.get_context("spawn")
+        port = free_port()
+        procs = [ctx.Process(target=cp_rank, args=(r, CP_RANKS, port,
+                                                   str(tmp)))
+                 for r in range(CP_RANKS)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.perf_counter() + timeout
+        for p in procs:
+            p.join(max(1.0, deadline - time.perf_counter()))
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(30)
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * CP_RANKS:
+            raise RuntimeError(f"cp-train (b): ranks exited {codes}")
+        res = [json.loads((tmp / f"rank{r}.json").read_text())
+               for r in range(CP_RANKS)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    bad = []
+
+    def off(x):
+        return (x["loss_rel"] > CP_LOSS_TOL
+                or max(x["gaps"].values()) > CP_GRAD_TOL
+                or max(x.get("op", {"": 0.0}).values()) > CP_OP_TOL)
+
+    def op_text(rows):
+        return "; the op alone against one serial flash call, by rank: " \
+            + "; ".join(", ".join(f"{n} {v:.3e}" for n, v in x["op"].items())
+                        for x in rows) + f" (tolerance {CP_OP_TOL})"
+
+    for name in ("ring", "zigzag", "ulysses"):
+        rows = [r["gpt"][name] for r in res]
+        k3 = tuple(x["launches"]["flash_fwd"] for x in rows)
+        even = all(x["launches"][n] == x["launches"]["flash_fwd"]
+                   for x in rows for n in x["launches"])
+        log(f"[cp-train] (b) GPT-125M at S {CP_SEQ} ({CP_SEQ // CP_RANKS} a "
+            f"rank), batch {CP_BATCH}, bf16, remat 'flash', {name} over "
+            f"{CP_RANKS} processes (gloo, host-staged exchanges): the ranks' "
+            f"mean loss {rows[0]['loss_rel']:.3e} relative to the serial "
+            f"'flash' step (tolerance {CP_LOSS_TOL}); grad gaps "
+            + ", ".join(f"{n} {v:.3e}" for n, v in rows[0]["gaps"].items())
+            + f" of each leaf's largest |value| (tolerance {CP_GRAD_TOL})"
+            + op_text(rows) + "; "
+            f"K3 a rank a layer {k3} (want {CP_K3_A_LAYER[name]}), K4 / K5 "
+            f"the same: {even}; host copies of the exchanges (rank 0, one "
+            f"forward and backward) {rows[0]['staged']['host_copies']}, "
+            f"{rows[0]['staged']['host_copy_bytes']} B; forward and backward "
+            + ", ".join(f"rank {r['rank']} {x['ms']:.1f} ms"
+                        for r, x in zip(res, rows))
+            + f" (the serial step {serial_ms:.1f} ms; two processes share "
+            f"one card and a host-staged exchange: not CP scaling) — on "
+            f"{card}")
+        if any(off(x) for x in rows) or k3 != CP_K3_A_LAYER[name] \
+                or not even:
+            bad.append(f"(b) {name}: loss / grads / launches off")
+    for name in res[0]["faults"]:
+        x = res[0]["faults"][name]
+        caught = any(off(r["faults"][name]) for r in res)
+        log(f"[cp-train] (b) planted fault {name}: loss {x['loss_rel']:.3e}"
+            f", grad gaps " + ", ".join(f"{n} {v:.3e}" for n, v in
+                                        x["gaps"].items())
+            + op_text([r["faults"][name] for r in res])
+            + f" — {'caught' if caught else 'NOT caught'} by the gate")
+        if not caught:
+            bad.append(f"(b) the planted fault {name} passed")
+    for r in res:
+        v = r["vit"]
+        log(f"[cp-train] (b) ViT-B/16 under the ring at cp {CP_RANKS} "
+            f"({vit_b16().num_patches // CP_RANKS} patches a rank), {VIT_CP_BATCH} images, rank "
+            f"{r['rank']}: loss {v['loss_rel']:.3e} relative to the serial "
+            f"step, its own grads' gaps "
+            + ", ".join(f"{n} {g:.3e}" for n, g in v["gaps"].items())
+            + f" (the head's included: every leaf whole on every rank); K3 "
+            f"a layer {v['launches']['flash_fwd']} (two non-causal hops) — "
+            f"on {card}")
+        if off(v) or any(x != CP_RANKS for x in v["launches"].values()):
+            bad.append(f"(b) ViT rank {r['rank']}: off")
+    log(f"[cp-train] (b) two processes on one card: {seconds:.1f} s with "
+        f"both processes' start")
+    return {"ranks": res, "serial_ms": serial_ms, "seconds": seconds}, bad
+
+
+def cp_train_phase(card):
+    """Training context parallelism on the card: (a) one rank, the ring
+    and Ulysses bit-identical to 'flash'; (b) two processes over gloo at
+    S 8192, held against the serial step, with planted faults; ViT-B/16
+    under the ring.  The multi-rank exchanges at cp 2 and 4 are held
+    against JAX on the CPU (tests/test_torch_ring_attention.py,
+    tests/test_torch_gpt_cp.py, tests/test_torch_vit.py)."""
+    t_phase = time.perf_counter()
+    a, bad = cp_one_rank(card)
+    log(f"[cp-train] this process holds "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB before the two ranks "
+        f"start")
+    b, bad_b = cp_two_ranks(card)
+    bad += bad_b
+    seconds = time.perf_counter() - t_phase
+    log(f"[cp-train] phase done in {seconds:.1f} s")
+    if bad:
+        raise RuntimeError("cp-train: " + "; ".join(bad))
+    return {"one_rank": a, "two_ranks": b, "seconds": seconds}
+
+
 def tp_engine_phase(params, cfg, card, plain):
     """The Mistral engine (all 32 layers) over a one-rank NCCL ``tensor``
     group: the rank's shard (``shard_gpt_params``: at one rank views of
@@ -6729,6 +7534,9 @@ def main():
     int8_rows = moe_int8_kernel_phase()
     k7_rows = expert_ffn_kernel_phase()
     carry_rows = carry_kernel_phase()
+    # K3-K5 at the shapes of the ViT and of a context-parallel ring hop
+    for kname, krows in cp_kernel_rows().items():
+        flash_rows[kname].extend(krows)
     log(f"[time] kernel checks done at {time.perf_counter() - t_start:.0f} s")
 
     # 4. the training path: GPT-125M main path, the kernel path against the
@@ -6742,6 +7550,11 @@ def main():
     pipe = pipeline_phase(card, train["step_ms"])
     # MoE training: K6 and K7 under autograd at bench.py's --moe leaf
     moe_train = moe_train_phase(card)
+    # the ViT family (K3-K5 at 196 patches, K6 under autograd) and
+    # training context parallelism (K3-K5 a ring hop)
+    vit_train = vit_train_phase(card)
+    vit_moe_train = vit_moe_train_phase(card)
+    cp_train = cp_train_phase(card)
     log(f"[time] training done at {time.perf_counter() - t_start:.0f} s")
 
     # 5. the serving path: full-width teacher-forced, then the engine
@@ -6879,7 +7692,16 @@ def main():
                     for r in pipe["two_stages"]["ranks"]]
                    for name in PIPE_LAUNCHES}},
             "moe_train_launches_a_step": moe_train_launches(moe_train,
-                                                            kname)}
+                                                            kname),
+            "vit_train_launches_a_step": vit_train["launches"][kname],
+            "vit_moe_train_launches_a_step": vit_moe_train["launches"][kname],
+            "cp_train_launches": {
+                "one_rank": {m: cp_train["one_rank"][m]["launches"][kname]
+                             for m in ("ring", "ulysses")},
+                "two_ranks_a_layer": {
+                    m: [r["gpt"][m]["launches"][kname]
+                        for r in cp_train["two_ranks"]["ranks"]]
+                    for m in CP_K3_A_LAYER}}}
         if kname == "flash_fwd":  # the generate path's prefill calls
             extra["generate_launches"] = {
                 "generate": gen["launches"]["flash_fwd"],
@@ -6901,9 +7723,12 @@ def main():
         generate_launches=ep_eng["then"]["K6"]["launches"],
         tp_generate_launches=tp_gen["moe"]["launches"]["fused_moe_ffn"],
         moe_train_launches_a_step=moe_train_launches(moe_train, "K6"),
-        train_shape={k: moe_train["b"]["K6"][k] for k in (
+        vit_moe_train_launches_a_step=vit_moe_train["launches"]["K6"],
+        train_shape={**{k: moe_train["b"]["K6"][k] for k in (
             "ms", "backward_ms", "plain_ms", "bound_ms", "max_abs_err",
             "tol_ratio", "C", "filled")},
+            "layer": vit_moe_train["gpt_moe_shape"]},
+        vit_moe_shape=vit_moe_train["shape"],
         ptxas={n: v for n, v in ptxas_summary.items()
                if n.startswith("K6") and "bf16 weights" in n},
         library="the ragged 'gather' arm: one cuBLAS product per expert "

@@ -124,6 +124,7 @@ def layer_runs(inp):
         reduce_gradients,
     )
     from torchdistpackage_tpu_torch.parallel import moe as tmoe
+    from torchdistpackage_tpu_torch.parallel.tensor_parallel import tp_utils
 
     tpc, er = layout([("data", WORLD)], 2)
     ep = tpc.get_group("moe_ep")
@@ -150,10 +151,10 @@ def layer_runs(inp):
             ("fault_ep_reduced", "sorted", {"experts": ("moe_dp", "moe_ep")},
              1),
             ("fault_exchange", "sorted", ovr, 1))
-    exchange_backward = tmoe._EPExchange.backward
+    exchange_backward = tp_utils._AllToAll.backward
     for tag, disp, overrides, steps in arms:
         if tag == "fault_exchange":  # the cotangent passed through
-            tmoe._EPExchange.backward = staticmethod(lambda ctx, g: (g, None))
+            tp_utils._AllToAll.backward = staticmethod(lambda ctx, g: (g, None))
         try:
             params = local()
             opt = adamw(LR)
@@ -168,7 +169,7 @@ def layer_runs(inp):
                 if i == 0:
                     out.update(host(params, f"{tag}/grads1/", grads=True))
         finally:
-            tmoe._EPExchange.backward = exchange_backward
+            tp_utils._AllToAll.backward = exchange_backward
         out[f"{tag}/losses"] = np.asarray(losses)
         out.update(host(params, f"{tag}/params/"))
 

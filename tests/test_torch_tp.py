@@ -598,8 +598,11 @@ def test_normalize_model_axis_grads_rule(group1):
     """The port's TP loss is the same on every rank of the tensor group
     (it closes its regions with collectives), so it varies on no model
     axis: ``other`` is ``()`` and the grads come back as they are — what
-    JAX's rule returns for an invariant loss (no rescale).  A model axis
-    that is not ported and larger than 1 raises, naming its queue item."""
+    JAX's rule returns for an invariant loss (no rescale).  So does a
+    context axis outside the data axes (the ViT's pool closes over it),
+    whose loss is compared across the context group when one is given
+    (``tests/test_torch_gpt_cp.py``; here the layout alone, no loss); an
+    axis that is no axis of the port's models raises when larger than 1."""
     from torchdistpackage_tpu_torch.parallel.data_parallel import (
         normalize_model_axis_grads,
     )
@@ -622,9 +625,11 @@ def test_normalize_model_axis_grads_rule(group1):
     # (tests/test_torch_pipeline_compose.py holds the rule to JAX's)
     assert normalize_model_axis_grads(
         torch.tensor(1.0), grads, Layout(data=1, tensor=2, pipe=2))[1] == ()
-    with pytest.raises(NotImplementedError, match="Training CP"):
+    assert normalize_model_axis_grads(
+        None, grads, Layout(data=1, tensor=2, context=2)) == (grads, ())
+    with pytest.raises(NotImplementedError, match="no axis of the port"):
         normalize_model_axis_grads(torch.tensor(1.0), grads,
-                                   Layout(data=1, tensor=2, context=2))
+                                   Layout(data=1, tensor=2, experts=2))
 
 
 def test_refusals(group1):

@@ -154,10 +154,20 @@ def test_remat_modes_validated():
                  llama_config(**LLAMA, dtype=torch.float32,
                               dropout_rate=0.1)),
         gpt_loss(params, _torch_batch(batch), cfg))
-    with pytest.raises(NotImplementedError, match="Training CP"):
-        gpt_loss(params, _torch_batch(batch),
-                 llama_config(**{**LLAMA, "sliding_window": None,
-                                 "attn_impl": "ring"}, dtype=torch.float32))
+    # without a context group the context-parallel impls are one flash
+    # call (the kernels on the card, the plain version here); a window is
+    # refused
+    no_window = {**LLAMA, "sliding_window": None}
+    plain = gpt_loss(params, _torch_batch(batch),
+                     llama_config(**{**no_window, "attn_impl": "flash"},
+                                  dtype=torch.float32))
+    for impl in ("ring", "ulysses"):
+        assert torch.equal(
+            gpt_loss(params, _torch_batch(batch),
+                     llama_config(**{**no_window, "attn_impl": impl},
+                                  dtype=torch.float32)), plain)
+    with pytest.raises(ValueError, match="sliding_window"):
+        llama_config(**{**LLAMA, "attn_impl": "ring"}, dtype=torch.float32)
 
 
 def test_naive_matches_flash_on_the_port():

@@ -491,12 +491,13 @@ def test_zero_refuses_what_waits(kw, item):
 
 @pytest.mark.parametrize("axes,item", [
     ([("data", 2), ("pipe", 2)], None),
-    ([("data", 2), ("context", 2)], "Training CP"),
+    ([("data", 2), ("context", 2)], None),
 ])
 def test_model_axes_wait_for_their_items(axes, item):
-    """ZeRO beside the ring CP, and DataParallel's ``context`` axis, name
-    their queue-A item; beside 1F1B (a ``pipe`` axis, ported:
-    tests/test_torch_pipeline_compose.py) both accept the layout."""
+    """Beside 1F1B (a ``pipe`` axis: tests/test_torch_pipeline_compose.py)
+    and beside context parallelism (a ``context`` axis:
+    tests/test_torch_gpt_cp.py) ZeRO and DataParallel's rule accept the
+    layout; no model axis of the port waits for a queue-A item now."""
     ctx = _layout(axes)
     from torchdistpackage_tpu_torch.parallel.data_parallel import (
         normalize_model_axis_grads,

@@ -1,9 +1,10 @@
 """Model families: the GPT / Llama config, init, the cached block, the
 training loss, the pipelined GPT steps and KV-cache generation (``generate``,
 ``speculative_generate``, ``beam_generate``); the MoE family's config,
-per-block init, presets, training loss and MoE 1F1B."""
+per-block init, presets, training loss and MoE 1F1B; the Vision
+Transformer and its MoE family (``vit``, ``vit_moe``)."""
 
-from .convert import params_from_jax
+from .convert import params_from_jax, vit_params_from_jax
 from .generate import (
     beam_generate,
     forward_cached,
@@ -49,6 +50,23 @@ from .gpt_moe import (
     moe_stage_pattern,
     shard_moe_params,
 )
+from .vit import (
+    ViTConfig,
+    init_vit_params,
+    patchify,
+    vit_embed,
+    vit_forward,
+    vit_loss,
+    vit_param_specs,
+    vit_pipeline_1f1b,
+    vit_pool_logits,
+)
+from .vit_moe import (
+    init_vit_moe_params,
+    vit_moe_forward,
+    vit_moe_loss,
+    vit_moe_param_specs,
+)
 
 __all__ = ["GPTConfig", "beam_generate", "deinterleave_stage_params",
            "forward_cached", "forward_cached_moe", "generate", "gpt_embed",
@@ -63,4 +81,8 @@ __all__ = ["GPTConfig", "beam_generate", "deinterleave_stage_params",
            "moe_block_stack", "moe_blocks_param_specs", "moe_layer_config",
            "moe_stage_params", "moe_stage_pattern",
            "params_from_jax", "pipe_slab", "shard_gpt_params",
-           "shard_moe_params", "speculative_generate"]
+           "shard_moe_params", "speculative_generate", "ViTConfig",
+           "init_vit_moe_params", "init_vit_params", "patchify",
+           "vit_embed", "vit_forward", "vit_loss", "vit_moe_forward",
+           "vit_moe_loss", "vit_moe_param_specs", "vit_param_specs",
+           "vit_params_from_jax", "vit_pipeline_1f1b", "vit_pool_logits"]

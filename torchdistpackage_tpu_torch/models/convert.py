@@ -138,3 +138,61 @@ def _jax_stage_slab(blocks, pp_rank: int, pp_size: int, num_chunks: int):
         a = np.asarray(node)
         return a[pp_rank] if num_chunks == 1 else a[v, pp_rank]
     return [take(b, v) for v in range(num_chunks) for b in blocks]
+
+
+def vit_params_from_jax(np_tree: Dict[str, Any], cfg, device=None,
+                        ep_rank: int = 0, ep_size: int = 1,
+                        tp_rank: int = 0, tp_size: int = 1,
+                        pp_rank: int = 0, pp_size: int = 1
+                        ) -> Dict[str, Any]:
+    """:func:`params_from_jax` for the ViT families (``models.vit``,
+    ``models.vit_moe``): ``np_tree`` is JAX's ``init_vit_params`` /
+    ``init_vit_moe_params`` tree with numpy leaves — ``patch_proj`` {w,
+    b}, ``pos_emb``, the stacked ``blocks`` (or, with
+    ``cfg.moe_experts``, the per-block list), ``ln_f`` and ``head`` {w,
+    b}.  Every float leaf becomes a tensor of ``cfg.dtype`` on ``device``
+    (default: the card).  ``tp_size > 1``: tensor rank ``tp_rank``'s
+    shard (``vit_param_specs`` / ``vit_moe_param_specs``: the blocks as
+    the GPT's, the head on its classes); ``ep_size > 1``: each expert
+    block's experts cut to rank ``ep_rank``'s ``[E / ep_size, ...]``;
+    ``pp_size > 1``: stage ``pp_rank``'s slab of the blocks, every other
+    leaf whole."""
+    from ..parallel.tensor_parallel.layers import shard_params
+    from .gpt import pipe_slab
+    from .gpt_moe import moe_stage_params
+    from .vit import vit_param_specs
+    from .vit_moe import vit_moe_param_specs
+
+    dev = resolve_device(device)
+    moe = isinstance(np_tree.get("blocks"), (list, tuple))
+    if moe != bool(cfg.moe_experts):
+        raise TypeError(
+            f"a {'per-block list' if moe else 'stacked block tree'} for a "
+            f"config with moe_experts={cfg.moe_experts}")
+    if ep_size > 1 and not moe:
+        raise ValueError(f"EP size {ep_size} needs an MoE config")
+    tree = dict(np_tree, blocks=list(np_tree["blocks"])) if moe else np_tree
+    if tp_size > 1:
+        specs = vit_moe_param_specs(tree) if moe else vit_param_specs(tree)
+        tree = shard_params(tree, specs, tp_rank, tp_size)
+    if pp_size > 1:
+        tree = (moe_stage_params(tree, cfg, pp_rank, pp_size) if moe
+                else pipe_slab(tree, pp_rank, pp_size))
+    if ep_size > 1:
+        tree = dict(tree, blocks=[
+            dict(b, moe=shard_experts(b["moe"], ep_rank, ep_size))
+            if "moe" in b else b for b in tree["blocks"]])
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [conv(v) for v in x]
+        return _tensor(x, dev, cfg.dtype)
+
+    out = conv(dict(tree))
+    want = {"patch_proj", "pos_emb", "blocks", "ln_f", "head"}
+    if set(out) != want:
+        raise ValueError(f"param tree keys {sorted(out)} do not match a ViT "
+                         f"(expected {sorted(want)})")
+    return out

@@ -60,8 +60,11 @@ class GPTConfig:
     ffn_mult: int = 4
     causal: bool = True
     dtype: torch.dtype = torch.float32
-    # 'naive' (plain score matrix) | 'flash' (kernels K3-K5)
+    # 'naive' (plain score matrix) | 'flash' (kernels K3-K5) | 'ring' |
+    # 'ulysses' (context parallel over the cp_group the entry points take)
     attn_impl: str = "naive"
+    # 'contiguous' | 'zigzag' (ring only): how the sequence is sharded
+    cp_layout: str = "contiguous"
     dropout_rate: float = 0.0  # residual dropout (needs a dropout_key)
     kv_heads: Optional[int] = None
     # 'learned' (table added at embed) | 'rope' (q/k rotated in attention)
@@ -119,7 +122,8 @@ class GPTConfig:
         return TransformerConfig(
             dim=self.dim, nheads=self.nheads, nlayers=self.nlayers,
             ffn_mult=self.ffn_mult, causal=self.causal, dtype=self.dtype,
-            attn_impl=self.attn_impl, dropout_rate=self.dropout_rate,
+            attn_impl=self.attn_impl, cp_layout=self.cp_layout,
+            dropout_rate=self.dropout_rate,
             kv_heads=self.kv_heads, rope=self.pos == "rope",
             rope_theta=self.rope_theta, rope_scaling=self.rope_scaling,
             norm=self.norm, act=self.act, ffn_hidden=self.ffn_hidden,
@@ -249,21 +253,32 @@ def vocab_parallel_xent(logits: torch.Tensor, targets: torch.Tensor,
     return (torch.log(zt[0]) + m - zt[1]).mean()
 
 
-def gpt_embed(params: Params, tokens: torch.Tensor,
-              tp_group=None) -> torch.Tensor:
+def gpt_embed(params: Params, tokens: torch.Tensor, tp_group=None,
+              cp_group=None, cp_layout: str = "contiguous") -> torch.Tensor:
     """[B, S] ids -> [B, S, D]: the token lookup (vocab-parallel with
     ``tp_group``), plus the learned position table when the config has
-    one (rope enters in attention)."""
+    one (rope enters in attention).  With ``cp_group`` the tokens are the
+    rank's sequence shard and the table is read at its global positions
+    (JAX :275-293): a contiguous slice, or the zigzag rows gathered."""
     h = vocab_parallel_embed(params["tok_emb"], tokens, tp_group)
     if "pos_emb" not in params:
         return h
-    return h + params["pos_emb"][:tokens.shape[-1]]
+    S = tokens.shape[-1]
+    if cp_group is None:
+        return h + params["pos_emb"][:S]
+    if cp_layout == "zigzag":
+        from ..ops.ring_attention import shard_positions
+
+        return h + params["pos_emb"][shard_positions(cp_group, S, cp_layout,
+                                                     h.device)]
+    off = torch.distributed.get_rank(cp_group) * S
+    return h + params["pos_emb"][off:off + S]
 
 
 def gpt_hidden(params: Params, tokens: torch.Tensor, cfg: GPTConfig,
                remat: RematMode = False,
                dropout_key: Optional[int] = None, tp_group=None,
-               sp: bool = False) -> torch.Tensor:
+               sp: bool = False, cp_group=None) -> torch.Tensor:
     """tokens [B, S] -> hidden after the block stack [B, S, D] (before
     the final norm; this rank's rows [B, S / tp, D] under ``sp``).
     ``remat``: False | True | 'flash' | 'flash_offload' — see
@@ -272,22 +287,26 @@ def gpt_hidden(params: Params, tokens: torch.Tensor, cfg: GPTConfig,
     under data parallelism derive it with
     ``utils.random.axis_unique_key(key, 'data')`` (tensor ranks then
     agree).  ``tp_group`` / ``sp``: tensor / sequence parallelism over
-    this rank's shard of the parameters."""
-    h = gpt_embed(params, tokens, tp_group)
+    this rank's shard of the parameters.  ``cp_group``: context
+    parallelism (``cfg.attn_impl`` ``'ring'`` / ``'ulysses'``): ``tokens``
+    are the rank's shard of the sequence (``cfg.cp_layout``), the
+    activations stay sharded and only attention talks over the group."""
+    h = gpt_embed(params, tokens, tp_group, cp_group, cfg.cp_layout)
     if tp_group is not None and sp:
         h = split_to_sp(h, tp_group)
     return scan_blocks(params["blocks"], h, cfg.block, remat=remat,
-                       dropout_key=dropout_key, tp_group=tp_group, sp=sp)
+                       dropout_key=dropout_key, tp_group=tp_group, sp=sp,
+                       cp_group=cp_group)
 
 
 def gpt_forward(params: Params, tokens: torch.Tensor, cfg: GPTConfig,
                 remat: RematMode = False,
                 dropout_key: Optional[int] = None, tp_group=None,
-                sp: bool = False) -> torch.Tensor:
+                sp: bool = False, cp_group=None) -> torch.Tensor:
     """tokens [B, S] -> logits [B, S, V] (this rank's [B, S, V / tp]
-    with ``tp_group``)."""
+    with ``tp_group``; its sequence shard's with ``cp_group``)."""
     h = gpt_hidden(params, tokens, cfg, remat=remat, dropout_key=dropout_key,
-                   tp_group=tp_group, sp=sp)
+                   tp_group=tp_group, sp=sp, cp_group=cp_group)
     return gpt_head(params, h, eps=cfg.norm_eps, tp_group=tp_group, sp=sp)
 
 
@@ -331,16 +350,21 @@ def streamed_head_loss(params: Params, h: torch.Tensor,
 def gpt_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: GPTConfig,
              remat: RematMode = False, dropout_key: Optional[int] = None,
              xent_chunk: Optional[int] = None, tp_group=None,
-             sp: bool = False) -> torch.Tensor:
+             sp: bool = False, cp_group=None) -> torch.Tensor:
     """Mean next-token cross-entropy.  ``batch``: {'tokens': [B, S],
     'targets': [B, S]}.  ``xent_chunk`` streams the head and the loss
     over sequence chunks of that size (:func:`streamed_head_loss`).
     ``tp_group`` / ``sp``: tensor / sequence parallelism, every rank of
     the group on the same batch with its shard of the parameters; the
-    loss comes out the same on every rank of the group."""
+    loss comes out the same on every rank of the group.  ``cp_group``:
+    context parallelism, ``batch`` the rank's sequence shard; the loss is
+    the mean over the rank's tokens, so the context axis is a data axis
+    of the train step (``DataParallel(axis=('data', 'context'))``
+    averages the grads over both, as the reference's)."""
     if xent_chunk is not None:
         h = gpt_hidden(params, batch["tokens"], cfg, remat=remat,
-                       dropout_key=dropout_key, tp_group=tp_group, sp=sp)
+                       dropout_key=dropout_key, tp_group=tp_group, sp=sp,
+                       cp_group=cp_group)
         if tp_group is not None and sp:
             h = gather_from_sp(h, tp_group)
         return streamed_head_loss(params, h, batch["targets"],
@@ -348,7 +372,8 @@ def gpt_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: GPTConfig,
                                   tp_group=tp_group,
                                   sp=tp_group is not None and sp)
     logits = gpt_forward(params, batch["tokens"], cfg, remat=remat,
-                         dropout_key=dropout_key, tp_group=tp_group, sp=sp)
+                         dropout_key=dropout_key, tp_group=tp_group, sp=sp,
+                         cp_group=cp_group)
     return vocab_parallel_xent(logits, batch["targets"], tp_group)
 
 
@@ -537,16 +562,19 @@ def _pipe_block_specs(params: Params, pipe_axis: str) -> Params:
 
 
 def _gpt_stage_fns(cfg: GPTConfig, tp_group, sp: bool, remat: RematMode,
-                   dropout_key: Optional[int], stage: int, num_chunks: int):
+                   dropout_key: Optional[int], stage: int, num_chunks: int,
+                   cp_group=None):
     """``(first_fn, stage_fn, last_fn)`` of the GPT pipelines (JAX
     :598-650): stage 0 embeds (and enters SP), each stage scans its slab,
     the last runs the final norm, the head and the vocab-parallel loss.
     Dropout folds (stage, microbatch[, chunk]) into the key, then
-    ``scan_blocks`` the layer."""
+    ``scan_blocks`` the layer.  ``cp_group``: the microbatches are the
+    rank's sequence shards, embedded at their global positions, and every
+    stage's blocks run the ring over the group."""
     from ..utils.random import fold_in
 
     def first_fn(p, toks):
-        h = gpt_embed(p, toks, tp_group)
+        h = gpt_embed(p, toks, tp_group, cp_group, cfg.cp_layout)
         if tp_group is not None and sp:
             h = split_to_sp(h, tp_group)
         return h
@@ -560,13 +588,14 @@ def _gpt_stage_fns(cfg: GPTConfig, tp_group, sp: bool, remat: RematMode,
     if num_chunks == 1:
         def stage_fn(p, x, m):
             return scan_blocks(p["blocks"], x, cfg.block, remat=remat,
-                               dropout_key=key(m), tp_group=tp_group, sp=sp)
+                               dropout_key=key(m), tp_group=tp_group, sp=sp,
+                               cp_group=cp_group)
     else:
         def stage_fn(p, x, m, v):
             slab = _map(lambda a: a[v, 0], p["blocks"])
             return scan_blocks(slab, x, cfg.block, remat=remat,
                                dropout_key=key(m, v), tp_group=tp_group,
-                               sp=sp)
+                               sp=sp, cp_group=cp_group)
 
     def last_fn(p, y, tgt):
         logits = gpt_head(p, y, eps=cfg.norm_eps, tp_group=tp_group, sp=sp)
@@ -577,8 +606,8 @@ def _gpt_stage_fns(cfg: GPTConfig, tp_group, sp: bool, remat: RematMode,
 def gpt_pipeline_loss(params: Params, batch: Dict[str, torch.Tensor],
                       cfg: GPTConfig, num_microbatches: int, tp_group=None,
                       pipe_axis: str = "pipe", sp: bool = False,
-                      remat: RematMode = True, pipe_group=None
-                      ) -> torch.Tensor:
+                      remat: RematMode = True, pipe_group=None,
+                      cp_group=None) -> torch.Tensor:
     """The pipelined GPT loss on the fill-drain schedule (JAX :443),
     differentiated by the caller (``loss.backward()`` on every stage).
     ``params``: this stage's (its ``[L / P, ...]`` block slab, every other
@@ -589,11 +618,12 @@ def gpt_pipeline_loss(params: Params, batch: Dict[str, torch.Tensor],
     from ..parallel.pipeline_parallel import pipeline_loss
 
     first_fn, _, last_fn = _gpt_stage_fns(cfg, tp_group, sp, False, None,
-                                          0, 1)
+                                          0, 1, cp_group)
     whole = {k: v for k, v in params.items() if k != "blocks"}
 
     def stage_fn(stacked, x):
-        return scan_blocks(stacked, x, cfg.block, tp_group=tp_group, sp=sp)
+        return scan_blocks(stacked, x, cfg.block, tp_group=tp_group, sp=sp,
+                           cp_group=cp_group)
 
     return pipeline_loss(
         params["blocks"], batch["tokens"], batch["targets"],
@@ -609,7 +639,7 @@ def gpt_pipeline_1f1b(params: Params, batch: Dict[str, torch.Tensor],
                       remat: RematMode = True,
                       dropout_key: Optional[int] = None, num_chunks: int = 1,
                       shard_transfers: Optional[bool] = None,
-                      pipe_group=None):
+                      pipe_group=None, cp_group=None):
     """The 1F1B GPT step's core (JAX :556): ``(loss, grads)`` directly (do
     not call ``backward``).  ``params``: this stage's — its block slab
     (``shard_gpt_params(..., pp_rank=, pp_size=)`` / ``params_from_jax``),
@@ -622,14 +652,17 @@ def gpt_pipeline_1f1b(params: Params, batch: Dict[str, torch.Tensor],
     (this rank's TP shards); ``shard_transfers`` (default: on exactly when
     ``tp_group`` is set and ``sp`` off) carries the inter-stage activation
     sliced 1/tp over the tensor group.  The pipe group is ``pipe_group``,
-    else ``tpc``'s ``pipe_axis`` group."""
+    else ``tpc``'s ``pipe_axis`` group.  ``cp_group``: ring / Ulysses
+    stages over the context group, ``batch`` the rank's sequence shards
+    (JAX ``tests/test_gpt.py:573``); the stages of one context rank talk
+    to each other, every context rank runs the same schedule."""
     from ..parallel.pipeline_parallel import pipeline_1f1b, stage_index
 
     if shard_transfers is None:
         shard_transfers = tp_group is not None and not sp
     first_fn, stage_fn, last_fn = _gpt_stage_fns(
         cfg, tp_group, sp, remat, dropout_key,
-        stage_index(pipe_axis, pipe_group), num_chunks)
+        stage_index(pipe_axis, pipe_group), num_chunks, cp_group)
     return pipeline_1f1b(
         params, batch["tokens"], batch["targets"], first_fn=first_fn,
         stage_fn=stage_fn, last_fn=last_fn,
@@ -644,7 +677,8 @@ def gpt_pipeline_zb(params: Params, batch: Dict[str, torch.Tensor],
                     pipe_axis: str = "pipe", sp: bool = False,
                     remat: RematMode = True,
                     dropout_key: Optional[int] = None,
-                    shard_transfers: Optional[bool] = None, pipe_group=None):
+                    shard_transfers: Optional[bool] = None, pipe_group=None,
+                    cp_group=None):
     """:func:`gpt_pipeline_1f1b`'s contract on the zero-bubble schedule
     (JAX :663; no ``num_chunks``): the dgrad on the wavefront, the wgrad
     in a drain, the same key recipe, so both recomputes replay the
@@ -655,7 +689,7 @@ def gpt_pipeline_zb(params: Params, batch: Dict[str, torch.Tensor],
         shard_transfers = tp_group is not None and not sp
     first_fn, stage_fn, last_fn = _gpt_stage_fns(
         cfg, tp_group, sp, remat, dropout_key,
-        stage_index(pipe_axis, pipe_group), 1)
+        stage_index(pipe_axis, pipe_group), 1, cp_group)
     return pipeline_zb_1f1b(
         params, batch["tokens"], batch["targets"], first_fn=first_fn,
         stage_fn=stage_fn, last_fn=last_fn,

@@ -86,7 +86,7 @@ def is_moe_block(cfg, i: int) -> bool:
 def moe_block_forward(p: Params, x: torch.Tensor, cfg, tp_group=None,
                       sp: bool = False, ep_group=None,
                       dropout_key: Optional[int] = None, rope=None,
-                      return_metrics: bool = False):
+                      return_metrics: bool = False, cp_group=None):
     """Pre-norm block whose FFN is the MoE layer: ``(y, aux)`` (plus the
     router's counters with ``return_metrics``).  The attention half is
     :func:`~..parallel.tensor_parallel.layers.block_forward`'s; the MoE
@@ -97,7 +97,9 @@ def moe_block_forward(p: Params, x: torch.Tensor, cfg, tp_group=None,
     The MoE half's cotangent is then whole on every tensor rank, as its
     weights' grads are (no tensor-group sum); the gather's backward takes
     the rank's own rows.  ``cfg.block.causal`` selects token-major
-    capacity priority and refuses the expert-choice router."""
+    capacity priority and refuses the expert-choice router.
+    ``cp_group``: context-parallel attention; the MoE half routes the
+    rank's own tokens (JAX ``tests/test_moe.py:971``)."""
     bcfg = cfg.block
     k_attn = k_mlp = None
     if dropout_key is not None and bcfg.dropout_rate > 0.0:
@@ -105,7 +107,7 @@ def moe_block_forward(p: Params, x: torch.Tensor, cfg, tp_group=None,
     h = layer_norm(x, p["ln1"], bcfg.norm_eps)
     y = _close_row_parallel(
         attention_partial(p["attn"], _open_column_parallel(h, tp_group, sp),
-                          bcfg, rope=rope),
+                          bcfg, rope=rope, cp_group=cp_group),
         p["attn"]["bo"], tp_group, sp)
     x = x + dropout(y, bcfg.dropout_rate, k_attn)
     h = layer_norm(x, p["ln2"], bcfg.norm_eps)
@@ -118,7 +120,8 @@ def moe_block_forward(p: Params, x: torch.Tensor, cfg, tp_group=None,
     return (y,) + tuple(out[1:])
 
 
-def _moe_bodies(cfg, tp_group, sp: bool, ep_group, remat: RematMode):
+def _moe_bodies(cfg, tp_group, sp: bool, ep_group, remat: RematMode,
+                cp_group=None):
     """``(moe_body, dense_body)``, each ``(bp, h, key, rope)``, with the
     remat mode applied — one place for the block checkpointing, shared by
     the serial stack and the pipeline's stages.  The MoE body returns
@@ -129,11 +132,12 @@ def _moe_bodies(cfg, tp_group, sp: bool, ep_group, remat: RematMode):
     moe_body = checkpoint_block(
         lambda bp, h, k, rope: moe_block_forward(
             bp, h, cfg, tp_group=tp_group, sp=sp, ep_group=ep_group,
-            dropout_key=k, rope=rope), remat)
+            dropout_key=k, rope=rope, cp_group=cp_group), remat)
+    cp = {} if cp_group is None else {"cp_group": cp_group}
     dense_body = checkpoint_block(
         lambda bp, h, k, rope: block_forward(
             bp, h, cfg.block, rope=rope, dropout_key=k, tp_group=tp_group,
-            sp=sp), remat)
+            sp=sp, **cp), remat)
     return moe_body, dense_body
 
 
@@ -141,7 +145,7 @@ def moe_block_stack(blocks: List[Params], h: torch.Tensor, cfg,
                     tp_group=None, sp: bool = False, ep_group=None,
                     dropout_key: Optional[int] = None,
                     remat: RematMode = False, collect_metrics: bool = False,
-                    block_keys: Optional[List[int]] = None):
+                    block_keys: Optional[List[int]] = None, cp_group=None):
     """The dense / expert block loop of the MoE families: ``(h, aux)``,
     ``aux`` the mean over the expert blocks.  Block ``i`` folds ``i`` into
     ``dropout_key``, or takes ``block_keys[i]`` (a pipeline stage's keys,
@@ -151,9 +155,13 @@ def moe_block_stack(blocks: List[Params], h: torch.Tensor, cfg,
     ``collect_metrics=True`` (an observability pass: the expert blocks run
     un-checkpointed) also returns the router counters over the expert
     blocks — ``expert_tokens`` summed, ``router_entropy`` and
-    ``dropped_token_rate`` averaged — for ``obs.aggregate.moe_load_stats``."""
-    moe_body, dense_body = _moe_bodies(cfg, tp_group, sp, ep_group, remat)
-    rope = block_rope_cache(cfg.block, h.shape[1], h.device, tp_group, sp)
+    ``dropped_token_rate`` averaged — for ``obs.aggregate.moe_load_stats``.
+    ``cp_group``: context-parallel attention over the group, ``h`` the
+    rank's sequence shard (each rank routes its own tokens)."""
+    moe_body, dense_body = _moe_bodies(cfg, tp_group, sp, ep_group, remat,
+                                       cp_group)
+    rope = block_rope_cache(cfg.block, h.shape[1], h.device, tp_group, sp,
+                            cp_group)
     if remat == "flash_offload":
         advice = offload_advice(cfg.block, tuple(h.shape), len(blocks),
                                 device=h.device)
@@ -173,7 +181,8 @@ def moe_block_stack(blocks: List[Params], h: torch.Tensor, cfg,
         if collect_metrics:
             h, aux, m = moe_block_forward(
                 bp, h, cfg, tp_group=tp_group, sp=sp, ep_group=ep_group,
-                dropout_key=k, rope=rope, return_metrics=True)
+                dropout_key=k, rope=rope, return_metrics=True,
+                cp_group=cp_group)
             sums = m if sums is None else {n: sums[n] + m[n] for n in m}
         else:
             h, aux = moe_body(bp, h, k, rope)
@@ -193,20 +202,23 @@ def gpt_moe_forward(params: Params, tokens: torch.Tensor, cfg,
                     remat: RematMode = False,
                     dropout_key: Optional[int] = None, tp_group=None,
                     sp: bool = False, ep_group=None,
-                    collect_metrics: bool = False):
+                    collect_metrics: bool = False, cp_group=None):
     """tokens ``[B, S]`` -> ``(logits [B, S, V], aux)`` (this rank's
     ``[B, S, V / tp]`` with ``tp_group``), ``aux`` the mean load-balance
     loss over the expert blocks; with ``collect_metrics`` also the
     aggregated router counters (:func:`moe_block_stack`).  ``remat``:
-    False | True | 'flash' | 'flash_offload', each block checkpointed."""
+    False | True | 'flash' | 'flash_offload', each block checkpointed.
+    ``cp_group``: context parallelism, ``tokens`` the rank's sequence
+    shard embedded at its global positions (JAX :166)."""
     from .gpt import gpt_embed, gpt_head
 
-    h = gpt_embed(params, tokens, tp_group)
+    h = gpt_embed(params, tokens, tp_group, cp_group, cfg.cp_layout)
     if tp_group is not None and sp:
         h = split_to_sp(h, tp_group)
     out = moe_block_stack(params["blocks"], h, cfg, tp_group=tp_group, sp=sp,
                           ep_group=ep_group, dropout_key=dropout_key,
-                          remat=remat, collect_metrics=collect_metrics)
+                          remat=remat, collect_metrics=collect_metrics,
+                          cp_group=cp_group)
     logits = gpt_head(params, out[0], eps=cfg.norm_eps, tp_group=tp_group,
                       sp=sp)
     return (logits,) + tuple(out[1:])
@@ -214,20 +226,23 @@ def gpt_moe_forward(params: Params, tokens: torch.Tensor, cfg,
 
 def gpt_moe_loss(params: Params, batch: Dict[str, torch.Tensor], cfg,
                  remat: RematMode = False, dropout_key: Optional[int] = None,
-                 tp_group=None, sp: bool = False, ep_group=None
-                 ) -> torch.Tensor:
+                 tp_group=None, sp: bool = False, ep_group=None,
+                 cp_group=None) -> torch.Tensor:
     """Mean next-token cross-entropy plus ``cfg.moe_aux_weight`` x the mean
     load-balance aux (the Switch recipe).  ``batch``: {'tokens',
     'targets'} ``[B, S]``.  ``tp_group`` / ``sp``: tensor / sequence
     parallelism over this rank's shard (:func:`shard_moe_params`);
     ``ep_group``: the expert group this rank's experts are split over.
     Under expert parallelism each rank routes its own rows: the aux is a
-    product of per-batch means, so it is the rank's."""
+    product of per-batch means, so it is the rank's.  ``cp_group``:
+    context parallelism (the loss and the aux are the rank's shard's, so
+    the context axis is a data axis of the step, as for the dense GPT)."""
     from .gpt import vocab_parallel_xent
 
     logits, aux = gpt_moe_forward(params, batch["tokens"], cfg, remat=remat,
                                   dropout_key=dropout_key, tp_group=tp_group,
-                                  sp=sp, ep_group=ep_group)
+                                  sp=sp, ep_group=ep_group,
+                                  cp_group=cp_group)
     ce = vocab_parallel_xent(logits, batch["targets"], tp_group)
     return ce + cfg.moe_aux_weight * aux.to(ce.dtype)
 
@@ -386,7 +401,7 @@ def gpt_moe_pipeline_1f1b(params: Params, batch: Dict[str, torch.Tensor],
                           dropout_key: Optional[int] = None,
                           num_chunks: int = 1,
                           shard_transfers: Optional[bool] = None,
-                          pipe_group=None):
+                          pipe_group=None, cp_group=None):
     """The MoE GPT's 1F1B step core (JAX :405): ``(loss, grads)``
     directly (do not call ``backward``).  ``params``: this stage's
     (:func:`moe_stage_params`; ``num_chunks > 1`` its ``V`` chunks'
@@ -399,8 +414,8 @@ def gpt_moe_pipeline_1f1b(params: Params, batch: Dict[str, torch.Tensor],
     rows.  ``ep_group``: the experts split over it, its exchanges in
     every expert block of every microbatch on each EP peer in the same
     schedule order.  ``tp_group`` / ``sp`` / ``shard_transfers`` /
-    ``dropout_key`` (folding stage, microbatch, block[, chunk]) as
-    ``models.gpt_pipeline_1f1b``."""
+    ``dropout_key`` (folding stage, microbatch, block[, chunk]) and
+    ``cp_group`` as ``models.gpt_pipeline_1f1b`` (JAX :455)."""
     from ..parallel.pipeline_parallel import pipeline_1f1b, stage_index
     from .gpt import gpt_embed, gpt_head, vocab_parallel_xent
 
@@ -412,7 +427,7 @@ def gpt_moe_pipeline_1f1b(params: Params, batch: Dict[str, torch.Tensor],
     stage = stage_index(pipe_axis, pipe_group)
 
     def first_fn(p, toks):
-        h = gpt_embed(p, toks, tp_group)
+        h = gpt_embed(p, toks, tp_group, cp_group, cfg.cp_layout)
         return split_to_sp(h, tp_group) if tp_group is not None and sp else h
 
     def run_blocks(blocks, x, m, v=None):
@@ -425,7 +440,7 @@ def gpt_moe_pipeline_1f1b(params: Params, batch: Dict[str, torch.Tensor],
                     for i in range(len(blocks))]
         x, aux_mean = moe_block_stack(blocks, x, cfg, tp_group=tp_group,
                                       sp=sp, ep_group=ep_group, remat=remat,
-                                      block_keys=keys)
+                                      block_keys=keys, cp_group=cp_group)
         n_stage = sum(1 for bp in blocks if "moe" in bp)
         return x, (aux_scale * n_stage) * aux_mean
 

@@ -56,6 +56,7 @@ import torch
 import torch.distributed as dist
 
 from ..dist.topology import (
+    CONTEXT_AXIS,
     DATA_AXIS,
     PIPE_AXIS,
     TENSOR_AXIS,
@@ -68,6 +69,7 @@ from ..utils.data import shard_batch as _shard_batch
 from ..utils.partition import named_leaves
 from .clip import _norms, clip_of, clip_scale, scale_
 from .tensor_parallel.layers import PARTIAL_UNDER_SP, grad_taps, spec_pairs
+from .tensor_parallel.tp_utils import host_path, to_host
 
 AxisName = Union[str, Tuple[str, ...]]
 
@@ -428,9 +430,8 @@ def local_value_and_grad(loss_fn: Callable[[Any, Any], torch.Tensor],
     return loss * inv, _tree_map(lambda g: g * inv, grads)
 
 
-#: the queue-A items that the model axes besides ``tensor`` and ``pipe``
-#: wait for
-_MODEL_AXIS_ITEMS = {"context": "Training CP"}
+#: the model axes of the port's models besides the data axes
+_MODEL_AXES = (TENSOR_AXIS, PIPE_AXIS, CONTEXT_AXIS)
 
 
 def normalize_model_axis_grads(loss, grads, ctx: Optional[ParallelContext]
@@ -446,20 +447,53 @@ def normalize_model_axis_grads(loss, grads, ctx: Optional[ParallelContext]
     all-reduce), and the pipe sum of the leaves every stage holds whole is
     the schedule's own — so it varies on no model axis: ``other`` is
     ``()`` and the grads come back unscaled, which is what the reference
-    returns for such a loss.  Model axes the port does not train over yet
-    raise when larger than 1, naming their queue-A items."""
+    returns for such a loss.  A ``context`` axis outside ``data_axes`` is
+    such a model axis only for a loss that is the same on every rank of
+    the context group, as the ViT's is (it pools over the group inside
+    the model, and every leaf's grad comes out whole there:
+    ``models.vit``).  A GPT loss is the mean over the rank's own tokens
+    and varies on ``context``: ``context`` is a data axis for it, as in
+    the reference.  So a ``loss`` given here (a train step's first) is
+    compared across the context group, and a loss that differs there
+    raises.  An axis that is no axis of the port's models raises when
+    larger than 1."""
     ctx = tpc if ctx is None else ctx
-    waiting = [a for a in ctx.axis_names
-               if a not in data_axes and a not in (TENSOR_AXIS, PIPE_AXIS)
+    unknown = [a for a in ctx.axis_names
+               if a not in data_axes and a not in _MODEL_AXES
                and ctx.get_group_size(a) > 1]
-    if waiting:
+    if unknown:
         raise NotImplementedError("; ".join(
-            f"model axis {a!r} waits for ROADMAP queue A's "
-            f"{_MODEL_AXIS_ITEMS[a]!r}" if a in _MODEL_AXIS_ITEMS else
             f"model axis {a!r} is no axis of the port's models"
-            for a in waiting))
-    del loss
+            for a in unknown))
+    if (loss is not None and CONTEXT_AXIS in ctx.axis_names
+            and CONTEXT_AXIS not in data_axes
+            and ctx.get_group_size(CONTEXT_AXIS) > 1):
+        _check_context_invariant(loss, ctx.get_group(CONTEXT_AXIS))
     return grads, ()
+
+
+#: how far a context-invariant loss may differ across its group
+#: (rounding; per-shard means of a sequence differ by far more)
+_CONTEXT_LOSS_RTOL = 1e-6
+
+
+def _check_context_invariant(loss: torch.Tensor, group) -> None:
+    """Raise unless ``loss`` is the same on every rank of the context
+    ``group``: one all-reduce MAX of ``(loss, -loss)``."""
+    t = torch.stack([loss.detach().float().reshape(()),
+                     -loss.detach().float().reshape(())])
+    if host_path(group, t.device):
+        t = to_host(t)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    hi, neg_lo = t.tolist()
+    spread = hi + neg_lo
+    if spread > _CONTEXT_LOSS_RTOL * max(1.0, abs(hi)):
+        raise ValueError(
+            f"the loss differs across the context group (max - min "
+            f"{spread:.3e}): a loss that is each rank's mean over its own "
+            f"tokens (a GPT under ring or Ulysses attention) needs "
+            f"'context' among the reduced axes, e.g. "
+            f"grad_reduce_axes=('data', 'context')")
 
 
 def pipe_of(ctx: ParallelContext, params, pipe_specs) -> Optional[tuple]:

@@ -31,9 +31,9 @@ or under expert parallelism the sorted layout with K7 on the exchanged
 groups.  Under expert parallelism (``ep_group``, a ``torch.distributed``
 process group) every rank holds ``E / ep`` experts (:func:`shard_experts`)
 and the slots go to their experts' ranks and back by two
-``all_to_all_single`` exchanges, each an autograd Function whose
-backward is the same exchange of the cotangent (the transpose of the
-reference's ``all_to_all``).  An expert's grad on its rank then holds
+``all_to_all_single`` exchanges (``tp_utils.all_to_all``), each an
+autograd Function whose backward is the same exchange of the cotangent
+(the transpose of the reference's ``all_to_all``).  An expert's grad on its rank then holds
 every EP peer's tokens — the overcount that the data-parallel reduction
 divides out (expert grads summed over ``moe_dp`` only, divided by the
 whole data group: :func:`moe_grad_reduce_overrides`).
@@ -46,7 +46,6 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..device import resolve_device
@@ -59,6 +58,7 @@ from ..ops.moe_dispatch import (
     resolve_moe_dispatch,
 )
 from .tensor_parallel.layers import _normal
+from .tensor_parallel.tp_utils import all_to_all
 
 Params = Dict[str, Any]
 
@@ -306,30 +306,6 @@ def _router_metrics(probs: torch.Tensor, keep: Optional[torch.Tensor],
             "dropped_token_rate": dropped.float()}
 
 
-class _EPExchange(torch.autograd.Function):
-    """One ``all_to_all_single`` over ``group``: ``send [ep, ...]``, block
-    i to rank i of the group, returns ``[ep, ...]`` with block i from rank
-    i.  Its backward is the same exchange of the cotangent (an all-to-all
-    is its own transpose: the block that came from rank i goes back to
-    rank i)."""
-
-    @staticmethod
-    def forward(ctx, send, group):
-        ctx.group = group
-        return _all_to_all(send, group)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _all_to_all(g, ctx.group), None
-
-
-def _all_to_all(send: torch.Tensor, group) -> torch.Tensor:
-    send = send.contiguous()
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=group)
-    return recv
-
-
 def moe_forward(params: Params, x: torch.Tensor, cfg: MoEConfig,
                 ep_group=None, causal: bool = False,
                 return_metrics: bool = False):
@@ -442,14 +418,13 @@ def moe_forward(params: Params, x: torch.Tensor, cfg: MoEConfig,
             raise ValueError(
                 f"this rank holds {held.shape[0]} experts, EP {ep} of {E} "
                 f"needs {e_loc}: shard them with shard_experts")
-        recv = _EPExchange.apply(
-            expert_in.reshape(ep, e_loc, capacity, D), ep_group)
+        recv = all_to_all(expert_in.reshape(ep, e_loc, capacity, D),
+                          ep_group)
         # the local experts see ep C slots, C from every EP peer
         grouped = recv.transpose(0, 1).reshape(e_loc, ep * capacity, D)
         out = ffn(experts, grouped)
         back = out.reshape(e_loc, ep, capacity, D).transpose(0, 1)
-        expert_out = _EPExchange.apply(back, ep_group).reshape(
-            E, capacity, D)
+        expert_out = all_to_all(back, ep_group).reshape(E, capacity, D)
     return _done(combine_out(expert_out), x, aux, metrics, return_metrics)
 
 

@@ -12,8 +12,10 @@ so two messages between the same pair in one step cannot cross.
 
 Over NCCL the payload is the device tensor.  Over gloo (the CPU tests,
 and two processes sharing one card) a CUDA payload travels as a host
-copy: gloo's point-to-point takes CPU tensors only.  Each such copy is
-counted in :data:`P2P_STATS` (``host_copies``, ``host_copy_bytes``); it
+copy: gloo's point-to-point takes CPU tensors only.  Each such copy
+(``tp_utils.to_host`` / ``from_host``, the helpers the ring shift and
+the all-to-all use too) is counted in :data:`P2P_STATS`
+(``host_copies``, ``host_copy_bytes``); it
 carries the payload only, the compute stays on the card.
 
 The shape rule: the schedules exchange one state tensor whose shape and
@@ -30,6 +32,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from ..tensor_parallel.tp_utils import from_host, host_path, to_host
 
 #: message tags: the forward (activation) and backward (cotangent) channels
 ACT, COT = 0, 1
@@ -58,16 +62,6 @@ def route(group, peer: int, tag: int):
     return dist.get_global_rank(group, peer), group
 
 
-def _host_path(group, device: torch.device) -> bool:
-    return device.type == "cuda" and dist.get_backend(group) == "gloo"
-
-
-def _to_host(t: torch.Tensor) -> torch.Tensor:
-    P2P_STATS["host_copies"] += 1
-    P2P_STATS["host_copy_bytes"] += t.numel() * t.element_size()
-    return t.detach().to("cpu")
-
-
 def exchange(group, sends: Sequence[Tuple[torch.Tensor, int, int]] = (),
              recvs: Sequence[Tuple[int, int, Tuple[int, ...], torch.dtype,
                                    torch.device]] = ()
@@ -78,15 +72,14 @@ def exchange(group, sends: Sequence[Tuple[torch.Tensor, int, int]] = (),
     the received tensors, in ``recvs``' order, on their devices."""
     ops, keep, outs = [], [], []
     for t, peer, tag in sends:
-        t = t.detach().contiguous()
-        if _host_path(group, t.device):
-            t = _to_host(t)
+        t = (to_host(t, P2P_STATS) if host_path(group, t.device)
+             else t.detach().contiguous())
         keep.append(t)
         ops.append(dist.P2POp(dist.isend, t, *route(group, peer, tag), tag))
         P2P_STATS["sends"] += 1
         P2P_STATS["bytes_sent"] += t.numel() * t.element_size()
     for peer, tag, shape, dtype, device in recvs:
-        dev = torch.device("cpu") if _host_path(group, device) else device
+        dev = torch.device("cpu") if host_path(group, device) else device
         buf = torch.empty(shape, dtype=dtype, device=dev)
         outs.append((buf, device))
         ops.append(dist.P2POp(dist.irecv, buf, *route(group, peer, tag),
@@ -101,9 +94,7 @@ def exchange(group, sends: Sequence[Tuple[torch.Tensor, int, int]] = (),
     got = []
     for buf, device in outs:
         if buf.device != device:
-            P2P_STATS["host_copies"] += 1
-            P2P_STATS["host_copy_bytes"] += buf.numel() * buf.element_size()
-            buf = buf.to(device)
+            buf = from_host(buf, device, P2P_STATS)
         got.append(buf)
     return got
 
@@ -112,12 +103,10 @@ def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
     """``t`` summed over ``group`` in place (through a counted host copy
     for a CUDA tensor over gloo)."""
     P2P_STATS["all_reduces"] += 1
-    if _host_path(group, t.device):
-        h = _to_host(t)
+    if host_path(group, t.device):
+        h = to_host(t, P2P_STATS)
         dist.all_reduce(h, group=group)
-        P2P_STATS["host_copies"] += 1
-        P2P_STATS["host_copy_bytes"] += h.numel() * h.element_size()
-        t.copy_(h)
+        t.copy_(from_host(h, t.device, P2P_STATS))
     else:
         dist.all_reduce(t, group=group)
     return t

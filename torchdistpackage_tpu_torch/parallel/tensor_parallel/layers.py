@@ -21,9 +21,11 @@ residual stream holds this rank's sequence rows; with
 ``cfg.collective_matmul`` the SP boundaries run as rings
 (:func:`attention_partial_cm`, :func:`mlp_partial_cm`).  The training
 block (:func:`block_forward`, :func:`scan_blocks`) runs its attention
-through :func:`core_attention`: the plain ``'naive'`` path or the flash
-kernels K3-K5 (``ops/flash_attention.py``), at ``H / tp`` local heads,
-with residual dropout (:func:`dropout`) when a key is given.
+through :func:`core_attention`: the plain ``'naive'`` path, the flash
+kernels K3-K5 (``ops/flash_attention.py``), or the context-parallel
+ring / Ulysses attention over a ``cp_group`` (``ops/ring_attention.py``),
+at ``H / tp`` local heads, with residual dropout (:func:`dropout`) when
+a key is given.
 """
 
 from __future__ import annotations
@@ -66,9 +68,14 @@ _ATTN_IMPLS = ("naive", "flash", "ring", "ulysses")
 class TransformerConfig:
     """The fields of the reference ``TransformerConfig`` that the serving
     and training paths read.  ``dtype`` is a ``torch.dtype``.
-    ``attn_impl``: ``'naive'`` (the [S, S] score matrix, plain ops) or
-    ``'flash'`` (kernels K3-K5); ``'ring'``/``'ulysses'`` are context
-    parallel and queued (ROADMAP, queue A: "Training CP").
+    ``attn_impl``: ``'naive'`` (the [S, S] score matrix, plain ops),
+    ``'flash'`` (kernels K3-K5), or the context-parallel ``'ring'`` /
+    ``'ulysses'`` (``ops/ring_attention.py``, K3-K5 per hop): the
+    sequence is sharded over the context group that the block functions
+    take as ``cp_group=`` (serially, without one, they are one
+    ``flash_attention`` call).  ``cp_layout``: ``'contiguous'`` or ``'zigzag'`` (ring
+    only: rank i holds chunks i and 2n-1-i; prepare batches with
+    ``ops.ring_attention.zigzag_permute``).
     ``dropout_rate``: residual dropout, applied when the caller passes a
     ``dropout_key``.  ``collective_matmul`` (SP only): the block's SP
     boundaries as rings once the gathered activation reaches
@@ -84,6 +91,7 @@ class TransformerConfig:
     causal: bool = True
     dtype: torch.dtype = torch.float32
     attn_impl: str = "naive"
+    cp_layout: str = "contiguous"
     dropout_rate: float = 0.0
     kv_heads: Optional[int] = None
     rope: bool = False
@@ -104,6 +112,19 @@ class TransformerConfig:
             raise ValueError(
                 f"attn_impl must be one of {_ATTN_IMPLS}, got "
                 f"{self.attn_impl!r}")
+        if self.cp_layout not in ("contiguous", "zigzag"):
+            raise ValueError(f"cp_layout must be 'contiguous' or 'zigzag', "
+                             f"got {self.cp_layout!r}")
+        if self.cp_layout != "contiguous" and self.attn_impl != "ring":
+            raise ValueError(f"cp_layout={self.cp_layout!r} applies to "
+                             f"attn_impl='ring' only (got "
+                             f"{self.attn_impl!r})")
+        if self.sliding_window is not None and self.attn_impl in (
+                "ring", "ulysses"):
+            raise ValueError(
+                "sliding_window is not supported by the context-parallel "
+                "attention (a shard boundary would change the window's "
+                "reach)")
         if self.sliding_window is not None:
             if not self.causal:
                 raise ValueError("sliding_window requires causal attention")
@@ -399,47 +420,64 @@ def mlp_partial(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def block_rope_cache(cfg: TransformerConfig, s: int, device,
-                     tp_group=None, sp: bool = False):
+                     tp_group=None, sp: bool = False, cp_group=None):
     """The layer-invariant (cos, sin) rope cache for a block stack whose
     activations have ``s`` sequence rows, or None when rope is off —
     computed once per forward and passed to every block.  Attention sees
     the SP-gathered sequence, so under ``sp`` the table covers ``s tp``
-    rows."""
+    rows; under context parallelism (``cp_group``) they are the shard's
+    global positions, contiguous or zigzag (JAX ``_rope_positions``)."""
     if not cfg.rope:
         return None
     if tp_group is not None and sp:
         s *= tp_size(tp_group)
-    return rope_cache(torch.arange(s, device=device), cfg.head_dim,
-                      cfg.rope_theta, scaling=cfg.rope_scaling)
+    from ...ops.ring_attention import shard_positions
+
+    return rope_cache(shard_positions(cp_group, s, cfg.cp_layout, device),
+                      cfg.head_dim, cfg.rope_theta, scaling=cfg.rope_scaling)
 
 
 def core_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   cfg: TransformerConfig) -> torch.Tensor:
+                   cfg: TransformerConfig, cp_group=None) -> torch.Tensor:
     """(q, k, v) [B, H(kv), S, hd] -> [B, H, S, hd] through the configured
     ``attn_impl`` — the one dispatch switch, as in the reference.  The
     flash kernels take contiguous tensors, so the head-major views are
-    made contiguous here."""
+    made contiguous here.  ``'ring'`` / ``'ulysses'`` run over the
+    context group ``cp_group`` (the rank's sequence shard in q/k/v); with
+    none they are one ``flash_attention`` call, as the reference's serial
+    fallback is its flash path."""
     from ...ops.flash_attention import flash_attention, mha_reference
 
+    if cp_group is not None and cfg.attn_impl not in ("ring", "ulysses"):
+        raise ValueError(
+            f"a cp_group needs attn_impl 'ring' or 'ulysses' (got "
+            f"{cfg.attn_impl!r}): a shard-local attention would be a "
+            f"silently different model")
     if cfg.attn_impl == "flash":
         return flash_attention(q.contiguous(), k.contiguous(),
                                v.contiguous(), causal=cfg.causal,
                                window=cfg.sliding_window)
-    if cfg.attn_impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r} is context-parallel attention, "
-            f"not ported yet (ROADMAP, queue A: 'Training CP')")
+    if cfg.attn_impl == "ring":
+        from ...ops.ring_attention import ring_attention
+
+        return ring_attention(q, k, v, group=cp_group, causal=cfg.causal,
+                              layout=cfg.cp_layout)
+    if cfg.attn_impl == "ulysses":
+        from ...ops.ring_attention import ulysses_attention
+
+        return ulysses_attention(q, k, v, group=cp_group, causal=cfg.causal)
     return mha_reference(q, k, v, causal=cfg.causal,
                          window=cfg.sliding_window)
 
 
 def attention_partial(p: Params, x: torch.Tensor, cfg: TransformerConfig,
-                      rope=None) -> torch.Tensor:
+                      rope=None, cp_group=None) -> torch.Tensor:
     """QKV projection, core attention and the output projection without
-    its bias: x [B, S, D] -> [B, S, D]."""
+    its bias: x [B, S, D] -> [B, S, D] (the rank's sequence shard under
+    context parallelism, ``cp_group``)."""
     B, S, _ = x.shape
     q, k, v = compute_qkv(p, x, cfg, rope=rope)
-    out = core_attention(q, k, v, cfg)
+    out = core_attention(q, k, v, cfg, cp_group)
     return dense(out.transpose(1, 2).reshape(B, S, -1), p["wo"])
 
 
@@ -501,7 +539,7 @@ def _use_cm(cfg: TransformerConfig, x: torch.Tensor, tp_group,
 
 
 def attention_partial_cm(p: Params, x: torch.Tensor, cfg: TransformerConfig,
-                         tp_group, rope=None) -> torch.Tensor:
+                         tp_group, rope=None, cp_group=None) -> torch.Tensor:
     """Collective-matmul attention on an SP shard: x [B, s, D] -> [B, s,
     D], reduced over the group into SP layout, without ``bo`` (the ring
     reduces; the caller adds only the bias).  The QKV projection runs
@@ -520,7 +558,8 @@ def attention_partial_cm(p: Params, x: torch.Tensor, cfg: TransformerConfig,
                               cfg.head_dim, cfg.rope_theta,
                               scaling=cfg.rope_scaling)
         q, k = _rotate(q, k, rope)
-    out = core_attention(q, k, v, cfg).transpose(1, 2).reshape(B, S, -1)
+    out = core_attention(q, k, v, cfg, cp_group).transpose(1, 2).reshape(
+        B, S, -1)
     return ring_matmul_rs(out, lambda oc: dense(oc, p["wo"]), tp_group)
 
 
@@ -542,14 +581,21 @@ def mlp_partial_cm(p: Params, x: torch.Tensor, tp_group) -> torch.Tensor:
 
 def block_forward(p: Params, x: torch.Tensor, cfg: TransformerConfig,
                   rope=None, dropout_key: Optional[int] = None,
-                  tp_group=None, sp: bool = False) -> torch.Tensor:
+                  tp_group=None, sp: bool = False,
+                  cp_group=None) -> torch.Tensor:
     """Pre-norm block: x + attn(norm(x)) + bo, then + mlp(norm(.)) + b2.
     ``dropout_key`` turns on residual dropout at ``cfg.dropout_rate`` on
     both branches, each site with its own key.  ``tp_group``: the
     tensor-parallel group ``p``'s shards belong to (None: serial);
     ``sp``: x is this rank's sequence rows [B, S / tp, D] (sequence
     parallelism), the norms run on them and the attention / MLP
-    boundaries gather and reduce-scatter."""
+    boundaries gather and reduce-scatter.  ``cp_group``: context
+    parallelism (``cfg.attn_impl`` ``'ring'`` / ``'ulysses'``), x the
+    rank's shard of the sequence; the rope cache (built here when None)
+    takes the shard's global positions."""
+    if rope is None and cfg.rope and cp_group is not None:
+        rope = block_rope_cache(cfg, x.shape[1], x.device, tp_group, sp,
+                                cp_group)
     k_attn = k_mlp = None
     if dropout_key is not None and cfg.dropout_rate > 0.0:
         k_attn, k_mlp = split(dropout_key)
@@ -557,13 +603,13 @@ def block_forward(p: Params, x: torch.Tensor, cfg: TransformerConfig,
     use_cm = _use_cm(cfg, x, tp_group, sp)
     h = layer_norm(x, p["ln1"], cfg.norm_eps)
     if use_cm:
-        y = attention_partial_cm(p["attn"], h, cfg, tp_group, rope=rope) \
-            + p["attn"]["bo"]
+        y = attention_partial_cm(p["attn"], h, cfg, tp_group, rope=rope,
+                                 cp_group=cp_group) + p["attn"]["bo"]
     else:
         y = _close_row_parallel(
             attention_partial(p["attn"], _open_column_parallel(h, tp_group,
                                                                sp),
-                              cfg, rope=rope),
+                              cfg, rope=rope, cp_group=cp_group),
             p["attn"]["bo"], tp_group, sp)
     x = x + dropout(y, cfg.dropout_rate, k_attn)
     h = layer_norm(x, p["ln2"], cfg.norm_eps)
@@ -680,8 +726,8 @@ class _GradTap(torch.autograd.Function):
 @contextlib.contextmanager
 def grad_taps(callback: Callable[[torch.Tensor, int, torch.Tensor], None]):
     """While active, :func:`scan_blocks` passes each layer's slice of a
-    stacked leaf that requires grad through an identity whose backward
-    calls ``callback(leaf, layer, grad)`` as soon as that layer's
+    stacked parameter (a leaf tensor) that requires grad through an
+    identity whose backward calls ``callback(leaf, layer, grad)`` as soon as that layer's
     backward has produced the slice's gradient — long before the stacked
     leaf's own gradient exists (it is formed once layer 0's backward is
     done).  The gradients themselves are unchanged."""
@@ -695,14 +741,17 @@ def grad_taps(callback: Callable[[torch.Tensor, int, torch.Tensor], None]):
 def scan_blocks(stacked: Params, x: torch.Tensor, cfg: TransformerConfig,
                 remat: RematMode = False, dropout_key: Optional[int] = None,
                 tp_group=None, sp: bool = False,
-                layer_mask=None) -> torch.Tensor:
+                layer_mask=None, cp_group=None) -> torch.Tensor:
     """Run ``x`` through the layer-stacked block params ([L, ...] leaves)
     — the reference's ``lax.scan`` as a Python loop.  The stacked leaves
     are unbound once (their backward is one stack, not L scatter-adds),
     and the rope cache is computed once for all layers.  ``dropout_key``
     turns on residual dropout; layer ``i`` folds ``i`` into the key, so
     layers draw distinct masks.  ``tp_group`` / ``sp`` as in
-    :func:`block_forward` (x is [B, S / tp, D] under ``sp``).
+    :func:`block_forward` (x is [B, S / tp, D] under ``sp``); ``cp_group``
+    the context group of ``'ring'`` / ``'ulysses'`` attention (x the
+    rank's sequence shard).  Under remat the recompute runs each block's
+    ring sends again, in the same order on every rank of the group.
 
     ``layer_mask`` ([L] floats or a sequence, 1 = real layer, 0 =
     padding) runs a padded stage slab of
@@ -711,7 +760,9 @@ def scan_blocks(stacked: Params, x: torch.Tensor, cfg: TransformerConfig,
     exactly zero grad (zero-initialised padding stays zero under any
     optimizer).  The reference selects with ``jnp.where`` (one SPMD
     program pays the padding's FLOPs); here the mask is read on the
-    host, once a call."""
+    host, once a call.  Under context parallelism a stage's mask is the
+    same on every rank of its context group, so no rank skips a ring the
+    others enter."""
     tap = _GRAD_TAP.get()
 
     def unbind(tree):
@@ -723,19 +774,22 @@ def scan_blocks(stacked: Params, x: torch.Tensor, cfg: TransformerConfig,
         if isinstance(tree, dict):
             return {k: layer(v, i) for k, v in tree.items()}
         leaf, parts = tree
-        if tap is None or not leaf.requires_grad:
+        if tap is None or not (leaf.requires_grad and leaf.is_leaf):
             return parts[i]
         return _GradTap.apply(parts[i], functools.partial(tap, leaf, i))
 
     per_layer = unbind(stacked)
     L = len(next(tree_leaves(stacked)))
-    rope = block_rope_cache(cfg, x.shape[1], x.device, tp_group, sp)
+    rope = block_rope_cache(cfg, x.shape[1], x.device, tp_group, sp,
+                            cp_group)
     if remat == "flash_offload":
         advice = offload_advice(cfg, tuple(x.shape), L, device=x.device)
         if advice:
             warnings.warn(advice, stacklevel=2)
     # the serial call passes no tensor-parallel arguments at all
     tp = {} if tp_group is None else {"tp_group": tp_group, "sp": sp}
+    if cp_group is not None:
+        tp["cp_group"] = cp_group
     real = [True] * L
     if layer_mask is not None:
         flags = [float(m) for m in (layer_mask.tolist() if isinstance(

@@ -337,9 +337,48 @@ class _RingShift(torch.autograd.Function):
         return _shift(g, ctx.group, -ctx.shift), None, None
 
 
+#: the host copies (each way) and their bytes that gloo needed for CUDA
+#: payloads, since the last reset: the ring shift's and the autograd
+#: all-to-all's.  The pipeline's point-to-point passes its own
+#: ``P2P_STATS`` to the same helpers.
+HOST_STAGING: Dict[str, int] = dict.fromkeys(
+    ("host_copies", "host_copy_bytes"), 0)
+
+
+def host_path(group, device: torch.device) -> bool:
+    """A CUDA payload exchanged over a gloo group goes through the host
+    (gloo's point-to-point and all-to-all take CPU tensors): several
+    processes on one card talk over gloo, NCCL putting no two ranks of a
+    communicator on one device."""
+    return device.type == "cuda" and dist.get_backend(group) == "gloo"
+
+
+def _count_copy(t: torch.Tensor, stats: Optional[Dict[str, int]]) -> None:
+    stats = HOST_STAGING if stats is None else stats
+    stats["host_copies"] += 1
+    stats["host_copy_bytes"] += t.numel() * t.element_size()
+
+
+def to_host(t: torch.Tensor, stats: Optional[Dict[str, int]] = None
+            ) -> torch.Tensor:
+    """A detached, contiguous host copy of ``t``, counted in ``stats``
+    (default :data:`HOST_STAGING`)."""
+    _count_copy(t, stats)
+    return t.detach().to("cpu", memory_format=torch.contiguous_format)
+
+
+def from_host(t: torch.Tensor, device: torch.device,
+              stats: Optional[Dict[str, int]] = None) -> torch.Tensor:
+    """``t`` copied back to ``device``, counted as :func:`to_host`."""
+    _count_copy(t, stats)
+    return t.to(device)
+
+
 def _shift(x: torch.Tensor, group, shift: int) -> torch.Tensor:
     n, r = dist.get_world_size(group), dist.get_rank(group)
-    x = x.contiguous()
+    device = x.device
+    staged = host_path(group, device)
+    x = to_host(x) if staged else x.contiguous()
     out = torch.empty_like(x)
     _count("ring_shift")
     ops = [dist.P2POp(dist.isend, x,
@@ -348,7 +387,7 @@ def _shift(x: torch.Tensor, group, shift: int) -> torch.Tensor:
                       dist.get_global_rank(group, (r - shift) % n), group)]
     for work in dist.batch_isend_irecv(ops):
         work.wait()
-    return out
+    return from_host(out, device) if staged else out
 
 
 def ppermute(x: torch.Tensor, group=None, shift: int = 1) -> torch.Tensor:
@@ -356,6 +395,39 @@ def ppermute(x: torch.Tensor, group=None, shift: int = 1) -> torch.Tensor:
     ``ppermute`` with the permutation ``p -> p + shift``)."""
     return _RingShift.apply(x, group if group is not None else get_tp_group(),
                             shift)
+
+
+class _AllToAll(torch.autograd.Function):
+    """One ``all_to_all_single`` over ``group``: ``send [n, ...]``, block
+    i to rank i of the group, returns ``[n, ...]`` with block i from rank
+    i.  Its backward is the same exchange of the cotangent (an all-to-all
+    is its own transpose: the block that came from rank i goes back to
+    rank i)."""
+
+    @staticmethod
+    def forward(ctx, send, group):
+        ctx.group = group
+        return _all_to_all(send, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
+
+
+def _all_to_all(send: torch.Tensor, group) -> torch.Tensor:
+    device = send.device
+    staged = host_path(group, device)
+    send = to_host(send) if staged else send.contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return from_host(recv, device) if staged else recv
+
+
+def all_to_all(send: torch.Tensor, group) -> torch.Tensor:
+    """The differentiable all-to-all over ``group`` (JAX's ``all_to_all``
+    on the leading dim): the MoE layer's expert exchange and Ulysses'
+    head / sequence exchange."""
+    return _AllToAll.apply(send, group)
 
 
 def _tree_map(fn, *trees):

@@ -55,9 +55,13 @@ included); an expert grad reduce-scatters over ``moe_dp`` only and is
 divided by the whole data group, the dense grads also sum over
 ``moe_ep``.
 
-Not ported yet, each refused by its ROADMAP queue-A item: the int8
-compression modes ("Collectives") and ZeRO beside the ring CP
-("Training CP").
+Beside context parallelism (a GPT under ring or Ulysses attention, whose
+loss is the mean over each rank's sequence shard): ``shard_axis='data'``,
+``grad_reduce_axes=('data', 'context')`` — the context axis is a data
+axis of the reduction (JAX ``tests/test_zero.py:338``).
+
+Not ported yet, refused by its ROADMAP queue-A item: the int8
+compression modes ("Collectives").
 """
 
 from __future__ import annotations
@@ -357,7 +361,10 @@ class ZeroOptimizer:
         in_scan = (accum_reduce == "microbatch" and value_and_grad_fn is None
                    and grad_accum_iters > 1)
 
+        first = True
+
         def step(params, state, batch):
+            nonlocal first
             dims = self.shard_dims(params)
             if value_and_grad_fn is not None:
                 loss, grads = value_and_grad_fn(params, batch)
@@ -366,8 +373,10 @@ class ZeroOptimizer:
                     loss_fn, params, batch, grad_accum_iters,
                     reduce_fn=((lambda g: self.reduce_grads_to_shard(g, dims))
                                if in_scan else None))
-            grads, _ = normalize_model_axis_grads(loss, grads, self.ctx,
-                                                  self.data_axes)
+            # the first step's loss is checked against the layout's rule
+            grads, _ = normalize_model_axis_grads(
+                loss if first else None, grads, self.ctx, self.data_axes)
+            first = False
             g_shard = grads if in_scan else self.reduce_grads_to_shard(
                 grads, dims)
             del grads
