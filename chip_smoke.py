@@ -6461,6 +6461,677 @@ def cp_train_phase(card):
     return {"one_rank": a, "two_ranks": b, "seconds": seconds}
 
 
+# ------------------------------------------------------------ the collectives
+
+COMPRESS_STEPS = 3        # AdamW steps an arm
+COMPRESS_RANKS = 2        # (b): two processes on the one card, gloo between
+COMPRESS_ROWS = 8         # (b): sequences a rank
+#: (b): each loss against its exact arm's, relative — the reference's own
+#: bound (tests/test_compression.py:220, :260, :296, :330, :380)
+COMPRESS_LOSS_TOL = 0.05
+#: (b): step 1's reduced grads against the exact arm's, of each leaf's
+#: largest |value|: the reference's bound for grads through a quantized
+#: forward (:391, TP's activations), which FSDP's quantized gathered
+#: weights also are; a third of it where only the reductions are
+#: quantized (DP, ZeRO)
+COMPRESS_GRAD_TOL = {"forward": 0.15, "reduce": 0.05}
+#: (b): the arms the planted ring fault runs on, and the gate each reads
+FAULT_ARMS = {"zero": "reduce", "fsdp": "forward"}
+STAGING_TOL = 0.10        # (b): measured host-staged ratio / predicted
+COMPRESS_BENCH_BYTES = (16 << 20, 256 << 20)
+COMPRESS_BENCH_OPS = ("all_reduce", "all_gather", "reduce_scatter",
+                      "all_to_all", "ppermute", "int8_all_reduce",
+                      "int8_reduce_scatter", "int8_all_gather")
+#: (b)'s arms: name -> (kind, options); ``tp`` arms run on a tensor 2
+#: layout (the same 8 sequences on both ranks), the others on data 2
+COMPRESS_ARMS = {
+    "dp": ("dp", {}),
+    "dp_int8": ("dp", {"grad_compress": "int8"}),
+    "zero": ("zero", {}),
+    "zero_int8": ("zero", {"grad_compress": "int8",
+                           "gather_compress": None}),
+    "zero_int8_ef": ("zero", {"grad_compress": "int8_ef",
+                              "gather_compress": None}),
+    "zero_int8_gather": ("zero", {"grad_compress": "int8",
+                                  "gather_compress": "int8"}),
+    "fsdp": ("fsdp", {}),
+    "fsdp_int8": ("fsdp", {"grad_compress": "int8"}),
+    "tp": ("tp", {}),
+    "tp_int8": ("tp", {"ag_compress": "int8"}),
+}
+#: (a)'s arms over the one-rank group: name -> (kind, options); each
+#: compressed arm is held to the arm its name starts with
+COMPRESS_ONE_RANK_ARMS = {
+    "dp": ("dp", {}),
+    "dp_int8": ("dp", {"grad_compress": "int8"}),
+    "dp_auto": ("dp", {"grad_compress": "auto"}),
+    "zero": ("zero", {}),
+    "zero_int8": ("zero", {"grad_compress": "int8",
+                           "gather_compress": "follow"}),
+    "zero_int8_ef": ("zero", {"grad_compress": "int8_ef"}),
+    "fsdp": ("fsdp", {}),
+    "fsdp_int8": ("fsdp", {"grad_compress": "int8"}),
+}
+#: each compressed arm of (b) and the exact arm it is held to
+COMPRESS_EXACT = {"dp_int8": "dp", "zero_int8": "zero",
+                  "zero_int8_ef": "zero", "zero_int8_gather": "zero",
+                  "fsdp_int8": "fsdp", "tp_int8": "tp"}
+
+
+def compress_arm(cfg, kind, opts, tp_group=None):
+    """``(params, state, step, grads)`` of one arm: GPT ``cfg`` from seed
+    0 through the step a user calls — ``'dp'`` ``DataParallel``,
+    ``'zero'`` ``ZeroOptimizer`` (bf16 parameters, f32 master shards),
+    ``'fsdp'`` ``FSDP.make_overlap_train_step``, ``'tp'``
+    ``make_train_step``'s TP + SP step over ``tp_group`` — each with
+    ``opts`` (``'tp'``: fields of the config); AdamW(3e-4), remat
+    'flash'.  ``grads(params, state)`` lists the step's reduced grads
+    (ZeRO: the master shards') as ``(leaf name, grad)``."""
+    from torchdistpackage_tpu_torch.models import gpt_loss, init_gpt_params
+    from torchdistpackage_tpu_torch.models.gpt import (
+        gpt_param_specs,
+        shard_gpt_params,
+    )
+    from torchdistpackage_tpu_torch.parallel import (
+        FSDP,
+        DataParallel,
+        ZeroOptimizer,
+        adamw,
+    )
+    from torchdistpackage_tpu_torch.parallel.data_parallel import (
+        make_train_step,
+    )
+    from torchdistpackage_tpu_torch.utils.partition import named_leaves
+
+    params = init_gpt_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    opt = adamw(3e-4)
+    if kind == "tp":
+        cfg = dataclasses.replace(cfg, **opts)
+        params = shard_gpt_params(params, cfg, tp_group.rank(),
+                                  tp_group.size())
+    lf = lambda p, b: gpt_loss(p, b, cfg, remat="flash",  # noqa: E731
+                               tp_group=tp_group, sp=tp_group is not None)
+    if kind == "dp":
+        state = opt.init(params)
+        step = DataParallel(**opts).make_train_step(lf, opt)
+    elif kind == "zero":
+        owner = ZeroOptimizer(opt, param_dtype=cfg.dtype, **opts)
+        params = owner.place_params(params)
+        state = owner.init(params)
+        step = owner.make_train_step(lf)
+    elif kind == "fsdp":
+        owner = FSDP()
+        params = owner.shard_params(params)
+        state = opt.init(params)
+        step = owner.make_overlap_train_step(lf, opt, **opts)
+    else:
+        state = opt.init(params)
+        step = make_train_step(lf, opt, param_specs=gpt_param_specs(params),
+                               sp=True, tp_group=tp_group)
+
+    def grads(params, state):
+        tree = state["master"] if kind == "zero" else params
+        return [(name, p.grad) for name, p in named_leaves(tree)]
+    return params, state, step, grads
+
+
+def compress_run(cfg, kind, opts, batch, steps, tp_group=None,
+                 keep_grads=False):
+    """``steps`` steps of :func:`compress_arm` on ``batch``; the kernels'
+    counts, the collectives and ``HOST_STAGING`` set to 0 just before the
+    steps and read just after.  Returns the losses, host-clock times,
+    K3-K5 launches and host-staged bytes a step, step 1's reduced grads
+    (f32 copies, ``keep_grads``) and the state."""
+    from torchdistpackage_tpu_torch.ops import flash_attention as fa
+    from torchdistpackage_tpu_torch.parallel.tensor_parallel import (
+        COLLECTIVES,
+    )
+    from torchdistpackage_tpu_torch.parallel.tensor_parallel.tp_utils import (
+        HOST_STAGING,
+    )
+
+    params, state, step, grads = compress_arm(cfg, kind, opts, tp_group)
+    torch.cuda.synchronize()
+    reset_counts()
+    for d in (COLLECTIVES, HOST_STAGING):
+        for k in d:
+            d[k] = 0
+    losses, times, first = [], [], None
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss, _ = step(params, state, batch)
+        losses.append(float(loss))  # reads back: waits for the step
+        times.append(time.perf_counter() - t0)
+        if i == 0 and keep_grads:
+            first = [(name, g.detach().float().clone())
+                     for name, g in grads(params, state)]
+    return {"losses": losses, "times": times,
+            "launches": {k: v / steps for k, v in fa.LAUNCHES.items()},
+            "staged": HOST_STAGING["host_copy_bytes"] / steps,
+            "collectives": {k: v // steps for k, v in COLLECTIVES.items()
+                            if v},
+            "grads": first, "params": params, "state": state}
+
+
+def int8_payload(c):
+    """The bytes an int8 ring moves for ``c`` elements: the codes and one
+    f32 scale a group (``dist.compressed``'s packing)."""
+    from torchdistpackage_tpu_torch.dist.compressed import _group_size
+
+    return c + 4 * (c // _group_size(c))
+
+
+def staged_prediction(cfg, rows, n):
+    """(b)'s host-staged bytes a step and rank, by arm, from the leaves'
+    shapes and the staging rules of ``tp_utils``: each copy to the host
+    and back counted, so an all-reduce of P bytes stages 2P, an
+    all-gather of this rank's b bytes (n + 1) b, a reduce-scatter of P
+    (1 + 1/n) P, a ring hop of b 2b; an int8 payload of c elements is
+    :func:`int8_payload` (``obs.comm_model.compressed_payload_bytes``'s
+    1 byte an element and 4 / 256 for the scales).  The int8 collectives:
+    the mean (``int8_ring_pmean``) n - 1 hops and the gather of the
+    finished chunks, the reduce-scatter n - 1 hops, the all-gather and the
+    re-gather one all-gather of the codes.  TP + SP: per layer and step 11
+    boundary collectives, 6 gathers and 5 reduce-scatters (2 of each
+    forward, their 4 backwards, and the attention's two and the MLP's
+    gather again in the 'flash' recompute), each ``3 B S D`` bytes exact; the embedding's
+    all-reduce, the split's and the head gather's and their backwards,
+    the loss's reductions and the SP sums exact in both arms.  Also
+    returns, beside each compressed arm, the reference model's ratio
+    (``compressed_wire_bytes`` over ``wire_bytes``)."""
+    from torchdistpackage_tpu_torch.models import init_gpt_params
+    from torchdistpackage_tpu_torch.models.gpt import (
+        gpt_param_specs,
+        shard_gpt_params,
+    )
+    from torchdistpackage_tpu_torch.obs.comm_model import (
+        compressed_wire_bytes,
+        wire_bytes,
+    )
+    from torchdistpackage_tpu_torch.parallel.tensor_parallel import (
+        PARTIAL_UNDER_SP,
+    )
+    from torchdistpackage_tpu_torch.parallel.zero import (
+        leaf_specs,
+        zero_partition_spec,
+    )
+    from torchdistpackage_tpu_torch.utils.partition import named_leaves
+
+    params = init_gpt_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(0))
+    leaves = [(name, tuple(p.shape), p.numel()) for name, p in
+              named_leaves(params)]
+    tp_shard = shard_gpt_params(params, cfg, 0, n)
+    partial = sum(p.numel() for p, s in zip(
+        (p for _, p in named_leaves(tp_shard)),
+        leaf_specs(tp_shard, gpt_param_specs(tp_shard)))
+        if s == PARTIAL_UNDER_SP)
+    del params, tp_shard
+    q = int8_payload
+    ar = lambda b: 2 * b  # noqa: E731
+    ag = lambda b: (n + 1) * b  # noqa: E731
+    rs = lambda b: b + b // n  # noqa: E731
+    loss, norm = ar(4), ar(16)  # the f32 loss's and the norm's all-reduces
+    big = [(E, zero_partition_spec(s, None, n)) for _, s, E in leaves]
+    thr = 65536
+
+    def pmean8(E):
+        return (3 * n - 1) * q(E // n) if E % n == 0 else ar(2 * E)
+
+    out = {"dp": sum(ar(2 * E) for E, _ in big) + loss}
+    out["dp_int8"] = sum(pmean8(E) if E >= thr else ar(2 * E)
+                         for E, _ in big) + loss
+    zero = sum(rs(4 * E) + ag(2 * E // n) if d >= 0 else ar(4 * E)
+               for E, d in big) + loss + norm
+    out["zero"] = zero
+    comp = [(E, d) for E, d in big if d >= 0 and E >= thr]
+    out["zero_int8"] = zero - sum(rs(4 * E) - 2 * (n - 1) * q(E // n)
+                                  for E, _ in comp)
+    out["zero_int8_ef"] = out["zero_int8"]
+    out["zero_int8_gather"] = out["zero_int8"] - sum(
+        ag(2 * E // n) - (n + 1) * q(E // n) for E, _ in comp)
+    fsdp = sum(ag(2 * E // n) + rs(2 * E) if d >= 0 else ar(2 * E)
+               for E, d in big) + loss + norm
+    out["fsdp"] = fsdp
+    out["fsdp_int8"] = fsdp - sum(
+        ag(2 * E // n) + rs(2 * E) - ag(q(E // n)) - 2 * (n - 1) * q(E // n)
+        for E, _ in comp)
+    B, S, D, L = rows, cfg.max_seq, cfg.dim, cfg.nlayers
+    F, X = B * S * D, B * S * D // n
+    edge = ar(2 * F) + ag(2 * X) + ag(2 * X) + rs(2 * F) \
+        + ar(4 * B * S) + ar(8 * B * S) + ar(2 * partial) + norm
+    out["tp"] = edge + 11 * L * ag(2 * X)
+    out["tp_int8"] = edge + L * (6 * ag(q(X)) + 5 * 2 * (n - 1) * q(X))
+    model = {
+        "dp_int8": sum((compressed_wire_bytes("all_reduce", 2 * E, n, 2)
+                        if E >= thr else wire_bytes("all_reduce", 2 * E, n))
+                       for E, _ in big)
+        / sum(wire_bytes("all_reduce", 2 * E, n) for E, _ in big),
+        "zero_int8": sum(compressed_wire_bytes("reduce_scatter", 4 * E, n)
+                         for E, _ in comp)
+        / sum(wire_bytes("reduce_scatter", 4 * E, n) for E, _ in comp),
+    }
+    return out, model
+
+
+def ef_bound_check(run):
+    """``'int8_ef'``'s residual after the run: each compressed leaf's
+    residual against one quantization step of each group of what was
+    compressed (at one rank the master's grad is ``Q(x)`` and ``x =
+    Q(x) + e``): ``(largest |e| / (group amax / 127), leaves checked,
+    largest |e|)``."""
+    from torchdistpackage_tpu_torch.dist.compressed import _group_size
+    from torchdistpackage_tpu_torch.obs.numerics import tree_leaves
+
+    worst, checked, emax = 0.0, 0, 0.0
+    for m, e in zip(tree_leaves(run["state"]["master"]),
+                    tree_leaves(run["state"]["ef"])):
+        if m.numel() < 65536:
+            continue
+        x = (m.grad.float() + e).reshape(-1)
+        g = _group_size(x.numel())
+        step = x.reshape(-1, g).abs().amax(dim=1) / 127.0
+        ratio = (e.reshape(-1, g).abs().amax(dim=1)
+                 / step.clamp_min(1e-30)).max()
+        worst = max(worst, float(ratio))
+        emax = max(emax, float(e.abs().max()))
+        checked += 1
+    return worst, checked, emax
+
+
+def compress_one_rank(card):
+    """(a): GPT-125M at full width and depth, batch 16, 3 AdamW steps an
+    arm, over a one-rank NCCL data group: DataParallel exact / 'int8' /
+    'auto', ZeroOptimizer exact / 'int8' (gather 'follow') / 'int8_ef',
+    FSDP's overlap step exact / 'int8'."""
+    from torchdistpackage_tpu_torch.dist import compressed as C
+    from torchdistpackage_tpu_torch.obs.numerics import tree_leaves
+
+    cfg, rows, steps = gpt_125m(), TRAIN_BATCH, COMPRESS_STEPS
+    L, tag, bad, out = cfg.nlayers, "[compress] (a)", [], {}
+    # the quantizer on the card against the CPU on the same values
+    rs = np.random.RandomState(0)
+    x = rs.randn(1 << 22).astype(np.float32)
+    x[::97] *= 500.0
+    qc, sc = C._quant(torch.from_numpy(x).cuda())
+    qh, sh = C._quant(torch.from_numpy(x))
+    code_diff = int((qc.cpu() != qh).sum())
+    scale_diff = int((sc.cpu() != sh).sum())
+    deq_same = torch.equal(C._dequant(qc, sc).cpu(), C._dequant(qh, sh))
+    log(f"{tag} _quant on the card against the CPU, {x.size} numpy-seeded "
+        f"f32 values (outliers x500 every 97th): codes that differ "
+        f"{code_diff}, scales that differ {scale_diff}, _dequant "
+        f"bit-identical {deq_same} — on {card}")
+    if code_diff or scale_diff or not deq_same:
+        bad.append("(a) the card's quantizer differs from the CPU's")
+    out["quant_code_diff"] = code_diff
+    batch = random_batch(cfg, rows, 1)
+    with one_rank_layout("compress", [("data", 1)]):
+        runs = {}
+        for name, (kind, opts) in COMPRESS_ONE_RANK_ARMS.items():
+            run = compress_run(cfg, kind, opts, batch, steps)
+            run["params"] = [p.detach().clone() for p in
+                             tree_leaves(run["params"])]
+            if name == "zero_int8_ef":
+                run["ef"] = ef_bound_check(run)
+            run.pop("state")
+            runs[name] = run
+            ok = (all(np.isfinite(run["losses"]))
+                  and all(v == L for v in run["launches"].values()))
+            exact = name.split("_")[0]
+            same = None
+            if exact != name:
+                ref = runs[exact]
+                same = (run["losses"] == ref["losses"] and all(
+                    torch.equal(a, b) for a, b in zip(run["params"],
+                                                      ref["params"])))
+            extra = ""
+            if name == "zero_int8_ef":
+                worst, checked, emax = run["ef"]
+                gap = max(abs(a - b) / abs(b) for a, b in
+                          zip(run["losses"], runs["zero"]["losses"]))
+                alive = emax > 0.0
+                extra = (f"; differs from the exact arm by the quantizer "
+                         f"alone: step 1's loss bit-identical "
+                         f"{run['losses'][0] == runs['zero']['losses'][0]}, "
+                         f"largest relative loss gap {gap:.3e} (tolerance "
+                         f"{COMPRESS_LOSS_TOL}); the residual of {checked} "
+                         f"compressed leaves: largest |e| {emax:.3e} "
+                         f"(alive: {alive}), largest |e| / (group amax / "
+                         f"127) {worst:.4f} (bound 1)")
+                ok = ok and alive and worst <= 1.0 and gap <= \
+                    COMPRESS_LOSS_TOL and run["losses"][0] == \
+                    runs["zero"]["losses"][0]
+                same = None
+            elif same is not None:
+                extra = (f"; losses and every parameter after step {steps} "
+                         f"bit-identical to the exact arm: {same}")
+                ok = ok and same
+            log(f"{tag} {name}: GPT-125M, batch {rows}, S {cfg.max_seq}, "
+                f"bf16, remat 'flash', {steps} steps over a one-rank NCCL "
+                f"data group: losses "
+                + ", ".join(f"{v:.6f}" for v in run["losses"])
+                + f"; step median {np.median(run['times']) * 1e3:.2f} ms; "
+                f"K3-K5 a step {run['launches']}; collectives a step "
+                f"{run['collectives']}{extra} — on {card}")
+            if not ok:
+                bad.append(f"(a) {name}: not finite, launches off, or not "
+                           f"as its exact arm")
+            out[name] = {"losses": run["losses"], "launches": run["launches"],
+                         "step_ms": float(np.median(run["times"]) * 1e3),
+                         "same_as_exact": same}
+        out["zero_int8_ef"]["ef"] = list(runs["zero_int8_ef"]["ef"])
+        # the planted fault: an error feedback that drops the residual
+        real = C.ef_compress
+        C.ef_compress = lambda x: (real(x)[0], torch.zeros(
+            x.shape, dtype=torch.float32, device=x.device))
+        try:
+            run = compress_run(cfg, "zero", {"grad_compress": "int8_ef"},
+                               batch, 1)
+            worst, checked, emax = ef_bound_check(run)
+        finally:
+            C.ef_compress = real
+        caught = not emax > 0.0
+        log(f"{tag} planted fault: ef_compress drops the residual: largest "
+            f"|e| after a step {emax:.3e} — "
+            f"{'caught' if caught else 'NOT caught'} by the gate")
+        if not caught:
+            bad.append("(a) the dropped residual passed")
+        del runs, run
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out, bad
+
+
+def worst_leaf(got, want, top=3):
+    """Step 1's grads of an arm (``[(leaf name, grad)]``) against its
+    exact arm's, leaf by leaf (:func:`grad_gap`): the worst leaf's name
+    and gap, the runner-up's, how many of the worst leaf's elements are
+    off by more than half its gap (of its largest |want|), and its
+    ``top`` worst elements as ``[flat index, got, want]``."""
+    gaps = sorted(((grad_gap(a, b), name) for (name, a), (_, b) in
+                   zip(got, want)), reverse=True)
+    gap, name = gaps[0]
+    a, b = dict(got)[name].reshape(-1), dict(want)[name].reshape(-1)
+    d = (a - b).abs()
+    amax = float(b.abs().max().clamp_min(1e-30))
+    idx = torch.topk(d, min(top, d.numel())).indices.tolist()
+    return {"leaf": name, "gap": gap, "elems": d.numel(), "want_amax": amax,
+            "over_half": int((d > 0.5 * gap * amax).sum()),
+            "top": [[i, float(a[i]), float(b[i])] for i in idx],
+            "runner_up": list(gaps[1][::-1]) if len(gaps) > 1 else None}
+
+
+def faulty_ring(module):
+    """The int8 reduce-scatter ring with the planted fault: each hop adds
+    the wrong travelling chunk (``idx - t - 1`` for ``idx - t - 2``),
+    built from the module's own source."""
+    import inspect
+    import textwrap
+
+    src = textwrap.dedent(inspect.getsource(module._ring_reduce_scatter))
+    if "idx - t - 2" not in src:
+        raise RuntimeError("the ring's source changed: no 'idx - t - 2'")
+    ns = dict(vars(module))
+    exec(src.replace("idx - t - 2", "idx - t - 1"), ns)
+    return ns["_ring_reduce_scatter"]
+
+
+def compress_rank(rank, world, port, tmp):
+    """One rank of :func:`compress_phase` (b) in its own process: a gloo
+    group on the loopback (NCCL puts no two ranks of a communicator on
+    one card; every collective of a CUDA tensor goes through the host,
+    counted in ``tp_utils.HOST_STAGING``), the flash kernels from the
+    parent's build.  GPT-125M at full width and depth from the parent's
+    seed: every arm of :data:`COMPRESS_ARMS`, 3 AdamW steps; the planted
+    ring fault on ZeroOptimizer 'int8' and on FSDP 'int8' (one step
+    each); then
+    ``comm_bench.test_collection`` over the pair.  Writes
+    ``rank<r>.json``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from torchdistpackage_tpu_torch.dist import comm_bench, tpc
+    from torchdistpackage_tpu_torch.dist import compressed as C
+    from torchdistpackage_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(2)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        _build.load_all(["flash_attention"])
+        cfg = gpt_125m()
+        full = random_batch(cfg, COMPRESS_ROWS * world, 1)
+        own = {k: v[rank * COMPRESS_ROWS:(rank + 1) * COMPRESS_ROWS]
+               .contiguous() for k, v in full.items()}
+        same = {k: v[:COMPRESS_ROWS].contiguous() for k, v in full.items()}
+        res = {"rank": rank, "arms": {}}
+        exact_grads = {}
+        for layout in ("data", "tensor"):
+            tpc.setup_process_groups([(layout, world)])
+            group = tpc.get_group("tensor") if layout == "tensor" else None
+            for name, (kind, opts) in COMPRESS_ARMS.items():
+                if (kind == "tp") != (layout == "tensor"):
+                    continue
+                run = compress_run(cfg, kind, opts,
+                                   same if kind == "tp" else own,
+                                   COMPRESS_STEPS, tp_group=group,
+                                   keep_grads=True)
+                row = {k: run[k] for k in ("losses", "times", "launches",
+                                           "staged", "collectives")}
+                if name in COMPRESS_EXACT:
+                    row["worst"] = worst_leaf(
+                        run["grads"], exact_grads[COMPRESS_EXACT[name]])
+                    row["grad_gap"] = row["worst"]["gap"]
+                else:
+                    exact_grads[name] = run["grads"]
+                res["arms"][name] = row
+                del run
+                gc.collect()
+                torch.cuda.empty_cache()
+            if layout == "data":
+                # the planted fault: the ring adds the wrong chunk, under
+                # ZeRO's reduce-to-owner and FSDP's int8 gather's backward
+                real = C._ring_reduce_scatter
+                C._ring_reduce_scatter = faulty_ring(C)
+                res["fault"] = {}
+                try:
+                    for kind in FAULT_ARMS:
+                        run = compress_run(cfg, kind,
+                                           COMPRESS_ARMS[f"{kind}_int8"][1],
+                                           own, 1, keep_grads=True)
+                        res["fault"][kind] = worst_leaf(run["grads"],
+                                                        exact_grads[kind])
+                        del run
+                finally:
+                    C._ring_reduce_scatter = real
+                exact_grads.clear()
+                gc.collect()
+                torch.cuda.empty_cache()
+                rows = comm_bench.test_collection(
+                    "data", sizes=COMPRESS_BENCH_BYTES,
+                    ops=COMPRESS_BENCH_OPS, verbose=False, warmup=1,
+                    iters=3)
+                res["bench"] = rows
+            tpc.reset()
+        (Path(tmp) / f"rank{rank}.json").write_text(json.dumps(res))
+        dist.barrier()
+    finally:
+        tpc.reset()
+        dist.destroy_process_group()
+
+
+def compress_two_ranks(card, timeout=900):
+    """(b) of :func:`compress_phase`: the host-staged bytes predicted,
+    then :func:`compress_rank` on two spawned processes; every gate
+    read."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from torchdistpackage_tpu_torch.obs.comm_model import CommModel
+
+    cfg, n, tag = gpt_125m(), COMPRESS_RANKS, "[compress] (b)"
+    pred, model = staged_prediction(cfg, COMPRESS_ROWS, n)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{tag} predicted host-staged bytes a step and rank, before the "
+        f"run (staged_prediction): "
+        + ", ".join(f"{k} {v}" for k, v in pred.items())
+        + "; compressed / exact: "
+        + ", ".join(f"{k} {pred[k] / pred[e]:.4f}"
+                    for k, e in COMPRESS_EXACT.items())
+        + "; the reference model's wire ratio (compressed_wire_bytes, its "
+        "psum gather leg): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in model.items()))
+    tmp = Path(tempfile.mkdtemp(prefix="tdp-compress-"))
+    try:
+        ctx = mp.get_context("spawn")
+        port = free_port()
+        procs = [ctx.Process(target=compress_rank, args=(r, n, port,
+                                                         str(tmp)))
+                 for r in range(n)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.perf_counter() + timeout
+        for p in procs:
+            p.join(max(1.0, deadline - time.perf_counter()))
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(30)
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * n:
+            raise RuntimeError(f"compress (b): ranks exited {codes}")
+        res = [json.loads((tmp / f"rank{r}.json").read_text())
+               for r in range(n)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    bad, out = [], {"predicted": pred, "model_ratio": model, "arms": {}}
+    L = cfg.nlayers
+    for name, (kind, _) in COMPRESS_ARMS.items():
+        rows = [r["arms"][name] for r in res]
+        ok = all(all(np.isfinite(x["losses"])) for x in rows) and all(
+            v == L for x in rows for v in x["launches"].values())
+        line = (f"{tag} {name}: GPT-125M, S {cfg.max_seq}, bf16, remat "
+                f"'flash', {COMPRESS_ROWS} sequences a rank"
+                f"{' (the same on both: TP 2 + SP)' if kind == 'tp' else ''}"
+                f", {COMPRESS_STEPS} steps over {n} processes (gloo, "
+                f"host-staged): losses by rank "
+                + "; ".join(", ".join(f"{v:.6f}" for v in x["losses"])
+                            for x in rows)
+                + f"; K3-K5 a step {rows[0]['launches']}; host-staged bytes "
+                f"a step {rows[0]['staged']:.0f} (predicted {pred[name]})")
+        row_out = {"losses": [x["losses"] for x in rows],
+                   "staged": rows[0]["staged"], "predicted": pred[name],
+                   "step_ms": [float(np.median(x["times"]) * 1e3)
+                               for x in rows],
+                   "launches": rows[0]["launches"]}
+        if name in COMPRESS_EXACT:
+            ex = [r["arms"][COMPRESS_EXACT[name]] for r in res]
+            gap = max(abs(a - b) / abs(b) for x, e in zip(rows, ex)
+                      for a, b in zip(x["losses"], e["losses"]))
+            moved = all(x["losses"][-1] != x["losses"][0] for x in rows)
+            ggap = max(x["grad_gap"] for x in rows)
+            gtol = COMPRESS_GRAD_TOL["forward" if kind in ("tp", "fsdp")
+                                     else "reduce"]
+            ratio = rows[0]["staged"] / ex[0]["staged"]
+            worst = max((x["worst"] for x in rows), key=lambda w: w["gap"])
+            want = pred[name] / pred[COMPRESS_EXACT[name]]
+            line += (f"; largest relative loss gap to {COMPRESS_EXACT[name]} "
+                     f"{gap:.3e} (tolerance {COMPRESS_LOSS_TOL}), losses "
+                     f"move step 1 -> {COMPRESS_STEPS}: {moved}; step 1's "
+                     f"reduced grads {ggap:.3e} of each leaf's largest "
+                     f"|value| (tolerance {gtol}), worst leaf "
+                     f"{worst['leaf']}: {worst['over_half']} of "
+                     f"{worst['elems']} elements off by more than half "
+                     f"the gap, largest |exact| {worst['want_amax']:.3e}, "
+                     f"worst elements [index, got, exact] {worst['top']}, "
+                     f"runner-up {worst['runner_up']}; host-staged ratio to "
+                     f"{COMPRESS_EXACT[name]} {ratio:.4f} (predicted "
+                     f"{want:.4f}, {ratio / want - 1:+.3%}, tolerance "
+                     f"{STAGING_TOL:.0%})")
+            ok = ok and gap <= COMPRESS_LOSS_TOL and moved and \
+                ggap <= gtol and abs(ratio / want - 1) <= STAGING_TOL
+            row_out.update(loss_gap=gap, grad_gap=ggap, staged_ratio=ratio,
+                           predicted_ratio=want, worst_leaf=worst)
+        line += (f"; step median by rank "
+                 + ", ".join(f"{v:.1f}" for v in row_out["step_ms"])
+                 + f" ms (two processes share one card and a host-staged "
+                 f"gloo exchange: not NVLink) — on {card}")
+        log(line)
+        if not ok:
+            bad.append(f"(b) {name}: off")
+        out["arms"][name] = row_out
+    out["fault_grad_gap"] = {}
+    for kind, tol in FAULT_ARMS.items():
+        fault = max(r["fault"][kind]["gap"] for r in res)
+        caught = fault > COMPRESS_GRAD_TOL[tol]
+        log(f"{tag} planted fault: the int8 reduce-scatter ring adds the "
+            f"wrong travelling chunk (idx - t - 1), {kind} 'int8' one step: "
+            f"step 1's reduced grads {fault:.3e} of each leaf's largest "
+            f"|value| (worst leaf by rank "
+            + ", ".join(r["fault"][kind]["leaf"] for r in res)
+            + f"; gate {COMPRESS_GRAD_TOL[tol]}) — "
+            f"{'caught' if caught else 'NOT caught'} by the gate")
+        if not caught:
+            bad.append(f"(b) the ring fault passed under {kind}")
+        out["fault_grad_gap"][kind] = fault
+    rows = res[0]["bench"]
+    log(f"{tag} comm_bench.test_collection over the pair's data group: "
+        f"gloo over the loopback with every payload staged through the "
+        f"host — not NVLink — on {card}; one comm record a line:")
+    for row in rows:
+        log(json.dumps(row))
+    model = CommModel.calibrate(records=rows)
+    fit = {a: c.as_dict() for a, c in model.axis_costs.items()}
+    qfit = {a: c.as_dict() for a, c in model.compressed_axis_costs.items()}
+    log(f"{tag} CommModel.calibrate from those records (gloo over the "
+        f"loopback, host-staged — on {card}): exact {fit}, int8 {qfit}; "
+        f"predict_compressed('all_reduce', 256 MiB bf16, 2) "
+        + json.dumps({k: v for k, v in model.predict_compressed(
+            "all_reduce", 256 << 20, 2, axes=("data",),
+            elem_bytes=2).items() if k in ("exact_s", "compressed_s",
+                                           "compress", "basis")}))
+    out.update(bench=rows, fit=fit, int8_fit=qfit, seconds=seconds)
+    log(f"{tag} two processes on one card: {seconds:.1f} s with both "
+        f"processes' start")
+    return out, bad
+
+
+def compress_phase(card):
+    """The compressed collectives on the card: (a) one rank, the int8
+    modes bit-identical to their exact arms (the reference's ``n == 1``
+    contract) but 'int8_ef', which differs by the quantizer alone, and
+    the card's quantizer against the CPU's; (b) two processes over gloo,
+    each compressed arm within 5 % of its exact arm, its host-staged
+    bytes at the prediction, a planted ring fault, and
+    ``comm_bench`` with ``CommModel.calibrate``.  The multi-rank rings at
+    n 2 and 4 are held against JAX on the CPU
+    (tests/test_torch_compressed.py)."""
+    t_phase = time.perf_counter()
+    a, bad = compress_one_rank(card)
+    log(f"[compress] this process holds "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB before the two ranks "
+        f"start")
+    b, bad_b = compress_two_ranks(card)
+    bad += bad_b
+    seconds = time.perf_counter() - t_phase
+    log(f"[compress] phase done in {seconds:.1f} s")
+    if bad:
+        raise RuntimeError("compress: " + "; ".join(bad))
+    return {"one_rank": a, "two_ranks": b, "seconds": seconds}
+
+
 def tp_engine_phase(params, cfg, card, plain):
     """The Mistral engine (all 32 layers) over a one-rank NCCL ``tensor``
     group: the rank's shard (``shard_gpt_params``: at one rank views of
@@ -7547,6 +8218,9 @@ def main():
     dp_train_phase(card)
     tp_train = tp_train_phase(card)
     zero_fsdp = zero_fsdp_phase(card)
+    # the int8 collectives in DP, ZeRO, FSDP and TP + SP: one rank, then
+    # two processes over gloo, comm_bench and the model's fit
+    compress = compress_phase(card)
     pipe = pipeline_phase(card, train["step_ms"])
     # MoE training: K6 and K7 under autograd at bench.py's --moe leaf
     moe_train = moe_train_phase(card)
@@ -7683,6 +8357,11 @@ def main():
             "zero_fsdp_launches": {
                 m: zero_fsdp[m]["launches"][kname] for m in (
                     "zero", "zero_clip", "fsdp", "fsdp_overlap")},
+            "compress_launches_a_step": {
+                "one_rank": {m: compress["one_rank"][m]["launches"][kname]
+                             for m in COMPRESS_ONE_RANK_ARMS},
+                "two_ranks": {m: compress["two_ranks"]["arms"][m][
+                    "launches"][kname] for m in COMPRESS_ARMS}},
             "pipeline_launches_a_step": {
                 "one_stage_1f1b": pipe["one_stage"]["launches"][kname],
                 **{f"{m}_one_stage": pipe["one_stage"]["runs"][m][

@@ -258,16 +258,16 @@ def planted(case):
 
     if case == "fault_sum":
         def fn(old):
-            def summed(self, grads, dims):
-                red = old(self, grads, dims)
+            def summed(self, grads, dims, *rest):
+                red = old(self, grads, dims, *rest)
                 return {k: v * self.total for k, v in red.items()}
             return summed
         return patch("reduce_grads_to_shard", fn)
     if case == "fault_regather":
         def fn(old):
-            def skip_w1(self, params, master, dims):
+            def skip_w1(self, params, master, dims, *rest):
                 keep = params["w1"].detach().clone()
-                old(self, params, master, dims)
+                old(self, params, master, dims, *rest)
                 with torch.no_grad():
                     params["w1"].copy_(keep)
                 return params

@@ -511,10 +511,18 @@ def test_dp_refusals(world1):
         reduce_gradients,
     )
 
-    with pytest.raises(NotImplementedError, match="Collectives"):
-        DataParallel(grad_compress="int8")
-    with pytest.raises(NotImplementedError, match="Collectives"):
-        reduce_gradients({"w": torch.ones(2)}, compress="auto")
+    # JAX's modes are accepted (at one rank the int8 mean is the exact
+    # one; the multi-rank runs are in tests/test_torch_compressed.py)
+    assert DataParallel(grad_compress="int8").grad_compress == "int8"
+    g = reduce_gradients({"w": torch.arange(4.0)}, compress="auto",
+                         compress_min_size=0, compress_policy={"w": True})
+    assert torch.equal(g["w"], torch.arange(4.0))
+    with pytest.raises(ValueError, match="ZeroOptimizer"):
+        DataParallel(grad_compress="int8_ef")
+    with pytest.raises(ValueError, match="unknown grad_compress"):
+        reduce_gradients({"w": torch.ones(2)}, compress="int4")
+    with pytest.raises(ValueError, match="mean-op"):
+        DataParallel(grad_compress="int8", reduce_op="sum")
     with pytest.raises(ValueError, match="reduce op"):
         DataParallel(reduce_op="max")
     dp = DataParallel()

@@ -478,15 +478,20 @@ def _layout(axes):
     return ctx
 
 
-@pytest.mark.parametrize("kw,item", [
-    ({"grad_compress": "int8"}, "Collectives"),
-    ({"grad_compress": "int8_ef"}, "Collectives"),
-    ({"grad_compress": "auto"}, "Collectives"),
-    ({"gather_compress": "int8"}, "Collectives"),
+@pytest.mark.parametrize("kw,unknown", [
+    ({"grad_compress": "int8"}, {"grad_compress": "int4"}),
+    ({"grad_compress": "int8_ef"}, {"grad_compress": "int8ef"}),
+    ({"grad_compress": "auto"}, {"grad_compress": "always"}),
+    ({"gather_compress": "int8"}, {"gather_compress": "int4"}),
 ])
-def test_zero_refuses_what_waits(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
+def test_zero_refuses_what_waits(kw, unknown):
+    """JAX's compression modes are accepted (the layout-only context then
+    stops at the process groups it lacks; the modes run in
+    tests/test_torch_compressed.py); an unknown mode is a ValueError."""
+    with pytest.raises(RuntimeError, match="no process groups"):
         ZeroOptimizer(adamw(), ctx=_layout([("data", 4)]), **kw)
+    with pytest.raises(ValueError, match="unknown"):
+        ZeroOptimizer(adamw(), ctx=_layout([("data", 4)]), **unknown)
 
 
 @pytest.mark.parametrize("axes,item", [
@@ -533,17 +538,29 @@ def test_zero_override_refusals_match_jax():
 
 
 def test_compression_refusals_elsewhere():
-    """FSDP's int8 gathers and the prefetched scan's wait for
-    'Collectives'; a handle other than adamw() or the chain is a
-    TypeError (``DataParallel``'s own refusal is in
+    """FSDP's int8 gathers and the prefetched scan's are accepted (an
+    unknown mode is a ValueError; the int8 runs are in
+    tests/test_torch_compressed.py); a handle other than adamw() or the
+    chain is a TypeError (``DataParallel``'s own modes are in
     tests/test_torch_dp.py)."""
-    with pytest.raises(NotImplementedError, match="Collectives"):
-        FSDP(ctx=_layout([("data", 4)])).make_overlap_train_step(
-            lambda p, b: 0, adamw(), grad_compress="int8")
-    with pytest.raises(NotImplementedError, match="Collectives"):
+    fsdp = FSDP(ctx=_layout([("data", 4)]))
+    assert callable(fsdp.make_overlap_train_step(
+        lambda p, b: 0, adamw(), grad_compress="int8"))
+    with pytest.raises(ValueError, match="grad_compress"):
+        fsdp.make_overlap_train_step(lambda p, b: 0, adamw(),
+                                     grad_compress="int4")
+    # whole leaves (dim -1) gather nothing: the scan runs without a group
+    seen = []
+    out = prefetched_layer_scan({"w": torch.ones(4, 8, 8)},
+                                torch.zeros(2, 8),
+                                lambda lp, h, i: seen.append(i) or h + lp[
+                                    "w"].sum(), None, {"w": -1},
+                                compress="int8")
+    assert seen == [0, 1, 2, 3] and float(out[0, 0]) == 256.0
+    with pytest.raises(ValueError, match="compress"):
         prefetched_layer_scan({"w": torch.zeros(4, 8, 8)}, torch.zeros(2, 8),
                               lambda lp, h, i: h, None, {"w": 1},
-                              compress="int8")
+                              compress="int4")
     with pytest.raises(TypeError, match="adamw"):
         ZeroOptimizer(torch.optim.SGD, ctx=_layout([("data", 4)]))
     with pytest.raises(TypeError, match="chain takes"):

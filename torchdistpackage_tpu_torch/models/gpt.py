@@ -79,6 +79,11 @@ class GPTConfig:
     # sequence parallelism's rings (TransformerConfig.collective_matmul)
     collective_matmul: bool = False
     cm_min_bytes: int = 1 << 20
+    # sequence parallelism's int8 boundaries (TransformerConfig.ag_compress;
+    # the reference's GPTConfig has no such field: its TP + SP int8
+    # boundaries are reached through TransformerConfig alone)
+    ag_compress: Optional[str] = None
+    compress_min_bytes: int = 1 << 16
     # Mixture-of-Experts (0 = dense model).  With ``moe_experts > 0`` every
     # ``moe_every``-th block's FFN is an expert layer (``models/gpt_moe.py``
     # builds the per-block list); serving runs it (``paged_forward_moe``),
@@ -129,7 +134,8 @@ class GPTConfig:
             norm=self.norm, act=self.act, ffn_hidden=self.ffn_hidden,
             norm_eps=self.norm_eps, sliding_window=self.sliding_window,
             collective_matmul=self.collective_matmul,
-            cm_min_bytes=self.cm_min_bytes)
+            cm_min_bytes=self.cm_min_bytes, ag_compress=self.ag_compress,
+            compress_min_bytes=self.compress_min_bytes)
 
     def num_params(self) -> int:
         D, V, L = self.dim, self.vocab_size, self.nlayers

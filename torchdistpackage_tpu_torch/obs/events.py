@@ -36,6 +36,9 @@ EVENT_KINDS: FrozenSet[str] = frozenset({
     # MoE: which dispatch 'auto' resolved to, and the host-side
     # capacity-overflow alarm (dropped-token rate over threshold)
     "moe_dispatch_selected", "expert_overflow",
+    # the collectives: grad_compress='auto''s per-leaf choices, and the
+    # overlap regime dist.overlap.configure set
+    "compress_policy", "overlap_configure",
 })
 
 

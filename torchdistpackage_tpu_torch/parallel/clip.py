@@ -32,6 +32,7 @@ import torch.distributed as dist
 from ..device import resolve_device
 from ..obs.events import default_event_log
 from ..obs.numerics import tree_leaves
+from .tensor_parallel.tp_utils import all_reduce_
 
 
 def _as_groups(node) -> Tuple[Any, ...]:
@@ -76,7 +77,7 @@ def _norms(tensors: Sequence[torch.Tensor],
     out = torch.zeros(2, dtype=torch.float64, device=tensors[0].device)
     for gs, v in parts.items():
         for g in gs:
-            dist.all_reduce(v, group=g)
+            all_reduce_(v, g)
         out += v
     return out
 
@@ -228,7 +229,7 @@ class DynamicLossScale:
             for g in gs:
                 if not any(g is s for s in seen):
                     seen.append(g)
-                    dist.all_reduce(finite, op=dist.ReduceOp.MIN, group=g)
+                    all_reduce_(finite, g, dist.ReduceOp.MIN)
         ok = finite.bool()
         grow = state.good_steps + 1 >= self.growth_interval
         new_scale = torch.where(

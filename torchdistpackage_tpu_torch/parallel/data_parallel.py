@@ -69,7 +69,13 @@ from ..utils.data import shard_batch as _shard_batch
 from ..utils.partition import named_leaves
 from .clip import _norms, clip_of, clip_scale, scale_
 from .tensor_parallel.layers import PARTIAL_UNDER_SP, grad_taps, spec_pairs
-from .tensor_parallel.tp_utils import host_path, to_host
+from .tensor_parallel.tp_utils import (
+    all_reduce_,
+    from_host,
+    host_path,
+    start_all_reduce,
+    to_host,
+)
 
 AxisName = Union[str, Tuple[str, ...]]
 
@@ -246,38 +252,77 @@ def _axes(axis: AxisName) -> Tuple[str, ...]:
     return (axis,) if isinstance(axis, str) else tuple(axis)
 
 
-def _check_compress(compress) -> None:
-    if compress in ("int8", "auto"):
-        raise NotImplementedError(
-            f"compress={compress!r}: the int8 rings are not ported yet "
-            f"(ROADMAP queue A, 'Collectives')")
-    if compress is not None:
-        raise ValueError(f"unknown compress {compress!r}; supported: None")
+def _check_compress(compress, axes: Tuple[str, ...] = (),
+                    reduce_op="mean") -> None:
+    if compress not in (None, "int8", "auto"):
+        raise ValueError(
+            f"unknown grad_compress {compress!r}; DataParallel supports "
+            f"None, 'int8' or 'auto' ('int8_ef' needs the persistent "
+            f"residual state only ZeroOptimizer carries)")
+    if compress is not None and axes and not any(
+            _axis_op(reduce_op, a) == "mean" for a in axes):
+        raise ValueError(
+            "grad_compress needs at least one mean-op data axis — with "
+            "every axis on 'sum' every leaf would take the exact path")
 
 
 @dataclasses.dataclass(frozen=True)
 class _Plan:
     """How one gradient is reduced: summed over the flattened group of
-    ``axes`` (none: left as it is), then multiplied by ``scale``."""
+    ``axes`` (none: left as it is), then multiplied by ``scale``.  A
+    compressed leaf (``ring``, its mean-op axes) instead leaves the
+    buckets: it is summed exactly over ``pre`` (the tensor axis of an SP
+    partial leaf), averaged over each ``ring`` axis in turn by
+    ``dist.compressed.int8_ring_pmean``, then summed exactly over
+    ``axes`` (its sum-op axes), and ``scale`` is 1."""
 
     axes: Tuple[str, ...]
     scale: float
+    ring: Tuple[str, ...] = ()
+    pre: Tuple[str, ...] = ()
 
 
 def _leaf_plan(name: str, axes: Tuple[str, ...], reduce_op,
                overrides: Dict[str, Tuple[str, ...]],
-               ctx: ParallelContext) -> _Plan:
+               ctx: ParallelContext, compress: bool = False) -> _Plan:
     """The reference's ``reduce_leaf`` rule for the leaf ``name``: the
     first override whose substring is in the name sums over its axes and
     divides by the full size of the mean-op default axes; otherwise the
-    mean-op axes average and the sum-op axes sum."""
+    mean-op axes average and the sum-op axes sum — through the int8 ring
+    when ``compress`` (an override leaf never compresses)."""
     mean = math.prod(ctx.get_group_size(a) for a in axes
                      if _axis_op(reduce_op, a) == "mean")
     for tok, ax in overrides.items():
         if tok in name:
             ax = _axes(ax)
             return _Plan(ax, 1.0 / mean) if ax else _Plan((), 1.0)
+    if compress:
+        return _Plan(tuple(a for a in axes if _axis_op(reduce_op, a)
+                           == "sum"), 1.0,
+                     ring=tuple(a for a in axes
+                                if _axis_op(reduce_op, a) == "mean"))
     return _Plan(axes, 1.0 / mean)
+
+
+def _whole_shape(p: torch.Tensor, tp: Optional["_TP"], i: int
+                 ) -> Tuple[int, ...]:
+    """Leaf ``i``'s whole shape: its tensor-split dim times the tensor
+    group's size (the shape the reference's policy sees)."""
+    shape = list(p.shape)
+    if tp is not None and tp.split(i) and shape:
+        shape[tp.specs[i] % len(shape)] *= dist.get_world_size(tp.group)
+    return tuple(shape)
+
+
+def _compressed(name: str, numel: int, compress: Optional[str],
+                min_size: int, policy: Optional[Dict[str, bool]]) -> bool:
+    """Whether leaf ``name`` of ``numel`` elements takes the int8 ring:
+    under a policy (``'auto'``) its choice, else the size threshold."""
+    if compress is None:
+        return False
+    if policy is not None:
+        return bool(policy.get(name, False))
+    return numel >= min_size
 
 
 class _Buckets:
@@ -300,6 +345,9 @@ class _Buckets:
         self.bytes_before_blocks_done: Optional[int] = None
 
     def add(self, unit, grad: torch.Tensor, plan: _Plan) -> None:
+        if plan.ring:
+            self.add_ring(unit, grad, plan)
+            return
         key = (plan, grad.dtype, grad.device)
         nbytes = grad.numel() * grad.element_size()
         b = self.open.get(key)
@@ -314,14 +362,33 @@ class _Buckets:
         if b[2] >= self.cap:
             self._start(key)
 
+    def add_ring(self, unit, grad: torch.Tensor, plan: _Plan) -> None:
+        """A compressed leaf: reduced now, whole, outside the buckets (the
+        int8 ring's groups of 256 elements must not straddle leaves)."""
+        from ..dist.compressed import int8_ring_pmean
+
+        g = grad * self.extra_scale if self.extra_scale != 1.0 else grad
+        with torch.no_grad():
+            if plan.pre:
+                g = all_reduce_(g.clone(memory_format=torch.contiguous_format),
+                                self.group_of(plan.pre))
+            for a in plan.ring:
+                g = int8_ring_pmean(g, self.group_of((a,)))
+            if plan.axes:
+                g = all_reduce_(g.clone(memory_format=torch.contiguous_format),
+                                self.group_of(plan.axes))
+        self.started.append(([unit], [g.shape], g.reshape(-1), plan, None,
+                             1.0))
+        self.bytes_started += g.numel() * g.element_size()
+
     def _start(self, key) -> None:
         units, grads, _ = self.open.pop(key)
         plan = key[0]
         flat = torch.cat([g.reshape(-1) for g in grads])
-        work = (dist.all_reduce(flat, group=self.group_of(plan.axes),
-                                async_op=True) if plan.axes else None)
+        work = (start_all_reduce(flat, self.group_of(plan.axes))
+                if plan.axes else None)
         self.started.append((units, [g.shape for g in grads], flat, plan,
-                             work))
+                             work, plan.scale * self.extra_scale))
         self.bytes_started += flat.numel() * flat.element_size()
 
     def flush(self) -> None:
@@ -332,10 +399,9 @@ class _Buckets:
         """Each unit's reduced value, bucket by bucket in start order; a
         bucket's flat buffer is let go once its units are handed out."""
         while self.started:
-            units, shapes, flat, plan, work = self.started.pop(0)
+            units, shapes, flat, plan, work, scale = self.started.pop(0)
             if work is not None:
-                work.wait()
-            scale = plan.scale * self.extra_scale
+                work()
             if scale != 1.0:
                 flat.mul_(scale)
             off = 0
@@ -350,6 +416,8 @@ def reduce_gradients(grads: Any, axis: AxisName = DATA_AXIS,
                      grad_reduce_overrides: Optional[
                          Dict[str, Tuple[str, ...]]] = None,
                      compress: Optional[str] = None,
+                     compress_min_size: int = 65536,
+                     compress_policy: Optional[Dict[str, bool]] = None,
                      ctx: Optional[ParallelContext] = None) -> Any:
     """This rank's gradient tree (nested dicts of tensors) reduced over
     the data axes of ``ctx`` (default ``tpc``), as a new tree — the
@@ -360,18 +428,26 @@ def reduce_gradients(grads: Any, axis: AxisName = DATA_AXIS,
     ``'mean'`` an override sums over its axes and divides by the full
     size of the mean-op default axes (MoE-DP: expert grads reduce over
     ``moe_dp`` only, yet average over the whole data group, since each
-    expert saw only its EP share of the batch).  ``compress``: the int8
-    rings are not ported (``NotImplementedError``)."""
+    expert saw only its EP share of the batch).
+
+    ``compress='int8'`` / ``'auto'``: a leaf of at least
+    ``compress_min_size`` elements (or, given ``compress_policy``
+    ``{name: bool}``, the leaves it chooses) averages its mean-op axes
+    through ``dist.compressed.int8_ring_pmean``, one axis after another,
+    each leaf its own ring; override leaves, the sum-op axes and the
+    other leaves stay exact."""
     ctx = tpc if ctx is None else ctx
     _validate_reduce_op(reduce_op)
-    _check_compress(compress)
     axes, overrides = _axes(axis), dict(grad_reduce_overrides or {})
+    _check_compress(compress, axes, reduce_op)
     buckets = _Buckets(ctx.get_group, BUCKET_CAP_MB * 2**20)
     names = []
     for name, g in named_leaves(grads):
         names.append(name)
-        buckets.add(name, g, _leaf_plan(name, axes, reduce_op, overrides,
-                                        ctx))
+        buckets.add(name, g, _leaf_plan(
+            name, axes, reduce_op, overrides, ctx,
+            _compressed(name, g.numel(), compress, compress_min_size,
+                        compress_policy)))
     buckets.flush()
     reduced = dict(buckets.finish())
     return _unflatten_like(grads, (reduced[n] for n in names))
@@ -482,10 +558,7 @@ def _check_context_invariant(loss: torch.Tensor, group) -> None:
     ``group``: one all-reduce MAX of ``(loss, -loss)``."""
     t = torch.stack([loss.detach().float().reshape(()),
                      -loss.detach().float().reshape(())])
-    if host_path(group, t.device):
-        t = to_host(t)
-    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
-    hi, neg_lo = t.tolist()
+    hi, neg_lo = all_reduce_(t, group, dist.ReduceOp.MAX).tolist()
     spread = hi + neg_lo
     if spread > _CONTEXT_LOSS_RTOL * max(1.0, abs(hi)):
         raise ValueError(
@@ -534,20 +607,34 @@ class DataParallel:
     ``last_stats`` holds the latest step's bucket count, reduced bytes,
     the bytes whose all-reduce started before the backward returned, and
     those started before the block stack's backward was done (layer 0's
-    slices ready): the part that can overlap the blocks' backward."""
+    slices ready): the part that can overlap the blocks' backward.
+
+    ``grad_compress='int8'``: a leaf of at least ``compress_min_size``
+    elements averages its mean-op axes through the int8 ring
+    (``dist.compressed.int8_ring_pmean``), whole, once its grad is
+    complete, outside the buckets (its layer slices are not tapped);
+    ``'auto'``: the leaves ``dist.compressed.auto_compress_policy``
+    chooses from ``comm_model`` (default ``CommModel.from_defaults``),
+    decided at the step's first call and recorded as a
+    ``compress_policy`` event."""
 
     def __init__(self, axis: AxisName = DATA_AXIS,
                  reduce_op: Union[str, Dict[str, str]] = "mean",
                  grad_reduce_overrides: Optional[
                      Dict[str, Tuple[str, ...]]] = None,
                  grad_compress: Optional[str] = None,
+                 compress_min_size: int = 65536,
+                 comm_model: Any = None,
                  bucket_cap_mb: float = BUCKET_CAP_MB,
                  ctx: Optional[ParallelContext] = None) -> None:
         self.ctx = tpc if ctx is None else ctx
         self.axis = axis
         self.axes = _axes(axis)
         _validate_reduce_op(reduce_op)
-        _check_compress(grad_compress)
+        _check_compress(grad_compress, self.axes, reduce_op)
+        self.grad_compress = grad_compress
+        self.compress_min_size = compress_min_size
+        self.comm_model = comm_model
         self.reduce_op = reduce_op
         self.grad_reduce_overrides = {k: _axes(v) for k, v in
                                       (grad_reduce_overrides or {}).items()}
@@ -556,6 +643,13 @@ class DataParallel:
         for ax in self.grad_reduce_overrides.values():
             if ax:
                 self.ctx.get_group(ax)
+        if grad_compress is not None:  # the rings' groups, made now
+            for a in self.axes:
+                self.ctx.get_group(a)
+            sums = tuple(a for a in self.axes
+                         if _axis_op(reduce_op, a) == "sum")
+            if sums:
+                self.ctx.get_group(sums)
         self.last_stats: Optional[Dict[str, Any]] = None
 
     # ------------------------------------------------------- placement
@@ -568,7 +662,12 @@ class DataParallel:
         src = dist.get_global_rank(self.group, 0)
         with torch.no_grad():
             for p in tree_leaves(params):
-                dist.broadcast(p, src=src, group=self.group)
+                if host_path(self.group, p.device):
+                    h = to_host(p)
+                    dist.broadcast(h, src=src, group=self.group)
+                    p.copy_(from_host(h, p.device))
+                else:
+                    dist.broadcast(p, src=src, group=self.group)
         return params
 
     def shard_batch(self, batch: Any, device=None) -> Any:
@@ -578,17 +677,48 @@ class DataParallel:
 
     # ---------------------------------------------------------- step
 
-    def _plans(self, params, tp: Optional[_TP] = None
+    def _policy(self, params, tp: Optional[_TP]) -> Optional[Dict[str,
+                                                                  bool]]:
+        """``'auto'``'s choices for ``params`` (None otherwise): each leaf
+        scored on its whole shape (a tensor-split leaf's split dim times
+        the group) through ``auto_compress_policy`` over the mean-op data
+        axes; the ``compress_policy`` event records them."""
+        if self.grad_compress != "auto":
+            return None
+        from ..dist.compressed import auto_compress_policy
+        from ..obs.events import default_event_log
+
+        mean_axes = tuple(a for a in self.axes
+                          if _axis_op(self.reduce_op, a) == "mean")
+        leaves = [(name, _whole_shape(p, tp, i), p.element_size())
+                  for i, (name, p) in enumerate(named_leaves(params))]
+        policy, records = auto_compress_policy(
+            leaves, "all_reduce", mean_axes, self.ctx, model=self.comm_model,
+            min_size=self.compress_min_size)
+        default_event_log().emit(
+            "compress_policy", family="data_parallel", mode="auto",
+            op="all_reduce", axes=list(mean_axes), n_leaves=len(records),
+            n_compressed=sum(1 for r in records if r["compress"]),
+            leaves=records)
+        return policy
+
+    def _plans(self, params, tp: Optional[_TP] = None,
+               policy: Optional[Dict[str, bool]] = None
                ) -> List[Tuple[torch.Tensor, _Plan]]:
         """Each leaf's plan; under SP a leaf the specs mark
         ``PARTIAL_UNDER_SP`` also sums over the tensor axis, in the same
-        bucket's all-reduce."""
+        bucket's all-reduce (a compressed one before its ring)."""
         out = []
         for i, (name, p) in enumerate(named_leaves(params)):
             plan = _leaf_plan(name, self.axes, self.reduce_op,
-                              self.grad_reduce_overrides, self.ctx)
+                              self.grad_reduce_overrides, self.ctx,
+                              _compressed(name, p.numel(),
+                                          self.grad_compress,
+                                          self.compress_min_size, policy))
             if tp is not None and tp.sp and tp.specs[i] == PARTIAL_UNDER_SP:
-                plan = _Plan(plan.axes + (TENSOR_AXIS,), plan.scale)
+                plan = (dataclasses.replace(plan, pre=(TENSOR_AXIS,))
+                        if plan.ring else
+                        _Plan(plan.axes + (TENSOR_AXIS,), plan.scale))
             out.append((p, plan))
         return out
 
@@ -610,6 +740,8 @@ class DataParallel:
         def on_slice(leaf, i, g):
             if i == 0 and buckets.bytes_before_blocks_done is None:
                 buckets.bytes_before_blocks_done = buckets.bytes_started
+            if plan_of[id(leaf)].ring:  # reduced whole, by its leaf's hook
+                return
             if (id(leaf), i) in slices:
                 raise RuntimeError(
                     "a layer ran twice in one backward (a pipelined loss?): "
@@ -650,8 +782,7 @@ class DataParallel:
     def _mean_loss(self, loss: torch.Tensor) -> torch.Tensor:
         """The logged loss: the mean over the data ranks (whatever the
         grads' ops, as the reference)."""
-        loss = loss.detach().clone()
-        dist.all_reduce(loss, group=self.group)
+        loss = all_reduce_(loss.detach().clone(), self.group)
         n = dist.get_world_size(self.group)
         return loss / n if n > 1 else loss
 
@@ -712,12 +843,21 @@ class DataParallel:
                 for ax in self.grad_reduce_overrides.values():
                     self.ctx.get_group(ax + (TENSOR_AXIS,))
 
+        policies: Dict[tuple, Optional[Dict[str, bool]]] = {}
+
+        def policy_for(params, tp):
+            """'auto''s choices, decided once for each set of shapes."""
+            key = tuple(tuple(p.shape) for p in tree_leaves(params))
+            if key not in policies:
+                policies[key] = self._policy(params, tp)
+            return policies[key]
+
         def vag_step(params, opt_state, batch):
             tp = _tp_of(tp_group, params, param_specs, sp)
             pipe = pipe_of(self.ctx, params, pipe_specs)
             opt_state.zero_grad(set_to_none=True)
             loss, grads = value_and_grad_fn(params, batch)
-            plans = self._plans(params, tp)
+            plans = self._plans(params, tp, policy_for(params, tp))
             buckets = _Buckets(self.ctx.get_group, self.bucket_bytes)
             for (p, plan), g in zip(plans, tree_leaves(grads)):
                 buckets.add((p, None), g, plan)
@@ -736,7 +876,7 @@ class DataParallel:
             tp = _tp_of(tp_group, params, param_specs, sp)
             pipe = pipe_of(self.ctx, params, pipe_specs)
             opt_state.zero_grad(set_to_none=True)
-            plans = self._plans(params, tp)
+            plans = self._plans(params, tp, policy_for(params, tp))
             micro = [batch] if M == 1 else _split_micro(batch, M)
             # one microbatch: reducing it is reducing the final grads
             per_micro = accum_reduce == "microbatch" and M > 1

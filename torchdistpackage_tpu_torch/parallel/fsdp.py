@@ -28,8 +28,13 @@ size; whole leaves' grads are averaged over the group.
 the next layer's all-gather started before this layer's compute.
 :func:`offload_to_host` / :func:`reload_to_device` move tensors and an
 optimizer's state to pinned host memory and back IN PLACE, so the
-optimizer's references stay valid.  The int8 gather
-(``grad_compress='int8'``) waits for ROADMAP queue A's "Collectives".
+optimizer's references stay valid.  ``compress='int8'`` (and the
+overlap step's ``grad_compress='int8'``) sends a leaf whose gathered
+size reaches ``compress_min_size`` elements through
+``dist.compressed.int8_ring_all_gather``, whose backward is the int8
+ring reduce-scatter: the compressed forward gather buys a compressed
+backward scatter; the resident shards and the optimizer state stay
+full precision.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from ..dist.compressed import int8_ring_all_gather
 from ..dist.topology import DATA_AXIS, TENSOR_AXIS, ParallelContext, tpc
 from ..obs.numerics import tree_leaves
 from ..utils.partition import named_leaves
@@ -74,19 +80,41 @@ class _Gather(torch.autograd.Function):
                 None, None, None)
 
 
-def _gather(x: torch.Tensor, d: int, group, pending=None) -> torch.Tensor:
-    return x if d < 0 else _Gather.apply(x, group, d, pending)
+def _int8(x: torch.Tensor, d: int, group, compress: Optional[str],
+          min_size: int) -> bool:
+    """Whether the gather of ``x`` along ``d`` goes int8: asked for, over more than one rank, and the gathered leaf at least
+    ``min_size`` elements."""
+    if compress != "int8" or d < 0:
+        return False
+    n = dist.get_world_size(group)
+    return n > 1 and x.numel() * n >= min_size
 
 
-def gather_params(params: Any, shard_dims: Any, group=None) -> Any:
+def _gather(x: torch.Tensor, d: int, group, pending=None,
+            int8: bool = False) -> torch.Tensor:
+    if d < 0:
+        return x
+    if int8:
+        return int8_ring_all_gather(x, group, d)
+    return _Gather.apply(x, group, d, pending)
+
+
+def gather_params(params: Any, shard_dims: Any, group=None,
+                  compress: Optional[str] = None,
+                  compress_min_size: int = 65536) -> Any:
     """Every sharded leaf of this rank's shard tree all-gathered back to
     full size along its dim (``shard_dims``: a tree of dims, -1 whole),
     differentiably: each gather's backward reduce-scatters (sums) the
     leaf's grad to the shards.  ``group`` defaults to ``tpc``'s data
-    group; every rank of it calls this."""
+    group; every rank of it calls this.  ``compress='int8'``: a leaf
+    whose gathered size reaches ``compress_min_size`` elements goes
+    through ``int8_ring_all_gather`` (its backward the int8 ring
+    reduce-scatter)."""
+    _check_compress(compress)
     group = tpc.get_group(DATA_AXIS) if group is None else group
-    out = [_gather(p, d, group) for p, d in
-           zip(tree_leaves(params), tree_leaves(shard_dims))]
+    out = [_gather(p, d, group, int8=_int8(p, d, group, compress,
+                                           compress_min_size))
+           for p, d in zip(tree_leaves(params), tree_leaves(shard_dims))]
     return _unflatten_like(params, iter(out))
 
 
@@ -126,7 +154,8 @@ def prefetched_layer_scan(stacked: Any, x: torch.Tensor,
                           apply_fn: Callable[[Any, torch.Tensor, int],
                                              torch.Tensor],
                           group, shard_dims: Any, prefetch: bool = True,
-                          compress: Optional[str] = None) -> torch.Tensor:
+                          compress: Optional[str] = None,
+                          compress_min_size: int = 65536) -> torch.Tensor:
     """Run ``x`` through a layer stack whose ``[L, ...]`` leaves are this
     rank's shards (``shard_dims`` from :func:`stacked_fsdp_specs`, never
     0), gathering ONE layer's weights at a time: ``apply_fn(layer_params,
@@ -139,7 +168,12 @@ def prefetched_layer_scan(stacked: Any, x: torch.Tensor,
 
     A gathered layer is ``apply_fn``'s input: under a checkpointed
     ``apply_fn`` it is kept for the layer's backward, never re-gathered,
-    so every rank issues the same collectives in the same order."""
+    so every rank issues the same collectives in the same order.
+
+    ``compress='int8'``: a layer slice whose gathered size reaches
+    ``compress_min_size`` elements is gathered through
+    ``int8_ring_all_gather`` when its layer starts (not prefetched), and
+    its backward rides the int8 reduce-scatter ring."""
     _check_compress(compress)
     dims = list(tree_leaves(shard_dims))
     if any(d == 0 for d in dims):
@@ -151,15 +185,22 @@ def prefetched_layer_scan(stacked: Any, x: torch.Tensor,
     L = len(parts[0])
     layer_dims = [d - 1 if d >= 1 else -1 for d in dims]
 
+    int8 = [_int8(p[0], d, group, compress, compress_min_size)
+            for p, d in zip(parts, layer_dims)]
+
+    def start_one(x, d, q):
+        if d < 0 or q:
+            return None
+        return _start_all_gather(x, group, d, "fsdp_all_gather")
+
     def start(i):
         with torch.no_grad():
-            return [None if d < 0 else
-                    _start_all_gather(p[i], group, d, "fsdp_all_gather")
-                    for p, d in zip(parts, layer_dims)]
+            return [start_one(p[i], d, q)
+                    for p, d, q in zip(parts, layer_dims, int8)]
 
     def gathered(i, pending):
-        out = [_gather(p[i], d, group, pend) for p, d, pend in
-               zip(parts, layer_dims, pending)]
+        out = [_gather(p[i], d, group, pend, q) for p, d, pend, q in
+               zip(parts, layer_dims, pending, int8)]
         return _unflatten_like(stacked, iter(out))
 
     pending = start(0) if prefetch else [None] * len(parts)
@@ -321,24 +362,31 @@ class FSDP:
     def make_overlap_train_step(self, loss_fn: Callable, optimizer,
                                 gather: str = "leaf",
                                 grad_compress: Optional[str] = None,
-                                sp: bool = False) -> Callable:
+                                sp: bool = False,
+                                compress_min_size: int = 65536) -> Callable:
         """As :meth:`make_train_step`, but each leaf is gathered through
         :func:`gather_params`, so its grad is reduce-scattered inside the
         backward as soon as it is complete, and the full-size grads never
         persist.  ``gather='none'``: ``loss_fn`` gets the SHARDS and
         gathers them itself (:func:`prefetched_layer_scan` over a stack
-        placed by :func:`stacked_fsdp_specs`).  ``grad_compress='int8'``
-        waits for ROADMAP queue A's "Collectives"."""
+        placed by :func:`stacked_fsdp_specs`).  ``grad_compress='int8'``:
+        the leaves whose gathered size reaches ``compress_min_size``
+        elements take the int8 gather forward and the int8 ring
+        reduce-scatter backward."""
         if gather not in ("leaf", "none"):
             raise ValueError(f"gather must be 'leaf' or 'none', got "
                              f"{gather!r}")
-        _check_compress(grad_compress)
+        if grad_compress not in (None, "int8"):
+            raise ValueError(f"unknown grad_compress {grad_compress!r}; the "
+                             f"overlap step supports None or 'int8'")
         clip = self._check(optimizer, sp)
 
         def step(shards, opt_state, batch):
             dims = self.shard_dims_of(shards)
             opt_state.zero_grad(set_to_none=True)
-            params = (gather_params(shards, dims, self.group)
+            params = (gather_params(shards, dims, self.group,
+                                    compress=grad_compress,
+                                    compress_min_size=compress_min_size)
                       if gather == "leaf" else shards)
             loss = loss_fn(params, batch)
             del params

@@ -33,6 +33,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from ..tensor_parallel import tp_utils
 from ..tensor_parallel.tp_utils import from_host, host_path, to_host
 
 #: message tags: the forward (activation) and backward (cotangent) channels
@@ -100,16 +101,10 @@ def exchange(group, sends: Sequence[Tuple[torch.Tensor, int, int]] = (),
 
 
 def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
-    """``t`` summed over ``group`` in place (through a counted host copy
-    for a CUDA tensor over gloo)."""
+    """``t`` summed over ``group`` in place (through a host copy counted
+    in :data:`P2P_STATS` for a CUDA tensor over gloo)."""
     P2P_STATS["all_reduces"] += 1
-    if host_path(group, t.device):
-        h = to_host(t, P2P_STATS)
-        dist.all_reduce(h, group=group)
-        t.copy_(from_host(h, t.device, P2P_STATS))
-    else:
-        dist.all_reduce(t, group=group)
-    return t
+    return tp_utils.all_reduce_(t, group, stats=P2P_STATS)
 
 
 def shape_preamble(group, x: Optional[torch.Tensor],

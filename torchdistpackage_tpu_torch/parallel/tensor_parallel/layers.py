@@ -79,10 +79,11 @@ class TransformerConfig:
     ``dropout_rate``: residual dropout, applied when the caller passes a
     ``dropout_key``.  ``collective_matmul`` (SP only): the block's SP
     boundaries as rings once the gathered activation reaches
-    ``cm_min_bytes``.  ``ag_compress='int8'`` (quantized SP boundaries)
-    raises: it waits for the int8 rings (ROADMAP queue A,
-    "Collectives"); ``compress_min_bytes``, their size threshold, is kept
-    for parity with the reference and read by nothing until then."""
+    ``cm_min_bytes``.  ``ag_compress='int8'`` (SP only): a block
+    boundary whose gathered activation reaches ``compress_min_bytes``
+    gathers and reduce-scatters through the int8 rings of
+    ``dist/compressed.py`` (their backwards quantized too); where the
+    collective-matmul ring applies it wins."""
 
     dim: int
     nheads: int
@@ -499,33 +500,44 @@ def dropout(x: torch.Tensor, rate: float, key: Optional[int]
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def _open_column_parallel(h: torch.Tensor, tp_group, sp: bool
-                          ) -> torch.Tensor:
+def _open_column_parallel(h: torch.Tensor, tp_group, sp: bool,
+                          compress: Optional[str] = None) -> torch.Tensor:
     """The activation a column-parallel product reads: ``h`` serially,
-    the SP-gathered sequence under ``sp``, else ``h`` through
-    ``copy_to_tp`` (its gradient summed over the group)."""
+    the SP-gathered sequence under ``sp`` (``compress='int8'``: through
+    the int8 ring), else ``h`` through ``copy_to_tp`` (its gradient
+    summed over the group)."""
     if tp_group is None:
         return h
-    return gather_from_sp(h, tp_group) if sp else copy_to_tp(h, tp_group)
+    return (gather_from_sp(h, tp_group, compress=compress) if sp
+            else copy_to_tp(h, tp_group))
 
 
 def _close_row_parallel(y: torch.Tensor, bias: torch.Tensor, tp_group,
-                        sp: bool) -> torch.Tensor:
+                        sp: bool, compress: Optional[str] = None
+                        ) -> torch.Tensor:
     """Finish a row-parallel product: reduce the partial sums over the
-    group (into SP layout under ``sp``) and add the output bias once."""
+    group (into SP layout under ``sp``; ``compress='int8'``: through the
+    int8 ring) and add the output bias once.  The non-SP all-reduce
+    stays exact, as in the reference."""
     if tp_group is not None:
-        y = scatter_to_sp(y, tp_group) if sp else reduce_from_tp(y, tp_group)
+        y = (scatter_to_sp(y, tp_group, compress=compress) if sp
+             else reduce_from_tp(y, tp_group))
     return y + bias
 
 
-def _sp_compress(cfg: TransformerConfig, tp_group, sp: bool) -> None:
-    """The reference quantizes the SP boundaries under
-    ``ag_compress='int8'``; the int8 rings are not ported."""
-    if cfg.ag_compress == "int8" and tp_group is not None and sp:
-        raise NotImplementedError(
-            "ag_compress='int8': the quantized SP boundaries ride the int8 "
-            "rings of dist/compressed.py, not ported yet (ROADMAP queue A, "
-            "'Collectives')")
+def _sp_compress(cfg: TransformerConfig, h: torch.Tensor, tp_group,
+                 sp: bool) -> Optional[str]:
+    """One SP boundary's decision: ``'int8'`` when ``ag_compress='int8'``,
+    SP is on over more than one rank and the gathered activation (``h``
+    this rank's rows) reaches ``compress_min_bytes``; else None (the
+    exact collectives)."""
+    if cfg.ag_compress != "int8" or tp_group is None or not sp:
+        return None
+    n = tp_size(tp_group)
+    if n <= 1:
+        return None
+    full = h.numel() * n * h.element_size()
+    return "int8" if full >= cfg.compress_min_bytes else None
 
 
 def _use_cm(cfg: TransformerConfig, x: torch.Tensor, tp_group,
@@ -599,26 +611,30 @@ def block_forward(p: Params, x: torch.Tensor, cfg: TransformerConfig,
     k_attn = k_mlp = None
     if dropout_key is not None and cfg.dropout_rate > 0.0:
         k_attn, k_mlp = split(dropout_key)
-    _sp_compress(cfg, tp_group, sp)
     use_cm = _use_cm(cfg, x, tp_group, sp)
     h = layer_norm(x, p["ln1"], cfg.norm_eps)
     if use_cm:
         y = attention_partial_cm(p["attn"], h, cfg, tp_group, rope=rope,
                                  cp_group=cp_group) + p["attn"]["bo"]
     else:
+        # quantized SP boundaries (cfg.ag_compress): the entering gather
+        # and the closing reduce-scatter, and their backwards, int8
+        qc = _sp_compress(cfg, h, tp_group, sp)
         y = _close_row_parallel(
             attention_partial(p["attn"], _open_column_parallel(h, tp_group,
-                                                               sp),
+                                                               sp, qc),
                               cfg, rope=rope, cp_group=cp_group),
-            p["attn"]["bo"], tp_group, sp)
+            p["attn"]["bo"], tp_group, sp, qc)
     x = x + dropout(y, cfg.dropout_rate, k_attn)
     h = layer_norm(x, p["ln2"], cfg.norm_eps)
     if use_cm:
         z = mlp_partial_cm(p["mlp"], h, tp_group) + p["mlp"]["b2"]
     else:
+        qc = _sp_compress(cfg, h, tp_group, sp)
         z = _close_row_parallel(
-            mlp_partial(p["mlp"], _open_column_parallel(h, tp_group, sp)),
-            p["mlp"]["b2"], tp_group, sp)
+            mlp_partial(p["mlp"], _open_column_parallel(h, tp_group, sp,
+                                                        qc)),
+            p["mlp"]["b2"], tp_group, sp, qc)
     return x + dropout(z, cfg.dropout_rate, k_mlp)
 
 

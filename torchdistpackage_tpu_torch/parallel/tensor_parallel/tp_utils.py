@@ -40,8 +40,19 @@ differentiable ring shift, :func:`ppermute` (forward to rank ``+1`` by
 reverse ring as JAX's AD transposes ``ppermute``.  A one-rank group
 takes the reference's shortcut: the product alone, no shift.
 
-The int8 rings of ``compress='int8'`` are not ported (ROADMAP queue A,
-"Collectives").
+``compress='int8'`` on :func:`gather_from_sp` / :func:`scatter_to_sp`
+sends the boundary through the int8 collectives of
+``dist/compressed.py`` (the gather one all-gather of the codes and their
+scales, the reduce-scatter a ring of :func:`ppermute` hops), each the
+other's backward.
+
+Over a gloo group a CUDA tensor goes through the host: every
+collective here copies it to the host and back (:func:`to_host` /
+:func:`from_host`, counted in :data:`HOST_STAGING`).  Several processes
+on one card talk over gloo, NCCL putting no two ranks of a
+communicator on one device.  The async starts (:func:`start_all_reduce`,
+:func:`_start_all_gather`) wait where they are issued under the
+overlap regime ``'none'`` (``dist.overlap``).
 """
 
 from __future__ import annotations
@@ -66,14 +77,19 @@ from ...dist.topology import TENSOR_AXIS, tpc
 #: EMA's gathers for ``state_dict``; ``transfer_gather`` the pipeline's
 #: gathers of a tensor-sharded inter-stage state (its slices count as
 #: ``split_to_sp``); ``moe_gather`` the MoE block's gather of its SP
-#: rows into the whole sequence (``gather_whole``)
+#: rows into the whole sequence (``gather_whole``); the int8 rings of
+#: ``dist/compressed.py``: ``int8_hop`` a hop's codes and scales,
+#: ``int8_gather`` the all-gather of finished codes, ``int8_fallback``
+#: the exact mean of a ragged leaf; ``comm_bench`` the benchmark's
+#: exact collectives
 COLLECTIVES: Dict[str, int] = dict.fromkeys(
     ("reduce_from_tp", "copy_to_tp", "gather_from_sp", "scatter_to_sp",
      "split_to_sp", "ring_shift", "xent_max", "gather_params",
      "full_logits", "zero_reduce_scatter", "zero_all_reduce",
      "zero_all_gather", "fsdp_all_gather", "fsdp_reduce_scatter",
      "fsdp_all_reduce", "ema_all_gather", "transfer_gather",
-     "moe_gather"), 0)
+     "moe_gather", "int8_hop", "int8_gather", "int8_fallback",
+     "comm_bench"), 0)
 
 _TP_GROUP = None
 
@@ -100,23 +116,56 @@ def tp_rank(group=None) -> int:
 
 
 def _check_compress(compress: Optional[str]) -> None:
-    if compress == "int8":
-        raise NotImplementedError(
-            "compress='int8': the quantized rings of dist/compressed.py are "
-            "not ported yet (ROADMAP queue A, 'Collectives')")
-    if compress is not None:
+    if compress not in (None, "int8"):
         raise ValueError(f"compress must be None or 'int8', got {compress!r}")
+
+
+#: the overlap regime's switch (``dist.overlap.configure`` sets it): True
+#: under ``'none'``, where every async start waits where it is issued
+SYNC_COLLECTIVES = False
 
 
 def _count(name: str) -> None:
     COLLECTIVES[name] += 1
 
 
+def start_all_reduce(t: torch.Tensor, group, op=None, async_op: bool = True,
+                     stats: Optional[Dict[str, int]] = None
+                     ) -> Callable[[], torch.Tensor]:
+    """Start summing (or ``op``) ``t`` over ``group`` in place and return
+    the call that waits and returns ``t``.  A CUDA tensor over gloo goes
+    through a host copy (counted in ``stats``, default
+    :data:`HOST_STAGING`), written back into ``t`` by the wait.  Under
+    the overlap regime ``'none'`` the wait happens here."""
+    op = dist.ReduceOp.SUM if op is None else op
+    async_op = async_op and not SYNC_COLLECTIVES
+    buf = to_host(t, stats) if host_path(group, t.device) else t
+    work = dist.all_reduce(buf, op=op, group=group, async_op=async_op)
+
+    def finish() -> torch.Tensor:
+        nonlocal work, buf
+        if work is not None:
+            work.wait()
+            work = None
+        if buf is not t:
+            t.copy_(from_host(buf, t.device, stats))
+            buf = t
+        return t
+    if not async_op:
+        finish()
+    return finish
+
+
+def all_reduce_(t: torch.Tensor, group, op=None,
+                stats: Optional[Dict[str, int]] = None) -> torch.Tensor:
+    """``t`` summed (or ``op``) over ``group`` in place and returned."""
+    return start_all_reduce(t, group, op, async_op=False, stats=stats)()
+
+
 def _all_reduce(x: torch.Tensor, group, name: str) -> torch.Tensor:
     out = x.clone(memory_format=torch.contiguous_format)
     _count(name)
-    dist.all_reduce(out, group=group)
-    return out
+    return all_reduce_(out, group)
 
 
 def _start_all_gather(x: torch.Tensor, group, dim: int, name: str,
@@ -126,9 +175,13 @@ def _start_all_gather(x: torch.Tensor, group, dim: int, name: str,
     NCCL's) and returns the gathered tensor.  The output is allocated,
     and read after the wait, on the calling stream, and the closure keeps
     ``x`` alive until then, so no buffer crosses streams in the caching
-    allocator's view."""
+    allocator's view.  Over gloo a CUDA ``x`` goes through the host and
+    the wait copies the result back; under the overlap regime ``'none'``
+    the wait happens here."""
     n = dist.get_world_size(group)
-    x = x.contiguous()
+    device = x.device
+    staged = host_path(group, device)
+    x = to_host(x) if staged else x.contiguous()
     out = x.new_empty((n,) + tuple(x.shape))
     _count(name)
     work = dist.all_gather_into_tensor(
@@ -139,10 +192,16 @@ def _start_all_gather(x: torch.Tensor, group, dim: int, name: str,
         shape[dim] *= n
 
     def finish() -> torch.Tensor:
+        nonlocal work, out, staged
         if work is not None:
             work.wait()
+            work = None
+        if staged:
+            out, staged = from_host(out, device), False
         # reads x: the closure holds it until the collective is done
         return out.movedim(0, dim).reshape(shape) if x.dim() else out
+    if async_op and SYNC_COLLECTIVES:
+        finish()
     return finish
 
 
@@ -163,12 +222,15 @@ def _reduce_scatter(x: torch.Tensor, group, dim: int,
     if x.shape[dim] % n:
         raise ValueError(f"seq dim {x.shape[dim]} not divisible by TP size "
                          f"{n}")
-    xs = x.unflatten(dim, (n, x.shape[dim] // n)).movedim(dim, 0).contiguous()
+    device = x.device
+    staged = host_path(group, device)
+    xs = x.unflatten(dim, (n, x.shape[dim] // n)).movedim(dim, 0)
+    xs = (to_host(xs) if staged else xs).contiguous()
     out = xs.new_empty(xs.shape[1:])
     _count(name)
     dist.reduce_scatter_tensor(out, xs.view((-1,) + tuple(xs.shape[2:])),
                                op=dist.ReduceOp.SUM, group=group)
-    return out
+    return from_host(out, device) if staged else out
 
 
 class _ReduceFromTP(torch.autograd.Function):
@@ -262,19 +324,35 @@ def copy_to_tp(x: torch.Tensor, group=None) -> torch.Tensor:
 def gather_from_sp(x: torch.Tensor, group=None, seq_dim: int = 1,
                    compress: Optional[str] = None) -> torch.Tensor:
     """SP -> full: all-gather along the sequence dim; backward
-    reduce-scatter (``_GatherFromSequenceParallelRegion``)."""
+    reduce-scatter (``_GatherFromSequenceParallelRegion``).
+    ``compress='int8'``: the gather rides the int8 ring
+    (``dist.compressed.int8_ring_all_gather``), and so does its backward
+    reduce-scatter."""
     _check_compress(compress)
-    return _GatherFromSP.apply(
-        x, group if group is not None else get_tp_group(), seq_dim)
+    group = group if group is not None else get_tp_group()
+    if compress == "int8":
+        from ...dist.compressed import int8_ring_all_gather
+
+        _count("gather_from_sp")
+        return int8_ring_all_gather(x, group, seq_dim)
+    return _GatherFromSP.apply(x, group, seq_dim)
 
 
 def scatter_to_sp(x: torch.Tensor, group=None, seq_dim: int = 1,
                   compress: Optional[str] = None) -> torch.Tensor:
     """Full -> SP: reduce-scatter along the sequence dim; backward
-    all-gather (``_ReduceScatterToSequenceParallelRegion``)."""
+    all-gather (``_ReduceScatterToSequenceParallelRegion``).
+    ``compress='int8'``: the partial sums reduce through the int8 ring
+    (``dist.compressed.int8_ring_reduce_scatter``), and the backward's
+    gather rides the int8 ring too."""
     _check_compress(compress)
-    return _ScatterToSP.apply(
-        x, group if group is not None else get_tp_group(), seq_dim)
+    group = group if group is not None else get_tp_group()
+    if compress == "int8":
+        from ...dist.compressed import int8_ring_reduce_scatter
+
+        _count("scatter_to_sp")
+        return int8_ring_reduce_scatter(x, group, seq_dim)
+    return _ScatterToSP.apply(x, group, seq_dim)
 
 
 def split_to_sp(x: torch.Tensor, group=None, seq_dim: int = 1
@@ -309,7 +387,7 @@ def vocab_max(x: torch.Tensor, group=None) -> torch.Tensor:
     with torch.no_grad():
         out = x.clone(memory_format=torch.contiguous_format)
         _count("xent_max")
-        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+        all_reduce_(out, group, dist.ReduceOp.MAX)
     return out
 
 
@@ -328,19 +406,21 @@ class _RingShift(torch.autograd.Function):
     ``r - shift`` received; the backward shifts the gradient back."""
 
     @staticmethod
-    def forward(ctx, x, group, shift):
-        ctx.group, ctx.shift = group, shift
-        return _shift(x, group, shift)
+    def forward(ctx, x, group, shift, name):
+        ctx.group, ctx.shift, ctx.name = group, shift, name
+        return _shift(x, group, shift, name)
 
     @staticmethod
     def backward(ctx, g):
-        return _shift(g, ctx.group, -ctx.shift), None, None
+        return _shift(g, ctx.group, -ctx.shift, ctx.name), None, None, None
 
 
 #: the host copies (each way) and their bytes that gloo needed for CUDA
-#: payloads, since the last reset: the ring shift's and the autograd
-#: all-to-all's.  The pipeline's point-to-point passes its own
-#: ``P2P_STATS`` to the same helpers.
+#: payloads, since the last reset: every collective of this module and
+#: of the sharded steps (``start_all_reduce``, the gathers and
+#: reduce-scatters, the ring shift, the autograd all-to-all, the int8
+#: rings).  The pipeline's point-to-point passes its own ``P2P_STATS``
+#: to the same helpers.
 HOST_STAGING: Dict[str, int] = dict.fromkeys(
     ("host_copies", "host_copy_bytes"), 0)
 
@@ -374,13 +454,14 @@ def from_host(t: torch.Tensor, device: torch.device,
     return t.to(device)
 
 
-def _shift(x: torch.Tensor, group, shift: int) -> torch.Tensor:
+def _shift(x: torch.Tensor, group, shift: int,
+           name: str = "ring_shift") -> torch.Tensor:
     n, r = dist.get_world_size(group), dist.get_rank(group)
     device = x.device
     staged = host_path(group, device)
     x = to_host(x) if staged else x.contiguous()
     out = torch.empty_like(x)
-    _count("ring_shift")
+    _count(name)
     ops = [dist.P2POp(dist.isend, x,
                       dist.get_global_rank(group, (r + shift) % n), group),
            dist.P2POp(dist.irecv, out,
@@ -390,11 +471,13 @@ def _shift(x: torch.Tensor, group, shift: int) -> torch.Tensor:
     return from_host(out, device) if staged else out
 
 
-def ppermute(x: torch.Tensor, group=None, shift: int = 1) -> torch.Tensor:
+def ppermute(x: torch.Tensor, group=None, shift: int = 1,
+             name: str = "ring_shift") -> torch.Tensor:
     """One differentiable ring step over the tensor group (JAX's
-    ``ppermute`` with the permutation ``p -> p + shift``)."""
+    ``ppermute`` with the permutation ``p -> p + shift``), counted in
+    :data:`COLLECTIVES` under ``name``."""
     return _RingShift.apply(x, group if group is not None else get_tp_group(),
-                            shift)
+                            shift, name)
 
 
 class _AllToAll(torch.autograd.Function):

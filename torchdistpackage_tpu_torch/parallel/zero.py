@@ -60,8 +60,19 @@ loss is the mean over each rank's sequence shard): ``shard_axis='data'``,
 ``grad_reduce_axes=('data', 'context')`` — the context axis is a data
 axis of the reduction (JAX ``tests/test_zero.py:338``).
 
-Not ported yet, refused by its ROADMAP queue-A item: the int8
-compression modes ("Collectives").
+The int8 wire (``grad_compress``, ``dist/compressed.py``):
+``'int8'`` sends a sharded leaf of at least ``compress_min_size``
+elements to its owner through ``int8_ring_reduce_scatter`` and over the
+other data axes through ``int8_ring_pmean``; ``'int8_ef'`` also carries
+an f32 error-feedback residual a leaf in the state (``state['ef']``):
+each step compresses grad + residual and keeps the quantization error
+(``ef_compress``); ``'auto'`` takes the leaves
+``auto_compress_policy`` chooses for the reduce-scatter and records a
+``compress_policy`` event.  Override (expert) leaves and whole leaves
+never compress.  ``gather_compress`` (``'follow'``: ``'int8'`` whenever
+``grad_compress`` is on) re-gathers the compressed leaves through
+``int8_psum_all_gather``: the wire carries quantized parameters, the
+masters stay f32.
 """
 
 from __future__ import annotations
@@ -89,9 +100,12 @@ from .data_parallel import (
     pipe_of,
 )
 from .tensor_parallel.layers import PARTIAL_UNDER_SP, spec_pairs
-from .tensor_parallel.tp_utils import COLLECTIVES, _all_gather, _reduce_scatter
-
-_COLLECTIVES_ITEM = "Collectives"
+from .tensor_parallel.tp_utils import (
+    COLLECTIVES,
+    _all_gather,
+    _reduce_scatter,
+    all_reduce_,
+)
 
 
 def zero_partition_spec(shape: Sequence[int], tp_spec: Any, n: int) -> int:
@@ -129,24 +143,15 @@ def shard_of(x: torch.Tensor, d: int, rank: int, n: int) -> torch.Tensor:
 def _psum_(t: torch.Tensor, group, name: str) -> torch.Tensor:
     """``t`` summed over ``group`` in place, counted under ``name``."""
     COLLECTIVES[name] += 1
-    dist.all_reduce(t, group=group)
-    return t
+    return all_reduce_(t, group)
 
 
 def _check_compress(grad_compress, gather_compress) -> None:
-    if grad_compress in ("int8", "int8_ef", "auto"):
-        raise NotImplementedError(
-            f"grad_compress={grad_compress!r}: the int8 rings are not "
-            f"ported yet (ROADMAP queue A, {_COLLECTIVES_ITEM!r})")
-    if grad_compress is not None:
+    if grad_compress not in (None, "int8", "int8_ef", "auto"):
         raise ValueError(f"unknown grad_compress {grad_compress!r}; "
                          f"ZeroOptimizer supports None, 'int8', 'int8_ef' "
                          f"or 'auto'")
-    if gather_compress == "int8":
-        raise NotImplementedError(
-            "gather_compress='int8': the int8 re-gather is not ported yet "
-            f"(ROADMAP queue A, {_COLLECTIVES_ITEM!r})")
-    if gather_compress not in (None, "follow"):
+    if gather_compress not in (None, "int8", "follow"):
         raise ValueError(f"unknown gather_compress {gather_compress!r}")
 
 
@@ -173,7 +178,8 @@ class ZeroOptimizer:
                  grad_compress: Optional[str] = None,
                  gather_compress: Optional[str] = "follow",
                  ctx: Optional[ParallelContext] = None,
-                 pipe_specs: Any = None) -> None:
+                 pipe_specs: Any = None, compress_min_size: int = 65536,
+                 comm_model: Any = None) -> None:
         self.clip = clip_of(inner)
         self.inner = inner
         self.ctx = tpc if ctx is None else ctx
@@ -199,6 +205,10 @@ class ZeroOptimizer:
                     f"grad_reduce_overrides[{tok!r}] axes {sorted(extra)} "
                     f"not in grad_reduce_axes {self.grad_reduce_axes}")
         _check_compress(grad_compress, gather_compress)
+        self.grad_compress = grad_compress
+        self.gather_compress = gather_compress
+        self.compress_min_size = compress_min_size
+        self.comm_model = comm_model
         # 'data' itself is a data axis when the shard axes are its parts
         self.data_axes = self.grad_reduce_axes + (DATA_AXIS,)
         normalize_model_axis_grads(None, None, self.ctx, self.data_axes)
@@ -218,6 +228,8 @@ class ZeroOptimizer:
             other = tuple(a for a in ax if a != shard_axis)
             self._groups[ax] = ctx.get_group(ax)
             self._groups[other] = ctx.get_group(other) if other else None
+            for a in other:  # the int8 rings run an axis at a time
+                self._groups[(a,)] = ctx.get_group(a)
         self.tp_group = (ctx.get_group(TENSOR_AXIS)
                          if param_specs is not None else None)
         self.pipe_specs = pipe_specs
@@ -257,7 +269,9 @@ class ZeroOptimizer:
 
     def init(self, params: Any) -> Dict[str, Any]:
         """``{'master': this rank's f32 shard of every leaf, 'inner': the
-        inner optimizer over those shards}``."""
+        inner optimizer over those shards}``; under
+        ``grad_compress='int8_ef'`` also ``'ef'``, a zero f32 residual of
+        each leaf's (this rank's) shape."""
         dims = list(tree_leaves(self.shard_dims(params)))
         masters = [shard_of(p.detach(), d, self.rank, self.n).to(
             self.master_dtype, copy=True, memory_format=torch.contiguous_format)
@@ -265,16 +279,75 @@ class ZeroOptimizer:
         for p in tree_leaves(params):
             p.requires_grad_(True)
         master = _unflatten_like(params, iter(masters))
-        return {"master": master, "inner": self.inner.init(master)}
+        state = {"master": master, "inner": self.inner.init(master)}
+        if self.grad_compress == "int8_ef":
+            state["ef"] = _unflatten_like(params, iter(
+                torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                for p in tree_leaves(params)))
+        return state
+
+    def _compress_decisions(self, params: Any, shard_dims: Any
+                            ) -> Tuple[Dict[str, bool], Optional[List]]:
+        """Each leaf's compress / exact choice, ``(policy {name: bool},
+        'auto''s records or None)``: override (expert) leaves and whole
+        leaves never compress; ``'int8'`` / ``'int8_ef'`` take the size
+        threshold, ``'auto'`` ``auto_compress_policy`` on the shard
+        axis's reduce-scatter — both on each leaf's whole shape (a
+        tensor-split leaf's split dim times the tensor group)."""
+        if self.grad_compress is None:
+            return {}, None
+        itemsize = torch.empty((), dtype=self.master_dtype).element_size()
+        tp_n = (dist.get_world_size(self.tp_group)
+                if self.tp_group is not None else 1)
+        policy: Dict[str, bool] = {}
+        eligible = []
+        for (name, p), d, s in zip(named_leaves(params),
+                                   tree_leaves(shard_dims),
+                                   leaf_specs(params, self.param_specs)):
+            if d < 0 or any(tok in name for tok in
+                            self.grad_reduce_overrides):
+                policy[name] = False
+                continue
+            shape = list(p.shape)
+            if isinstance(s, int) and shape:
+                shape[s % len(shape)] *= tp_n
+            eligible.append((name, tuple(shape), itemsize))
+        if self.grad_compress == "auto":
+            from ..dist.compressed import auto_compress_policy
+
+            pol, records = auto_compress_policy(
+                eligible, "reduce_scatter", (self.shard_axis,), self.ctx,
+                model=self.comm_model, min_size=self.compress_min_size)
+            policy.update(pol)
+            return policy, records
+        for name, shape, _ in eligible:
+            policy[name] = math.prod(shape) >= self.compress_min_size
+        return policy, None
 
     # ------------------------------------------------------ reduction
 
-    def reduce_grads_to_shard(self, grads: Any, shard_dims: Any) -> Any:
+    def reduce_grads_to_shard(self, grads: Any, shard_dims: Any,
+                              policy: Optional[Dict[str, bool]] = None,
+                              ef: Any = None) -> Any:
         """Every rank's grads reduced to this rank's shards, as a new tree
-        (see the module note, step 2).  Every rank calls it."""
-        out = []
-        for (name, g), d in zip(named_leaves(grads),
-                                tree_leaves(shard_dims)):
+        (see the module note, step 2).  Every rank calls it.  The
+        compressed leaves (``policy``, default :meth:`_compress_decisions`
+        on ``grads``) reduce through the int8 rings; with ``ef`` (a
+        residual tree, ``'int8_ef'``) each compresses grad + residual and
+        ``(grads, new residuals)`` is returned."""
+        from ..dist.compressed import (
+            ef_compress,
+            int8_ring_pmean,
+            int8_ring_reduce_scatter,
+        )
+
+        if policy is None:
+            policy, _ = self._compress_decisions(grads, shard_dims)
+        e_leaves = (list(tree_leaves(ef)) if ef is not None
+                    else [None] * len(list(tree_leaves(shard_dims))))
+        out, new_ef = [], []
+        for (name, g), d, e in zip(named_leaves(grads),
+                                   tree_leaves(shard_dims), e_leaves):
             axes, matched = self.grad_reduce_axes, False
             for tok, ax in self.grad_reduce_overrides.items():
                 if tok in name:
@@ -287,13 +360,29 @@ class ZeroOptimizer:
                 size = self.total if matched else math.prod(
                     self.ctx.get_group_size(a) for a in axes)
                 out.append(g / size)
+                new_ef.append(e)
                 continue
-            g = _reduce_scatter(g.to(self.master_dtype), self.shard_group, d,
-                                "zero_reduce_scatter")
-            if other:
-                _psum_(g, self._groups[other], "zero_all_reduce")
+            g = g.to(self.master_dtype)
+            if policy.get(name, False):
+                with torch.no_grad():
+                    if e is not None:
+                        g, e = ef_compress(g + e)
+                    g = int8_ring_reduce_scatter(g, self.shard_group, d)
+                    for a in other:
+                        # the ring's mean times the size: the sum, int8
+                        g = int8_ring_pmean(g, self._groups[(a,)]) \
+                            * self.ctx.get_group_size(a)
+            else:
+                g = _reduce_scatter(g, self.shard_group, d,
+                                    "zero_reduce_scatter")
+                if other:
+                    _psum_(g, self._groups[other], "zero_all_reduce")
             out.append(g / self.total)
-        return _unflatten_like(grads, iter(out))
+            new_ef.append(e)
+        out = _unflatten_like(grads, iter(out))
+        if ef is None:
+            return out
+        return out, _unflatten_like(grads, iter(new_ef))
 
     def apply_gradients(self, grads_shard: Any, state: Dict[str, Any],
                         shard_dims: Any) -> Tuple[Any, Dict[str, Any],
@@ -314,15 +403,31 @@ class ZeroOptimizer:
         state["inner"].step()
         return master, state, gnorm
 
-    def regather(self, params: Any, master: Any, shard_dims: Any) -> Any:
+    def _gather_mode(self) -> Optional[str]:
+        if self.gather_compress == "follow":
+            return "int8" if self.grad_compress is not None else None
+        return self.gather_compress
+
+    def regather(self, params: Any, master: Any, shard_dims: Any,
+                 policy: Optional[Dict[str, bool]] = None) -> Any:
         """Every parameter set, in place, to the all-gathered master
         shards cast to its dtype (the cast on the shard, the gather in
-        the parameter's dtype)."""
+        the parameter's dtype).  Under an int8 re-gather
+        (``gather_compress``) the leaves ``policy`` compresses are
+        gathered through ``int8_psum_all_gather``."""
+        from ..dist.compressed import int8_psum_all_gather
+
+        int8 = self._gather_mode() == "int8"
+        policy = policy or {}
         with torch.no_grad():
-            for p, m, d in zip(tree_leaves(params), tree_leaves(master),
-                               tree_leaves(shard_dims)):
+            for (name, p), m, d in zip(named_leaves(params),
+                                       tree_leaves(master),
+                                       tree_leaves(shard_dims)):
                 m = m.to(p.dtype)
-                if d >= 0:
+                if d >= 0 and int8 and policy.get(name, False):
+                    COLLECTIVES["zero_all_gather"] += 1
+                    m = int8_psum_all_gather(m, self.shard_group, d)
+                elif d >= 0:
                     m = _all_gather(m, self.shard_group, d, "zero_all_gather")
                 p.copy_(m)
         return params
@@ -360,25 +465,64 @@ class ZeroOptimizer:
             raise ValueError("sp needs the tensor group's param_specs")
         in_scan = (accum_reduce == "microbatch" and value_and_grad_fn is None
                    and grad_accum_iters > 1)
+        ef_mode = self.grad_compress == "int8_ef"
+        if ef_mode and in_scan:
+            # the residual is one a step; the microbatch path reduces
+            # inside the accumulation loop, where it would be dropped
+            raise ValueError(
+                "grad_compress='int8_ef' does not compose with "
+                "accum_reduce='microbatch': the error-feedback residual "
+                "updates once per step, but 'microbatch' reduces inside "
+                "the accumulation loop; use accum_reduce='final' or "
+                "grad_compress='int8'")
 
         first = True
+        policies: Dict[tuple, Dict[str, bool]] = {}
+
+        def policy_for(params, dims):
+            """The compress decisions, once for each set of shapes;
+            'auto''s recorded as a ``compress_policy`` event."""
+            key = tuple(tuple(p.shape) for p in tree_leaves(params))
+            if key not in policies:
+                policy, records = self._compress_decisions(params, dims)
+                if records is not None:
+                    from ..obs.events import default_event_log
+
+                    default_event_log().emit(
+                        "compress_policy", family="zero", mode="auto",
+                        op="reduce_scatter", axes=[self.shard_axis],
+                        n_leaves=len(records),
+                        n_compressed=sum(1 for r in records
+                                         if r["compress"]),
+                        leaves=records)
+                policies[key] = policy
+            return policies[key]
 
         def step(params, state, batch):
             nonlocal first
             dims = self.shard_dims(params)
+            policy = policy_for(params, dims)
+
+            def reduce(g):
+                return self.reduce_grads_to_shard(g, dims, policy)
+
             if value_and_grad_fn is not None:
                 loss, grads = value_and_grad_fn(params, batch)
             else:
                 loss, grads = local_value_and_grad(
                     loss_fn, params, batch, grad_accum_iters,
-                    reduce_fn=((lambda g: self.reduce_grads_to_shard(g, dims))
-                               if in_scan else None))
+                    reduce_fn=reduce if in_scan else None)
             # the first step's loss is checked against the layout's rule
             grads, _ = normalize_model_axis_grads(
                 loss if first else None, grads, self.ctx, self.data_axes)
             first = False
-            g_shard = grads if in_scan else self.reduce_grads_to_shard(
-                grads, dims)
+            if in_scan:
+                g_shard = grads
+            elif ef_mode:
+                g_shard, state["ef"] = self.reduce_grads_to_shard(
+                    grads, dims, policy, ef=state["ef"])
+            else:
+                g_shard = reduce(grads)
             del grads
             if sp:
                 for g, s in zip(tree_leaves(g_shard),
@@ -386,7 +530,7 @@ class ZeroOptimizer:
                     if s == PARTIAL_UNDER_SP:
                         _psum_(g, self.tp_group, "zero_all_reduce")
             master, state, gnorm = self.apply_gradients(g_shard, state, dims)
-            self.regather(params, master, dims)
+            self.regather(params, master, dims, policy)
             loss = _psum_(loss.detach().clone(), self.group,
                           "zero_all_reduce") / self.total
             return params, state, loss, gnorm
