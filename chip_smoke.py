@@ -223,7 +223,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    call, verify included; greedy rows teacher-forced; acceptance, tokens
    a slot a tick, TPOT and tokens/s; the K1 body a verify call runs, by
    the library's launch counts: the split decode body at K 3,
-   ``paged_tc_kernel`` at K 4).  Then tensor parallel over a one-rank
+   ``paged_tc_kernel`` at K 4).  Then the fleet (``fleet_phase``, every
+   replica on the one parameter dict with a pool of its own): (a) a
+   ``Router`` over a prefill and a decode replica serving the engine's
+   16 requests — the prefill replica launches only K1's
+   ``paged_tc_kernel``, the decode replica only its split body and
+   merge (the library's counts), greedy tokens the plain engine's or a
+   teacher-forced near-tie within 5 %, the migrated bytes
+   ``migration_wire_bytes``, each handoff's ``migrate_blocks`` timed by
+   CUDA events, the audit green after every tick; (b) two ``'both'``
+   replicas with the prefix cache: 8 requests on a 2048-token system
+   prompt, every one after the first routed to the warm replica by
+   affinity; (c) the chunked wire under chaos (a dropped chunk healed by
+   one retry, the decode replica dying mid-migration and evacuated, a
+   ``table_corrupt`` on one of two decode replicas evacuated to the
+   other); (d) the long-prompt tier: a CP prefill replica over a
+   one-rank NCCL group (K2 only) handing prompts of 8192 and 12288
+   tokens to a plain decode replica (K1 only), two ``kv_handoff_long``;
+   (e) a planted transport shipping every live block but the last,
+   which the token gate must fail.  Then tensor parallel over a one-rank
    NCCL ``tensor`` group: ``ServingEngine(tp_group=)`` on the engine's 16
    requests (``tp_engine_phase``: every token equal to the plain
    engine's, K1 once a layer a device call, tok/s, TTFT and TPOT beside
@@ -3996,6 +4014,682 @@ def engine_features_phase(params, cfg, card):
                        + out["prefix"][True]["launches"]
                        + sum(out[k]["launches"] for k in
                              ("preempt", "drain", "migrate", "shed")))
+    return out
+
+
+FLEET_NEW = 16  # new tokens a request in fleet_phase (c) and (e)
+FLEET_BODIES = ("paged_tc_kernel", "paged_split_kernel",
+                "paged_merge_kernel", "paged_walk_kernel")
+
+
+def fleet_counts(engines):
+    """Per replica, the K1 / K2 launches and K1's bodies (the library's
+    own counts, ``_build.body_launches``) of its ``step`` calls: each
+    engine's ``step`` is wrapped to read the counts before and after.
+    Returns the per-replica dicts, filled as the fleet runs."""
+    from torchdistpackage_tpu_torch.ops import _build
+    from torchdistpackage_tpu_torch.ops import paged_attention as pa
+
+    def now():
+        return {"K1": pa.LAUNCHES["paged_decode_attention"],
+                "K2": pa.LAUNCHES["paged_carry_attention"],
+                **{b: _build.body_launches("paged_attention", b)
+                   for b in FLEET_BODIES}}
+
+    per = [dict.fromkeys(now(), 0) for _ in engines]
+    for eng, row in zip(engines, per):
+        def step(_inner=eng.step, _row=row):
+            before = now()
+            out = _inner()
+            for k, v in now().items():
+                _row[k] += v - before[k]
+            return out
+        eng.step = step
+    return per
+
+
+def fleet_engine(params, cfg, **kw):
+    """A fleet replica: Mistral-7B-v0.1 widths as given, blocks of 16,
+    chunk 512, K1's CUDA path."""
+    from torchdistpackage_tpu_torch.serving import ServingEngine
+
+    kw = {"num_slots": 8, "block_size": BS, "chunk": 512, "max_ctx": 8192,
+          **kw}
+    eng = ServingEngine(params, cfg, device="cuda", **kw)
+    if eng.attn_impl != "cuda":
+        raise RuntimeError(f"fleet engine resolved attn_impl="
+                           f"{eng.attn_impl!r}")
+    return eng
+
+
+def fleet_drive(router, what, max_ticks=20000):
+    """Run the fleet to idle with ``Router.audit()`` green after every
+    tick; returns the ticks."""
+    ticks = 0
+    while router.has_work():
+        router.step()
+        ticks += 1
+        rep = router.audit()
+        if not rep["ok"]:
+            raise RuntimeError(f"{what}: audit after tick {ticks}: "
+                               f"{rep['violations'][:3]}")
+        if ticks > max_ticks:
+            raise RuntimeError(f"{what}: the fleet did not drain")
+    return ticks
+
+
+def fleet_gap(params, cfg, tokens, P):
+    """The largest teacher-forced gap of a finished sequence's emitted
+    tokens (``tf_gaps``: of its row's scale), K3 over the sequence."""
+    tf_cfg = dataclasses.replace(cfg, attn_impl="flash")
+    seq = torch.from_numpy(np.asarray(tokens)[None]).to("cuda").long()
+    return float(tf_gaps(teacher_logits_of(params, tf_cfg, seq), seq,
+                         P).max())
+
+
+def fleet_held(params, cfg, reqs, got, want, what, gate=True):
+    """Greedy rows: each generated sequence equal to the plain engine's,
+    or else every emitted token within ``TF_TOL`` of its teacher-forced
+    row maximum.  Returns (the share of greedy tokens equal to the plain
+    engine's, the sampled rows' share, the largest gap found)."""
+    greedy = [i for i, r in enumerate(reqs) if r.temperature == 0.0]
+    sampled = [i for i, r in enumerate(reqs) if r.temperature > 0.0]
+    gen = [np.asarray(g)[len(r.tokens):] for g, r in zip(got, reqs)]
+    ref = [np.asarray(w)[len(r.tokens):] for w, r in zip(want, reqs)]
+    worst = 0.0
+    for i in greedy:
+        if len(gen[i]) != reqs[i].max_new_tokens:
+            raise RuntimeError(f"{what}: request {i} emitted "
+                               f"{len(gen[i])} tokens")
+        if not np.array_equal(gen[i], ref[i][:len(gen[i])]):
+            worst = max(worst, fleet_gap(params, cfg, got[i],
+                                         len(reqs[i].tokens)))
+    if gate and worst > TF_TOL:
+        raise RuntimeError(f"{what}: a greedy token is off its teacher-"
+                           f"forced argmax by {worst:.4f} > {TF_TOL}")
+    return (same_share([gen[i] for i in greedy], [ref[i] for i in greedy]),
+            same_share([gen[i] for i in sampled], [ref[i] for i in sampled])
+            if sampled else None, worst)
+
+
+def fleet_check_launches(what, per, k12, bodies=None):
+    """Each replica's counts from :func:`fleet_counts`: ``k12[i]`` its
+    (K1, K2) launches, and ``bodies[i]`` (when given) the K1 bodies it
+    must launch, every other body none."""
+    got = [(row["K1"], row["K2"]) for row in per]
+    if got != [tuple(k) for k in k12]:
+        raise RuntimeError(f"{what}: (K1, K2) launches by replica {got}, "
+                           f"want {k12}")
+    for i, row in enumerate(per):
+        if bodies is not None and [b for b in FLEET_BODIES if (
+                row[b] > 0) != (b in bodies[i])]:
+            raise RuntimeError(f"{what}: replica {i} launched {row}, want "
+                               f"only {bodies[i]}")
+
+
+def fleet_requests(cfg, n_new=None, lens=None, greedy_only=False):
+    """:func:`engine_requests` (optionally only greedy rows with prompts in
+    ``lens``, each ``n_new`` new tokens) with their indices."""
+    from torchdistpackage_tpu_torch.serving import Request
+
+    reqs, _ = engine_requests(cfg)
+    idx = [i for i, r in enumerate(reqs)
+           if (not greedy_only or r.temperature == 0.0)
+           and (lens is None or len(r.tokens) in lens)]
+    if n_new is not None:
+        reqs = [Request(r.tokens, n_new, temperature=r.temperature,
+                        top_k=r.top_k, top_p=r.top_p, seed=r.seed)
+                for r in reqs]
+    return [reqs[i] for i in idx], idx
+
+
+@torch.no_grad()
+def fleet_disaggregated(params, cfg, card, plain):
+    """(a) ``Router([pre, dec], roles=['prefill', 'decode'])`` serving
+    :func:`engine_requests` (16, 12 greedy): tokens held to the plain
+    engine's, K1's bodies per replica, each handoff's two device copies
+    timed (the export's snapshot and the deliver's ``migrate_blocks``),
+    bytes against ``migration_wire_bytes``, audit every tick; then
+    :func:`fleet_copy_split` on the two idle pools."""
+    from torchdistpackage_tpu_torch.obs.events import (
+        EventLog,
+        set_default_event_log,
+    )
+    from torchdistpackage_tpu_torch.obs.report import _validate_router
+    from torchdistpackage_tpu_torch.serving import (
+        LoopbackTransport,
+        Router,
+        migration_wire_bytes,
+    )
+
+    class Timed(LoopbackTransport):
+        """The loopback wire with each handoff's deliver (its
+        ``migrate_blocks`` onto the decode pool) timed by CUDA events."""
+
+        def __init__(self):
+            super().__init__()
+            self.copies = []
+
+        def deliver(self, handle, dst_cache, src_ids, dst_ids):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            out = super().deliver(handle, dst_cache, src_ids, dst_ids)
+            b.record()
+            self.copies.append((len(src_ids), a, b))
+            return out
+
+    def timed_export(eng, exports):
+        """``eng.export_slot`` with each call (its ``PoolSnapshot``, the
+        first of a handoff's two device copies) timed by CUDA events."""
+        export = eng.export_slot
+
+        def call(rid):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            desc, snap = export(rid)
+            b.record()
+            exports.append((len(snap.block_ids) - 1, a, b))
+            return desc, snap
+        eng.export_slot = call
+
+    reqs, _ = fleet_requests(cfg)
+    log_ = EventLog(history_max=1 << 16)
+    set_default_event_log(log_)
+    try:
+        pre, dec = fleet_engine(params, cfg), fleet_engine(params, cfg)
+        tr, exports = Timed(), []
+        timed_export(pre, exports)
+        router = Router([pre, dec], roles=["prefill", "decode"],
+                        transport=tr)
+        per = fleet_counts([pre, dec])
+        rids = [router.submit(r) for r in reqs]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        ticks = fleet_drive(router, "fleet (a)")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        set_default_event_log(None)
+    if pre.stats["decode_steps"] or dec.stats["prefill_chunks"]:
+        raise RuntimeError("fleet (a): a tier ran the other's phase")
+    fleet_check_launches(
+        "fleet (a)", per, [(cfg.nlayers * pre.stats["prefill_chunks"], 0),
+                           (cfg.nlayers * dec.stats["decode_steps"], 0)],
+        (("paged_tc_kernel",), ("paged_split_kernel", "paged_merge_kernel")))
+    got = [router.finished[r]["tokens"] for r in rids]
+    exact, sampled, worst = fleet_held(params, cfg, reqs, got,
+                                       plain["tokens"], "fleet (a)")
+    s = router.summary()
+    errs = _validate_router(s)
+    if errs:
+        raise RuntimeError(f"fleet (a): _validate_router: {errs[:3]}")
+    mig = s["fleet"]["migrations"]
+    per_block = migration_wire_bytes(cfg, 1, BS)
+    events = [e for e in log_.as_list() if e["kind"] == "blocks_migrated"]
+    summed = sum(migration_wire_bytes(cfg, e["n_blocks"], BS)
+                 for e in events)
+    if not (mig["blocks"] * per_block == summed == mig["bytes"] > 0
+            and mig["handoffs"] == len(events) == len(reqs)):
+        raise RuntimeError(f"fleet (a): migrations {mig}, events "
+                           f"{len(events)} summing {summed} B")
+    torch.cuda.synchronize()
+    copies = [(n, a.elapsed_time(b)) for n, a, b in tr.copies]
+    snaps = [(n, a.elapsed_time(b)) for n, a, b in exports]
+    if pre._alloc.in_use or dec._alloc.in_use:
+        raise RuntimeError("fleet (a): blocks leaked")
+    if [n for n, _ in snaps] != [n for n, _ in copies]:
+        raise RuntimeError(f"fleet (a): exported blocks {snaps} differ "
+                           f"from those delivered {copies}")
+    ms_block = [ms / n for n, ms in copies if n]
+    log(f"[fleet] (a) disaggregated: {len(reqs)} requests (12 greedy) "
+        f"through a prefill and a decode replica in {wall:.2f} s, {ticks} "
+        f"router ticks, audit green after each; prefill replica "
+        f"{pre.stats['prefill_chunks']} prefill calls, 0 decode calls, "
+        f"bodies {per[0]}; decode replica {dec.stats['decode_steps']} "
+        f"decode calls, 0 prefill calls, bodies {per[1]}; greedy tokens "
+        f"equal to the plain engine's: {exact:.3f} (largest teacher-forced "
+        f"gap where they differ {worst:.4f}, gate {TF_TOL}); sampled rows, "
+        f"their stream state carried: {sampled:.3f} equal — on {card}")
+    log(f"[fleet] (a) {mig['handoffs']} handoffs, {mig['blocks']} blocks, "
+        f"{mig['bytes']} B = blocks x {per_block} B = migration_wire_bytes "
+        f"summed; a handoff's deliver, its migrate_blocks onto the decode "
+        f"pool (CUDA events around the call, host enqueue inside; blocks: "
+        f"ms): " + ", ".join(f"{n}: {ms:.3f}" for n, ms in copies)
+        + f"; {min(ms_block):.4f}-{max(ms_block):.4f} ms a block (ROADMAP "
+        f"B2 item 12: 1.88-2.89 ms for 147 blocks, 0.0128-0.0197 a block); "
+        f"its export_slot, whose PoolSnapshot copies the same blocks out "
+        f"of the prefill pool (blocks: ms): "
+        + ", ".join(f"{n}: {ms:.3f}" for n, ms in snaps)
+        + f"; export + deliver {min(a + b for (_, a), (_, b) in zip(snaps, copies)):.3f}-"
+        f"{max(a + b for (_, a), (_, b) in zip(snaps, copies)):.3f} ms a "
+        f"handoff — on {card}")
+    split = fleet_copy_split(pre, dec, cfg, card)
+    out = {"launches": {"prefill": per[0], "decode": per[1]},
+           "wall_s": wall, "exact": exact, "sampled": sampled,
+           "worst_gap": worst, "copies": copies, "exports": snaps,
+           "split": split, "migrations": mig}
+    del router, pre, dec
+    torch.cuda.empty_cache()
+    return out
+
+
+def fleet_copy_split(src, dst, cfg, card, sizes=(16, 64, 288), reps=10):
+    """Where a handoff's copy time goes, on (a)'s two pools once they are
+    idle (their blocks 1..n, free, are overwritten): the export's
+    ``PoolSnapshot`` of the source pool; the lane vectors' host-to-device
+    copies alone (``_lane``, as many as ``migrate_blocks`` makes: a
+    source and a destination lane for each leaf pair); ``migrate_blocks``
+    from the snapshot as the handoff calls it (host lanes); and the same
+    copy with its lanes already on the card.  Each is the mean of
+    ``reps`` calls, each call after a synchronise and timed alone by CUDA
+    events, after one warm-up.  Then one handoff-style ``migrate_blocks``
+    under ``torch.profiler``: the device time of its kernels and copies
+    by name.  The floor is the migrated bytes read once and written once
+    at ``HBM_BYTES_PER_S``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchdistpackage_tpu_torch.serving.paged_cache import (
+        PoolSnapshot,
+        _lane,
+        migrate_blocks,
+        migration_wire_bytes,
+    )
+
+    def timed(fn):
+        ms = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+        return sum(ms[1:]) / reps
+
+    n_lanes = 2 * sum(len(x) if isinstance(x, tuple) else 1
+                      for x in dst.cache.values())
+    rows = {}
+    for n in sizes:
+        ids = np.arange(1, n + 1, dtype=np.int64)
+        snap = PoolSnapshot(src.cache, ids)
+        plain = dict(snap)
+        dev_src = _lane(snap.rows(ids), "cuda")
+        dev_dst = _lane(ids, "cuda")
+        moved = migration_wire_bytes(cfg, n, BS)
+        row = {
+            "snapshot_ms": timed(lambda: PoolSnapshot(src.cache, ids)),
+            "lanes_ms": timed(lambda: [_lane(ids, "cuda")
+                                       for _ in range(n_lanes)]),
+            "migrate_ms": timed(lambda: migrate_blocks(snap, dst.cache,
+                                                       ids, ids)),
+            "migrate_device_lanes_ms": timed(
+                lambda: migrate_blocks(plain, dst.cache, dev_src,
+                                       dev_dst)),
+            "floor_ms": 2 * moved / HBM_BYTES_PER_S * 1e3,
+            "bytes": moved,
+        }
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            migrate_blocks(snap, dst.cache, ids, ids)
+            torch.cuda.synchronize()
+        dev = []
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+            if us > 0:
+                name = ("index_put (scatter)" if "index_put" in e.key else
+                        "index (gather)" if "index_kernel" in e.key else
+                        e.key[:48])
+                dev.append((name, e.count, us / 1e3))
+        row["profiled_ms"] = sum(ms for _, _, ms in dev) if dev else None
+        row["profiled"] = dev
+        rows[n] = row
+        log(f"[fleet] (a) copy split at {n} blocks ({moved} B, floor "
+            f"{row['floor_ms']:.4f} ms read once and written once): "
+            f"PoolSnapshot {row['snapshot_ms']:.4f} ms; {n_lanes} lane "
+            f"copies alone {row['lanes_ms']:.4f} ms; migrate_blocks as the "
+            f"handoff calls it {row['migrate_ms']:.4f} ms, with its lanes "
+            f"already on the card {row['migrate_device_lanes_ms']:.4f} ms "
+            f"(means of {reps}, each call timed alone); one handoff-style "
+            f"call's device time under torch.profiler: "
+            + (f"{row['profiled_ms']:.4f} ms in " + "; ".join(
+                f"{k} x{c} {ms:.4f}" for k, c, ms in dev)
+               if dev else "not measured (no device time in the trace)")
+            + f" — on {card}")
+    return rows
+
+
+@torch.no_grad()
+def fleet_affinity(params, cfg, card):
+    """(b) Two ``'both'`` replicas with the prefix cache on and 8 greedy
+    requests sharing a 2048-token system prompt: after the first, every
+    request routes to the warm replica by affinity.  Tokens against a
+    plain engine (prefix cache off) on the same requests."""
+    from torchdistpackage_tpu_torch.obs.events import (
+        EventLog,
+        set_default_event_log,
+    )
+    from torchdistpackage_tpu_torch.obs.report import _validate_router
+    from torchdistpackage_tpu_torch.serving import Request, Router
+
+    rs = np.random.RandomState(23)
+    sysp = rs.randint(0, cfg.vocab_size, SYS_LEN).tolist()
+    reqs = [Request(sysp + rs.randint(0, cfg.vocab_size,
+                                      int(rs.randint(128, 513))).tolist(),
+                    FEAT_NEW) for _ in range(8)]
+    ref = fleet_engine(params, cfg)
+    ref_rids = [ref.submit(r) for r in reqs]
+    ref.run_until_idle()
+    want = [ref.finished[r]["tokens"] for r in ref_rids]
+    del ref
+    torch.cuda.empty_cache()
+    log_ = EventLog(history_max=1 << 16)
+    set_default_event_log(log_)
+    try:
+        engines = [fleet_engine(params, cfg, prefix_cache=True)
+                   for _ in range(2)]
+        router = Router(engines)
+        per = fleet_counts(engines)
+        reset_counts()
+        t0 = time.perf_counter()
+        rids = [router.submit(reqs[0])]
+        fleet_drive(router, "fleet (b) warm-up")
+        warm = router.finished[rids[0]]["replica"]
+        rids += [router.submit(r) for r in reqs[1:]]
+        fleet_drive(router, "fleet (b)")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        set_default_event_log(None)
+    decisions = [e for e in log_.as_list() if e["kind"] == "route_decision"]
+    for d in decisions[1:]:
+        first, second = d["candidates"]
+        if not (d["chosen"] == warm == first["replica"]
+                and first["affinity_tokens"] == SYS_LEN
+                and second["affinity_tokens"] == 0):
+            raise RuntimeError(f"fleet (b): rid {d['rid']} not routed by "
+                               f"affinity: {d['candidates']}")
+    hits = [e for e in log_.as_list() if e["kind"] == "prefix_hit"]
+    saved = sum(-(-len(r.tokens) // 512) - -(-(len(r.tokens) - SYS_LEN)
+                                            // 512) for r in reqs[1:])
+    got = [router.finished[r]["tokens"] for r in rids]
+    exact, _, worst = fleet_held(params, cfg, reqs, got, want, "fleet (b)")
+    s = router.summary()
+    errs = _validate_router(s)
+    if errs or len(hits) != 7 or s["fleet"]["affinity"][
+            "affinity_routed"] != 7:
+        raise RuntimeError(f"fleet (b): hits {len(hits)}, affinity "
+                           f"{s['fleet']['affinity']}, {errs[:3]}")
+    log(f"[fleet] (b) affinity: 8 requests sharing a {SYS_LEN}-token "
+        f"system prompt over two 'both' replicas with the prefix cache in "
+        f"{wall:.2f} s: the 7 after the first routed to the warm replica "
+        f"{warm} by affinity ({SYS_LEN} resident tokens against 0), "
+        f"affinity hit rate {s['fleet']['affinity']['hit_rate']:.3f}; "
+        f"{saved} prefill chunks of 512 saved ({len(hits)} prefix hits); "
+        f"K1 bodies by replica {per}; tokens equal to the plain engine's "
+        f"(prefix cache off): {exact:.3f} (largest gap where they differ "
+        f"{worst:.4f}) — on {card}")
+    del router, engines
+    torch.cuda.empty_cache()
+    return {"launches": per, "wall_s": wall, "saved_chunks": saved,
+            "exact": exact, "worst_gap": worst}
+
+
+@torch.no_grad()
+def fleet_faults(params, cfg, card, plain):
+    """(c) The chunked wire under chaos on a prefill / decode fleet (4
+    greedy requests, prompts <= 2048, ``FLEET_NEW`` tokens): a dropped
+    chunk healed by one ``migration_retry``; the decode replica dying
+    mid-migration, evacuated with no leak; and a ``table_corrupt`` on
+    one of two decode replicas with ``evacuate_on_fault`` moving its
+    requests to the survivor.  Tokens held as in (a)."""
+    from torchdistpackage_tpu_torch.obs.events import (
+        EventLog,
+        set_default_event_log,
+    )
+    from torchdistpackage_tpu_torch.obs.report import _validate_router
+    from torchdistpackage_tpu_torch.resilience import ChaosMonkey, Fault
+    from torchdistpackage_tpu_torch.serving import (
+        ChunkedWireTransport,
+        Router,
+    )
+
+    reqs, idx = fleet_requests(cfg, n_new=FLEET_NEW, lens=(256, 1024, 2048),
+                               greedy_only=True)
+    reqs, idx = reqs[:4], idx[:4]
+    want = [plain["tokens"][i] for i in idx]
+    arms = {
+        "chunk_drop": dict(roles=["prefill", "decode"], transport=lambda:
+                           ChunkedWireTransport(chaos=ChaosMonkey(
+                               [Fault("chunk_drop", step=1)]))),
+        "replica_death_midmigration": dict(
+            roles=["prefill", "decode"], transport=lambda:
+            ChunkedWireTransport(chaos=ChaosMonkey(
+                [Fault("replica_death_midmigration", step=1)]))),
+        "table_corrupt": dict(roles=["prefill", "decode", "decode"],
+                              transport=lambda: None, chaos=1),
+    }
+    out = {}
+    for name, arm in arms.items():
+        log_ = EventLog(history_max=1 << 16)
+        set_default_event_log(log_)
+        try:
+            engines = [fleet_engine(params, cfg, num_slots=4, max_ctx=4096)
+                       for _ in arm["roles"]]
+            if "chaos" in arm:
+                engines[arm["chaos"]].chaos = ChaosMonkey(
+                    [Fault("table_corrupt", step=3)])
+            router = Router(engines, roles=arm["roles"],
+                            transport=arm["transport"](),
+                            evacuate_on_fault="chaos" in arm)
+            per = fleet_counts(engines)
+            rids = [router.submit(r) for r in reqs]
+            t0 = time.perf_counter()
+            fleet_drive(router, f"fleet (c) {name}")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            set_default_event_log(None)
+        got = [router.finished[r]["tokens"] for r in rids]
+        exact, _, worst = fleet_held(params, cfg, reqs, got, want,
+                                     f"fleet (c) {name}")
+        st, tr = router.stats, router.transport.stats
+        kinds = [e["kind"] for e in log_.as_list()]
+        if name == "chunk_drop":
+            ok = (tr["retries"] == 1 == kinds.count("migration_retry")
+                  and st["transport_fallbacks"] == 0
+                  and tr["dead_transfers"] == 0)
+        elif name == "replica_death_midmigration":
+            ok = (router.alive == [True, False] and st["evacuations"] == 1
+                  and st["transport_fallbacks"] == 1
+                  and router.roles[0] == "both" and not router._inflight)
+        else:
+            ok = (engines[1].chaos.fired_count == 1
+                  and router.alive == [True, False, True]
+                  and st["evacuations"] == 1
+                  and all(router.finished[r]["replica"] == 2
+                          for r in rids))
+        leaked = [e._alloc.in_use for e in engines]
+        errs = _validate_router(router.summary())
+        if not ok or any(leaked) or errs:
+            raise RuntimeError(f"fleet (c) {name}: stats {st}, transport "
+                               f"{tr}, alive {router.alive}, roles "
+                               f"{router.roles}, blocks in use {leaked}, "
+                               f"{errs[:3]}")
+        out[name] = {"wall_s": wall, "exact": exact, "worst_gap": worst,
+                     "retries": tr["retries"],
+                     "fallbacks": st["transport_fallbacks"],
+                     "evacuations": st["evacuations"], "launches": per}
+        log(f"[fleet] (c) {name}: 4 greedy requests in {wall:.2f} s, "
+            f"retries {tr['retries']}, fallbacks "
+            f"{st['transport_fallbacks']}, evacuations {st['evacuations']}"
+            f" ({st['evacuated_requests']} requests), alive "
+            f"{router.alive}, roles {router.roles}, {router.transport.kind}"
+            f" transport: {tr['chunks']} blocks, {tr['wire_bytes']} B "
+            f"staged through the host; "
+            f"audit green every tick, no block leaked; tokens equal to "
+            f"the plain engine's {exact:.3f} (largest gap where they "
+            f"differ {worst:.4f}) — on {card}")
+        del router, engines
+        torch.cuda.empty_cache()
+    return out
+
+
+@torch.no_grad()
+def fleet_long(params, cfg, card):
+    """(d) The long-prompt tier: a CP prefill replica over a one-rank
+    NCCL ``cp_group`` (K2) hands two greedy requests of 8192 and 12288
+    tokens to a plain decode replica (K1), ``long_ctx_threshold`` 8192:
+    two ``kv_handoff_long`` with ``bytes > 0`` and ``cp == 1``; tokens
+    against the plain engine."""
+    import torch.distributed as dist
+
+    from torchdistpackage_tpu_torch.dist import (
+        build_cp_group,
+        init_distributed,
+    )
+    from torchdistpackage_tpu_torch.obs.events import (
+        EventLog,
+        set_default_event_log,
+    )
+    from torchdistpackage_tpu_torch.obs.report import _validate_router
+    from torchdistpackage_tpu_torch.serving import Request, Router
+
+    rs = np.random.RandomState(24)
+    reqs = [Request(rs.randint(0, cfg.vocab_size, n).tolist(), 32)
+            for n in (8192, 12288)]
+    kw = dict(num_slots=2, max_ctx=16384)
+    ref = fleet_engine(params, cfg, **kw)
+    ref_rids = [ref.submit(r) for r in reqs]
+    ref.run_until_idle()
+    want = [ref.finished[r]["tokens"] for r in ref_rids]
+    del ref
+    torch.cuda.empty_cache()
+    init_distributed(f"tcp://127.0.0.1:{free_port()}", 1, 0, "cuda")
+    log_ = EventLog(history_max=1 << 16)
+    set_default_event_log(log_)
+    try:
+        group = build_cp_group(1)
+        if dist.get_backend(group) != "nccl":
+            raise RuntimeError("the CP group on the card must use NCCL")
+        pre = fleet_engine(params, cfg, cp_group=group, **kw)
+        dec = fleet_engine(params, cfg, **kw)
+        router = Router([pre, dec], roles=["prefill", "decode"],
+                        long_ctx_threshold=8192)
+        per = fleet_counts([pre, dec])
+        rids = [router.submit(r) for r in reqs]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        fleet_drive(router, "fleet (d)")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        s = router.summary()
+        got = [router.finished[r]["tokens"] for r in rids]
+        del router, pre, dec
+        torch.cuda.empty_cache()
+    finally:
+        set_default_event_log(None)
+        dist.destroy_process_group()
+    longs = [e for e in log_.as_list() if e["kind"] == "kv_handoff_long"]
+    pcalls = s["replicas"][0]["prefill_chunks"]
+    dcalls = s["replicas"][1]["decode_steps"]
+    fleet_check_launches("fleet (d)", per, [(0, cfg.nlayers * pcalls),
+                                            (cfg.nlayers * dcalls, 0)])
+    if len(longs) != 2 or any(e["cp"] != 1 or e["bytes"] <= 0
+                              for e in longs):
+        raise RuntimeError(f"fleet (d): kv_handoff_long {longs}")
+    errs = _validate_router(s)
+    if errs:
+        raise RuntimeError(f"fleet (d): _validate_router: {errs[:3]}")
+    exact, _, worst = fleet_held(params, cfg, reqs, got, want, "fleet (d)")
+    log(f"[fleet] (d) long-prompt tier: a CP prefill replica (one-rank "
+        f"NCCL group) -> a plain decode replica, prompts "
+        f"{[len(r.tokens) for r in reqs]} in {wall:.2f} s: K2 "
+        f"{per[0]['K2']} launches on the prefill replica ({pcalls} calls), "
+        f"K1 {per[1]['K1']} on the decode replica ({dcalls} calls), K1 0 / "
+        f"K2 0 across; kv_handoff_long "
+        + ", ".join(f"{e['length']} tokens {e['n_blocks']} blocks "
+                    f"{e['bytes']} B cp {e['cp']}" for e in longs)
+        + f"; tokens equal to the plain engine's {exact:.3f} (largest gap "
+        f"where they differ {worst:.4f}) — on {card}")
+    return {"launches": per, "wall_s": wall, "exact": exact,
+            "worst_gap": worst,
+            "handoffs": [(e["length"], e["n_blocks"], e["bytes"])
+                         for e in longs]}
+
+
+@torch.no_grad()
+def fleet_planted(params, cfg, card):
+    """(e) A transport that ships every live block but the last, on 4
+    greedy requests of 28-46 prompt tokens (the last block 12-15 of
+    their positions): (a)'s token gate must fail it; by how much is
+    printed.  Held against a plain engine on the same requests."""
+    from torchdistpackage_tpu_torch.serving import (
+        LoopbackTransport,
+        Request,
+        Router,
+    )
+
+    class ShortTail(LoopbackTransport):
+        def deliver(self, handle, dst_cache, src_ids, dst_ids):
+            return super().deliver(handle, dst_cache, src_ids[:-1],
+                                   dst_ids[:-1])
+
+    rs = np.random.RandomState(25)
+    reqs = [Request(rs.randint(0, cfg.vocab_size, n).tolist(), FLEET_NEW)
+            for n in (28, 30, 31, 46)]
+    kw = dict(num_slots=4, max_ctx=512)
+    ref = fleet_engine(params, cfg, **kw)
+    ref_rids = [ref.submit(r) for r in reqs]
+    ref.run_until_idle()
+    want = [ref.finished[r]["tokens"] for r in ref_rids]
+    engines = [fleet_engine(params, cfg, **kw) for _ in range(2)]
+    router = Router(engines, roles=["prefill", "decode"],
+                    transport=ShortTail())
+    rids = [router.submit(r) for r in reqs]
+    fleet_drive(router, "fleet (e)")
+    got = [router.finished[r]["tokens"] for r in rids]
+    exact, _, worst = fleet_held(params, cfg, reqs, got, want, "fleet (e)",
+                                 gate=False)
+    if worst <= TF_TOL:
+        raise RuntimeError(f"fleet (e): the short-tail transport passed the "
+                           f"token gate (largest gap {worst:.4f})")
+    log(f"[fleet] (e) planted fault, the last live block of every handoff "
+        f"not shipped (prompts {[len(r.tokens) for r in reqs]}): tokens "
+        f"equal to the plain engine's {exact:.3f}, largest teacher-forced "
+        f"gap {worst:.4f} > {TF_TOL}: the gate fails it — on {card}")
+    del router, engines, ref
+    torch.cuda.empty_cache()
+    return {"exact": exact, "worst_gap": worst}
+
+
+def fleet_phase(params, cfg, card, plain):
+    """The fleet over the Mistral-7B-v0.1 weights on the card (32 layers,
+    bf16; every replica shares the one parameter dict, each has its own
+    pool): (a) prefill -> decode disaggregation, (b) prefix-affinity
+    routing, (c) the chunked wire and the engines under chaos, (d) the
+    long-prompt tier through a CP prefill replica, (e) a planted
+    short-tail transport.  ``plain``: :func:`engine_phase`'s run of the
+    same requests, whose tokens (a) and (c) are held to."""
+    out, secs = {}, {}
+    t_phase = time.perf_counter()
+    for part, fn in (("a", lambda: fleet_disaggregated(params, cfg, card,
+                                                       plain)),
+                     ("b", lambda: fleet_affinity(params, cfg, card)),
+                     ("c", lambda: fleet_faults(params, cfg, card, plain)),
+                     ("d", lambda: fleet_long(params, cfg, card)),
+                     ("e", lambda: fleet_planted(params, cfg, card))):
+        t0 = time.perf_counter()
+        out[part] = fn()
+        secs[part] = time.perf_counter() - t0
+    total = time.perf_counter() - t_phase
+    log(f"[fleet] seconds by part: "
+        + ", ".join(f"({k}) {v:.1f}" for k, v in secs.items())
+        + f"; the phase {total:.1f} s (its budget 90 s) — on {card}")
+    out["seconds"] = {**secs, "total": total}
     return out
 
 
@@ -8258,6 +8952,10 @@ def main():
     feat = engine_features_phase(params, cfg, card)
     log(f"[time] engine features done at "
         f"{time.perf_counter() - t_start:.0f} s")
+    # the fleet: the Router's disaggregation, affinity, faults and the
+    # long-prompt tier (K1 on both tiers, K2 on the CP prefill replica)
+    fleet = fleet_phase(params, cfg, card, eng)
+    log(f"[time] fleet done at {time.perf_counter() - t_start:.0f} s")
     # tensor parallelism over a one-rank NCCL group: the engine on the
     # same requests, generate() dense and MoE
     tp_eng = tp_engine_phase(params, cfg, card, eng)
@@ -8346,6 +9044,11 @@ def main():
                                    ("preempt", "drain", "migrate", "shed")},
                                 "all": feat["launches"]},
                             tp_engine_launches=tp_eng["launches"],
+                            fleet_launches={
+                                "disaggregated": fleet["a"]["launches"],
+                                "affinity": fleet["b"]["launches"],
+                                "long_tier_decode":
+                                    fleet["d"]["launches"][1]["K1"]},
                             dp_engine_launches_by_rank=dp_eng["launches"],
                             tp_ep_engine_launches=tp_ep["engine"]["tp_ep"][
                                 "launches"]["paged_decode_attention"])]
@@ -8447,6 +9150,7 @@ def main():
         cp_eng["launches"]["paged_carry_attention"], carry_rows,
         carry_rows[0], k1_ms=carry_rows[0]["k1_ms"],
         tp_cp_engine_launches=tp_cp["launches"]["paged_carry_attention"],
+        fleet_cp_prefill_launches=fleet["d"]["launches"][0]["K2"],
         k1_graph_ms=carry_rows[0]["k1_graph_ms"],
         ptxas={k: v for k, v in ptxas_summary.items() if k.startswith("K2")},
         library="SDPA over the gathered view at one hop; k1_ms: K1 on the "

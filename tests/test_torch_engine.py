@@ -191,9 +191,14 @@ def test_engine_refuses_queued_options():
         ServingEngine(None, cfg, device="cpu", spec_k=-1)
     with pytest.raises(TypeError):
         ServingEngine(None, cfg, device="cpu", no_such_option=1)
-    # what still waits, each refusal naming its queue item
+    # chaos serves (tests/test_torch_router.py); what still waits, each
+    # refusal naming its queue item
+    from torchdistpackage_tpu_torch.resilience import ChaosMonkey
+
+    monkey = ChaosMonkey()
+    assert ServingEngine(None, cfg, device="cpu", chaos=monkey,
+                         **ENGINE).chaos is monkey
     for option, item in (("telemetry", "Obs, resilience"),
-                         ("chaos", "Obs, resilience"),
                          ("watchdog", "Obs, resilience"),
                          ("metrics_sink", "Obs, resilience"),
                          ("mesh", "tensor parallelism takes tp_group"),

@@ -1,9 +1,14 @@
-"""Append-only structured event log — the minimum of
-``torchdistpackage_tpu/obs/events.py`` that the serving engine's timeline
-needs: :class:`EventLog` (``emit``, ``as_list``), the process-wide
-:func:`default_event_log`, and :data:`EVENT_KINDS`, the part of the
-reference's kind registry that the port emits.  File sinks and tagging
-are not ported yet (ROADMAP queue A).
+"""Append-only structured event log — the part of
+``torchdistpackage_tpu/obs/events.py`` that the serving engine and the
+fleet need: :class:`EventLog` (``emit``, ``of_kind``, ``as_list``, an
+optional ``sink``), the replica tagging a fleet puts on a shared
+timeline (:class:`TaggedEventLog`, :func:`tag_events`), the
+process-wide default log (:func:`default_event_log`,
+:func:`set_default_event_log`, :func:`emit_event`) and
+:data:`EVENT_KINDS`, the part of the reference's kind registry that the
+port emits.  File sinks wait for ROADMAP queue A's "Obs, resilience,
+tools, utils and HF conversion"; a ``sink`` is any object with a
+``write(record)`` method.
 """
 
 from __future__ import annotations
@@ -39,6 +44,20 @@ EVENT_KINDS: FrozenSet[str] = frozenset({
     # the collectives: grad_compress='auto''s per-leaf choices, and the
     # overlap regime dist.overlap.configure set
     "compress_policy", "overlap_configure",
+    # the chaos harness fired a declared fault (resilience.chaos), and
+    # a retry of with_retries with no caller hook (resilience.ckpt_guard)
+    "fault_injected", "ckpt_retry",
+    # the router: placements, moves, degradation and KV migration
+    "request_routed", "request_migrated", "replica_degraded",
+    "blocks_migrated",
+    # the router's decision ledger and its rotation switch
+    "route_decision", "handoff_decision", "rebalance_decision",
+    "replica_up", "replica_down",
+    # the elastic fleet: every autoscaler evaluation, the migration
+    # wire's re-requests, and a dead transfer's re-prefill fallback
+    "scale_decision", "migration_retry", "migration_fallback",
+    # a long document's prefill -> decode handoff (the CP prefill tier)
+    "kv_handoff_long",
 })
 
 
@@ -52,10 +71,14 @@ def _process_index() -> int:
 
 
 class EventLog:
-    """In-memory event log holding the newest 4096 events."""
+    """In-memory event log holding the newest ``history_max`` events.
+    ``sink``: an object with ``write(record)``, handed every record of
+    process 0."""
 
-    def __init__(self) -> None:
-        self.events: collections.deque = collections.deque(maxlen=4096)
+    def __init__(self, sink: Any = None, history_max: int = 4096) -> None:
+        self._sink = sink
+        self.events: collections.deque = collections.deque(
+            maxlen=history_max)
 
     def emit(self, kind: str, **fields: Any) -> Dict[str, Any]:
         """Record one event; returns the record."""
@@ -68,10 +91,43 @@ class EventLog:
         }
         rec.update(fields)
         self.events.append(rec)
+        if self._sink is not None and rec["process"] == 0:
+            try:
+                self._sink.write(rec)
+            except OSError:
+                pass  # a full disk: keep the in-memory log
         return rec
+
+    def of_kind(self, kind: str):
+        return [e for e in self.events if e["kind"] == kind]
 
     def as_list(self):
         return list(self.events)
+
+
+class TaggedEventLog:
+    """A view of an :class:`EventLog` that stamps fixed fields on every
+    emit (JAX :403): how a fleet gives each replica's engine an identity
+    on a shared timeline.  Everything but ``emit`` forwards to the
+    wrapped log, and a field given to an emit wins over the tag."""
+
+    def __init__(self, inner: EventLog, tags: Dict[str, Any]) -> None:
+        self.inner = inner
+        self.tags = dict(tags)
+
+    def emit(self, kind: str, **fields: Any) -> Dict[str, Any]:
+        return self.inner.emit(kind, **{**self.tags, **fields})
+
+    def __getattr__(self, name: str) -> Any:
+        return getattr(self.inner, name)
+
+
+def tag_events(log: Any, **tags: Any) -> TaggedEventLog:
+    """Wrap ``log`` so every emit carries ``tags``; re-tagging a tagged
+    log replaces its tags instead of stacking views (JAX :426)."""
+    while isinstance(log, TaggedEventLog):
+        log = log.inner
+    return TaggedEventLog(log, tags)
 
 
 _default_log: Optional[EventLog] = None
@@ -83,3 +139,14 @@ def default_event_log() -> EventLog:
     if _default_log is None:
         _default_log = EventLog()
     return _default_log
+
+
+def set_default_event_log(log: Optional[EventLog]) -> None:
+    """Install (or with None: reset) the process-wide default log."""
+    global _default_log
+    _default_log = log
+
+
+def emit_event(kind: str, **fields: Any) -> Dict[str, Any]:
+    """Emit on the process-wide default log."""
+    return default_event_log().emit(kind, **fields)

@@ -89,7 +89,7 @@ COLLECTIVES: Dict[str, int] = dict.fromkeys(
      "zero_all_gather", "fsdp_all_gather", "fsdp_reduce_scatter",
      "fsdp_all_reduce", "ema_all_gather", "transfer_gather",
      "moe_gather", "int8_hop", "int8_gather", "int8_fallback",
-     "comm_bench"), 0)
+     "comm_bench", "cp_export"), 0)
 
 _TP_GROUP = None
 

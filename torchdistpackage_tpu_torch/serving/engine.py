@@ -92,11 +92,13 @@ reads the host clock would not, so an engine over any process group
 refuses ``Request.deadline_s`` (deadline shedding and queue expiry)
 at submit.
 
-The reference's ``mesh`` / ``axis`` / ``dp_axis`` / ``ep_axis`` /
-``cp_axis`` stay refused (the groups take their place); telemetry,
-chaos, the watchdog and the metrics sink wait for ROADMAP queue A's
-"Obs, resilience, tools, utils and HF conversion".  The constructor
-refuses them with NotImplementedError.
+``chaos=`` takes a :class:`~..resilience.ChaosMonkey`: its engine faults
+fire at the top of a tick (before the audit) and on the fetched tokens,
+and the audit and the token check heal them.  The reference's ``mesh`` /
+``axis`` / ``dp_axis`` / ``ep_axis`` / ``cp_axis`` stay refused (the
+groups take their place); telemetry, the watchdog and the metrics sink
+wait for ROADMAP queue A's "Obs, resilience, tools, utils and HF
+conversion".  The constructor refuses them with NotImplementedError.
 """
 
 from __future__ import annotations
@@ -248,7 +250,7 @@ _TP = ("tensor parallelism takes tp_group= (a torch.distributed process "
        "group), not mesh= / axis=")
 _DP = ("data parallelism takes dp_group= (a torch.distributed process "
        "group, this rank's data group), not mesh= / dp_axis=")
-_OBS = ("telemetry, chaos, the watchdog and the metrics sink wait for "
+_OBS = ("telemetry, the watchdog and the metrics sink wait for "
         "ROADMAP queue A's \"Obs, resilience, tools, utils and HF "
         "conversion\"")
 _EP = ("expert parallelism takes ep_group= (a torch.distributed process "
@@ -262,8 +264,7 @@ _QUEUED_OPTIONS = {
     "mesh": (None, (_TP, _DP, _EP, _CP)), "axis": (None, (_TP,)),
     "dp_axis": (None, (_DP,)), "ep_axis": (None, (_EP,)),
     "cp_axis": (None, (_CP,)), "telemetry": (None, (_OBS,)),
-    "chaos": (None, (_OBS,)), "watchdog": (None, (_OBS,)),
-    "metrics_sink": (None, (_OBS,)),
+    "watchdog": (None, (_OBS,)), "metrics_sink": (None, (_OBS,)),
 }
 
 
@@ -413,6 +414,13 @@ class ServingEngine:
         A host-only step (:class:`~.sim.StubDeviceStep`) takes
         ``params=None`` and no process group; it then sets the device,
         ``attn_impl`` and ``moe_dispatch``.
+    chaos: a :class:`~..resilience.ChaosMonkey` driven each tick (its
+        ``ENGINE_FAULT_KINDS``): ``before_engine_tick`` at the top of
+        :meth:`step`, ``perturb_engine_tokens`` on every fetched token
+        row.  ``alloc_exhaust`` and ``table_corrupt`` are found and healed
+        by the tick's audit, ``nan_logits`` by the token check; the
+        co-batched requests are untouched.  ``slot_stall`` only sleeps:
+        the watchdog that escalates it waits for "Obs".
 
     ``hold_decode`` (an attribute, False by default) makes the engine a
     disaggregated prefill tier: decode ticks are skipped, so a slot that
@@ -443,6 +451,7 @@ class ServingEngine:
         spec_k: int = 0,
         device=None,
         device_step: Optional[Any] = None,
+        chaos: Optional[Any] = None,
         **queued: Any,
     ) -> None:
         unknown = set(queued) - set(_QUEUED_OPTIONS)
@@ -498,6 +507,8 @@ class ServingEngine:
         #: DECODE for export_slot (plain host scheduler state)
         self.hold_decode = False
         self._ev: EventLog = default_event_log()
+        #: the fault-injection harness (resilience.ChaosMonkey) or None
+        self.chaos = chaos
 
         if device_step is None:
             from .sim import TorchDeviceStep
@@ -1047,6 +1058,8 @@ class ServingEngine:
             self._samp(), streams)
         self._absorb_moe_stats(moe)
         self._prefill_sigs.add(("prefill",) + self._sig(tokens))
+        if self.chaos is not None:
+            tok = self.chaos.perturb_engine_tokens(self._tick, tok)
         now = time.perf_counter()
         rids = []
         for i, s in enumerate(self._slots):
@@ -1117,6 +1130,8 @@ class ServingEngine:
             self._samp(), streams)
         self._absorb_moe_stats(moe)
         self._decode_sigs.add(("decode",) + self._sig(tokens))
+        if self.chaos is not None:
+            tok = self.chaos.perturb_engine_tokens(self._tick, tok)
         now = time.perf_counter()
         for i, s in enumerate(self._slots):
             if s.state != DECODE:
@@ -1190,6 +1205,8 @@ class ServingEngine:
             self.params, self.cache, tokens, tables, offsets, self._samp(),
             streams)
         self._decode_sigs.add(("decode",) + self._sig(tokens))
+        if self.chaos is not None:
+            verify = self.chaos.perturb_engine_tokens(self._tick, verify)
         now = time.perf_counter()
         emitted_total = accepted_total = 0
         for i, s in enumerate(self._slots):
@@ -1427,13 +1444,15 @@ class ServingEngine:
         return sum(s.state != FREE for s in self._slots)
 
     def step(self) -> Dict[str, int]:
-        """One engine tick, in the reference's order: invariant audit
-        (heal) -> queue expiry -> admit (with preemption and the
-        copy-on-write) -> one prefill slice -> one decode step.  A tick
-        that decoded updates the tick-time EWMA ``estimate_ttft`` reads.
-        Returns what happened (all zeros = idle)."""
+        """One engine tick, in the reference's order: the chaos hook ->
+        invariant audit (heal) -> queue expiry -> admit (with preemption
+        and the copy-on-write) -> one prefill slice -> one decode step.
+        A tick that decoded updates the tick-time EWMA ``estimate_ttft``
+        reads.  Returns what happened (all zeros = idle)."""
         t0 = time.perf_counter()
         self._tick += 1
+        if self.chaos is not None:
+            self.chaos.before_engine_tick(self._tick, self)
         self.stats["audits"] += 1
         self.audit(heal=True)
         expired = self._expire_queue(time.perf_counter())
@@ -1677,7 +1696,10 @@ class ServingEngine:
         descriptor, to be imported or resumed, never both.  With more
         than one data group the descriptor names the slot's ``group``:
         only that group's ranks hold its blocks, so elsewhere the
-        snapshot holds none (``migrate_blocks`` from it raises)."""
+        snapshot holds none (``migrate_blocks`` from it raises).  A CP
+        engine's rank holds only its block slice of the pool, so its
+        export gathers the live blocks over ``cp_group``
+        (:meth:`_cp_snapshot`): every rank gets the whole snapshot."""
         for i, s in enumerate(self._slots):
             if s.state == DECODE and s.rid == rid:
                 break
@@ -1701,8 +1723,13 @@ class ServingEngine:
             "ttft_s": s.ttft_s,
             "tpot_s": [float(t) for t in s.tpot_s],
         })
-        mine = self._group(i) == getattr(self.device_step, "group_index", 0)
-        source = PoolSnapshot(self.cache, s.blocks[:n_live] if mine else [])
+        if self.cp_group is not None:
+            source = self._cp_snapshot(s.blocks[:n_live])
+        else:
+            mine = self._group(i) == getattr(self.device_step,
+                                             "group_index", 0)
+            source = PoolSnapshot(self.cache,
+                                  s.blocks[:n_live] if mine else [])
         self._release_blocks(self._alloc_of(i), s.blocks)
         self._clear_slot_rows(i)
         self._inject.pop(s.rid, None)
@@ -1713,6 +1740,33 @@ class ServingEngine:
                       n_live=n_live,
                       emitted_tokens=len(desc.get("emitted") or []))
         return desc, source
+
+    def _cp_snapshot(self, blocks: Sequence[int]) -> PoolSnapshot:
+        """The whole :class:`~.paged_cache.PoolSnapshot` of global blocks
+        ``blocks`` (and the NULL block) on every rank of ``cp_group``.
+        Rank ``r`` holds global blocks ``[r nb_local, (r + 1) nb_local)``
+        only: each rank fills the rows it owns of a zeroed ``[2, L, 1 +
+        n, ...]`` buffer (k and v), one all-gather over the group (through
+        the host over gloo, counted by ``tp_utils``) collects every
+        rank's, and each row is taken from its owner's."""
+        from ..parallel.tensor_parallel.tp_utils import _all_gather
+
+        ids = np.asarray([0] + [int(b) for b in blocks], np.int64)
+        nb_local = self.num_blocks // self.cp
+        owner, local = ids // nb_local, ids % nb_local
+        k, v = self.cache["k"], self.cache["v"]
+        dev = k.device
+        mine = np.nonzero(owner == dist.get_rank(self.cp_group))[0]
+        part = k.new_zeros((2, k.shape[0], len(ids)) + tuple(k.shape[2:]))
+        rows = torch.from_numpy(mine).to(dev)
+        src = torch.from_numpy(local[mine]).to(dev)
+        part[0][:, rows] = k[:, src]
+        part[1][:, rows] = v[:, src]
+        every = _all_gather(part[None], self.cp_group, 0, "cp_export")
+        whole = every[torch.from_numpy(owner).to(dev), :, :,
+                      torch.arange(len(ids), device=dev)].movedim(0, 2)
+        return PoolSnapshot.from_rows({"k": whole[0], "v": whole[1]},
+                                      ids.tolist())
 
     def import_slot(self, desc: Dict[str, Any]) -> Optional[Dict[str, Any]]:
         """Admit an :meth:`export_slot` descriptor straight into DECODE

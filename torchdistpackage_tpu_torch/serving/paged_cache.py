@@ -546,6 +546,20 @@ class PoolSnapshot(dict):
         super().__init__({
             name: (tuple(take(t) for t in x) if isinstance(x, tuple)
                    else take(x)) for name, x in cache.items()})
+        self._index(ids)
+
+    @classmethod
+    def from_rows(cls, leaves: Dict[str, Any],
+                  block_ids: Sequence[int]) -> "PoolSnapshot":
+        """A snapshot of leaves already copied out (``[L, len(block_ids),
+        ...]``, row ``j`` block ``block_ids[j]``, row 0 the NULL block):
+        what a CP engine's export assembles from its ranks' slices."""
+        snap = cls.__new__(cls)
+        dict.__init__(snap, leaves)
+        snap._index([int(b) for b in block_ids])
+        return snap
+
+    def _index(self, ids: List[int]) -> None:
         #: the source pool's id of each row
         self.block_ids = ids
         self._row = {}
