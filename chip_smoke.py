@@ -191,8 +191,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``paged_forward`` with K1 against the plain path on identical tokens
    (teacher-forced logits), then ``ServingEngine`` serves 16 requests
    (12 greedy, 4 sampled) through K1, launched once per layer per device
-   call; a decode tick of 8 slots is timed and profiled.  Then the same
-   model context-parallel (``cp_phase``): a one-rank NCCL group
+   call.  Then observability (``obs_phase``): the same 16 requests through
+   ``ServingEngine(telemetry=Telemetry(...), watchdog=Watchdog(60),
+   metrics_sink=MultiSink([JsonlSink, PrometheusTextfileSink]))`` — every
+   token, K1's launches and each K1 body's equal to the plain engine's,
+   one decode signature, no ``recompile``; every tick's phases (audit /
+   sched / prefill / draft / decode / fetch / host) make its ``tick_s``,
+   summed 0.90-1.00 of the run's wall time, ``decode`` and ``fetch``
+   above 0 on every decode tick (the share of a tick that is not
+   ``fetch`` printed); every request's lifecycle rebuilt from the
+   timeline; the RUNREPORT (card memory reported, the pool's accounting
+   matched), the Perfetto trace and the sinks' records valid; planted: a
+   rid dropped from one ``engine_tick``, the pool's bytes off by one
+   block, and a 2.5 s ``slot_stall`` under ``Watchdog(timeout_s=1.0,
+   abort=True)`` whose exit hook is replaced (``hang_suspected``, then
+   ``hang_abort`` and the hook, the requests still finishing); tok/s,
+   TTFT and TPOT printed beside the plain engine's.  Then a decode tick
+   of 8 slots is timed and profiled, and the same model
+   context-parallel (``cp_phase``): a one-rank NCCL group
    (``init_distributed``, ``build_cp_group(1)``), ``cp_paged_forward``
    with K2 against ``paged_forward`` with K1 (equal bit for bit: at cp 1
    K2 runs K1's body on K1's tiles) and against the CP gather arm on a
@@ -231,7 +247,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    merge (the library's counts), greedy tokens the plain engine's or a
    teacher-forced near-tie within 5 %, the migrated bytes
    ``migration_wire_bytes``, each handoff's ``migrate_blocks`` timed by
-   CUDA events, the audit green after every tick; (b) two ``'both'``
+   CUDA events, the audit green after every tick, and the Router's
+   ``telemetry=``: its FLEETREPORT and fleet trace valid, each request
+   one journey from the prefill replica to the decode replica; (b) two
+   ``'both'``
    replicas with the prefix cache: 8 requests on a 2048-token system
    prompt, every one after the first routed to the warm replica by
    affinity; (c) the chunked wire under chaos (a dropped chunk healed by
@@ -2925,12 +2944,21 @@ def engine_requests(cfg):
     return reqs, lens
 
 
+def paged_bodies():
+    """K1 / K2's per-body launch counts so far (``csrc/launch_counts.cuh``
+    through ``_build.body_launches``; cumulative: subtract two reads)."""
+    from torchdistpackage_tpu_torch.ops import _build
+
+    return {b: _build.body_launches("paged_attention", b)
+            for b in FLEET_BODIES}
+
+
 def engine_phase(params, cfg, card, tag="engine", **kw):
     """The Mistral engine (8 slots, chunk 512) on :func:`engine_requests`:
     K1 exactly once a layer a device call, every request finished as
     asked, the pool conserved; tok/s, TTFT, TPOT.  ``kw`` goes to the
-    engine (``tp_group``).  Returns the counts, the summary and every
-    request's tokens."""
+    engine (``tp_group``).  Returns the counts (K1's and its bodies'),
+    the summary and every request's tokens."""
     from torchdistpackage_tpu_torch.ops.paged_attention import LAUNCHES
     from torchdistpackage_tpu_torch.serving import ServingEngine
 
@@ -2941,6 +2969,7 @@ def engine_phase(params, cfg, card, tag="engine", **kw):
         raise RuntimeError(f"engine resolved attn_impl={eng.attn_impl!r}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    bodies0 = paged_bodies()  # before the submits: it may build K1's library
     rids = [eng.submit(r) for r in reqs]
     reset_counts()
     t0 = time.perf_counter()
@@ -2948,6 +2977,7 @@ def engine_phase(params, cfg, card, tag="engine", **kw):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = LAUNCHES["paged_decode_attention"]
+    bodies = {b: n - bodies0[b] for b, n in paged_bodies().items()}
     s = eng.serving_summary()
     calls = s["prefill_chunks"] + s["decode_steps"]
     if launches != cfg.nlayers * calls:
@@ -2972,9 +3002,348 @@ def engine_phase(params, cfg, card, tag="engine", **kw):
         f"p99 {tpot['p99'] * 1e3:.2f} ms, peak memory {peak_gb:.2f} GB, "
         f"{s['prefill_chunks']} prefill calls + {s['decode_steps']} decode "
         f"calls, {launches} kernel launches — on {card}")
-    return {"launches": launches, "summary": s, "wall_s": wall,
-            "peak_gb": peak_gb,
+    return {"launches": launches, "bodies": bodies, "summary": s,
+            "wall_s": wall, "peak_gb": peak_gb,
             "tokens": [eng.finished[r]["tokens"] for r in rids]}
+
+
+OBS_METRICS_EVERY = 1   # obs_phase: a serving_metrics record every tick
+OBS_STALL_S = 2.5       # (iii): the slot_stall under the aborting watchdog
+
+
+def obs_lifecycle_problems(events, eng, rids, reqs):
+    """Each request rebuilt from the timeline alone
+    (``assemble_request_timelines``): one valid record a request, the
+    sequence queued -> admitted -> prefill -> decode -> retired, the
+    request finished as asked, and as many prefill-chunk children as it
+    had prefill chunks and decode-tick children as decode calls before
+    the last: its first token comes from its last prefill chunk, and the
+    tick whose decode retires it is emitted after its ``request_retired``
+    (which closed the record).  Returns the problems found."""
+    from torchdistpackage_tpu_torch.serving import (
+        assemble_request_timelines,
+        validate_request_record,
+    )
+
+    recs = {r["rid"]: r for r in assemble_request_timelines(events)}
+    probs = []
+    if sorted(recs) != sorted(rids):
+        probs.append(f"records for rids {sorted(recs)}, want {sorted(rids)}")
+    for rid, req in zip(rids, reqs):
+        rec = recs.get(rid)
+        if rec is None:
+            continue
+        probs += validate_request_record(rec)
+        want = ["queued", "admitted", "prefill", "decode", "retired"]
+        if rec["sequence"] != want:
+            probs.append(f"rid {rid}: sequence {rec['sequence']}")
+        if eng.finished[rid]["reason"] != "max_tokens":
+            probs.append(f"rid {rid}: finished {eng.finished[rid]['reason']}")
+        n = {k: sum(c["name"] == k for c in rec["ticks"])
+             for k in ("prefill_chunk", "decode_tick")}
+        chunks = -(-len(req.tokens) // eng.chunk)
+        decodes = max(req.max_new_tokens - 2, 0)
+        if n != {"prefill_chunk": chunks, "decode_tick": decodes}:
+            probs.append(f"rid {rid}: children {n}, want {chunks} prefill "
+                         f"chunks and {decodes} decode ticks")
+    return probs
+
+
+def prometheus_samples(path):
+    """The textfile's samples ``{name: value}``; raises on a line that is
+    not ``# TYPE name gauge`` or ``name{labels} value``."""
+    out = {}
+    for line in Path(path).read_text().splitlines():
+        if line.startswith("# TYPE "):
+            continue
+        m = re.fullmatch(r'([a-zA-Z_][a-zA-Z0-9_]*)\{run="[^"]*",'
+                         r'process="\d+"\} (\S+)', line)
+        if m is None:
+            raise RuntimeError(f"obs: textfile line {line!r} does not parse")
+        out[m.group(1)] = float(m.group(2))
+    return out
+
+
+def obs_stall(params, cfg, card):
+    """(iii) the four shortest greedy requests of :func:`engine_requests`
+    (16 new tokens each) on a fresh engine whose tick 3 sleeps
+    ``OBS_STALL_S`` (``ChaosMonkey`` ``slot_stall``) under
+    ``Watchdog(timeout_s=1.0, abort=True)`` with its exit hook replaced:
+    ``hang_suspected``, then ``hang_abort`` and the hook's call must be on
+    the timeline, and the requests must still finish."""
+    from torchdistpackage_tpu_torch.obs import (
+        Telemetry,
+        set_default_event_log,
+    )
+    from torchdistpackage_tpu_torch.resilience import (
+        ChaosMonkey,
+        Fault,
+        Watchdog,
+    )
+    from torchdistpackage_tpu_torch.serving import ServingEngine
+
+    reqs, _ = fleet_requests(cfg, n_new=16, greedy_only=True)
+    reqs = sorted(reqs, key=lambda r: len(r.tokens))[:4]
+    calls = []
+    tel = Telemetry(run="obs-stall", report_path="", trace_path="")
+    try:
+        with Watchdog(timeout_s=1.0, abort=True,
+                      _exit=lambda code: calls.append(
+                          (time.perf_counter(), code))) as dog:
+            eng = ServingEngine(
+                params, cfg, num_slots=8, block_size=BS, chunk=512,
+                max_ctx=8192, telemetry=tel, watchdog=dog,
+                chaos=ChaosMonkey([Fault("slot_stall", step=3,
+                                         duration_s=OBS_STALL_S)]))
+            rids = [eng.submit(r) for r in reqs]
+            eng.run_until_idle()
+    finally:
+        set_default_event_log(None)
+    ev = tel.events.as_list()
+    fired = next(e["t_mono"] for e in ev if e["kind"] == "fault_injected")
+    # the stall's episode: the watchdog last heard of tick 2
+    sus = [e for e in ev if e["kind"] == "hang_suspected"
+           and e["last_step"] == 2 and e["t_mono"] > fired]
+    ab = [e for e in ev if e["kind"] == "hang_abort"]
+    done = [eng.finished.get(r, {}).get("reason") for r in rids]
+    if not (len(sus) == 1 and len(ab) == 1 and len(calls) == 1
+            and sus[0]["t_mono"] < ab[0]["t_mono"] <= calls[0][0]
+            and ab[0]["last_step"] == 2 and calls[0][1] == 87
+            and done == ["max_tokens"] * len(reqs)):
+        raise RuntimeError(
+            f"obs (iii): hang_suspected {sus}, hang_abort {ab}, exit hook "
+            f"calls {calls}, finished {done}")
+    other = sum(e["kind"] == "hang_suspected" for e in ev) - 1
+    log(f"[obs] (iii) slot_stall {OBS_STALL_S} s at tick 3 under "
+        f"Watchdog(timeout_s=1.0, abort=True): hang_suspected at age "
+        f"{sus[0]['age_s']} s (last tick 2), hang_abort at "
+        f"{ab[0]['age_s']} s, then the exit hook (code {calls[0][1]}, "
+        f"{(calls[0][0] - ab[0]['t_mono']) * 1e3:.3f} ms after the event); "
+        f"{other} other hang episodes; the {len(reqs)} requests finished "
+        f"— on {card}")
+    return {"hang_suspected_age_s": sus[0]["age_s"],
+            "hang_abort_age_s": ab[0]["age_s"]}
+
+
+def obs_phase(params, cfg, card, plain):
+    """The observability layer on the Mistral-7B-v0.1 engine: the same
+    :func:`engine_requests` as :func:`engine_phase` (8 slots, blocks of
+    16, chunk 512) through ``ServingEngine(telemetry=Telemetry(...),
+    watchdog=Watchdog(timeout_s=60), metrics_sink=MultiSink([JsonlSink,
+    PrometheusTextfileSink]))``, writing its RUNREPORT (``.json`` +
+    ``.md``), its Perfetto trace and the sinks' files into a temporary
+    directory (printed).  Gates: every token and K1's launches (and each
+    K1 body's) equal ``plain``'s, one decode signature and no
+    ``recompile``; every tick's phases make its ``tick_s`` (1e-6 s), none
+    negative, summed ``tick_s`` 0.90-1.00 of the run's wall time, and
+    ``decode`` and ``fetch`` above 0 on every decode tick; every request
+    rebuilt from the timeline (:func:`obs_lifecycle_problems`); the
+    report and the trace valid, the card's memory reported and the
+    pool's accounting matched; the sinks' records.  Planted faults that
+    must fail those checks: (i) a rid dropped from one ``engine_tick``'s
+    ``decode_rids``, (ii) ``kv_pool.pool_bytes`` off by one block, (iii)
+    :func:`obs_stall`.  Prints tok/s, TTFT and TPOT beside the plain
+    engine's (no gate: host-clock figures spread 20-40 %), and the
+    phases' means and the share of a tick that is not ``fetch`` over all
+    ticks, the ticks with a prefill call and the decode-only ticks."""
+    import copy
+    import tempfile
+
+    from torchdistpackage_tpu_torch.obs import (
+        EventLog,
+        JsonlSink,
+        MultiSink,
+        PrometheusTextfileSink,
+        Telemetry,
+        set_default_event_log,
+        validate_runreport,
+        validate_trace,
+    )
+    from torchdistpackage_tpu_torch.ops.paged_attention import LAUNCHES
+    from torchdistpackage_tpu_torch.resilience import Watchdog
+    from torchdistpackage_tpu_torch.serving import (
+        SERVING_METRICS_SCHEMA,
+        TICK_PHASES,
+        ServingEngine,
+        phase_table,
+    )
+
+    t_phase = time.perf_counter()
+    out = Path(tempfile.mkdtemp(prefix="obs-engine-"))
+    paths = {k: str(out / n) for k, n in (
+        ("report", "RUNREPORT.json"), ("trace", "trace.json"),
+        ("jsonl", "serving_metrics.jsonl"), ("prom", "serving.prom"))}
+    reqs, _ = engine_requests(cfg)
+    tel = Telemetry(run="obs-engine", report_path=paths["report"],
+                    trace_path=paths["trace"])
+    sink = MultiSink([JsonlSink(paths["jsonl"]),
+                      PrometheusTextfileSink(paths["prom"],
+                                             run="obs-engine")])
+    try:
+        with Watchdog(timeout_s=60) as dog:
+            eng = ServingEngine(params, cfg, num_slots=8, block_size=BS,
+                                chunk=512, max_ctx=8192, telemetry=tel,
+                                watchdog=dog, metrics_sink=sink,
+                                metrics_every=OBS_METRICS_EVERY)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            bodies0 = paged_bodies()
+            rids = [eng.submit(r) for r in reqs]
+            reset_counts()
+            t0 = time.perf_counter()
+            eng.run_until_idle()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = LAUNCHES["paged_decode_attention"]
+            bodies = {b: n - bodies0[b] for b, n in paged_bodies().items()}
+        s = eng.serving_summary()
+        tel.record_serving(s)
+        report = tel.finalize(print_summary=False)
+    finally:
+        set_default_event_log(None)
+    sink.close()
+
+    # telemetry changes nothing
+    tokens = [eng.finished[r]["tokens"] for r in rids]
+    diff = [i for i, (a, b) in enumerate(zip(tokens, plain["tokens"]))
+            if not np.array_equal(a, b)]
+    if diff:
+        raise RuntimeError(f"obs: requests {diff} emitted other tokens than "
+                           f"the plain engine's")
+    calls = s["prefill_chunks"] + s["decode_steps"]
+    if not (launches == plain["launches"] == cfg.nlayers * calls
+            and bodies == plain["bodies"]):
+        raise RuntimeError(
+            f"obs: K1 {launches} (bodies {bodies}) against the plain "
+            f"engine's {plain['launches']} ({plain['bodies']}), "
+            f"{cfg.nlayers} x {calls} calls")
+    ev = tel.events.as_list()
+    kinds = [e["kind"] for e in ev]
+    if s["decode_signatures"] != 1 or kinds.count("compile") != 1 \
+            or "recompile" in kinds:
+        raise RuntimeError(f"obs: {s['decode_signatures']} decode "
+                           f"signatures, {kinds.count('compile')} compile "
+                           f"and {kinds.count('recompile')} recompile events")
+
+    # every tick accounted for
+    ticks = list(eng.tick_records)
+    if len(ticks) != eng._tick:
+        raise RuntimeError(f"obs: {len(ticks)} tick records of {eng._tick}")
+    worst = max(abs(sum(r["phases"].values()) - r["tick_s"]) for r in ticks)
+    low = min(min(r["phases"].values()) for r in ticks)
+    summed = sum(r["tick_s"] for r in ticks)
+    dec = [r for r in ticks if r["decode_slots"]]
+    bad = [r["tick"] for r in dec
+           if not (r["phases"]["decode"] > 0 and r["phases"]["fetch"] > 0)]
+    if worst > 1e-6 or low < 0 or not 0.90 <= summed / wall <= 1.00 \
+            or bad or not dec:
+        raise RuntimeError(
+            f"obs: tick accounting off: phases vs tick_s {worst:.3g} s, "
+            f"smallest phase {low:.3g}, summed tick_s {summed:.4f} of "
+            f"{wall:.4f} s, decode ticks without decode / fetch {bad}")
+    # ticks with a prefill call (its read-back waits for the chunk's
+    # device work) apart from decode-only ticks: the latter's non-fetch
+    # share is the host's
+    kinds_of = {"all": ticks,
+                "prefill": [r for r in ticks if r["prefill_slots"]],
+                "decode_only": [r for r in dec if not r["prefill_slots"]]}
+    mean = {k: {p: float(np.mean([r["phases"][p] for r in rs]))
+                for p in TICK_PHASES} for k, rs in kinds_of.items() if rs}
+    non_fetch = {k: 1.0 - sum(r["phases"]["fetch"] for r in rs) / sum(
+        r["tick_s"] for r in rs) for k, rs in kinds_of.items() if rs}
+
+    # every request rebuilt from the timeline
+    probs = obs_lifecycle_problems(ev, eng, rids, reqs)
+    if probs:
+        raise RuntimeError(f"obs: lifecycles: {probs[:4]}")
+
+    # the artefacts
+    on_disk = json.loads(Path(paths["report"]).read_text())
+    errs = validate_runreport(on_disk)
+    mem = on_disk["memory"]
+    cap = torch.cuda.get_device_properties(0).total_memory
+    if errs or not (mem["reported"] and mem["capacity_bytes"] == cap
+                    and mem["measured_peak_bytes"] > 0
+                    and mem["kv_pool"]["accounting_match"] is True):
+        raise RuntimeError(f"obs: RUNREPORT {errs[:3]}, memory "
+                           f"{ {k: mem.get(k) for k in ('reported', 'capacity_bytes', 'measured_peak_bytes', 'kv_pool')} }")
+    trace = json.loads(Path(paths["trace"]).read_text())
+    terrs = validate_trace(trace)
+    if terrs:
+        raise RuntimeError(f"obs: trace {terrs[:3]}")
+    lines = [json.loads(ln) for ln in
+             Path(paths["jsonl"]).read_text().splitlines()]
+    want = len(ticks) // OBS_METRICS_EVERY
+    if len(lines) != want or any(
+            r["schema"] != SERVING_METRICS_SCHEMA
+            or r["type"] != "serving_metrics" for r in lines) or \
+            [r["tick"] for r in lines] != list(
+                range(OBS_METRICS_EVERY, len(ticks) + 1, OBS_METRICS_EVERY)):
+        raise RuntimeError(f"obs: {len(lines)} serving_metrics records, "
+                           f"want {want}")
+    prom = prometheus_samples(paths["prom"])
+    if prom.get("tdp_tick") != lines[-1]["tick"] or \
+            "tdp_phase_fetch_s" not in prom:
+        raise RuntimeError(f"obs: textfile {sorted(prom)[:8]}")
+
+    # planted faults
+    planted = copy.deepcopy(ev)
+    victim = next(e for e in planted if e["kind"] == "engine_tick"
+                  and len(e["decode_rids"]) > 1)
+    victim["decode_rids"] = victim["decode_rids"][1:]
+    if not obs_lifecycle_problems(planted, eng, rids, reqs):
+        raise RuntimeError("obs (i): a rid dropped from an engine_tick's "
+                           "decode_rids passed the lifecycle check")
+    block = s["kv_pool"]["pool_bytes"] // (s["kv_pool"]["num_blocks"])
+    bad_s = copy.deepcopy(s)
+    bad_s["kv_pool"]["pool_bytes"] -= block
+    shadow = Telemetry(run="obs-planted", event_log=EventLog(),
+                       report_path="", trace_path="")
+    shadow.record_serving(bad_s)
+    perrs = validate_runreport(shadow.finalize(write=False,
+                                               print_summary=False))
+    if not any("accounting mismatch" in e for e in perrs):
+        raise RuntimeError(f"obs (ii): pool_bytes off by one block passed "
+                           f"validate_runreport: {perrs}")
+    stall = obs_stall(params, cfg, card)
+
+    p, ttft, tpot = plain["summary"], s["ttft_s"], s["tpot_s"]
+    log(f"[obs] telemetry + watchdog + metrics sink on the engine: "
+        f"{len(reqs)} requests, every token and K1's {launches} launches "
+        f"(bodies {bodies}) equal to the plain engine's, 1 decode "
+        f"signature, 0 recompiles; {len(ticks)} ticks ({len(dec)} decoding), "
+        f"phases within {worst:.2e} s of tick_s, summed tick_s {summed:.4f} "
+        f"s = {summed / wall:.4f} of run_until_idle's {wall:.4f} s; "
+        f"{len(lines)} serving_metrics records; {len(rids)} lifecycles "
+        f"rebuilt; RUNREPORT and trace valid, peak "
+        f"{mem['measured_peak_bytes'] / 1e9:.3f} GB of {cap / 1e9:.3f} GB, "
+        f"kv_pool matched — on {card}")
+    log(f"[obs] tok/s {s['tokens_per_sec']:.2f} (plain "
+        f"{p['tokens_per_sec']:.2f}), TTFT p50 {ttft['p50']:.3f} / p99 "
+        f"{ttft['p99']:.3f} s (plain {p['ttft_s']['p50']:.3f} / "
+        f"{p['ttft_s']['p99']:.3f}), TPOT p50 {tpot['p50'] * 1e3:.2f} / p99 "
+        f"{tpot['p99'] * 1e3:.2f} ms (plain {p['tpot_s']['p50'] * 1e3:.2f} / "
+        f"{p['tpot_s']['p99'] * 1e3:.2f}); the run {wall:.3f} s (plain "
+        f"{plain['wall_s']:.3f}) — on {card}")
+    for k, rs in kinds_of.items():
+        if rs:
+            log(f"[obs] phase means, ms, over {len(rs)} {k} ticks (tick "
+                f"{np.mean([r['tick_s'] for r in rs]) * 1e3:.3f}): "
+                + ", ".join(f"{p} {mean[k][p] * 1e3:.4f}"
+                            for p in TICK_PHASES)
+                + f"; not fetch {non_fetch[k]:.4f} of the tick — on {card}")
+    log(phase_table(ev))
+    log(f"[obs] planted: (i) a rid dropped from tick {victim['tick']}'s "
+        f"decode_rids fails the lifecycle check; (ii) pool_bytes off by one "
+        f"block ({block} B) fails validate_runreport; (iii) the stall "
+        f"escalated. Files: {out} (RUNREPORT.json / .md, trace.json, "
+        f"serving_metrics.jsonl, serving.prom)")
+    log(f"[obs] the phase {time.perf_counter() - t_phase:.1f} s — on {card}")
+    return {"launches": launches, "bodies": bodies, "wall_s": wall,
+            "ticks": len(ticks), "decode_ticks": len(dec),
+            "phases_mean_s": mean, "non_fetch_share": non_fetch,
+            "summary": s, "stall": stall,
+            "seconds": time.perf_counter() - t_phase, "dir": str(out)}
 
 
 def kernel_families(prof, calls):
@@ -4149,8 +4518,14 @@ def fleet_disaggregated(params, cfg, card, plain):
     :func:`engine_requests` (16, 12 greedy): tokens held to the plain
     engine's, K1's bodies per replica, each handoff's two device copies
     timed (the export's snapshot and the deliver's ``migrate_blocks``),
-    bytes against ``migration_wire_bytes``, audit every tick; then
-    :func:`fleet_copy_split` on the two idle pools."""
+    bytes against ``migration_wire_bytes``, audit every tick; the Router
+    takes a ``Telemetry`` on the fleet's timeline, whose FLEETREPORT and
+    fleet trace must validate, with one journey spanning both replicas a
+    request (:func:`fleet_obs_check`); then :func:`fleet_copy_split` on
+    the two idle pools."""
+    import tempfile
+
+    from torchdistpackage_tpu_torch.obs import Telemetry
     from torchdistpackage_tpu_torch.obs.events import (
         EventLog,
         set_default_event_log,
@@ -4195,12 +4570,16 @@ def fleet_disaggregated(params, cfg, card, plain):
     reqs, _ = fleet_requests(cfg)
     log_ = EventLog(history_max=1 << 16)
     set_default_event_log(log_)
+    obs_dir = Path(tempfile.mkdtemp(prefix="obs-fleet-"))
+    tel = Telemetry(run="obs-fleet", event_log=log_,
+                    report_path=str(obs_dir / "FLEETREPORT.json"),
+                    trace_path=str(obs_dir / "fleet_trace.json"))
     try:
         pre, dec = fleet_engine(params, cfg), fleet_engine(params, cfg)
         tr, exports = Timed(), []
         timed_export(pre, exports)
         router = Router([pre, dec], roles=["prefill", "decode"],
-                        transport=tr)
+                        transport=tr, telemetry=tel)
         per = fleet_counts([pre, dec])
         rids = [router.submit(r) for r in reqs]
         torch.cuda.synchronize()
@@ -4224,6 +4603,9 @@ def fleet_disaggregated(params, cfg, card, plain):
     errs = _validate_router(s)
     if errs:
         raise RuntimeError(f"fleet (a): _validate_router: {errs[:3]}")
+    tel.record_router(s)
+    tel.finalize(print_summary=False)
+    obs = fleet_obs_check(log_.as_list(), obs_dir, rids, card)
     mig = s["fleet"]["migrations"]
     per_block = migration_wire_bytes(cfg, 1, BS)
     events = [e for e in log_.as_list() if e["kind"] == "blocks_migrated"]
@@ -4268,10 +4650,53 @@ def fleet_disaggregated(params, cfg, card, plain):
     out = {"launches": {"prefill": per[0], "decode": per[1]},
            "wall_s": wall, "exact": exact, "sampled": sampled,
            "worst_gap": worst, "copies": copies, "exports": snaps,
-           "split": split, "migrations": mig}
+           "split": split, "migrations": mig, "obs": obs}
     del router, pre, dec
     torch.cuda.empty_cache()
     return out
+
+
+def fleet_obs_check(events, obs_dir, rids, card):
+    """Fleet (a)'s observability: the FLEETREPORT that ``finalize`` wrote
+    into ``obs_dir`` passes ``validate_runreport`` (its router section
+    through ``_validate_router``), ``fleet_trace_events`` over the
+    timeline and the written trace pass ``validate_trace``, and each of
+    the router's ``rids`` is one stitched journey from replica 0 to
+    replica 1, retired."""
+    from torchdistpackage_tpu_torch.obs import (
+        validate_runreport,
+        validate_trace,
+    )
+    from torchdistpackage_tpu_torch.serving import (
+        assemble_fleet_request_timelines,
+        fleet_trace_events,
+    )
+
+    report = json.loads((obs_dir / "FLEETREPORT.json").read_text())
+    errs = validate_runreport(report)
+    trace = fleet_trace_events(events)
+    terrs = validate_trace(trace) + validate_trace(json.loads(
+        (obs_dir / "fleet_trace.json").read_text()))
+    journeys = {j["rid"]: j for j in
+                assemble_fleet_request_timelines(events)["journeys"]}
+    bad = [r for r in rids if r not in journeys
+           or [h["replica"] for h in journeys[r]["hops"]] != [0, 1]
+           or journeys[r]["outcome"] != "retired"
+           or journeys[r]["sequence"][0] != "@replica0"
+           or "@replica1" not in journeys[r]["sequence"]]
+    if errs or terrs or bad or len(journeys) != len(rids) \
+            or "router" not in report:
+        raise RuntimeError(f"fleet (a) obs: FLEETREPORT {errs[:3]}, trace "
+                           f"{terrs[:3]}, journeys off {bad}, "
+                           f"{len(journeys)} journeys of {len(rids)}")
+    migrate = sum(e.get("name") == "migrate" and e["ph"] == "s"
+                  for e in trace)
+    log(f"[fleet] (a) obs: Router(telemetry=) -> FLEETREPORT valid "
+        f"(router section included), fleet trace of {len(trace)} events "
+        f"valid, {migrate} migrate arrows; {len(rids)} journeys each "
+        f"@replica0 -> @replica1, retired; files in {obs_dir} — on {card}")
+    return {"journeys": len(journeys), "trace_events": len(trace),
+            "migrate_arrows": migrate}
 
 
 def fleet_copy_split(src, dst, cfg, card, sizes=(16, 64, 288), reps=10):
@@ -8936,6 +9361,9 @@ def main():
         f"{time.perf_counter() - t0:.1f} s")
     model_phase(params, cfg)
     eng = engine_phase(params, cfg, card)
+    # the same requests with telemetry, the watchdog and a metrics sink:
+    # the same tokens and launches, every tick and request accounted for
+    obs = obs_phase(params, cfg, card, eng)
     profile_phase(params, cfg, card)
     # the same model served context-parallel, K2 in every attention
     cp_eng = cp_phase(params, cfg, card)
@@ -9044,6 +9472,7 @@ def main():
                                    ("preempt", "drain", "migrate", "shed")},
                                 "all": feat["launches"]},
                             tp_engine_launches=tp_eng["launches"],
+                            obs_engine_launches=obs["launches"],
                             fleet_launches={
                                 "disaggregated": fleet["a"]["launches"],
                                 "affinity": fleet["b"]["launches"],

@@ -191,17 +191,28 @@ def test_engine_refuses_queued_options():
         ServingEngine(None, cfg, device="cpu", spec_k=-1)
     with pytest.raises(TypeError):
         ServingEngine(None, cfg, device="cpu", no_such_option=1)
-    # chaos serves (tests/test_torch_router.py); what still waits, each
-    # refusal naming its queue item
-    from torchdistpackage_tpu_torch.resilience import ChaosMonkey
+    # chaos serves (tests/test_torch_router.py), and so do telemetry, the
+    # watchdog and the metrics sink (tests/test_torch_serving_obs.py);
+    # what still refuses names what takes its place
+    from torchdistpackage_tpu_torch.obs import (
+        JsonlSink,
+        Telemetry,
+        set_default_event_log,
+    )
+    from torchdistpackage_tpu_torch.resilience import ChaosMonkey, Watchdog
 
     monkey = ChaosMonkey()
     assert ServingEngine(None, cfg, device="cpu", chaos=monkey,
                          **ENGINE).chaos is monkey
-    for option, item in (("telemetry", "Obs, resilience"),
-                         ("watchdog", "Obs, resilience"),
-                         ("metrics_sink", "Obs, resilience"),
-                         ("mesh", "tensor parallelism takes tp_group"),
+    tel, dog = Telemetry(device="cpu"), Watchdog(timeout_s=60)
+    sink = JsonlSink("unused.jsonl")
+    eng = ServingEngine(None, cfg, device="cpu", telemetry=tel,
+                        watchdog=dog, metrics_sink=sink, **ENGINE)
+    assert (eng.telemetry, eng.watchdog, eng.metrics_sink) == (tel, dog,
+                                                              sink)
+    assert eng._ev is tel.events
+    set_default_event_log(None)  # Telemetry installed its log
+    for option, item in (("mesh", "tensor parallelism takes tp_group"),
                          ("axis", "tensor parallelism takes tp_group"),
                          ("dp_axis", "takes dp_group=")):
         with pytest.raises(NotImplementedError,

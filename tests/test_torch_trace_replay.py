@@ -4,8 +4,8 @@ package's: a 10^3-request replay through the port's Router on
 attribution, and its ``submitted`` and ``config_hash`` equal JAX's
 ``run_replay`` at the same arguments; the CLI's JSON line and
 ``--ledger`` file; the ``--autoscale --chaos --ab`` twin; the
-mixed-traffic starvation claim; and the refusal of ``--report`` /
-``--trace``.
+mixed-traffic starvation claim; and the ``--report`` / ``--trace``
+files, valid under both packages' validators.
 
 Compared with JAX: what the seeded workload fixes before any
 completion feeds back (``submitted``, ``config_hash``, the base arrival
@@ -19,9 +19,14 @@ import json
 
 import pytest
 
+from torchdistpackage_tpu.obs.report import \
+    validate_runreport as jax_validate_runreport
+from torchdistpackage_tpu.obs.trace import validate_trace as jax_validate_trace
 from torchdistpackage_tpu.tools.trace_replay import \
     run_replay as jax_run_replay
+from torchdistpackage_tpu_torch.obs import validate_runreport, validate_trace
 from torchdistpackage_tpu_torch.serving import ROUTER_EVENT_KINDS
+from torchdistpackage_tpu_torch.serving.tracing import ROUTER_PID, fleet_pid
 from torchdistpackage_tpu_torch.tools.trace_replay import main, run_replay
 
 SMALL = dict(n_requests=1000, num_slots=8, diurnal_period=256)
@@ -100,8 +105,23 @@ def test_mixed_traffic_no_starvation():
 
 
 @pytest.mark.parametrize("flag", ["--report", "--trace"])
-def test_report_and_trace_are_refused(tmp_path, flag):
-    with pytest.raises(NotImplementedError,
-                       match="Obs, resilience, tools, utils and HF "
-                             "conversion"):
-        main(["--n-requests", "10", flag, str(tmp_path / "x.json")])
+def test_report_and_trace_are_refused(tmp_path, flag, capsys):
+    """No longer refused: ``--report`` writes a FLEETREPORT that both
+    packages' ``validate_runreport`` pass (with its ``.md`` beside it)
+    and ``--trace`` a fleet trace that both ``validate_trace`` pass, with
+    the router's lane and a process per replica."""
+    path = tmp_path / "out" / "x.json"
+    assert main(["--n-requests", "40", "--num-slots", "4",
+                 "--diurnal-period", "64", flag, str(path)]) == 0
+    got = json.loads(path.read_text())
+    assert "Obs, resilience" not in capsys.readouterr().out
+    if flag == "--report":
+        assert validate_runreport(got) == []
+        assert jax_validate_runreport(got) == []
+        assert got["router"]["fleet"]["n_replicas"] == 4
+        assert path.with_suffix(".md").read_text().startswith(
+            "# Run report — trace-replay-seed0")
+    else:
+        assert validate_trace(got) == [] and jax_validate_trace(got) == []
+        pids = {e["pid"] for e in got["traceEvents"]}
+        assert {ROUTER_PID} | {fleet_pid(i) for i in range(4)} <= pids

@@ -1,14 +1,13 @@
-"""Append-only structured event log — the part of
-``torchdistpackage_tpu/obs/events.py`` that the serving engine and the
-fleet need: :class:`EventLog` (``emit``, ``of_kind``, ``as_list``, an
-optional ``sink``), the replica tagging a fleet puts on a shared
-timeline (:class:`TaggedEventLog`, :func:`tag_events`), the
-process-wide default log (:func:`default_event_log`,
-:func:`set_default_event_log`, :func:`emit_event`) and
-:data:`EVENT_KINDS`, the part of the reference's kind registry that the
-port emits.  File sinks wait for ROADMAP queue A's "Obs, resilience,
-tools, utils and HF conversion"; a ``sink`` is any object with a
-``write(record)`` method.
+"""Append-only structured event log — the port's
+``torchdistpackage_tpu/obs/events.py``: :class:`EventLog` (``emit``,
+``of_kind``, ``as_list``; a JSONL file by ``path=`` or any ``sink``), the
+replica tagging a fleet puts on a shared timeline
+(:class:`TaggedEventLog`, :func:`tag_events`), the process-wide default
+log (:func:`default_event_log`, :func:`set_default_event_log`,
+:func:`emit_event`) and :data:`EVENT_KINDS`, the part of the reference's
+kind registry that the port emits (same names and meaning).  A ``sink``
+is any object with a ``write(record)`` method
+(:class:`~.exporters.JsonlSink` and friends).
 """
 
 from __future__ import annotations
@@ -21,6 +20,21 @@ from typing import Any, Dict, FrozenSet, Optional
 #: The event kinds the port emits (a subset of the reference's registry,
 #: same names and meaning); a new emitter adds its kind here.
 EVENT_KINDS: FrozenSet[str] = frozenset({
+    # a telemetry run: its bounds, each wrapped step's first call
+    # of a signature (compile) and a later new signature (recompile)
+    "run_start", "run_end", "compile", "recompile",
+    # memory samples and the OOM-risk line (obs.mem_ledger + Telemetry)
+    "mem_snapshot", "oom_risk",
+    # host step times across processes (obs.aggregate) and the numerics
+    # thresholds Telemetry.end_step checks
+    "straggler", "numerics_alert",
+    # the watchdog's heartbeat-gap escalation and the cross-process
+    # consistency check (resilience.watchdog)
+    "hang_suspected", "hang_resolved", "hang_abort", "desync_detected",
+    # serving observability: one engine tick's accounting (with the
+    # per-rid attribution the request trace is assembled from) and the
+    # periodic occupancy sample
+    "engine_tick", "slots_snapshot",
     # serving: the request lifecycle and the engine's audit
     "request_submitted", "request_admitted", "prefill_chunk",
     "request_retired", "request_cancelled", "engine_fault_detected",
@@ -72,10 +86,16 @@ def _process_index() -> int:
 
 class EventLog:
     """In-memory event log holding the newest ``history_max`` events.
-    ``sink``: an object with ``write(record)``, handed every record of
-    process 0."""
+    ``path``: an append-mode JSONL file (a :class:`~.exporters.JsonlSink`);
+    ``sink``: any object with ``write(record)``, used instead of ``path``.
+    Either is handed every record of process 0."""
 
-    def __init__(self, sink: Any = None, history_max: int = 4096) -> None:
+    def __init__(self, path: Optional[str] = None, sink: Any = None,
+                 history_max: int = 4096) -> None:
+        if path is not None and sink is None:
+            from .exporters import JsonlSink
+
+            sink = JsonlSink(path)
         self._sink = sink
         self.events: collections.deque = collections.deque(
             maxlen=history_max)

@@ -16,9 +16,8 @@ Fault kinds (``Fault.kind``), as in the reference:
   fetched loss or a dict of grads), ``stall``, ``host_dropout``;
 - the engine (:data:`ENGINE_FAULT_KINDS`; ``Fault.step`` is the engine
   tick, ``Fault.slot`` the victim slot or data group):
-  ``slot_stall`` (a sleep inside a tick: the watchdog that escalates it
-  waits for ROADMAP queue A's "Obs, resilience, tools, utils and HF
-  conversion"), ``alloc_exhaust`` (an ownerless grab of every free
+  ``slot_stall`` (a sleep inside a tick, which an engine's
+  ``watchdog=`` escalates to ``hang_suspected``), ``alloc_exhaust`` (an ownerless grab of every free
   block: a leak the audit reclaims), ``table_corrupt`` (a live slot's
   table entry pointed at a block it does not own: the audit requeues
   the slot) and ``nan_logits`` (one slot's fetched token replaced by an

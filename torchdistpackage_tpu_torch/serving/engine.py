@@ -96,13 +96,29 @@ at submit.
 fire at the top of a tick (before the audit) and on the fetched tokens,
 and the audit and the token check heal them.  The reference's ``mesh`` /
 ``axis`` / ``dp_axis`` / ``ep_axis`` / ``cp_axis`` stay refused (the
-groups take their place); telemetry, the watchdog and the metrics sink
-wait for ROADMAP queue A's "Obs, resilience, tools, utils and HF
-conversion".  The constructor refuses them with NotImplementedError.
+groups take their place; NotImplementedError).
+
+**Observability** (the reference's, JAX :319-353).  Every tick is split
+host-side into :data:`~.tracing.TICK_PHASES` — ``audit``, ``sched``
+(expiry, admission, the copy-on-write), ``prefill`` and ``decode`` (each
+call's enqueue: up to :class:`~.sim.TorchDeviceStep`'s ``t_enqueued``
+mark, set just before its one read-back), ``draft``, ``fetch`` (the
+read-back's wait, and ``Telemetry.end_step``) and the residual ``host``
+— kept on ``tick_records``, emitted as an ``engine_tick`` event with the
+rids each phase served (when the tick did work), rolled up in
+``serving_summary()['tick_accounting']`` and, with ``metrics_sink=``,
+written as a ``serving_metrics`` record every ``metrics_every`` ticks.
+``telemetry=`` (an :class:`~..obs.Telemetry`) wraps the decode / verify
+step (a new signature is a ``recompile``), closes a telemetry step
+after each, and takes the engine's events onto its timeline;
+``watchdog=`` (a :class:`~..resilience.Watchdog`, started by the caller)
+is beaten once a tick.  None of it adds a device launch or a sync: the
+tokens are on the host when ``end_step`` runs.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -116,6 +132,7 @@ from ..obs.aggregate import moe_load_stats, percentiles
 from ..obs.events import EventLog, default_event_log
 from ..ops import moe_dispatch as _moe_ops
 from ..ops import paged_attention as _attn_ops
+from .tracing import TICK_PHASES, serving_metrics_record
 from .paged_cache import (
     BlockAllocator,
     PoolSnapshot,
@@ -205,7 +222,8 @@ def _slot_sample(logits: torch.Tensor,
     tok = torch.argmax(x, dim=-1)
     rows = [i for i, g in enumerate(gens) if g is not None]
     if rows:
-        idx = torch.tensor(rows, device=x.device)
+        # uploaded without a stream sync (see TorchDeviceStep._to_dev)
+        idx = torch.tensor(rows).to(x.device, non_blocking=True)
         xs = _filtered_logits(x[idx], temperature[idx], top_k[idx],
                               top_p[idx])
         u = torch.stack([torch.rand(x.shape[-1], generator=gens[i],
@@ -250,9 +268,6 @@ _TP = ("tensor parallelism takes tp_group= (a torch.distributed process "
        "group), not mesh= / axis=")
 _DP = ("data parallelism takes dp_group= (a torch.distributed process "
        "group, this rank's data group), not mesh= / dp_axis=")
-_OBS = ("telemetry, the watchdog and the metrics sink wait for "
-        "ROADMAP queue A's \"Obs, resilience, tools, utils and HF "
-        "conversion\"")
 _EP = ("expert parallelism takes ep_group= (a torch.distributed process "
        "group), not mesh= / ep_axis=")
 _CP = ("context parallelism takes cp_group= (a torch.distributed process "
@@ -263,8 +278,7 @@ _CP = ("context parallelism takes cp_group= (a torch.distributed process "
 _QUEUED_OPTIONS = {
     "mesh": (None, (_TP, _DP, _EP, _CP)), "axis": (None, (_TP,)),
     "dp_axis": (None, (_DP,)), "ep_axis": (None, (_EP,)),
-    "cp_axis": (None, (_CP,)), "telemetry": (None, (_OBS,)),
-    "watchdog": (None, (_OBS,)), "metrics_sink": (None, (_OBS,)),
+    "cp_axis": (None, (_CP,)),
 }
 
 
@@ -419,8 +433,22 @@ class ServingEngine:
         :meth:`step`, ``perturb_engine_tokens`` on every fetched token
         row.  ``alloc_exhaust`` and ``table_corrupt`` are found and healed
         by the tick's audit, ``nan_logits`` by the token check; the
-        co-batched requests are untouched.  ``slot_stall`` only sleeps:
-        the watchdog that escalates it waits for "Obs".
+        co-batched requests are untouched.  ``slot_stall`` sleeps inside
+        the tick: a ``watchdog`` escalates it.
+    telemetry: an :class:`~..obs.Telemetry` — decode / verify calls
+        become its steps (wrapped unless the device step sets
+        ``wrap_steps = False``; prefill calls are not, as in the
+        reference), and the engine's events land on its timeline.
+    snapshot_every: a ``slots_snapshot`` event every N ticks (0: never).
+    watchdog: a :class:`~..resilience.Watchdog`, beaten once a tick, so
+        a wedged tick escalates to ``hang_suspected`` / abort.  The
+        caller starts and stops it (a context manager).
+    metrics_sink: any exporter sink (``write(record)``:
+        :class:`~..obs.exporters.PrometheusTextfileSink`, ``JsonlSink``,
+        ``MultiSink``); every ``metrics_every``-th tick writes a
+        ``serving_metrics`` record (:data:`~.tracing.SERVING_METRICS_SCHEMA`).
+        A sink's OSError is swallowed: the engine's work comes first.
+    tick_history: bound on ``tick_records`` (oldest dropped first).
 
     ``hold_decode`` (an attribute, False by default) makes the engine a
     disaggregated prefill tier: decode ticks are skipped, so a slot that
@@ -452,6 +480,12 @@ class ServingEngine:
         device=None,
         device_step: Optional[Any] = None,
         chaos: Optional[Any] = None,
+        telemetry: Optional[Any] = None,
+        snapshot_every: int = 16,
+        watchdog: Optional[Any] = None,
+        metrics_sink: Optional[Any] = None,
+        metrics_every: int = 1,
+        tick_history: int = 4096,
         **queued: Any,
     ) -> None:
         unknown = set(queued) - set(_QUEUED_OPTIONS)
@@ -479,6 +513,9 @@ class ServingEngine:
                 f"{num_slots}/{chunk}/{block_size}")
         if max_queue is not None and max_queue < 1:
             raise ValueError(f"max_queue must be >= 1 or None, got {max_queue}")
+        if metrics_every < 1:
+            raise ValueError(
+                f"metrics_every must be >= 1, got {metrics_every}")
         if moe_dispatch is not None:
             if not cfg.moe_experts:
                 raise ValueError(
@@ -506,9 +543,17 @@ class ServingEngine:
         #: disaggregated prefill tier: skip decode ticks, park slots in
         #: DECODE for export_slot (plain host scheduler state)
         self.hold_decode = False
-        self._ev: EventLog = default_event_log()
+        #: the run's Telemetry, or None; its timeline takes our events
+        self.telemetry = telemetry
+        self._ev: EventLog = (telemetry.events if telemetry is not None
+                              else default_event_log())
         #: the fault-injection harness (resilience.ChaosMonkey) or None
         self.chaos = chaos
+        self.snapshot_every = int(snapshot_every)
+        self.watchdog = watchdog
+        self.metrics_sink = metrics_sink
+        self.metrics_every = int(metrics_every)
+        self.tick_history = int(tick_history)
 
         if device_step is None:
             from .sim import TorchDeviceStep
@@ -523,6 +568,14 @@ class ServingEngine:
                 "a host-only DeviceStep cannot run over a process group")
         #: the device seam (serving/sim.py): every device touch goes here
         self.device_step = device_step
+        # the decode and verify calls, as Telemetry steps when given one
+        # (prefill calls the device step unwrapped, as the reference does)
+        self._decode_fn, self._verify_fn = device_step.step, \
+            device_step.verify
+        if telemetry is not None and getattr(device_step, "wrap_steps",
+                                             True):
+            self._decode_fn = telemetry.wrap_step(self._decode_fn)
+            self._verify_fn = telemetry.wrap_step(self._verify_fn)
         #: the expert-parallel group (None: every expert on this device)
         self.ep_group = ep_group
         #: the context-parallel group and its size (None / 1: the whole
@@ -597,6 +650,12 @@ class ServingEngine:
         self._tick_ewma: Optional[float] = None
         self._ttft_bias: Optional[float] = None
         self._pending_cow: List[Tuple[int, int, int]] = []  # slot, src, dst
+        # the tick being accounted: seconds by phase, the rids each
+        # phase served, the tokens it emitted
+        self._phase: Dict[str, float] = dict.fromkeys(TICK_PHASES, 0.0)
+        self._tick_prefill_rids: List[int] = []
+        self._tick_decode_rids: List[int] = []
+        self._tick_emitted = 0
         self.reset_metrics()
 
     # ---------------------------------------------------------------- admission
@@ -1016,6 +1075,19 @@ class ServingEngine:
         return (tokens.shape, str(tokens.dtype), self.num_slots,
                 self.max_blocks)
 
+    def _charge(self, phase: str, t_disp: float) -> float:
+        """Charge a device call that began at ``t_disp`` and has returned:
+        its enqueue, up to the step's ``t_enqueued`` mark (set just before
+        its one read-back), to ``phase``; returns the mark, where the
+        ``fetch`` phase starts.  A step without a mark inside the call (a
+        stub) charges the whole call to ``phase``."""
+        t_ret = time.perf_counter()
+        mark = getattr(self.device_step, "t_enqueued", None)
+        split = mark if mark is not None and t_disp <= mark <= t_ret \
+            else t_ret
+        self._phase[phase] += split - t_disp
+        return split
+
     def _token_poisoned(self, tok: int) -> bool:
         """An out-of-range token is the host-visible face of a poisoned
         logit row."""
@@ -1053,11 +1125,14 @@ class ServingEngine:
             last_idx[i] = min(len(s.prompt) - 1 - s.off, C - 1)
             if s.off + C >= len(s.prompt):
                 streams[i] = self._streams[i]  # final slice: emits a token
+        t_disp = time.perf_counter()
         self.cache, tok, moe = self.device_step.step(
             self.params, self.cache, tokens, tables, offsets, last_idx,
             self._samp(), streams)
+        split = self._charge("prefill", t_disp)
         self._absorb_moe_stats(moe)
         self._prefill_sigs.add(("prefill",) + self._sig(tokens))
+        self._phase["fetch"] += time.perf_counter() - split
         if self.chaos is not None:
             tok = self.chaos.perturb_engine_tokens(self._tick, tok)
         now = time.perf_counter()
@@ -1086,8 +1161,10 @@ class ServingEngine:
                 self._lengths[i] = len(s.prompt)
                 self._last_tok[i] = tok[i]
                 s.generated.append(int(tok[i]))
+                self._tick_emitted += 1
                 self._maybe_retire(i, int(tok[i]), now)
         self.stats["prefill_chunks"] += 1
+        self._tick_prefill_rids = rids
         self._ev.emit("prefill_chunk", rids=rids, chunk=C, n_slots=len(rids))
         if self.cp > 1:
             # the modeled ring traffic of the chunk from each rank (host
@@ -1125,11 +1202,18 @@ class ServingEngine:
         offsets = np.where(mask, self._lengths, 0).astype(np.int32)
         last_idx = np.zeros(self.num_slots, np.int32)
         streams = [g if m else None for g, m in zip(self._streams, mask)]
-        self.cache, tok, moe = self.device_step.step(
+        self._tick_decode_rids = [
+            s.rid for s in self._slots if s.state == DECODE]
+        t_disp = time.perf_counter()
+        self.cache, tok, moe = self._decode_fn(
             self.params, self.cache, tokens, tables, offsets, last_idx,
             self._samp(), streams)
+        split = self._charge("decode", t_disp)
+        if self.telemetry is not None:
+            self.telemetry.end_step(active_slots=n_active)
         self._absorb_moe_stats(moe)
         self._decode_sigs.add(("decode",) + self._sig(tokens))
+        self._phase["fetch"] += time.perf_counter() - split
         if self.chaos is not None:
             tok = self.chaos.perturb_engine_tokens(self._tick, tok)
         now = time.perf_counter()
@@ -1142,6 +1226,7 @@ class ServingEngine:
             self._lengths[i] += 1
             self._last_tok[i] = tok[i]
             s.generated.append(int(tok[i]))
+            self._tick_emitted += 1
             s.tpot_s.append(now - s.t_last)
             s.t_last = now
             self._maybe_retire(i, int(tok[i]), now)
@@ -1192,6 +1277,7 @@ class ServingEngine:
         K = self.spec_k
         tokens = np.zeros((self.num_slots, K + 1), np.int32)
         offsets = np.where(mask, self._lengths, 0).astype(np.int32)
+        t_draft = time.perf_counter()
         rids = []
         for i, s in enumerate(self._slots):
             if s.state != DECODE:
@@ -1199,12 +1285,19 @@ class ServingEngine:
             rids.append(s.rid)
             tokens[i, 0] = self._last_tok[i]
             tokens[i, 1:] = self._draft(s)
+        self._phase["draft"] += time.perf_counter() - t_draft
+        self._tick_decode_rids = rids
         self._ev.emit("spec_draft", k=K, n_slots=len(rids), rids=rids)
         streams = [g if m else None for g, m in zip(self._streams, mask)]
-        self.cache, verify, accept = self.device_step.verify(
+        t_disp = time.perf_counter()
+        self.cache, verify, accept = self._verify_fn(
             self.params, self.cache, tokens, tables, offsets, self._samp(),
             streams)
+        split = self._charge("decode", t_disp)
+        if self.telemetry is not None:
+            self.telemetry.end_step(active_slots=n_active)
         self._decode_sigs.add(("decode",) + self._sig(tokens))
+        self._phase["fetch"] += time.perf_counter() - split
         if self.chaos is not None:
             verify = self.chaos.perturb_engine_tokens(self._tick, verify)
         now = time.perf_counter()
@@ -1241,6 +1334,7 @@ class ServingEngine:
             self.stats["spec_accepted"] += took - 1
             accepted_total += took - 1
             emitted_total += took
+            self._tick_emitted += took
             self._lengths[i] += took
             self._last_tok[i] = s.generated[-1]
             s.tpot_s.extend([(now - s.t_last) / took] * took)
@@ -1448,28 +1542,96 @@ class ServingEngine:
         invariant audit (heal) -> queue expiry -> admit (with preemption
         and the copy-on-write) -> one prefill slice -> one decode step.
         A tick that decoded updates the tick-time EWMA ``estimate_ttft``
-        reads.  Returns what happened (all zeros = idle)."""
+        reads.  The tick is accounted by phase (:meth:`_record_tick`),
+        the watchdog beaten.  Returns what happened (all zeros = idle)."""
         t0 = time.perf_counter()
         self._tick += 1
+        self._phase = dict.fromkeys(TICK_PHASES, 0.0)
+        self._tick_prefill_rids = []
+        self._tick_decode_rids = []
+        self._tick_emitted = 0
         if self.chaos is not None:
             self.chaos.before_engine_tick(self._tick, self)
         self.stats["audits"] += 1
+        t = time.perf_counter()
         self.audit(heal=True)
+        self._phase["audit"] += time.perf_counter() - t
+        t = time.perf_counter()
         expired = self._expire_queue(time.perf_counter())
         admitted = self._admit()
+        self._phase["sched"] += time.perf_counter() - t
         prefilled = self._prefill_tick()
         decoded = self._decode_tick()
         busy = self.n_busy
         self._occ_sum += busy / self.num_slots
-        self._util_sum += float(np.mean([a.utilization()
-                                         for a in self._allocs]))
+        util = float(np.mean([a.utilization() for a in self._allocs]))
+        self._util_sum += util
         self._occ_ticks += 1
+        if self.snapshot_every and self._tick % self.snapshot_every == 0:
+            self._ev.emit(
+                "slots_snapshot", tick=self._tick, busy=busy,
+                queued=len(self.queue), pool_utilization=round(util, 4))
+        if self.watchdog is not None:
+            self.watchdog.beat(self._tick)
+        t_end = time.perf_counter()
         if decoded:
-            dt = time.perf_counter() - t0
+            dt = t_end - t0
             self._tick_ewma = (dt if self._tick_ewma is None
                                else 0.8 * self._tick_ewma + 0.2 * dt)
+        self._record_tick(t0, t_end, admitted=admitted, expired=expired,
+                          prefilled=prefilled, decoded=decoded, busy=busy,
+                          util=util)
         return {"admitted": admitted, "prefill_slots": prefilled,
                 "decode_slots": decoded, "busy": busy, "expired": expired}
+
+    def _record_tick(self, t_start: float, t_end: float, *, admitted: int,
+                     expired: int, prefilled: int, decoded: int, busy: int,
+                     util: float) -> None:
+        """The tick's accounting record (JAX :1806): the phase split (the
+        residual ``host`` is what the named phases did not cover — queue
+        sorts, table rewrites, retirement walks) and the tick's gauges.
+        Appended to ``tick_records``, emitted as an ``engine_tick`` event
+        when the tick did work (idle polls stay off the timeline), and
+        written to ``metrics_sink`` every ``metrics_every`` ticks."""
+        st = self.stats
+        named = sum(self._phase[k] for k in TICK_PHASES if k != "host")
+        phases = {k: round(self._phase[k], 9)
+                  for k in TICK_PHASES if k != "host"}
+        phases["host"] = round(max(0.0, (t_end - t_start) - named), 9)
+        rec = {
+            "tick": self._tick,
+            "t_start": t_start,
+            "t_end": t_end,
+            "tick_s": round(t_end - t_start, 9),
+            "phases": phases,
+            "queue_depth": len(self.queue),
+            "busy": busy,
+            "admitted": admitted,
+            "expired": expired,
+            "prefill_slots": prefilled,
+            "decode_slots": decoded,
+            "batch_util": round(decoded / self.num_slots, 4),
+            "pool_util": round(util, 4),
+            "emitted_tokens": self._tick_emitted,
+            "prefix_hit_rate": round(
+                st["prefix_cached_tokens"] / st["prefix_prompt_tokens"], 4)
+            if st["prefix_prompt_tokens"] else 0.0,
+            "spec_accept_rate": round(
+                st["spec_accepted"] / st["spec_drafted"], 4)
+            if st["spec_drafted"] else 0.0,
+        }
+        self.tick_records.append(rec)
+        if admitted or expired or prefilled or decoded or busy or self.queue:
+            self._ev.emit(
+                "engine_tick", spec=bool(self.spec_k),
+                prefill_rids=list(self._tick_prefill_rids),
+                decode_rids=list(self._tick_decode_rids), **rec)
+        if (self.metrics_sink is not None
+                and self._tick % self.metrics_every == 0):
+            try:
+                self.metrics_sink.write(serving_metrics_record(rec))
+            except OSError:
+                pass  # a full disk / read-only path: serving comes first
 
     def run_until_idle(self, max_ticks: int = 100_000,
                        stop: Optional[Any] = None,
@@ -1939,6 +2101,9 @@ class ServingEngine:
         self._calib_by_prio: Dict[int, List[float]] = {}
         self._calib_n = 0
         self._slo_by_prio: Dict[int, Dict[str, int]] = {}
+        #: bounded per-tick accounting records (serving/tracing.py)
+        self.tick_records: collections.deque = collections.deque(
+            maxlen=self.tick_history)
         self._tick = 0
         self._occ_sum = self._util_sum = 0.0
         self._occ_ticks = 0
@@ -2020,13 +2185,13 @@ class ServingEngine:
         }
 
     def serving_summary(self) -> Dict[str, Any]:
-        """The reference's ``serving`` report (JAX :2395) without its
-        ``tick_accounting`` (tracing waits for ROADMAP queue A's "Obs,
-        resilience, tools, utils and HF conversion"): request counts
+        """The reference's ``serving`` report (JAX :2395): request counts
         (shed, expired, cancelled, preempted, resumed, migrated),
         generated tokens, tokens/s, TTFT/TPOT percentiles overall and by
         priority, the ``healthy | degraded | overloaded`` verdict with its
-        evidence, the ``slo`` block, the pool, the attention
+        evidence, the ``slo`` block, ``tick_accounting`` (the ticks on
+        ``tick_records``, their mean seconds and each phase's mean), the
+        pool, the attention
         implementation, the kernel launches since :meth:`reset_metrics`,
         the call signatures, the ``prefix_cache`` and ``spec`` blocks and,
         where they apply, ``moe`` and ``long_context``.
@@ -2074,6 +2239,16 @@ class ServingEngine:
                               if self._moe_steps else 0.0))
             moe["dispatch"] = self.moe_dispatch
             check_expert_overflow(moe, where="serving_summary")
+        ticks = list(self.tick_records)
+        tick_accounting = {
+            "ticks": len(ticks),
+            "mean_tick_s": (float(np.mean([t["tick_s"] for t in ticks]))
+                            if ticks else 0.0),
+            "phases_mean_s": {
+                name: round(float(np.mean(
+                    [t["phases"].get(name, 0.0) for t in ticks])), 9)
+                for name in (TICK_PHASES if ticks else ())},
+        }
         return {
             "requests": {"completed": completed, "queued": len(self.queue),
                          "in_flight": self.n_busy,
@@ -2094,6 +2269,7 @@ class ServingEngine:
             "verdict_basis": basis,
             "verdict_evidence": evidence,
             "slo": self._slo_summary(span, completed),
+            "tick_accounting": tick_accounting,
             "faults": {"detected": st["faults_detected"],
                        "healed": st["faults_healed"],
                        "audits": st["audits"]},

@@ -139,6 +139,11 @@ class Router:
         re-prefill on a survivor (``migration_fallback``).
     long_ctx_threshold: prompt length (tokens) at or above which a
         handoff also emits ``kv_handoff_long``.
+    telemetry: an :class:`~..obs.Telemetry` — the router's events land
+        on its timeline (engines built after it, or given its log, share
+        it); ``telemetry.record_router(router.summary())`` then makes its
+        report a FLEETREPORT.  Telemetry reads the clock only to report,
+        never to decide.
 
     A fleet with a replica over a process group refuses, at
     construction, more than one submit target or more than one import
@@ -161,6 +166,7 @@ class Router:
         evacuate_on_fault: bool = False,
         transport: Optional[MigrationTransport] = None,
         long_ctx_threshold: int = 8192,
+        telemetry: Optional[Any] = None,
     ) -> None:
         if not replicas:
             raise ValueError("Router needs at least one replica")
@@ -204,7 +210,9 @@ class Router:
         #: marker trace_replay's mixed-traffic scenario and FLEETREPORT
         #: consumers key on (the CP prefill tier's handoff)
         self.long_ctx_threshold = int(long_ctx_threshold)
-        self._ev: EventLog = default_event_log()
+        self.telemetry = telemetry
+        self._ev: EventLog = (telemetry.events if telemetry is not None
+                              else default_event_log())
         self.alive = [True] * n
         for i, role in enumerate(self.roles):
             # the prefill tier never dispatches its decode program: slots

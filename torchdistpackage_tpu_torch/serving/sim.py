@@ -32,6 +32,7 @@ stream's state is the reference's carried key at the same moments.
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -79,9 +80,17 @@ class DeviceStep:
     ``stream_state(s)`` is its state as a JSON-serialisable list of ints
     (what a drain or an export carries), and ``restore_stream(state)``
     continues from such a state.  ``step`` and ``verify`` advance the
-    streams they are given, and only those."""
+    streams they are given, and only those.
+
+    ``t_enqueued``: a step that enqueues its device work and then waits
+    for one read-back sets this to the host clock
+    (``time.perf_counter()``) between the two, so the engine's tick
+    accounting charges the enqueue to the call's phase and the wait to
+    ``fetch``; a step that leaves it None (the stub) is charged whole to
+    its phase."""
 
     host_only = False
+    t_enqueued: Optional[float] = None
     device: torch.device
     attn_impl: str
     moe_dispatch: Optional[str] = None
@@ -235,7 +244,14 @@ class TorchDeviceStep(DeviceStep):
         return copy_blocks(cache, src[self.rows], dst[self.rows])
 
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        """A host array on the step's device, without a stream sync: a
+        blocking upload would wait for every kernel queued before it (the
+        sampling inputs are uploaded after the forward's launches), so the
+        host would stall there instead of at the one read-back.  From
+        pageable memory the copy takes the bytes before it returns, so
+        the engine may rewrite ``a`` at once."""
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            self.device, non_blocking=True)
 
     def _local(self, samp: Dict[str, np.ndarray], streams: List[Any],
                *arrays: np.ndarray):
@@ -289,7 +305,8 @@ class TorchDeviceStep(DeviceStep):
         ``[B]`` out; everything between runs on the device.  For an MoE
         config the third element is the step's ``(expert_tokens [E],
         dropped_token_rate)``, read back in the same host copy as the
-        tokens (one read-back a step) — under ``dp_group`` the groups'
+        tokens (one read-back a step, ``t_enqueued`` marked just before
+        it) — under ``dp_group`` the groups'
         counts summed and their drop rates averaged (JAX's host does the
         same with its per-group out_specs rows); None for a dense
         config."""
@@ -318,12 +335,14 @@ class TorchDeviceStep(DeviceStep):
         self._agree(tok)
         B = tok.shape[0]
         if moe is None:
+            self.t_enqueued = time.perf_counter()
             host = self._gather(tok.to(torch.int32))
             return cache, host.reshape(-1), None
         # float64 holds every int32 token id exactly
-        host = self._gather(torch.cat([
-            tok.double(), moe["expert_tokens"].double(),
-            moe["dropped_token_rate"].double().reshape(1)]))
+        both = torch.cat([tok.double(), moe["expert_tokens"].double(),
+                          moe["dropped_token_rate"].double().reshape(1)])
+        self.t_enqueued = time.perf_counter()
+        host = self._gather(both)
         return (cache, host[:, :B].reshape(-1).astype(np.int32),
                 (host[:, B:-1].sum(0), float(host[:, -1].mean())))
 
@@ -339,7 +358,7 @@ class TorchDeviceStep(DeviceStep):
         ``all_logits`` (every position's distribution in one call, one
         K1 launch a layer), then judged by :meth:`judge`.  Host arrays
         in; ``(cache, verify [B, K+1], accept [B, K])`` out, in one
-        read-back.  The replica takes its first rank's verdict, as
+        read-back, ``t_enqueued`` marked just before it.  The replica takes its first rank's verdict, as
         :meth:`step` takes its tokens, and a data group's rows are
         gathered alike."""
         K1 = tokens.shape[1]
@@ -361,6 +380,7 @@ class TorchDeviceStep(DeviceStep):
         self._skip(others, K1 - 1 + K1 * self.cfg.vocab_size)
         both = torch.cat([ver, acc.long()], dim=1)
         self._agree(both)
+        self.t_enqueued = time.perf_counter()
         host = self._gather(both.to(torch.int32))
         host = host.reshape(-1, host.shape[-1])
         return cache, host[:, :K1], host[:, K1:]
@@ -394,7 +414,7 @@ class TorchDeviceStep(DeviceStep):
         rows = [i for i, g in enumerate(gens) if g is not None]
         if not rows:
             return ver, acc
-        idx = torch.tensor(rows, device=x.device)
+        idx = torch.tensor(rows).to(x.device, non_blocking=True)
         temp = self._to_dev(samp["temperature"])[idx]
         xf = _filtered_logits(
             x[idx].reshape(-1, V), temp.repeat_interleave(K1),

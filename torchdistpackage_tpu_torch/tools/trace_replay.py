@@ -24,17 +24,24 @@ change with a non-hold ``scale_decision``: ``attribution.complete``);
 ``--autoscale``, ``--chaos`` (every ``TRANSPORT_FAULT_KINDS`` member
 seeded into the migration wire), ``--ab`` (both arms at one config hash)
 and ``--long-docs`` (the mixed-traffic starvation probe) are the
-reference's.  ``--report`` and ``--trace`` (the RUNREPORT files and the
-fleet Perfetto trace) wait for ROADMAP queue A's "Obs, resilience,
-tools, utils and HF conversion" and are refused.
+reference's.  ``--report`` writes the FLEETREPORT (``<path>`` JSON and
+a sibling ``.md``, through ``obs.report.write_runreport``) and
+``--trace`` the fleet Perfetto trace of the retained event window
+(``serving.tracing.fleet_trace_events``).  The FLEETREPORT carries every
+key ``obs.report.validate_runreport`` requires (the reference's carries
+only the router section and the run's identity), so it validates
+whole: ``backend`` ``"sim"``, no steps timed, ``memory`` and
+``numerics`` empty sections, ``comm`` ``{}``.
 
 Usage::
 
     python -m torchdistpackage_tpu_torch.tools.trace_replay \
         --n-requests 100000 --replicas 4 --spares 2 \
-        --autoscale --chaos --ledger /tmp/ledger.jsonl
+        --autoscale --chaos --ledger /tmp/ledger.jsonl \
+        --report /tmp/FLEETREPORT.json --trace /tmp/fleet_trace.json
 
-Prints one ``{"metric": "trace-replay", ...}`` JSON line.
+Prints one ``{"metric": "trace-replay", ...}`` JSON line, then the
+report's one-line summary.
 """
 
 from __future__ import annotations
@@ -49,32 +56,6 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 REPLAY_SCHEMA = "tdp-trace-replay/v1"
-
-
-#: what --report and --trace wait for
-_OBS = ("--report and --trace need the RUNREPORT writer and the fleet "
-        "trace renderer, which wait for ROADMAP queue A's \"Obs, "
-        "resilience, tools, utils and HF conversion\"")
-
-
-class _JsonlSink:
-    """Append one JSON line a record, flushed a write (the reference's
-    ``obs.exporters.JsonlSink``, which waits for "Obs")."""
-
-    def __init__(self, path: str) -> None:
-        self.path = path
-        self._f = None
-
-    def write(self, record: Dict[str, Any]) -> None:
-        if self._f is None:
-            self._f = open(self.path, "a")
-        self._f.write(json.dumps(record) + "\n")
-        self._f.flush()
-
-    def close(self) -> None:
-        if self._f is not None:
-            self._f.close()
-            self._f = None
 
 
 class LedgerCounter:
@@ -249,6 +230,7 @@ def run_replay(
         default_event_log,
         set_default_event_log,
     )
+    from ..obs.exporters import JsonlSink
     from ..obs.report import _validate_router
     from ..serving.autoscale import Autoscaler
     from ..serving.engine import Request, ServingEngine
@@ -266,7 +248,7 @@ def run_replay(
                            n_groups=groups, zipf_a=zipf_a,
                            multiturn_p=multiturn_p)
 
-    ledger_sink = _JsonlSink(ledger_path) if ledger_path is not None else None
+    ledger_sink = JsonlSink(ledger_path) if ledger_path is not None else None
     counter = LedgerCounter(sink=ledger_sink)
     log = EventLog(sink=counter, history_max=history_max)
     prev_log = default_event_log()
@@ -516,7 +498,57 @@ def run_replay(
             ledger_sink.close()
 
 
+def fleet_report(out: Dict[str, Any], seed: int) -> Dict[str, Any]:
+    """The FLEETREPORT of a :func:`run_replay` result: the router section
+    and the run's counters (JAX ``main`` :580), with every other key
+    ``obs.report.validate_runreport`` requires, empty — no step was
+    timed and no device ran."""
+    from ..obs.aggregate import cross_host_step_stats, step_time_stats
+    from ..obs.mem_ledger import mem_report
+    from ..obs.numerics import numerics_report
+    from ..obs.report import RUNREPORT_SCHEMA
+
+    memory = mem_report()
+    memory.update(peak_bytes_in_use=0, reported=False)
+    return {
+        "schema": RUNREPORT_SCHEMA,
+        "run": f"trace-replay-seed{seed}",
+        "steps": out["ticks"],
+        "backend": "sim",
+        "chip": "none",
+        "n_devices": 0,
+        "n_processes": 1,
+        "wall_time_s": out["wall_s"],
+        "step_time_s": step_time_stats([]),
+        "spans_mean_s": {},
+        "throughput": {},
+        "mfu": {},
+        "memory": memory,
+        "numerics": numerics_report(),
+        "compile": {"count": 0, "time_s": 0.0, "recompiles": 0},
+        "hosts": cross_host_step_stats([]),
+        "comm": {},
+        "router": out["summary"],
+        "counters": {"workload": out["workload"],
+                     "attribution": out["attribution"],
+                     "mixed_traffic": out["mixed_traffic"],
+                     "sim": out["sim"],
+                     "curves": out["curves"],
+                     "autoscale": out["autoscale"],
+                     "chaos": out["chaos"],
+                     "replay": {"schema": out["schema"],
+                                "n_requests": out["n_requests"],
+                                "submitted": out["submitted"],
+                                "config_hash": out["config_hash"],
+                                "validation_errors":
+                                    out["validation_errors"]}},
+        "events": [],
+    }
+
+
 def main(argv: Optional[List[str]] = None) -> int:
+    from ..obs.report import render_summary_line, write_runreport
+
     ap = argparse.ArgumentParser(
         description="replay a synthetic request trace through the real "
                     "Router on DeviceStep-stubbed engines (no devices)")
@@ -547,7 +579,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--long-doc-len", type=int, default=512,
                     help="--long-docs document length in tokens")
     ap.add_argument("--history", type=int, default=65_536,
-                    help="events kept in memory")
+                    help="events kept in memory for --trace rendering")
     ap.add_argument("--autoscale", action="store_true",
                     help="attach the goodput-driven Autoscaler")
     ap.add_argument("--spares", type=int, default=0,
@@ -570,15 +602,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--ledger", default=None,
                     help="write router decision records as JSONL")
     ap.add_argument("--report", default=None,
-                    help="refused: waits for the RUNREPORT writer")
+                    help="write the FLEETREPORT as <path> JSON + a "
+                         "sibling .md (the RUNREPORT convention)")
     ap.add_argument("--trace", default=None,
-                    help="refused: waits for the fleet trace renderer")
+                    help="write a fleet Perfetto trace of the retained "
+                         "event window")
     args = ap.parse_args(argv)
-    if args.report is not None or args.trace is not None:
-        raise NotImplementedError(_OBS)
 
-    if args.ledger is not None and os.path.dirname(args.ledger):
-        os.makedirs(os.path.dirname(args.ledger), exist_ok=True)
+    for path in (args.ledger, args.trace):
+        if path is not None and os.path.dirname(path):
+            os.makedirs(os.path.dirname(path), exist_ok=True)
 
     common = dict(
         n_requests=args.n_requests, n_replicas=args.replicas,
@@ -604,7 +637,19 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     out = run_replay(autoscale=args.autoscale or args.ab,
                      ledger_path=args.ledger, **common)
-    out.pop("events")
+    log = out.pop("events")
+
+    if args.trace is not None:
+        from ..serving.tracing import fleet_trace_events
+
+        with open(args.trace, "w") as f:
+            json.dump({"traceEvents": fleet_trace_events(log.as_list())},
+                      f)
+
+    report = fleet_report(out, args.seed)
+    if args.report is not None:
+        write_runreport(report, args.report)
+
     fleet = out["summary"]["fleet"]
     asc = out["autoscale"] or {}
     print(json.dumps({
@@ -647,6 +692,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             "baseline_valid": not baseline["validation_errors"],
             "win": att_on > att_off,
         }), flush=True)
+    print(render_summary_line(report), flush=True)
     if out["validation_errors"]:
         print(json.dumps(
             {"validation_errors": out["validation_errors"]}), flush=True)
