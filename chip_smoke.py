@@ -104,7 +104,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel family; the kernel path against the plain ('naive') path on
    identical weights and batch at batch 2 (loss and every gradient
    leaf, bf16 and f32); 2 steps at Mistral-7B-v0.1 widths (2 layers, S
-   8192) through GQA, the window, RoPE and SwiGLU; then data parallel
+   8192) through GQA, the window, RoPE and SwiGLU; then the training
+   run's resilience (``resilience_phase``, right after the main path, so
+   that its profiler window runs while the process is young): the same
+   GPT-125M through ``make_train_step(numerics=True)``, driven by
+   ``ResilientLoop`` with a ``GuardedCheckpointManager`` (0.8 GB a
+   checkpoint), ``Telemetry`` and a ``Watchdog`` — (a) clean against a
+   hand loop, (b) a NaN spike rolled back 5 -> 3 at data offset 2 against
+   a hand replay from the step-3 checkpoint (two planted loop faults and
+   a flipped byte must fail), (c) the newest checkpoint corrupted, then a
+   spike: quarantined, walked back, replayed, (d) SIGTERM, the grace save
+   and a relaunch against the uninterrupted run, (e) a torch.profiler
+   window over steps 2-3 of (a), (f) ``profile_blocks`` and
+   ``find_nan_block`` over the 12 blocks, (g) ``MemoryModel`` against
+   the live allocation; K3-K5 12 a step run; the save, restore and
+   numerics-copy costs printed; then data parallel
    (``dp_train_phase``): a one-rank NCCL group and ``tpc``'s ``data``
    axis, the GPT-125M run through ``make_train_step`` and through
    ``DataParallel.make_train_step`` (25 MB buckets, per-layer slice
@@ -320,6 +334,7 @@ import dataclasses
 import gc
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -2384,6 +2399,558 @@ def profile_train_step(run, card, gemm_flop):
         log(f"[train]   {e.self_device_time_total / 1e3:8.3f} ms "
             f"x{e.count:<5d} {e.key[:110]}")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "families": families}
+
+
+# ------------------------------------------------------------ resilience
+
+RES_LR = 3e-4          # resilience_phase: make_train_step's AdamW
+RES_STEPS = 8          # (b): a run of 8 steps, saves every 2
+RES_SHORT = 6          # (a), (c), (d) and the planted (b) runs
+RES_WINDOW = (2, 3)    # (e): the profiler window over two steps of (a)
+RES_NAN_BLOCK = 7      # (f): the block whose weights get the NaN
+#: the trajectory gates if two hand runs of the step differ (stated
+#: before the first chip run): a gap at most 4x the hand runs' spread
+RES_SPREAD_FACTOR = 4.0
+
+
+def res_batch(cfg, index):
+    """Stream index -> the batch: random tokens from a seed the index
+    gives, so a shifted offset is a new stream position."""
+    return random_batch(cfg, TRAIN_BATCH, 1000 + int(index))
+
+
+def res_state(cfg):
+    """GPT-125M's random weights from seed 0 and a fresh AdamW."""
+    from torchdistpackage_tpu_torch.models import init_gpt_params
+    from torchdistpackage_tpu_torch.parallel.data_parallel import adamw
+
+    params = init_gpt_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    return params, adamw(RES_LR).init(params)
+
+
+def res_step(cfg, calls, numerics=True):
+    """``make_train_step(numerics=True)`` of GPT-125M (remat 'flash'),
+    each call counted in ``calls``: the steps actually run."""
+    from torchdistpackage_tpu_torch.models import gpt_loss
+    from torchdistpackage_tpu_torch.parallel.data_parallel import (
+        adamw,
+        make_train_step,
+    )
+
+    step = make_train_step(lambda p, b: gpt_loss(p, b, cfg, remat="flash"),
+                           adamw(RES_LR), numerics=numerics)
+
+    def counted(params, state, batch):
+        calls.append(1)
+        return step(params, state, batch)
+
+    return counted
+
+
+def res_hand(cfg, steps, params=None, state=None, offset=0, snap_at=None):
+    """The step by hand over ``steps`` at ``offset``: ``(losses, params,
+    state, snapshot)``, ``snapshot`` a copy of the params after step
+    ``snap_at``."""
+    if params is None:
+        params, state = res_state(cfg)
+    step = res_step(cfg, [])
+    losses, snap = {}, None
+    for s in steps:
+        params, state, loss, _ = step(params, state, res_batch(cfg, s + offset))
+        losses[s] = float(loss)
+        if s == snap_at:
+            snap = [p.detach().clone() for p in leaves_of(params)]
+    return losses, params, state, snap
+
+
+def res_gap(got_losses, want_losses, got_params, want_params):
+    """(loss gap, param gap): the largest differences, inf when the step
+    sets differ."""
+    if sorted(got_losses) != sorted(want_losses):
+        return float("inf"), float("inf")
+    lg = max(abs(got_losses[s] - want_losses[s]) for s in want_losses)
+    pg = max(float((a.detach().float() - b.detach().float()).abs().max())
+             for a, b in zip(leaves_of(got_params), leaves_of(want_params)))
+    return lg, pg
+
+
+def res_run(cfg, directory, total, faults=(), telemetry=None, manager=None,
+            params=None, state=None, save_every=2, **kw):
+    """One ``ResilientLoop`` run of GPT-125M: ``(LoopResult, step calls,
+    K3-K5 launches)``, the counts set to 0 just before it; its events on
+    a fresh process-default log (``default_event_log()`` after it)."""
+    from torchdistpackage_tpu_torch.ops import flash_attention as fa
+    from torchdistpackage_tpu_torch.resilience import (
+        ChaosMonkey,
+        Fault,
+        GuardedCheckpointManager,
+        ResilientLoop,
+        Watchdog,
+    )
+
+    from torchdistpackage_tpu_torch.obs import EventLog, set_default_event_log
+
+    calls = []
+    if params is None:
+        params, state = res_state(cfg)
+    chaos = ChaosMonkey([Fault(**f) for f in faults]) if faults else None
+    if telemetry is None:  # a Telemetry installs its own
+        set_default_event_log(EventLog())
+    torch.cuda.synchronize()
+    reset_counts()
+    with (manager or GuardedCheckpointManager)(directory,
+                                               max_to_keep=4) as mgr:
+        loop = ResilientLoop(
+            res_step(cfg, calls), lambda i: res_batch(cfg, i), mgr,
+            total_steps=total, save_every=save_every, chaos=chaos,
+            telemetry=telemetry, watchdog=Watchdog(timeout_s=600.0), **kw)
+        res = loop.run(params, state)
+    torch.cuda.synchronize()
+    return res, len(calls), dict(fa.LAUNCHES)
+
+
+def res_save_restore(cfg, params, state, card):
+    """One save and one restore of the whole training state, timed: the
+    host copy, the save with its write and manifest (wait=True), the
+    verification alone, the restore (verify, read, copy into the live
+    tensors)."""
+    import tempfile
+
+    from torchdistpackage_tpu_torch.resilience import (
+        GuardedCheckpointManager,
+        verify_checkpoint,
+    )
+    from torchdistpackage_tpu_torch.utils.checkpoint import to_host
+
+    payload = {"params": params, "opt": state, "loop": {"data_offset": 0}}
+    d = tempfile.mkdtemp(prefix="tdp-res-")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        to_host(payload)
+        copy_ms = (time.perf_counter() - t0) * 1e3
+        with GuardedCheckpointManager(d, max_to_keep=2) as mgr:
+            t0 = time.perf_counter()
+            mgr.save(0, payload, wait=True)
+            save_ms = (time.perf_counter() - t0) * 1e3
+            step_dir = Path(d) / "0"
+            nbytes = sum(f.stat().st_size for f in step_dir.iterdir())
+            t0 = time.perf_counter()
+            problems = verify_checkpoint(d, 0)
+            verify_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            mgr.restore(0, template=payload)
+            torch.cuda.synchronize()
+            restore_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    out = {"bytes": nbytes, "host_copy_ms": copy_ms, "save_ms": save_ms,
+           "verify_ms": verify_ms, "restore_ms": restore_ms,
+           "verified": problems == []}
+    log(f"[resilience] a checkpoint of GPT-125M's params and AdamW moments: "
+        f"{nbytes} B; host copy {copy_ms:.1f} ms, save (copy, write, fsync, "
+        f"manifest) {save_ms:.1f} ms, verify {verify_ms:.1f} ms, restore "
+        f"(verify, read, copy into the live tensors) {restore_ms:.1f} ms "
+        f"— on {card}")
+    return out
+
+
+def res_numerics_cost(cfg, params, state, card, n=3):
+    """The numerics=True step against the numerics=False step on the same
+    state: median ms of ``n`` each after one warm-up, and each one's peak
+    memory."""
+    out = {}
+    for numerics in (False, True):
+        step = res_step(cfg, [], numerics=numerics)
+        step(params, state, res_batch(cfg, 0))
+        times, peak = [], 0
+        for i in range(n):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            step(params, state, res_batch(cfg, i + 1))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            peak = max(peak, torch.cuda.max_memory_allocated())
+        out[numerics] = {"ms": float(np.median(times)), "times": times,
+                         "peak_bytes": peak}
+    copy_bytes = 4 * sum(p.numel() for p in leaves_of(params))
+    d_ms = out[True]["ms"] - out[False]["ms"]
+    d_peak = out[True]["peak_bytes"] - out[False]["peak_bytes"]
+    log(f"[resilience] numerics=True step {out[True]['ms']:.2f} ms against "
+        f"{out[False]['ms']:.2f} ms (+{d_ms:.2f} ms); peak "
+        f"{out[True]['peak_bytes']} against {out[False]['peak_bytes']} B "
+        f"(+{d_peak} B; the f32 copy of the params {copy_bytes} B) — on "
+        f"{card}")
+    return {"ms": out[True]["ms"], "plain_ms": out[False]["ms"],
+            "peak_bytes": out[True]["peak_bytes"],
+            "plain_peak_bytes": out[False]["peak_bytes"],
+            "copy_bytes": copy_bytes}
+
+
+def res_blocks(cfg, params, card, fails):
+    """(f): ``profile_blocks`` over the 12 blocks at batch 16 (forward,
+    no grad: K3 once a call), then ``find_nan_block`` with a NaN planted
+    in block ``RES_NAN_BLOCK``'s weights."""
+    from torchdistpackage_tpu_torch.models import gpt_embed
+    from torchdistpackage_tpu_torch.models.gpt import layer_params
+    from torchdistpackage_tpu_torch.ops import flash_attention as fa
+    from torchdistpackage_tpu_torch.parallel.tensor_parallel.layers import (
+        block_forward,
+    )
+    from torchdistpackage_tpu_torch.tools import (
+        find_nan_block,
+        profile_blocks,
+        report_prof,
+    )
+
+    blocks = [(f"blocks/{i}", lambda h, p=layer_params(params, i):
+               block_forward(p, h, cfg.block)) for i in range(cfg.nlayers)]
+    with torch.no_grad():
+        h = gpt_embed(params, res_batch(cfg, 0)["tokens"])
+        reset_counts()
+        profs, _ = profile_blocks(blocks, h, warmup=1, iters=3)
+        prof_k3 = fa.LAUNCHES["flash_fwd"]
+        log("[resilience] (f) profile_blocks, GPT-125M at batch 16, S 2048 "
+            "(forward, no grad; one warm-up and three timed calls a block):"
+            f" — on {card}")
+        for line in report_prof(profs, sort_by_ratio=False).splitlines():
+            log(f"[resilience]   {line}")
+        w1 = params["blocks"]["mlp"]["w1"]
+        saved = w1[RES_NAN_BLOCK, 0, 0].clone()
+        w1[RES_NAN_BLOCK, 0, 0] = float("nan")
+        reset_counts()
+        name, _ = find_nan_block(blocks, h)
+        nan_k3 = fa.LAUNCHES["flash_fwd"]
+        w1[RES_NAN_BLOCK, 0, 0] = saved
+    if prof_k3 != 4 * cfg.nlayers:
+        fails.append(f"(f) profile_blocks launched K3 {prof_k3} times, "
+                     f"want {4 * cfg.nlayers}")
+    if name != f"blocks/{RES_NAN_BLOCK}":
+        fails.append(f"(f) find_nan_block answered {name!r}")
+    log(f"[resilience] (f) find_nan_block with a NaN in block "
+        f"{RES_NAN_BLOCK}'s w1: {name!r} after {nan_k3} K3 launches")
+    return {"profiles": [dataclasses.asdict(p) for p in profs],
+            "k3": prof_k3, "nan_block": name, "nan_k3": nan_k3}
+
+
+def res_memory(cfg, params, state, card, fails):
+    """(g): ``MemoryModel.estimate`` against the live allocation: the
+    params', grads' and AdamW moments' bytes exactly."""
+    from torchdistpackage_tpu_torch.obs import MemoryModel
+
+    est = MemoryModel().estimate(cfg, {"data": 1}, None, params=params,
+                                 batch_per_device=TRAIN_BATCH,
+                                 seq_len=cfg.max_seq)
+    leaves = leaves_of(params)
+    live = {"params_bytes": sum(p.numel() * p.element_size()
+                                for p in leaves),
+            "grads_bytes": sum(p.grad.numel() * p.grad.element_size()
+                               for p in leaves),
+            "opt_bytes": sum(v.numel() * v.element_size()
+                             for st in state.state.values()
+                             for k, v in st.items()
+                             if k in ("exp_avg", "exp_avg_sq"))}
+    for k, v in live.items():
+        if est[k] != v:
+            fails.append(f"(g) MemoryModel {k} {est[k]} against live {v}")
+    log(f"[resilience] (g) MemoryModel: params {est['params_bytes']}, grads "
+        f"{est['grads_bytes']}, AdamW moments {est['opt_bytes']} B (live: "
+        f"{live['params_bytes']}, {live['grads_bytes']}, "
+        f"{live['opt_bytes']}); activations estimated {est['act_bytes']} B "
+        f"(one carry a layer) — on {card}")
+    return {"estimate": {k: est[k] for k in ("params_bytes", "grads_bytes",
+                                             "opt_bytes", "act_bytes",
+                                             "total_bytes")},
+            "live": live}
+
+
+def res_launch_gate(tag, calls, launches, fails):
+    want = 12 * calls
+    got = {k: launches[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                    "flash_bwd_dkv")}
+    if any(v != want for v in got.values()):
+        fails.append(f"({tag}) K3-K5 launched {got}, want {want} each "
+                     f"(12 x {calls} steps run)")
+    return got
+
+
+def resilience_phase(card):
+    """The training run's resilience and observability on GPT-125M at
+    ``bench.py``'s default (batch 16, S 2048, bf16, remat 'flash'): the
+    step is ``make_train_step(numerics=True)``, driven through
+    ``ResilientLoop`` with a ``GuardedCheckpointManager`` in a temporary
+    directory, ``Telemetry`` and a ``Watchdog``; each checkpoint holds
+    the bf16 params and AdamW moments.
+
+    (a) clean (a ``nan_spike`` armed, never fired) against a hand loop;
+    (b) a ``nan_spike`` at step 5, saves every 2: one rollback 5 -> 3,
+    ``data_offset`` 2, the alert before the rollback, the trajectory
+    against a hand replay from the step-3 checkpoint over the shifted
+    batches, with two planted faults (the offset not advanced; a restore
+    that leaves the template unrestored) that must fail that gate, and a
+    byte flipped under a manifest that ``verify_checkpoint`` must refuse;
+    (c) ``ckpt_corrupt`` of the newest checkpoint, then a spike: the step
+    quarantined, the walk back to the older one, the replay gate from it;
+    (d) ``sigterm`` mid-run, the forced grace save, a relaunch that
+    resumes: the stitched trajectory against the uninterrupted hand run;
+    (e) the profiler window over steps 2-3 of (a); (f) ``profile_blocks``
+    and ``find_nan_block`` over the 12 blocks; (g) ``MemoryModel``
+    against the live allocation.  K3-K5 launch 12 times a step run in
+    every arm.  The trajectory gates are bit-exact when two hand runs are
+    bit-identical, else within ``RES_SPREAD_FACTOR`` x their spread."""
+    import tempfile
+
+    from torchdistpackage_tpu_torch.obs import ProfilerStepWindow, Telemetry
+    from torchdistpackage_tpu_torch.resilience import (
+        GuardedCheckpointManager,
+        ResilientLoop,
+        corrupt_checkpoint,
+        verify_checkpoint,
+    )
+    from torchdistpackage_tpu_torch.utils import CheckpointManager
+    from torchdistpackage_tpu_torch.utils import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    marks = []
+
+    def mark(what):
+        marks.append((what, time.perf_counter()))
+    cfg = gpt_125m()
+    fails, out = [], {"launches": {}}
+    root = tempfile.mkdtemp(prefix="tdp-resilience-")
+
+    # two hand runs: the spread the trajectory gates rest on
+    hand, hp, hs, snap2 = res_hand(cfg, range(RES_SHORT), snap_at=1)
+    hand2, hp2, _, _ = res_hand(cfg, range(2))
+    spread = res_gap({s: hand[s] for s in range(2)}, hand2, snap2, hp2)
+    del hp2, snap2
+    exact = spread == (0.0, 0.0)
+    gate = ((0.0, 0.0) if exact else
+            (RES_SPREAD_FACTOR * spread[0], RES_SPREAD_FACTOR * spread[1]))
+    log(f"[resilience] two hand runs of make_train_step(numerics=True), "
+        f"GPT-125M batch 16: loss / param spread {spread[0]:.3e} / "
+        f"{spread[1]:.3e} -> trajectory gates "
+        + ("bit-exact" if exact else f"loss <= {gate[0]:.3e}, param <= "
+           f"{gate[1]:.3e}") + f" — on {card}")
+
+    def traj(tag, got_l, want_l, got_p, want_p, fault=False):
+        lg, pg = res_gap(got_l, want_l, got_p, want_p)
+        held = lg <= gate[0] and pg <= gate[1]
+        log(f"[resilience] ({tag}) trajectory gap: loss {lg:.3e}, params "
+            f"{pg:.3e} -> " + ("held" if held else "NOT held")
+            + (" (a planted fault: must not hold)" if fault else ""))
+        if held == fault:
+            fails.append(f"({tag}) trajectory gate "
+                         + ("held on a planted fault" if fault else
+                            f"failed: loss {lg:.3e}, params {pg:.3e}"))
+        return {"loss_gap": lg, "param_gap": pg, "held": held}
+
+    mark("hand runs")
+    # (a) clean, with telemetry's profiler window (e)
+    win = ProfilerStepWindow(str(Path(root) / "trace"), trace_steps=RES_WINDOW)
+    tel = Telemetry(run="resilience-a", report_path="", trace_path="",
+                    profile_window=win)
+    t0 = time.perf_counter()
+    res, calls, launches = res_run(
+        cfg, str(Path(root) / "a"), RES_SHORT,
+        [dict(kind="nan_spike", step=99)], telemetry=tel,
+        save_every=RES_SHORT)
+    a_s = time.perf_counter() - t0
+    report = tel.finalize(write=False, print_summary=False)
+    ev = [(e["kind"], e.get("step")) for e in tel.events.as_list()
+          if e["kind"].startswith("profile_window")]
+    out["launches"]["a"] = res_launch_gate("a", calls, launches, fails)
+    if res.verdict != "clean" or res.summary["faults_injected"] != 0:
+        fails.append(f"(a) verdict {res.verdict} {res.summary}")
+    out["a"] = traj("a", res.losses, hand, res.params, hp)
+    ratios = [r.get("update_ratio") for r in report["numerics"]["timeline"]]
+    log(f"[resilience] (a) clean: verdict {res.verdict}, {calls} steps in "
+        f"{a_s:.1f} s (the last one saved), losses "
+        + ", ".join(f"{v:.5f}" for v in res.losses.values())
+        + "; update_ratio " + ", ".join(f"{r:.3e}" for r in ratios)
+        + f"; numerics alerts {report['numerics']['alerts']['count']}")
+    want_ev = [("profile_window_start", RES_WINDOW[0]),
+               ("profile_window_stop", RES_WINDOW[1])]
+    tsize = (Path(win.trace_file).stat().st_size
+             if win.trace_file else 0)
+    if ev != want_ev or tsize == 0:
+        fails.append(f"(e) window events {ev}, trace {tsize} B")
+    log(f"[resilience] (e) profiler window {ev}, trace {tsize} B; kernels "
+        f"in the window: " + (", ".join(k[:60] for k in win.kernels)
+                              if win.kernels else "not measured (the "
+                              "profiler listed no kernel)"))
+    out["e"] = {"events": ev, "trace_bytes": tsize,
+                "kernels": len(win.kernels)}
+    del res, tel
+    shutil.rmtree(Path(root) / "a", ignore_errors=True)
+    mark("(a) and (e)")
+
+    # (b) a NaN spike at step 5: rollback to the step-3 checkpoint
+    d_b = str(Path(root) / "b")
+    t0 = time.perf_counter()
+    res, calls, launches = res_run(cfg, d_b, RES_STEPS,
+                                   [dict(kind="nan_spike", step=5)])
+    b_s = time.perf_counter() - t0
+    from torchdistpackage_tpu_torch.obs import default_event_log
+
+    kinds = [e["kind"] for e in default_event_log().as_list()]
+    rb = [(e["from_step"], e["to_step"]) for e in
+          default_event_log().of_kind("rollback")]
+    alerts = [e["reason"] for e in default_event_log().of_kind(
+        "numerics_alert") if e.get("source") == "divergence_monitor"]
+    out["launches"]["b"] = res_launch_gate("b", calls, launches, fails)
+    if (res.verdict != "recovered" or rb != [(5, 3)]
+            or res.summary["data_offset"] != 2 or alerts != ["nonfinite_loss"]
+            or kinds.index("numerics_alert") > kinds.index("rollback")):
+        fails.append(f"(b) verdict {res.verdict}, rollbacks {rb}, offset "
+                     f"{res.summary['data_offset']}, alerts {alerts}")
+    rp, rs = res_state(cfg)
+    with CheckpointManager(d_b, max_to_keep=4) as mgr:
+        mgr.restore(3, template={"params": rp, "opt": rs,
+                                 "loop": {"data_offset": 0}})
+    rep_l, rp, rs, rep_snap5 = res_hand(cfg, range(4, RES_STEPS), rp, rs,
+                                        offset=2, snap_at=5)
+    out["b"] = traj("b", {s: res.losses[s] for s in range(4, RES_STEPS)},
+                    rep_l, res.params, rp)
+    log(f"[resilience] (b) nan_spike at 5: verdict {res.verdict}, "
+        f"rollbacks {rb}, data_offset {res.summary['data_offset']}, "
+        f"{calls} steps run in {b_s:.1f} s, event order "
+        + " ".join(k for k in kinds if k in ("fault_injected",
+                                              "numerics_alert",
+                                              "checkpoint_restore",
+                                              "rollback")))
+    del res, rp, rs
+    mark("(b) and its replay")
+    # the byte flip under a manifest
+    corrupt_checkpoint(d_b, step=7, mode="bitflip")
+    refused = verify_checkpoint(d_b, 7)
+    if not refused or verify_checkpoint(d_b, 5):
+        fails.append(f"(b) a flipped byte: verify_checkpoint {refused}")
+    log(f"[resilience] (b) a byte flipped in step 7: verify_checkpoint "
+        f"{refused[:1]}")
+    mark("(b) the flipped byte")
+    # the planted faults, each a 6-step run against the replay to step 5
+    rep6 = {s: rep_l[s] for s in range(4, RES_SHORT)}
+    snap_tree = {"leaves": rep_snap5}
+    real_rollback, real_restore = ResilientLoop._rollback, ckpt.restore_into
+
+    def stuck_offset(self, params, opt, step, reason, loss, offset, *a):
+        nxt, _ = real_rollback(self, params, opt, step, reason, loss,
+                               offset, *a)
+        return nxt, offset
+
+    out["b_planted"] = {}
+    for fault in ("offset_not_advanced", "unrestored"):
+        if fault == "offset_not_advanced":
+            ResilientLoop._rollback = stuck_offset
+        else:
+            ckpt.restore_into = lambda template, loaded, path="": template
+        try:
+            # saves at 3 and the last step: the rollback's target is 3
+            res, calls, launches = res_run(
+                cfg, str(Path(root) / fault), RES_SHORT,
+                [dict(kind="nan_spike", step=5)], save_every=4)
+        finally:
+            ResilientLoop._rollback = real_rollback
+            ckpt.restore_into = real_restore
+        res_launch_gate(f"b, {fault}", calls, launches, fails)
+        out["b_planted"][fault] = traj(
+            f"b, planted: {fault}",
+            {s: res.losses.get(s, float("nan")) for s in range(4, RES_SHORT)},
+            rep6, {"leaves": leaves_of(res.params)}, snap_tree, fault=True)
+        del res
+        shutil.rmtree(Path(root) / fault, ignore_errors=True)
+    del rep_snap5, snap_tree
+    shutil.rmtree(d_b, ignore_errors=True)
+
+    mark("(b) the planted faults")
+    # (c) the newest checkpoint corrupted, then a spike: walk back
+    class SyncManager(GuardedCheckpointManager):
+        """Saves that commit before the loop goes on, so that the
+        chaos harness's 'newest' is the step just saved."""
+
+        def save(self, step, state, wait=False, force=False):
+            return super().save(step, state, wait=True, force=force)
+
+    d_c = str(Path(root) / "c")
+    res, calls, launches = res_run(
+        cfg, d_c, RES_SHORT, [dict(kind="ckpt_corrupt", step=4),
+                              dict(kind="nan_spike", step=5)],
+        manager=SyncManager)
+    log_c = default_event_log()
+    quar = [e["step"] for e in log_c.of_kind("ckpt_quarantine")]
+    rb = [(e["from_step"], e["to_step"]) for e in log_c.of_kind("rollback")]
+    out["launches"]["c"] = res_launch_gate("c", calls, launches, fails)
+    if (res.verdict != "recovered" or quar != [3] or rb != [(5, 1)]
+            or not (Path(d_c + ".quarantine") / "3").is_dir()
+            or res.summary["data_offset"] != 4):
+        fails.append(f"(c) verdict {res.verdict}, quarantined {quar}, "
+                     f"rollbacks {rb}, offset {res.summary['data_offset']}")
+    rp, rs = res_state(cfg)
+    with CheckpointManager(d_c, max_to_keep=4) as mgr:
+        mgr.restore(1, template={"params": rp, "opt": rs,
+                                 "loop": {"data_offset": 0}})
+    rep_l, rp, rs, _ = res_hand(cfg, range(2, RES_SHORT), rp, rs, offset=4)
+    out["c"] = traj("c", {s: res.losses[s] for s in range(2, RES_SHORT)},
+                    rep_l, res.params, rp)
+    log(f"[resilience] (c) ckpt_corrupt of the newest (step 3) then a spike "
+        f"at 5: verdict {res.verdict}, quarantined {quar}, rollbacks {rb}, "
+        f"data_offset {res.summary['data_offset']}, {calls} steps run")
+    del res, rp, rs
+    shutil.rmtree(d_c, ignore_errors=True)
+    shutil.rmtree(d_c + ".quarantine", ignore_errors=True)
+
+    mark("(c) and its replay")
+    # (d) SIGTERM at step 3, the grace save, a relaunch that resumes
+    d_d = str(Path(root) / "d")
+    res1, calls1, launches1 = res_run(cfg, d_d, RES_SHORT,
+                                      [dict(kind="sigterm", step=3)],
+                                      save_every=RES_SHORT)
+    pre = default_event_log().of_kind("preemption")
+    res2, calls2, launches2 = res_run(cfg, d_d, RES_SHORT,
+                                      save_every=RES_SHORT)
+    out["launches"]["d"] = res_launch_gate(
+        "d", calls1 + calls2,
+        {k: launches1[k] + launches2[k] for k in launches1}, fails)
+    if (not res1.preempted or max(res1.losses) != 3
+            or res1.summary["last_checkpoint"] != 3 or len(pre) != 1
+            or res2.verdict != "clean" or sorted(res2.losses) != [4, 5]):
+        fails.append(f"(d) {res1.summary}, {res2.summary}, preemption "
+                     f"events {len(pre)}")
+    out["d"] = traj("d", {**res1.losses, **res2.losses}, hand, res2.params,
+                    hp)
+    log(f"[resilience] (d) SIGTERM at step 3: verdict {res1.verdict}, last "
+        f"checkpoint {res1.summary['last_checkpoint']}; the relaunch "
+        f"{res2.verdict}, steps {sorted(res2.losses)}")
+    del res1, res2
+    shutil.rmtree(d_d, ignore_errors=True)
+    shutil.rmtree(root, ignore_errors=True)
+
+    mark("(d)")
+    # the costs: a save and a restore, the numerics copy; (f) and (g)
+    out["checkpoint"] = res_save_restore(cfg, hp, hs, card)
+    out["numerics"] = res_numerics_cost(cfg, hp, hs, card)
+    out["g"] = res_memory(cfg, hp, hs, card, fails)
+    mark("the costs and (g)")
+    out["f"] = res_blocks(cfg, hp, card, fails)
+    mark("(f)")
+    del hp, hs
+    torch.cuda.empty_cache()
+
+    out["seconds"] = time.perf_counter() - t_phase
+    t_prev, out["segments_s"] = t_phase, {}
+    for what, t in marks:
+        out["segments_s"][what] = t - t_prev
+        t_prev = t
+    log("[resilience] where the phase's time went: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in out["segments_s"].items()))
+    log(f"[resilience] phase {out['seconds']:.1f} s; K3-K5 launches by arm "
+        f"{out['launches']} — on {card}")
+    if fails:
+        raise RuntimeError("resilience_phase: " + "; ".join(fails))
+    return out
 
 
 def loss_and_grads(params, cfg, batch, remat):
@@ -9332,6 +9899,9 @@ def main():
     # 4. the training path: GPT-125M main path, the kernel path against the
     # plain path, a short Mistral-width run
     train = train_phase(card)
+    # the training run's resilience and observability, while the process
+    # is young (the profiler window)
+    resilience = resilience_phase(card)
     path_parity_phase()
     mistral_train_phase(card)
     dp_train_phase(card)
@@ -9504,6 +10074,9 @@ def main():
                    for name in PIPE_LAUNCHES}},
             "moe_train_launches_a_step": moe_train_launches(moe_train,
                                                             kname),
+            "resilience_launches": {
+                arm: resilience["launches"][arm][kname]
+                for arm in ("a", "b", "c", "d")},
             "vit_train_launches_a_step": vit_train["launches"][kname],
             "vit_moe_train_launches_a_step": vit_moe_train["launches"][kname],
             "cp_train_launches": {
@@ -9513,6 +10086,9 @@ def main():
                     m: [r["gpt"][m]["launches"][kname]
                         for r in cp_train["two_ranks"]["ranks"]]
                     for m in CP_K3_A_LAYER}}}
+        if kname == "flash_fwd":  # resilience (f): 4 a block
+            extra["resilience_profile_blocks_launches"] = \
+                resilience["f"]["k3"]
         if kname == "flash_fwd":  # the generate path's prefill calls
             extra["generate_launches"] = {
                 "generate": gen["launches"]["flash_fwd"],

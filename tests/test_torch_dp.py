@@ -437,6 +437,12 @@ def test_dp_world1_is_bit_identical_to_make_train_step(world1, inputs,
         assert torch.equal(a, b)
 
 
+#: the reference's numerics_stats keys (JAX obs/numerics.py:158)
+NUMERICS_KEYS = {"grad_norm", "param_norm", "update_norm", "update_ratio",
+                 "nonfinite_grads", "bf16_underflow_frac",
+                 "f16_overflow_frac", "int8_zero_frac", "groups"}
+
+
 def test_value_and_grad_fn_and_numerics_paths(world1, inputs):
     """``value_and_grad_fn`` (grads reduced after it returns) trains as
     the ``loss_fn`` path; ``numerics=True`` returns the stats dict."""
@@ -466,8 +472,10 @@ def test_value_and_grad_fn_and_numerics_paths(world1, inputs):
         for b in batches:
             tb = {k: torch.from_numpy(v).long() for k, v in b.items()}
             p, state, loss, stats = step(p, state, tb)
-        assert set(stats) == {"grad_norm", "param_norm", "nonfinite_grads"}
+        assert set(stats) == NUMERICS_KEYS
         assert int(stats["nonfinite_grads"]) == 0
+        assert set(stats["groups"]) == {"tok_emb", "pos_emb", "blocks",
+                                        "ln_f", "head"}
         out[path] = (loss, list(tree_leaves(p)))
     assert torch.allclose(out["loss_fn"][0], out["value_and_grad_fn"][0],
                           rtol=0, atol=1e-6)

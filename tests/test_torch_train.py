@@ -236,8 +236,15 @@ def test_global_grad_norm_and_numerics_stats():
     step = make_train_step(lambda p, b: gpt_loss(p, b, cfg), opt,
                            numerics=True)
     _, _, loss, stats = step(params, state, _torch_batch(batch))
-    assert set(stats) == {"grad_norm", "param_norm", "nonfinite_grads"}
+    assert set(stats) == {"grad_norm", "param_norm", "update_norm",
+                          "update_ratio", "nonfinite_grads",
+                          "bf16_underflow_frac", "f16_overflow_frac",
+                          "int8_zero_frac", "groups"}
     assert abs(float(stats["param_norm"]) - before) < 1e-6 * before
     assert int(stats["nonfinite_grads"]) == 0 and float(stats["grad_norm"]) > 0
+    after = float(global_grad_norm([p.detach() for p in
+                                    tree_leaves(params)]))
+    assert 0 < float(stats["update_ratio"]) < 1
+    assert float(stats["update_norm"]) >= abs(after - before)
     with pytest.raises(TypeError):
         make_train_step(lambda p, b: 0, torch.optim.SGD)

@@ -3,7 +3,8 @@ object (:class:`Telemetry`), the event timeline (:mod:`.events`), the
 sinks (:mod:`.exporters`), the end-of-run report and its validators
 (:mod:`.report`), the Perfetto trace (:mod:`.trace`), step-time and
 pipeline / MoE aggregates (:mod:`.aggregate`), card memory
-(:mod:`.mem_ledger`), training numerics (:mod:`.numerics`), and the comm
+and the planner's memory model (:mod:`.mem_ledger`), training numerics
+(:mod:`.numerics`), the profiler step window (:mod:`.trace`), and the comm
 record and alpha-beta model the compression policy and the comm
 benchmark read (:mod:`.comm_ledger`, :mod:`.comm_model`)."""
 
@@ -40,6 +41,7 @@ from .exporters import (
 )
 from .mem_ledger import (
     MEM_VERDICTS,
+    MemoryModel,
     device_capacity,
     headroom_verdict,
     live_memory,
@@ -47,9 +49,12 @@ from .mem_ledger import (
 )
 from .numerics import (
     DEFAULT_THRESHOLDS,
+    add_update_stats,
     check_alerts,
+    default_group_fn,
     global_grad_norm,
     numerics_report,
+    numerics_stats,
 )
 from .report import (
     RUNREPORT_SCHEMA,
@@ -59,13 +64,20 @@ from .report import (
     write_runreport,
 )
 from .telemetry import Telemetry, peak_flops_for
-from .trace import build_trace, chrome_trace_events, export_trace, \
-    validate_trace
+from .trace import (
+    ProfilerStepWindow,
+    build_trace,
+    chrome_trace_events,
+    export_trace,
+    validate_trace,
+)
 
 __all__ = ["AxisCost", "CommModel", "DEFAULT_THRESHOLDS", "EVENT_KINDS",
-           "EventLog", "JsonlSink", "MEM_VERDICTS", "MultiSink",
-           "PrometheusTextfileSink", "RUNREPORT_SCHEMA", "TaggedEventLog",
-           "Telemetry", "TensorBoardSink", "build_trace", "check_alerts",
+           "EventLog", "JsonlSink", "MEM_VERDICTS", "MemoryModel",
+           "MultiSink", "ProfilerStepWindow", "PrometheusTextfileSink",
+           "RUNREPORT_SCHEMA", "TaggedEventLog", "Telemetry",
+           "TensorBoardSink", "add_update_stats", "build_trace",
+           "check_alerts", "default_group_fn", "numerics_stats",
            "chrome_trace_events", "comm_record", "compressed_wire_bytes",
            "cross_host_step_stats", "default_event_log", "device_capacity",
            "emit_event", "export_trace", "fit_alpha_beta",

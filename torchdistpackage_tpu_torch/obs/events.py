@@ -72,6 +72,21 @@ EVENT_KINDS: FrozenSet[str] = frozenset({
     "scale_decision", "migration_retry", "migration_fallback",
     # a long document's prefill -> decode handoff (the CP prefill tier)
     "kv_handoff_long",
+    # checkpoints (utils.checkpoint): a save accepted, a template
+    # restored, a forced save the manager still declined (ResilientLoop),
+    # a corrupt step renamed aside (resilience.ckpt_guard)
+    "checkpoint_save", "checkpoint_restore", "checkpoint_save_skipped",
+    "ckpt_quarantine",
+    # the self-healing loop (resilience.loop): a rewind to a good
+    # checkpoint, and the clean abort once the budget is spent
+    "rollback", "resilience_abort",
+    # NaN hunting (tools.debug_nan): a guard trip or a scan's finding,
+    # and the first block whose output is not finite
+    "nan_watchdog", "nan_block_located",
+    # the torch.profiler step window (obs.trace.ProfilerStepWindow)
+    "profile_window_start", "profile_window_stop", "profile_window_failed",
+    # the zero-bubble schedule's tick accounting (pipeline_zb_1f1b)
+    "zb_wgrad_deferred", "zb_cooldown_filled",
 })
 
 

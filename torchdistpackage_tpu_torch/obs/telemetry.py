@@ -140,6 +140,9 @@ class Telemetry:
     mem_snapshot_every: a ``mem_snapshot`` event every N steps (0: never;
         every step's sample lands on its record regardless).
     numerics_thresholds: overrides of :data:`~.numerics.DEFAULT_THRESHOLDS`.
+    profile_window: a :class:`~.trace.ProfilerStepWindow` — a
+        ``torch.profiler`` capture bracketing a window of wrapped steps
+        (the reference's ``xla_trace=``).
     """
 
     def __init__(
@@ -157,6 +160,7 @@ class Telemetry:
         device: DeviceLike = None,
         mem_snapshot_every: int = 16,
         numerics_thresholds: Optional[Dict[str, float]] = None,
+        profile_window: Optional[Any] = None,
     ) -> None:
         from . import trace as _trace
 
@@ -181,6 +185,7 @@ class Telemetry:
         self._alert_active: set = set()
         self.parity: Optional[Dict[str, Any]] = None
         self.compression: Optional[Dict[str, Any]] = None
+        self.profile_window = profile_window
         if event_log is None:
             event_log = EventLog()
             set_default_event_log(event_log)
@@ -240,6 +245,8 @@ class Telemetry:
             now = time.perf_counter()
             if self._last_fetch_end is not None:
                 self._pending_spans["data"] = now - self._last_fetch_end
+            if self.profile_window is not None:
+                self.profile_window.on_step_start(self._step_n)
             sig = (wrap_id, _abstract_signature((args, kwargs)))
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
@@ -313,6 +320,8 @@ class Telemetry:
         step_time = sum(spans.values())
         rec["step_time_s"] = step_time
         rec["t_end_s"] = t2  # perf_counter-domain stamp for the trace
+        if self.profile_window is not None:
+            self.profile_window.on_step_end(rec["step"])
         if self._recompiled:
             rec["recompiled"] = True
             self._recompiled = False
@@ -490,6 +499,8 @@ class Telemetry:
             thresholds=self.numerics_thresholds,
         )
 
+        if self.profile_window is not None:
+            self.profile_window.close()
         self.events.emit("run_end", run=self.run, steps=self._step_n)
         report = {
             "schema": _report.RUNREPORT_SCHEMA,

@@ -14,9 +14,9 @@ a fleet's timeline one process per replica and the router's lane.
 :func:`export_trace` is the host-side view rebuilt from Telemetry's own
 records: spans laid back to back from each step's end stamp, exactly
 the quantities ``end_step`` measured.  Set ``TDP_TRACE=/path/trace.json``
-and ``Telemetry.finalize`` writes it beside the RUNREPORT.  The
-reference's ``XlaStepTrace`` (a ``jax.profiler`` window) has no
-counterpart yet.
+and ``Telemetry.finalize`` writes it beside the RUNREPORT.
+:class:`ProfilerStepWindow` is the device side: a ``torch.profiler``
+capture over a window of steps (the reference's ``XlaStepTrace``).
 """
 
 from __future__ import annotations
@@ -242,3 +242,98 @@ def validate_trace(obj: Any) -> List[str]:
         if errs and len(errs) > 8:
             break
     return errs
+
+
+class ProfilerStepWindow:
+    """A ``torch.profiler`` capture over a window of steps — the port's
+    ``XlaStepTrace`` (JAX :257), renamed for what it is.
+
+    ``trace_steps=(first, last)`` captures steps ``first..last``
+    inclusive: the profiler starts before step ``first`` is called and
+    stops after step ``last``'s end (the card is waited for first), so
+    the trace brackets the steps the host trace shows; the Chrome trace
+    lands in ``<logdir>/steps_<first>_<last>.json`` (``trace_file``) and
+    the names of the card's kernels in the window in ``kernels`` (which
+    can come back empty late in a long process: read the launch counts,
+    not this list, to prove a kernel ran).  Wire it through
+    ``Telemetry(profile_window=...)`` or call the hooks from a loop::
+
+        win = ProfilerStepWindow("traces", trace_steps=(3, 5))
+        for i in range(n):
+            win.on_step_start(i)
+            out = step(...)
+            win.on_step_end(i)
+
+    Events: ``profile_window_start`` / ``profile_window_stop``; a profiler
+    that fails to start or stop emits ``profile_window_failed`` and the
+    window closes — a broken profiler never stops the run it observes.
+    """
+
+    def __init__(self, logdir: str, trace_steps: Tuple[int, int] = (2, 4)
+                 ) -> None:
+        first, last = int(trace_steps[0]), int(trace_steps[1])
+        if last < first:
+            raise ValueError(f"trace_steps last < first: {trace_steps}")
+        self.logdir = logdir
+        self.first, self.last = first, last
+        self.active = False
+        self.done = False
+        self.trace_file: Optional[str] = None
+        self.kernels: List[str] = []
+        self._prof = None
+
+    def on_step_start(self, step: int) -> None:
+        if self.done or self.active or step < self.first or step > self.last:
+            return
+        from .events import emit_event
+
+        try:
+            import torch
+
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=acts)
+            prof.__enter__()
+        except Exception as e:
+            self.done = True
+            emit_event("profile_window_failed", step=int(step),
+                       stage="start", error=repr(e))
+            return
+        self._prof = prof
+        self.active = True
+        emit_event("profile_window_start", step=int(step), logdir=self.logdir)
+
+    def on_step_end(self, step: int) -> None:
+        if not self.active or step < self.last:
+            return
+        from .events import emit_event
+
+        prof, self._prof = self._prof, None
+        self.active = False
+        self.done = True
+        try:
+            import torch
+
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            prof.__exit__(None, None, None)
+            os.makedirs(self.logdir, exist_ok=True)
+            path = os.path.join(self.logdir,
+                                f"steps_{self.first}_{self.last}.json")
+            prof.export_chrome_trace(path)
+            cuda = torch.autograd.DeviceType.CUDA
+            self.kernels = sorted({e.name for e in prof.events()
+                                   if e.device_type == cuda})
+        except Exception as e:
+            emit_event("profile_window_failed", step=int(step), stage="stop",
+                       error=repr(e))
+            return
+        self.trace_file = path
+        emit_event("profile_window_stop", step=int(step), logdir=self.logdir,
+                   trace_file=path, n_kernels=len(self.kernels))
+
+    def close(self) -> None:
+        """Stop an open capture (the run ended inside the window)."""
+        if self.active:
+            self.on_step_end(self.last)

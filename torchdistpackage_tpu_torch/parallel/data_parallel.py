@@ -63,7 +63,12 @@ from ..dist.topology import (
     ParallelContext,
     tpc,
 )
-from ..obs.numerics import global_grad_norm, tree_leaves
+from ..obs.numerics import (
+    add_update_stats,
+    global_grad_norm,
+    numerics_stats,
+    tree_leaves,
+)
 from ..utils.data import microbatch
 from ..utils.data import shard_batch as _shard_batch
 from ..utils.partition import named_leaves
@@ -148,7 +153,13 @@ def _update(params, opt_state: torch.optim.AdamW, loss: torch.Tensor,
     (``clip``: its ``max_norm``) and one AdamW update.  Under tensor
     parallelism the norms are the whole model's: the split leaves'
     squares summed over the tensor group; pipelined (``pipe``:
-    :func:`pipe_of`), the stage slabs' over the pipe group."""
+    :func:`pipe_of`), the stage slabs' over the pipe group.
+
+    ``numerics``: ``obs.numerics.numerics_stats`` over the grads before
+    the clip, the params before the update and the update, as the
+    reference's step (JAX :559-562).  AdamW updates in place, so the
+    update is ``p_after - p_before`` from an f32 copy of every leaf taken
+    before the step (the leaf's rounded change, for a bf16 leaf)."""
     leaves = list(tree_leaves(params))
     grads = [p.grad for p in leaves]
     groups = _norm_groups(tp, pipe, len(leaves))
@@ -157,28 +168,28 @@ def _update(params, opt_state: torch.optim.AdamW, loss: torch.Tensor,
         # optax decays every leaf
         raise RuntimeError("a parameter leaf got no gradient")
     with torch.no_grad():
-        if groups is None:
+        if numerics:
+            before = [p.detach().to(torch.float32, copy=True) for p in leaves]
+            stats = numerics_stats(_unflatten_like(params, iter(grads)),
+                                   params=_unflatten_like(params,
+                                                          iter(before)),
+                                   groups=groups)
+            gnorm = stats["grad_norm"]
+        elif groups is None:
             gnorm = global_grad_norm(grads)
-            if numerics:
-                stats = {
-                    "grad_norm": gnorm,
-                    "param_norm": global_grad_norm(
-                        [p.detach() for p in leaves]),
-                    "nonfinite_grads": sum(
-                        (~torch.isfinite(g)).sum() for g in grads),
-                }
         else:
-            g = _norms(grads, groups)
-            gnorm = torch.sqrt(g[0]).float()
-            if numerics:
-                stats = {"grad_norm": gnorm,
-                         "param_norm": torch.sqrt(_norms(
-                             [p.detach() for p in leaves], groups)[0]).float(),
-                         "nonfinite_grads": g[1].long()}
+            gnorm = torch.sqrt(_norms(grads, groups)[0]).float()
         if clip is not None:
             scale_(grads, clip_scale(gnorm, clip))
     opt_state.step()
-    return params, opt_state, loss.detach(), stats if numerics else gnorm
+    if not numerics:
+        return params, opt_state, loss.detach(), gnorm
+    with torch.no_grad():
+        for b, p in zip(before, leaves):
+            b.neg_().add_(p)  # p_after - p_before, in place on the copy
+        add_update_stats(stats, _unflatten_like(params, iter(before)),
+                         groups=groups)
+    return params, opt_state, loss.detach(), stats
 
 
 def make_train_step(loss_fn: Callable[[Dict[str, Any], Dict[str, Any]],
@@ -205,8 +216,11 @@ def make_train_step(loss_fn: Callable[[Dict[str, Any], Dict[str, Any]],
     returned ``params`` is the same dict, its leaves updated, and the
     optimizer's moments live in ``opt_state``.  ``loss`` and ``gnorm`` are
     0-dim tensors on the device (reading them syncs).  ``numerics=True``
-    returns a dict instead of ``gnorm``: ``grad_norm``, ``param_norm``
-    (before the update) and ``nonfinite_grads``."""
+    returns the reference's whole ``obs.numerics.numerics_stats`` dict
+    instead of ``gnorm`` (norms of the grads, the params before the update
+    and the update, ``update_ratio``, ``nonfinite_grads``, the three
+    low-precision fractions and the per-group ``groups``); it holds an
+    f32 copy of the params through the update."""
     clip = clip_of(optimizer)
     if param_specs is not None and tp_group is None:
         tp_group = tpc.get_group(TENSOR_AXIS)

@@ -46,6 +46,7 @@ from .pipeline_sched import (
     _group,
     _make_stage,
     _run_stage,
+    num_stages,
     _Stage,
     _take,
     _transfer_of,
@@ -142,8 +143,26 @@ def pipeline_zb_1f1b(params, inputs, targets, first_fn: Callable,
     contract and arguments (no ``num_chunks``, no ``stage_returns_aux``,
     as in the JAX package).  ``last_stats['max_in_flight']`` counts the
     queued ``(x, g, dx)`` units (at most M: every wgrad waits for the
-    drain)."""
+    drain).
+
+    Emits ``zb_wgrad_deferred`` and ``zb_cooldown_filled`` with the
+    reference's fields (JAX :148-160) once a call: the reference emits
+    them once a trace, and the eager port has no trace."""
+    from ...obs.aggregate import pipeline_bubble_fraction
+    from ...obs.events import emit_event
+
     group = _group(pipe_axis, pipe_group)
+    M, P = num_microbatches, num_stages(pipe_axis, group)
+    T1, T2 = zb_schedule_ticks(M, P)
+    emit_event(
+        "zb_wgrad_deferred", units=M, pipe_size=P, queue_slots=M,
+        note="wgrad work items (x, g, dx) queued per microbatch at trace "
+             "time; executed in the drain scan")
+    emit_event(
+        "zb_cooldown_filled", main_ticks=T1, wgrad_ticks=T2, pipe_size=P,
+        num_microbatches=M,
+        bubble_fraction=pipeline_bubble_fraction(M, P, schedule="zb"),
+        bubble_fraction_1f1b=pipeline_bubble_fraction(M, P, schedule="1f1b"))
     if stage_takes_mb:
         call_stage = lambda p, x, m, v: stage_fn(p, x, m)  # noqa: E731
     else:
