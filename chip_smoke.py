@@ -138,7 +138,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    the fused regions; ``ring_ag_matmul`` / ``ring_matmul_rs`` are proven
    by the gloo tests alone): every step's loss within 1e-3 relative of the serial step's, K3-K5 once a
    layer a step, each region's collectives exactly as many as a step
-   runs (``tp_collectives``), the step medians beside the serial one.
+   runs (``tp_collectives``), the step medians beside the serial one;
+   then 3 SP steps under ``Telemetry`` with the comm ledger on
+   (``tp_ledger_check``): the recorded ledger's op counts by region
+   equal the ``COLLECTIVES`` deltas, its ``tp`` bytes the count derived
+   from the layer structure, K3-K5 12 a step, the losses bit-identical
+   to the same steps without ``Telemetry``, and the recorder's cost on
+   a steady step.
    Then the sharded training state (``zero_fsdp_phase``): a one-rank
    NCCL group as ``tpc``'s ``data`` axis, the GPT-125M run through
    ``make_train_step`` (11 steps) and through ``ZeroOptimizer`` (bf16
@@ -155,6 +161,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    to ``make_train_step``'s), and ``prefetched_layer_scan`` over the 12
    blocks with prefetch on and off (bit-identical); K3-K5 once a layer a
    step on every run; step medians, peaks and collectives a step.
+   Then the compressed collectives (``compress_phase``); in (b), two
+   processes over gloo, each arm runs under ``Telemetry`` with the comm
+   ledger on and writes its RUNREPORT: the recorded step's ledger bytes
+   on the arm's axis equal ``staged_prediction(ledger=True)``'s count,
+   every report validates, the port's ``parity_diff`` on each exact /
+   int8 pair exits 0 with ``bounded`` and the per-axis bytes at the
+   counts, ``'auto'``'s ``compression_report`` is printed, and a ring
+   shift without its ledger note (planted) must miss the count.
    Then the pipeline (``pipeline_phase``): (a) over a one-rank NCCL data
    1 x pipe 1 layout, ``gpt_pipeline_1f1b`` at M 4 against
    ``local_value_and_grad(gpt_loss, grad_accum_iters=4)`` (loss within
@@ -5810,7 +5824,11 @@ def tp_train_phase(card):
     base = dp_train_run(cfg, rows, steps)
     base_ms = median_ms(base["times"], warm)
     out = {"serial_ms": base_ms, "losses": base["losses"]}
-    with tensor_group("tp-train") as group:
+    # a layout of the tensor axis alone: the comm ledger names the group
+    # 'tensor' (a one-rank group that also served 'data' would be named by
+    # both, dimension 'other')
+    with one_rank_layout("tp-train", [("tensor", 1)]) as ctx:
+        group = ctx.get_group("tensor")
         for sp in (False, True):
             tcfg = dataclasses.replace(cfg, collective_matmul=sp)
             run = dp_train_run(tcfg, rows, steps, tp_group=group, sp=sp)
@@ -5848,9 +5866,146 @@ def tp_train_phase(card):
                 "param_diff": dp, "launches": run["launches"],
                 "collectives": got}
             del run
+        out["ledger"] = tp_ledger_check(cfg, rows, group, card,
+                                        out["sp"]["losses"])
     del base
     torch.cuda.empty_cache()
     return out
+
+
+TP_LEDGER_STEPS = 3   # tp_train_phase's steps under Telemetry
+TP_RECORDER_REPEATS = 3  # steady steps timed with and without a recorder
+
+
+def tp_ledger_check(cfg, rows, group, card, plain_losses):
+    """The SP training step of :func:`tp_train_phase` under ``Telemetry``
+    with the comm ledger on: 3 steps from the same init seed and batch.
+    Gates: the ledger's op counts by ``op_name`` equal the
+    ``tp_utils.COLLECTIVES`` deltas over the recorded (first) call; its
+    ``tp`` bytes equal the count derived from the layer structure before
+    the run (:func:`staged_prediction`'s ledger count at one rank: each
+    of the step's ``11 L + 4`` SP boundaries moves one ``[B, S, D]`` bf16
+    activation, plus the loss's reductions, the SP partial sums and the
+    norm); K3-K5 launch once a layer a step; the 3 losses bit-identical
+    to the first 3 of the same steps without ``Telemetry``
+    (``plain_losses``); the RUNREPORT validates.  Then the recorder's
+    cost: steady steps timed alternately with and without a
+    ``CommRecorder`` around them (medians)."""
+    from collections import Counter
+
+    from torchdistpackage_tpu_torch.models import gpt_loss, init_gpt_params
+    from torchdistpackage_tpu_torch.models.gpt import (
+        gpt_param_specs,
+        shard_gpt_params,
+    )
+    from torchdistpackage_tpu_torch.obs import (
+        Telemetry,
+        render_table,
+        validate_runreport,
+    )
+    from torchdistpackage_tpu_torch.obs.comm_ledger import CommRecorder
+    from torchdistpackage_tpu_torch.obs.events import set_default_event_log
+    from torchdistpackage_tpu_torch.ops import flash_attention as fa
+    from torchdistpackage_tpu_torch.parallel.data_parallel import (
+        adamw,
+        make_train_step,
+    )
+    from torchdistpackage_tpu_torch.parallel.tensor_parallel import (
+        COLLECTIVES,
+    )
+
+    tag, L, steps = "[tp-train] ledger", cfg.nlayers, TP_LEDGER_STEPS
+    tcfg = dataclasses.replace(cfg, collective_matmul=True)
+    want_bytes = staged_prediction(cfg, rows, 1, ledger=True)[0]["tp"]
+    act = rows * cfg.max_seq * cfg.dim * 2
+    log(f"{tag} predicted tp bytes of one SP step at one rank, before the "
+        f"run: {want_bytes} ({11 * L + 4} boundaries x {act} B = "
+        f"{(11 * L + 4) * act} B, the rest the loss's reductions, the SP "
+        f"partial sums and the norm)")
+    params = shard_gpt_params(init_gpt_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0)), cfg, 0, 1)
+    opt = adamw(3e-4)
+    state = opt.init(params)
+    tel = Telemetry(run="tp-train-ledger", report_path="", trace_path="",
+                    tokens_per_step=rows * cfg.max_seq,
+                    flops_per_token=6 * matmul_params(params)
+                    + 12 * L * cfg.max_seq * cfg.dim)
+    plain = make_train_step(
+        lambda p, b: gpt_loss(p, b, tcfg, remat="flash", tp_group=group,
+                              sp=True), opt,
+        param_specs=gpt_param_specs(params), sp=True, tp_group=group)
+    step = tel.wrap_step(plain)
+    batch = random_batch(cfg, rows, 1)
+    torch.cuda.synchronize()
+    reset_counts()
+    losses, deltas = [], None
+    for i in range(steps):
+        before = dict(COLLECTIVES)
+        params, state, loss, gnorm = step(params, state, batch)
+        if deltas is None:
+            deltas = {k: v - before[k] for k, v in COLLECTIVES.items()
+                      if v != before[k]}
+        tel.end_step(step=i, loss=loss, numerics={"grad_norm": gnorm})
+        losses.append(float(loss))
+    launches = dict(fa.LAUNCHES)
+    rep = tel.finalize(print_summary=False)
+    set_default_event_log(None)
+    led = tel.comm_ledger
+    by_name = dict(Counter(c["op_name"] for c in led["collectives"]
+                           if c["op_name"] is not None))
+    tp_bytes = led["per_dim"].get("tp", {}).get("bytes")
+    errs = validate_runreport(rep)
+    same = losses == plain_losses[:steps]
+    log(f"{tag} GPT-125M SP step over the one-rank NCCL tensor group, "
+        f"{steps} steps under Telemetry: the recorded call's ledger:\n"
+        + render_table(led))
+    log(f"{tag} ops by op_name {by_name}, COLLECTIVES deltas over the "
+        f"recorded call {deltas}; tp bytes {tp_bytes} (predicted "
+        f"{want_bytes}); K3-K5 {launches} ({L} a step expected); losses "
+        + ", ".join(f"{v:.6f}" for v in losses)
+        + f" bit-identical to the steps without Telemetry: {same}; comm "
+        f"verdict {rep['comm'].get('verdict')!r} "
+        f"({rep['comm'].get('verdict_basis')}), modeled comm "
+        f"{rep['comm'].get('modeled_comm_s')} s of a measured "
+        f"{rep['comm'].get('measured_step_s')} s step; RUNREPORT validates: "
+        f"{not errs} {errs[:3]} — on {card}")
+    bad = []
+    if by_name != deltas:
+        bad.append("op counts by op_name differ from COLLECTIVES")
+    if tp_bytes != want_bytes or set(led["per_dim"]) != {"tp"}:
+        bad.append(f"tp bytes {led['per_dim']} != {want_bytes}")
+    if any(n != L * steps for n in launches.values()):
+        bad.append(f"launches {launches}")
+    if not same:
+        bad.append("losses differ from the steps without Telemetry")
+    if errs:
+        bad.append(f"the RUNREPORT does not validate: {errs[:3]}")
+    # the recorder's cost on a steady step
+    plain_t, rec_t = [], []
+    for _ in range(TP_RECORDER_REPEATS):
+        for arm in (plain_t, rec_t):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if arm is rec_t:
+                with CommRecorder():
+                    params, state, loss, _ = plain(params, state, batch)
+            else:
+                params, state, loss, _ = plain(params, state, batch)
+            float(loss)
+            arm.append(time.perf_counter() - t0)
+    cost = (np.median(rec_t) - np.median(plain_t)) * 1e3
+    log(f"{tag} the recorder's cost on a steady step: median "
+        f"{np.median(rec_t) * 1e3:.3f} ms recorded against "
+        f"{np.median(plain_t) * 1e3:.3f} ms without ({cost:+.3f} ms, "
+        f"{led['n_collectives']} notes), {TP_RECORDER_REPEATS} steps each, "
+        f"alternating — on {card}")
+    del params, state
+    if bad:
+        raise RuntimeError("TP train ledger: " + "; ".join(bad))
+    return {"losses": losses, "tp_bytes": tp_bytes, "predicted": want_bytes,
+            "ops_by_name": by_name, "verdict": rep["comm"].get("verdict"),
+            "recorder_ms": cost, "plain_ms": float(np.median(plain_t) * 1e3),
+            "recorded_ms": float(np.median(rec_t) * 1e3)}
 
 
 # ------------------------------------------------ the sharded training state
@@ -8263,12 +8418,20 @@ def compress_arm(cfg, kind, opts, tp_group=None):
 
 
 def compress_run(cfg, kind, opts, batch, steps, tp_group=None,
-                 keep_grads=False):
+                 keep_grads=False, report_path=None, flops_per_token=None):
     """``steps`` steps of :func:`compress_arm` on ``batch``; the kernels'
     counts, the collectives and ``HOST_STAGING`` set to 0 just before the
     steps and read just after.  Returns the losses, host-clock times,
     K3-K5 launches and host-staged bytes a step, step 1's reduced grads
-    (f32 copies, ``keep_grads``) and the state."""
+    (f32 copies, ``keep_grads``) and the state.  ``report_path``: the
+    step runs under ``Telemetry`` (the comm ledger on: the first call
+    recorded), each step's loss and grad norm handed to ``end_step``,
+    ``flops_per_token`` the rank's hand formula; the RUNREPORT goes to
+    ``report_path`` (written by process 0), and the run also returns the
+    ledger's bytes by axis (``ledger_axes``), the comm section's verdict
+    and the ``compress_policy`` events."""
+    from torchdistpackage_tpu_torch.obs import Telemetry
+    from torchdistpackage_tpu_torch.obs.events import set_default_event_log
     from torchdistpackage_tpu_torch.ops import flash_attention as fa
     from torchdistpackage_tpu_torch.parallel.tensor_parallel import (
         COLLECTIVES,
@@ -8277,7 +8440,15 @@ def compress_run(cfg, kind, opts, batch, steps, tp_group=None,
         HOST_STAGING,
     )
 
+    tel = None
+    if report_path is not None:
+        tel = Telemetry(run=Path(report_path).stem, report_path=report_path,
+                        trace_path="", tokens_per_step=batch[
+                            "tokens"].numel(),
+                        flops_per_token=flops_per_token)
     params, state, step, grads = compress_arm(cfg, kind, opts, tp_group)
+    if tel is not None:
+        step = tel.wrap_step(step)
     torch.cuda.synchronize()
     reset_counts()
     for d in (COLLECTIVES, HOST_STAGING):
@@ -8287,18 +8458,31 @@ def compress_run(cfg, kind, opts, batch, steps, tp_group=None,
     for i in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        params, state, loss, _ = step(params, state, batch)
+        params, state, loss, aux = step(params, state, batch)
+        if tel is not None:
+            tel.end_step(step=i, loss=loss, numerics={"grad_norm": aux})
         losses.append(float(loss))  # reads back: waits for the step
         times.append(time.perf_counter() - t0)
         if i == 0 and keep_grads:
             first = [(name, g.detach().float().clone())
                      for name, g in grads(params, state)]
-    return {"losses": losses, "times": times,
-            "launches": {k: v / steps for k, v in fa.LAUNCHES.items()},
-            "staged": HOST_STAGING["host_copy_bytes"] / steps,
-            "collectives": {k: v // steps for k, v in COLLECTIVES.items()
-                            if v},
-            "grads": first, "params": params, "state": state}
+    out = {"losses": losses, "times": times,
+           "launches": {k: v / steps for k, v in fa.LAUNCHES.items()},
+           "staged": HOST_STAGING["host_copy_bytes"] / steps,
+           "collectives": {k: v // steps for k, v in COLLECTIVES.items()
+                           if v},
+           "grads": first, "params": params, "state": state}
+    if tel is not None:
+        rep = tel.finalize(print_summary=False)
+        axes = {}
+        for c in tel.comm_ledger["collectives"]:
+            key = "+".join(c["axes"]) or "?"
+            axes[key] = axes.get(key, 0) + c["bytes"]
+        out.update(ledger_axes=axes, verdict=rep["comm"].get("verdict"),
+                   policy=tel.events.of_kind("compress_policy"),
+                   ledger=tel.comm_ledger)
+        set_default_event_log(None)
+    return out
 
 
 def int8_payload(c):
@@ -8309,9 +8493,13 @@ def int8_payload(c):
     return c + 4 * (c // _group_size(c))
 
 
-def staged_prediction(cfg, rows, n):
+def staged_prediction(cfg, rows, n, ledger=False):
     """(b)'s host-staged bytes a step and rank, by arm, from the leaves'
-    shapes and the staging rules of ``tp_utils``: each copy to the host
+    shapes and the staging rules of ``tp_utils`` — or, with ``ledger``,
+    the bytes the comm ledger (``obs.comm_ledger``) counts on the arm's
+    one axis, by its payload rule: an all-reduce or a reduce-scatter its
+    whole payload P, an all-gather the group's n shards, a ring hop its
+    chunk (each counted once).  The staging rules: each copy to the host
     and back counted, so an all-reduce of P bytes stages 2P, an
     all-gather of this rank's b bytes (n + 1) b, a reduce-scatter of P
     (1 + 1/n) P, a ring hop of b 2b; an int8 payload of c elements is
@@ -8356,15 +8544,23 @@ def staged_prediction(cfg, rows, n):
         if s == PARTIAL_UNDER_SP)
     del params, tp_shard
     q = int8_payload
-    ar = lambda b: 2 * b  # noqa: E731
-    ag = lambda b: (n + 1) * b  # noqa: E731
-    rs = lambda b: b + b // n  # noqa: E731
+    if ledger:
+        ar = lambda b: b  # noqa: E731
+        ag = lambda b: n * b  # noqa: E731
+        rs = lambda b: b  # noqa: E731
+        hop = lambda b: b  # noqa: E731
+    else:
+        ar = lambda b: 2 * b  # noqa: E731
+        ag = lambda b: (n + 1) * b  # noqa: E731
+        rs = lambda b: b + b // n  # noqa: E731
+        hop = lambda b: 2 * b  # noqa: E731
     loss, norm = ar(4), ar(16)  # the f32 loss's and the norm's all-reduces
     big = [(E, zero_partition_spec(s, None, n)) for _, s, E in leaves]
     thr = 65536
 
-    def pmean8(E):
-        return (3 * n - 1) * q(E // n) if E % n == 0 else ar(2 * E)
+    def pmean8(E):  # n - 1 hops, then the gather of the finished chunks
+        return ((n - 1) * hop(q(E // n)) + ag(q(E // n)) if E % n == 0
+                else ar(2 * E))
 
     out = {"dp": sum(ar(2 * E) for E, _ in big) + loss}
     out["dp_int8"] = sum(pmean8(E) if E >= thr else ar(2 * E)
@@ -8373,23 +8569,23 @@ def staged_prediction(cfg, rows, n):
                for E, d in big) + loss + norm
     out["zero"] = zero
     comp = [(E, d) for E, d in big if d >= 0 and E >= thr]
-    out["zero_int8"] = zero - sum(rs(4 * E) - 2 * (n - 1) * q(E // n)
+    out["zero_int8"] = zero - sum(rs(4 * E) - (n - 1) * hop(q(E // n))
                                   for E, _ in comp)
     out["zero_int8_ef"] = out["zero_int8"]
     out["zero_int8_gather"] = out["zero_int8"] - sum(
-        ag(2 * E // n) - (n + 1) * q(E // n) for E, _ in comp)
+        ag(2 * E // n) - ag(q(E // n)) for E, _ in comp)
     fsdp = sum(ag(2 * E // n) + rs(2 * E) if d >= 0 else ar(2 * E)
                for E, d in big) + loss + norm
     out["fsdp"] = fsdp
     out["fsdp_int8"] = fsdp - sum(
-        ag(2 * E // n) + rs(2 * E) - ag(q(E // n)) - 2 * (n - 1) * q(E // n)
+        ag(2 * E // n) + rs(2 * E) - ag(q(E // n)) - (n - 1) * hop(q(E // n))
         for E, _ in comp)
     B, S, D, L = rows, cfg.max_seq, cfg.dim, cfg.nlayers
     F, X = B * S * D, B * S * D // n
     edge = ar(2 * F) + ag(2 * X) + ag(2 * X) + rs(2 * F) \
         + ar(4 * B * S) + ar(8 * B * S) + ar(2 * partial) + norm
     out["tp"] = edge + 11 * L * ag(2 * X)
-    out["tp_int8"] = edge + L * (6 * ag(q(X)) + 5 * 2 * (n - 1) * q(X))
+    out["tp_int8"] = edge + L * (6 * ag(q(X)) + 5 * (n - 1) * hop(q(X)))
     model = {
         "dp_int8": sum((compressed_wire_bytes("all_reduce", 2 * E, n, 2)
                         if E >= thr else wire_bytes("all_reduce", 2 * E, n))
@@ -8398,7 +8594,7 @@ def staged_prediction(cfg, rows, n):
         "zero_int8": sum(compressed_wire_bytes("reduce_scatter", 4 * E, n)
                          for E, _ in comp)
         / sum(wire_bytes("reduce_scatter", 4 * E, n) for E, _ in comp),
-    }
+    } if n > 1 else {}
     return out, model
 
 
@@ -8565,6 +8761,22 @@ def faulty_ring(module):
     return ns["_ring_reduce_scatter"]
 
 
+def unnoted_shift(module):
+    """``tp_utils._shift`` with its comm-ledger ``note`` taken out (a
+    planted fault: the ring hops then bypass the ledger), built from the
+    module's own source."""
+    import inspect
+    import textwrap
+
+    src = textwrap.dedent(inspect.getsource(module._shift))
+    line = '    note("collective-permute", x, group, name)\n'
+    if line not in src:
+        raise RuntimeError("_shift's source changed: no note line")
+    ns = dict(vars(module))
+    exec(src.replace(line, ""), ns)
+    return ns["_shift"]
+
+
 def compress_rank(rank, world, port, tmp):
     """One rank of :func:`compress_phase` (b) in its own process: a gloo
     group on the loopback (NCCL puts no two ranks of a communicator on
@@ -8593,6 +8805,12 @@ def compress_rank(rank, world, port, tmp):
     try:
         _build.load_all(["flash_attention"])
         cfg = gpt_125m()
+        from torchdistpackage_tpu_torch.models import init_gpt_params
+
+        # the hand formula a rank (a TP rank does 1/n of it)
+        fpt = 6 * matmul_params(init_gpt_params(cfg, torch.Generator(
+            device="cuda").manual_seed(0))) + 12 * cfg.nlayers * \
+            cfg.max_seq * cfg.dim
         full = random_batch(cfg, COMPRESS_ROWS * world, 1)
         own = {k: v[rank * COMPRESS_ROWS:(rank + 1) * COMPRESS_ROWS]
                .contiguous() for k, v in full.items()}
@@ -8608,9 +8826,13 @@ def compress_rank(rank, world, port, tmp):
                 run = compress_run(cfg, kind, opts,
                                    same if kind == "tp" else own,
                                    COMPRESS_STEPS, tp_group=group,
-                                   keep_grads=True)
+                                   keep_grads=True,
+                                   report_path=str(Path(tmp) / f"{name}.json"),
+                                   flops_per_token=fpt / (
+                                       world if kind == "tp" else 1))
                 row = {k: run[k] for k in ("losses", "times", "launches",
-                                           "staged", "collectives")}
+                                           "staged", "collectives",
+                                           "ledger_axes", "verdict")}
                 if name in COMPRESS_EXACT:
                     row["worst"] = worst_leaf(
                         run["grads"], exact_grads[COMPRESS_EXACT[name]])
@@ -8622,6 +8844,44 @@ def compress_rank(rank, world, port, tmp):
                 gc.collect()
                 torch.cuda.empty_cache()
             if layout == "data":
+                # 'auto': the policy's predicted ledger bytes against the
+                # ledger's (compression_report)
+                from torchdistpackage_tpu_torch.obs.comm_model import (
+                    compression_report,
+                )
+
+                run = compress_run(cfg, "dp", {"grad_compress": "auto"}, own,
+                                   COMPRESS_STEPS, report_path=str(
+                                       Path(tmp) / "dp_auto.json"),
+                                   flops_per_token=fpt)
+                res["auto"] = {
+                    "ledger_axes": run["ledger_axes"],
+                    "losses": run["losses"],
+                    "report": compression_report(
+                        "auto", run["policy"], run["ledger"])}
+                del run
+                # the planted fault: the ring shift's note taken out (the
+                # int8 hops); the ledger's bytes must miss the prediction
+                from torchdistpackage_tpu_torch.obs.comm_ledger import (
+                    CommRecorder,
+                )
+                from torchdistpackage_tpu_torch.parallel.tensor_parallel import (  # noqa: E501
+                    tp_utils,
+                )
+
+                real_shift = tp_utils._shift
+                tp_utils._shift = unnoted_shift(tp_utils)
+                try:
+                    params, state, step, _ = compress_arm(
+                        cfg, "zero", COMPRESS_ARMS["zero_int8"][1])
+                    with CommRecorder() as rec:
+                        step(params, state, own)
+                finally:
+                    tp_utils._shift = real_shift
+                res["note_fault"] = rec.ledger()["per_dim"]
+                del params, state, step
+                gc.collect()
+                torch.cuda.empty_cache()
                 # the planted fault: the ring adds the wrong chunk, under
                 # ZeRO's reduce-to-owner and FSDP's int8 gather's backward
                 real = C._ring_reduce_scatter
@@ -8666,8 +8926,15 @@ def compress_two_ranks(card, timeout=900):
 
     cfg, n, tag = gpt_125m(), COMPRESS_RANKS, "[compress] (b)"
     pred, model = staged_prediction(cfg, COMPRESS_ROWS, n)
+    pred_ledger, _ = staged_prediction(cfg, COMPRESS_ROWS, n, ledger=True)
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"{tag} predicted comm-ledger bytes a step and rank on the arm's "
+        f"axis, before the run (staged_prediction(ledger=True)): "
+        + ", ".join(f"{k} {v}" for k, v in pred_ledger.items())
+        + "; exact / compressed: "
+        + ", ".join(f"{k} {pred_ledger[e] / pred_ledger[k]:.4f}"
+                    for k, e in COMPRESS_EXACT.items()))
     log(f"{tag} predicted host-staged bytes a step and rank, before the "
         f"run (staged_prediction): "
         + ", ".join(f"{k} {v}" for k, v in pred.items())
@@ -8699,10 +8966,15 @@ def compress_two_ranks(card, timeout=900):
             raise RuntimeError(f"compress (b): ranks exited {codes}")
         res = [json.loads((tmp / f"rank{r}.json").read_text())
                for r in range(n)]
+        reports = Path(tempfile.mkdtemp(prefix="compress-reports-"))
+        for f in tmp.glob("*.json"):
+            if not f.name.startswith("rank"):
+                shutil.copy(f, reports / f.name)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     seconds = time.perf_counter() - t0
-    bad, out = [], {"predicted": pred, "model_ratio": model, "arms": {}}
+    bad, out = [], {"predicted": pred, "model_ratio": model, "arms": {},
+                    "ledger_predicted": pred_ledger}
     L = cfg.nlayers
     for name, (kind, _) in COMPRESS_ARMS.items():
         rows = [r["arms"][name] for r in res]
@@ -8758,6 +9030,7 @@ def compress_two_ranks(card, timeout=900):
         if not ok:
             bad.append(f"(b) {name}: off")
         out["arms"][name] = row_out
+    bad += comm_report_gates(res, reports, pred_ledger, card, tag, out)
     out["fault_grad_gap"] = {}
     for kind, tol in FAULT_ARMS.items():
         fault = max(r["fault"][kind]["gap"] for r in res)
@@ -8792,6 +9065,85 @@ def compress_two_ranks(card, timeout=900):
     log(f"{tag} two processes on one card: {seconds:.1f} s with both "
         f"processes' start")
     return out, bad
+
+
+def comm_report_gates(res, reports, pred_ledger, card, tag, out):
+    """(b)'s comm reports, read: each arm's ledger bytes on its axis
+    against :func:`staged_prediction`'s ledger count on every rank, each
+    RUNREPORT through ``validate_runreport``, the port's ``parity_diff``
+    on each (exact, int8) pair (exit 0, ``bounded``, the per-axis bytes
+    at the counts), ``'auto'``'s ``compression_report``, and the planted
+    fault (the ring shift's note taken out) missing the count.  Returns
+    the failed gates."""
+    import contextlib
+    import io
+
+    from torchdistpackage_tpu_torch.obs import validate_runreport
+    from torchdistpackage_tpu_torch.tools import parity_diff
+
+    bad = []
+    for name, (kind, _) in COMPRESS_ARMS.items():
+        axis = "tensor" if kind == "tp" else "data"
+        got = [r["arms"][name]["ledger_axes"] for r in res]
+        rep = json.loads((reports / f"{name}.json").read_text())
+        errs = validate_runreport(rep)
+        ok = all(g == {axis: pred_ledger[name]} for g in got) and not errs
+        log(f"{tag} {name}: comm ledger of the recorded step by rank "
+            f"{got} (predicted {{{axis!r}: {pred_ledger[name]}}}), comm "
+            f"verdict {res[0]['arms'][name]['verdict']!r}, RUNREPORT "
+            f"{reports / (name + '.json')} validates: {not errs} "
+            f"{errs[:3]} — on {card}")
+        if not ok:
+            bad.append(f"(b) {name}: ledger bytes or report off")
+        out["arms"].setdefault(name, {})["ledger_axes"] = got[0]
+    out["parity"] = {}
+    for name, exact in COMPRESS_EXACT.items():
+        axis = "tensor" if COMPRESS_ARMS[name][0] == "tp" else "data"
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = parity_diff.main([str(reports / f"{exact}.json"),
+                                   str(reports / f"{name}.json"),
+                                   "--label-a", exact, "--label-b", name])
+        line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        cab = (line.get("comm_axis_bytes") or {}).get(axis, {})
+        want = round(pred_ledger[exact] / pred_ledger[name], 3)
+        ok = (rc == 0 and line["verdict"] == "bounded"
+              and cab.get("a") == pred_ledger[exact]
+              and cab.get("b") == pred_ledger[name]
+              and cab.get("ratio") == want)
+        log(f"{tag} parity_diff {exact} -> {name}: exit {rc}, verdict "
+            f"{line['verdict']!r}, max relative loss delta "
+            f"{line['max_rel_delta']:.3e}, {axis} bytes {cab} (the derived "
+            f"counts {pred_ledger[exact]} -> {pred_ledger[name]}, ratio "
+            f"{want})")
+        if not ok:
+            bad.append(f"(b) parity_diff {exact} -> {name}")
+        out["parity"][name] = {"rc": rc, "verdict": line["verdict"],
+                               "comm_axis_bytes": cab}
+    rows = [r["auto"]["report"]["per_axis"] for r in res]
+    rep = json.loads((reports / "dp_auto.json").read_text())
+    pol = res[0]["auto"]["report"]["policy"]
+    ok = all(row["measured_bytes"] - row["predicted_bytes"] == 4
+             for rs_ in rows for row in rs_) and not validate_runreport(rep)
+    log(f"{tag} dp_auto: compression_report over the recorded step by "
+        f"rank {rows} ({pol['n_compressed']} of {pol['n_leaves']} leaves "
+        f"compressed; measured - predicted must be the loss's 4-byte "
+        f"all-reduce); ledger {res[0]['auto']['ledger_axes']}; losses "
+        + ", ".join(f"{v:.6f}" for v in res[0]["auto"]["losses"])
+        + f" — on {card}")
+    if not ok:
+        bad.append("(b) dp_auto: compression_report off")
+    out["auto"] = {"per_axis": rows[0], "n_compressed": pol["n_compressed"]}
+    fault = [r["note_fault"].get("dp", {}).get("bytes") for r in res]
+    caught = all(b != pred_ledger["zero_int8"] for b in fault)
+    log(f"{tag} planted fault: tp_utils._shift without its note (the int8 "
+        f"hops bypass the ledger), zero 'int8' one step: data bytes by rank "
+        f"{fault} against {pred_ledger['zero_int8']} — "
+        f"{'caught' if caught else 'NOT caught'} by the bytes gate")
+    if not caught:
+        bad.append("(b) the unnoted shift passed the bytes gate")
+    out["note_fault_bytes"] = fault
+    return bad
 
 
 def compress_phase(card):

@@ -18,6 +18,8 @@ import pytest
 import torch
 
 from torchdistpackage_tpu.obs import aggregate as jagg
+from torchdistpackage_tpu.obs import comm_ledger as jcl
+from torchdistpackage_tpu.obs import comm_model as jcm
 from torchdistpackage_tpu.obs import exporters as jexp
 from torchdistpackage_tpu.obs import numerics as jnum
 from torchdistpackage_tpu.obs import report as jrep
@@ -225,7 +227,18 @@ def test_wrap_step_spans_and_compile_events(tmp_path):
     assert rep["backend"] == "cpu" and rep["steps"] == 6
     assert rep["step_time_s"]["n"] == 4  # the first and recompiled out
     assert set(rep["mfu"]) == {"formula_flops_per_step", "formula"}
-    assert rep["comm"] == {} and rep["memory"]["programs"] == []
+    # JAX's comm section of the same step: a ledger of 0 collectives, 0 s
+    # modeled, compute-bound against the step's FLOPs
+    jcomm = jcm.comm_report(jcl.ledger_from_hlo(""),
+                            rep["step_time_s"]["mean"],
+                            xla_flops=rep["mfu"]["formula_flops_per_step"],
+                            peak_flops=1e12)
+    assert rep["comm"]["ledger"]["n_collectives"] == 0
+    assert rep["comm"]["verdict"] == jcomm["verdict"] == "compute-bound"
+    assert rep["comm"]["modeled_comm_s"] == jcomm["modeled_comm_s"] == 0.0
+    assert ({k: v for k, v in rep["comm"]["overlap"].items() if k != "basis"}
+            == {k: v for k, v in jcomm["overlap"].items() if k != "basis"})
+    assert rep["memory"]["programs"] == []
     assert rep["numerics"]["dtype_ledgers"] == []
     on_disk = json.loads((tmp_path / "RUNREPORT.json").read_text())
     assert on_disk["run"] == "plain"

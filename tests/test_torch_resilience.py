@@ -629,3 +629,78 @@ def test_one_shot_checkpoint_and_mp_suffix(tmp_path):
             f"_tp_{c['tensor']}_pp_{c['pipe']}" == "_tp_1_pp_1"
     finally:
         tpc.reset()
+
+
+# ================================================ the abort after a walk-back
+
+
+def _abort_faults(corrupt):
+    """A rollback at 4 (4 -> 3, offset 1), a stall at 7 so the async
+    saves commit, the checkpoints ``corrupt`` damaged, then a second
+    divergence at 7 with the budget spent: an abort whose walk-back
+    passes the rollback's target."""
+    return ([dict(kind="nan_spike", step=4),
+             dict(kind="stall", step=7, duration_s=1.0)]
+            + [dict(kind="ckpt_corrupt", step=7, target_step=c)
+               for c in corrupt]
+            + [dict(kind="nan_spike", step=7)])
+
+
+@pytest.mark.parametrize("keep,corrupt", [(1, (5,)), (2, (5, 3)),
+                                          (4, (5, 3))])
+def test_abort_after_walk_back_replays_each_step_at_its_offset(
+        tmp_path, logs, keep, corrupt):
+    """The walk-back after the abort passes the last rollback's target
+    (corrupt checkpoints quarantined, older ones pruned under
+    ``max_to_keep``): the port's last healthy state equals the
+    reference's — steps 0-3 at offset 0, 4-6 at offset 1 — to 1e-6.  The
+    port's abort reads the checkpoints, so its timeline has the
+    walk-back's quarantines and a restore after ``resilience_abort``
+    where the reference's has none."""
+    kw = dict(faults=_abort_faults(corrupt), mgr_kw=dict(max_to_keep=keep),
+              save_every=2, max_rollbacks=1)
+    out = {pkg: _run(pkg, str(tmp_path / pkg / "run"), 10, **kw)
+           for pkg in ("jax", "torch")}
+    j, t = out["jax"], out["torch"]
+    assert t.aborted and t.verdict == j.verdict == "aborted"
+    assert t.summary == j.summary and t.summary["data_offset"] == 1
+    tl, jl = _timeline(logs["torch"]), _timeline(logs["jax"])
+    i = [e[0] for e in tl].index("resilience_abort")
+    extra = [e for e in tl[i + 1:]
+             if e[0] in ("ckpt_quarantine", "checkpoint_restore")]
+    assert [e for e in tl if e not in extra] == jl
+    assert sum(e[0] == "ckpt_quarantine" for e in extra) == len(corrupt)
+    assert sorted(t.losses) == sorted(j.losses) == list(range(7))
+    # the reference's state is its hand run of the lineage: 0-3 at offset
+    # 0, 4-6 at offset 1 — and the port's is its own, bit for bit
+    jp, jo = _jinit()
+    for s in range(7):
+        jp, jo, _ = _jstep(jp, jo, _np_batch(s + (s >= 4)))
+    for k in ("w", "b"):
+        assert np.array_equal(_np(j.params[k]), np.asarray(jp[k])), k
+    losses, params, opt = _hand(range(4))
+    more, params, _ = _hand(range(4, 7), params, opt, offset=1)
+    _same(params, t.params)
+    assert t.losses == {**losses, **more}
+    np.testing.assert_allclose(_np(t.params["w"]), _np(j.params["w"]),
+                               rtol=0, atol=1e-6)
+    # b: the two frameworks' f32 AdamW over these 7 steps by hand round
+    # 1.72e-6 apart (w 5.8e-7); the fault put the port 0.05 off
+    np.testing.assert_allclose(_np(t.params["b"]), _np(j.params["b"]),
+                               rtol=0, atol=2e-6)
+
+
+def test_abort_replay_older_than_the_run_raises(tmp_path, logs):
+    """A resumed run whose every checkpoint is lost by the abort: the
+    steps before the resume ran in another run, their offsets were never
+    recorded, and the loop raises instead of returning a state the run
+    never had."""
+    d = str(tmp_path / "run")
+    res = _run("torch", d, 4, save_every=2, mgr_kw=dict(max_to_keep=1))
+    assert res.verdict == "clean"
+    faults = [dict(kind="stall", step=6, duration_s=1.0),
+              dict(kind="ckpt_corrupt", step=6, target_step=5),
+              dict(kind="nan_spike", step=6)]
+    with pytest.raises(RuntimeError, match="cannot be rebuilt"):
+        _run("torch", d, 10, faults, mgr_kw=dict(max_to_keep=1),
+             save_every=2, max_rollbacks=0)

@@ -254,7 +254,8 @@ def int8_ring_pmean(g: torch.Tensor, group) -> torch.Tensor:
     flat = g.reshape(-1)
     if flat.shape[0] % n:
         tp_utils._count("int8_fallback")
-        return tp_utils.all_reduce_(flat.clone(), group).reshape(
+        return tp_utils.all_reduce_(flat.clone(), group,
+                                    name="int8_fallback").reshape(
             g.shape) / n
     chunks = flat.reshape(n, -1).to(torch.float32)
     # rank r sends chunk r; after n - 1 accumulate-requantize hops it

@@ -36,6 +36,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..obs.comm_ledger import note, register_group
+
 AxisName = Union[str, Tuple[str, ...]]
 
 # Canonical axis names (the reference's group "modes").
@@ -163,15 +165,19 @@ class ParallelContext:
         ranks already has one."""
         part = self._partition(view, axes)
         key = tuple(tuple(g) for g in part)
-        if not self.with_groups or key in self._groups:
-            return self._groups.get(key)
-        mine = None
-        for ranks in part:
-            group = dist.new_group(ranks)
-            if self.rank in ranks:
-                mine = group
-        self._groups[key] = mine
-        return mine
+        if not self.with_groups:
+            return None
+        if key not in self._groups:
+            mine = None
+            for ranks in part:
+                group = dist.new_group(ranks)
+                if self.rank in ranks:
+                    mine = group
+            self._groups[key] = mine
+        # the comm ledger names the group's collectives by these axes
+        register_group(self._groups[key], axes,
+                       [view.shape[a] for a in axes])
+        return self._groups[key]
 
     # ------------------------------------------------------------ views
 
@@ -415,6 +421,7 @@ def test_comm(ctx: Optional[ParallelContext] = None) -> Dict[str, bool]:
                if dist.get_backend(group) == "nccl" else torch.device("cpu"))
         n = ctx.get_group_size(axis)
         x = torch.tensor([float(ctx.get_group_rank(axis))], device=dev)
+        note("all-reduce", x, group)
         dist.all_reduce(x, group=group)
         if float(x) != n * (n - 1) / 2:
             raise AssertionError(f"test_comm failed for axis {axis!r}: got "
@@ -446,7 +453,9 @@ def build_moe_groups(moe_ep_size: int):
     1) ep)`` for the ``i`` that holds it.  Every rank must call it (group
     creation is collective).  Raises if ``moe_ep_size`` does not divide
     the world size."""
-    return _contiguous_groups(moe_ep_size, "build_moe_groups")
+    group = _contiguous_groups(moe_ep_size, "build_moe_groups")
+    register_group(group, (EXPERT_AXIS,), (moe_ep_size,))
+    return group
 
 
 def build_cp_group(cp: int):
@@ -454,4 +463,6 @@ def build_cp_group(cp: int):
     ``ServingEngine(cp_group=...)``): ranks ``[i cp, (i + 1) cp)`` for the
     ``i`` that holds it.  Every rank must call it.  Raises if ``cp`` does
     not divide the world size."""
-    return _contiguous_groups(cp, "build_cp_group")
+    group = _contiguous_groups(cp, "build_cp_group")
+    register_group(group, (CONTEXT_AXIS,), (cp,))
+    return group

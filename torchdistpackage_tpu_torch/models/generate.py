@@ -43,6 +43,7 @@ import torch
 import torch.distributed as dist
 
 from ..device import resolve_device
+from ..obs.comm_ledger import note
 from ..parallel.tensor_parallel.layers import (
     TransformerConfig,
     _close_row_parallel,
@@ -342,6 +343,7 @@ def _agree(tok: torch.Tensor, tp_group) -> torch.Tensor:
     """Every rank of the group takes rank 0's tokens (the reference's
     ``pmax``), so the ranks feed the same next step."""
     if tp_group is not None:
+        note("broadcast", tok, tp_group)
         dist.broadcast(tok, src=dist.get_global_rank(tp_group, 0),
                        group=tp_group)
     return tok

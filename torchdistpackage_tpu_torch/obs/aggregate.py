@@ -12,6 +12,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .comm_ledger import note
+
 
 def percentiles(samples: Sequence[float], ps=(50, 95, 99)
                 ) -> Dict[str, float]:
@@ -48,6 +50,7 @@ def gather_f64_rows(row: Sequence[float], group=None) -> np.ndarray:
         t = t.to("cuda", torch.cuda.current_device())
     parts = [torch.empty_like(t)
              for _ in range(dist.get_world_size(group))]
+    note("all-gather", t, group)
     dist.all_gather(parts, t, group=group)
     return torch.stack(parts).cpu().numpy()
 

@@ -20,9 +20,20 @@ ICI figures, which do not carry over), and :meth:`CommModel.calibrate`,
 a least-squares fit of measured comm records.  The int8 rings
 (``dist/compressed.py``) are costed by :func:`compressed_wire_bytes`
 and :meth:`CommModel.predict_compressed`, the ``grad_compress='auto'``
-decision primitive.  The reference's ``comm_report``,
-``compression_report`` and ``predict_ledger`` read its HLO ledger and
-are not ported.
+decision primitive.
+
+Over a :mod:`.comm_ledger` ledger (recorded from the port's own
+collectives): :meth:`CommModel.predict_ledger` times every entry,
+:func:`comm_report` makes the RUNREPORT ``comm`` section (modeled comm
+time per dimension against the measured step, the comm- or
+compute-bound verdict, the overlap headroom and the achieved overlap of
+the async entries) and :func:`compression_report` the ``compression``
+section (the compress policy's predicted bytes against the ledger's,
+per axis).  The port has no XLA FLOP count: :func:`comm_report`'s
+compute estimate is the hand formula's FLOPs a step, and its
+``verdict_basis`` says so.  ``broadcast``, which the port's ledger has
+and the reference's does not, is costed as nccl-tests costs it: ``n - 1``
+steps, the payload once on the wire.
 """
 
 from __future__ import annotations
@@ -60,6 +71,7 @@ _STEPS = {
     "reduce_scatter": lambda n: n - 1,
     "all_to_all": lambda n: n - 1,
     "ppermute": lambda n: 1,
+    "broadcast": lambda n: n - 1,
 }
 _WIRE_FACTOR = {
     "all_reduce": lambda n: 2 * (n - 1) / n,
@@ -67,6 +79,7 @@ _WIRE_FACTOR = {
     "reduce_scatter": lambda n: (n - 1) / n,
     "all_to_all": lambda n: (n - 1) / n,
     "ppermute": lambda n: 1.0,
+    "broadcast": lambda n: 1.0,
 }
 
 # the reference ledger's hyphenated op names -> the model's
@@ -85,6 +98,8 @@ _HLO_OP = {
 # two together).
 
 COMPRESS_GROUP = 256
+
+COMPRESSION_SCHEMA = "tdp-compression/v1"
 
 #: ops the int8 rings implement (model-op spelling)
 _COMPRESSIBLE_OPS = ("all_reduce", "reduce_scatter", "all_gather")
@@ -398,3 +413,185 @@ class CommModel:
         if math.isfinite(c.beta_Bps) and c.beta_Bps > 0:
             t += wire_bytes(op, payload_bytes, n) / c.beta_Bps
         return t
+
+    def predict_ledger(self, ledger: Dict[str, Any]) -> Dict[str, Any]:
+        """Per-collective and per-dimension predicted times of a
+        :mod:`.comm_ledger` ledger (serialised: no overlap assumed)."""
+        per_dim: Dict[str, float] = {}
+        rows: List[Dict[str, Any]] = []
+        total = 0.0
+        for c in ledger.get("collectives", []):
+            n = int(c.get("group_size") or 0)
+            t = self.predict(c["op"], c["bytes"], n, axes=c.get("axes", ()))
+            rows.append({
+                "op": c["op"], "dim": c["dim"], "axes": c.get("axes", []),
+                "bytes": c["bytes"], "pred_s": t,
+            })
+            per_dim[c["dim"]] = per_dim.get(c["dim"], 0.0) + t
+            total += t
+        return {
+            "per_collective": rows,
+            "per_dim_s": {k: round(v, 9) for k, v in per_dim.items()},
+            "total_s": total,
+            "params": {a: c.as_dict() for a, c in self.axis_costs.items()},
+            "source": self.source,
+            "chip": self.chip,
+        }
+
+
+def comm_report(
+    ledger: Optional[Dict[str, Any]],
+    step_time_s: Optional[float],
+    model: Optional[CommModel] = None,
+    flops: Optional[float] = None,
+    peak_flops: Optional[float] = None,
+    ctx=None,
+) -> Optional[Dict[str, Any]]:
+    """The RUNREPORT ``comm`` section: the ledger's aggregates, modeled
+    comm time against the measured step, the bound verdict and the
+    overlap headroom (JAX :511).
+
+    - ``t_comm`` — modeled serialised collective time
+      (:meth:`CommModel.predict_ledger`; ``model`` default
+      :meth:`CommModel.from_defaults` over ``ctx``'s axes);
+    - ``t_comp`` — ``flops`` (the hand formula's FLOPs a step, where the
+      reference reads XLA's count) over ``peak_flops``; None without
+      both;
+    - verdict — ``comm-bound`` when even perfectly overlapped comm
+      exceeds compute (``t_comm > t_comp``); with no compute estimate the
+      comm fraction of the measured step decides (> 0.5);
+    - ``overlap_headroom_s`` — the measured step less ``max(t_comm,
+      t_comp)``;
+    - ``overlap`` — the achieved side: the async entries, those with at
+      least one ledger entry issued inside their window counted hidden,
+      time-weighted by the model's predictions."""
+    if ledger is None:
+        return None
+    if model is None:
+        model = CommModel.from_defaults(ctx=ctx)
+    pred = model.predict_ledger(ledger)
+    t_comm = pred["total_s"]
+    out: Dict[str, Any] = {
+        "ledger": {
+            "per_dim": ledger.get("per_dim", {}),
+            "total_bytes": ledger.get("total_bytes", 0),
+            "n_collectives": ledger.get("n_collectives", 0),
+            "mesh_axes": ledger.get("mesh_axes"),
+            "collectives": ledger.get("collectives", []),
+        },
+        "model": {
+            "per_dim_s": pred["per_dim_s"],
+            "total_s": t_comm,
+            "params": pred["params"],
+            "source": pred["source"],
+            "chip": pred["chip"],
+        },
+        "modeled_comm_s": t_comm,
+    }
+    colls = ledger.get("collectives", [])
+    t_hidden = 0.0
+    n_async = n_hidden = 0
+    distances: List[float] = []
+    for c, row in zip(colls, pred["per_collective"]):
+        if not c.get("async"):
+            continue
+        n_async += 1
+        d = c.get("sched_distance")
+        if d is not None:
+            distances.append(d)
+        if d is not None and d > 0:
+            n_hidden += 1
+            t_hidden += row["pred_s"]
+    achieved = (t_hidden / t_comm) if t_comm > 0 else 0.0
+    effective_comm_s = max(0.0, t_comm - t_hidden)
+    out["overlap"] = {
+        "async_ops": n_async,
+        "sync_ops": len(colls) - n_async,
+        "hidden_ops": n_hidden,
+        "mean_sched_distance": (
+            round(sum(distances) / len(distances), 2) if distances else None
+        ),
+        "achieved_fraction": round(achieved, 4),
+        "hidden_comm_s": t_hidden,
+        "effective_comm_s": effective_comm_s,
+        "basis": "ledger entries issued between an async collective's "
+                 "start and its wait, time-weighted by the alpha-beta "
+                 "model",
+    }
+    t_comp = None
+    if flops and peak_flops:
+        t_comp = flops / peak_flops
+        out["modeled_compute_s"] = t_comp
+    if step_time_s and step_time_s > 0:
+        out["measured_step_s"] = step_time_s
+        out["comm_fraction"] = round(min(1.0, t_comm / step_time_s), 4)
+        out["comm_fraction_effective"] = round(
+            min(1.0, effective_comm_s / step_time_s), 4)
+        floor = max(t_comm, t_comp) if t_comp else t_comm
+        out["overlap_headroom_s"] = max(0.0, step_time_s - floor)
+    if t_comp is not None:
+        out["verdict"] = "comm-bound" if t_comm > t_comp else "compute-bound"
+        out["verdict_basis"] = ("modeled comm vs modeled compute (the hand "
+                                "formula's FLOPs a step)")
+    elif step_time_s and step_time_s > 0:
+        out["verdict"] = (
+            "comm-bound" if out["comm_fraction"] > 0.5 else "compute-bound")
+        out["verdict_basis"] = "modeled comm fraction of measured step"
+    else:
+        out["verdict"] = "unknown"
+        out["verdict_basis"] = "no measured step time"
+    return out
+
+
+def compression_report(
+    mode: str,
+    policy_events: Sequence[Dict[str, Any]] = (),
+    ledger: Optional[Dict[str, Any]] = None,
+) -> Dict[str, Any]:
+    """The RUNREPORT ``compression`` section (JAX :621): the compress
+    policy's choices beside predicted and ledger-measured bytes per axis.
+    ``policy_events``: ``compress_policy`` events (or bare ``{leaves:
+    [...]}`` dicts), as ``DataParallel`` / ``ZeroOptimizer`` emit them
+    under ``grad_compress='auto'``; each leaf row carries its choice and
+    both byte predictions in the ledger's convention
+    (``CommModel.predict_compressed``).  ``ledger``: the step's comm
+    ledger; the measured bytes are its collectives aggregated by the axis
+    set they span — the WHOLE step's traffic on that axis (the loss's
+    reduction rides it too), so ``rel_err`` reconciles, it does not
+    bound."""
+    leaves: List[Dict[str, Any]] = []
+    for ev in policy_events:
+        leaves.extend(ev.get("leaves") or [])
+    predicted: Dict[str, float] = {}
+    for leaf in leaves:
+        key = "+".join(leaf.get("axes") or []) or "?"
+        b = (leaf["ledger_bytes_compressed"] if leaf.get("compress")
+             else leaf["ledger_bytes_exact"])
+        predicted[key] = predicted.get(key, 0.0) + float(b)
+    measured: Dict[str, int] = {}
+    for c in (ledger or {}).get("collectives", []):
+        key = "+".join(c.get("axes") or []) or "?"
+        measured[key] = measured.get(key, 0) + int(c.get("bytes", 0))
+    rows: List[Dict[str, Any]] = []
+    for key in sorted(set(predicted) | set(measured)):
+        pred = predicted.get(key)
+        meas = measured.get(key)
+        row: Dict[str, Any] = {"axes": key}
+        if pred is not None:
+            row["predicted_bytes"] = int(round(pred))
+        if meas is not None:
+            row["measured_bytes"] = meas
+        if pred and meas is not None:
+            row["rel_err"] = round((meas - pred) / pred, 4)
+        rows.append(row)
+    return {
+        "schema": COMPRESSION_SCHEMA,
+        "mode": str(mode),
+        "policy": {
+            "n_leaves": len(leaves),
+            "n_compressed": sum(1 for leaf in leaves if leaf.get("compress")),
+            # a bounded table; the full records are on the event timeline
+            "leaves": [dict(leaf) for leaf in leaves[:64]],
+        },
+        "per_axis": rows,
+    }

@@ -10,9 +10,11 @@ the port's serving summary differs from the reference's, so does the
 check: a ``moe.dispatch`` is one of the port's (``'gather'``, ``'cuda'``,
 ``'sorted'``), and a ``long_context`` block names no mesh axis (the
 engine takes ``cp_group``).  A port report has no compiled program
-behind it: ``comm`` is ``{}`` (valid: "no compiled step observed"),
-``memory.programs`` and ``numerics.dtype_ledgers`` are ``[]``, and
-``mfu`` carries the hand formula only.
+behind it: ``comm`` is built from the collectives recorded around the
+first call of the wrapped step (``obs.comm_ledger``; ``{}``, valid, when
+the ledger is off or no step was wrapped), ``memory.programs`` and
+``numerics.dtype_ledgers`` are ``[]``, and ``mfu`` carries the hand
+formula only.
 """
 
 from __future__ import annotations

@@ -33,7 +33,16 @@ its ``compile`` event, carrying that call's wall time (on the card it
 includes the kernels' build at first use); a later new signature of
 the same step is a ``recompile`` event and ``recompiled: true`` on its
 step record.  The report's ``mfu`` carries the hand formula only (no
-``xla*`` keys), ``comm`` is ``{}`` and ``memory.programs`` ``[]``.
+``xla*`` keys) and ``memory.programs`` is ``[]``.
+
+Comm: the first call of the first signature runs inside a
+:class:`~.comm_ledger.CommRecorder` (where the reference parses the
+first compiled signature's HLO), so :attr:`Telemetry.comm_ledger` holds
+every collective that call made, and :meth:`Telemetry.finalize` turns it
+into the report's ``comm`` section (:func:`~.comm_model.comm_report`,
+the steady steps' mean against the hand formula's FLOPs a step).  Steady
+steps record nothing.  ``comm_ledger_enabled=False``: no recorder,
+``comm`` is ``{}``.
 
 Memory: ``mem_ledger.live_memory`` (the port's one
 ``torch.cuda.memory_stats`` reader) is polled at each step's end into a
@@ -46,6 +55,7 @@ thresholds run over every record, the loss included.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -143,6 +153,10 @@ class Telemetry:
     profile_window: a :class:`~.trace.ProfilerStepWindow` — a
         ``torch.profiler`` capture bracketing a window of wrapped steps
         (the reference's ``xla_trace=``).
+    comm_ledger_enabled: record the collectives of the first wrapped
+        call into :attr:`comm_ledger` (see the module docstring); the
+        ledger's ``mesh_axes`` and the comm model's axes are
+        ``dist.topology.tpc``'s layout, when it is set up.
     """
 
     def __init__(
@@ -161,6 +175,7 @@ class Telemetry:
         mem_snapshot_every: int = 16,
         numerics_thresholds: Optional[Dict[str, float]] = None,
         profile_window: Optional[Any] = None,
+        comm_ledger_enabled: bool = True,
     ) -> None:
         from . import trace as _trace
 
@@ -186,6 +201,10 @@ class Telemetry:
         self.parity: Optional[Dict[str, Any]] = None
         self.compression: Optional[Dict[str, Any]] = None
         self.profile_window = profile_window
+        self.comm_ledger_enabled = comm_ledger_enabled
+        #: the ledger of the first wrapped call's collectives
+        #: (``obs.comm_ledger``); None until that call, or when disabled
+        self.comm_ledger: Optional[Dict[str, Any]] = None
         if event_log is None:
             event_log = EventLog()
             set_default_event_log(event_log)
@@ -248,9 +267,18 @@ class Telemetry:
             if self.profile_window is not None:
                 self.profile_window.on_step_start(self._step_n)
             sig = (wrap_id, _abstract_signature((args, kwargs)))
+            recorder = None
+            if (self.comm_ledger_enabled and not self._signatures
+                    and self.comm_ledger is None):
+                from .comm_ledger import CommRecorder
+
+                recorder = CommRecorder()
             t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
+            with recorder or contextlib.nullcontext():
+                out = fn(*args, **kwargs)
             dt = time.perf_counter() - t0
+            if recorder is not None:
+                self.comm_ledger = recorder.ledger()
             if self._event is not None:
                 self._event.record(torch.cuda.current_stream(self.device))
                 self._event_pending = True
@@ -473,6 +501,17 @@ class Telemetry:
             if self.peak_flops:
                 mfu["formula"] = round(formula / mean_t / self.peak_flops, 4)
 
+        comm: Dict[str, Any] = {}
+        if self.comm_ledger is not None:
+            from ..dist.topology import tpc
+            from . import comm_model as _comm_model
+
+            comm = _comm_model.comm_report(
+                self.comm_ledger, stats.get("mean"),
+                flops=mfu.get("formula_flops_per_step"),
+                peak_flops=self.peak_flops,
+                ctx=tpc if tpc.is_initialized else None)
+
         kv_pool = None
         if self.serving is not None and "kv_pool" in self.serving:
             kv_pool = {
@@ -525,7 +564,7 @@ class Telemetry:
                 "recompiles": self.n_recompiles,
             },
             "hosts": hosts,
-            "comm": {},
+            "comm": comm,
             "counters": self.counters,
             "events": self.events.as_list(),
         }

@@ -46,6 +46,7 @@ from typing import Dict, List, Optional
 import torch
 import torch.distributed as dist
 
+from ..obs.comm_ledger import note
 from .paged_attention import (
     Carry,
     finalize_paged_carry,
@@ -81,6 +82,7 @@ def _rotate(tensors: List[torch.Tensor], group) -> List[torch.Tensor]:
     recv = [torch.empty_like(t) for t in tensors]
     ops = []
     for t, buf in zip(tensors, recv):
+        note("collective-permute", t, group)
         ops.append(dist.P2POp(dist.isend, t.contiguous(), to, group))
         ops.append(dist.P2POp(dist.irecv, buf, frm, group))
     for work in dist.batch_isend_irecv(ops):
@@ -152,11 +154,14 @@ def _combine(carry: Carry, group) -> Carry:
     ``acc * w`` and ``l * w`` with ``w = exp(m - m_max)``."""
     acc, m, l = carry
     m_g = m.clone()
+    note("all-reduce", m_g, group)
     dist.all_reduce(m_g, op=dist.ReduceOp.MAX, group=group)
     w = torch.exp(m - m_g)
     acc = acc * w[..., None]
     l = l * w
+    note("all-reduce", acc, group)
     dist.all_reduce(acc, group=group)
+    note("all-reduce", l, group)
     dist.all_reduce(l, group=group)
     return acc, m_g, l
 

@@ -63,6 +63,7 @@ from ..dist.topology import (
     ParallelContext,
     tpc,
 )
+from ..obs.comm_ledger import note
 from ..obs.numerics import (
     add_update_stats,
     global_grad_norm,
@@ -676,6 +677,7 @@ class DataParallel:
         src = dist.get_global_rank(self.group, 0)
         with torch.no_grad():
             for p in tree_leaves(params):
+                note("broadcast", p, self.group)
                 if host_path(self.group, p.device):
                     h = to_host(p)
                     dist.broadcast(h, src=src, group=self.group)

@@ -33,6 +33,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from ...obs.comm_ledger import note
 from ..tensor_parallel import tp_utils
 from ..tensor_parallel.tp_utils import from_host, host_path, to_host
 
@@ -76,7 +77,9 @@ def exchange(group, sends: Sequence[Tuple[torch.Tensor, int, int]] = (),
         t = (to_host(t, P2P_STATS) if host_path(group, t.device)
              else t.detach().contiguous())
         keep.append(t)
-        ops.append(dist.P2POp(dist.isend, t, *route(group, peer, tag), tag))
+        dst, via = route(group, peer, tag)
+        note("collective-permute", t, via)
+        ops.append(dist.P2POp(dist.isend, t, dst, via, tag))
         P2P_STATS["sends"] += 1
         P2P_STATS["bytes_sent"] += t.numel() * t.element_size()
     for peer, tag, shape, dtype, device in recvs:
@@ -123,6 +126,7 @@ def shape_preamble(group, x: Optional[torch.Tensor],
         meta[0], meta[1] = x.dim(), _DTYPES.index(x.dtype)
         meta[2:2 + x.dim()] = torch.tensor(tuple(x.shape), dtype=torch.int64)
     P2P_STATS["preambles"] += 1
+    note("broadcast", meta, group)
     dist.broadcast(meta, src=dist.get_global_rank(group, 0), group=group)
     m = meta.tolist()
     return tuple(int(d) for d in m[2:2 + m[0]]), _DTYPES[m[1]]

@@ -24,7 +24,9 @@ entering a column-parallel product gets its gradient summed over the
 group (JAX gets that sum from ``pvary``'s transpose).  Every region
 makes its collective at every group size, one rank included, so a
 one-rank group runs the same code as N ranks.  :data:`COLLECTIVES`
-counts the collectives made, by region.
+counts the collectives made, by region; each helper that issues one
+also notes it for the comm ledger (``obs.comm_ledger.note``: its
+operand bytes, its group and that region's name).
 
 ``torch.distributed``'s gather and scatter work on dim 0, the package's
 sequence dim is 1: the gather collects the ranks' whole tensors along a
@@ -63,6 +65,7 @@ import torch
 import torch.distributed as dist
 
 from ...dist.topology import TENSOR_AXIS, tpc
+from ...obs.comm_ledger import note, note_done
 
 #: collectives made, by region (forward and backward alike);
 #: ``ring_shift`` counts the rings' point-to-point exchanges,
@@ -130,16 +133,20 @@ def _count(name: str) -> None:
 
 
 def start_all_reduce(t: torch.Tensor, group, op=None, async_op: bool = True,
-                     stats: Optional[Dict[str, int]] = None
+                     stats: Optional[Dict[str, int]] = None,
+                     name: Optional[str] = None
                      ) -> Callable[[], torch.Tensor]:
     """Start summing (or ``op``) ``t`` over ``group`` in place and return
     the call that waits and returns ``t``.  A CUDA tensor over gloo goes
     through a host copy (counted in ``stats``, default
     :data:`HOST_STAGING`), written back into ``t`` by the wait.  Under
-    the overlap regime ``'none'`` the wait happens here."""
+    the overlap regime ``'none'`` the wait happens here.  ``name``: the
+    :data:`COLLECTIVES` region the caller counted it under, for the comm
+    ledger (``obs.comm_ledger.note``)."""
     op = dist.ReduceOp.SUM if op is None else op
     async_op = async_op and not SYNC_COLLECTIVES
     buf = to_host(t, stats) if host_path(group, t.device) else t
+    token = note("all-reduce", t, group, name, async_op)
     work = dist.all_reduce(buf, op=op, group=group, async_op=async_op)
 
     def finish() -> torch.Tensor:
@@ -147,6 +154,7 @@ def start_all_reduce(t: torch.Tensor, group, op=None, async_op: bool = True,
         if work is not None:
             work.wait()
             work = None
+            note_done(token)
         if buf is not t:
             t.copy_(from_host(buf, t.device, stats))
             buf = t
@@ -157,15 +165,17 @@ def start_all_reduce(t: torch.Tensor, group, op=None, async_op: bool = True,
 
 
 def all_reduce_(t: torch.Tensor, group, op=None,
-                stats: Optional[Dict[str, int]] = None) -> torch.Tensor:
+                stats: Optional[Dict[str, int]] = None,
+                name: Optional[str] = None) -> torch.Tensor:
     """``t`` summed (or ``op``) over ``group`` in place and returned."""
-    return start_all_reduce(t, group, op, async_op=False, stats=stats)()
+    return start_all_reduce(t, group, op, async_op=False, stats=stats,
+                            name=name)()
 
 
 def _all_reduce(x: torch.Tensor, group, name: str) -> torch.Tensor:
     out = x.clone(memory_format=torch.contiguous_format)
     _count(name)
-    return all_reduce_(out, group)
+    return all_reduce_(out, group, name=name)
 
 
 def _start_all_gather(x: torch.Tensor, group, dim: int, name: str,
@@ -184,6 +194,8 @@ def _start_all_gather(x: torch.Tensor, group, dim: int, name: str,
     x = to_host(x) if staged else x.contiguous()
     out = x.new_empty((n,) + tuple(x.shape))
     _count(name)
+    waits_later = async_op and not SYNC_COLLECTIVES
+    token = note("all-gather", x, group, name, waits_later)
     work = dist.all_gather_into_tensor(
         out.view((n * x.shape[0],) + x.shape[1:]) if x.dim() else out, x,
         group=group, async_op=async_op)
@@ -196,11 +208,12 @@ def _start_all_gather(x: torch.Tensor, group, dim: int, name: str,
         if work is not None:
             work.wait()
             work = None
+            note_done(token)
         if staged:
             out, staged = from_host(out, device), False
         # reads x: the closure holds it until the collective is done
         return out.movedim(0, dim).reshape(shape) if x.dim() else out
-    if async_op and SYNC_COLLECTIVES:
+    if async_op and not waits_later:
         finish()
     return finish
 
@@ -228,6 +241,7 @@ def _reduce_scatter(x: torch.Tensor, group, dim: int,
     xs = (to_host(xs) if staged else xs).contiguous()
     out = xs.new_empty(xs.shape[1:])
     _count(name)
+    note("reduce-scatter", xs, group, name)
     dist.reduce_scatter_tensor(out, xs.view((-1,) + tuple(xs.shape[2:])),
                                op=dist.ReduceOp.SUM, group=group)
     return from_host(out, device) if staged else out
@@ -387,7 +401,7 @@ def vocab_max(x: torch.Tensor, group=None) -> torch.Tensor:
     with torch.no_grad():
         out = x.clone(memory_format=torch.contiguous_format)
         _count("xent_max")
-        all_reduce_(out, group, dist.ReduceOp.MAX)
+        all_reduce_(out, group, dist.ReduceOp.MAX, name="xent_max")
     return out
 
 
@@ -462,6 +476,7 @@ def _shift(x: torch.Tensor, group, shift: int,
     x = to_host(x) if staged else x.contiguous()
     out = torch.empty_like(x)
     _count(name)
+    note("collective-permute", x, group, name)
     ops = [dist.P2POp(dist.isend, x,
                       dist.get_global_rank(group, (r + shift) % n), group),
            dist.P2POp(dist.irecv, out,
@@ -502,6 +517,7 @@ def _all_to_all(send: torch.Tensor, group) -> torch.Tensor:
     staged = host_path(group, device)
     send = to_host(send) if staged else send.contiguous()
     recv = torch.empty_like(send)
+    note("all-to-all", send, group)
     dist.all_to_all_single(recv, send, group=group)
     return from_host(recv, device) if staged else recv
 

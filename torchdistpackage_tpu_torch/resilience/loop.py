@@ -22,8 +22,12 @@ just drops its outputs).  The loop therefore restores INTO the live
 tensors — from a checkpoint, or from a host copy of the initial state
 taken when :meth:`ResilientLoop.run` starts (the rollback of last
 resort) — and after an abort it rebuilds the last healthy state the same
-way plus a replay of the healthy steps after that checkpoint, so
+way plus a replay of the healthy steps after that checkpoint, each at
+the data offset it ran at (:attr:`ResilientLoop.step_offsets`), so
 ``LoopResult.params`` / ``opt_state`` are what the reference returns.
+A replay that needs a step this run did not record (older than the
+resumed checkpoint) raises instead of returning a state the run never
+had.
 
 With no fault fired the loop's trajectory is bit-identical to a plain
 hand loop over the same ``step_fn`` and ``make_batch``: it reads the
@@ -177,6 +181,10 @@ class ResilientLoop:
         self.consistency_every = int(consistency_every)
         self.consistency_config = consistency_config
         self.shutdown_signals = shutdown_signals
+        #: the data offset each kept step of :meth:`run`'s current
+        #: lineage ran at (a rollback drops the steps after its target):
+        #: what the abort's replay feeds each step
+        self.step_offsets: Dict[int, int] = {}
 
     @staticmethod
     def _payload(params, opt_state, data_offset: int) -> Dict[str, Any]:
@@ -206,6 +214,7 @@ class ResilientLoop:
                               config=self.consistency_config)
 
         losses: Dict[int, float] = {}
+        self.step_offsets = {}
         rollbacks = 0
         faults_seen = 0
         aborted = preempted = False
@@ -250,12 +259,16 @@ class ResilientLoop:
                         data_offset, initial, rollbacks)
                     rollbacks += 1
                     losses = {s: v for s, v in losses.items() if s < step}
+                    self.step_offsets = {s: o for s, o in
+                                         self.step_offsets.items()
+                                         if s < step}
                     self.monitor.reset()
                     continue
 
                 params, opt_state = out[0], out[1]
                 self.monitor.observe(loss_f)
                 losses[step] = loss_f
+                self.step_offsets[step] = data_offset
                 if self.telemetry is not None:
                     self.telemetry.end_step(step=step, loss=loss_f,
                                             numerics=numerics)
@@ -350,11 +363,24 @@ class ResilientLoop:
                       initial: PyTree) -> Tuple[PyTree, PyTree]:
         """After an abort at ``step``: the state after step ``step - 1``
         (the reference's result), rebuilt in place — the newest good
-        checkpoint, then the steps after it replayed on their batches
-        (every one ran after the last rollback, at ``data_offset``)."""
+        checkpoint, then the steps after it replayed, each on the batch
+        of the offset it ran at (:attr:`step_offsets`; a walk-back past
+        the last rollback's target reaches steps that ran at an older
+        offset).  Raises if a step to replay ran before :meth:`run`
+        began (a resumed run whose checkpoints were lost): its offset
+        was never recorded."""
         self.mgr.wait_until_finished()
         good = self._restore_good(params, opt_state, data_offset, initial)
+        missing = [s for s in range(good + 1, step)
+                   if s not in self.step_offsets]
+        if missing:
+            raise RuntimeError(
+                f"abort at step {step}: the newest good state is step "
+                f"{good}, and steps {missing[0]}..{missing[-1]} ran before "
+                f"this run recorded their data offsets; the last healthy "
+                f"state cannot be rebuilt")
         for s in range(good + 1, step):
             params, opt_state = self.step_fn(
-                params, opt_state, self.make_batch(s + data_offset))[:2]
+                params, opt_state,
+                self.make_batch(s + self.step_offsets[s]))[:2]
         return params, opt_state

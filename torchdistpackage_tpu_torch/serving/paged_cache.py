@@ -55,6 +55,7 @@ from ..models.generate import (
     cached_block_forward,
 )
 from ..models.gpt import GPTConfig, gpt_head, layer_params
+from ..obs.comm_ledger import note
 from ..ops.paged_attention import (
     paged_decode_attention,
     paged_decode_attention_reference,
@@ -390,6 +391,7 @@ def cp_paged_forward(params: Dict[str, Any], tokens: torch.Tensor,
                       tp_group=tp_group)
     logits = torch.where(mine[:, None, None], logits,
                          torch.zeros((), dtype=logits.dtype, device=dev))
+    note("all-reduce", logits, cp_group)
     dist.all_reduce(logits, group=cp_group)
     return cache, logits[:, 0, :]
 

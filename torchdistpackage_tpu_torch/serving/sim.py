@@ -42,6 +42,7 @@ import torch.distributed as dist
 from ..device import resolve_device
 from ..models.generate import _full_logits
 from ..models.gpt import GPTConfig
+from ..obs.comm_ledger import note
 from ..ops.paged_attention import resolve_attn_impl
 from .engine import _filtered_logits, _slot_sample
 from .paged_cache import (
@@ -279,6 +280,7 @@ class TorchDeviceStep(DeviceStep):
         near-tied argmax may flip on one rank only (EP: the f32 walks sum
         by atomics; CP: each rank's combine sums in its own order)."""
         if self.replica_group is not None:
+            note("broadcast", t, self.replica_group)
             dist.broadcast(t, src=dist.get_global_rank(self.replica_group, 0),
                            group=self.replica_group)
 
@@ -291,6 +293,7 @@ class TorchDeviceStep(DeviceStep):
             t = t.cpu()
         t = t.contiguous()
         parts = [torch.empty_like(t) for _ in range(self.dp)]
+        note("all-gather", t, self.dp_group)
         dist.all_gather(parts, t, group=self.dp_group)
         return torch.stack(parts).cpu().numpy()
 

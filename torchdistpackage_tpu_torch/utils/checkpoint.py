@@ -42,6 +42,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from ..obs.comm_ledger import note
+
 PyTree = Any
 
 #: the key an optimizer's ``state_dict`` is saved under
@@ -90,6 +92,7 @@ def _pod_any(flag: bool, n_proc: int) -> bool:
         return bool(flag)
     dev = "cuda" if dist.get_backend() == "nccl" else "cpu"
     t = torch.tensor([1 if flag else 0], dtype=torch.int32, device=dev)
+    note("all-reduce", t)
     dist.all_reduce(t, op=dist.ReduceOp.MAX)
     return bool(t.item())
 
