@@ -118,7 +118,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    window over steps 2-3 of (a), (f) ``profile_blocks`` and
    ``find_nan_block`` over the 12 blocks, (g) ``MemoryModel`` against
    the live allocation; K3-K5 12 a step run; the save, restore and
-   numerics-copy costs printed; then data parallel
+   numerics-copy costs printed; then the planning slice
+   (``plan_phase``): (a) ``dist.autoplan.plan`` of that GPT-125M for this
+   one card (the H100 comm table, the card's capacity, the FLOP/s this
+   run's train step sustained), ``build_groups`` over a one-rank NCCL
+   group and 3 steps of ``make_plan_step`` (losses bit-equal to the
+   plain step's, K3-K5 12 a step, the plan's parameter, gradient and
+   moment bytes equal to the live tensors', the section valid after
+   ``attach_measured``); (b) Mixtral-8x7B's clean ``all_oom`` and the
+   CLI's exit 1; (c) ``plan_prefill_tier`` of Mistral-7B at 32768 and
+   131072 tokens; (d) each of K3's four built tiles held against the
+   plain forward at ``bench.py``'s shape and at hd 128 (a planted wrong
+   ``block_k`` selector must fail) and timed by ``tune_flash_blocks``;
+   (e) K1 at every candidate ``nsplit`` held against the plain split
+   schedule at Mistral-7B's decode shape and timed by
+   ``tune_paged_params``; (f) Mistral-7B's widths at 4 layers through
+   ``to_hf_llama`` and ``from_hf_llama`` (every leaf bit-equal) and 4
+   requests x 16 greedy tokens through the engine on each tree (equal);
+   then data parallel
    (``dp_train_phase``): a one-rank NCCL group and ``tpc``'s ``data``
    axis, the GPT-125M run through ``make_train_step`` and through
    ``DataParallel.make_train_step`` (25 MB buckets, per-layer slice
@@ -2413,6 +2430,434 @@ def profile_train_step(run, card, gemm_flop):
         log(f"[train]   {e.self_device_time_total / 1e3:8.3f} ms "
             f"x{e.count:<5d} {e.key[:110]}")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "families": families}
+
+
+# -------------------------------------------------------------- planning
+
+PLAN_STEPS = 3           # plan_phase (a): steps of the chosen plan
+PLAN_SEQ = 2048          # (a): bench.py's sequence
+PLAN_MOE_BATCH, PLAN_MOE_SEQ = 8, 4096   # (b): Mixtral's all-OOM plan
+PLAN_CONTEXTS = (32768, 131072)          # (c): the CP prefill tier
+PLAN_FLASH_SHAPES = ((16, 12, 2048, 64), (16, 12, 2048, 128))  # (d)
+PLAN_PAGED = dict(num_slots=8, kv_heads=HKV, groups=GROUPS, head_dim=HD,
+                  block_size=BS, max_blocks=2048 // BS, spec_k=3)  # (e)
+PLAN_HF_LAYERS = 4       # (f): Mistral-7B widths at this depth
+PLAN_HF_PROMPTS = (512, 1000, 1536, 2000)
+PLAN_HF_NEW = 16
+
+
+def plan_train_check(card, train):
+    """(a) GPT-125M planned for this one card (global batch 16, S 2048;
+    the comm model's H100 table, the card's capacity, the FLOP/s this
+    run's own train step sustained), the chosen plan's process groups over
+    a one-rank NCCL group and its step from ``make_plan_step``: 3 steps
+    whose losses are ``train_phase``'s (the plain ``make_train_step`` on
+    the same seed) bit for bit, K3 = K4 = K5 = 12 a step, the plan's
+    modeled parameter + gradient + moment bytes equal to the live
+    tensors' exactly (activations printed, an estimate), and the section
+    valid after ``attach_measured``."""
+    from torchdistpackage_tpu_torch.dist import autoplan as ap
+    from torchdistpackage_tpu_torch.models import init_gpt_params
+    from torchdistpackage_tpu_torch.obs.comm_model import CommModel
+    from torchdistpackage_tpu_torch.obs.mem_ledger import device_capacity
+    from torchdistpackage_tpu_torch.obs.report import _validate_autoplan
+    from torchdistpackage_tpu_torch.ops import flash_attention as fa
+    from torchdistpackage_tpu_torch.parallel.data_parallel import adamw
+
+    cfg, rows = gpt_125m(), TRAIN_BATCH
+    eff = train["mfu"] * PEAK_FLOPS[torch.bfloat16]
+    res = ap.plan(cfg, 1, rows, seq_len=PLAN_SEQ,
+                  comm_model=CommModel.from_defaults(),
+                  capacity_bytes=device_capacity(), effective_flops=eff,
+                  device_kind=torch.cuda.get_device_name(0))
+    c = res["chosen"]
+    if res["verdict"] != "ok" or c["key"] != "dp1":
+        raise RuntimeError(f"plan of GPT-125M on one card: {res['verdict']}, "
+                           f"{c and c['key']}")
+    mem = c["memory"]
+    log(f"[plan] (a) GPT-125M on 1 card, batch {rows}, S {PLAN_SEQ}: "
+        f"{res['n_candidates']} candidate(s), chosen {c['key']} (mesh "
+        f"{c['mesh_axes']}), modeled step {c['step_s'] * 1e3:.2f} ms "
+        f"(compute {c['compute_s'] * 1e3:.2f} ms at {eff / 1e12:.2f} TFLOP/s "
+        f"sustained, this run's train step; comm {c['comm_s'] * 1e3:.3f} "
+        f"ms); memory {mem['verdict']}: params {mem['params_bytes']:,} B, "
+        f"grads {mem['grads_bytes']:,} B, moments {mem['opt_bytes']:,} B, "
+        f"activations {mem['act_bytes']:,} B (an estimate), of "
+        f"{mem['capacity_bytes']:,} B — on {card}")
+    out = {"plan": res}
+    import torch.distributed as dist
+
+    from torchdistpackage_tpu_torch.dist import init_distributed, tpc
+
+    init_distributed(f"tcp://127.0.0.1:{free_port()}", 1, 0, "cuda")
+    try:
+        ctx = ap.build_groups(c, tpc)
+        group = ctx.get_group("data")
+        if dist.get_backend(group) != "nccl":
+            raise RuntimeError("the plan's groups on the card must use NCCL")
+        params = init_gpt_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0))
+        run = ap.make_plan_step(c, cfg, ctx, params=params, remat="flash",
+                                optimizer=adamw(3e-4))
+        batch = random_batch(cfg, rows, 1)
+        p, s = run.params, run.opt_state
+        torch.cuda.synchronize()
+        reset_counts()
+        losses, times = [], []
+        for i in range(PLAN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, s, loss, _ = run.step(p, s, batch)
+            losses.append(float(loss))
+            times.append(time.perf_counter() - t0)
+            want = cfg.nlayers * (i + 1)
+            if any(n != want for n in fa.LAUNCHES.values()):
+                raise RuntimeError(f"plan step {i + 1}: flash launches "
+                                   f"{dict(fa.LAUNCHES)}, want {want} each")
+        out["launches"] = dict(fa.LAUNCHES)
+        live = ap.live_resident_bytes(p, s)
+        del p, s, run, params
+    finally:
+        tpc.reset()
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    plain = train["losses"][:PLAN_STEPS]
+    log(f"[plan] (a) the chosen plan's {PLAN_STEPS} steps: losses "
+        + ", ".join(f"{x:.6f}" for x in losses) + " against train_phase's "
+        + ", ".join(f"{x:.6f}" for x in plain) + f"; step "
+        + ", ".join(f"{t * 1e3:.2f}" for t in times) + f" ms; launches "
+        f"{out['launches']} — on {card}")
+    if losses != plain:
+        raise RuntimeError(f"plan steps' losses {losses} != the plain "
+                           f"step's {plain}")
+    bad = {k: (mem[k], v) for k, v in live.items() if mem[k] != v}
+    log(f"[plan] (a) resident bytes, modeled against live tensors: "
+        + ", ".join(f"{k} {mem[k]:,} / {v:,}" for k, v in live.items())
+        + (" — equal" if not bad else f" — DIFFER {bad}"))
+    if bad:
+        raise RuntimeError(f"plan memory differs from the live tensors: "
+                           f"{bad}")
+    ap.attach_measured(res, [{"key": c["key"], "modeled_step_s": c["step_s"],
+                              "measured_step_s": float(np.median(times))}])
+    errs = _validate_autoplan(res)
+    if errs:
+        raise RuntimeError(f"autoplan section invalid: {errs}")
+    row = res["modeled_vs_measured"]["rows"][0]
+    log(f"[plan] (a) modeled {row['modeled_step_s'] * 1e3:.2f} ms against "
+        f"measured {row['measured_step_s'] * 1e3:.2f} ms (rel err "
+        f"{row['rel_err']}); the section validates")
+    out.update(losses=losses, times=times, live=live)
+    return out
+
+
+def mixtral_dims():
+    """Mixtral-8x7B-v0.1 as the planner's JSON config (the CLI's input)."""
+    from torchdistpackage_tpu_torch.models import mixtral_8x7b_config
+
+    cfg = mixtral_8x7b_config()
+    keys = ("vocab_size", "dim", "nheads", "nlayers", "max_seq", "kv_heads",
+            "ffn_hidden", "act", "norm", "pos", "moe_experts", "moe_top_k",
+            "moe_every", "moe_capacity_factor")
+    return cfg, {**{k: getattr(cfg, k) for k in keys}, "dtype": "bfloat16"}
+
+
+def plan_oom_check(card):
+    """(b) Mixtral-8x7B (46.7 B parameters, 93 GB of bf16) on this one
+    card: every candidate pruned, the clean ``all_oom`` verdict, one
+    ``plan_rejected_oom`` event a candidate; the CLI on the same JSON
+    exits 1."""
+    import io
+    import tempfile
+
+    from torchdistpackage_tpu_torch.dist import autoplan as ap
+    from torchdistpackage_tpu_torch.obs.events import default_event_log
+    from torchdistpackage_tpu_torch.obs.mem_ledger import device_capacity
+    from torchdistpackage_tpu_torch.obs.report import _validate_autoplan
+    from torchdistpackage_tpu_torch.tools.autoplan import main as cli
+
+    cfg, dims = mixtral_dims()
+    cap = device_capacity()
+    n0 = len(default_event_log().of_kind("plan_rejected_oom"))
+    res = ap.plan(cfg, 1, PLAN_MOE_BATCH, seq_len=PLAN_MOE_SEQ,
+                  capacity_bytes=cap)
+    events = len(default_event_log().of_kind("plan_rejected_oom")) - n0
+    pruned = res["pruned"]
+    log(f"[plan] (b) Mixtral-8x7B on 1 card ({cap:,} B): verdict "
+        f"{res['verdict']}, {res['n_pruned_oom']} of {res['n_candidates']} "
+        f"pruned, {events} plan_rejected_oom event(s): "
+        + ", ".join(f"{p['key']} {p['total_bytes']:,} B ({p['frac']})"
+                    for p in pruned))
+    if (res["verdict"] != "all_oom" or res["chosen"] is not None
+            or events != res["n_candidates"] or _validate_autoplan(res)):
+        raise RuntimeError(f"Mixtral's plan is not a clean all_oom: {res}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "mixtral.json"
+        path.write_text(json.dumps(dims))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli(["--config", str(path), "--chips", "1", "--batch",
+                      str(PLAN_MOE_BATCH), "--seq", str(PLAN_MOE_SEQ),
+                      "--hbm-gb", str(cap / 1e9)])
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    log(f"[plan] (b) the CLI on Mixtral's JSON: exit {rc}, {line}")
+    if rc != 1 or line["verdict"] != "all_oom":
+        raise RuntimeError(f"the CLI on Mixtral exited {rc}: {line}")
+    return {"verdict": res["verdict"], "pruned": pruned, "cli_rc": rc}
+
+
+def plan_prefill_check(card, eff):
+    """(c) The CP prefill tier of Mistral-7B at 32768 and 131072 tokens,
+    ring widths 1, 2, 4, 8 (the engine's chunk and block): each width's
+    modeled TTFT and memory verdict a rank, at this card's capacity and
+    the FLOP/s this run's train step sustained."""
+    from torchdistpackage_tpu_torch.dist import autoplan as ap
+    from torchdistpackage_tpu_torch.models import mistral_7b_config
+    from torchdistpackage_tpu_torch.obs.comm_model import CommModel
+    from torchdistpackage_tpu_torch.obs.mem_ledger import device_capacity
+
+    out = {}
+    for ctx_len in PLAN_CONTEXTS:
+        res = ap.plan_prefill_tier(
+            mistral_7b_config(), context_len=ctx_len, chunk=512,
+            block_size=BS, cp_widths=(1, 2, 4, 8),
+            comm_model=CommModel.from_defaults(),
+            capacity_bytes=device_capacity(), effective_flops=eff,
+            emit=False)
+        arms = {r["key"]: r for r in res["ranked"]}
+        arms.update({p["key"]: p for p in res["pruned"]})
+        log(f"[plan] (c) Mistral-7B prefill of {ctx_len} tokens: "
+            f"{res['verdict']}, chosen "
+            f"{res['chosen'] and res['chosen']['key']}; "
+            + "; ".join(
+                f"{k} TTFT {r['ttft_s']:.3f} s (compute {r['compute_s']:.3f}"
+                f", ring {r['ring_s']:.4f}), {r['mem_bytes']:,} B a rank, "
+                f"{r['memory']['verdict']}" if "ttft_s" in r else
+                f"{k} pruned ({r['total_bytes']:,} B, {r['frac']})"
+                for k, r in sorted(arms.items()))
+            + f" — on {card}")
+        out[ctx_len] = res
+    return out
+
+
+def flash_tile_check(fa, shape, seed, pick=None):
+    """Each built K3 tile's ``(o, lse)`` at ``shape`` against the plain
+    forward in f32 on the same values, each launching its own
+    instantiation (the library's per-tile count).  ``pick``: the selector
+    to test (a planted fault replaces ``resolve_tiles``).  Returns the
+    rows; raises on any failure."""
+    from torchdistpackage_tpu_torch.ops import _build
+
+    B, H, S, hd = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(B, H, S, hd, generator=g, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    args = (hd ** -0.5, True, None)
+    o_x, lse_x = fa.flash_fwd_reference(q.float(), k.float(), v.float(),
+                                        *args)
+    rows = []
+    for bq, bk, ns in fa.FWD_TILES:
+        name = f"flash_fwd_wgmma_kernel {bk} {ns}"
+        n0 = _build.body_launches("flash_attention", name)
+        o, lse = fa.flash_fwd(q, k, v, *args, block_q=bq, block_k=bk,
+                              stages=ns)
+        torch.cuda.synchronize()
+        err, ratio = held(o, o_x, torch.bfloat16)
+        lse_err = float((lse - lse_x).abs().max())
+        launched = _build.body_launches("flash_attention", name) - n0
+        rows.append({"block_k": bk, "stages": ns, "max_abs_err": err,
+                     "tol_ratio": max(ratio, lse_err / 2e-5),
+                     "launched": launched})
+        if not (ratio <= 1.0 and lse_err <= 2e-5 and launched == 1):
+            raise RuntimeError(f"K3 tile ({bq}, {bk}, {ns}) at {shape}: "
+                               f"{ratio:.3f} of the row tolerance, lse err "
+                               f"{lse_err:.3g}, its instantiation launched "
+                               f"{launched} time(s)")
+    return rows
+
+
+@contextlib.contextmanager
+def wrong_block_k_selector(fa):
+    """Planted fault: the tile selector sends every ``block_k=64`` request
+    to the 128-key instantiation (right values, wrong tile)."""
+    real = fa.resolve_tiles
+
+    def wrong(q, block_q=None, block_k=None, stages=None):
+        tile = real(q, block_q, block_k, stages)
+        return tile if tile is None or tile[1] != 64 else (tile[0], 128,
+                                                           tile[2])
+    fa.resolve_tiles = wrong
+    try:
+        yield
+    finally:
+        fa.resolve_tiles = real
+
+
+def plan_flash_tune(card):
+    """(d) ``tune_flash_blocks`` over the four built K3 tiles at
+    ``bench.py``'s shape and at hd 128, each tile first held against the
+    plain forward (``flash_tile_check``), a wrong ``block_k`` selector
+    planted, which the check must catch; then forward + backward timed
+    by CUDA events.  The default (128, 128, 2) is not changed here."""
+    from torchdistpackage_tpu_torch.ops import flash_attention as fa
+    from torchdistpackage_tpu_torch.tools.flash_tune import tune_flash_blocks
+
+    out = {}
+    for i, shape in enumerate(PLAN_FLASH_SHAPES):
+        checks = flash_tile_check(fa, shape, 300 + i)
+        log(f"[plan] (d) K3 tiles at {shape} against the plain forward: "
+            + ", ".join(f"({r['block_k']}, {r['stages']}) "
+                        f"{r['tol_ratio']:.3f} of the tolerance"
+                        for r in checks))
+        caught = False
+        with wrong_block_k_selector(fa):
+            try:
+                flash_tile_check(fa, shape, 300 + i)
+            except RuntimeError as e:
+                caught = True
+                log(f"[plan] (d) planted wrong block_k selector: caught "
+                    f"({e})")
+        if not caught:
+            raise RuntimeError("the wrong block_k selector was not caught")
+        best, report = tune_flash_blocks(*shape, steps=10, warmup=2,
+                                         device="cuda")
+        log(f"[plan] (d) tune_flash_blocks {shape}, forward + backward: "
+            + ", ".join(f"({r['block_q']}, {r['block_k']}, {r['stages']}) "
+                        f"{r['ms']:.4f} ms (rel {r['rel']})"
+                        + (" default" if r.get("default") else "")
+                        for r in report)
+            + f"; best {best}; K4 / K5 tiles {report[0]['bwd_tiles']} — on "
+            f"{card}")
+        out[shape] = {"checks": checks, "report": report, "best": best}
+    return out
+
+
+def plan_paged_tune(card):
+    """(e) ``tune_paged_params`` at Mistral-7B's decode shape (8 slots, 8
+    KV heads, G 4, hd 128, the engine's block, 2048 positions, ``spec_k``
+    3): each candidate ``nsplit`` (1, 2, 4, ... 128 and the rule's own)
+    first held at both serving shapes against the plain split schedule at
+    that width, in f32 on the same values; then timed."""
+    from torchdistpackage_tpu_torch.ops import paged_attention as pa
+    from torchdistpackage_tpu_torch.tools import flash_tune as ft
+
+    inp = ft.paged_inputs(**PLAN_PAGED, device="cuda")
+    rule = ft.rule_nsplit(inp)
+    mb = PLAN_PAGED["max_blocks"]
+    cands = sorted({1 << i for i in range(mb.bit_length()) if 1 << i <= mb}
+                   | {rule})
+    kx, vx = inp["k_pool"].float(), inp["v_pool"].float()
+    worst = 0.0
+    for n in cands:
+        for name, q in inp["q"].items():
+            got = pa.paged_decode_attention(
+                q, inp["k_pool"], inp["v_pool"], inp["tables"],
+                inp["offsets"], nsplit=n)
+            B, H, S, hd = q.shape
+            want = pa.finalize_paged_carry(pa.paged_decode_split_reference(
+                q.float(), kx, vx, inp["tables"], inp["offsets"],
+                nsplit=n), B, H, S, hd, torch.float32)
+            _, ratio = held(got, want, torch.bfloat16)
+            worst = max(worst, ratio)
+            if not ratio <= 1.0:
+                raise RuntimeError(f"K1 at nsplit {n} ({name}): {ratio:.3f} "
+                                   f"of the row tolerance")
+    best, report = ft.tune_paged_params(**PLAN_PAGED, candidates=cands,
+                                        steps=200, warmup=3, device="cuda")
+    log(f"[plan] (e) K1 at Mistral-7B's decode shape, every nsplit of "
+        f"{cands} against the plain split schedule: at most {worst:.3f} of "
+        f"the row tolerance; times (S_in 1 + S_in {PLAN_PAGED['spec_k'] + 1}"
+        f"): " + ", ".join(
+            f"{r['nsplit']} {r['decode_ms']:.4f} + {r['verify_ms']:.4f} ms"
+            + (" rule" if r["rule"] else "") for r in report)
+        + f"; best {best} — on {card}")
+    return {"rule": rule, "report": report, "best": best, "worst": worst}
+
+
+def plan_hf_round_trip(card):
+    """(f) Mistral-7B-v0.1 at its full widths and 4 layers: the port's
+    params through ``to_hf_llama`` (exported under the window-free config:
+    ``LlamaConfig`` has no window) and back through ``from_hf_llama``
+    (MistralConfig's fields: the export's and the window), every leaf
+    bit-equal to the original; then 4 requests x 16 greedy tokens through
+    the ``ServingEngine`` (K1) on each tree give the same tokens."""
+    from torchdistpackage_tpu_torch.models import (
+        from_hf_llama,
+        init_gpt_params,
+        mistral_7b_config,
+        to_hf_llama,
+    )
+    from torchdistpackage_tpu_torch.obs.numerics import tree_paths
+    from torchdistpackage_tpu_torch.ops.paged_attention import LAUNCHES
+    from torchdistpackage_tpu_torch.serving import Request, ServingEngine
+
+    cfg = dataclasses.replace(mistral_7b_config(), nlayers=PLAN_HF_LAYERS)
+    params = init_gpt_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sd, kw = to_hf_llama(params, dataclasses.replace(cfg,
+                                                     sliding_window=None))
+    cfg2, back = from_hf_llama(sd, hf_config=dict(
+        kw, sliding_window=cfg.sliding_window), dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    del sd
+    want = dict(tree_paths(params))
+    got = dict(tree_paths(back))
+    diff = [k for k in want if k not in got or got[k].dtype != want[k].dtype
+            or not torch.equal(got[k], want[k])]
+    log(f"[plan] (f) Mistral-7B widths, {cfg.nlayers} layers "
+        f"({sum(t.numel() for t in want.values()) / 1e9:.3f} B params): "
+        f"to_hf_llama + from_hf_llama in {secs:.2f} s, {len(want)} leaves, "
+        f"{len(diff)} differ; config round trip "
+        f"{'equal' if cfg2 == cfg else 'DIFFERS'}")
+    if diff or sorted(got) != sorted(want) or cfg2 != cfg:
+        raise RuntimeError(f"HF round trip not bit-exact: {diff[:4]}, "
+                           f"config {cfg2} vs {cfg}")
+    rs = np.random.RandomState(27)
+    reqs = [rs.randint(0, cfg.vocab_size, n).tolist()
+            for n in PLAN_HF_PROMPTS]
+    tokens, launches = [], []
+    for tree in (params, back):
+        eng = ServingEngine(tree, cfg, num_slots=4, block_size=BS,
+                            chunk=512, max_ctx=4096)
+        rids = [eng.submit(Request(r, PLAN_HF_NEW)) for r in reqs]
+        reset_counts()
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+        s = eng.serving_summary()
+        calls = s["prefill_chunks"] + s["decode_steps"]
+        launches.append(LAUNCHES["paged_decode_attention"])
+        if launches[-1] != cfg.nlayers * calls:
+            raise RuntimeError(f"K1 launches {launches[-1]} != "
+                               f"{cfg.nlayers} x {calls}")
+        tokens.append([eng.finished[r]["tokens"].tolist() for r in rids])
+        del eng
+    log(f"[plan] (f) {len(reqs)} requests x {PLAN_HF_NEW} greedy tokens "
+        f"through the engine on the original and on the round-tripped "
+        f"params: tokens {'equal' if tokens[0] == tokens[1] else 'DIFFER'}; "
+        f"K1 launches {launches} — on {card}")
+    if tokens[0] != tokens[1]:
+        raise RuntimeError("the round-tripped params decode other tokens")
+    del params, back
+    torch.cuda.empty_cache()
+    return {"launches": launches[0], "leaves": len(want)}
+
+
+def plan_phase(card, train):
+    """The planning slice: (a) the planner's GPT-125M plan built and
+    stepped, (b) Mixtral's all-OOM verdict and the CLI's exit 1, (c) the
+    CP prefill tier, (d) K3's tiles held and tuned, (e) K1's split widths
+    held and tuned, (f) the HF round trip at Mistral-7B widths and the
+    engine on it."""
+    t0 = time.perf_counter()
+    out = {"a": plan_train_check(card, train), "b": plan_oom_check(card)}
+    out["c"] = plan_prefill_check(card,
+                                  train["mfu"] * PEAK_FLOPS[torch.bfloat16])
+    out["d"] = plan_flash_tune(card)
+    out["e"] = plan_paged_tune(card)
+    out["f"] = plan_hf_round_trip(card)
+    log(f"[plan] the phase took {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 # ------------------------------------------------------------ resilience
@@ -9995,17 +10440,24 @@ WGMMA_KERNELS = {"flash_fwd_wgmma_kernel": "K3",
                  "moe_ffn_up_decode_kernel": "K6",
                  "moe_ffn_down_decode_kernel": "K6"}
 # the warpgroup instantiations the build must hold, by kernel
-WGMMA_COUNTS = {"K3": 2, "K4": 2, "K5": 2, "K6": 12, "K7": 24}
+WGMMA_COUNTS = {"K3": 8, "K4": 2, "K5": 2, "K6": 12, "K7": 24}
+SMEM_LIMIT = 232448  # a CTA's dynamic shared memory on an H100 (227 KB)
 
 
 def wgmma_label(name, line):
     """``(label, (smem function, its args))`` of a warpgroup instantiation
-    named in a ptxas line: K3-K5 by head dim (``tdp_flash_smem_bytes(
-    kernel, 0, hd)``), K6's and K7's chunk passes by weight type and
+    named in a ptxas line: K3 by head dim and tile
+    (``tdp_flash_fwd_smem_bytes(hd, block_k, stages)``), K4 and K5 by
+    head dim (``tdp_flash_smem_bytes(kernel, 0, hd)``), K6's and K7's chunk passes by weight type and
     activation (``tdp_expert_ffn_wgmma_smem_bytes(up, quantized,
     swiglu)``: the two share the body), K6's and K7's decode passes by
     those and the row tile (K6's is 16;
     ``tdp_expert_ffn_decode_smem_bytes(up, quantized, swiglu, rows)``)."""
+    if name == "flash_fwd_wgmma_kernel":  # <hd, keys a tile, stages>
+        hd, bk, ns = map(int, re.search(r"ILi(\d+)ELi(\d+)ELi(\d+)E",
+                                        line).groups())
+        return (f"K3 {name} bf16 hd {hd} block_k {bk} stages {ns}",
+                ("tdp_flash_fwd_smem_bytes", (hd, bk, ns)))
     if name.startswith("flash"):
         hd = 128 if "ILi128E" in line else 64
         kernel = {"K3": 0, "K4": 1, "K5": 2}[WGMMA_KERNELS[name]]
@@ -10076,8 +10528,7 @@ def build_phase():
             fut.result()
     log(f"[build] all sources, the {len(PAGED_FAULTS)} planted-fault "
         f"variants of paged_attention.cu and the one each of moe_dispatch.cu "
-        f"and flash_attention.cu built in "
-        f"{time.perf_counter() - t0:.1f} s ("
+        f"and flash_attention.cu, built in {time.perf_counter() - t0:.1f} s ("
         + ", ".join(f"{n}.cu {i['seconds']:.1f} s"
                     for n, i in _build.BUILD_INFO.items()) + ")")
     summary = {}
@@ -10147,6 +10598,10 @@ def build_phase():
             smem.argtypes = [ctypes.c_int] * len(args)
             smem.restype = ctypes.c_int
             regs["smem_bytes"] = smem(*args)
+            if not 0 < regs["smem_bytes"] <= SMEM_LIMIT:
+                raise RuntimeError(f"{kernel}: {regs['smem_bytes']} B of "
+                                   f"dynamic shared memory, above the "
+                                   f"{SMEM_LIMIT} B a CTA has")
             regs["hgmma"] = hgmma.get(regs.pop("function"), 0)
             extra = (f", {regs['smem_bytes']} B dynamic shared memory, "
                      f"{regs['hgmma']} HGMMA instructions")
@@ -10254,6 +10709,10 @@ def main():
     # the training run's resilience and observability, while the process
     # is young (the profiler window)
     resilience = resilience_phase(card)
+    # the planning slice: the planner's plan built and stepped, K3's tiles
+    # and K1's split widths held and tuned, the HF round trip
+    plan = plan_phase(card, train)
+    log(f"[time] planning done at {time.perf_counter() - t_start:.0f} s")
     path_parity_phase()
     mistral_train_phase(card)
     dp_train_phase(card)
@@ -10402,7 +10861,13 @@ def main():
                                     fleet["d"]["launches"][1]["K1"]},
                             dp_engine_launches_by_rank=dp_eng["launches"],
                             tp_ep_engine_launches=tp_ep["engine"]["tp_ep"][
-                                "launches"]["paged_decode_attention"])]
+                                "launches"]["paged_decode_attention"],
+                            plan_hf_engine_launches=plan["f"]["launches"],
+                            plan_nsplit={
+                                "rule": plan["e"]["rule"],
+                                "ms": {r["nsplit"]: [r["decode_ms"],
+                                                     r["verify_ms"]]
+                                       for r in plan["e"]["report"]}})]
     for kname, krows in flash_rows.items():
         k = {"flash_fwd": "K3", "flash_bwd_dq": "K4",
              "flash_bwd_dkv": "K5"}[kname]
@@ -10429,6 +10894,7 @@ def main():
             "resilience_launches": {
                 arm: resilience["launches"][arm][kname]
                 for arm in ("a", "b", "c", "d")},
+            "plan_launches": plan["a"]["launches"][kname],
             "vit_train_launches_a_step": vit_train["launches"][kname],
             "vit_moe_train_launches_a_step": vit_moe_train["launches"][kname],
             "cp_train_launches": {
@@ -10438,6 +10904,12 @@ def main():
                     m: [r["gpt"][m]["launches"][kname]
                         for r in cp_train["two_ranks"]["ranks"]]
                     for m in CP_K3_A_LAYER}}}
+        if kname == "flash_fwd":  # the tuner's fwd + bwd ms a tile
+            extra["plan_tiles_ms"] = {
+                "x".join(map(str, shape)): {
+                    f"{r['block_k']}/{r['stages']}": r["ms"]
+                    for r in d["report"]}
+                for shape, d in plan["d"].items()}
         if kname == "flash_fwd":  # resilience (f): 4 a block
             extra["resilience_profile_blocks_launches"] = \
                 resilience["f"]["k3"]

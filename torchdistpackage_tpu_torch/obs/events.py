@@ -87,6 +87,11 @@ EVENT_KINDS: FrozenSet[str] = frozenset({
     "profile_window_start", "profile_window_stop", "profile_window_failed",
     # the zero-bubble schedule's tick accounting (pipeline_zb_1f1b)
     "zb_wgrad_deferred", "zb_cooldown_filled",
+    # the planner (dist.autoplan): the chosen plan (its key, modeled step
+    # time, candidate and pruned counts; the RUNREPORT autoplan section is
+    # the full audit), and a candidate whose modeled resident bytes
+    # crossed the OOM-risk line, pruned before anything runs
+    "plan_selected", "plan_rejected_oom",
 })
 
 

@@ -350,11 +350,17 @@ def _shard_count(spec: Any, axis_sizes: Dict[str, int]) -> int:
 
 def _shapes_for_config(config: Any) -> Any:
     """The config family's parameter tree on the ``meta`` device: shapes
-    and dtypes, no bytes and no FLOPs."""
-    if not hasattr(config, "vocab_size"):
-        raise ValueError(f"cannot derive param shapes from "
-                         f"{type(config).__name__}; pass params= explicitly")
+    and dtypes, no bytes and no FLOPs (a ``GPTConfig``, dense or MoE, or
+    a ``TransformerConfig``)."""
     gen = torch.Generator(device="cpu").manual_seed(0)
+    if not hasattr(config, "vocab_size"):
+        if not hasattr(config, "nheads"):
+            raise ValueError(f"cannot derive param shapes from "
+                             f"{type(config).__name__}; pass params= "
+                             f"explicitly")
+        from ..parallel.tensor_parallel.layers import init_transformer_params
+
+        return init_transformer_params(gen, config, device="meta")
     if getattr(config, "moe_experts", 0):
         from ..models.gpt_moe import init_gpt_moe_params
 

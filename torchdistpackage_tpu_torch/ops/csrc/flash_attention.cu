@@ -35,7 +35,11 @@
 //   the window edge or the end of the keys (queries).  A masked score is
 //   -inf and a row with no visible key yet keeps max -inf, scaled by 0.
 // - K3: 128 query rows a CTA and one producer warp; Q loaded once, K and
-//   V tiles of 128 keys through 2 stages on separate barriers.
+//   V tiles through a ring of stages on separate barriers.  The body is a
+//   template in its keys a tile (64 or 128) and its stage count (2 or 3):
+//   all four are built for each head dim, and the caller picks one at
+//   launch (block_k, stages; tools/flash_tune.py times them).  The main
+//   path's tile is 128 keys through 2 stages.
 // - K4: 128 query rows a CTA, Q and dO loaded once, K and V tiles of 128
 //   keys through 3 stages at hd 64 and 2 at hd 128 on one barrier a stage;
 //   lse and delta of a thread's two rows in registers.  S, dP and dq (and
@@ -103,6 +107,7 @@
 #include <type_traits>
 
 #include "hopper.cuh"
+#include "launch_counts.cuh"
 
 // A planted-fault build (chip_smoke.py's flash_kernel_phase) defines
 // TDP_FLASH_FAULT: 1 = bf16 K3 without the key bound (keys past Sk unmasked)
@@ -638,18 +643,23 @@ __device__ __forceinline__ float exp2_(float x) {
   return y;
 }
 
-template <int D>
+template <int D, int KEYS, int STAGES>
 struct FwdWg {
-  static constexpr int BM = 128;  // query rows a CTA
-  static constexpr int BN = 128;  // keys a tile
-  static constexpr int NS = 2;    // K/V stages
+  static constexpr int BM = 128;     // query rows a CTA
+  static constexpr int BN = KEYS;    // keys a tile
+  static constexpr int NS = STAGES;  // K/V stages
   static constexpr int THREADS = CONSUMER_WARPS * 32 + 32;  // + producer
   static constexpr int Q_BYTES = BM * D * 2;
   static constexpr int KV_BYTES = BN * D * 2;  // one K (or V) tile
   static constexpr int BAR_BYTES = 8 * (1 + 3 * NS);
   static constexpr size_t SMEM =
       1024 + Q_BYTES + 2 * NS * KV_BYTES + BAR_BYTES;
+  static_assert(SMEM <= 232448, "K3 tile above a CTA's 227 KB of shared "
+                                "memory");
 };
+
+// The K3 tiles built, as (keys a tile, stages); the default first.
+#define TDP_FLASH_FWD_TILES(X) X(128, 2) X(128, 3) X(64, 2) X(64, 3)
 
 // K3 in bf16.  One CTA: 128 query rows of one (batch, head) — consumer
 // warpgroup w owns rows 64w..64w+63 — and one producer warp that loads Q
@@ -659,15 +669,15 @@ struct FwdWg {
 // softmax in registers in exp2 form, P rounded to bf16 straight from the
 // accumulator into A fragments, O += P.V by wgmma with A from registers
 // and B = V read MN-major (transpose bit).
-template <int D>
-__global__ void __launch_bounds__(FwdWg<D>::THREADS, 1)
+template <int D, int KEYS, int STAGES>
+__global__ void __launch_bounds__(FwdWg<D, KEYS, STAGES>::THREADS, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
                        __nv_bfloat16* __restrict__ o,
                        float* __restrict__ lse, int H, int G, int Sq, int Sk,
                        int causal, int window, float scale) {
-  using C = FwdWg<D>;
+  using C = FwdWg<D, KEYS, STAGES>;
   constexpr int BM = C::BM, BN = C::BN, NS = C::NS, NB = D / 64;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* qs = hopper::align1024(smem_raw);
@@ -1318,18 +1328,29 @@ bool bad(const Shape& s) {
          (s.causal && s.Sq != s.Sk) || (s.window > 0 && !s.causal);
 }
 
-template <int D>
+// The launch-count name of a K3 tile (tdp_body_launches): a string
+// literal for each tile built.
+const char* fwd_tile_name(int keys, int stages) {
+#define TDP_NAME(K, N) \
+  if (keys == K && stages == N) return "flash_fwd_wgmma_kernel " #K " " #N;
+  TDP_FLASH_FWD_TILES(TDP_NAME)
+#undef TDP_NAME
+  return "flash_fwd_wgmma_kernel ?";
+}
+
+template <int D, int KEYS, int STAGES>
 cudaError_t fwd_wgmma(const void* q, const void* k, const void* v, void* o,
                       void* lse, const Shape& s, cudaStream_t st) {
-  using C = FwdWg<D>;
+  using C = FwdWg<D, KEYS, STAGES>;
   CUtensorMap tq, tk, tv;
   if (!encode_tile_map(&tq, q, s.B * s.H, s.Sq, D, C::BM) ||
       !encode_tile_map(&tk, k, s.B * s.Hkv, s.Sk, D, C::BN) ||
       !encode_tile_map(&tv, v, s.B * s.Hkv, s.Sk, D, C::BN))
     return cudaErrorNotSupported;
-  auto kernel = flash_fwd_wgmma_kernel<D>;
+  auto kernel = flash_fwd_wgmma_kernel<D, KEYS, STAGES>;
   cudaError_t err = prepare(kernel, C::SMEM);
   if (err != cudaSuccess) return err;
+  TDP_NOTE(fwd_tile_name(KEYS, STAGES));
   kernel<<<dim3((s.Sq + C::BM - 1) / C::BM, s.B * s.H), C::THREADS, C::SMEM,
            st>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o),
                  static_cast<float*>(lse), s.H, s.H / s.Hkv, s.Sq, s.Sk,
@@ -1364,9 +1385,15 @@ cudaError_t bwd_dkv_wgmma(const void* q, const void* k, const void* v,
 // bf16 K3, K4 and K5 run the warpgroup bodies; f32 the CUDA-core ones
 template <typename T, int D>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
-                void* lse, const Shape& s, cudaStream_t st) {
+                void* lse, const Shape& s, int block_k, int stages,
+                cudaStream_t st) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return fwd_wgmma<D>(q, k, v, o, lse, s, st);
+#define TDP_TILE(K, N)                                    \
+    if (block_k == K && stages == N)                      \
+      return fwd_wgmma<D, K, N>(q, k, v, o, lse, s, st);
+    TDP_FLASH_FWD_TILES(TDP_TILE)
+#undef TDP_TILE
+    return cudaErrorInvalidValue;  // a tile not built
   } else {
     const size_t smem = FwdCfg<T, D>::SMEM;
     auto kernel = flash_fwd_kernel<T, D>;
@@ -1471,11 +1498,14 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
   }                                                                         \
   return static_cast<int>(err);
 
+// block_k / stages: the bf16 K3 tile (one of TDP_FLASH_FWD_TILES; the f32
+// body has one tile and ignores them).
 extern "C" int tdp_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, int B, int H, int Hkv,
                              int Sq, int Sk, int hd, int causal, int window,
-                             float sm_scale, int dtype_tag, void* stream) {
-  TDP_DISPATCH((fwd<T, D>(q, k, v, o, lse, s, st)))
+                             float sm_scale, int dtype_tag, int block_k,
+                             int stages, void* stream) {
+  TDP_DISPATCH((fwd<T, D>(q, k, v, o, lse, s, block_k, stages, st)))
 }
 
 extern "C" int tdp_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -1496,14 +1526,14 @@ extern "C" int tdp_flash_bwd_dkv(const void* q, const void* k, const void* v,
   TDP_DISPATCH((bwd_dkv<T, D>(q, k, v, dout, lse, delta, dk, dv, s, st)))
 }
 
-// Dynamic shared memory a CTA of each kernel uses (kernel 0 fwd, 1 dq,
-// 2 dkv), for the build report; -1 if unknown.
+// Dynamic shared memory a CTA of each kernel uses (kernel 0 fwd at the
+// main path's tile, 1 dq, 2 dkv), for the build report; -1 if unknown.
 extern "C" int tdp_flash_smem_bytes(int kernel, int dtype_tag, int hd) {
   if (hd != 64 && hd != 128) return -1;
   const bool h = hd == 128;
   size_t n = 0;
   if (dtype_tag == 0) {
-    n = kernel == 0 ? (h ? FwdWg<128>::SMEM : FwdWg<64>::SMEM)
+    n = kernel == 0 ? (h ? FwdWg<128, 128, 2>::SMEM : FwdWg<64, 128, 2>::SMEM)
         : kernel == 1 ? (h ? DqWg<128>::SMEM : DqWg<64>::SMEM)
                       : (h ? DkvWg<128>::SMEM : DkvWg<64>::SMEM);
   } else if (dtype_tag == 1) {
@@ -1515,4 +1545,17 @@ extern "C" int tdp_flash_smem_bytes(int kernel, int dtype_tag, int hd) {
     return -1;
   }
   return kernel < 0 || kernel > 2 ? -1 : static_cast<int>(n);
+}
+
+// Dynamic shared memory a CTA of the bf16 K3 tile (block_k, stages) uses at
+// head dim hd, for the build report and the tuner; -1 for a tile not built.
+extern "C" int tdp_flash_fwd_smem_bytes(int hd, int block_k, int stages) {
+  if (hd != 64 && hd != 128) return -1;
+#define TDP_SMEM(K, N)                                          \
+  if (block_k == K && stages == N)                              \
+    return static_cast<int>(hd == 128 ? FwdWg<128, K, N>::SMEM  \
+                                      : FwdWg<64, K, N>::SMEM);
+  TDP_FLASH_FWD_TILES(TDP_SMEM)
+#undef TDP_SMEM
+  return -1;
 }

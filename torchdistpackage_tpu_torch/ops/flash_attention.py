@@ -55,6 +55,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import ctypes
+import functools
 import math
 from typing import Dict, List, Optional, Tuple
 
@@ -68,12 +69,38 @@ TILE = 64        # the f32 bodies' row tile (any S: the last one is ragged)
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0,
                             "flash_bwd_dkv": 0}
 
+#: the bf16 K3 tiles ``csrc/flash_attention.cu`` builds
+#: (``TDP_FLASH_FWD_TILES``), as ``(block_q, block_k, stages)``: query rows
+#: a CTA (128, two consumer warpgroups of 64), keys a K/V tile, and the
+#: stages of the K/V ring
+FWD_TILES: Tuple[Tuple[int, int, int], ...] = (
+    (128, 128, 2), (128, 128, 3), (128, 64, 2), (128, 64, 3))
+#: K4's and K5's tiles by head dim, fixed in the source (``DqWg`` /
+#: ``DkvWg``): dq 128 query rows a CTA over K/V tiles of 128 keys; dk/dv
+#: 128 keys a CTA over query tiles, both through a ring of stages
+BWD_TILES: Dict[int, Dict[str, Dict[str, int]]] = {
+    64: {"flash_bwd_dq": {"block_q": 128, "block_k": 128, "stages": 3},
+         "flash_bwd_dkv": {"block_k": 128, "block_q": 128, "stages": 3}},
+    128: {"flash_bwd_dq": {"block_q": 128, "block_k": 128, "stages": 2},
+          "flash_bwd_dkv": {"block_k": 128, "block_q": 64, "stages": 3}},
+}
+#: the tuned K3 tile by CUDA device name (a substring, lower case), as the
+#: reference's ``_TUNED_TILES`` by TPU kind: ``tools/flash_tune.py``
+#: measures the candidates; a faster row is a change of its own.  The H100
+#: row is the tile the main path has run since the body was written.
+_TUNED_TILES: Tuple[Tuple[str, Tuple[int, int, int]], ...] = (
+    ("h100 80gb hbm3", (128, 128, 2)),
+)
+#: any other card, and the CPU
+_FALLBACK_TILES = (128, 128, 2)
+
 _DTYPE_TAG = {torch.bfloat16: 0, torch.float32: 1}
 _SHAPE_ARGS = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
                                     ctypes.c_void_p]
 # B, H, Hkv, Sq, Sk, hd, causal, window, sm_scale, dtype tag, stream
 _ARGTYPES = {
-    "tdp_flash_fwd": [ctypes.c_void_p] * 5 + _SHAPE_ARGS,
+    "tdp_flash_fwd": ([ctypes.c_void_p] * 5 + _SHAPE_ARGS[:-1]
+                      + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
     "tdp_flash_bwd_dq": [ctypes.c_void_p] * 7 + _SHAPE_ARGS,
     "tdp_flash_bwd_dkv": [ctypes.c_void_p] * 8 + _SHAPE_ARGS,
 }
@@ -102,8 +129,8 @@ def prep_args(q: torch.Tensor, k: torch.Tensor, sm_scale: Optional[float],
               ) -> Tuple[int, float, Optional[int]]:
     """The reference's ``_prep`` argument handling: the GQA group count,
     the default ``sm_scale`` (1/sqrt(hd)) and the window checks.  Returns
-    ``(groups, sm_scale, window)``.  The TPU tile tuning (``_tiles_for``,
-    ``default_tiles``) has no counterpart: the kernels pick their own."""
+    ``(groups, sm_scale, window)``.  The tile tuning is
+    :func:`resolve_tiles` / :func:`default_tiles`."""
     _check(q.dim() == 4 and k.dim() == 4,
            f"q and k must be [B, H, S, hd], got {tuple(q.shape)} / "
            f"{tuple(k.shape)}")
@@ -125,6 +152,49 @@ def prep_args(q: torch.Tensor, k: torch.Tensor, sm_scale: Optional[float],
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     return groups, float(sm_scale), None if window is None else int(window)
+
+
+def default_tiles(device=None) -> Tuple[int, int, int]:
+    """``(block_q, block_k, stages)`` of K3 on ``device``'s card (default
+    card 0): its :data:`_TUNED_TILES` row, else :data:`_FALLBACK_TILES`
+    (also for the CPU)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        return _FALLBACK_TILES
+    return _card_tiles(torch.cuda.current_device() if dev.index is None
+                       else dev.index)
+
+
+@functools.lru_cache(maxsize=None)
+def _card_tiles(index: int) -> Tuple[int, int, int]:
+    # looked up once a card: every K3 launch of the training path asks
+    name = torch.cuda.get_device_name(index).lower()
+    return next((t for sub, t in _TUNED_TILES if sub in name),
+                _FALLBACK_TILES)
+
+
+def resolve_tiles(q: torch.Tensor, block_q: Optional[int] = None,
+                  block_k: Optional[int] = None,
+                  stages: Optional[int] = None
+                  ) -> Optional[Tuple[int, int, int]]:
+    """The K3 tile a call on ``q`` launches: each of ``block_q``,
+    ``block_k``, ``stages`` left None takes :func:`default_tiles`' value.
+    Raises for a tile not in :data:`FWD_TILES` (not built), and for an
+    explicit tile on f32, whose body has one tile of its own; None for an
+    f32 call without one."""
+    if q.dtype == torch.float32:
+        _check(block_q is None and block_k is None and stages is None,
+               "the f32 forward has one tile of its own; block_q, block_k "
+               "and stages apply to bf16")
+        return None
+    d = default_tiles(q.device)
+    tile = (d[0] if block_q is None else int(block_q),
+            d[1] if block_k is None else int(block_k),
+            d[2] if stages is None else int(stages))
+    _check(tile in FWD_TILES,
+           f"K3 tile (block_q, block_k, stages) {tile} is not built; "
+           f"built: {FWD_TILES}")
+    return tile
 
 
 def _mask(Sq: int, Sk: int, causal: bool, window: Optional[int], device):
@@ -304,22 +374,26 @@ def _check_kernel_inputs(name: str, tensors, q, k, causal):
 
 
 def _launch(name: str, fn_name: str, ptrs, q, k, sm_scale, causal, window,
-            tag) -> None:
+            tag, tile_args=()) -> None:
     B, H, Sq, hd = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _kernel(fn_name)(
             *ptrs, B, H, k.shape[1], Sq, k.shape[2], hd, int(causal),
             -1 if window is None else int(window), float(sm_scale), tag,
-            stream)
+            *tile_args, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
 
 
 def flash_fwd(q, k, v, sm_scale: float, causal: bool,
-              window: Optional[int]):
-    """K3: ``(o, lse)`` for q [B, H, Sq, hd] and k/v [B, Hkv, Sk, hd]."""
+              window: Optional[int], block_q: Optional[int] = None,
+              block_k: Optional[int] = None, stages: Optional[int] = None):
+    """K3: ``(o, lse)`` for q [B, H, Sq, hd] and k/v [B, Hkv, Sk, hd].
+    ``block_q`` / ``block_k`` / ``stages``: the bf16 tile
+    (:func:`resolve_tiles`; default :func:`default_tiles`)."""
+    tile = resolve_tiles(q, block_q, block_k, stages)
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, sm_scale, causal, window)
     tag = _check_kernel_inputs("flash_fwd", (q, k, v), q, k, causal)
@@ -329,7 +403,8 @@ def flash_fwd(q, k, v, sm_scale: float, causal: bool,
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     _launch("flash_fwd", "tdp_flash_fwd",
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             lse.data_ptr()), q, k, sm_scale, causal, window, tag)
+             lse.data_ptr()), q, k, sm_scale, causal, window, tag,
+            (0, 0) if tile is None else tile[1:])
     return o, lse
 
 
@@ -449,9 +524,9 @@ class _Flash(torch.autograd.Function):
     (plain), then K4 and K5.  ``saved`` carries a replayed ``(o, lse)``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, sm_scale, causal, window, saved):
+    def forward(ctx, q, k, v, sm_scale, causal, window, saved, tiles):
         if saved is None:
-            o, lse = flash_fwd(q, k, v, sm_scale, causal, window)
+            o, lse = flash_fwd(q, k, v, sm_scale, causal, window, *tiles)
         else:
             o, lse = (t.detach() for t in saved)
         ctx.save_for_backward(q, k, v, o, lse)
@@ -468,17 +543,18 @@ class _Flash(torch.autograd.Function):
         delta = flash_delta(o, do, dlse)
         dq = flash_bwd_dq(q, k, v, do, lse, delta, *ctx.args)
         dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, *ctx.args)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
-def _flash(q, k, v, sm_scale, causal, window):
+def _flash(q, k, v, sm_scale, causal, window, tiles=(None, None, None)):
     stash = _STASH.get()
     if stash is not None and stash[1] == "replay" and stash[0]:
         o, lse = stash[0].pop(0)
         if isinstance(o, _Offloaded):
             o = o.get()
-        return _Flash.apply(q, k, v, sm_scale, causal, window, (o, lse))
-    o, lse = _Flash.apply(q, k, v, sm_scale, causal, window, None)
+        return _Flash.apply(q, k, v, sm_scale, causal, window, (o, lse),
+                            tiles)
+    o, lse = _Flash.apply(q, k, v, sm_scale, causal, window, None, tiles)
     if stash is not None and stash[1] == "record":
         kept = (_Offloaded(o.detach()) if stash[2] and o.is_cuda
                 else o.detach())
@@ -488,14 +564,20 @@ def _flash(q, k, v, sm_scale, causal, window):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, sm_scale: Optional[float] = None,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    window: Optional[int] = None,
+                    block_q: Optional[int] = None,
+                    block_k: Optional[int] = None,
+                    stages: Optional[int] = None) -> torch.Tensor:
     """Blockwise (flash) attention, [B, H, S, hd], differentiable.
     ``window``: key in ``(q - window, q]`` (needs ``causal``).  GQA:
     ``k``/``v`` may carry fewer heads; grads come back in the kv heads'
     own shape.  CUDA tensors go through the kernels (contiguous, hd 64 or
-    128, any S, bf16 or f32); CPU tensors through the plain versions."""
+    128, any S, bf16 or f32); CPU tensors through the plain versions.
+    ``block_q`` / ``block_k`` / ``stages``: the forward's bf16 tile, one
+    of :data:`FWD_TILES` (default :func:`default_tiles`)."""
     _, sm_scale, window = prep_args(q, k, sm_scale, causal, window)
-    o, _ = _flash(q, k, v, sm_scale, bool(causal), window)
+    o, _ = _flash(q, k, v, sm_scale, bool(causal), window,
+                  (block_q, block_k, stages))
     return o
 
 

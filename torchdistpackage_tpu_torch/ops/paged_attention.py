@@ -256,16 +256,34 @@ def paged_decode_attention_reference(q: torch.Tensor, k_pool: Any,
                              window=window)
 
 
-def _workspace(B: int, Hkv: int, R: int, hd: int, mb: int, device
+def check_nsplit(nsplit: Optional[int], R: int, mb: int,
+                 where: str = "paged_decode_attention") -> None:
+    """An explicit ``nsplit`` (the tuner's knob; None keeps
+    :func:`decode_splits`) applies to decode rows only (``R <=
+    DECODE_ROWS``) and lies in ``[1, mb]``: every split then owns a share
+    of the table, empty where a slot sees fewer blocks."""
+    if nsplit is None:
+        return
+    _check(R <= DECODE_ROWS, f"nsplit applies to decode rows (R <= "
+           f"{DECODE_ROWS}), got R = {R}", where)
+    _check(1 <= int(nsplit) <= mb,
+           f"nsplit must be in [1, {mb}] (the table width), got {nsplit}",
+           where)
+
+
+def _workspace(B: int, Hkv: int, R: int, hd: int, mb: int, device,
+               nsplit: Optional[int] = None
                ) -> Tuple[int, int, Optional[torch.Tensor]]:
     """``(nsplit, order, workspace)`` of one launch: for decode rows the
-    split count, whether the grid starts the longest slots first (up to
-    ``DECODE_ORDER_MAX_SLOTS`` slots) and the f32 partial states (acc, m,
-    l of ``nsplit`` splits of every (slot, KV head)'s R rows) from
-    PyTorch's caching allocator; ``(0, 0, None)`` for prefill rows."""
+    split count (``nsplit``, else :func:`decode_splits`), whether the grid
+    starts the longest slots first (up to ``DECODE_ORDER_MAX_SLOTS``
+    slots) and the f32 partial states (acc, m, l of ``nsplit`` splits of
+    every (slot, KV head)'s R rows) from PyTorch's caching allocator;
+    ``(0, 0, None)`` for prefill rows."""
     if R > DECODE_ROWS:
         return 0, 0, None
-    nsplit = _splits_for(B * Hkv, mb, device)
+    nsplit = (int(nsplit) if nsplit is not None
+              else _splits_for(B * Hkv, mb, device))
     return nsplit, int(B <= DECODE_ORDER_MAX_SLOTS), torch.empty(
         B * Hkv * nsplit * R * (hd + 2), dtype=torch.float32, device=device)
 
@@ -295,7 +313,8 @@ def _offsets_on(offsets, B: int, device) -> torch.Tensor:
 
 def paged_decode_attention(q: torch.Tensor, k_pool: Any, v_pool: Any,
                            tables: torch.Tensor, offsets, *,
-                           window: Optional[int] = None) -> torch.Tensor:
+                           window: Optional[int] = None,
+                           nsplit: Optional[int] = None) -> torch.Tensor:
     """Attention of ``q`` [B, H, S_in, hd] against each slot's paged
     context.  ``k_pool``/``v_pool``: one layer's pool ``[num_blocks, Hkv,
     bs, hd]``, or its int8 ``(q8, scale [num_blocks, Hkv, bs] f32)``
@@ -307,8 +326,22 @@ def paged_decode_attention(q: torch.Tensor, k_pool: Any, v_pool: Any,
     CPU tensors take the plain version; CUDA tensors launch the kernel,
     which takes contiguous tensors (q and the pools 16-byte aligned), hd
     in {64, 128}, blocks of 16 positions, and bf16 or f32 (q and pool
-    alike) or an int8 pool."""
+    alike) or an int8 pool.
+
+    ``nsplit``: the decode rows' split count (:func:`check_nsplit`), for
+    the tuner; None (the default) keeps :func:`decode_splits`.  On the
+    CPU an explicit one runs the split schedule's plain version
+    (:func:`paged_decode_split_reference`; float pools)."""
+    B, H, S_in, _ = q.shape
+    kp = k_pool[0] if isinstance(k_pool, tuple) else k_pool
+    check_nsplit(nsplit, (H // kp.shape[1]) * S_in, tables.shape[1])
     if q.device.type == "cpu":
+        if nsplit is not None and not isinstance(k_pool, tuple):
+            return finalize_paged_carry(
+                paged_decode_split_reference(q, k_pool, v_pool, tables,
+                                             offsets, nsplit=nsplit,
+                                             window=window),
+                B, H, S_in, q.shape[-1], q.dtype)
         return paged_decode_attention_reference(q, k_pool, v_pool, tables,
                                                 offsets, window=window)
     _check(q.device.type == "cuda", f"unsupported device {q.device}")
@@ -347,7 +380,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: Any, v_pool: Any,
     out = torch.empty_like(q)
     R = (H // Hkv) * S_in
     nsplit, order, ws = _workspace(B, Hkv, R, hd, tables.shape[1],
-                                   q.device)
+                                   q.device, nsplit)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _kernel()(
@@ -452,7 +485,8 @@ def paged_carry_attention(q: torch.Tensor, k_pool: torch.Tensor,
                           v_pool: torch.Tensor, tables_local: torch.Tensor,
                           offsets, *, carry: Optional[Carry] = None,
                           window: Optional[int] = None,
-                          sm_scale: Optional[float] = None) -> Carry:
+                          sm_scale: Optional[float] = None,
+                          nsplit: Optional[int] = None) -> Carry:
     """One ring hop: accumulate ``q`` [B, H, S_in, hd] (rows at global
     positions ``offsets[b] + arange(S_in)``) against ONE rank's pool slice
     ``[nb, Hkv, bs, hd]`` through ``tables_local`` [B, max_blocks] int32
@@ -467,9 +501,17 @@ def paged_carry_attention(q: torch.Tensor, k_pool: torch.Tensor,
     takes contiguous tensors (q, the pools and the carry 16-byte
     aligned), bf16 or f32 (q and pool alike), hd in {64, 128} and blocks
     of 16 positions.  Int8 pools raise
-    NotImplementedError, as in the reference."""
+    NotImplementedError, as in the reference.  ``nsplit``: as for
+    :func:`paged_decode_attention` (on the CPU an explicit one runs
+    :func:`paged_decode_split_reference` after ``carry``)."""
     _no_int8(k_pool)
+    check_nsplit(nsplit, (q.shape[1] // k_pool.shape[1]) * q.shape[2],
+                 tables_local.shape[1], "paged_carry_attention")
     if q.device.type == "cpu":
+        if nsplit is not None:
+            return paged_decode_split_reference(
+                q, k_pool, v_pool, tables_local, offsets, nsplit=nsplit,
+                carry=carry, window=window, sm_scale=sm_scale)
         return paged_carry_attention_reference(
             q, k_pool, v_pool, tables_local, offsets, carry=carry,
             window=window, sm_scale=sm_scale)
@@ -510,7 +552,7 @@ def paged_carry_attention(q: torch.Tensor, k_pool: torch.Tensor,
                 for shape in shapes)
     cin = carry if carry is not None else (None, None, None)
     nsplit, order, ws = _workspace(B, Hkv, R, hd, tables_local.shape[1],
-                                   q.device)
+                                   q.device, nsplit)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _kernel("tdp_paged_carry_attention", _CARRY_ARGTYPES)(

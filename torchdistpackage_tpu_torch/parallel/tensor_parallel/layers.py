@@ -877,7 +877,39 @@ def init_block_params(gen: torch.Generator, cfg: TransformerConfig,
     return out
 
 
+def init_transformer_params(gen: torch.Generator, cfg: TransformerConfig,
+                            device=None) -> Params:
+    """The transformer family's tree (JAX :1064): ``blocks``, a list of
+    ``cfg.nlayers`` block dicts (:func:`init_block_params`), and
+    ``ln_f`` — what :func:`transformer_forward` takes.  ``device``
+    defaults to the card (``'meta'`` gives shapes and dtypes alone)."""
+    device = resolve_device(device)
+    return {"blocks": [init_block_params(gen, cfg, device)
+                       for _ in range(cfg.nlayers)],
+            "ln_f": init_norm_params(cfg.dim, cfg.dtype, cfg.norm, device)}
+
+
 # ------------------------------------------------------------------ specs
+
+
+def transformer_param_specs(cfg: TransformerConfig, axis: str = "tensor"
+                            ) -> Dict[str, object]:
+    """The transformer family's spec tree over the tensor axis ``axis``
+    (JAX :1126) in the port's PartitionSpec-like form: each leaf a tuple
+    of axis names, one entry a dim, ``axis`` on the leaf's
+    :data:`TP_SPLIT_DIMS` dim (:func:`param_specs` of the family's tree
+    on the ``meta`` device) and every other dim replicated.
+    ``dist.autoplan.plan_param_specs`` reads it."""
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    shapes = init_transformer_params(gen, cfg, device="meta")
+
+    def tup(leaf, spec):
+        entries = [None] * leaf.dim()
+        if isinstance(spec, int):
+            entries[spec % leaf.dim()] = axis
+        return tuple(entries)
+    return _zip_specs(tup, shapes, param_specs(shapes))
+
 
 #: The one table of tensor-parallel placement (the reference's
 #: ``block_param_specs`` / ``stacked_block_specs`` /
